@@ -1,0 +1,411 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port (``src/repro_torch``) on one CUDA card, end to end.
+
+    python3 chip_smoke.py
+
+Phases, each of which fails the run (non-zero exit) on any disagreement:
+
+1. the card's name and power limit, as ``nvidia-smi`` prints them;
+2. every CUDA kernel of the main path, built from ``src/repro_torch/
+   kernels/csrc`` on first use, against its plain PyTorch version on the
+   same CUDA tensors: n in {1, 31, 33, 32785, 100000, 620,756,992} (the
+   last is the glm4-9b unembedding), M in {1, 4, 7, 33} voters, bf16 and
+   float32; packed words, momentum and parameters must be bit-equal;
+3. the main path: Algorithm 1 on glm4-9b at every published width, cut to
+   2 layers (1,649,439,744 parameters), M = 4 voters, global batch 8,
+   seq 512, for 5 steps through ``make_train_step`` ->
+   ``materialize_state`` -> ``step_fn``, with random weights from a seeded
+   CUDA generator. Every loss must be finite, every step must launch each
+   kernel exactly as often as the step has leaves (momentum_sign_pack M
+   times as often), and step 0's update of the unembedding leaf must be
+   bit-equal to the plain versions recomputed from saved copies;
+4. each kernel timed at the unembedding shape (median of CUDA-event-timed
+   launches after warm-up) beside its plain version and its bound.
+
+It prints one JSON line per step, a ``{"kernels": [...]}`` line and, last,
+``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
+rest of the repository beside it, it exits non-zero and prints no result.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import math
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
+FP32_OPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
+N_UNEMBED = 151_552 * 4096  # elements of glm4-9b's unembedding leaf
+SIZES = (1, 31, 33, 32_785, 100_000, N_UNEMBED)
+VOTERS = (1, 4, 7, 33)
+M_MAIN, GLOBAL_BATCH, SEQ, STEPS, LR, BETA = 4, 8, 512, 5, 1e-3, 0.9
+SOURCE = "src/repro_torch/kernels/csrc/"
+
+
+def log(obj) -> None:
+    print(json.dumps(obj) if not isinstance(obj, str) else obj, flush=True)
+
+
+def max_abs_err(a, b) -> float:
+    import torch
+    if a.dtype in (torch.int32, torch.int64):
+        return float((a.long() - b.long()).abs().max()) if a.numel() else 0.0
+    return float((a.float() - b.float()).abs().max()) if a.numel() else 0.0
+
+
+def require_equal(what: str, got, want) -> float:
+    import torch
+    if got.shape != want.shape or got.dtype != want.dtype \
+            or not torch.equal(got, want):
+        raise AssertionError(
+            f"{what}: kernel disagrees with its plain version (max abs "
+            f"err {max_abs_err(got, want) if got.shape == want.shape else 'shape'})")
+    return max_abs_err(got, want)
+
+
+# ---------------------------------------------------------------------------
+# phase 2: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def check_kernels(torch, ops, ref, sc, dev) -> dict:
+    gen = torch.Generator(device=dev).manual_seed(1234)
+    err = {"momentum_sign_pack": 0.0, "majority": 0.0, "apply_vote": 0.0}
+    n_checks = 0
+    for n in SIZES:
+        w = sc.words_for(n)
+        for dtype in (torch.float32, torch.bfloat16):
+            g = torch.randn(n, generator=gen, device=dev).to(dtype)
+            m = torch.randn(n, generator=gen, device=dev)
+            g[::7], m[::7] = 0.0, 0.0          # m' = 0 -> bit +1
+            m[3::7], g[3::7] = -0.0, -0.0      # m' = -0 -> bit +1
+            m_k, p_k = ops.momentum_sign_pack(g, m, BETA)
+            m_r, p_r = ref.momentum_sign_pack(sc.pad_to_pack(g)[0],
+                                              sc.pad_to_pack(m)[0], BETA)
+            e = max(require_equal(f"momentum_sign_pack m' n={n} {dtype}",
+                                  m_k, m_r[:n]),
+                    require_equal(f"momentum_sign_pack words n={n} {dtype}",
+                                  p_k, p_r))
+            err["momentum_sign_pack"] = max(err["momentum_sign_pack"], e)
+            del g, m, m_k, p_k, m_r, p_r
+            p = torch.randn(n, generator=gen, device=dev).to(dtype)
+            votes = torch.randint(-2 ** 31, 2 ** 31, (w,), generator=gen,
+                                  device=dev, dtype=torch.int32)
+            for eta, wd in ((1e-3, 0.0), (1e-2, 0.1)):
+                got = ops.apply_vote(p, votes, eta, wd)
+                want = ref.apply_vote(sc.pad_to_pack(p)[0], votes, eta,
+                                      wd)[:n]
+                err["apply_vote"] = max(err["apply_vote"], require_equal(
+                    f"apply_vote n={n} {dtype} eta={eta} wd={wd}", got,
+                    want))
+                del got, want
+            del p, votes
+            n_checks += 3
+        for m_voters in VOTERS:
+            packed = torch.randint(-2 ** 31, 2 ** 31, (m_voters, w),
+                                   generator=gen, device=dev,
+                                   dtype=torch.int32)
+            err["majority"] = max(err["majority"], require_equal(
+                f"majority n={n} M={m_voters}", ops.majority(packed),
+                ref.majority(packed)))
+            del packed
+            n_checks += 1
+        torch.cuda.synchronize()
+    log({"phase": "kernels_vs_plain", "checks": n_checks, "max_abs_err": err})
+    return err
+
+
+# ---------------------------------------------------------------------------
+# phase 3: the main path at full width
+# ---------------------------------------------------------------------------
+
+
+def unembed_grads(torch, M, cfg, params, tokens, per):
+    """Each voter's unembedding gradient at `params`, by plain autograd."""
+    out = []
+    for r in range(M_MAIN):
+        leaves = dict(params)
+        leaves["unembed.table"] = params["unembed.table"].detach() \
+            .requires_grad_()
+        loss, _ = M.loss_fn(cfg, leaves,
+                            {"tokens": tokens[r * per:(r + 1) * per]})
+        out.append(torch.autograd.grad(loss, [leaves["unembed.table"]])[0])
+    return out
+
+
+def run_main_path(torch, cfg, dev) -> dict:
+    from repro_torch.configs.base import (OptimizerConfig, TrainConfig,
+                                          VoteStrategy)
+    from repro_torch.core import signum
+    from repro_torch.data.pipeline import SyntheticLMPipeline
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import model as M
+    from repro_torch.train import train_step as TS
+
+    tcfg = TrainConfig(global_batch=GLOBAL_BATCH, seq_len=SEQ,
+                       optimizer=OptimizerConfig(
+                           kind="signum_vote", learning_rate=LR,
+                           momentum=BETA,
+                           vote_strategy=VoteStrategy.ALLGATHER_1BIT))
+    n_params = cfg.param_count()
+    log({"phase": "main_path", "arch": cfg.name, "num_layers": cfg.num_layers,
+         "d_model": cfg.d_model, "vocab": cfg.vocab_size, "params": n_params,
+         "voters": M_MAIN, "global_batch": GLOBAL_BATCH, "seq": SEQ})
+    torch.cuda.reset_peak_memory_stats()
+    art = TS.make_train_step(cfg, tcfg, M_MAIN, device=dev)
+    params, opt_state = TS.materialize_state(
+        cfg, tcfg, art, torch.Generator(device=dev).manual_seed(0))
+    n_leaves = len(params)
+    pipe = SyntheticLMPipeline(cfg, GLOBAL_BATCH, SEQ, seed=0)
+    per = GLOBAL_BATCH // M_MAIN
+    want = {"momentum_sign_pack": M_MAIN * n_leaves, "majority": n_leaves,
+            "apply_vote": n_leaves}
+
+    ops.reset_launch_counts()
+    seen = ops.launch_counts()
+    step_ms = []
+    for step in range(STEPS):
+        tokens = torch.as_tensor(pipe.global_batch_at(step)["tokens"],
+                                 device=dev)
+        if step == 0:   # saved copies for the bit-exact check of step 0
+            p0 = params["unembed.table"].clone()
+            m0 = opt_state["momentum"]["unembed.table"].clone()
+            g0 = unembed_grads(torch, M, cfg, params, tokens, per)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt_state, met = art.step_fn(params, opt_state,
+                                             {"tokens": tokens}, step)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        loss = float(met["loss"])
+        counts = ops.launch_counts()
+        per_step = {k: counts[k] - seen[k] for k in counts}
+        seen = counts
+        log({"step": step, "loss": loss, "ms": ms, "launches": per_step})
+        if not math.isfinite(loss):
+            raise AssertionError(f"step {step}: loss {loss} is not finite")
+        if per_step != want:
+            raise AssertionError(f"step {step}: launches {per_step}, "
+                                 f"expected {want}")
+        step_ms.append(ms)
+        if step == 0:
+            check_step0(torch, ref, signum, tcfg, p0, m0, g0,
+                        params["unembed.table"],
+                        opt_state["momentum"]["unembed.table"])
+            del p0, m0, g0
+    launches = ops.launch_counts()   # read just after the main path
+    peak = torch.cuda.max_memory_allocated()
+    log({"max_memory_allocated_bytes": peak,
+         "max_memory_allocated_GiB": peak / 2 ** 30})
+    for k, v in want.items():
+        if launches[k] != STEPS * v:
+            raise AssertionError(f"{k}: {launches[k]} launches over the run, "
+                                 f"expected {STEPS * v}")
+    # step 0 carries the warm-up (cuBLAS handles, first launches)
+    profile_step(torch, art, params, opt_state, pipe, dev, n_params,
+                 statistics.median(step_ms[1:]))
+    del params, opt_state, art
+    torch.cuda.empty_cache()
+    return launches
+
+
+KERNEL_GROUPS = (("momentum_sign_pack", ("momentum_sign_pack_kernel",)),
+                 ("majority", ("majority_kernel",)),
+                 ("apply_vote", ("apply_vote_kernel",)),
+                 ("gemm", ("nvjet", "gemm", "xmma", "cutlass", "cublas")),
+                 ("elementwise", ("elementwise_kernel", "fillfunctor")),
+                 ("reduce_softmax", ("reduce_kernel", "softmax",
+                                     "logsumexp")))
+
+
+def profile_step(torch, art, params, opt_state, pipe, dev, n_params,
+                 unprofiled_ms: float) -> None:
+    """One more step under torch.profiler: device time by kernel group, the
+    device's idle share of an unprofiled step (the median of steps 1..4;
+    the profiler's own host cost stretches the profiled step's wall time),
+    and the three kernels' per-step time beside their per-step bounds over
+    all parameters."""
+    from torch.profiler import ProfilerActivity, profile
+    tokens = torch.as_tensor(pipe.global_batch_at(STEPS)["tokens"],
+                             device=dev)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        art.step_fn(params, opt_state, {"tokens": tokens}, STEPS)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    groups = {name: 0.0 for name, _ in KERNEL_GROUPS}
+    groups["other"] = 0.0
+    kernels = []
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        ms = e.self_device_time_total / 1e3
+        kernels.append((ms, e.count, e.key[:90]))
+        low = e.key.lower()
+        group = next((g for g, keys in KERNEL_GROUPS
+                      if any(k.lower() in low for k in keys)), "other")
+        groups[group] += ms
+    busy = sum(groups.values())
+    n = n_params
+    per_step_bound = {   # bytes over all leaves, M voters, bf16 params
+        "momentum_sign_pack": M_MAIN * n * 10.125 / HBM_BYTES_PER_S * 1e3,
+        "majority": (M_MAIN + 1) * n / 8 / HBM_BYTES_PER_S * 1e3,
+        "apply_vote": n * 4.125 / HBM_BYTES_PER_S * 1e3}
+    log({"phase": "profiled_step", "profiled_wall_ms": wall_ms,
+         "unprofiled_step_ms": unprofiled_ms, "device_busy_ms": busy,
+         "device_idle_share": (1 - busy / unprofiled_ms) if busy else None,
+         "device_ms_by_group": groups,
+         "kernel_ms_per_step": {k: groups[k] for k in per_step_bound},
+         "kernel_bound_ms_per_step": per_step_bound,
+         "top_kernels": [{"ms": ms, "count": c, "name": k} for ms, c, k
+                         in sorted(kernels, reverse=True)[:12]]})
+
+
+def check_step0(torch, ref, signum, tcfg, p0, m0, g0, p1, m1) -> None:
+    """Step 0 on the unembedding leaf, recomputed with the plain versions
+    from the saved parameters, momentum and gradients: bit-equal."""
+    packed = []
+    for r in range(M_MAIN):
+        m_ref, words = ref.momentum_sign_pack(g0[r].view(1, -1),
+                                              m0[r].view(1, -1), BETA)
+        require_equal(f"step 0 momentum of voter {r}", m1[r].view(1, -1),
+                      m_ref)
+        packed.append(words[0])
+        del m_ref
+    votes = ref.majority(torch.stack(packed))
+    eta = signum.lr_at(tcfg.optimizer, 0)
+    p_ref = ref.apply_vote(p0.view(1, -1), votes[None], eta,
+                           tcfg.optimizer.weight_decay)
+    require_equal("step 0 parameters", p1.view(1, -1), p_ref)
+    log({"phase": "step0_unembed_bit_equal", "ok": True})
+
+
+# ---------------------------------------------------------------------------
+# phase 4: timing at the unembedding shape
+# ---------------------------------------------------------------------------
+
+
+def median_ms(torch, fn, reps: int, warmup: int = 3) -> float:
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def bound(bytes_moved: float, ops_done: float) -> tuple:
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = ops_done / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def time_kernels(torch, ops, ref, sc, dev, launches, errs) -> list:
+    gen = torch.Generator(device=dev).manual_seed(99)
+    n, w = N_UNEMBED, sc.words_for(N_UNEMBED)
+    rows = []
+
+    def row(name, replaces, ms, plain, bytes_moved, ops_done, source):
+        b, by = bound(bytes_moved, ops_done)
+        rows.append({"name": name, "route": "cuda", "source": SOURCE + source,
+                     "replaces": replaces, "launches": launches[name],
+                     "max_abs_err": errs[name], "max_diff": errs[name],
+                     "ms": ms, "plain_ms": plain, "bound_ms": b,
+                     "bound_by": by, "library_ms": None,
+                     "shape": {"n": n, "voters": M_MAIN}})
+
+    g = torch.randn(n, generator=gen, device=dev).to(torch.bfloat16)
+    m = torch.randn(n, generator=gen, device=dev)
+    words = torch.empty(w, dtype=torch.int32, device=dev)
+    ms = median_ms(torch, lambda: ops.momentum_sign_pack(
+        g, m, BETA, m_out=m, packed_out=words), reps=25)
+    plain = median_ms(torch, lambda: ref.momentum_sign_pack(
+        g.view(1, -1), m.view(1, -1), BETA), reps=5, warmup=1)
+    # g bf16 read, m read and written, one bit out; 2 mul + 1 add
+    row("momentum_sign_pack", "src/repro/kernels/signum_update.py:46", ms,
+        plain, n * (2 + 4 + 4) + w * 4, 3 * n, "signum_update.cu")
+    del g, m, words
+
+    packed = torch.randint(-2 ** 31, 2 ** 31, (M_MAIN, w), generator=gen,
+                           device=dev, dtype=torch.int32)
+    out = torch.empty(w, dtype=torch.int32, device=dev)
+    ms = median_ms(torch, lambda: ops.majority(packed, out=out), reps=25)
+    plain = median_ms(torch, lambda: ref.majority(packed), reps=5, warmup=1)
+    # M words read and one written per output word; an add per voter and bit
+    row("majority", "src/repro/kernels/vote.py:37", ms, plain,
+        (M_MAIN + 1) * w * 4, M_MAIN * n, "vote.cu")
+    del packed, out
+
+    p = torch.randn(n, generator=gen, device=dev).to(torch.bfloat16)
+    votes = torch.randint(-2 ** 31, 2 ** 31, (w,), generator=gen, device=dev,
+                          dtype=torch.int32)
+    ms = median_ms(torch, lambda: ops.apply_vote(p, votes, LR, 0.0, out=p),
+                   reps=25)
+    plain = median_ms(torch, lambda: ref.apply_vote(
+        p.view(1, -1), votes[None], LR, 0.0), reps=5, warmup=1)
+    # p bf16 read and written, one vote bit; mul, add, mul, sub
+    row("apply_vote", "src/repro/kernels/signum_update.py:79", ms, plain,
+        n * (2 + 2) + w * 4, 4 * n, "signum_update.cu")
+    return rows
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, os.path.join(here, "src"))
+    import repro_torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.core import sign_compress as sc
+    from repro_torch.kernels import build, ops, ref
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], check=True, capture_output=True,
+        text=True).stdout.strip()
+    log(smi)
+    dev = repro_torch.resolve_device()
+    log({"torch": torch.__version__, "cuda": torch.version.cuda,
+         "python": sys.version.split()[0],
+         "device": torch.cuda.get_device_name(0)})
+
+    t0 = time.perf_counter()
+    build.library("vote")
+    log({"phase": "build", "seconds": time.perf_counter() - t0})
+    for name, out in build.BUILD_LOG.items():
+        for line in out.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"ptxas {name}: {line.strip()}")
+
+    errs = check_kernels(torch, ops, ref, sc, dev)
+    # every published width of glm4-9b; depth cut to 2 layers
+    cfg = dataclasses.replace(get_config("glm4-9b"), num_layers=2)
+    launches = run_main_path(torch, cfg, dev)
+    rows = time_kernels(torch, ops, ref, sc, dev, launches, errs)
+    log({"phase": "done", "seconds": time.perf_counter() - t_start})
+    log({"kernels": rows})
+    log({"ok": True, "device": {"platform": "gpu",
+                                "kind": torch.cuda.get_device_name(0),
+                                "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

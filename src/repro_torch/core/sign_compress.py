@@ -1,0 +1,78 @@
+"""Sign extraction and 1-bit packing (plain PyTorch; ``repro.core.sign_compress``).
+
+Only what the kernels' plain versions need: the binary sign of the 1-bit
+wire (``x >= 0 -> +1``, DESIGN.md §5), zero-padding to the pack width,
+pack/unpack and the bit-sliced majority.
+
+Packing is 32 signs per word, little-endian within the word: bit j of word
+k is ``x[32k + j] >= 0``. Words are carried as **int32 bit patterns**
+(PyTorch has no shifts on uint32 tensors on the CPU); bit 31 is the sign
+bit, and every right shift is masked with ``& 1`` so the arithmetic shift
+never leaks. View them as ``np.uint32`` only at the numpy boundary.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+
+PACK = 32
+WORD_DTYPE = torch.int32
+
+
+def sign_binary(x: torch.Tensor) -> torch.Tensor:
+    """``x >= 0 -> +1`` else ``-1``, as int8 (ties go to +1)."""
+    return torch.where(x >= 0, 1, -1).to(torch.int8)
+
+
+def pad_to_pack(flat: torch.Tensor, multiple: int = PACK
+                ) -> Tuple[torch.Tensor, int]:
+    """Zero-pad a 1-D tensor to a multiple; returns (padded, original_len).
+
+    Zero padding packs as +1 bits (sign(0) = +1)."""
+    n = flat.shape[0]
+    rem = (-n) % multiple
+    if rem:
+        flat = F.pad(flat, (0, rem))
+    return flat, n
+
+
+def words_for(n: int) -> int:
+    """Packed words holding n signs."""
+    return -(-n // PACK)
+
+
+def pack_signs(x: torch.Tensor) -> torch.Tensor:
+    """x (..., n) real, n % 32 == 0 -> int32 words (..., n // 32)."""
+    if x.shape[-1] % PACK != 0:
+        raise ValueError(
+            f"pack_signs needs last dim % {PACK} == 0, got shape "
+            f"{tuple(x.shape)}; pad with pad_to_pack first")
+    bits = (x >= 0).reshape(x.shape[:-1] + (x.shape[-1] // PACK, PACK))
+    acc = torch.zeros(bits.shape[:-1], dtype=WORD_DTYPE, device=x.device)
+    for j in range(PACK):   # one strided pass per bit: no (.., w, 32) int temp
+        acc |= bits[..., j].to(WORD_DTYPE) << j
+    return acc
+
+
+def unpack_signs(packed: torch.Tensor, dtype=torch.int8) -> torch.Tensor:
+    """int32 words (..., w) -> (..., 32 * w) of ±1 in `dtype`."""
+    shifts = torch.arange(PACK, dtype=WORD_DTYPE, device=packed.device)
+    bits = (packed[..., None] >> shifts) & 1
+    signs = torch.where(bits == 1, 1, -1).to(dtype)
+    return signs.reshape(packed.shape[:-1] + (packed.shape[-1] * PACK,))
+
+
+def packed_majority(packed: torch.Tensor) -> torch.Tensor:
+    """(M, w) packed votes -> (w,) packed majority.
+
+    Bit-sliced: for each bit position count set bits across the M voters;
+    the majority bit is ``2 * count >= M`` (ties -> +1, as sign_binary)."""
+    m = packed.shape[0]
+    acc = torch.zeros(packed.shape[1:], dtype=WORD_DTYPE,
+                      device=packed.device)
+    for j in range(PACK):
+        count = ((packed >> j) & 1).sum(dim=0)
+        acc |= (2 * count >= m).to(WORD_DTYPE) << j
+    return acc

@@ -1,0 +1,164 @@
+"""Wrappers around the CUDA kernels (``repro.kernels.ops``).
+
+Each wrapper takes flat tensors of any length (the kernels need no tile
+padding: the last packed word is completed inside the kernel) and
+dispatches on the device of its input:
+
+* a CPU tensor goes to the plain PyTorch version in :mod:`.ref`,
+  zero-padded to the pack width and cropped back;
+* a CUDA tensor launches the hand-written kernel on the current stream,
+  or raises. It never falls back to the plain version.
+
+Packed words are int32 bit patterns (bit j of word k is element 32k + j).
+The padding bits of the last word are 1 (sign(0) = +1) on both paths.
+
+``launch_counts()`` reports, under the reference's names, how many times
+each kernel was launched on a card since ``reset_launch_counts()``; CPU
+calls do not count.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.core import sign_compress as sc
+from repro_torch.kernels import build, ref
+
+WORD = sc.WORD_DTYPE
+
+_COUNTS: Dict[str, int] = {"momentum_sign_pack": 0, "majority": 0,
+                           "apply_vote": 0}
+_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+
+def launch_counts() -> Dict[str, int]:
+    return dict(_COUNTS)
+
+
+def reset_launch_counts() -> None:
+    for name in _COUNTS:
+        _COUNTS[name] = 0
+
+
+def _check(t: torch.Tensor, what: str, *, ndim: int, dtypes,
+           device: torch.device) -> None:
+    if t.dim() != ndim:
+        raise ValueError(f"{what} must be {ndim}-D, got shape "
+                         f"{tuple(t.shape)}")
+    if t.dtype not in dtypes:
+        raise TypeError(f"{what} must be one of {list(dtypes)}, got "
+                        f"{t.dtype}")
+    if t.device != device:
+        raise ValueError(f"{what} is on {t.device}, expected {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{what} must be contiguous")
+
+
+def _on_card(t: torch.Tensor) -> bool:
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"unsupported device {t.device}")
+
+
+def _launch(lib: str, fn: str, *args) -> None:
+    status = getattr(build.library(lib), fn)(*args)
+    build.check(status, fn)
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def momentum_sign_pack(g: torch.Tensor, m: torch.Tensor, beta: float, *,
+                       m_out: Optional[torch.Tensor] = None,
+                       packed_out: Optional[torch.Tensor] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Flat g (n,) f32/bf16 and m (n,) f32 -> (m' (n,) f32, packed
+    (ceil(n/32),) int32) with m' = beta*m + (1-beta)*g.
+
+    `m_out` (may be `m` itself, for an in-place update) and `packed_out`
+    receive the results when given."""
+    dev = g.device
+    _check(g, "g", ndim=1, dtypes=_SUFFIX, device=dev)
+    _check(m, "m", ndim=1, dtypes=(torch.float32,), device=dev)
+    n = g.shape[0]
+    if m.shape[0] != n:
+        raise ValueError(f"g and m lengths differ: {n} vs {m.shape[0]}")
+    w = sc.words_for(n)
+    if m_out is None:
+        m_out = torch.empty_like(m)
+    if packed_out is None:
+        packed_out = torch.empty(w, dtype=WORD, device=dev)
+    _check(m_out, "m_out", ndim=1, dtypes=(torch.float32,), device=dev)
+    _check(packed_out, "packed_out", ndim=1, dtypes=(WORD,), device=dev)
+    if m_out.shape[0] != n or packed_out.shape[0] != w:
+        raise ValueError(f"outputs must be ({n},) and ({w},), got "
+                         f"{tuple(m_out.shape)} and {tuple(packed_out.shape)}")
+    if not _on_card(g):
+        m_new, packed = ref.momentum_sign_pack(
+            sc.pad_to_pack(g)[0], sc.pad_to_pack(m)[0], beta)
+        m_out.copy_(m_new[:n])
+        packed_out.copy_(packed)
+        return m_out, packed_out
+    # ctypes rounds each double to float32; 1 - beta is folded in double
+    # first, as the plain version (and JAX) fold the Python constant
+    _launch("signum_update", f"momentum_sign_pack_{_SUFFIX[g.dtype]}",
+            g.data_ptr(), m.data_ptr(), m_out.data_ptr(),
+            packed_out.data_ptr(), n, float(beta), 1.0 - float(beta),
+            _stream(g))
+    _COUNTS["momentum_sign_pack"] += 1
+    return m_out, packed_out
+
+
+def majority(packed: torch.Tensor, *, out: Optional[torch.Tensor] = None
+             ) -> torch.Tensor:
+    """(M, w) int32 packed votes -> (w,) packed majority (ties -> +1)."""
+    dev = packed.device
+    _check(packed, "packed", ndim=2, dtypes=(WORD,), device=dev)
+    m, w = packed.shape
+    if m < 1:
+        raise ValueError("majority needs at least one voter")
+    if out is None:
+        out = torch.empty(w, dtype=WORD, device=dev)
+    _check(out, "out", ndim=1, dtypes=(WORD,), device=dev)
+    if out.shape[0] != w:
+        raise ValueError(f"out must be ({w},), got {tuple(out.shape)}")
+    if not _on_card(packed):
+        return out.copy_(ref.majority(packed))
+    _launch("vote", "majority_packed", packed.data_ptr(), out.data_ptr(), m,
+            w, _stream(packed))
+    _COUNTS["majority"] += 1
+    return out
+
+
+def apply_vote(p: torch.Tensor, votes: torch.Tensor, eta: float,
+               weight_decay: float, *, out: Optional[torch.Tensor] = None
+               ) -> torch.Tensor:
+    """Flat p (n,) f32/bf16, votes (ceil(n/32),) int32 packed -> updated p:
+    p - eta*(unpack(votes) + weight_decay*p) in float32, cast back.
+
+    `out` (may be `p` itself, for an in-place update) receives the result
+    when given."""
+    dev = p.device
+    _check(p, "p", ndim=1, dtypes=_SUFFIX, device=dev)
+    _check(votes, "votes", ndim=1, dtypes=(WORD,), device=dev)
+    n = p.shape[0]
+    if votes.shape[0] != sc.words_for(n):
+        raise ValueError(f"votes must hold {sc.words_for(n)} words for "
+                         f"{n} elements, got {votes.shape[0]}")
+    if out is None:
+        out = torch.empty_like(p)
+    _check(out, "out", ndim=1, dtypes=(p.dtype,), device=dev)
+    if out.shape[0] != n:
+        raise ValueError(f"out must be ({n},), got {tuple(out.shape)}")
+    if not _on_card(p):
+        new = ref.apply_vote(sc.pad_to_pack(p)[0], votes, eta, weight_decay)
+        return out.copy_(new[:n])
+    _launch("signum_update", f"apply_vote_{_SUFFIX[p.dtype]}", p.data_ptr(),
+            votes.data_ptr(), out.data_ptr(), n, float(eta),
+            float(weight_decay), _stream(p))
+    _COUNTS["apply_vote"] += 1
+    return out

@@ -1,0 +1,39 @@
+"""Plain PyTorch versions of the three CUDA kernels (``repro.kernels.ref``).
+
+They define the exact semantics the kernels reproduce. ``ops`` runs them
+for tensors on the CPU; ``chip_smoke.py`` holds each kernel against them
+on the card, bit for bit. Nothing on the main path calls them when a card
+is present.
+
+Arithmetic follows the JAX oracles operation by operation: Python-float
+scalars become float32 (``1 - beta`` is folded in double first, as JAX
+folds the constant), and every product and sum is rounded on its own,
+never fused.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import sign_compress as sc
+
+
+def momentum_sign_pack(g: torch.Tensor, m: torch.Tensor, beta: float
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """SIGNUM worker-side hot loop: m' = beta*m + (1-beta)*g;
+    packed = pack(m' >= 0). g/m (..., 32*w). Returns (m', packed)."""
+    m_new = beta * m + (1.0 - beta) * g.to(m.dtype)
+    return m_new, sc.pack_signs(m_new)
+
+
+def majority(packed: torch.Tensor) -> torch.Tensor:
+    """(M, w) packed -> (w,) packed majority (ties -> +1)."""
+    return sc.packed_majority(packed)
+
+
+def apply_vote(p: torch.Tensor, votes_packed: torch.Tensor, eta: float,
+               weight_decay: float) -> torch.Tensor:
+    """x <- x - eta*(unpack(vote) + lambda*x) in float32, cast back;
+    p (..., 32*w), votes_packed (..., w)."""
+    v = sc.unpack_signs(votes_packed, torch.float32)
+    p32 = p.to(torch.float32)
+    return (p32 - eta * (v + weight_decay * p32)).to(p.dtype)

@@ -1,0 +1,178 @@
+"""Shared layers: RMSNorm, RoPE, GQA attention, SwiGLU MLP, embedding and
+cross-entropy (``repro.models.layers``; causal, no-window, no-cache path).
+
+Plain functions on tensors; parameters arrive as slices of the flat
+stacked-parameter dict. Compute dtype follows the inputs (bf16 by default);
+normalisation statistics, attention scores and softmax, and the loss run in
+float32, with the casts where the JAX package places them, so the numerics
+stay comparable. Autograd gives every backward: none of these is a kernel.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+Q_CHUNK = 1024  # the reference chunks queries above this length (not ported)
+
+
+# ---------------------------------------------------------------------------
+# norms
+# ---------------------------------------------------------------------------
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6
+             ) -> torch.Tensor:
+    """RMSNorm: float32 sum of squares; ``inv`` is cast to x's dtype before
+    ``x * inv * scale``."""
+    x32 = x.to(torch.float32)
+    inv = torch.rsqrt((x32 * x32).sum(-1) / x.shape[-1] + eps)
+    return x * inv.to(x.dtype)[..., None] * scale.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# positions
+# ---------------------------------------------------------------------------
+
+
+def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """positions (...,) int -> cos/sin (..., head_dim//2) float32."""
+    half = head_dim // 2
+    exps = torch.arange(half, dtype=torch.float32,
+                        device=positions.device) / half
+    freqs = 1.0 / (theta ** exps)
+    angles = positions.to(torch.float32)[..., None] * freqs
+    return torch.cos(angles), torch.sin(angles)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
+               ) -> torch.Tensor:
+    """x (..., S, H, D); cos/sin (..., S, D//2) broadcast over heads.
+    Half-split (not interleaved), computed in float32."""
+    dtype = x.dtype
+    x1, x2 = x.to(torch.float32).chunk(2, dim=-1)
+    c = cos[..., None, :]
+    s = sin[..., None, :]
+    out = torch.cat([x1 * c - x2 * s, x1 * s + x2 * c], dim=-1)
+    return out.to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# attention core
+# ---------------------------------------------------------------------------
+
+
+def _scores_softmax_out(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        mask: Optional[torch.Tensor], scale: float
+                        ) -> torch.Tensor:
+    """The reference's "grouped" form. q (B,S,K,G,D), k/v (B,T,K,D), mask
+    broadcastable to (B,K,G,S,T). Scores and softmax in float32; probs
+    are cast to v's dtype before PV."""
+    scores = torch.einsum("bskgd,btkd->bkgst", q.to(torch.float32),
+                          k.to(torch.float32)) * scale
+    if mask is not None:
+        scores = scores.masked_fill(~mask,
+                                    torch.finfo(torch.float32).min)
+    probs = torch.softmax(scores, dim=-1)
+    return torch.einsum("bkgst,btkd->bskgd", probs.to(v.dtype), v)
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              q_positions: Optional[torch.Tensor] = None,
+              kv_positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Exact causal attention with GQA grouping, written as plain products
+    (the reference's ``attention(..., causal=True)``). Bidirectional,
+    sliding-window and cached attention are not ported yet (ROADMAP.md
+    Queue 1 item 11).
+
+    q: (B, S, H, D); k/v: (B, T, K, D) with H = K * G. Returns (B, S, H, D).
+    """
+    B, S, H, D = q.shape
+    T, K = k.shape[1], k.shape[2]
+    if S > Q_CHUNK and S % Q_CHUNK == 0:
+        raise NotImplementedError(
+            f"query chunking (S={S} > {Q_CHUNK}, S % {Q_CHUNK} == 0) is not "
+            "ported yet (ROADMAP.md Queue 1 item 11)")
+    G = H // K
+    if q_positions is None:
+        q_positions = torch.arange(S, device=q.device)
+    if kv_positions is None:
+        kv_positions = torch.arange(T, device=q.device)
+    mask = (q_positions[:, None] - kv_positions[None, :]) >= 0    # (S, T)
+    out = _scores_softmax_out(q.reshape(B, S, K, G, D), k, v, mask,
+                              D ** -0.5)
+    return out.reshape(B, S, H, D)
+
+
+# ---------------------------------------------------------------------------
+# attention block (projection + rope + core + output)
+# ---------------------------------------------------------------------------
+
+
+def attn_project_qkv(p: dict, prefix: str, x: torch.Tensor, num_heads: int,
+                     num_kv_heads: int, head_dim: int, *, bias: bool
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    B, S, _ = x.shape
+    q = x @ p[f"{prefix}_wq"]
+    k = x @ p[f"{prefix}_wk"]
+    v = x @ p[f"{prefix}_wv"]
+    if bias:
+        q = q + p[f"{prefix}_bq"]
+        k = k + p[f"{prefix}_bk"]
+        v = v + p[f"{prefix}_bv"]
+    q = q.reshape(B, S, num_heads, head_dim)
+    k = k.reshape(B, S, num_kv_heads, head_dim)
+    v = v.reshape(B, S, num_kv_heads, head_dim)
+    return q, k, v
+
+
+def self_attention_block(
+    p: dict, prefix: str, x: torch.Tensor, cfg, *,
+    positions: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """Causal self-attention sublayer with RoPE (no residual).
+    Returns (out, (k, v))."""
+    B, S, _ = x.shape
+    H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    q, k, v = attn_project_qkv(p, prefix, x, H, K, hd, bias=cfg.qkv_bias)
+    if positions is None:
+        positions = torch.arange(S, device=x.device)
+    if cfg.rope_theta:
+        cos, sin = rope_cos_sin(positions, hd, cfg.rope_theta)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+    out = attention(q, k, v, q_positions=positions, kv_positions=positions)
+    out = out.reshape(B, S, H * hd) @ p[f"{prefix}_wo"]
+    return out, (k, v)
+
+
+# ---------------------------------------------------------------------------
+# MLP
+# ---------------------------------------------------------------------------
+
+
+def swiglu_mlp(p: dict, prefix: str, x: torch.Tensor) -> torch.Tensor:
+    gate = x @ p[f"{prefix}_w_gate"]
+    up = x @ p[f"{prefix}_w_up"]
+    return (F.silu(gate) * up) @ p[f"{prefix}_w_down"]
+
+
+# ---------------------------------------------------------------------------
+# embedding / loss
+# ---------------------------------------------------------------------------
+
+
+def embed_tokens(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    return F.embedding(tokens, table)
+
+
+def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor
+                       ) -> torch.Tensor:
+    """Mean next-token CE; logits (B,S,V) bf16/f32, targets (B,S) int.
+    float32 logsumexp; the gradient reaches the logits in their dtype."""
+    lf = logits.to(torch.float32)
+    logz = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, targets[..., None].long())[..., 0]
+    return torch.mean(logz - gold)

@@ -1,0 +1,180 @@
+"""Parity of the port's kernel wrappers (plain path, CPU) with the JAX
+package's kernels, run as ``tests/test_kernels.py`` runs them: through
+``repro.kernels.ops`` in interpret mode. Inputs come from numpy seeds;
+packed words are compared as uint32."""
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.configs.base import get_config, reduced_config  # noqa: E402
+from repro.core import sign_compress as jsc  # noqa: E402
+from repro.data.pipeline import SyntheticLMPipeline  # noqa: E402
+from repro.kernels import ops as jops  # noqa: E402
+from repro_torch.configs.base import get_config as t_get_config  # noqa: E402
+from repro_torch.configs.base import reduced_config as t_reduced  # noqa: E402
+from repro_torch.core import sign_compress as tsc  # noqa: E402
+from repro_torch.data.pipeline import SyntheticLMPipeline as TPipe  # noqa: E402
+from repro_torch.kernels import ops as tops  # noqa: E402
+from repro_torch.kernels import ref as tref  # noqa: E402
+
+SIZES = [1, 31, 32, 33, 4096, 32768, 32785, 100_000]
+
+
+def _rng(*salt):
+    return np.random.default_rng([11, *salt])
+
+
+def _words(t):
+    """int32 bit patterns -> uint32 numpy."""
+    return t.numpy().view(np.uint32)
+
+
+def _bf16_exact(x):
+    """float32 values that bf16 holds exactly (so both frameworks start
+    from the same bf16 numbers)."""
+    return np.array(jnp.asarray(x).astype(jnp.bfloat16).astype(jnp.float32))
+
+
+@pytest.mark.parametrize("beta", [0.9, 0.99])
+@pytest.mark.parametrize("gdtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n", SIZES)
+def test_momentum_sign_pack_matches_jax(n, gdtype, beta):
+    rng = _rng(n, round(beta * 100))
+    g = rng.normal(size=n).astype(np.float32)
+    m = rng.normal(size=n).astype(np.float32)
+    m[::7] = 0.0      # exact zeros: m' = 0 where g is 0 too -> bit +1
+    g[::7] = 0.0
+    if gdtype == "bfloat16":
+        g = _bf16_exact(g)
+    jg = jnp.asarray(g).astype(gdtype)
+    jm_new, jpacked = jops.momentum_sign_pack(jg, jnp.asarray(m), beta)
+    tg = torch.from_numpy(g).to(getattr(torch, gdtype))
+    tm_new, tpacked = tops.momentum_sign_pack(tg, torch.from_numpy(m), beta)
+    assert tpacked.dtype == torch.int32 and tpacked.shape == (-(-n // 32),)
+    np.testing.assert_array_equal(_words(tpacked), np.asarray(jpacked))
+    # the reference's own tolerance (tests/test_kernels.py:63-65): XLA may
+    # contract beta*m + (1-beta)*g into an FMA, the port never does
+    np.testing.assert_allclose(tm_new.numpy(), np.asarray(jm_new),
+                               rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("m", [1, 2, 3, 7, 16, 33])
+@pytest.mark.parametrize("w", [1, 511, 512, 700])
+def test_majority_matches_jax(m, w):
+    p = _rng(m, w).integers(0, 2 ** 32, size=(m, w), dtype=np.uint32)
+    expect = np.asarray(jops.majority(jnp.asarray(p)))
+    got = tops.majority(torch.from_numpy(p.view(np.int32)))
+    np.testing.assert_array_equal(_words(got), expect)
+
+
+@pytest.mark.parametrize("pdtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("eta,wd", [(1e-3, 0.0), (1e-2, 0.1)])
+def test_apply_vote_matches_jax(eta, wd, pdtype):
+    n = 50_016 + 5   # ragged: the last word is part padding
+    rng = _rng(round(eta * 1e4), round(wd * 10))
+    p = rng.normal(size=n).astype(np.float32)
+    if pdtype == "bfloat16":
+        p = _bf16_exact(p)
+    votes = rng.integers(0, 2 ** 32, size=-(-n // 32), dtype=np.uint32)
+    expect = jops.apply_vote(jnp.asarray(p).astype(pdtype),
+                             jnp.asarray(votes), eta, wd)
+    got = tops.apply_vote(torch.from_numpy(p).to(getattr(torch, pdtype)),
+                          torch.from_numpy(votes.view(np.int32)), eta, wd)
+    np.testing.assert_allclose(got.to(torch.float32).numpy(),
+                               np.asarray(expect.astype(jnp.float32)),
+                               rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("n", [32, 96, 1000])
+def test_sign_compress_matches_jax(n):
+    rng = _rng(n)
+    x = rng.normal(size=(3, n)).astype(np.float32)
+    x[:, ::5] = 0.0
+    x[:, 1::5] = -0.0
+    np.testing.assert_array_equal(
+        tsc.sign_binary(torch.from_numpy(x)).numpy(),
+        np.asarray(jsc.sign_binary(jnp.asarray(x))))
+    flat, n0 = tsc.pad_to_pack(torch.from_numpy(x[0]))
+    assert n0 == n and flat.shape[0] % 32 == 0
+    np.testing.assert_array_equal(flat[:n].numpy(), x[0])
+    xp = x[:, : n - n % 32]
+    words = tsc.pack_signs(torch.from_numpy(xp))
+    jwords = jsc.pack_signs(jnp.asarray(xp))
+    np.testing.assert_array_equal(_words(words), np.asarray(jwords))
+    np.testing.assert_array_equal(
+        tsc.unpack_signs(words, torch.float32).numpy(),
+        np.asarray(jsc.unpack_signs(jwords, jnp.float32)))
+    np.testing.assert_array_equal(_words(tsc.packed_majority(words)),
+                                  np.asarray(jsc.packed_majority(jwords)))
+
+
+def test_padding_bits_are_plus_one():
+    """The last word's bits past n are 1 (sign(0) = +1), as zero padding
+    makes them in the reference."""
+    g = -torch.ones(33)
+    _, packed = tops.momentum_sign_pack(g, torch.zeros(33), 0.9)
+    assert _words(packed).tolist() == [0, 0xFFFFFFFE]
+
+
+def test_plain_path_in_place_and_uncounted():
+    tops.reset_launch_counts()
+    rng = _rng(5)
+    g = torch.from_numpy(rng.normal(size=100).astype(np.float32))
+    m = torch.from_numpy(rng.normal(size=100).astype(np.float32))
+    expect_m, expect_p = tref.momentum_sign_pack(
+        tsc.pad_to_pack(g)[0], tsc.pad_to_pack(m)[0], 0.9)
+    words = torch.empty((2, 4), dtype=torch.int32)
+    m_new, packed = tops.momentum_sign_pack(g, m, 0.9, m_out=m,
+                                            packed_out=words[1])
+    assert m_new.data_ptr() == m.data_ptr()
+    assert packed.data_ptr() == words[1].data_ptr()
+    assert torch.equal(m, expect_m[:100]) and torch.equal(words[1], expect_p)
+    p = torch.from_numpy(rng.normal(size=100).astype(np.float32))
+    expect = tref.apply_vote(tsc.pad_to_pack(p)[0], packed, 1e-2, 0.1)[:100]
+    out = tops.apply_vote(p, packed, 1e-2, 0.1, out=p)
+    assert out.data_ptr() == p.data_ptr() and torch.equal(p, expect)
+    assert tops.launch_counts() == {"momentum_sign_pack": 0, "majority": 0,
+                                    "apply_vote": 0}
+
+
+@pytest.mark.parametrize("case", ["g_2d", "m_bf16", "len", "words_int64",
+                                  "noncontig", "votes_len", "no_voters"])
+def test_wrappers_reject_bad_inputs(case):
+    g, m = torch.zeros(64), torch.zeros(64)
+    with pytest.raises((ValueError, TypeError)):
+        if case == "g_2d":
+            tops.momentum_sign_pack(g.reshape(2, 32), m, 0.9)
+        elif case == "m_bf16":
+            tops.momentum_sign_pack(g, m.to(torch.bfloat16), 0.9)
+        elif case == "len":
+            tops.momentum_sign_pack(g, torch.zeros(65), 0.9)
+        elif case == "words_int64":
+            tops.majority(torch.zeros((2, 3), dtype=torch.int64))
+        elif case == "noncontig":
+            tops.apply_vote(torch.zeros(128)[::2], torch.zeros(2, dtype=torch.int32),
+                            1e-3, 0.0)
+        elif case == "votes_len":
+            tops.apply_vote(g, torch.zeros(3, dtype=torch.int32), 1e-3, 0.0)
+        else:
+            tops.majority(torch.zeros((0, 3), dtype=torch.int32))
+
+
+@pytest.mark.parametrize("split", ["global", "replica"])
+def test_pipeline_tokens_equal(split):
+    cfg = reduced_config(get_config("glm4-9b"))
+    tcfg = t_reduced(t_get_config("glm4-9b"))
+    assert dataclasses.asdict(tcfg) == dataclasses.asdict(cfg)
+    ref_pipe = SyntheticLMPipeline(cfg, 8, 64, seed=3)
+    port_pipe = TPipe(tcfg, 8, 64, seed=3)
+    for step in (0, 7):
+        if split == "global":
+            a = ref_pipe.global_batch_at(step)["tokens"]
+            b = port_pipe.global_batch_at(step)["tokens"]
+        else:
+            a = ref_pipe.replica_batch(step, 2, 4)["tokens"]
+            b = port_pipe.replica_batch(step, 2, 4)["tokens"]
+        np.testing.assert_array_equal(a, b)
