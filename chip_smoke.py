@@ -6,25 +6,37 @@
 Phases, each of which fails the run (non-zero exit) on any disagreement:
 
 1. the card's name and power limit, as ``nvidia-smi`` prints them;
-2. every CUDA kernel of the main path, built from ``src/repro_torch/
-   kernels/csrc`` on first use, against its plain PyTorch version on the
-   same CUDA tensors: n in {1, 31, 33, 32785, 100000, 620,756,992} (the
-   last is the glm4-9b unembedding), M in {1, 4, 7, 33} voters, bf16 and
-   float32; packed words, momentum and parameters must be bit-equal;
-3. the main path: Algorithm 1 on glm4-9b at every published width, cut to
-   2 layers (1,649,439,744 parameters), M = 4 voters, global batch 8,
-   seq 512, for 5 steps through ``make_train_step`` ->
+2. every CUDA kernel, built from ``src/repro_torch/kernels/csrc`` on
+   first use, against its plain PyTorch version on the same CUDA tensors:
+   n in {1, 31, 33, 32785, 100000, 620,756,992} (the last is the glm4-9b
+   unembedding), M in {1, 4, 7, 33} voters (fused_majority; bitpack
+   takes 1, 4 and 7 rows), bf16 and float32 (and int8 for the sign
+   kernels, whose payloads carry planted zeros and -0.0); at the
+   unembedding n a stack above 24 GB (M = 33 in float32 and bf16) is left
+   out. Packed words, signs, momentum and parameters must be bit-equal;
+3. the training path: Algorithm 1 on glm4-9b at every published width,
+   cut to 2 layers (1,649,439,744 parameters), M = 4 voters, global batch
+   8, seq 512, for 5 steps through ``make_train_step`` ->
    ``materialize_state`` -> ``step_fn``, with random weights from a seeded
    CUDA generator. Every loss must be finite, every step must launch each
    kernel exactly as often as the step has leaves (momentum_sign_pack M
    times as often), and step 0's update of the unembedding leaf must be
    bit-equal to the plain versions recomputed from saved copies;
-4. each kernel timed at the unembedding shape (median of CUDA-event-timed
+4. the vote path: every leaf's trained (M, n) momentum voted through
+   ``VirtualBackend(device="cuda").execute(VoteRequest(form="stacked"))``
+   on four wires (fused allgather_1bit, staged allgather_1bit, psum_int8,
+   hierarchical). Each wire must launch its kernels exactly once per leaf,
+   report 1 bit (1-bit wire) or 8 bits (count wires) per coordinate, and
+   vote the unembedding leaf bit-equal to its plain versions; fused and
+   staged 1-bit votes must be equal on every leaf. One more vote per wire
+   runs under torch.profiler. Then the quickstart's 5 x 8 vote;
+5. each kernel timed at the unembedding shape (median of CUDA-event-timed
    launches after warm-up) beside its plain version and its bound.
 
-It prints one JSON line per step, a ``{"kernels": [...]}`` line and, last,
-``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
-rest of the repository beside it, it exits non-zero and prints no result.
+It prints one JSON line per step and per wire, a ``{"kernels": [...]}``
+line and, last, ``{"ok": true, "device": {...}}``. Without a CUDA device,
+or without the rest of the repository beside it, it exits non-zero and
+prints no result.
 """
 from __future__ import annotations
 
@@ -43,7 +55,18 @@ N_UNEMBED = 151_552 * 4096  # elements of glm4-9b's unembedding leaf
 SIZES = (1, 31, 33, 32_785, 100_000, N_UNEMBED)
 VOTERS = (1, 4, 7, 33)
 M_MAIN, GLOBAL_BATCH, SEQ, STEPS, LR, BETA = 4, 8, 512, 5, 1e-3, 0.9
+PACK_ROWS = (1, 4, 7)
+STACK_CAP_BYTES = 24e9      # largest (M, n) stack phase 2 builds
 SOURCE = "src/repro_torch/kernels/csrc/"
+#: the vote path's wires: (label, use_kernels, strategy, launches per leaf)
+VOTE_WIRES = (
+    ("fused_allgather_1bit", True, "allgather_1bit",
+     {"fused_majority": 1, "bitunpack": 1}),
+    ("staged_allgather_1bit", False, "allgather_1bit",
+     {"bitpack": 1, "majority": 1, "bitunpack": 1}),
+    ("psum_int8", False, "psum_int8", {}),
+    ("hierarchical", False, "hierarchical", {"bitpack": 1, "bitunpack": 1}),
+)
 
 
 def log(obj) -> None:
@@ -72,9 +95,60 @@ def require_equal(what: str, got, want) -> float:
 # ---------------------------------------------------------------------------
 
 
+def signed_payload(torch, gen, shape, dtype, dev):
+    """Random values of `dtype` with planted zeros and -0.0 (bit +1)."""
+    if dtype == torch.int8:
+        x = torch.randint(-128, 128, shape, generator=gen, device=dev,
+                          dtype=torch.int8)
+        x[..., ::7] = 0
+        return x
+    x = torch.randn(shape, generator=gen, device=dev).to(dtype)
+    x[..., ::7] = 0.0
+    x[..., 3::7] = -0.0
+    return x
+
+
+def check_sign_kernels(torch, ops, ref, sc, dev, err) -> int:
+    """fused_majority, bitpack and bitunpack against their plain versions;
+    updates `err`, returns the number of checks."""
+    gen = torch.Generator(device=dev).manual_seed(4321)
+    n_checks = 0
+    for n in SIZES:
+        for dtype in (torch.float32, torch.bfloat16, torch.int8):
+            rows = max(r for r in VOTERS + PACK_ROWS
+                       if r * n * dtype.itemsize <= STACK_CAP_BYTES)
+            x = signed_payload(torch, gen, (rows, n), dtype, dev)
+            for m in VOTERS:
+                if m > rows:
+                    continue
+                err["fused_majority"] = max(err["fused_majority"],
+                                            require_equal(
+                    f"fused_majority n={n} M={m} {dtype}",
+                    ops.fused_majority(x[:m]),
+                    ref.fused_majority(sc.pad_last(x[:m], sc.PACK)[0])))
+                n_checks += 1
+            for r in PACK_ROWS:
+                err["bitpack"] = max(err["bitpack"], require_equal(
+                    f"bitpack n={n} rows={r} {dtype}", ops.bitpack(x[:r]),
+                    ref.bitpack(sc.pad_last(x[:r], sc.PACK)[0])))
+                n_checks += 1
+            del x
+            words = torch.randint(-2 ** 31, 2 ** 31, (sc.words_for(n),),
+                                  generator=gen, device=dev,
+                                  dtype=torch.int32)
+            err["bitunpack"] = max(err["bitunpack"], require_equal(
+                f"bitunpack n={n} {dtype}", ops.bitunpack(words, n, dtype),
+                ref.bitunpack(words[None], dtype)[0, :n]))
+            n_checks += 1
+            del words
+        torch.cuda.synchronize()
+    return n_checks
+
+
 def check_kernels(torch, ops, ref, sc, dev) -> dict:
     gen = torch.Generator(device=dev).manual_seed(1234)
-    err = {"momentum_sign_pack": 0.0, "majority": 0.0, "apply_vote": 0.0}
+    err = {"momentum_sign_pack": 0.0, "majority": 0.0, "apply_vote": 0.0,
+           "fused_majority": 0.0, "bitpack": 0.0, "bitunpack": 0.0}
     n_checks = 0
     for n in SIZES:
         w = sc.words_for(n)
@@ -115,6 +189,7 @@ def check_kernels(torch, ops, ref, sc, dev) -> dict:
             del packed
             n_checks += 1
         torch.cuda.synchronize()
+    n_checks += check_sign_kernels(torch, ops, ref, sc, dev, err)
     log({"phase": "kernels_vs_plain", "checks": n_checks, "max_abs_err": err})
     return err
 
@@ -183,7 +258,8 @@ def run_main_path(torch, cfg, dev) -> dict:
         ms = (time.perf_counter() - t0) * 1e3
         loss = float(met["loss"])
         counts = ops.launch_counts()
-        per_step = {k: counts[k] - seen[k] for k in counts}
+        per_step = {k: counts[k] - seen[k] for k in counts
+                    if counts[k] != seen[k]}
         seen = counts
         log({"step": step, "loss": loss, "ms": ms, "launches": per_step})
         if not math.isfinite(loss):
@@ -208,9 +284,155 @@ def run_main_path(torch, cfg, dev) -> dict:
     # step 0 carries the warm-up (cuBLAS handles, first launches)
     profile_step(torch, art, params, opt_state, pipe, dev, n_params,
                  statistics.median(step_ms[1:]))
+    launches.update(run_vote_path(torch, opt_state["momentum"], dev))
     del params, opt_state, art
     torch.cuda.empty_cache()
     return launches
+
+
+def plain_votes(torch, ref, sc, label, x):
+    """(n,) int8 votes of the stacked (M, n) payload `x` on wire `label`,
+    composed from the plain versions (``kernels/ref.py``) and torch ops."""
+    m, n = x.shape
+    if label == "fused_allgather_1bit":
+        words = ref.fused_majority(sc.pad_last(x, sc.PACK)[0])
+        return ref.bitunpack(words[None], torch.int8)[0, :n]
+    signs = sc.sign_ternary(x)
+    if label == "staged_allgather_1bit":
+        words = ref.majority(ref.bitpack(sc.pad_last(signs, sc.PACK)[0]))
+        return ref.bitunpack(words[None], torch.int8)[0, :n]
+    if label == "psum_int8":
+        return torch.sign(signs.sum(dim=0)).to(torch.int8)
+    shards = sc.sign_binary(sc.pad_last(signs, sc.PACK * m)[0].sum(dim=0)
+                            .view(m, -1))
+    words = ref.bitpack(shards).view(1, -1)
+    return ref.bitunpack(words, torch.int8)[0, :n]
+
+
+def run_vote_path(torch, momentum, dev) -> dict:
+    """Vote every leaf's trained (M, n) momentum on each wire of
+    VOTE_WIRES through the vote API; returns the launches of the sign
+    kernels summed over the wires."""
+    from repro_torch.configs.base import VoteStrategy
+    from repro_torch.core import sign_compress as sc
+    from repro_torch.core import vote_api as va
+    from repro_torch.kernels import ops, ref
+
+    payloads = {k: v.view(v.shape[0], -1) for k, v in momentum.items()}
+    n_leaves = len(payloads)
+    n_total = sum(p.shape[1] for p in payloads.values())
+    big = max(payloads, key=lambda k: payloads[k].numel())
+    totals = {"fused_majority": 0, "bitpack": 0, "bitunpack": 0,
+              "majority": 0}
+    fused_votes = None
+    for label, use_kernels, strategy, per_leaf in VOTE_WIRES:
+        backend = va.VirtualBackend(use_kernels=use_kernels, device=dev)
+        requests = {k: va.VoteRequest(payload=p, form="stacked",
+                                      strategy=VoteStrategy(strategy))
+                    for k, p in payloads.items()}
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        ops.reset_launch_counts()
+        start.record()
+        votes, wires = {}, {}
+        for k, req in requests.items():
+            out = backend.execute(req)
+            votes[k], wires[k] = out.votes, out.wire
+        end.record()
+        end.synchronize()
+        launches = {k: v for k, v in ops.launch_counts().items() if v}
+        ms = start.elapsed_time(end)
+        peak = torch.cuda.max_memory_allocated()
+        want = {k: v * n_leaves for k, v in per_leaf.items()}
+        if launches != want:
+            raise AssertionError(f"vote {label}: launches {launches}, "
+                                 f"expected {want}")
+        for k, v in launches.items():
+            totals[k] += v
+        bits = 1.0 if strategy == "allgather_1bit" else 8.0
+        for k, wire in wires.items():
+            n = payloads[k].shape[1]
+            if (wire.payload_bytes != n * bits / 8.0
+                    or wire.n_voters != M_MAIN or wire.n_messages != 1
+                    or wire.strategy.value != strategy):
+                raise AssertionError(f"vote {label} leaf {k}: {wire}")
+            if votes[k].shape != (n,) or votes[k].dtype != torch.int8:
+                raise AssertionError(f"vote {label} leaf {k}: votes "
+                                     f"{votes[k].dtype} {votes[k].shape}")
+        require_equal(f"vote {label} {big} against the plain versions",
+                      votes[big], plain_votes(torch, ref, sc, label,
+                                              payloads[big]))
+        if label == "fused_allgather_1bit":
+            fused_votes = votes
+        elif label == "staged_allgather_1bit":
+            for k in payloads:
+                require_equal(f"fused and staged 1-bit votes of {k}",
+                              votes[k], fused_votes[k])
+            fused_votes = None
+        plus = sum(int((v == 1).sum()) for v in votes.values())
+        zero = sum(int((v == 0).sum()) for v in votes.values())
+        log({"phase": "vote", "wire": label, "use_kernels": use_kernels,
+             "strategy": strategy, "leaves": n_leaves, "coords": n_total,
+             "voters": M_MAIN, "ms": ms, "launches": launches,
+             "payload_bytes": sum(w.payload_bytes for w in wires.values()),
+             "votes_plus": plus, "votes_zero": zero,
+             "votes_minus": n_total - plus - zero,
+             "max_memory_allocated_bytes": peak,
+             "above_resident_bytes": peak - resident})
+        del votes, wires, out
+        profile_vote(torch, label, backend, requests)
+        del requests
+    for k, v in totals.items():
+        if not v:
+            raise AssertionError(f"the vote path never launched {k}")
+    quickstart_vote(torch, va, VoteStrategy, dev)
+    return {k: totals[k] for k in ("fused_majority", "bitpack", "bitunpack")}
+
+
+def profile_vote(torch, label, backend, requests) -> None:
+    """One more whole-model vote on wire `label` under torch.profiler:
+    device time by kernel, for the breakdown of the vote's time."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for req in requests.values():
+            backend.execute(req)
+        torch.cuda.synchronize()
+    kernels = sorted(((e.self_device_time_total / 1e3, e.count, e.key[:80])
+                      for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA),
+                     reverse=True)
+    log({"phase": "vote_profile", "wire": label,
+         "device_busy_ms": sum(ms for ms, _, _ in kernels),
+         "top_kernels": [{"ms": ms, "count": c, "name": k}
+                         for ms, c, k in kernels[:6]]})
+
+
+def quickstart_vote(torch, va, VoteStrategy, dev) -> None:
+    """examples/quickstart.py's 5 x 8 vote, on the card, on both paths."""
+    import numpy as np
+    g = np.random.default_rng(0).normal(size=(5, 8))
+    want = np.where(2 * (g >= 0).sum(axis=0) >= 5, 1, -1)
+    req = va.VoteRequest(payload=g, form="stacked",
+                         strategy=VoteStrategy.ALLGATHER_1BIT)
+    for use_kernels in (False, True):
+        out = va.VirtualBackend(use_kernels=use_kernels,
+                                device=dev).execute(req)
+        got = out.votes.cpu().numpy()
+        log({"phase": "quickstart_vote", "use_kernels": use_kernels,
+             "worker_signs": np.sign(g).astype(int).tolist(),
+             "majority_vote": got.tolist(),
+             "wire_bytes_per_replica": out.wire.payload_bytes,
+             "messages": out.wire.n_messages,
+             "strategy": out.wire.strategy.value})
+        if out.votes.device.type != dev.type or not (got == want).all():
+            raise AssertionError(f"quickstart vote {got.tolist()} on "
+                                 f"{out.votes.device}, expected "
+                                 f"{want.tolist()}")
 
 
 KERNEL_GROUPS = (("momentum_sign_pack", ("momentum_sign_pack_kernel",)),
@@ -358,6 +580,32 @@ def time_kernels(torch, ops, ref, sc, dev, launches, errs) -> list:
     # p bf16 read and written, one vote bit; mul, add, mul, sub
     row("apply_vote", "src/repro/kernels/signum_update.py:79", ms, plain,
         n * (2 + 2) + w * 4, 4 * n, "signum_update.cu")
+    del p, votes
+
+    x = torch.randn((M_MAIN, n), generator=gen, device=dev)
+    ms = median_ms(torch, lambda: ops.fused_majority(x), reps=25)
+    plain = median_ms(torch, lambda: ref.fused_majority(x), reps=5,
+                      warmup=1)
+    # the f32 stack read once, one word per 32 columns; a comparison and
+    # an add per element
+    row("fused_majority", "src/repro/kernels/fused_vote.py:52", ms, plain,
+        M_MAIN * n * 4 + w * 4, 2 * M_MAIN * n, "fused_vote.cu")
+    ms = median_ms(torch, lambda: ops.bitpack(x), reps=25)
+    plain = median_ms(torch, lambda: ref.bitpack(x), reps=5, warmup=1)
+    # the f32 stack read once, each row's words written; a comparison per
+    # element
+    row("bitpack", "src/repro/kernels/bitpack.py:47", ms, plain,
+        M_MAIN * n * 4 + M_MAIN * w * 4, M_MAIN * n, "bitpack.cu")
+    del x
+    words = torch.randint(-2 ** 31, 2 ** 31, (w,), generator=gen,
+                          device=dev, dtype=torch.int32)
+    ms = median_ms(torch, lambda: ops.bitunpack(words, n, torch.int8),
+                   reps=25)
+    plain = median_ms(torch, lambda: ref.bitunpack(words[None], torch.int8),
+                      reps=5, warmup=1)
+    # one bit read and one int8 sign written per element; a select each
+    row("bitunpack", "src/repro/kernels/bitpack.py:64", ms, plain,
+        w * 4 + n, n, "bitpack.cu")
     return rows
 
 

@@ -1,8 +1,10 @@
 """Sign extraction and 1-bit packing (plain PyTorch; ``repro.core.sign_compress``).
 
-Only what the kernels' plain versions need: the binary sign of the 1-bit
-wire (``x >= 0 -> +1``, DESIGN.md §5), zero-padding to the pack width,
-pack/unpack and the bit-sliced majority.
+Two sign conventions coexist (DESIGN.md §5): ``sign_ternary`` (0 -> 0,
+the count wires' abstention) and ``sign_binary`` (``x >= 0 -> +1``, the
+1-bit wire). Besides them: zero-padding to the pack width, pack/unpack and
+the bit-sliced majority. ``popcount`` and the ternary 2-bit format wait
+for the ``ternary2bit`` codec (ROADMAP.md Queue 1 item 8).
 
 Packing is 32 signs per word, little-endian within the word: bit j of word
 k is ``x[32k + j] >= 0``. Words are carried as **int32 bit patterns**
@@ -21,6 +23,11 @@ PACK = 32
 WORD_DTYPE = torch.int32
 
 
+def sign_ternary(x: torch.Tensor) -> torch.Tensor:
+    """``torch.sign`` as int8: 0 (and -0.0) -> 0, an abstention."""
+    return torch.sign(x).to(torch.int8)
+
+
 def sign_binary(x: torch.Tensor) -> torch.Tensor:
     """``x >= 0 -> +1`` else ``-1``, as int8 (ties go to +1)."""
     return torch.where(x >= 0, 1, -1).to(torch.int8)
@@ -31,11 +38,19 @@ def pad_to_pack(flat: torch.Tensor, multiple: int = PACK
     """Zero-pad a 1-D tensor to a multiple; returns (padded, original_len).
 
     Zero padding packs as +1 bits (sign(0) = +1)."""
-    n = flat.shape[0]
+    return pad_last(flat, multiple)
+
+
+def pad_last(x: torch.Tensor, multiple: int) -> Tuple[torch.Tensor, int]:
+    """Zero-pad the LAST dim to a multiple; returns (padded, original_n).
+
+    The one padding helper of the vote wires (``repro.core.vote_api``
+    ``pad_last``): every row is padded on its own."""
+    n = x.shape[-1]
     rem = (-n) % multiple
     if rem:
-        flat = F.pad(flat, (0, rem))
-    return flat, n
+        x = F.pad(x, (0, rem))
+    return x, n
 
 
 def words_for(n: int) -> int:

@@ -1,0 +1,349 @@
+"""The vote API (``repro.core.vote_api``; DESIGN.md §10): one declarative
+entry point for a majority vote.
+
+* :class:`VoteRequest` says what to vote on: the payload and its form,
+  the wire (strategy, codec) and the failures in front of it.
+* A :class:`VoteBackend` executes it; the port has
+  :class:`VirtualBackend`, which runs the strategies' stages over a
+  stacked voter dim with the exchange replaced by its exact equivalent.
+* :class:`VoteOutcome` returns the decision, the server state and a
+  :class:`WireReport` of what went on the wire.
+
+    out = VirtualBackend(device="cuda").execute(VoteRequest(
+        payload=x, form="stacked", strategy=VoteStrategy.ALLGATHER_1BIT))
+
+The port runs the ``stacked`` form — an ``(M, n)`` payload of M voters'
+values — on the three wires (``psum_int8``, ``allgather_1bit``,
+``hierarchical``) with codec ``sign1bit``. ``VirtualBackend(use_kernels=
+True)`` votes ``allgather_1bit`` with the fused sign+pack+popcount kernel
+(``fused_majority``) and decodes with ``bitunpack``; with
+``use_kernels=False`` the strategy's own stages run, and on a CUDA tensor
+the 1-bit ones are the hand-written kernels too (``core.vote_engine``).
+
+Requests are validated on construction and raise ``ValueError`` where the
+reference does (a wrong shape, an unknown form or codec, a codec that
+cannot ride the strategy). What the port does not run yet raises
+``NotImplementedError`` naming its ROADMAP.md item: the ``leaf`` and
+``tree`` forms and :class:`MeshBackend` (Queue 1 item 5), active
+failures (item 6), a ``plan`` and ``overlap`` (item 7), the other codecs
+(item 8), the ``streamed`` form, ``voter_ids`` / ``weights`` and adaptive
+adversaries (item 10). The ``vote.*`` counters and spans of the reference
+arrive with the telemetry layer (item 9).
+"""
+from __future__ import annotations
+
+import abc
+import dataclasses
+from typing import Any, Dict, Optional
+
+import torch
+
+import repro_torch
+from repro_torch.configs.base import ByzantineConfig, VoteStrategy
+from repro_torch.core import codecs as codecs_mod
+from repro_torch.core import sign_compress as sc
+from repro_torch.core import vote_engine as ve
+from repro_torch.core.sign_compress import pad_last
+from repro_torch.core.vote_engine import count_bytes, count_dtype
+from repro_torch.kernels import ops
+
+FORMS = ("leaf", "stacked", "tree", "streamed")
+#: the reference's adaptive adversaries (``attacks.ATTACK_MODES``), which
+#: also read ``VoteRequest.attack_obs``
+ATTACK_MODES = ("adaptive_flip", "low_margin", "reputation")
+#: every adversary mode the reference knows (``byzantine.MODES`` + those)
+ADVERSARY_MODES = ("none", "sign_flip", "random", "zero", "colluding",
+                   "blind") + ATTACK_MODES
+
+
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported yet (ROADMAP.md Queue 1 item {item}); the "
+        "port votes stacked (M, n) payloads on VirtualBackend with codec "
+        "sign1bit and no failures")
+
+
+@dataclasses.dataclass(frozen=True)
+class FailureSpec:
+    """The failure composition in front of the wire: the first `n_stale`
+    voters vote with stale signs, then the Byzantine model `byz` acts.
+    Only the inactive spec runs in the port (ROADMAP.md Queue 1 item 6)."""
+
+    n_stale: int = 0
+    byz: Optional[ByzantineConfig] = None
+
+    def __post_init__(self):
+        if self.n_stale < 0:
+            raise ValueError(f"n_stale must be >= 0, got {self.n_stale}")
+        if self.byz is not None and self.byz.mode not in ADVERSARY_MODES:
+            raise ValueError(f"unknown adversary mode {self.byz.mode!r}; "
+                             f"have {ADVERSARY_MODES}")
+
+    @property
+    def active(self) -> bool:
+        return self.n_stale > 0 or (self.byz is not None
+                                    and self.byz.mode != "none")
+
+    @property
+    def adaptive(self) -> bool:
+        return self.byz is not None and self.byz.mode in ATTACK_MODES
+
+
+@dataclasses.dataclass(frozen=True)
+class WireReport:
+    """What one executed vote put on the wire. `payload_bytes` is one
+    voter's outbound payload (the paper's "bits sent"); `n_messages`
+    counts the wire rounds; `strategy` is the resolved wire."""
+
+    n_voters: int
+    payload_bytes: float
+    n_messages: int
+    strategy: Optional[VoteStrategy]
+
+
+@dataclasses.dataclass(frozen=True)
+class VoteOutcome:
+    """votes (``(n,)`` int8, on the backend's device) + the server state +
+    the wire report. ``wire_signs`` is the ``(M, n)`` int8 sign tensor
+    that reached the wire, on the staged path; ``None`` on the fused
+    kernel path, which consumes the raw values."""
+
+    votes: Any
+    server_state: Dict[str, Any]
+    wire: WireReport
+    wire_signs: Any = None
+
+
+@dataclasses.dataclass(frozen=True, eq=False, repr=False)
+class VoteRequest:
+    """One declarative vote, validated on construction.
+
+    `payload` is an ``(M, n)`` array (numpy or torch) of M voters' values
+    with ``form="stacked"``; `strategy` is a concrete wire or AUTO;
+    `codec` is ``"sign1bit"``. The other fields are the reference's and
+    must stay at their defaults in the port (see the module doc)."""
+
+    payload: Any
+    form: str = "leaf"
+    strategy: VoteStrategy = VoteStrategy.AUTO
+    codec: str = "sign1bit"
+    plan: Optional[Any] = None
+    failures: FailureSpec = FailureSpec()
+    prev: Any = None
+    step: Any = None
+    salt: int = 0
+    server_state: Optional[Dict[str, Any]] = None
+    diagnostics: bool = False
+    overlap: bool = False
+    voter_ids: Any = None
+    weights: Any = None
+    attack_obs: Any = None
+
+    def __post_init__(self):
+        if self.form not in FORMS:
+            raise ValueError(f"unknown payload form {self.form!r}; "
+                             f"have {FORMS}")
+        if self.form in ("leaf", "tree"):
+            raise _not_ported(f"the {self.form!r} form (it votes inside a "
+                              "mesh region)", "5")
+        if self.form == "streamed":
+            raise _not_ported("the 'streamed' population form", "10")
+        codec = codecs_mod.get_codec(self.codec)   # raises on unknown
+        if not isinstance(self.strategy, VoteStrategy):
+            raise ValueError(f"strategy must be a VoteStrategy, got "
+                             f"{self.strategy!r}")
+        if self.plan is None and self.strategy != VoteStrategy.AUTO:
+            codec.validate_strategy(self.strategy)
+        if not hasattr(self.payload, "shape"):
+            raise ValueError(
+                f"{self.form}-form payload must be an array, got "
+                f"{type(self.payload).__name__}")
+        if len(self.payload.shape) != 2:
+            raise ValueError(
+                "stacked-form payload must be (M, n) — M voters by n "
+                f"coordinates — got shape {tuple(self.payload.shape)}")
+        if self.failures.n_stale > 0 and self.prev is None:
+            raise ValueError(
+                f"failures.n_stale={self.failures.n_stale} substitutes "
+                "stale votes but the request has no prev signs to "
+                "substitute (set VoteRequest.prev)")
+        if self.attack_obs is not None and not self.failures.adaptive:
+            raise ValueError(
+                "attack_obs carries an adaptive adversary's observation "
+                "channel, but the request's adversary mode is oblivious "
+                "or absent — drop attack_obs")
+        if self.diagnostics:
+            raise ValueError(
+                "diagnostics (margin/agreement in the WireReport) are "
+                "computed over a voted tree; leaf/stacked callers "
+                f"measure their own quantities (form={self.form!r})")
+        if self.overlap and self.plan is None:
+            raise ValueError(
+                "overlap=True double-buffers a plan's bucket schedule; "
+                "attach a VotePlan (VoteRequest.plan / "
+                "OptimizerConfig.bucket_bytes) or drop overlap")
+        if self.failures.adaptive:
+            raise _not_ported(f"adaptive adversary mode "
+                              f"{self.failures.byz.mode!r}", "10")
+        if self.failures.active:
+            raise _not_ported("failure composition (stale votes, "
+                              "adversaries)", "6")
+        if self.plan is not None:
+            raise _not_ported("the bucketed VotePlan and overlap", "7")
+        if self.voter_ids is not None or self.weights is not None:
+            raise _not_ported("voter_ids / weights annotations", "10")
+
+    def __repr__(self):  # payloads are arrays — keep the repr readable
+        return (f"VoteRequest(form={self.form!r}, strategy="
+                f"{self.strategy.value!r}, codec={self.codec!r}, "
+                f"failures={self.failures}, salt={self.salt})")
+
+
+def _static_wire(codec_name: str, resolved: VoteStrategy, n_params: int,
+                 n_messages: int, n_voters: int) -> WireReport:
+    c = codecs_mod.get_codec(codec_name)
+    return WireReport(n_voters=n_voters,
+                      payload_bytes=n_params * c.wire_bits(resolved) / 8.0,
+                      n_messages=n_messages, strategy=resolved)
+
+
+def effective_stacked_signs(values: torch.Tensor) -> torch.Tensor:
+    """The (M, n) int8 sign tensor that reaches the wire. With no failures
+    (the port's slice) that is the sign extraction alone."""
+    return sc.sign_ternary(values)
+
+
+def _virtual_wire_vote(signs: torch.Tensor,
+                       strategy: VoteStrategy) -> torch.Tensor:
+    """(M, n) stacked int8 signs -> (n,) int8 majority, through the
+    strategy's own pack/tally/unpack stages (exchange virtualised)."""
+    impl = ve.STRATEGIES[strategy]
+    m, n = signs.shape
+
+    if strategy == VoteStrategy.PSUM_INT8:
+        wire = impl.pack(signs, m)                       # (M, n) counts
+        # psum over the voters == sum over the voter dim, in the wire
+        # dtype (safe: every partial sum is within ±M <= dtype max)
+        arrived = torch.sum(wire, dim=0, dtype=wire.dtype)
+        return impl.unpack(impl.tally(arrived, m), n, torch.int8)
+
+    if strategy == VoteStrategy.ALLGATHER_1BIT:
+        wire = impl.pack(signs, m)                       # (M, w) packed
+        # the all-gather hands every voter the stacked wire, which is
+        # what the virtual backend already holds
+        return impl.unpack(impl.tally(wire, m), n, torch.int8)
+
+    if strategy == VoteStrategy.HIERARCHICAL:
+        # one virtual pod: the data axis is all M voters. Pad to 32*M so
+        # the reduce-scatter shards stay word-aligned.
+        padded, _ = pad_last(signs, sc.PACK * m)
+        wire = impl.pack(padded, m)                      # (M, n_pad) counts
+        # reduce-scatter (tiled): shard r of the summed counts
+        summed = torch.sum(wire, dim=0, dtype=wire.dtype)
+        decision = impl.tally(summed.view(m, -1), m)     # sign per shard
+        return impl.unpack(decision, n, torch.int8)
+
+    raise ValueError(f"virtual mesh cannot realise {strategy!r}")
+
+
+def _virtual_codec_vote(signs: torch.Tensor, strategy: VoteStrategy,
+                        codec: str, server_state):
+    """(M, n) stacked int8 signs -> ((n,) int8 majority, new server state)
+    through the codec's wire. The one ported codec, ``sign1bit``, rides
+    the strategy's wire as it is and keeps no state."""
+    return _virtual_wire_vote(signs, strategy), dict(server_state or {})
+
+
+class VoteBackend(abc.ABC):
+    """Executes :class:`VoteRequest`\\ s."""
+
+    name: str = "?"
+
+    def supports(self, request: VoteRequest) -> bool:
+        """Can this backend execute the (already-validated) request?"""
+        return self.why_unsupported(request) is None
+
+    @abc.abstractmethod
+    def why_unsupported(self, request: VoteRequest) -> Optional[str]:
+        """None if supported, else an actionable reason."""
+
+    def execute(self, request: VoteRequest) -> VoteOutcome:
+        """Run the vote; raises ValueError (with the
+        :meth:`why_unsupported` reason) on unsupported requests."""
+        why = self.why_unsupported(request)
+        if why is not None:
+            raise ValueError(f"{self.name} backend cannot execute this "
+                             f"request: {why}")
+        return self._execute(request)
+
+    @abc.abstractmethod
+    def _execute(self, request: VoteRequest) -> VoteOutcome:
+        """The backend's execution body (request already validated)."""
+
+
+class MeshBackend:
+    """The real collectives over ``torch.distributed``: not ported yet."""
+
+    name = "mesh"
+
+    def __init__(self, *args, **kwargs):
+        raise _not_ported("MeshBackend (the multi-process wire)", "5")
+
+
+class VirtualBackend(VoteBackend):
+    """Stacked ``(M, n)`` payloads on one device, the exchange collectives
+    replaced by their exact equivalents over the voter dim.
+
+    `device` (``"cuda"`` unless told otherwise, through
+    :func:`repro_torch.resolve_device`) is where the payload is moved and
+    where the outcome's tensors live. On a CUDA device every 1-bit stage
+    is a hand-written kernel; on the CPU the kernels' plain versions run.
+
+    ``use_kernels=True`` votes ``allgather_1bit`` requests with the fused
+    sign+pack+popcount kernel and rejects every other strategy, whose tie
+    rule the kernel does not realise."""
+
+    name = "virtual"
+
+    def __init__(self, use_kernels: bool = False,
+                 device: repro_torch.DeviceLike = None):
+        self.use_kernels = use_kernels
+        self.device = repro_torch.resolve_device(device)
+
+    def why_unsupported(self, request: VoteRequest) -> Optional[str]:
+        if self.use_kernels \
+                and request.strategy != VoteStrategy.ALLGATHER_1BIT:
+            return ("the fused kernel's binary majority (ties -> +1) "
+                    "is allgather_1bit's tie rule, not "
+                    f"{request.strategy.value!r}'s")
+        return None
+
+    def _execute(self, request: VoteRequest) -> VoteOutcome:
+        req = request
+        x = torch.as_tensor(req.payload, device=self.device)
+        if x.dtype == torch.float64:
+            # what the reference's arrays hold with JAX's 64-bit mode off
+            x = x.to(torch.float32)
+        x = x.contiguous()
+        m, n = x.shape
+        eff = None
+        if self.use_kernels:
+            votes = ops.bitunpack(ops.fused_majority(x), n, torch.int8)
+            state = dict(req.server_state or {})
+            resolved = VoteStrategy.ALLGATHER_1BIT
+        else:
+            resolved = ve.resolve_strategy(req.strategy, n, m, 1,
+                                           codec=req.codec)
+            eff = effective_stacked_signs(x)
+            votes, state = _virtual_codec_vote(eff, resolved, req.codec,
+                                               req.server_state)
+        wire = _static_wire(req.codec, resolved, n, 1, m)
+        return VoteOutcome(votes=votes, server_state=state, wire=wire,
+                           wire_signs=eff)
+
+
+__all__ = [
+    "FailureSpec", "MeshBackend", "VirtualBackend", "VoteBackend",
+    "VoteOutcome", "VoteRequest", "WireReport", "count_bytes",
+    "count_dtype", "effective_stacked_signs", "pad_last",
+]

@@ -38,6 +38,16 @@ SIGNATURES = {
     "vote": {
         "majority_packed": (_P, _P, _I, _I64, _P),
     },
+    "bitpack": {
+        **{f"bitpack_{t}": (_P, _P, _I64, _I64, _P)
+           for t in ("f32", "bf16", "i8")},
+        **{f"bitunpack_{t}": (_P, _P, _I64, _P)
+           for t in ("f32", "bf16", "i8")},
+    },
+    "fused_vote": {
+        f"fused_majority_{t}": (_P, _P, _I, _I64, _P)
+        for t in ("f32", "bf16", "i8")
+    },
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

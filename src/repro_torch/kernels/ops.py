@@ -1,11 +1,11 @@
 """Wrappers around the CUDA kernels (``repro.kernels.ops``).
 
-Each wrapper takes flat tensors of any length (the kernels need no tile
+Each wrapper takes tensors of any length (the kernels need no tile
 padding: the last packed word is completed inside the kernel) and
 dispatches on the device of its input:
 
 * a CPU tensor goes to the plain PyTorch version in :mod:`.ref`,
-  zero-padded to the pack width and cropped back;
+  zero-padded to the pack width (each row on its own) and cropped back;
 * a CUDA tensor launches the hand-written kernel on the current stream,
   or raises. It never falls back to the plain version.
 
@@ -28,8 +28,11 @@ from repro_torch.kernels import build, ref
 WORD = sc.WORD_DTYPE
 
 _COUNTS: Dict[str, int] = {"momentum_sign_pack": 0, "majority": 0,
-                           "apply_vote": 0}
+                           "apply_vote": 0, "bitpack": 0, "bitunpack": 0,
+                           "fused_majority": 0}
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+#: element types the sign kernels read and bitunpack writes
+_SIGN_SUFFIX = {**_SUFFIX, torch.int8: "i8"}
 
 
 def launch_counts() -> Dict[str, int]:
@@ -161,4 +164,59 @@ def apply_vote(p: torch.Tensor, votes: torch.Tensor, eta: float,
             votes.data_ptr(), out.data_ptr(), n, float(eta),
             float(weight_decay), _stream(p))
     _COUNTS["apply_vote"] += 1
+    return out
+
+
+def bitpack(x: torch.Tensor) -> torch.Tensor:
+    """(rows, n) f32/bf16/int8 -> (rows, ceil(n/32)) int32 words of the
+    signs ``x >= 0``, each row padded on its own (padding bits 1)."""
+    dev = x.device
+    _check(x, "x", ndim=2, dtypes=_SIGN_SUFFIX, device=dev)
+    rows, n = x.shape
+    out = torch.empty((rows, sc.words_for(n)), dtype=WORD, device=dev)
+    if not _on_card(x):
+        return out.copy_(ref.bitpack(sc.pad_last(x, sc.PACK)[0]))
+    _launch("bitpack", f"bitpack_{_SIGN_SUFFIX[x.dtype]}", x.data_ptr(),
+            out.data_ptr(), rows, n, _stream(x))
+    _COUNTS["bitpack"] += 1
+    return out
+
+
+def bitunpack(packed: torch.Tensor, n: int, dtype=torch.float32
+              ) -> torch.Tensor:
+    """(w,) int32 words -> (n,) of ±1 in `dtype` (int8, f32 or bf16): the
+    first n of the 32*w signs."""
+    dev = packed.device
+    _check(packed, "packed", ndim=1, dtypes=(WORD,), device=dev)
+    if dtype not in _SIGN_SUFFIX:
+        raise TypeError(f"dtype must be one of {list(_SIGN_SUFFIX)}, got "
+                        f"{dtype}")
+    w = packed.shape[0]
+    if not 0 <= n <= sc.PACK * w:
+        raise ValueError(f"{w} words hold at most {sc.PACK * w} signs, "
+                         f"asked for {n}")
+    if not _on_card(packed):
+        return ref.bitunpack(packed, dtype)[:n].clone()
+    out = torch.empty(n, dtype=dtype, device=dev)
+    _launch("bitpack", f"bitunpack_{_SIGN_SUFFIX[dtype]}",
+            packed.data_ptr(), out.data_ptr(), n, _stream(packed))
+    _COUNTS["bitunpack"] += 1
+    return out
+
+
+def fused_majority(x: torch.Tensor) -> torch.Tensor:
+    """(M, n) f32/bf16/int8 voter values -> (ceil(n/32),) int32 packed
+    majority of the signs ``x >= 0`` in one pass (ties and padding bits
+    -> +1)."""
+    dev = x.device
+    _check(x, "x", ndim=2, dtypes=_SIGN_SUFFIX, device=dev)
+    m, n = x.shape
+    if m < 1:
+        raise ValueError("fused_majority needs at least one voter")
+    if not _on_card(x):
+        return ref.fused_majority(sc.pad_last(x, sc.PACK)[0])
+    out = torch.empty(sc.words_for(n), dtype=WORD, device=dev)
+    _launch("fused_vote", f"fused_majority_{_SIGN_SUFFIX[x.dtype]}",
+            x.data_ptr(), out.data_ptr(), m, n, _stream(x))
+    _COUNTS["fused_majority"] += 1
     return out

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the three CUDA kernels (``repro.kernels.ref``).
+"""Plain PyTorch versions of the CUDA kernels (``repro.kernels.ref``).
 
 They define the exact semantics the kernels reproduce. ``ops`` runs them
 for tensors on the CPU; ``chip_smoke.py`` holds each kernel against them
@@ -23,6 +23,23 @@ def momentum_sign_pack(g: torch.Tensor, m: torch.Tensor, beta: float
     packed = pack(m' >= 0). g/m (..., 32*w). Returns (m', packed)."""
     m_new = beta * m + (1.0 - beta) * g.to(m.dtype)
     return m_new, sc.pack_signs(m_new)
+
+
+def bitpack(x: torch.Tensor) -> torch.Tensor:
+    """(rows, 32*w) real -> (rows, w) words; bit j of word k is
+    ``x[., 32k + j] >= 0``."""
+    return sc.pack_signs(x)
+
+
+def bitunpack(packed: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
+    """(rows, w) words -> (rows, 32*w) of ±1 in `dtype`."""
+    return sc.unpack_signs(packed, dtype)
+
+
+def fused_majority(x: torch.Tensor) -> torch.Tensor:
+    """(M, n) real, n % 32 == 0 -> (n // 32,) packed majority: the
+    composed sign + pack + popcount the fused kernel does in one pass."""
+    return sc.packed_majority(sc.pack_signs(x))
 
 
 def majority(packed: torch.Tensor) -> torch.Tensor:

@@ -36,10 +36,21 @@ def test_port_has_the_slice_modules():
                 "core/sign_compress.py", "core/signum.py", "kernels/ref.py",
                 "kernels/build.py", "kernels/ops.py", "data/pipeline.py",
                 "models/layers.py", "models/transformer.py",
-                "models/model.py", "train/train_step.py"):
+                "models/model.py", "train/train_step.py",
+                "core/codecs/__init__.py", "core/codecs/base.py",
+                "core/codecs/sign1bit.py", "core/vote_engine.py",
+                "core/vote_api.py"):
         assert f"src/repro_torch/{mod}" in names
     assert sorted(p.name for p in (PORT / "kernels" / "csrc").glob("*.cu")) \
-        == ["signum_update.cu", "vote.cu"]
+        == ["bitpack.cu", "fused_vote.cu", "signum_update.cu", "vote.cu"]
+
+
+def test_every_csrc_source_has_signatures():
+    """build.SIGNATURES names one library per source, so the first launch
+    builds every kernel file and loads every entry point."""
+    from repro_torch.kernels import build
+    assert sorted(f"{name}.cu" for name in build.SIGNATURES) == sorted(
+        p.name for p in (PORT / "kernels" / "csrc").glob("*.cu"))
 
 
 @pytest.mark.parametrize("rel", FILES)
@@ -55,6 +66,14 @@ assert shutil.which("nvcc") is None
 import repro_torch
 for mod in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
     importlib.import_module(mod.name)
+import numpy as np
+from repro_torch.configs.base import VoteStrategy
+from repro_torch.core import vote_api as va
+for use_kernels in (True, False):
+    out = va.VirtualBackend(use_kernels=use_kernels, device="cpu").execute(
+        va.VoteRequest(payload=-np.ones((3, 40)), form="stacked",
+                       strategy=VoteStrategy.ALLGATHER_1BIT))
+    assert out.votes.tolist() == [-1] * 40
 from repro_torch.kernels import build
 assert build._LIBS == {}, build._LIBS
 assert "jax" not in sys.modules and "repro" not in sys.modules

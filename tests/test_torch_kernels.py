@@ -14,6 +14,7 @@ from repro.configs.base import get_config, reduced_config  # noqa: E402
 from repro.core import sign_compress as jsc  # noqa: E402
 from repro.data.pipeline import SyntheticLMPipeline  # noqa: E402
 from repro.kernels import ops as jops  # noqa: E402
+from repro.kernels import ref as jref  # noqa: E402
 from repro_torch.configs.base import get_config as t_get_config  # noqa: E402
 from repro_torch.configs.base import reduced_config as t_reduced  # noqa: E402
 from repro_torch.core import sign_compress as tsc  # noqa: E402
@@ -22,6 +23,9 @@ from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
 
 SIZES = [1, 31, 32, 33, 4096, 32768, 32785, 100_000]
+#: the sign-kernel sweep, at most tests/test_kernels.py's interpret sizes
+SIGN_SIZES = [1, 31, 32, 33, 4096, 32785]
+SIGN_DTYPES = ["float32", "bfloat16", "int8"]
 
 
 def _rng(*salt):
@@ -89,6 +93,78 @@ def test_apply_vote_matches_jax(eta, wd, pdtype):
                                rtol=1e-5, atol=1e-6)
 
 
+def _signed_payload(shape, dtype, *salt):
+    """numpy values with planted zeros and -0.0 (a tie to +1 on the 1-bit
+    wire, an abstention on the count wires), and the same values as a
+    JAX array and a torch tensor of `dtype`."""
+    rng = _rng(*salt)
+    if dtype == "int8":
+        x = rng.integers(-3, 4, size=shape).astype(np.int8)
+        x[..., ::7] = 0
+        return x, jnp.asarray(x), torch.from_numpy(x)
+    x = rng.normal(size=shape).astype(np.float32)
+    x[..., ::7] = 0.0
+    x[..., 3::7] = -0.0
+    if dtype == "bfloat16":
+        x = _bf16_exact(x)
+    return (x, jnp.asarray(x).astype(dtype),
+            torch.from_numpy(x).to(getattr(torch, dtype)))
+
+
+@pytest.mark.parametrize("dtype", SIGN_DTYPES)
+@pytest.mark.parametrize("n", SIGN_SIZES)
+def test_bitpack_matches_jax(n, dtype):
+    """(rows, n) -> (rows, ceil(n/32)), each row padded on its own: equal
+    to the reference's kernel (interpret mode) row by row and to its
+    oracle on the zero-padded rows."""
+    x, jx, tx = _signed_payload((2, n), dtype, n, 1)
+    got = _words(tops.bitpack(tx))
+    assert got.shape == (2, -(-n // 32))
+    for r in range(2):
+        np.testing.assert_array_equal(got[r], np.asarray(jops.bitpack(jx[r])))
+    padded = jnp.pad(jx, ((0, 0), (0, (-n) % 32)))
+    np.testing.assert_array_equal(got, np.asarray(jref.bitpack(padded)))
+
+
+@pytest.mark.parametrize("dtype", SIGN_DTYPES)
+@pytest.mark.parametrize("n", SIGN_SIZES)
+def test_bitunpack_matches_jax(n, dtype):
+    words = _rng(n, 2).integers(0, 2 ** 32, size=-(-n // 32) + 1,
+                                dtype=np.uint32)   # one word to spare
+    got = tops.bitunpack(torch.from_numpy(words.view(np.int32)), n,
+                         getattr(torch, dtype))
+    assert got.shape == (n,) and got.dtype == getattr(torch, dtype)
+    got = got.to(torch.float32).numpy()
+    np.testing.assert_array_equal(
+        got, np.asarray(jops.bitunpack(jnp.asarray(words), n, dtype),
+                        np.float32))
+    np.testing.assert_array_equal(
+        got, np.asarray(jref.bitunpack(jnp.asarray(words)[None], dtype),
+                        np.float32)[0, :n])
+
+
+@pytest.mark.parametrize("m", [1, 2, 3, 7, 16, 33])
+@pytest.mark.parametrize("n", SIGN_SIZES)
+def test_fused_majority_matches_jax(n, m):
+    for dtype in SIGN_DTYPES:
+        x, jx, tx = _signed_payload((m, n), dtype, n, m)
+        got = _words(tops.fused_majority(tx))
+        assert got.shape == (-(-n // 32),)
+        np.testing.assert_array_equal(
+            got, np.asarray(jops.fused_majority(jx)), err_msg=dtype)
+        padded = jnp.pad(jx, ((0, 0), (0, (-n) % 32)))
+        np.testing.assert_array_equal(
+            got, np.asarray(jref.fused_majority(padded)), err_msg=dtype)
+
+
+def test_fused_majority_equals_staged_kernels():
+    """fused_majority == bitpack of every voter + majority, the staged
+    path it replaces."""
+    x = torch.from_numpy(_rng(9).normal(size=(9, 10_000)).astype(np.float32))
+    assert torch.equal(tops.fused_majority(x),
+                       tops.majority(tops.bitpack(x)))
+
+
 @pytest.mark.parametrize("n", [32, 96, 1000])
 def test_sign_compress_matches_jax(n):
     rng = _rng(n)
@@ -110,6 +186,14 @@ def test_sign_compress_matches_jax(n):
         np.asarray(jsc.unpack_signs(jwords, jnp.float32)))
     np.testing.assert_array_equal(_words(tsc.packed_majority(words)),
                                   np.asarray(jsc.packed_majority(jwords)))
+    np.testing.assert_array_equal(
+        tsc.sign_ternary(torch.from_numpy(x)).numpy(),
+        np.asarray(jsc.sign_ternary(jnp.asarray(x))))
+    for multiple in (32, 96):
+        got, n1 = tsc.pad_last(torch.from_numpy(x), multiple)
+        want, n2 = jsc.pad_last(jnp.asarray(x), multiple)
+        assert n1 == n2 == n
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
 def test_padding_bits_are_plus_one():
@@ -138,11 +222,16 @@ def test_plain_path_in_place_and_uncounted():
     out = tops.apply_vote(p, packed, 1e-2, 0.1, out=p)
     assert out.data_ptr() == p.data_ptr() and torch.equal(p, expect)
     assert tops.launch_counts() == {"momentum_sign_pack": 0, "majority": 0,
-                                    "apply_vote": 0}
+                                    "apply_vote": 0, "bitpack": 0,
+                                    "bitunpack": 0, "fused_majority": 0}
 
 
 @pytest.mark.parametrize("case", ["g_2d", "m_bf16", "len", "words_int64",
-                                  "noncontig", "votes_len", "no_voters"])
+                                  "noncontig", "votes_len", "no_voters",
+                                  "pack_1d", "pack_f64", "pack_noncontig",
+                                  "unpack_too_many", "unpack_f64",
+                                  "unpack_2d", "fused_no_voters",
+                                  "fused_f16"])
 def test_wrappers_reject_bad_inputs(case):
     g, m = torch.zeros(64), torch.zeros(64)
     with pytest.raises((ValueError, TypeError)):
@@ -159,6 +248,23 @@ def test_wrappers_reject_bad_inputs(case):
                             1e-3, 0.0)
         elif case == "votes_len":
             tops.apply_vote(g, torch.zeros(3, dtype=torch.int32), 1e-3, 0.0)
+        elif case == "pack_1d":
+            tops.bitpack(g)
+        elif case == "pack_f64":
+            tops.bitpack(g.reshape(2, 32).double())
+        elif case == "pack_noncontig":
+            tops.bitpack(g.reshape(8, 8).t())
+        elif case == "unpack_too_many":
+            tops.bitunpack(torch.zeros(2, dtype=torch.int32), 65)
+        elif case == "unpack_f64":
+            tops.bitunpack(torch.zeros(2, dtype=torch.int32), 64,
+                           torch.float64)
+        elif case == "unpack_2d":
+            tops.bitunpack(torch.zeros((1, 2), dtype=torch.int32), 64)
+        elif case == "fused_no_voters":
+            tops.fused_majority(torch.zeros((0, 3)))
+        elif case == "fused_f16":
+            tops.fused_majority(g.reshape(2, 32).half())
         else:
             tops.majority(torch.zeros((0, 3), dtype=torch.int32))
 

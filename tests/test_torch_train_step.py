@@ -305,7 +305,8 @@ def test_step_updates_state_in_place_without_kernel_launches():
         moved = (before[k] - p).abs()
         assert torch.allclose(moved, torch.full_like(moved, LR), rtol=1e-2)
     assert tops.launch_counts() == {"momentum_sign_pack": 0, "majority": 0,
-                                    "apply_vote": 0}
+                                    "apply_vote": 0, "bitpack": 0,
+                                    "bitunpack": 0, "fused_majority": 0}
     words = tsc.words_for(params["embed.table"].numel())
     assert words == 512 * 128 // 32
 
