@@ -13,7 +13,17 @@ Phases, each of which fails the run (non-zero exit) on any disagreement:
    takes 1, 4 and 7 rows), bf16 and float32 (and int8 for the sign
    kernels, whose payloads carry planted zeros and -0.0); at the
    unembedding n a stack above 24 GB (M = 33 in float32 and bf16) is left
-   out. Packed words, signs, momentum and parameters must be bit-equal;
+   out. The ternary wire's kernels take the same sizes (and n = 17, and a
+   row that starts off a 16-byte boundary): ternary_pack on 1, 4 and 7 rows
+   of int8 / f32 / bf16 (4 rows at the unembedding n), ternary_majority
+   over M in VOTERS on words with planted 0b10 fields and ties,
+   ternary_unpack, and the ternary apply in f32 and bf16; momentum_sign_pack
+   also without its words (the ternary2bit and ef_sign encode), and
+   bitunpack of a whole (4, w) unembedding word stack to int8 (2,483,027,968
+   signs, past 2^31, as weighted_vote's decode unpacks it). Packed words,
+   signs, momentum and parameters must be bit-equal. ef_sign's float32
+   mean|t| over ten 2^26-element chunks must be within 1e-5 of a float64
+   sum;
 3. the training path: Algorithm 1 on glm4-9b at every published width,
    cut to 2 layers (1,649,439,744 parameters), M = 4 voters, global batch
    8, seq 512, for 5 steps through ``make_train_step`` ->
@@ -21,16 +31,31 @@ Phases, each of which fails the run (non-zero exit) on any disagreement:
    CUDA generator. Every loss must be finite, every step must launch each
    kernel exactly as often as the step has leaves (momentum_sign_pack M
    times as often), and step 0's update of the unembedding leaf must be
-   bit-equal to the plain versions recomputed from saved copies;
+   bit-equal to the plain versions recomputed from saved copies of its
+   parameters and gradients (the momentum starts at zero);
 4. the vote path: every leaf's trained (M, n) momentum voted through
    ``VirtualBackend(device="cuda").execute(VoteRequest(form="stacked"))``
    on four wires (fused allgather_1bit, staged allgather_1bit, psum_int8,
    hierarchical). Each wire must launch its kernels exactly once per leaf,
    report 1 bit (1-bit wire) or 8 bits (count wires) per coordinate, and
    vote the unembedding leaf bit-equal to its plain versions; fused and
-   staged 1-bit votes must be equal on every leaf. One more vote per wire
-   runs under torch.profiler. Then the quickstart's 5 x 8 vote;
-5. each kernel timed at the unembedding shape (median of CUDA-event-timed
+   staged 1-bit votes must be equal on every leaf. The same momentum is
+   then voted with codec ternary2bit on allgather_1bit (ternary_pack +
+   ternary_majority + ternary_unpack, once per leaf, 2 bits per
+   coordinate) and on psum_int8 (no kernel; its votes bit-equal to
+   sign1bit's psum_int8 votes on every leaf). One more vote per wire runs
+   under torch.profiler. Then the quickstart's 5 x 8 vote;
+5. the codec paths: the same training setup with codec ternary2bit,
+   ef_sign and weighted_vote on allgather_1bit, 5 steps each from fresh
+   state (the previous run's freed first): finite losses, each step's
+   launches exactly the codec's per-leaf count, step 0's update of
+   ``layers.attn_wq`` (``layers.mlp_w_down`` for ef_sign, whose mean|t|
+   then spans two chunks) and its momentum, and ef_sign's residual,
+   bit-equal to the plain versions recomputed from saved copies (ef_sign's
+   mean|t| within 1e-5 of a float64 sum),
+   ternary2bit's untouched embedding coordinates held still, the peak
+   memory printed, and one more step of each under torch.profiler;
+6. each kernel timed at the unembedding shape (median of CUDA-event-timed
    launches after warm-up) beside its plain version and its bound.
 
 It prints one JSON line per step and per wire, a ``{"kernels": [...]}``
@@ -57,15 +82,30 @@ VOTERS = (1, 4, 7, 33)
 M_MAIN, GLOBAL_BATCH, SEQ, STEPS, LR, BETA = 4, 8, 512, 5, 1e-3, 0.9
 PACK_ROWS = (1, 4, 7)
 STACK_CAP_BYTES = 24e9      # largest (M, n) stack phase 2 builds
+#: largest (rows, n) int32 temporary of ternary_pack's plain version
+TERNARY_CAP_BYTES = 12e9
+#: the codec paths of phase 5, and the leaf whose step 0 each recomputes:
+#: ef_sign's is above one SCALE_CHUNK per voter (112,197,632 elements), so
+#: its mean|t| is summed in more than one chunk
+CHECK_LEAF = {"ternary2bit": "layers.attn_wq",
+              "ef_sign": "layers.mlp_w_down",
+              "weighted_vote": "layers.attn_wq"}
+#: relative error allowed of the float32 mean|t| against a float64 sum
+SCALE_RTOL = 1e-5
 SOURCE = "src/repro_torch/kernels/csrc/"
-#: the vote path's wires: (label, use_kernels, strategy, launches per leaf)
+#: the vote path's wires: (label, use_kernels, strategy, codec, launches
+#: per leaf, wire bits per coordinate)
 VOTE_WIRES = (
-    ("fused_allgather_1bit", True, "allgather_1bit",
-     {"fused_majority": 1, "bitunpack": 1}),
-    ("staged_allgather_1bit", False, "allgather_1bit",
-     {"bitpack": 1, "majority": 1, "bitunpack": 1}),
-    ("psum_int8", False, "psum_int8", {}),
-    ("hierarchical", False, "hierarchical", {"bitpack": 1, "bitunpack": 1}),
+    ("fused_allgather_1bit", True, "allgather_1bit", "sign1bit",
+     {"fused_majority": 1, "bitunpack": 1}, 1.0),
+    ("staged_allgather_1bit", False, "allgather_1bit", "sign1bit",
+     {"bitpack": 1, "majority": 1, "bitunpack": 1}, 1.0),
+    ("psum_int8", False, "psum_int8", "sign1bit", {}, 8.0),
+    ("hierarchical", False, "hierarchical", "sign1bit",
+     {"bitpack": 1, "bitunpack": 1}, 8.0),
+    ("ternary_allgather_1bit", False, "allgather_1bit", "ternary2bit",
+     {"ternary_pack": 1, "ternary_majority": 1, "ternary_unpack": 1}, 2.0),
+    ("ternary_psum_int8", False, "psum_int8", "ternary2bit", {}, 8.0),
 )
 
 
@@ -142,13 +182,126 @@ def check_sign_kernels(torch, ops, ref, sc, dev, err) -> int:
             n_checks += 1
             del words
         torch.cuda.synchronize()
+    n_checks += check_stacked_unpack(torch, ops, ref, sc, dev, gen, err)
+    return n_checks
+
+
+def check_stacked_unpack(torch, ops, ref, sc, dev, gen, err) -> int:
+    """weighted_vote's decode unpacks a leaf's whole (M, w) word stack with
+    one bitunpack: at the unembedding that is M_MAIN * 32 * w =
+    2,483,027,968 int8 signs, past 2^31. Held against the plain version
+    a slab of words at a time (the plain version's int64 temporaries of
+    the whole stack would take ~30 GB)."""
+    words = torch.randint(-2 ** 31, 2 ** 31,
+                          (M_MAIN * sc.words_for(N_UNEMBED),), generator=gen,
+                          device=dev, dtype=torch.int32)
+    n = words.numel() * sc.PACK
+    got = ops.bitunpack(words, n, torch.int8)
+    slab = 1 << 24
+    for w0 in range(0, words.numel(), slab):
+        part = words[w0:w0 + slab]
+        err["bitunpack"] = max(err["bitunpack"], require_equal(
+            f"bitunpack n={n} int8 words {w0}..{w0 + part.numel()}",
+            got[w0 * sc.PACK:(w0 + part.numel()) * sc.PACK],
+            ref.bitunpack(part[None], torch.int8)[0]))
+    del words, got
+    torch.cuda.synchronize()
+    log({"phase": "stacked_bitunpack", "n": n, "voters": M_MAIN,
+         "ok": True})
+    return 1
+
+
+def check_scale(torch, what: str, t, got) -> float:
+    """ef_sign's float32 mean|t| `got` against a float64 sum of |t|, within
+    SCALE_RTOL; returns the relative error."""
+    want = float(t.double().abs().sum()) / t.numel()
+    rel = abs(float(got) - want) / want
+    if not rel <= SCALE_RTOL:
+        raise AssertionError(f"{what}: mean|t| {float(got)!r} against "
+                             f"{want!r} in float64 (rel err {rel})")
+    return rel
+
+
+def ternary_payload(torch, gen, shape, dtype, dev):
+    """ternary_pack inputs: int8 of any value (only the low two bits are
+    packed) with {-1, 0, +1} symbols in the first half and planted zeros;
+    f32 / bf16 values with planted +0.0 and -0.0 (both abstain)."""
+    if dtype == torch.int8:
+        x = torch.randint(-128, 128, shape, generator=gen, device=dev,
+                          dtype=torch.int8)
+        half = shape[-1] // 2
+        x[..., :half] = torch.randint(-1, 2, shape[:-1] + (half,),
+                                      generator=gen, device=dev,
+                                      dtype=torch.int8)
+        x[..., ::7] = 0
+        return x
+    return signed_payload(torch, gen, shape, dtype, dev)
+
+
+def check_ternary_kernels(torch, ops, ref, sc, dev, err) -> int:
+    """ternary_pack, ternary_majority, ternary_unpack and the ternary apply
+    against their plain versions; updates `err`, returns the number of
+    checks."""
+    gen = torch.Generator(device=dev).manual_seed(2468)
+    n_checks = 0
+    for n in SIZES + (17,):
+        w = sc.ternary_words_for(n)
+        for dtype in (torch.float32, torch.bfloat16, torch.int8):
+            rows = max(r for r in PACK_ROWS if r * n * 4 <= TERNARY_CAP_BYTES)
+            x = ternary_payload(torch, gen, (rows, n), dtype, dev)
+            for r in PACK_ROWS:
+                if r > rows:
+                    continue
+                err["ternary_pack"] = max(err["ternary_pack"], require_equal(
+                    f"ternary_pack n={n} rows={r} {dtype}",
+                    ops.ternary_pack(x[:r]),
+                    ref.ternary_pack(sc.pad_last(x[:r], sc.PACK2)[0])))
+                n_checks += 1
+            if n > 1:   # a row that starts one element off alignment
+                row = x[0, 1:].view(1, -1)
+                err["ternary_pack"] = max(err["ternary_pack"], require_equal(
+                    f"ternary_pack n={n - 1} unaligned {dtype}",
+                    ops.ternary_pack(row),
+                    ref.ternary_pack(sc.pad_last(row, sc.PACK2)[0])))
+                n_checks += 1
+            del x
+        for m in VOTERS:
+            packed = torch.randint(-2 ** 31, 2 ** 31, (m, w), generator=gen,
+                                   device=dev, dtype=torch.int32)
+            packed[:, 0] = 0x55555555              # +1 in every field
+            packed[m // 2:, 0] = -1                # -1: ties for even M
+            packed[: (m + 1) // 2, -1] = -0x55555556   # 0b10 everywhere
+            err["ternary_majority"] = max(err["ternary_majority"],
+                                          require_equal(
+                f"ternary_majority n={n} M={m}", ops.ternary_majority(packed),
+                ref.ternary_majority(packed)))
+            n_checks += 1
+            del packed
+        words = torch.randint(-2 ** 31, 2 ** 31, (w,), generator=gen,
+                              device=dev, dtype=torch.int32)
+        err["ternary_unpack"] = max(err["ternary_unpack"], require_equal(
+            f"ternary_unpack n={n}", ops.ternary_unpack(words, n),
+            ref.ternary_unpack(words[None])[0, :n]))
+        n_checks += 1
+        for dtype in (torch.float32, torch.bfloat16):
+            p = torch.randn(n, generator=gen, device=dev).to(dtype)
+            for eta, wd in ((1e-3, 0.0), (1e-2, 0.1)):
+                err["apply_ternary_vote"] = max(
+                    err["apply_ternary_vote"], require_equal(
+                        f"apply_ternary_vote n={n} {dtype} eta={eta} wd={wd}",
+                        ops.apply_ternary_vote(p, words, eta, wd),
+                        ref.apply_ternary_vote(sc.pad_to_pack(p, sc.PACK2)[0],
+                                               words, eta, wd)[:n]))
+                n_checks += 1
+            del p
+        del words
+        torch.cuda.synchronize()
     return n_checks
 
 
 def check_kernels(torch, ops, ref, sc, dev) -> dict:
     gen = torch.Generator(device=dev).manual_seed(1234)
-    err = {"momentum_sign_pack": 0.0, "majority": 0.0, "apply_vote": 0.0,
-           "fused_majority": 0.0, "bitpack": 0.0, "bitunpack": 0.0}
+    err = {name: 0.0 for name in ops.launch_counts()}
     n_checks = 0
     for n in SIZES:
         w = sc.words_for(n)
@@ -164,8 +317,16 @@ def check_kernels(torch, ops, ref, sc, dev) -> dict:
                                   m_k, m_r[:n]),
                     require_equal(f"momentum_sign_pack words n={n} {dtype}",
                                   p_k, p_r))
+            # the ternary2bit / ef_sign encode: m' only, no words
+            m_np, none = ops.momentum_sign_pack(g, m, BETA, pack=False)
+            if none is not None:
+                raise AssertionError("pack=False gave words")
+            e = max(e, require_equal(
+                f"momentum_sign_pack pack=False m' n={n} {dtype}", m_np,
+                m_r[:n]))
+            n_checks += 1
             err["momentum_sign_pack"] = max(err["momentum_sign_pack"], e)
-            del g, m, m_k, p_k, m_r, p_r
+            del g, m, m_k, p_k, m_r, p_r, m_np
             p = torch.randn(n, generator=gen, device=dev).to(dtype)
             votes = torch.randint(-2 ** 31, 2 ** 31, (w,), generator=gen,
                                   device=dev, dtype=torch.int32)
@@ -190,7 +351,14 @@ def check_kernels(torch, ops, ref, sc, dev) -> dict:
             n_checks += 1
         torch.cuda.synchronize()
     n_checks += check_sign_kernels(torch, ops, ref, sc, dev, err)
-    log({"phase": "kernels_vs_plain", "checks": n_checks, "max_abs_err": err})
+    n_checks += check_ternary_kernels(torch, ops, ref, sc, dev, err)
+    # ef_sign's mean|t| summed over ten SCALE_CHUNKs (torch ops, no kernel)
+    from repro_torch.core.codecs import ef_sign
+    t = torch.randn(N_UNEMBED, generator=gen, device=dev)
+    rel = check_scale(torch, f"scale_of n={N_UNEMBED}", t, ef_sign.scale_of(t))
+    del t
+    log({"phase": "kernels_vs_plain", "checks": n_checks, "max_abs_err": err,
+         "scale_of_rel_err": rel})
     return err
 
 
@@ -199,57 +367,89 @@ def check_kernels(torch, ops, ref, sc, dev) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def unembed_grads(torch, M, cfg, params, tokens, per):
-    """Each voter's unembedding gradient at `params`, by plain autograd."""
+def leaf_grads(torch, M, cfg, params, tokens, per, leaf="unembed.table"):
+    """Each voter's gradient of `leaf` at `params`, by plain autograd."""
     out = []
     for r in range(M_MAIN):
         leaves = dict(params)
-        leaves["unembed.table"] = params["unembed.table"].detach() \
-            .requires_grad_()
+        leaves[leaf] = params[leaf].detach().requires_grad_()
         loss, _ = M.loss_fn(cfg, leaves,
                             {"tokens": tokens[r * per:(r + 1) * per]})
-        out.append(torch.autograd.grad(loss, [leaves["unembed.table"]])[0])
+        out.append(torch.autograd.grad(loss, [leaves[leaf]])[0])
     return out
 
 
-def run_main_path(torch, cfg, dev) -> dict:
+def train_config(codec: str):
     from repro_torch.configs.base import (OptimizerConfig, TrainConfig,
                                           VoteStrategy)
-    from repro_torch.core import signum
-    from repro_torch.data.pipeline import SyntheticLMPipeline
-    from repro_torch.kernels import ops, ref
-    from repro_torch.models import model as M
-    from repro_torch.train import train_step as TS
-
-    tcfg = TrainConfig(global_batch=GLOBAL_BATCH, seq_len=SEQ,
+    return TrainConfig(global_batch=GLOBAL_BATCH, seq_len=SEQ,
                        optimizer=OptimizerConfig(
                            kind="signum_vote", learning_rate=LR,
                            momentum=BETA,
-                           vote_strategy=VoteStrategy.ALLGATHER_1BIT))
+                           vote_strategy=VoteStrategy.ALLGATHER_1BIT,
+                           codec=codec))
+
+
+def step_launches(codec: str, n_leaves: int) -> dict:
+    """The kernel launches one step of `codec` makes (M_MAIN voters)."""
+    per_voter = M_MAIN * n_leaves
+    return {
+        "sign1bit": {"momentum_sign_pack": per_voter, "majority": n_leaves,
+                     "apply_vote": n_leaves},
+        "ternary2bit": {"momentum_sign_pack": per_voter,
+                        "ternary_pack": per_voter,
+                        "ternary_majority": n_leaves,
+                        "apply_ternary_vote": n_leaves},
+        "ef_sign": {"momentum_sign_pack": per_voter, "bitpack": per_voter,
+                    "majority": n_leaves, "apply_vote": n_leaves,
+                    "bitunpack": n_leaves},
+        "weighted_vote": {"momentum_sign_pack": per_voter,
+                          "bitunpack": n_leaves, "bitpack": n_leaves,
+                          "apply_vote": n_leaves},
+    }[codec]
+
+
+def run_train_path(torch, cfg, dev, codec: str, leaf: str,
+                   vote_after: bool = False) -> dict:
+    """One training path (phase 3 for sign1bit, phase 5 for the other
+    codecs): 5 full-width steps from fresh state with exact launches per
+    step, a bit-exact step 0 of `leaf`, the peak memory and a profiled
+    step; then, with `vote_after`, the vote path (phase 4) on the trained
+    momentum. Returns the launches of the path."""
+    from repro_torch.core import signum
+    from repro_torch.data.pipeline import SyntheticLMPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.train import train_step as TS
+
+    tcfg = train_config(codec)
     n_params = cfg.param_count()
-    log({"phase": "main_path", "arch": cfg.name, "num_layers": cfg.num_layers,
-         "d_model": cfg.d_model, "vocab": cfg.vocab_size, "params": n_params,
-         "voters": M_MAIN, "global_batch": GLOBAL_BATCH, "seq": SEQ})
+    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
     art = TS.make_train_step(cfg, tcfg, M_MAIN, device=dev)
     params, opt_state = TS.materialize_state(
         cfg, tcfg, art, torch.Generator(device=dev).manual_seed(0))
-    n_leaves = len(params)
     pipe = SyntheticLMPipeline(cfg, GLOBAL_BATCH, SEQ, seed=0)
     per = GLOBAL_BATCH // M_MAIN
-    want = {"momentum_sign_pack": M_MAIN * n_leaves, "majority": n_leaves,
-            "apply_vote": n_leaves}
+    want = step_launches(codec, len(params))
+    log({"phase": "train_path", "codec": art.codec, "arch": cfg.name,
+         "num_layers": cfg.num_layers, "d_model": cfg.d_model,
+         "vocab": cfg.vocab_size, "params": n_params, "voters": M_MAIN,
+         "global_batch": GLOBAL_BATCH, "seq": SEQ,
+         "state": sorted(opt_state), "resident_before_bytes": resident})
 
     ops.reset_launch_counts()
     seen = ops.launch_counts()
-    step_ms = []
+    step_ms, losses = [], []
     for step in range(STEPS):
         tokens = torch.as_tensor(pipe.global_batch_at(step)["tokens"],
                                  device=dev)
         if step == 0:   # saved copies for the bit-exact check of step 0
-            p0 = params["unembed.table"].clone()
-            m0 = opt_state["momentum"]["unembed.table"].clone()
-            g0 = unembed_grads(torch, M, cfg, params, tokens, per)
+            p0 = params[leaf].clone()
+            g0 = leaf_grads(torch, M, cfg, params, tokens, per, leaf)
+            e0 = params["embed.table"].clone() if codec == "ternary2bit" \
+                else None
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         params, opt_state, met = art.step_fn(params, opt_state,
@@ -261,30 +461,50 @@ def run_main_path(torch, cfg, dev) -> dict:
         per_step = {k: counts[k] - seen[k] for k in counts
                     if counts[k] != seen[k]}
         seen = counts
-        log({"step": step, "loss": loss, "ms": ms, "launches": per_step})
+        line = {"codec": codec, "step": step, "loss": loss, "ms": ms,
+                "launches": per_step}
+        if "codec" in opt_state:
+            line["flip_ema"] = opt_state["codec"]["flip_ema"].tolist()
+        log(line)
         if not math.isfinite(loss):
-            raise AssertionError(f"step {step}: loss {loss} is not finite")
+            raise AssertionError(f"{codec} step {step}: loss {loss}")
         if per_step != want:
-            raise AssertionError(f"step {step}: launches {per_step}, "
+            raise AssertionError(f"{codec} step {step}: launches {per_step}, "
                                  f"expected {want}")
         step_ms.append(ms)
+        losses.append(loss)
         if step == 0:
-            check_step0(torch, ref, signum, tcfg, p0, m0, g0,
-                        params["unembed.table"],
-                        opt_state["momentum"]["unembed.table"])
-            del p0, m0, g0
-    launches = ops.launch_counts()   # read just after the main path
+            check_codec_step0(torch, signum, tcfg, codec, leaf, p0, g0,
+                              params, opt_state)
+            if e0 is not None:   # untouched embedding rows abstain
+                held = int((params["embed.table"] == e0).sum())
+                log({"phase": "ternary_step0_embed_held_still",
+                     "coords": held, "of": e0.numel()})
+                if held == 0:
+                    raise AssertionError("ternary2bit moved every embedding "
+                                         "coordinate at step 0")
+            del p0, g0, e0
+    launches = ops.launch_counts()   # read just after the training path
     peak = torch.cuda.max_memory_allocated()
-    log({"max_memory_allocated_bytes": peak,
+    if "codec" in opt_state:
+        ema = opt_state["codec"]["flip_ema"]
+        if not (torch.isfinite(ema).all() and (ema >= 0).all()
+                and (ema <= 1).all()):
+            raise AssertionError(f"flip_ema out of range: {ema.tolist()}")
+    # step 0 carries the warm-up (cuBLAS handles, first launches)
+    median = statistics.median(step_ms[1:])
+    log({"phase": "train_path_done", "codec": codec, "losses": losses,
+         "step_ms_median_1_4": median, "max_memory_allocated_bytes": peak,
          "max_memory_allocated_GiB": peak / 2 ** 30})
     for k, v in want.items():
         if launches[k] != STEPS * v:
-            raise AssertionError(f"{k}: {launches[k]} launches over the run, "
-                                 f"expected {STEPS * v}")
-    # step 0 carries the warm-up (cuBLAS handles, first launches)
-    profile_step(torch, art, params, opt_state, pipe, dev, n_params,
-                 statistics.median(step_ms[1:]))
-    launches.update(run_vote_path(torch, opt_state["momentum"], dev))
+            raise AssertionError(f"{codec} {k}: {launches[k]} launches over "
+                                 f"the run, expected {STEPS * v}")
+    profile_step(torch, art, params, opt_state, pipe, dev, n_params, median,
+                 codec)
+    if vote_after:
+        for k, v in run_vote_path(torch, opt_state["momentum"], dev).items():
+            launches[k] += v
     del params, opt_state, art
     torch.cuda.empty_cache()
     return launches
@@ -294,6 +514,10 @@ def plain_votes(torch, ref, sc, label, x):
     """(n,) int8 votes of the stacked (M, n) payload `x` on wire `label`,
     composed from the plain versions (``kernels/ref.py``) and torch ops."""
     m, n = x.shape
+    if label == "ternary_allgather_1bit":
+        words = ref.ternary_majority(ref.ternary_pack(
+            sc.pad_last(sc.sign_ternary(x), sc.PACK2)[0]))
+        return ref.ternary_unpack(words[None])[0, :n]
     if label == "fused_allgather_1bit":
         words = ref.fused_majority(sc.pad_last(x, sc.PACK)[0])
         return ref.bitunpack(words[None], torch.int8)[0, :n]
@@ -301,7 +525,7 @@ def plain_votes(torch, ref, sc, label, x):
     if label == "staged_allgather_1bit":
         words = ref.majority(ref.bitpack(sc.pad_last(signs, sc.PACK)[0]))
         return ref.bitunpack(words[None], torch.int8)[0, :n]
-    if label == "psum_int8":
+    if label in ("psum_int8", "ternary_psum_int8"):
         return torch.sign(signs.sum(dim=0)).to(torch.int8)
     shards = sc.sign_binary(sc.pad_last(signs, sc.PACK * m)[0].sum(dim=0)
                             .view(m, -1))
@@ -322,13 +546,13 @@ def run_vote_path(torch, momentum, dev) -> dict:
     n_leaves = len(payloads)
     n_total = sum(p.shape[1] for p in payloads.values())
     big = max(payloads, key=lambda k: payloads[k].numel())
-    totals = {"fused_majority": 0, "bitpack": 0, "bitunpack": 0,
-              "majority": 0}
-    fused_votes = None
-    for label, use_kernels, strategy, per_leaf in VOTE_WIRES:
+    totals = {k: 0 for wire in VOTE_WIRES for k in wire[4]}
+    fused_votes = psum_votes = None
+    for label, use_kernels, strategy, codec, per_leaf, bits in VOTE_WIRES:
         backend = va.VirtualBackend(use_kernels=use_kernels, device=dev)
         requests = {k: va.VoteRequest(payload=p, form="stacked",
-                                      strategy=VoteStrategy(strategy))
+                                      strategy=VoteStrategy(strategy),
+                                      codec=codec)
                     for k, p in payloads.items()}
         torch.cuda.synchronize()
         resident = torch.cuda.memory_allocated()
@@ -352,7 +576,6 @@ def run_vote_path(torch, momentum, dev) -> dict:
                                  f"expected {want}")
         for k, v in launches.items():
             totals[k] += v
-        bits = 1.0 if strategy == "allgather_1bit" else 8.0
         for k, wire in wires.items():
             n = payloads[k].shape[1]
             if (wire.payload_bytes != n * bits / 8.0
@@ -372,10 +595,19 @@ def run_vote_path(torch, momentum, dev) -> dict:
                 require_equal(f"fused and staged 1-bit votes of {k}",
                               votes[k], fused_votes[k])
             fused_votes = None
+        elif label == "psum_int8":
+            psum_votes = votes
+        elif label == "ternary_psum_int8":
+            # ternary symbols are the counts psum_int8 already sums
+            for k in payloads:
+                require_equal(f"ternary2bit and sign1bit psum votes of {k}",
+                              votes[k], psum_votes[k])
+            psum_votes = None
         plus = sum(int((v == 1).sum()) for v in votes.values())
         zero = sum(int((v == 0).sum()) for v in votes.values())
         log({"phase": "vote", "wire": label, "use_kernels": use_kernels,
-             "strategy": strategy, "leaves": n_leaves, "coords": n_total,
+             "strategy": strategy, "codec": codec, "leaves": n_leaves,
+             "coords": n_total,
              "voters": M_MAIN, "ms": ms, "launches": launches,
              "payload_bytes": sum(w.payload_bytes for w in wires.values()),
              "votes_plus": plus, "votes_zero": zero,
@@ -389,7 +621,7 @@ def run_vote_path(torch, momentum, dev) -> dict:
         if not v:
             raise AssertionError(f"the vote path never launched {k}")
     quickstart_vote(torch, va, VoteStrategy, dev)
-    return {k: totals[k] for k in ("fused_majority", "bitpack", "bitunpack")}
+    return totals
 
 
 def profile_vote(torch, label, backend, requests) -> None:
@@ -436,8 +668,13 @@ def quickstart_vote(torch, va, VoteStrategy, dev) -> None:
 
 
 KERNEL_GROUPS = (("momentum_sign_pack", ("momentum_sign_pack_kernel",)),
+                 ("ternary_pack", ("ternary_pack_kernel",)),
+                 ("ternary_majority", ("ternary_majority_kernel",)),
+                 ("apply_ternary_vote", ("apply_ternary_vote_kernel",)),
                  ("majority", ("majority_kernel",)),
                  ("apply_vote", ("apply_vote_kernel",)),
+                 ("bitpack", ("bitpack_kernel",)),
+                 ("bitunpack", ("bitunpack_kernel",)),
                  ("gemm", ("nvjet", "gemm", "xmma", "cutlass", "cublas")),
                  ("elementwise", ("elementwise_kernel", "fillfunctor")),
                  ("reduce_softmax", ("reduce_kernel", "softmax",
@@ -445,12 +682,12 @@ KERNEL_GROUPS = (("momentum_sign_pack", ("momentum_sign_pack_kernel",)),
 
 
 def profile_step(torch, art, params, opt_state, pipe, dev, n_params,
-                 unprofiled_ms: float) -> None:
+                 unprofiled_ms: float, codec: str) -> None:
     """One more step under torch.profiler: device time by kernel group, the
     device's idle share of an unprofiled step (the median of steps 1..4;
     the profiler's own host cost stretches the profiled step's wall time),
-    and the three kernels' per-step time beside their per-step bounds over
-    all parameters."""
+    and the step's kernels' time beside their per-step bounds over all
+    parameters."""
     from torch.profiler import ProfilerActivity, profile
     tokens = torch.as_tensor(pipe.global_batch_at(STEPS)["tokens"],
                              device=dev)
@@ -475,11 +712,30 @@ def profile_step(torch, art, params, opt_state, pipe, dev, n_params,
         groups[group] += ms
     busy = sum(groups.values())
     n = n_params
-    per_step_bound = {   # bytes over all leaves, M voters, bf16 params
-        "momentum_sign_pack": M_MAIN * n * 10.125 / HBM_BYTES_PER_S * 1e3,
-        "majority": (M_MAIN + 1) * n / 8 / HBM_BYTES_PER_S * 1e3,
-        "apply_vote": n * 4.125 / HBM_BYTES_PER_S * 1e3}
-    log({"phase": "profiled_step", "profiled_wall_ms": wall_ms,
+    m = M_MAIN
+    per_step_bytes = {   # over all leaves, M voters, bf16 params
+        "sign1bit": {"momentum_sign_pack": m * n * 10.125,
+                     "majority": (m + 1) * n / 8, "apply_vote": n * 4.125},
+        # m' alone (no sign words); then one f32 momentum row read, 2 bits
+        # written, per voter
+        "ternary2bit": {"momentum_sign_pack": m * n * 10,
+                        "ternary_pack": m * n * 4.25,
+                        "ternary_majority": (m + 1) * n / 4,
+                        "apply_ternary_vote": n * 4.25},
+        # m' alone; bitpack reads each voter's f32 t; bitunpack writes the
+        # f32 vote
+        "ef_sign": {"momentum_sign_pack": m * n * 10,
+                    "bitpack": m * n * 4.125, "majority": (m + 1) * n / 8,
+                    "apply_vote": n * 4.125, "bitunpack": n * 4.125},
+        # bitunpack writes the (M, n) int8 signs; bitpack reads the int8
+        # vote
+        "weighted_vote": {"momentum_sign_pack": m * n * 10.125,
+                          "bitunpack": m * n * 1.125,
+                          "bitpack": n * 1.125, "apply_vote": n * 4.125},
+    }[codec]
+    per_step_bound = {k: b / HBM_BYTES_PER_S * 1e3
+                      for k, b in per_step_bytes.items()}
+    log({"phase": "profiled_step", "codec": codec, "profiled_wall_ms": wall_ms,
          "unprofiled_step_ms": unprofiled_ms, "device_busy_ms": busy,
          "device_idle_share": (1 - busy / unprofiled_ms) if busy else None,
          "device_ms_by_group": groups,
@@ -489,27 +745,72 @@ def profile_step(torch, art, params, opt_state, pipe, dev, n_params,
                          in sorted(kernels, reverse=True)[:12]]})
 
 
-def check_step0(torch, ref, signum, tcfg, p0, m0, g0, p1, m1) -> None:
-    """Step 0 on the unembedding leaf, recomputed with the plain versions
-    from the saved parameters, momentum and gradients: bit-equal."""
-    packed = []
-    for r in range(M_MAIN):
-        m_ref, words = ref.momentum_sign_pack(g0[r].view(1, -1),
-                                              m0[r].view(1, -1), BETA)
-        require_equal(f"step 0 momentum of voter {r}", m1[r].view(1, -1),
-                      m_ref)
-        packed.append(words[0])
-        del m_ref
-    votes = ref.majority(torch.stack(packed))
+def check_codec_step0(torch, signum, tcfg, codec, leaf, p0, g0, params,
+                      opt_state) -> None:
+    """Step 0 of `leaf` under `codec`, recomputed from the saved parameters
+    and gradients with the plain versions (momentum and ef_sign's residual
+    start at zero): momentum, ef_sign's residual and the parameters
+    bit-equal."""
+    from repro_torch.core.codecs import ef_sign, weighted
+    from repro_torch.kernels import ref
     eta = signum.lr_at(tcfg.optimizer, 0)
-    p_ref = ref.apply_vote(p0.view(1, -1), votes[None], eta,
-                           tcfg.optimizer.weight_decay)
-    require_equal("step 0 parameters", p1.view(1, -1), p_ref)
-    log({"phase": "step0_unembed_bit_equal", "ok": True})
+    wd = tcfg.optimizer.weight_decay
+    n = p0.numel()
+    m1 = opt_state["momentum"][leaf].view(M_MAIN, -1)
+    inputs, words, rel = [], [], 0.0
+    for r in range(M_MAIN):
+        g = g0[r].reshape(1, -1)
+        m_ref, bits = ref.momentum_sign_pack(
+            g, torch.zeros(g.shape, dtype=torch.float32, device=g.device),
+            BETA)
+        require_equal(f"{codec} step 0 momentum of voter {r}",
+                      m1[r].view(1, -1), m_ref)
+        if codec == "ef_sign":
+            t = torch.zeros_like(m_ref) + m_ref     # e + m', e = 0
+            inputs.append(t)
+            words.append(ref.bitpack(t)[0])
+        elif codec == "ternary2bit":
+            words.append(ref.ternary_pack(m_ref)[0])
+        else:
+            words.append(bits[0])
+    words = torch.stack(words)
+    p = p0.view(1, -1)
+    if codec == "ternary2bit":
+        p_ref = ref.apply_ternary_vote(p, ref.ternary_majority(words)[None],
+                                       eta, wd)
+    else:
+        votes = ref.majority(words)
+        if codec == "weighted_vote":
+            stacked = ref.bitunpack(words, torch.int8)[:, :n]
+            w = weighted.reliability_weights(
+                opt_state["codec"]["flip_ema"].new_zeros(M_MAIN))
+            vote, _ = weighted.decode_leaf_fixed(stacked, w)
+            # the zero prior's equal weights decode the plain majority
+            require_equal("weighted_vote step 0 vote against the majority",
+                          ref.bitpack(vote.view(1, -1))[0], votes)
+        p_ref = ref.apply_vote(p, votes[None], eta, wd)
+        if codec == "ef_sign":
+            # the residual bit for bit with the program's mean|t|, which is
+            # itself held to a float64 sum of |t|
+            vote = ref.bitunpack(votes[None], torch.float32)[0, :n]
+            e1 = opt_state["error"][leaf].view(M_MAIN, -1)
+            for r, t in enumerate(inputs):
+                scale = ef_sign.scale_of(t)
+                rel = max(rel, check_scale(
+                    torch, f"ef_sign step 0 mean|t| of voter {r}", t, scale))
+                require_equal(f"ef_sign step 0 residual of voter {r}", e1[r],
+                              t[0] - scale * vote)
+    require_equal(f"{codec} step 0 parameters", params[leaf].view(1, -1),
+                  p_ref)
+    line = {"phase": "step0_bit_equal", "codec": codec, "leaf": leaf,
+            "coords": n, "ok": True}
+    if codec == "ef_sign":
+        line["scale_rel_err"] = rel
+    log(line)
 
 
 # ---------------------------------------------------------------------------
-# phase 4: timing at the unembedding shape
+# phase 6: timing at the unembedding shape
 # ---------------------------------------------------------------------------
 
 
@@ -539,14 +840,15 @@ def time_kernels(torch, ops, ref, sc, dev, launches, errs) -> list:
     n, w = N_UNEMBED, sc.words_for(N_UNEMBED)
     rows = []
 
-    def row(name, replaces, ms, plain, bytes_moved, ops_done, source):
+    def row(name, replaces, ms, plain, bytes_moved, ops_done, source,
+            **extra):
         b, by = bound(bytes_moved, ops_done)
         rows.append({"name": name, "route": "cuda", "source": SOURCE + source,
                      "replaces": replaces, "launches": launches[name],
                      "max_abs_err": errs[name], "max_diff": errs[name],
                      "ms": ms, "plain_ms": plain, "bound_ms": b,
                      "bound_by": by, "library_ms": None,
-                     "shape": {"n": n, "voters": M_MAIN}})
+                     "shape": {"n": n, "voters": M_MAIN}, **extra})
 
     g = torch.randn(n, generator=gen, device=dev).to(torch.bfloat16)
     m = torch.randn(n, generator=gen, device=dev)
@@ -555,9 +857,14 @@ def time_kernels(torch, ops, ref, sc, dev, launches, errs) -> list:
         g, m, BETA, m_out=m, packed_out=words), reps=25)
     plain = median_ms(torch, lambda: ref.momentum_sign_pack(
         g.view(1, -1), m.view(1, -1), BETA), reps=5, warmup=1)
+    # the ternary2bit / ef_sign encode: m' written, no words
+    nopack_ms = median_ms(torch, lambda: ops.momentum_sign_pack(
+        g, m, BETA, m_out=m, pack=False), reps=25)
+    nopack_b, _ = bound(n * (2 + 4 + 4), 3 * n)
     # g bf16 read, m read and written, one bit out; 2 mul + 1 add
     row("momentum_sign_pack", "src/repro/kernels/signum_update.py:46", ms,
-        plain, n * (2 + 4 + 4) + w * 4, 3 * n, "signum_update.cu")
+        plain, n * (2 + 4 + 4) + w * 4, 3 * n, "signum_update.cu",
+        nopack_ms=nopack_ms, nopack_bound_ms=nopack_b)
     del g, m, words
 
     packed = torch.randint(-2 ** 31, 2 ** 31, (M_MAIN, w), generator=gen,
@@ -606,10 +913,62 @@ def time_kernels(torch, ops, ref, sc, dev, launches, errs) -> list:
     # one bit read and one int8 sign written per element; a select each
     row("bitunpack", "src/repro/kernels/bitpack.py:64", ms, plain,
         w * 4 + n, n, "bitpack.cu")
+    del words
+
+    w2 = sc.ternary_words_for(n)
+    signs = ternary_payload(torch, gen, (M_MAIN, n), torch.int8, dev)
+    stack_ms = median_ms(torch, lambda: ops.ternary_pack(signs), reps=25)
+    stack_b, _ = bound(M_MAIN * (n + w2 * 4), M_MAIN * n)
+    del signs
+    m_row = torch.randn((1, n), generator=gen, device=dev)
+    out = torch.empty((1, w2), dtype=torch.int32, device=dev)
+    ms = median_ms(torch, lambda: ops.ternary_pack(m_row, out=out), reps=25)
+    plain = median_ms(torch, lambda: ref.ternary_pack(m_row), reps=5,
+                      warmup=1)
+    # the trainer's use: one f32 momentum row read, 2 bits written; a
+    # compare and a shift per element. The vote API's (4, n) int8 wire
+    # signs ride along as stack_*.
+    row("ternary_pack", "src/repro/kernels/ternary_pack.py:61", ms, plain,
+        n * 4 + w2 * 4, 2 * n, "ternary_pack.cu", stack_ms=stack_ms,
+        stack_bound_ms=stack_b, stack_shape={"rows": M_MAIN,
+                                             "dtype": "int8"})
+    del m_row, out
+    packed = torch.randint(-2 ** 31, 2 ** 31, (M_MAIN, w2), generator=gen,
+                           device=dev, dtype=torch.int32)
+    out = torch.empty(w2, dtype=torch.int32, device=dev)
+    ms = median_ms(torch, lambda: ops.ternary_majority(packed, out=out),
+                   reps=25)
+    plain = median_ms(torch, lambda: ref.ternary_majority(packed), reps=5,
+                      warmup=1)
+    # M words read and one written per 16 fields; two compares and an add
+    # per voter and field
+    row("ternary_majority", "src/repro/kernels/ternary_pack.py:79", ms,
+        plain, (M_MAIN + 1) * w2 * 4, 3 * M_MAIN * n, "ternary_pack.cu")
+    del packed
+    ms = median_ms(torch, lambda: ops.ternary_unpack(out, n), reps=25)
+    plain = median_ms(torch, lambda: ref.ternary_unpack(out[None]), reps=5,
+                      warmup=1)
+    # 2 bits read and one int8 symbol written per element; a select each
+    row("ternary_unpack", "src/repro/kernels/ops.py:155 (jnp, no "
+        "pallas_call)", ms, plain, w2 * 4 + n, n, "ternary_pack.cu")
+    p = torch.randn(n, generator=gen, device=dev).to(torch.bfloat16)
+    ms = median_ms(torch, lambda: ops.apply_ternary_vote(p, out, LR, 0.0,
+                                                         out=p), reps=25)
+    plain = median_ms(torch, lambda: ref.apply_ternary_vote(
+        p.view(1, -1), out[None], LR, 0.0), reps=5, warmup=1)
+    # p bf16 read and written, 2 vote bits; mul, add, mul, sub
+    row("apply_ternary_vote", "src/repro/core/signum.py:232 (jnp apply, no "
+        "pallas_call)", ms, plain, n * (2 + 2) + w2 * 4, 4 * n,
+        "signum_update.cu")
     return rows
 
 
 def main() -> int:
+    # Phases 3-5 free and re-allocate tens of GB in blocks of many sizes;
+    # expandable segments keep the cached memory from fragmenting so the
+    # plain versions' large temporaries still find room (set before the
+    # first CUDA allocation, which reads it).
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -645,8 +1004,15 @@ def main() -> int:
     errs = check_kernels(torch, ops, ref, sc, dev)
     # every published width of glm4-9b; depth cut to 2 layers
     cfg = dataclasses.replace(get_config("glm4-9b"), num_layers=2)
-    launches = run_main_path(torch, cfg, dev)
+    launches = run_train_path(torch, cfg, dev, "sign1bit", "unembed.table",
+                              vote_after=True)
+    for codec, leaf in CHECK_LEAF.items():
+        for k, v in run_train_path(torch, cfg, dev, codec, leaf).items():
+            launches[k] += v
     rows = time_kernels(torch, ops, ref, sc, dev, launches, errs)
+    never = [r["name"] for r in rows if not r["launches"]]
+    if never:
+        raise AssertionError(f"the main path never launched {never}")
     log({"phase": "done", "seconds": time.perf_counter() - t_start})
     log({"kernels": rows})
     log({"ok": True, "device": {"platform": "gpu",

@@ -1,30 +1,42 @@
 """Gradient codecs (``repro.core.codecs``; DESIGN.md §8).
 
     from repro_torch.core import codecs
-    codec = codecs.get_codec("sign1bit")
+    codec = codecs.get_codec("ef_sign")
 
-Only ``sign1bit``, the paper's raw-sign majority, is ported. The other
-codecs of the reference (``ef_sign``, ``ternary2bit``, ``weighted_vote``)
-raise ``NotImplementedError`` naming ROADMAP.md Queue 1 item 8; any other
-name raises ``ValueError``, as the reference does.
+| codec            | encode                       | decode                      | state  |
+|------------------|------------------------------|-----------------------------|--------|
+| ``sign1bit``     | raw signs (the paper)        | unweighted majority         | none   |
+| ``ef_sign``      | signs of value + EF residual | unweighted majority         | worker |
+| ``ternary2bit``  | ternary symbols, 2-bit pack  | sign of symbol sum (ties→0) | none   |
+| ``weighted_vote``| raw signs                    | Chair–Varshney weighted     | server |
 """
 from repro_torch.core.codecs.base import GradientCodec
+from repro_torch.core.codecs.ef_sign import EFSignCodec
 from repro_torch.core.codecs.sign1bit import Sign1BitCodec
+from repro_torch.core.codecs.ternary import TERNARY_WIRE, Ternary2BitCodec
+from repro_torch.core.codecs.weighted import (WeightedVoteCodec,
+                                              decode_stacked,
+                                              reliability_weights)
 
-CODECS = {c.name: c for c in (Sign1BitCodec(),)}
-#: the reference's other codecs, still to port
-NOT_PORTED = ("ef_sign", "ternary2bit", "weighted_vote")
+CODECS = {c.name: c for c in (Sign1BitCodec(), EFSignCodec(),
+                              Ternary2BitCodec(), WeightedVoteCodec())}
+
+DEFAULT_CODEC = "sign1bit"
 
 
 def get_codec(name: str) -> GradientCodec:
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"codec {name!r} is not ported yet (ROADMAP.md Queue 1 item 8); "
-            "the port runs codec 'sign1bit'")
     if name not in CODECS:
-        raise ValueError(f"unknown codec {name!r}; have "
-                         f"{sorted((*CODECS, *NOT_PORTED))}")
+        raise ValueError(f"unknown codec {name!r}; have {sorted(CODECS)}")
     return CODECS[name]
 
 
-__all__ = ["CODECS", "GradientCodec", "Sign1BitCodec", "get_codec"]
+def list_codecs():
+    return tuple(sorted(CODECS))
+
+
+__all__ = [
+    "CODECS", "DEFAULT_CODEC", "EFSignCodec", "GradientCodec",
+    "Sign1BitCodec", "TERNARY_WIRE", "Ternary2BitCodec",
+    "WeightedVoteCodec", "decode_stacked", "get_codec", "list_codecs",
+    "reliability_weights",
+]

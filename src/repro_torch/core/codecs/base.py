@@ -1,19 +1,37 @@
 """The GradientCodec interface (``repro.core.codecs.base``; DESIGN.md §8).
 
 A codec decides what each voter puts on the wire and how the tally
-decodes it. Of the reference's interface the port carries the wire side:
-which strategies can transport the codec's symbols (``supported_
-strategies``), at what width (``wire_bits``) and with which tie rule
-(``ties``). The worker- and server-side state (``init_state``,
-``encode_leaf``, ``init_server_state``, ...) arrives with the stateful
-codecs (ROADMAP.md Queue 1 item 8).
+decodes it, in three pieces:
+
+* **worker state** (``init_state`` / ``encode_leaf`` / ``feedback_leaf``)
+  — per-voter memory beside the momentum (the EF residual), momentum-
+  shaped with the leading voter axis under Mode A;
+* **server state** (``init_server_state``) — per-voter-set decode memory
+  (the weighted vote's flip-rate estimates), one copy for all voters;
+* **the wire** (``supported_strategies`` / ``wire_bits`` / ``ties``) —
+  which strategies transport the codec's symbols, at what width and with
+  which tie rule;
+* **the Mode A trainer's hooks** (``words_for`` / ``encode_voter_`` /
+  ``begin_step`` / ``vote_`` / ``apply_`` / ``feedback_voters_`` /
+  ``end_step``) — the same three pieces on ``allgather_1bit``'s exchange
+  with M voters stacked on one device, written in place over the
+  momentum, the residual and the parameters. The defaults are
+  ``sign1bit``'s: the signs of m' (``momentum_sign_pack``'s words), the
+  popcount majority and ``apply_vote``.
+
+Implementations are stateless singletons; state lives in the caller's
+dictionaries.
 """
 from __future__ import annotations
 
 import abc
-from typing import Tuple
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
 
 from repro_torch.configs.base import VoteStrategy
+from repro_torch.core import sign_compress as sc
+from repro_torch.kernels import ops
 
 
 class GradientCodec(abc.ABC):
@@ -25,6 +43,80 @@ class GradientCodec(abc.ABC):
     bits_per_param: float
     #: strategies whose exchange can transport this codec's symbols
     supported_strategies: Tuple[VoteStrategy, ...]
+    #: True if encode carries per-worker memory (EF residual)
+    worker_state: bool = False
+    #: True if decode carries server-side memory (reliability weights)
+    server_state: bool = False
+
+    # ---- worker side -----------------------------------------------------
+
+    def init_state(self, values: torch.Tensor) -> Optional[torch.Tensor]:
+        """Per-worker encode memory for one leaf (None if stateless)."""
+        return None
+
+    def encode_leaf(self, values: torch.Tensor,
+                    state: Optional[torch.Tensor]) -> torch.Tensor:
+        """values -> the tensor whose SIGNS go to the wire; stateful codecs
+        fold their memory in here."""
+        return values
+
+    def feedback_leaf(self, encoded: torch.Tensor, vote: torch.Tensor,
+                      state: Optional[torch.Tensor]
+                      ) -> Optional[torch.Tensor]:
+        """Post-vote worker-state update; `encoded` is what encode_leaf
+        returned, `vote` the decoded ±1/0 tensor."""
+        return state
+
+    # ---- server side -----------------------------------------------------
+
+    def init_server_state(self, n_workers: int, device=None
+                          ) -> Dict[str, torch.Tensor]:
+        """Server-side decode memory for an M-voter set ({} if none); all
+        zeros is the uninformed prior."""
+        return {}
+
+    # ---- Mode A trainer (M voters stacked, in place) ----------------------
+
+    def words_for(self, n: int) -> int:
+        """Words of one voter's symbols of an n-coordinate leaf."""
+        return sc.words_for(n)
+
+    def encode_voter_(self, g: torch.Tensor, m: torch.Tensor, beta: float,
+                      words: torch.Tensor, error: Optional[torch.Tensor]
+                      ) -> Any:
+        """One voter's worker side of one flat leaf: m <- beta*m +
+        (1-beta)*g in place, and the voter's symbols into `words` (its
+        row of the leaf's words). `error` is the voter's residual row
+        (None without worker state). Returns what :meth:`feedback_voters_`
+        needs of this voter."""
+        ops.momentum_sign_pack(g, m, beta, m_out=m, packed_out=words)
+        return None
+
+    def begin_step(self, server_state: Optional[Dict[str, torch.Tensor]]
+                   ) -> Any:
+        """The server's decode context for one step, fixed for the step."""
+        return None
+
+    def vote_(self, words: torch.Tensor, n: int, ctx: Any) -> torch.Tensor:
+        """(M, w) words of an n-coordinate leaf -> the packed vote."""
+        return ops.majority(words)
+
+    def apply_(self, p: torch.Tensor, votes: torch.Tensor, eta: float,
+               weight_decay: float) -> None:
+        """Flat p <- p - eta*(vote + weight_decay*p) in place."""
+        ops.apply_vote(p, votes, eta, weight_decay, out=p)
+
+    def feedback_voters_(self, votes: torch.Tensor,
+                         error: Optional[torch.Tensor], sent: List[Any]
+                         ) -> None:
+        """After the vote: the (M, n) residual of the leaf from the packed
+        `votes` and each voter's :meth:`encode_voter_` result."""
+
+    def end_step(self, server_state: Optional[Dict[str, torch.Tensor]],
+                 ctx: Any) -> None:
+        """The server state's update once every leaf is voted."""
+
+    # ---- wire ------------------------------------------------------------
 
     def ties(self, strategy: VoteStrategy) -> str:
         """Decoded tie convention under `strategy` ("zero"/"plus_one")."""

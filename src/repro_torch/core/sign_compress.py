@@ -3,14 +3,19 @@
 Two sign conventions coexist (DESIGN.md §5): ``sign_ternary`` (0 -> 0,
 the count wires' abstention) and ``sign_binary`` (``x >= 0 -> +1``, the
 1-bit wire). Besides them: zero-padding to the pack width, pack/unpack and
-the bit-sliced majority. ``popcount`` and the ternary 2-bit format wait
-for the ``ternary2bit`` codec (ROADMAP.md Queue 1 item 8).
+the bit-sliced majority, and the ``ternary2bit`` codec's 2-bit format
+(``pack_ternary`` / ``unpack_ternary`` / ``ternary_majority``).
 
 Packing is 32 signs per word, little-endian within the word: bit j of word
 k is ``x[32k + j] >= 0``. Words are carried as **int32 bit patterns**
 (PyTorch has no shifts on uint32 tensors on the CPU); bit 31 is the sign
 bit, and every right shift is masked with ``& 1`` so the arithmetic shift
 never leaks. View them as ``np.uint32`` only at the numpy boundary.
+
+The 2-bit format packs 16 ternary symbols per word, little-endian, in
+two's-complement fields: +1 -> ``0b01``, -1 -> ``0b11``, 0 (abstain) ->
+``0b00``. Field 15 sits in bits 30-31, so its right shift is masked with
+``& 3`` like every other.
 """
 from __future__ import annotations
 
@@ -20,6 +25,8 @@ import torch
 import torch.nn.functional as F
 
 PACK = 32
+#: ternary symbols per word (2 bits each; codec ``ternary2bit``)
+PACK2 = 16
 WORD_DTYPE = torch.int32
 
 
@@ -58,6 +65,11 @@ def words_for(n: int) -> int:
     return -(-n // PACK)
 
 
+def ternary_words_for(n: int) -> int:
+    """2-bit packed words holding n ternary symbols."""
+    return -(-n // PACK2)
+
+
 def pack_signs(x: torch.Tensor) -> torch.Tensor:
     """x (..., n) real, n % 32 == 0 -> int32 words (..., n // 32)."""
     if x.shape[-1] % PACK != 0:
@@ -90,4 +102,55 @@ def packed_majority(packed: torch.Tensor) -> torch.Tensor:
     for j in range(PACK):
         count = ((packed >> j) & 1).sum(dim=0)
         acc |= (2 * count >= m).to(WORD_DTYPE) << j
+    return acc
+
+
+def popcount(x: torch.Tensor) -> torch.Tensor:
+    """Per-word population count of int32 bit patterns (SWAR), as int32.
+
+    The shifts are masked after the arithmetic shift, and the final
+    multiply works in int64 so bit 31 never overflows."""
+    x = x.to(torch.int64) & 0xFFFFFFFF
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    return (((x * 0x01010101) & 0xFFFFFFFF) >> 24).to(torch.int32)
+
+
+def pack_ternary(s: torch.Tensor) -> torch.Tensor:
+    """s (..., n) integer symbols, n % 16 == 0 -> int32 words (..., n // 16).
+
+    Field j of word k holds ``s[..., 16k + j] & 3``: 2-bit two's
+    complement for {-1, 0, +1} (``0b10`` is never produced from them)."""
+    if s.shape[-1] % PACK2 != 0:
+        raise ValueError(
+            f"pack_ternary needs last dim % {PACK2} == 0, got shape "
+            f"{tuple(s.shape)}; pad with pad_last first")
+    sym = s.to(WORD_DTYPE) & 0x3
+    fields = sym.reshape(s.shape[:-1] + (s.shape[-1] // PACK2, PACK2))
+    acc = torch.zeros(fields.shape[:-1], dtype=WORD_DTYPE, device=s.device)
+    for j in range(PACK2):   # one strided pass per field
+        acc |= fields[..., j] << (2 * j)
+    return acc
+
+
+def unpack_ternary(packed: torch.Tensor, dtype=torch.int8) -> torch.Tensor:
+    """int32 words (..., w) -> (..., 16 * w) of {-1, 0, +1} in `dtype`:
+    ``0b01`` -> +1, ``0b11`` -> -1, anything else (``0b10`` too) -> 0."""
+    shifts = torch.arange(PACK2, dtype=WORD_DTYPE, device=packed.device) * 2
+    fields = (packed[..., None] >> shifts) & 0x3
+    signs = (fields == 1).to(dtype) - (fields == 3).to(dtype)
+    return signs.reshape(packed.shape[:-1] + (packed.shape[-1] * PACK2,))
+
+
+def ternary_majority(packed: torch.Tensor) -> torch.Tensor:
+    """(M, w) packed ternary votes -> (w,) packed ternary majority: per
+    field, the sign of the symbol sum over the M voters, so abstentions
+    abstain and ties give 0. Field-sliced, so no (M, 16w) tensor is made."""
+    acc = torch.zeros(packed.shape[1:], dtype=WORD_DTYPE,
+                      device=packed.device)
+    for j in range(PACK2):
+        f = (packed >> (2 * j)) & 0x3
+        count = (f == 1).sum(dim=0) - (f == 3).sum(dim=0)
+        acc |= torch.sign(count).to(WORD_DTYPE).bitwise_and_(0x3) << (2 * j)
     return acc

@@ -14,19 +14,25 @@ entry point for a majority vote.
 
 The port runs the ``stacked`` form — an ``(M, n)`` payload of M voters'
 values — on the three wires (``psum_int8``, ``allgather_1bit``,
-``hierarchical``) with codec ``sign1bit``. ``VirtualBackend(use_kernels=
-True)`` votes ``allgather_1bit`` with the fused sign+pack+popcount kernel
+``hierarchical``) with the four codecs (``sign1bit``, ``ef_sign``,
+``ternary2bit``, ``weighted_vote``; each on the strategies it supports).
+``VirtualBackend(use_kernels=True)`` votes ``sign1bit`` on
+``allgather_1bit`` with the fused sign+pack+popcount kernel
 (``fused_majority``) and decodes with ``bitunpack``; with
-``use_kernels=False`` the strategy's own stages run, and on a CUDA tensor
-the 1-bit ones are the hand-written kernels too (``core.vote_engine``).
+``use_kernels=False`` the strategy's and the codec's own stages run, and on
+a CUDA tensor the packed ones are the hand-written kernels too: the 1-bit
+stages (``core.vote_engine``), ``ternary2bit``'s 2-bit wire
+(``ternary_pack`` -> ``ternary_majority`` -> ``ternary_unpack``) and
+``weighted_vote``'s decode of the 1-bit words (``bitpack`` ->
+``bitunpack``, then the weighted sum in torch ops).
 
 Requests are validated on construction and raise ``ValueError`` where the
 reference does (a wrong shape, an unknown form or codec, a codec that
-cannot ride the strategy). What the port does not run yet raises
-``NotImplementedError`` naming its ROADMAP.md item: the ``leaf`` and
-``tree`` forms and :class:`MeshBackend` (Queue 1 item 5), active
-failures (item 6), a ``plan`` and ``overlap`` (item 7), the other codecs
-(item 8), the ``streamed`` form, ``voter_ids`` / ``weights`` and adaptive
+cannot ride the strategy, a stateful codec without its server state).
+What the port does not run yet raises ``NotImplementedError`` naming its
+ROADMAP.md item: the ``leaf`` and ``tree`` forms and :class:`MeshBackend`
+(Queue 1 item 5), active failures (item 6), a ``plan`` and ``overlap``
+(item 7), the ``streamed`` form, ``voter_ids`` / ``weights`` and adaptive
 adversaries (item 10). The ``vote.*`` counters and spans of the reference
 arrive with the telemetry layer (item 9).
 """
@@ -43,6 +49,8 @@ from repro_torch.configs.base import ByzantineConfig, VoteStrategy
 from repro_torch.core import codecs as codecs_mod
 from repro_torch.core import sign_compress as sc
 from repro_torch.core import vote_engine as ve
+from repro_torch.core.codecs import weighted
+from repro_torch.core.codecs.ternary import TERNARY_WIRE
 from repro_torch.core.sign_compress import pad_last
 from repro_torch.core.vote_engine import count_bytes, count_dtype
 from repro_torch.kernels import ops
@@ -59,8 +67,8 @@ ADVERSARY_MODES = ("none", "sign_flip", "random", "zero", "colluding",
 def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported yet (ROADMAP.md Queue 1 item {item}); the "
-        "port votes stacked (M, n) payloads on VirtualBackend with codec "
-        "sign1bit and no failures")
+        "port votes stacked (M, n) payloads on VirtualBackend with no "
+        "failures")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -120,8 +128,10 @@ class VoteRequest:
 
     `payload` is an ``(M, n)`` array (numpy or torch) of M voters' values
     with ``form="stacked"``; `strategy` is a concrete wire or AUTO;
-    `codec` is ``"sign1bit"``. The other fields are the reference's and
-    must stay at their defaults in the port (see the module doc)."""
+    `codec` one of ``codecs.CODECS``; `server_state` threads a stateful
+    codec's decode memory (``weighted_vote``'s ``{"flip_ema": (M,)}``,
+    numpy or torch). The other fields are the reference's and must stay at
+    their defaults in the port (see the module doc)."""
 
     payload: Any
     form: str = "leaf"
@@ -167,6 +177,15 @@ class VoteRequest:
                 f"failures.n_stale={self.failures.n_stale} substitutes "
                 "stale votes but the request has no prev signs to "
                 "substitute (set VoteRequest.prev)")
+        # a stacked request always decodes through the codec (even M=1),
+        # so missing server state is a build-time error, as in the
+        # reference
+        if codec.server_state and not self.server_state:
+            raise ValueError(
+                f"codec {self.codec!r} keeps server-side decode state; "
+                "thread it through "
+                "VoteRequest.server_state (init_server_state for the "
+                "uninformed prior)")
         if self.attack_obs is not None and not self.failures.adaptive:
             raise ValueError(
                 "attack_obs carries an adaptive adversary's observation "
@@ -249,9 +268,29 @@ def _virtual_wire_vote(signs: torch.Tensor,
 def _virtual_codec_vote(signs: torch.Tensor, strategy: VoteStrategy,
                         codec: str, server_state):
     """(M, n) stacked int8 signs -> ((n,) int8 majority, new server state)
-    through the codec's wire. The one ported codec, ``sign1bit``, rides
-    the strategy's wire as it is and keeps no state."""
-    return _virtual_wire_vote(signs, strategy), dict(server_state or {})
+    through the codec's wire stages, exchange virtualised."""
+    state = dict(server_state or {})
+    m, n = signs.shape
+
+    if codec in ("sign1bit", "ef_sign"):
+        # the plain majority's wire: only the (caller-side) encode differs
+        return _virtual_wire_vote(signs, strategy), state
+
+    if codec == "ternary2bit":
+        if strategy == VoteStrategy.PSUM_INT8:
+            # ternary symbols ARE the counts psum already sums
+            return _virtual_wire_vote(signs, strategy), state
+        return TERNARY_WIRE.vote(signs), state
+
+    if codec == "weighted_vote":
+        wire = ve.STRATEGIES[VoteStrategy.ALLGATHER_1BIT].pack(signs, m)
+        stacked = weighted.stacked_signs(wire, n)
+        ema = torch.as_tensor(state["flip_ema"], dtype=torch.float32,
+                              device=signs.device)
+        vote, new_ema = weighted.decode_stacked(stacked, ema)
+        return vote, {**state, "flip_ema": new_ema}
+
+    raise ValueError(f"virtual mesh cannot realise codec {codec!r}")
 
 
 class VoteBackend(abc.ABC):
@@ -299,9 +338,9 @@ class VirtualBackend(VoteBackend):
     where the outcome's tensors live. On a CUDA device every 1-bit stage
     is a hand-written kernel; on the CPU the kernels' plain versions run.
 
-    ``use_kernels=True`` votes ``allgather_1bit`` requests with the fused
-    sign+pack+popcount kernel and rejects every other strategy, whose tie
-    rule the kernel does not realise."""
+    ``use_kernels=True`` votes ``sign1bit`` requests on
+    ``allgather_1bit`` with the fused sign+pack+popcount kernel and rejects
+    every other codec and strategy, which the kernel does not realise."""
 
     name = "virtual"
 
@@ -311,8 +350,12 @@ class VirtualBackend(VoteBackend):
         self.device = repro_torch.resolve_device(device)
 
     def why_unsupported(self, request: VoteRequest) -> Optional[str]:
-        if self.use_kernels \
-                and request.strategy != VoteStrategy.ALLGATHER_1BIT:
+        if not self.use_kernels:
+            return None
+        if request.codec != "sign1bit":
+            return ("the fused kernel realises the raw 1-bit wire "
+                    f"only, not codec {request.codec!r}")
+        if request.strategy != VoteStrategy.ALLGATHER_1BIT:
             return ("the fused kernel's binary majority (ties -> +1) "
                     "is allgather_1bit's tie rule, not "
                     f"{request.strategy.value!r}'s")

@@ -34,6 +34,8 @@ SIGNATURES = {
         "momentum_sign_pack_bf16": (_P, _P, _P, _P, _I64, _F, _F, _P),
         "apply_vote_f32": (_P, _P, _P, _I64, _F, _F, _P),
         "apply_vote_bf16": (_P, _P, _P, _I64, _F, _F, _P),
+        "apply_ternary_vote_f32": (_P, _P, _P, _I64, _F, _F, _P),
+        "apply_ternary_vote_bf16": (_P, _P, _P, _I64, _F, _F, _P),
     },
     "vote": {
         "majority_packed": (_P, _P, _I, _I64, _P),
@@ -47,6 +49,12 @@ SIGNATURES = {
     "fused_vote": {
         f"fused_majority_{t}": (_P, _P, _I, _I64, _P)
         for t in ("f32", "bf16", "i8")
+    },
+    "ternary_pack": {
+        **{f"ternary_pack_{t}": (_P, _P, _I64, _I64, _P)
+           for t in ("f32", "bf16", "i8")},
+        "ternary_majority": (_P, _P, _I, _I64, _P),
+        "ternary_unpack_i8": (_P, _P, _I64, _P),
     },
 }
 

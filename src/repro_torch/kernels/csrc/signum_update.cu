@@ -4,6 +4,11 @@
 //   src/repro/kernels/signum_update.py:46 momentum_sign_pack (pallas_call at :52)
 // apply_vote replaces
 //   src/repro/kernels/signum_update.py:79 apply_vote (pallas_call at :85)
+// apply_ternary_vote has no Pallas counterpart: it is apply_vote for the
+// ternary2bit codec's 2-bit vote (the reference applies the decoded int8
+// vote with jnp, src/repro/core/signum.py:232-239). It decodes field
+// i % 16 of word i / 16 on the fly (0b01 -> +1, 0b11 -> -1, anything else
+// -> 0), so the trainer never writes an int8 vote tensor.
 //
 // Bound on the H100 (80 GB HBM3 at 3.35 TB/s): both are elementwise passes
 // with a handful of float32 operations per element, so device-memory bytes
@@ -13,6 +18,8 @@
 //     on the 620,756,992-element glm4-9b unembedding: 6.29 GB, 1.88 ms.
 //   apply_vote moves 4.125 B per element for bf16 parameters
 //     (p read 2 and written 2, one vote bit 1/8): 2.56 GB, 0.76 ms.
+//   apply_ternary_vote moves 4.25 B per element (two vote bits): 2.64 GB,
+//     0.79 ms.
 //
 // Design. One thread per element, consecutive threads on consecutive
 // elements, so every load and store is coalesced. The TPU kernel packs
@@ -56,6 +63,7 @@ from_f32<__nv_bfloat16>(float x) {
 }
 
 // m_out may alias m: each thread reads its element before writing it.
+// A null `packed` (the same for every thread) writes m' only.
 template <typename G>
 __global__ void momentum_sign_pack_kernel(const G* __restrict__ g,
                                           const float* m, float* m_out,
@@ -69,6 +77,7 @@ __global__ void momentum_sign_pack_kernel(const G* __restrict__ g,
     m_out[i] = mi;
     nonneg = mi >= 0.0f;
   }
+  if (packed == nullptr) return;
   // every lane of the warp takes part: the grid covers whole warps
   const unsigned word = __ballot_sync(0xffffffffu, nonneg);
   const int64_t k = i >> 5;
@@ -83,6 +92,23 @@ __global__ void apply_vote_kernel(const P* p, const uint32_t* __restrict__ v,
   if (i >= n) return;
   const float p32 = to_f32(p[i]);
   const float vote = ((v[i >> 5] >> (i & 31)) & 1u) ? 1.0f : -1.0f;
+  const float r =
+      __fsub_rn(p32, __fmul_rn(eta, __fadd_rn(vote, __fmul_rn(wd, p32))));
+  out[i] = from_f32<P>(r);
+}
+
+// out may alias p. A 0 vote leaves p - eta * (0 + wd * p), so with no
+// weight decay an abstaining coordinate keeps its value exactly.
+template <typename P>
+__global__ void apply_ternary_vote_kernel(const P* p,
+                                          const uint32_t* __restrict__ v,
+                                          P* out, int64_t n, float eta,
+                                          float wd) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const float p32 = to_f32(p[i]);
+  const uint32_t f = (v[i >> 4] >> (2 * (i & 15))) & 3u;
+  const float vote = f == 1u ? 1.0f : (f == 3u ? -1.0f : 0.0f);
   const float r =
       __fsub_rn(p32, __fmul_rn(eta, __fadd_rn(vote, __fmul_rn(wd, p32))));
   out[i] = from_f32<P>(r);
@@ -115,6 +141,17 @@ int launch_apply(const void* p, const void* v, void* out, int64_t n,
   return (int)cudaGetLastError();
 }
 
+template <typename P>
+int launch_apply_ternary(const void* p, const void* v, void* out, int64_t n,
+                         float eta, float wd, void* stream) {
+  if (n > 0) {
+    apply_ternary_vote_kernel<P>
+        <<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
+            (const P*)p, (const uint32_t*)v, (P*)out, n, eta, wd);
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -139,6 +176,16 @@ int apply_vote_f32(const void* p, const void* v, void* out, int64_t n,
 int apply_vote_bf16(const void* p, const void* v, void* out, int64_t n,
                     float eta, float wd, void* stream) {
   return launch_apply<__nv_bfloat16>(p, v, out, n, eta, wd, stream);
+}
+
+int apply_ternary_vote_f32(const void* p, const void* v, void* out, int64_t n,
+                           float eta, float wd, void* stream) {
+  return launch_apply_ternary<float>(p, v, out, n, eta, wd, stream);
+}
+
+int apply_ternary_vote_bf16(const void* p, const void* v, void* out,
+                            int64_t n, float eta, float wd, void* stream) {
+  return launch_apply_ternary<__nv_bfloat16>(p, v, out, n, eta, wd, stream);
 }
 
 }  // extern "C"

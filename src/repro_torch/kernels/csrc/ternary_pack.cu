@@ -1,0 +1,242 @@
+// Ternary 2-bit packing, tally and unpacking for Hopper (sm_90a): the wire
+// of the ternary2bit codec.
+//
+// ternary_pack replaces the Pallas kernel
+//   src/repro/kernels/ternary_pack.py:61 ternary_pack_2d (pallas_call at :67)
+// ternary_majority replaces
+//   src/repro/kernels/ternary_pack.py:79 ternary_tally_packed (pallas_call at :84)
+// ternary_unpack has no Pallas counterpart: the reference decodes the packed
+// majority with jnp (src/repro/kernels/ops.py:155 ternary_unpack).
+//
+// Format: 16 symbols per word, little-endian, field j of word k in bits
+// 2j..2j+1 holds element 16k + j: +1 -> 0b01, -1 -> 0b11, 0 (abstain) ->
+// 0b00. Padding fields past n are 0b00, each row padded on its own: the
+// ternary wire abstains there, where the 1-bit wire pads with +1 bits.
+//
+// ternary_pack: (rows, n) -> (rows, ceil(n/16)) words. int8 symbols keep
+//   their low two bits (the TPU kernel's s & 3, so any int8 input packs as
+//   the reference packs it); f32 / bf16 values are packed as their
+//   sign_ternary (x > 0 -> 0b01, x < 0 -> 0b11, +0.0 / -0.0 -> 0b00), so a
+//   caller never makes an int8 or int32 copy of a float payload.
+// ternary_majority: (M, w) -> (w,) words. Per field, +1 votes minus -1
+//   votes over the M rows, counted in int32 (no cap on M); 0b01 if the
+//   count is > 0, 0b11 if it is < 0, else 0b00 (ties and abstentions give
+//   0). A field reads +1 only as 0b01 and -1 only as 0b11: the unused
+//   pattern 0b10 counts 0, as the reference's where() decodes it, and is
+//   never sign-extended to -2.
+// ternary_unpack: (w,) words -> (n,) int8 of {-1, 0, +1}, with the same
+//   decode.
+//
+// Bound on the H100 (3.35 TB/s): a mask, a compare or a shift per element,
+// so device-memory bytes bound all three. At the glm4-9b unembedding
+// (n = 620,756,992) with M = 4:
+//   ternary_pack of the (4, n) int8 wire signs reads 4n B and writes n B:
+//     3.10 GB, 0.93 ms; of one f32 momentum row, 4n B + n/4 B: 0.79 ms.
+//   ternary_majority reads 4 and writes 1 word per 16 fields: 0.78 GB,
+//     0.23 ms.
+//   ternary_unpack reads n/4 B and writes n B: 0.78 GB, 0.23 ms.
+//
+// Design. The TPU kernels work on (8, 2048) and (M, 512) VMEM blocks with
+// unrolled shift/OR trees. Here one thread owns one output word in all
+// three kernels. Packing reads the word's 16 elements with 16-byte loads
+// when every row starts 16-byte aligned (n % 16 == 0 and an aligned base;
+// one load for int8, two for bf16, four for f32), element by element
+// otherwise; the grid's y dimension walks the rows, so a word never
+// straddles two rows. The tally keeps 16 counters in registers and walks
+// the M rows (each row's load coalesced across the warp). Unpacking builds
+// the 16 int8 symbols in registers and writes them with one 16-byte store.
+//
+// Each entry point launches on the caller's stream and returns
+// cudaGetLastError(); the Python wrapper raises when it is not 0.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int64_t kMaxGridY = 65535;
+constexpr int kFields = 16;   // symbols per word
+
+__device__ __forceinline__ uint32_t field_of(float x) {
+  return x > 0.0f ? 1u : (x < 0.0f ? 3u : 0u);
+}
+__device__ __forceinline__ uint32_t field_of(__nv_bfloat16 x) {
+  return field_of(__bfloat162float(x));
+}
+__device__ __forceinline__ uint32_t field_of(int8_t s) {
+  return (uint32_t)(uint8_t)s & 3u;
+}
+
+// The fields of the elements held in one 32-bit chunk of raw memory, the
+// first element's field in bits 0..1.
+template <typename T> __device__ __forceinline__ uint32_t chunk_fields(uint32_t u);
+template <> __device__ __forceinline__ uint32_t chunk_fields<int8_t>(uint32_t u) {
+  return (u & 0x3u) | ((u >> 6) & 0xCu) | ((u >> 12) & 0x30u) |
+         ((u >> 18) & 0xC0u);
+}
+template <> __device__ __forceinline__ uint32_t
+chunk_fields<__nv_bfloat16>(uint32_t u) {
+  // a bf16's bits shifted into the top half are the same value as f32
+  return field_of(__uint_as_float(u << 16)) |
+         (field_of(__uint_as_float(u & 0xFFFF0000u)) << 2);
+}
+template <> __device__ __forceinline__ uint32_t chunk_fields<float>(uint32_t u) {
+  return field_of(__uint_as_float(u));
+}
+
+// blockIdx.y is the row within this launch's slab of rows
+template <typename T, bool kAligned>
+__global__ void ternary_pack_kernel(const T* __restrict__ x,
+                                    uint32_t* __restrict__ out, int64_t n,
+                                    int64_t w) {
+  const int64_t k = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (k >= w) return;
+  const T* xr = x + (int64_t)blockIdx.y * n;
+  uint32_t acc = 0;
+  if (kAligned) {
+    // n % 16 == 0: the word's 16 elements are 16 * sizeof(T) aligned bytes
+    constexpr int kPer = 4 / sizeof(T);          // elements per chunk
+    const uint4* src = reinterpret_cast<const uint4*>(xr + k * kFields);
+#pragma unroll
+    for (int q = 0; q < (int)sizeof(T); ++q) {
+      const uint4 v = src[q];
+      const uint32_t c[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        acc |= chunk_fields<T>(c[e]) << (2 * kPer * (4 * q + e));
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < kFields; ++j) {
+      const int64_t col = k * kFields + j;
+      if (col < n) acc |= field_of(xr[col]) << (2 * j);
+    }
+  }
+  out[(int64_t)blockIdx.y * w + k] = acc;
+}
+
+__global__ void ternary_majority_kernel(const uint32_t* __restrict__ packed,
+                                        uint32_t* __restrict__ out, int m,
+                                        int64_t w) {
+  const int64_t k = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (k >= w) return;
+  int count[kFields];
+#pragma unroll
+  for (int j = 0; j < kFields; ++j) count[j] = 0;
+  for (int r = 0; r < m; ++r) {
+    const uint32_t word = packed[(int64_t)r * w + k];
+#pragma unroll
+    for (int j = 0; j < kFields; ++j) {
+      const uint32_t f = (word >> (2 * j)) & 3u;
+      count[j] += (int)(f == 1u) - (int)(f == 3u);
+    }
+  }
+  uint32_t maj = 0;
+#pragma unroll
+  for (int j = 0; j < kFields; ++j)
+    maj |= (count[j] > 0 ? 1u : (count[j] < 0 ? 3u : 0u)) << (2 * j);
+  out[k] = maj;
+}
+
+// the int8 symbol of a field: 0x01, 0xFF (-1) or 0x00
+__device__ __forceinline__ uint32_t symbol_byte(uint32_t f) {
+  return f == 1u ? 0x01u : (f == 3u ? 0xFFu : 0x00u);
+}
+
+__global__ void ternary_unpack_kernel(const uint32_t* __restrict__ v,
+                                      int8_t* __restrict__ out, int64_t n) {
+  const int64_t k = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int64_t i0 = k * kFields;
+  if (i0 >= n) return;
+  const uint32_t bits = v[k];
+  if (i0 + kFields > n) {                          // the ragged tail
+    for (int j = 0; j < n - i0; ++j)
+      out[i0 + j] = (int8_t)symbol_byte((bits >> (2 * j)) & 3u);
+    return;
+  }
+  uint32_t p[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    p[q] = 0;
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      p[q] |= symbol_byte((bits >> (2 * (4 * q + e))) & 3u) << (8 * e);
+  }
+  // out comes from torch.empty, so out + i0 is 16-byte aligned
+  *reinterpret_cast<uint4*>(out + i0) = make_uint4(p[0], p[1], p[2], p[3]);
+}
+
+unsigned blocks_for(int64_t threads) {
+  return (unsigned)((threads + kThreads - 1) / kThreads);
+}
+
+template <typename T, bool kAligned>
+void launch_pack_rows(const T* x, uint32_t* out, int64_t rows, int64_t n,
+                      int64_t w, cudaStream_t stream) {
+  for (int64_t r0 = 0; r0 < rows; r0 += kMaxGridY) {
+    const int64_t slab = rows - r0 < kMaxGridY ? rows - r0 : kMaxGridY;
+    ternary_pack_kernel<T, kAligned>
+        <<<dim3(blocks_for(w), (unsigned)slab), kThreads, 0, stream>>>(
+            x + r0 * n, out + r0 * w, n, w);
+  }
+}
+
+template <typename T>
+int launch_pack(const void* x, void* out, int64_t rows, int64_t n,
+                void* stream) {
+  const int64_t w = (n + kFields - 1) / kFields;
+  if (rows > 0 && w > 0) {
+    const bool aligned =
+        n % kFields == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+    if (aligned)
+      launch_pack_rows<T, true>((const T*)x, (uint32_t*)out, rows, n, w,
+                                (cudaStream_t)stream);
+    else
+      launch_pack_rows<T, false>((const T*)x, (uint32_t*)out, rows, n, w,
+                                 (cudaStream_t)stream);
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+int ternary_pack_i8(const void* x, void* out, int64_t rows, int64_t n,
+                    void* stream) {
+  return launch_pack<int8_t>(x, out, rows, n, stream);
+}
+
+int ternary_pack_f32(const void* x, void* out, int64_t rows, int64_t n,
+                     void* stream) {
+  return launch_pack<float>(x, out, rows, n, stream);
+}
+
+int ternary_pack_bf16(const void* x, void* out, int64_t rows, int64_t n,
+                      void* stream) {
+  return launch_pack<__nv_bfloat16>(x, out, rows, n, stream);
+}
+
+int ternary_majority(const void* packed, void* out, int m, int64_t w,
+                     void* stream) {
+  if (w > 0) {
+    ternary_majority_kernel<<<blocks_for(w), kThreads, 0,
+                              (cudaStream_t)stream>>>(
+        (const uint32_t*)packed, (uint32_t*)out, m, w);
+  }
+  return (int)cudaGetLastError();
+}
+
+int ternary_unpack_i8(const void* v, void* out, int64_t n, void* stream) {
+  if (n > 0) {
+    const int64_t w = (n + kFields - 1) / kFields;
+    ternary_unpack_kernel<<<blocks_for(w), kThreads, 0,
+                            (cudaStream_t)stream>>>((const uint32_t*)v,
+                                                    (int8_t*)out, n);
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

@@ -11,6 +11,8 @@ dispatches on the device of its input:
 
 Packed words are int32 bit patterns (bit j of word k is element 32k + j).
 The padding bits of the last word are 1 (sign(0) = +1) on both paths.
+The ternary wire's words hold 16 two-bit fields (field j of word k is
+element 16k + j); its padding fields are ``0b00``, an abstention.
 
 ``launch_counts()`` reports, under the reference's names, how many times
 each kernel was launched on a card since ``reset_launch_counts()``; CPU
@@ -29,7 +31,9 @@ WORD = sc.WORD_DTYPE
 
 _COUNTS: Dict[str, int] = {"momentum_sign_pack": 0, "majority": 0,
                            "apply_vote": 0, "bitpack": 0, "bitunpack": 0,
-                           "fused_majority": 0}
+                           "fused_majority": 0, "ternary_pack": 0,
+                           "ternary_majority": 0, "ternary_unpack": 0,
+                           "apply_ternary_vote": 0}
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 #: element types the sign kernels read and bitunpack writes
 _SIGN_SUFFIX = {**_SUFFIX, torch.int8: "i8"}
@@ -77,13 +81,16 @@ def _stream(t: torch.Tensor) -> int:
 
 def momentum_sign_pack(g: torch.Tensor, m: torch.Tensor, beta: float, *,
                        m_out: Optional[torch.Tensor] = None,
-                       packed_out: Optional[torch.Tensor] = None
-                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+                       packed_out: Optional[torch.Tensor] = None,
+                       pack: bool = True
+                       ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Flat g (n,) f32/bf16 and m (n,) f32 -> (m' (n,) f32, packed
     (ceil(n/32),) int32) with m' = beta*m + (1-beta)*g.
 
     `m_out` (may be `m` itself, for an in-place update) and `packed_out`
-    receive the results when given."""
+    receive the results when given. With ``pack=False`` (for a codec whose
+    wire is not the signs of m') no words are written and the second
+    result is None."""
     dev = g.device
     _check(g, "g", ndim=1, dtypes=_SUFFIX, device=dev)
     _check(m, "m", ndim=1, dtypes=(torch.float32,), device=dev)
@@ -93,25 +100,33 @@ def momentum_sign_pack(g: torch.Tensor, m: torch.Tensor, beta: float, *,
     w = sc.words_for(n)
     if m_out is None:
         m_out = torch.empty_like(m)
-    if packed_out is None:
-        packed_out = torch.empty(w, dtype=WORD, device=dev)
     _check(m_out, "m_out", ndim=1, dtypes=(torch.float32,), device=dev)
-    _check(packed_out, "packed_out", ndim=1, dtypes=(WORD,), device=dev)
-    if m_out.shape[0] != n or packed_out.shape[0] != w:
-        raise ValueError(f"outputs must be ({n},) and ({w},), got "
-                         f"{tuple(m_out.shape)} and {tuple(packed_out.shape)}")
+    if m_out.shape[0] != n:
+        raise ValueError(f"m_out must be ({n},), got {tuple(m_out.shape)}")
+    if not pack:
+        if packed_out is not None:
+            raise ValueError("packed_out given with pack=False")
+    else:
+        if packed_out is None:
+            packed_out = torch.empty(w, dtype=WORD, device=dev)
+        _check(packed_out, "packed_out", ndim=1, dtypes=(WORD,), device=dev)
+        if packed_out.shape[0] != w:
+            raise ValueError(f"packed_out must be ({w},), got "
+                             f"{tuple(packed_out.shape)}")
     if not _on_card(g):
         m_new, packed = ref.momentum_sign_pack(
             sc.pad_to_pack(g)[0], sc.pad_to_pack(m)[0], beta)
         m_out.copy_(m_new[:n])
-        packed_out.copy_(packed)
+        if pack:
+            packed_out.copy_(packed)
         return m_out, packed_out
     # ctypes rounds each double to float32; 1 - beta is folded in double
-    # first, as the plain version (and JAX) fold the Python constant
+    # first, as the plain version (and JAX) fold the Python constant. A
+    # null packed pointer makes the kernel write m' only.
     _launch("signum_update", f"momentum_sign_pack_{_SUFFIX[g.dtype]}",
             g.data_ptr(), m.data_ptr(), m_out.data_ptr(),
-            packed_out.data_ptr(), n, float(beta), 1.0 - float(beta),
-            _stream(g))
+            packed_out.data_ptr() if pack else None, n, float(beta),
+            1.0 - float(beta), _stream(g))
     _COUNTS["momentum_sign_pack"] += 1
     return m_out, packed_out
 
@@ -137,6 +152,24 @@ def majority(packed: torch.Tensor, *, out: Optional[torch.Tensor] = None
     return out
 
 
+def _check_apply(p: torch.Tensor, votes: torch.Tensor, words: int,
+                 out: Optional[torch.Tensor]) -> torch.Tensor:
+    """Validate an apply's arguments; returns its output tensor."""
+    dev = p.device
+    _check(p, "p", ndim=1, dtypes=_SUFFIX, device=dev)
+    _check(votes, "votes", ndim=1, dtypes=(WORD,), device=dev)
+    n = p.shape[0]
+    if votes.shape[0] != words:
+        raise ValueError(f"votes must hold {words} words for {n} elements, "
+                         f"got {votes.shape[0]}")
+    if out is None:
+        out = torch.empty_like(p)
+    _check(out, "out", ndim=1, dtypes=(p.dtype,), device=dev)
+    if out.shape[0] != n:
+        raise ValueError(f"out must be ({n},), got {tuple(out.shape)}")
+    return out
+
+
 def apply_vote(p: torch.Tensor, votes: torch.Tensor, eta: float,
                weight_decay: float, *, out: Optional[torch.Tensor] = None
                ) -> torch.Tensor:
@@ -145,18 +178,8 @@ def apply_vote(p: torch.Tensor, votes: torch.Tensor, eta: float,
 
     `out` (may be `p` itself, for an in-place update) receives the result
     when given."""
-    dev = p.device
-    _check(p, "p", ndim=1, dtypes=_SUFFIX, device=dev)
-    _check(votes, "votes", ndim=1, dtypes=(WORD,), device=dev)
-    n = p.shape[0]
-    if votes.shape[0] != sc.words_for(n):
-        raise ValueError(f"votes must hold {sc.words_for(n)} words for "
-                         f"{n} elements, got {votes.shape[0]}")
-    if out is None:
-        out = torch.empty_like(p)
-    _check(out, "out", ndim=1, dtypes=(p.dtype,), device=dev)
-    if out.shape[0] != n:
-        raise ValueError(f"out must be ({n},), got {tuple(out.shape)}")
+    n = p.shape[0] if p.dim() else 0
+    out = _check_apply(p, votes, sc.words_for(n), out)
     if not _on_card(p):
         new = ref.apply_vote(sc.pad_to_pack(p)[0], votes, eta, weight_decay)
         return out.copy_(new[:n])
@@ -167,13 +190,44 @@ def apply_vote(p: torch.Tensor, votes: torch.Tensor, eta: float,
     return out
 
 
-def bitpack(x: torch.Tensor) -> torch.Tensor:
+def apply_ternary_vote(p: torch.Tensor, votes: torch.Tensor, eta: float,
+                       weight_decay: float, *,
+                       out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``apply_vote`` with a 2-bit ternary vote: flat p (n,) f32/bf16,
+    votes (ceil(n/16),) int32 words -> p - eta*(v + weight_decay*p), v in
+    {-1, 0, +1} decoded on the fly (``0b10`` reads 0)."""
+    n = p.shape[0] if p.dim() else 0
+    out = _check_apply(p, votes, sc.ternary_words_for(n), out)
+    if not _on_card(p):
+        new = ref.apply_ternary_vote(sc.pad_to_pack(p, sc.PACK2)[0], votes,
+                                     eta, weight_decay)
+        return out.copy_(new[:n])
+    _launch("signum_update", f"apply_ternary_vote_{_SUFFIX[p.dtype]}",
+            p.data_ptr(), votes.data_ptr(), out.data_ptr(), n, float(eta),
+            float(weight_decay), _stream(p))
+    _COUNTS["apply_ternary_vote"] += 1
+    return out
+
+
+def _rows_out(out: Optional[torch.Tensor], rows: int, w: int,
+              dev: torch.device) -> torch.Tensor:
+    if out is None:
+        return torch.empty((rows, w), dtype=WORD, device=dev)
+    _check(out, "out", ndim=2, dtypes=(WORD,), device=dev)
+    if tuple(out.shape) != (rows, w):
+        raise ValueError(f"out must be ({rows}, {w}), got {tuple(out.shape)}")
+    return out
+
+
+def bitpack(x: torch.Tensor, *, out: Optional[torch.Tensor] = None
+            ) -> torch.Tensor:
     """(rows, n) f32/bf16/int8 -> (rows, ceil(n/32)) int32 words of the
-    signs ``x >= 0``, each row padded on its own (padding bits 1)."""
+    signs ``x >= 0``, each row padded on its own (padding bits 1). `out`
+    receives the words when given."""
     dev = x.device
     _check(x, "x", ndim=2, dtypes=_SIGN_SUFFIX, device=dev)
     rows, n = x.shape
-    out = torch.empty((rows, sc.words_for(n)), dtype=WORD, device=dev)
+    out = _rows_out(out, rows, sc.words_for(n), dev)
     if not _on_card(x):
         return out.copy_(ref.bitpack(sc.pad_last(x, sc.PACK)[0]))
     _launch("bitpack", f"bitpack_{_SIGN_SUFFIX[x.dtype]}", x.data_ptr(),
@@ -219,4 +273,64 @@ def fused_majority(x: torch.Tensor) -> torch.Tensor:
     _launch("fused_vote", f"fused_majority_{_SIGN_SUFFIX[x.dtype]}",
             x.data_ptr(), out.data_ptr(), m, n, _stream(x))
     _COUNTS["fused_majority"] += 1
+    return out
+
+
+def ternary_pack(x: torch.Tensor, *, out: Optional[torch.Tensor] = None
+                 ) -> torch.Tensor:
+    """(rows, n) int8 symbols or f32/bf16 values -> (rows, ceil(n/16)) int32
+    words of 2-bit fields (+1 -> 0b01, -1 -> 0b11, 0 -> 0b00), each row
+    padded on its own with abstaining 0b00 fields. An int8 symbol s is
+    stored as ``s & 3``; a real value as its ``sign_ternary`` (so -0.0
+    abstains). `out` receives the words when given."""
+    dev = x.device
+    _check(x, "x", ndim=2, dtypes=_SIGN_SUFFIX, device=dev)
+    rows, n = x.shape
+    out = _rows_out(out, rows, sc.ternary_words_for(n), dev)
+    if not _on_card(x):
+        return out.copy_(ref.ternary_pack(sc.pad_last(x, sc.PACK2)[0]))
+    _launch("ternary_pack", f"ternary_pack_{_SIGN_SUFFIX[x.dtype]}",
+            x.data_ptr(), out.data_ptr(), rows, n, _stream(x))
+    _COUNTS["ternary_pack"] += 1
+    return out
+
+
+def ternary_majority(packed: torch.Tensor, *,
+                     out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(M, w) int32 packed ternary votes -> (w,) packed ternary majority:
+    per field the sign of the symbol sum (abstentions abstain, ties -> 0;
+    the unused pattern 0b10 counts 0)."""
+    dev = packed.device
+    _check(packed, "packed", ndim=2, dtypes=(WORD,), device=dev)
+    m, w = packed.shape
+    if m < 1:
+        raise ValueError("ternary_majority needs at least one voter")
+    if out is None:
+        out = torch.empty(w, dtype=WORD, device=dev)
+    _check(out, "out", ndim=1, dtypes=(WORD,), device=dev)
+    if out.shape[0] != w:
+        raise ValueError(f"out must be ({w},), got {tuple(out.shape)}")
+    if not _on_card(packed):
+        return out.copy_(ref.ternary_majority(packed))
+    _launch("ternary_pack", "ternary_majority", packed.data_ptr(),
+            out.data_ptr(), m, w, _stream(packed))
+    _COUNTS["ternary_majority"] += 1
+    return out
+
+
+def ternary_unpack(packed: torch.Tensor, n: int) -> torch.Tensor:
+    """(w,) int32 ternary words -> (n,) int8 of {-1, 0, +1}: the first n of
+    the 16*w symbols (``0b10`` reads 0)."""
+    dev = packed.device
+    _check(packed, "packed", ndim=1, dtypes=(WORD,), device=dev)
+    w = packed.shape[0]
+    if not 0 <= n <= sc.PACK2 * w:
+        raise ValueError(f"{w} words hold at most {sc.PACK2 * w} symbols, "
+                         f"asked for {n}")
+    if not _on_card(packed):
+        return ref.ternary_unpack(packed)[:n].clone()
+    out = torch.empty(n, dtype=torch.int8, device=dev)
+    _launch("ternary_pack", "ternary_unpack_i8", packed.data_ptr(),
+            out.data_ptr(), n, _stream(packed))
+    _COUNTS["ternary_unpack"] += 1
     return out

@@ -47,10 +47,38 @@ def majority(packed: torch.Tensor) -> torch.Tensor:
     return sc.packed_majority(packed)
 
 
+def ternary_pack(x: torch.Tensor) -> torch.Tensor:
+    """(rows, 16*w) int8 symbols or f32/bf16 values -> (rows, w) words of
+    2-bit fields: +1 -> 0b01, -1 -> 0b11, 0 -> 0b00 (codec
+    ``ternary2bit``). An int8 symbol s is stored as ``s & 3``; a real value
+    as its ``sign_ternary`` (+0.0 and -0.0 abstain)."""
+    return sc.pack_ternary(x if x.dtype == torch.int8 else sc.sign_ternary(x))
+
+
+def ternary_unpack(packed: torch.Tensor, dtype=torch.int8) -> torch.Tensor:
+    """(rows, w) words -> (rows, 16*w) of {-1, 0, +1} in `dtype`."""
+    return sc.unpack_ternary(packed, dtype)
+
+
+def ternary_majority(packed: torch.Tensor) -> torch.Tensor:
+    """(M, w) packed ternary -> (w,) packed ternary majority (sign of the
+    symbol sum: abstentions abstain, ties -> 0)."""
+    return sc.ternary_majority(packed)
+
+
 def apply_vote(p: torch.Tensor, votes_packed: torch.Tensor, eta: float,
                weight_decay: float) -> torch.Tensor:
     """x <- x - eta*(unpack(vote) + lambda*x) in float32, cast back;
     p (..., 32*w), votes_packed (..., w)."""
     v = sc.unpack_signs(votes_packed, torch.float32)
+    p32 = p.to(torch.float32)
+    return (p32 - eta * (v + weight_decay * p32)).to(p.dtype)
+
+
+def apply_ternary_vote(p: torch.Tensor, votes_packed: torch.Tensor,
+                       eta: float, weight_decay: float) -> torch.Tensor:
+    """``apply_vote`` with a 2-bit ternary vote: x <- x - eta*(v +
+    lambda*x), v in {-1, 0, +1}; p (..., 16*w), votes_packed (..., w)."""
+    v = sc.unpack_ternary(votes_packed, torch.float32)
     p32 = p.to(torch.float32)
     return (p32 - eta * (v + weight_decay * p32)).to(p.dtype)

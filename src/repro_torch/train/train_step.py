@@ -11,10 +11,11 @@ One step:
    (the rows ``SyntheticLMPipeline.replica_batch`` gives replica r):
    the loss, ``torch.autograd.grad`` over every leaf, then per leaf the
    momentum + sign + pack kernel, which updates voter r's momentum row in
-   place and writes its words into row r of the leaf's (M, w) buffer; the
-   gradients are freed before the next voter;
-2. per leaf, the popcount-majority kernel and the vote-apply kernel,
-   updating the parameters in place.
+   place and writes its words into row r of the leaf's (M, w) buffer (the
+   codec's encode: ``core.signum``); the gradients are freed before the
+   next voter;
+2. per leaf, the majority kernel and the vote-apply kernel, updating the
+   parameters in place, and the codec's feedback.
 
 ``metrics["loss"]`` is the mean of the voters' losses. Unlike the JAX
 step, which returns new arrays, this one updates `params` and `opt_state`
@@ -37,12 +38,13 @@ from repro_torch.models import model as M
 
 @dataclasses.dataclass
 class StepArtifacts:
-    """The step function, its optimizer (whose ``init`` builds the state)
-    and its device."""
+    """The step function, its optimizer (whose ``init`` builds the state),
+    its device and its resolved gradient codec."""
 
     step_fn: Callable
     optimizer: signum.Optimizer
     device: torch.device
+    codec: str = "sign1bit"
 
 
 def _validate(tcfg: TrainConfig, n_voters: int) -> None:
@@ -85,25 +87,26 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, n_voters: int = 1,
         if tokens.shape[0] != tcfg.global_batch:
             raise ValueError(f"batch has {tokens.shape[0]} rows, expected "
                              f"global_batch={tcfg.global_batch}")
-        packed = signum.packed_like(params, n_voters)
+        wire = opt.wire(params)
         losses, ces, auxes = [], [], []
         for r in range(n_voters):
             leaves = {k: p.detach().requires_grad_() for k, p in params.items()}
             loss, met = M.loss_fn(cfg, leaves,
                                   {"tokens": tokens[r * per:(r + 1) * per]})
             grads = torch.autograd.grad(loss, list(leaves.values()))
-            opt.encode(r, dict(zip(leaves, grads)), opt_state, packed)
+            opt.encode(r, dict(zip(leaves, grads)), opt_state, wire)
             del grads, leaves
             losses.append(loss.detach())
             ces.append(met["ce"].detach())
             auxes.append(met["aux"].detach())
-        opt.update(packed, opt_state, params, int(step))
+        opt.update(wire, opt_state, params, int(step))
         metrics = {"ce": torch.stack(ces).mean(),
                    "aux": torch.stack(auxes).mean(),
                    "loss": torch.stack(losses).mean()}
         return params, opt_state, metrics
 
-    return StepArtifacts(step_fn=step_fn, optimizer=opt, device=dev)
+    return StepArtifacts(step_fn=step_fn, optimizer=opt, device=dev,
+                         codec=tcfg.optimizer.resolved_codec)
 
 
 def materialize_state(cfg: ModelConfig, tcfg: TrainConfig,
@@ -111,7 +114,10 @@ def materialize_state(cfg: ModelConfig, tcfg: TrainConfig,
                       device: DeviceLike = None) -> Tuple[Any, Any]:
     """Concrete (params, opt_state) on the step's device: parameters drawn
     from `generator` by the reference's init rules, zero momentum
-    ``(M, *leaf_shape)`` float32."""
+    ``(M, *leaf_shape)`` float32, and the codec's state as the reference
+    lays it out (``train_step.py:375-390``): a zero ``"error"`` residual
+    shaped like the momentum for ``ef_sign``, ``"codec": {"flip_ema":
+    (M,) float32 zeros}`` for ``weighted_vote``."""
     dev = art.device if device is None else resolve_device(device)
     if dev != art.device:
         raise ValueError(f"state on {dev} but the step runs on {art.device}")

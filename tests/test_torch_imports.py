@@ -38,11 +38,13 @@ def test_port_has_the_slice_modules():
                 "models/layers.py", "models/transformer.py",
                 "models/model.py", "train/train_step.py",
                 "core/codecs/__init__.py", "core/codecs/base.py",
-                "core/codecs/sign1bit.py", "core/vote_engine.py",
-                "core/vote_api.py"):
+                "core/codecs/sign1bit.py", "core/codecs/ef_sign.py",
+                "core/codecs/ternary.py", "core/codecs/weighted.py",
+                "core/vote_engine.py", "core/vote_api.py"):
         assert f"src/repro_torch/{mod}" in names
     assert sorted(p.name for p in (PORT / "kernels" / "csrc").glob("*.cu")) \
-        == ["bitpack.cu", "fused_vote.cu", "signum_update.cu", "vote.cu"]
+        == ["bitpack.cu", "fused_vote.cu", "signum_update.cu",
+            "ternary_pack.cu", "vote.cu"]
 
 
 def test_every_csrc_source_has_signatures():
@@ -74,6 +76,10 @@ for use_kernels in (True, False):
         va.VoteRequest(payload=-np.ones((3, 40)), form="stacked",
                        strategy=VoteStrategy.ALLGATHER_1BIT))
     assert out.votes.tolist() == [-1] * 40
+out = va.VirtualBackend(device="cpu").execute(va.VoteRequest(
+    payload=np.zeros((3, 40)), form="stacked", codec="ternary2bit",
+    strategy=VoteStrategy.ALLGATHER_1BIT))
+assert out.votes.tolist() == [0] * 40
 from repro_torch.kernels import build
 assert build._LIBS == {}, build._LIBS
 assert "jax" not in sys.modules and "repro" not in sys.modules

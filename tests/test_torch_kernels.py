@@ -223,7 +223,26 @@ def test_plain_path_in_place_and_uncounted():
     assert out.data_ptr() == p.data_ptr() and torch.equal(p, expect)
     assert tops.launch_counts() == {"momentum_sign_pack": 0, "majority": 0,
                                     "apply_vote": 0, "bitpack": 0,
-                                    "bitunpack": 0, "fused_majority": 0}
+                                    "bitunpack": 0, "fused_majority": 0,
+                                    "ternary_pack": 0, "ternary_majority": 0,
+                                    "ternary_unpack": 0,
+                                    "apply_ternary_vote": 0}
+
+
+@pytest.mark.parametrize("gdtype", [torch.float32, torch.bfloat16])
+def test_momentum_without_pack_writes_the_same_momentum(gdtype):
+    """``pack=False`` (the ternary2bit and ef_sign encode) writes m' bit
+    for bit as the packing call does, returns no words and counts no
+    launch on the CPU."""
+    tops.reset_launch_counts()
+    rng = _rng(11)
+    g = torch.from_numpy(rng.normal(size=77).astype(np.float32)).to(gdtype)
+    m = torch.from_numpy(rng.normal(size=77).astype(np.float32))
+    want, _ = tops.momentum_sign_pack(g, m, 0.9)
+    got, words = tops.momentum_sign_pack(g, m, 0.9, m_out=m, pack=False)
+    assert words is None and got.data_ptr() == m.data_ptr()
+    assert torch.equal(m, want)
+    assert tops.launch_counts()["momentum_sign_pack"] == 0
 
 
 @pytest.mark.parametrize("case", ["g_2d", "m_bf16", "len", "words_int64",
@@ -231,7 +250,11 @@ def test_plain_path_in_place_and_uncounted():
                                   "pack_1d", "pack_f64", "pack_noncontig",
                                   "unpack_too_many", "unpack_f64",
                                   "unpack_2d", "fused_no_voters",
-                                  "fused_f16"])
+                                  "fused_f16", "tpack_1d", "tpack_i32",
+                                  "tpack_out_shape", "tmaj_no_voters",
+                                  "tmaj_int64", "tunpack_too_many",
+                                  "tunpack_int64", "tapply_votes_len",
+                                  "pack_out_dtype", "msp_words_unwanted"])
 def test_wrappers_reject_bad_inputs(case):
     g, m = torch.zeros(64), torch.zeros(64)
     with pytest.raises((ValueError, TypeError)):
@@ -241,6 +264,9 @@ def test_wrappers_reject_bad_inputs(case):
             tops.momentum_sign_pack(g, m.to(torch.bfloat16), 0.9)
         elif case == "len":
             tops.momentum_sign_pack(g, torch.zeros(65), 0.9)
+        elif case == "msp_words_unwanted":
+            tops.momentum_sign_pack(g, m, 0.9, pack=False,
+                                    packed_out=torch.zeros(2, dtype=torch.int32))
         elif case == "words_int64":
             tops.majority(torch.zeros((2, 3), dtype=torch.int64))
         elif case == "noncontig":
@@ -265,8 +291,204 @@ def test_wrappers_reject_bad_inputs(case):
             tops.fused_majority(torch.zeros((0, 3)))
         elif case == "fused_f16":
             tops.fused_majority(g.reshape(2, 32).half())
+        elif case == "tpack_1d":
+            tops.ternary_pack(g)
+        elif case == "tpack_i32":
+            tops.ternary_pack(g.reshape(2, 32).int())
+        elif case == "tpack_out_shape":
+            tops.ternary_pack(g.reshape(2, 32),
+                              out=torch.zeros((2, 4), dtype=torch.int32))
+        elif case == "tmaj_no_voters":
+            tops.ternary_majority(torch.zeros((0, 3), dtype=torch.int32))
+        elif case == "tmaj_int64":
+            tops.ternary_majority(torch.zeros((2, 3), dtype=torch.int64))
+        elif case == "tunpack_too_many":
+            tops.ternary_unpack(torch.zeros(2, dtype=torch.int32), 33)
+        elif case == "tunpack_int64":
+            tops.ternary_unpack(torch.zeros(2, dtype=torch.int64), 32)
+        elif case == "tapply_votes_len":
+            # 64 elements take 4 two-bit words, not the 1-bit wire's 2
+            tops.apply_ternary_vote(g, torch.zeros(2, dtype=torch.int32),
+                                    1e-3, 0.0)
+        elif case == "pack_out_dtype":
+            tops.bitpack(g.reshape(2, 32),
+                         out=torch.zeros((2, 1), dtype=torch.int64))
         else:
             tops.majority(torch.zeros((0, 3), dtype=torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# the ternary 2-bit wire (codec ternary2bit): kernels 7-8 and their helpers
+# ---------------------------------------------------------------------------
+
+#: tests/test_codecs.py:95's sweep plus ragged lengths around a word
+TERNARY_CASES = [(1, 16), (4, 100), (9, 5000), (3, 1), (3, 15), (3, 17),
+                 (3, 33)]
+
+
+def _ternary_payload(m, n, dtype, *salt):
+    """(m, n) payloads for ternary_pack. int8: any int8 value (only the low
+    two bits are packed), with the {-1, 0, +1} symbols in the first half;
+    float: normal values with planted +0.0 / -0.0 (both abstain)."""
+    rng = _rng(m, n, *salt)
+    if dtype == "int8":
+        x = rng.integers(-128, 128, size=(m, n)).astype(np.int8)
+        x[:, : n // 2] = rng.integers(-1, 2, size=(m, n // 2))
+        x[:, ::7] = 0
+        return x, torch.from_numpy(x)
+    x = rng.normal(size=(m, n)).astype(np.float32)
+    x[:, ::5] = 0.0
+    x[:, 2::5] = -0.0
+    if dtype == "bfloat16":
+        x = _bf16_exact(x)
+    return x, torch.from_numpy(x).to(getattr(torch, dtype))
+
+
+@pytest.mark.parametrize("dtype", SIGN_DTYPES)
+@pytest.mark.parametrize("m,n", TERNARY_CASES)
+def test_ternary_pack_matches_jax(m, n, dtype):
+    """(m, n) -> (m, ceil(n/16)) words, each row padded with abstaining
+    fields: equal to the reference's kernel (interpret mode) row by row
+    and to its oracle on the zero-padded rows. The reference packs int
+    symbols; a float row is handed to it as its sign_ternary, which is
+    what the port's kernel packs from the values."""
+    x, tx = _ternary_payload(m, n, dtype, 1)
+    got = _words(tops.ternary_pack(tx))
+    assert got.shape == (m, -(-n // 16))
+    sym = x if dtype == "int8" else np.asarray(
+        jsc.sign_ternary(jnp.asarray(x)))
+    for r in range(m):
+        np.testing.assert_array_equal(
+            got[r], np.asarray(jops.ternary_pack(jnp.asarray(sym[r]))))
+    padded = np.pad(sym, ((0, 0), (0, (-n) % 16)))
+    np.testing.assert_array_equal(
+        got, np.asarray(jref.ternary_pack(jnp.asarray(padded))))
+
+
+def _planted_words(m, w, *salt):
+    """(m, w) random words (every field pattern, 0b10 included) with the
+    first voter column's fields set to plant ties: half the voters +1,
+    half -1 in word 0."""
+    words = _rng(m, w, *salt).integers(0, 2 ** 32, size=(m, w),
+                                       dtype=np.uint32)
+    half = m // 2
+    words[:half, 0] = 0x55555555          # +1 in every field
+    words[half:2 * half, 0] = 0xFFFFFFFF  # -1 in every field
+    return words
+
+
+@pytest.mark.parametrize("m", [1, 2, 3, 4, 9, 16, 33])
+@pytest.mark.parametrize("w", [1, 7, 313, 517])
+def test_ternary_majority_matches_jax(m, w):
+    words = _planted_words(m, w)
+    got = _words(tops.ternary_majority(torch.from_numpy(words.view(np.int32))))
+    np.testing.assert_array_equal(
+        got, np.asarray(jops.ternary_majority(jnp.asarray(words))))
+    np.testing.assert_array_equal(
+        got, np.asarray(jref.ternary_majority(jnp.asarray(words))))
+    if m % 2 == 0:   # the planted exact ties decode to 0
+        assert got[0] == 0
+
+
+def test_ternary_majority_reads_0b10_as_zero():
+    """The unused pattern 0b10 counts 0, never -2: one +1 against two 0b10
+    fields is +1."""
+    words = np.array([[0x1], [0x2], [0x2]], np.uint32)
+    got = _words(tops.ternary_majority(torch.from_numpy(words.view(np.int32))))
+    assert got.tolist() == [0x1]
+    assert np.asarray(jops.ternary_majority(jnp.asarray(words))).tolist() \
+        == [0x1]
+
+
+@pytest.mark.parametrize("n", [1, 15, 16, 17, 33, 100, 5000])
+def test_ternary_unpack_matches_jax(n):
+    words = _rng(n, 3).integers(0, 2 ** 32, size=-(-n // 16) + 1,
+                                dtype=np.uint32)   # one word to spare
+    got = tops.ternary_unpack(torch.from_numpy(words.view(np.int32)), n)
+    assert got.shape == (n,) and got.dtype == torch.int8
+    np.testing.assert_array_equal(
+        got.numpy(), np.asarray(jops.ternary_unpack(jnp.asarray(words), n)))
+
+
+@pytest.mark.parametrize("pdtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("eta,wd", [(1e-3, 0.0), (1e-2, 0.1)])
+def test_apply_ternary_vote_matches_jax(eta, wd, pdtype):
+    """Equal bits to the reference's update
+    (``repro.core.signum`` ``apply``: p32 - eta*(v + wd*p32), cast back)
+    with the vote decoded by ``repro.core.sign_compress.unpack_ternary``;
+    with wd = 0 an abstaining coordinate keeps its value exactly."""
+    n = 50_016 + 5   # ragged: the last word is part padding
+    rng = _rng(round(eta * 1e4), round(wd * 10), 4)
+    p = rng.normal(size=n).astype(np.float32)
+    if pdtype == "bfloat16":
+        p = _bf16_exact(p)
+    votes = rng.integers(0, 2 ** 32, size=-(-n // 16), dtype=np.uint32)
+    v = jsc.unpack_ternary(jnp.asarray(votes), jnp.float32)[:n]
+    jp = jnp.asarray(p).astype(pdtype)
+    p32 = jp.astype(jnp.float32)
+    expect = np.asarray((p32 - eta * (v + wd * p32)).astype(pdtype)
+                        .astype(jnp.float32))
+    got = tops.apply_ternary_vote(
+        torch.from_numpy(p).to(getattr(torch, pdtype)),
+        torch.from_numpy(votes.view(np.int32)), eta, wd)
+    np.testing.assert_array_equal(got.to(torch.float32).numpy(), expect)
+    if wd == 0.0:
+        held = np.asarray(v) == 0
+        assert held.any()
+        np.testing.assert_array_equal(got.to(torch.float32).numpy()[held],
+                                      p[held])
+
+
+@pytest.mark.parametrize("m,n", [(1, 16), (4, 96), (9, 5008)])
+def test_ternary_sign_compress_matches_jax(m, n):
+    """pack_ternary / unpack_ternary / ternary_majority / popcount of the
+    port's sign_compress against the reference's, words as uint32."""
+    s = _rng(m, n, 5).integers(-1, 2, size=(m, n)).astype(np.int8)
+    tw = tsc.pack_ternary(torch.from_numpy(s))
+    jw = jsc.pack_ternary(jnp.asarray(s))
+    np.testing.assert_array_equal(_words(tw), np.asarray(jw))
+    np.testing.assert_array_equal(tsc.unpack_ternary(tw).numpy(), s)
+    words = _planted_words(m, n // 16, 6)
+    tws = torch.from_numpy(words.view(np.int32))
+    np.testing.assert_array_equal(
+        tsc.unpack_ternary(tws, torch.int32).numpy(),
+        np.asarray(jsc.unpack_ternary(jnp.asarray(words), jnp.int32)))
+    np.testing.assert_array_equal(
+        _words(tsc.ternary_majority(tws)),
+        np.asarray(jsc.ternary_majority(jnp.asarray(words))))
+    np.testing.assert_array_equal(
+        tsc.popcount(tws).numpy(), np.asarray(jsc.popcount(jnp.asarray(words))))
+    with pytest.raises(ValueError, match=r"\(9,\)"):
+        tsc.pack_ternary(torch.zeros(9, dtype=torch.int8))
+
+
+def test_ternary_padding_fields_abstain():
+    """A row's fields past n are 0b00 (abstain), each row on its own —
+    where the 1-bit wire pads with +1 bits."""
+    x = -torch.ones((2, 17), dtype=torch.int8)
+    got = _words(tops.ternary_pack(x))
+    assert got.tolist() == [[0xFFFFFFFF, 0x3]] * 2
+    assert _words(tops.bitpack(x)).tolist() == [[0xFFFE0000]] * 2
+    assert tops.ternary_unpack(tops.ternary_pack(x)[0], 17).tolist() \
+        == [-1] * 17
+
+
+def test_ternary_plain_path_in_place_and_uncounted():
+    tops.reset_launch_counts()
+    x = torch.from_numpy(_rng(7).normal(size=(3, 40)).astype(np.float32))
+    words = torch.empty((4, 3), dtype=torch.int32)
+    out = tops.ternary_pack(x, out=words[1:])
+    assert out.data_ptr() == words[1].data_ptr()
+    maj = torch.empty(3, dtype=torch.int32)
+    assert tops.ternary_majority(words[1:], out=maj).data_ptr() \
+        == maj.data_ptr()
+    np.testing.assert_array_equal(
+        tops.ternary_unpack(maj, 40).numpy(),
+        np.sign(np.sign(x.numpy()).sum(axis=0)).astype(np.int8))
+    p = torch.zeros(40)
+    assert tops.apply_ternary_vote(p, maj, 1e-2, 0.0, out=p).data_ptr() \
+        == p.data_ptr()
+    assert set(tops.launch_counts().values()) == {0}
 
 
 @pytest.mark.parametrize("split", ["global", "replica"])

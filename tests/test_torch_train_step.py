@@ -1,27 +1,49 @@
 """The port's Algorithm 1 train step against the JAX package, in float32
 on the CPU (reduced glm4-9b, global batch 8, seq 64, lr 1e-3, beta 0.9,
-allgather_1bit).
+allgather_1bit), with each gradient codec: sign1bit (5 steps),
+ternary2bit, ef_sign and weighted_vote (3 steps each).
 
 (a) M = 1 against the reference trainer itself
     (``repro.train.train_step.make_train_step(cfg, tcfg, mesh=None)``).
+    It votes ``sign_ternary`` of its vote input with no wire, for every
+    codec: an exactly-zero input (an embedding row whose token is absent
+    from the batch) abstains and its parameter stays. The port's
+    ternary2bit wire abstains there too, so it must agree exactly; the
+    port's 1-bit wire (sign1bit, ef_sign, weighted_vote) votes +1 and
+    moves the parameter by -lr, which is asserted exactly (ROADMAP.md
+    Queue 3).
 (b) M = 4 against a step composed here from JAX functions only: per-voter
     ``jax.value_and_grad(repro.models.model.loss_fn)`` on
     ``replica_batch`` rows, then per leaf the JAX package's own oracles
-    ``repro.kernels.ref.momentum_sign_pack`` / ``majority`` /
-    ``apply_vote``, with the majority cross-checked against
-    ``VirtualBackend().execute(VoteRequest(form="stacked"))``.
+    (``repro.kernels.ref.momentum_sign_pack`` / ``majority`` /
+    ``apply_vote`` / ``ternary_pack`` / ``ternary_majority``), its codecs'
+    ``encode_leaf`` / ``feedback_leaf`` (ef_sign) and
+    ``reliability_weights`` / ``decode_leaf_fixed`` with one EMA update
+    per step over all leaves (weighted_vote, as ``vote_api._tree_
+    execute``), and its update rule; the votes (and weighted_vote's new
+    state) cross-checked against ``VirtualBackend().execute(VoteRequest(
+    form="stacked", codec=...))`` over the concatenated leaves.
 (c) Options the port does not run yet raise.
 
 Criteria, (a) and (b) alike. Teacher-forced (both packages take one step
-from identical params and momentum): the loss within rtol 1e-5, the
-momentum within rtol 1e-5 and atol 1e-7 (m' carries (1-beta) = 0.1 of
-the gradient, whose two float32 versions tests/test_torch_model.py holds
-to atol 1e-6: they are summed in other orders, and tiny entries differ in
-relative terms far more than rtol), and the votes and updated params
-equal on every coordinate whose sign is not a matter of rounding (see
-`_check_teacher_forced`). The coordinates left out are counted and may
-not exceed 0.1%. Free-running for 5 steps from the same init,
-the per-step losses agree within rtol 1e-3.
+from identical params, momentum and codec state): the loss within rtol
+1e-5, the momentum within rtol 1e-5 and atol 1e-7 (m' carries (1-beta) =
+0.1 of the gradient, whose two float32 versions tests/test_torch_model.py
+holds to atol 1e-6: they are summed in other orders, and tiny entries
+differ in relative terms far more than rtol); each package's vote, on every
+coordinate, the decision of its own vote inputs; the two votes and the
+updated params equal wherever those decisions agree. They may disagree
+only where rounding gave a voter another sign, on at most 0.1% of the
+coordinates; on the 1-bit wire the coordinates whose vote a voter with
+0 < |input| <= 1e-7 could change stay below 0.1% too (see
+`_check_votes`). ef_sign's residual e' = t - mean|t| * vote within rtol 1e-5
+and atol 1e-7 + 2e-5 * mean|t| on those coordinates (t carries the
+momentum's tolerance, rtol 1e-5 and atol 1e-7; mean|t|, a float32 sum in
+another order, is within rtol 1e-5 with it); weighted_vote's
+flip-rate state within RHO * (its voter's rounding-decided coordinates +
+the left-out ones) / n plus two float32 ulps, and equal where that count
+is 0. Free-running from the
+same init, the per-step losses agree within rtol 1e-3.
 """
 import dataclasses
 
@@ -35,7 +57,10 @@ torch = pytest.importorskip("torch")
 from repro.configs.base import (MomentumMode, OptimizerConfig,  # noqa: E402
                                 TrainConfig, VoteStrategy, get_config,
                                 reduced_config)
+from repro.core import codecs as jcodecs  # noqa: E402
+from repro.core import sign_compress as jsc  # noqa: E402
 from repro.core import vote_api as va  # noqa: E402
+from repro.core.codecs import weighted as jwv  # noqa: E402
 from repro.data.pipeline import SyntheticLMPipeline  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro.models import model as jM  # noqa: E402
@@ -48,6 +73,9 @@ from repro_torch.train import train_step as tTS  # noqa: E402
 
 GB, SEQ, LR, BETA = 8, 64, 1e-3, 0.9
 STEPS = 5
+#: steps of each codec's runs
+CODEC_STEPS = 3
+CODECS = ("ternary2bit", "ef_sign", "weighted_vote")
 #: m' tolerance's atol. Above it the asserted momentum bound fixes the
 #: sign, so the votes are compared on every coordinate with |m'| > 1e-7
 #: (a superset of the |m'| > 1e-6 coordinates)
@@ -55,12 +83,12 @@ NEAR_ZERO = 1e-7
 MAX_EXCLUDED = 1e-3
 
 
-def _jcfgs():
+def _jcfgs(codec="sign1bit"):
     cfg = dataclasses.replace(reduced_config(get_config("glm4-9b")),
                               dtype="float32")
     tcfg = TrainConfig(global_batch=GB, seq_len=SEQ, optimizer=OptimizerConfig(
         kind="signum_vote", learning_rate=LR, momentum=BETA,
-        vote_strategy=VoteStrategy.ALLGATHER_1BIT))
+        vote_strategy=VoteStrategy.ALLGATHER_1BIT, codec=codec))
     return cfg, tcfg
 
 
@@ -80,70 +108,207 @@ def _np(tree):
     return {k: np.array(v) for k, v in tree.items()}
 
 
-def _port_state(params, momentum):
-    """numpy params + (M, ...) momentum -> the port's state on the CPU."""
-    return (tM.params_from_numpy(params, device="cpu"),
-            {"count": 0, "momentum": tM.params_from_numpy(momentum,
-                                                          device="cpu")})
+def _snapshot(params, opt):
+    """A reference state as numpy: params, momentum and the codec's state
+    ("error" (M, ...) for ef_sign, "ema" (M,) for weighted_vote)."""
+    state = {"params": _np(params), "momentum": _np(opt["momentum"])}
+    if "error" in opt:
+        state["error"] = _np(opt["error"])
+    if "codec" in opt:
+        state["ema"] = np.array(opt["codec"]["flip_ema"])
+    return state
 
 
-def _port_step(n_voters, params, momentum, tokens, step):
-    cfg, tcfg = _tcfgs()
+def _port_state(state):
+    """A numpy state (see `_snapshot`) -> the port's (params, opt_state)
+    on the CPU."""
+    opt = {"count": 0,
+           "momentum": tM.params_from_numpy(state["momentum"], device="cpu")}
+    if "error" in state:
+        opt["error"] = tM.params_from_numpy(state["error"], device="cpu")
+    if "ema" in state:
+        opt["codec"] = {"flip_ema": torch.from_numpy(state["ema"].copy())}
+    return tM.params_from_numpy(state["params"], device="cpu"), opt
+
+
+def _port_step(n_voters, state, tokens, step, codec="sign1bit"):
+    """One port step from the numpy `state`; the new state with "loss"."""
+    cfg, tcfg = _tcfgs(codec=codec)
     art = tTS.make_train_step(cfg, tcfg, n_voters, device="cpu")
-    tp, ts = _port_state(params, momentum)
+    assert art.codec == codec
+    tp, ts = _port_state(state)
     tp, ts, met = art.step_fn(tp, ts, {"tokens": tokens}, step)
-    return (float(met["loss"]), {k: v.numpy() for k, v in tp.items()},
-            {k: v.numpy() for k, v in ts["momentum"].items()})
+    out = {"loss": float(met["loss"]),
+           "params": {k: v.numpy() for k, v in tp.items()},
+           "momentum": {k: v.numpy() for k, v in ts["momentum"].items()}}
+    if "error" in ts:
+        out["error"] = {k: v.numpy() for k, v in ts["error"].items()}
+    if "codec" in ts:
+        out["ema"] = ts["codec"]["flip_ema"].numpy()
+    return out
 
 
-def _check_teacher_forced(p0, ref, port, *, ref_abstains_on_zero=False):
-    """ref/port: (loss, params, momentum (M, ...)) after one step from the
-    same params p0.
+def _free_running_losses(n_voters, state, batches, codec="sign1bit"):
+    cfg, tcfg = _tcfgs(codec=codec)
+    art = tTS.make_train_step(cfg, tcfg, n_voters, device="cpu")
+    tp, ts = _port_state(state)
+    assert all(v.shape[0] == n_voters for v in ts["momentum"].values())
+    got = []
+    for step, tokens in enumerate(batches):
+        tp, ts, met = art.step_fn(tp, ts, {"tokens": tokens}, step)
+        got.append(float(met["loss"]))
+    assert ts["count"] == len(batches)
+    return got
 
-    A voter's sign is a matter of rounding where its reference |m'| <=
-    1e-7 and the two packages' m' differ; a coordinate is left out when
-    such signs could change its majority. Where a voter's m' is exactly 0 in both (an embedding row
-    whose token is absent from that voter's rows), both must count it as
-    +1 (sign(0) = +1 on the 1-bit wire) — except that the reference's
-    single-process M = 1 step (`ref_abstains_on_zero`) votes
-    sign_ternary(0) = 0 there and leaves the parameter still, while the
-    port's 1-bit wire moves it by -lr; that difference is asserted
-    exactly (ROADMAP.md Queue 3)."""
-    (rloss, rparams, rmom), (loss, params, mom) = ref, port
-    np.testing.assert_allclose(loss, rloss, rtol=1e-5)
-    excluded = total = zeros = 0
-    for k in rparams:
-        np.testing.assert_allclose(mom[k], rmom[k], rtol=1e-5, atol=NEAR_ZERO,
-                                   err_msg=k)
-        exact0 = (rmom[k] == 0) & (mom[k] == 0)
-        # per voter: a sure +1 (above the tolerance, or 0 in both), a sure
-        # -1, or a sign decided by rounding; the coordinate is left out
-        # only when the rounded signs could change the majority
-        pos = ((rmom[k] > NEAR_ZERO) | exact0).sum(axis=0)
-        amb = ((np.abs(rmom[k]) <= NEAR_ZERO) & ~exact0).sum(axis=0)
-        n_voters = rmom[k].shape[0]
-        keep = (2 * pos >= n_voters) | (2 * (pos + amb) < n_voters)
-        excluded += int((~keep).sum())
-        total += keep.size
-        if ref_abstains_on_zero:
-            held = exact0.all(axis=0)
-            zeros += int(held.sum())
-            np.testing.assert_array_equal(rparams[k][held], p0[k][held])
-            np.testing.assert_array_equal(
-                params[k][held], p0[k][held] - np.float32(LR), err_msg=k)
-            keep &= ~held
+
+def _vote_inputs(state, new, codec):
+    """What each voter's signs are taken of, per leaf, (M, ...): the new
+    momentum, or for ef_sign t = e + m' (the float32 add both packages
+    make)."""
+    if codec != "ef_sign":
+        return new["momentum"]
+    return {k: state["error"][k] + m for k, m in new["momentum"].items()}
+
+
+def _symbols(inputs, zero_votes_plus):
+    """Each voter's symbol: the sign of its input; an input of 0 (or -0.0)
+    votes +1 on the 1-bit wire (`zero_votes_plus`) and abstains on the
+    2-bit wire and in the reference's ``sign_ternary``."""
+    return np.where(inputs > 0, 1.0, np.where(inputs < 0, -1.0,
+                                              float(zero_votes_plus)))
+
+
+def _decide(sym, binary, w):
+    """The vote of each coordinate from the voters' symbols (M, ...) and
+    decode weights `w` (exact multiples of 1/256, so the sums are exact):
+    on the 1-bit wire (`binary`) a (weighted) sum >= 0 votes +1, otherwise
+    the vote is the sign of the sum."""
+    total = (w.reshape((-1,) + (1,) * (sym.ndim - 1)) * sym).sum(axis=0)
+    return np.where(total >= 0, 1, -1) if binary else np.sign(total)
+
+
+def _check_votes(p0, ref, port, rin, pin, *, binary, ref_abstains_on_zero,
+                 weights=None):
+    """The votes and updated params of one teacher-forced step, leaf by
+    leaf; returns (excluded, total, zeros, symbol disagreements per voter,
+    agree masks).
+
+    Each package's applied vote must be, on every coordinate, the decision
+    its own vote inputs `rin` / `pin` (M, ...) give. The two decisions
+    differ only where rounding gave some voter another symbol (those
+    coordinates are counted, and may not exceed MAX_EXCLUDED; on the 1-bit
+    wire neither may the coordinates whose vote some voter with 0 <
+    |input| <= NEAR_ZERO could change), or where
+    the reference votes 0 on an input that is exactly 0 and the port's
+    1-bit wire votes +1 (the reference's single-process M = 1 step,
+    `ref_abstains_on_zero`): there the reference leaves the parameter
+    still and the port moves it by -lr, asserted exactly. Elsewhere the
+    updated params are equal."""
+    excluded = total = zeros = undecided = 0
+    flips, agree = 0, {}
+    for k in ref["params"]:
+        r, q = rin[k], pin[k]
+        w = (np.ones(r.shape[0]) if weights is None
+             else np.asarray(weights, np.float64))
+        if binary:   # votes a near-zero voter could change either way
+            zero = (r == 0) & (q == 0)
+            amb = (np.abs(r) <= NEAR_ZERO) & ~zero
+            sure = _symbols(np.where(amb, 0.0, r), True) * ~amb
+            wb = w.reshape((-1,) + (1,) * (r.ndim - 1))
+            base = (wb * sure).sum(axis=0)
+            spread = (np.abs(wb) * amb).sum(axis=0)
+            undecided += int((~((base - spread >= 0)
+                                | (base + spread < 0))).sum())
+        rsym = _symbols(r, binary and not ref_abstains_on_zero)
+        psym = _symbols(q, binary)
+        pvote = _decide(psym, binary, w)
+        rvote = _decide(rsym, binary and not ref_abstains_on_zero, w)
         # wd = 0: the applied vote is the sign of the parameter's move
-        rvote = np.sign(p0[k] - rparams[k])
-        vote = np.sign(p0[k] - params[k])
-        assert (np.abs(vote) == 1).all(), k
-        np.testing.assert_array_equal(vote[keep], rvote[keep], err_msg=k)
-        np.testing.assert_array_equal(params[k][keep], rparams[k][keep],
+        v = np.sign(p0[k] - port["params"][k])
+        rv = np.sign(p0[k] - ref["params"][k])
+        np.testing.assert_array_equal(v, pvote, err_msg=k)
+        np.testing.assert_array_equal(rv, rvote, err_msg=k)
+        if binary:
+            assert (np.abs(v) == 1).all(), k
+        # every voter exactly 0 in both: the two zero rules differ there
+        held = (pvote != rvote) & ((r == 0) & (q == 0)).all(axis=0)
+        np.testing.assert_array_equal(ref["params"][k][held], p0[k][held])
+        np.testing.assert_array_equal(
+            port["params"][k][held], p0[k][held] - np.float32(LR), err_msg=k)
+        zeros += int(held.sum())
+        differ = (pvote != rvote) & ~held
+        excluded += int(differ.sum())
+        total += differ.size
+        # a rounding-decided symbol: the inputs' signs differ
+        flips = flips + (np.sign(r) != np.sign(q)).reshape(
+            r.shape[0], -1).sum(axis=1)
+        np.testing.assert_array_equal(port["params"][k][~differ & ~held],
+                                      ref["params"][k][~differ & ~held],
                                       err_msg=k)
-    print(f"excluded {excluded} of {total} coordinates whose vote rests on "
-          f"some 0 < |m'| <= {NEAR_ZERO} ({excluded / total:.4%}); {zeros} "
-          "exact-zero "
-          "coordinates held still by the reference, moved -lr by the port")
+        agree[k] = ~differ
+    print(f"{excluded} of {total} coordinates voted otherwise because "
+          f"rounding gave some voter another sign ({excluded / total:.4%}; "
+          f"symbols that differ, per voter: {np.asarray(flips).tolist()}); "
+          f"{zeros} exact-zero coordinates held still by the reference, "
+          f"moved -lr by the port's 1-bit wire; {undecided} coordinates "
+          f"whose vote rests on some 0 < |input| <= {NEAR_ZERO}")
     assert excluded <= MAX_EXCLUDED * total
+    assert undecided <= MAX_EXCLUDED * total
+    return excluded, total, zeros, flips, agree
+
+
+def _check_teacher_forced(state, ref, port, *, codec="sign1bit",
+                          ref_abstains_on_zero=False):
+    """ref/port: the new states (with "loss") after one step from the
+    same numpy `state`; see the module doc for the criteria."""
+    p0 = state["params"]
+    np.testing.assert_allclose(port["loss"], ref["loss"], rtol=1e-5)
+    for k in p0:
+        np.testing.assert_allclose(port["momentum"][k], ref["momentum"][k],
+                                   rtol=1e-5, atol=NEAR_ZERO, err_msg=k)
+    weights = None
+    if codec == "weighted_vote":
+        weights = np.asarray(jwv.reliability_weights(
+            jnp.asarray(state["ema"])))
+    rin, pin = _vote_inputs(state, ref, codec), _vote_inputs(state, port,
+                                                              codec)
+    excluded, total, zeros, flips, agree = _check_votes(
+        p0, ref, port, rin, pin, binary=codec != "ternary2bit",
+        ref_abstains_on_zero=ref_abstains_on_zero, weights=weights)
+    if codec == "ternary2bit":
+        assert zeros == 0
+        # untouched embedding rows abstain in both and stay still
+        still = sum(int((ref["params"][k] == p0[k]).sum()) for k in p0)
+        assert still == sum(int((port["params"][k] == p0[k]).sum())
+                            for k in p0)
+        if ref_abstains_on_zero:
+            assert still > 0
+    if codec == "ef_sign":
+        for k in p0:
+            for r in range(rin[k].shape[0]):
+                scale = float(np.mean(np.abs(rin[k][r]), dtype=np.float64))
+                keep = agree[k] & (np.sign(rin[k][r]) == np.sign(pin[k][r]))
+                zero = (rin[k][r] == 0) & (pin[k][r] == 0) & keep
+                if ref_abstains_on_zero:
+                    # reference: 0 - scale * 0; port: 0 - scale * (+1)
+                    np.testing.assert_array_equal(
+                        ref["error"][k][r][zero], 0.0)
+                    np.testing.assert_allclose(
+                        port["error"][k][r][zero], -scale, rtol=1e-5)
+                    keep = keep & ~zero
+                np.testing.assert_allclose(
+                    port["error"][k][r][keep], ref["error"][k][r][keep],
+                    rtol=1e-5, atol=NEAR_ZERO + 2e-5 * scale, err_msg=k)
+    if codec == "weighted_vote":
+        n_total = sum(v.size for v in p0.values())
+        # each changed count moves the state by RHO / n; the float32 sums
+        # round on top of that (two ulps)
+        moved = jwv.RHO * (flips + excluded) / n_total
+        diff = np.abs(port["ema"].astype(np.float64) - ref["ema"])
+        bound = moved + 2 * np.spacing(ref["ema"])
+        assert (diff <= bound).all(), (diff, bound)
+        np.testing.assert_array_equal(port["ema"][moved == 0],
+                                      ref["ema"][moved == 0])
 
 
 # ---------------------------------------------------------------------------
@@ -151,24 +316,33 @@ def _check_teacher_forced(p0, ref, port, *, ref_abstains_on_zero=False):
 # ---------------------------------------------------------------------------
 
 
-@pytest.fixture(scope="module")
-def ref_m1():
-    """The reference trainer's state and losses over STEPS steps."""
-    cfg, tcfg = _jcfgs()
+def _reference_trainer_run(codec, steps):
+    """The reference trainer's states and losses over `steps` steps."""
+    cfg, tcfg = _jcfgs(codec)
     art = jTS.make_train_step(cfg, tcfg, mesh=None)
     params, opt = jTS.materialize_state(cfg, tcfg, art, jax.random.PRNGKey(0))
     pipe = SyntheticLMPipeline(cfg, GB, SEQ, seed=0)
     states, losses, batches = [], [], []
-    for step in range(STEPS):
+    for step in range(steps):
         tokens = pipe.global_batch_at(step)["tokens"]
-        states.append((_np(params), _np(opt["momentum"])))
+        states.append(_snapshot(params, opt))
         params, opt, met = art.step_fn(params, opt,
                                        {"tokens": jnp.asarray(tokens)},
                                        jnp.int32(step))
         losses.append(float(met["loss"]))
         batches.append(tokens)
-    states.append((_np(params), _np(opt["momentum"])))
+    states.append(_snapshot(params, opt))
     return states, losses, batches
+
+
+@pytest.fixture(scope="module")
+def ref_m1():
+    return _reference_trainer_run("sign1bit", STEPS)
+
+
+@pytest.fixture(scope="module", params=CODECS)
+def ref_m1_codec(request):
+    return request.param, _reference_trainer_run(request.param, CODEC_STEPS)
 
 
 def test_m1_step0_loss_is_the_reference_value(ref_m1):
@@ -180,22 +354,35 @@ def test_m1_step0_loss_is_the_reference_value(ref_m1):
 @pytest.mark.parametrize("step", [0, 2])
 def test_m1_teacher_forced_step_matches_reference(ref_m1, step):
     states, losses, batches = ref_m1
-    p0, m0 = states[step]
-    port = _port_step(1, p0, m0, batches[step], step)
-    ref = (losses[step],) + states[step + 1]
-    _check_teacher_forced(p0, ref, port, ref_abstains_on_zero=True)
+    port = _port_step(1, states[step], batches[step], step)
+    ref = {"loss": losses[step], **states[step + 1]}
+    _check_teacher_forced(states[step], ref, port, ref_abstains_on_zero=True)
 
 
 def test_m1_free_running_losses_match_reference(ref_m1):
     states, losses, batches = ref_m1
-    cfg, tcfg = _tcfgs()
-    art = tTS.make_train_step(cfg, tcfg, 1, device="cpu")
-    tp, ts = _port_state(*states[0])
-    got = []
-    for step in range(STEPS):
-        tp, ts, met = art.step_fn(tp, ts, {"tokens": batches[step]}, step)
-        got.append(float(met["loss"]))
-    assert ts["count"] == STEPS
+    got = _free_running_losses(1, states[0], batches)
+    np.testing.assert_allclose(got, losses, rtol=1e-3)
+
+
+@pytest.mark.parametrize("step", [0, 2])
+def test_m1_codec_teacher_forced_step_matches_reference(ref_m1_codec, step):
+    """Each codec at M = 1 against the reference trainer: ternary2bit
+    agrees on every coordinate, untouched embedding rows included (both
+    abstain); ef_sign and weighted_vote differ exactly where the vote
+    input is exactly 0 (see the module doc)."""
+    codec, (states, losses, batches) = ref_m1_codec
+    port = _port_step(1, states[step], batches[step], step, codec)
+    ref = {"loss": losses[step], **states[step + 1]}
+    _check_teacher_forced(states[step], ref, port, codec=codec,
+                          ref_abstains_on_zero=True)
+    if codec == "weighted_vote":   # one voter always agrees with itself
+        assert port["ema"].tolist() == ref["ema"].tolist() == [0.0]
+
+
+def test_m1_codec_free_running_losses_match_reference(ref_m1_codec):
+    codec, (states, losses, batches) = ref_m1_codec
+    got = _free_running_losses(1, states[0], batches, codec)
     np.testing.assert_allclose(got, losses, rtol=1e-3)
 
 
@@ -206,82 +393,160 @@ def test_m1_free_running_losses_match_reference(ref_m1):
 M4 = 4
 
 
-def _pad32(x):
+def _pad(x, multiple=32):
     flat = x.reshape(-1)
-    return jnp.pad(flat, (0, (-flat.shape[0]) % 32))[None]
+    return jnp.pad(flat, (0, (-flat.shape[0]) % multiple))[None]
 
 
-@pytest.fixture(scope="module")
-def ref_m4():
-    cfg, tcfg = _jcfgs()
+def _composed_run(codec, steps):
+    """`steps` M = 4 steps composed from the JAX package's functions (see
+    the module doc); returns (states, losses, batches)."""
+    cfg, tcfg = _jcfgs(codec)
+    c = jcodecs.get_codec(codec)
     params = jM.init_params(cfg, jax.random.PRNGKey(0))
-    momentum = {k: jnp.zeros((M4,) + v.shape, jnp.float32)
-                for k, v in params.items()}
+    opt = {"momentum": {k: jnp.zeros((M4,) + v.shape, jnp.float32)
+                        for k, v in params.items()}}
+    if c.worker_state:
+        opt["error"] = dict(opt["momentum"])
+    if c.server_state:
+        opt["codec"] = c.init_server_state(M4)
+    n_total = sum(v.size for v in params.values())
     pipe = SyntheticLMPipeline(cfg, GB, SEQ, seed=0)
     grad_fn = jax.jit(jax.value_and_grad(
         lambda p, t: jM.loss_fn(cfg, p, {"tokens": t}), has_aux=True))
     msp = jax.jit(jref.momentum_sign_pack, static_argnums=2)
+    bitpack = jax.jit(jref.bitpack)
     majority = jax.jit(jref.majority)
     apply = jax.jit(jref.apply_vote, static_argnums=(2, 3))
     unpack = jax.jit(jref.bitunpack, static_argnums=1)
+    tpack = jax.jit(jref.ternary_pack)
+    tmajority = jax.jit(jref.ternary_majority)
+    encode = jax.jit(c.encode_leaf)
+    feedback = jax.jit(c.feedback_leaf)
+    decode = jax.jit(jwv.decode_leaf_fixed)
+    # as in the reference's jitted step, n_total is a constant there
+    ema_update = jax.jit(lambda e, mis: (1.0 - jwv.RHO) * e
+                         + jwv.RHO * mis / n_total)
+
+    @jax.jit
+    def apply_ternary(p, v):
+        # the reference's update rule (core/signum.py:232-238), wd = 0
+        p32 = p.astype(jnp.float32)
+        return (p32 - LR * (v.astype(jnp.float32) + 0.0 * p32)).astype(
+            p.dtype)
+
     states, losses, batches = [], [], []
-    for step in range(STEPS):
-        states.append((_np(params), _np(momentum)))
+    for step in range(steps):
+        states.append(_snapshot(params, opt))
         batches.append(pipe.global_batch_at(step)["tokens"])
-        step_losses, new_m, packed = [], {k: [] for k in params}, \
-            {k: [] for k in params}
+        step_losses, new_m = [], {k: [] for k in params}
         for r in range(M4):
             rows = pipe.replica_batch(step, r, M4)["tokens"]
             (loss, _), grads = grad_fn(params, jnp.asarray(rows))
             step_losses.append(float(loss))
             for k, g in grads.items():
-                m_r, words = msp(
-                    _pad32(g), _pad32(momentum[k][r]), BETA)
+                m_r, _ = msp(_pad(g), _pad(opt["momentum"][k][r]), BETA)
                 new_m[k].append(m_r[0, :g.size].reshape(g.shape))
-                packed[k].append(words[0])
-        new_params, unpacked = {}, []
+        if c.server_state:
+            w = jwv.reliability_weights(opt["codec"]["flip_ema"])
+            mismatch = jnp.zeros((M4,), jnp.float32)
+        new_params, new_err, flat_votes, flat_inputs = {}, {}, [], []
         for k, p in params.items():
-            votes = majority(jnp.stack(packed[k]))
-            unpacked.append(
-                np.asarray(unpack(votes[None], jnp.int8))[0, :p.size])
-            new_params[k] = apply(_pad32(p), votes[None], LR,
-                                  0.0)[0, :p.size].reshape(p.shape)
-        # one stacked (M, n_total) request over every leaf: one compile
-        stacked = jnp.concatenate(
-            [jnp.stack([m.reshape(-1) for m in new_m[k]]) for k in params],
-            axis=1)
+            n = p.size
+            inputs = new_m[k]
+            if c.worker_state:
+                inputs = [encode(m, e) for m, e in zip(inputs,
+                                                       opt["error"][k])]
+            flat_inputs.append(jnp.stack([x.reshape(-1) for x in inputs]))
+            if codec == "ternary2bit":
+                words = jnp.stack([tpack(_pad(jsc.sign_ternary(x), 16))[0]
+                                   for x in inputs])
+                v = jsc.unpack_ternary(tmajority(words))[:n]
+                new_params[k] = apply_ternary(p, v.reshape(p.shape))
+                flat_votes.append(v)
+                continue
+            words = jnp.stack([bitpack(_pad(x))[0] for x in inputs])
+            if c.server_state:
+                stacked = jsc.unpack_signs(words)[:, :n]
+                vote, mis = decode(stacked, w)
+                mismatch = mismatch + mis
+                votes = jsc.pack_signs(_pad(vote)[0])
+            else:
+                votes = majority(words)
+            vote = np.asarray(unpack(votes[None], jnp.int8))[0, :n]
+            flat_votes.append(vote)
+            new_params[k] = apply(_pad(p), votes[None], LR,
+                                  0.0)[0, :n].reshape(p.shape)
+            if c.worker_state:
+                new_err[k] = jnp.stack([
+                    feedback(t, jnp.asarray(vote).reshape(p.shape), e)
+                    for t, e in zip(inputs, opt["error"][k])])
+        # the vote API over every leaf at once: the same votes (and, for
+        # weighted_vote, the same one EMA update over all coordinates)
         cross = va.VirtualBackend().execute(va.VoteRequest(
-            payload=stacked, form="stacked",
-            strategy=VoteStrategy.ALLGATHER_1BIT)).votes
-        np.testing.assert_array_equal(np.concatenate(unpacked),
-                                      np.asarray(cross))
+            payload=jnp.concatenate(flat_inputs, axis=1), form="stacked",
+            strategy=VoteStrategy.ALLGATHER_1BIT, codec=codec,
+            server_state=opt.get("codec")))
+        np.testing.assert_array_equal(np.concatenate(flat_votes),
+                                      np.asarray(cross.votes))
         params = new_params
-        momentum = {k: jnp.stack(v) for k, v in new_m.items()}
+        opt = {**opt, "momentum": {k: jnp.stack(v) for k, v in new_m.items()}}
+        if c.worker_state:
+            opt["error"] = new_err
+        if c.server_state:
+            opt["codec"] = {"flip_ema": ema_update(opt["codec"]["flip_ema"],
+                                                   mismatch)}
+            np.testing.assert_array_equal(
+                np.asarray(opt["codec"]["flip_ema"]),
+                np.asarray(cross.server_state["flip_ema"]))
         losses.append(float(np.mean(step_losses)))
-    states.append((_np(params), _np(momentum)))
+    states.append(_snapshot(params, opt))
     return states, losses, batches
+
+
+@pytest.fixture(scope="module")
+def ref_m4():
+    return _composed_run("sign1bit", STEPS)
+
+
+@pytest.fixture(scope="module", params=CODECS)
+def ref_m4_codec(request):
+    return request.param, _composed_run(request.param, CODEC_STEPS)
 
 
 @pytest.mark.parametrize("step", [0, 2])
 def test_m4_teacher_forced_step_matches_composed_reference(ref_m4, step):
     states, losses, batches = ref_m4
-    p0, m0 = states[step]
-    port = _port_step(M4, p0, m0, batches[step], step)
-    ref = (losses[step],) + states[step + 1]
-    _check_teacher_forced(p0, ref, port)
+    port = _port_step(M4, states[step], batches[step], step)
+    ref = {"loss": losses[step], **states[step + 1]}
+    _check_teacher_forced(states[step], ref, port)
 
 
 def test_m4_free_running_losses_match_composed_reference(ref_m4):
     states, losses, batches = ref_m4
-    cfg, tcfg = _tcfgs()
-    art = tTS.make_train_step(cfg, tcfg, M4, device="cpu")
-    tp, ts = _port_state(*states[0])
-    assert all(v.shape[0] == M4 for v in ts["momentum"].values())
-    got = []
-    for step in range(STEPS):
-        tp, ts, met = art.step_fn(tp, ts, {"tokens": batches[step]}, step)
-        got.append(float(met["loss"]))
+    got = _free_running_losses(M4, states[0], batches)
     np.testing.assert_allclose(got, losses, rtol=1e-3)
+
+
+@pytest.mark.parametrize("step", [0, 2])
+def test_m4_codec_teacher_forced_step_matches_composed_reference(
+        ref_m4_codec, step):
+    codec, (states, losses, batches) = ref_m4_codec
+    port = _port_step(M4, states[step], batches[step], step, codec)
+    ref = {"loss": losses[step], **states[step + 1]}
+    _check_teacher_forced(states[step], ref, port, codec=codec)
+
+
+def test_m4_codec_free_running_losses_match_composed_reference(ref_m4_codec):
+    codec, (states, losses, batches) = ref_m4_codec
+    got = _free_running_losses(M4, states[0], batches, codec)
+    np.testing.assert_allclose(got, losses, rtol=1e-3)
+
+
+_NO_LAUNCHES = {"momentum_sign_pack": 0, "majority": 0, "apply_vote": 0,
+                "bitpack": 0, "bitunpack": 0, "fused_majority": 0,
+                "ternary_pack": 0, "ternary_majority": 0,
+                "ternary_unpack": 0, "apply_ternary_vote": 0}
 
 
 def test_step_updates_state_in_place_without_kernel_launches():
@@ -304,11 +569,50 @@ def test_step_updates_state_in_place_without_kernel_launches():
     for k, p in params.items():
         moved = (before[k] - p).abs()
         assert torch.allclose(moved, torch.full_like(moved, LR), rtol=1e-2)
-    assert tops.launch_counts() == {"momentum_sign_pack": 0, "majority": 0,
-                                    "apply_vote": 0, "bitpack": 0,
-                                    "bitunpack": 0, "fused_majority": 0}
+    assert tops.launch_counts() == _NO_LAUNCHES
     words = tsc.words_for(params["embed.table"].numel())
     assert words == 512 * 128 // 32
+
+
+@pytest.mark.parametrize("codec", CODECS)
+def test_codec_state_layout_and_in_place(codec):
+    """materialize_state lays the codec's state out as the reference's
+    abstract_state does (with the leading voter axis): ef_sign's residual
+    shaped like the momentum, weighted_vote's (M,) flip_ema; a step updates
+    every piece in place and launches no kernel on the CPU."""
+    cfg, tcfg = _tcfgs(codec=codec)
+    art = tTS.make_train_step(cfg, tcfg, 2, device="cpu")
+    assert art.codec == codec
+    params, state = tTS.materialize_state(
+        cfg, tcfg, art, torch.Generator().manual_seed(0))
+    jcfg, jtcfg = _jcfgs(codec)
+    _, jstate = jTS.abstract_state(jcfg, jtcfg, jTS.make_train_step(
+        jcfg, jtcfg, mesh=None))
+    assert sorted(state) == sorted(jstate)
+    if "error" in state:
+        for k, e in state["error"].items():
+            assert e.shape == state["momentum"][k].shape
+            assert e.shape[1:] == jstate["error"][k].shape[1:]
+            assert not e.any()
+    if "codec" in state:
+        assert state["codec"]["flip_ema"].dtype == torch.float32
+        assert state["codec"]["flip_ema"].tolist() == [0.0, 0.0]
+    ptrs = {(part, k): v.data_ptr() for part in ("momentum", "error")
+            for k, v in state.get(part, {}).items()}
+    ema = state.get("codec", {}).get("flip_ema")
+    tokens = SyntheticLMPipeline(jcfg, GB, SEQ).global_batch_at(0)
+    tops.reset_launch_counts()
+    for step in range(2):
+        _, state, met = art.step_fn(params, state, tokens, step)
+        assert np.isfinite(float(met["loss"]))
+    assert state["count"] == 2
+    assert {(part, k): v.data_ptr() for part in ("momentum", "error")
+            for k, v in state.get(part, {}).items()} == ptrs
+    if ema is not None:
+        assert state["codec"]["flip_ema"] is ema
+    if "error" in state:
+        assert any(e.any() for e in state["error"].values())
+    assert tops.launch_counts() == _NO_LAUNCHES
 
 
 # ---------------------------------------------------------------------------
@@ -321,7 +625,7 @@ def test_step_updates_state_in_place_without_kernel_launches():
     {"momentum_mode": tbase.MomentumMode.GLOBAL},
     {"delayed_vote": True},
     {"momentum": 0.0},
-    {"codec": "ternary2bit"},
+    {"bucket_bytes": 4096},
     {"momentum_dtype": "bfloat16"},
 ])
 def test_unported_options_raise(opt):

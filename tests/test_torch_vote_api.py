@@ -3,7 +3,8 @@ CPU, plain kernel versions) with the JAX package's (``repro.core.
 vote_api``): the same numpy payloads through ``VirtualBackend.execute`` on
 both sides. Votes, wire signs and every ``WireReport`` field must be
 equal; there is no tolerance, since every compared output is an integer
-or a bit pattern. Requests outside the port's slice must raise
+or a bit pattern, and ``weighted_vote``'s float32 flip-rate state must be
+equal too. Requests outside the port's slice must raise
 ``NotImplementedError`` naming their ROADMAP.md item."""
 import dataclasses
 
@@ -31,6 +32,11 @@ COMBOS = [("psum_int8", False), ("allgather_1bit", False),
           ("hierarchical", False), ("allgather_1bit", True)]
 VOTERS = [1, 2, 3, 4, 5, 8, 15, 16]
 COORDS = [1, 31, 37, 64, 200, 1000]
+#: every codec on every strategy it supports
+CODEC_WIRES = [("sign1bit", s) for s in WIRES] + [
+    ("ef_sign", s) for s in WIRES] + [
+    ("ternary2bit", "psum_int8"), ("ternary2bit", "allgather_1bit"),
+    ("weighted_vote", "allgather_1bit")]
 
 
 def _payload(m, n, dtype, seed):
@@ -65,17 +71,34 @@ def _ternary(m, n, seed, tie_cols=8):
     return s
 
 
-def _execute_both(jpayload, tpayload, strategy, use_kernels=False):
+def _execute_both(jpayload, tpayload, strategy, use_kernels=False,
+                  codec="sign1bit", flip_ema=None):
+    """The same request on both packages; `flip_ema` (numpy) is the
+    weighted codec's server state."""
+    jstate = tstate = None
+    if flip_ema is not None:
+        jstate = {"flip_ema": jnp.asarray(flip_ema)}
+        tstate = {"flip_ema": flip_ema}
     jout = jva.VirtualBackend(use_kernels=use_kernels).execute(
         jva.VoteRequest(payload=jpayload, form="stacked",
-                        strategy=JStrategy(strategy)))
+                        strategy=JStrategy(strategy), codec=codec,
+                        server_state=jstate))
     tout = tva.VirtualBackend(use_kernels=use_kernels, device="cpu").execute(
         tva.VoteRequest(payload=tpayload, form="stacked",
-                        strategy=TStrategy(strategy)))
+                        strategy=TStrategy(strategy), codec=codec,
+                        server_state=tstate))
     return jout, tout
 
 
-def _assert_same_outcome(jout, tout):
+def _assert_same_state(jout, tout):
+    assert sorted(tout.server_state) == sorted(jout.server_state)
+    for k, v in jout.server_state.items():
+        got = tout.server_state[k]
+        assert got.dtype == torch.float32 and got.device.type == "cpu"
+        np.testing.assert_array_equal(got.numpy(), np.asarray(v), err_msg=k)
+
+
+def _assert_same_outcome(jout, tout, stateless=True):
     assert tout.votes.dtype == torch.int8
     np.testing.assert_array_equal(tout.votes.numpy(), np.asarray(jout.votes))
     if jout.wire_signs is None:
@@ -88,7 +111,79 @@ def _assert_same_outcome(jout, tout):
     assert jw.margin is None and jw.agreement is None
     assert (tw.n_voters, tw.payload_bytes, tw.n_messages, tw.strategy.value) \
         == (jw.n_voters, jw.payload_bytes, jw.n_messages, jw.strategy.value)
-    assert tout.server_state == jout.server_state == {}
+    if stateless:
+        assert tout.server_state == jout.server_state == {}
+    else:
+        _assert_same_state(jout, tout)
+
+
+@pytest.mark.parametrize("m", [1, 2, 4, 5, 16])
+@pytest.mark.parametrize("codec,strategy", CODEC_WIRES)
+def test_codec_vote_matches_jax(codec, strategy, m):
+    """Each codec on each strategy it supports: votes, wire signs,
+    WireReport and server state equal to the JAX package's, on ternary
+    signs with exact-tie and all-abstain columns and on float32 values
+    with planted zeros. ``weighted_vote`` starts from a drawn flip-rate
+    state (unequal weights) and from the zero prior."""
+    for n in (17, 37, 1000):
+        s = _ternary(m, n, seed=3)
+        _, jx, tx = _payload(m, n, "float32", seed=4)
+        for jp, tp in ((jnp.asarray(s), torch.from_numpy(s)), (jx, tx)):
+            emas = [None]
+            if codec == "weighted_vote":
+                emas = [np.zeros(m, np.float32), np.random.default_rng(
+                    [37, m, n]).uniform(0, 1, m).astype(np.float32)]
+            for ema in emas:
+                jout, tout = _execute_both(jp, tp, strategy, codec=codec,
+                                           flip_ema=ema)
+                _assert_same_outcome(jout, tout, stateless=ema is None)
+
+
+def test_weighted_state_threads_through_calls():
+    """weighted_vote's flip_ema threaded through three calls on each side
+    (each call's new state is the next call's input): equal after every
+    call, and the flippers' estimates rise."""
+    m, n = 7, 300
+    truth = np.where(np.random.default_rng(41).integers(0, 2, n) == 1,
+                     1, -1).astype(np.int8)
+    jstate = {"flip_ema": jnp.zeros(m, jnp.float32)}
+    tstate = {"flip_ema": torch.zeros(m)}
+    for call in range(3):
+        s = np.tile(truth, (m, 1))
+        s[:2] *= -1                         # two constant flippers
+        s[3, call::3] *= -1                 # one noisy voter
+        jout = jva.VirtualBackend().execute(jva.VoteRequest(
+            payload=jnp.asarray(s), form="stacked", codec="weighted_vote",
+            strategy=JStrategy.ALLGATHER_1BIT, server_state=jstate))
+        tout = tva.VirtualBackend(device="cpu").execute(tva.VoteRequest(
+            payload=torch.from_numpy(s), form="stacked",
+            codec="weighted_vote", strategy=TStrategy.ALLGATHER_1BIT,
+            server_state=tstate))
+        _assert_same_outcome(jout, tout, stateless=False)
+        jstate, tstate = jout.server_state, tout.server_state
+    ema = tstate["flip_ema"].numpy()
+    assert ema[:2].min() > ema[2:].max()
+
+
+def test_ternary_allgather_runs_the_ternary_wire():
+    """ternary2bit on allgather_1bit packs 2 bits per coordinate and keeps
+    abstention (an all-zero stack votes 0), where sign1bit's 1-bit wire
+    votes +1; on psum_int8 the two codecs vote alike
+    (``tests/test_codecs.py:186-207``)."""
+    zeros = torch.zeros((4, 32), dtype=torch.int8)
+    vb = tva.VirtualBackend(device="cpu")
+    votes = {c: vb.execute(tva.VoteRequest(
+        payload=zeros, form="stacked", codec=c,
+        strategy=TStrategy.ALLGATHER_1BIT)) for c in ("sign1bit",
+                                                      "ternary2bit")}
+    assert votes["sign1bit"].votes.tolist() == [1] * 32
+    assert votes["ternary2bit"].votes.tolist() == [0] * 32
+    assert votes["ternary2bit"].wire.payload_bytes == 32 * 2 / 8
+    s = torch.from_numpy(_ternary(8, 100, seed=5))
+    psum = [vb.execute(tva.VoteRequest(payload=s, form="stacked", codec=c,
+                                       strategy=TStrategy.PSUM_INT8)).votes
+            for c in ("sign1bit", "ternary2bit")]
+    assert torch.equal(psum[0], psum[1])
 
 
 def test_quickstart_vote():
@@ -261,6 +356,15 @@ def _reject_cases(va, Strategy, Byz, codecs):
             payload=x, form="stacked", attack_obs={"prev_vote": x[0]}),
         "negative_stale": lambda: va.FailureSpec(n_stale=-1),
         "unknown_adversary": lambda: va.FailureSpec(byz=Byz(mode="martian")),
+        "weighted_without_state": lambda: va.VoteRequest(
+            payload=x, form="stacked", codec="weighted_vote",
+            strategy=Strategy.ALLGATHER_1BIT),
+        "weighted_on_psum": lambda: va.VoteRequest(
+            payload=x, form="stacked", codec="weighted_vote",
+            strategy=Strategy.PSUM_INT8),
+        "ternary_on_hierarchical": lambda: va.VoteRequest(
+            payload=x, form="stacked", codec="ternary2bit",
+            strategy=Strategy.HIERARCHICAL),
     }
 
 
@@ -289,12 +393,17 @@ def _not_ported_cases():
         "plan": ("7", lambda: tva.VoteRequest(**stacked, plan=object())),
         "overlap": ("7", lambda: tva.VoteRequest(**stacked, plan=object(),
                                                  overlap=True)),
-        "ef_sign": ("8", lambda: tva.VoteRequest(**stacked,
+        # every codec runs on the stacked form; these requests combine
+        # one with what is still unported
+        "ef_sign": ("5", lambda: tva.VoteRequest(payload=x[0],
                                                  codec="ef_sign")),
-        "ternary2bit": ("8", lambda: tva.VoteRequest(**stacked,
-                                                     codec="ternary2bit")),
-        "weighted_vote": ("8", lambda: tva.VoteRequest(
-            **stacked, codec="weighted_vote")),
+        "ternary2bit": ("7", lambda: tva.VoteRequest(
+            **stacked, codec="ternary2bit", plan=object())),
+        "weighted_vote": ("6", lambda: tva.VoteRequest(
+            **stacked, codec="weighted_vote",
+            server_state={"flip_ema": np.zeros(5, np.float32)},
+            failures=tva.FailureSpec(byz=TByz(mode="sign_flip",
+                                              num_adversaries=1)))),
         "streamed_form": ("10", lambda: tva.VoteRequest(payload=x,
                                                         form="streamed")),
         "voter_ids": ("10", lambda: tva.VoteRequest(
@@ -344,3 +453,24 @@ def test_kernel_backend_rejects_count_wires(strategy):
         tvb.execute(treq)
     ok = dataclasses.replace(treq, strategy=TStrategy.ALLGATHER_1BIT)
     assert tvb.supports(ok) and tva.VirtualBackend(device="cpu").supports(treq)
+
+
+@pytest.mark.parametrize("codec", ["ef_sign", "ternary2bit", "weighted_vote"])
+def test_kernel_backend_rejects_codecs(codec):
+    """The fused kernel realises the raw 1-bit wire only; the reason is
+    the reference's, word for word."""
+    x = np.random.default_rng(4).normal(size=(5, 70)).astype(np.float32)
+    state = {"flip_ema": np.zeros(5, np.float32)}
+    jreq = jva.VoteRequest(
+        payload=jnp.asarray(x), form="stacked", codec=codec,
+        strategy=JStrategy.ALLGATHER_1BIT,
+        server_state={"flip_ema": jnp.zeros(5, jnp.float32)})
+    treq = tva.VoteRequest(payload=x, form="stacked", codec=codec,
+                           strategy=TStrategy.ALLGATHER_1BIT,
+                           server_state=state)
+    jvb = jva.VirtualBackend(use_kernels=True)
+    tvb = tva.VirtualBackend(use_kernels=True, device="cpu")
+    assert tvb.why_unsupported(treq) == jvb.why_unsupported(jreq)
+    with pytest.raises(ValueError, match="raw 1-bit wire"):
+        tvb.execute(treq)
+    assert tva.VirtualBackend(device="cpu").supports(treq)
