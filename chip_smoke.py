@@ -5,7 +5,8 @@
 
 Phases, each of which fails the run (non-zero exit) on any disagreement:
 
-1. the card's name and power limit, as ``nvidia-smi`` prints them;
+1. the card's name and power limit, as ``nvidia-smi`` prints them; every
+   kernel library and design variant built in one parallel batch;
 2. every CUDA kernel, built from ``src/repro_torch/kernels/csrc`` on
    first use, against its plain PyTorch version on the same CUDA tensors:
    n in {1, 31, 33, 32785, 100000, 620,756,992} (the last is the glm4-9b
@@ -20,10 +21,15 @@ Phases, each of which fails the run (non-zero exit) on any disagreement:
    ternary_unpack, and the ternary apply in f32 and bf16; momentum_sign_pack
    also without its words (the ternary2bit and ef_sign encode), and
    bitunpack of a whole (4, w) unembedding word stack to int8 (2,483,027,968
-   signs, past 2^31, as weighted_vote's decode unpacks it). Packed words,
-   signs, momentum and parameters must be bit-equal. ef_sign's float32
-   mean|t| over ten 2^26-element chunks must be within 1e-5 of a float64
-   sum;
+   signs, past 2^31, as weighted_vote's decode unpacks it). Both applies
+   (1-bit and ternary, f32 and bf16) also run at those sizes and n in
+   {32, 64, 95, 1024, 2047} on views that start 0, 1 and 3 elements past
+   a 16-byte boundary, in place and into a separate out one element
+   further along (the kernel's 16-byte path and its element path), with
+   the elements around each view held unchanged and planted 0b10 fields
+   in the ternary words. Packed words, signs, momentum and parameters must
+   be bit-equal: 620 checks on an H100. ef_sign's float32 mean|t| over
+   ten 2^26-element chunks must be within 1e-5 of a float64 sum;
 3. the training path: Algorithm 1 on glm4-9b at every published width,
    cut to 2 layers (1,649,439,744 parameters), M = 4 voters, global batch
    8, seq 512, for 5 steps through ``make_train_step`` ->
@@ -56,7 +62,10 @@ Phases, each of which fails the run (non-zero exit) on any disagreement:
    ternary2bit's untouched embedding coordinates held still, the peak
    memory printed, and one more step of each under torch.profiler;
 6. each kernel timed at the unembedding shape (median of CUDA-event-timed
-   launches after warm-up) beside its plain version and its bound.
+   launches after warm-up) beside its plain version and its bound; beside
+   the applies, the other choices of their design (``build.VARIANTS``,
+   each held bit-equal first), a bf16 copy of the same n elements (the
+   stream yardstick) and apply_vote on float32 parameters.
 
 It prints one JSON line per step and per wire, a ``{"kernels": [...]}``
 line and, last, ``{"ok": true, "device": {...}}``. Without a CUDA device,
@@ -79,6 +88,11 @@ FP32_OPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
 N_UNEMBED = 151_552 * 4096  # elements of glm4-9b's unembedding leaf
 SIZES = (1, 31, 33, 32_785, 100_000, N_UNEMBED)
 VOTERS = (1, 4, 7, 33)
+#: the apply kernels' placement checks: sizes (below, at and past one
+#: warp's 1024-element segment), and views that start this many elements
+#: past a 16-byte boundary (0: on it)
+APPLY_SIZES = SIZES + (32, 64, 95, 1024, 2047)
+APPLY_OFFSETS = (0, 1, 3)
 M_MAIN, GLOBAL_BATCH, SEQ, STEPS, LR, BETA = 4, 8, 512, 5, 1e-3, 0.9
 PACK_ROWS = (1, 4, 7)
 STACK_CAP_BYTES = 24e9      # largest (M, n) stack phase 2 builds
@@ -222,6 +236,57 @@ def check_scale(torch, what: str, t, got) -> float:
     return rel
 
 
+def check_apply_placement(torch, ops, ref, sc, dev, gen, err,
+                          ternary: bool) -> int:
+    """apply_vote (apply_ternary_vote with `ternary`) on views that start
+    APPLY_OFFSETS elements past a 16-byte boundary, in place (eta 1e-3, no
+    weight decay) and into a separate out that starts one element further
+    along (eta 1e-2, wd 0.1): bit-equal to the plain version, and the
+    elements around each view untouched. Misaligned views and the ragged
+    tail take the kernel's element path, the rest its 16-byte path; both
+    are held to the same check. The ternary words carry planted 0b10
+    fields. Updates `err`, returns the number of checks."""
+    name = "apply_ternary_vote" if ternary else "apply_vote"
+    kernel, plain = getattr(ops, name), getattr(ref, name)
+    pack = sc.PACK2 if ternary else sc.PACK
+    n_checks = 0
+    for n in APPLY_SIZES:
+        words = torch.randint(-2 ** 31, 2 ** 31, (-(-n // pack),),
+                              generator=gen, device=dev, dtype=torch.int32)
+        if ternary:
+            words[::5] = -0x55555556            # 0b10 in every field
+        for dtype in (torch.float32, torch.bfloat16):
+            for off in APPLY_OFFSETS:
+                buf = torch.randn(off + n + 5, generator=gen,
+                                  device=dev).to(dtype)
+                p, before = buf[off:off + n], buf.clone()
+                for in_place in (True, False):
+                    eta, wd = (1e-3, 0.0) if in_place else (1e-2, 0.1)
+                    want = plain(sc.pad_to_pack(p, pack)[0], words, eta,
+                                 wd)[:n]
+                    if in_place:
+                        whole, o = buf, off
+                    else:
+                        o = (off + 1) % 4
+                        whole = torch.zeros(o + n + 5, dtype=dtype,
+                                            device=dev)
+                    guard = whole.clone()
+                    got = kernel(p, words, eta, wd, out=whole[o:o + n])
+                    what = (f"{name} n={n} {dtype} offset={off} "
+                            + ("in place" if in_place else f"out offset={o}"))
+                    err[name] = max(err[name], require_equal(what, got, want))
+                    require_equal(f"{what}: elements around the view",
+                                  torch.cat([whole[:o], whole[o + n:]]),
+                                  torch.cat([guard[:o], guard[o + n:]]))
+                    if in_place:    # restore p for the separate-out check
+                        buf.copy_(before)
+                    n_checks += 1
+                del buf, p, before, want, whole, guard, got
+        del words
+        torch.cuda.synchronize()
+    return n_checks
+
+
 def ternary_payload(torch, gen, shape, dtype, dev):
     """ternary_pack inputs: int8 of any value (only the low two bits are
     packed) with {-1, 0, +1} symbols in the first half and planted zeros;
@@ -296,7 +361,8 @@ def check_ternary_kernels(torch, ops, ref, sc, dev, err) -> int:
             del p
         del words
         torch.cuda.synchronize()
-    return n_checks
+    return n_checks + check_apply_placement(torch, ops, ref, sc, dev, gen,
+                                            err, ternary=True)
 
 
 def check_kernels(torch, ops, ref, sc, dev) -> dict:
@@ -350,6 +416,8 @@ def check_kernels(torch, ops, ref, sc, dev) -> dict:
             del packed
             n_checks += 1
         torch.cuda.synchronize()
+    n_checks += check_apply_placement(torch, ops, ref, sc, dev, gen, err,
+                                      ternary=False)
     n_checks += check_sign_kernels(torch, ops, ref, sc, dev, err)
     n_checks += check_ternary_kernels(torch, ops, ref, sc, dev, err)
     # ef_sign's mean|t| summed over ten SCALE_CHUNKs (torch ops, no kernel)
@@ -670,9 +738,9 @@ def quickstart_vote(torch, va, VoteStrategy, dev) -> None:
 KERNEL_GROUPS = (("momentum_sign_pack", ("momentum_sign_pack_kernel",)),
                  ("ternary_pack", ("ternary_pack_kernel",)),
                  ("ternary_majority", ("ternary_majority_kernel",)),
-                 ("apply_ternary_vote", ("apply_ternary_vote_kernel",)),
+                 ("apply_ternary_vote", ("TernaryVote>",)),
                  ("majority", ("majority_kernel",)),
-                 ("apply_vote", ("apply_vote_kernel",)),
+                 ("apply_vote", ("SignVote>",)),
                  ("bitpack", ("bitpack_kernel",)),
                  ("bitunpack", ("bitunpack_kernel",)),
                  ("gemm", ("nvjet", "gemm", "xmma", "cutlass", "cublas")),
@@ -835,7 +903,29 @@ def bound(bytes_moved: float, ops_done: float) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def time_kernels(torch, ops, ref, sc, dev, launches, errs) -> list:
+def variant_ms(torch, build, fn_name: str, p, words, plain) -> dict:
+    """Each design variant of csrc/signum_update.cu (``build.VARIANTS``)
+    of entry point `fn_name`: held bit-equal to ``plain()`` (the plain
+    update of `p` as it stands) once, then timed in place as the kept
+    design is. Not launches of the main path: the package never calls a
+    variant."""
+    stream = torch.cuda.current_stream().cuda_stream
+    out = {}
+    for variant in build.VARIANTS["signum_update"]:
+        fn = getattr(build.library("signum_update", variant), fn_name)
+
+        def launch(dst, fn=fn):
+            build.check(fn(p.data_ptr(), words.data_ptr(), dst.data_ptr(),
+                           p.numel(), LR, 0.0, stream), fn_name)
+        got = torch.empty_like(p)
+        launch(got)
+        require_equal(f"{fn_name} variant {variant}", got, plain())
+        del got
+        out[variant] = median_ms(torch, lambda: launch(p), reps=25)
+    return out
+
+
+def time_kernels(torch, build, ops, ref, sc, dev, launches, errs) -> list:
     gen = torch.Generator(device=dev).manual_seed(99)
     n, w = N_UNEMBED, sc.words_for(N_UNEMBED)
     rows = []
@@ -884,10 +974,27 @@ def time_kernels(torch, ops, ref, sc, dev, launches, errs) -> list:
                    reps=25)
     plain = median_ms(torch, lambda: ref.apply_vote(
         p.view(1, -1), votes[None], LR, 0.0), reps=5, warmup=1)
+    variants = variant_ms(torch, build, "apply_vote_bf16", p, votes,
+                          lambda: ref.apply_vote(p, votes, LR, 0.0))
+    # the stream yardstick: a bf16 copy of n elements moves 4 of apply's
+    # 4.125 B per element (another function, so not library_ms)
+    dst = torch.empty_like(p)
+    stream_ms = median_ms(torch, lambda: dst.copy_(p), reps=25)
+    stream_b, _ = bound(n * (2 + 2), 0)
+    del p, dst
+    p32 = torch.randn(n, generator=gen, device=dev)
+    f32_ms = median_ms(torch, lambda: ops.apply_vote(p32, votes, LR, 0.0,
+                                                     out=p32), reps=25)
+    f32_b, _ = bound(n * (4 + 4) + w * 4, 4 * n)
+    f32_variants = variant_ms(torch, build, "apply_vote_f32", p32, votes,
+                              lambda: ref.apply_vote(p32, votes, LR, 0.0))
+    del p32
     # p bf16 read and written, one vote bit; mul, add, mul, sub
     row("apply_vote", "src/repro/kernels/signum_update.py:79", ms, plain,
-        n * (2 + 2) + w * 4, 4 * n, "signum_update.cu")
-    del p, votes
+        n * (2 + 2) + w * 4, 4 * n, "signum_update.cu", variant_ms=variants,
+        stream_ms=stream_ms, stream_bound_ms=stream_b, f32_ms=f32_ms,
+        f32_bound_ms=f32_b, f32_variant_ms=f32_variants)
+    del votes
 
     x = torch.randn((M_MAIN, n), generator=gen, device=dev)
     ms = median_ms(torch, lambda: ops.fused_majority(x), reps=25)
@@ -956,10 +1063,16 @@ def time_kernels(torch, ops, ref, sc, dev, launches, errs) -> list:
                                                          out=p), reps=25)
     plain = median_ms(torch, lambda: ref.apply_ternary_vote(
         p.view(1, -1), out[None], LR, 0.0), reps=5, warmup=1)
+    variants = variant_ms(torch, build, "apply_ternary_vote_bf16", p, out,
+                          lambda: ref.apply_ternary_vote(p, out, LR, 0.0))
+    dst = torch.empty_like(p)
+    stream_ms = median_ms(torch, lambda: dst.copy_(p), reps=25)
+    del p, dst
     # p bf16 read and written, 2 vote bits; mul, add, mul, sub
     row("apply_ternary_vote", "src/repro/core/signum.py:232 (jnp apply, no "
         "pallas_call)", ms, plain, n * (2 + 2) + w2 * 4, 4 * n,
-        "signum_update.cu")
+        "signum_update.cu", variant_ms=variants, stream_ms=stream_ms,
+        stream_bound_ms=stream_b)
     return rows
 
 
@@ -994,6 +1107,7 @@ def main() -> int:
          "device": torch.cuda.get_device_name(0)})
 
     t0 = time.perf_counter()
+    build.prebuild()   # every library and variant in one parallel batch
     build.library("vote")
     log({"phase": "build", "seconds": time.perf_counter() - t0})
     for name, out in build.BUILD_LOG.items():
@@ -1009,7 +1123,7 @@ def main() -> int:
     for codec, leaf in CHECK_LEAF.items():
         for k, v in run_train_path(torch, cfg, dev, codec, leaf).items():
             launches[k] += v
-    rows = time_kernels(torch, ops, ref, sc, dev, launches, errs)
+    rows = time_kernels(torch, build, ops, ref, sc, dev, launches, errs)
     never = [r["name"] for r in rows if not r["launches"]]
     if never:
         raise AssertionError(f"the main path never launched {never}")

@@ -10,24 +10,63 @@
 // i % 16 of word i / 16 on the fly (0b01 -> +1, 0b11 -> -1, anything else
 // -> 0), so the trainer never writes an int8 vote tensor.
 //
-// Bound on the H100 (80 GB HBM3 at 3.35 TB/s): both are elementwise passes
-// with a handful of float32 operations per element, so device-memory bytes
-// bound them, never arithmetic.
+// Bound on the H100 (80 GB HBM3 at 3.35 TB/s): all three are elementwise
+// passes with a handful of float32 operations per element, so
+// device-memory bytes bound them, never arithmetic.
 //   momentum_sign_pack moves 10.125 B per element for a bf16 gradient
 //     (g read 2, m read 4, m' written 4, one packed bit 1/8);
 //     on the 620,756,992-element glm4-9b unembedding: 6.29 GB, 1.88 ms.
 //   apply_vote moves 4.125 B per element for bf16 parameters
-//     (p read 2 and written 2, one vote bit 1/8): 2.56 GB, 0.76 ms.
+//     (p read 2 and written 2, one vote bit 1/8): 2.56 GB, 0.764 ms;
+//     8.125 B for float32 parameters: 5.04 GB, 1.51 ms.
 //   apply_ternary_vote moves 4.25 B per element (two vote bits): 2.64 GB,
-//     0.79 ms.
+//     0.788 ms.
 //
-// Design. One thread per element, consecutive threads on consecutive
-// elements, so every load and store is coalesced. The TPU kernel packs
-// with a 32-way shift/OR tree over a (8, 4096) VMEM block; on Hopper warp
-// lane j already holds element 32k + j, so one __ballot_sync(m' >= 0) *is*
-// packed word k and lane 0 stores it. Lanes past n vote true, which gives
-// the padding bits of the last word the value +1 (sign(0) = +1), the same
-// bits the reference's zero padding yields.
+// momentum_sign_pack: one thread per element, consecutive threads on
+// consecutive elements, so every load and store is coalesced. The TPU
+// kernel packs with a 32-way shift/OR tree over a (8, 4096) VMEM block; on
+// Hopper warp lane j already holds element 32k + j, so one
+// __ballot_sync(m' >= 0) *is* packed word k and lane 0 stores it. Lanes
+// past n vote true, which gives the padding bits of the last word the
+// value +1 (sign(0) = +1), the same bits the reference's zero padding
+// yields.
+//
+// The two applies are one template over the parameter type and the vote
+// decoder. A pass at the byte bound needs ~2-3 MB of loads in flight
+// (3.35 TB/s x ~0.7 us of device-memory latency). One bf16 element per
+// thread, as the first version did, keeps ~0.5 MB in flight card-wide and
+// ran latency-bound at ~1.35 TB/s. So a warp owns a segment of 1024
+// consecutive elements (32 vote words on the 1-bit wire, 64 on the 2-bit
+// one), and each thread issues all of its 16-byte parameter loads (64 B
+// of bf16, 128 B of float32) and its vote words before it uses any of
+// them; it then decodes the votes from registers and writes 16-byte
+// stores. Two choices were measured at the unembedding shape
+// (chip_smoke.py phase 6 builds the other choice of each as a variant of
+// this file and times it beside the kept one; PERF.md has the numbers):
+//   - layout, kept: lane j owns bytes 16j..16j+15 of each 512-byte chunk
+//     of the segment, so each load instruction of a warp reads 512
+//     contiguous bytes; the segment's vote words are loaded one per lane
+//     and shuffled to the lanes that decode them (on the 1-bit wire four
+//     lanes share a word in bf16, eight in float32). The other,
+//     APPLY_LANES=0, gives lane j elements 32j..32j+31 and its own vote
+//     word (two, as one 8-byte load, on the 2-bit wire): each load
+//     instruction then touches 32 lines 64 B (bf16) or 128 B (float32)
+//     apart; it measured ~7-12 % slower in bf16 and 1.8x slower in
+//     float32.
+//   - grid, kept: one warp per segment (one thread per vote word on the
+//     1-bit wire). The other, APPLY_GRID_STRIDE=1, launches the blocks
+//     that fit on the card at once and strides them over the segments; it
+//     measured 1-5 % slower.
+// p and out are read and written with streaming hints (__ldcs / __stcs):
+// nothing reads them again in this kernel. A segment past n (the ragged
+// tail), or a p or out that starts off a 16-byte boundary (a view such as
+// buf[1:]), takes the element path of the same kernel: lane j updates
+// elements 32i + j of the segment, i = 0..31, eight loads at a time.
+//
+// Aliasing. out may be p itself (the trainer updates in place), so
+// neither is __restrict__ and p is not read through the non-coherent path
+// (__ldg). Every element is read and written by one thread, which loads
+// it before it stores it.
 //
 // Rounding. The plain versions round each product and each sum on its own.
 // __fmul_rn / __fadd_rn / __fsub_rn keep nvcc from contracting the
@@ -44,9 +83,27 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
+
+#ifndef APPLY_LANES
+#define APPLY_LANES 1
+#endif
+#ifndef APPLY_GRID_STRIDE
+#define APPLY_GRID_STRIDE 0
+#endif
+
 namespace {
 
 constexpr int kThreads = 256;
+constexpr unsigned kFullWarp = 0xffffffffu;
+constexpr bool kLanes = APPLY_LANES != 0;
+constexpr bool kGridStride = APPLY_GRID_STRIDE != 0;
+// elements of the segment one warp of an apply kernel owns
+constexpr int64_t kSegment = 32 * 32;
+// resident blocks of an apply kernel per SM that its registers must allow
+// (at most 64 registers a thread): 1024 threads, each with 64 B (bf16) or
+// 128 B (float32) of loads in flight
+constexpr int kApplyBlocksPerSM = 4;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -84,34 +141,175 @@ __global__ void momentum_sign_pack_kernel(const G* __restrict__ g,
   if ((threadIdx.x & 31) == 0 && k < w) packed[k] = word;
 }
 
-// out may alias p.
-template <typename P>
-__global__ void apply_vote_kernel(const P* p, const uint32_t* __restrict__ v,
-                                  P* out, int64_t n, float eta, float wd) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const float p32 = to_f32(p[i]);
-  const float vote = ((v[i >> 5] >> (i & 31)) & 1u) ? 1.0f : -1.0f;
-  const float r =
-      __fsub_rn(p32, __fmul_rn(eta, __fadd_rn(vote, __fmul_rn(wd, p32))));
-  out[i] = from_f32<P>(r);
+// Vote decoders: vote(b, i) is the vote of field i of the bits b (field 0
+// in the low bits).
+struct SignVote {      // the 1-bit wire: 1 -> +1, 0 -> -1
+  static constexpr int kBits = 1;
+  static __device__ __forceinline__ float vote(uint32_t b, int i) {
+    return ((b >> i) & 1u) ? 1.0f : -1.0f;
+  }
+};
+struct TernaryVote {   // the 2-bit wire: 01 -> +1, 11 -> -1, 00 and 10 -> 0
+  static constexpr int kBits = 2;
+  static __device__ __forceinline__ float vote(uint32_t b, int i) {
+    const uint32_t f = (b >> (2 * i)) & 3u;
+    return f == 1u ? 1.0f : (f == 3u ? -1.0f : 0.0f);
+  }
+};
+
+// p - eta * (vote + wd * p). A 0 vote leaves p - eta * (0 + wd * p), so
+// with no weight decay an abstaining coordinate keeps its value exactly.
+__device__ __forceinline__ float update(float p, float vote, float eta,
+                                        float wd) {
+  return __fsub_rn(p, __fmul_rn(eta, __fadd_rn(vote, __fmul_rn(wd, p))));
 }
 
-// out may alias p. A 0 vote leaves p - eta * (0 + wd * p), so with no
-// weight decay an abstaining coordinate keeps its value exactly.
-template <typename P>
-__global__ void apply_ternary_vote_kernel(const P* p,
-                                          const uint32_t* __restrict__ v,
-                                          P* out, int64_t n, float eta,
-                                          float wd) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const float p32 = to_f32(p[i]);
-  const uint32_t f = (v[i >> 4] >> (2 * (i & 15))) & 3u;
-  const float vote = f == 1u ? 1.0f : (f == 3u ? -1.0f : 0.0f);
-  const float r =
-      __fsub_rn(p32, __fmul_rn(eta, __fadd_rn(vote, __fmul_rn(wd, p32))));
-  out[i] = from_f32<P>(r);
+// 16 bytes of parameters, updated by the vote fields in the low bits of b.
+template <typename P> struct Piece;
+template <> struct Piece<float> {
+  static constexpr int kElems = 4;
+  template <typename D>
+  static __device__ __forceinline__ uint4 apply(uint4 q, uint32_t b,
+                                                float eta, float wd) {
+    uint32_t w[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      w[i] = __float_as_uint(
+          update(__uint_as_float(w[i]), D::vote(b, i), eta, wd));
+    }
+    return make_uint4(w[0], w[1], w[2], w[3]);
+  }
+};
+template <> struct Piece<__nv_bfloat16> {
+  static constexpr int kElems = 8;
+  template <typename D>
+  static __device__ __forceinline__ uint4 apply(uint4 q, uint32_t b,
+                                                float eta, float wd) {
+    uint32_t w[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      // a bf16 is the high half of the float32 of the same value
+      const float lo = __uint_as_float(w[i] << 16);
+      const float hi = __uint_as_float(w[i] & 0xffff0000u);
+      const uint32_t rlo = __bfloat16_as_ushort(
+          __float2bfloat16_rn(update(lo, D::vote(b, 2 * i), eta, wd)));
+      const uint32_t rhi = __bfloat16_as_ushort(
+          __float2bfloat16_rn(update(hi, D::vote(b, 2 * i + 1), eta, wd)));
+      w[i] = rlo | (rhi << 16);
+    }
+    return make_uint4(w[0], w[1], w[2], w[3]);
+  }
+};
+
+// A whole segment at `base`, p and out 16-byte aligned: kPieces 16-byte
+// loads per lane, all issued before the first use.
+template <typename P, typename D>
+__device__ __forceinline__ void apply_segment_vec(
+    const P* p, const uint32_t* __restrict__ v, P* out, int64_t base,
+    int lane, float eta, float wd) {
+  constexpr int kE = Piece<P>::kElems;
+  constexpr int kPieces = 32 / kE;      // 4 for bf16, 8 for float32
+  constexpr int kB = D::kBits;
+  uint32_t w[kB];
+  uint4 q[kPieces];
+  uint32_t bits[kPieces];
+  if constexpr (kLanes) {
+    // piece c of lane j: elements (32c + j) * kE .. + kE of the segment
+    const uint32_t* vs = v + ((base * kB) >> 5);
+#pragma unroll
+    for (int b = 0; b < kB; ++b) w[b] = __ldcs(vs + 32 * b + lane);
+#pragma unroll
+    for (int c = 0; c < kPieces; ++c) {
+      q[c] = __ldcs(reinterpret_cast<const uint4*>(
+          p + base + (int64_t)(32 * c + lane) * kE));
+    }
+#pragma unroll
+    for (int c = 0; c < kPieces; ++c) {
+      const int f = (32 * c + lane) * kE * kB;   // the piece's first vote bit
+      bits[c] = __shfl_sync(kFullWarp, w[(c * kE * kB) >> 5], (f >> 5) & 31)
+                >> (f & 31);
+    }
+#pragma unroll
+    for (int c = 0; c < kPieces; ++c) {
+      uint4* dst = reinterpret_cast<uint4*>(
+          out + base + (int64_t)(32 * c + lane) * kE);
+      __stcs(dst, Piece<P>::template apply<D>(q[c], bits[c], eta, wd));
+    }
+  } else {
+    // lane j: elements 32j .. 32j + 31 of the segment, its own vote word(s)
+    const int64_t e0 = base + 32 * lane;
+    if constexpr (kB == 1) {
+      w[0] = __ldcs(v + (e0 >> 5));
+    } else {
+      const uint2 t = __ldcs(reinterpret_cast<const uint2*>(v + (e0 >> 4)));
+      w[0] = t.x;
+      w[1] = t.y;
+    }
+    const uint4* src = reinterpret_cast<const uint4*>(p + e0);
+#pragma unroll
+    for (int c = 0; c < kPieces; ++c) q[c] = __ldcs(src + c);
+#pragma unroll
+    for (int c = 0; c < kPieces; ++c) {
+      const int f = c * kE * kB;
+      bits[c] = w[f >> 5] >> (f & 31);
+    }
+    uint4* dst = reinterpret_cast<uint4*>(out + e0);
+#pragma unroll
+    for (int c = 0; c < kPieces; ++c) {
+      __stcs(dst + c, Piece<P>::template apply<D>(q[c], bits[c], eta, wd));
+    }
+  }
+}
+
+// The element path: lane j updates elements base + 32i + j below n, so each
+// load and store of the warp stays coalesced; eight loads per lane are in
+// flight at a time, which keeps the kernel's registers (and so its
+// occupancy on the 16-byte path) as the 16-byte path needs them.
+template <typename P, typename D>
+__device__ __forceinline__ void apply_segment_elems(
+    const P* p, const uint32_t* __restrict__ v, P* out, int64_t n,
+    int64_t base, int lane, float eta, float wd) {
+  constexpr int kBatch = 8;
+#pragma unroll 1
+  for (int i0 = 0; i0 < 32; i0 += kBatch) {
+    float x[kBatch];
+#pragma unroll
+    for (int i = 0; i < kBatch; ++i) {
+      const int64_t e = base + 32 * (i0 + i) + lane;
+      x[i] = e < n ? to_f32(p[e]) : 0.0f;
+    }
+#pragma unroll
+    for (int i = 0; i < kBatch; ++i) {
+      const int64_t e = base + 32 * (i0 + i) + lane;
+      if (e < n) {
+        const int64_t f = e * D::kBits;
+        out[e] = from_f32<P>(
+            update(x[i], D::vote(v[f >> 5] >> (f & 31), 0), eta, wd));
+      }
+    }
+  }
+}
+
+// out may alias p. `vec`: p and out lie on 16-byte boundaries (and v on 8
+// where a lane loads two words at once). Every branch below is the same
+// for the whole warp, as the shuffles of the lane layout need.
+template <typename P, typename D>
+__global__ void __launch_bounds__(kThreads, kApplyBlocksPerSM)
+apply_kernel(const P* p, const uint32_t* __restrict__ v, P* out, int64_t n,
+             float eta, float wd, bool vec) {
+  const int lane = threadIdx.x & 31;
+  const int64_t segments = (n + kSegment - 1) / kSegment;
+  const int64_t stride =
+      kGridStride ? ((int64_t)gridDim.x * kThreads) >> 5 : segments;
+  for (int64_t s = ((int64_t)blockIdx.x * kThreads + threadIdx.x) >> 5;
+       s < segments; s += stride) {
+    const int64_t base = s * kSegment;
+    if (vec && base + kSegment <= n) {
+      apply_segment_vec<P, D>(p, v, out, base, lane, eta, wd);
+    } else {
+      apply_segment_elems<P, D>(p, v, out, n, base, lane, eta, wd);
+    }
+  }
 }
 
 unsigned blocks_for(int64_t threads) {
@@ -131,23 +329,28 @@ int launch_msp(const void* g, const void* m, void* m_out, void* packed,
   return (int)cudaGetLastError();
 }
 
-template <typename P>
+template <typename P, typename D>
 int launch_apply(const void* p, const void* v, void* out, int64_t n,
                  float eta, float wd, void* stream) {
   if (n > 0) {
-    apply_vote_kernel<P><<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
-        (const P*)p, (const uint32_t*)v, (P*)out, n, eta, wd);
-  }
-  return (int)cudaGetLastError();
-}
-
-template <typename P>
-int launch_apply_ternary(const void* p, const void* v, void* out, int64_t n,
-                         float eta, float wd, void* stream) {
-  if (n > 0) {
-    apply_ternary_vote_kernel<P>
-        <<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
-            (const P*)p, (const uint32_t*)v, (P*)out, n, eta, wd);
+    const uintptr_t pa = reinterpret_cast<uintptr_t>(p);
+    const uintptr_t oa = reinterpret_cast<uintptr_t>(out);
+    const uintptr_t va = reinterpret_cast<uintptr_t>(v);
+    const bool vec = ((pa | oa) & 15) == 0 &&
+                     (kLanes || D::kBits == 1 || (va & 7) == 0);
+    const int64_t segments = (n + kSegment - 1) / kSegment;
+    int64_t blocks = blocks_for(segments * 32);
+    if (kGridStride) {
+      int dev = 0, sms = 0, per_sm = 0;
+      cudaGetDevice(&dev);
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, apply_kernel<P, D>, kThreads, 0);
+      blocks = std::min(blocks, (int64_t)sms * std::max(per_sm, 1));
+    }
+    apply_kernel<P, D><<<(unsigned)blocks, kThreads, 0,
+                         (cudaStream_t)stream>>>(
+        (const P*)p, (const uint32_t*)v, (P*)out, n, eta, wd, vec);
   }
   return (int)cudaGetLastError();
 }
@@ -170,22 +373,24 @@ int momentum_sign_pack_bf16(const void* g, const void* m, void* m_out,
 
 int apply_vote_f32(const void* p, const void* v, void* out, int64_t n,
                    float eta, float wd, void* stream) {
-  return launch_apply<float>(p, v, out, n, eta, wd, stream);
+  return launch_apply<float, SignVote>(p, v, out, n, eta, wd, stream);
 }
 
 int apply_vote_bf16(const void* p, const void* v, void* out, int64_t n,
                     float eta, float wd, void* stream) {
-  return launch_apply<__nv_bfloat16>(p, v, out, n, eta, wd, stream);
+  return launch_apply<__nv_bfloat16, SignVote>(p, v, out, n, eta, wd,
+                                               stream);
 }
 
 int apply_ternary_vote_f32(const void* p, const void* v, void* out, int64_t n,
                            float eta, float wd, void* stream) {
-  return launch_apply_ternary<float>(p, v, out, n, eta, wd, stream);
+  return launch_apply<float, TernaryVote>(p, v, out, n, eta, wd, stream);
 }
 
 int apply_ternary_vote_bf16(const void* p, const void* v, void* out,
                             int64_t n, float eta, float wd, void* stream) {
-  return launch_apply_ternary<__nv_bfloat16>(p, v, out, n, eta, wd, stream);
+  return launch_apply<__nv_bfloat16, TernaryVote>(p, v, out, n, eta, wd,
+                                                  stream);
 }
 
 }  // extern "C"

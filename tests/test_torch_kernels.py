@@ -439,6 +439,63 @@ def test_apply_ternary_vote_matches_jax(eta, wd, pdtype):
                                       p[held])
 
 
+def _jax_apply(kernel, p, votes, eta, wd, pdtype):
+    """The JAX package's update of `p` (float32 numpy of `pdtype` values)
+    by `votes` (uint32 numpy), as float32 numpy: ``repro.kernels.ops``
+    ``apply_vote`` in interpret mode, or the reference's jnp apply
+    (``repro.core.signum``) of the decoded ternary vote."""
+    jp = jnp.asarray(p).astype(pdtype)
+    if kernel == "apply_vote":
+        new = jops.apply_vote(jp, jnp.asarray(votes), eta, wd)
+    else:
+        v = jsc.unpack_ternary(jnp.asarray(votes), jnp.float32)[:p.size]
+        p32 = jp.astype(jnp.float32)
+        new = (p32 - eta * (v + wd * p32)).astype(pdtype)
+    return np.asarray(new.astype(jnp.float32))
+
+
+@pytest.mark.parametrize("n", [1, 31, 33, 50_021])
+@pytest.mark.parametrize("offset", [0, 1, 3])
+@pytest.mark.parametrize("pdtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kernel", ["apply_vote", "apply_ternary_vote"])
+def test_apply_on_views_matches_jax(kernel, pdtype, offset, n):
+    """The wrapper contract of both applies on a contiguous view
+    ``buf[offset:offset + n]``, on or off a 16-byte boundary (the card
+    takes its 16-byte path or its element path): into a new tensor and in
+    place, the JAX package's update, and the elements around the view
+    untouched. The ternary votes carry planted ``0b10`` fields (read 0)."""
+    ternary = kernel == "apply_ternary_vote"
+    rng = _rng(n, offset, int(ternary), 14)
+    eta, wd = 1e-2, 0.1
+    buf = rng.normal(size=offset + n + 5).astype(np.float32)
+    if pdtype == "bfloat16":
+        buf = _bf16_exact(buf)
+    votes = rng.integers(0, 2 ** 32, size=-(-n // (16 if ternary else 32)),
+                         dtype=np.uint32)
+    if ternary:
+        votes[::5] = 0xAAAAAAAA
+    expect = _jax_apply(kernel, buf[offset:offset + n], votes, eta, wd,
+                        pdtype)
+    tbuf = torch.from_numpy(buf).to(getattr(torch, pdtype))
+    before = tbuf.clone()
+    p = tbuf[offset:offset + n]
+    tv = torch.from_numpy(votes.view(np.int32))
+    fresh = getattr(tops, kernel)(p, tv, eta, wd)
+    assert fresh.data_ptr() != p.data_ptr()
+    assert getattr(tops, kernel)(p, tv, eta, wd, out=p).data_ptr() \
+        == p.data_ptr()
+    for got in (fresh, p):
+        got = got.to(torch.float32).numpy()
+        if pdtype == "float32" and not ternary:
+            # test_apply_vote_matches_jax's tolerance: XLA may contract
+            # the update into an FMA, the port never does
+            np.testing.assert_allclose(got, expect, rtol=1e-5, atol=1e-6)
+        else:
+            np.testing.assert_array_equal(got, expect)
+    assert torch.equal(tbuf[:offset], before[:offset])
+    assert torch.equal(tbuf[offset + n:], before[offset + n:])
+
+
 @pytest.mark.parametrize("m,n", [(1, 16), (4, 96), (9, 5008)])
 def test_ternary_sign_compress_matches_jax(m, n):
     """pack_ternary / unpack_ternary / ternary_majority / popcount of the
@@ -506,3 +563,20 @@ def test_pipeline_tokens_equal(split):
             a = ref_pipe.replica_batch(step, 2, 4)["tokens"]
             b = port_pipe.replica_batch(step, 2, 4)["tokens"]
         np.testing.assert_array_equal(a, b)
+
+
+def test_design_variants_build_apart():
+    """A design variant of a source (``build.VARIANTS``, timed by
+    chip_smoke.py beside the kept design) is the same file built with
+    extra ``-D`` flags into a library file of its own, so building one
+    never replaces the kept kernels."""
+    from repro_torch.kernels import build
+    targets = {build._target(name) for name in build.SIGNATURES}
+    assert build.variant_keys()
+    for key in build.variant_keys():
+        name, flags = build._split(key)
+        assert name in build.SIGNATURES
+        assert flags[:len(build.NVCC_FLAGS)] == build.NVCC_FLAGS
+        assert all(f.startswith("-D") for f in flags[len(build.NVCC_FLAGS):])
+        assert build._target(key) not in targets
+        targets.add(build._target(key))
