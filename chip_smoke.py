@@ -5,8 +5,7 @@
 
 Phases, each of which fails the run (non-zero exit) on any disagreement:
 
-1. the card's name and power limit, as ``nvidia-smi`` prints them; every
-   kernel library and design variant built in one parallel batch;
+1. the card's name and power limit, as ``nvidia-smi`` prints them;
 2. every CUDA kernel, built from ``src/repro_torch/kernels/csrc`` on
    first use, against its plain PyTorch version on the same CUDA tensors:
    n in {1, 31, 33, 32785, 100000, 620,756,992} (the last is the glm4-9b
@@ -63,9 +62,8 @@ Phases, each of which fails the run (non-zero exit) on any disagreement:
    memory printed, and one more step of each under torch.profiler;
 6. each kernel timed at the unembedding shape (median of CUDA-event-timed
    launches after warm-up) beside its plain version and its bound; beside
-   the applies, the other choices of their design (``build.VARIANTS``,
-   each held bit-equal first), a bf16 copy of the same n elements (the
-   stream yardstick) and apply_vote on float32 parameters.
+   the applies, a bf16 copy of the same n elements (the stream yardstick)
+   and apply_vote on float32 parameters.
 
 It prints one JSON line per step and per wire, a ``{"kernels": [...]}``
 line and, last, ``{"ok": true, "device": {...}}``. Without a CUDA device,
@@ -903,29 +901,7 @@ def bound(bytes_moved: float, ops_done: float) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def variant_ms(torch, build, fn_name: str, p, words, plain) -> dict:
-    """Each design variant of csrc/signum_update.cu (``build.VARIANTS``)
-    of entry point `fn_name`: held bit-equal to ``plain()`` (the plain
-    update of `p` as it stands) once, then timed in place as the kept
-    design is. Not launches of the main path: the package never calls a
-    variant."""
-    stream = torch.cuda.current_stream().cuda_stream
-    out = {}
-    for variant in build.VARIANTS["signum_update"]:
-        fn = getattr(build.library("signum_update", variant), fn_name)
-
-        def launch(dst, fn=fn):
-            build.check(fn(p.data_ptr(), words.data_ptr(), dst.data_ptr(),
-                           p.numel(), LR, 0.0, stream), fn_name)
-        got = torch.empty_like(p)
-        launch(got)
-        require_equal(f"{fn_name} variant {variant}", got, plain())
-        del got
-        out[variant] = median_ms(torch, lambda: launch(p), reps=25)
-    return out
-
-
-def time_kernels(torch, build, ops, ref, sc, dev, launches, errs) -> list:
+def time_kernels(torch, ops, ref, sc, dev, launches, errs) -> list:
     gen = torch.Generator(device=dev).manual_seed(99)
     n, w = N_UNEMBED, sc.words_for(N_UNEMBED)
     rows = []
@@ -974,8 +950,6 @@ def time_kernels(torch, build, ops, ref, sc, dev, launches, errs) -> list:
                    reps=25)
     plain = median_ms(torch, lambda: ref.apply_vote(
         p.view(1, -1), votes[None], LR, 0.0), reps=5, warmup=1)
-    variants = variant_ms(torch, build, "apply_vote_bf16", p, votes,
-                          lambda: ref.apply_vote(p, votes, LR, 0.0))
     # the stream yardstick: a bf16 copy of n elements moves 4 of apply's
     # 4.125 B per element (another function, so not library_ms)
     dst = torch.empty_like(p)
@@ -986,14 +960,11 @@ def time_kernels(torch, build, ops, ref, sc, dev, launches, errs) -> list:
     f32_ms = median_ms(torch, lambda: ops.apply_vote(p32, votes, LR, 0.0,
                                                      out=p32), reps=25)
     f32_b, _ = bound(n * (4 + 4) + w * 4, 4 * n)
-    f32_variants = variant_ms(torch, build, "apply_vote_f32", p32, votes,
-                              lambda: ref.apply_vote(p32, votes, LR, 0.0))
     del p32
     # p bf16 read and written, one vote bit; mul, add, mul, sub
     row("apply_vote", "src/repro/kernels/signum_update.py:79", ms, plain,
-        n * (2 + 2) + w * 4, 4 * n, "signum_update.cu", variant_ms=variants,
-        stream_ms=stream_ms, stream_bound_ms=stream_b, f32_ms=f32_ms,
-        f32_bound_ms=f32_b, f32_variant_ms=f32_variants)
+        n * (2 + 2) + w * 4, 4 * n, "signum_update.cu", stream_ms=stream_ms,
+        stream_bound_ms=stream_b, f32_ms=f32_ms, f32_bound_ms=f32_b)
     del votes
 
     x = torch.randn((M_MAIN, n), generator=gen, device=dev)
@@ -1063,16 +1034,13 @@ def time_kernels(torch, build, ops, ref, sc, dev, launches, errs) -> list:
                                                          out=p), reps=25)
     plain = median_ms(torch, lambda: ref.apply_ternary_vote(
         p.view(1, -1), out[None], LR, 0.0), reps=5, warmup=1)
-    variants = variant_ms(torch, build, "apply_ternary_vote_bf16", p, out,
-                          lambda: ref.apply_ternary_vote(p, out, LR, 0.0))
     dst = torch.empty_like(p)
     stream_ms = median_ms(torch, lambda: dst.copy_(p), reps=25)
     del p, dst
     # p bf16 read and written, 2 vote bits; mul, add, mul, sub
     row("apply_ternary_vote", "src/repro/core/signum.py:232 (jnp apply, no "
         "pallas_call)", ms, plain, n * (2 + 2) + w2 * 4, 4 * n,
-        "signum_update.cu", variant_ms=variants, stream_ms=stream_ms,
-        stream_bound_ms=stream_b)
+        "signum_update.cu", stream_ms=stream_ms, stream_bound_ms=stream_b)
     return rows
 
 
@@ -1107,12 +1075,12 @@ def main() -> int:
          "device": torch.cuda.get_device_name(0)})
 
     t0 = time.perf_counter()
-    build.prebuild()   # every library and variant in one parallel batch
     build.library("vote")
     log({"phase": "build", "seconds": time.perf_counter() - t0})
     for name, out in build.BUILD_LOG.items():
         for line in out.splitlines():
-            if "registers" in line or "spill" in line:
+            if any(k in line for k in ("Function properties", "registers",
+                                       "spill")):
                 log(f"ptxas {name}: {line.strip()}")
 
     errs = check_kernels(torch, ops, ref, sc, dev)
@@ -1123,7 +1091,7 @@ def main() -> int:
     for codec, leaf in CHECK_LEAF.items():
         for k, v in run_train_path(torch, cfg, dev, codec, leaf).items():
             launches[k] += v
-    rows = time_kernels(torch, build, ops, ref, sc, dev, launches, errs)
+    rows = time_kernels(torch, ops, ref, sc, dev, launches, errs)
     never = [r["name"] for r in rows if not r["launches"]]
     if never:
         raise AssertionError(f"the main path never launched {never}")

@@ -10,11 +10,6 @@ edited source is rebuilt and an unchanged one is loaded as it is.
 A failed build raises ``RuntimeError`` with the compiler's output; there is
 no fallback. Nothing happens at import, so the package imports on a
 machine with neither ``nvcc`` nor a card.
-
-A source may have design variants (:data:`VARIANTS`): the same file built
-with other ``-D`` flags into a library of its own, loaded only when asked
-for by name (``library(name, variant)``). ``chip_smoke.py`` times them
-beside the kept design; the package never launches them.
 """
 from __future__ import annotations
 
@@ -24,7 +19,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, List, Optional, Tuple
+from typing import Dict
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -63,17 +58,8 @@ SIGNATURES = {
     },
 }
 
-#: the other choices of a source's measured design decisions, by source
-#: and variant name: extra nvcc flags (csrc/signum_update.cu says what each
-#: one changes)
-VARIANTS = {
-    "signum_update": {"thread_contiguous": ("-DAPPLY_LANES=0",),
-                      "grid_stride": ("-DAPPLY_GRID_STRIDE=1",)},
-}
-
 _LIBS: Dict[str, ctypes.CDLL] = {}
-#: ptxas resource lines (registers, spills) of the last build, by library
-#: ("name" or "name:variant")
+#: ptxas resource lines (registers, spills) of the last build, by source
 BUILD_LOG: Dict[str, str] = {}
 
 
@@ -91,72 +77,52 @@ def nvcc_path() -> str:
     return str(path)
 
 
-def _split(key: str) -> Tuple[str, Tuple[str, ...]]:
-    """A library key ("name" or "name:variant") -> (source name, flags)."""
-    name, _, variant = key.partition(":")
-    return name, NVCC_FLAGS + (VARIANTS[name][variant] if variant else ())
-
-
-def _target(key: str) -> Path:
-    name, flags = _split(key)
+def _target(name: str) -> Path:
     digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
-                            + " ".join(flags).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{key.replace(':', '-')}-{digest}.so"
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
-def _build_all(keys) -> None:
-    """Compile the missing libraries, one nvcc per library, in parallel."""
-    todo = [k for k in keys if not _target(k).exists()]
+def _build_all(names) -> None:
+    """Compile the missing libraries, one nvcc per source, in parallel."""
+    todo = [n for n in names if not _target(n).exists()]
     if not todo:
         return
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = nvcc_path()
     procs = {}
-    for key in todo:
-        name, flags = _split(key)
-        tmp = _target(key).with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *flags, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs[key] = (tmp, subprocess.Popen(
+    for name in todo:
+        tmp = _target(name).with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     failures = []
-    for key, (tmp, proc) in procs.items():
+    for name, (tmp, proc) in procs.items():
         out, _ = proc.communicate()
-        BUILD_LOG[key] = out
+        BUILD_LOG[name] = out
         if proc.returncode != 0:
-            failures.append(f"{key} (exit {proc.returncode}):\n{out}")
+            failures.append(f"{name}.cu (exit {proc.returncode}):\n{out}")
             tmp.unlink(missing_ok=True)
         else:
-            os.replace(tmp, _target(key))
+            os.replace(tmp, _target(name))
     if failures:
         raise RuntimeError("nvcc failed to build " + "\n".join(failures))
 
 
-def variant_keys() -> List[str]:
-    return [f"{name}:{v}" for name, vs in VARIANTS.items() for v in vs]
-
-
-def library(name: str, variant: Optional[str] = None) -> ctypes.CDLL:
-    """The loaded kernel library built from ``csrc/<name>.cu`` (with the
-    flags of `variant`, one of ``VARIANTS[name]``, when given); builds
-    every source, and the asked-for variant, on the first call."""
-    key = f"{name}:{variant}" if variant else name
-    if key not in _LIBS:
-        keys = [k for k in dict.fromkeys((*SIGNATURES, key))
-                if k not in _LIBS]
-        _build_all(keys)
-        for k in keys:
-            lib = ctypes.CDLL(str(_target(k)))
-            for fn, argtypes in SIGNATURES[_split(k)[0]].items():
+def library(name: str) -> ctypes.CDLL:
+    """The loaded kernel library built from ``csrc/<name>.cu``; builds all
+    sources on the first call."""
+    if name not in _LIBS:
+        _build_all(SIGNATURES)
+        for lib_name, fns in SIGNATURES.items():
+            if lib_name in _LIBS:
+                continue
+            lib = ctypes.CDLL(str(_target(lib_name)))
+            for fn, argtypes in fns.items():
                 getattr(lib, fn).argtypes = list(argtypes)
                 getattr(lib, fn).restype = ctypes.c_int
-            _LIBS[k] = lib
-    return _LIBS[key]
-
-
-def prebuild() -> None:
-    """Compile every source and every design variant in one parallel batch
-    (nvcc runs once per library); loads nothing."""
-    _build_all([*SIGNATURES, *variant_keys()])
+            _LIBS[lib_name] = lib
+    return _LIBS[name]
 
 
 def check(status: int, fn: str) -> None:

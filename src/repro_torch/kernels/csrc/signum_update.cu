@@ -40,23 +40,15 @@
 // one), and each thread issues all of its 16-byte parameter loads (64 B
 // of bf16, 128 B of float32) and its vote words before it uses any of
 // them; it then decodes the votes from registers and writes 16-byte
-// stores. Two choices were measured at the unembedding shape
-// (chip_smoke.py phase 6 builds the other choice of each as a variant of
-// this file and times it beside the kept one; PERF.md has the numbers):
-//   - layout, kept: lane j owns bytes 16j..16j+15 of each 512-byte chunk
-//     of the segment, so each load instruction of a warp reads 512
-//     contiguous bytes; the segment's vote words are loaded one per lane
-//     and shuffled to the lanes that decode them (on the 1-bit wire four
-//     lanes share a word in bf16, eight in float32). The other,
-//     APPLY_LANES=0, gives lane j elements 32j..32j+31 and its own vote
-//     word (two, as one 8-byte load, on the 2-bit wire): each load
-//     instruction then touches 32 lines 64 B (bf16) or 128 B (float32)
-//     apart; it measured ~7-12 % slower in bf16 and 1.8x slower in
-//     float32.
-//   - grid, kept: one warp per segment (one thread per vote word on the
-//     1-bit wire). The other, APPLY_GRID_STRIDE=1, launches the blocks
-//     that fit on the card at once and strides them over the segments; it
-//     measured 1-5 % slower.
+// stores. Lane j owns bytes 16j..16j+15 of each 512-byte chunk of the
+// segment, so each load instruction of a warp reads 512 contiguous bytes;
+// the segment's vote words are loaded one per lane and shuffled to the
+// lanes that decode them (on the 1-bit wire four lanes share a word in
+// bf16, eight in float32). One warp takes one segment (one thread per
+// vote word on the 1-bit wire) and the grid covers them all. Each choice
+// beat the one rejected on an H100 (PERF.md, Findings of the apply
+// redesign, has the times): lane j owning elements 32j..32j+31, and a
+// grid-stride loop over the segments.
 // p and out are read and written with streaming hints (__ldcs / __stcs):
 // nothing reads them again in this kernel. A segment past n (the ragged
 // tail), or a p or out that starts off a 16-byte boundary (a view such as
@@ -83,26 +75,21 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <algorithm>
-
-#ifndef APPLY_LANES
-#define APPLY_LANES 1
-#endif
-#ifndef APPLY_GRID_STRIDE
-#define APPLY_GRID_STRIDE 0
-#endif
-
 namespace {
 
 constexpr int kThreads = 256;
 constexpr unsigned kFullWarp = 0xffffffffu;
-constexpr bool kLanes = APPLY_LANES != 0;
-constexpr bool kGridStride = APPLY_GRID_STRIDE != 0;
 // elements of the segment one warp of an apply kernel owns
 constexpr int64_t kSegment = 32 * 32;
-// resident blocks of an apply kernel per SM that its registers must allow
-// (at most 64 registers a thread): 1024 threads, each with 64 B (bf16) or
-// 128 B (float32) of loads in flight
+// resident blocks of an apply kernel per SM: 1024 threads, each with 64 B
+// (bf16) or 128 B (float32) of loads in flight, which caps the kernel at 64
+// registers a thread. The cap is there for the element path, which shares
+// the kernel's registers: uncapped, with 32 loads in flight, it took 156
+// and left one block per SM. Under the cap ptxas (whose lines
+// chip_smoke.py prints) gives 58 registers to bf16 1-bit, 63 to bf16
+// 2-bit and 64 to both float32 instantiations; float32 2-bit spills 8 B.
+// The bf16 ones the trainer runs do not spill. A later change to the
+// element path shows there as spills, not as lost occupancy.
 constexpr int kApplyBlocksPerSM = 4;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -213,51 +200,26 @@ __device__ __forceinline__ void apply_segment_vec(
   uint32_t w[kB];
   uint4 q[kPieces];
   uint32_t bits[kPieces];
-  if constexpr (kLanes) {
-    // piece c of lane j: elements (32c + j) * kE .. + kE of the segment
-    const uint32_t* vs = v + ((base * kB) >> 5);
+  // piece c of lane j: elements (32c + j) * kE .. + kE of the segment
+  const uint32_t* vs = v + ((base * kB) >> 5);
 #pragma unroll
-    for (int b = 0; b < kB; ++b) w[b] = __ldcs(vs + 32 * b + lane);
+  for (int b = 0; b < kB; ++b) w[b] = __ldcs(vs + 32 * b + lane);
 #pragma unroll
-    for (int c = 0; c < kPieces; ++c) {
-      q[c] = __ldcs(reinterpret_cast<const uint4*>(
-          p + base + (int64_t)(32 * c + lane) * kE));
-    }
+  for (int c = 0; c < kPieces; ++c) {
+    q[c] = __ldcs(reinterpret_cast<const uint4*>(
+        p + base + (int64_t)(32 * c + lane) * kE));
+  }
 #pragma unroll
-    for (int c = 0; c < kPieces; ++c) {
-      const int f = (32 * c + lane) * kE * kB;   // the piece's first vote bit
-      bits[c] = __shfl_sync(kFullWarp, w[(c * kE * kB) >> 5], (f >> 5) & 31)
-                >> (f & 31);
-    }
+  for (int c = 0; c < kPieces; ++c) {
+    const int f = (32 * c + lane) * kE * kB;   // the piece's first vote bit
+    bits[c] = __shfl_sync(kFullWarp, w[(c * kE * kB) >> 5], (f >> 5) & 31)
+              >> (f & 31);
+  }
 #pragma unroll
-    for (int c = 0; c < kPieces; ++c) {
-      uint4* dst = reinterpret_cast<uint4*>(
-          out + base + (int64_t)(32 * c + lane) * kE);
-      __stcs(dst, Piece<P>::template apply<D>(q[c], bits[c], eta, wd));
-    }
-  } else {
-    // lane j: elements 32j .. 32j + 31 of the segment, its own vote word(s)
-    const int64_t e0 = base + 32 * lane;
-    if constexpr (kB == 1) {
-      w[0] = __ldcs(v + (e0 >> 5));
-    } else {
-      const uint2 t = __ldcs(reinterpret_cast<const uint2*>(v + (e0 >> 4)));
-      w[0] = t.x;
-      w[1] = t.y;
-    }
-    const uint4* src = reinterpret_cast<const uint4*>(p + e0);
-#pragma unroll
-    for (int c = 0; c < kPieces; ++c) q[c] = __ldcs(src + c);
-#pragma unroll
-    for (int c = 0; c < kPieces; ++c) {
-      const int f = c * kE * kB;
-      bits[c] = w[f >> 5] >> (f & 31);
-    }
-    uint4* dst = reinterpret_cast<uint4*>(out + e0);
-#pragma unroll
-    for (int c = 0; c < kPieces; ++c) {
-      __stcs(dst + c, Piece<P>::template apply<D>(q[c], bits[c], eta, wd));
-    }
+  for (int c = 0; c < kPieces; ++c) {
+    uint4* dst = reinterpret_cast<uint4*>(
+        out + base + (int64_t)(32 * c + lane) * kE);
+    __stcs(dst, Piece<P>::template apply<D>(q[c], bits[c], eta, wd));
   }
 }
 
@@ -290,25 +252,21 @@ __device__ __forceinline__ void apply_segment_elems(
   }
 }
 
-// out may alias p. `vec`: p and out lie on 16-byte boundaries (and v on 8
-// where a lane loads two words at once). Every branch below is the same
-// for the whole warp, as the shuffles of the lane layout need.
+// out may alias p. `vec`: p and out lie on 16-byte boundaries. Every
+// branch below is the same for the whole warp, as the shuffles of the
+// 16-byte path need.
 template <typename P, typename D>
 __global__ void __launch_bounds__(kThreads, kApplyBlocksPerSM)
 apply_kernel(const P* p, const uint32_t* __restrict__ v, P* out, int64_t n,
              float eta, float wd, bool vec) {
   const int lane = threadIdx.x & 31;
-  const int64_t segments = (n + kSegment - 1) / kSegment;
-  const int64_t stride =
-      kGridStride ? ((int64_t)gridDim.x * kThreads) >> 5 : segments;
-  for (int64_t s = ((int64_t)blockIdx.x * kThreads + threadIdx.x) >> 5;
-       s < segments; s += stride) {
-    const int64_t base = s * kSegment;
-    if (vec && base + kSegment <= n) {
-      apply_segment_vec<P, D>(p, v, out, base, lane, eta, wd);
-    } else {
-      apply_segment_elems<P, D>(p, v, out, n, base, lane, eta, wd);
-    }
+  const int64_t base =
+      (((int64_t)blockIdx.x * kThreads + threadIdx.x) >> 5) * kSegment;
+  if (base >= n) return;
+  if (vec && base + kSegment <= n) {
+    apply_segment_vec<P, D>(p, v, out, base, lane, eta, wd);
+  } else {
+    apply_segment_elems<P, D>(p, v, out, n, base, lane, eta, wd);
   }
 }
 
@@ -335,20 +293,9 @@ int launch_apply(const void* p, const void* v, void* out, int64_t n,
   if (n > 0) {
     const uintptr_t pa = reinterpret_cast<uintptr_t>(p);
     const uintptr_t oa = reinterpret_cast<uintptr_t>(out);
-    const uintptr_t va = reinterpret_cast<uintptr_t>(v);
-    const bool vec = ((pa | oa) & 15) == 0 &&
-                     (kLanes || D::kBits == 1 || (va & 7) == 0);
+    const bool vec = ((pa | oa) & 15) == 0;
     const int64_t segments = (n + kSegment - 1) / kSegment;
-    int64_t blocks = blocks_for(segments * 32);
-    if (kGridStride) {
-      int dev = 0, sms = 0, per_sm = 0;
-      cudaGetDevice(&dev);
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, apply_kernel<P, D>, kThreads, 0);
-      blocks = std::min(blocks, (int64_t)sms * std::max(per_sm, 1));
-    }
-    apply_kernel<P, D><<<(unsigned)blocks, kThreads, 0,
+    apply_kernel<P, D><<<blocks_for(segments * 32), kThreads, 0,
                          (cudaStream_t)stream>>>(
         (const P*)p, (const uint32_t*)v, (P*)out, n, eta, wd, vec);
   }

@@ -3,6 +3,7 @@ package's kernels, run as ``tests/test_kernels.py`` runs them: through
 ``repro.kernels.ops`` in interpret mode. Inputs come from numpy seeds;
 packed words are compared as uint32."""
 import dataclasses
+import shutil
 
 import jax.numpy as jnp
 import numpy as np
@@ -565,18 +566,22 @@ def test_pipeline_tokens_equal(split):
         np.testing.assert_array_equal(a, b)
 
 
-def test_design_variants_build_apart():
-    """A design variant of a source (``build.VARIANTS``, timed by
-    chip_smoke.py beside the kept design) is the same file built with
-    extra ``-D`` flags into a library file of its own, so building one
-    never replaces the kept kernels."""
+def test_edited_source_builds_to_a_new_library(tmp_path, monkeypatch):
+    """Each source builds to a library file of its own whose name carries
+    a digest of the source and the nvcc flags, so an edited source is
+    rebuilt and the others are loaded as they are."""
     from repro_torch.kernels import build
-    targets = {build._target(name) for name in build.SIGNATURES}
-    assert build.variant_keys()
-    for key in build.variant_keys():
-        name, flags = build._split(key)
-        assert name in build.SIGNATURES
-        assert flags[:len(build.NVCC_FLAGS)] == build.NVCC_FLAGS
-        assert all(f.startswith("-D") for f in flags[len(build.NVCC_FLAGS):])
-        assert build._target(key) not in targets
-        targets.add(build._target(key))
+    before = {name: build._target(name) for name in build.SIGNATURES}
+    assert len(set(before.values())) == len(before)
+    csrc = tmp_path / "csrc"
+    shutil.copytree(build.CSRC, csrc)
+    monkeypatch.setattr(build, "CSRC", csrc)
+    assert {name: build._target(name) for name in build.SIGNATURES} == before
+    with open(csrc / "signum_update.cu", "a") as f:
+        f.write("// edited\n")
+    after = {name: build._target(name) for name in build.SIGNATURES}
+    assert after["signum_update"] != before["signum_update"]
+    assert {k: v for k, v in after.items() if k != "signum_update"} \
+        == {k: v for k, v in before.items() if k != "signum_update"}
+    monkeypatch.setattr(build, "NVCC_FLAGS", build.NVCC_FLAGS + ("-G",))
+    assert build._target("vote") != before["vote"]
