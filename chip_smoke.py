@@ -26,9 +26,14 @@ Phases, each of which fails the run (non-zero exit) on any disagreement:
    a 16-byte boundary, in place and into a separate out one element
    further along (the kernel's 16-byte path and its element path), with
    the elements around each view held unchanged and planted 0b10 fields
-   in the ternary words. Packed words, signs, momentum and parameters must
-   be bit-equal: 620 checks on an H100. ef_sign's float32 mean|t| over
-   ten 2^26-element chunks must be within 1e-5 of a float64 sum;
+   in the ternary words. The two tallies (majority, ternary_majority) also
+   take every M from 1 to 17 and M in {31, 32, 33, 63, 64, 65, 255, 256,
+   257, 1000} at n in {33, 100000}, words of each remainder mod 4, planted
+   all-ones, all-zero, tied and (2-bit) 0b10 columns, and a stack and an
+   out that start off a 16-byte boundary. Packed words, signs, momentum
+   and parameters must be bit-equal: 840 checks on an H100. ef_sign's
+   float32 mean|t| over ten 2^26-element chunks must be within 1e-5 of a
+   float64 sum;
 3. the training path: Algorithm 1 on glm4-9b at every published width,
    cut to 2 layers (1,649,439,744 parameters), M = 4 voters, global batch
    8, seq 512, for 5 steps through ``make_train_step`` ->
@@ -63,7 +68,8 @@ Phases, each of which fails the run (non-zero exit) on any disagreement:
 6. each kernel timed at the unembedding shape (median of CUDA-event-timed
    launches after warm-up) beside its plain version and its bound; beside
    the applies, a bf16 copy of the same n elements (the stream yardstick)
-   and apply_vote on float32 parameters.
+   and apply_vote on float32 parameters; beside the tallies, their times
+   at M = 32 and 128 voters, and at M = 1000 on an eighth of the n.
 
 It prints one JSON line per step and per wire, a ``{"kernels": [...]}``
 line and, last, ``{"ok": true, "device": {...}}``. Without a CUDA device,
@@ -91,6 +97,22 @@ VOTERS = (1, 4, 7, 33)
 #: past a 16-byte boundary (0: on it)
 APPLY_SIZES = SIZES + (32, 64, 95, 1024, 2047)
 APPLY_OFFSETS = (0, 1, 3)
+#: the tallies' checks: every plane count of the bit-sliced counter (P = 1
+#: to 6, M < 64) and the instantiation for any M, at these lengths in
+#: elements (2 and 3125 words on the 1-bit wire, 3 and 6250 on the 2-bit
+#: one); word counts of each remainder mod 4 (the 16-byte path and the word
+#: path) at TALLY_WORD_VOTERS; views off a 16-byte boundary at
+#: TALLY_VIEW_VOTERS
+TALLY_VOTERS = tuple(range(1, 18)) + (31, 32, 33, 63, 64, 65, 255, 256, 257,
+                                      1000)
+TALLY_SIZES = (33, 100_000)
+TALLY_WORDS = (4, 5, 6, 7, 1024, 1025, 1026, 1027)
+TALLY_WORD_VOTERS = (1, 4, 7, 32, 65)
+TALLY_VIEW_VOTERS = (4, 7, 33, 100)
+#: the tallies' extra timings, (voters, the unembedding's n cut by): M =
+#: 32 and 128 at the unembedding (128 on the largest kernel with its own
+#: plane count), and M = 1000 (the kernel for any M) on an eighth of it
+TALLY_TIMED = ((32, 1), (128, 1), (1000, 8))
 M_MAIN, GLOBAL_BATCH, SEQ, STEPS, LR, BETA = 4, 8, 512, 5, 1e-3, 0.9
 PACK_ROWS = (1, 4, 7)
 STACK_CAP_BYTES = 24e9      # largest (M, n) stack phase 2 builds
@@ -363,6 +385,75 @@ def check_ternary_kernels(torch, ops, ref, sc, dev, err) -> int:
                                             err, ternary=True)
 
 
+#: the two tallies: (name, elements per word, a word of +1 votes in every
+#: bit or field, a word of -1 votes, the 2-bit wire's unused 0b10 pattern)
+TALLIES = (("majority", 32, -1, 0, None),
+           ("ternary_majority", 16, 0x55555555, -1, -0x55555556))
+
+
+def planted_words(torch, gen, m, w, dev, plus, minus, unused):
+    """(m, w) random int32 words with planted columns, where w has room:
+    column 0 all ones (on the 2-bit wire, all -1), column 1 all zeros (all
+    abstaining), column 2 an exact tie at even M (the first M // 2 rows
+    `plus`, the next M // 2 `minus`, an odd M's last row 0) and, on the
+    2-bit wire, column 3 the unused 0b10 in every other row and 0 in the
+    rest, which counts nothing."""
+    words = torch.randint(-2 ** 31, 2 ** 31, (m, w), generator=gen,
+                          device=dev, dtype=torch.int32)
+    half = m // 2
+    cols = [[-1] * m, [0] * m, [plus] * half + [minus] * half + [0] * (m % 2)]
+    if unused is not None:
+        cols.append(([unused, 0] * m)[:m])
+    for j, col in enumerate(cols[:w]):
+        words[:, j] = torch.tensor(col, dtype=torch.int32, device=dev)
+    return words
+
+
+def check_tallies(torch, ops, ref, sc, dev, err) -> int:
+    """majority and ternary_majority against their plain versions, bit for
+    bit: every M of TALLY_VOTERS at TALLY_SIZES, w of each remainder mod 4,
+    and a (M, w) stack and an out that start off a 16-byte boundary (the
+    elements around the out view held unchanged). Updates `err`, returns the
+    number of checks."""
+    gen = torch.Generator(device=dev).manual_seed(1357)
+    n_checks = 0
+    for name, per_word, plus, minus, unused in TALLIES:
+        kernel, plain = getattr(ops, name), getattr(ref, name)
+
+        def check(what, packed, out=None):
+            got = kernel(packed) if out is None else kernel(packed, out=out)
+            err[name] = max(err[name], require_equal(
+                f"{name} {what}", got, plain(packed)))
+
+        cases = [(m, -(-n // per_word)) for n in TALLY_SIZES
+                 for m in TALLY_VOTERS]
+        cases += [(m, w) for w in TALLY_WORDS for m in TALLY_WORD_VOTERS]
+        for m, w in cases:
+            check(f"M={m} w={w}", planted_words(torch, gen, m, w, dev, plus,
+                                                minus, unused))
+            n_checks += 1
+        for m in TALLY_VIEW_VOTERS:
+            for w in (1024, 1027):
+                words = planted_words(torch, gen, m, w, dev, plus, minus,
+                                      unused)
+                buf = torch.zeros(m * w + 2, dtype=torch.int32, device=dev)
+                packed = buf[1:1 + m * w].view(m, w)
+                packed.copy_(words)
+                check(f"M={m} w={w} stack 4 B off a 16-byte boundary",
+                      packed)
+                whole = torch.full((w + 2,), 0x5A5A5A5A, dtype=torch.int32,
+                                   device=dev)
+                guard = whole.clone()
+                check(f"M={m} w={w} out=buf[1:]", words,
+                      out=whole[1:1 + w])
+                require_equal(f"{name} M={m} w={w}: words around out",
+                              whole[[0, -1]], guard[[0, -1]])
+                n_checks += 2
+                del words, buf, packed, whole, guard
+        torch.cuda.synchronize()
+    return n_checks
+
+
 def check_kernels(torch, ops, ref, sc, dev) -> dict:
     gen = torch.Generator(device=dev).manual_seed(1234)
     err = {name: 0.0 for name in ops.launch_counts()}
@@ -418,6 +509,7 @@ def check_kernels(torch, ops, ref, sc, dev) -> dict:
                                       ternary=False)
     n_checks += check_sign_kernels(torch, ops, ref, sc, dev, err)
     n_checks += check_ternary_kernels(torch, ops, ref, sc, dev, err)
+    n_checks += check_tallies(torch, ops, ref, sc, dev, err)
     # ef_sign's mean|t| summed over ten SCALE_CHUNKs (torch ops, no kernel)
     from repro_torch.core.codecs import ef_sign
     t = torch.randn(N_UNEMBED, generator=gen, device=dev)
@@ -700,7 +792,7 @@ def profile_vote(torch, label, backend, requests) -> None:
         for req in requests.values():
             backend.execute(req)
         torch.cuda.synchronize()
-    kernels = sorted(((e.self_device_time_total / 1e3, e.count, e.key[:80])
+    kernels = sorted(((e.self_device_time_total / 1e3, e.count, e.key[:120])
                       for e in prof.key_averages()
                       if e.device_type == torch.autograd.DeviceType.CUDA),
                      reverse=True)
@@ -735,9 +827,9 @@ def quickstart_vote(torch, va, VoteStrategy, dev) -> None:
 
 KERNEL_GROUPS = (("momentum_sign_pack", ("momentum_sign_pack_kernel",)),
                  ("ternary_pack", ("ternary_pack_kernel",)),
-                 ("ternary_majority", ("ternary_majority_kernel",)),
+                 ("ternary_majority", ("TernaryLanes",)),
                  ("apply_ternary_vote", ("TernaryVote>",)),
-                 ("majority", ("majority_kernel",)),
+                 ("majority", ("SignLanes",)),
                  ("apply_vote", ("SignVote>",)),
                  ("bitpack", ("bitpack_kernel",)),
                  ("bitunpack", ("bitunpack_kernel",)),
@@ -771,7 +863,7 @@ def profile_step(torch, art, params, opt_state, pipe, dev, n_params,
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
         ms = e.self_device_time_total / 1e3
-        kernels.append((ms, e.count, e.key[:90]))
+        kernels.append((ms, e.count, e.key[:120]))
         low = e.key.lower()
         group = next((g for g, keys in KERNEL_GROUPS
                       if any(k.lower() in low for k in keys)), "other")
@@ -901,6 +993,26 @@ def bound(bytes_moved: float, ops_done: float) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def tally_at_more_voters(torch, kernel, gen, dev, n, per_word, ops_per_vote
+                         ) -> list:
+    """A tally's ms at TALLY_TIMED voters, each beside its bound: M + 1
+    words moved per output word, `ops_per_vote` operations per voter and
+    element."""
+    rows = []
+    for m, cut in TALLY_TIMED:
+        n_m = n // cut
+        w = -(-n_m // per_word)
+        packed = torch.randint(-2 ** 31, 2 ** 31, (m, w), generator=gen,
+                               device=dev, dtype=torch.int32)
+        out = torch.empty(w, dtype=torch.int32, device=dev)
+        b, by = bound((m + 1) * w * 4, ops_per_vote * m * n_m)
+        rows.append({"voters": m, "n": n_m, "ms": median_ms(
+            torch, lambda: kernel(packed, out=out), reps=25),
+            "bound_ms": b, "bound_by": by})
+        del packed, out
+    return rows
+
+
 def time_kernels(torch, ops, ref, sc, dev, launches, errs) -> list:
     gen = torch.Generator(device=dev).manual_seed(99)
     n, w = N_UNEMBED, sc.words_for(N_UNEMBED)
@@ -938,10 +1050,13 @@ def time_kernels(torch, ops, ref, sc, dev, launches, errs) -> list:
     out = torch.empty(w, dtype=torch.int32, device=dev)
     ms = median_ms(torch, lambda: ops.majority(packed, out=out), reps=25)
     plain = median_ms(torch, lambda: ref.majority(packed), reps=5, warmup=1)
+    del packed
     # M words read and one written per output word; an add per voter and bit
     row("majority", "src/repro/kernels/vote.py:37", ms, plain,
-        (M_MAIN + 1) * w * 4, M_MAIN * n, "vote.cu")
-    del packed, out
+        (M_MAIN + 1) * w * 4, M_MAIN * n, "vote.cu",
+        more_voters=tally_at_more_voters(torch, ops.majority, gen, dev, n,
+                                         sc.PACK, 1))
+    del out
 
     p = torch.randn(n, generator=gen, device=dev).to(torch.bfloat16)
     votes = torch.randint(-2 ** 31, 2 ** 31, (w,), generator=gen, device=dev,
@@ -1018,11 +1133,13 @@ def time_kernels(torch, ops, ref, sc, dev, launches, errs) -> list:
                    reps=25)
     plain = median_ms(torch, lambda: ref.ternary_majority(packed), reps=5,
                       warmup=1)
+    del packed
     # M words read and one written per 16 fields; two compares and an add
     # per voter and field
     row("ternary_majority", "src/repro/kernels/ternary_pack.py:79", ms,
-        plain, (M_MAIN + 1) * w2 * 4, 3 * M_MAIN * n, "ternary_pack.cu")
-    del packed
+        plain, (M_MAIN + 1) * w2 * 4, 3 * M_MAIN * n, "vote.cu",
+        more_voters=tally_at_more_voters(torch, ops.ternary_majority, gen,
+                                         dev, n, sc.PACK2, 3))
     ms = median_ms(torch, lambda: ops.ternary_unpack(out, n), reps=25)
     plain = median_ms(torch, lambda: ref.ternary_unpack(out[None]), reps=5,
                       warmup=1)

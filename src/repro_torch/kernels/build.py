@@ -39,6 +39,7 @@ SIGNATURES = {
     },
     "vote": {
         "majority_packed": (_P, _P, _I, _I64, _P),
+        "ternary_majority": (_P, _P, _I, _I64, _P),
     },
     "bitpack": {
         **{f"bitpack_{t}": (_P, _P, _I64, _I64, _P)
@@ -53,7 +54,6 @@ SIGNATURES = {
     "ternary_pack": {
         **{f"ternary_pack_{t}": (_P, _P, _I64, _I64, _P)
            for t in ("f32", "bf16", "i8")},
-        "ternary_majority": (_P, _P, _I, _I64, _P),
         "ternary_unpack_i8": (_P, _P, _I64, _P),
     },
 }

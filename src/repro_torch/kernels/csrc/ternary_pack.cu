@@ -1,12 +1,13 @@
-// Ternary 2-bit packing, tally and unpacking for Hopper (sm_90a): the wire
-// of the ternary2bit codec.
+// Ternary 2-bit packing and unpacking for Hopper (sm_90a): the wire of the
+// ternary2bit codec.
 //
 // ternary_pack replaces the Pallas kernel
 //   src/repro/kernels/ternary_pack.py:61 ternary_pack_2d (pallas_call at :67)
-// ternary_majority replaces
-//   src/repro/kernels/ternary_pack.py:79 ternary_tally_packed (pallas_call at :84)
 // ternary_unpack has no Pallas counterpart: the reference decodes the packed
 // majority with jnp (src/repro/kernels/ops.py:155 ternary_unpack).
+// The tally between them, the counterpart of
+//   src/repro/kernels/ternary_pack.py:79 ternary_tally_packed
+// is ternary_majority in vote.cu, one template with the 1-bit tally.
 //
 // Format: 16 symbols per word, little-endian, field j of word k in bits
 // 2j..2j+1 holds element 16k + j: +1 -> 0b01, -1 -> 0b11, 0 (abstain) ->
@@ -18,33 +19,28 @@
 //   the reference packs it); f32 / bf16 values are packed as their
 //   sign_ternary (x > 0 -> 0b01, x < 0 -> 0b11, +0.0 / -0.0 -> 0b00), so a
 //   caller never makes an int8 or int32 copy of a float payload.
-// ternary_majority: (M, w) -> (w,) words. Per field, +1 votes minus -1
-//   votes over the M rows, counted in int32 (no cap on M); 0b01 if the
-//   count is > 0, 0b11 if it is < 0, else 0b00 (ties and abstentions give
-//   0). A field reads +1 only as 0b01 and -1 only as 0b11: the unused
-//   pattern 0b10 counts 0, as the reference's where() decodes it, and is
-//   never sign-extended to -2.
-// ternary_unpack: (w,) words -> (n,) int8 of {-1, 0, +1}, with the same
-//   decode.
+// ternary_unpack: (w,) words -> (n,) int8 of {-1, 0, +1}. A field reads +1
+//   only as 0b01 and -1 only as 0b11: the unused pattern 0b10 reads 0, as
+//   the reference's where() decodes it.
 //
 // Bound on the H100 (3.35 TB/s): a mask, a compare or a shift per element,
-// so device-memory bytes bound all three. At the glm4-9b unembedding
-// (n = 620,756,992) with M = 4:
+// so device-memory bytes bound both. At the glm4-9b unembedding
+// (n = 620,756,992):
 //   ternary_pack of the (4, n) int8 wire signs reads 4n B and writes n B:
 //     3.10 GB, 0.93 ms; of one f32 momentum row, 4n B + n/4 B: 0.79 ms.
-//   ternary_majority reads 4 and writes 1 word per 16 fields: 0.78 GB,
-//     0.23 ms.
 //   ternary_unpack reads n/4 B and writes n B: 0.78 GB, 0.23 ms.
 //
-// Design. The TPU kernels work on (8, 2048) and (M, 512) VMEM blocks with
-// unrolled shift/OR trees. Here one thread owns one output word in all
-// three kernels. Packing reads the word's 16 elements with 16-byte loads
-// when every row starts 16-byte aligned (n % 16 == 0 and an aligned base;
-// one load for int8, two for bf16, four for f32), element by element
-// otherwise; the grid's y dimension walks the rows, so a word never
-// straddles two rows. The tally keeps 16 counters in registers and walks
-// the M rows (each row's load coalesced across the warp). Unpacking builds
-// the 16 int8 symbols in registers and writes them with one 16-byte store.
+// Design. The TPU kernels work on (8, 2048) VMEM blocks with unrolled
+// shift/OR trees. Here one thread owns one output word. Packing reads the
+// word's 16 elements with 16-byte loads when every row starts 16-byte
+// aligned (n % 16 == 0 and an aligned base; one load for int8, two for
+// bf16, four for f32), element by element otherwise; the grid's y
+// dimension walks the rows, so a word never straddles two rows. Unpacking
+// builds the 16 int8 symbols in registers and writes them with one 16-byte
+// store.
+// Rejected: no design of these two. The tally that was here (one thread
+// per word, 16 counters) gave way to vote.cu's bit-sliced one; PERF.md,
+// kernel table row 8, has its times.
 //
 // Each entry point launches on the caller's stream and returns
 // cudaGetLastError(); the Python wrapper raises when it is not 0.
@@ -115,29 +111,6 @@ __global__ void ternary_pack_kernel(const T* __restrict__ x,
     }
   }
   out[(int64_t)blockIdx.y * w + k] = acc;
-}
-
-__global__ void ternary_majority_kernel(const uint32_t* __restrict__ packed,
-                                        uint32_t* __restrict__ out, int m,
-                                        int64_t w) {
-  const int64_t k = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (k >= w) return;
-  int count[kFields];
-#pragma unroll
-  for (int j = 0; j < kFields; ++j) count[j] = 0;
-  for (int r = 0; r < m; ++r) {
-    const uint32_t word = packed[(int64_t)r * w + k];
-#pragma unroll
-    for (int j = 0; j < kFields; ++j) {
-      const uint32_t f = (word >> (2 * j)) & 3u;
-      count[j] += (int)(f == 1u) - (int)(f == 3u);
-    }
-  }
-  uint32_t maj = 0;
-#pragma unroll
-  for (int j = 0; j < kFields; ++j)
-    maj |= (count[j] > 0 ? 1u : (count[j] < 0 ? 3u : 0u)) << (2 * j);
-  out[k] = maj;
 }
 
 // the int8 symbol of a field: 0x01, 0xFF (-1) or 0x00
@@ -217,16 +190,6 @@ int ternary_pack_f32(const void* x, void* out, int64_t rows, int64_t n,
 int ternary_pack_bf16(const void* x, void* out, int64_t rows, int64_t n,
                       void* stream) {
   return launch_pack<__nv_bfloat16>(x, out, rows, n, stream);
-}
-
-int ternary_majority(const void* packed, void* out, int m, int64_t w,
-                     void* stream) {
-  if (w > 0) {
-    ternary_majority_kernel<<<blocks_for(w), kThreads, 0,
-                              (cudaStream_t)stream>>>(
-        (const uint32_t*)packed, (uint32_t*)out, m, w);
-  }
-  return (int)cudaGetLastError();
 }
 
 int ternary_unpack_i8(const void* v, void* out, int64_t n, void* stream) {

@@ -312,7 +312,7 @@ def ternary_majority(packed: torch.Tensor, *,
         raise ValueError(f"out must be ({w},), got {tuple(out.shape)}")
     if not _on_card(packed):
         return out.copy_(ref.ternary_majority(packed))
-    _launch("ternary_pack", "ternary_majority", packed.data_ptr(),
+    _launch("vote", "ternary_majority", packed.data_ptr(),
             out.data_ptr(), m, w, _stream(packed))
     _COUNTS["ternary_majority"] += 1
     return out

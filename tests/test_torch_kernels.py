@@ -67,13 +67,54 @@ def test_momentum_sign_pack_matches_jax(n, gdtype, beta):
                                rtol=1e-6, atol=1e-6)
 
 
-@pytest.mark.parametrize("m", [1, 2, 3, 7, 16, 33])
-@pytest.mark.parametrize("w", [1, 511, 512, 700])
-def test_majority_matches_jax(m, w):
+#: the tallies' wider sweep: voter counts across the plane counts of the
+#: card's bit-sliced counter (M < 64) and its kernel for any M, at word
+#: counts of each remainder mod 4 (all within one 512-word Pallas block)
+TALLY_VOTERS = [4, 8, 15, 17, 31, 32, 63, 64, 65, 255, 256, 257]
+TALLY_WORDS = [508, 509, 510, 511]
+#: (M, w, offset): the stack a contiguous view `offset` words into a larger
+#: buffer, its out a view one word into another
+TALLY_VIEWS = [(4, 510, 1), (17, 511, 3), (257, 509, 1)]
+
+
+def _tally_cases(voters, words):
+    """A tally test's first sweep under its first ids (w-major, offset
+    0), then the wider sweep and the views."""
+    return ([pytest.param(m, w, 0, id=f"{w}-{m}")
+             for w in words for m in voters]
+            + [pytest.param(m, w, 0, id=f"M{m}-w{w}")
+               for m in TALLY_VOTERS for w in TALLY_WORDS]
+            + [pytest.param(m, w, off, id=f"M{m}-w{w}-offset{off}")
+               for m, w, off in TALLY_VIEWS])
+
+
+def _tally(fn, words, offset):
+    """fn on the (m, w) uint32 words; with an offset, on a view that many
+    words into a larger buffer, into an out one word into another (the
+    words around it held unchanged)."""
+    m, w = words.shape
+    t = torch.from_numpy(words.view(np.int32))
+    if not offset:
+        return _words(fn(t))
+    buf = torch.zeros(offset + m * w + 3, dtype=torch.int32)
+    packed = buf[offset:offset + m * w].view(m, w)
+    packed.copy_(t)
+    whole = torch.full((w + 2,), 0x5A5A5A5A, dtype=torch.int32)
+    got = fn(packed, out=whole[1:1 + w])
+    assert got.data_ptr() == whole[1].data_ptr()
+    assert whole[[0, -1]].tolist() == [0x5A5A5A5A] * 2
+    return _words(got)
+
+
+@pytest.mark.parametrize(
+    "m,w,offset", _tally_cases([1, 2, 3, 7, 16, 33], [1, 511, 512, 700]))
+def test_majority_matches_jax(m, w, offset):
     p = _rng(m, w).integers(0, 2 ** 32, size=(m, w), dtype=np.uint32)
-    expect = np.asarray(jops.majority(jnp.asarray(p)))
-    got = tops.majority(torch.from_numpy(p.view(np.int32)))
-    np.testing.assert_array_equal(_words(got), expect)
+    got = _tally(tops.majority, p, offset)
+    np.testing.assert_array_equal(got, np.asarray(jops.majority(
+        jnp.asarray(p))))
+    np.testing.assert_array_equal(got, np.asarray(jref.majority(
+        jnp.asarray(p))))
 
 
 @pytest.mark.parametrize("pdtype", ["float32", "bfloat16"])
@@ -378,11 +419,11 @@ def _planted_words(m, w, *salt):
     return words
 
 
-@pytest.mark.parametrize("m", [1, 2, 3, 4, 9, 16, 33])
-@pytest.mark.parametrize("w", [1, 7, 313, 517])
-def test_ternary_majority_matches_jax(m, w):
+@pytest.mark.parametrize("m,w,offset", _tally_cases([1, 2, 3, 4, 9, 16, 33],
+                                                    [1, 7, 313, 517]))
+def test_ternary_majority_matches_jax(m, w, offset):
     words = _planted_words(m, w)
-    got = _words(tops.ternary_majority(torch.from_numpy(words.view(np.int32))))
+    got = _tally(tops.ternary_majority, words, offset)
     np.testing.assert_array_equal(
         got, np.asarray(jops.ternary_majority(jnp.asarray(words))))
     np.testing.assert_array_equal(
