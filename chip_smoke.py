@@ -28,10 +28,10 @@ Phases, each of which fails the run (non-zero exit) on any disagreement:
    the elements around each view held unchanged and planted 0b10 fields
    in the ternary words. The two tallies (majority, ternary_majority) also
    take every M from 1 to 17 and M in {31, 32, 33, 63, 64, 65, 255, 256,
-   257, 1000} at n in {33, 100000}, words of each remainder mod 4, planted
-   all-ones, all-zero, tied and (2-bit) 0b10 columns, and a stack and an
-   out that start off a 16-byte boundary. Packed words, signs, momentum
-   and parameters must be bit-equal: 840 checks on an H100. ef_sign's
+   257, 1000} at n in {33, 100000, 131072}, words of each remainder mod 4,
+   planted all-ones, all-zero, tied and (2-bit) 0b10 columns, and a stack
+   and an out that start off a 16-byte boundary. Packed words, signs, momentum
+   and parameters must be bit-equal: 894 checks on an H100. ef_sign's
    float32 mean|t| over ten 2^26-element chunks must be within 1e-5 of a
    float64 sum;
 3. the training path: Algorithm 1 on glm4-9b at every published width,
@@ -69,7 +69,8 @@ Phases, each of which fails the run (non-zero exit) on any disagreement:
    launches after warm-up) beside its plain version and its bound; beside
    the applies, a bf16 copy of the same n elements (the stream yardstick)
    and apply_vote on float32 parameters; beside the tallies, their times
-   at M = 32 and 128 voters, and at M = 1000 on an eighth of the n.
+   at M = 32, 64 and 128 voters, at M = 255 on half of the n and at
+   M = 1000 on an eighth of it.
 
 It prints one JSON line per step and per wire, a ``{"kernels": [...]}``
 line and, last, ``{"ok": true, "device": {...}}``. Without a CUDA device,
@@ -98,21 +99,23 @@ VOTERS = (1, 4, 7, 33)
 APPLY_SIZES = SIZES + (32, 64, 95, 1024, 2047)
 APPLY_OFFSETS = (0, 1, 3)
 #: the tallies' checks: every plane count of the bit-sliced counter (P = 1
-#: to 6, M < 64) and the instantiation for any M, at these lengths in
-#: elements (2 and 3125 words on the 1-bit wire, 3 and 6250 on the 2-bit
-#: one); word counts of each remainder mod 4 (the 16-byte path and the word
-#: path) at TALLY_WORD_VOTERS; views off a 16-byte boundary at
+#: to 8, M < 256) and the instantiation for any M, at these lengths in
+#: elements (2, 3125 and 4096 words on the 1-bit wire, 3, 6250 and 8192 on
+#: the 2-bit one: the last a multiple of 4, so every M also takes the
+#: 16-byte path); word counts of each remainder mod 4 (the 16-byte path and
+#: the word path) at TALLY_WORD_VOTERS; views off a 16-byte boundary at
 #: TALLY_VIEW_VOTERS
 TALLY_VOTERS = tuple(range(1, 18)) + (31, 32, 33, 63, 64, 65, 255, 256, 257,
                                       1000)
-TALLY_SIZES = (33, 100_000)
+TALLY_SIZES = (33, 100_000, 131_072)
 TALLY_WORDS = (4, 5, 6, 7, 1024, 1025, 1026, 1027)
 TALLY_WORD_VOTERS = (1, 4, 7, 32, 65)
 TALLY_VIEW_VOTERS = (4, 7, 33, 100)
 #: the tallies' extra timings, (voters, the unembedding's n cut by): M =
-#: 32 and 128 at the unembedding (128 on the largest kernel with its own
-#: plane count), and M = 1000 (the kernel for any M) on an eighth of it
-TALLY_TIMED = ((32, 1), (128, 1), (1000, 8))
+#: 32, 64 and 128 at the unembedding, M = 255 (the largest with a plane
+#: count of its own) on half of it, and M = 1000 (the kernel for any M) on
+#: an eighth of it
+TALLY_TIMED = ((32, 1), (64, 1), (128, 1), (255, 2), (1000, 8))
 M_MAIN, GLOBAL_BATCH, SEQ, STEPS, LR, BETA = 4, 8, 512, 5, 1e-3, 0.9
 PACK_ROWS = (1, 4, 7)
 STACK_CAP_BYTES = 24e9      # largest (M, n) stack phase 2 builds

@@ -68,7 +68,7 @@ def test_momentum_sign_pack_matches_jax(n, gdtype, beta):
 
 
 #: the tallies' wider sweep: voter counts across the plane counts of the
-#: card's bit-sliced counter (M < 64) and its kernel for any M, at word
+#: card's bit-sliced counter (M < 256) and its kernel for any M, at word
 #: counts of each remainder mod 4 (all within one 512-word Pallas block)
 TALLY_VOTERS = [4, 8, 15, 17, 31, 32, 63, 64, 65, 255, 256, 257]
 TALLY_WORDS = [508, 509, 510, 511]
