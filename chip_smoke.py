@@ -30,10 +30,14 @@ Phases, each of which fails the run (non-zero exit) on any disagreement:
    take every M from 1 to 17 and M in {31, 32, 33, 63, 64, 65, 255, 256,
    257, 1000} at n in {33, 100000, 131072}, words of each remainder mod 4,
    planted all-ones, all-zero, tied and (2-bit) 0b10 columns, and a stack
-   and an out that start off a 16-byte boundary. Packed words, signs, momentum
-   and parameters must be bit-equal: 894 checks on an H100. ef_sign's
-   float32 mean|t| over ten 2^26-element chunks must be within 1e-5 of a
-   float64 sum;
+   and an out that start off a 16-byte boundary. momentum_sign_pack with
+   bf16 momentum (the preset's instantiation) takes g float32 and bf16 at
+   every n of SIZES, beta in {0.9, 0.99, 0.5 + 2^-9 + 2^-31}, planted +0.0
+   and -0.0 in g and m, a new m' with the words and m' in place with and
+   without them (m' compared bit for bit, -0.0 apart from +0.0). Packed
+   words, signs, momentum and parameters must be bit-equal: 1,002 checks on
+   an H100. ef_sign's float32 mean|t| over ten 2^26-element chunks must be
+   within 1e-5 of a float64 sum;
 3. the training path: Algorithm 1 on glm4-9b at every published width,
    cut to 2 layers (1,649,439,744 parameters), M = 4 voters, global batch
    8, seq 512, for 5 steps through ``make_train_step`` ->
@@ -65,12 +69,28 @@ Phases, each of which fails the run (non-zero exit) on any disagreement:
    mean|t| within 1e-5 of a float64 sum),
    ternary2bit's untouched embedding coordinates held still, the peak
    memory printed, and one more step of each under torch.profiler;
-6. each kernel timed at the unembedding shape (median of CUDA-event-timed
-   launches after warm-up) beside its plain version and its bound; beside
-   the applies, a bf16 copy of the same n elements (the stream yardstick)
-   and apply_vote on float32 parameters; beside the tallies, their times
-   at M = 32, 64 and 128 voters, at M = 255 on half of the n and at
-   M = 1000 on an eighth of it.
+6. the preset path: the reference's configured glm4-9b training,
+   ``make_train_step(cfg, default_train_config("glm4-9b", cell), 4)`` from
+   ``configs/presets.py``: bf16 per-worker momentum on psum_int8 (the
+   trainer's 2-bit count wire), 8 microbatches a voter, remat="full", lr
+   1e-4, beta 0.9, at every published width, depth cut 40 -> 2 as in phase
+   3. Its cell is seq 512 and global batch 32: train_4k's seq 4096 waits
+   for query chunking at S > 1024 (ROADMAP.md Queue 1 item 11) and its
+   batch of 256 is cut for time. Five steps from fresh state: finite
+   losses, each step's launches exactly momentum_sign_pack (the bf16-m
+   instantiation, no words) and ternary_pack M times per leaf,
+   ternary_majority and apply_ternary_vote once; step 0 of
+   ``layers.attn_wq`` (its bf16 momentum rows and its update) bit-equal to
+   the plain versions recomputed from saved copies; the peak memory; one
+   more step under torch.profiler;
+7. each kernel timed at the unembedding shape (median of CUDA-event-timed
+   launches after warm-up) beside its plain version and its bound;
+   momentum_sign_pack with bf16 momentum as a row of its own; beside
+   ternary_pack of a float32 row, its bf16 row (the preset's); beside the
+   applies, a bf16 copy of the same n elements (the stream yardstick) and
+   apply_vote on float32 parameters; beside the tallies, their times at
+   M = 32, 64 and 128 voters, at M = 255 on half of the n and at M = 1000
+   on an eighth of it.
 
 It prints one JSON line per step and per wire, a ``{"kernels": [...]}``
 line and, last, ``{"ok": true, "device": {...}}``. Without a CUDA device,
@@ -117,6 +137,14 @@ TALLY_VIEW_VOTERS = (4, 7, 33, 100)
 #: an eighth of it
 TALLY_TIMED = ((32, 1), (64, 1), (128, 1), (255, 2), (1000, 8))
 M_MAIN, GLOBAL_BATCH, SEQ, STEPS, LR, BETA = 4, 8, 512, 5, 1e-3, 0.9
+#: beta of the bf16-momentum checks: the last one's float32 value lies half
+#: way between two bf16 values and rounds to even (0.5)
+BF16_BETAS = (0.9, 0.99, 0.5 + 2 ** -9 + 2 ** -31)
+#: the preset path (phase 6): the glm4-9b preset's shape cell, cut from
+#: train_4k's seq 4096 and batch 256 (see the docstring)
+PRESET_SEQ, PRESET_BATCH = 512, 32
+#: the preset path's leaf whose step 0 is recomputed from saved copies
+PRESET_LEAF = "layers.attn_wq"
 PACK_ROWS = (1, 4, 7)
 STACK_CAP_BYTES = 24e9      # largest (M, n) stack phase 2 builds
 #: largest (rows, n) int32 temporary of ternary_pack's plain version
@@ -457,9 +485,58 @@ def check_tallies(torch, ops, ref, sc, dev, err) -> int:
     return n_checks
 
 
+def check_momentum_bf16(torch, ops, ref, sc, dev, err) -> int:
+    """momentum_sign_pack with bf16 momentum (the preset path's
+    instantiation) against its plain version, bit for bit: g float32 and
+    bf16, every n of SIZES, every beta of BF16_BETAS, planted +0.0 / -0.0
+    in g and m (m' = +0.0 or -0.0, bit +1), into a new m' with the words,
+    then in place (m_out = m) with and without them. Updates `err` under
+    "momentum_sign_pack_bf16m"; returns the number of checks."""
+    gen = torch.Generator(device=dev).manual_seed(8642)
+    name = "momentum_sign_pack_bf16m"
+    n_checks = 0
+    for n in SIZES:
+        for gdtype in (torch.float32, torch.bfloat16):
+            g = torch.randn(n, generator=gen, device=dev).to(gdtype)
+            m0 = (torch.randn(n, generator=gen, device=dev) * 0.3).to(
+                torch.bfloat16)
+            g[::7], m0[::7] = 0.0, 0.0
+            g[3::7], m0[3::7] = -0.0, -0.0
+            g[5::11], m0[5::11] = -0.0, 0.0
+            for beta in BF16_BETAS:
+                m_r, p_r = ref.momentum_sign_pack(
+                    sc.pad_to_pack(g)[0], sc.pad_to_pack(m0)[0], beta)
+                m_r = m_r[:n]
+                what = f"{name} n={n} g {gdtype} beta={beta!r}"
+                m_k, p_k = ops.momentum_sign_pack(g, m0, beta)
+                e = max(require_equal(f"{what} m'", m_k.view(torch.int16),
+                                      m_r.view(torch.int16)),
+                        require_equal(f"{what} words", p_k, p_r))
+                for pack in (True, False):
+                    m = m0.clone()
+                    _, p_in = ops.momentum_sign_pack(g, m, beta, m_out=m,
+                                                     pack=pack)
+                    e = max(e, require_equal(
+                        f"{what} in place pack={pack} m'",
+                        m.view(torch.int16), m_r.view(torch.int16)))
+                    if pack:
+                        e = max(e, require_equal(
+                            f"{what} in place words", p_in, p_r))
+                    elif p_in is not None:
+                        raise AssertionError(f"{what}: pack=False gave words")
+                    del m, p_in
+                err[name] = max(err[name], e)
+                n_checks += 3
+                del m_r, p_r, m_k, p_k
+            del g, m0
+        torch.cuda.synchronize()
+    return n_checks
+
+
 def check_kernels(torch, ops, ref, sc, dev) -> dict:
     gen = torch.Generator(device=dev).manual_seed(1234)
     err = {name: 0.0 for name in ops.launch_counts()}
+    err["momentum_sign_pack_bf16m"] = 0.0
     n_checks = 0
     for n in SIZES:
         w = sc.words_for(n)
@@ -513,6 +590,7 @@ def check_kernels(torch, ops, ref, sc, dev) -> dict:
     n_checks += check_sign_kernels(torch, ops, ref, sc, dev, err)
     n_checks += check_ternary_kernels(torch, ops, ref, sc, dev, err)
     n_checks += check_tallies(torch, ops, ref, sc, dev, err)
+    n_checks += check_momentum_bf16(torch, ops, ref, sc, dev, err)
     # ef_sign's mean|t| summed over ten SCALE_CHUNKs (torch ops, no kernel)
     from repro_torch.core.codecs import ef_sign
     t = torch.randn(N_UNEMBED, generator=gen, device=dev)
@@ -893,6 +971,12 @@ def profile_step(torch, art, params, opt_state, pipe, dev, n_params,
         "weighted_vote": {"momentum_sign_pack": m * n * 10.125,
                           "bitunpack": m * n * 1.125,
                           "bitpack": n * 1.125, "apply_vote": n * 4.125},
+        # the preset: bf16 g, m read, m' written, no words; ternary_pack
+        # reads each voter's bf16 m' row and writes 2 bits
+        "preset": {"momentum_sign_pack": m * n * 6,
+                   "ternary_pack": m * n * 2.25,
+                   "ternary_majority": (m + 1) * n / 4,
+                   "apply_ternary_vote": n * 4.25},
     }[codec]
     per_step_bound = {k: b / HBM_BYTES_PER_S * 1e3
                       for k, b in per_step_bytes.items()}
@@ -971,7 +1055,156 @@ def check_codec_step0(torch, signum, tcfg, codec, leaf, p0, g0, params,
 
 
 # ---------------------------------------------------------------------------
-# phase 6: timing at the unembedding shape
+# phase 6: the glm4-9b preset's train step
+# ---------------------------------------------------------------------------
+
+
+def preset_launches(n_leaves: int) -> dict:
+    """The kernel launches one step of the preset makes (M_MAIN voters, the
+    count wire: bf16-m momentum_sign_pack without words, then ternary_pack
+    of each voter's m' row; one tally and one apply per leaf)."""
+    per_voter = M_MAIN * n_leaves
+    return {"momentum_sign_pack": per_voter, "ternary_pack": per_voter,
+            "ternary_majority": n_leaves, "apply_ternary_vote": n_leaves}
+
+
+def preset_leaf_grads(torch, M, cfg, tcfg, params, tokens, leaf):
+    """Each voter's accumulated gradient of `leaf`, by plain autograd per
+    microbatch (each block checkpointed as the preset has it), summed in a
+    bf16 accumulator from zeros and divided by the microbatch count, as the
+    reference's acc_body scan does."""
+    per = tokens.shape[0] // M_MAIN
+    micro = tcfg.microbatches
+    rows = per // micro
+    out = []
+    for r in range(M_MAIN):
+        acc = torch.zeros_like(params[leaf], dtype=torch.bfloat16)
+        for i in range(micro):
+            leaves = dict(params)
+            leaves[leaf] = params[leaf].detach().requires_grad_()
+            start = r * per + i * rows
+            loss, _ = M.loss_fn(cfg, leaves,
+                                {"tokens": tokens[start:start + rows]},
+                                remat=tcfg.remat)
+            acc.add_(torch.autograd.grad(loss, [leaves[leaf]])[0].to(
+                torch.bfloat16))
+        out.append(acc.div_(micro))
+    return out
+
+
+def run_preset_path(torch, cfg, dev) -> dict:
+    """Phase 6: the reference's configured glm4-9b training,
+    ``make_train_step(cfg, default_train_config("glm4-9b", cell), 4)``, at
+    every published width, depth cut to 2 layers, cell (seq 512, batch 32):
+    bf16 per-worker momentum on psum_int8, 8 microbatches, remat="full",
+    lr 1e-4, beta 0.9. Five steps from fresh state with exact launches per
+    step, step 0 of PRESET_LEAF (its bf16 momentum rows and its update)
+    bit-equal to the plain versions recomputed from saved copies, the peak
+    memory and a profiled step. Returns the launches of the path."""
+    from repro_torch.configs.base import ShapeCell, VoteStrategy
+    from repro_torch.configs.presets import default_train_config
+    from repro_torch.core import signum
+    from repro_torch.data.pipeline import SyntheticLMPipeline
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import model as M
+    from repro_torch.train import train_step as TS
+
+    cell = ShapeCell("train_smoke", PRESET_SEQ, PRESET_BATCH, "train")
+    tcfg = default_train_config("glm4-9b", cell)
+    opt = tcfg.optimizer
+    if (opt.momentum_dtype, opt.vote_strategy, tcfg.microbatches,
+            tcfg.remat) != ("bfloat16", VoteStrategy.PSUM_INT8, 8, "full"):
+        raise AssertionError(f"not the glm4-9b preset: {tcfg}")
+    n_params = cfg.param_count()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    art = TS.make_train_step(cfg, tcfg, M_MAIN, device=dev)
+    params, opt_state = TS.materialize_state(
+        cfg, tcfg, art, torch.Generator(device=dev).manual_seed(0))
+    if any(m.dtype != torch.bfloat16 for m in opt_state["momentum"].values()):
+        raise AssertionError("the preset's momentum is not bf16")
+    pipe = SyntheticLMPipeline(cfg, tcfg.global_batch, tcfg.seq_len, seed=0)
+    want = preset_launches(len(params))
+    log({"phase": "preset_path", "arch": cfg.name,
+         "num_layers": cfg.num_layers, "d_model": cfg.d_model,
+         "vocab": cfg.vocab_size, "params": n_params, "voters": M_MAIN,
+         "global_batch": tcfg.global_batch, "seq": tcfg.seq_len,
+         "microbatches": tcfg.microbatches, "remat": tcfg.remat,
+         "momentum_dtype": opt.momentum_dtype,
+         "vote_strategy": art.vote_strategy.value, "lr": opt.learning_rate,
+         "beta": opt.momentum, "state": sorted(opt_state),
+         "resident_before_bytes": resident})
+
+    ops.reset_launch_counts()
+    seen = ops.launch_counts()
+    step_ms, losses = [], []
+    for step in range(STEPS):
+        tokens = torch.as_tensor(pipe.global_batch_at(step)["tokens"],
+                                 device=dev)
+        if step == 0:   # saved copies for the bit-exact check of step 0
+            p0 = params[PRESET_LEAF].clone()
+            g0 = preset_leaf_grads(torch, M, cfg, tcfg, params, tokens,
+                                   PRESET_LEAF)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt_state, met = art.step_fn(params, opt_state,
+                                             {"tokens": tokens}, step)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        loss = float(met["loss"])
+        counts = ops.launch_counts()
+        per_step = {k: counts[k] - seen[k] for k in counts
+                    if counts[k] != seen[k]}
+        seen = counts
+        log({"preset": "glm4-9b", "step": step, "loss": loss, "ms": ms,
+             "launches": per_step})
+        if not math.isfinite(loss):
+            raise AssertionError(f"preset step {step}: loss {loss}")
+        if per_step != want:
+            raise AssertionError(f"preset step {step}: launches {per_step}, "
+                                 f"expected {want}")
+        step_ms.append(ms)
+        losses.append(loss)
+        if step == 0:
+            eta = signum.lr_at(opt, 0)
+            mom = opt_state["momentum"][PRESET_LEAF].view(M_MAIN, -1)
+            words = []
+            for r in range(M_MAIN):
+                g = g0[r].reshape(1, -1)
+                m_ref, _ = ref.momentum_sign_pack(
+                    g, torch.zeros_like(g), opt.momentum)
+                require_equal(f"preset step 0 momentum of voter {r}",
+                              mom[r].view(1, -1).view(torch.int16),
+                              m_ref.view(torch.int16))
+                words.append(ref.ternary_pack(m_ref)[0])
+            p_ref = ref.apply_ternary_vote(
+                p0.view(1, -1), ref.ternary_majority(torch.stack(words))[None],
+                eta, opt.weight_decay)
+            require_equal("preset step 0 parameters",
+                          params[PRESET_LEAF].view(1, -1), p_ref)
+            log({"phase": "step0_bit_equal", "codec": "preset",
+                 "leaf": PRESET_LEAF, "coords": p0.numel(), "ok": True})
+            del p0, g0, mom, words, p_ref
+    launches = ops.launch_counts()   # read just after the preset path
+    peak = torch.cuda.max_memory_allocated()
+    median = statistics.median(step_ms[1:])
+    log({"phase": "preset_path_done", "losses": losses,
+         "step_ms_median_1_4": median, "max_memory_allocated_bytes": peak,
+         "max_memory_allocated_GiB": peak / 2 ** 30})
+    for k, v in want.items():
+        if launches[k] != STEPS * v:
+            raise AssertionError(f"preset {k}: {launches[k]} launches over "
+                                 f"the run, expected {STEPS * v}")
+    profile_step(torch, art, params, opt_state, pipe, dev, n_params, median,
+                 "preset")
+    del params, opt_state, art
+    torch.cuda.empty_cache()
+    return {k: v for k, v in launches.items() if v}
+
+
+# ---------------------------------------------------------------------------
+# phase 7: timing at the unembedding shape
 # ---------------------------------------------------------------------------
 
 
@@ -1024,12 +1257,13 @@ def time_kernels(torch, ops, ref, sc, dev, launches, errs) -> list:
     def row(name, replaces, ms, plain, bytes_moved, ops_done, source,
             **extra):
         b, by = bound(bytes_moved, ops_done)
+        # library_ms: no single PyTorch call computes any of these functions
         rows.append({"name": name, "route": "cuda", "source": SOURCE + source,
                      "replaces": replaces, "launches": launches[name],
                      "max_abs_err": errs[name], "max_diff": errs[name],
                      "ms": ms, "plain_ms": plain, "bound_ms": b,
                      "bound_by": by, "library_ms": None,
-                     "shape": {"n": n, "voters": M_MAIN}, **extra})
+                     **{"shape": {"n": n, "voters": M_MAIN}, **extra}})
 
     g = torch.randn(n, generator=gen, device=dev).to(torch.bfloat16)
     m = torch.randn(n, generator=gen, device=dev)
@@ -1046,7 +1280,23 @@ def time_kernels(torch, ops, ref, sc, dev, launches, errs) -> list:
     row("momentum_sign_pack", "src/repro/kernels/signum_update.py:46", ms,
         plain, n * (2 + 4 + 4) + w * 4, 3 * n, "signum_update.cu",
         nopack_ms=nopack_ms, nopack_bound_ms=nopack_b)
-    del g, m, words
+    del m
+    # bf16 momentum (the preset path's instantiation): g bf16 read, m bf16
+    # read and written, one bit out; 2 mul + 1 add and 3 roundings to bf16
+    mb = torch.randn(n, generator=gen, device=dev).to(torch.bfloat16)
+    ms = median_ms(torch, lambda: ops.momentum_sign_pack(
+        g, mb, BETA, m_out=mb, packed_out=words), reps=25)
+    plain = median_ms(torch, lambda: ref.momentum_sign_pack(
+        g.view(1, -1), mb.view(1, -1), BETA), reps=5, warmup=1)
+    # the count wire's encode: m' written, no words
+    nopack_ms = median_ms(torch, lambda: ops.momentum_sign_pack(
+        g, mb, BETA, m_out=mb, pack=False), reps=25)
+    nopack_b, _ = bound(n * (2 + 2 + 2), 6 * n)
+    row("momentum_sign_pack_bf16m", "src/repro/kernels/signum_update.py:46",
+        ms, plain, n * (2 + 2 + 2) + w * 4, 6 * n, "signum_update.cu",
+        nopack_ms=nopack_ms, nopack_bound_ms=nopack_b,
+        shape={"n": n, "g": "bfloat16", "m": "bfloat16"})
+    del g, mb, words
 
     packed = torch.randint(-2 ** 31, 2 ** 31, (M_MAIN, w), generator=gen,
                            device=dev, dtype=torch.int32)
@@ -1121,14 +1371,20 @@ def time_kernels(torch, ops, ref, sc, dev, launches, errs) -> list:
     ms = median_ms(torch, lambda: ops.ternary_pack(m_row, out=out), reps=25)
     plain = median_ms(torch, lambda: ref.ternary_pack(m_row), reps=5,
                       warmup=1)
+    # the preset's count wire packs a bf16 m' row: 2 B read, 2 bits written
+    b_row = m_row.to(torch.bfloat16)
+    bf16_row_ms = median_ms(torch, lambda: ops.ternary_pack(b_row, out=out),
+                            reps=25)
+    bf16_row_b, _ = bound(n * 2 + w2 * 4, 2 * n)
     # the trainer's use: one f32 momentum row read, 2 bits written; a
     # compare and a shift per element. The vote API's (4, n) int8 wire
-    # signs ride along as stack_*.
+    # signs ride along as stack_*, the preset's bf16 row as bf16_row_*.
     row("ternary_pack", "src/repro/kernels/ternary_pack.py:61", ms, plain,
         n * 4 + w2 * 4, 2 * n, "ternary_pack.cu", stack_ms=stack_ms,
         stack_bound_ms=stack_b, stack_shape={"rows": M_MAIN,
-                                             "dtype": "int8"})
-    del m_row, out
+                                             "dtype": "int8"},
+        bf16_row_ms=bf16_row_ms, bf16_row_bound_ms=bf16_row_b)
+    del m_row, b_row, out
     packed = torch.randint(-2 ** 31, 2 ** 31, (M_MAIN, w2), generator=gen,
                            device=dev, dtype=torch.int32)
     out = torch.empty(w2, dtype=torch.int32, device=dev)
@@ -1211,6 +1467,11 @@ def main() -> int:
     for codec, leaf in CHECK_LEAF.items():
         for k, v in run_train_path(torch, cfg, dev, codec, leaf).items():
             launches[k] += v
+    # every momentum_sign_pack launch of the preset path is the bf16-m one
+    preset = run_preset_path(torch, cfg, dev)
+    launches["momentum_sign_pack_bf16m"] = preset.pop("momentum_sign_pack")
+    for k, v in preset.items():
+        launches[k] += v
     rows = time_kernels(torch, ops, ref, sc, dev, launches, errs)
     never = [r["name"] for r in rows if not r["launches"]]
     if never:

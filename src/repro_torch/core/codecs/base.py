@@ -11,13 +11,30 @@ decodes it, in three pieces:
 * **the wire** (``supported_strategies`` / ``wire_bits`` / ``ties``) —
   which strategies transport the codec's symbols, at what width and with
   which tie rule;
-* **the Mode A trainer's hooks** (``words_for`` / ``encode_voter_`` /
-  ``begin_step`` / ``vote_`` / ``apply_`` / ``feedback_voters_`` /
-  ``end_step``) — the same three pieces on ``allgather_1bit``'s exchange
-  with M voters stacked on one device, written in place over the
-  momentum, the residual and the parameters. The defaults are
-  ``sign1bit``'s: the signs of m' (``momentum_sign_pack``'s words), the
-  popcount majority and ``apply_vote``.
+* **the Mode A trainer's hooks** (``two_bit`` / ``words_for`` /
+  ``encode_voter_`` / ``begin_step`` / ``vote_`` / ``apply_`` /
+  ``feedback_voters_`` / ``end_step``) — the same three pieces with M
+  voters stacked on one device, written in place over the momentum, the
+  residual and the parameters, on one of two trainer wires that
+  :meth:`GradientCodec.two_bit` picks from the strategy:
+
+  - the 1-bit wire (``allgather_1bit``): the signs of the vote input
+    (``momentum_sign_pack``'s own words when that input is m'), the
+    popcount majority (ties +1) and ``apply_vote``;
+  - the 2-bit wire: the vote input's ``sign_ternary`` symbols packed 16 a
+    word (``ternary_pack``), the ternary majority (``ternary_majority``:
+    the sign of the symbol sum, ties and all-abstain 0) and
+    ``apply_ternary_vote``, which leaves a 0 vote's parameter still.
+    ``ternary2bit`` rides it on every strategy; every codec that the
+    count wire ``psum_int8`` carries rides it there. The reference's
+    ``psum_int8`` sends ``sign_ternary`` of the vote input
+    (``repro.core.vote_api._leaf_execute``), sums the symbols over the
+    voters as int8 counts (int16 above 127 voters) and votes the sign of
+    the count, ties and all-abstain 0 (``vote_engine.PsumInt8Strategy``).
+    The ternary tally compares the count of +1 symbols with the count of
+    -1 symbols, which is the same decision, and its counters have no
+    width limit; so the count wire needs no ``torch.sign`` pass and no
+    int8 sum.
 
 Implementations are stateless singletons; state lives in the caller's
 dictionaries.
@@ -77,19 +94,45 @@ class GradientCodec(abc.ABC):
 
     # ---- Mode A trainer (M voters stacked, in place) ----------------------
 
-    def words_for(self, n: int) -> int:
+    def two_bit(self, strategy: VoteStrategy) -> bool:
+        """Whether the trainer's wire under `strategy` is the 2-bit one
+        (see the module doc): the count wire ``psum_int8``."""
+        return strategy == VoteStrategy.PSUM_INT8
+
+    def words_for(self, n: int, two_bit: bool) -> int:
         """Words of one voter's symbols of an n-coordinate leaf."""
-        return sc.words_for(n)
+        return sc.ternary_words_for(n) if two_bit else sc.words_for(n)
+
+    def vote_input_(self, m: torch.Tensor, error: Optional[torch.Tensor]
+                    ) -> torch.Tensor:
+        """What one voter's symbols are taken of, from its new momentum row
+        `m` (flat) and residual row `error`: m' itself by default."""
+        return m
 
     def encode_voter_(self, g: torch.Tensor, m: torch.Tensor, beta: float,
-                      words: torch.Tensor, error: Optional[torch.Tensor]
-                      ) -> Any:
+                      words: torch.Tensor, error: Optional[torch.Tensor],
+                      two_bit: bool) -> Any:
         """One voter's worker side of one flat leaf: m <- beta*m +
-        (1-beta)*g in place, and the voter's symbols into `words` (its
-        row of the leaf's words). `error` is the voter's residual row
-        (None without worker state). Returns what :meth:`feedback_voters_`
-        needs of this voter."""
-        ops.momentum_sign_pack(g, m, beta, m_out=m, packed_out=words)
+        (1-beta)*g in place, and the voter's symbols of
+        :meth:`vote_input_` into `words` (its row of the leaf's words).
+        `error` is the voter's residual row (None without worker state).
+        Returns what :meth:`feedback_voters_` needs of this voter."""
+        if not two_bit and not self.worker_state:
+            # the vote input is m' (only worker state, the EF residual,
+            # changes it): its 1-bit signs are momentum_sign_pack's words
+            ops.momentum_sign_pack(g, m, beta, m_out=m, packed_out=words)
+            return None
+        ops.momentum_sign_pack(g, m, beta, m_out=m, pack=False)
+        x = self.vote_input_(m, error)
+        if two_bit:
+            ops.ternary_pack(x.view(1, -1), out=words.view(1, -1))
+        else:
+            ops.bitpack(x.view(1, -1), out=words.view(1, -1))
+        return self.sent_(x)
+
+    def sent_(self, x: torch.Tensor) -> Any:
+        """What one voter's encode hands :meth:`feedback_voters_`, from its
+        vote input `x`: nothing by default."""
         return None
 
     def begin_step(self, server_state: Optional[Dict[str, torch.Tensor]]
@@ -97,18 +140,21 @@ class GradientCodec(abc.ABC):
         """The server's decode context for one step, fixed for the step."""
         return None
 
-    def vote_(self, words: torch.Tensor, n: int, ctx: Any) -> torch.Tensor:
+    def vote_(self, words: torch.Tensor, n: int, ctx: Any, two_bit: bool
+              ) -> torch.Tensor:
         """(M, w) words of an n-coordinate leaf -> the packed vote."""
-        return ops.majority(words)
+        return (ops.ternary_majority(words) if two_bit
+                else ops.majority(words))
 
     def apply_(self, p: torch.Tensor, votes: torch.Tensor, eta: float,
-               weight_decay: float) -> None:
+               weight_decay: float, two_bit: bool) -> None:
         """Flat p <- p - eta*(vote + weight_decay*p) in place."""
-        ops.apply_vote(p, votes, eta, weight_decay, out=p)
+        apply = ops.apply_ternary_vote if two_bit else ops.apply_vote
+        apply(p, votes, eta, weight_decay, out=p)
 
     def feedback_voters_(self, votes: torch.Tensor,
-                         error: Optional[torch.Tensor], sent: List[Any]
-                         ) -> None:
+                         error: Optional[torch.Tensor], sent: List[Any],
+                         two_bit: bool) -> None:
         """After the vote: the (M, n) residual of the leaf from the packed
         `votes` and each voter's :meth:`encode_voter_` result."""
 

@@ -33,22 +33,27 @@ SCALE_CHUNK = 1 << 26
 
 
 def scale_of(t: torch.Tensor) -> torch.Tensor:
-    """mean|t| as a 0-d float32 tensor: the 1-bit symbol carries no
+    """mean|t| as a 0-d tensor of t's dtype: the 1-bit symbol carries no
     magnitude, so the residual prices the vote at the tensor's own mean
-    amplitude. |t| is summed a chunk at a time, so no temporary as large
+    amplitude. As the reference's ``jnp.mean``, |t| is summed in float32,
+    divided by the count in float32 and rounded to t's dtype (bf16 for
+    bf16 momentum, so ``scale * vote`` and the feedback then round in
+    bf16 too). |t| is summed a chunk at a time, so no temporary as large
     as t is made. (``torch.linalg.vector_norm(t, 1)`` would make none at
     all, but on the CPU it sums in an order that loses ~1e-4 of the value
     on a 65,536-element leaf.)"""
     flat = t.reshape(-1)
-    total = sum(c.abs().sum() for c in flat.split(SCALE_CHUNK))
-    return total / flat.numel()
+    total = sum(c.abs().sum(dtype=torch.float32)
+                for c in flat.split(SCALE_CHUNK))
+    return (total / flat.numel()).to(t.dtype)
 
 
 def feedback_(t: torch.Tensor, vote: torch.Tensor,
               scale: torch.Tensor) -> torch.Tensor:
     """t <- t - scale * vote in place, with no temporary when `vote`
-    already has t's dtype (vote ±1/0: the product is exact, so there is
-    one rounding, as in the reference)."""
+    already has t's dtype (vote ±1/0 and scale of t's dtype: the product
+    is exact, so there is one rounding to t's dtype, as in the
+    reference)."""
     return t.addcmul_(vote.to(t.dtype), scale, value=-1.0)
 
 
@@ -73,22 +78,22 @@ class EFSignCodec(GradientCodec):
                       state: Optional[torch.Tensor]) -> torch.Tensor:
         return feedback_(encoded.clone(), vote, scale_of(encoded))
 
-    def encode_voter_(self, g: torch.Tensor, m: torch.Tensor, beta: float,
-                      words: torch.Tensor, error: Optional[torch.Tensor]
-                      ) -> torch.Tensor:
-        """m' in place (no sign words: the wire carries t's), t = e + m'
-        into the residual row, the signs of t into `words`; returns the
-        voter's mean|t|."""
-        ops.momentum_sign_pack(g, m, beta, m_out=m, pack=False)
-        t = encode_(error, m)
-        ops.bitpack(t.view(1, -1), out=words.view(1, -1))
-        return scale_of(t)
+    def vote_input_(self, m: torch.Tensor, error: Optional[torch.Tensor]
+                    ) -> torch.Tensor:
+        """t = e + m' into the residual row, in place."""
+        return encode_(error, m)
+
+    def sent_(self, x: torch.Tensor) -> torch.Tensor:
+        """The voter's mean|t|."""
+        return scale_of(x)
 
     def feedback_voters_(self, votes: torch.Tensor,
                          error: Optional[torch.Tensor],
-                         sent: List[torch.Tensor]) -> None:
-        """e_r <- t_r - scale_r * vote for every voter r, the ±1 vote
-        unpacked once in float32."""
-        vote = ops.bitunpack(votes, error.shape[1], torch.float32)
+                         sent: List[torch.Tensor], two_bit: bool) -> None:
+        """e_r <- t_r - scale_r * vote for every voter r, the vote (±1, or
+        ±1/0 on the 2-bit wire) decoded once in the residual's dtype."""
+        n = error.shape[1]
+        vote = (ops.ternary_unpack(votes, n).to(error.dtype) if two_bit
+                else ops.bitunpack(votes, n, error.dtype))
         for r, scale in enumerate(sent):
             feedback_(error[r], vote, scale)

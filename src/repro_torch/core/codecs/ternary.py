@@ -12,12 +12,9 @@ rebroadcast would binarise the decision. Stateless on both sides.
 """
 from __future__ import annotations
 
-from typing import Optional
-
 import torch
 
 from repro_torch.configs.base import VoteStrategy
-from repro_torch.core import sign_compress as sc
 from repro_torch.core.codecs.base import GradientCodec
 from repro_torch.kernels import ops
 
@@ -67,23 +64,7 @@ class Ternary2BitCodec(GradientCodec):
     def ties(self, strategy: VoteStrategy) -> str:
         return "zero"   # ternary symbols carry abstention on every wire
 
-    # the trainer: 2-bit words, the ternary tally and apply, so an
-    # abstaining coordinate stays where it is
-
-    def words_for(self, n: int) -> int:
-        return sc.ternary_words_for(n)
-
-    def encode_voter_(self, g: torch.Tensor, m: torch.Tensor, beta: float,
-                      words: torch.Tensor, error: Optional[torch.Tensor]
-                      ) -> None:
-        """m' in place (no 1-bit words), then its 2-bit ternary symbols
-        into `words`."""
-        ops.momentum_sign_pack(g, m, beta, m_out=m, pack=False)
-        ops.ternary_pack(m.view(1, -1), out=words.view(1, -1))
-
-    def vote_(self, words: torch.Tensor, n: int, ctx) -> torch.Tensor:
-        return ops.ternary_majority(words)
-
-    def apply_(self, p: torch.Tensor, votes: torch.Tensor, eta: float,
-               weight_decay: float) -> None:
-        ops.apply_ternary_vote(p, votes, eta, weight_decay, out=p)
+    def two_bit(self, strategy: VoteStrategy) -> bool:
+        # the trainer: 2-bit words, the ternary tally and apply on every
+        # wire, so an abstaining coordinate stays where it is
+        return True

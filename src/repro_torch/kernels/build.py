@@ -30,8 +30,9 @@ _P, _I, _I64, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 #: C signatures of the entry points, by source file
 SIGNATURES = {
     "signum_update": {
-        "momentum_sign_pack_f32": (_P, _P, _P, _P, _I64, _F, _F, _P),
-        "momentum_sign_pack_bf16": (_P, _P, _P, _P, _I64, _F, _F, _P),
+        # g float32 / bf16 with float32 momentum, then with bf16 momentum
+        **{f"momentum_sign_pack_{g}{m}": (_P, _P, _P, _P, _I64, _F, _F, _P)
+           for g in ("f32", "bf16") for m in ("", "_mbf16")},
         "apply_vote_f32": (_P, _P, _P, _I64, _F, _F, _P),
         "apply_vote_bf16": (_P, _P, _P, _I64, _F, _F, _P),
         "apply_ternary_vote_f32": (_P, _P, _P, _I64, _F, _F, _P),

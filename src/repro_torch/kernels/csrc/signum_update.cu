@@ -14,8 +14,10 @@
 // passes with a handful of float32 operations per element, so
 // device-memory bytes bound them, never arithmetic.
 //   momentum_sign_pack moves 10.125 B per element for a bf16 gradient
-//     (g read 2, m read 4, m' written 4, one packed bit 1/8);
-//     on the 620,756,992-element glm4-9b unembedding: 6.29 GB, 1.88 ms.
+//     and float32 momentum (g read 2, m read 4, m' written 4, one packed
+//     bit 1/8); on the 620,756,992-element glm4-9b unembedding: 6.29 GB,
+//     1.88 ms. With bf16 momentum (the glm4-9b preset's) 6.125 B: 3.80 GB,
+//     1.135 ms; 6 B without the words (the count wire's encode): 1.112 ms.
 //   apply_vote moves 4.125 B per element for bf16 parameters
 //     (p read 2 and written 2, one vote bit 1/8): 2.56 GB, 0.764 ms;
 //     8.125 B for float32 parameters: 5.04 GB, 1.51 ms.
@@ -65,7 +67,11 @@
 // expression into an FMA, which would move m' by an ulp and could flip a
 // sign bit near zero; with them the kernels are bit-equal to the plain
 // versions. beta and 1 - beta arrive as float32 computed on the host in
-// double (as JAX folds the Python constant); eta and lambda are runtime
+// double (as JAX folds the Python constant); for bf16 momentum the wrapper
+// also rounds them to bf16, since JAX computes `beta * m` of a bf16 m in
+// bf16 with the constant rounded to bf16 (0.9 -> 0.8984375) and rounds
+// after each operation: one rounding of the float32 expression differs
+// from it on about a third of the elements. eta and lambda are runtime
 // arguments, so a learning-rate schedule never rebuilds the kernel.
 //
 // Each entry point launches on the caller's stream and returns
@@ -105,21 +111,49 @@ template <> __device__ __forceinline__ __nv_bfloat16
 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
 }
+// x rounded to the nearest bf16 (ties to even), as a float32
+__device__ __forceinline__ float bf16_rn(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// The momentum update of one element, in M's own type, as the reference
+// rounds it. float32 m: m' = b*m + c*g, each product and the sum rounded
+// on their own. bf16 m: JAX rounds the weakly typed constants to bf16
+// (b and c arrive already rounded), rounds g to bf16, rounds each product
+// to bf16 and then the float32 sum of the two; both products are exact in
+// float32 (bf16 x bf16), so __fmul_rn only keeps nvcc from fusing them
+// into the add.
+template <typename Mt> struct Momentum;
+template <> struct Momentum<float> {
+  static __device__ __forceinline__ float step(float b, float m, float c,
+                                               float g) {
+    return __fadd_rn(__fmul_rn(b, m), __fmul_rn(c, g));
+  }
+};
+template <> struct Momentum<__nv_bfloat16> {
+  static __device__ __forceinline__ __nv_bfloat16 step(float b, float m,
+                                                       float c, float g) {
+    const float gb = bf16_rn(g);
+    return __float2bfloat16_rn(
+        __fadd_rn(bf16_rn(__fmul_rn(b, m)), bf16_rn(__fmul_rn(c, gb))));
+  }
+};
 
 // m_out may alias m: each thread reads its element before writing it.
-// A null `packed` (the same for every thread) writes m' only.
-template <typename G>
+// A null `packed` (the same for every thread) writes m' only. The sign bit
+// is taken of m' as stored (a bf16 -0.0 counts as +).
+template <typename G, typename Mt>
 __global__ void momentum_sign_pack_kernel(const G* __restrict__ g,
-                                          const float* m, float* m_out,
+                                          const Mt* m, Mt* m_out,
                                           uint32_t* __restrict__ packed,
                                           int64_t n, int64_t w, float b,
                                           float c) {
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   bool nonneg = true;
   if (i < n) {
-    const float mi = __fadd_rn(__fmul_rn(b, m[i]), __fmul_rn(c, to_f32(g[i])));
+    const Mt mi = Momentum<Mt>::step(b, to_f32(m[i]), c, to_f32(g[i]));
     m_out[i] = mi;
-    nonneg = mi >= 0.0f;
+    nonneg = to_f32(mi) >= 0.0f;
   }
   if (packed == nullptr) return;
   // every lane of the warp takes part: the grid covers whole warps
@@ -274,15 +308,15 @@ unsigned blocks_for(int64_t threads) {
   return (unsigned)((threads + kThreads - 1) / kThreads);
 }
 
-template <typename G>
+template <typename G, typename Mt>
 int launch_msp(const void* g, const void* m, void* m_out, void* packed,
                int64_t n, float b, float c, void* stream) {
   const int64_t w = (n + 31) / 32;
   if (n > 0) {
-    momentum_sign_pack_kernel<G>
+    momentum_sign_pack_kernel<G, Mt>
         <<<blocks_for(w * 32), kThreads, 0, (cudaStream_t)stream>>>(
-            (const G*)g, (const float*)m, (float*)m_out, (uint32_t*)packed,
-            n, w, b, c);
+            (const G*)g, (const Mt*)m, (Mt*)m_out, (uint32_t*)packed, n, w,
+            b, c);
   }
   return (int)cudaGetLastError();
 }
@@ -309,13 +343,30 @@ extern "C" {
 int momentum_sign_pack_f32(const void* g, const void* m, void* m_out,
                            void* packed, int64_t n, float b, float c,
                            void* stream) {
-  return launch_msp<float>(g, m, m_out, packed, n, b, c, stream);
+  return launch_msp<float, float>(g, m, m_out, packed, n, b, c, stream);
 }
 
 int momentum_sign_pack_bf16(const void* g, const void* m, void* m_out,
                             void* packed, int64_t n, float b, float c,
                             void* stream) {
-  return launch_msp<__nv_bfloat16>(g, m, m_out, packed, n, b, c, stream);
+  return launch_msp<__nv_bfloat16, float>(g, m, m_out, packed, n, b, c,
+                                          stream);
+}
+
+// bf16 momentum: b and c must be bf16 values already (the wrapper rounds
+// them as JAX rounds its weakly typed constants)
+int momentum_sign_pack_f32_mbf16(const void* g, const void* m, void* m_out,
+                                 void* packed, int64_t n, float b, float c,
+                                 void* stream) {
+  return launch_msp<float, __nv_bfloat16>(g, m, m_out, packed, n, b, c,
+                                          stream);
+}
+
+int momentum_sign_pack_bf16_mbf16(const void* g, const void* m, void* m_out,
+                                  void* packed, int64_t n, float b, float c,
+                                  void* stream) {
+  return launch_msp<__nv_bfloat16, __nv_bfloat16>(g, m, m_out, packed, n, b,
+                                                  c, stream);
 }
 
 int apply_vote_f32(const void* p, const void* v, void* out, int64_t n,

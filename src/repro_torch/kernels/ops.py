@@ -15,8 +15,9 @@ The ternary wire's words hold 16 two-bit fields (field j of word k is
 element 16k + j); its padding fields are ``0b00``, an abstention.
 
 ``launch_counts()`` reports, under the reference's names, how many times
-each kernel was launched on a card since ``reset_launch_counts()``; CPU
-calls do not count.
+each kernel was launched on a card since ``reset_launch_counts()`` (both
+momentum dtypes of ``momentum_sign_pack`` under its one name); CPU calls
+do not count.
 """
 from __future__ import annotations
 
@@ -84,23 +85,24 @@ def momentum_sign_pack(g: torch.Tensor, m: torch.Tensor, beta: float, *,
                        packed_out: Optional[torch.Tensor] = None,
                        pack: bool = True
                        ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """Flat g (n,) f32/bf16 and m (n,) f32 -> (m' (n,) f32, packed
-    (ceil(n/32),) int32) with m' = beta*m + (1-beta)*g.
+    """Flat g (n,) f32/bf16 and m (n,) f32/bf16 -> (m' (n,) in m's dtype,
+    packed (ceil(n/32),) int32) with m' = beta*m + (1-beta)*g, rounded as
+    the reference rounds it in m's dtype (``ref.momentum_sign_pack``).
 
-    `m_out` (may be `m` itself, for an in-place update) and `packed_out`
-    receive the results when given. With ``pack=False`` (for a codec whose
-    wire is not the signs of m') no words are written and the second
-    result is None."""
+    `m_out` (m's dtype; may be `m` itself, for an in-place update) and
+    `packed_out` receive the results when given. With ``pack=False`` (for
+    a codec whose wire is not the 1-bit signs of m') no words are written
+    and the second result is None."""
     dev = g.device
     _check(g, "g", ndim=1, dtypes=_SUFFIX, device=dev)
-    _check(m, "m", ndim=1, dtypes=(torch.float32,), device=dev)
+    _check(m, "m", ndim=1, dtypes=_SUFFIX, device=dev)
     n = g.shape[0]
     if m.shape[0] != n:
         raise ValueError(f"g and m lengths differ: {n} vs {m.shape[0]}")
     w = sc.words_for(n)
     if m_out is None:
         m_out = torch.empty_like(m)
-    _check(m_out, "m_out", ndim=1, dtypes=(torch.float32,), device=dev)
+    _check(m_out, "m_out", ndim=1, dtypes=(m.dtype,), device=dev)
     if m_out.shape[0] != n:
         raise ValueError(f"m_out must be ({n},), got {tuple(m_out.shape)}")
     if not pack:
@@ -120,13 +122,14 @@ def momentum_sign_pack(g: torch.Tensor, m: torch.Tensor, beta: float, *,
         if pack:
             packed_out.copy_(packed)
         return m_out, packed_out
-    # ctypes rounds each double to float32; 1 - beta is folded in double
-    # first, as the plain version (and JAX) fold the Python constant. A
-    # null packed pointer makes the kernel write m' only.
-    _launch("signum_update", f"momentum_sign_pack_{_SUFFIX[g.dtype]}",
+    # ctypes passes each constant as float32 (bf16-exact for bf16 m, see
+    # ref.momentum_constants). A null packed pointer makes the kernel write
+    # m' only.
+    b, c = ref.momentum_constants(beta, m.dtype)
+    mom = "" if m.dtype == torch.float32 else "_mbf16"
+    _launch("signum_update", f"momentum_sign_pack_{_SUFFIX[g.dtype]}{mom}",
             g.data_ptr(), m.data_ptr(), m_out.data_ptr(),
-            packed_out.data_ptr() if pack else None, n, float(beta),
-            1.0 - float(beta), _stream(g))
+            packed_out.data_ptr() if pack else None, n, b, c, _stream(g))
     _COUNTS["momentum_sign_pack"] += 1
     return m_out, packed_out
 

@@ -17,11 +17,32 @@ import torch
 from repro_torch.core import sign_compress as sc
 
 
+def momentum_constants(beta: float, dtype: torch.dtype) -> tuple[float, float]:
+    """(beta, 1 - beta) as the reference computes ``beta * m + (1 - beta) *
+    g`` for momentum of `dtype`: 1 - beta folded in double, both rounded to
+    float32 and, for bf16 momentum, on to bf16 (JAX's weakly typed Python
+    constants take the array's type: 0.9 -> 0.8984375)."""
+    consts = torch.tensor([beta, 1.0 - beta], dtype=torch.float32)
+    return tuple(consts.to(dtype).tolist())
+
+
 def momentum_sign_pack(g: torch.Tensor, m: torch.Tensor, beta: float
                        ) -> tuple[torch.Tensor, torch.Tensor]:
-    """SIGNUM worker-side hot loop: m' = beta*m + (1-beta)*g;
-    packed = pack(m' >= 0). g/m (..., 32*w). Returns (m', packed)."""
-    m_new = beta * m + (1.0 - beta) * g.to(m.dtype)
+    """SIGNUM worker-side hot loop: m' = beta*m + (1-beta)*g in m's dtype;
+    packed = pack(m' >= 0). g/m (..., 32*w). Returns (m', packed).
+
+    float32 m: each product and the sum rounded to float32. bf16 m: g
+    rounded to bf16, the constants too (:func:`momentum_constants`), each
+    product and the sum rounded to bf16 on its own, as JAX rounds a bf16
+    expression (one rounding of the float32 expression differs from it on
+    about a third of the elements)."""
+    b, c = momentum_constants(beta, m.dtype)
+    if m.dtype == torch.float32:
+        m_new = b * m + c * g.to(m.dtype)
+    else:
+        bt = torch.tensor(b, dtype=m.dtype, device=m.device)
+        ct = torch.tensor(c, dtype=m.dtype, device=m.device)
+        m_new = torch.add(torch.mul(bt, m), torch.mul(ct, g.to(m.dtype)))
     return m_new, sc.pack_signs(m_new)
 
 

@@ -2,8 +2,8 @@
 
   init_params(cfg, generator, device)   -> flat param dict (stacked layout)
   params_from_numpy(arrays, device)     -> the same dict from numpy arrays
-  forward_logits(cfg, params, batch)    -> ((B, S, V) logits, aux loss)
-  loss_fn(cfg, params, batch)           -> (scalar loss, metrics dict)
+  forward_logits(cfg, params, batch, remat=...) -> ((B, S, V) logits, aux)
+  loss_fn(cfg, params, batch, remat=...)        -> (scalar loss, metrics)
 
 Parameters are a flat ``dict[str, Tensor]`` under the JAX package's names
 and in its stacked layout (``layers.attn_wq`` is ``(L, d, H*hd)``), so
@@ -92,21 +92,22 @@ def params_from_numpy(arrays: Mapping[str, Any], device: DeviceLike = None
 
 
 def forward_logits(cfg: ModelConfig, params: Dict[str, torch.Tensor],
-                   batch: Dict[str, torch.Tensor]
+                   batch: Dict[str, torch.Tensor], remat: str = "none"
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (logits (B,S,V) in the parameter dtype, aux_loss scalar)."""
+    """Returns (logits (B,S,V) in the parameter dtype, aux_loss scalar);
+    `remat` checkpoints each decoder block (``transformer.maybe_remat``)."""
     _require_dense(cfg)
     h = L.embed_tokens(params["embed.table"], batch["tokens"])
-    h, aux = transformer.decoder_stack(params, h, cfg)
+    h, aux = transformer.decoder_stack(params, h, cfg, remat=remat)
     h = L.rms_norm(h, params["final_norm.scale"], cfg.norm_eps)
     table = params.get("unembed.table", params["embed.table"])
     return h @ table.T, aux
 
 
 def loss_fn(cfg: ModelConfig, params: Dict[str, torch.Tensor],
-            batch: Dict[str, torch.Tensor]
+            batch: Dict[str, torch.Tensor], remat: str = "none"
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    logits, aux = forward_logits(cfg, params, batch)
+    logits, aux = forward_logits(cfg, params, batch, remat=remat)
     tokens = batch["tokens"]
     ce = L.cross_entropy_loss(logits[:, :-1], tokens[:, 1:])
     return ce + aux, {"ce": ce, "aux": aux}

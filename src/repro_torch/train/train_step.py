@@ -5,35 +5,45 @@ with M voters stacked on one device.
     params, opt_state = materialize_state(cfg, tcfg, art, generator)
     params, opt_state, metrics = art.step_fn(params, opt_state, batch, step)
 
+``tcfg`` may be the reference's preset, ``configs.presets.default_train_
+config(arch, cell)``: for glm4-9b bf16 momentum on ``psum_int8``, 8
+microbatches and ``remat="full"``.
+
 One step:
 
 1. for each voter r, on rows ``[r*B/M, (r+1)*B/M)`` of the global batch
-   (the rows ``SyntheticLMPipeline.replica_batch`` gives replica r):
-   the loss, ``torch.autograd.grad`` over every leaf, then per leaf the
-   momentum + sign + pack kernel, which updates voter r's momentum row in
-   place and writes its words into row r of the leaf's (M, w) buffer (the
-   codec's encode: ``core.signum``); the gradients are freed before the
-   next voter;
-2. per leaf, the majority kernel and the vote-apply kernel, updating the
+   (the rows ``SyntheticLMPipeline.replica_batch`` gives replica r), cut
+   into ``microbatches`` equal chunks: per chunk the loss (each decoder
+   block checkpointed under ``remat``) and ``torch.autograd.grad`` over
+   every leaf; with more than one chunk the gradients accumulate as the
+   reference's ``acc_body`` scan has them (a bf16 accumulator from zeros,
+   ``acc + g.to(bf16)`` chunk by chunk, then ``acc / microbatches``: only
+   the sign of the sum survives), one leaf-sized buffer per leaf. Then per
+   leaf the codec's encode (momentum + sign + pack kernels:
+   ``core.signum``), which updates voter r's momentum row in place and
+   writes its words into row r of the leaf's (M, w) buffer; the gradients
+   are freed before the next voter;
+2. per leaf, the tally kernel and the vote-apply kernel, updating the
    parameters in place, and the codec's feedback.
 
-``metrics["loss"]`` is the mean of the voters' losses. Unlike the JAX
-step, which returns new arrays, this one updates `params` and `opt_state`
-in place (and returns them): at full glm4-9b width that saves a second
-copy of the 26 GB momentum. At M = 1 it is the reference's
-``make_train_step(cfg, tcfg, mesh=None)`` step.
+``metrics["loss"]`` (and ``"ce"``, ``"aux"``) is the mean over the voters
+of each voter's mean over its chunks. Unlike the JAX step, which returns
+new arrays, this one updates `params` and `opt_state` in place (and
+returns them): at full glm4-9b width that saves a second copy of the
+momentum. At M = 1 it is the reference's ``make_train_step(cfg, tcfg,
+mesh=None)`` step.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch import DeviceLike, resolve_device
-from repro_torch.configs.base import ModelConfig, TrainConfig
+from repro_torch.configs.base import ModelConfig, TrainConfig, VoteStrategy
 from repro_torch.core import signum
-from repro_torch.models import model as M
+from repro_torch.models import model as M, transformer
 
 
 @dataclasses.dataclass
@@ -45,6 +55,8 @@ class StepArtifacts:
     optimizer: signum.Optimizer
     device: torch.device
     codec: str = "sign1bit"
+    #: resolved (never AUTO), as the reference's ``StepArtifacts`` has it
+    vote_strategy: Optional[VoteStrategy] = None
 
 
 def _validate(tcfg: TrainConfig, n_voters: int) -> None:
@@ -52,9 +64,7 @@ def _validate(tcfg: TrainConfig, n_voters: int) -> None:
         raise NotImplementedError(
             f"{what} is not ported yet (ROADMAP.md Queue 4 item 4: "
             "trainer options of the launcher)")
-    if tcfg.microbatches != 1:
-        todo(f"microbatches={tcfg.microbatches}")
-    if tcfg.remat != "none":
+    if tcfg.remat not in transformer.REMAT_MODES:
         todo(f"remat={tcfg.remat!r}")
     if tcfg.fsdp:
         todo("fsdp=True")
@@ -69,6 +79,50 @@ def _validate(tcfg: TrainConfig, n_voters: int) -> None:
     if n_voters < 1 or tcfg.global_batch % n_voters:
         raise ValueError(f"global_batch {tcfg.global_batch} must split "
                          f"evenly over n_voters={n_voters}")
+    if tcfg.microbatches < 1 or (tcfg.global_batch // n_voters
+                                 ) % tcfg.microbatches:
+        raise ValueError(f"each voter's {tcfg.global_batch // n_voters} "
+                         f"rows must split evenly into microbatches="
+                         f"{tcfg.microbatches}")
+
+
+def accumulate_(acc: Optional[List[torch.Tensor]],
+                grads: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """One microbatch of the reference's ``acc_body``: ``acc + g.to(bf16)``
+    in place, each leaf rounded to bf16 (from bf16 zeros when `acc` is
+    None)."""
+    if acc is None:
+        acc = [torch.zeros_like(g, dtype=torch.bfloat16) for g in grads]
+    for a, g in zip(acc, grads):
+        a.add_(g.to(torch.bfloat16))
+    return acc
+
+
+def voter_grads(cfg: ModelConfig, tcfg: TrainConfig,
+                params: Dict[str, torch.Tensor], tokens: torch.Tensor
+                ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+    """One voter's gradients of every leaf on its rows `tokens` and its
+    metrics (``loss``, ``ce``, ``aux``): one ``autograd.grad`` per
+    microbatch, accumulated as the reference does (see the module doc)."""
+    micro = tcfg.microbatches
+    rows = tokens.shape[0] // micro
+    acc, mets = None, []
+    for i in range(micro):
+        leaves = {k: p.detach().requires_grad_() for k, p in params.items()}
+        loss, met = M.loss_fn(cfg, leaves,
+                              {"tokens": tokens[i * rows:(i + 1) * rows]},
+                              remat=tcfg.remat)
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        del leaves
+        acc = list(grads) if micro == 1 else accumulate_(acc, grads)
+        del grads
+        mets.append({"loss": loss.detach(), "ce": met["ce"].detach(),
+                     "aux": met["aux"].detach()})
+    if micro > 1:
+        for a in acc:
+            a.div_(micro)
+    return (dict(zip(params, acc)),
+            {k: torch.stack([m[k] for m in mets]).mean() for k in mets[0]})
 
 
 def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, n_voters: int = 1,
@@ -88,25 +142,21 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, n_voters: int = 1,
             raise ValueError(f"batch has {tokens.shape[0]} rows, expected "
                              f"global_batch={tcfg.global_batch}")
         wire = opt.wire(params)
-        losses, ces, auxes = [], [], []
+        voters = []
         for r in range(n_voters):
-            leaves = {k: p.detach().requires_grad_() for k, p in params.items()}
-            loss, met = M.loss_fn(cfg, leaves,
-                                  {"tokens": tokens[r * per:(r + 1) * per]})
-            grads = torch.autograd.grad(loss, list(leaves.values()))
-            opt.encode(r, dict(zip(leaves, grads)), opt_state, wire)
-            del grads, leaves
-            losses.append(loss.detach())
-            ces.append(met["ce"].detach())
-            auxes.append(met["aux"].detach())
+            grads, met = voter_grads(cfg, tcfg, params,
+                                     tokens[r * per:(r + 1) * per])
+            opt.encode(r, grads, opt_state, wire)
+            del grads
+            voters.append(met)
         opt.update(wire, opt_state, params, int(step))
-        metrics = {"ce": torch.stack(ces).mean(),
-                   "aux": torch.stack(auxes).mean(),
-                   "loss": torch.stack(losses).mean()}
+        metrics = {k: torch.stack([v[k] for v in voters]).mean()
+                   for k in ("ce", "aux", "loss")}
         return params, opt_state, metrics
 
     return StepArtifacts(step_fn=step_fn, optimizer=opt, device=dev,
-                         codec=tcfg.optimizer.resolved_codec)
+                         codec=tcfg.optimizer.resolved_codec,
+                         vote_strategy=opt.strategy)
 
 
 def materialize_state(cfg: ModelConfig, tcfg: TrainConfig,
@@ -114,9 +164,10 @@ def materialize_state(cfg: ModelConfig, tcfg: TrainConfig,
                       device: DeviceLike = None) -> Tuple[Any, Any]:
     """Concrete (params, opt_state) on the step's device: parameters drawn
     from `generator` by the reference's init rules, zero momentum
-    ``(M, *leaf_shape)`` float32, and the codec's state as the reference
-    lays it out (``train_step.py:375-390``): a zero ``"error"`` residual
-    shaped like the momentum for ``ef_sign``, ``"codec": {"flip_ema":
+    ``(M, *leaf_shape)`` in ``momentum_dtype``, and the codec's state as
+    the reference lays it out (``train_step.py:375-390``): a zero
+    ``"error"`` residual shaped and typed like the momentum for
+    ``ef_sign``, ``"codec": {"flip_ema":
     (M,) float32 zeros}`` for ``weighted_vote``."""
     dev = art.device if device is None else resolve_device(device)
     if dev != art.device:

@@ -67,6 +67,68 @@ def test_momentum_sign_pack_matches_jax(n, gdtype, beta):
                                rtol=1e-6, atol=1e-6)
 
 
+#: beta of the bf16-momentum checks: the last one's float32 value lies
+#: exactly half-way between two bf16 values (0.5 and 0.50390625), so it
+#: rounds to even (0.5) and not as the double would
+BF16_BETAS = [0.9, 0.99, 0.5 + 2 ** -9 + 2 ** -31]
+
+
+@pytest.mark.parametrize("beta", BF16_BETAS)
+@pytest.mark.parametrize("gdtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n", SIZES)
+def test_momentum_sign_pack_bf16_momentum_matches_jax(n, gdtype, beta):
+    """bf16 momentum (the glm4-9b preset's): m' and the words bit-equal to
+    the Pallas kernel in interpret mode and to the reference trainer's jnp
+    expression ``beta * m + (1 - beta) * g.astype(bf16)``, which rounds
+    the constants and every operation to bf16. Planted +0.0 / -0.0 in g
+    and m make m' = +0.0 and -0.0, both bit +1. Tolerance: none."""
+    rng = _rng(n, gdtype == "float32", BF16_BETAS.index(beta))
+    g = rng.normal(size=n).astype(np.float32)
+    m = (rng.normal(size=n) * 0.3).astype(np.float32)
+    g[::7], m[::7] = 0.0, 0.0
+    g[3::7], m[3::7] = -0.0, -0.0
+    g[5::11], m[5::11] = -0.0, 0.0
+    m = _bf16_exact(m)
+    if gdtype == "bfloat16":
+        g = _bf16_exact(g)
+    jg = jnp.asarray(g).astype(gdtype)
+    jm = jnp.asarray(m).astype(jnp.bfloat16)
+    jm_new, jpacked = jops.momentum_sign_pack(jg, jm, beta)
+    expr = beta * jm + (1 - beta) * jg.astype(jnp.bfloat16)
+    tg = torch.from_numpy(g).to(getattr(torch, gdtype))
+    tm = torch.from_numpy(m).to(torch.bfloat16)
+    tm_new, tpacked = tops.momentum_sign_pack(tg, tm, beta)
+    assert tm_new.dtype == torch.bfloat16 and jm_new.dtype == jnp.bfloat16
+    got = tm_new.view(torch.int16).numpy()
+    np.testing.assert_array_equal(got, np.asarray(jm_new).view(np.int16))
+    np.testing.assert_array_equal(got, np.asarray(expr).view(np.int16))
+    np.testing.assert_array_equal(_words(tpacked), np.asarray(jpacked))
+    np.testing.assert_array_equal(
+        _words(tpacked), np.asarray(jsc.pack_signs(jnp.pad(
+            expr, (0, (-n) % 32)))))
+    # in place, with and without the words: the same m'
+    tm2 = torch.from_numpy(m).to(torch.bfloat16)
+    same, words = tops.momentum_sign_pack(tg, tm2, beta, m_out=tm2,
+                                          pack=False)
+    assert words is None and same.data_ptr() == tm2.data_ptr()
+    np.testing.assert_array_equal(tm2.view(torch.int16).numpy(), got)
+
+
+def test_momentum_constants_round_as_jax():
+    """The constants of ``beta * m + (1 - beta) * g``: float32 for float32
+    momentum, then bf16 for bf16 momentum, 1 - beta folded in double; the
+    half-way beta rounds to even in float32 first."""
+    assert tref.momentum_constants(0.9, torch.bfloat16) == (0.8984375,
+                                                           0.10009765625)
+    assert tref.momentum_constants(0.9, torch.float32) == (
+        float(np.float32(0.9)), float(np.float32(1.0 - 0.9)))
+    assert tref.momentum_constants(BF16_BETAS[2], torch.bfloat16)[0] == 0.5
+    one = jnp.ones((), jnp.bfloat16)
+    for beta in BF16_BETAS:   # the weakly typed constants times a bf16 1
+        assert tref.momentum_constants(beta, torch.bfloat16) == (
+            float(beta * one), float((1 - beta) * one))
+
+
 #: the tallies' wider sweep: voter counts across the plane counts of the
 #: card's bit-sliced counter (M < 256) and its kernel for any M, at word
 #: counts of each remainder mod 4 (all within one 512-word Pallas block)
@@ -302,8 +364,8 @@ def test_wrappers_reject_bad_inputs(case):
     with pytest.raises((ValueError, TypeError)):
         if case == "g_2d":
             tops.momentum_sign_pack(g.reshape(2, 32), m, 0.9)
-        elif case == "m_bf16":
-            tops.momentum_sign_pack(g, m.to(torch.bfloat16), 0.9)
+        elif case == "m_bf16":   # m' must come out in m's dtype
+            tops.momentum_sign_pack(g, m.to(torch.bfloat16), 0.9, m_out=m)
         elif case == "len":
             tops.momentum_sign_pack(g, torch.zeros(65), 0.9)
         elif case == "msp_words_unwanted":
