@@ -34,10 +34,17 @@ Phases, each of which fails the run (non-zero exit) on any disagreement:
    bf16 momentum (the preset's instantiation) takes g float32 and bf16 at
    every n of SIZES, beta in {0.9, 0.99, 0.5 + 2^-9 + 2^-31}, planted +0.0
    and -0.0 in g and m, a new m' with the words and m' in place with and
-   without them (m' compared bit for bit, -0.0 apart from +0.0). Packed
-   words, signs, momentum and parameters must be bit-equal: 1,002 checks on
-   an H100. ef_sign's float32 mean|t| over ten 2^26-element chunks must be
-   within 1e-5 of a float64 sum;
+   without them (m' compared bit for bit, -0.0 apart from +0.0). The float
+   payloads of every float-reading kernel carry planted float32 / bf16
+   subnormals (SUBNORMALS), the momenta SUBNORMAL_MOMENTA beside g = 0
+   (beta * m a subnormal operand or result), the applies subnormal
+   parameters and eta = 0 (p - 0 flushes them): the kernels, built with
+   -ftz=true, must read and write them as zeros as the plain versions do.
+   Packed words, signs, momentum and parameters must be bit-equal. Before
+   the checks, every float32 compare and operation (FSETP, FMUL, FADD,
+   FFMA) in the five libraries' SASS (cuobjdump -sass) must carry .FTZ.
+   ef_sign's float32 mean|t| over ten 2^26-element chunks must be within
+   1e-5 of a float64 sum;
 3. the training path: Algorithm 1 on glm4-9b at every published width,
    cut to 2 layers (1,649,439,744 parameters), M = 4 voters, global batch
    8, seq 512, for 5 steps through ``make_train_step`` ->
@@ -137,6 +144,16 @@ TALLY_VIEW_VOTERS = (4, 7, 33, 100)
 #: an eighth of it
 TALLY_TIMED = ((32, 1), (64, 1), (128, 1), (255, 2), (1000, 8))
 M_MAIN, GLOBAL_BATCH, SEQ, STEPS, LR, BETA = 4, 8, 512, 5, 1e-3, 0.9
+#: planted in the float payloads of phase 2: float32 subnormals (the
+#: largest, 1e-39, and the smallest, 1.4e-45) of both signs, which the
+#: kernels (built with -ftz=true) and the plain versions read as zeros
+SUBNORMALS = (1e-39, -1e-39, 1.4e-45, -1.4e-45)
+#: momenta planted beside g = 0: subnormal ones (an operand flushed), and
+#: normal ones whose product with beta underflows (a result flushed)
+SUBNORMAL_MOMENTA = (1e-38, -1e-38, 1.2e-38, -1.2e-38)
+#: the apply checks' (eta, weight decay); eta = 0 leaves p - 0, which
+#: flushes a subnormal p
+APPLY_RATES = ((1e-3, 0.0), (1e-2, 0.1), (0.0, 0.0))
 #: beta of the bf16-momentum checks: the last one's float32 value lies half
 #: way between two bf16 values and rounds to even (0.5)
 BF16_BETAS = (0.9, 0.99, 0.5 + 2 ** -9 + 2 ** -31)
@@ -200,8 +217,18 @@ def require_equal(what: str, got, want) -> float:
 # ---------------------------------------------------------------------------
 
 
+def plant_subnormals(x, start: int = 1, step: int = 13):
+    """Plant SUBNORMALS in every `step`-th element of the last dim of the
+    float tensor `x` from `start` (float32 1e-39 cast to bf16 stays a
+    bf16 subnormal; 1.4e-45 becomes a zero there)."""
+    for i, v in enumerate(SUBNORMALS):
+        x[..., start + i::step * len(SUBNORMALS)] = v
+    return x
+
+
 def signed_payload(torch, gen, shape, dtype, dev):
-    """Random values of `dtype` with planted zeros and -0.0 (bit +1)."""
+    """Random values of `dtype` with planted zeros, -0.0 and subnormals
+    (bit +1: a subnormal reads as a zero)."""
     if dtype == torch.int8:
         x = torch.randint(-128, 128, shape, generator=gen, device=dev,
                           dtype=torch.int8)
@@ -210,7 +237,18 @@ def signed_payload(torch, gen, shape, dtype, dev):
     x = torch.randn(shape, generator=gen, device=dev).to(dtype)
     x[..., ::7] = 0.0
     x[..., 3::7] = -0.0
-    return x
+    return plant_subnormals(x)
+
+
+def plant_momenta(g, m):
+    """Plant subnormals in g (a float32 or bf16 operand read as a zero),
+    and SUBNORMAL_MOMENTA in m with g = 0 beside them (beta * m a subnormal
+    operand or result, flushed: m' = +0.0, bit +1)."""
+    plant_subnormals(g, start=2, step=17)
+    k = len(SUBNORMAL_MOMENTA)
+    for i, v in enumerate(SUBNORMAL_MOMENTA):
+        m[5 + i::11 * k] = v
+        g[5 + i::11 * k] = 0.0
 
 
 def check_sign_kernels(torch, ops, ref, sc, dev, err) -> int:
@@ -400,8 +438,9 @@ def check_ternary_kernels(torch, ops, ref, sc, dev, err) -> int:
             ref.ternary_unpack(words[None])[0, :n]))
         n_checks += 1
         for dtype in (torch.float32, torch.bfloat16):
-            p = torch.randn(n, generator=gen, device=dev).to(dtype)
-            for eta, wd in ((1e-3, 0.0), (1e-2, 0.1)):
+            p = plant_subnormals(
+                torch.randn(n, generator=gen, device=dev).to(dtype))
+            for eta, wd in APPLY_RATES:
                 err["apply_ternary_vote"] = max(
                     err["apply_ternary_vote"], require_equal(
                         f"apply_ternary_vote n={n} {dtype} eta={eta} wd={wd}",
@@ -503,6 +542,7 @@ def check_momentum_bf16(torch, ops, ref, sc, dev, err) -> int:
             g[::7], m0[::7] = 0.0, 0.0
             g[3::7], m0[3::7] = -0.0, -0.0
             g[5::11], m0[5::11] = -0.0, 0.0
+            plant_momenta(g, m0)
             for beta in BF16_BETAS:
                 m_r, p_r = ref.momentum_sign_pack(
                     sc.pad_to_pack(g)[0], sc.pad_to_pack(m0)[0], beta)
@@ -545,6 +585,7 @@ def check_kernels(torch, ops, ref, sc, dev) -> dict:
             m = torch.randn(n, generator=gen, device=dev)
             g[::7], m[::7] = 0.0, 0.0          # m' = 0 -> bit +1
             m[3::7], g[3::7] = -0.0, -0.0      # m' = -0 -> bit +1
+            plant_momenta(g, m)
             m_k, p_k = ops.momentum_sign_pack(g, m, BETA)
             m_r, p_r = ref.momentum_sign_pack(sc.pad_to_pack(g)[0],
                                               sc.pad_to_pack(m)[0], BETA)
@@ -562,10 +603,11 @@ def check_kernels(torch, ops, ref, sc, dev) -> dict:
             n_checks += 1
             err["momentum_sign_pack"] = max(err["momentum_sign_pack"], e)
             del g, m, m_k, p_k, m_r, p_r, m_np
-            p = torch.randn(n, generator=gen, device=dev).to(dtype)
+            p = plant_subnormals(
+                torch.randn(n, generator=gen, device=dev).to(dtype))
             votes = torch.randint(-2 ** 31, 2 ** 31, (w,), generator=gen,
                                   device=dev, dtype=torch.int32)
-            for eta, wd in ((1e-3, 0.0), (1e-2, 0.1)):
+            for eta, wd in APPLY_RATES:
                 got = ops.apply_vote(p, votes, eta, wd)
                 want = ref.apply_vote(sc.pad_to_pack(p)[0], votes, eta,
                                       wd)[:n]
@@ -574,7 +616,7 @@ def check_kernels(torch, ops, ref, sc, dev) -> dict:
                     want))
                 del got, want
             del p, votes
-            n_checks += 3
+            n_checks += 1 + len(APPLY_RATES)
         for m_voters in VOTERS:
             packed = torch.randint(-2 ** 31, 2 ** 31, (m_voters, w),
                                    generator=gen, device=dev,
@@ -1204,6 +1246,43 @@ def run_preset_path(torch, cfg, dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# the -ftz=true build: flushed float32 operations in the kernels' SASS
+# ---------------------------------------------------------------------------
+
+#: float32 SASS operations that must carry .FTZ (compares and arithmetic)
+FTZ_OPS = ("FSETP", "FMUL", "FADD", "FFMA")
+
+
+def check_ftz(build) -> None:
+    """Each built library's float32 compares and arithmetic in its SASS
+    (``cuobjdump -sass``) carry .FTZ: a subnormal operand reads as a zero
+    and a subnormal result is flushed, as in the reference."""
+    from pathlib import Path
+    tool = str(Path(build.nvcc_path()).parent / "cuobjdump")
+    counts = {}
+    for name in build.SIGNATURES:
+        sass = subprocess.run([tool, "-sass", str(build._target(name))],
+                              check=True, capture_output=True,
+                              text=True).stdout
+        ops_seen = {op: [0, 0] for op in FTZ_OPS}
+        bad, function = [], ""
+        for line in sass.splitlines():
+            if "Function :" in line:
+                function = line.split("Function :")[1].strip()
+            for op in FTZ_OPS:
+                if f" {op}." in line or f" {op} " in line:
+                    ops_seen[op][".FTZ" in line] += 1
+                    if ".FTZ" not in line:
+                        bad.append(f"{function}: {line.strip()}")
+        counts[name] = {op: {"ftz": c[1], "not_ftz": c[0]}
+                        for op, c in ops_seen.items() if any(c)}
+        if bad:
+            raise AssertionError(f"{name}: float32 SASS operations without "
+                                 ".FTZ:\n" + "\n".join(bad[:12]))
+    log({"phase": "ftz_sass", "ops": counts})
+
+
+# ---------------------------------------------------------------------------
 # phase 7: timing at the unembedding shape
 # ---------------------------------------------------------------------------
 
@@ -1459,6 +1538,7 @@ def main() -> int:
                                        "spill")):
                 log(f"ptxas {name}: {line.strip()}")
 
+    check_ftz(build)
     errs = check_kernels(torch, ops, ref, sc, dev)
     # every published width of glm4-9b; depth cut to 2 layers
     cfg = dataclasses.replace(get_config("glm4-9b"), num_layers=2)

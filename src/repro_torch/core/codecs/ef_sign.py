@@ -19,13 +19,15 @@ from typing import List, Optional
 import torch
 
 from repro_torch.configs.base import VoteStrategy
+from repro_torch.core import sign_compress as sc
 from repro_torch.core.codecs.base import GradientCodec
 from repro_torch.kernels import ops
 
 
 def encode_(error: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
-    """error <- error + values in place: the encode input t."""
-    return error.add_(values)
+    """error <- error + values in place, a subnormal sum flushed to a zero
+    of its sign (as the reference's XLA add): the encode input t."""
+    return sc.flush_subnormals(error.add_(values), out=error)
 
 
 #: elements of |t| made at a time by :func:`scale_of` (256 MB in float32)
@@ -45,7 +47,7 @@ def scale_of(t: torch.Tensor) -> torch.Tensor:
     flat = t.reshape(-1)
     total = sum(c.abs().sum(dtype=torch.float32)
                 for c in flat.split(SCALE_CHUNK))
-    return (total / flat.numel()).to(t.dtype)
+    return sc.flush_subnormals((total / flat.numel()).to(t.dtype))
 
 
 def feedback_(t: torch.Tensor, vote: torch.Tensor,
@@ -53,8 +55,9 @@ def feedback_(t: torch.Tensor, vote: torch.Tensor,
     """t <- t - scale * vote in place, with no temporary when `vote`
     already has t's dtype (vote ±1/0 and scale of t's dtype: the product
     is exact, so there is one rounding to t's dtype, as in the
-    reference)."""
-    return t.addcmul_(vote.to(t.dtype), scale, value=-1.0)
+    reference), then a subnormal result flushed to a zero of its sign."""
+    return sc.flush_subnormals(t.addcmul_(vote.to(t.dtype), scale,
+                                          value=-1.0), out=t)
 
 
 class EFSignCodec(GradientCodec):
@@ -95,5 +98,10 @@ class EFSignCodec(GradientCodec):
         n = error.shape[1]
         vote = (ops.ternary_unpack(votes, n).to(error.dtype) if two_bit
                 else ops.bitunpack(votes, n, error.dtype))
+        self.feedback_decoded_(vote, error, sent)
+
+    def feedback_decoded_(self, vote: torch.Tensor,
+                          error: Optional[torch.Tensor],
+                          sent: List[torch.Tensor]) -> None:
         for r, scale in enumerate(sent):
             feedback_(error[r], vote, scale)

@@ -77,12 +77,15 @@ def decode_leaf_fixed(stacked: torch.Tensor,
 def ema_update(flip_ema: torch.Tensor, mismatch: torch.Tensor,
                n: int) -> torch.Tensor:
     """One EMA step of the flip-rate estimates from `mismatch` counts over
-    `n` coordinates, in float32 in the reference's order of operations."""
+    `n` coordinates, in float32 in the reference's order of operations,
+    each subnormal operand and result flushed to a zero (an estimate that
+    decays below 2^-126 becomes 0, as in XLA)."""
+    f = sc.flush_subnormals
     observed = RHO * mismatch.to(torch.float32)
     # XLA turns the reference's division by the constant n into a product
     # with its float32 reciprocal; so does this, for equal bits
     inv_n = float(np.float32(1.0) / np.float32(n))
-    return (1.0 - RHO) * flip_ema + observed * inv_n
+    return f(f((1.0 - RHO) * f(flip_ema)) + f(observed * inv_n))
 
 
 def decode_stacked(stacked: torch.Tensor, flip_ema: torch.Tensor

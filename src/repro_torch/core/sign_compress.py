@@ -16,10 +16,21 @@ The 2-bit format packs 16 ternary symbols per word, little-endian, in
 two's-complement fields: +1 -> ``0b01``, -1 -> ``0b11``, 0 (abstain) ->
 ``0b00``. Field 15 sits in bits 30-31, so its right shift is masked with
 ``& 3`` like every other.
+
+Subnormals. The JAX package reads a float32 or bf16 subnormal operand of
+arithmetic or of a comparison as a zero of its own sign, and flushes a
+subnormal result of arithmetic to a zero of its sign: XLA does so on the
+CPU, and a TPU has no subnormals at all. Conversions and stores keep the
+bits (float32 ``1e-39`` cast to bf16 stays subnormal). So ``sign_ternary``
+of a subnormal is 0 and ``sign_binary`` of a negative one is +1, and every
+plain version and codec op that computes with floats flushes through
+:func:`flush_subnormals` (the CUDA kernels are built with ``-ftz=true``).
+float16 and float64 keep their subnormals, as XLA's float32 arithmetic
+sees them (a float16 subnormal is a normal float32).
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -28,16 +39,47 @@ PACK = 32
 #: ternary symbols per word (2 bits each; codec ``ternary2bit``)
 PACK2 = 16
 WORD_DTYPE = torch.int32
+#: float types whose subnormals the JAX package reads and writes as zeros
+FLUSHED = (torch.float32, torch.bfloat16)
 
 
-def sign_ternary(x: torch.Tensor) -> torch.Tensor:
-    """``torch.sign`` as int8: 0 (and -0.0) -> 0, an abstention."""
-    return torch.sign(x).to(torch.int8)
+def flush_subnormals(x: torch.Tensor, out: Optional[torch.Tensor] = None
+                     ) -> torch.Tensor:
+    """`x` with every float32 / bf16 subnormal replaced by a zero of its own
+    sign (``x * 0``; every other value times 1, exactly); other dtypes pass
+    through. `out` (may be `x`, for an in-place flush) receives the
+    result when given."""
+    if x.dtype not in FLUSHED:
+        return x if out is None else out.copy_(x)
+    return torch.mul(x, x.abs() >= torch.finfo(x.dtype).tiny, out=out)
+
+
+def sign_ternary(x: torch.Tensor, out: Optional[torch.Tensor] = None
+                 ) -> torch.Tensor:
+    """The sign as int8: 0, -0.0 and (float32 / bf16) a subnormal -> 0, an
+    abstention. `out` (int8, x's shape) receives it when given."""
+    if x.dtype not in FLUSHED:
+        s = torch.sign(x).to(torch.int8)
+        return s if out is None else out.copy_(s)
+    tiny = torch.finfo(x.dtype).tiny
+    # (x >= tiny) - (x <= -tiny), the two masks read as int8 in place
+    pos = (torch.ge(x, tiny) if out is None
+           else torch.ge(x, tiny, out=out.view(torch.bool)))
+    return pos.view(torch.int8).sub_(torch.le(x, -tiny).view(torch.int8))
 
 
 def sign_binary(x: torch.Tensor) -> torch.Tensor:
-    """``x >= 0 -> +1`` else ``-1``, as int8 (ties go to +1)."""
-    return torch.where(x >= 0, 1, -1).to(torch.int8)
+    """``x >= 0 -> +1`` else ``-1``, as int8 (ties go to +1; a float32 /
+    bf16 subnormal reads as a zero of its sign, so it goes to +1 too)."""
+    return torch.where(nonneg(x), 1, -1).to(torch.int8)
+
+
+def nonneg(x: torch.Tensor) -> torch.Tensor:
+    """``x >= 0`` with a float32 / bf16 subnormal read as a zero (so -1e-39
+    counts as >= 0): the 1-bit wire's bit."""
+    if x.dtype in FLUSHED:
+        return x > -torch.finfo(x.dtype).tiny
+    return x >= 0
 
 
 def pad_to_pack(flat: torch.Tensor, multiple: int = PACK
@@ -71,12 +113,13 @@ def ternary_words_for(n: int) -> int:
 
 
 def pack_signs(x: torch.Tensor) -> torch.Tensor:
-    """x (..., n) real, n % 32 == 0 -> int32 words (..., n // 32)."""
+    """x (..., n) real, n % 32 == 0 -> int32 words (..., n // 32); bit j of
+    word k is :func:`nonneg` of ``x[..., 32k + j]``."""
     if x.shape[-1] % PACK != 0:
         raise ValueError(
             f"pack_signs needs last dim % {PACK} == 0, got shape "
             f"{tuple(x.shape)}; pad with pad_to_pack first")
-    bits = (x >= 0).reshape(x.shape[:-1] + (x.shape[-1] // PACK, PACK))
+    bits = nonneg(x).reshape(x.shape[:-1] + (x.shape[-1] // PACK, PACK))
     acc = torch.zeros(bits.shape[:-1], dtype=WORD_DTYPE, device=x.device)
     for j in range(PACK):   # one strided pass per bit: no (.., w, 32) int temp
         acc |= bits[..., j].to(WORD_DTYPE) << j

@@ -23,8 +23,13 @@ from typing import Dict
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
+#: ``-ftz=true``: every float32 operation and comparison reads a subnormal
+#: operand as a zero of its sign and flushes a subnormal result to one, as
+#: XLA does on the CPU (and a TPU, which has no subnormals); without it the
+#: kernels would vote the sign of a subnormal momentum where the reference
+#: abstains or votes +1
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-ftz=true", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _I64, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 #: C signatures of the entry points, by source file

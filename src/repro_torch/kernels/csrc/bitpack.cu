@@ -33,6 +33,9 @@
 // 16-byte stores (one byte per thread, the first version, reached 13 % of
 // the bound); a ragged tail is written element by element.
 //
+// A float32 or bf16 subnormal packs as +1, as the reference (XLA) reads it
+// as a zero: nonneg tests the bits.
+//
 // Each entry point launches on the caller's stream and returns
 // cudaGetLastError(); the Python wrapper raises when it is not 0.
 
@@ -47,9 +50,20 @@ constexpr int64_t kMaxGridY = 65535;
 constexpr int kPackWords = 4;   // words packed by one warp
 constexpr int kUnpack = 16;     // elements unpacked by one thread
 
-__device__ __forceinline__ bool nonneg(float x) { return x >= 0.0f; }
+// x >= 0 on the bits of a float32, a subnormal read as a zero (as the
+// reference's XLA reads it) and NaN false. build.py compiles with
+// -ftz=true, but ptxas emitted one of this kernel's four compares of a warp
+// without .FTZ (FSETP.GE.OR, cuobjdump -sass on an H100), so the sign test
+// is an integer one and never depends on the flag.
+__device__ __forceinline__ bool nonneg_bits(uint32_t u) {
+  const uint32_t a = u & 0x7fffffffu;
+  return a < 0x00800000u || (!(u >> 31) && a <= 0x7f800000u);
+}
+__device__ __forceinline__ bool nonneg(float x) {
+  return nonneg_bits(__float_as_uint(x));
+}
 __device__ __forceinline__ bool nonneg(__nv_bfloat16 x) {
-  return __bfloat162float(x) >= 0.0f;
+  return nonneg_bits((uint32_t)__bfloat16_as_ushort(x) << 16);
 }
 __device__ __forceinline__ bool nonneg(int8_t x) { return x >= 0; }
 

@@ -22,6 +22,9 @@
 // lane 0. Nothing but the words reaches memory and no block talks to
 // another.
 //
+// A float32 or bf16 subnormal votes +1, as the reference (XLA) reads it as a
+// zero: nonneg tests the bits.
+//
 // The entry points launch on the caller's stream and return
 // cudaGetLastError(); the Python wrapper raises when it is not 0.
 
@@ -33,9 +36,20 @@ namespace {
 
 constexpr int kThreads = 256;
 
-__device__ __forceinline__ int nonneg(float x) { return x >= 0.0f; }
+// x >= 0 on the bits of a float32, a subnormal read as a zero (as the
+// reference's XLA reads it) and NaN false. build.py compiles with
+// -ftz=true, but ptxas emitted one of bitpack.cu's four compares of a warp
+// without .FTZ (FSETP.GE.OR, cuobjdump -sass on an H100), so the sign test
+// is an integer one and never depends on the flag.
+__device__ __forceinline__ int nonneg_bits(uint32_t u) {
+  const uint32_t a = u & 0x7fffffffu;
+  return a < 0x00800000u || (!(u >> 31) && a <= 0x7f800000u);
+}
+__device__ __forceinline__ int nonneg(float x) {
+  return nonneg_bits(__float_as_uint(x));
+}
 __device__ __forceinline__ int nonneg(__nv_bfloat16 x) {
-  return __bfloat162float(x) >= 0.0f;
+  return nonneg_bits((uint32_t)__bfloat16_as_ushort(x) << 16);
 }
 __device__ __forceinline__ int nonneg(int8_t x) { return x >= 0; }
 

@@ -74,6 +74,13 @@
 // from it on about a third of the elements. eta and lambda are runtime
 // arguments, so a learning-rate schedule never rebuilds the kernel.
 //
+// Subnormals. build.py compiles with -ftz=true, so every float32 operation
+// and comparison here reads a subnormal operand (a bf16 one too, once
+// widened to float32) as a zero of its sign and flushes a subnormal result
+// to one, as XLA does in the reference: beta * m of a subnormal m is a
+// zero, m' is never stored subnormal, and the sign bit taken of m' as
+// stored is that of a flushed value.
+//
 // Each entry point launches on the caller's stream and returns
 // cudaGetLastError(); the Python wrapper raises when it is not 0.
 

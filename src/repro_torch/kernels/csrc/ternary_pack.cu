@@ -45,6 +45,9 @@
 // Each entry point launches on the caller's stream and returns
 // cudaGetLastError(); the Python wrapper raises when it is not 0.
 
+// A float32 or bf16 subnormal abstains (0b00), as the reference (XLA) reads
+// it as a zero: field_of tests the bits.
+
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -55,8 +58,15 @@ constexpr int kThreads = 256;
 constexpr int64_t kMaxGridY = 65535;
 constexpr int kFields = 16;   // symbols per word
 
+// sign_ternary on the bits of a float32: zeros, subnormals (read as zeros,
+// as the reference's XLA reads them) and NaN -> 0b00. An integer test, so
+// it never depends on ptxas keeping -ftz=true on a compare (it dropped it
+// on one compare of bitpack.cu's, see there).
 __device__ __forceinline__ uint32_t field_of(float x) {
-  return x > 0.0f ? 1u : (x < 0.0f ? 3u : 0u);
+  const uint32_t u = __float_as_uint(x);
+  const uint32_t a = u & 0x7fffffffu;
+  if (a < 0x00800000u || a > 0x7f800000u) return 0u;
+  return (u >> 31) ? 3u : 1u;
 }
 __device__ __forceinline__ uint32_t field_of(__nv_bfloat16 x) {
   return field_of(__bfloat162float(x));

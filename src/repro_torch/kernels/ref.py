@@ -8,7 +8,11 @@ is present.
 Arithmetic follows the JAX oracles operation by operation: Python-float
 scalars become float32 (``1 - beta`` is folded in double first, as JAX
 folds the constant), and every product and sum is rounded on its own,
-never fused.
+never fused. As XLA does, each float32 / bf16 operand and each result of
+arithmetic is flushed to a zero of its sign when it is subnormal
+(``sign_compress.flush_subnormals``; the kernels get the same from
+``-ftz=true``); the comparisons read subnormals as zeros through
+``sign_compress.nonneg`` / ``sign_ternary``.
 """
 from __future__ import annotations
 
@@ -37,18 +41,23 @@ def momentum_sign_pack(g: torch.Tensor, m: torch.Tensor, beta: float
     expression (one rounding of the float32 expression differs from it on
     about a third of the elements)."""
     b, c = momentum_constants(beta, m.dtype)
+    f = sc.flush_subnormals
     if m.dtype == torch.float32:
-        m_new = b * m + c * g.to(m.dtype)
+        m_new = f(f(b * f(m)) + f(c * f(g.to(m.dtype))))
     else:
-        bt = torch.tensor(b, dtype=m.dtype, device=m.device)
-        ct = torch.tensor(c, dtype=m.dtype, device=m.device)
-        m_new = torch.add(torch.mul(bt, m), torch.mul(ct, g.to(m.dtype)))
+        # each bf16 operation in float32 (exact for the bf16 operands),
+        # flushed, then rounded to bf16: a product that is subnormal in
+        # float32 is 0, even where its bf16 rounding would reach 2^-126
+        def bf16(x):
+            return x.to(torch.bfloat16).float()
+        gb = bf16(g.float())
+        m_new = f(bf16(f(b * f(m.float()))) + bf16(f(c * f(gb)))).to(m.dtype)
     return m_new, sc.pack_signs(m_new)
 
 
 def bitpack(x: torch.Tensor) -> torch.Tensor:
     """(rows, 32*w) real -> (rows, w) words; bit j of word k is
-    ``x[., 32k + j] >= 0``."""
+    ``x[., 32k + j] >= 0`` (a subnormal reads as a zero)."""
     return sc.pack_signs(x)
 
 
@@ -72,7 +81,7 @@ def ternary_pack(x: torch.Tensor) -> torch.Tensor:
     """(rows, 16*w) int8 symbols or f32/bf16 values -> (rows, w) words of
     2-bit fields: +1 -> 0b01, -1 -> 0b11, 0 -> 0b00 (codec
     ``ternary2bit``). An int8 symbol s is stored as ``s & 3``; a real value
-    as its ``sign_ternary`` (+0.0 and -0.0 abstain)."""
+    as its ``sign_ternary`` (+0.0, -0.0 and subnormals abstain)."""
     return sc.pack_ternary(x if x.dtype == torch.int8 else sc.sign_ternary(x))
 
 
@@ -91,15 +100,25 @@ def apply_vote(p: torch.Tensor, votes_packed: torch.Tensor, eta: float,
                weight_decay: float) -> torch.Tensor:
     """x <- x - eta*(unpack(vote) + lambda*x) in float32, cast back;
     p (..., 32*w), votes_packed (..., w)."""
-    v = sc.unpack_signs(votes_packed, torch.float32)
-    p32 = p.to(torch.float32)
-    return (p32 - eta * (v + weight_decay * p32)).to(p.dtype)
+    return _update(p, sc.unpack_signs(votes_packed, torch.float32), eta,
+                   weight_decay)
+
+
+def _update(p: torch.Tensor, v: torch.Tensor, eta: float,
+            weight_decay: float) -> torch.Tensor:
+    """p - eta*(v + lambda*p) in float32, each operand and result flushed,
+    cast back to p's dtype."""
+    f = sc.flush_subnormals
+    # the scalars are float32 operands too (the kernel takes them as such)
+    eta, weight_decay = (float(f(torch.tensor(s, dtype=torch.float32)))
+                         for s in (eta, weight_decay))
+    p32 = f(p.to(torch.float32))
+    return f(p32 - f(eta * f(v + f(weight_decay * p32)))).to(p.dtype)
 
 
 def apply_ternary_vote(p: torch.Tensor, votes_packed: torch.Tensor,
                        eta: float, weight_decay: float) -> torch.Tensor:
     """``apply_vote`` with a 2-bit ternary vote: x <- x - eta*(v +
     lambda*x), v in {-1, 0, +1}; p (..., 16*w), votes_packed (..., w)."""
-    v = sc.unpack_ternary(votes_packed, torch.float32)
-    p32 = p.to(torch.float32)
-    return (p32 - eta * (v + weight_decay * p32)).to(p.dtype)
+    return _update(p, sc.unpack_ternary(votes_packed, torch.float32), eta,
+                   weight_decay)
