@@ -66,6 +66,21 @@ Phases, each of which fails the run (non-zero exit) on any disagreement:
    coordinate) and on psum_int8 (no kernel; its votes bit-equal to
    sign1bit's psum_int8 votes on every leaf). One more vote per wire runs
    under torch.profiler. Then the quickstart's 5 x 8 vote;
+4b. the plan votes: the same momentum as one (M, n_params) int8 sign
+   buffer (6.6 GB; each voter's row written leaf by leaf with
+   ``vote_plan.write_signs``, as the trainer's plan path writes it),
+   voted through ``VoteRequest(plan=build_plan(..., bucket_bytes=1<<24))``
+   synchronously and with overlap=True on staged allgather_1bit (13
+   buckets: exactly 13 bitpack / majority / bitunpack), psum_int8 and
+   hierarchical (13 buckets), ternary2bit on allgather_1bit (25 buckets,
+   25 ternary_pack / ternary_majority / ternary_unpack) and weighted_vote
+   (13 buckets, its flip-rate state): each overlap result bit-equal to its
+   sync twin, the stateless wires' votes bit-equal to phase 4's leaf-wise
+   votes of each leaf, CUDA-event ms and the peak above the resident
+   buffers printed; the 13 per-bucket copies timed alone; then
+   ``plan_vote_stacked`` at 1<<24 and 1<<20 (197 buckets): exactly one
+   fused_majority and one bitunpack per bucket, bit-equal to the staged
+   plan;
 5. the codec paths: the same training setup with codec ternary2bit,
    ef_sign and weighted_vote on allgather_1bit, 5 steps each from fresh
    state (the previous run's freed first): finite losses, each step's
@@ -97,7 +112,19 @@ Phases, each of which fails the run (non-zero exit) on any disagreement:
    applies, a bf16 copy of the same n elements (the stream yardstick) and
    apply_vote on float32 parameters; beside the tallies, their times at
    M = 32, 64 and 128 voters, at M = 255 on half of the n and at M = 1000
-   on an eighth of it.
+   on an eighth of it;
+8. the trainer's plan path (run after phase 7, its launches added to the
+   kernels line): phase 3's training through a VotePlan of 1<<24 bytes
+   (``OptimizerConfig.bucket_bytes``), 5 steps from fresh state with
+   exact launches per step (momentum_sign_pack without words, per bucket
+   bitpack / majority / bitunpack, per leaf ternary_pack and
+   apply_ternary_vote of the int8 vote), its losses equal to phase 3's
+   bit for bit, a profiled step; again with overlap=True (the same
+   losses); a codec map (the embedding on ternary2bit) for 2 steps with
+   finite losses and exact launches per group; delayed_vote for 2 steps,
+   step 0 leaving every parameter as it was and step 1 applying exactly
+   the int8 vote banked at step 0 (recomputed with the plain versions);
+   the peak memory of each run.
 
 It prints one JSON line per step and per wire, a ``{"kernels": [...]}``
 line and, last, ``{"ok": true, "device": {...}}``. Without a CUDA device,
@@ -695,8 +722,9 @@ def run_train_path(torch, cfg, dev, codec: str, leaf: str,
     """One training path (phase 3 for sign1bit, phase 5 for the other
     codecs): 5 full-width steps from fresh state with exact launches per
     step, a bit-exact step 0 of `leaf`, the peak memory and a profiled
-    step; then, with `vote_after`, the vote path (phase 4) on the trained
-    momentum. Returns the launches of the path."""
+    step; then, with `vote_after`, the vote path (phase 4) and the plan
+    votes (phase 4b) on the trained momentum. Returns the launches of the
+    path and its losses."""
     from repro_torch.core import signum
     from repro_torch.data.pipeline import SyntheticLMPipeline
     from repro_torch.kernels import ops
@@ -786,9 +814,12 @@ def run_train_path(torch, cfg, dev, codec: str, leaf: str,
     if vote_after:
         for k, v in run_vote_path(torch, opt_state["momentum"], dev).items():
             launches[k] += v
+        for k, v in run_plan_votes(torch, opt_state["momentum"],
+                                   dev).items():
+            launches[k] += v
     del params, opt_state, art
     torch.cuda.empty_cache()
-    return launches
+    return launches, losses
 
 
 def plain_votes(torch, ref, sc, label, x):
@@ -1015,6 +1046,13 @@ def profile_step(torch, art, params, opt_state, pipe, dev, n_params,
                           "bitpack": n * 1.125, "apply_vote": n * 4.125},
         # the preset: bf16 g, m read, m' written, no words; ternary_pack
         # reads each voter's bf16 m' row and writes 2 bits
+        # the plan path: m' alone; per bucket bitpack reads the (M, len)
+        # int8 signs, bitunpack writes the int8 vote; per leaf ternary_pack
+        # reads the int8 vote
+        "plan": {"momentum_sign_pack": m * n * 10,
+                 "bitpack": m * n * 1.125, "majority": (m + 1) * n / 8,
+                 "bitunpack": n * 1.125, "ternary_pack": n * 1.25,
+                 "apply_ternary_vote": n * 4.25},
         "preset": {"momentum_sign_pack": m * n * 6,
                    "ternary_pack": m * n * 2.25,
                    "ternary_majority": (m + 1) * n / 4,
@@ -1283,6 +1321,333 @@ def check_ftz(build) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 4b: the trained momentum voted through a VotePlan
+# ---------------------------------------------------------------------------
+
+#: the plan phases' bucket sizes: 13 buckets of the 1-bit (25 of the 2-bit)
+#: wire at PLAN_BUCKET_BYTES, 197 at PLAN_SMALL_BUCKET_BYTES, over the
+#: 1,649,439,744 coordinates of the cut glm4-9b
+PLAN_BUCKET_BYTES, PLAN_SMALL_BUCKET_BYTES = 1 << 24, 1 << 20
+FULL_PARAMS = 1_649_439_744
+#: (bucket bytes, codec bits per coordinate) -> buckets at FULL_PARAMS
+PLAN_BUCKETS = {(PLAN_BUCKET_BYTES, 1.0): 13, (PLAN_BUCKET_BYTES, 2.0): 25,
+                (PLAN_SMALL_BUCKET_BYTES, 1.0): 197}
+#: phase 4b's wires: (label, strategy, codec, the phase-4 wire whose
+#: leaf-wise votes the plan's must equal, or None for a stateful codec)
+PLAN_WIRES = (
+    ("plan_staged_allgather_1bit", "allgather_1bit", "sign1bit",
+     "staged_allgather_1bit"),
+    ("plan_psum_int8", "psum_int8", "sign1bit", "psum_int8"),
+    ("plan_hierarchical", "hierarchical", "sign1bit", "hierarchical"),
+    ("plan_ternary_allgather_1bit", "allgather_1bit", "ternary2bit",
+     "ternary_allgather_1bit"),
+    ("plan_weighted_vote", "allgather_1bit", "weighted_vote", None),
+)
+
+
+def bucket_launches(bucket) -> dict:
+    """The kernel launches of one bucket of the plan walk."""
+    strategy = bucket.strategy.value
+    if bucket.codec == "ternary2bit" and strategy == "allgather_1bit":
+        return {"ternary_pack": 1, "ternary_majority": 1,
+                "ternary_unpack": 1}
+    if bucket.codec == "weighted_vote":
+        return {"bitpack": 1, "bitunpack": 1}
+    return {"allgather_1bit": {"bitpack": 1, "majority": 1, "bitunpack": 1},
+            "hierarchical": {"bitpack": 1, "bitunpack": 1},
+            "psum_int8": {}}[strategy]
+
+
+def plan_launches(plan) -> dict:
+    want = {}
+    for b in plan.buckets:
+        for k, v in bucket_launches(b).items():
+            want[k] = want.get(k, 0) + v
+    return want
+
+
+def check_bucket_count(plan, n_total: int, bucket_bytes: int) -> None:
+    bits = {"ternary2bit": 2.0}.get(plan.groups[0].codec, 1.0)
+    want = PLAN_BUCKETS.get((bucket_bytes, bits))
+    if n_total == FULL_PARAMS and want is not None \
+            and plan.n_buckets != want:
+        raise AssertionError(f"{plan.n_buckets} buckets, expected {want}")
+
+
+def timed(torch, fn):
+    """(fn(), CUDA-event ms, launches, peak above the memory resident
+    before) of one call, the launch counts set to 0 just before it."""
+    from repro_torch.kernels import ops
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    ops.reset_launch_counts()
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    launches = {k: v for k, v in ops.launch_counts().items() if v}
+    return (out, start.elapsed_time(end), launches,
+            torch.cuda.max_memory_allocated() - resident)
+
+
+def run_plan_votes(torch, momentum, dev) -> dict:
+    """Phase 4b: the trained (M, n) momentum of every leaf flattened into
+    one (M, n_params) int8 sign buffer (each voter's row written leaf by
+    leaf, as the trainer's plan path writes it) and voted through the vote
+    API with a VotePlan of PLAN_BUCKET_BYTES on each of PLAN_WIRES,
+    synchronous and overlapped: exact launches per bucket, overlap
+    bit-equal to sync, the stateless wires bit-equal to phase 4's
+    leaf-wise votes of the same momentum; then plan_vote_stacked at both
+    bucket sizes, one fused_majority and one bitunpack per bucket,
+    bit-equal to the staged plan. Returns the launches of the phase."""
+    from repro_torch.configs.base import VoteStrategy
+    from repro_torch.core import vote_api as va
+    from repro_torch.core import vote_plan as vp
+
+    shapes = {k: tuple(v.shape[1:]) for k, v in momentum.items()}
+    layout = vp.build_plan(shapes, bucket_bytes=PLAN_BUCKET_BYTES,
+                           strategy=VoteStrategy.ALLGATHER_1BIT)
+    n_total = layout.n_params
+    torch.cuda.synchronize()
+    signs = torch.empty((M_MAIN, n_total), dtype=torch.int8, device=dev)
+    for r in range(M_MAIN):
+        for slot in layout.leaves:
+            vp.write_signs(slot, momentum[slot.name][r], signs[r])
+    def copy_buckets():
+        for b in layout.buckets:
+            signs[:, b.start:b.start + b.length].contiguous()
+
+    # the per-bucket copy the kernels need (a bucket's columns are strided)
+    _, copy_ms, _, _ = timed(torch, copy_buckets)
+    copy_bound, _ = bound(2 * M_MAIN * n_total, 0)
+    log({"phase": "plan_bucket_copy", "buckets": layout.n_buckets,
+         "ms": copy_ms, "bound_ms": copy_bound})
+    backend = va.VirtualBackend(device=dev)
+    totals, staged = {}, None
+    for label, strategy, codec, leafwise in PLAN_WIRES:
+        plan = vp.build_plan(shapes, bucket_bytes=PLAN_BUCKET_BYTES,
+                             strategy=VoteStrategy(strategy),
+                             default_codec=codec, data_size=M_MAIN)
+        if plan.leaves != layout.leaves:
+            raise AssertionError(f"{label}: the plan's layout moved")
+        check_bucket_count(plan, n_total, PLAN_BUCKET_BYTES)
+        want = plan_launches(plan)
+        state = plan.init_server_state(M_MAIN, dev) or None
+        outs = {}
+        for overlap in (False, True):
+            req = va.VoteRequest(payload=signs, form="stacked", plan=plan,
+                                 server_state=state, overlap=overlap)
+            out, ms, launches, above = timed(torch,
+                                             lambda: backend.execute(req))
+            if launches != want:
+                raise AssertionError(f"{label} overlap={overlap}: launches "
+                                     f"{launches}, expected {want}")
+            for k, v in launches.items():
+                totals[k] = totals.get(k, 0) + v
+            wire = out.wire
+            if (wire.n_messages != plan.n_buckets or wire.n_voters != M_MAIN
+                    or wire.strategy.value != strategy):
+                raise AssertionError(f"{label}: {wire}")
+            outs[overlap] = out
+            line = {"phase": "plan_vote", "wire": label, "codec": codec,
+                    "strategy": strategy, "overlap": overlap,
+                    "buckets": plan.n_buckets, "coords": n_total, "ms": ms,
+                    "launches": launches,
+                    "payload_bytes": wire.payload_bytes,
+                    "above_resident_bytes": above}
+            if "flip_ema" in out.server_state:
+                line["flip_ema"] = out.server_state["flip_ema"].tolist()
+            log(line)
+        require_equal(f"{label}: overlap against sync votes",
+                      outs[True].votes, outs[False].votes)
+        for k in outs[False].server_state:
+            require_equal(f"{label}: overlap against sync {k}",
+                          outs[True].server_state[k],
+                          outs[False].server_state[k])
+        if leafwise is not None:
+            _, _, ls, lc, _, _ = next(w for w in VOTE_WIRES
+                                      if w[0] == leafwise)
+            for slot in plan.leaves:
+                want_votes = backend.execute(va.VoteRequest(
+                    payload=momentum[slot.name].view(M_MAIN, -1),
+                    form="stacked", strategy=VoteStrategy(ls),
+                    codec=lc)).votes
+                require_equal(f"{label} against the leaf-wise {leafwise} "
+                              f"votes of {slot.name}",
+                              outs[False].votes[slot.offset:slot.offset
+                                                + slot.length], want_votes)
+        else:
+            ema = outs[False].server_state["flip_ema"]
+            if not (torch.isfinite(ema).all() and (ema >= 0).all()
+                    and (ema <= 1).all()):
+                raise AssertionError(f"{label}: flip_ema {ema.tolist()}")
+        if label == "plan_staged_allgather_1bit":
+            staged = outs[False].votes
+        del outs
+    for bucket_bytes in (PLAN_BUCKET_BYTES, PLAN_SMALL_BUCKET_BYTES):
+        plan = vp.build_plan(shapes, bucket_bytes=bucket_bytes,
+                             strategy=VoteStrategy.ALLGATHER_1BIT)
+        check_bucket_count(plan, n_total, bucket_bytes)
+        votes, ms, launches, above = timed(
+            torch, lambda: vp.plan_vote_stacked(plan, signs))
+        want = {"fused_majority": plan.n_buckets,
+                "bitunpack": plan.n_buckets}
+        if launches != want:
+            raise AssertionError(f"plan_vote_stacked {bucket_bytes}: "
+                                 f"launches {launches}, expected {want}")
+        for k, v in launches.items():
+            totals[k] = totals.get(k, 0) + v
+        require_equal(f"plan_vote_stacked {bucket_bytes} against the staged "
+                      "plan", votes, staged)
+        log({"phase": "plan_vote_stacked", "bucket_bytes": bucket_bytes,
+             "buckets": plan.n_buckets, "ms": ms, "launches": launches,
+             "above_resident_bytes": above})
+        del votes
+    del signs, staged
+    torch.cuda.empty_cache()
+    return totals
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the trainer's plan path
+# ---------------------------------------------------------------------------
+
+#: phase 8's runs: (label, optimizer options beside bucket_bytes, steps)
+PLAN_RUNS = (
+    ("plan", {}, STEPS),
+    ("plan_overlap", {"overlap": True}, STEPS),
+    ("plan_codec_map", {"codec_map": (("embed*", "ternary2bit"),)}, 2),
+    ("plan_delayed", {"delayed_vote": True}, 2),
+)
+
+
+def plan_step_launches(plan, n_leaves: int) -> dict:
+    """One plan step's launches: momentum_sign_pack without words per
+    voter and leaf, the walk's per bucket, and per leaf the int8 vote's
+    ternary_pack and apply_ternary_vote."""
+    want = plan_launches(plan)
+    want["momentum_sign_pack"] = M_MAIN * n_leaves
+    for k in ("ternary_pack", "apply_ternary_vote"):
+        want[k] = want.get(k, 0) + n_leaves
+    return want
+
+
+def run_plan_train_path(torch, cfg, dev, phase3_losses) -> dict:
+    """Phase 8: phase 3's training (sign1bit on allgather_1bit) through a
+    VotePlan of PLAN_BUCKET_BYTES, 5 steps from fresh state: exact launches
+    per step, losses equal to phase 3's bit for bit; again with
+    overlap=True; a codec map (the embedding on ternary2bit) for 2 steps
+    with finite losses; delayed_vote for 2 steps, step 0 leaving every
+    parameter as it was and step 1 applying exactly the int8 vote banked at
+    step 0 (the plain versions recompute it). Peak memory per run and one
+    profiled plan step. Returns the launches of the phase."""
+    from repro_torch.core import signum
+    from repro_torch.data.pipeline import SyntheticLMPipeline
+    from repro_torch.kernels import ops, ref
+    from repro_torch.core import sign_compress as sc
+    from repro_torch.train import train_step as TS
+
+    totals = {}
+    for label, opts, steps in PLAN_RUNS:
+        base = train_config("sign1bit")
+        tcfg = dataclasses.replace(base, optimizer=dataclasses.replace(
+            base.optimizer, bucket_bytes=PLAN_BUCKET_BYTES, **opts))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        art = TS.make_train_step(cfg, tcfg, M_MAIN, device=dev)
+        params, opt_state = TS.materialize_state(
+            cfg, tcfg, art, torch.Generator(device=dev).manual_seed(0))
+        pipe = SyntheticLMPipeline(cfg, GLOBAL_BATCH, SEQ, seed=0)
+        want = plan_step_launches(art.plan, len(params))
+        log({"phase": "plan_train_path", "run": label,
+             "groups": [(g.codec, g.strategy.value, len(g.buckets))
+                        for g in art.plan.groups],
+             "vote_strategy": (art.vote_strategy.value
+                               if art.vote_strategy else None),
+             "state": sorted(opt_state), "launches_per_step": want})
+        ops.reset_launch_counts()
+        seen = ops.launch_counts()
+        losses, step_ms, banked = [], [], None
+        for step in range(steps):
+            tokens = torch.as_tensor(pipe.global_batch_at(step)["tokens"],
+                                     device=dev)
+            if label == "plan_delayed":
+                before = {k: p.clone() for k, p in params.items()}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt_state, met = art.step_fn(params, opt_state,
+                                                 {"tokens": tokens}, step)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            counts = ops.launch_counts()
+            per_step = {k: counts[k] - seen[k] for k in counts
+                        if counts[k] != seen[k]}
+            seen = counts
+            loss = float(met["loss"])
+            log({"plan_run": label, "step": step, "loss": loss, "ms": ms,
+                 "launches": per_step})
+            if per_step != want:
+                raise AssertionError(f"{label} step {step}: launches "
+                                     f"{per_step}, expected {want}")
+            if not math.isfinite(loss):
+                raise AssertionError(f"{label} step {step}: loss {loss}")
+            losses.append(loss)
+            step_ms.append(ms)
+            if label == "plan_delayed":
+                check_delayed_step(torch, ref, sc, signum, tcfg, step,
+                                   before, params, opt_state, banked)
+                banked = {k: v.clone()
+                          for k, v in opt_state["delayed"].items()}
+                del before
+        launches = ops.launch_counts()   # read just after the run
+        peak = torch.cuda.max_memory_allocated()
+        if label in ("plan", "plan_overlap") and losses != phase3_losses:
+            raise AssertionError(f"{label}: losses {losses} differ from the "
+                                 f"leaf-wise phase 3's {phase3_losses}")
+        median = statistics.median(step_ms[1:])
+        log({"phase": "plan_train_path_done", "run": label,
+             "losses": losses, "equal_to_phase3": losses == phase3_losses[
+                 :len(losses)],
+             "step_ms": step_ms, "step_ms_median_1_on": median,
+             "max_memory_allocated_bytes": peak,
+             "max_memory_allocated_GiB": peak / 2 ** 30})
+        for k, v in launches.items():
+            totals[k] = totals.get(k, 0) + v
+        if label == "plan":
+            profile_step(torch, art, params, opt_state, pipe, dev,
+                         cfg.param_count(), median, "plan")
+        del params, opt_state, art, banked
+        torch.cuda.empty_cache()
+    return totals
+
+
+def check_delayed_step(torch, ref, sc, signum, tcfg, step, before, params,
+                       opt_state, banked) -> None:
+    """delayed_vote: step 0 leaves every parameter bit-equal to its value
+    before it (weight decay 0); step 1 applies exactly the int8 vote
+    banked at step 0 (the plain ternary pack and apply, recomputed)."""
+    eta = signum.lr_at(tcfg.optimizer, step)
+    for k, p in params.items():
+        if step == 0:
+            require_equal(f"delayed step 0 {k}: parameters held", p,
+                          before[k])
+            continue
+        flat = before[k].view(1, -1)
+        words = ref.ternary_pack(sc.pad_last(banked[k].view(1, -1),
+                                             sc.PACK2)[0])
+        want = ref.apply_ternary_vote(sc.pad_to_pack(flat, sc.PACK2)[0],
+                                      words, eta,
+                                      tcfg.optimizer.weight_decay)
+        require_equal(f"delayed step 1 {k}: the vote banked at step 0",
+                      p.view(1, -1), want[:, :flat.shape[1]])
+        del words, want
+    log({"phase": "delayed_vote_check", "step": step, "ok": True})
+
+
+# ---------------------------------------------------------------------------
 # phase 7: timing at the unembedding shape
 # ---------------------------------------------------------------------------
 
@@ -1542,15 +1907,18 @@ def main() -> int:
     errs = check_kernels(torch, ops, ref, sc, dev)
     # every published width of glm4-9b; depth cut to 2 layers
     cfg = dataclasses.replace(get_config("glm4-9b"), num_layers=2)
-    launches = run_train_path(torch, cfg, dev, "sign1bit", "unembed.table",
-                              vote_after=True)
+    launches, sign1bit_losses = run_train_path(
+        torch, cfg, dev, "sign1bit", "unembed.table", vote_after=True)
     for codec, leaf in CHECK_LEAF.items():
-        for k, v in run_train_path(torch, cfg, dev, codec, leaf).items():
+        for k, v in run_train_path(torch, cfg, dev, codec, leaf)[0].items():
             launches[k] += v
     # every momentum_sign_pack launch of the preset path is the bf16-m one
     preset = run_preset_path(torch, cfg, dev)
     launches["momentum_sign_pack_bf16m"] = preset.pop("momentum_sign_pack")
     for k, v in preset.items():
+        launches[k] += v
+    for k, v in run_plan_train_path(torch, cfg, dev,
+                                    sign1bit_losses).items():
         launches[k] += v
     rows = time_kernels(torch, ops, ref, sc, dev, launches, errs)
     never = [r["name"] for r in rows if not r["launches"]]

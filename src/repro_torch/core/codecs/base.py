@@ -158,6 +158,12 @@ class GradientCodec(abc.ABC):
         """After the vote: the (M, n) residual of the leaf from the packed
         `votes` and each voter's :meth:`encode_voter_` result."""
 
+    def feedback_decoded_(self, vote: torch.Tensor,
+                          error: Optional[torch.Tensor],
+                          sent: List[Any]) -> None:
+        """:meth:`feedback_voters_` with the vote already decoded to a
+        flat ±1/0 tensor in the residual's dtype (the plan path's)."""
+
     def end_step(self, server_state: Optional[Dict[str, torch.Tensor]],
                  ctx: Any) -> None:
         """The server state's update once every leaf is voted."""

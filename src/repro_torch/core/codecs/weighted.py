@@ -88,6 +88,21 @@ def ema_update(flip_ema: torch.Tensor, mismatch: torch.Tensor,
     return f(f((1.0 - RHO) * f(flip_ema)) + f(observed * inv_n))
 
 
+def ema_update_fused(flip_ema: torch.Tensor, mismatch: torch.Tensor,
+                     n: int) -> torch.Tensor:
+    """:func:`ema_update` rounded as the reference's plan walk rounds it:
+    under ``jit`` XLA fuses ``(1 - RHO) * ema + (RHO * mismatch) * (1 / n)``
+    into one FMA, a single rounding of the sum. ``(1 - RHO) * ema`` is
+    exact (a halving) and the product of two float32 values is exact in
+    float64, so the float64 sum rounded to float32 is that FMA (up to a
+    double rounding where the exact sum needs more than 53 bits)."""
+    f = sc.flush_subnormals
+    observed = f(RHO * mismatch.to(torch.float32)).double()
+    inv_n = float(np.float32(1.0) / np.float32(n))
+    total = (1.0 - RHO) * f(flip_ema).double() + observed * inv_n
+    return f(total.to(torch.float32))
+
+
 def decode_stacked(stacked: torch.Tensor, flip_ema: torch.Tensor
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(M, ...) ±1 signs + (M,) state -> ((...) int8 ±1 vote, (M,) new

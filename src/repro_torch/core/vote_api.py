@@ -24,17 +24,21 @@ a CUDA tensor the packed ones are the hand-written kernels too: the 1-bit
 stages (``core.vote_engine``), ``ternary2bit``'s 2-bit wire
 (``ternary_pack`` -> ``ternary_majority`` -> ``ternary_unpack``) and
 ``weighted_vote``'s decode of the 1-bit words (``bitpack`` ->
-``bitunpack``, then the weighted sum in torch ops).
+``bitunpack``, then the weighted sum in torch ops). A request with a
+``plan`` (``core.vote_plan.VotePlan``) votes the ``(M, n_params)`` payload
+bucket by bucket through the plan's schedule, each group on its own codec
+and strategy, in the synchronous or (``overlap=True``) double-buffered
+issue order; both give the same bits.
 
 Requests are validated on construction and raise ``ValueError`` where the
 reference does (a wrong shape, an unknown form or codec, a codec that
 cannot ride the strategy, a stateful codec without its server state).
 What the port does not run yet raises ``NotImplementedError`` naming its
 ROADMAP.md item: the ``leaf`` and ``tree`` forms and :class:`MeshBackend`
-(Queue 1 item 5), active failures (item 6), a ``plan`` and ``overlap``
-(item 7), the ``streamed`` form, ``voter_ids`` / ``weights`` and adaptive
-adversaries (item 10). The ``vote.*`` counters and spans of the reference
-arrive with the telemetry layer (item 9).
+(Queue 1 item 5), active failures (item 6), the ``streamed`` form,
+``voter_ids`` / ``weights`` and adaptive adversaries (item 10). The
+``vote.*`` and ``plan.*`` counters and spans of the reference arrive with
+the telemetry layer (item 9).
 """
 from __future__ import annotations
 
@@ -49,6 +53,7 @@ from repro_torch.configs.base import ByzantineConfig, VoteStrategy
 from repro_torch.core import codecs as codecs_mod
 from repro_torch.core import sign_compress as sc
 from repro_torch.core import vote_engine as ve
+from repro_torch.core import vote_plan
 from repro_torch.core.codecs import weighted
 from repro_torch.core.codecs.ternary import TERNARY_WIRE
 from repro_torch.core.sign_compress import pad_last
@@ -128,10 +133,13 @@ class VoteRequest:
 
     `payload` is an ``(M, n)`` array (numpy or torch) of M voters' values
     with ``form="stacked"``; `strategy` is a concrete wire or AUTO;
-    `codec` one of ``codecs.CODECS``; `server_state` threads a stateful
-    codec's decode memory (``weighted_vote``'s ``{"flip_ema": (M,)}``,
-    numpy or torch). The other fields are the reference's and must stay at
-    their defaults in the port (see the module doc)."""
+    `codec` one of ``codecs.CODECS``; `plan` a ``VotePlan`` over n
+    coordinates (its groups' codecs and strategies then supersede `codec`
+    and `strategy`), `overlap` its double-buffered walk; `server_state`
+    threads a stateful codec's decode memory (``weighted_vote``'s
+    ``{"flip_ema": (M,)}``, numpy or torch). The other fields are the
+    reference's and must stay at their defaults in the port (see the
+    module doc)."""
 
     payload: Any
     form: str = "leaf"
@@ -172,6 +180,7 @@ class VoteRequest:
             raise ValueError(
                 "stacked-form payload must be (M, n) — M voters by n "
                 f"coordinates — got shape {tuple(self.payload.shape)}")
+        self._validate_plan()
         if self.failures.n_stale > 0 and self.prev is None:
             raise ValueError(
                 f"failures.n_stale={self.failures.n_stale} substitutes "
@@ -180,9 +189,12 @@ class VoteRequest:
         # a stacked request always decodes through the codec (even M=1),
         # so missing server state is a build-time error, as in the
         # reference
-        if codec.server_state and not self.server_state:
+        needs_state = (self.plan.has_server_state if self.plan is not None
+                       else codec.server_state)
+        if needs_state and not self.server_state:
             raise ValueError(
-                f"codec {self.codec!r} keeps server-side decode state; "
+                f"codec {self.codec!r} (or the plan's codec map) keeps "
+                "server-side decode state; "
                 "thread it through "
                 "VoteRequest.server_state (init_server_state for the "
                 "uninformed prior)")
@@ -207,19 +219,38 @@ class VoteRequest:
         if self.failures.active:
             raise _not_ported("failure composition (stale votes, "
                               "adversaries)", "6")
-        if self.plan is not None:
-            raise _not_ported("the bucketed VotePlan and overlap", "7")
         if self.voter_ids is not None or self.weights is not None:
             raise _not_ported("voter_ids / weights annotations", "10")
+
+    def _validate_plan(self):
+        if self.plan is None:
+            return
+        n = self.payload.shape[-1]
+        if n != self.plan.n_params:
+            raise ValueError(
+                f"{self.form} payload has {n} coordinates, plan manifest "
+                f"says {self.plan.n_params}")
 
     def __repr__(self):  # payloads are arrays — keep the repr readable
         return (f"VoteRequest(form={self.form!r}, strategy="
                 f"{self.strategy.value!r}, codec={self.codec!r}, "
+                f"plan={'yes' if self.plan is not None else None}, "
                 f"failures={self.failures}, salt={self.salt})")
 
 
-def _static_wire(codec_name: str, resolved: VoteStrategy, n_params: int,
-                 n_messages: int, n_voters: int) -> WireReport:
+def _static_wire(plan, codec_name: str, resolved: Optional[VoteStrategy],
+                 n_params: int, n_messages: int,
+                 n_voters: int) -> WireReport:
+    if plan is not None:
+        # one message per bucket; a mixed map resolves no single strategy
+        payload = sum(
+            g.total * codecs_mod.get_codec(g.codec).wire_bits(g.strategy)
+            / 8.0 for g in plan.groups)
+        strategies = {g.strategy for g in plan.groups}
+        return WireReport(
+            n_voters=n_voters, payload_bytes=payload,
+            n_messages=plan.n_buckets,
+            strategy=strategies.pop() if len(strategies) == 1 else None)
     c = codecs_mod.get_codec(codec_name)
     return WireReport(n_voters=n_voters,
                       payload_bytes=n_params * c.wire_bits(resolved) / 8.0,
@@ -228,7 +259,8 @@ def _static_wire(codec_name: str, resolved: VoteStrategy, n_params: int,
 
 def effective_stacked_signs(values: torch.Tensor) -> torch.Tensor:
     """The (M, n) int8 sign tensor that reaches the wire. With no failures
-    (the port's slice) that is the sign extraction alone."""
+    (the port's slice) that is the sign extraction alone (a float32 / bf16
+    subnormal abstains, as in the reference)."""
     return sc.sign_ternary(values)
 
 
@@ -293,6 +325,20 @@ def _virtual_codec_vote(signs: torch.Tensor, strategy: VoteStrategy,
     raise ValueError(f"virtual mesh cannot realise codec {codec!r}")
 
 
+def _virtual_plan_walk(signs: torch.Tensor, plan, server_state,
+                       overlap: bool = False):
+    """(M, n_params) stacked int8 signs -> ((n_params,) int8 votes, new
+    server state) through the plan's bucket schedule, the exchange
+    virtualised per bucket (``vote_plan.VirtualBucketWire``)."""
+    m, n = signs.shape
+    if n != plan.n_params:
+        raise ValueError(f"stacked buffer has {n} coords, plan manifest "
+                         f"says {plan.n_params}")
+    return vote_plan.run_schedule(plan, signs,
+                                  vote_plan.VirtualBucketWire(m),
+                                  server_state, overlap=overlap)
+
+
 class VoteBackend(abc.ABC):
     """Executes :class:`VoteRequest`\\ s."""
 
@@ -352,6 +398,15 @@ class VirtualBackend(VoteBackend):
     def why_unsupported(self, request: VoteRequest) -> Optional[str]:
         if not self.use_kernels:
             return None
+        if request.overlap:
+            return ("the fused-kernel path runs one fused launch per "
+                    "request and cannot double-buffer a bucket "
+                    "schedule (overlap=True); use "
+                    "VirtualBackend(use_kernels=False)")
+        if request.plan is not None:
+            return ("the fused-kernel path has no bucket walk; use "
+                    "vote_plan.plan_vote_stacked or "
+                    "VirtualBackend(use_kernels=False)")
         if request.codec != "sign1bit":
             return ("the fused kernel realises the raw 1-bit wire "
                     f"only, not codec {request.codec!r}")
@@ -374,13 +429,18 @@ class VirtualBackend(VoteBackend):
             votes = ops.bitunpack(ops.fused_majority(x), n, torch.int8)
             state = dict(req.server_state or {})
             resolved = VoteStrategy.ALLGATHER_1BIT
+        elif req.plan is not None:
+            resolved = None
+            eff = effective_stacked_signs(x)
+            votes, state = _virtual_plan_walk(eff, req.plan,
+                                              req.server_state, req.overlap)
         else:
             resolved = ve.resolve_strategy(req.strategy, n, m, 1,
                                            codec=req.codec)
             eff = effective_stacked_signs(x)
             votes, state = _virtual_codec_vote(eff, resolved, req.codec,
                                                req.server_state)
-        wire = _static_wire(req.codec, resolved, n, 1, m)
+        wire = _static_wire(req.plan, req.codec, resolved, n, 1, m)
         return VoteOutcome(votes=votes, server_state=state, wire=wire,
                            wire_signs=eff)
 

@@ -1,0 +1,495 @@
+"""VotePlan: the flat-buffer bucketed vote (``repro.core.vote_plan``;
+DESIGN.md §9, §11).
+
+The leaf-wise vote runs one pack -> exchange -> tally -> unpack round per
+tensor. A :class:`VotePlan`, built once from the parameter shapes, lays
+the voted leaves out in ONE contiguous sign buffer and cuts it into
+buckets:
+
+* **layout manifest** — leaf -> offset / length / shape / dtype, leaves
+  sorted by name and grouped by codec (deterministic on every host);
+* **codec map** — a first-match glob map over leaf names
+  (``(("embed*", "ternary2bit"), ("*", "sign1bit"))``); each codec's
+  leaves form one contiguous group;
+* **bucket schedule** — each group cut into buckets of ``bucket_bytes``
+  wire payload, the length rounded UP to the pack alignment (32, or
+  ``32 * M`` on ``hierarchical``), so only each group's last bucket is
+  ragged.
+
+:func:`run_schedule` walks the schedule over a stacked ``(M, n_params)``
+int8 sign buffer with :class:`VirtualBucketWire`, whose ``issue`` (pack +
+the virtualised exchange) and ``complete`` (tally + unpack + the codec's
+decode) are the strategies' and codecs' own stages, the hand-written
+kernels on a CUDA tensor. ``overlap=True`` issues bucket k before bucket
+k-1 completes; the per-bucket dataflow is the same, so the votes are
+bit-identical to the synchronous walk. A server-stateful codec
+(``weighted_vote``) decodes every bucket under weights fixed for the step
+and folds ONE flip-rate EMA update over the weighted buckets' true
+coordinates, rounded as XLA fuses it (``weighted.ema_update_fused``).
+:func:`plan_vote_stacked` is the fused-kernel twin on the
+gathered 1-bit wire: one ``fused_majority`` and one ``bitunpack`` per
+bucket.
+
+A bucket's columns of the stacked buffer are not contiguous (its rows are
+``n_params`` apart), and the kernels take contiguous rows, so each bucket
+that a kernel reads is copied with ``.contiguous()`` first.
+
+Not ported yet: ``MeshBucketWire``, ``plan_vote_signs`` and
+``plan_tree_vote`` (the collectives, ROADMAP.md Queue 1 item 5), and
+every price of the α–β model (item 15): a plan is built where the
+reference's choice has one candidate (a concrete strategy, or AUTO with
+``data_size * pod_size <= 1``, at a fixed ``bucket_bytes``), which no
+price can change. A priced AUTO, ``bucket_bytes = AUTO_BUCKET_BYTES`` and
+:meth:`VotePlan.schedule_cost` raise ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import fnmatch
+from typing import Dict, Optional, Sequence, Tuple
+
+import torch
+
+from repro_torch.configs.base import VoteStrategy
+from repro_torch.core import codecs as codecs_mod
+from repro_torch.core import sign_compress as sc
+from repro_torch.core.codecs import weighted
+from repro_torch.core.codecs.ternary import TERNARY_WIRE
+from repro_torch.core.vote_engine import STRATEGIES
+from repro_torch.kernels import ops
+
+#: base bucket alignment: lcm of the 1-bit pack (32/word) and the ternary
+#: 2-bit pack (16/word), so an aligned bucket enters every wire pad-free
+ALIGN = 32
+
+#: sentinel for ``bucket_bytes``: the reference's priced ladder of sizes
+AUTO_BUCKET_BYTES = -1
+
+
+def _priced(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} prices bucket schedules with the reference's α–β link "
+        "model, and the port has no H100 link model yet (ROADMAP.md Queue "
+        "1 item 15); name a concrete strategy and a positive bucket_bytes")
+
+
+@dataclasses.dataclass(frozen=True)
+class LeafSlot:
+    """One leaf's slice of the flat buffer (offsets are global)."""
+
+    name: str
+    offset: int
+    length: int
+    shape: Tuple[int, ...]
+    dtype: str
+
+
+@dataclasses.dataclass(frozen=True)
+class Bucket:
+    """One schedule entry: a uniform vote over flat[start:start+length]."""
+
+    codec: str
+    strategy: VoteStrategy
+    start: int
+    length: int
+
+
+@dataclasses.dataclass(frozen=True)
+class PlanGroup:
+    """All leaves sharing one codec: a contiguous run of the flat buffer."""
+
+    codec: str
+    strategy: VoteStrategy          # resolved, never AUTO
+    start: int
+    total: int
+    leaves: Tuple[LeafSlot, ...]
+    buckets: Tuple[Bucket, ...]
+    #: the bucket size the schedule was cut at
+    bucket_bytes: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class VotePlan:
+    """The layout manifest + bucket schedule (hashable, static)."""
+
+    groups: Tuple[PlanGroup, ...]
+    bucket_bytes: int
+    n_params: int
+
+    @property
+    def buckets(self) -> Tuple[Bucket, ...]:
+        return tuple(b for g in self.groups for b in g.buckets)
+
+    @property
+    def leaves(self) -> Tuple[LeafSlot, ...]:
+        return tuple(s for g in self.groups for s in g.leaves)
+
+    @property
+    def n_buckets(self) -> int:
+        return sum(len(g.buckets) for g in self.groups)
+
+    @property
+    def has_server_state(self) -> bool:
+        return any(codecs_mod.get_codec(g.codec).server_state
+                   for g in self.groups)
+
+    @property
+    def worker_state_leaves(self) -> Tuple[str, ...]:
+        """Leaf names whose codec carries per-worker memory (EF residual)."""
+        return tuple(s.name for g in self.groups for s in g.leaves
+                     if codecs_mod.get_codec(g.codec).worker_state)
+
+    def leaf_codecs(self) -> Dict[str, str]:
+        return {s.name: g.codec for g in self.groups for s in g.leaves}
+
+    def init_server_state(self, n_workers: int, device=None
+                          ) -> Dict[str, torch.Tensor]:
+        """Union of the schedule's codec server states ({} if stateless)."""
+        state: Dict[str, torch.Tensor] = {}
+        for g in self.groups:
+            state.update(codecs_mod.get_codec(g.codec)
+                         .init_server_state(n_workers, device))
+        return state
+
+    def schedule_cost(self, data_size: int, pod_size: int = 1,
+                      overlap: bool = False) -> float:
+        """The reference's α–β wall-clock of the schedule: not ported."""
+        raise _priced("VotePlan.schedule_cost")
+
+
+# ---------------------------------------------------------------------------
+# building
+# ---------------------------------------------------------------------------
+
+
+def resolve_codec_map(names: Sequence[str],
+                      codec_map: Sequence[Tuple[str, str]],
+                      default_codec: str = "sign1bit") -> Dict[str, str]:
+    """First matching glob wins; unmatched leaves take `default_codec`.
+    Every mapped codec name is validated against the registry."""
+    for pat, codec in codec_map:
+        codecs_mod.get_codec(codec)          # raises on unknown codec
+        if not pat:
+            raise ValueError("empty glob pattern in codec_map")
+    out = {}
+    for name in names:
+        for pat, codec in codec_map:
+            if fnmatch.fnmatchcase(name, pat):
+                out[name] = codec
+                break
+        else:
+            out[name] = default_codec
+    return out
+
+
+def _bucket_elems(bucket_bytes: int, bits_per_param: float,
+                  align: int) -> int:
+    """Bucket length in coordinates: `bucket_bytes` of wire payload,
+    rounded UP to `align`."""
+    elems = max(1, int(bucket_bytes * 8 / bits_per_param))
+    return -(-elems // align) * align
+
+
+def _group_align(strategy: VoteStrategy, data_size: int) -> int:
+    # hierarchical pads each vote to PACK * data_size (its reduce-scatter
+    # shards stay word-aligned); aligning its buckets to that keeps one
+    # padded lane set per group
+    if strategy == VoteStrategy.HIERARCHICAL:
+        return ALIGN * max(data_size, 1)
+    return ALIGN
+
+
+def _resolve_group(codec_name: str, strategy: VoteStrategy,
+                   bucket_bytes: int, data_size: int,
+                   pod_size: int) -> Tuple[VoteStrategy, int]:
+    """Concrete (strategy, bucket_bytes) for one codec group. The port
+    resolves the reference's choice only where it has a single candidate,
+    so no price decides it (``vote_plan.py:255-263``)."""
+    codec = codecs_mod.get_codec(codec_name)
+    if strategy != VoteStrategy.AUTO:
+        codec.validate_strategy(strategy)
+        candidates = [strategy]
+    else:
+        candidates = list(codec.supported_strategies)
+        if data_size * pod_size <= 1:
+            candidates = [VoteStrategy.PSUM_INT8
+                          if VoteStrategy.PSUM_INT8 in candidates
+                          else candidates[0]]
+    if bucket_bytes == AUTO_BUCKET_BYTES:
+        raise _priced(f"bucket_bytes=AUTO_BUCKET_BYTES ({AUTO_BUCKET_BYTES})")
+    if len(candidates) > 1:
+        raise _priced(f"vote_strategy=auto over {data_size * pod_size} "
+                      "voters in a VotePlan")
+    return candidates[0], bucket_bytes
+
+
+def _cut_buckets(codec_name: str, strategy: VoteStrategy, start: int,
+                 total: int, bucket_bytes: int, data_size: int
+                 ) -> Tuple[Bucket, ...]:
+    bits = codecs_mod.get_codec(codec_name).bits_per_param
+    elems = _bucket_elems(bucket_bytes, bits,
+                          _group_align(strategy, data_size))
+    out = []
+    off = 0
+    while off < total:
+        length = min(elems, total - off)
+        out.append(Bucket(codec=codec_name, strategy=strategy,
+                          start=start + off, length=length))
+        off += length
+    return tuple(out)
+
+
+def build_plan(shapes: Dict[str, Tuple[int, ...]], *, bucket_bytes: int,
+               codec_map: Sequence[Tuple[str, str]] = (),
+               default_codec: str = "sign1bit",
+               strategy: VoteStrategy = VoteStrategy.AUTO,
+               data_size: int = 1, pod_size: int = 1,
+               dtypes: Optional[Dict[str, str]] = None,
+               overlap: bool = False) -> VotePlan:
+    """Build the static plan for a tree of `shapes` (leaf name -> shape),
+    as the reference does: leaves in sorted-name order, grouped by their
+    resolved codec (groups in order of first appearance). `overlap` only
+    changes the reference's pricing, which the port does not run (see the
+    module doc); the manifest never depends on it."""
+    if bucket_bytes <= 0 and bucket_bytes != AUTO_BUCKET_BYTES:
+        raise ValueError(
+            f"bucket_bytes must be positive (or AUTO_BUCKET_BYTES=-1 for "
+            f"the priced ladder), got {bucket_bytes}")
+    names = sorted(shapes)
+    if not names:
+        raise ValueError("cannot build a VotePlan over an empty tree")
+    leaf_codec = resolve_codec_map(names, codec_map, default_codec)
+    codec_order = []
+    for name in names:
+        if leaf_codec[name] not in codec_order:
+            codec_order.append(leaf_codec[name])
+    groups = []
+    offset = 0
+    for codec_name in codec_order:
+        members = [n for n in names if leaf_codec[n] == codec_name]
+        slots, start = [], offset
+        for n in members:
+            shape = tuple(shapes[n])
+            length = 1
+            for d in shape:
+                length *= d
+            slots.append(LeafSlot(
+                name=n, offset=offset, length=length, shape=shape,
+                dtype=(dtypes or {}).get(n, "float32")))
+            offset += length
+        total = offset - start
+        resolved, group_bytes = _resolve_group(
+            codec_name, strategy, bucket_bytes, data_size, pod_size)
+        groups.append(PlanGroup(
+            codec=codec_name, strategy=resolved, start=start, total=total,
+            leaves=tuple(slots),
+            buckets=_cut_buckets(codec_name, resolved, start, total,
+                                 group_bytes, data_size),
+            bucket_bytes=group_bytes))
+    return VotePlan(groups=tuple(groups), bucket_bytes=bucket_bytes,
+                    n_params=offset)
+
+
+# ---------------------------------------------------------------------------
+# flatten / unflatten (the layout round-trip)
+# ---------------------------------------------------------------------------
+
+
+def write_signs(slot: LeafSlot, values: torch.Tensor,
+                out: torch.Tensor) -> None:
+    """``sign_ternary`` of one leaf's `values` into its slice of the flat
+    int8 buffer `out` (``(n_params,)``, or a voter's row of the stacked
+    buffer)."""
+    if values.numel() != slot.length:
+        raise ValueError(
+            f"leaf {slot.name!r} has shape {tuple(values.shape)}, plan "
+            f"manifest says {slot.shape}")
+    sc.sign_ternary(values.reshape(-1),
+                    out=out[slot.offset:slot.offset + slot.length])
+
+
+def flatten_signs(plan: VotePlan, tree: Dict[str, torch.Tensor]
+                  ) -> torch.Tensor:
+    """Tree of one voter's values -> (n_params,) int8 ternary signs in
+    manifest order (sign extraction per leaf, as the trainer's plan path
+    writes each voter's row with :func:`write_signs`)."""
+    out = torch.empty(plan.n_params, dtype=torch.int8,
+                      device=tree[plan.leaves[0].name].device)
+    for slot in plan.leaves:
+        leaf = tree[slot.name]
+        if tuple(leaf.shape) != slot.shape:
+            raise ValueError(
+                f"leaf {slot.name!r} has shape {tuple(leaf.shape)}, plan "
+                f"manifest says {slot.shape}")
+        write_signs(slot, leaf, out)
+    return out
+
+
+def unflatten_votes(plan: VotePlan, flat: torch.Tensor,
+                    tree: Dict[str, torch.Tensor]) -> Dict:
+    """(n_params,) flat votes -> tree of leaf-shaped votes in each leaf's
+    own dtype (the inverse of :func:`flatten_signs`)."""
+    return {slot.name: flat[slot.offset:slot.offset + slot.length]
+            .view(slot.shape).to(tree[slot.name].dtype)
+            for slot in plan.leaves}
+
+
+# ---------------------------------------------------------------------------
+# execution: the schedule executor (DESIGN.md §11)
+# ---------------------------------------------------------------------------
+
+
+class VirtualBucketWire:
+    """issue/complete of one bucket over a stacked ``(M, n)`` voter dim,
+    the exchange replaced by its exact equivalent (the reference's
+    ``VirtualBucketWire``)."""
+
+    def __init__(self, m: int):
+        self.m = m
+
+    def issue(self, bucket: Bucket, seg: torch.Tensor) -> torch.Tensor:
+        m = self.m
+        if bucket.codec == "ternary2bit" \
+                and bucket.strategy == VoteStrategy.ALLGATHER_1BIT:
+            return TERNARY_WIRE.pack(seg.contiguous(), m)  # gathered
+        if bucket.codec == "weighted_vote":
+            return STRATEGIES[VoteStrategy.ALLGATHER_1BIT].pack(
+                seg.contiguous(), m)
+        impl = STRATEGIES[bucket.strategy]
+        if bucket.strategy == VoteStrategy.PSUM_INT8:
+            wire = impl.pack(seg, m)
+            # psum over the voters == sum over the voter dim, in the wire
+            # dtype (safe: |sum| <= M <= dtype max)
+            return torch.sum(wire, dim=0, dtype=wire.dtype)
+        if bucket.strategy == VoteStrategy.ALLGATHER_1BIT:
+            return impl.pack(seg.contiguous(), m)
+        if bucket.strategy == VoteStrategy.HIERARCHICAL:
+            # one virtual pod: the data axis is all M voters; pad so the
+            # reduce-scatter shards stay word-aligned
+            padded, _ = sc.pad_last(seg, sc.PACK * m)
+            wire = impl.pack(padded, m)
+            summed = torch.sum(wire, dim=0, dtype=wire.dtype)
+            return summed.view(m, -1)
+        raise ValueError(f"virtual wire cannot realise {bucket.strategy!r}")
+
+    def complete(self, bucket: Bucket, arrived: torch.Tensor,
+                 w: Optional[Sequence[float]]):
+        """-> (votes int8 (length,), mismatch (M,) int64 or None)."""
+        m = self.m
+        if bucket.codec == "ternary2bit" \
+                and bucket.strategy == VoteStrategy.ALLGATHER_1BIT:
+            return TERNARY_WIRE.unpack(TERNARY_WIRE.tally(arrived, m),
+                                       bucket.length, torch.int8), None
+        if bucket.codec == "weighted_vote":
+            # the padding lanes are cropped before the decode
+            return weighted.decode_leaf_fixed(
+                weighted.stacked_signs(arrived, bucket.length), w)
+        impl = STRATEGIES[bucket.strategy]
+        return impl.unpack(impl.tally(arrived, m), bucket.length,
+                           torch.int8), None
+
+
+def run_schedule(plan: VotePlan, buf: torch.Tensor, wire: VirtualBucketWire,
+                 server_state=None, overlap: bool = False):
+    """Walk the bucket schedule over the ``(M, n_params)`` stacked int8
+    signs `buf` -> ((n_params,) int8 votes, new server state).
+
+    ``overlap=False`` completes each bucket before issuing the next;
+    ``overlap=True`` issues bucket k, THEN completes bucket k-1. The
+    per-bucket dataflow is the same, so the two walks are bit-identical.
+    Server-stateful codecs decode every bucket under weights fixed for the
+    step and fold ONE flip-rate EMA update across the schedule, over the
+    weighted buckets' true coordinate count."""
+    state = dict(server_state) if server_state else {}
+    w = None
+    if plan.has_server_state:
+        if "flip_ema" not in state:
+            raise ValueError(
+                "plan carries a server-stateful codec; thread its server "
+                "state (init_server_state) through the request")
+        ema = torch.as_tensor(state["flip_ema"], dtype=torch.float32,
+                              device=buf.device)
+        w = weighted.reliability_weights(ema).tolist()
+    buckets = plan.buckets
+    votes = torch.empty(plan.n_params, dtype=torch.int8, device=buf.device)
+    mismatch, total_w = None, 0
+
+    def issue(k: int) -> torch.Tensor:
+        b = buckets[k]
+        return wire.issue(b, buf[..., b.start:b.start + b.length])
+
+    def complete(k: int, inflight) -> None:
+        nonlocal mismatch, total_w
+        b = buckets[k]
+        vote, mis = wire.complete(b, inflight, w)
+        votes[b.start:b.start + b.length] = vote
+        if mis is not None:
+            mismatch = mis if mismatch is None else mismatch + mis
+            total_w += b.length
+
+    if overlap and len(buckets) > 1:
+        inflight = issue(0)
+        for k in range(1, len(buckets)):
+            nxt = issue(k)
+            complete(k - 1, inflight)
+            inflight = nxt
+        complete(len(buckets) - 1, inflight)
+    else:
+        for k in range(len(buckets)):
+            complete(k, issue(k))
+    if mismatch is not None:
+        state["flip_ema"] = weighted.ema_update_fused(ema, mismatch,
+                                                      total_w)
+    return votes, state
+
+
+# ---------------------------------------------------------------------------
+# execution: the stacked fused-kernel path
+# ---------------------------------------------------------------------------
+
+
+def plan_vote_stacked(plan: VotePlan, stacked: torch.Tensor,
+                      use_kernels: bool = True) -> torch.Tensor:
+    """The stacked ``(M, n_params)`` values -> (n_params,) int8 votes, per
+    bucket on the bucket's uniform shape: a 1-bit bucket with ONE
+    ``fused_majority`` and ONE ``bitunpack`` launch (``use_kernels=False``:
+    the staged ``bitpack`` -> ``majority`` -> ``bitunpack``, the same
+    decision), a ternary bucket with ``ternary_pack`` -> ``ternary_majority``
+    -> ``ternary_unpack``.
+
+    Realises the GATHERED wire only: the binary majority (ties -> +1) is
+    ``allgather_1bit``'s tie rule, and there is no server-state decode, so
+    other plans are rejected with the reference's reasons."""
+    for bucket in plan.buckets:
+        if bucket.strategy != VoteStrategy.ALLGATHER_1BIT:
+            raise ValueError(
+                f"plan_vote_stacked realises the gathered 1-bit wire; "
+                f"bucket strategy {bucket.strategy.value!r} has different "
+                "tie semantics (use plan_vote_signs / virtual_plan_vote)")
+        if bucket.codec == "weighted_vote":
+            raise ValueError(
+                "plan_vote_stacked has no server-state decode; route "
+                "weighted_vote plans through virtual_plan_vote")
+    votes = torch.empty(plan.n_params, dtype=torch.int8,
+                        device=stacked.device)
+    for bucket in plan.buckets:
+        seg = stacked[:, bucket.start:bucket.start + bucket.length]
+        seg = seg.contiguous()
+        out = votes[bucket.start:bucket.start + bucket.length]
+        if bucket.codec == "ternary2bit":
+            out.copy_(TERNARY_WIRE.vote(seg))
+        elif use_kernels:
+            out.copy_(ops.bitunpack(ops.fused_majority(seg), bucket.length,
+                                    torch.int8))
+        else:
+            out.copy_(ops.bitunpack(ops.majority(ops.bitpack(seg)),
+                                    bucket.length, torch.int8))
+    return votes
+
+
+__all__ = [
+    "ALIGN", "AUTO_BUCKET_BYTES", "Bucket", "LeafSlot", "PlanGroup",
+    "VirtualBucketWire", "VotePlan", "build_plan", "flatten_signs",
+    "plan_vote_stacked", "resolve_codec_map", "run_schedule",
+    "unflatten_votes", "write_signs",
+]

@@ -26,6 +26,15 @@ One step:
 2. per leaf, the tally kernel and the vote-apply kernel, updating the
    parameters in place, and the codec's feedback.
 
+With ``OptimizerConfig.bucket_bytes > 0`` the step builds a
+``core.vote_plan.VotePlan`` over every leaf, as the reference's
+``make_train_step`` does (``train/train_step.py:161-187``: the
+optimizer's codec map and strategy, ``data_size = M``, since the stacked
+voters are the virtual mesh, and the parameters' dtype), and the
+optimizer votes through its buckets (``core.signum``); ``art.plan`` is
+the plan and ``art.vote_strategy`` its groups' one strategy (None for a
+map whose groups resolve differently).
+
 ``metrics["loss"]`` (and ``"ce"``, ``"aux"``) is the mean over the voters
 of each voter's mean over its chunks. Unlike the JAX step, which returns
 new arrays, this one updates `params` and `opt_state` in place (and
@@ -43,6 +52,7 @@ import torch
 from repro_torch import DeviceLike, resolve_device
 from repro_torch.configs.base import ModelConfig, TrainConfig, VoteStrategy
 from repro_torch.core import signum
+from repro_torch.core import vote_plan as vp
 from repro_torch.models import model as M, transformer
 
 
@@ -56,7 +66,10 @@ class StepArtifacts:
     device: torch.device
     codec: str = "sign1bit"
     #: resolved (never AUTO), as the reference's ``StepArtifacts`` has it
+    #: (under a plan its groups' one strategy, None for a mixed map)
     vote_strategy: Optional[VoteStrategy] = None
+    #: the bucketed vote plan (``OptimizerConfig.bucket_bytes > 0``)
+    plan: Optional[vp.VotePlan] = None
 
 
 def _validate(tcfg: TrainConfig, n_voters: int) -> None:
@@ -132,7 +145,24 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, n_voters: int = 1,
     (default ``"cuda"``; raises without a card unless ``device="cpu"``)."""
     dev = resolve_device(device)
     _validate(tcfg, n_voters)
-    opt = signum.make_sign_optimizer(tcfg.optimizer, n_voters)
+    opt_cfg = tcfg.optimizer
+    plan = None
+    if opt_cfg.bucket_bytes != 0 and opt_cfg.kind == "signum_vote":
+        # the reference's plan: every leaf (Mode A), its codec map and the
+        # configured (unresolved) strategy, over the M stacked voters
+        shapes = cfg.param_shapes()
+        plan = vp.build_plan(
+            shapes, bucket_bytes=opt_cfg.bucket_bytes,
+            codec_map=opt_cfg.codec_map,
+            default_codec=opt_cfg.resolved_codec,
+            strategy=opt_cfg.vote_strategy, data_size=n_voters,
+            pod_size=1, dtypes={k: cfg.dtype for k in shapes},
+            overlap=opt_cfg.overlap)
+    opt = signum.make_sign_optimizer(opt_cfg, n_voters, plan)
+    resolved = opt.strategy
+    if plan is not None:
+        group_strats = {g.strategy for g in plan.groups}
+        resolved = group_strats.pop() if len(group_strats) == 1 else None
     per = tcfg.global_batch // n_voters
 
     def step_fn(params: Dict[str, torch.Tensor], opt_state: Dict, batch,
@@ -156,7 +186,7 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, n_voters: int = 1,
 
     return StepArtifacts(step_fn=step_fn, optimizer=opt, device=dev,
                          codec=tcfg.optimizer.resolved_codec,
-                         vote_strategy=opt.strategy)
+                         vote_strategy=resolved, plan=plan)
 
 
 def materialize_state(cfg: ModelConfig, tcfg: TrainConfig,
@@ -165,10 +195,12 @@ def materialize_state(cfg: ModelConfig, tcfg: TrainConfig,
     """Concrete (params, opt_state) on the step's device: parameters drawn
     from `generator` by the reference's init rules, zero momentum
     ``(M, *leaf_shape)`` in ``momentum_dtype``, and the codec's state as
-    the reference lays it out (``train_step.py:375-390``): a zero
+    the reference lays it out (``train_step.py:365-390``): a zero
     ``"error"`` residual shaped and typed like the momentum for
-    ``ef_sign``, ``"codec": {"flip_ema":
-    (M,) float32 zeros}`` for ``weighted_vote``."""
+    ``ef_sign`` (under a plan, for its ``ef_sign`` leaves only),
+    ``"codec": {"flip_ema": (M,) float32 zeros}`` for ``weighted_vote``
+    (or a plan that maps a leaf to it), and ``"delayed"``, one zero int8
+    tensor per leaf, for ``delayed_vote``."""
     dev = art.device if device is None else resolve_device(device)
     if dev != art.device:
         raise ValueError(f"state on {dev} but the step runs on {art.device}")

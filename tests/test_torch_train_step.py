@@ -646,9 +646,10 @@ def test_codec_state_layout_and_in_place(codec):
 @pytest.mark.parametrize("opt", [
     {"vote_strategy": tbase.VoteStrategy.HIERARCHICAL},
     {"momentum_mode": tbase.MomentumMode.GLOBAL},
-    {"delayed_vote": True},
+    # the priced AUTO ladder of bucket sizes (Queue 1 item 15)
+    {"bucket_bytes": -1},
     {"momentum": 0.0},
-    {"bucket_bytes": 4096},
+    {"bucket_bytes": -1, "overlap": True},
     {"kind": "signsgd_vote"},
 ])
 def test_unported_options_raise(opt):

@@ -24,6 +24,7 @@ from repro_torch.configs.base import VoteStrategy as TStrategy  # noqa: E402
 from repro_torch.core import codecs as tcodecs  # noqa: E402
 from repro_torch.core import vote_api as tva  # noqa: E402
 from repro_torch.core import vote_engine as tve  # noqa: E402
+from repro_torch.core import vote_plan as tvp  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 
 WIRES = ("psum_int8", "allgather_1bit", "hierarchical")
@@ -390,15 +391,22 @@ def _not_ported_cases():
                 byz=TByz(mode="sign_flip", num_adversaries=1)))),
         "stragglers": ("6", lambda: tva.VoteRequest(
             **stacked, prev=x, failures=tva.FailureSpec(n_stale=1))),
-        "plan": ("7", lambda: tva.VoteRequest(**stacked, plan=object())),
-        "overlap": ("7", lambda: tva.VoteRequest(**stacked, plan=object(),
-                                                 overlap=True)),
+        # a plan runs since item 7; pricing one needs an H100 link model
+        "plan": ("15", lambda: tvp.build_plan(
+            {"a": (70,)}, bucket_bytes=8, data_size=5)),
+        "overlap": ("15", lambda: tvp.build_plan(
+            {"a": (70,)}, bucket_bytes=tvp.AUTO_BUCKET_BYTES,
+            strategy=TStrategy.ALLGATHER_1BIT, overlap=True)),
         # every codec runs on the stacked form; these requests combine
         # one with what is still unported
         "ef_sign": ("5", lambda: tva.VoteRequest(payload=x[0],
                                                  codec="ef_sign")),
-        "ternary2bit": ("7", lambda: tva.VoteRequest(
-            **stacked, codec="ternary2bit", plan=object())),
+        "ternary2bit": ("6", lambda: tva.VoteRequest(
+            **stacked, codec="ternary2bit", prev=x,
+            plan=tvp.build_plan({"a": (70,)}, bucket_bytes=8,
+                                default_codec="ternary2bit",
+                                strategy=TStrategy.ALLGATHER_1BIT),
+            failures=tva.FailureSpec(n_stale=1))),
         "weighted_vote": ("6", lambda: tva.VoteRequest(
             **stacked, codec="weighted_vote",
             server_state={"flip_ema": np.zeros(5, np.float32)},
