@@ -34,7 +34,16 @@ Phases, each of which fails the run (non-zero exit) on any disagreement:
    bf16 momentum (the preset's instantiation) takes g float32 and bf16 at
    every n of SIZES, beta in {0.9, 0.99, 0.5 + 2^-9 + 2^-31}, planted +0.0
    and -0.0 in g and m, a new m' with the words and m' in place with and
-   without them (m' compared bit for bit, -0.0 apart from +0.0). The float
+   without them (m' compared bit for bit, -0.0 apart from +0.0). All four
+   momentum_sign_pack instantiations (g float32 / bf16 x m float32 / bf16)
+   also run at the applies' sizes on g and m views 0, 1 and 3 elements past
+   a 16-byte boundary (and g and m apart), in place and into an m_out one
+   element further along, with and without the words, m carrying +0.0,
+   -0.0 and a NaN (a NaN m' equals any NaN; bit 0). bitpack also reads
+   strided views, all three dtypes: windows of a (7, 8256) and a (7, 8261)
+   buffer (rows on and off 16-byte boundaries) at 1, 4 and 7 rows, from
+   columns 0, 32 and 1, of every length 4096 + r, r < 32, and a window of a
+   (4, 620,756,992) buffer whose last row starts past 2^31 bytes. The float
    payloads of every float-reading kernel carry planted float32 / bf16
    subnormals (SUBNORMALS), the momenta SUBNORMAL_MOMENTA beside g = 0
    (beta * m a subnormal operand or result), the applies subnormal
@@ -77,7 +86,9 @@ Phases, each of which fails the run (non-zero exit) on any disagreement:
    (13 buckets, its flip-rate state): each overlap result bit-equal to its
    sync twin, the stateless wires' votes bit-equal to phase 4's leaf-wise
    votes of each leaf, CUDA-event ms and the peak above the resident
-   buffers printed; the 13 per-bucket copies timed alone; then
+   buffers printed; the per-bucket copies that remain (the 25 ternary and
+   the 13 fused_majority buckets; bitpack reads a 1-bit bucket in place)
+   timed alone; then
    ``plan_vote_stacked`` at 1<<24 and 1<<20 (197 buckets): exactly one
    fused_majority and one bitunpack per bucket, bit-equal to the staged
    plan;
@@ -107,7 +118,10 @@ Phases, each of which fails the run (non-zero exit) on any disagreement:
    more step under torch.profiler;
 7. each kernel timed at the unembedding shape (median of CUDA-event-timed
    launches after warm-up) beside its plain version and its bound;
-   momentum_sign_pack with bf16 momentum as a row of its own; beside
+   momentum_sign_pack with bf16 momentum as a row of its own, each beside
+   ``m.add_(g, alpha=0.1)`` of its dtypes (the stream yardstick); bitpack of
+   the (4, n) float32, bf16 and (its own row) int8 stack, each also read one
+   element off each row's 16-byte boundary (the element path); beside
    ternary_pack of a float32 row, its bf16 row (the preset's); beside the
    applies, a bf16 copy of the same n elements (the stream yardstick) and
    apply_vote on float32 parameters; beside the tallies, their times at
@@ -119,7 +133,8 @@ Phases, each of which fails the run (non-zero exit) on any disagreement:
    exact launches per step (momentum_sign_pack without words, per bucket
    bitpack / majority / bitunpack, per leaf ternary_pack and
    apply_ternary_vote of the int8 vote), its losses equal to phase 3's
-   bit for bit, a profiled step; again with overlap=True (the same
+   bit for bit, a profiled step (its PyTorch copy launches counted); again
+   with overlap=True (the same
    losses); a codec map (the embedding on ternary2bit) for 2 steps with
    finite losses and exact launches per group; delayed_vote for 2 steps,
    step 0 leaving every parameter as it was and step 1 applying exactly
@@ -313,7 +328,7 @@ def check_sign_kernels(torch, ops, ref, sc, dev, err) -> int:
             del words
         torch.cuda.synchronize()
     n_checks += check_stacked_unpack(torch, ops, ref, sc, dev, gen, err)
-    return n_checks
+    return n_checks + check_bitpack_strided(torch, ops, ref, sc, dev, gen, err)
 
 
 def check_stacked_unpack(torch, ops, ref, sc, dev, gen, err) -> int:
@@ -339,6 +354,55 @@ def check_stacked_unpack(torch, ops, ref, sc, dev, gen, err) -> int:
     log({"phase": "stacked_bitunpack", "n": n, "voters": M_MAIN,
          "ok": True})
     return 1
+
+
+#: bitpack's strided checks: windows of a (rows, width) buffer, its rows
+#: `width` elements apart (the first width keeps every row on a 16-byte
+#: boundary in every dtype, the second drifts off it); windows starting at
+#: column 0, 32 (a bucket's ALIGN) and 1 (off 16 bytes), STRIDE_LENGTHS
+#: long (each remainder mod 32, past the 2048 elements of an int8 unit)
+STRIDE_WIDTHS = (8256, 8261)
+STRIDE_STARTS = (0, 32, 1)
+STRIDE_LENGTHS = tuple(4096 + r for r in range(32))
+
+
+def check_bitpack_strided(torch, ops, ref, sc, dev, gen, err) -> int:
+    """bitpack on strided views (each row contiguous, the rows a buffer's
+    width apart, as the plan's buckets are), float32 / bf16 / int8, rows in
+    PACK_ROWS, every window of STRIDE_WIDTHS x STRIDE_STARTS x
+    STRIDE_LENGTHS, and a window of a (4, N_UNEMBED) buffer whose last row
+    starts past 2^31 bytes: bit-equal to the plain version of the zero-padded
+    contiguous window. Updates `err`, returns the number of checks."""
+    n_checks = 0
+    for dtype in (torch.float32, torch.bfloat16, torch.int8):
+        for width in STRIDE_WIDTHS:
+            buf = signed_payload(torch, gen, (max(PACK_ROWS), width), dtype,
+                                 dev)
+            for rows in PACK_ROWS:
+                for c0 in STRIDE_STARTS:
+                    for n in STRIDE_LENGTHS:
+                        x = buf[:rows, c0:c0 + n]
+                        err["bitpack"] = max(err["bitpack"], require_equal(
+                            f"bitpack {dtype} rows={rows} width={width} "
+                            f"window {c0}..{c0 + n}", ops.bitpack(x),
+                            ref.bitpack(sc.pad_last(x.contiguous(),
+                                                    sc.PACK)[0])))
+                        n_checks += 1
+            del buf
+    for dtype in (torch.float32, torch.bfloat16, torch.int8):
+        buf = signed_payload(torch, gen, (M_MAIN, N_UNEMBED), dtype, dev)
+        c0 = N_UNEMBED // 2 + 32
+        x = buf[:, c0:N_UNEMBED - 7]
+        if ((M_MAIN - 1) * N_UNEMBED + c0) * dtype.itemsize < 2 ** 31:
+            raise AssertionError("the window's last row is below 2^31 bytes")
+        err["bitpack"] = max(err["bitpack"], require_equal(
+            f"bitpack {dtype} ({M_MAIN}, {N_UNEMBED}) window "
+            f"{c0}..{N_UNEMBED - 7}", ops.bitpack(x),
+            ref.bitpack(sc.pad_last(x.contiguous(), sc.PACK)[0])))
+        n_checks += 1
+        del buf, x
+        torch.cuda.synchronize()
+    return n_checks
 
 
 def check_scale(torch, what: str, t, got) -> float:
@@ -600,6 +664,99 @@ def check_momentum_bf16(torch, ops, ref, sc, dev, err) -> int:
     return n_checks
 
 
+#: momentum_sign_pack's placement checks: (g, m) offsets in elements past a
+#: 16-byte boundary (each of APPLY_OFFSETS, and g and m apart); m_out is m
+#: itself (in place) or a view (m's offset + 1) % 4 past a boundary
+MSP_PLACEMENTS = tuple((o, o) for o in APPLY_OFFSETS) + ((1, 0), (0, 3))
+#: the four instantiations: (g dtype, m dtype) by name, and the name under
+#: which phase 2 reports them
+MSP_DTYPES = (("float32", "float32", "momentum_sign_pack"),
+              ("bfloat16", "float32", "momentum_sign_pack"),
+              ("float32", "bfloat16", "momentum_sign_pack_bf16m"),
+              ("bfloat16", "bfloat16", "momentum_sign_pack_bf16m"))
+
+
+def require_bits_equal(torch, what: str, got, want) -> float:
+    """`got` bit-equal to `want` (float32 / bf16 compared as bit patterns,
+    so -0.0 differs from +0.0), a NaN equal to any NaN: neither the kernel
+    nor the plain version specifies a NaN's payload."""
+    both_nan = torch.isnan(got) & torch.isnan(want)
+    bits = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+    if not torch.equal(torch.isnan(got), torch.isnan(want)):
+        raise AssertionError(f"{what}: NaN where the plain version has none")
+    return require_equal(what, got.masked_fill(both_nan, 0).view(
+        bits[got.dtype]), want.masked_fill(both_nan, 0).view(bits[got.dtype]))
+
+
+def check_momentum_placement(torch, ops, ref, sc, dev, err) -> int:
+    """momentum_sign_pack, all four instantiations (g float32 / bf16 x m
+    float32 / bf16), at APPLY_SIZES (below, at and past one 1024-element
+    segment), with g and m views at MSP_PLACEMENTS, in place (m_out = m)
+    and into a separate m_out one element further along, with and without
+    the words (the 16-byte path and the element path). m carries planted
+    +0.0, -0.0, a NaN (m' NaN, bit 0) and SUBNORMAL_MOMENTA, g subnormals.
+    m' bit-equal to the plain version (a NaN to a NaN), the words bit-equal,
+    the elements around every view unchanged. Updates `err`; returns the
+    number of checks."""
+    gen = torch.Generator(device=dev).manual_seed(9753)
+    n_checks = 0
+    for n in APPLY_SIZES:
+        w = sc.words_for(n)
+        for gname, mname, name in MSP_DTYPES:
+            gdt, mdt = getattr(torch, gname), getattr(torch, mname)
+            g0 = torch.randn(n, generator=gen, device=dev).to(gdt)
+            m0 = torch.randn(n, generator=gen, device=dev).to(mdt)
+            g0[::7], m0[::7] = 0.0, 0.0
+            m0[3::7] = -0.0
+            m0[4::97] = float("nan")
+            plant_momenta(g0, m0)
+            m_r, p_r = ref.momentum_sign_pack(sc.pad_to_pack(g0)[0],
+                                              sc.pad_to_pack(m0)[0], BETA)
+            m_r = m_r[:n]
+            e = 0.0
+            for g_off, m_off in MSP_PLACEMENTS:
+                gbuf = torch.zeros(g_off + n + 5, dtype=gdt, device=dev)
+                gbuf[g_off:g_off + n] = g0
+                g = gbuf[g_off:g_off + n]
+                mbuf = torch.full((m_off + n + 5,), 7.0, dtype=mdt,
+                                  device=dev)
+                for in_place in (True, False):
+                    o = m_off if in_place else (m_off + 1) % 4
+                    obuf = mbuf if in_place else torch.full(
+                        (o + n + 5,), 7.0, dtype=mdt, device=dev)
+                    for pack in (True, False):
+                        mbuf[m_off:m_off + n] = m0
+                        m = mbuf[m_off:m_off + n]
+                        m_out = obuf[o:o + n]
+                        guard = obuf.clone()
+                        what = (f"{name} n={n} g {gname}+{g_off} m "
+                                f"{mname}+{m_off} "
+                                + ("in place" if in_place
+                                   else f"m_out+{o}") + f" pack={pack}")
+                        _, words = ops.momentum_sign_pack(
+                            g, m, BETA, m_out=m_out, pack=pack)
+                        e = max(e, require_bits_equal(torch, f"{what} m'",
+                                                      m_out, m_r))
+                        if pack:
+                            e = max(e, require_equal(f"{what} words", words,
+                                                     p_r))
+                        elif words is not None:
+                            raise AssertionError(f"{what}: words written")
+                        require_equal(f"{what}: elements around m_out",
+                                      torch.cat([obuf[:o], obuf[o + n:]]),
+                                      torch.cat([guard[:o], guard[o + n:]]))
+                        require_equal(f"{what}: g", gbuf[g_off:g_off + n],
+                                      g0)
+                        n_checks += 1
+                        del words, guard
+                    del obuf
+                del gbuf, g, mbuf, m, m_out
+            err[name] = max(err[name], e)
+            del g0, m0, m_r, p_r
+        torch.cuda.synchronize()
+    return n_checks
+
+
 def check_kernels(torch, ops, ref, sc, dev) -> dict:
     gen = torch.Generator(device=dev).manual_seed(1234)
     err = {name: 0.0 for name in ops.launch_counts()}
@@ -660,6 +817,7 @@ def check_kernels(torch, ops, ref, sc, dev) -> dict:
     n_checks += check_ternary_kernels(torch, ops, ref, sc, dev, err)
     n_checks += check_tallies(torch, ops, ref, sc, dev, err)
     n_checks += check_momentum_bf16(torch, ops, ref, sc, dev, err)
+    n_checks += check_momentum_placement(torch, ops, ref, sc, dev, err)
     # ef_sign's mean|t| summed over ten SCALE_CHUNKs (torch ops, no kernel)
     from repro_torch.core.codecs import ef_sign
     t = torch.randn(N_UNEMBED, generator=gen, device=dev)
@@ -993,13 +1151,19 @@ KERNEL_GROUPS = (("momentum_sign_pack", ("momentum_sign_pack_kernel",)),
                                      "logsumexp")))
 
 
+#: the profiled steps' launches of PyTorch's copy kernels, by codec
+COPY_LAUNCHES = {}
+
+
 def profile_step(torch, art, params, opt_state, pipe, dev, n_params,
                  unprofiled_ms: float, codec: str) -> None:
     """One more step under torch.profiler: device time by kernel group, the
     device's idle share of an unprofiled step (the median of steps 1..4;
     the profiler's own host cost stretches the profiled step's wall time),
-    and the step's kernels' time beside their per-step bounds over all
-    parameters."""
+    the step's kernels' time beside their per-step bounds over all
+    parameters, and its copy kernels. The plan step must launch no more
+    copy kernels than phase 3's leaf-wise step: bitpack reads the plan's
+    1-bit buckets in place."""
     from torch.profiler import ProfilerActivity, profile
     tokens = torch.as_tensor(pipe.global_batch_at(STEPS)["tokens"],
                              device=dev)
@@ -1013,11 +1177,16 @@ def profile_step(torch, art, params, opt_state, pipe, dev, n_params,
     groups = {name: 0.0 for name, _ in KERNEL_GROUPS}
     groups["other"] = 0.0
     kernels = []
+    # PyTorch's copy kernels (.contiguous(), casts, slice writes), by name
+    direct_copies = []
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
         ms = e.self_device_time_total / 1e3
         kernels.append((ms, e.count, e.key[:120]))
+        if "direct_copy" in e.key:
+            direct_copies.append({"ms": ms, "count": e.count,
+                                  "name": e.key[:160]})
         low = e.key.lower()
         group = next((g for g, keys in KERNEL_GROUPS
                       if any(k.lower() in low for k in keys)), "other")
@@ -1060,14 +1229,22 @@ def profile_step(torch, art, params, opt_state, pipe, dev, n_params,
     }[codec]
     per_step_bound = {k: b / HBM_BYTES_PER_S * 1e3
                       for k, b in per_step_bytes.items()}
+    COPY_LAUNCHES[codec] = sum(c["count"] for c in direct_copies)
     log({"phase": "profiled_step", "codec": codec, "profiled_wall_ms": wall_ms,
          "unprofiled_step_ms": unprofiled_ms, "device_busy_ms": busy,
          "device_idle_share": (1 - busy / unprofiled_ms) if busy else None,
          "device_ms_by_group": groups,
          "kernel_ms_per_step": {k: groups[k] for k in per_step_bound},
          "kernel_bound_ms_per_step": per_step_bound,
+         "direct_copy_launches": COPY_LAUNCHES[codec],
+         "direct_copy_kernels": sorted(direct_copies, key=lambda c: -c["ms"]),
          "top_kernels": [{"ms": ms, "count": c, "name": k} for ms, c, k
                          in sorted(kernels, reverse=True)[:12]]})
+    if codec == "plan" and COPY_LAUNCHES["plan"] > COPY_LAUNCHES["sign1bit"]:
+        raise AssertionError(
+            f"the plan step launched {COPY_LAUNCHES['plan']} copy kernels, "
+            f"the leaf-wise step {COPY_LAUNCHES['sign1bit']}: a bucket was "
+            "copied")
 
 
 def check_codec_step0(torch, signum, tcfg, codec, leaf, p0, g0, params,
@@ -1416,15 +1593,22 @@ def run_plan_votes(torch, momentum, dev) -> dict:
     for r in range(M_MAIN):
         for slot in layout.leaves:
             vp.write_signs(slot, momentum[slot.name][r], signs[r])
-    def copy_buckets():
-        for b in layout.buckets:
+    def copy_buckets(plan):
+        for b in plan.buckets:
             signs[:, b.start:b.start + b.length].contiguous()
 
-    # the per-bucket copy the kernels need (a bucket's columns are strided)
-    _, copy_ms, _, _ = timed(torch, copy_buckets)
+    # the per-bucket copies that remain (a bucket's columns are strided):
+    # ternary_pack's buckets and fused_majority's (plan_vote_stacked);
+    # bitpack reads a 1-bit bucket in place
+    ternary = vp.build_plan(shapes, bucket_bytes=PLAN_BUCKET_BYTES,
+                            strategy=VoteStrategy.ALLGATHER_1BIT,
+                            default_codec="ternary2bit", data_size=M_MAIN)
+    _, ternary_ms, _, _ = timed(torch, lambda: copy_buckets(ternary))
+    _, fused_ms, _, _ = timed(torch, lambda: copy_buckets(layout))
     copy_bound, _ = bound(2 * M_MAIN * n_total, 0)
-    log({"phase": "plan_bucket_copy", "buckets": layout.n_buckets,
-         "ms": copy_ms, "bound_ms": copy_bound})
+    log({"phase": "plan_bucket_copy", "ternary_buckets": ternary.n_buckets,
+         "ternary_ms": ternary_ms, "fused_majority_buckets": layout.n_buckets,
+         "fused_majority_ms": fused_ms, "bound_ms_each": copy_bound})
     backend = va.VirtualBackend(device=dev)
     totals, staged = {}, None
     for label, strategy, codec, leafwise in PLAN_WIRES:
@@ -1701,13 +1885,24 @@ def time_kernels(torch, ops, ref, sc, dev, launches, errs) -> list:
     def row(name, replaces, ms, plain, bytes_moved, ops_done, source,
             **extra):
         b, by = bound(bytes_moved, ops_done)
-        # library_ms: no single PyTorch call computes any of these functions
+        # library_ms: no single PyTorch call computes any of these functions.
+        # excess_ms, launches x (ms - bound_ms): the order in which the
+        # kernels' time above their bounds costs the main path most
         rows.append({"name": name, "route": "cuda", "source": SOURCE + source,
                      "replaces": replaces, "launches": launches[name],
                      "max_abs_err": errs[name], "max_diff": errs[name],
                      "ms": ms, "plain_ms": plain, "bound_ms": b,
                      "bound_by": by, "library_ms": None,
+                     "excess_ms": launches[name] * (ms - b),
                      **{"shape": {"n": n, "voters": M_MAIN}, **extra}})
+
+    def pack_stack(x):
+        """ms of bitpack of the (rows, n) stack x, and of the same stack
+        read one element past each row's start (off a 16-byte boundary:
+        the element path)."""
+        off = x.as_strided((x.shape[0], n - 1), (n, 1), 1)
+        return (median_ms(torch, lambda: ops.bitpack(x), reps=25),
+                median_ms(torch, lambda: ops.bitpack(off), reps=25))
 
     g = torch.randn(n, generator=gen, device=dev).to(torch.bfloat16)
     m = torch.randn(n, generator=gen, device=dev)
@@ -1720,10 +1915,14 @@ def time_kernels(torch, ops, ref, sc, dev, launches, errs) -> list:
     nopack_ms = median_ms(torch, lambda: ops.momentum_sign_pack(
         g, m, BETA, m_out=m, pack=False), reps=25)
     nopack_b, _ = bound(n * (2 + 4 + 4), 3 * n)
+    # the stream yardstick: m += c * g moves the same bytes as m' without
+    # the words (another function, so not library_ms)
+    stream_ms = median_ms(torch, lambda: m.add_(g, alpha=1 - BETA), reps=25)
     # g bf16 read, m read and written, one bit out; 2 mul + 1 add
     row("momentum_sign_pack", "src/repro/kernels/signum_update.py:46", ms,
         plain, n * (2 + 4 + 4) + w * 4, 3 * n, "signum_update.cu",
-        nopack_ms=nopack_ms, nopack_bound_ms=nopack_b)
+        nopack_ms=nopack_ms, nopack_bound_ms=nopack_b, stream_ms=stream_ms,
+        stream_bound_ms=nopack_b)
     del m
     # bf16 momentum (the preset path's instantiation): g bf16 read, m bf16
     # read and written, one bit out; 2 mul + 1 add and 3 roundings to bf16
@@ -1736,9 +1935,12 @@ def time_kernels(torch, ops, ref, sc, dev, launches, errs) -> list:
     nopack_ms = median_ms(torch, lambda: ops.momentum_sign_pack(
         g, mb, BETA, m_out=mb, pack=False), reps=25)
     nopack_b, _ = bound(n * (2 + 2 + 2), 6 * n)
+    stream_ms = median_ms(torch, lambda: mb.add_(g, alpha=1 - BETA),
+                          reps=25)
     row("momentum_sign_pack_bf16m", "src/repro/kernels/signum_update.py:46",
         ms, plain, n * (2 + 2 + 2) + w * 4, 6 * n, "signum_update.cu",
-        nopack_ms=nopack_ms, nopack_bound_ms=nopack_b,
+        nopack_ms=nopack_ms, nopack_bound_ms=nopack_b, stream_ms=stream_ms,
+        stream_bound_ms=nopack_b,
         shape={"n": n, "g": "bfloat16", "m": "bfloat16"})
     del g, mb, words
 
@@ -1787,13 +1989,31 @@ def time_kernels(torch, ops, ref, sc, dev, launches, errs) -> list:
     # an add per element
     row("fused_majority", "src/repro/kernels/fused_vote.py:52", ms, plain,
         M_MAIN * n * 4 + w * 4, 2 * M_MAIN * n, "fused_vote.cu")
-    ms = median_ms(torch, lambda: ops.bitpack(x), reps=25)
+    ms, elem_ms = pack_stack(x)
     plain = median_ms(torch, lambda: ref.bitpack(x), reps=5, warmup=1)
-    # the f32 stack read once, each row's words written; a comparison per
-    # element
-    row("bitpack", "src/repro/kernels/bitpack.py:47", ms, plain,
-        M_MAIN * n * 4 + M_MAIN * w * 4, M_MAIN * n, "bitpack.cu")
     del x
+    # bf16 and int8 stacks: each read once, each row's words written; a
+    # comparison per element
+    bf16 = signed_payload(torch, gen, (M_MAIN, n), torch.bfloat16, dev)
+    bf16_ms, bf16_elem_ms = pack_stack(bf16)
+    del bf16
+    signs = signed_payload(torch, gen, (M_MAIN, n), torch.int8, dev)
+    i8_ms, i8_elem_ms = pack_stack(signs)
+    i8_plain = median_ms(torch, lambda: ref.bitpack(signs), reps=5,
+                         warmup=1)
+    del signs
+    # the f32 stack read once, each row's words written; a comparison per
+    # element. elem_ms: the element path (the first design), on the stack
+    # read one element off each row's 16-byte boundary.
+    row("bitpack", "src/repro/kernels/bitpack.py:47", ms, plain,
+        M_MAIN * n * 4 + M_MAIN * w * 4, M_MAIN * n, "bitpack.cu",
+        elem_ms=elem_ms, bf16_stack_ms=bf16_ms,
+        bf16_stack_bound_ms=bound(M_MAIN * (n * 2 + w * 4), 0)[0],
+        bf16_elem_ms=bf16_elem_ms)
+    # the int8 signs of every staged 1-bit vote and plan bucket
+    row("bitpack_i8", "src/repro/kernels/bitpack.py:47", i8_ms, i8_plain,
+        M_MAIN * (n + w * 4), M_MAIN * n, "bitpack.cu", elem_ms=i8_elem_ms,
+        shape={"n": n, "rows": M_MAIN, "dtype": "int8"})
     words = torch.randint(-2 ** 31, 2 ** 31, (w,), generator=gen,
                           device=dev, dtype=torch.int32)
     ms = median_ms(torch, lambda: ops.bitunpack(words, n, torch.int8),
@@ -1909,9 +2129,12 @@ def main() -> int:
     cfg = dataclasses.replace(get_config("glm4-9b"), num_layers=2)
     launches, sign1bit_losses = run_train_path(
         torch, cfg, dev, "sign1bit", "unembed.table", vote_after=True)
+    ef_sign_packs = 0
     for codec, leaf in CHECK_LEAF.items():
         for k, v in run_train_path(torch, cfg, dev, codec, leaf)[0].items():
             launches[k] += v
+            if codec == "ef_sign" and k == "bitpack":
+                ef_sign_packs = v
     # every momentum_sign_pack launch of the preset path is the bf16-m one
     preset = run_preset_path(torch, cfg, dev)
     launches["momentum_sign_pack_bf16m"] = preset.pop("momentum_sign_pack")
@@ -1920,6 +2143,11 @@ def main() -> int:
     for k, v in run_plan_train_path(torch, cfg, dev,
                                     sign1bit_losses).items():
         launches[k] += v
+    # ef_sign's encode packs its float32 t; every other bitpack of the main
+    # path packs int8 signs (staged votes, plan buckets, weighted_vote's vote)
+    launches["bitpack_i8"] = launches["bitpack"] - ef_sign_packs
+    launches["bitpack"] = ef_sign_packs
+    errs["bitpack_i8"] = errs["bitpack"]   # the max over every dtype's check
     rows = time_kernels(torch, ops, ref, sc, dev, launches, errs)
     never = [r["name"] for r in rows if not r["launches"]]
     if never:

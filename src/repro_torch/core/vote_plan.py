@@ -30,9 +30,11 @@ coordinates, rounded as XLA fuses it (``weighted.ema_update_fused``).
 gathered 1-bit wire: one ``fused_majority`` and one ``bitunpack`` per
 bucket.
 
-A bucket's columns of the stacked buffer are not contiguous (its rows are
-``n_params`` apart), and the kernels take contiguous rows, so each bucket
-that a kernel reads is copied with ``.contiguous()`` first.
+A bucket's columns of the stacked buffer are not contiguous: its rows are
+``n_params`` apart. ``bitpack`` takes that row stride, so a 1-bit bucket
+(``allgather_1bit``, ``weighted_vote``) is packed in place; ``ternary_pack``
+and ``fused_majority`` take contiguous rows, so a bucket that either reads
+is copied with ``.contiguous()`` first.
 
 Not ported yet: ``MeshBucketWire``, ``plan_vote_signs`` and
 ``plan_tree_vote`` (the collectives, ROADMAP.md Queue 1 item 5), and
@@ -352,9 +354,8 @@ class VirtualBucketWire:
         if bucket.codec == "ternary2bit" \
                 and bucket.strategy == VoteStrategy.ALLGATHER_1BIT:
             return TERNARY_WIRE.pack(seg.contiguous(), m)  # gathered
-        if bucket.codec == "weighted_vote":
-            return STRATEGIES[VoteStrategy.ALLGATHER_1BIT].pack(
-                seg.contiguous(), m)
+        if bucket.codec == "weighted_vote":   # bitpack reads the view
+            return STRATEGIES[VoteStrategy.ALLGATHER_1BIT].pack(seg, m)
         impl = STRATEGIES[bucket.strategy]
         if bucket.strategy == VoteStrategy.PSUM_INT8:
             wire = impl.pack(seg, m)
@@ -362,7 +363,7 @@ class VirtualBucketWire:
             # dtype (safe: |sum| <= M <= dtype max)
             return torch.sum(wire, dim=0, dtype=wire.dtype)
         if bucket.strategy == VoteStrategy.ALLGATHER_1BIT:
-            return impl.pack(seg.contiguous(), m)
+            return impl.pack(seg, m)          # bitpack reads the view
         if bucket.strategy == VoteStrategy.HIERARCHICAL:
             # one virtual pod: the data axis is all M voters; pad so the
             # reduce-scatter shards stay word-aligned
@@ -474,14 +475,13 @@ def plan_vote_stacked(plan: VotePlan, stacked: torch.Tensor,
                         device=stacked.device)
     for bucket in plan.buckets:
         seg = stacked[:, bucket.start:bucket.start + bucket.length]
-        seg = seg.contiguous()
         out = votes[bucket.start:bucket.start + bucket.length]
         if bucket.codec == "ternary2bit":
-            out.copy_(TERNARY_WIRE.vote(seg))
+            out.copy_(TERNARY_WIRE.vote(seg.contiguous()))
         elif use_kernels:
-            out.copy_(ops.bitunpack(ops.fused_majority(seg), bucket.length,
-                                    torch.int8))
-        else:
+            out.copy_(ops.bitunpack(ops.fused_majority(seg.contiguous()),
+                                    bucket.length, torch.int8))
+        else:   # bitpack reads the view
             out.copy_(ops.bitunpack(ops.majority(ops.bitpack(seg)),
                                     bucket.length, torch.int8))
     return votes

@@ -48,7 +48,8 @@ SIGNATURES = {
         "ternary_majority": (_P, _P, _I, _I64, _P),
     },
     "bitpack": {
-        **{f"bitpack_{t}": (_P, _P, _I64, _I64, _P)
+        # x, out, rows, n, the row stride of x in elements, stream
+        **{f"bitpack_{t}": (_P, _P, _I64, _I64, _I64, _P)
            for t in ("f32", "bf16", "i8")},
         **{f"bitunpack_{t}": (_P, _P, _I64, _P)
            for t in ("f32", "bf16", "i8")},

@@ -24,14 +24,37 @@
 //   apply_ternary_vote moves 4.25 B per element (two vote bits): 2.64 GB,
 //     0.788 ms.
 //
-// momentum_sign_pack: one thread per element, consecutive threads on
-// consecutive elements, so every load and store is coalesced. The TPU
-// kernel packs with a 32-way shift/OR tree over a (8, 4096) VMEM block; on
-// Hopper warp lane j already holds element 32k + j, so one
-// __ballot_sync(m' >= 0) *is* packed word k and lane 0 stores it. Lanes
-// past n vote true, which gives the padding bits of the last word the
-// value +1 (sign(0) = +1), the same bits the reference's zero padding
-// yields.
+// momentum_sign_pack. A pass at the byte bound needs ~2-3 MB of loads in
+// flight (3.35 TB/s x ~0.7 us of device-memory latency); one element per
+// thread, the first design, kept 4-6 B a thread in flight (~1.1-1.6 MB
+// card-wide) and reached 49 % (bf16 m) and 74 % (float32 m) of the bound.
+// So it takes the applies' layout (below): a warp owns a segment of 1024
+// consecutive elements, 32 packed words, and each lane issues all of its
+// loads of g and m (32 elements of each) before it uses any of them. Lane j
+// owns piece c = elements (32c + j) * kE .. + kE of the segment, so each
+// load instruction of the warp reads 32 * kE contiguous elements. kE is 8
+// where g and m are both bf16 (one 16-byte load of each a piece: 64 B of g
+// and 64 B of m a lane, 512 contiguous bytes an instruction) and 4 where
+// either is float32: the float32 array takes 16-byte loads (512 bytes an
+// instruction), a bf16 one 8-byte loads of the same 4 elements (256 bytes),
+// so that a lane holds the same elements of g and m without shuffles. m' is
+// computed in registers with Momentum<Mt>::step and written with streaming
+// 16-byte (8-byte) stores. Each piece gives a field of kE sign bits; the
+// fields of word k lie in the 32 / kE lanes that hold elements 32k..32k+31,
+// one field per lane, so a butterfly of log2(32 / kE) xor-shuffles
+// transposes each group of lanes' fields into whole words and one more
+// shuffle hands word k to lane k, which stores the segment's 32 words as one
+// coalesced 128-byte store. A segment past n (the ragged tail), or a g, m or
+// m_out that starts off a 16-byte boundary (a voter's row of a stacked leaf
+// can start anywhere), takes the element path of the same kernel: lane j
+// updates elements 32i + j of the segment, i = 0..31, eight loads at a time,
+// and one __ballot_sync of m' >= 0 per i *is* word i; lanes past n vote
+// true, which gives the padding bits of the last word the value +1
+// (sign(0) = +1), the bits the reference's zero padding yields. A null
+// `packed` writes m' only (the codecs' and the count wire's encode).
+// Aliasing as in the applies: m_out may be m, so neither is __restrict__
+// and m is not read through __ldg; each element is loaded and stored by
+// one thread.
 //
 // The two applies are one template over the parameter type and the vote
 // decoder. A pass at the byte bound needs ~2-3 MB of loads in flight
@@ -78,8 +101,9 @@
 // and comparison here reads a subnormal operand (a bf16 one too, once
 // widened to float32) as a zero of its sign and flushes a subnormal result
 // to one, as XLA does in the reference: beta * m of a subnormal m is a
-// zero, m' is never stored subnormal, and the sign bit taken of m' as
-// stored is that of a flushed value.
+// zero and m' is never stored subnormal. The sign bit is an integer test of
+// m' as stored (nonneg_bits: a zero or subnormal exponent reads as 0, so
+// -0.0 gives 1; NaN gives 0), so it does not depend on the flag.
 //
 // Each entry point launches on the caller's stream and returns
 // cudaGetLastError(); the Python wrapper raises when it is not 0.
@@ -92,7 +116,7 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr unsigned kFullWarp = 0xffffffffu;
-// elements of the segment one warp of an apply kernel owns
+// elements of the segment one warp owns (momentum_sign_pack and the applies)
 constexpr int64_t kSegment = 32 * 32;
 // resident blocks of an apply kernel per SM: 1024 threads, each with 64 B
 // (bf16) or 128 B (float32) of loads in flight, which caps the kernel at 64
@@ -146,27 +170,200 @@ template <> struct Momentum<__nv_bfloat16> {
   }
 };
 
-// m_out may alias m: each thread reads its element before writing it.
-// A null `packed` (the same for every thread) writes m' only. The sign bit
-// is taken of m' as stored (a bf16 -0.0 counts as +).
-template <typename G, typename Mt>
-__global__ void momentum_sign_pack_kernel(const G* __restrict__ g,
-                                          const Mt* m, Mt* m_out,
-                                          uint32_t* __restrict__ packed,
-                                          int64_t n, int64_t w, float b,
-                                          float c) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  bool nonneg = true;
-  if (i < n) {
-    const Mt mi = Momentum<Mt>::step(b, to_f32(m[i]), c, to_f32(g[i]));
-    m_out[i] = mi;
-    nonneg = to_f32(mi) >= 0.0f;
+// m' >= 0 on the bits of a float32, as bitpack.cu tests it: a zero or
+// subnormal exponent reads as 0 (+0.0 and -0.0 both give 1), NaN gives 0.
+__device__ __forceinline__ bool nonneg_bits(uint32_t u) {
+  const uint32_t a = u & 0x7fffffffu;
+  return a < 0x00800000u || (!(u >> 31) && a <= 0x7f800000u);
+}
+
+// The bits of a stored momentum value (a bf16 in the low 16 bits), and its
+// sign bit.
+__device__ __forceinline__ uint32_t raw_bits(float x) {
+  return __float_as_uint(x);
+}
+__device__ __forceinline__ uint32_t raw_bits(__nv_bfloat16 x) {
+  return __bfloat16_as_ushort(x);
+}
+__device__ __forceinline__ bool nonneg_stored(float x) {
+  return nonneg_bits(__float_as_uint(x));
+}
+__device__ __forceinline__ bool nonneg_stored(__nv_bfloat16 x) {
+  return nonneg_bits((uint32_t)__bfloat16_as_ushort(x) << 16);
+}
+
+// Element e of the elements of T packed into 32-bit words w, as a float32
+// (a bf16 is the high half of the float32 of the same value).
+template <typename T> __device__ __forceinline__ float elem(const uint32_t* w,
+                                                            int e);
+template <> __device__ __forceinline__ float elem<float>(const uint32_t* w,
+                                                         int e) {
+  return __uint_as_float(w[e]);
+}
+template <> __device__ __forceinline__ float elem<__nv_bfloat16>(
+    const uint32_t* w, int e) {
+  return __uint_as_float((e & 1) ? (w[e >> 1] & 0xffff0000u)
+                                 : (w[e >> 1] << 16));
+}
+
+// kW 32-bit words (16 or 8 bytes) at `src`, streamed (__ldcs: not the
+// non-coherent path, which an aliased m may not take); and stored back.
+template <int kW>
+__device__ __forceinline__ void load_cs(const void* src, uint32_t* w) {
+  if constexpr (kW == 4) {
+    const uint4 q = __ldcs(reinterpret_cast<const uint4*>(src));
+    w[0] = q.x; w[1] = q.y; w[2] = q.z; w[3] = q.w;
+  } else {
+    static_assert(kW == 2, "a piece is 8 or 16 bytes");
+    const uint2 q = __ldcs(reinterpret_cast<const uint2*>(src));
+    w[0] = q.x; w[1] = q.y;
   }
-  if (packed == nullptr) return;
-  // every lane of the warp takes part: the grid covers whole warps
-  const unsigned word = __ballot_sync(0xffffffffu, nonneg);
-  const int64_t k = i >> 5;
-  if ((threadIdx.x & 31) == 0 && k < w) packed[k] = word;
+}
+template <int kW>
+__device__ __forceinline__ void store_cs(void* dst, const uint32_t* w) {
+  if constexpr (kW == 4) {
+    __stcs(reinterpret_cast<uint4*>(dst), make_uint4(w[0], w[1], w[2], w[3]));
+  } else {
+    static_assert(kW == 2, "a piece is 8 or 16 bytes");
+    __stcs(reinterpret_cast<uint2*>(dst), make_uint2(w[0], w[1]));
+  }
+}
+
+// The layout of a momentum_sign_pack segment: kE elements a piece (8 where
+// g and m are both bf16, else 4), 32 / kE pieces a lane and as many lanes a
+// word; resident blocks per SM, which cap the registers of a thread (65536
+// / (256 * kBlocks)): the loads in flight take 64 registers for float32 g
+// and m, 48 where one is bf16 and 32 where both are.
+template <typename G, typename Mt> struct MspLayout {
+  static constexpr int kE = (sizeof(G) == 2 && sizeof(Mt) == 2) ? 8 : 4;
+  static constexpr int kPieces = 32 / kE;
+  static constexpr int kBlocks = (sizeof(G) == 4 && sizeof(Mt) == 4) ? 2 : 3;
+};
+
+// The fields of kE bits whose piece index p has bit d clear.
+__host__ __device__ constexpr uint32_t low_fields(int kE, int d) {
+  uint32_t mask = 0;
+  for (int p = 0; p < 32 / kE; ++p)
+    if (!(p & d)) mask |= ((1u << kE) - 1u) << (kE * p);
+  return mask;
+}
+
+// x holds this lane's kE-bit fields, field p from its piece p. Lane j = G*q
+// + i (G = 32 / kE lanes a group) has field p = the bits of elements
+// kE * (32p + G*q + i) .., which word kE*p + q holds at bit kE*i. A
+// butterfly over the group's lanes transposes the G x G fields (each stage
+// swaps bit d of the lane and of the field index where they differ), so
+// lane G*q + p ends with word kE*p + q; lane k then takes word k.
+template <int kE>
+__device__ __forceinline__ uint32_t fields_to_word(uint32_t x, int lane) {
+  constexpr int kG = 32 / kE;
+#pragma unroll
+  for (int d = kG / 2; d >= 1; d /= 2) {
+    const uint32_t low = low_fields(kE, d);
+    const int shift = kE * d;
+    const uint32_t other = __shfl_xor_sync(kFullWarp, x, d);
+    x = (lane & d) ? ((x & ~low) | ((other >> shift) & low))
+                   : ((x & low) | ((other << shift) & ~low));
+  }
+  return __shfl_sync(kFullWarp, x, kG * (lane % kE) + lane / kE);
+}
+
+// A whole segment at `base`, g, m and m_out 16-byte aligned: every load of
+// the lane issued before the first use; m' written back piece by piece.
+// Returns the lane's sign fields (see fields_to_word).
+template <typename G, typename Mt>
+__device__ __forceinline__ uint32_t msp_segment_vec(const G* g, const Mt* m,
+                                                    Mt* m_out, int64_t base,
+                                                    int lane, float b,
+                                                    float c) {
+  constexpr int kE = MspLayout<G, Mt>::kE;
+  constexpr int kP = MspLayout<G, Mt>::kPieces;
+  constexpr int kGW = kE * (int)sizeof(G) / 4;    // 32-bit words a piece
+  constexpr int kMW = kE * (int)sizeof(Mt) / 4;
+  uint32_t gw[kP][kGW], mw[kP][kMW];
+#pragma unroll
+  for (int p = 0; p < kP; ++p) {
+    const int64_t e0 = base + (int64_t)(32 * p + lane) * kE;
+    load_cs<kGW>(g + e0, gw[p]);
+    load_cs<kMW>(m + e0, mw[p]);
+  }
+  uint32_t fields = 0;
+#pragma unroll
+  for (int p = 0; p < kP; ++p) {
+    uint32_t out[kMW];
+#pragma unroll
+    for (int i = 0; i < kMW; ++i) out[i] = 0;
+#pragma unroll
+    for (int e = 0; e < kE; ++e) {
+      const Mt v = Momentum<Mt>::step(b, elem<Mt>(mw[p], e), c,
+                                      elem<G>(gw[p], e));
+      const int bits = 8 * (int)sizeof(Mt);
+      out[e * bits / 32] |= raw_bits(v) << (e * bits % 32);
+      fields |= (uint32_t)nonneg_stored(v) << (kE * p + e);
+    }
+    store_cs<kMW>(m_out + base + (int64_t)(32 * p + lane) * kE, out);
+  }
+  return fields;
+}
+
+// The element path: lane j updates elements base + 32i + j below n, eight
+// loads of g and m at a time, and the warp's ballot of their sign bits is
+// word i (lanes past n vote true: the padding bits). Returns word `lane`.
+template <typename G, typename Mt>
+__device__ __forceinline__ uint32_t msp_segment_elems(
+    const G* __restrict__ g, const Mt* m, Mt* m_out, int64_t n, int64_t base,
+    int lane, float b, float c) {
+  constexpr int kBatch = 8;
+  uint32_t word = 0;
+#pragma unroll 1
+  for (int i0 = 0; i0 < 32; i0 += kBatch) {
+    float gx[kBatch], mx[kBatch];
+#pragma unroll
+    for (int i = 0; i < kBatch; ++i) {
+      const int64_t e = base + 32 * (i0 + i) + lane;
+      gx[i] = e < n ? to_f32(g[e]) : 0.0f;
+      mx[i] = e < n ? to_f32(m[e]) : 0.0f;
+    }
+#pragma unroll
+    for (int i = 0; i < kBatch; ++i) {
+      const int64_t e = base + 32 * (i0 + i) + lane;
+      bool bit = true;
+      if (e < n) {
+        const Mt v = Momentum<Mt>::step(b, mx[i], c, gx[i]);
+        m_out[e] = v;
+        bit = nonneg_stored(v);
+      }
+      const unsigned ballot = __ballot_sync(kFullWarp, bit);
+      if (lane == i0 + i) word = ballot;
+    }
+  }
+  return word;
+}
+
+// m_out may alias m. `vec`: g, m and m_out lie on 16-byte boundaries. A
+// null `packed` (the same for every thread) writes m' only. Every branch
+// below is the same for the whole warp, as the shuffles and ballots need.
+template <typename G, typename Mt>
+__global__ void __launch_bounds__(kThreads, MspLayout<G, Mt>::kBlocks)
+momentum_sign_pack_kernel(const G* __restrict__ g, const Mt* m, Mt* m_out,
+                          uint32_t* __restrict__ packed, int64_t n,
+                          int64_t w, float b, float c, bool vec) {
+  const int lane = threadIdx.x & 31;
+  const int64_t base =
+      (((int64_t)blockIdx.x * kThreads + threadIdx.x) >> 5) * kSegment;
+  if (base >= n) return;
+  uint32_t word;
+  if (vec && base + kSegment <= n) {
+    const uint32_t fields =
+        msp_segment_vec<G, Mt>(g, m, m_out, base, lane, b, c);
+    if (packed == nullptr) return;
+    word = fields_to_word<MspLayout<G, Mt>::kE>(fields, lane);
+  } else {
+    word = msp_segment_elems<G, Mt>(g, m, m_out, n, base, lane, b, c);
+    if (packed == nullptr) return;
+  }
+  const int64_t k = (base >> 5) + lane;
+  if (k < w) packed[k] = word;
 }
 
 // Vote decoders: vote(b, i) is the vote of field i of the bits b (field 0
@@ -318,12 +515,16 @@ unsigned blocks_for(int64_t threads) {
 template <typename G, typename Mt>
 int launch_msp(const void* g, const void* m, void* m_out, void* packed,
                int64_t n, float b, float c, void* stream) {
-  const int64_t w = (n + 31) / 32;
   if (n > 0) {
+    const uintptr_t ga = reinterpret_cast<uintptr_t>(g);
+    const uintptr_t ma = reinterpret_cast<uintptr_t>(m);
+    const uintptr_t oa = reinterpret_cast<uintptr_t>(m_out);
+    const bool vec = ((ga | ma | oa) & 15) == 0;
+    const int64_t segments = (n + kSegment - 1) / kSegment;
     momentum_sign_pack_kernel<G, Mt>
-        <<<blocks_for(w * 32), kThreads, 0, (cudaStream_t)stream>>>(
-            (const G*)g, (const Mt*)m, (Mt*)m_out, (uint32_t*)packed, n, w,
-            b, c);
+        <<<blocks_for(segments * 32), kThreads, 0, (cudaStream_t)stream>>>(
+            (const G*)g, (const Mt*)m, (Mt*)m_out, (uint32_t*)packed, n,
+            (n + 31) / 32, b, c, vec);
   }
   return (int)cudaGetLastError();
 }

@@ -50,7 +50,10 @@ def reset_launch_counts() -> None:
 
 
 def _check(t: torch.Tensor, what: str, *, ndim: int, dtypes,
-           device: torch.device) -> None:
+           device: torch.device, strided_rows: bool = False) -> None:
+    """Raise unless `t` has `ndim` dims, one of `dtypes`, lies on `device`
+    and is contiguous; with `strided_rows` a 2-D `t` may instead have rows
+    of contiguous elements any distance >= their length apart."""
     if t.dim() != ndim:
         raise ValueError(f"{what} must be {ndim}-D, got shape "
                          f"{tuple(t.shape)}")
@@ -59,7 +62,15 @@ def _check(t: torch.Tensor, what: str, *, ndim: int, dtypes,
                         f"{t.dtype}")
     if t.device != device:
         raise ValueError(f"{what} is on {t.device}, expected {device}")
-    if not t.is_contiguous():
+    if strided_rows:
+        rows, n = t.shape
+        if n > 1 and t.stride(1) != 1:
+            raise ValueError(f"{what} must have contiguous rows (stride(1) "
+                             f"== 1), got strides {t.stride()}")
+        if rows > 1 and t.stride(0) < n:
+            raise ValueError(f"{what}'s rows overlap: stride(0) "
+                             f"{t.stride(0)} < {n} elements a row")
+    elif not t.is_contiguous():
         raise ValueError(f"{what} must be contiguous")
 
 
@@ -226,15 +237,22 @@ def bitpack(x: torch.Tensor, *, out: Optional[torch.Tensor] = None
             ) -> torch.Tensor:
     """(rows, n) f32/bf16/int8 -> (rows, ceil(n/32)) int32 words of the
     signs ``x >= 0``, each row padded on its own (padding bits 1). `out`
-    receives the words when given."""
+    receives the words when given.
+
+    `x` may be a view whose rows are not adjacent (a bucket of a VotePlan's
+    ``(M, n_params)`` buffer): each row's elements contiguous
+    (``stride(1) == 1``) and the rows ``stride(0) >= n`` elements apart;
+    the kernel reads it in place, with no copy."""
     dev = x.device
-    _check(x, "x", ndim=2, dtypes=_SIGN_SUFFIX, device=dev)
+    _check(x, "x", ndim=2, dtypes=_SIGN_SUFFIX, device=dev,
+           strided_rows=True)
     rows, n = x.shape
     out = _rows_out(out, rows, sc.words_for(n), dev)
     if not _on_card(x):
         return out.copy_(ref.bitpack(sc.pad_last(x, sc.PACK)[0]))
     _launch("bitpack", f"bitpack_{_SIGN_SUFFIX[x.dtype]}", x.data_ptr(),
-            out.data_ptr(), rows, n, _stream(x))
+            out.data_ptr(), rows, n, x.stride(0) if rows > 1 else n,
+            _stream(x))
     _COUNTS["bitpack"] += 1
     return out
 

@@ -230,6 +230,38 @@ def test_bitpack_matches_jax(n, dtype):
     np.testing.assert_array_equal(got, np.asarray(jref.bitpack(padded)))
 
 
+#: bitpack's strided views: windows of a (rows, width) buffer whose rows
+#: are `width` elements apart (128 keeps every row on a 16-byte boundary in
+#: every dtype, 133 drifts off it), starting at column 0, 32 (a VotePlan
+#: bucket's ALIGN) and 1 (off 16 bytes); each test takes every length
+#: 64 + r, r = 0..31 (each remainder mod 32)
+STRIDE_WIDTHS = [128, 133]
+STRIDE_STARTS = [0, 32, 1]
+
+
+@pytest.mark.parametrize("dtype", SIGN_DTYPES)
+@pytest.mark.parametrize("c0", STRIDE_STARTS)
+@pytest.mark.parametrize("width", STRIDE_WIDTHS)
+@pytest.mark.parametrize("rows", [1, 4, 7])
+def test_bitpack_strided_view_matches_jax(rows, width, c0, dtype):
+    """A window whose rows are `width` apart (stride(1) == 1, stride(0) >=
+    n): equal to the reference's oracle on the zero-padded contiguous
+    window, and to the port's bitpack of the window copied contiguous."""
+    x, _, buf = _signed_payload((rows, width), dtype, rows, width, c0, 5)
+    lengths = [64 + r for r in range(32)]
+    # every window zero-padded to 96 columns and stacked: one oracle call
+    stack = np.concatenate([np.pad(x[:, c0:c0 + n], ((0, 0), (0, 96 - n)))
+                            for n in lengths])
+    want = np.asarray(jref.bitpack(jnp.asarray(stack).astype(dtype)))
+    want = want.reshape(len(lengths), rows, 3)
+    for i, n in enumerate(lengths):
+        view = buf[:, c0:c0 + n]
+        assert view.stride() == (width, 1)
+        got = tops.bitpack(view)
+        np.testing.assert_array_equal(_words(got), want[i, :, :-(-n // 32)])
+        assert torch.equal(got, tops.bitpack(view.contiguous()))
+
+
 @pytest.mark.parametrize("dtype", SIGN_DTYPES)
 @pytest.mark.parametrize("n", SIGN_SIZES)
 def test_bitunpack_matches_jax(n, dtype):
@@ -358,7 +390,8 @@ def test_momentum_without_pack_writes_the_same_momentum(gdtype):
                                   "tpack_out_shape", "tmaj_no_voters",
                                   "tmaj_int64", "tunpack_too_many",
                                   "tunpack_int64", "tapply_votes_len",
-                                  "pack_out_dtype", "msp_words_unwanted"])
+                                  "pack_out_dtype", "msp_words_unwanted",
+                                  "pack_col_stride", "pack_rows_overlap"])
 def test_wrappers_reject_bad_inputs(case):
     g, m = torch.zeros(64), torch.zeros(64)
     with pytest.raises((ValueError, TypeError)):
@@ -384,6 +417,10 @@ def test_wrappers_reject_bad_inputs(case):
             tops.bitpack(g.reshape(2, 32).double())
         elif case == "pack_noncontig":
             tops.bitpack(g.reshape(8, 8).t())
+        elif case == "pack_col_stride":    # rows apart, columns not adjacent
+            tops.bitpack(g.reshape(4, 16)[:, ::2])
+        elif case == "pack_rows_overlap":  # stride(0) < n: rows overlap
+            tops.bitpack(g.as_strided((2, 32), (16, 1)))
         elif case == "unpack_too_many":
             tops.bitunpack(torch.zeros(2, dtype=torch.int32), 65)
         elif case == "unpack_f64":

@@ -406,6 +406,59 @@ def test_plan_vote_stacked_matches_walk_and_reference():
         np.asarray(jvp.plan_vote_stacked(tern_j, jnp.asarray(stacked))))
 
 
+class _CopyingWire(tvp.VirtualBucketWire):
+    """The walk as it was before bitpack took a row stride: every bucket
+    copied contiguous before its issue."""
+
+    def issue(self, bucket, seg):
+        return super().issue(bucket, seg.contiguous())
+
+
+@pytest.mark.parametrize("overlap", [False, True])
+def test_plan_packs_1bit_buckets_in_place(monkeypatch, overlap):
+    """A plan of 1-bit and weighted_vote buckets: bitpack reads every
+    bucket as a view of the stacked buffer (its rows n_params apart, no
+    copy), and the votes and flip-rate state equal both a walk that copies
+    each bucket first and the reference's walk."""
+    m = 5
+    kw = dict(bucket_bytes=8, strategy="allgather_1bit",
+              codec_map=(("embed*", "weighted_vote"), ("*", "sign1bit")))
+    jplan, tplan = _both(_build, **kw)
+    assert {b.codec for b in tplan.buckets} == {"weighted_vote", "sign1bit"}
+    signs = _signs(m, tplan.n_params, 11, binary=True)
+    buf = torch.from_numpy(signs)
+    views = []
+    real = tva.vote_plan.ops.bitpack
+
+    def spy(x, **kwargs):
+        if x.dim() == 2 and x.shape[0] == m:    # a bucket, not a vote row
+            views.append((x.stride(), x.data_ptr()))
+        return real(x, **kwargs)
+
+    monkeypatch.setattr(tva.vote_plan.ops, "bitpack", spy)
+    ema = _rng(12).uniform(0.1, 0.6, size=(m,)).astype(np.float32)
+    jstate, tstate = _state("weighted_vote", m, ema)
+    got, state = tvp.run_schedule(tplan, buf, tvp.VirtualBucketWire(m),
+                                  tstate, overlap=overlap)
+    starts = [buf.data_ptr() + b.start for b in tplan.buckets]
+    assert views == [((tplan.n_params, 1), p) for p in starts]
+    want, want_state = tvp.run_schedule(tplan, buf, _CopyingWire(m), tstate,
+                                        overlap=overlap)
+    assert torch.equal(got, want)
+    assert torch.equal(state["flip_ema"], want_state["flip_ema"])
+    jout, tout = _vote_both(signs, jplan, tplan, jstate, tstate, overlap)
+    _assert_outcomes_equal(jout, tout)
+    assert torch.equal(tout.votes, got)
+    # plan_vote_stacked's staged branch packs the views too
+    views.clear()
+    stacked = tvp.plan_vote_stacked(_build(tvp, bucket_bytes=8,
+                                           strategy="allgather_1bit"),
+                                    buf, use_kernels=False)
+    assert views and all(v[0] == (tplan.n_params, 1) for v in views)
+    assert torch.equal(stacked, tvp.plan_vote_stacked(
+        _build(tvp, bucket_bytes=8, strategy="allgather_1bit"), buf))
+
+
 @pytest.mark.parametrize("case", ["psum_int8", "weighted_vote"])
 def test_plan_vote_stacked_rejects_as_reference(case):
     kw = (dict(strategy="psum_int8") if case == "psum_int8" else
