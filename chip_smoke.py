@@ -16,8 +16,10 @@ Phases, each of which fails the run (non-zero exit) on any disagreement:
    out. The ternary wire's kernels take the same sizes (and n = 17, and a
    row that starts off a 16-byte boundary): ternary_pack on 1, 4 and 7 rows
    of int8 / f32 / bf16 (4 rows at the unembedding n), ternary_majority
-   over M in VOTERS on words with planted 0b10 fields and ties,
-   ternary_unpack, and the ternary apply in f32 and bf16; momentum_sign_pack
+   with both tie rules (ties 0, and ties +1: hierarchical's) over M in
+   VOTERS on words with planted 0b10 fields and ties, ternary_unpack to
+   int8, float32 and bf16, and the ternary apply in f32 and bf16;
+   momentum_sign_pack
    also without its words (the ternary2bit and ef_sign encode), and
    bitunpack of a whole (4, w) unembedding word stack to int8 (2,483,027,968
    signs, past 2^31, as weighted_vote's decode unpacks it). Both applies
@@ -26,8 +28,8 @@ Phases, each of which fails the run (non-zero exit) on any disagreement:
    a 16-byte boundary, in place and into a separate out one element
    further along (the kernel's 16-byte path and its element path), with
    the elements around each view held unchanged and planted 0b10 fields
-   in the ternary words. The two tallies (majority, ternary_majority) also
-   take every M from 1 to 17 and M in {31, 32, 33, 63, 64, 65, 255, 256,
+   in the ternary words. The three tallies (majority, ternary_majority
+   with ties 0 and with ties +1) also take every M from 1 to 17 and M in {31, 32, 33, 63, 64, 65, 255, 256,
    257, 1000} at n in {33, 100000, 131072}, words of each remainder mod 4,
    planted all-ones, all-zero, tied and (2-bit) 0b10 columns, and a stack
    and an out that start off a 16-byte boundary. momentum_sign_pack with
@@ -140,6 +142,39 @@ Phases, each of which fails the run (non-zero exit) on any disagreement:
    step 0 leaving every parameter as it was and step 1 applying exactly
    the int8 vote banked at step 0 (recomputed with the plain versions);
    the peak memory of each run.
+9. signSGD (beta = 0, ``signsgd_vote``): phase 3's cell with momentum 0,
+   3 steps on allgather_1bit (each voter's bf16 gradient rows through
+   bitpack, majority, apply_vote) and 3 on psum_int8 (ternary_pack of the
+   bf16 rows, ternary_majority, apply_ternary_vote), each from fresh
+   state: exact launches per step, finite losses, step 0 of the
+   unembedding bit-equal to the plain versions recomputed from saved
+   copies;
+10. the qwen1.5-32b Mode B preset at every published width (d_model
+   5120, 40 heads of 40 kv heads, head_dim 128, d_ff 27392, vocab
+   152064, untied, qkv bias), depth cut 64 -> 2 (2,608,389,120
+   parameters): ``make_train_step(cfg, dataclasses.replace(
+   default_train_config("qwen1.5-32b", cell), fsdp=False), 4)`` with
+   phase 6's cell (seq 512, batch 32): signsgd_vote, one global float32
+   momentum at beta 0.9 on hierarchical, 8 microbatches, nested remat;
+   fsdp is cut (with a mesh its fused ZeRO backward votes inside the
+   reduce-scatter). Five steps, then 2 each on psum_int8 and
+   allgather_1bit, each from fresh state: exact launches per step (per
+   leaf the tally, the vote unpacked to bf16, the momentum kernel, the
+   ternary pack of u and the ternary apply), finite losses, the peak
+   memory under 80 GB; on hierarchical step 0 of layers.attn_wq (its
+   momentum and parameters) bit-equal to the plain versions recomputed
+   from saved copies and its vote bit-equal to the vote API's
+   hierarchical vote of the same gradients, and one profiled step;
+11. the dense baselines: phase 3's cell with kind sgd, sgdm and adam, 3
+   steps each from fresh state: no kernel launch, finite losses, the
+   median step and the peak memory, the unembedding's mean gradient at
+   step 0 within the bf16 rounding bound of a float64 sum of the four
+   voters' gradients (bit-equal to the port's bf16 sum for sgdm), and
+   float32 sqrt on the card the nearest float32 (Adam's root).
+
+Phase 7 also times ternary_majority with ties +1 (its own row),
+ternary_unpack to bf16 and bitpack of the bf16 stack (its own row, whose
+launches are phases 9's and 10's).
 
 It prints one JSON line per step and per wire, a ``{"kernels": [...]}``
 line and, last, ``{"ok": true, "device": {...}}``. Without a CUDA device,
@@ -520,14 +555,27 @@ def check_ternary_kernels(torch, ops, ref, sc, dev, err) -> int:
                                           require_equal(
                 f"ternary_majority n={n} M={m}", ops.ternary_majority(packed),
                 ref.ternary_majority(packed)))
-            n_checks += 1
+            err["ternary_majority_plus_one"] = max(
+                err["ternary_majority_plus_one"], require_equal(
+                    f"ternary_majority_plus_one n={n} M={m}",
+                    ops.ternary_majority(packed, ties="plus_one"),
+                    ref.ternary_majority(packed, "plus_one")))
+            n_checks += 2
             del packed
         words = torch.randint(-2 ** 31, 2 ** 31, (w,), generator=gen,
                               device=dev, dtype=torch.int32)
         err["ternary_unpack"] = max(err["ternary_unpack"], require_equal(
             f"ternary_unpack n={n}", ops.ternary_unpack(words, n),
             ref.ternary_unpack(words[None])[0, :n]))
-        n_checks += 1
+        # the float outputs (Mode B's momentum takes the bf16 vote), bit for
+        # bit: a 0 is +0.0 in both
+        for dtype, bits in ((torch.float32, torch.int32),
+                            (torch.bfloat16, torch.int16)):
+            require_equal(f"ternary_unpack n={n} {dtype}",
+                          ops.ternary_unpack(words, n, dtype).view(bits),
+                          ref.ternary_unpack(words[None], dtype)[0, :n]
+                          .contiguous().view(bits))
+        n_checks += 3
         for dtype in (torch.float32, torch.bfloat16):
             p = plant_subnormals(
                 torch.randn(n, generator=gen, device=dev).to(dtype))
@@ -546,10 +594,21 @@ def check_ternary_kernels(torch, ops, ref, sc, dev, err) -> int:
                                             err, ternary=True)
 
 
-#: the two tallies: (name, elements per word, a word of +1 votes in every
-#: bit or field, a word of -1 votes, the 2-bit wire's unused 0b10 pattern)
+#: the three tallies: (name, elements per word, a word of +1 votes in
+#: every bit or field, a word of -1 votes, the 2-bit wire's unused 0b10
+#: pattern); ternary_majority_plus_one is ternary_majority(ties="plus_one")
 TALLIES = (("majority", 32, -1, 0, None),
-           ("ternary_majority", 16, 0x55555555, -1, -0x55555556))
+           ("ternary_majority", 16, 0x55555555, -1, -0x55555556),
+           ("ternary_majority_plus_one", 16, 0x55555555, -1, -0x55555556))
+
+
+def tally_fns(ops, ref, name):
+    """(kernel wrapper, plain version) of tally `name` of TALLIES."""
+    if name == "ternary_majority_plus_one":
+        return (lambda p, out=None: ops.ternary_majority(
+                    p, ties="plus_one", out=out),
+                lambda p: ref.ternary_majority(p, "plus_one"))
+    return getattr(ops, name), getattr(ref, name)
 
 
 def planted_words(torch, gen, m, w, dev, plus, minus, unused):
@@ -579,7 +638,7 @@ def check_tallies(torch, ops, ref, sc, dev, err) -> int:
     gen = torch.Generator(device=dev).manual_seed(1357)
     n_checks = 0
     for name, per_word, plus, minus, unused in TALLIES:
-        kernel, plain = getattr(ops, name), getattr(ref, name)
+        kernel, plain = tally_fns(ops, ref, name)
 
         def check(what, packed, out=None):
             got = kernel(packed) if out is None else kernel(packed, out=out)
@@ -1139,6 +1198,8 @@ def quickstart_vote(torch, va, VoteStrategy, dev) -> None:
 
 KERNEL_GROUPS = (("momentum_sign_pack", ("momentum_sign_pack_kernel",)),
                  ("ternary_pack", ("ternary_pack_kernel",)),
+                 ("ternary_unpack", ("ternary_unpack_kernel",)),
+                 ("ternary_majority_plus_one", ("PluralityPlusOne",)),
                  ("ternary_majority", ("TernaryLanes",)),
                  ("apply_ternary_vote", ("TernaryVote>",)),
                  ("majority", ("SignLanes",)),
@@ -1225,6 +1286,15 @@ def profile_step(torch, art, params, opt_state, pipe, dev, n_params,
         "preset": {"momentum_sign_pack": m * n * 6,
                    "ternary_pack": m * n * 2.25,
                    "ternary_majority": (m + 1) * n / 4,
+                   "apply_ternary_vote": n * 4.25},
+        # Mode B on hierarchical: ternary_pack reads each voter's bf16
+        # gradient row and u's float32 row, 2 bits out each; the tally; the
+        # vote unpacked to bf16; the momentum kernel reads the bf16 vote and
+        # the float32 u, writes u (no words); the ternary apply
+        "mode_b": {"ternary_pack": m * n * 2.25 + n * 4.25,
+                   "ternary_majority_plus_one": (m + 1) * n / 4,
+                   "ternary_unpack": n * 2.25,
+                   "momentum_sign_pack": n * 10,
                    "apply_ternary_vote": n * 4.25},
     }[codec]
     per_step_bound = {k: b / HBM_BYTES_PER_S * 1e3
@@ -1832,6 +1902,424 @@ def check_delayed_step(torch, ref, sc, signum, tcfg, step, before, params,
 
 
 # ---------------------------------------------------------------------------
+# phase 9: signSGD (beta = 0) on the 1-bit and the count wire
+# ---------------------------------------------------------------------------
+
+#: phase 9's runs: (vote strategy, steps)
+BETA0_RUNS = (("allgather_1bit", 3), ("psum_int8", 3))
+#: the leaf whose step 0 phases 9 and 11 recompute from saved copies
+UNEMBED = "unembed.table"
+
+
+def beta0_launches(strategy: str, n_leaves: int) -> dict:
+    """One beta = 0 step's launches: each voter's bf16 gradient row packed
+    (bitpack on the 1-bit wire, ternary_pack on the count wire), one tally
+    and one apply per leaf; no momentum kernel."""
+    per_voter = M_MAIN * n_leaves
+    if strategy == "allgather_1bit":
+        return {"bitpack": per_voter, "majority": n_leaves,
+                "apply_vote": n_leaves}
+    return {"ternary_pack": per_voter, "ternary_majority": n_leaves,
+            "apply_ternary_vote": n_leaves}
+
+
+def run_steps(torch, label, art, params, opt_state, pipe, steps, want,
+              leaf, on_step0=None) -> tuple:
+    """`steps` steps of `art` from fresh state with exact launches per step
+    (the counts reset just before the first, read just after the last) and
+    finite losses. `on_step0(tokens)` runs before step 0 to save copies (by
+    autograd alone: it launches no kernel of the port); after step 0 the
+    parameters and optimizer state of `leaf` are cloned. Returns (launches
+    of the run, losses, step ms, (on_step0's result, the leaf's parameters
+    after step 0, its state after step 0))."""
+    from repro_torch.kernels import ops
+    ops.reset_launch_counts()
+    seen = ops.launch_counts()
+    saved, losses, step_ms = None, [], []
+    for step in range(steps):
+        tokens = torch.as_tensor(pipe.global_batch_at(step)["tokens"],
+                                 device=art.device)
+        if step == 0 and on_step0 is not None:
+            saved = on_step0(tokens)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt_state, met = art.step_fn(params, opt_state,
+                                             {"tokens": tokens}, step)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = ops.launch_counts()
+        per_step = {k: counts[k] - seen[k] for k in counts
+                    if counts[k] != seen[k]}
+        seen = counts
+        loss = float(met["loss"])
+        log({"run": label, "step": step, "loss": loss, "ms": ms,
+             "launches": per_step})
+        if not math.isfinite(loss):
+            raise AssertionError(f"{label} step {step}: loss {loss}")
+        if per_step != want:
+            raise AssertionError(f"{label} step {step}: launches {per_step},"
+                                 f" expected {want}")
+        losses.append(loss)
+        step_ms.append(ms)
+        if step == 0:
+            saved = (saved, params[leaf].clone(),
+                     {k: v[leaf].clone() for k, v in opt_state.items()
+                      if isinstance(v, dict) and leaf in v})
+    return ops.launch_counts(), losses, step_ms, saved
+
+
+def run_signsgd_path(torch, cfg, dev) -> dict:
+    """Phase 9: signSGD (beta = 0) at phase 3's size on allgather_1bit and
+    psum_int8, 3 steps each from fresh state: exact launches per step (each
+    voter's bf16 gradient row through bitpack or ternary_pack, one tally and
+    one apply per leaf), finite losses, and step 0 of the unembedding
+    bit-equal to the plain versions recomputed from saved copies of its
+    parameters and gradients. Returns the launches (bf16 bitpack counted
+    apart as "bitpack_bf16")."""
+    from repro_torch.configs.base import VoteStrategy
+    from repro_torch.core import signum
+    from repro_torch.data.pipeline import SyntheticLMPipeline
+    from repro_torch.kernels import ref
+    from repro_torch.models import model as M
+    from repro_torch.train import train_step as TS
+
+    totals = {}
+    for strategy, steps in BETA0_RUNS:
+        label = f"signsgd_{strategy}"
+        base = train_config("sign1bit")
+        tcfg = dataclasses.replace(base, optimizer=dataclasses.replace(
+            base.optimizer, kind="signsgd_vote", momentum=0.0,
+            vote_strategy=VoteStrategy(strategy)))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        art = TS.make_train_step(cfg, tcfg, M_MAIN, device=dev)
+        params, opt_state = TS.materialize_state(
+            cfg, tcfg, art, torch.Generator(device=dev).manual_seed(0))
+        pipe = SyntheticLMPipeline(cfg, GLOBAL_BATCH, SEQ, seed=0)
+        per = GLOBAL_BATCH // M_MAIN
+        want = beta0_launches(strategy, len(params))
+        log({"phase": "signsgd_path", "strategy": strategy,
+             "state": sorted(opt_state), "launches_per_step": want})
+
+        def save(tokens):
+            return (params[UNEMBED].clone(),
+                    leaf_grads(torch, M, cfg, params, tokens, per, UNEMBED))
+        launches, losses, step_ms, saved = run_steps(
+            torch, label, art, params, opt_state, pipe, steps, want, UNEMBED,
+            save)
+        peak = torch.cuda.max_memory_allocated()
+        (p0, g0), p1, _ = saved
+        if g0[0].dtype != torch.bfloat16:
+            raise AssertionError(f"{label}: gradients {g0[0].dtype}")
+        eta = signum.lr_at(tcfg.optimizer, 0)
+        wd = tcfg.optimizer.weight_decay
+        rows = [g.reshape(1, -1) for g in g0]
+        if strategy == "allgather_1bit":
+            words = torch.stack([ref.bitpack(r)[0] for r in rows])
+            p_ref = ref.apply_vote(p0.view(1, -1), ref.majority(words)[None],
+                                   eta, wd)
+        else:
+            words = torch.stack([ref.ternary_pack(r)[0] for r in rows])
+            p_ref = ref.apply_ternary_vote(
+                p0.view(1, -1), ref.ternary_majority(words)[None], eta, wd)
+        require_equal(f"{label} step 0 of {UNEMBED}", p1.view(1, -1), p_ref)
+        log({"phase": "step0_bit_equal", "run": label, "leaf": UNEMBED,
+             "coords": p0.numel(), "ok": True})
+        del p0, g0, p1, rows, words, p_ref, saved
+        log({"phase": "signsgd_path_done", "strategy": strategy,
+             "losses": losses, "step_ms": step_ms,
+             "step_ms_median_1_on": statistics.median(step_ms[1:]),
+             "max_memory_allocated_bytes": peak})
+        for k, v in launches.items():
+            if v:
+                key = ("bitpack_bf16" if k == "bitpack" else k)
+                totals[key] = totals.get(key, 0) + v
+        del params, opt_state, art
+        torch.cuda.empty_cache()
+    return totals
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the qwen1.5-32b Mode B preset at full width
+# ---------------------------------------------------------------------------
+
+#: phase 10's runs: (vote strategy, steps); the first is the preset's own
+MODE_B_RUNS = (("hierarchical", STEPS), ("psum_int8", 2),
+               ("allgather_1bit", 2))
+#: the Mode B preset's leaf whose step 0 is recomputed from saved copies
+MODE_B_LEAF = "layers.attn_wq"
+
+
+def mode_b_launches(strategy: str, n_leaves: int) -> dict:
+    """One Mode B step's launches (beta > 0): each voter's bf16 gradient
+    row packed (bitpack or ternary_pack); per leaf the tally, the vote
+    unpacked to bf16, the momentum kernel (no words), ternary_pack of u
+    and apply_ternary_vote."""
+    per_voter = M_MAIN * n_leaves
+    if strategy == "allgather_1bit":
+        want = {"bitpack": per_voter, "majority": n_leaves,
+                "bitunpack": n_leaves, "ternary_pack": n_leaves}
+    else:
+        tally = ("ternary_majority_plus_one" if strategy == "hierarchical"
+                 else "ternary_majority")
+        want = {"ternary_pack": per_voter + n_leaves, tally: n_leaves,
+                "ternary_unpack": n_leaves}
+    return {**want, "momentum_sign_pack": n_leaves,
+            "apply_ternary_vote": n_leaves}
+
+
+def run_mode_b_path(torch, dev) -> dict:
+    """Phase 10: the reference's qwen1.5-32b training configuration,
+    ``make_train_step(cfg, dataclasses.replace(default_train_config(
+    "qwen1.5-32b", cell), fsdp=False), 4)`` at every published width,
+    depth cut 64 -> 2, cell (seq 512, batch 32): signsgd_vote, one global
+    float32 momentum at beta 0.9, hierarchical, 8 microbatches, nested
+    remat. Five steps on hierarchical, then 2 each on psum_int8 and
+    allgather_1bit, each from fresh state: exact launches, finite losses;
+    on hierarchical step 0 of MODE_B_LEAF (its momentum and parameters)
+    bit-equal to the plain versions recomputed from saved copies, and its
+    vote bit-equal to the port's VirtualBackend hierarchical vote of the
+    same gradients; the median step, the peak memory and one profiled
+    step. Returns the launches (bf16 bitpack counted apart)."""
+    from repro_torch.configs.base import (MomentumMode, ShapeCell,
+                                          VoteStrategy, get_config)
+    from repro_torch.configs.presets import default_train_config
+    from repro_torch.core import sign_compress as sc
+    from repro_torch.core import signum
+    from repro_torch.core import vote_api as va
+    from repro_torch.data.pipeline import SyntheticLMPipeline
+    from repro_torch.kernels import ref
+    from repro_torch.models import model as M
+    from repro_torch.train import train_step as TS
+
+    cfg = dataclasses.replace(get_config("qwen1.5-32b"), num_layers=2)
+    cell = ShapeCell("train_smoke", PRESET_SEQ, PRESET_BATCH, "train")
+    preset = default_train_config("qwen1.5-32b", cell)
+    opt = preset.optimizer
+    if (opt.kind, opt.momentum_mode, opt.vote_strategy, opt.momentum,
+            opt.momentum_dtype, preset.microbatches, preset.remat,
+            preset.fsdp) != ("signsgd_vote", MomentumMode.GLOBAL,
+                             VoteStrategy.HIERARCHICAL, 0.9, "float32", 8,
+                             "nested", True):
+        raise AssertionError(f"not the qwen1.5-32b Mode B preset: {preset}")
+    n_params = cfg.param_count()
+    totals = {}
+    for strategy, steps in MODE_B_RUNS:
+        label = f"mode_b_{strategy}"
+        # fsdp is cut: with a mesh its fused ZeRO backward votes inside the
+        # reduce-scatter, which waits for the multi-process wire
+        tcfg = dataclasses.replace(preset, fsdp=False,
+                                   optimizer=dataclasses.replace(
+                                       opt, vote_strategy=VoteStrategy(
+                                           strategy)))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        art = TS.make_train_step(cfg, tcfg, M_MAIN, device=dev)
+        params, opt_state = TS.materialize_state(
+            cfg, tcfg, art, torch.Generator(device=dev).manual_seed(0))
+        if any(u.shape != params[k].shape or u.dtype != torch.float32
+               for k, u in opt_state["momentum"].items()):
+            raise AssertionError("Mode B's momentum is not one leaf-shaped "
+                                 "float32 tensor per leaf")
+        pipe = SyntheticLMPipeline(cfg, tcfg.global_batch, tcfg.seq_len,
+                                   seed=0)
+        want = mode_b_launches(strategy, len(params))
+        log({"phase": "mode_b_path", "arch": cfg.name, "strategy": strategy,
+             "num_layers": cfg.num_layers, "d_model": cfg.d_model,
+             "heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads,
+             "d_ff": cfg.d_ff, "vocab": cfg.vocab_size, "params": n_params,
+             "voters": M_MAIN, "global_batch": tcfg.global_batch,
+             "seq": tcfg.seq_len, "microbatches": tcfg.microbatches,
+             "remat": tcfg.remat, "fsdp": "cut: True -> False",
+             "kind": opt.kind, "momentum_mode": opt.momentum_mode.value,
+             "beta": opt.momentum, "lr": opt.learning_rate,
+             "state": sorted(opt_state), "launches_per_step": want,
+             "resident_before_bytes": resident})
+        check = strategy == "hierarchical"
+
+        def save(tokens):
+            if not check:
+                return None
+            return (params[MODE_B_LEAF].clone(),
+                    preset_leaf_grads(torch, M, cfg, tcfg, params, tokens,
+                                      MODE_B_LEAF))
+        launches, losses, step_ms, saved = run_steps(
+            torch, label, art, params, opt_state, pipe, steps, want,
+            MODE_B_LEAF, save)
+        peak = torch.cuda.max_memory_allocated()
+        median = statistics.median(step_ms[1:])
+        log({"phase": "mode_b_path_done", "strategy": strategy,
+             "losses": losses, "step_ms": step_ms,
+             "step_ms_median_1_on": median,
+             "max_memory_allocated_bytes": peak,
+             "max_memory_allocated_GiB": peak / 2 ** 30})
+        if peak >= 80e9:
+            raise AssertionError(f"{label}: peak {peak} B")
+        for k, v in launches.items():
+            if v:
+                key = ("bitpack_bf16" if k == "bitpack" else k)
+                totals[key] = totals.get(key, 0) + v
+        if check:
+            profile_step(torch, art, params, opt_state, pipe, dev, n_params,
+                         median, "mode_b")
+            (p0, g0), p1, s1 = saved
+            eta = signum.lr_at(tcfg.optimizer, 0)
+            wd = tcfg.optimizer.weight_decay
+            words = torch.stack([ref.ternary_pack(g.reshape(1, -1))[0]
+                                 for g in g0])
+            vote = ref.ternary_unpack(ref.ternary_majority(
+                words, "plus_one")[None], torch.bfloat16)[0, :p0.numel()]
+            u_ref, _ = ref.momentum_sign_pack(
+                vote.view(1, -1), torch.zeros((1, p0.numel()),
+                                              dtype=torch.float32,
+                                              device=dev), opt.momentum)
+            require_equal(f"{label} step 0 momentum of {MODE_B_LEAF}",
+                          s1["momentum"].view(1, -1).view(torch.int32),
+                          u_ref.view(torch.int32))
+            p_ref = ref.apply_ternary_vote(p0.view(1, -1),
+                                           ref.ternary_pack(u_ref), eta, wd)
+            require_equal(f"{label} step 0 of {MODE_B_LEAF}",
+                          p1.view(1, -1), p_ref)
+            # the trainer's vote (at step 0 u = (1 - beta) * vote) against
+            # the vote API's hierarchical wire on the same gradients
+            api = va.VirtualBackend(device=dev).execute(va.VoteRequest(
+                payload=torch.stack([g.reshape(-1) for g in g0]),
+                form="stacked", strategy=VoteStrategy.HIERARCHICAL))
+            require_equal(f"{label} step 0 vote against the vote API",
+                          sc.sign_ternary(s1["momentum"].view(-1)),
+                          api.votes)
+            log({"phase": "step0_bit_equal", "run": label,
+                 "leaf": MODE_B_LEAF, "coords": p0.numel(),
+                 "vote_api_equal": True, "ok": True})
+            del p0, g0, p1, s1, words, vote, u_ref, p_ref, api
+        del params, opt_state, art, saved
+        torch.cuda.empty_cache()
+    return totals
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the dense baselines
+# ---------------------------------------------------------------------------
+
+DENSE_KINDS = ("sgd", "sgdm", "adam")
+DENSE_STEPS = 3
+
+
+def mean_bound(g64):
+    """The rounding bound of a bf16 sum of the (M, ...) gradients in any
+    order, then divided by M (exact: a power of two): M - 1 roundings of
+    partial sums, each at most bf16's unit roundoff 2^-8 times a partial
+    sum, itself at most sum|g|; 2 % on top for the second-order terms."""
+    m = g64.shape[0]
+    return 1.02 * (m - 1) * 2.0 ** -8 * g64.abs().sum(0) / m
+
+
+def check_sqrt(torch, dev) -> None:
+    """PyTorch's float32 sqrt on the card against the float64 root rounded
+    to float32, bit for bit, on 2^24 values from 0 to 1000 (Adam's root
+    must be the nearest float32, as XLA's is; on the CPU PyTorch's is not,
+    so the port's CPU path rounds the float64 root)."""
+    x = torch.rand(1 << 24, generator=torch.Generator(device=dev)
+                   .manual_seed(5), device=dev) * 1e3
+    require_equal("float32 sqrt on the card is the nearest float32",
+                  x.sqrt().view(torch.int32),
+                  x.double().sqrt().float().view(torch.int32))
+    log({"phase": "sqrt_nearest", "values": x.numel(), "ok": True})
+
+
+def run_dense_path(torch, cfg, dev) -> None:
+    """Phase 11: the dense baselines (sgd, sgdm, adam; the voters' mean
+    gradient, a float32 update) at phase 3's size, 3 steps each from fresh
+    state: no kernel launch, finite losses, the median step and the peak
+    memory; for sgdm and adam the mean gradient of the unembedding at step
+    0 (sgdm's m is the mean itself, adam's (1 - beta1) times it) within
+    :func:`mean_bound` of a float64 sum of the four voters' gradients, and
+    (sgdm) bit-equal to the bf16 sum in the port's order. Also
+    PyTorch's float32 sqrt on the card against the float64 root rounded
+    (the Adam update relies on it rounding to nearest)."""
+    from repro_torch.data.pipeline import SyntheticLMPipeline
+    from repro_torch.models import model as M
+    from repro_torch.train import train_step as TS
+
+    check_sqrt(torch, dev)
+    for kind in DENSE_KINDS:
+        label = f"dense_{kind}"
+        base = train_config("sign1bit")
+        tcfg = dataclasses.replace(base, optimizer=dataclasses.replace(
+            base.optimizer, kind=kind))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        art = TS.make_train_step(cfg, tcfg, M_MAIN, device=dev)
+        params, opt_state = TS.materialize_state(
+            cfg, tcfg, art, torch.Generator(device=dev).manual_seed(0))
+        pipe = SyntheticLMPipeline(cfg, GLOBAL_BATCH, SEQ, seed=0)
+        per = GLOBAL_BATCH // M_MAIN
+        log({"phase": "dense_path", "kind": kind, "state": sorted(opt_state),
+             "beta1": tcfg.optimizer.momentum, "lr": tcfg.optimizer
+             .learning_rate})
+
+        def save(tokens):
+            return leaf_grads(torch, M, cfg, params, tokens, per, UNEMBED)
+        _, losses, step_ms, saved = run_steps(
+            torch, label, art, params, opt_state, pipe, DENSE_STEPS, {},
+            UNEMBED, save)
+        peak = torch.cuda.max_memory_allocated()
+        del params, opt_state, art
+        torch.cuda.empty_cache()
+        g0, _, s1 = saved
+        line = {"phase": "dense_path_done", "kind": kind, "losses": losses,
+                "step_ms": step_ms,
+                "step_ms_median_1_on": statistics.median(step_ms[1:]),
+                "max_memory_allocated_bytes": peak,
+                "max_memory_allocated_GiB": peak / 2 ** 30}
+        if kind != "sgd":
+            line.update(check_dense_mean(torch, kind, tcfg, g0, s1["m"]))
+        log(line)
+        del saved, g0, s1
+        torch.cuda.empty_cache()
+
+
+#: elements of the unembedding checked at a time in float64 (2 GB a chunk)
+MEAN_CHUNK = 1 << 26
+
+
+def check_dense_mean(torch, kind, tcfg, g0, m1) -> dict:
+    """Step 0's mean gradient of the unembedding in the dense state `m1`
+    (sgdm: m = the mean; adam: m = (1 - beta1) * mean, one more float32
+    rounding) against a float64 sum of the voters' saved gradients `g0`,
+    within :func:`mean_bound`; for sgdm also bit-equal to the bf16 sum in
+    the port's order. Chunked, so the float64 copies stay at 2 GB."""
+    total = g0[0].clone()
+    for g in g0[1:]:
+        total.add_(g)
+    mean = total.div_(M_MAIN).float().view(-1)
+    del total
+    m1 = m1.view(-1)
+    if kind == "sgdm":   # m = 0.9 * 0 + mean: the mean itself
+        require_equal(f"dense_{kind} step 0 mean of {UNEMBED}", m1, mean)
+    scale = 1.0 if kind == "sgdm" else 1 - tcfg.optimizer.momentum
+    worst = slack_max = 0.0
+    for start in range(0, mean.numel(), MEAN_CHUNK):
+        part = slice(start, start + MEAN_CHUNK)
+        g64 = torch.stack([g.view(-1)[part].double() for g in g0])
+        want = g64.sum(0) / M_MAIN
+        slack = mean_bound(g64)
+        if kind == "adam":   # m / (1 - beta1): two float32 roundings
+            slack += want.abs() * 2.0 ** -22
+        err = (m1[part].double() / scale - want).abs()
+        if (err > slack).any():
+            raise AssertionError(
+                f"dense_{kind}: mean gradient off a float64 sum by "
+                f"{float(err.max())} (bound {float(slack.max())})")
+        worst = max(worst, float(err.max()))
+        slack_max = max(slack_max, float(slack.max()))
+        del g64, want, slack, err
+    return {"mean_grad_max_abs_err_vs_f64": worst,
+            "mean_grad_bound_max": slack_max}
+
+
+# ---------------------------------------------------------------------------
 # phase 7: timing at the unembedding shape
 # ---------------------------------------------------------------------------
 
@@ -1996,6 +2484,8 @@ def time_kernels(torch, ops, ref, sc, dev, launches, errs) -> list:
     # comparison per element
     bf16 = signed_payload(torch, gen, (M_MAIN, n), torch.bfloat16, dev)
     bf16_ms, bf16_elem_ms = pack_stack(bf16)
+    bf16_plain = median_ms(torch, lambda: ref.bitpack(bf16), reps=5,
+                           warmup=1)
     del bf16
     signs = signed_payload(torch, gen, (M_MAIN, n), torch.int8, dev)
     i8_ms, i8_elem_ms = pack_stack(signs)
@@ -2014,6 +2504,11 @@ def time_kernels(torch, ops, ref, sc, dev, launches, errs) -> list:
     row("bitpack_i8", "src/repro/kernels/bitpack.py:47", i8_ms, i8_plain,
         M_MAIN * (n + w * 4), M_MAIN * n, "bitpack.cu", elem_ms=i8_elem_ms,
         shape={"n": n, "rows": M_MAIN, "dtype": "int8"})
+    # the bf16 gradient rows of signSGD and Mode B on the 1-bit wire
+    row("bitpack_bf16", "src/repro/kernels/bitpack.py:47", bf16_ms,
+        bf16_plain, M_MAIN * (n * 2 + w * 4), M_MAIN * n, "bitpack.cu",
+        elem_ms=bf16_elem_ms,
+        shape={"n": n, "rows": M_MAIN, "dtype": "bfloat16"})
     words = torch.randint(-2 ** 31, 2 ** 31, (w,), generator=gen,
                           device=dev, dtype=torch.int32)
     ms = median_ms(torch, lambda: ops.bitunpack(words, n, torch.int8),
@@ -2063,12 +2558,34 @@ def time_kernels(torch, ops, ref, sc, dev, launches, errs) -> list:
         plain, (M_MAIN + 1) * w2 * 4, 3 * M_MAIN * n, "vote.cu",
         more_voters=tally_at_more_voters(torch, ops.ternary_majority, gen,
                                          dev, n, sc.PACK2, 3))
+    # the hierarchical wire's tally (ties +1): the same words and counting,
+    # another finisher
+    packed = torch.randint(-2 ** 31, 2 ** 31, (M_MAIN, w2), generator=gen,
+                           device=dev, dtype=torch.int32)
+    plus = torch.empty(w2, dtype=torch.int32, device=dev)
+    ms = median_ms(torch, lambda: ops.ternary_majority(
+        packed, ties="plus_one", out=plus), reps=25)
+    plain = median_ms(torch, lambda: ref.ternary_majority(packed, "plus_one"),
+                      reps=5, warmup=1)
+    del packed, plus
+    row("ternary_majority_plus_one", "src/repro/kernels/ternary_pack.py:79",
+        ms, plain, (M_MAIN + 1) * w2 * 4, 3 * M_MAIN * n, "vote.cu",
+        ties="plus_one: hierarchical's sign_binary of the count "
+        "(src/repro/core/vote_engine.py:255-315, jnp)")
     ms = median_ms(torch, lambda: ops.ternary_unpack(out, n), reps=25)
     plain = median_ms(torch, lambda: ref.ternary_unpack(out[None]), reps=5,
                       warmup=1)
+    # Mode B's vote unpacked to bf16 (2 B a symbol), and ef_sign's on the
+    # 2-bit wires to float32 (4 B)
+    bf16_ms = median_ms(torch, lambda: ops.ternary_unpack(
+        out, n, torch.bfloat16), reps=25)
+    f32_ms = median_ms(torch, lambda: ops.ternary_unpack(
+        out, n, torch.float32), reps=25)
     # 2 bits read and one int8 symbol written per element; a select each
     row("ternary_unpack", "src/repro/kernels/ops.py:155 (jnp, no "
-        "pallas_call)", ms, plain, w2 * 4 + n, n, "ternary_pack.cu")
+        "pallas_call)", ms, plain, w2 * 4 + n, n, "ternary_pack.cu",
+        bf16_ms=bf16_ms, bf16_bound_ms=bound(w2 * 4 + 2 * n, n)[0],
+        f32_ms=f32_ms, f32_bound_ms=bound(w2 * 4 + 4 * n, n)[0])
     p = torch.randn(n, generator=gen, device=dev).to(torch.bfloat16)
     ms = median_ms(torch, lambda: ops.apply_ternary_vote(p, out, LR, 0.0,
                                                          out=p), reps=25)
@@ -2143,11 +2660,20 @@ def main() -> int:
     for k, v in run_plan_train_path(torch, cfg, dev,
                                     sign1bit_losses).items():
         launches[k] += v
+    # phases 9 and 10 count their bitpack launches, of bf16 gradient rows,
+    # as "bitpack_bf16"
+    launches["bitpack_bf16"] = 0
+    for path in (run_signsgd_path(torch, cfg, dev),
+                 run_mode_b_path(torch, dev)):
+        for k, v in path.items():
+            launches[k] += v
+    run_dense_path(torch, cfg, dev)
     # ef_sign's encode packs its float32 t; every other bitpack of the main
     # path packs int8 signs (staged votes, plan buckets, weighted_vote's vote)
     launches["bitpack_i8"] = launches["bitpack"] - ef_sign_packs
     launches["bitpack"] = ef_sign_packs
     errs["bitpack_i8"] = errs["bitpack"]   # the max over every dtype's check
+    errs["bitpack_bf16"] = errs["bitpack"]
     rows = time_kernels(torch, ops, ref, sc, dev, launches, errs)
     never = [r["name"] for r in rows if not r["launches"]]
     if never:

@@ -11,30 +11,45 @@ decodes it, in three pieces:
 * **the wire** (``supported_strategies`` / ``wire_bits`` / ``ties``) —
   which strategies transport the codec's symbols, at what width and with
   which tie rule;
-* **the Mode A trainer's hooks** (``two_bit`` / ``words_for`` /
+* **the trainer's hooks** (``two_bit`` / ``words_for`` / ``raw_input_`` /
   ``encode_voter_`` / ``begin_step`` / ``vote_`` / ``apply_`` /
   ``feedback_voters_`` / ``end_step``) — the same three pieces with M
   voters stacked on one device, written in place over the momentum, the
-  residual and the parameters, on one of two trainer wires that
-  :meth:`GradientCodec.two_bit` picks from the strategy:
+  residual and the parameters, on one of three trainer wires that
+  :meth:`GradientCodec.two_bit` and :meth:`GradientCodec.ties` pick from
+  the strategy:
 
   - the 1-bit wire (``allgather_1bit``): the signs of the vote input
     (``momentum_sign_pack``'s own words when that input is m'), the
     popcount majority (ties +1) and ``apply_vote``;
-  - the 2-bit wire: the vote input's ``sign_ternary`` symbols packed 16 a
-    word (``ternary_pack``), the ternary majority (``ternary_majority``:
-    the sign of the symbol sum, ties and all-abstain 0) and
-    ``apply_ternary_vote``, which leaves a 0 vote's parameter still.
-    ``ternary2bit`` rides it on every strategy; every codec that the
-    count wire ``psum_int8`` carries rides it there. The reference's
-    ``psum_int8`` sends ``sign_ternary`` of the vote input
+  - the 2-bit count wire (``psum_int8``): the vote input's
+    ``sign_ternary`` symbols packed 16 a word (``ternary_pack``), the
+    ternary majority (``ternary_majority``: the sign of the symbol sum,
+    ties and all-abstain 0) and ``apply_ternary_vote``, which leaves a 0
+    vote's parameter still. ``ternary2bit`` rides it on every strategy;
+    every codec that the count wire ``psum_int8`` carries rides it there.
+    The reference's ``psum_int8`` sends ``sign_ternary`` of the vote input
     (``repro.core.vote_api._leaf_execute``), sums the symbols over the
     voters as int8 counts (int16 above 127 voters) and votes the sign of
     the count, ties and all-abstain 0 (``vote_engine.PsumInt8Strategy``).
     The ternary tally compares the count of +1 symbols with the count of
     -1 symbols, which is the same decision, and its counters have no
     width limit; so the count wire needs no ``torch.sign`` pass and no
-    int8 sum.
+    int8 sum;
+  - the 2-bit wire with ties +1 (``hierarchical``): the same symbols and
+    packing, tallied by ``ternary_majority(ties="plus_one")`` (+1 wherever
+    the +1 symbols are at least the -1 symbols) and applied by
+    ``apply_ternary_vote``. The reference's ``hierarchical`` sums the
+    ternary symbols as counts (a reduce-scatter), takes ``sign_binary`` of
+    each count (ties and all-abstain +1) and rebroadcasts it 1 bit a
+    coordinate (``vote_engine.HierarchicalStrategy``): the same decision,
+    with no count tensor. An abstaining voter counts nothing here, where
+    the 1-bit wire would read its 0 as +1.
+
+  The vote input is each voter's new momentum m' under per-worker
+  momentum (Mode A, beta > 0), and its gradient g itself at beta = 0 and
+  under Mode B (``raw_input_``; the reference votes ``grads`` there,
+  ``core/signum.py:185-190`` and ``:200-205``).
 
 Implementations are stateless singletons; state lives in the caller's
 dictionaries.
@@ -92,12 +107,14 @@ class GradientCodec(abc.ABC):
         zeros is the uninformed prior."""
         return {}
 
-    # ---- Mode A trainer (M voters stacked, in place) ----------------------
+    # ---- the trainer (M voters stacked, in place) --------------------------
 
     def two_bit(self, strategy: VoteStrategy) -> bool:
-        """Whether the trainer's wire under `strategy` is the 2-bit one
-        (see the module doc): the count wire ``psum_int8``."""
-        return strategy == VoteStrategy.PSUM_INT8
+        """Whether the trainer's wire under `strategy` is a 2-bit one (see
+        the module doc): ``psum_int8`` and ``hierarchical``, whose counts
+        let a voter abstain."""
+        return strategy in (VoteStrategy.PSUM_INT8,
+                            VoteStrategy.HIERARCHICAL)
 
     def words_for(self, n: int, two_bit: bool) -> int:
         """Words of one voter's symbols of an n-coordinate leaf."""
@@ -109,21 +126,34 @@ class GradientCodec(abc.ABC):
         `m` (flat) and residual row `error`: m' itself by default."""
         return m
 
-    def encode_voter_(self, g: torch.Tensor, m: torch.Tensor, beta: float,
-                      words: torch.Tensor, error: Optional[torch.Tensor],
-                      two_bit: bool) -> Any:
+    def raw_input_(self, g: torch.Tensor, error: Optional[torch.Tensor]
+                   ) -> torch.Tensor:
+        """:meth:`vote_input_` without momentum (beta = 0, or Mode B): from
+        the voter's flat gradient `g` itself, which, unlike a momentum
+        kernel's m', may hold subnormals (the sign kernels read them as
+        zeros)."""
+        return self.vote_input_(g, error)
+
+    def encode_voter_(self, g: torch.Tensor, m: Optional[torch.Tensor],
+                      beta: float, words: torch.Tensor,
+                      error: Optional[torch.Tensor], two_bit: bool) -> Any:
         """One voter's worker side of one flat leaf: m <- beta*m +
         (1-beta)*g in place, and the voter's symbols of
-        :meth:`vote_input_` into `words` (its row of the leaf's words).
-        `error` is the voter's residual row (None without worker state).
-        Returns what :meth:`feedback_voters_` needs of this voter."""
-        if not two_bit and not self.worker_state:
+        :meth:`vote_input_` into `words` (its row of the leaf's words);
+        without a momentum row (`m` None: beta = 0, or Mode B) the symbols
+        of :meth:`raw_input_` of g. `error` is the voter's residual row
+        (None without worker state). Returns what
+        :meth:`feedback_voters_` needs of this voter."""
+        if m is None:
+            x = self.raw_input_(g, error)
+        elif not two_bit and not self.worker_state:
             # the vote input is m' (only worker state, the EF residual,
             # changes it): its 1-bit signs are momentum_sign_pack's words
             ops.momentum_sign_pack(g, m, beta, m_out=m, packed_out=words)
             return None
-        ops.momentum_sign_pack(g, m, beta, m_out=m, pack=False)
-        x = self.vote_input_(m, error)
+        else:
+            ops.momentum_sign_pack(g, m, beta, m_out=m, pack=False)
+            x = self.vote_input_(m, error)
         if two_bit:
             ops.ternary_pack(x.view(1, -1), out=words.view(1, -1))
         else:
@@ -140,10 +170,11 @@ class GradientCodec(abc.ABC):
         """The server's decode context for one step, fixed for the step."""
         return None
 
-    def vote_(self, words: torch.Tensor, n: int, ctx: Any, two_bit: bool
-              ) -> torch.Tensor:
-        """(M, w) words of an n-coordinate leaf -> the packed vote."""
-        return (ops.ternary_majority(words) if two_bit
+    def vote_(self, words: torch.Tensor, n: int, ctx: Any, two_bit: bool,
+              ties: str = "zero") -> torch.Tensor:
+        """(M, w) words of an n-coordinate leaf -> the packed vote; `ties`
+        is the 2-bit tally's tie rule (:meth:`ties` of the strategy)."""
+        return (ops.ternary_majority(words, ties=ties) if two_bit
                 else ops.majority(words))
 
     def apply_(self, p: torch.Tensor, votes: torch.Tensor, eta: float,

@@ -1,7 +1,8 @@
 """``ef_sign`` — error-feedback sign compression
 (``repro.core.codecs.ef_sign``).
 
-Per voter, with `v` the momentum and `e` the residual:
+Per voter, with `v` the momentum (the gradient at beta = 0) and `e` the
+residual:
 
     t  = e + v                     (encode input)
     wire = sign(t)                 (the same 1-bit symbols as sign1bit)
@@ -86,6 +87,13 @@ class EFSignCodec(GradientCodec):
         """t = e + m' into the residual row, in place."""
         return encode_(error, m)
 
+    def raw_input_(self, g: torch.Tensor, error: Optional[torch.Tensor]
+                   ) -> torch.Tensor:
+        """t = e + g into the residual row, in place (beta = 0): a
+        subnormal of g is read as a zero of its sign, as the reference's
+        XLA add reads its operand."""
+        return encode_(error, sc.flush_subnormals(g))
+
     def sent_(self, x: torch.Tensor) -> torch.Tensor:
         """The voter's mean|t|."""
         return scale_of(x)
@@ -96,7 +104,7 @@ class EFSignCodec(GradientCodec):
         """e_r <- t_r - scale_r * vote for every voter r, the vote (±1, or
         ±1/0 on the 2-bit wire) decoded once in the residual's dtype."""
         n = error.shape[1]
-        vote = (ops.ternary_unpack(votes, n).to(error.dtype) if two_bit
+        vote = (ops.ternary_unpack(votes, n, error.dtype) if two_bit
                 else ops.bitunpack(votes, n, error.dtype))
         self.feedback_decoded_(vote, error, sent)
 

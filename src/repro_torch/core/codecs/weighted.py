@@ -140,7 +140,7 @@ class WeightedVoteCodec(GradientCodec):
                 "coords": 0}
 
     def vote_(self, words: torch.Tensor, n: int, ctx: Dict,
-              two_bit: bool) -> torch.Tensor:
+              two_bit: bool, ties: str = "plus_one") -> torch.Tensor:
         """The weighted vote of the leaf's (M, w) 1-bit words, repacked to
         1-bit words for ``apply_vote``; its mismatches go into `ctx`."""
         vote, mismatch = decode_leaf_fixed(stacked_signs(words, n),

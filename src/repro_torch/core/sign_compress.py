@@ -186,14 +186,19 @@ def unpack_ternary(packed: torch.Tensor, dtype=torch.int8) -> torch.Tensor:
     return signs.reshape(packed.shape[:-1] + (packed.shape[-1] * PACK2,))
 
 
-def ternary_majority(packed: torch.Tensor) -> torch.Tensor:
+def ternary_majority(packed: torch.Tensor, ties: str = "zero"
+                     ) -> torch.Tensor:
     """(M, w) packed ternary votes -> (w,) packed ternary majority: per
     field, the sign of the symbol sum over the M voters, so abstentions
-    abstain and ties give 0. Field-sliced, so no (M, 16w) tensor is made."""
+    abstain and ties give 0; with ``ties="plus_one"``, ``sign_binary`` of
+    the sum (ties and all-abstain +1: the ``hierarchical`` wire's count
+    rule). Field-sliced, so no (M, 16w) tensor is made."""
     acc = torch.zeros(packed.shape[1:], dtype=WORD_DTYPE,
                       device=packed.device)
     for j in range(PACK2):
         f = (packed >> (2 * j)) & 0x3
         count = (f == 1).sum(dim=0) - (f == 3).sum(dim=0)
-        acc |= torch.sign(count).to(WORD_DTYPE).bitwise_and_(0x3) << (2 * j)
+        sym = (torch.sign(count).to(WORD_DTYPE) if ties == "zero"
+               else torch.where(count >= 0, 1, -1).to(WORD_DTYPE))
+        acc |= sym.bitwise_and_(0x3) << (2 * j)
     return acc

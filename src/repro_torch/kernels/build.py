@@ -46,6 +46,7 @@ SIGNATURES = {
     "vote": {
         "majority_packed": (_P, _P, _I, _I64, _P),
         "ternary_majority": (_P, _P, _I, _I64, _P),
+        "ternary_majority_plus_one": (_P, _P, _I, _I64, _P),
     },
     "bitpack": {
         # x, out, rows, n, the row stride of x in elements, stream
@@ -61,7 +62,8 @@ SIGNATURES = {
     "ternary_pack": {
         **{f"ternary_pack_{t}": (_P, _P, _I64, _I64, _P)
            for t in ("f32", "bf16", "i8")},
-        "ternary_unpack_i8": (_P, _P, _I64, _P),
+        **{f"ternary_unpack_{t}": (_P, _P, _I64, _P)
+           for t in ("f32", "bf16", "i8")},
     },
 }
 

@@ -19,16 +19,20 @@
 //   the reference packs it); f32 / bf16 values are packed as their
 //   sign_ternary (x > 0 -> 0b01, x < 0 -> 0b11, +0.0 / -0.0 -> 0b00), so a
 //   caller never makes an int8 or int32 copy of a float payload.
-// ternary_unpack: (w,) words -> (n,) int8 of {-1, 0, +1}. A field reads +1
-//   only as 0b01 and -1 only as 0b11: the unused pattern 0b10 reads 0, as
-//   the reference's where() decodes it.
+// ternary_unpack: (w,) words -> (n,) of {-1, 0, +1} in int8, float32 or
+//   bf16 (the float outputs give Mode B's momentum update its g, with no
+//   cast pass; 0 is +0.0). A field reads +1 only as 0b01 and -1 only as
+//   0b11: the unused pattern 0b10 reads 0, as the reference's where()
+//   decodes it.
 //
 // Bound on the H100 (3.35 TB/s): a mask, a compare or a shift per element,
 // so device-memory bytes bound both. At the glm4-9b unembedding
 // (n = 620,756,992):
 //   ternary_pack of the (4, n) int8 wire signs reads 4n B and writes n B:
 //     3.10 GB, 0.93 ms; of one f32 momentum row, 4n B + n/4 B: 0.79 ms.
-//   ternary_unpack reads n/4 B and writes n B: 0.78 GB, 0.23 ms.
+//   ternary_unpack reads n/4 B and writes n B: 0.78 GB, 0.23 ms (int8);
+//     n/4 + 2n B, 1.40 GB, 0.42 ms (bf16); n/4 + 4n B, 2.64 GB, 0.79 ms
+//     (float32).
 //
 // Design. The TPU kernels work on (8, 2048) VMEM blocks with unrolled
 // shift/OR trees. Here one thread owns one output word. Packing reads the
@@ -36,8 +40,12 @@
 // aligned (n % 16 == 0 and an aligned base; one load for int8, two for
 // bf16, four for f32), element by element otherwise; the grid's y
 // dimension walks the rows, so a word never straddles two rows. Unpacking
-// builds the 16 int8 symbols in registers and writes them with one 16-byte
-// store.
+// gives each thread one 16-byte store of symbols (16 int8, 8 bf16 or 4
+// float32, from one word), so a warp writes 512 contiguous bytes.
+// Rejected: a thread per word writing its 16 symbols with one to four
+// 16-byte stores (the int8 design carried over): on the H100 the float32
+// output took 1.89 ms at the glm4-9b unembedding, 42 % of its bound, and
+// bf16 0.65 ms (PERF.md, the kernel table).
 // Rejected: no design of these two. The tally that was here (one thread
 // per word, 16 counters) gave way to vote.cu's bit-sliced one; PERF.md,
 // kernel table row 8, has its times.
@@ -123,20 +131,37 @@ __global__ void ternary_pack_kernel(const T* __restrict__ x,
   out[(int64_t)blockIdx.y * w + k] = acc;
 }
 
-// the int8 symbol of a field: 0x01, 0xFF (-1) or 0x00
-__device__ __forceinline__ uint32_t symbol_byte(uint32_t f) {
+// a field's symbol as the bits of an int8, a bf16 or a float32: +1 only
+// for 0b01, -1 only for 0b11, else +0
+template <typename T> __device__ __forceinline__ uint32_t symbol_bits(uint32_t f);
+template <> __device__ __forceinline__ uint32_t symbol_bits<int8_t>(uint32_t f) {
   return f == 1u ? 0x01u : (f == 3u ? 0xFFu : 0x00u);
 }
+template <> __device__ __forceinline__ uint32_t
+symbol_bits<__nv_bfloat16>(uint32_t f) {
+  return f == 1u ? 0x3F80u : (f == 3u ? 0xBF80u : 0x0000u);
+}
+template <> __device__ __forceinline__ uint32_t symbol_bits<float>(uint32_t f) {
+  return f == 1u ? 0x3F800000u : (f == 3u ? 0xBF800000u : 0x00000000u);
+}
 
+// A thread owns the 16 bytes of output at [i0, i0 + kPerThread): 16 int8,
+// 8 bf16 or 4 float32 symbols, all from one word (kPerThread divides 16),
+// so neighbouring threads write neighbouring 16 bytes.
+template <typename T>
 __global__ void ternary_unpack_kernel(const uint32_t* __restrict__ v,
-                                      int8_t* __restrict__ out, int64_t n) {
-  const int64_t k = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const int64_t i0 = k * kFields;
+                                      T* __restrict__ out, int64_t n) {
+  constexpr int kPerThread = 16 / sizeof(T);
+  constexpr int kPerLane = 4 / sizeof(T);        // symbols per 32-bit lane
+  const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int64_t i0 = t * kPerThread;
   if (i0 >= n) return;
-  const uint32_t bits = v[k];
-  if (i0 + kFields > n) {                          // the ragged tail
-    for (int j = 0; j < n - i0; ++j)
-      out[i0 + j] = (int8_t)symbol_byte((bits >> (2 * j)) & 3u);
+  const uint32_t bits = v[i0 / kFields] >> (2 * (i0 % kFields));
+  if (i0 + kPerThread > n) {                       // the ragged tail
+    for (int j = 0; j < n - i0; ++j) {
+      const uint32_t s = symbol_bits<T>((bits >> (2 * j)) & 3u);
+      out[i0 + j] = *reinterpret_cast<const T*>(&s);
+    }
     return;
   }
   uint32_t p[4];
@@ -144,8 +169,9 @@ __global__ void ternary_unpack_kernel(const uint32_t* __restrict__ v,
   for (int q = 0; q < 4; ++q) {
     p[q] = 0;
 #pragma unroll
-    for (int e = 0; e < 4; ++e)
-      p[q] |= symbol_byte((bits >> (2 * (4 * q + e))) & 3u) << (8 * e);
+    for (int e = 0; e < kPerLane; ++e)
+      p[q] |= symbol_bits<T>((bits >> (2 * (kPerLane * q + e))) & 3u)
+              << (8 * sizeof(T) * e);
   }
   // out comes from torch.empty, so out + i0 is 16-byte aligned
   *reinterpret_cast<uint4*>(out + i0) = make_uint4(p[0], p[1], p[2], p[3]);
@@ -183,6 +209,18 @@ int launch_pack(const void* x, void* out, int64_t rows, int64_t n,
   return (int)cudaGetLastError();
 }
 
+template <typename T>
+int launch_unpack(const void* v, void* out, int64_t n, void* stream) {
+  if (n > 0) {
+    constexpr int kPerThread = 16 / sizeof(T);
+    const int64_t threads = (n + kPerThread - 1) / kPerThread;
+    ternary_unpack_kernel<T><<<blocks_for(threads), kThreads, 0,
+                               (cudaStream_t)stream>>>((const uint32_t*)v,
+                                                       (T*)out, n);
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -203,13 +241,15 @@ int ternary_pack_bf16(const void* x, void* out, int64_t rows, int64_t n,
 }
 
 int ternary_unpack_i8(const void* v, void* out, int64_t n, void* stream) {
-  if (n > 0) {
-    const int64_t w = (n + kFields - 1) / kFields;
-    ternary_unpack_kernel<<<blocks_for(w), kThreads, 0,
-                            (cudaStream_t)stream>>>((const uint32_t*)v,
-                                                    (int8_t*)out, n);
-  }
-  return (int)cudaGetLastError();
+  return launch_unpack<int8_t>(v, out, n, stream);
+}
+
+int ternary_unpack_bf16(const void* v, void* out, int64_t n, void* stream) {
+  return launch_unpack<__nv_bfloat16>(v, out, n, stream);
+}
+
+int ternary_unpack_f32(const void* v, void* out, int64_t n, void* stream) {
+  return launch_unpack<float>(v, out, n, stream);
 }
 
 }  // extern "C"

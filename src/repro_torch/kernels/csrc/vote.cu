@@ -14,13 +14,20 @@
 //   against the -1 votes: 0b01 where there are more +1s, 0b11 where there
 //   are more -1s, 0b00 on a tie, all-abstaining fields included. 0b00 and
 //   the unused 0b10 count nothing, as the reference's where() decodes them.
-// Neither has a cap on M.
+// ternary_majority_plus_one: the same count with the tie rule of the
+//   reference's hierarchical wire (src/repro/core/vote_engine.py:255-315:
+//   the voters' ternary signs summed as counts, then sign_binary of the
+//   count): 0b01 wherever the +1 votes are at least the -1 votes, ties and
+//   all-abstaining fields included, else 0b11. It has no Pallas
+//   counterpart; the trainer's hierarchical wire tallies with it.
+// None has a cap on M.
 //
 // Bound on the H100 (3.35 TB/s): an output word reads M words and writes
 // one, (M + 1) * 4 B, and the counting below takes a few word operations
 // per voter, so device-memory bytes bound both. At the glm4-9b unembedding
 // (n = 620,756,992) with M = 4: majority_packed 19,398,656 words, 0.39 GB,
-// 0.116 ms; ternary_majority 38,797,312 words, 0.78 GB, 0.232 ms.
+// 0.116 ms; ternary_majority (either tie rule) 38,797,312 words, 0.78 GB,
+// 0.232 ms.
 //
 // Design. The TPU kernels count each of the 32 bit positions (16 fields)
 // of an (M, 512) VMEM block in turn. Carried over as one thread per output
@@ -37,7 +44,8 @@
 // weight-4 carry ripples through the planes above, and the last M % 4 one
 // at a time with a ripple of half-adders. A finisher compares the counts
 // plane by plane, most significant first: against ceil(M / 2) on the
-// 1-bit wire, the even count against the odd one on the 2-bit wire. Both
+// 1-bit wire, the even count against the odd one on the 2-bit wire (two
+// finishers: ties 0b00, or ties +1 for the hierarchical wire). All three
 // tallies are this one template over the decoder and the finisher. Each P
 // up to 8 (M <= 255) has a kernel of its own; one more kernel keeps
 // kAnyPlanes = 31 planes, enough for any int M, and stops each ripple once
@@ -102,20 +110,39 @@ struct AtLeastHalf {    // bit j set where count_j >= need = ceil(M / 2)
     return gt | eq;
   }
 };
+// Compares the count of +1 votes (the even bits of the planes) with the
+// count of -1 votes (the odd bits) of each field, most significant plane
+// first: the even bit j of gt (lt) is set where plus_j > minus_j (<).
+template <int P>
+__device__ __forceinline__ void compare_fields(const uint32_t (&c)[P],
+                                               uint32_t& gt, uint32_t& lt) {
+  gt = 0;
+  lt = 0;
+#pragma unroll
+  for (int p = P - 1; p >= 0; --p) {
+    const uint32_t plus = c[p] & 0x55555555u;
+    const uint32_t minus = (c[p] >> 1) & 0x55555555u;
+    const uint32_t open = ~(gt | lt);
+    gt |= open & plus & ~minus;
+    lt |= open & minus & ~plus;
+  }
+}
 struct Plurality {   // field j: 01 if plus_j > minus_j, 11 if below, else 00
   template <int P>
   static __device__ __forceinline__ uint32_t finish(const uint32_t (&c)[P],
                                                     uint32_t) {
-    uint32_t gt = 0, lt = 0;             // decided so far, in the even bits
-#pragma unroll
-    for (int p = P - 1; p >= 0; --p) {
-      const uint32_t plus = c[p] & 0x55555555u;
-      const uint32_t minus = (c[p] >> 1) & 0x55555555u;
-      const uint32_t open = ~(gt | lt);
-      gt |= open & plus & ~minus;
-      lt |= open & minus & ~plus;
-    }
+    uint32_t gt, lt;
+    compare_fields<P>(c, gt, lt);
     return gt | lt | (lt << 1);
+  }
+};
+struct PluralityPlusOne {   // field j: 11 if plus_j < minus_j, else 01
+  template <int P>
+  static __device__ __forceinline__ uint32_t finish(const uint32_t (&c)[P],
+                                                    uint32_t) {
+    uint32_t gt, lt;
+    compare_fields<P>(c, gt, lt);
+    return 0x55555555u | (lt << 1);
   }
 };
 
@@ -267,6 +294,11 @@ int majority_packed(const void* packed, void* out, int m, int64_t w,
 int ternary_majority(const void* packed, void* out, int m, int64_t w,
                      void* stream) {
   return tally<TernaryLanes, Plurality>(packed, out, m, w, stream);
+}
+
+int ternary_majority_plus_one(const void* packed, void* out, int m, int64_t w,
+                              void* stream) {
+  return tally<TernaryLanes, PluralityPlusOne>(packed, out, m, w, stream);
 }
 
 }  // extern "C"

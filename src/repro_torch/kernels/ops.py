@@ -16,8 +16,10 @@ element 16k + j); its padding fields are ``0b00``, an abstention.
 
 ``launch_counts()`` reports, under the reference's names, how many times
 each kernel was launched on a card since ``reset_launch_counts()`` (both
-momentum dtypes of ``momentum_sign_pack`` under its one name); CPU calls
-do not count.
+momentum dtypes of ``momentum_sign_pack`` under its one name, every output
+dtype of an unpack under its one name; the ternary tally with ties +1,
+which has no Pallas counterpart, as ``ternary_majority_plus_one``); CPU
+calls do not count.
 """
 from __future__ import annotations
 
@@ -33,8 +35,9 @@ WORD = sc.WORD_DTYPE
 _COUNTS: Dict[str, int] = {"momentum_sign_pack": 0, "majority": 0,
                            "apply_vote": 0, "bitpack": 0, "bitunpack": 0,
                            "fused_majority": 0, "ternary_pack": 0,
-                           "ternary_majority": 0, "ternary_unpack": 0,
-                           "apply_ternary_vote": 0}
+                           "ternary_majority": 0,
+                           "ternary_majority_plus_one": 0,
+                           "ternary_unpack": 0, "apply_ternary_vote": 0}
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 #: element types the sign kernels read and bitunpack writes
 _SIGN_SUFFIX = {**_SUFFIX, torch.int8: "i8"}
@@ -316,13 +319,23 @@ def ternary_pack(x: torch.Tensor, *, out: Optional[torch.Tensor] = None
     return out
 
 
-def ternary_majority(packed: torch.Tensor, *,
+#: the ternary tally's tie rules: the count wire's (ties and all-abstain
+#: 0) and the hierarchical wire's (``sign_binary`` of the count: +1)
+TIES = ("zero", "plus_one")
+
+
+def ternary_majority(packed: torch.Tensor, *, ties: str = "zero",
                      out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(M, w) int32 packed ternary votes -> (w,) packed ternary majority:
-    per field the sign of the symbol sum (abstentions abstain, ties -> 0;
-    the unused pattern 0b10 counts 0)."""
+    per field the +1 votes against the -1 votes (abstentions and the unused
+    pattern 0b10 count nothing). ``ties="zero"``: the sign of the symbol
+    sum, ties and all-abstain 0b00; ``ties="plus_one"``: 0b01 wherever the
+    sum is >= 0, ties and all-abstain included, else 0b11 (the reference's
+    ``hierarchical`` wire, ``sign_binary`` of the count)."""
     dev = packed.device
     _check(packed, "packed", ndim=2, dtypes=(WORD,), device=dev)
+    if ties not in TIES:
+        raise ValueError(f"ties must be one of {TIES}, got {ties!r}")
     m, w = packed.shape
     if m < 1:
         raise ValueError("ternary_majority needs at least one voter")
@@ -332,26 +345,32 @@ def ternary_majority(packed: torch.Tensor, *,
     if out.shape[0] != w:
         raise ValueError(f"out must be ({w},), got {tuple(out.shape)}")
     if not _on_card(packed):
-        return out.copy_(ref.ternary_majority(packed))
-    _launch("vote", "ternary_majority", packed.data_ptr(),
-            out.data_ptr(), m, w, _stream(packed))
-    _COUNTS["ternary_majority"] += 1
+        return out.copy_(ref.ternary_majority(packed, ties))
+    name = "ternary_majority" + ("" if ties == "zero" else "_plus_one")
+    _launch("vote", name, packed.data_ptr(), out.data_ptr(), m, w,
+            _stream(packed))
+    _COUNTS[name] += 1
     return out
 
 
-def ternary_unpack(packed: torch.Tensor, n: int) -> torch.Tensor:
-    """(w,) int32 ternary words -> (n,) int8 of {-1, 0, +1}: the first n of
-    the 16*w symbols (``0b10`` reads 0)."""
+def ternary_unpack(packed: torch.Tensor, n: int, dtype=torch.int8
+                   ) -> torch.Tensor:
+    """(w,) int32 ternary words -> (n,) of {-1, 0, +1} in `dtype` (int8,
+    f32 or bf16; 0 is +0.0): the first n of the 16*w symbols (``0b10``
+    reads 0)."""
     dev = packed.device
     _check(packed, "packed", ndim=1, dtypes=(WORD,), device=dev)
+    if dtype not in _SIGN_SUFFIX:
+        raise TypeError(f"dtype must be one of {list(_SIGN_SUFFIX)}, got "
+                        f"{dtype}")
     w = packed.shape[0]
     if not 0 <= n <= sc.PACK2 * w:
         raise ValueError(f"{w} words hold at most {sc.PACK2 * w} symbols, "
                          f"asked for {n}")
     if not _on_card(packed):
-        return ref.ternary_unpack(packed)[:n].clone()
-    out = torch.empty(n, dtype=torch.int8, device=dev)
-    _launch("ternary_pack", "ternary_unpack_i8", packed.data_ptr(),
-            out.data_ptr(), n, _stream(packed))
+        return ref.ternary_unpack(packed, dtype)[:n].clone()
+    out = torch.empty(n, dtype=dtype, device=dev)
+    _launch("ternary_pack", f"ternary_unpack_{_SIGN_SUFFIX[dtype]}",
+            packed.data_ptr(), out.data_ptr(), n, _stream(packed))
     _COUNTS["ternary_unpack"] += 1
     return out

@@ -90,10 +90,12 @@ def ternary_unpack(packed: torch.Tensor, dtype=torch.int8) -> torch.Tensor:
     return sc.unpack_ternary(packed, dtype)
 
 
-def ternary_majority(packed: torch.Tensor) -> torch.Tensor:
+def ternary_majority(packed: torch.Tensor, ties: str = "zero"
+                     ) -> torch.Tensor:
     """(M, w) packed ternary -> (w,) packed ternary majority (sign of the
-    symbol sum: abstentions abstain, ties -> 0)."""
-    return sc.ternary_majority(packed)
+    symbol sum: abstentions abstain; ties -> 0, or with ``ties="plus_one"``
+    ``sign_binary`` of the sum: ties and all-abstain -> +1)."""
+    return sc.ternary_majority(packed, ties)
 
 
 def apply_vote(p: torch.Tensor, votes_packed: torch.Tensor, eta: float,

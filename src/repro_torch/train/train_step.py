@@ -7,7 +7,13 @@ with M voters stacked on one device.
 
 ``tcfg`` may be the reference's preset, ``configs.presets.default_train_
 config(arch, cell)``: for glm4-9b bf16 momentum on ``psum_int8``, 8
-microbatches and ``remat="full"``.
+microbatches and ``remat="full"``; for the Mode B archs (qwen1.5-32b)
+``signsgd_vote`` with one global float32 momentum on ``hierarchical``,
+8 microbatches and ``remat="nested"`` (their ``fsdp=True`` raises: pass
+``dataclasses.replace(tcfg, fsdp=False)``). ``tcfg.optimizer.kind`` picks
+the optimizer as the reference's ``build_optimizer`` does: the sign family
+(Mode A or B, any beta, ``core.signum.make_sign_optimizer``) or a dense
+baseline (``sgd`` / ``sgdm`` / ``adam``, ``make_dense_optimizer``).
 
 One step:
 
@@ -16,17 +22,20 @@ One step:
    into ``microbatches`` equal chunks: per chunk the loss (each decoder
    block checkpointed under ``remat``) and ``torch.autograd.grad`` over
    every leaf; with more than one chunk the gradients accumulate as the
-   reference's ``acc_body`` scan has them (a bf16 accumulator from zeros,
-   ``acc + g.to(bf16)`` chunk by chunk, then ``acc / microbatches``: only
-   the sign of the sum survives), one leaf-sized buffer per leaf. Then per
-   leaf the codec's encode (momentum + sign + pack kernels:
-   ``core.signum``), which updates voter r's momentum row in place and
-   writes its words into row r of the leaf's (M, w) buffer; the gradients
-   are freed before the next voter;
-2. per leaf, the tally kernel and the vote-apply kernel, updating the
-   parameters in place, and the codec's feedback.
+   reference's ``acc_body`` scan has them (an accumulator from zeros,
+   ``acc + g.to(acc.dtype)`` chunk by chunk, then ``acc / microbatches``:
+   bf16 for the sign family, where only the sign of the sum survives, and
+   float32 for the dense baselines), one leaf-sized buffer per leaf. Then
+   per leaf the optimizer's encode (``core.signum``): for the sign family
+   the codec's momentum + sign + pack kernels, which update voter r's
+   momentum row in place (if it has one) and write its words into row r of
+   the leaf's (M, w) buffer; for the dense baselines an add into the
+   voters' gradient sum. The gradients are freed before the next voter;
+2. per leaf, the tally kernel and the vote-apply kernel (Mode B: through
+   the global momentum), updating the parameters in place, and the
+   codec's feedback; or the dense update of the mean gradient.
 
-With ``OptimizerConfig.bucket_bytes > 0`` the step builds a
+With ``OptimizerConfig.bucket_bytes > 0`` a sign optimizer's step builds a
 ``core.vote_plan.VotePlan`` over every leaf, as the reference's
 ``make_train_step`` does (``train/train_step.py:161-187``: the
 optimizer's codec map and strategy, ``data_size = M``, since the stacked
@@ -65,6 +74,8 @@ class StepArtifacts:
     optimizer: signum.Optimizer
     device: torch.device
     codec: str = "sign1bit"
+    #: voters stacked on the device (the reference's ``n_vote_replicas``)
+    n_voters: int = 1
     #: resolved (never AUTO), as the reference's ``StepArtifacts`` has it
     #: (under a plan its groups' one strategy, None for a mixed map)
     vote_strategy: Optional[VoteStrategy] = None
@@ -80,7 +91,10 @@ def _validate(tcfg: TrainConfig, n_voters: int) -> None:
     if tcfg.remat not in transformer.REMAT_MODES:
         todo(f"remat={tcfg.remat!r}")
     if tcfg.fsdp:
-        todo("fsdp=True")
+        # with a mesh the reference's fused ZeRO backward votes inside the
+        # reduce-scatter (majority of the microbatches' votes); that needs
+        # the multi-process wire
+        todo("fsdp=True (the fused ZeRO backward's vote)")
     if tcfg.diagnostics:
         todo("vote diagnostics")
     if tcfg.loss_dtype != "float32":
@@ -100,14 +114,16 @@ def _validate(tcfg: TrainConfig, n_voters: int) -> None:
 
 
 def accumulate_(acc: Optional[List[torch.Tensor]],
-                grads: Sequence[torch.Tensor]) -> List[torch.Tensor]:
-    """One microbatch of the reference's ``acc_body``: ``acc + g.to(bf16)``
-    in place, each leaf rounded to bf16 (from bf16 zeros when `acc` is
-    None)."""
+                grads: Sequence[torch.Tensor],
+                dtype: torch.dtype = torch.bfloat16) -> List[torch.Tensor]:
+    """One microbatch of the reference's ``acc_body``: ``acc +
+    g.to(acc.dtype)`` in place, each leaf rounded to the accumulator's
+    dtype (from zeros of `dtype` when `acc` is None: bf16 for the sign
+    family, float32 for the dense baselines, the reference's ``acc_dt``)."""
     if acc is None:
-        acc = [torch.zeros_like(g, dtype=torch.bfloat16) for g in grads]
+        acc = [torch.zeros_like(g, dtype=dtype) for g in grads]
     for a, g in zip(acc, grads):
-        a.add_(g.to(torch.bfloat16))
+        a.add_(g.to(a.dtype))
     return acc
 
 
@@ -119,6 +135,8 @@ def voter_grads(cfg: ModelConfig, tcfg: TrainConfig,
     microbatch, accumulated as the reference does (see the module doc)."""
     micro = tcfg.microbatches
     rows = tokens.shape[0] // micro
+    acc_dtype = (torch.bfloat16 if tcfg.optimizer.kind in signum.SIGN_KINDS
+                 else torch.float32)
     acc, mets = None, []
     for i in range(micro):
         leaves = {k: p.detach().requires_grad_() for k, p in params.items()}
@@ -127,7 +145,8 @@ def voter_grads(cfg: ModelConfig, tcfg: TrainConfig,
                               remat=tcfg.remat)
         grads = torch.autograd.grad(loss, list(leaves.values()))
         del leaves
-        acc = list(grads) if micro == 1 else accumulate_(acc, grads)
+        acc = (list(grads) if micro == 1
+               else accumulate_(acc, grads, acc_dtype))
         del grads
         mets.append({"loss": loss.detach(), "ce": met["ce"].detach(),
                      "aux": met["aux"].detach()})
@@ -147,8 +166,9 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, n_voters: int = 1,
     _validate(tcfg, n_voters)
     opt_cfg = tcfg.optimizer
     plan = None
-    if opt_cfg.bucket_bytes != 0 and opt_cfg.kind == "signum_vote":
-        # the reference's plan: every leaf (Mode A), its codec map and the
+    if opt_cfg.bucket_bytes != 0 and opt_cfg.kind in signum.SIGN_KINDS:
+        # the reference's plan: every leaf (Mode A, and Mode B, whose
+        # leaves all vote explicitly without fsdp), its codec map and the
         # configured (unresolved) strategy, over the M stacked voters
         shapes = cfg.param_shapes()
         plan = vp.build_plan(
@@ -158,7 +178,7 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, n_voters: int = 1,
             strategy=opt_cfg.vote_strategy, data_size=n_voters,
             pod_size=1, dtypes={k: cfg.dtype for k in shapes},
             overlap=opt_cfg.overlap)
-    opt = signum.make_sign_optimizer(opt_cfg, n_voters, plan)
+    opt = signum.build_optimizer(opt_cfg, n_voters, plan)
     resolved = opt.strategy
     if plan is not None:
         group_strats = {g.strategy for g in plan.groups}
@@ -186,21 +206,26 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, n_voters: int = 1,
 
     return StepArtifacts(step_fn=step_fn, optimizer=opt, device=dev,
                          codec=tcfg.optimizer.resolved_codec,
-                         vote_strategy=resolved, plan=plan)
+                         n_voters=n_voters, vote_strategy=resolved,
+                         plan=plan)
 
 
 def materialize_state(cfg: ModelConfig, tcfg: TrainConfig,
                       art: StepArtifacts, generator: torch.Generator,
                       device: DeviceLike = None) -> Tuple[Any, Any]:
     """Concrete (params, opt_state) on the step's device: parameters drawn
-    from `generator` by the reference's init rules, zero momentum
-    ``(M, *leaf_shape)`` in ``momentum_dtype``, and the codec's state as
-    the reference lays it out (``train_step.py:365-390``): a zero
-    ``"error"`` residual shaped and typed like the momentum for
-    ``ef_sign`` (under a plan, for its ``ef_sign`` leaves only),
-    ``"codec": {"flip_ema": (M,) float32 zeros}`` for ``weighted_vote``
-    (or a plan that maps a leaf to it), and ``"delayed"``, one zero int8
-    tensor per leaf, for ``delayed_vote``."""
+    from `generator` by the reference's init rules, and the optimizer's
+    zero state laid out key for key as the reference's ``abstract_state``
+    (``train_step.py:331-400``): ``"count"``; for the sign family the
+    momentum in ``momentum_dtype`` when beta > 0, ``(M, *leaf_shape)``
+    under Mode A and leaf-shaped under Mode B, a zero ``"error"`` residual
+    for ``ef_sign`` (one row per voter; under a plan for its ``ef_sign``
+    leaves only), ``"codec": {"flip_ema": (M,) float32 zeros}`` for
+    ``weighted_vote`` (or a plan that maps a leaf to it) and
+    ``"delayed"``, one zero int8 tensor per leaf, for ``delayed_vote``;
+    for the dense baselines float32 leaf-shaped ``"m"`` (``sgdm``,
+    ``adam``) and ``"v"`` (``adam``). See ``core.signum`` for the one
+    place the port's layout differs (ef_sign's residual at beta = 0)."""
     dev = art.device if device is None else resolve_device(device)
     if dev != art.device:
         raise ValueError(f"state on {dev} but the step runs on {art.device}")

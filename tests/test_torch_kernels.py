@@ -361,6 +361,7 @@ def test_plain_path_in_place_and_uncounted():
                                     "apply_vote": 0, "bitpack": 0,
                                     "bitunpack": 0, "fused_majority": 0,
                                     "ternary_pack": 0, "ternary_majority": 0,
+                                    "ternary_majority_plus_one": 0,
                                     "ternary_unpack": 0,
                                     "apply_ternary_vote": 0}
 

@@ -569,7 +569,8 @@ def test_m4_codec_free_running_losses_match_composed_reference(ref_m4_codec):
 _NO_LAUNCHES = {"momentum_sign_pack": 0, "majority": 0, "apply_vote": 0,
                 "bitpack": 0, "bitunpack": 0, "fused_majority": 0,
                 "ternary_pack": 0, "ternary_majority": 0,
-                "ternary_unpack": 0, "apply_ternary_vote": 0}
+                "ternary_majority_plus_one": 0, "ternary_unpack": 0,
+                "apply_ternary_vote": 0}
 
 
 def test_step_updates_state_in_place_without_kernel_launches():
@@ -643,19 +644,31 @@ def test_codec_state_layout_and_in_place(codec):
 # ---------------------------------------------------------------------------
 
 
+#: TrainConfig fields among the cases below (the rest are the optimizer's)
+_TRAIN_FIELDS = ("fsdp", "byzantine", "remat", "diagnostics", "loss_dtype")
+
+
 @pytest.mark.parametrize("opt", [
-    {"vote_strategy": tbase.VoteStrategy.HIERARCHICAL},
-    {"momentum_mode": tbase.MomentumMode.GLOBAL},
+    # leaf-wise hierarchical runs (since the ninth slice); the fused ZeRO
+    # backward's vote does not (Queue 4 item 4)
+    {"vote_strategy": tbase.VoteStrategy.HIERARCHICAL, "fsdp": True},
+    # Mode B runs; its presets' fsdp does not
+    {"momentum_mode": tbase.MomentumMode.GLOBAL, "fsdp": True},
     # the priced AUTO ladder of bucket sizes (Queue 1 item 15)
     {"bucket_bytes": -1},
-    {"momentum": 0.0},
+    # beta = 0 runs; a byzantine mode does not (Queue 1 item 6)
+    {"momentum": 0.0, "byzantine": tbase.ByzantineConfig(
+        mode="sign_flip", num_adversaries=1)},
     {"bucket_bytes": -1, "overlap": True},
-    {"kind": "signsgd_vote"},
+    # signsgd_vote runs; remat="dots" does not (Queue 4 item 4)
+    {"kind": "signsgd_vote", "remat": "dots"},
 ])
 def test_unported_options_raise(opt):
     cfg, tcfg = _tcfgs()
+    train = {k: v for k, v in opt.items() if k in _TRAIN_FIELDS}
+    opt = {k: v for k, v in opt.items() if k not in _TRAIN_FIELDS}
     tcfg = dataclasses.replace(
-        tcfg, optimizer=dataclasses.replace(tcfg.optimizer, **opt))
+        tcfg, optimizer=dataclasses.replace(tcfg.optimizer, **opt), **train)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tTS.make_train_step(cfg, tcfg, 1, device="cpu")
 
@@ -969,8 +982,9 @@ def test_m1_preset_step_matches_reference_trainer(step):
 
 
 @pytest.mark.parametrize("change,item", [
-    ({"optimizer": {"vote_strategy": tbase.VoteStrategy.HIERARCHICAL}},
-     "Queue 1 item 3"),
+    # hierarchical runs since the ninth slice; under fsdp it still raises
+    ({"optimizer": {"vote_strategy": tbase.VoteStrategy.HIERARCHICAL},
+      "fsdp": True}, "Queue 4 item 4"),
     ({"optimizer": {"vote_strategy": tbase.VoteStrategy.AUTO}},
      "Queue 1 item 15"),
     ({"remat": "dots"}, "Queue 4 item 4"),
