@@ -170,11 +170,31 @@ Phases, each of which fails the run (non-zero exit) on any disagreement:
    median step and the peak memory, the unembedding's mean gradient at
    step 0 within the bf16 rounding bound of a float64 sum of the four
    voters' gradients (bit-equal to the port's bf16 sum for sgdm), and
-   float32 sqrt on the card the nearest float32 (Adam's root).
+   float32 sqrt on the card the nearest float32 (Adam's root);
+12. the failure drills (after phase 11): (a) the adversary kernel
+   (``random``, ``colluding``, ``blind`` at flip_prob 0, 0.5, 0.9 and 1)
+   bit for bit against its plain version on (4, 2^24) int8 windows at the
+   start, the middle and the ragged tail of the unembedding row and at
+   counter offsets past 2^31 and across 2^32, in place and on a view one
+   byte off a 16-byte boundary (the bytes around it unchanged); (b) the
+   reference's golden drill and its 7 non-adaptive presets through
+   ``sim.ScenarioRunner`` on the card, each digest equal to the port's own
+   CPU run of the same spec and draws, then ``fig4_grid()`` (51 drills, 16
+   voters, 25 steps, dim 512) on the card, the flip fraction and loss of
+   each (mode, fraction, wire) logged: the paper's Fig. 4 surface; (c)
+   phase 3's cell with voter 0 adversarial: sign_flip and random on
+   allgather_1bit (3 steps), blind at flip_prob 0.9 on psum_int8 (2),
+   exact launches per step, step 0 of layers.attn_wq bit-equal to the
+   plain versions (the adversary drawn by the plain version under the same
+   key), the median step, the peak memory and the adversary's launches;
+   (d) a checkpoint of the elastic preset's per-worker state (8 voters,
+   refit to its events' 4 and 6) and of a narrow trainer's state (bf16
+   momentum) saved and restored bit-equal on the card.
 
 Phase 7 also times ternary_majority with ties +1 (its own row),
 ternary_unpack to bf16 and bitpack of the bf16 stack (its own row, whose
-launches are phases 9's and 10's).
+launches are phases 9's and 10's), and the adversary kernel on the whole
+(4, n) unembedding stack (its own row, whose launches are phase 12's).
 
 It prints one JSON line per step and per wire, a ``{"kernels": [...]}``
 line and, last, ``{"ok": true, "device": {...}}``. Without a CUDA device,
@@ -2320,6 +2340,379 @@ def check_dense_mean(torch, kind, tcfg, g0, m1) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 12: failure drills (Byzantine adversaries, stale votes, elastic
+# refit) through the vote API, the trainer and checkpoints
+# ---------------------------------------------------------------------------
+
+#: the adversary kernel's checks: windows of the unembedding row (start,
+#: length) at its start, its middle and its ragged tail, then counter
+#: offsets past 2^31 and across the 2^32 boundary (the counter's high word)
+ADV_WINDOW = 1 << 24
+ADV_WINDOWS = ((0, ADV_WINDOW), (N_UNEMBED // 2 - 7, ADV_WINDOW),
+               (N_UNEMBED - (ADV_WINDOW - 5), ADV_WINDOW - 5),
+               (2 ** 31 + 3, ADV_WINDOW), (2 ** 32 - ADV_WINDOW // 2,
+                                            ADV_WINDOW))
+#: (mode, p): the stochastic modes, blind at the drills' and the trainer's
+#: flip probabilities and at both ends
+ADV_CASES = (("random", 0.5), ("colluding", 0.5), ("blind", 0.9),
+             ("blind", 0.5), ("blind", 0.0), ("blind", 1.0))
+#: 32-bit integer operations an element of the adversary kernel, counted
+#: from its source: 20 rounds of add, funnel shift and xor (60), five key
+#: injections of two adds (10), the first two adds, the final xor, the
+#: 64-bit counter (2), the shift, compare and select (3) and the flip (1)
+ADV_INT_OPS = 79
+#: the card's peak rate of 32-bit integer operations: one a lane a clock on
+#: all 128 lanes of an SM (its four schedulers each issue one warp
+#: instruction a clock; integer adds go to the FMA pipe beside the 64 INT32
+#: lanes), half of FP32_OPS_PER_S, which counts an FMA as two. The 64 INT32
+#: lanes alone (16.75e12 a second) are no bound: the kernel beat that rate
+INT32_OPS_PER_S = FP32_OPS_PER_S / 2
+#: the trainer's failure runs (phase 3's cell): (mode, strategy,
+#: adversaries, flip_prob, steps)
+BYZ_RUNS = (("sign_flip", "allgather_1bit", 1, 0.5, 3),
+            ("random", "allgather_1bit", 1, 0.5, 3),
+            ("blind", "psum_int8", 1, 0.9, 2))
+#: the leaf whose step 0 each failure run recomputes with the plain versions
+BYZ_LEAF = "layers.attn_wq"
+#: the reference's golden drill (tests/tier2/test_scenario_lab.py:159-162)
+GOLDEN = {"name": "golden/fixed", "n_workers": 16, "n_steps": 10, "dim": 64,
+          "strategy": "allgather_1bit",
+          "adversary": {"mode": "sign_flip", "fraction": 0.25},
+          "straggler_fraction": 0.125, "noise_scale": 0.0}
+
+
+def check_adversary(torch, ops, ref, dev, err) -> int:
+    """Phase 12a: the adversary kernel bit for bit against its plain version
+    on (4, L) int8 signs of {-1, 0, +1}: every stochastic mode at the
+    windows of ADV_WINDOWS (each drawing at its global counter), each
+    voter's own key (one shared key for colluding), in place on a
+    contiguous stack and on a view one byte off a 16-byte boundary whose
+    rows are L + 17 bytes apart, the bytes around the view unchanged."""
+    from repro_torch.configs.base import ByzantineConfig
+    from repro_torch.core import byzantine
+    gen = torch.Generator(device=dev).manual_seed(12)
+    n_checks = 0
+    for start, length in ADV_WINDOWS:
+        x = torch.randint(-1, 2, (M_MAIN, length), generator=gen,
+                          device=dev, dtype=torch.int8)
+        buf = torch.randint(-1, 2, (M_MAIN, length + 17), generator=gen,
+                            device=dev, dtype=torch.int8)
+        for mode, p in ADV_CASES:
+            cfg = ByzantineConfig(mode=mode, num_adversaries=M_MAIN,
+                                  seed=2 ** 31 - 3, flip_prob=p)
+            keys = [byzantine.adversary_key(
+                cfg, None if mode == "colluding" else r, step=7,
+                salt=2 ** 31 - 1) for r in range(M_MAIN)]
+            want = ref.adversary(x, keys, p, mode == "blind", start)
+            got = ops.adversary_(x.clone(), keys, p, mode == "blind", start)
+            e = require_equal(f"adversary {mode} p={p} at {start}+{length}",
+                              got, want)
+            view = buf[:, 1:1 + length]
+            around = buf.clone()
+            view.copy_(x)
+            ops.adversary_(view, keys, p, mode == "blind", start)
+            e = max(e, require_equal(
+                f"adversary {mode} p={p} at {start} off 16 bytes", view,
+                want))
+            around[:, 1:1 + length] = want
+            require_equal(f"adversary {mode} at {start}: bytes around the "
+                          "view", buf, around)
+            err["adversary"] = max(err["adversary"], e)
+            n_checks += 2
+            del want, got, around
+        del x, buf
+    torch.cuda.synchronize()
+    log({"phase": "adversary_vs_plain", "checks": n_checks,
+         "windows": ADV_WINDOWS, "max_abs_err": err["adversary"]})
+    return n_checks
+
+
+def time_adversary(torch, ops, ref, dev, launches, errs) -> dict:
+    """Phase 12a's row: the adversary kernel on the whole (4, n) unembedding
+    stack, median of 25 CUDA-event runs, blind (flip_prob 0.9: each sign
+    read and written) as the row and random (written only) beside it."""
+    from repro_torch.configs.base import ByzantineConfig
+    from repro_torch.core import byzantine
+    gen = torch.Generator(device=dev).manual_seed(13)
+    n = N_UNEMBED
+    x = torch.randint(-1, 2, (M_MAIN, n), generator=gen, device=dev,
+                      dtype=torch.int8)
+    cfg = ByzantineConfig(mode="blind", num_adversaries=M_MAIN, seed=0,
+                          flip_prob=0.9)
+    keys = [byzantine.adversary_key(cfg, r, step=1) for r in range(M_MAIN)]
+    ms = median_ms(torch, lambda: ops.adversary_(x, keys, 0.9, True),
+                   reps=25)
+    random_ms = median_ms(torch, lambda: ops.adversary_(x, keys, 0.5, False),
+                          reps=25)
+    plain = median_ms(torch, lambda: ref.adversary(x, keys, 0.9, True),
+                      reps=1, warmup=0)
+    del x
+    torch.cuda.empty_cache()
+    t_bytes = 2 * M_MAIN * n / HBM_BYTES_PER_S * 1e3
+    t_ops = ADV_INT_OPS * M_MAIN * n / INT32_OPS_PER_S * 1e3
+    b, by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return {"name": "adversary", "route": "cuda",
+            "source": SOURCE + "byzantine.cu",
+            "replaces": "src/repro/core/byzantine.py:81-121 (jnp "
+                        "jax.random.bernoulli draws, no pallas_call)",
+            "launches": launches["adversary"],
+            "max_abs_err": errs["adversary"], "max_diff": errs["adversary"],
+            "ms": ms, "plain_ms": plain, "bound_ms": b, "bound_by": by,
+            "library_ms": None,
+            "excess_ms": launches["adversary"] * (ms - b),
+            "shape": {"n": n, "voters": M_MAIN}, "mode": "blind, p 0.9",
+            "random_ms": random_ms, "bytes_bound_ms": t_bytes,
+            "ops_bound_ms": t_ops, "int_ops_per_element": ADV_INT_OPS}
+
+
+def drill_specs():
+    """GOLDEN and the reference's non-adaptive presets (phase 12b)."""
+    from repro_torch.sim import ScenarioSpec, preset_scenarios
+    return [ScenarioSpec.from_dict(GOLDEN)] + [
+        s for s in preset_scenarios() if not s.adversary.adaptive]
+
+
+def run_drills(torch, dev) -> dict:
+    """Phase 12b: GOLDEN and the 7 non-adaptive presets on the card, each
+    digest equal to the port's CPU run of the same spec and draws; then the
+    paper's Fig. 4 surface (``fig4_grid()``: 51 drills, 16 voters, 25 steps,
+    dim 512) on the card. Returns the launches."""
+    from repro_torch.kernels import ops
+    from repro_torch.sim import ScenarioRunner, fig4_grid
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    for spec in drill_specs():
+        tc = time.perf_counter()
+        card = ScenarioRunner(spec, device=dev).run()
+        tc = time.perf_counter() - tc
+        cpu = ScenarioRunner(spec, device="cpu").run()
+        if card.digest != cpu.digest:
+            raise AssertionError(f"drill {spec.name}: card digest "
+                                 f"{card.digest} != CPU {cpu.digest}")
+        s = card.summary()
+        log({"drill": spec.name, "digest": card.digest, "cpu_equal": True,
+             "final_loss": s["final_loss"],
+             "mean_flip_fraction": s["mean_flip_fraction"],
+             "mean_margin": s["mean_margin"], "card_s": tc})
+    t1 = time.perf_counter()
+    surface = []
+    for spec in fig4_grid():
+        s = ScenarioRunner(spec, device=dev).run().summary()
+        surface.append({"drill": spec.name,
+                        "mode": spec.adversary.mode,
+                        "fraction": spec.adversary.fraction,
+                        "strategy": spec.strategy.value,
+                        "mean_flip_fraction": s["mean_flip_fraction"],
+                        "final_loss": s["final_loss"],
+                        "digest": s["digest"]})
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    if not launches["adversary"]:
+        raise AssertionError("the drills never launched the adversary kernel")
+    log({"phase": "fig4_surface", "drills": len(surface), "rows": surface})
+    log({"phase": "drills_done", "presets_s": t1 - t0,
+         "fig4_s": time.perf_counter() - t1, "launches": launches})
+    return launches
+
+
+def byz_launches(mode: str, strategy: str, n_leaves: int) -> dict:
+    """One step's launches with voter 0 adversarial: the honest voters'
+    encode as phase 3's (or the count wire's), the adversary's m' without
+    words, then its int8 symbols packed (and, for a stochastic mode, one
+    adversary launch a leaf)."""
+    honest = M_MAIN - 1
+    want = {"momentum_sign_pack": M_MAIN * n_leaves}
+    if strategy == "allgather_1bit":
+        want.update({"bitpack": n_leaves, "majority": n_leaves,
+                     "apply_vote": n_leaves})
+    else:
+        want.update({"ternary_pack": (honest + 1) * n_leaves,
+                     "ternary_majority": n_leaves,
+                     "apply_ternary_vote": n_leaves})
+    if mode in ("random", "colluding", "blind"):
+        want["adversary"] = n_leaves
+    return want
+
+
+def run_byzantine_train_path(torch, cfg, dev) -> dict:
+    """Phase 12c: phase 3's cell (M = 4, batch 8, seq 512) with voter 0
+    adversarial: sign_flip and random on allgather_1bit for 3 steps, blind
+    (flip_prob 0.9) on psum_int8 for 2, each from fresh state: exact
+    launches per step, finite losses, step 0 of BYZ_LEAF bit-equal to the
+    plain versions recomputed from saved copies (the adversary's symbols
+    drawn by the plain adversary under the same key), the median step and
+    the peak memory. Returns the launches."""
+    from repro_torch.configs.base import ByzantineConfig, VoteStrategy
+    from repro_torch.core import byzantine, signum
+    from repro_torch.core import sign_compress as sc
+    from repro_torch.data.pipeline import SyntheticLMPipeline
+    from repro_torch.kernels import ref
+    from repro_torch.models import model as M
+    from repro_torch.train import train_step as TS
+
+    totals = {}
+    for mode, strategy, n_adv, p, steps in BYZ_RUNS:
+        label = f"byzantine_{mode}_{strategy}"
+        base = train_config("sign1bit")
+        byz = ByzantineConfig(mode=mode, num_adversaries=n_adv, seed=0,
+                              flip_prob=p)
+        tcfg = dataclasses.replace(
+            base, byzantine=byz, optimizer=dataclasses.replace(
+                base.optimizer, vote_strategy=VoteStrategy(strategy)))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        art = TS.make_train_step(cfg, tcfg, M_MAIN, device=dev)
+        params, opt_state = TS.materialize_state(
+            cfg, tcfg, art, torch.Generator(device=dev).manual_seed(0))
+        pipe = SyntheticLMPipeline(cfg, GLOBAL_BATCH, SEQ, seed=0)
+        per = GLOBAL_BATCH // M_MAIN
+        want = byz_launches(mode, strategy, len(params))
+
+        def save(tokens):
+            return (params[BYZ_LEAF].clone(),
+                    leaf_grads(torch, M, cfg, params, tokens, per, BYZ_LEAF))
+        launches, losses, step_ms, saved = run_steps(
+            torch, label, art, params, opt_state, pipe, steps, want,
+            BYZ_LEAF, save)
+        peak = torch.cuda.max_memory_allocated()
+        (p0, g0), p1, _ = saved
+        eta = signum.lr_at(tcfg.optimizer, 0)
+        wd = tcfg.optimizer.weight_decay
+        two_bit = strategy != "allgather_1bit"
+        words = []
+        for r, g in enumerate(g0):
+            m_ref, bits = ref.momentum_sign_pack(
+                g.reshape(1, -1), torch.zeros(g.shape, dtype=torch.float32,
+                                              device=dev).view(1, -1), BETA)
+            s = sc.sign_ternary(m_ref)
+            if r < n_adv:
+                if mode == "sign_flip":
+                    s = -s
+                else:
+                    key = byzantine.adversary_key(byz, r, step=0)
+                    s = ref.adversary(s, [key], p, mode == "blind")
+            words.append((ref.ternary_pack(s) if two_bit
+                          else ref.bitpack(s))[0])
+        words = torch.stack(words)
+        if two_bit:
+            p_ref = ref.apply_ternary_vote(
+                p0.view(1, -1), ref.ternary_majority(words)[None], eta, wd)
+        else:
+            p_ref = ref.apply_vote(p0.view(1, -1), ref.majority(words)[None],
+                                   eta, wd)
+        require_equal(f"{label} step 0 of {BYZ_LEAF}", p1.view(1, -1), p_ref)
+        log({"phase": "step0_bit_equal", "run": label, "leaf": BYZ_LEAF,
+             "coords": p0.numel(), "ok": True})
+        del p0, g0, p1, words, p_ref, saved
+        log({"phase": "byzantine_train_done", "run": label,
+             "losses": losses, "step_ms": step_ms,
+             "step_ms_median_1_on": statistics.median(step_ms[1:]),
+             "adversary_launches": launches["adversary"],
+             "max_memory_allocated_bytes": peak})
+        for k, v in launches.items():
+            totals[k] = totals.get(k, 0) + v
+        del params, opt_state, art
+        torch.cuda.empty_cache()
+    return totals
+
+
+def check_checkpoints(torch, cfg, dev) -> None:
+    """Phase 12d: checkpoints on the card. The elastic preset's per-worker
+    state (8 voters: momentum, residual and stale signs of dim 256, the
+    flip-rate EMA) saved, restored bit-equal, and refit to its elastic
+    events' 4 and 6 voters (survivors bit-equal, joiners zero); a narrow
+    trainer's state (2 layers of width 256, M = 4, bf16 momentum, one
+    step) saved and restored bit-equal (dtypes and the step count too)."""
+    import tempfile
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.configs.base import (OptimizerConfig, TrainConfig,
+                                          VoteStrategy)
+    from repro_torch.data.pipeline import SyntheticLMPipeline
+    from repro_torch.sim import preset_scenarios
+    from repro_torch.train import train_step as TS
+
+    spec = next(s for s in preset_scenarios() if s.elastic)
+    gen = torch.Generator(device=dev).manual_seed(14)
+    m0, d = spec.n_workers, spec.dim
+    state = {"momentum": torch.randn(m0, d, generator=gen, device=dev),
+             "error": torch.randn(m0, d, generator=gen, device=dev),
+             "prev": torch.randint(-1, 2, (m0, d), generator=gen, device=dev,
+                                   dtype=torch.int8),
+             "codec": {"flip_ema": torch.rand(m0, generator=gen,
+                                              device=dev)}}
+
+    def walk(a, b, what):
+        if isinstance(a, dict):
+            for k in a:
+                walk(a[k], b[k], f"{what}/{k}")
+        elif isinstance(a, torch.Tensor):
+            if b.device != a.device:
+                raise AssertionError(f"{what}: restored on {b.device}")
+            require_equal(what, b, a)
+        elif int(b) != a:
+            raise AssertionError(f"{what}: {int(b)} != {a}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt.save(tmp, 1, {}, state)
+        _, back, _, _ = ckpt.restore(tmp, device=dev)
+        walk(state, back, "elastic state")
+        for ev in spec.elastic:
+            like = {"momentum": (ev.n_workers, d), "error": (ev.n_workers, d),
+                    "prev": (ev.n_workers, d),
+                    "codec": {"flip_ema": (ev.n_workers,)}}
+            _, fit, _, _ = ckpt.restore(tmp, like_opt=like, device=dev)
+            keep = min(ev.n_workers, m0)
+            for k in ("momentum", "error", "prev"):
+                require_equal(f"refit {k} to {ev.n_workers}", fit[k][:keep],
+                              state[k][:keep])
+                if fit[k][keep:].any():
+                    raise AssertionError(f"refit {k}: joiners not zero")
+    narrow = dataclasses.replace(cfg, d_model=256, num_heads=2,
+                                 num_kv_heads=2, head_dim=128, d_ff=512,
+                                 vocab_size=1024)
+    tcfg = TrainConfig(global_batch=GLOBAL_BATCH, seq_len=64,
+                       optimizer=OptimizerConfig(
+                           kind="signum_vote", learning_rate=LR,
+                           momentum=BETA, momentum_dtype="bfloat16",
+                           vote_strategy=VoteStrategy.ALLGATHER_1BIT))
+    art = TS.make_train_step(narrow, tcfg, M_MAIN, device=dev)
+    params, opt_state = TS.materialize_state(
+        narrow, tcfg, art, torch.Generator(device=dev).manual_seed(0))
+    pipe = SyntheticLMPipeline(narrow, GLOBAL_BATCH, 64, seed=0)
+    params, opt_state, _ = art.step_fn(params, opt_state,
+                                       pipe.global_batch_at(0), 0)
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt.save(tmp, 1, params, opt_state)
+        p_back, o_back, _, meta = ckpt.restore(tmp, device=dev)
+        walk(params, p_back, "trainer params")
+        walk(opt_state, o_back, "trainer state")
+    log({"phase": "checkpoint_roundtrip", "elastic_preset": spec.name,
+         "refit_to": [ev.n_workers for ev in spec.elastic],
+         "trainer_leaves": len(params), "momentum_dtype": "bfloat16",
+         "ok": True})
+    del params, opt_state, art
+    torch.cuda.empty_cache()
+
+
+def run_failure_path(torch, cfg, dev, ops, ref, err) -> dict:
+    """Phase 12: the adversary kernel's checks (12a), then the drills (12b),
+    the trainer under failures (12c) and checkpoints (12d), the counts set
+    to 0 just before each path and read just after. Returns their
+    launches."""
+    t0 = time.perf_counter()
+    check_adversary(torch, ops, ref, dev, err)
+    totals = {}
+    for path in (run_drills(torch, dev),
+                 run_byzantine_train_path(torch, cfg, dev)):
+        for k, v in path.items():
+            totals[k] = totals.get(k, 0) + v
+    check_checkpoints(torch, cfg, dev)
+    log({"phase": "failure_path_done", "seconds": time.perf_counter() - t0,
+         "launches": totals})
+    return totals
+
+
+# ---------------------------------------------------------------------------
 # phase 7: timing at the unembedding shape
 # ---------------------------------------------------------------------------
 
@@ -2668,6 +3061,8 @@ def main() -> int:
         for k, v in path.items():
             launches[k] += v
     run_dense_path(torch, cfg, dev)
+    for k, v in run_failure_path(torch, cfg, dev, ops, ref, errs).items():
+        launches[k] += v
     # ef_sign's encode packs its float32 t; every other bitpack of the main
     # path packs int8 signs (staged votes, plan buckets, weighted_vote's vote)
     launches["bitpack_i8"] = launches["bitpack"] - ef_sign_packs
@@ -2675,6 +3070,7 @@ def main() -> int:
     errs["bitpack_i8"] = errs["bitpack"]   # the max over every dtype's check
     errs["bitpack_bf16"] = errs["bitpack"]
     rows = time_kernels(torch, ops, ref, sc, dev, launches, errs)
+    rows.append(time_adversary(torch, ops, ref, dev, launches, errs))
     never = [r["name"] for r in rows if not r["launches"]]
     if never:
         raise AssertionError(f"the main path never launched {never}")

@@ -57,7 +57,7 @@ dictionaries.
 from __future__ import annotations
 
 import abc
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -136,17 +136,22 @@ class GradientCodec(abc.ABC):
 
     def encode_voter_(self, g: torch.Tensor, m: Optional[torch.Tensor],
                       beta: float, words: torch.Tensor,
-                      error: Optional[torch.Tensor], two_bit: bool) -> Any:
+                      error: Optional[torch.Tensor], two_bit: bool,
+                      adversary: Optional[Callable[[torch.Tensor], Any]]
+                      = None) -> Any:
         """One voter's worker side of one flat leaf: m <- beta*m +
         (1-beta)*g in place, and the voter's symbols of
         :meth:`vote_input_` into `words` (its row of the leaf's words);
         without a momentum row (`m` None: beta = 0, or Mode B) the symbols
         of :meth:`raw_input_` of g. `error` is the voter's residual row
-        (None without worker state). Returns what
+        (None without worker state). An adversarial voter's `adversary`
+        transforms its ``(1, n)`` int8 ``sign_ternary`` symbols in place
+        before they are packed (the 1-bit words of m' cannot take it: an
+        honest 0 and a flipped 0 both pack as +1). Returns what
         :meth:`feedback_voters_` needs of this voter."""
         if m is None:
             x = self.raw_input_(g, error)
-        elif not two_bit and not self.worker_state:
+        elif not two_bit and not self.worker_state and adversary is None:
             # the vote input is m' (only worker state, the EF residual,
             # changes it): its 1-bit signs are momentum_sign_pack's words
             ops.momentum_sign_pack(g, m, beta, m_out=m, packed_out=words)
@@ -154,10 +159,14 @@ class GradientCodec(abc.ABC):
         else:
             ops.momentum_sign_pack(g, m, beta, m_out=m, pack=False)
             x = self.vote_input_(m, error)
+        symbols = x.view(1, -1)
+        if adversary is not None:
+            symbols = sc.sign_ternary(symbols)
+            adversary(symbols)
         if two_bit:
-            ops.ternary_pack(x.view(1, -1), out=words.view(1, -1))
+            ops.ternary_pack(symbols, out=words.view(1, -1))
         else:
-            ops.bitpack(x.view(1, -1), out=words.view(1, -1))
+            ops.bitpack(symbols, out=words.view(1, -1))
         return self.sent_(x)
 
     def sent_(self, x: torch.Tensor) -> Any:

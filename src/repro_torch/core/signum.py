@@ -82,6 +82,19 @@ the parameter to weight decay; under Mode B the vote first goes into the
 momentum). Per-leaf codecs come from the plan: the EF residual exists only
 for the leaves mapped to ``ef_sign``, the server state is the plan's.
 
+A Byzantine model (``byz``, the train step's ``TrainConfig.byzantine``,
+as the reference's ``build_optimizer(..., byz=...)`` takes it) makes the
+voters below ``byz.num_adversaries`` adversarial, drawing under the step
+``update`` is given and salt 0. Leaf-wise, an adversarial voter's vote
+input goes to the wire through int8 ``sign_ternary`` symbols, the
+adversary (``core.byzantine``, in place) and the wire's pack
+(``bitpack`` or ``ternary_pack``), each leaf drawing from the same key
+with its counter over the leaf's own elements, as the reference's
+per-leaf adversary does; honest voters keep the path above. Under a plan
+the adversary acts once on the whole ``(M, n_params)`` sign buffer before
+the bucket walk, its counter over the flat row. The dense baselines
+ignore it, as the reference's do.
+
 ``delayed_vote`` (Mode A, with or without a plan) applies the vote banked
 at the previous step and banks this step's: ``state["delayed"]`` holds one
 int8 tensor per leaf, zeros at init, so step 0 moves the parameters by
@@ -103,9 +116,9 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
-from repro_torch.configs.base import (MomentumMode, OptimizerConfig,
-                                      VoteStrategy)
-from repro_torch.core import codecs, majority_vote
+from repro_torch.configs.base import (ByzantineConfig, MomentumMode,
+                                      OptimizerConfig, VoteStrategy)
+from repro_torch.core import byzantine, codecs, majority_vote
 from repro_torch.core import sign_compress as sc
 from repro_torch.core import vote_plan as vp
 from repro_torch.core.vote_engine import resolve_strategy
@@ -210,9 +223,11 @@ def apply_momentum_vote_(u: torch.Tensor, vote: torch.Tensor,
 
 
 def make_sign_optimizer(cfg: OptimizerConfig, n_voters: int,
-                        plan: Optional[vp.VotePlan] = None) -> Optimizer:
+                        plan: Optional[vp.VotePlan] = None,
+                        byz: Optional[ByzantineConfig] = None) -> Optimizer:
     """SIGNUM / signSGD over `n_voters` stacked voters (see module doc),
-    leaf-wise or, given `plan`, through its bucket schedule.
+    leaf-wise or, given `plan`, through its bucket schedule, with the
+    voters below ``byz.num_adversaries`` adversarial when `byz` is given.
 
     State, as the reference's trainer lays it out (``abstract_state``):
     ``{"count": int}``, and ``"momentum"`` in ``momentum_dtype`` when beta
@@ -280,25 +295,38 @@ def make_sign_optimizer(cfg: OptimizerConfig, n_voters: int,
                               codec.init_server_state(n_voters, device))
         return state
 
-    def wire(params: Dict[str, torch.Tensor]) -> Dict:
+    if byz is not None and byz.mode != "none" and byz.num_adversaries:
+        byzantine.check_mode(byz.mode)     # unknown or adaptive: raises
+    else:
+        byz = None
+
+    def wire(params: Dict[str, torch.Tensor], step: int = 0) -> Dict:
         """One step's buffers: each leaf's (M, w) words (under a plan, the
-        (M, n_params) int8 signs), and what each voter's encode hands the
-        codec's feedback (``ef_sign``'s mean|t|)."""
+        (M, n_params) int8 signs), what each voter's encode hands the
+        codec's feedback (``ef_sign``'s mean|t|) and the step (the
+        adversary's draws are keyed by it)."""
         sent = {k: [None] * n_voters for k in params}
         if plan is not None:
             device = next(iter(params.values())).device
             return {"signs": torch.empty((n_voters, plan.n_params),
                                          dtype=torch.int8, device=device),
-                    "sent": sent}
+                    "sent": sent, "step": step}
         return {"words": packed_like(params, n_voters, codec, two_bit),
-                "sent": sent}
+                "sent": sent, "step": step}
 
     def encode(voter: int, grads: Dict[str, torch.Tensor], state: Dict,
                wire: Dict) -> None:
         """Voter `voter`'s worker side: under per-worker momentum m_r <-
         beta*m_r + (1-beta)*g_r in place; the codec's symbols of its vote
         input (m', or g itself) into row `voter` of each leaf's words
-        (under a plan, the signs into its row of the flat buffer)."""
+        (under a plan, the signs into its row of the flat buffer; the
+        adversary acts on them in ``update``)."""
+        adversary = None
+        if byz is not None and plan is None \
+                and voter < byz.num_adversaries:
+            def adversary(symbols: torch.Tensor) -> None:
+                byzantine.evil_signs_(symbols, byz, [voter],
+                                      step=wire["step"])
         for k, g in grads.items():
             g = g.reshape(-1)
             m = state["momentum"][k][voter].view(-1) if rows else None
@@ -306,7 +334,8 @@ def make_sign_optimizer(cfg: OptimizerConfig, n_voters: int,
                      if k in state.get("error", {}) else None)
             if plan is None:
                 wire["sent"][k][voter] = codec.encode_voter_(
-                    g, m, beta, wire["words"][k][voter], error, two_bit)
+                    g, m, beta, wire["words"][k][voter], error, two_bit,
+                    adversary)
                 continue
             if m is None:
                 x = leaf_codec[k].raw_input_(g, error)
@@ -339,6 +368,9 @@ def make_sign_optimizer(cfg: OptimizerConfig, n_voters: int,
         the codec's feedback."""
         eta, wd = lr_at(cfg, step), cfg.weight_decay
         if plan is not None:
+            if byz is not None:
+                byzantine.apply_adversary_stacked(wire["signs"], byz,
+                                                  step=step)
             votes, new_cstate = vp.run_schedule(
                 plan, wire["signs"], vp.VirtualBucketWire(n_voters),
                 state.get("codec"), overlap=cfg.overlap)
@@ -439,7 +471,7 @@ def make_dense_optimizer(cfg: OptimizerConfig, n_voters: int) -> Optimizer:
             state["v"] = zeros()
         return state
 
-    def wire(params: Dict[str, torch.Tensor]) -> Dict:
+    def wire(params: Dict[str, torch.Tensor], step: int = 0) -> Dict:
         return {"sum": {}}
 
     def encode(voter: int, grads: Dict[str, torch.Tensor], state: Dict,
@@ -484,10 +516,12 @@ def make_dense_optimizer(cfg: OptimizerConfig, n_voters: int) -> Optimizer:
 
 
 def build_optimizer(cfg: OptimizerConfig, n_voters: int,
-                    plan: Optional[vp.VotePlan] = None) -> Optimizer:
+                    plan: Optional[vp.VotePlan] = None,
+                    byz: Optional[ByzantineConfig] = None) -> Optimizer:
     """The optimizer of `cfg.kind` (``repro.core.signum.build_optimizer``):
-    the sign family for ``signum_vote`` / ``signsgd_vote``, else the dense
-    baselines."""
+    the sign family for ``signum_vote`` / ``signsgd_vote``, with the
+    adversaries of `byz`, else the dense baselines, which ignore `byz` as
+    the reference's do."""
     if cfg.kind in SIGN_KINDS:
-        return make_sign_optimizer(cfg, n_voters, plan)
+        return make_sign_optimizer(cfg, n_voters, plan, byz)
     return make_dense_optimizer(cfg, n_voters)

@@ -33,12 +33,24 @@ issue order; both give the same bits.
 Requests are validated on construction and raise ``ValueError`` where the
 reference does (a wrong shape, an unknown form or codec, a codec that
 cannot ride the strategy, a stateful codec without its server state).
+A request's :class:`FailureSpec` composes failures in front of the wire,
+in the reference's pinned order (DESIGN.md §7): sign extraction, then the
+first ``n_stale`` voters' signs replaced by ``prev`` (stragglers), then the
+Byzantine model (``core.byzantine``: ``sign_flip`` / ``zero`` in place,
+``random`` / ``colluding`` / ``blind`` drawn as the reference draws them,
+by the ``adversary`` kernel on a card). ``VoteOutcome.wire_signs`` is what
+reached the wire. Under a plan the failures act once on the whole
+``(M, n_params)`` buffer before the bucket walk.
+
+``execute`` counts every request into the process-global
+``obs.COUNTERS`` (``vote.requests``, ``vote.wire.bytes``,
+``vote.wire.messages``, from the request's static wire report) and, when a
+``TraceRecorder`` is active, times it in a ``vote.execute`` span.
+
 What the port does not run yet raises ``NotImplementedError`` naming its
 ROADMAP.md item: the ``leaf`` and ``tree`` forms and :class:`MeshBackend`
-(Queue 1 item 5), active failures (item 6), the ``streamed`` form,
-``voter_ids`` / ``weights`` and adaptive adversaries (item 10). The
-``vote.*`` and ``plan.*`` counters and spans of the reference arrive with
-the telemetry layer (item 9).
+(Queue 1 item 5), the ``streamed`` form, ``voter_ids`` / ``weights`` and
+adaptive adversaries (item 10).
 """
 from __future__ import annotations
 
@@ -50,6 +62,7 @@ import torch
 
 import repro_torch
 from repro_torch.configs.base import ByzantineConfig, VoteStrategy
+from repro_torch.core import byzantine
 from repro_torch.core import codecs as codecs_mod
 from repro_torch.core import sign_compress as sc
 from repro_torch.core import vote_engine as ve
@@ -58,29 +71,31 @@ from repro_torch.core.codecs import weighted
 from repro_torch.core.codecs.ternary import TERNARY_WIRE
 from repro_torch.core.sign_compress import pad_last
 from repro_torch.core.vote_engine import count_bytes, count_dtype
+from repro_torch.distributed.fault_tolerance import simulate_stragglers
 from repro_torch.kernels import ops
+from repro_torch.obs import recorder as obs
 
 FORMS = ("leaf", "stacked", "tree", "streamed")
 #: the reference's adaptive adversaries (``attacks.ATTACK_MODES``), which
 #: also read ``VoteRequest.attack_obs``
-ATTACK_MODES = ("adaptive_flip", "low_margin", "reputation")
+ATTACK_MODES = byzantine.ATTACK_MODES
 #: every adversary mode the reference knows (``byzantine.MODES`` + those)
-ADVERSARY_MODES = ("none", "sign_flip", "random", "zero", "colluding",
-                   "blind") + ATTACK_MODES
+ADVERSARY_MODES = byzantine.MODES + ATTACK_MODES
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported yet (ROADMAP.md Queue 1 item {item}); the "
-        "port votes stacked (M, n) payloads on VirtualBackend with no "
-        "failures")
+        "port votes stacked (M, n) payloads on VirtualBackend")
 
 
 @dataclasses.dataclass(frozen=True)
 class FailureSpec:
-    """The failure composition in front of the wire: the first `n_stale`
-    voters vote with stale signs, then the Byzantine model `byz` acts.
-    Only the inactive spec runs in the port (ROADMAP.md Queue 1 item 6)."""
+    """The failure composition in front of the wire, in the reference's
+    pinned order: the first `n_stale` voters vote with the request's
+    ``prev`` signs (stragglers), then the Byzantine model `byz` acts, so a
+    straggling adversary corrupts its stale vector. A crashed or mute
+    worker is the ``zero`` adversary."""
 
     n_stale: int = 0
     byz: Optional[ByzantineConfig] = None
@@ -118,8 +133,9 @@ class WireReport:
 class VoteOutcome:
     """votes (``(n,)`` int8, on the backend's device) + the server state +
     the wire report. ``wire_signs`` is the ``(M, n)`` int8 sign tensor
-    that reached the wire, on the staged path; ``None`` on the fused
-    kernel path, which consumes the raw values."""
+    that reached the wire (sign extraction -> stale substitution ->
+    adversary), on the staged path; ``None`` on the fused kernel path,
+    which consumes the raw values."""
 
     votes: Any
     server_state: Dict[str, Any]
@@ -137,9 +153,12 @@ class VoteRequest:
     coordinates (its groups' codecs and strategies then supersede `codec`
     and `strategy`), `overlap` its double-buffered walk; `server_state`
     threads a stateful codec's decode memory (``weighted_vote``'s
-    ``{"flip_ema": (M,)}``, numpy or torch). The other fields are the
-    reference's and must stay at their defaults in the port (see the
-    module doc)."""
+    ``{"flip_ema": (M,)}``, numpy or torch). `failures` composes stale
+    substitution (which needs `prev`, the ``(M, n)`` int8 signs of the
+    previous step) and the Byzantine model; `step` (an int) and `salt`
+    key the stochastic adversaries' draws. ``voter_ids``, ``weights``,
+    ``attack_obs`` and ``diagnostics`` must stay at their defaults in the
+    port (see the module doc)."""
 
     payload: Any
     form: str = "leaf"
@@ -216,9 +235,6 @@ class VoteRequest:
         if self.failures.adaptive:
             raise _not_ported(f"adaptive adversary mode "
                               f"{self.failures.byz.mode!r}", "10")
-        if self.failures.active:
-            raise _not_ported("failure composition (stale votes, "
-                              "adversaries)", "6")
         if self.voter_ids is not None or self.weights is not None:
             raise _not_ported("voter_ids / weights annotations", "10")
 
@@ -257,11 +273,30 @@ def _static_wire(plan, codec_name: str, resolved: Optional[VoteStrategy],
                       n_messages=n_messages, strategy=resolved)
 
 
-def effective_stacked_signs(values: torch.Tensor) -> torch.Tensor:
-    """The (M, n) int8 sign tensor that reaches the wire. With no failures
-    (the port's slice) that is the sign extraction alone (a float32 / bf16
-    subnormal abstains, as in the reference)."""
-    return sc.sign_ternary(values)
+def effective_stacked_signs(values: torch.Tensor, prev=None,
+                            n_stale: int = 0,
+                            byz: Optional[ByzantineConfig] = None,
+                            step: Optional[int] = None, salt: int = 0,
+                            ids=None) -> torch.Tensor:
+    """The (M, n) int8 sign tensor that reaches the wire: sign extraction
+    (a float32 / bf16 subnormal abstains, as in the reference) -> stale
+    substitution (voters with index < `n_stale` send `prev`) -> the
+    adversary `byz`, in the reference's pinned order. ``ids`` replaces the
+    row positions as the voters' indices in both predicates and in the
+    adversary's keys."""
+    signs = sc.sign_ternary(values)
+    m = signs.shape[0]
+    idx = (torch.arange(m, device=signs.device) if ids is None
+           else torch.as_tensor(ids, device=signs.device))
+    if n_stale and prev is not None:
+        mask = (idx < n_stale)[:, None]
+        signs = simulate_stragglers(
+            signs, torch.as_tensor(prev, device=signs.device), mask)
+    if byz is not None:
+        byzantine.apply_adversary_stacked(
+            signs, byz, step=None if step is None else int(step),
+            salt=salt, ids=None if ids is None else idx.tolist())
+    return signs
 
 
 def _virtual_wire_vote(signs: torch.Tensor,
@@ -354,12 +389,23 @@ class VoteBackend(abc.ABC):
 
     def execute(self, request: VoteRequest) -> VoteOutcome:
         """Run the vote; raises ValueError (with the
-        :meth:`why_unsupported` reason) on unsupported requests."""
+        :meth:`why_unsupported` reason) on unsupported requests. Then the
+        telemetry: a ``vote.execute`` span when a recorder is active, and
+        the exact wire counters (``vote.requests`` / ``vote.wire.bytes`` /
+        ``vote.wire.messages``) from the outcome's wire report, always."""
         why = self.why_unsupported(request)
         if why is not None:
             raise ValueError(f"{self.name} backend cannot execute this "
                              f"request: {why}")
-        return self._execute(request)
+        with obs.get_recorder().span("vote.execute", backend=self.name,
+                                     form=request.form,
+                                     codec=request.codec):
+            out = self._execute(request)
+        c = obs.COUNTERS
+        c.inc("vote.requests")
+        c.inc("vote.wire.bytes", int(round(out.wire.payload_bytes)))
+        c.inc("vote.wire.messages", out.wire.n_messages)
+        return out
 
     @abc.abstractmethod
     def _execute(self, request: VoteRequest) -> VoteOutcome:
@@ -386,7 +432,8 @@ class VirtualBackend(VoteBackend):
 
     ``use_kernels=True`` votes ``sign1bit`` requests on
     ``allgather_1bit`` with the fused sign+pack+popcount kernel and rejects
-    every other codec and strategy, which the kernel does not realise."""
+    every other codec and strategy, and active failures, which the kernel
+    does not realise."""
 
     name = "virtual"
 
@@ -414,6 +461,10 @@ class VirtualBackend(VoteBackend):
             return ("the fused kernel's binary majority (ties -> +1) "
                     "is allgather_1bit's tie rule, not "
                     f"{request.strategy.value!r}'s")
+        if request.failures.active:
+            return ("the fused kernel consumes raw voter values; "
+                    "compose failures via "
+                    "VirtualBackend(use_kernels=False)")
         return None
 
     def _execute(self, request: VoteRequest) -> VoteOutcome:
@@ -429,17 +480,19 @@ class VirtualBackend(VoteBackend):
             votes = ops.bitunpack(ops.fused_majority(x), n, torch.int8)
             state = dict(req.server_state or {})
             resolved = VoteStrategy.ALLGATHER_1BIT
-        elif req.plan is not None:
-            resolved = None
-            eff = effective_stacked_signs(x)
-            votes, state = _virtual_plan_walk(eff, req.plan,
-                                              req.server_state, req.overlap)
         else:
-            resolved = ve.resolve_strategy(req.strategy, n, m, 1,
-                                           codec=req.codec)
-            eff = effective_stacked_signs(x)
-            votes, state = _virtual_codec_vote(eff, resolved, req.codec,
-                                               req.server_state)
+            f = req.failures
+            eff = effective_stacked_signs(x, req.prev, f.n_stale, f.byz,
+                                          req.step, req.salt)
+            if req.plan is not None:
+                resolved = None
+                votes, state = _virtual_plan_walk(
+                    eff, req.plan, req.server_state, req.overlap)
+            else:
+                resolved = ve.resolve_strategy(req.strategy, n, m, 1,
+                                               codec=req.codec)
+                votes, state = _virtual_codec_vote(eff, resolved, req.codec,
+                                                   req.server_state)
         wire = _static_wire(req.plan, req.codec, resolved, n, 1, m)
         return VoteOutcome(votes=votes, server_state=state, wire=wire,
                            wire_signs=eff)

@@ -36,6 +36,14 @@ A bucket's columns of the stacked buffer are not contiguous: its rows are
 and ``fused_majority`` take contiguous rows, so a bucket that either reads
 is copied with ``.contiguous()`` first.
 
+Every walk counts its buckets into ``obs.COUNTERS`` (``plan.buckets``)
+and, under an active ``TraceRecorder``, records the reference's
+``plan.schedule`` span around the walk and a ``plan.issue`` /
+``plan.complete`` span per bucket; the issue span's ``pred_s`` (the α–β
+model's predicted exchange time) is ``None`` until the port has an H100
+link model (ROADMAP.md Queue 1 item 15). The spans time the host's
+launches, not the card's work.
+
 Not ported yet: ``MeshBucketWire``, ``plan_vote_signs`` and
 ``plan_tree_vote`` (the collectives, ROADMAP.md Queue 1 item 5), and
 every price of the α–β model (item 15): a plan is built where the
@@ -59,6 +67,7 @@ from repro_torch.core.codecs import weighted
 from repro_torch.core.codecs.ternary import TERNARY_WIRE
 from repro_torch.core.vote_engine import STRATEGIES
 from repro_torch.kernels import ops
+from repro_torch.obs import recorder as obs
 
 #: base bucket alignment: lcm of the 1-bit pack (32/word) and the ternary
 #: 2-bit pack (16/word), so an aligned bucket enters every wire pad-free
@@ -412,32 +421,42 @@ def run_schedule(plan: VotePlan, buf: torch.Tensor, wire: VirtualBucketWire,
                               device=buf.device)
         w = weighted.reliability_weights(ema).tolist()
     buckets = plan.buckets
+    obs.COUNTERS.inc("plan.buckets", len(buckets))
+    rec = obs.get_recorder()
     votes = torch.empty(plan.n_params, dtype=torch.int8, device=buf.device)
     mismatch, total_w = None, 0
 
     def issue(k: int) -> torch.Tensor:
         b = buckets[k]
-        return wire.issue(b, buf[..., b.start:b.start + b.length])
+        # pred_s: the α–β exchange time needs an H100 link model (item 15)
+        with rec.span("plan.issue", bucket=k, codec=b.codec,
+                      strategy=b.strategy.value, length=b.length,
+                      pred_s=None):
+            return wire.issue(b, buf[..., b.start:b.start + b.length])
 
     def complete(k: int, inflight) -> None:
         nonlocal mismatch, total_w
         b = buckets[k]
-        vote, mis = wire.complete(b, inflight, w)
+        with rec.span("plan.complete", bucket=k, codec=b.codec,
+                      strategy=b.strategy.value):
+            vote, mis = wire.complete(b, inflight, w)
         votes[b.start:b.start + b.length] = vote
         if mis is not None:
             mismatch = mis if mismatch is None else mismatch + mis
             total_w += b.length
 
-    if overlap and len(buckets) > 1:
-        inflight = issue(0)
-        for k in range(1, len(buckets)):
-            nxt = issue(k)
-            complete(k - 1, inflight)
-            inflight = nxt
-        complete(len(buckets) - 1, inflight)
-    else:
-        for k in range(len(buckets)):
-            complete(k, issue(k))
+    with rec.span("plan.schedule", n_buckets=len(buckets),
+                  overlap=bool(overlap and len(buckets) > 1)):
+        if overlap and len(buckets) > 1:
+            inflight = issue(0)
+            for k in range(1, len(buckets)):
+                nxt = issue(k)
+                complete(k - 1, inflight)
+                inflight = nxt
+            complete(len(buckets) - 1, inflight)
+        else:
+            for k in range(len(buckets)):
+                complete(k, issue(k))
     if mismatch is not None:
         state["flip_ema"] = weighted.ema_update_fused(ema, mismatch,
                                                       total_w)

@@ -59,6 +59,11 @@ SIGNATURES = {
         f"fused_majority_{t}": (_P, _P, _I, _I64, _P)
         for t in ("f32", "bf16", "i8")
     },
+    "byzantine": {
+        # x, keys, rows, n, the row stride of x, the counter offset, the
+        # draw threshold, flip, stream
+        "adversary_i8": (_P, _P, _I64, _I64, _I64, _I64, _I64, _I, _P),
+    },
     "ternary_pack": {
         **{f"ternary_pack_{t}": (_P, _P, _I64, _I64, _P)
            for t in ("f32", "bf16", "i8")},

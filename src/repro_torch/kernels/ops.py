@@ -18,15 +18,18 @@ element 16k + j); its padding fields are ``0b00``, an abstention.
 each kernel was launched on a card since ``reset_launch_counts()`` (both
 momentum dtypes of ``momentum_sign_pack`` under its one name, every output
 dtype of an unpack under its one name; the ternary tally with ties +1,
-which has no Pallas counterpart, as ``ternary_majority_plus_one``); CPU
+which has no Pallas counterpart, as ``ternary_majority_plus_one``, and
+the stochastic adversaries, which have none either, as ``adversary``); CPU
 calls do not count.
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.core import prng
 from repro_torch.core import sign_compress as sc
 from repro_torch.kernels import build, ref
 
@@ -37,7 +40,8 @@ _COUNTS: Dict[str, int] = {"momentum_sign_pack": 0, "majority": 0,
                            "fused_majority": 0, "ternary_pack": 0,
                            "ternary_majority": 0,
                            "ternary_majority_plus_one": 0,
-                           "ternary_unpack": 0, "apply_ternary_vote": 0}
+                           "ternary_unpack": 0, "apply_ternary_vote": 0,
+                           "adversary": 0}
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 #: element types the sign kernels read and bitunpack writes
 _SIGN_SUFFIX = {**_SUFFIX, torch.int8: "i8"}
@@ -374,3 +378,42 @@ def ternary_unpack(packed: torch.Tensor, n: int, dtype=torch.int8
             packed.data_ptr(), out.data_ptr(), n, _stream(packed))
     _COUNTS["ternary_unpack"] += 1
     return out
+
+
+def draw_threshold(p: float) -> int:
+    """The integer form of ``uniform < p``: JAX's uniform is ``(bits >> 9)
+    / 2^23`` exactly, so it is below the float32 `p` iff ``bits >> 9 <
+    ceil(p * 2^23)`` (float64 holds ``p * 2^23`` exactly)."""
+    return min(1 << 23, max(0, math.ceil(prng.as_float32(p) * 2.0 ** 23)))
+
+
+def adversary_(x: torch.Tensor, keys, p: float, flip: bool,
+               offset: int = 0) -> torch.Tensor:
+    """In place on (rows, n) int8 signs `x`: row r drawn under the threefry
+    key ``keys[r]`` (``(k0, k1)`` Python ints, ``core.prng``), each column j
+    at counter ``offset + j``: with ``flip=False`` (random, colluding) the
+    row becomes +1 where ``bernoulli(key, p)`` draws, else -1; with
+    ``flip=True`` (blind) its sign is negated there (0 stays 0). `x` may be
+    a view whose rows are not adjacent (``stride(1) == 1``, rows
+    ``stride(0) >= n`` apart), and may start anywhere. Returns `x`."""
+    dev = x.device
+    _check(x, "x", ndim=2, dtypes=(torch.int8,), device=dev,
+           strided_rows=True)
+    rows, n = x.shape
+    if len(keys) != rows:
+        raise ValueError(f"{rows} rows need {rows} keys, got {len(keys)}")
+    if not 0.0 <= p <= 1.0:
+        raise ValueError(f"p must be in [0, 1], got {p}")
+    if offset < 0:
+        raise ValueError(f"counter offset {offset} must be >= 0")
+    if not _on_card(x):
+        return x.copy_(ref.adversary(x, keys, p, flip, offset))
+    if rows == 0 or n == 0:
+        return x
+    k = torch.tensor([[int(a) & 0xFFFFFFFF for a in key] for key in keys],
+                     dtype=torch.int64).to(torch.int32).to(dev)
+    _launch("byzantine", "adversary_i8", x.data_ptr(), k.data_ptr(), rows, n,
+            x.stride(0) if rows > 1 else n, offset, draw_threshold(p),
+            int(bool(flip)), _stream(x))
+    _COUNTS["adversary"] += 1
+    return x

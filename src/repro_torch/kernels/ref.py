@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core import prng
 from repro_torch.core import sign_compress as sc
 
 
@@ -124,3 +125,28 @@ def apply_ternary_vote(p: torch.Tensor, votes_packed: torch.Tensor,
     lambda*x), v in {-1, 0, +1}; p (..., 16*w), votes_packed (..., w)."""
     return _update(p, sc.unpack_ternary(votes_packed, torch.float32), eta,
                    weight_decay)
+
+
+#: columns the plain adversary draws at once (bounds its int64 temporaries)
+ADVERSARY_CHUNK = 1 << 24
+
+
+def adversary(x: torch.Tensor, keys, p: float, flip: bool,
+              offset: int = 0) -> torch.Tensor:
+    """The stochastic adversaries of ``repro.core.byzantine.evil_signs`` on
+    (rows, n) int8 signs, row r under key ``keys[r]``: the draw of column j
+    is ``prng.bernoulli(key, p)`` at counter ``offset + j``; ``flip=False``
+    (random, colluding) gives +1 where drawn, else -1; ``flip=True``
+    (blind) negates the sign where drawn. Returns a new tensor."""
+    out = torch.empty_like(x)
+    rows, n = x.shape
+    for r in range(rows):
+        for lo in range(0, n, ADVERSARY_CHUNK):
+            hi = min(n, lo + ADVERSARY_CHUNK)
+            draw = prng.bernoulli(keys[r], p, (hi - lo,), offset + lo,
+                                  x.device)
+            if flip:
+                out[r, lo:hi] = torch.where(draw, -x[r, lo:hi], x[r, lo:hi])
+            else:
+                out[r, lo:hi] = torch.where(draw, 1, -1).to(torch.int8)
+    return out

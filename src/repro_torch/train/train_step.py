@@ -35,6 +35,11 @@ One step:
    the global momentum), updating the parameters in place, and the
    codec's feedback; or the dense update of the mean gradient.
 
+``tcfg.byzantine`` (any mode but the adaptive ones, which raise: ROADMAP.md
+Queue 1 item 10) makes the voters below its ``num_adversaries`` adversarial
+in the sign family's vote (``core.signum``), keyed by the step and salt 0;
+at M = 1 it does nothing, as in the reference without a mesh.
+
 With ``OptimizerConfig.bucket_bytes > 0`` a sign optimizer's step builds a
 ``core.vote_plan.VotePlan`` over every leaf, as the reference's
 ``make_train_step`` does (``train/train_step.py:161-187``: the
@@ -60,7 +65,7 @@ import torch
 
 from repro_torch import DeviceLike, resolve_device
 from repro_torch.configs.base import ModelConfig, TrainConfig, VoteStrategy
-from repro_torch.core import signum
+from repro_torch.core import byzantine, signum
 from repro_torch.core import vote_plan as vp
 from repro_torch.models import model as M, transformer
 
@@ -99,10 +104,10 @@ def _validate(tcfg: TrainConfig, n_voters: int) -> None:
         todo("vote diagnostics")
     if tcfg.loss_dtype != "float32":
         todo(f"loss_dtype={tcfg.loss_dtype!r}")
-    if tcfg.byzantine.mode != "none":
+    if tcfg.byzantine.mode in byzantine.ATTACK_MODES:
         raise NotImplementedError(
-            f"byzantine mode {tcfg.byzantine.mode!r} is not ported yet "
-            "(ROADMAP.md Queue 1 item 6)")
+            f"adaptive adversary mode {tcfg.byzantine.mode!r} is not ported "
+            "yet (ROADMAP.md Queue 1 item 10)")
     if n_voters < 1 or tcfg.global_batch % n_voters:
         raise ValueError(f"global_batch {tcfg.global_batch} must split "
                          f"evenly over n_voters={n_voters}")
@@ -178,7 +183,13 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, n_voters: int = 1,
             strategy=opt_cfg.vote_strategy, data_size=n_voters,
             pod_size=1, dtypes={k: cfg.dtype for k in shapes},
             overlap=opt_cfg.overlap)
-    opt = signum.build_optimizer(opt_cfg, n_voters, plan)
+    # the voters below num_adversaries act adversarially (salt 0, keyed by
+    # the step), as the reference's trainer passes its byzantine config to
+    # build_optimizer; at M = 1 the reference (mesh=None) has no vote axes
+    # and applies no adversary, and nor does the port
+    byz = (tcfg.byzantine if tcfg.byzantine.mode != "none" and n_voters > 1
+           else None)
+    opt = signum.build_optimizer(opt_cfg, n_voters, plan, byz)
     resolved = opt.strategy
     if plan is not None:
         group_strats = {g.strategy for g in plan.groups}
@@ -191,7 +202,7 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, n_voters: int = 1,
         if tokens.shape[0] != tcfg.global_batch:
             raise ValueError(f"batch has {tokens.shape[0]} rows, expected "
                              f"global_batch={tcfg.global_batch}")
-        wire = opt.wire(params)
+        wire = opt.wire(params, int(step))
         voters = []
         for r in range(n_voters):
             grads, met = voter_grads(cfg, tcfg, params,

@@ -40,11 +40,17 @@ def test_port_has_the_slice_modules():
                 "core/codecs/__init__.py", "core/codecs/base.py",
                 "core/codecs/sign1bit.py", "core/codecs/ef_sign.py",
                 "core/codecs/ternary.py", "core/codecs/weighted.py",
-                "core/vote_engine.py", "core/vote_api.py"):
+                "core/vote_engine.py", "core/vote_api.py",
+                "core/vote_plan.py", "core/prng.py", "core/byzantine.py",
+                "core/attacks/__init__.py", "core/attacks/schedule.py",
+                "distributed/fault_tolerance.py",
+                "checkpoint/checkpoint.py", "obs/__init__.py",
+                "obs/recorder.py", "sim/__init__.py", "sim/scenario.py",
+                "sim/virtual_mesh.py", "sim/runner.py"):
         assert f"src/repro_torch/{mod}" in names
     assert sorted(p.name for p in (PORT / "kernels" / "csrc").glob("*.cu")) \
-        == ["bitpack.cu", "fused_vote.cu", "signum_update.cu",
-            "ternary_pack.cu", "vote.cu"]
+        == ["bitpack.cu", "byzantine.cu", "fused_vote.cu",
+            "signum_update.cu", "ternary_pack.cu", "vote.cu"]
 
 
 def test_every_csrc_source_has_signatures():

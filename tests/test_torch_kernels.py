@@ -363,7 +363,8 @@ def test_plain_path_in_place_and_uncounted():
                                     "ternary_pack": 0, "ternary_majority": 0,
                                     "ternary_majority_plus_one": 0,
                                     "ternary_unpack": 0,
-                                    "apply_ternary_vote": 0}
+                                    "apply_ternary_vote": 0,
+                                    "adversary": 0}
 
 
 @pytest.mark.parametrize("gdtype", [torch.float32, torch.bfloat16])

@@ -1122,9 +1122,9 @@ def test_delayed_vote_with_mode_b_raises_as_the_reference():
     ({"remat": "dots"}, "Queue 4 item 4"),
     ({"diagnostics": True}, "Queue 4 item 4"),
     ({"loss_dtype": "bfloat16"}, "Queue 4 item 4"),
-    ({"byzantine": tbase.ByzantineConfig(mode="sign_flip",
+    ({"byzantine": tbase.ByzantineConfig(mode="adaptive_flip",
                                          num_adversaries=1)},
-     "Queue 1 item 6"),
+     "Queue 1 item 10"),
     ({"optimizer": {"vote_strategy": tbase.VoteStrategy.AUTO}},
      "Queue 1 item 15"),
 ], ids=["fsdp", "remat_dots", "diagnostics", "loss_dtype", "byzantine",

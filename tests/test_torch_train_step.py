@@ -570,7 +570,7 @@ _NO_LAUNCHES = {"momentum_sign_pack": 0, "majority": 0, "apply_vote": 0,
                 "bitpack": 0, "bitunpack": 0, "fused_majority": 0,
                 "ternary_pack": 0, "ternary_majority": 0,
                 "ternary_majority_plus_one": 0, "ternary_unpack": 0,
-                "apply_ternary_vote": 0}
+                "apply_ternary_vote": 0, "adversary": 0}
 
 
 def test_step_updates_state_in_place_without_kernel_launches():
@@ -656,9 +656,10 @@ _TRAIN_FIELDS = ("fsdp", "byzantine", "remat", "diagnostics", "loss_dtype")
     {"momentum_mode": tbase.MomentumMode.GLOBAL, "fsdp": True},
     # the priced AUTO ladder of bucket sizes (Queue 1 item 15)
     {"bucket_bytes": -1},
-    # beta = 0 runs; a byzantine mode does not (Queue 1 item 6)
+    # beta = 0 runs with an adversary; an adaptive one does not (Queue 1
+    # item 10)
     {"momentum": 0.0, "byzantine": tbase.ByzantineConfig(
-        mode="sign_flip", num_adversaries=1)},
+        mode="low_margin", num_adversaries=1)},
     {"bucket_bytes": -1, "overlap": True},
     # signsgd_vote runs; remat="dots" does not (Queue 4 item 4)
     {"kind": "signsgd_vote", "remat": "dots"},

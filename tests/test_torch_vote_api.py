@@ -21,10 +21,12 @@ from repro.core import vote_api as jva  # noqa: E402
 from repro.core import vote_engine as jve  # noqa: E402
 from repro_torch.configs.base import ByzantineConfig as TByz  # noqa: E402
 from repro_torch.configs.base import VoteStrategy as TStrategy  # noqa: E402
+from repro_torch.core import byzantine as tbyz  # noqa: E402
 from repro_torch.core import codecs as tcodecs  # noqa: E402
 from repro_torch.core import vote_api as tva  # noqa: E402
 from repro_torch.core import vote_engine as tve  # noqa: E402
 from repro_torch.core import vote_plan as tvp  # noqa: E402
+from repro_torch.distributed import fault_tolerance as tft  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 
 WIRES = ("psum_int8", "allgather_1bit", "hierarchical")
@@ -386,11 +388,11 @@ def _not_ported_cases():
         "tree_form": ("5", lambda: tva.VoteRequest(payload={"a": x[0]},
                                                    form="tree")),
         "mesh_backend": ("5", lambda: tva.MeshBackend(axes=("data",))),
-        "adversary": ("6", lambda: tva.VoteRequest(
-            **stacked, failures=tva.FailureSpec(
-                byz=TByz(mode="sign_flip", num_adversaries=1)))),
-        "stragglers": ("6", lambda: tva.VoteRequest(
-            **stacked, prev=x, failures=tva.FailureSpec(n_stale=1))),
+        # failures run on the stacked form since item 6; what still raises
+        # is their mesh path (the replica index from the vote axes)
+        "adversary": ("5", lambda: tbyz.apply_adversary(
+            x, TByz(mode="sign_flip", num_adversaries=1), ("data",))),
+        "stragglers": ("5", lambda: tft.straggler_mask_for(("data",), 1)),
         # a plan runs since item 7; pricing one needs an H100 link model
         "plan": ("15", lambda: tvp.build_plan(
             {"a": (70,)}, bucket_bytes=8, data_size=5)),
@@ -401,17 +403,17 @@ def _not_ported_cases():
         # one with what is still unported
         "ef_sign": ("5", lambda: tva.VoteRequest(payload=x[0],
                                                  codec="ef_sign")),
-        "ternary2bit": ("6", lambda: tva.VoteRequest(
-            **stacked, codec="ternary2bit", prev=x,
-            plan=tvp.build_plan({"a": (70,)}, bucket_bytes=8,
-                                default_codec="ternary2bit",
-                                strategy=TStrategy.ALLGATHER_1BIT),
-            failures=tva.FailureSpec(n_stale=1))),
-        "weighted_vote": ("6", lambda: tva.VoteRequest(
+        "ternary2bit": ("5", lambda: tft.plan_vote_with_failures(
+            None, tvp.build_plan({"a": (70,)}, bucket_bytes=8,
+                                 default_codec="ternary2bit",
+                                 strategy=TStrategy.ALLGATHER_1BIT),
+            x, prev_signs=x, n_stale=1)),
+        "weighted_vote": ("10", lambda: tva.VoteRequest(
             **stacked, codec="weighted_vote",
             server_state={"flip_ema": np.zeros(5, np.float32)},
-            failures=tva.FailureSpec(byz=TByz(mode="sign_flip",
-                                              num_adversaries=1)))),
+            failures=tva.FailureSpec(byz=TByz(mode="reputation",
+                                              num_adversaries=1)),
+            attack_obs={})),
         "streamed_form": ("10", lambda: tva.VoteRequest(payload=x,
                                                         form="streamed")),
         "voter_ids": ("10", lambda: tva.VoteRequest(
