@@ -190,6 +190,32 @@ Phases, each of which fails the run (non-zero exit) on any disagreement:
    (d) a checkpoint of the elastic preset's per-worker state (8 voters,
    refit to its events' 4 and 6) and of a narrow trainer's state (bf16
    momentum) saved and restored bit-equal on the card.
+13. the federated population and the adaptive adversaries (after phase
+   12): (a) one round of a 100,000-client population, 12,000 voters
+   sampled, each row x + 4 N(0, 1) over 2^22 coordinates made on the card
+   under its own (step, logical id) seed, voted through
+   ``VoteRequest(form="streamed")`` on ``VirtualBackend(chunk_size=...)``
+   in six configurations (sign1bit on allgather_1bit and psum_int8,
+   dataset weights on allgather_1bit, weighted_vote in two passes, a
+   random coalition of the ids below 25,000 drawn by the adversary kernel
+   under each logical id's key, and low_margin on the previous sign1bit
+   round's tally), each at chunks of 1,024 and 512 rows: votes, tallies and
+   state bit-equal, the peak above the resident tensors at most the
+   chunk's float32 rows plus three int8 (k, n) temporaries plus 2 GiB, its
+   CUDA-event ms and ``population.*`` counters printed, two of them once
+   more under torch.profiler; then, on the first 1,024 sampled voters, the
+   stacked form annotated with ``voter_ids`` / ``weights`` (one 17 GB
+   stack) bit-equal to the streamed form at chunk 512 for three
+   configurations; (b) the two adaptive presets, the three fed-smoke
+   drills and the M = 100,000 scale drill of benchmarks/bench_federated.py,
+   and every breaking-point spec, on the card and on the CPU from the
+   port's own draws with equal digests (peak rows within each chunk), then
+   ``breaking_point_rows(with_identity=False)`` and the chunk-invariance
+   identity row on both, every row equal (loss drops, float32 means summed
+   in another order, within 1e-6); seconds per drill set printed.
+
+Phase 13's launches (bitpack and bitunpack of int8 signs, majority, the
+adversary) join the kernels line.
 
 Phase 7 also times ternary_majority with ties +1 (its own row),
 ternary_unpack to bf16 and bitpack of the bf16 stack (its own row, whose
@@ -2713,6 +2739,385 @@ def run_failure_path(torch, cfg, dev, ops, ref, err) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 13: the streamed population vote at federated scale, and the
+# population and adaptive drills, card against CPU twin
+# ---------------------------------------------------------------------------
+
+#: the federated round: a logical population of POP_CLIENTS, POP_SAMPLE of
+#: it sampled (12,000 voters), POP_N coordinates (2^22), voted in chunks of
+#: POP_CHUNK rows and again of POP_CHUNK_ALT (chunk invariance)
+POP_CLIENTS, POP_SAMPLE, POP_N = 100_000, 0.12, 1 << 22
+POP_CHUNK, POP_CHUNK_ALT = 1024, 512
+#: the random coalition: logical ids below a quarter of the population
+POP_ADVERSARIES = POP_CLIENTS // 4
+#: the voters of the streamed-equals-dense check (the dense (M, n) float32
+#: stack is 17 GB at 1,024)
+POP_DENSE = 1024
+#: honest rows are x + POP_NOISE * N(0, 1), per (step, logical id)
+POP_NOISE = 4.0
+#: the peak's slack above the resident tensors: a chunk's float32 rows,
+#: three (k, n) int8 / bool temporaries beside them, and 2 GiB
+POP_SLACK_BYTES = 2 * 2 ** 30
+#: the round's configurations: (label, strategy, codec, dataset weights,
+#: adversary mode)
+POP_CONFIGS = (
+    ("sign1bit_allgather_1bit", "allgather_1bit", "sign1bit", False, None),
+    ("sign1bit_psum_int8", "psum_int8", "sign1bit", False, None),
+    ("dataset_allgather_1bit", "allgather_1bit", "sign1bit", True, None),
+    ("weighted_vote", "allgather_1bit", "weighted_vote", True, None),
+    ("random_25pct", "allgather_1bit", "sign1bit", False, "random"),
+    ("low_margin_25pct", "allgather_1bit", "sign1bit", False, "low_margin"),
+)
+#: the configurations voted once more under torch.profiler
+POP_PROFILED = ("sign1bit_allgather_1bit", "weighted_vote")
+#: the streamed-equals-dense configurations (labels of POP_CONFIGS, the
+#: random coalition added to the first two)
+POP_DENSE_CONFIGS = (("dataset_allgather_1bit", "random"),
+                     ("sign1bit_psum_int8", "random"),
+                     ("weighted_vote", None))
+
+
+def pop_peak_bound(chunk: int) -> int:
+    """The most a streamed vote may hold above its resident tensors: the
+    chunk's float32 rows and three int8 / bool (k, n) temporaries (the
+    signs, a compare mask and the wire's unpacked signs), plus slack."""
+    return chunk * POP_N * (4 + 3) + POP_SLACK_BYTES
+
+
+class PopulationRows:
+    """Client rows ``x + POP_NOISE * N(0, 1)`` made on the card, row by
+    row, each under its own seed ``(step, logical id)`` (one Philox stream
+    a row, offset 0), so no chunk boundary changes a row."""
+
+    def __init__(self, torch, x, step: int):
+        self.torch, self.x, self.step = torch, x, step
+        self.gen = torch.Generator(device=x.device)
+
+    def __call__(self, ids):
+        torch = self.torch
+        ids = ids.tolist()
+        out = torch.empty((len(ids), self.x.numel()), dtype=torch.float32,
+                          device=self.x.device)
+        for r, cid in enumerate(ids):
+            self.gen.manual_seed((self.step << 40) | (cid << 1) | 1)
+            torch.randn(self.x.numel(), generator=self.gen, out=out[r])
+        return out.mul_(POP_NOISE).add_(self.x)
+
+
+def pop_round(np):
+    """The sampled ids (sorted) and their dataset sizes (1..64)."""
+    rng = np.random.default_rng(13)
+    k = int(round(POP_SAMPLE * POP_CLIENTS))
+    ids = np.sort(rng.choice(POP_CLIENTS, k, replace=False)).astype(np.int32)
+    return ids, rng.integers(1, 65, size=k).astype(np.int64)
+
+
+def pop_request(va, cfg, payload, state, astate, step, **annotations):
+    """The round's request for configuration `cfg` of POP_CONFIGS: the
+    streamed form of a PopulationStream `payload`, or the stacked form of
+    an (M, n) tensor with its ``voter_ids`` / ``weights`` annotations."""
+    from repro_torch.configs.base import ByzantineConfig, VoteStrategy
+    from repro_torch.core import attacks
+    label, strategy, codec, _, mode = cfg
+    byz = obs = None
+    if mode is not None:
+        byz = ByzantineConfig(mode=mode, num_adversaries=POP_ADVERSARIES,
+                              seed=21, target_fraction=0.25)
+        if mode in attacks.ATTACK_MODES:
+            obs = astate.observation(attacks.MODE_CHANNEL[mode])
+    return va.VoteRequest(
+        payload=payload, form="stacked" if annotations else "streamed",
+        strategy=VoteStrategy(strategy), codec=codec,
+        failures=va.FailureSpec(byz=byz), step=step, salt=5,
+        server_state=state, attack_obs=obs, **annotations)
+
+
+def run_population_votes(torch, dev) -> dict:
+    """Phase 13a: each of POP_CONFIGS over the sampled round at POP_CHUNK
+    and POP_CHUNK_ALT (votes and tallies bit-equal), its ms, peak memory
+    and ``population.*`` counters; low_margin sees the tally of the
+    sign1bit round before it. Then POP_DENSE_CONFIGS on the first
+    POP_DENSE sampled voters: the annotated stacked form (one (M, n)
+    stack) against the streamed form at POP_CHUNK_ALT, votes, tallies and
+    state bit-equal. Returns the launches (counts set to 0 just before)."""
+    import numpy as np
+    from repro_torch.core import attacks
+    from repro_torch.core import vote_api as va
+    from repro_torch.kernels import ops
+    from repro_torch.obs import COUNTERS
+    gen = torch.Generator(device=dev).manual_seed(31)
+    x = torch.randn(POP_N, generator=gen, device=dev)
+    ids, sizes = pop_round(np)
+    ema0 = torch.rand(POP_CLIENTS, generator=gen, device=dev) * 0.3
+    astate = attacks.AttackState.init(POP_N, POP_CLIENTS, dev)
+    ops.reset_launch_counts()
+    for cfg in POP_CONFIGS:
+        label, _, codec, weighted, mode = cfg
+        step = 1 if mode == "low_margin" else 0
+        got = {}
+        for chunk in (POP_CHUNK, POP_CHUNK_ALT):
+            stream = va.PopulationStream(
+                n_voters=len(ids), n_coords=POP_N, ids=ids,
+                weights=sizes if weighted else None,
+                values=PopulationRows(torch, x, step))
+            state = ({"flip_ema": ema0} if codec == "weighted_vote"
+                     else None)
+            req = pop_request(va, cfg, stream, state, astate, step)
+            be = va.VirtualBackend(device=dev, chunk_size=chunk)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            before = COUNTERS.snapshot("population.")
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            out = be.execute(req)
+            end.record()
+            end.synchronize()
+            wall = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() - base
+            counters = {k: v for k, v in COUNTERS.delta_since(
+                before, "population.").items() if ".last." not in k}
+            counters.update(COUNTERS.snapshot("population.last."))
+            if counters["population.last.peak_rows"] > chunk:
+                raise AssertionError(f"{label}: {counters} rows above the "
+                                     f"chunk {chunk}")
+            if peak > pop_peak_bound(chunk):
+                raise AssertionError(
+                    f"{label} at chunk {chunk}: peak {peak / 1e9:.2f} GB "
+                    f"above {pop_peak_bound(chunk) / 1e9:.2f} GB")
+            got[chunk] = out
+            log({"phase": "population_vote", "config": label,
+                 "voters": len(ids), "population": POP_CLIENTS, "n": POP_N,
+                 "chunk": chunk, "ms": start.elapsed_time(end),
+                 "wall_s": wall, "peak_gb": peak / 1e9,
+                 "peak_bound_gb": pop_peak_bound(chunk) / 1e9,
+                 "rows_gb": chunk * POP_N * 4 / 1e9,
+                 "margin": out.wire.margin,
+                 "agree_with_x": float((out.votes == torch.where(
+                     x >= 0, 1, -1).to(torch.int8)).float().mean()),
+                 "counters": counters})
+        a, b = got[POP_CHUNK], got[POP_CHUNK_ALT]
+        if not (torch.equal(a.votes, b.votes)
+                and torch.equal(a.counts, b.counts)):
+            raise AssertionError(f"{label}: chunk {POP_CHUNK} and "
+                                 f"{POP_CHUNK_ALT} disagree")
+        for k in a.server_state:
+            if not torch.equal(a.server_state[k], b.server_state[k]):
+                raise AssertionError(f"{label}: state {k} depends on the "
+                                     "chunk")
+        if label in POP_PROFILED:
+            profile_population_vote(torch, label, va.VirtualBackend(
+                device=dev, chunk_size=POP_CHUNK), req)
+        if label == "sign1bit_allgather_1bit":
+            astate = attacks.update_attack_state_population(
+                astate, a.votes, a.counts, np.zeros(0, np.int32),
+                np.zeros(0, np.float32))
+        del got, a, b
+    check_population_dense(torch, va, x, ids, sizes, ema0, astate)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    for k in ("bitpack", "bitunpack", "adversary"):
+        if not launches[k]:
+            raise AssertionError(f"the streamed votes never launched {k}")
+    log({"phase": "population_votes_done", "launches": launches})
+    return launches
+
+
+def profile_population_vote(torch, label, backend, req) -> None:
+    """One more streamed vote under torch.profiler: device time by kernel
+    beside the host's wall time (profiler overhead included), for the
+    breakdown and the device's idle share."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        backend.execute(req)
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    kernels = sorted(((e.self_device_time_total / 1e3, e.count, e.key[:100])
+                      for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA),
+                     reverse=True)
+    busy = sum(ms for ms, _, _ in kernels)
+    log({"phase": "population_vote_profile", "config": label,
+         "chunk": backend.chunk_size, "wall_ms": wall,
+         "device_busy_ms": busy, "idle_share": 1.0 - busy / wall,
+         "top_kernels": [{"ms": ms, "count": c, "name": k}
+                         for ms, c, k in kernels[:8]]})
+
+
+def check_population_dense(torch, va, x, ids, sizes, ema0, astate) -> None:
+    """Phase 13a's streamed-equals-dense check (see run_population_votes)."""
+    m = POP_DENSE
+    dense = PopulationRows(torch, x, 0)(torch.from_numpy(ids[:m]))
+    for label, mode in POP_DENSE_CONFIGS:
+        cfg = next(c for c in POP_CONFIGS if c[0] == label)
+        cfg = cfg[:4] + (mode,)
+        weighted, codec = cfg[3], cfg[2]
+        state = {"flip_ema": ema0} if codec == "weighted_vote" else None
+        t0 = time.perf_counter()
+        d = va.VirtualBackend(device=x.device).execute(pop_request(
+            va, cfg, dense, state, astate, 0, voter_ids=ids[:m],
+            weights=sizes[:m] if weighted else None))
+        t1 = time.perf_counter()
+        stream = va.PopulationStream(
+            n_voters=m, n_coords=POP_N, ids=ids[:m],
+            weights=sizes[:m] if weighted else None,
+            values=PopulationRows(torch, x, 0))
+        s = va.VirtualBackend(device=x.device,
+                              chunk_size=POP_CHUNK_ALT).execute(
+            pop_request(va, cfg, stream, state, astate, 0))
+        same = (torch.equal(d.votes, s.votes)
+                and torch.equal(d.counts, s.counts)
+                and all(torch.equal(d.server_state[k], s.server_state[k])
+                        for k in d.server_state))
+        if not same:
+            raise AssertionError(f"{label} ({mode}): the dense annotated "
+                                 "form and the streamed form disagree")
+        log({"phase": "population_streamed_eq_dense", "config": label,
+             "adversary": mode, "voters": m, "n": POP_N,
+             "dense_s": t1 - t0, "streamed_s": time.perf_counter() - t1})
+    del dense
+
+
+def fed_smoke_specs():
+    """benchmarks/bench_federated.py's three fed-smoke drills and its
+    M = 100,000 scale drill (the same specs)."""
+    from repro_torch.configs.base import VoteStrategy as S
+    from repro_torch.sim import (AdversarySpec, ChurnEvent, PopulationSpec,
+                                 ScenarioSpec)
+    return [
+        ScenarioSpec("fed-smoke/uniform", n_steps=3, dim=64, momentum=0.0,
+                     strategy=S.PSUM_INT8,
+                     adversary=AdversarySpec("sign_flip", 0.2),
+                     population=PopulationSpec(
+                         n_clients=200, sample_fraction=0.12, chunk_size=6)),
+        ScenarioSpec("fed-smoke/dataset", n_steps=3, dim=64, momentum=0.0,
+                     strategy=S.ALLGATHER_1BIT,
+                     adversary=AdversarySpec("colluding", 0.3),
+                     population=PopulationSpec(
+                         n_clients=120, sample_fraction=0.3,
+                         weighting="dataset", max_data=50, chunk_size=6)),
+        ScenarioSpec("fed-smoke/weighted", n_steps=5, dim=64, momentum=0.0,
+                     strategy=S.ALLGATHER_1BIT, codec="weighted_vote",
+                     adversary=AdversarySpec("blind", 0.25, flip_prob=0.8),
+                     population=PopulationSpec(
+                         n_clients=90, sample_fraction=0.4,
+                         weighting="dataset",
+                         churn=(ChurnEvent(2, leave=30, note="dropout"),
+                                ChurnEvent(4, join=15, note="rejoin")),
+                         chunk_size=6)),
+        ScenarioSpec("fed-smoke/scale-100k", n_steps=2, dim=64,
+                     momentum=0.0, strategy=S.PSUM_INT8,
+                     population=PopulationSpec(
+                         n_clients=100_000, sample_fraction=0.1,
+                         churn=(ChurnEvent(1, join=25_000, leave=5_000,
+                                           note="scale churn"),),
+                         chunk_size=2000)),
+    ]
+
+
+def card_and_cpu(torch, dev, spec) -> tuple:
+    """One drill on the card and on the CPU from the port's own draws; the
+    digests must be equal. Returns the card's trace and its seconds."""
+    from repro_torch.obs import COUNTERS
+    from repro_torch.sim import ScenarioRunner
+    t0 = time.perf_counter()
+    card = ScenarioRunner(spec, device=dev).run()
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    peak_rows = COUNTERS.get("population.last.peak_rows")
+    cpu = ScenarioRunner(spec, device="cpu").run()
+    if card.digest != cpu.digest:
+        raise AssertionError(f"drill {spec.name}: card digest {card.digest} "
+                             f"!= CPU {cpu.digest}")
+    if spec.population.enabled and peak_rows > spec.population.chunk_size:
+        raise AssertionError(f"drill {spec.name}: peak rows {peak_rows} "
+                             f"above its chunk {spec.population.chunk_size}")
+    return card, card_s
+
+
+def run_population_drills(torch, dev) -> dict:
+    """Phase 13b: the two adaptive presets, the fed-smoke drills and the
+    scale drill, the breaking-point specs (every class at every fraction
+    and the defense-degradation pair) and the chunk-invariance identity
+    row, each on the card and on the CPU with equal digests; then
+    ``breaking_point_rows(with_identity=False)`` on both, every row equal
+    (the loss drops, float32 means summed in another order, within 1e-6).
+    Returns the launches (counts set to 0 just before)."""
+    from repro_torch.core.attacks import breaking_point as bp
+    from repro_torch.kernels import ops
+    from repro_torch.sim import preset_scenarios
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    sets = {"adaptive_presets": [s for s in preset_scenarios()
+                                 if s.adversary.adaptive],
+            "fed_smoke": fed_smoke_specs(),
+            "breaking_point": [
+                bp._make_spec(c, f, n_workers=15, dim=48, n_steps=6, seed=0)
+                for c in bp.ATTACK_CLASSES for f in bp.FRACTIONS] + [
+                bp._make_spec(dict(mode=mode, observe=obs,
+                                   codec="weighted_vote"), 0.3,
+                              n_workers=15, dim=48, n_steps=10, seed=0)
+                for mode, obs in (("colluding", "none"),
+                                  ("reputation", "reputation"))]}
+    seconds = {}
+    for name, specs in sets.items():
+        t = time.perf_counter()
+        for spec in dict.fromkeys(specs):
+            card, card_s = card_and_cpu(torch, dev, spec)
+            s = card.summary()
+            log({"drill": spec.name, "set": name, "digest": card.digest,
+                 "cpu_equal": True, "final_loss": s["final_loss"],
+                 "mean_flip_fraction": s["mean_flip_fraction"],
+                 "mean_margin": s["mean_margin"], "card_s": card_s})
+        seconds[name] = time.perf_counter() - t
+    t = time.perf_counter()
+    rows = {dev_: bp.breaking_point_rows(with_identity=False, device=dev_)
+            for dev_ in (dev, "cpu")}
+    rows_cpu = rows.pop("cpu")
+    rows_card = rows.pop(dev)
+    rows_card.append(bp.population_identity_row(device=dev))
+    rows_cpu.append(bp.population_identity_row(device="cpu"))
+    for (name, v, d), (name_c, v_c, d_c) in zip(rows_card, rows_cpu):
+        close = (abs(v - v_c) <= 1e-6 if "/loss_drop_" in name
+                 else v == v_c and ("/identity/" not in name or d == d_c))
+        if name != name_c or not close:
+            raise AssertionError(f"breaking-point row {name}: card {v} != "
+                                 f"CPU {v_c}")
+    if len(rows_card) != len(rows_cpu):
+        raise AssertionError("breaking-point rows differ in number")
+    seconds["breaking_point_rows"] = time.perf_counter() - t
+    log({"phase": "breaking_point_rows", "rows": [list(r[:2])
+                                                  for r in rows_card]})
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    for k in ("majority", "bitpack", "bitunpack", "adversary"):
+        if not launches[k]:
+            raise AssertionError(f"the drills never launched {k}")
+    log({"phase": "population_drills_done", "seconds": seconds,
+         "total_s": time.perf_counter() - t0, "launches": launches})
+    return launches
+
+
+def run_population_path(torch, dev) -> dict:
+    """Phase 13: the streamed votes (13a), then the drills (13b). Returns
+    their launches."""
+    t0 = time.perf_counter()
+    totals = {}
+    for path in (run_population_votes(torch, dev),
+                 run_population_drills(torch, dev)):
+        for k, v in path.items():
+            totals[k] = totals.get(k, 0) + v
+    log({"phase": "population_path_done",
+         "seconds": time.perf_counter() - t0, "launches": totals})
+    return totals
+
+
+# ---------------------------------------------------------------------------
 # phase 7: timing at the unembedding shape
 # ---------------------------------------------------------------------------
 
@@ -3062,6 +3467,8 @@ def main() -> int:
             launches[k] += v
     run_dense_path(torch, cfg, dev)
     for k, v in run_failure_path(torch, cfg, dev, ops, ref, errs).items():
+        launches[k] += v
+    for k, v in run_population_path(torch, dev).items():
         launches[k] += v
     # ef_sign's encode packs its float32 t; every other bitpack of the main
     # path packs int8 signs (staged votes, plan buckets, weighted_vote's vote)

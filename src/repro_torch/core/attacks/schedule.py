@@ -7,39 +7,14 @@ later phase overrides them again; a field left ``None`` inherits. The
 coalition is re-counted at each phase through the exact-``Fraction`` rule
 (``byzantine.coalition_config``), so a schedule composes with elastic
 rescale. ``step`` must be >= 1: the pre-run coalition is the spec's own.
-
-Beside the schedule, the reference's tables of the adaptive modes'
-observation channels (``attacks/engine.py``), which the Scenario Lab's
-spec validation reads; the adaptive modes themselves are ROADMAP.md
-Queue 1 item 10.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Iterable, Optional, Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 from repro_torch.core import byzantine
 from repro_torch.core.byzantine import ATTACK_MODES
-
-#: the observation channel each adaptive mode consumes
-MODE_CHANNEL = {"adaptive_flip": "vote",
-                "low_margin": "margin",
-                "reputation": "reputation"}
-
-#: legal values of AdversarySpec.observe
-OBSERVE_CHANNELS = ("none", "vote", "margin", "reputation")
-
-
-def required_channel(modes: Iterable[str]) -> str:
-    """The one observation channel a set of (scheduled) modes needs, or
-    ``"none"``; more than one distinct channel is an error."""
-    chans = sorted({MODE_CHANNEL[m] for m in modes if m in MODE_CHANNEL})
-    if len(chans) > 1:
-        raise ValueError(
-            f"attack schedule mixes observation channels {chans}; "
-            "a schedule may hop fraction and mode but all adaptive "
-            "modes in it must share one channel")
-    return chans[0] if chans else "none"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -107,5 +82,4 @@ def modes_used(schedule: Sequence[AttackPhase],
     return tuple(dict.fromkeys(modes))
 
 
-__all__ = ["ATTACK_MODES", "MODE_CHANNEL", "OBSERVE_CHANNELS", "AttackPhase",
-           "modes_used", "phase_at", "required_channel", "validate_schedule"]
+__all__ = ["AttackPhase", "modes_used", "phase_at", "validate_schedule"]

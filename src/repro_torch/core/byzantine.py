@@ -18,8 +18,12 @@ in-place PyTorch ops. Element j of a row draws at counter ``offset + j``,
 so a window of a longer row (a bucket of a plan's flat buffer) draws what
 the whole row would.
 
+The adaptive modes (``adaptive_flip``, ``low_margin``, ``reputation``)
+read an observation dict (``obs``, the request's ``attack_obs``) and are
+dispatched to ``core.attacks.engine``; they draw nothing.
+
 Not ported: :func:`apply_adversary` over mesh axes (ROADMAP.md Queue 1
-item 5) and the adaptive modes (item 10), which raise.
+item 5), which raises.
 """
 from __future__ import annotations
 
@@ -52,22 +56,22 @@ def adversary_key(cfg: ByzantineConfig, idx: Optional[int] = None, *,
 
 
 def check_mode(mode: str) -> None:
-    """Raise for a mode the port does not run: unknown, or adaptive."""
-    if mode in ATTACK_MODES:
-        raise NotImplementedError(
-            f"adaptive adversary mode {mode!r} is not ported yet (ROADMAP.md "
-            "Queue 1 item 10)")
-    if mode not in MODES:
+    """Raise ``ValueError`` for a mode neither table knows."""
+    if mode not in MODES and mode not in ATTACK_MODES:
         raise ValueError(f"unknown byzantine mode {mode!r}")
 
 
 def evil_signs_(signs: torch.Tensor, cfg: ByzantineConfig,
                 ids: Sequence[int], *, step: Optional[int] = None,
-                salt: int = 0, offset: int = 0) -> torch.Tensor:
+                salt: int = 0, offset: int = 0, obs=None) -> torch.Tensor:
     """In place: what voters `ids` send if adversarial, row r of the
     ``(rows, n)`` int8 `signs` (a view whose rows may be apart) being voter
-    ``ids[r]``'s honest signs. Returns `signs`."""
+    ``ids[r]``'s honest signs; `obs` is an adaptive mode's observation.
+    Returns `signs`."""
     check_mode(cfg.mode)
+    if cfg.mode in ATTACK_MODES:
+        from repro_torch.core.attacks import engine
+        return engine.adaptive_evil_signs_(signs, cfg, ids, obs)
     if cfg.mode == "sign_flip":
         return signs.neg_()
     if cfg.mode == "zero":
@@ -134,12 +138,13 @@ def _runs(rows: List[int]) -> List[tuple]:
 def apply_adversary_stacked(stacked: torch.Tensor, cfg: ByzantineConfig, *,
                             step: Optional[int] = None, salt: int = 0,
                             ids: Optional[Sequence[int]] = None,
-                            offset: int = 0) -> torch.Tensor:
+                            offset: int = 0, obs=None) -> torch.Tensor:
     """In place on the ``(M, ...)`` int8 voter stack: rows whose voter index
     (the position, or ``ids[r]``) is below ``cfg.num_adversaries`` take
-    :func:`evil_signs_`; the others stay honest. Returns `stacked` (the
-    reference returns a new array). The trailing dims are drawn as one
-    flat row, as JAX draws a shape."""
+    :func:`evil_signs_` (an adaptive mode with the observation `obs`); the
+    others stay honest. Returns `stacked` (the reference returns a new
+    array). The trailing dims are drawn as one flat row, as JAX draws a
+    shape."""
     if cfg.mode == "none" or cfg.num_adversaries == 0:
         return stacked
     check_mode(cfg.mode)
@@ -151,7 +156,7 @@ def apply_adversary_stacked(stacked: torch.Tensor, cfg: ByzantineConfig, *,
     evil = [r for r in range(m) if idx[r] < cfg.num_adversaries]
     for lo, hi in _runs(evil):
         evil_signs_(flat[lo:hi], cfg, idx[lo:hi], step=step, salt=salt,
-                    offset=offset)
+                    offset=offset, obs=obs)
     return stacked
 
 

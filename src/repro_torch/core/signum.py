@@ -296,7 +296,7 @@ def make_sign_optimizer(cfg: OptimizerConfig, n_voters: int,
         return state
 
     if byz is not None and byz.mode != "none" and byz.num_adversaries:
-        byzantine.check_mode(byz.mode)     # unknown or adaptive: raises
+        byzantine.check_mode(byz.mode)     # an unknown mode raises
     else:
         byz = None
 

@@ -42,6 +42,19 @@ by the ``adversary`` kernel on a card). ``VoteOutcome.wire_signs`` is what
 reached the wire. Under a plan the failures act once on the whole
 ``(M, n_params)`` buffer before the bucket walk.
 
+The adaptive adversaries (``adaptive_flip``, ``low_margin``,
+``reputation``; ``core.attacks``) read ``VoteRequest.attack_obs``, their
+channel's tensors of the previous round (``AttackState.observation``),
+validated against the channel as in the reference.
+
+The ``streamed`` form votes a :class:`PopulationStream`, a population
+yielded a chunk of rows at a time, through ``core.population`` in chunks
+of ``VirtualBackend(chunk_size=...)`` rows; ``voter_ids`` / ``weights``
+annotate a stacked payload's rows with logical ids and integer
+dataset-size weights, and such a request runs through the same engine in
+one chunk (its ``wire_signs`` from one more pass). Both return
+``VoteOutcome.counts``, the signed tally, and ``WireReport.margin``.
+
 ``execute`` counts every request into the process-global
 ``obs.COUNTERS`` (``vote.requests``, ``vote.wire.bytes``,
 ``vote.wire.messages``, from the request's static wire report) and, when a
@@ -49,8 +62,7 @@ reached the wire. Under a plan the failures act once on the whole
 
 What the port does not run yet raises ``NotImplementedError`` naming its
 ROADMAP.md item: the ``leaf`` and ``tree`` forms and :class:`MeshBackend`
-(Queue 1 item 5), the ``streamed`` form, ``voter_ids`` / ``weights`` and
-adaptive adversaries (item 10).
+(Queue 1 item 5).
 """
 from __future__ import annotations
 
@@ -58,6 +70,7 @@ import abc
 import dataclasses
 from typing import Any, Dict, Optional
 
+import numpy as np
 import torch
 
 import repro_torch
@@ -127,6 +140,9 @@ class WireReport:
     payload_bytes: float
     n_messages: int
     strategy: Optional[VoteStrategy]
+    #: mean |tally| over the total vote weight (the streamed and annotated
+    #: forms fill it)
+    margin: Optional[float] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -134,13 +150,96 @@ class VoteOutcome:
     """votes (``(n,)`` int8, on the backend's device) + the server state +
     the wire report. ``wire_signs`` is the ``(M, n)`` int8 sign tensor
     that reached the wire (sign extraction -> stale substitution ->
-    adversary), on the staged path; ``None`` on the fused kernel path,
-    which consumes the raw values."""
+    adversary), on the staged and the annotated paths; ``None`` on the
+    fused kernel path, which consumes the raw values, and on the streamed
+    path, which never holds it. ``counts`` is the per-coordinate signed
+    tally ((n,) int64, at the wire's weight scale) of the streamed and
+    annotated paths, the ``margin`` channel of an adaptive attacker."""
 
     votes: Any
     server_state: Dict[str, Any]
     wire: WireReport
     wire_signs: Any = None
+    counts: Any = None
+
+
+@dataclasses.dataclass(frozen=True, eq=False, repr=False)
+class PopulationStream:
+    """A voter population yielded in chunks instead of held as one ``(M,
+    n)`` stack: the ``"streamed"`` request form (DESIGN.md §12).
+
+    * ``values``  — callable, ``(k,)`` int32 CPU tensor of logical voter
+      ids -> ``(k, n_coords)`` values (numpy or tensor; moved to the
+      backend's device). A pure function of the ids, so chunking cannot
+      change the vote.
+    * ``ids``     — optional ``(n_voters,)`` strictly increasing
+      non-negative logical ids (a sampled round); default ``arange``. The
+      stale and adversary predicates and the adversary's keys use them.
+    * ``prev``    — optional callable like ``values`` giving the
+      ``(k, n_coords)`` int8 previous signs for stale substitution.
+    * ``weights`` — optional ``(n_voters,)`` integer dataset sizes >= 1
+      aligned to ``ids``: each voter casts weight-many votes.
+    """
+
+    n_voters: int
+    n_coords: int
+    values: Any
+    ids: Any = None
+    prev: Any = None
+    weights: Any = None
+
+    def __post_init__(self):
+        if self.n_voters < 1:
+            raise ValueError(f"n_voters must be >= 1, got {self.n_voters}")
+        if self.n_coords < 1:
+            raise ValueError(f"n_coords must be >= 1, got {self.n_coords}")
+        if not callable(self.values):
+            raise ValueError("values must be a callable (ids) -> (k, n) "
+                             f"chunk producer, got "
+                             f"{type(self.values).__name__}")
+        if self.prev is not None and not callable(self.prev):
+            raise ValueError("prev must be a callable (ids) -> (k, n) "
+                             "int8 chunk producer (same contract as "
+                             f"values), got {type(self.prev).__name__}")
+        if self.ids is not None:
+            ids = np.asarray(self.ids)
+            if ids.shape != (self.n_voters,):
+                raise ValueError(f"ids must have shape ({self.n_voters},) "
+                                 f"aligned to the stream rows, got "
+                                 f"{ids.shape}")
+            if not np.issubdtype(ids.dtype, np.integer):
+                raise ValueError(f"ids must be integer logical indices, "
+                                 f"got dtype {ids.dtype}")
+            _check_increasing(ids, "ids")
+        if self.weights is not None:
+            w = np.asarray(self.weights)
+            if w.shape != (self.n_voters,):
+                raise ValueError(f"weights must have shape "
+                                 f"({self.n_voters},) aligned to the "
+                                 f"stream rows, got {w.shape}")
+            if not np.issubdtype(w.dtype, np.integer):
+                raise ValueError("weights are integer vote counts "
+                                 "(dataset sizes), got dtype "
+                                 f"{w.dtype}")
+            _check_weights(w)
+
+    def row_ids(self) -> np.ndarray:
+        """The logical id of every stream row ((M,) int32)."""
+        if self.ids is None:
+            return np.arange(self.n_voters, dtype=np.int32)
+        return np.asarray(self.ids, dtype=np.int32)
+
+
+def _check_increasing(ids: np.ndarray, name: str) -> None:
+    if ids.size and (int(ids.min()) < 0 or np.any(np.diff(ids) <= 0)):
+        raise ValueError(f"{name} must be strictly increasing non-negative "
+                         "logical voter indices (sort the sampled set)")
+
+
+def _check_weights(w: np.ndarray) -> None:
+    if w.size and int(w.min()) < 1:
+        raise ValueError("weights must be >= 1 (a zero-data client does not "
+                         "vote; drop it from the sample instead)")
 
 
 @dataclasses.dataclass(frozen=True, eq=False, repr=False)
@@ -148,17 +247,21 @@ class VoteRequest:
     """One declarative vote, validated on construction.
 
     `payload` is an ``(M, n)`` array (numpy or torch) of M voters' values
-    with ``form="stacked"``; `strategy` is a concrete wire or AUTO;
-    `codec` one of ``codecs.CODECS``; `plan` a ``VotePlan`` over n
-    coordinates (its groups' codecs and strategies then supersede `codec`
-    and `strategy`), `overlap` its double-buffered walk; `server_state`
+    with ``form="stacked"``, or a :class:`PopulationStream` with
+    ``form="streamed"``; `strategy` is a concrete wire or AUTO; `codec`
+    one of ``codecs.CODECS``; `plan` a ``VotePlan`` over n coordinates
+    (its groups' codecs and strategies then supersede `codec` and
+    `strategy`), `overlap` its double-buffered walk; `server_state`
     threads a stateful codec's decode memory (``weighted_vote``'s
-    ``{"flip_ema": (M,)}``, numpy or torch). `failures` composes stale
+    ``{"flip_ema": (M,)}``, numpy or torch; over the logical population
+    for a streamed or annotated request). `failures` composes stale
     substitution (which needs `prev`, the ``(M, n)`` int8 signs of the
-    previous step) and the Byzantine model; `step` (an int) and `salt`
-    key the stochastic adversaries' draws. ``voter_ids``, ``weights``,
-    ``attack_obs`` and ``diagnostics`` must stay at their defaults in the
-    port (see the module doc)."""
+    previous step, or the stream's ``prev``) and the Byzantine model;
+    `step` (an int) and `salt` key the stochastic adversaries' draws;
+    `attack_obs` is an adaptive adversary's observation, exactly its
+    channel's keys (``attacks.CHANNEL_KEYS``). `voter_ids` / `weights`
+    annotate a stacked payload's rows with logical ids / integer dataset
+    sizes. ``diagnostics`` must stay False (it belongs to the tree form)."""
 
     payload: Any
     form: str = "leaf"
@@ -183,31 +286,40 @@ class VoteRequest:
         if self.form in ("leaf", "tree"):
             raise _not_ported(f"the {self.form!r} form (it votes inside a "
                               "mesh region)", "5")
-        if self.form == "streamed":
-            raise _not_ported("the 'streamed' population form", "10")
         codec = codecs_mod.get_codec(self.codec)   # raises on unknown
         if not isinstance(self.strategy, VoteStrategy):
             raise ValueError(f"strategy must be a VoteStrategy, got "
                              f"{self.strategy!r}")
         if self.plan is None and self.strategy != VoteStrategy.AUTO:
             codec.validate_strategy(self.strategy)
-        if not hasattr(self.payload, "shape"):
-            raise ValueError(
-                f"{self.form}-form payload must be an array, got "
-                f"{type(self.payload).__name__}")
-        if len(self.payload.shape) != 2:
-            raise ValueError(
-                "stacked-form payload must be (M, n) — M voters by n "
-                f"coordinates — got shape {tuple(self.payload.shape)}")
+        if self.form == "streamed":
+            self._validate_streamed()
+        else:
+            if not hasattr(self.payload, "shape"):
+                raise ValueError(
+                    f"{self.form}-form payload must be an array, got "
+                    f"{type(self.payload).__name__}")
+            if len(self.payload.shape) != 2:
+                raise ValueError(
+                    "stacked-form payload must be (M, n) — M voters by n "
+                    f"coordinates — got shape {tuple(self.payload.shape)}")
+        if self.failures.n_stale > 0:
+            streamed = self.form == "streamed"
+            has_prev = (self.payload.prev is not None if streamed
+                        else self.prev is not None)
+            if not has_prev:
+                raise ValueError(
+                    f"failures.n_stale={self.failures.n_stale} substitutes "
+                    "stale votes but the request has no prev signs to "
+                    "substitute (set VoteRequest.prev"
+                    + (" / PopulationStream.prev" if streamed else "")
+                    + ")")
+        self._validate_voter_axes()
+        self._validate_attack_obs()
         self._validate_plan()
-        if self.failures.n_stale > 0 and self.prev is None:
-            raise ValueError(
-                f"failures.n_stale={self.failures.n_stale} substitutes "
-                "stale votes but the request has no prev signs to "
-                "substitute (set VoteRequest.prev)")
-        # a stacked request always decodes through the codec (even M=1),
-        # so missing server state is a build-time error, as in the
-        # reference
+        # a stacked or streamed request always decodes through the codec
+        # (even M=1), so missing server state is a build-time error, as in
+        # the reference
         needs_state = (self.plan.has_server_state if self.plan is not None
                        else codec.server_state)
         if needs_state and not self.server_state:
@@ -217,11 +329,6 @@ class VoteRequest:
                 "thread it through "
                 "VoteRequest.server_state (init_server_state for the "
                 "uninformed prior)")
-        if self.attack_obs is not None and not self.failures.adaptive:
-            raise ValueError(
-                "attack_obs carries an adaptive adversary's observation "
-                "channel, but the request's adversary mode is oblivious "
-                "or absent — drop attack_obs")
         if self.diagnostics:
             raise ValueError(
                 "diagnostics (margin/agreement in the WireReport) are "
@@ -232,11 +339,111 @@ class VoteRequest:
                 "overlap=True double-buffers a plan's bucket schedule; "
                 "attach a VotePlan (VoteRequest.plan / "
                 "OptimizerConfig.bucket_bytes) or drop overlap")
-        if self.failures.adaptive:
-            raise _not_ported(f"adaptive adversary mode "
-                              f"{self.failures.byz.mode!r}", "10")
+
+    def _validate_streamed(self):
+        if not isinstance(self.payload, PopulationStream):
+            raise ValueError(
+                "streamed-form payload must be a PopulationStream, got "
+                f"{type(self.payload).__name__}")
+        if self.plan is not None:
+            raise ValueError(
+                "the streamed population engine accumulates one flat "
+                "coordinate buffer and has no bucket walk; drop the "
+                "plan or use the stacked form")
+        if self.overlap:
+            raise ValueError(
+                "overlap double-buffers a plan's bucket schedule; the "
+                "streamed form has no plan to overlap")
+        if self.prev is not None:
+            raise ValueError(
+                "a streamed request's prev signs are a chunk producer "
+                "on the stream (PopulationStream.prev), not a dense "
+                "VoteRequest.prev array")
         if self.voter_ids is not None or self.weights is not None:
-            raise _not_ported("voter_ids / weights annotations", "10")
+            raise ValueError(
+                "a streamed request carries voter ids and weights on "
+                "the PopulationStream (ids=/weights=), not on the "
+                "VoteRequest")
+
+    def _validate_voter_axes(self):
+        if self.voter_ids is None and self.weights is None:
+            return
+        if self.form != "stacked":
+            raise ValueError(
+                "voter_ids/weights annotate the rows of a stacked "
+                f"(M, n) payload, not the {self.form!r} form (streamed "
+                "requests carry them on the PopulationStream)")
+        if self.plan is not None:
+            raise ValueError(
+                "voter_ids/weights do not compose with a bucketed plan "
+                "yet; drop the plan (the population engine accumulates "
+                "one flat buffer)")
+        m = self.payload.shape[0]
+        for name, arr in (("voter_ids", self.voter_ids),
+                          ("weights", self.weights)):
+            if arr is None:
+                continue
+            a = np.asarray(arr)
+            if a.shape != (m,):
+                raise ValueError(f"{name} must have shape ({m},) aligned "
+                                 f"to the stacked rows, got {a.shape}")
+            if not np.issubdtype(a.dtype, np.integer):
+                raise ValueError(f"{name} must be an integer array, got "
+                                 f"dtype {a.dtype}")
+        if self.voter_ids is not None:
+            _check_increasing(np.asarray(self.voter_ids), "voter_ids")
+        if self.weights is not None:
+            _check_weights(np.asarray(self.weights))
+
+    def _validate_attack_obs(self):
+        from repro_torch.core.attacks import engine as attacks
+        if not self.failures.adaptive:
+            if self.attack_obs is not None:
+                raise ValueError(
+                    "attack_obs carries an adaptive adversary's "
+                    "observation channel, but the request's adversary "
+                    "mode is oblivious or absent — drop attack_obs or "
+                    f"use one of the adaptive modes {attacks.ATTACK_MODES}")
+            return
+        byz = self.failures.byz
+        channel = attacks.MODE_CHANNEL[byz.mode]
+        keys = attacks.CHANNEL_KEYS[channel]
+        if (not isinstance(self.attack_obs, dict)
+                or set(self.attack_obs) != set(keys)):
+            got = (sorted(self.attack_obs) if isinstance(self.attack_obs,
+                                                         dict)
+                   else type(self.attack_obs).__name__)
+            raise ValueError(
+                f"adaptive mode {byz.mode!r} observes the {channel!r} "
+                f"channel: attack_obs must be a dict with exactly the "
+                f"keys {sorted(keys)} (AttackState.observation builds "
+                f"it), got {got}")
+        n = (self.payload.n_coords if self.form == "streamed"
+             else self.payload.shape[1])
+        for k in ("prev_vote", "prev_abs_counts"):
+            if k in self.attack_obs:
+                shape = tuple(np.shape(self.attack_obs[k]))
+                if shape != (n,):
+                    raise ValueError(
+                        f"attack_obs[{k!r}] must have shape ({n},) "
+                        f"aligned to the vote coordinates, got {shape}")
+        if "rep" in self.attack_obs:
+            shape = tuple(np.shape(self.attack_obs["rep"]))
+            if self.form == "streamed":
+                ids = self.payload.row_ids()
+            elif self.voter_ids is not None:
+                ids = np.asarray(self.voter_ids)
+            else:
+                ids = None
+            need = (self.payload.shape[0] if ids is None
+                    else int(ids[-1]) + 1 if ids.size else 1)
+            if len(shape) != 1 or shape[0] < need:
+                raise ValueError(
+                    "attack_obs['rep'] must be a 1-D per-voter array "
+                    f"covering every logical voter id (need >= {need} "
+                    f"entries, got shape {shape}) — refit it on "
+                    "rescale/churn like the flip-EMA "
+                    "(AttackState.refit)")
 
     def _validate_plan(self):
         if self.plan is None:
@@ -277,25 +484,28 @@ def effective_stacked_signs(values: torch.Tensor, prev=None,
                             n_stale: int = 0,
                             byz: Optional[ByzantineConfig] = None,
                             step: Optional[int] = None, salt: int = 0,
-                            ids=None) -> torch.Tensor:
+                            ids=None, obs=None) -> torch.Tensor:
     """The (M, n) int8 sign tensor that reaches the wire: sign extraction
     (a float32 / bf16 subnormal abstains, as in the reference) -> stale
     substitution (voters with index < `n_stale` send `prev`) -> the
-    adversary `byz`, in the reference's pinned order. ``ids`` replaces the
-    row positions as the voters' indices in both predicates and in the
+    adversary `byz` (an adaptive one reading the observation `obs`), in
+    the reference's pinned order. ``ids`` (host integers) replaces the row
+    positions as the voters' indices in both predicates and in the
     adversary's keys."""
     signs = sc.sign_ternary(values)
     m = signs.shape[0]
-    idx = (torch.arange(m, device=signs.device) if ids is None
-           else torch.as_tensor(ids, device=signs.device))
+    idx = (None if ids is None
+           else np.asarray(ids.cpu() if torch.is_tensor(ids) else ids,
+                           dtype=np.int64))
     if n_stale and prev is not None:
-        mask = (idx < n_stale)[:, None]
+        rows = np.arange(m) if idx is None else idx
+        mask = torch.from_numpy(rows < n_stale).to(signs.device)[:, None]
         signs = simulate_stragglers(
             signs, torch.as_tensor(prev, device=signs.device), mask)
     if byz is not None:
         byzantine.apply_adversary_stacked(
             signs, byz, step=None if step is None else int(step),
-            salt=salt, ids=None if ids is None else idx.tolist())
+            salt=salt, ids=None if idx is None else idx.tolist(), obs=obs)
     return signs
 
 
@@ -423,7 +633,9 @@ class MeshBackend:
 
 class VirtualBackend(VoteBackend):
     """Stacked ``(M, n)`` payloads on one device, the exchange collectives
-    replaced by their exact equivalents over the voter dim.
+    replaced by their exact equivalents over the voter dim, and streamed
+    populations through ``core.population`` in chunks of `chunk_size`
+    rows (peak rows O(chunk_size x n), bit-equal to the dense path).
 
     `device` (``"cuda"`` unless told otherwise, through
     :func:`repro_torch.resolve_device`) is where the payload is moved and
@@ -438,11 +650,27 @@ class VirtualBackend(VoteBackend):
     name = "virtual"
 
     def __init__(self, use_kernels: bool = False,
-                 device: repro_torch.DeviceLike = None):
+                 device: repro_torch.DeviceLike = None,
+                 chunk_size: int = 2048):
         self.use_kernels = use_kernels
         self.device = repro_torch.resolve_device(device)
+        self.chunk_size = int(chunk_size)
+        if self.chunk_size < 1:
+            raise ValueError(f"chunk_size must be >= 1, got {chunk_size}")
 
     def why_unsupported(self, request: VoteRequest) -> Optional[str]:
+        if request.form == "streamed":
+            if self.use_kernels:
+                return ("the fused-kernel path consumes one dense (M, n) "
+                        "buffer; the streamed population engine exists "
+                        "to never materialize it (use "
+                        "VirtualBackend(use_kernels=False))")
+            if request.strategy == VoteStrategy.HIERARCHICAL:
+                return ("hierarchical's reduce-scatter wire pads to "
+                        "PACK*M words — O(M) layout the streamed engine "
+                        "exists to avoid; use psum_int8 or "
+                        "allgather_1bit")
+            return None
         if not self.use_kernels:
             return None
         if request.overlap:
@@ -469,6 +697,11 @@ class VirtualBackend(VoteBackend):
 
     def _execute(self, request: VoteRequest) -> VoteOutcome:
         req = request
+        if req.form == "streamed":
+            return self._execute_stream_request(req, req.payload,
+                                                self.chunk_size)
+        if req.voter_ids is not None or req.weights is not None:
+            return self._execute_annotated(req)
         x = torch.as_tensor(req.payload, device=self.device)
         if x.dtype == torch.float64:
             # what the reference's arrays hold with JAX's 64-bit mode off
@@ -483,7 +716,8 @@ class VirtualBackend(VoteBackend):
         else:
             f = req.failures
             eff = effective_stacked_signs(x, req.prev, f.n_stale, f.byz,
-                                          req.step, req.salt)
+                                          req.step, req.salt,
+                                          obs=req.attack_obs)
             if req.plan is not None:
                 resolved = None
                 votes, state = _virtual_plan_walk(
@@ -497,9 +731,70 @@ class VirtualBackend(VoteBackend):
         return VoteOutcome(votes=votes, server_state=state, wire=wire,
                            wire_signs=eff)
 
+    def _execute_annotated(self, req: VoteRequest) -> VoteOutcome:
+        """A stacked payload annotated with voter_ids / weights: the dense
+        twin of a streamed request, run through the same population engine
+        in one chunk of all M rows, as the reference runs it; its wire
+        signs come from one more pass."""
+        from repro_torch.core import population
+        m, n = req.payload.shape
+        payload = torch.as_tensor(req.payload, device=self.device)
+        ids_np = (np.asarray(req.voter_ids, dtype=np.int32)
+                  if req.voter_ids is not None
+                  else np.arange(m, dtype=np.int32))
+
+        def at(ids):    # logical ids -> row positions (ids_np sorted)
+            pos = np.searchsorted(ids_np, ids.numpy())
+            return None if np.array_equal(pos, np.arange(m)) else pos
+
+        def rows(ids):
+            pos = at(ids)
+            return payload if pos is None else payload[torch.from_numpy(pos)
+                                                       .to(self.device)]
+
+        prev = None
+        if req.prev is not None:
+            prev_t = torch.as_tensor(req.prev, device=self.device)
+
+            def prev(ids):
+                pos = at(ids)
+                return prev_t if pos is None else prev_t[
+                    torch.from_numpy(pos).to(self.device)]
+
+        stream = PopulationStream(
+            n_voters=m, n_coords=n, values=rows,
+            ids=ids_np if req.voter_ids is not None else None,
+            prev=prev,
+            weights=(None if req.weights is None
+                     else np.asarray(req.weights)))
+        out = self._execute_stream_request(req, stream, chunk_size=m)
+        f = req.failures
+        eff = population._chunk_signs(stream, ids_np, req.step, f.n_stale,
+                                      f.byz, req.salt, obs=req.attack_obs,
+                                      device=self.device)
+        return dataclasses.replace(out, wire_signs=eff)
+
+    def _execute_stream_request(self, req: VoteRequest, stream,
+                                chunk_size: int) -> VoteOutcome:
+        from repro_torch.core import population
+        m, n = stream.n_voters, stream.n_coords
+        resolved = ve.resolve_strategy(req.strategy, n, m, 1,
+                                       codec=req.codec)
+        f = req.failures
+        votes, state, margin, counts = population.streamed_vote(
+            stream, strategy=resolved, codec=req.codec,
+            n_stale=f.n_stale, byz=f.byz, step=req.step, salt=req.salt,
+            server_state=req.server_state, chunk_size=chunk_size,
+            attack_obs=req.attack_obs, device=self.device)
+        wire = dataclasses.replace(
+            _static_wire(req.plan, req.codec, resolved, n, 1, m),
+            margin=margin)
+        return VoteOutcome(votes=votes, server_state=state, wire=wire,
+                           counts=counts)
+
 
 __all__ = [
-    "FailureSpec", "MeshBackend", "VirtualBackend", "VoteBackend",
-    "VoteOutcome", "VoteRequest", "WireReport", "count_bytes",
-    "count_dtype", "effective_stacked_signs", "pad_last",
+    "FailureSpec", "MeshBackend", "PopulationStream", "VirtualBackend",
+    "VoteBackend", "VoteOutcome", "VoteRequest", "WireReport",
+    "count_bytes", "count_dtype", "effective_stacked_signs", "pad_last",
 ]

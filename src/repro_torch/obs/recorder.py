@@ -4,7 +4,8 @@ reads back with either package's ``read_trace``.
 
 * **Counters** — one process-global :class:`CounterRegistry` of exact
   integers: the vote API's ``vote.requests`` / ``vote.wire.bytes`` /
-  ``vote.wire.messages`` and the plan walk's ``plan.buckets``. Always on:
+  ``vote.wire.messages``, the plan walk's ``plan.buckets`` and the
+  streamed engine's ``population.*`` (``core.population``). Always on:
   incrementing an int in a dict is cheaper than any gate. (The port's
   kernel launches are counted by ``kernels.ops.launch_counts()``.)
 * **Spans** — host-side ``perf_counter`` timing with nesting, emitted by

@@ -15,27 +15,47 @@ coordinates where the vote differs from the honest-majority oracle, the
 loss); the run's digest is sha256 over every step's raw vote bytes and
 the final float32 iterate, as the reference's.
 
-**Draws.** The runner takes its start point and per-step noise from a
-``draws`` object (``init_x(spec) -> (dim,)``, ``noise(spec, step, m) ->
-(m, dim)``, numpy arrays or tensors). The default, :class:`PrngDraws`,
-keys them as the reference does (``PRNGKey(seed)`` folded with the salt,
-then 0 for the start point and 1 and the step for the noise) with JAX's
-exact threefry uniforms (``core.prng``), but takes the normal as
-``sqrt(2) * torch.erfinv(u)``, which is not XLA's float32 ``erfinv``: the
-default draws are not JAX's bits, so a run's digest equals the
+**Draws.** The runner takes its start point, per-step noise and
+population rows from a ``draws`` object (``init_x(spec) -> (dim,)``,
+``noise(spec, step, m) -> (m, dim)``, ``population_rows(spec, ids, x,
+step) -> (k, dim)``, numpy arrays or tensors). The default,
+:class:`PrngDraws`, keys them as the reference does (``PRNGKey(seed)``
+folded with the salt, then 0 for the start point, 1 and the step for the
+noise, and 1, the step and the client's logical id for a population row)
+with JAX's exact threefry uniforms (``core.prng``), but takes the normal
+as ``sqrt(2) * torch.erfinv(u)``, which is not XLA's float32 ``erfinv``:
+the default draws are not JAX's bits, so a run's digest equals the
 reference's only when the reference's draws are handed in (the parity
-tests pass ``repro.sim.runner._init_x`` / ``_noise``). The default draws
-are made on the host, so a drill gives the same digest on the CPU and on
-a card.
+tests pass ``repro.sim.runner._init_x`` / ``_noise`` / ``_pop_rows``).
+The default draws are made on the host, so a drill gives the same digest
+on the CPU and on a card.
+
+**Populations** (``spec.population.n_clients > 0``; DESIGN.md §12). Each
+round samples ``sample_fraction`` of the logical population by a
+splitmix64 hash of (seed, salt, step) in numpy (:func:`_sample_ids`, bit
+for bit the reference's), draws dataset sizes per logical id
+(:func:`_client_sizes`) for ``weighting="dataset"``, and votes the
+sampled clients' rows as a ``PopulationStream`` through
+``core.population`` in chunks of ``chunk_size``. Churn refits the
+weighted vote's per-client EMA and the attacker's reputation mirror by the
+checkpoint rule. With an adversary the failure-free oracle vote of the
+same stream runs first; a reputation attacker's mirror is replayed chunk
+by chunk from the round's wire signs.
+
+**Adaptive adversaries.** The attacker's memory
+(``attacks.AttackState``) rides beside the server state: the phase in
+force sees its channel's observation, and the state is updated once a
+round from the vote, its tally and the wire signs, and refit on elastic
+rescale.
 
 **Rounding.** The reference's ``prepare`` is jitted, and XLA on the CPU
 contracts ``beta * v + (1 - beta) * g`` into ``fma(beta, v, (1 - beta) *
 g)`` and ``x + sigma * noise`` into ``fma(sigma, noise, x)``; the port
 rounds both as that single FMA (:func:`fma_f32`, exact, on any device).
 
-Not ported: population drills and adaptive adversaries (ROADMAP.md Queue 1
-item 10) and ``backend="mesh"`` (item 5) raise; ``summary()``'s
-``est_exchange_time_s`` is None (the α–β link model, item 15).
+Not ported: ``backend="mesh"`` raises (ROADMAP.md Queue 1 item 5);
+``summary()``'s ``est_exchange_time_s`` is None (the α–β link model, item
+15).
 """
 from __future__ import annotations
 
@@ -51,7 +71,7 @@ import torch
 from repro_torch import DeviceLike, resolve_device
 from repro_torch.checkpoint.checkpoint import (refit_leading_axis,
                                                refit_tree_leading_axis)
-from repro_torch.core import attacks, prng
+from repro_torch.core import attacks, population, prng
 from repro_torch.core import codecs as codecs_mod
 from repro_torch.core import sign_compress as sc
 from repro_torch.core import vote_api as va
@@ -149,10 +169,12 @@ class PrngDraws:
     host."""
 
     @staticmethod
-    def _normal(key: prng.Key, shape) -> torch.Tensor:
-        f = prng.uniform(key, shape)
+    def _normal_of(f: torch.Tensor) -> torch.Tensor:
         u = torch.clamp(f * (1.0 - _LO) + _LO, min=_LO)
         return math.sqrt(2.0) * torch.erfinv(u)
+
+    def _normal(self, key: prng.Key, shape) -> torch.Tensor:
+        return self._normal_of(prng.uniform(key, shape))
 
     def init_x(self, spec: ScenarioSpec) -> torch.Tensor:
         return self._normal(prng.fold_in(_root_key(spec), 0), (spec.dim,))
@@ -160,6 +182,22 @@ class PrngDraws:
     def noise(self, spec: ScenarioSpec, step: int, m: int) -> torch.Tensor:
         key = prng.fold_in(prng.fold_in(_root_key(spec), 1), step)
         return self._normal(key, (m, spec.dim))
+
+    def population_rows(self, spec: ScenarioSpec, ids: torch.Tensor,
+                        x: torch.Tensor, step: int) -> torch.Tensor:
+        """Client rows ``x + noise_scale * normal`` of the logical `ids`,
+        each row under ``fold_in(fold_in(fold_in(root, 1), step), id)``,
+        whatever chunk it lands in; the sum rounded once (:func:`fma_f32`,
+        exact on any device)."""
+        key = prng.fold_in(prng.fold_in(_root_key(spec), 1), step)
+        cid = torch.as_tensor(ids, dtype=torch.int64).cpu() & prng.MASK32
+        k0, k1 = prng.threefry2x32(key, torch.zeros_like(cid), cid)
+        j = torch.arange(spec.dim, dtype=torch.int64)
+        out0, out1 = prng.threefry2x32((k0[:, None], k1[:, None]),
+                                       (j >> 32)[None], j[None])
+        f = prng.bits_to_uniform(out0 ^ out1)
+        return fma_f32(spec.noise_scale, self._normal_of(f),
+                       x.detach().cpu().to(torch.float32)[None, :])
 
 
 def fma_f32(a: float, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -182,6 +220,53 @@ def fma_f32(a: float, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 
 def _recip(n: int) -> np.float32:
     return np.float32(1.0) / np.float32(n)
+
+
+# population-mode keys (DESIGN.md §12): client sampling (tag 2) and dataset
+# sizes (tag 3) are a stateless splitmix64 hash in numpy, keyed by logical
+# id and step, never by chunk or device (the reference's, bit for bit)
+
+_SM64 = (np.uint64(0x9E3779B97F4A7C15), np.uint64(0xBF58476D1CE4E5B9),
+         np.uint64(0x94D049BB133111EB))
+
+
+def _splitmix64(x: np.ndarray) -> np.ndarray:
+    """The splitmix64 finalizer over a uint64 array (wrap-around)."""
+    x = (x + _SM64[0]).astype(np.uint64)
+    x = ((x ^ (x >> np.uint64(30))) * _SM64[1]).astype(np.uint64)
+    x = ((x ^ (x >> np.uint64(27))) * _SM64[2]).astype(np.uint64)
+    return x ^ (x >> np.uint64(31))
+
+
+def _hash_stream(spec: ScenarioSpec, tag: int, step: int = 0) -> np.ndarray:
+    """A (1,) uint64 stream constant chaining (seed, salt, tag, step)."""
+    h = np.zeros(1, dtype=np.uint64)
+    for v in (spec.seed, spec.salt, tag, step):
+        h = _splitmix64(h ^ np.uint64(v))
+    return h
+
+
+def _sample_ids(spec: ScenarioSpec, step: int, pop: int, k: int
+                ) -> np.ndarray:
+    """The sorted logical ids of the k clients sampled into `step`'s round:
+    the k smallest (salt, step)-keyed hash scores; all of them at full
+    participation."""
+    if k >= pop:
+        return np.arange(pop, dtype=np.int32)
+    score = _splitmix64(np.arange(pop, dtype=np.uint64)
+                        ^ _hash_stream(spec, 2, step))
+    sel = np.argpartition(score, k - 1)[:k]
+    return np.sort(sel).astype(np.int32)
+
+
+def _client_sizes(spec: ScenarioSpec, ids: np.ndarray) -> np.ndarray:
+    """Dataset sizes of clients `ids`, uniform on [min_data, max_data],
+    hashed once per logical id (stable across rounds and churn)."""
+    pspec = spec.population
+    r = _splitmix64(np.asarray(ids, dtype=np.uint64)
+                    ^ _hash_stream(spec, 3))
+    span = np.uint64(pspec.max_data - pspec.min_data + 1)
+    return (pspec.min_data + (r % span)).astype(np.int32)
 
 
 def _scaled_sum(counts: torch.Tensor, *divisors: int) -> float:
@@ -219,19 +304,14 @@ class ScenarioRunner:
             raise ValueError(f"backend {backend!r} not in {BACKENDS}")
         if backend == "mesh":
             raise _not_ported("backend='mesh' (the multi-process wire)", "5")
-        if spec.population.enabled:
-            raise _not_ported(f"population mode ({spec.name!r})", "10")
-        adaptive = [m for m in attacks.modes_used(spec.adversary.schedule,
-                                                  spec.adversary.mode)
-                    if m in attacks.ATTACK_MODES]
-        if adaptive:
-            raise _not_ported(f"adaptive adversary mode(s) {adaptive} "
-                              f"({spec.name!r})", "10")
         self.spec = spec
         self.backend = backend
         self.device = resolve_device(device)
         self.draws = draws if draws is not None else PrngDraws()
-        self._exec = va.VirtualBackend(device=self.device)
+        # population mode streams in the spec's voter chunks (the default
+        # is core.population.DEFAULT_CHUNK, so dense drills are unaffected)
+        self._exec = va.VirtualBackend(device=self.device,
+                                       chunk_size=spec.population.chunk_size)
 
     def _tensor(self, a) -> torch.Tensor:
         if not isinstance(a, torch.Tensor):
@@ -239,12 +319,12 @@ class ScenarioRunner:
         return a.to(device=self.device, dtype=torch.float32)
 
     def _record_step(self, rec, trace: StepTrace, wire,
-                     phase_s: Dict[str, float]) -> None:
+                     phase_s: Dict[str, float], n_chunks: int = 0) -> None:
         """One step record: the StepTrace fields joined with the wire report
         and the per-phase span times (the reference's fields)."""
         d = self.spec.dim
         payload = float(wire.payload_bytes)
-        rec.step(
+        fields = dict(
             scenario=self.spec.name, backend=self.backend,
             step=trace.step, n_voters=trace.n_workers,
             n_population=trace.n_population,
@@ -254,12 +334,17 @@ class ScenarioRunner:
             n_coords=d, compression_vs_f32=payload / (4.0 * d),
             margin=trace.margin, flip_fraction=trace.flip_fraction,
             loss=trace.loss, phase_s=phase_s)
+        if n_chunks:
+            fields["n_chunks"] = n_chunks
+        rec.step(**fields)
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
     def run(self) -> ScenarioTrace:
+        if self.spec.population.enabled:
+            return self._run_population()
         spec, dev = self.spec, self.device
         codec = codecs_mod.get_codec(spec.codec)
         beta = spec.momentum
@@ -273,6 +358,9 @@ class ScenarioRunner:
         prev = torch.zeros((m, spec.dim), dtype=torch.int8, device=dev)
         pending = torch.zeros(spec.dim, dtype=torch.int8, device=dev)
         att = spec.adversary
+        # the attacker's memory, beside the server state
+        astate = (attacks.AttackState.init(spec.dim, m, dev) if att.adaptive
+                  else None)
         plans: Dict[int, Any] = {}
 
         def plan_for(m_: int):
@@ -304,8 +392,11 @@ class ScenarioRunner:
                     cstate, {k: (m_now,) + tuple(a.shape[1:])
                              for k, a in cstate.items()})
                 m = m_now
+                if astate is not None:
+                    astate = astate.refit(m)
             byz_cfg = att.byz_config_at(step, m, spec.seed)
             byz = byz_cfg if byz_cfg.mode != "none" else None
+            aobs = _observation_of(astate, att, byz_cfg)
             n_stale = count_for_fraction(spec.straggler_fraction, m)
             plan = plan_for(m)
             noise = self._tensor(self.draws.noise(spec, step, m))
@@ -330,11 +421,16 @@ class ScenarioRunner:
                     codec=spec.codec, plan=plan,
                     failures=va.FailureSpec(n_stale=n_stale, byz=byz),
                     prev=prev, step=step, salt=spec.salt,
-                    server_state=cstate, overlap=spec.plan.overlap))
+                    server_state=cstate, overlap=spec.plan.overlap,
+                    attack_obs=aobs))
                 if rec.enabled:
                     self._sync()
             vote, cstate = out.votes, out.server_state
             counts = out.wire_signs.to(torch.int32).sum(dim=0)
+            if astate is not None:
+                # one observation a round, from published outputs only
+                astate = attacks.update_attack_state(astate, vote, counts,
+                                                     out.wire_signs)
             margin = _scaled_sum(counts.abs(), spec.dim, m)
             if spec.delayed_vote:
                 applied, pending = pending, vote
@@ -367,6 +463,120 @@ class ScenarioRunner:
         return ScenarioTrace(spec=spec, backend=self.backend,
                              steps=tuple(steps), digest=digest.hexdigest(),
                              final_server_state=cstate)
+
+    def _run_population(self) -> ScenarioTrace:
+        """The federated drill: each round samples clients from the logical
+        population, streams their rows through ``core.population`` in
+        chunks and applies the (optionally dataset-weighted) majority."""
+        spec, dev = self.spec, self.device
+        pspec = spec.population
+        codec = codecs_mod.get_codec(spec.codec)
+        lr = float(np.float32(spec.learning_rate))
+        x = self._tensor(self.draws.init_x(spec))
+        pop = pspec.clients_at(0)
+        # per-client server state and attacker memory over the LOGICAL
+        # population (sampled into a round or not)
+        cstate = (codec.init_server_state(pop, dev) if codec.server_state
+                  else {})
+        att = spec.adversary
+        astate = (attacks.AttackState.init(spec.dim, pop, dev)
+                  if att.adaptive else None)
+        pending = torch.zeros(spec.dim, dtype=torch.int8, device=dev)
+        digest = hashlib.sha256()
+        steps: List[StepTrace] = []
+        rec = obs.get_recorder()
+        for step in range(spec.n_steps):
+            pop_now = pspec.clients_at(step)
+            if pop_now != pop:
+                # churn: leavers truncate off the top of the id range,
+                # joiners zero-pad in at the uninformed prior
+                if cstate:
+                    cstate = refit_tree_leading_axis(
+                        cstate, {k: (pop_now,) + tuple(a.shape[1:])
+                                 for k, a in cstate.items()})
+                pop = pop_now
+                if astate is not None:
+                    astate = astate.refit(pop)
+            # the coalition is counted over the LOGICAL population (ids
+            # below num_adversaries act); a sampled round's share varies
+            byz_cfg = att.byz_config_at(step, pop, spec.seed)
+            byz = byz_cfg if byz_cfg.mode != "none" else None
+            aobs = _observation_of(astate, att, byz_cfg)
+            k = max(1, count_for_fraction(pspec.sample_fraction, pop))
+            ids = _sample_ids(spec, step, pop, k)
+
+            def values(cids, _x=x, _step=step):
+                return self.draws.population_rows(spec, cids, _x, _step)
+
+            stream = va.PopulationStream(
+                n_voters=k, n_coords=spec.dim, values=values, ids=ids,
+                weights=(_client_sizes(spec, ids)
+                         if pspec.weighting == "dataset" else None))
+            if byz is not None:
+                # the failure-free oracle of the same stream, state only
+                # read; first, so population.last.* describe the vote
+                oracle = population.streamed_vote(
+                    stream, strategy=spec.strategy, codec=spec.codec,
+                    step=step, salt=spec.salt, server_state=cstate,
+                    chunk_size=pspec.chunk_size, device=dev)[0]
+            chunks_before = obs.COUNTERS.get("population.chunks")
+            with rec.span("scenario.vote", step=step,
+                          backend=self.backend) as sp_vote:
+                out = self._exec.execute(va.VoteRequest(
+                    payload=stream, form="streamed", strategy=spec.strategy,
+                    codec=spec.codec, failures=va.FailureSpec(byz=byz),
+                    step=step, salt=spec.salt, server_state=cstate,
+                    attack_obs=aobs))
+                if rec.enabled:
+                    self._sync()
+            vote, cstate = out.votes, out.server_state
+            flip = (_scaled_sum(vote != oracle, spec.dim)
+                    if byz is not None else 0.0)
+            if spec.delayed_vote:
+                applied, pending = pending, vote
+            else:
+                applied = vote
+            x = x - lr * applied.to(torch.float32)
+            loss = float(0.5 * (x * x).mean())
+            if astate is not None:
+                mis, mis_ids = np.zeros(0, np.float32), np.zeros(0, np.int32)
+                if att.observe == "reputation":
+                    # replay the codec's flip-EMA observation over the
+                    # round's own wire signs, chunk by chunk
+                    mis_ids = ids
+                    mis = torch.cat([population._chunk_mismatch(
+                        population._chunk_signs(
+                            stream, ids_np, step, 0, byz, spec.salt,
+                            obs=aobs, device=dev), vote)
+                        for _, ids_np in population._chunks(
+                            stream, pspec.chunk_size)]).cpu().numpy()
+                    mis = mis.astype(np.float32) / spec.dim
+                astate = attacks.update_attack_state_population(
+                    astate, vote, out.counts, mis_ids, mis)
+            digest.update(vote.cpu().numpy().tobytes())
+            trace = StepTrace(
+                step=step, n_workers=k,
+                n_adversaries=byz_cfg.num_adversaries, n_stale=0,
+                margin=float(out.wire.margin), flip_fraction=flip,
+                loss=loss, n_population=pop)
+            steps.append(trace)
+            if rec.enabled:
+                self._record_step(
+                    rec, trace, out.wire, phase_s={"vote": sp_vote.dur_s},
+                    n_chunks=obs.COUNTERS.get("population.chunks")
+                    - chunks_before)
+        digest.update(x.cpu().numpy().astype(np.float32).tobytes())
+        return ScenarioTrace(spec=spec, backend=self.backend,
+                             steps=tuple(steps), digest=digest.hexdigest(),
+                             final_server_state=cstate)
+
+
+def _observation_of(astate, att, byz_cfg):
+    """The observation the phase in force may see: None unless its mode is
+    adaptive."""
+    if astate is None or byz_cfg.mode not in attacks.ATTACK_MODES:
+        return None
+    return astate.observation(att.observe)
 
 
 def run_scenarios(specs, backend: str = "virtual", device: DeviceLike = None,

@@ -16,10 +16,9 @@ blind / colluding adversaries) is keyed by ``(seed + salt(name), step,
 replica index)`` — never by device placement — so a scenario replays
 bit-identically on any device (:func:`scenario_salt`).
 
-The port's runner (``sim.runner``) runs the dense drills; a spec with a
-population (``PopulationSpec.n_clients > 0``) or an adaptive adversary
-validates here as in the reference and raises there (ROADMAP.md Queue 1
-item 10).
+The port's runner (``sim.runner``) runs every spec the reference's virtual
+backend runs: the dense drills, populations (``PopulationSpec.n_clients >
+0``) and adaptive adversaries, so :func:`preset_scenarios` runs all 9.
 """
 from __future__ import annotations
 

@@ -35,10 +35,14 @@ One step:
    the global momentum), updating the parameters in place, and the
    codec's feedback; or the dense update of the mean gradient.
 
-``tcfg.byzantine`` (any mode but the adaptive ones, which raise: ROADMAP.md
-Queue 1 item 10) makes the voters below its ``num_adversaries`` adversarial
-in the sign family's vote (``core.signum``), keyed by the step and salt 0;
-at M = 1 it does nothing, as in the reference without a mesh.
+``tcfg.byzantine`` makes the voters below its ``num_adversaries``
+adversarial in the sign family's vote (``core.signum``), keyed by the step
+and salt 0; at M = 1 it does nothing, as in the reference without a mesh.
+An adaptive mode (``adaptive_flip``, ``low_margin``, ``reputation``) has no
+observation channel on the trainer's vote: as the reference's tree-form
+``VoteRequest`` does, a sign-family step then raises ``ValueError`` when it
+is called, at any M; the dense baselines ignore the mode and train.
+``tcfg.loss_dtype`` is accepted and ignored, as in the reference.
 
 With ``OptimizerConfig.bucket_bytes > 0`` a sign optimizer's step builds a
 ``core.vote_plan.VotePlan`` over every leaf, as the reference's
@@ -102,12 +106,6 @@ def _validate(tcfg: TrainConfig, n_voters: int) -> None:
         todo("fsdp=True (the fused ZeRO backward's vote)")
     if tcfg.diagnostics:
         todo("vote diagnostics")
-    if tcfg.loss_dtype != "float32":
-        todo(f"loss_dtype={tcfg.loss_dtype!r}")
-    if tcfg.byzantine.mode in byzantine.ATTACK_MODES:
-        raise NotImplementedError(
-            f"adaptive adversary mode {tcfg.byzantine.mode!r} is not ported "
-            "yet (ROADMAP.md Queue 1 item 10)")
     if n_voters < 1 or tcfg.global_batch % n_voters:
         raise ValueError(f"global_batch {tcfg.global_batch} must split "
                          f"evenly over n_voters={n_voters}")
@@ -189,6 +187,10 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, n_voters: int = 1,
     # and applies no adversary, and nor does the port
     byz = (tcfg.byzantine if tcfg.byzantine.mode != "none" and n_voters > 1
            else None)
+    adaptive = (opt_cfg.kind in signum.SIGN_KINDS
+                and tcfg.byzantine.mode in byzantine.ATTACK_MODES)
+    if adaptive:
+        byz = None
     opt = signum.build_optimizer(opt_cfg, n_voters, plan, byz)
     resolved = opt.strategy
     if plan is not None:
@@ -198,6 +200,13 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, n_voters: int = 1,
 
     def step_fn(params: Dict[str, torch.Tensor], opt_state: Dict, batch,
                 step) -> Tuple[Dict[str, torch.Tensor], Dict, Dict]:
+        if adaptive:
+            # the reference's tree-form VoteRequest refuses the mode
+            raise ValueError(
+                f"adaptive adversary mode {tcfg.byzantine.mode!r} observes "
+                "the previous round's flat broadcast vote; the 'tree' form "
+                "has no such observation channel (use the stacked or "
+                "streamed form)")
         tokens = torch.as_tensor(batch["tokens"], device=dev)
         if tokens.shape[0] != tcfg.global_batch:
             raise ValueError(f"batch has {tokens.shape[0]} rows, expected "

@@ -178,12 +178,18 @@ def test_config_factories_and_count_for_fraction():
 
 
 def test_mesh_and_adaptive_paths_raise():
+    """The mesh path raises (item 5); an adaptive mode without its
+    observation raises the reference's ValueError."""
     with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
         tbyz.apply_adversary(np.zeros(4, np.int8), TByz("sign_flip", 1),
                              ("data",))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+    with pytest.raises(ValueError) as want:
+        jbyz.apply_adversary_stacked(jnp.zeros((2, 4), jnp.int8),
+                                     JByz("low_margin", 1))
+    with pytest.raises(ValueError) as got:
         tbyz.apply_adversary_stacked(torch.zeros(2, 4, dtype=torch.int8),
                                      TByz("low_margin", 1))
+    assert str(got.value) == str(want.value)
     for shim in (lambda: tft.straggler_mask_for(("data",), 1),
                  lambda: tft.vote_with_failures(None, None),
                  lambda: tft.codec_vote_with_failures(None, None),

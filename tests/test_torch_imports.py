@@ -43,6 +43,8 @@ def test_port_has_the_slice_modules():
                 "core/vote_engine.py", "core/vote_api.py",
                 "core/vote_plan.py", "core/prng.py", "core/byzantine.py",
                 "core/attacks/__init__.py", "core/attacks/schedule.py",
+                "core/attacks/engine.py", "core/attacks/breaking_point.py",
+                "core/population.py", "core/theory.py",
                 "distributed/fault_tolerance.py",
                 "checkpoint/checkpoint.py", "obs/__init__.py",
                 "obs/recorder.py", "sim/__init__.py", "sim/scenario.py",

@@ -1121,22 +1121,52 @@ def test_delayed_vote_with_mode_b_raises_as_the_reference():
     ({"fsdp": True}, "Queue 4 item 4"),
     ({"remat": "dots"}, "Queue 4 item 4"),
     ({"diagnostics": True}, "Queue 4 item 4"),
-    ({"loss_dtype": "bfloat16"}, "Queue 4 item 4"),
+    # the reference's tree-form vote refuses an adaptive mode when the step
+    # runs: ValueError, at any M
     ({"byzantine": tbase.ByzantineConfig(mode="adaptive_flip",
                                          num_adversaries=1)},
-     "Queue 1 item 10"),
+     "'tree' form has no such observation channel"),
     ({"optimizer": {"vote_strategy": tbase.VoteStrategy.AUTO}},
      "Queue 1 item 15"),
-], ids=["fsdp", "remat_dots", "diagnostics", "loss_dtype", "byzantine",
-        "auto_m4"])
+], ids=["fsdp", "remat_dots", "diagnostics", "byzantine", "auto_m4"])
 def test_mode_b_preset_still_refuses(change, item):
     """What the trainer still refuses around the qwen1.5-32b Mode B preset
     at M = 4, each naming its ROADMAP.md item (the preset itself carries
-    fsdp=True, which raises)."""
+    fsdp=True, which raises), or, for an adaptive adversary, the
+    reference's ValueError from the step."""
     _, tcfg = _qwen_preset_cfgs()
     opt = change.pop("optimizer", None)
     if opt:
         change["optimizer"] = dataclasses.replace(tcfg.optimizer, **opt)
     tcfg = dataclasses.replace(tcfg, **change)
+    cfg = _qwen_cfgs()[1]
+    if "byzantine" in change:
+        art = tTS.make_train_step(cfg, tcfg, M4, device="cpu")
+        params, state = tTS.materialize_state(
+            cfg, tcfg, art, torch.Generator().manual_seed(0))
+        with pytest.raises(ValueError, match=item):
+            art.step_fn(params, state, {"tokens": torch.zeros(
+                (GB, SEQ), dtype=torch.int64)}, 0)
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
-        tTS.make_train_step(_qwen_cfgs()[1], tcfg, M4, device="cpu")
+        tTS.make_train_step(cfg, tcfg, M4, device="cpu")
+
+
+def test_mode_b_preset_loss_dtype_is_ignored(ref_qwen):
+    """``loss_dtype="bfloat16"`` (declared by the reference, read nowhere)
+    on the qwen1.5-32b Mode B preset at M = 1: the port's step is bit-equal
+    to its "float32" step, and it equals the reference's step (whose
+    "bfloat16" run is bit-equal to its "float32" one,
+    test_torch_train_step.py::test_loss_dtype_is_ignored_as_the_reference)
+    as test_m1_qwen_mode_b_preset_matches_reference holds it."""
+    jt, tt = _qwen_preset_cfgs()
+    jt16 = dataclasses.replace(jt, loss_dtype="bfloat16")
+    tt16 = dataclasses.replace(tt, loss_dtype="bfloat16")
+    states, _, batches = ref_qwen
+    got = [_port_trainer_step(_qwen_cfgs()[1], t, 1, states[2], batches[2],
+                              2) for t in (tt16, tt)]
+    assert got[0]["loss"] == got[1]["loss"]
+    for part in ("params", "momentum"):
+        for k, v in got[0][part].items():
+            assert np.array_equal(v, got[1][part][k], equal_nan=True)
+    _m1_case(ref_qwen, _qwen_cfgs(), jt16, tt16, 2)

@@ -656,8 +656,9 @@ _TRAIN_FIELDS = ("fsdp", "byzantine", "remat", "diagnostics", "loss_dtype")
     {"momentum_mode": tbase.MomentumMode.GLOBAL, "fsdp": True},
     # the priced AUTO ladder of bucket sizes (Queue 1 item 15)
     {"bucket_bytes": -1},
-    # beta = 0 runs with an adversary; an adaptive one does not (Queue 1
-    # item 10)
+    # beta = 0 runs with an adversary; an adaptive one raises the
+    # reference's ValueError when the step is called (its tree-form vote
+    # has no observation channel), even at M = 1
     {"momentum": 0.0, "byzantine": tbase.ByzantineConfig(
         mode="low_margin", num_adversaries=1)},
     {"bucket_bytes": -1, "overlap": True},
@@ -670,6 +671,15 @@ def test_unported_options_raise(opt):
     opt = {k: v for k, v in opt.items() if k not in _TRAIN_FIELDS}
     tcfg = dataclasses.replace(
         tcfg, optimizer=dataclasses.replace(tcfg.optimizer, **opt), **train)
+    if "byzantine" in train:
+        art = tTS.make_train_step(cfg, tcfg, 1, device="cpu")
+        params, state = tTS.materialize_state(
+            cfg, tcfg, art, torch.Generator().manual_seed(0))
+        with pytest.raises(ValueError, match="'tree' form has no such "
+                                             "observation channel"):
+            art.step_fn(params, state, {"tokens": torch.zeros(
+                (GB, SEQ), dtype=torch.int64)}, 0)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tTS.make_train_step(cfg, tcfg, 1, device="cpu")
 
@@ -991,9 +1001,7 @@ def test_m1_preset_step_matches_reference_trainer(step):
     ({"remat": "dots"}, "Queue 4 item 4"),
     ({"fsdp": True}, "Queue 4 item 4"),
     ({"diagnostics": True}, "Queue 4 item 4"),
-    ({"loss_dtype": "bfloat16"}, "Queue 4 item 4"),
-], ids=["hierarchical", "auto_m4", "remat_dots", "fsdp", "diagnostics",
-        "loss_dtype"])
+], ids=["hierarchical", "auto_m4", "remat_dots", "fsdp", "diagnostics"])
 def test_preset_trainer_still_refuses(change, item):
     """What the trainer still refuses on top of the preset, at M = 4, each
     naming its ROADMAP.md item."""
@@ -1004,3 +1012,24 @@ def test_preset_trainer_still_refuses(change, item):
     tcfg = dataclasses.replace(tcfg, **change)
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
         tTS.make_train_step(_tcfgs()[0], tcfg, M4, device="cpu")
+
+
+def test_loss_dtype_is_ignored_as_the_reference():
+    """``loss_dtype`` is declared by the reference's TrainConfig and read
+    nowhere: on the preset at M = 1 the port's "bfloat16" step is bit-equal
+    to its "float32" step, and it equals the reference's "bfloat16" step as
+    test_m1_preset_step_matches_reference_trainer holds the "float32"
+    one."""
+    jt, tt = _preset_cfgs()
+    jt16 = dataclasses.replace(jt, loss_dtype="bfloat16")
+    tt16 = dataclasses.replace(tt, loss_dtype="bfloat16")
+    states, losses, batches = _reference_trainer_run("sign1bit", 1,
+                                                     tcfg=jt16)
+    port = _port_step(1, states[0], batches[0], 0, tcfg=tt16)
+    port32 = _port_step(1, states[0], batches[0], 0, tcfg=tt)
+    assert port["loss"] == port32["loss"]
+    for part in ("params", "momentum"):
+        for k, v in port[part].items():
+            assert np.array_equal(v, port32[part][k], equal_nan=True)
+    _check_teacher_forced(states[0], {"loss": losses[0], **states[1]}, port,
+                          count_wire=True, bf16_rounded=True)

@@ -5,7 +5,9 @@ both sides. Votes, wire signs and every ``WireReport`` field must be
 equal; there is no tolerance, since every compared output is an integer
 or a bit pattern, and ``weighted_vote``'s float32 flip-rate state must be
 equal too. Requests outside the port's slice must raise
-``NotImplementedError`` naming their ROADMAP.md item."""
+``NotImplementedError`` naming their ROADMAP.md item; the streamed form,
+the voter annotations and the adaptive modes have their own tests in
+``test_torch_population.py`` and ``test_torch_attacks.py``."""
 import dataclasses
 
 import jax.numpy as jnp
@@ -408,22 +410,6 @@ def _not_ported_cases():
                                  default_codec="ternary2bit",
                                  strategy=TStrategy.ALLGATHER_1BIT),
             x, prev_signs=x, n_stale=1)),
-        "weighted_vote": ("10", lambda: tva.VoteRequest(
-            **stacked, codec="weighted_vote",
-            server_state={"flip_ema": np.zeros(5, np.float32)},
-            failures=tva.FailureSpec(byz=TByz(mode="reputation",
-                                              num_adversaries=1)),
-            attack_obs={})),
-        "streamed_form": ("10", lambda: tva.VoteRequest(payload=x,
-                                                        form="streamed")),
-        "voter_ids": ("10", lambda: tva.VoteRequest(
-            **stacked, voter_ids=np.arange(5))),
-        "weights": ("10", lambda: tva.VoteRequest(
-            **stacked, weights=np.ones(5, np.int64))),
-        "adaptive_adversary": ("10", lambda: tva.VoteRequest(
-            **stacked, failures=tva.FailureSpec(
-                byz=TByz(mode="low_margin", num_adversaries=1)),
-            attack_obs={})),
         "auto_over_voters": ("15", lambda: tva.VirtualBackend(
             device="cpu").execute(tva.VoteRequest(**stacked))),
     }
@@ -435,6 +421,54 @@ def test_out_of_slice_raises_not_implemented(case):
     with pytest.raises(NotImplementedError,
                        match=f"ROADMAP.md Queue 1 item {item}\\b"):
         build()
+
+
+def _item10_cases(va, S, Byz):
+    """Requests of the streamed form, the voter annotations and the
+    adaptive adversaries, built the same way in either package."""
+    x = np.random.default_rng(3).integers(-2, 3, size=(5, 70)).astype(
+        np.int8)
+    stacked = dict(payload=x, form="stacked", strategy=S.ALLGATHER_1BIT)
+    return {
+        # an adaptive attacker whose observation lacks its channel's keys
+        "weighted_vote": lambda: va.VoteRequest(
+            **stacked, codec="weighted_vote",
+            server_state={"flip_ema": np.zeros(5, np.float32)},
+            failures=va.FailureSpec(byz=Byz(mode="reputation",
+                                            num_adversaries=1)),
+            attack_obs={}),
+        # a streamed request whose payload is no PopulationStream
+        "streamed_form": lambda: va.VoteRequest(payload=x, form="streamed"),
+        "voter_ids": lambda: va.VoteRequest(
+            **stacked, voter_ids=np.array([0, 2, 3, 7, 9])),
+        "weights": lambda: va.VoteRequest(
+            **stacked, weights=np.array([1, 4, 2, 7, 3])),
+        "adaptive_adversary": lambda: va.VoteRequest(
+            **stacked, failures=va.FailureSpec(
+                byz=Byz(mode="low_margin", num_adversaries=1)),
+            attack_obs={}),
+    }
+
+
+@pytest.mark.parametrize("case", sorted(_item10_cases(tva, TStrategy,
+                                                      TByz)))
+def test_item10_requests_do_what_the_reference_does(case):
+    """Each request raises the reference's ValueError (same message) or
+    executes to the reference's votes, tally, margin and wire signs."""
+    try:
+        jreq = _item10_cases(jva, JStrategy, JByz)[case]()
+    except ValueError as want:
+        with pytest.raises(ValueError) as got:
+            _item10_cases(tva, TStrategy, TByz)[case]()
+        assert str(got.value) == str(want)
+        return
+    treq = _item10_cases(tva, TStrategy, TByz)[case]()
+    j = jva.VirtualBackend().execute(jreq)
+    t = tva.VirtualBackend(device="cpu").execute(treq)
+    assert np.array_equal(np.asarray(j.votes), t.votes.numpy())
+    assert np.array_equal(np.asarray(j.counts), t.counts.numpy())
+    assert np.array_equal(np.asarray(j.wire_signs), t.wire_signs.numpy())
+    assert j.wire.margin == t.wire.margin
 
 
 def test_unknown_codec_names_every_codec():
