@@ -202,8 +202,14 @@ Phases, each of which fails the run (non-zero exit) on any disagreement:
    round's tally), each at chunks of 1,024 and 512 rows: votes, tallies and
    state bit-equal, the peak above the resident tensors at most the
    chunk's float32 rows plus three int8 (k, n) temporaries plus 2 GiB, its
-   CUDA-event ms and ``population.*`` counters printed, two of them once
-   more under torch.profiler; then, on the first 1,024 sampled voters, the
+   CUDA-event ms (beside the row maker's own ms, timed alone) and
+   ``population.*`` counters printed, two of them once more under
+   torch.profiler. Before each configuration's rounds, one full chunk of
+   it (the first 1,024 sampled voters) runs with every launch of the
+   adversary, bitpack and bitunpack wrappers held against its plain
+   version on the same tensors, a slab at a time (these launches are not
+   counted as the path's), and every kernel the configuration's round
+   launches must be among those held; then, on the first 1,024 sampled voters, the
    stacked form annotated with ``voter_ids`` / ``weights`` (one 17 GB
    stack) bit-equal to the streamed form at chunk 512 for three
    configurations; (b) the two adaptive presets, the three fed-smoke
@@ -229,6 +235,7 @@ prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -2768,6 +2775,10 @@ POP_CONFIGS = (
     ("random_25pct", "allgather_1bit", "sign1bit", False, "random"),
     ("low_margin_25pct", "allgather_1bit", "sign1bit", False, "low_margin"),
 )
+#: the rows of a slab held against the plain versions at once in the chunk
+#: checks (the plain bitpack's bool and the draws' temporaries of 64 rows
+#: of 2^22 stay below 2 GB), and bitunpack's words a slab
+POP_CHECK_ROWS, POP_CHECK_WORDS = 64, 1 << 24
 #: the configurations voted once more under torch.profiler
 POP_PROFILED = ("sign1bit_allgather_1bit", "weighted_vote")
 #: the streamed-equals-dense configurations (labels of POP_CONFIGS, the
@@ -2832,14 +2843,113 @@ def pop_request(va, cfg, payload, state, astate, step, **annotations):
         server_state=state, attack_obs=obs, **annotations)
 
 
-def run_population_votes(torch, dev) -> dict:
+@contextlib.contextmanager
+def plain_checked(torch, ops, ref, sc, err, what: str):
+    """Within the block, every launch of ``ops.adversary_``, ``ops.bitpack``
+    and ``ops.bitunpack`` is held bit for bit against its plain version on
+    the same tensors: POP_CHECK_ROWS rows (bitunpack: POP_CHECK_WORDS
+    words) at a time, the adversary's input copied before the kernel
+    writes it in place. `err` keeps each kernel's largest difference."""
+    orig = {k: getattr(ops, k) for k in ("adversary_", "bitpack",
+                                         "bitunpack")}
+    s = POP_CHECK_ROWS
+
+    def adversary_(x, keys, p, flip, offset=0):
+        before = x.clone()
+        got = orig["adversary_"](x, keys, p, flip, offset)
+        for r in range(0, x.shape[0], s):
+            err["adversary"] = max(err["adversary"], require_equal(
+                f"{what}: adversary {tuple(x.shape)} p={p} rows {r}..",
+                got[r:r + s], ref.adversary(before[r:r + s], keys[r:r + s],
+                                            p, flip, offset)))
+        return got
+
+    def bitpack(x, *, out=None):
+        got = orig["bitpack"](x, out=out)
+        for r in range(0, x.shape[0], s):
+            err["bitpack"] = max(err["bitpack"], require_equal(
+                f"{what}: bitpack {tuple(x.shape)} {x.dtype} rows {r}..",
+                got[r:r + s],
+                ref.bitpack(sc.pad_last(x[r:r + s], sc.PACK)[0])))
+        return got
+
+    def bitunpack(packed, n, dtype=torch.float32):
+        got = orig["bitunpack"](packed, n, dtype)
+        for w0 in range(0, packed.numel(), POP_CHECK_WORDS):
+            lo = w0 * sc.PACK
+            hi = min(n, (w0 + POP_CHECK_WORDS) * sc.PACK)
+            if lo >= hi:
+                break
+            err["bitunpack"] = max(err["bitunpack"], require_equal(
+                f"{what}: bitunpack n={n} {dtype} words {w0}..", got[lo:hi],
+                ref.bitunpack(packed[None, w0:w0 + POP_CHECK_WORDS],
+                              dtype)[0, :hi - lo]))
+        return got
+
+    ops.adversary_, ops.bitpack, ops.bitunpack = adversary_, bitpack, bitunpack
+    try:
+        yield
+    finally:
+        for k, fn in orig.items():
+            setattr(ops, k, fn)
+
+
+def check_population_chunk(torch, dev, err, cfg, x, ids, sizes, state,
+                           astate, step) -> dict:
+    """Phase 13a's kernel check of configuration `cfg`: its first POP_CHUNK
+    sampled voters as one full chunk through the vote API (the shapes
+    every chunk of its round gives the kernels), under
+    :func:`plain_checked`. Returns the launches it held."""
+    from repro_torch.core import sign_compress as sc
+    from repro_torch.core import vote_api as va
+    from repro_torch.kernels import ops, ref
+    label, weighted = cfg[0], cfg[3]
+    k = POP_CHUNK
+    stream = va.PopulationStream(
+        n_voters=k, n_coords=POP_N, ids=ids[:k],
+        weights=sizes[:k] if weighted else None,
+        values=PopulationRows(torch, x, step))
+    before = ops.launch_counts()
+    t0 = time.perf_counter()
+    with plain_checked(torch, ops, ref, sc, err, f"{label} chunk {k}"):
+        va.VirtualBackend(device=dev, chunk_size=k).execute(
+            pop_request(va, cfg, stream, state, astate, step))
+    torch.cuda.synchronize()
+    held = {n: v - before[n] for n, v in ops.launch_counts().items()
+            if v > before[n]}
+    log({"phase": "population_chunk_vs_plain", "config": label, "rows": k,
+         "n": POP_N, "held": held, "seconds": time.perf_counter() - t0})
+    return held
+
+
+def time_population_rows(torch, x, ids, step: int) -> float:
+    """CUDA-event ms of making the round's rows alone, POP_CHUNK at a time
+    (what every pass of a streamed round spends in chip_smoke's row maker
+    rather than in the port), after one untimed chunk (the allocator's and
+    the generator's first use)."""
+    rows = PopulationRows(torch, x, step)
+    rows(torch.from_numpy(ids[:POP_CHUNK]))
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for lo in range(0, len(ids), POP_CHUNK):
+        rows(torch.from_numpy(ids[lo:lo + POP_CHUNK]))
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def run_population_votes(torch, dev, err) -> dict:
     """Phase 13a: each of POP_CONFIGS over the sampled round at POP_CHUNK
-    and POP_CHUNK_ALT (votes and tallies bit-equal), its ms, peak memory
-    and ``population.*`` counters; low_margin sees the tally of the
+    and POP_CHUNK_ALT (votes and tallies bit-equal), its ms beside the row
+    maker's, peak memory and ``population.*`` counters, after one full
+    chunk of it held against the plain versions
+    (:func:`check_population_chunk`); low_margin sees the tally of the
     sign1bit round before it. Then POP_DENSE_CONFIGS on the first
     POP_DENSE sampled voters: the annotated stacked form (one (M, n)
     stack) against the streamed form at POP_CHUNK_ALT, votes, tallies and
-    state bit-equal. Returns the launches (counts set to 0 just before)."""
+    state bit-equal. Returns the launches (counts set to 0 just before,
+    the chunk checks' launches taken out)."""
     import numpy as np
     from repro_torch.core import attacks
     from repro_torch.core import vote_api as va
@@ -2850,24 +2960,32 @@ def run_population_votes(torch, dev) -> dict:
     ids, sizes = pop_round(np)
     ema0 = torch.rand(POP_CLIENTS, generator=gen, device=dev) * 0.3
     astate = attacks.AttackState.init(POP_N, POP_CLIENTS, dev)
+    rows_ms = {s: time_population_rows(torch, x, ids, s) for s in (0, 1)}
+    log({"phase": "population_rows", "voters": len(ids), "n": POP_N,
+         "chunk": POP_CHUNK, "ms": rows_ms})
     ops.reset_launch_counts()
+    held = dict.fromkeys(ops.launch_counts(), 0)
     for cfg in POP_CONFIGS:
         label, _, codec, weighted, mode = cfg
         step = 1 if mode == "low_margin" else 0
+        state = {"flip_ema": ema0} if codec == "weighted_vote" else None
+        checked = check_population_chunk(torch, dev, err, cfg, x, ids, sizes,
+                                         state, astate, step)
+        for k, v in checked.items():
+            held[k] += v
         got = {}
         for chunk in (POP_CHUNK, POP_CHUNK_ALT):
             stream = va.PopulationStream(
                 n_voters=len(ids), n_coords=POP_N, ids=ids,
                 weights=sizes if weighted else None,
                 values=PopulationRows(torch, x, step))
-            state = ({"flip_ema": ema0} if codec == "weighted_vote"
-                     else None)
             req = pop_request(va, cfg, stream, state, astate, step)
             be = va.VirtualBackend(device=dev, chunk_size=chunk)
             torch.cuda.synchronize()
             base = torch.cuda.memory_allocated()
             torch.cuda.reset_peak_memory_stats()
             before = COUNTERS.snapshot("population.")
+            launched = ops.launch_counts()
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             t0 = time.perf_counter()
@@ -2877,6 +2995,13 @@ def run_population_votes(torch, dev) -> dict:
             end.synchronize()
             wall = time.perf_counter() - t0
             peak = torch.cuda.max_memory_allocated() - base
+            launched = {k: v - launched[k] for k, v in
+                        ops.launch_counts().items() if v > launched[k]}
+            unchecked = sorted(set(launched) - set(checked))
+            if unchecked:
+                raise AssertionError(f"{label}: the round launched "
+                                     f"{unchecked}, which its chunk check "
+                                     "never held against the plain versions")
             counters = {k: v for k, v in COUNTERS.delta_since(
                 before, "population.").items() if ".last." not in k}
             counters.update(COUNTERS.snapshot("population.last."))
@@ -2888,10 +3013,14 @@ def run_population_votes(torch, dev) -> dict:
                     f"{label} at chunk {chunk}: peak {peak / 1e9:.2f} GB "
                     f"above {pop_peak_bound(chunk) / 1e9:.2f} GB")
             got[chunk] = out
+            ms = start.elapsed_time(end)
+            passes = counters["population.last.n_passes"]
             log({"phase": "population_vote", "config": label,
                  "voters": len(ids), "population": POP_CLIENTS, "n": POP_N,
-                 "chunk": chunk, "ms": start.elapsed_time(end),
-                 "wall_s": wall, "peak_gb": peak / 1e9,
+                 "chunk": chunk, "ms": ms,
+                 "rows_ms": passes * rows_ms[step],
+                 "engine_ms": ms - passes * rows_ms[step],
+                 "launches": launched, "wall_s": wall, "peak_gb": peak / 1e9,
                  "peak_bound_gb": pop_peak_bound(chunk) / 1e9,
                  "rows_gb": chunk * POP_N * 4 / 1e9,
                  "margin": out.wire.margin,
@@ -2917,11 +3046,16 @@ def run_population_votes(torch, dev) -> dict:
         del got, a, b
     check_population_dense(torch, va, x, ids, sizes, ema0, astate)
     torch.cuda.synchronize()
-    launches = ops.launch_counts()
+    launches = {k: v - held[k] for k, v in ops.launch_counts().items()}
     for k in ("bitpack", "bitunpack", "adversary"):
-        if not launches[k]:
-            raise AssertionError(f"the streamed votes never launched {k}")
-    log({"phase": "population_votes_done", "launches": launches})
+        if not launches[k] or not held[k]:
+            raise AssertionError(f"the streamed votes launched {k} "
+                                 f"{launches[k]} times, their chunk checks "
+                                 f"held it {held[k]} times")
+    log({"phase": "population_votes_done", "launches": launches,
+         "held_against_plain": held,
+         "max_abs_err": {k: err[k] for k in ("adversary", "bitpack",
+                                             "bitunpack")}})
     return launches
 
 
@@ -3103,12 +3237,12 @@ def run_population_drills(torch, dev) -> dict:
     return launches
 
 
-def run_population_path(torch, dev) -> dict:
+def run_population_path(torch, dev, err) -> dict:
     """Phase 13: the streamed votes (13a), then the drills (13b). Returns
     their launches."""
     t0 = time.perf_counter()
     totals = {}
-    for path in (run_population_votes(torch, dev),
+    for path in (run_population_votes(torch, dev, err),
                  run_population_drills(torch, dev)):
         for k, v in path.items():
             totals[k] = totals.get(k, 0) + v
@@ -3399,6 +3533,46 @@ def time_kernels(torch, ops, ref, sc, dev, launches, errs) -> list:
     return rows
 
 
+def smi_line() -> str:
+    """The card's name and power limit, as nvidia-smi prints them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], check=True, capture_output=True,
+        text=True).stdout.strip()
+
+
+def device_line(torch) -> dict:
+    return {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}
+
+
+def run_alone(name: str, phase) -> int:
+    """One phase of this script alone on a card (the probes of
+    ``scripts/``): build the kernels, call ``phase(torch, dev, build,
+    err)`` (`err` each kernel's largest difference from its plain version
+    so far) and log the dict it returns, then the card's name and power limit
+    and ``{"ok": true, ...}``. Returns 2 without a card; a failed check
+    raises."""
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+    import torch
+    if not torch.cuda.is_available():
+        print(f"{name}: no CUDA device is available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "src"))
+    from repro_torch.kernels import build, ops
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    build.library("vote")
+    log({"build_s": time.perf_counter() - t0})
+    err = {k: 0.0 for k in ops.launch_counts()}
+    log({**phase(torch, dev, build, err), "max_abs_err": err})
+    log(smi_line())
+    log({"ok": True, "seconds": time.perf_counter() - t0,
+         "device": device_line(torch)})
+    return 0
+
+
 def main() -> int:
     # Phases 3-5 free and re-allocate tens of GB in blocks of many sizes;
     # expandable segments keep the cached memory from fragmenting so the
@@ -3419,11 +3593,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], check=True, capture_output=True,
-        text=True).stdout.strip()
-    log(smi)
+    log(smi_line())
     dev = repro_torch.resolve_device()
     log({"torch": torch.__version__, "cuda": torch.version.cuda,
          "python": sys.version.split()[0],
@@ -3468,7 +3638,7 @@ def main() -> int:
     run_dense_path(torch, cfg, dev)
     for k, v in run_failure_path(torch, cfg, dev, ops, ref, errs).items():
         launches[k] += v
-    for k, v in run_population_path(torch, dev).items():
+    for k, v in run_population_path(torch, dev, errs).items():
         launches[k] += v
     # ef_sign's encode packs its float32 t; every other bitpack of the main
     # path packs int8 signs (staged votes, plan buckets, weighted_vote's vote)
@@ -3483,9 +3653,7 @@ def main() -> int:
         raise AssertionError(f"the main path never launched {never}")
     log({"phase": "done", "seconds": time.perf_counter() - t_start})
     log({"kernels": rows})
-    log({"ok": True, "device": {"platform": "gpu",
-                                "kind": torch.cuda.get_device_name(0),
-                                "count": torch.cuda.device_count()}})
+    log({"ok": True, "device": device_line(torch)})
     return 0
 
 

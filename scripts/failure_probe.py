@@ -15,47 +15,29 @@ disagreement, or without a card.
 """
 import dataclasses
 import os
-import subprocess
 import sys
-import time
 
-os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
-sys.path.insert(0, os.path.join(ROOT, "src"))
 
 
-def main() -> int:
-    import torch
-    if not torch.cuda.is_available():
-        print("failure_probe: no CUDA device is available", file=sys.stderr)
-        return 2
+def phase(torch, dev, build, err):
     import chip_smoke as C
     from repro_torch.configs.base import get_config
-    from repro_torch.kernels import build, ops, ref
-
-    dev = torch.device("cuda")
-    t0 = time.perf_counter()
-    build.library("vote")
-    C.log({"build_s": time.perf_counter() - t0})
+    from repro_torch.kernels import ops, ref
     for line in build.BUILD_LOG.get("byzantine", "").splitlines():
         if any(k in line for k in ("registers", "spill")):
             C.log(f"ptxas byzantine: {line.strip()}")
     C.check_ftz(build)
-    err = {name: 0.0 for name in ops.launch_counts()}
     cfg = dataclasses.replace(get_config("glm4-9b"), num_layers=2)
     launches = C.run_failure_path(torch, cfg, dev, ops, ref, err)
-    C.log({"kernels": [C.time_adversary(torch, ops, ref, dev, launches,
-                                        err)]})
-    C.log(subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], check=True, capture_output=True,
-        text=True).stdout.strip())
-    C.log({"ok": True, "seconds": time.perf_counter() - t0,
-           "device": {"platform": "gpu",
-                      "kind": torch.cuda.get_device_name(0),
-                      "count": torch.cuda.device_count()}})
-    return 0
+    return {"kernels": [C.time_adversary(torch, ops, ref, dev, launches,
+                                         err)]}
+
+
+def main() -> int:
+    import chip_smoke as C
+    return C.run_alone("failure_probe", phase)
 
 
 if __name__ == "__main__":

@@ -7,48 +7,26 @@ chip_smoke's phase 13 alone.
 
 Builds the kernels, then phase 13 at full size: the streamed vote of
 12,000 sampled voters of a 100,000-client population over 2^22
-coordinates in six configurations, each at chunks of 1,024 and 512 rows
-(bit-equal), its ms, peak memory and counters, and the dense annotated
-form against the streamed form on 1,024 voters (13a); the adaptive
-presets, the fed-smoke and scale drills, the breaking-point specs and rows
-on the card against their CPU twins (13b). One JSON line per result, the
-card's name and power limit, and last ``{"ok": true, ...}``; exits
-non-zero on any disagreement, or without a card.
+coordinates in six configurations, one full chunk of each held against
+the plain versions, each at chunks of 1,024 and 512 rows (bit-equal), its
+ms, peak memory and counters, and the dense annotated form against the
+streamed form on 1,024 voters (13a); the adaptive presets, the fed-smoke
+and scale drills, the breaking-point specs and rows on the card against
+their CPU twins (13b). One JSON line per result, the card's name and
+power limit, and last ``{"ok": true, ...}``; exits non-zero on any
+disagreement, or without a card.
 """
 import os
-import subprocess
 import sys
-import time
 
-os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
-sys.path.insert(0, os.path.join(ROOT, "src"))
 
 
 def main() -> int:
-    import torch
-    if not torch.cuda.is_available():
-        print("population_probe: no CUDA device is available",
-              file=sys.stderr)
-        return 2
     import chip_smoke as C
-    from repro_torch.kernels import build
-
-    dev = torch.device("cuda")
-    t0 = time.perf_counter()
-    build.library("vote")
-    C.log({"build_s": time.perf_counter() - t0})
-    C.log({"launches": C.run_population_path(torch, dev)})
-    C.log(subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], check=True, capture_output=True,
-        text=True).stdout.strip())
-    C.log({"ok": True, "seconds": time.perf_counter() - t0,
-           "device": {"platform": "gpu",
-                      "kind": torch.cuda.get_device_name(0),
-                      "count": torch.cuda.device_count()}})
-    return 0
+    return C.run_alone("population_probe", lambda torch, dev, build, err: {
+        "launches": C.run_population_path(torch, dev, err)})
 
 
 if __name__ == "__main__":

@@ -10,35 +10,23 @@ ternary kernels and the three tallies against their plain versions, times
 bf16 and float32 at the glm4-9b unembedding shape (n = 620,756,992, M = 4),
 then runs chip_smoke's phases 9-11 (signSGD, the qwen1.5-32b Mode B preset
 and the dense baselines) on reduced configs (d_model 128, 2 layers; the
-qwen config with 4 kv heads, as its 40 of 40). One JSON line per result;
-exits non-zero on any disagreement, or without a card.
+qwen config with 4 kv heads, as its 40 of 40). One JSON line per result,
+the card's name and power limit, and last ``{"ok": true, ...}``; exits
+non-zero on any disagreement, or without a card.
 """
 import os
 import sys
-import time
 
-os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
-sys.path.insert(0, os.path.join(ROOT, "src"))
 
 
-def main() -> int:
-    import torch
-    if not torch.cuda.is_available():
-        print("ternary_probe: no CUDA device is available", file=sys.stderr)
-        return 2
+def phase(torch, dev, build, err):
     import chip_smoke as C
     from repro_torch.configs import base as tb
     from repro_torch.core import sign_compress as sc
-    from repro_torch.kernels import build, ops, ref
-
-    dev = torch.device("cuda")
-    t0 = time.perf_counter()
-    build.library("vote")
-    C.log({"build_s": time.perf_counter() - t0})
+    from repro_torch.kernels import ops, ref
     C.check_ftz(build)
-    err = {name: 0.0 for name in ops.launch_counts()}
     checks = (C.check_ternary_kernels(torch, ops, ref, sc, dev, err)
               + C.check_tallies(torch, ops, ref, sc, dev, err))
     C.log({"checks": checks, "max_abs_err": err})
@@ -65,8 +53,12 @@ def main() -> int:
     C.log({"signsgd_launches": C.run_signsgd_path(torch, cfg, dev)})
     C.log({"mode_b_launches": C.run_mode_b_path(torch, dev)})
     C.run_dense_path(torch, cfg, dev)
-    C.log({"probe": "ok", "seconds": time.perf_counter() - t0})
-    return 0
+    return {"probe": "ok"}
+
+
+def main() -> int:
+    import chip_smoke as C
+    return C.run_alone("ternary_probe", phase)
 
 
 if __name__ == "__main__":

@@ -24,7 +24,8 @@ chunking can change a bit of the result:
 
 Tensors stay on the engine's device and accumulate in int64 there; a
 chunk's column sums never widen the ``(k, n)`` int8 signs to int64 (64 rows
-at a time are summed in int8, weighted rows one by one). A chunk's signs
+at a time are summed in int8, weighted rows a block at a time in int32, as
+the reference sums a chunk). A chunk's signs
 come from ``vote_api.effective_stacked_signs`` keyed by the chunk's
 *logical* ids, so on a card the ``adversary`` kernel draws each row under
 its id's key; the 1-bit wire's pack / unpack round trip is the
@@ -77,7 +78,8 @@ _CODECS = ("sign1bit", "ef_sign", "ternary2bit", "weighted_vote")
 
 #: rows whose int8 column sum cannot overflow (|partial| <= 64)
 _I8_ROWS = 64
-#: elements of a row block's widened temporary (the mismatch count)
+#: elements of a row block's widened temporary (the weighted sum, the
+#: mismatch count)
 _BLOCK_ELEMS = 1 << 26
 
 
@@ -109,10 +111,18 @@ def _colsum(x: torch.Tensor) -> torch.Tensor:
     return acc
 
 
-def _weighted_colsum_(acc: torch.Tensor, x: torch.Tensor, w) -> None:
-    """acc += sum_r w[r] * x[r] in int64, row by row (`w` Python ints)."""
-    for r, wr in enumerate(w):
-        acc.add_(x[r], alpha=int(wr))
+def _weighted_colsum_(acc: torch.Tensor, x: torch.Tensor,
+                      w: np.ndarray) -> None:
+    """acc += sum_r w[r] * x[r]: each block of rows summed in int32 (exact:
+    :func:`_validate` bounds a whole chunk's weighted sum below 2^31),
+    then added to the int64 `acc`."""
+    k, n = x.shape
+    w_dev = torch.from_numpy(np.ascontiguousarray(w, dtype=np.int32)).to(
+        x.device)
+    step = max(1, _BLOCK_ELEMS // max(n, 1))
+    for lo in range(0, k, step):
+        acc += torch.mul(x[lo:lo + step], w_dev[lo:lo + step, None]).sum(
+            dim=0, dtype=torch.int32)
 
 
 def _wire_signs_1bit(eff: torch.Tensor) -> torch.Tensor:
@@ -304,7 +314,7 @@ def _data_weighted_vote(stream, strategy, codec, weights, chunk_size,
     for lo, ids_np in _chunks(stream, chunk_size):
         eff = eff_of(ids_np)
         s = _wire_signs_1bit(eff) if gathered_binary else eff
-        _weighted_colsum_(acc, s, weights[lo:lo + len(ids_np)].tolist())
+        _weighted_colsum_(acc, s, weights[lo:lo + len(ids_np)])
         del eff, s     # before the next chunk's rows are made
     votes = _nonneg_vote32(acc) if gathered_binary else _sign32(acc)
     return votes, _mean_abs(acc) / float(np.sum(weights))
@@ -329,7 +339,7 @@ def _weighted_codec_vote(stream, weights, state, chunk_size, eff_of,
         w = w256[ids_np]
         if weights is not None:
             w = w * weights[lo:lo + len(ids_np)]
-        _weighted_colsum_(acc, _wire_signs_1bit(eff_of(ids_np)), w.tolist())
+        _weighted_colsum_(acc, _wire_signs_1bit(eff_of(ids_np)), w)
         wtot += int(np.sum(np.abs(w)))
     vote = _nonneg_vote32(acc)
 

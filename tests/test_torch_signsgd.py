@@ -866,14 +866,16 @@ def ref_qwen():
     return _reference_run(_qwen_cfgs()[0], _qwen_preset_cfgs()[0], 3)
 
 
-def _m1_case(run, cfgs, jt, tt, step):
+def _m1_case(run, cfgs, jt, tt, step, port=None):
     """Step `step` of the port at M = 1 teacher-forced from the reference
-    trainer's `run`, checked by `_check_trainer_step`."""
+    trainer's `run` (or the caller's `port` result of that step), checked
+    by `_check_trainer_step`."""
     states, losses, batches = run
     j, t = cfgs
     opt = tt.optimizer
     codec, state = opt.resolved_codec, states[step]
-    port = _port_trainer_step(t, tt, 1, state, batches[step], step)
+    if port is None:
+        port = _port_trainer_step(t, tt, 1, state, batches[step], step)
     ref = {"loss": losses[step], **states[step + 1]}
     rg, _ = _jgrads(j, jt, state["params"], batches[step], 1)
     pg = _tgrads(t, tt, state["params"], batches[step], 1)
@@ -1169,4 +1171,4 @@ def test_mode_b_preset_loss_dtype_is_ignored(ref_qwen):
     for part in ("params", "momentum"):
         for k, v in got[0][part].items():
             assert np.array_equal(v, got[1][part][k], equal_nan=True)
-    _m1_case(ref_qwen, _qwen_cfgs(), jt16, tt16, 2)
+    _m1_case(ref_qwen, _qwen_cfgs(), jt16, tt16, 2, port=got[0])
