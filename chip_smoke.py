@@ -220,8 +220,23 @@ Phases, each of which fails the run (non-zero exit) on any disagreement:
    identity row on both, every row equal (loss drops, float32 means summed
    in another order, within 1e-6); seconds per drill set printed.
 
-Phase 13's launches (bitpack and bitunpack of int8 signs, majority, the
-adversary) join the kernels line.
+14. the mesh (after phase 13): the stacked twin (M = 4) of phase 3's cell
+   in six runs of 2 steps each (allgather_1bit, psum_int8, hierarchical on
+   pod 2 x data 2, ternary2bit, a VotePlan of 1<<24 bytes with overlap, one
+   sign_flip voter with diagnostics), then a world of 4 spawned processes
+   on the one card over gloo (one card admits no NCCL world), one voter
+   each, running the same six runs through ``make_train_step(...,
+   mesh=ProcessMesh)``: every rank's losses, diagnostics and device
+   checksums of its parameters and momentum equal to the twin's voter's,
+   its launches per step exactly ``mesh_launches``, each leaf's mesh vote
+   of the trained momentum equal on rank 0 to ``VirtualBackend``'s vote of
+   the (4, n) rows gathered from the ranks; the bytes each rank handed the
+   collectives per step beside the WireReport and a float32 gradient, the
+   step split into collectives and the rest, each rank's peak and the
+   phase's seconds printed.
+
+Phase 13's and 14's launches (phase 14's summed over its ranks) join the
+kernels line.
 
 Phase 7 also times ternary_majority with ties +1 (its own row),
 ternary_unpack to bf16 and bitpack of the bf16 stack (its own row, whose
@@ -237,6 +252,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -3252,6 +3268,409 @@ def run_population_path(torch, dev, err) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 14: the mesh on the card (one voter per process)
+# ---------------------------------------------------------------------------
+
+#: ranks of the mesh world, all on cuda:0 (NCCL takes one device per rank,
+#: and there is one card, so they meet over gloo through host memory)
+MESH_RANKS = 4
+MESH_STEPS = 2
+#: phase 14's runs: (label, mesh shape, mesh axes, optimizer options,
+#: train options); every one from the same seed as phase 3
+MESH_RUNS = (
+    ("allgather_1bit", (4,), ("data",), {}, {}),
+    ("psum_int8", (4,), ("data",), {"vote_strategy": "psum_int8"}, {}),
+    ("hierarchical_pod2x2", (2, 2), ("pod", "data"),
+     {"vote_strategy": "hierarchical"}, {}),
+    ("ternary2bit", (4,), ("data",), {"codec": "ternary2bit"}, {}),
+    ("plan_overlap", (4,), ("data",),
+     {"bucket_bytes": PLAN_BUCKET_BYTES, "overlap": True}, {}),
+    ("sign_flip_diagnostics", (4,), ("data",), {},
+     {"diagnostics": True, "byzantine": ("sign_flip", 1)}),
+)
+#: the wires whose votes of the trained momentum rank 0 holds against the
+#: virtual vote of the gathered (4, n) rows: (wire, mesh shape, axes); the
+#: paper's wire (the count wires' mesh votes are the trainer runs' own
+#: collectives, held to the twin there; each adds ~5 s of gloo)
+MESH_VOTE_WIRES = (("allgather_1bit", (4,), ("data",)),)
+#: elements a device checksum reads at a time
+CHECKSUM_CHUNK = 1 << 26
+
+
+def mesh_train_config(opt: dict, train: dict):
+    """Phase 3's train config with a run's options."""
+    from repro_torch.configs.base import ByzantineConfig, VoteStrategy
+    tcfg = train_config("sign1bit")
+    opt = {k: VoteStrategy(v) if k == "vote_strategy" else v
+           for k, v in opt.items()}
+    train = dict(train)
+    if "byzantine" in train:
+        mode, n = train["byzantine"]
+        train["byzantine"] = ByzantineConfig(mode=mode, num_adversaries=n)
+    return dataclasses.replace(
+        tcfg, optimizer=dataclasses.replace(tcfg.optimizer, **opt), **train)
+
+
+def device_checksum(torch, tensors) -> str:
+    """sha256 of position-weighted int64 checksums of the tensors' bits,
+    computed on their device: each 32-bit word w_i (16-bit words of a bf16
+    tensor, 8-bit of int8) times the odd weight 2i+1 + 2^33 i, summed
+    modulo 2^64 per chunk. A single differing element changes its chunk's
+    sum (an odd weight is a unit modulo 2^64); hashing every byte on the
+    host instead would take minutes for the tens of GB of one run."""
+    import hashlib
+    sums = []
+    for t in tensors:
+        flat = t.detach().reshape(-1)
+        words = flat.view({1: torch.int8, 2: torch.int16}.get(
+            flat.element_size(), torch.int32))
+        for start in range(0, words.numel(), CHECKSUM_CHUNK):
+            w = words[start:start + CHECKSUM_CHUNK].to(torch.int64)
+            i = torch.arange(start, start + w.numel(), dtype=torch.int64,
+                             device=w.device)
+            sums.append(int((w * (2 * i + 1 + (i << 33))).sum()))
+            del w, i
+    return hashlib.sha256(json.dumps(sums).encode()).hexdigest()
+
+
+def mesh_state_checksum(torch, params, opt_state, voter) -> str:
+    """The checksum of the parameters and the momentum (of a stacked state,
+    voter `voter`'s rows)."""
+    parts = [params[k] for k in sorted(params)]
+    for k in sorted(opt_state.get("momentum", {})):
+        m = opt_state["momentum"][k]
+        parts.append(m[voter] if voter is not None
+                     and m.dim() > params[k].dim() else m)
+    return device_checksum(torch, parts)
+
+
+def mesh_launches(label: str, rank: int, n_leaves: int, plan) -> dict:
+    """The kernel launches of one mesh step of run `label` on rank `rank`
+    (one voter): the 1-bit wire as phase 3's step for one voter; the count
+    wires' 2-bit symbols unpacked (ternary_unpack), voted by the
+    collectives and repacked (ternary_pack), hierarchical's decision through
+    bitpack / bitunpack; the plan's walk per bucket; the diagnostics'
+    decode of each leaf's vote (bitunpack), and the adversary's encode
+    through bitpack on rank 0."""
+    L = n_leaves
+    if label == "plan_overlap":
+        want = plan_launches(plan)
+        want["momentum_sign_pack"] = L
+        for k in ("ternary_pack", "apply_ternary_vote"):
+            want[k] = want.get(k, 0) + L
+        return want
+    want = {"momentum_sign_pack": L}
+    if label in ("allgather_1bit", "sign_flip_diagnostics"):
+        want.update(majority=L, apply_vote=L)
+    elif label == "ternary2bit":
+        want.update(ternary_pack=L, ternary_majority=L,
+                    apply_ternary_vote=L)
+    else:
+        want.update(ternary_pack=2 * L, ternary_unpack=L,
+                    apply_ternary_vote=L)
+        if label.startswith("hierarchical"):
+            want.update(bitpack=L, bitunpack=L)
+    if label == "sign_flip_diagnostics":
+        want["bitunpack"] = L
+        if rank == 0:
+            want["bitpack"] = L
+    return want
+
+
+def mesh_twin(torch, cfg, dev) -> dict:
+    """The stacked twin of every phase-14 run (M = 4 on one device): per
+    run its losses, diagnostics and each voter's state checksum."""
+    from repro_torch.data.pipeline import SyntheticLMPipeline
+    from repro_torch.train import train_step as TS
+    out = {}
+    for label, _, _, opt, train in MESH_RUNS:
+        tcfg = mesh_train_config(opt, train)
+        art = TS.make_train_step(cfg, tcfg, M_MAIN, device=dev)
+        params, state = TS.materialize_state(
+            cfg, tcfg, art, torch.Generator(device=dev).manual_seed(0))
+        pipe = SyntheticLMPipeline(cfg, GLOBAL_BATCH, SEQ, seed=0)
+        mets, ms = [], []
+        for step in range(MESH_STEPS):
+            tokens = torch.as_tensor(pipe.global_batch_at(step)["tokens"],
+                                     device=dev)
+            sync(torch, dev)
+            t0 = time.perf_counter()
+            params, state, met = art.step_fn(params, state,
+                                             {"tokens": tokens}, step)
+            sync(torch, dev)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            mets.append({k: float(v) for k, v in met.items()})
+        out[label] = {"metrics": mets, "ms": ms, "checksums": [
+            mesh_state_checksum(torch, params, state, v)
+            for v in range(M_MAIN)]}
+        log({"phase": "mesh_twin", "run": label, "metrics": mets,
+             "step_ms": ms})
+        del params, state, art
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def sync(torch, dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def mesh_rank(rank: int, init: str, cfg, dev_type: str, queue) -> None:
+    """One rank of phase 14's world (a spawned process): every run of
+    MESH_RUNS on its own voter, then the vote check of the trained momentum;
+    puts ``(rank, results)`` on `queue`, or ``(rank, {"error": ...})``."""
+    import traceback
+    try:
+        queue.put((rank, mesh_rank_body(rank, init, cfg, dev_type)))
+    except BaseException:
+        queue.put((rank, {"error": traceback.format_exc()}))
+        raise
+
+
+def mesh_rank_body(rank: int, init: str, cfg, dev_type: str) -> dict:
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "src"))
+    import torch
+    import torch.distributed as dist
+    from repro_torch.data.pipeline import SyntheticLMPipeline
+    from repro_torch.distributed.mesh import ProcessMesh
+    from repro_torch.kernels import ops
+    from repro_torch.train import train_step as TS
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(dev_type)
+    dist.init_process_group("gloo", init_method=init, rank=rank,
+                            world_size=MESH_RANKS)
+    try:
+        # every rank builds every mesh, in one order
+        meshes = {(shape, axes): ProcessMesh(shape, axes)
+                  for _, shape, axes, _, _ in MESH_RUNS}
+        pipe = SyntheticLMPipeline(cfg, GLOBAL_BATCH, SEQ, seed=0)
+        out = {"runs": {}}
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        for label, shape, axes, opt, train in MESH_RUNS:
+            mesh = meshes[(shape, axes)]
+            tcfg = mesh_train_config(opt, train)
+            art = TS.make_train_step(cfg, tcfg, device=dev, mesh=mesh)
+            params, state = TS.materialize_state(
+                cfg, tcfg, art, torch.Generator(device=dev).manual_seed(0))
+            want = mesh_launches(label, rank, len(params), art.plan)
+            mets, steps = [], []
+            for step in range(MESH_STEPS):
+                tokens = torch.as_tensor(pipe.global_batch_at(step)[
+                    "tokens"], device=dev)
+                sync(torch, dev)
+                mesh.reset_stats()
+                ops.reset_launch_counts()
+                t0 = time.perf_counter()
+                params, state, met = art.step_fn(params, state,
+                                                 {"tokens": tokens}, step)
+                sync(torch, dev)
+                ms = (time.perf_counter() - t0) * 1e3
+                launches = {k: v for k, v in ops.launch_counts().items()
+                            if v}
+                if (launches or dev.type == "cuda") and launches != want:
+                    raise AssertionError(
+                        f"rank {rank} {label} step {step}: launches "
+                        f"{launches}, expected {want}")
+                mets.append({k: float(v) for k, v in met.items()})
+                steps.append({"ms": ms,
+                              "collective_ms": mesh.stats.seconds * 1e3,
+                              "bytes": mesh.stats.bytes,
+                              "collectives": mesh.stats.calls,
+                              "launches": launches})
+            out["runs"][label] = {
+                "metrics": mets, "steps": steps,
+                "checksum": mesh_state_checksum(torch, params, state, None)}
+            momentum = state["momentum"]
+            del params, state, art
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+            if label == MESH_RUNS[0][0]:   # the parameters freed first
+                out["votes"] = mesh_vote_check(torch, momentum, meshes,
+                                               rank, dev)
+            del momentum
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+        if dev.type == "cuda":
+            out["peak_bytes"] = torch.cuda.max_memory_allocated()
+            out["peak_reserved_bytes"] = torch.cuda.max_memory_reserved()
+        dist.barrier()
+        return out
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_vote_check(torch, momentum, meshes, rank: int, dev) -> dict:
+    """Each leaf of this rank's trained momentum voted over the mesh on the
+    MESH_VOTE_WIRES, and on rank 0 held against VirtualBackend's vote of
+    the (4, n) int8 signs gathered from the ranks (replica order)."""
+    from repro_torch.configs.base import VoteStrategy
+    from repro_torch.core import sign_compress as sc
+    from repro_torch.core import vote_api as va
+    from repro_torch.distributed import mesh as pm
+    data = meshes[((4,), ("data",))].vote_axes
+    virtual = va.VirtualBackend(device=dev)
+    coords = 0
+    for k in sorted(momentum):
+        signs = sc.sign_ternary(momentum[k].reshape(-1))
+        rows = pm.gather_voters(signs, data)
+        for wire, shape, axes in MESH_VOTE_WIRES:
+            strategy = VoteStrategy(wire)
+            got = va.MeshBackend(axes=meshes[(shape, axes)].vote_axes,
+                                 device=dev).execute(va.VoteRequest(
+                                     payload=signs, form="leaf",
+                                     strategy=strategy)).votes
+            if rank == 0:
+                want = virtual.execute(va.VoteRequest(
+                    payload=rows, form="stacked", strategy=strategy)).votes
+                if not torch.equal(got.to(torch.int8), want):
+                    raise AssertionError(f"mesh vote of {k} on {wire} "
+                                         "differs from the virtual vote")
+                del want
+            del got
+        coords += signs.numel()
+        del signs, rows
+    return {"leaves": len(momentum), "coords": coords,
+            "wires": [w for w, _, _ in MESH_VOTE_WIRES]}
+
+
+def mesh_wire_bytes(cfg, label: str) -> dict:
+    """The WireReport of one step's vote on run `label` (the static report
+    VirtualBackend and MeshBackend count) beside a float32 gradient."""
+    from repro_torch.configs.base import VoteStrategy
+    from repro_torch.core import vote_api as va
+    from repro_torch.core import vote_plan as vp
+    opt = dict(MESH_RUNS[[r[0] for r in MESH_RUNS].index(label)][3])
+    n = cfg.param_count()
+    strategy = VoteStrategy(opt.get("vote_strategy", "allgather_1bit"))
+    codec = opt.get("codec", "sign1bit")
+    plan = (vp.build_plan(cfg.param_shapes(),
+                          bucket_bytes=opt["bucket_bytes"], strategy=strategy)
+            if "bucket_bytes" in opt else None)
+    wire = va._static_wire(plan, codec, strategy, n,
+                           len(cfg.param_shapes()), MESH_RANKS)
+    return {"wire_report_payload_bytes": wire.payload_bytes,
+            "float32_gradient_bytes": 4 * n}
+
+
+def run_mesh_path(torch, cfg, dev, target=None) -> dict:
+    """Phase 14: the stacked twin of each MESH_RUNS configuration, then a
+    world of MESH_RANKS processes (spawned, over gloo, each on `dev`) runs
+    them with one voter per rank. Every rank's losses, diagnostics and
+    state checksum must equal the twin's voter's; rank 0 holds each leaf's
+    mesh vote of the trained momentum against VirtualBackend. Returns the
+    ranks' summed launches."""
+    import multiprocessing as mp
+    import socket
+    t_start = time.perf_counter()
+    twin = mesh_twin(torch, cfg, dev)
+    if dev.type == "cuda":
+        gc.collect()
+        torch.cuda.empty_cache()
+        free, total = torch.cuda.mem_get_info()
+        log({"phase": "mesh_twin_done", "seconds":
+             time.perf_counter() - t_start,
+             "allocated_bytes_before_ranks": torch.cuda.memory_allocated(),
+             "reserved_bytes_before_ranks": torch.cuda.memory_reserved(),
+             "device_free_bytes_before_ranks": free,
+             "device_total_bytes": total})
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    init = f"tcp://127.0.0.1:{port}"
+    ctx = mp.get_context("spawn")
+    queue = ctx.SimpleQueue()
+    procs = [ctx.Process(target=target or mesh_rank,
+                         args=(r, init, cfg, dev.type, queue))
+             for r in range(MESH_RANKS)]
+    t_ranks = time.perf_counter()
+    for p in procs:
+        p.start()
+    results = {}
+    try:
+        while len(results) < MESH_RANKS:
+            if time.perf_counter() - t_ranks > MESH_TIMEOUT_S:
+                raise AssertionError("the mesh ranks did not finish in "
+                                     f"{MESH_TIMEOUT_S} s")
+            if not queue.empty():
+                rank, res = queue.get()
+                if "error" in res:
+                    raise AssertionError(f"mesh rank {rank} failed:\n"
+                                         f"{res['error']}")
+                results[rank] = res
+            elif any(p.exitcode not in (None, 0) for p in procs):
+                raise AssertionError(
+                    "a mesh rank exited with "
+                    f"{[p.exitcode for p in procs]}")
+            else:
+                time.sleep(0.05)
+        for p in procs:
+            p.join(timeout=60)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+                p.join(timeout=10)
+    ranks_s = time.perf_counter() - t_ranks
+    launches = {}
+    for label, shape, axes, _, _ in MESH_RUNS:
+        want = twin[label]
+        for r in range(MESH_RANKS):
+            got = results[r]["runs"][label]
+            if got["metrics"] != want["metrics"]:
+                raise AssertionError(
+                    f"mesh {label} rank {r}: metrics {got['metrics']} != "
+                    f"the stacked twin's {want['metrics']}")
+            if got["checksum"] != want["checksums"][r]:
+                raise AssertionError(
+                    f"mesh {label} rank {r}: parameters / momentum differ "
+                    "from the stacked twin's voter")
+            for st in got["steps"]:
+                for k, v in st["launches"].items():
+                    launches[k] = launches.get(k, 0) + v
+        steps = [results[r]["runs"][label]["steps"] for r in range(
+            MESH_RANKS)]
+        per_step = [max(s[i]["ms"] for s in steps)
+                    for i in range(MESH_STEPS)]
+        coll = [max(s[i]["collective_ms"] for s in steps)
+                for i in range(MESH_STEPS)]
+        sent = steps[0][-1]["bytes"]
+        line = {"phase": "mesh_wire", "run": label, "mesh": list(shape),
+                "axes": list(axes), "bytes_per_step_rank0": sent,
+                "bytes_per_step_by_rank": [s[-1]["bytes"] for s in steps],
+                **mesh_wire_bytes(cfg, label),
+                "step_ms": per_step, "collective_ms": coll,
+                "other_ms": [a - b for a, b in zip(per_step, coll)],
+                "twin_step_ms": want["ms"],
+                "losses": [m["loss"] for m in want["metrics"]],
+                "bit_equal_to_twin": True}
+        line["float32_over_sent"] = line["float32_gradient_bytes"] / sent
+        if "vote_margin" in want["metrics"][0]:
+            line["diagnostics"] = [{k: m[k] for k in (
+                "vote_agreement", "vote_margin")} for m in want["metrics"]]
+        log(line)
+    log({"phase": "mesh_path_done", "ranks": MESH_RANKS,
+         "backend": "gloo", "device": dev.type,
+         "votes": results[0]["votes"],
+         "peak_bytes_by_rank": [results[r].get("peak_bytes")
+                                for r in range(MESH_RANKS)],
+         "peak_reserved_bytes_by_rank": [
+             results[r].get("peak_reserved_bytes")
+             for r in range(MESH_RANKS)],
+         "ranks_seconds": ranks_s,
+         "seconds": time.perf_counter() - t_start, "smi": smi_line()
+         if dev.type == "cuda" else None})
+    return launches
+
+
+#: how long phase 14's ranks may take, spawn to exit
+MESH_TIMEOUT_S = 600
+
+
+# ---------------------------------------------------------------------------
 # phase 7: timing at the unembedding shape
 # ---------------------------------------------------------------------------
 
@@ -3639,6 +4058,8 @@ def main() -> int:
     for k, v in run_failure_path(torch, cfg, dev, ops, ref, errs).items():
         launches[k] += v
     for k, v in run_population_path(torch, dev, errs).items():
+        launches[k] += v
+    for k, v in run_mesh_path(torch, cfg, dev).items():
         launches[k] += v
     # ef_sign's encode packs its float32 t; every other bitpack of the main
     # path packs int8 signs (staged votes, plan buckets, weighted_vote's vote)

@@ -14,8 +14,9 @@ which the bound reaches 1/2.
 Every function takes ``device`` and ``draws``, handed to
 ``sim.ScenarioRunner`` (the drills run on the card unless told otherwise;
 ``draws`` defaults to the runner's own). :func:`identity_rows`'s first half
-replays a drill on ``backend="mesh"``, which raises (ROADMAP.md Queue 1
-item 5); its second half, :func:`population_identity_row`, runs.
+replays a drill on ``backend="mesh"`` (every rank of a ``torch.distributed``
+world of at least 8 ranks calls it in lockstep); its second half,
+:func:`population_identity_row`, runs in one process.
 
 Not imported by ``repro_torch.core.attacks`` (it imports the Scenario Lab,
 and ``core.byzantine`` dispatches into that package from inside the vote):
@@ -224,8 +225,8 @@ def identity_rows(*, dim: int = 32, n_steps: int = 5, seed: int = 0,
                   ) -> List[Tuple[str, float, str]]:
     """The §15 equivalence gates as asserted rows: an adaptive drill
     replays bit-identically on ``backend="mesh"`` and ``"virtual"`` (the
-    mesh backend raises: ROADMAP.md Queue 1 item 5), and a streamed
-    adaptive population is chunk-invariant."""
+    mesh needs a world of at least 8 ranks, every one calling this), and a
+    streamed adaptive population is chunk-invariant."""
     from repro_torch.configs.base import VoteStrategy
     from repro_torch.core.attacks import AttackPhase
     from repro_torch.sim.scenario import AdversarySpec, ScenarioSpec

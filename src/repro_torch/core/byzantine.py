@@ -22,8 +22,10 @@ The adaptive modes (``adaptive_flip``, ``low_margin``, ``reputation``)
 read an observation dict (``obs``, the request's ``attack_obs``) and are
 dispatched to ``core.attacks.engine``; they draw nothing.
 
-Not ported: :func:`apply_adversary` over mesh axes (ROADMAP.md Queue 1
-item 5), which raises.
+Over the vote axes of a ``distributed.mesh.ProcessMesh`` each rank holds
+one voter: :func:`apply_adversary` acts on its signs under its replica
+index (:func:`replica_index`, pod-major), drawing what row ``idx`` of
+:func:`apply_adversary_stacked` draws.
 """
 from __future__ import annotations
 
@@ -160,14 +162,30 @@ def apply_adversary_stacked(stacked: torch.Tensor, cfg: ByzantineConfig, *,
     return stacked
 
 
-def apply_adversary(signs, cfg: ByzantineConfig, axis_names, **kwargs):
-    """The mesh path (replica index from the vote axes): not ported."""
-    raise NotImplementedError(
-        "byzantine.apply_adversary over mesh axes needs the multi-process "
-        "wire, not ported yet (ROADMAP.md Queue 1 item 5); use "
-        "apply_adversary_stacked over a stacked voter dim")
+def replica_index(axis_names) -> int:
+    """This rank's linear index over the bound vote axes (``mesh.VoteAxes``),
+    outermost first: ``p * data + d`` over ``("pod", "data")``."""
+    from repro_torch.distributed import mesh
+    return mesh.replica_index(axis_names)
+
+
+def apply_adversary(signs: torch.Tensor, cfg: ByzantineConfig, axis_names,
+                    *, step: Optional[int] = None, salt: int = 0,
+                    offset: int = 0, obs=None) -> torch.Tensor:
+    """In place on this rank's int8 signs (any shape, drawn as one flat
+    row): :func:`evil_signs_` when the rank's replica index over the vote
+    axes is below ``cfg.num_adversaries`` (an adaptive mode reading `obs`),
+    else unchanged. Returns `signs` (the reference returns a new array)."""
+    if cfg.mode == "none" or cfg.num_adversaries == 0:
+        return signs
+    check_mode(cfg.mode)
+    idx = replica_index(axis_names)
+    if idx < cfg.num_adversaries:
+        evil_signs_(signs.view(1, -1), cfg, [idx], step=step, salt=salt,
+                    offset=offset, obs=obs)
+    return signs
 
 
 __all__ = ["ATTACK_MODES", "MODES", "STOCHASTIC_MODES", "adversary_key",
            "apply_adversary", "apply_adversary_stacked", "build_config",
-           "check_mode", "coalition_config", "evil_signs_"]
+           "check_mode", "coalition_config", "evil_signs_", "replica_index"]

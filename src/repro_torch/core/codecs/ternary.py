@@ -21,7 +21,9 @@ from repro_torch.kernels import ops
 
 class TernaryWire:
     """The 2-bit packed transport, shaped like a strategy's stages; the
-    exchange (an all-gather) is virtualised by the caller over the stacked
+    exchange is an all-gather of the words over the vote axes of a
+    ``distributed.mesh.ProcessMesh`` (pod first, collapsed data-major, as
+    ``allgather_1bit``'s), or is virtualised by the caller over a stacked
     voter dim. On a CUDA tensor pack, tally and unpack are the
     ``ternary_pack``, ``ternary_majority`` and ``ternary_unpack`` kernels.
 
@@ -37,6 +39,11 @@ class TernaryWire:
         abstaining fields on its own."""
         return ops.ternary_pack(signs)
 
+    def exchange(self, wire: torch.Tensor, axes) -> torch.Tensor:
+        """(rows, w) local words -> (M * rows, w) gathered over `axes`."""
+        from repro_torch.core.vote_engine import STRATEGIES
+        return STRATEGIES[VoteStrategy.ALLGATHER_1BIT].exchange(wire, axes)
+
     def tally(self, arrived: torch.Tensor, n_voters: int) -> torch.Tensor:
         """(M, w) gathered words -> (w,) packed ternary majority."""
         return ops.ternary_majority(arrived)
@@ -46,10 +53,17 @@ class TernaryWire:
         """(w,) packed majority -> (n,) {-1, 0, +1} in `dtype`."""
         return ops.ternary_unpack(decision, n).to(dtype)
 
-    def vote(self, signs: torch.Tensor) -> torch.Tensor:
-        """(M, n) stacked int8 signs -> (n,) int8 majority."""
-        m, n = signs.shape
-        return self.unpack(self.tally(self.pack(signs, m), m), n, torch.int8)
+    def vote(self, signs: torch.Tensor, axes=None) -> torch.Tensor:
+        """(M, n) stacked int8 signs -> (n,) int8 majority; with vote
+        `axes`, this rank's (n,) signs -> the majority over them."""
+        if axes is None:
+            m, n = signs.shape
+            return self.unpack(self.tally(self.pack(signs, m), m), n,
+                               torch.int8)
+        from repro_torch.distributed.mesh import num_voters
+        m, n = num_voters(axes), signs.shape[-1]
+        arrived = self.exchange(self.pack(signs.view(1, -1), m), axes)
+        return self.unpack(self.tally(arrived, m), n, torch.int8)
 
 
 TERNARY_WIRE = TernaryWire()

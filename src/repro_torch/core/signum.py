@@ -106,6 +106,30 @@ The dense baselines (``kind`` ``sgd`` / ``sgdm`` / ``adam``,
 reference's psum-mean does, and update in float32; they have no vote and
 no kernel. :func:`build_optimizer` picks the family from ``kind``.
 
+Over the vote ``axes`` of a ``distributed.mesh.ProcessMesh`` (``axes=``,
+one voter per rank) the same optimizer runs with one local row: the
+momentum and the residual are this voter's, leaf-shaped with no voter
+dim; ``encode`` takes the rank's replica index (the adversary keys it),
+and ``update`` swaps the virtualised exchange for the collectives: the
+1-bit and 2-bit words are all-gathered (the strategies' ``exchange``: pod
+first, data-major) and tallied as the stacked words are; on ``psum_int8``
+and ``hierarchical`` the voter's 2-bit symbols are unpacked
+(``ternary_unpack``) and voted by the strategy's collectives (an int8
+all-reduce; the count reduce-scatter, the sum over pod and the packed
+all-gather), the decision repacked by ``ternary_pack`` for the same
+ternary apply. The plan walk runs ``vote_plan.MeshBucketWire``. The votes,
+and so the parameters, are the stacked step's bit for bit; a
+``weighted_vote`` state's rows are in the gathered order (data-major),
+which is the voter order on a mesh without a pod axis. The dense baselines
+mean with ``majority_vote.tree_mean``, an all-reduce.
+
+``diagnostics=True`` makes ``update`` return the reference's
+``vote_margin`` (mean |tally| / M over every coordinate, on the signs that
+reached the wire) and ``vote_agreement`` (the fraction of coordinates
+where voter 0's sign is the vote: the value the reference's mesh step
+returns, its metrics' out spec being replicated), computed as
+``core.vote_api``'s tree and plan forms compute them; otherwise ``{}``.
+
 Every other option raises and names the ROADMAP.md item that brings it.
 """
 from __future__ import annotations
@@ -120,8 +144,11 @@ from repro_torch.configs.base import (ByzantineConfig, MomentumMode,
                                       OptimizerConfig, VoteStrategy)
 from repro_torch.core import byzantine, codecs, majority_vote
 from repro_torch.core import sign_compress as sc
+from repro_torch.core import vote_api as va
 from repro_torch.core import vote_plan as vp
-from repro_torch.core.vote_engine import resolve_strategy
+from repro_torch.core.vote_engine import (STRATEGIES, count_dtype,
+                                          num_voters, resolve_strategy)
+from repro_torch.distributed import mesh as pm
 from repro_torch.kernels import ops
 
 
@@ -130,7 +157,7 @@ class Optimizer:
     init: Callable     # (params) -> state
     wire: Callable     # (params) -> one step's wire buffers
     encode: Callable   # (voter, grads, state, wire) -> None, in place
-    update: Callable   # (wire, state, params, step) -> None, in place
+    update: Callable   # (wire, state, params, step) -> diagnostics dict
     strategy: VoteStrategy   # the resolved vote strategy, never AUTO
     plan: Optional[vp.VotePlan] = None
 
@@ -222,9 +249,30 @@ def apply_momentum_vote_(u: torch.Tensor, vote: torch.Tensor,
     apply_int8_(p, u, eta, weight_decay)
 
 
+def _mesh_vote(words: torch.Tensor, n: int, ctx, codec, two_bit: bool,
+               ties: str, strategy: VoteStrategy, axes) -> torch.Tensor:
+    """This rank's (1, w) words of an n-coordinate leaf -> the packed vote
+    over the mesh `axes`, in the format the stacked tally gives (1-bit
+    words, or 2-bit words on a 2-bit wire)."""
+    if not two_bit or strategy == VoteStrategy.ALLGATHER_1BIT:
+        gathered = STRATEGIES[VoteStrategy.ALLGATHER_1BIT].exchange(words,
+                                                                   axes)
+        return codec.vote_(gathered, n, ctx, two_bit, ties)
+    symbols = ops.ternary_unpack(words[0], n, torch.int8)
+    if strategy == VoteStrategy.PSUM_INT8:
+        counts = STRATEGIES[strategy].exchange(
+            symbols.to(count_dtype(num_voters(axes))), axes)
+        vote = torch.sign(counts).to(torch.int8)
+    else:
+        vote = STRATEGIES[strategy].vote(symbols, axes)
+    return ops.ternary_pack(vote.view(1, -1))[0]
+
+
 def make_sign_optimizer(cfg: OptimizerConfig, n_voters: int,
                         plan: Optional[vp.VotePlan] = None,
-                        byz: Optional[ByzantineConfig] = None) -> Optimizer:
+                        byz: Optional[ByzantineConfig] = None,
+                        diagnostics: bool = False,
+                        axes=None) -> Optimizer:
     """SIGNUM / signSGD over `n_voters` stacked voters (see module doc),
     leaf-wise or, given `plan`, through its bucket schedule, with the
     voters below ``byz.num_adversaries`` adversarial when `byz` is given.
@@ -241,9 +289,17 @@ def make_sign_optimizer(cfg: OptimizerConfig, n_voters: int,
     gives the residual the parameter's shape, each device holding its own
     voter's; stacked on one device the port keeps the M of them as
     ``(M, *leaf_shape)``.) The codec's arithmetic is its own trainer hooks
-    (``core/codecs/base.py``)."""
+    (``core/codecs/base.py``). Over mesh `axes` (bound vote axes of M =
+    `n_voters` voters) the momentum and residual are this rank's voter's,
+    leaf-shaped (see the module doc)."""
     if n_voters < 1:
         raise ValueError(f"n_voters must be >= 1, got {n_voters}")
+    if axes is not None and num_voters(axes) != n_voters:
+        raise ValueError(f"{n_voters} voters over vote axes of "
+                         f"{num_voters(axes)}")
+    # rows of per-voter state this process holds: every voter's stacked,
+    # one voter's over a mesh
+    local = n_voters if axes is None else 1
     # AUTO resolves once, for M voters, as the reference's train step
     # resolves it (psum_int8 at M = 1; M > 1 needs an H100 link model)
     cfg = dataclasses.replace(cfg, vote_strategy=resolve_strategy(
@@ -274,7 +330,7 @@ def make_sign_optimizer(cfg: OptimizerConfig, n_voters: int,
 
     def init(params: Dict[str, torch.Tensor]) -> Dict:
         def zeros(names=None, voters=True):
-            lead = (n_voters,) if voters else ()
+            lead = (n_voters,) if voters and axes is None else ()
             return {k: torch.zeros(lead + tuple(p.shape), dtype=mom_dtype,
                                    device=p.device)
                     for k, p in params.items()
@@ -300,19 +356,33 @@ def make_sign_optimizer(cfg: OptimizerConfig, n_voters: int,
     else:
         byz = None
 
+    me = None if axes is None else pm.replica_index(axes)
+
     def wire(params: Dict[str, torch.Tensor], step: int = 0) -> Dict:
         """One step's buffers: each leaf's (M, w) words (under a plan, the
-        (M, n_params) int8 signs), what each voter's encode hands the
-        codec's feedback (``ef_sign``'s mean|t|) and the step (the
-        adversary's draws are keyed by it)."""
-        sent = {k: [None] * n_voters for k in params}
+        (M, n_params) int8 signs; over a mesh one row of each), what each
+        voter's encode hands the codec's feedback (``ef_sign``'s mean|t|)
+        and the step (the adversary's draws are keyed by it); with
+        diagnostics, each leaf's tally of the wire signs and voter 0's own
+        signs (over a mesh, this rank's)."""
+        out = {"sent": {k: [None] * local for k in params}, "step": step}
+        if diagnostics and plan is None:
+            out["counts"], out["own"] = {}, {}
         if plan is not None:
             device = next(iter(params.values())).device
-            return {"signs": torch.empty((n_voters, plan.n_params),
-                                         dtype=torch.int8, device=device),
-                    "sent": sent, "step": step}
-        return {"words": packed_like(params, n_voters, codec, two_bit),
-                "sent": sent, "step": step}
+            out["signs"] = torch.empty((local, plan.n_params),
+                                       dtype=torch.int8, device=device)
+        else:
+            out["words"] = packed_like(params, local, codec, two_bit)
+        return out
+
+    def row_of(voter: int) -> int:
+        if axes is not None and voter != me:
+            raise ValueError(f"this rank holds voter {me}, not {voter}")
+        return voter if axes is None else 0
+
+    def local_row(t: torch.Tensor, row: int) -> torch.Tensor:
+        return (t[row] if axes is None else t).view(-1)
 
     def encode(voter: int, grads: Dict[str, torch.Tensor], state: Dict,
                wire: Dict) -> None:
@@ -320,30 +390,65 @@ def make_sign_optimizer(cfg: OptimizerConfig, n_voters: int,
         beta*m_r + (1-beta)*g_r in place; the codec's symbols of its vote
         input (m', or g itself) into row `voter` of each leaf's words
         (under a plan, the signs into its row of the flat buffer; the
-        adversary acts on them in ``update``)."""
-        adversary = None
+        adversary acts on them in ``update``). Over a mesh `voter` is
+        this rank's replica index and its row the only one."""
+        row = row_of(voter)
+        adversary, evil = None, {}
         if byz is not None and plan is None \
                 and voter < byz.num_adversaries:
             def adversary(symbols: torch.Tensor) -> None:
                 byzantine.evil_signs_(symbols, byz, [voter],
                                       step=wire["step"])
+                if diagnostics:
+                    evil["signs"] = symbols.view(-1).clone()
         for k, g in grads.items():
             g = g.reshape(-1)
-            m = state["momentum"][k][voter].view(-1) if rows else None
-            error = (state["error"][k][voter].view(-1)
+            m = local_row(state["momentum"][k], row) if rows else None
+            error = (local_row(state["error"][k], row)
                      if k in state.get("error", {}) else None)
             if plan is None:
-                wire["sent"][k][voter] = codec.encode_voter_(
-                    g, m, beta, wire["words"][k][voter], error, two_bit,
+                wire["sent"][k][row] = codec.encode_voter_(
+                    g, m, beta, wire["words"][k][row], error, two_bit,
                     adversary)
+                if diagnostics:
+                    diag_encode(k, g, m, error, voter, wire, evil)
                 continue
             if m is None:
                 x = leaf_codec[k].raw_input_(g, error)
             else:
                 ops.momentum_sign_pack(g, m, beta, m_out=m, pack=False)
                 x = leaf_codec[k].vote_input_(m, error)
-            vp.write_signs(slots[k], x, wire["signs"][voter])
-            wire["sent"][k][voter] = leaf_codec[k].sent_(x)
+            vp.write_signs(slots[k], x, wire["signs"][row])
+            wire["sent"][k][row] = leaf_codec[k].sent_(x)
+
+    def diag_encode(k: str, g: torch.Tensor, m: Optional[torch.Tensor],
+                    error: Optional[torch.Tensor], voter: int, wire: Dict,
+                    evil: Dict) -> None:
+        """One voter's share of a leaf's diagnostics: its wire signs into
+        the leaf's tally and, for voter 0 (over a mesh, this rank), its
+        own signs. The vote input is the residual row t (``ef_sign``), m'
+        or g."""
+        x = error if error is not None else (m if m is not None else g)
+        own = sc.sign_ternary(x)
+        sent = evil.pop("signs", own)
+        counts = wire["counts"]
+        if k not in counts:
+            counts[k] = sent.to(count_dtype(n_voters))
+        else:
+            counts[k].add_(sent)
+        if voter == 0 or axes is not None:
+            wire["own"][k] = own
+
+    def diag_result(agree: int, num: int, n: int,
+                    device: torch.device) -> Dict[str, float]:
+        """The two metrics from voter 0's agreement count, the summed
+        |tally| and the coordinates; over a mesh voter 0's count is
+        broadcast so that every rank reports it."""
+        if axes is not None:
+            agree = int(pm.broadcast(torch.tensor([agree], dtype=torch.int64,
+                                                  device=device), axes)[0])
+        return {"vote_agreement": va.ratio_f32(va.int32_wrap(agree), n),
+                "vote_margin": va.margin_of([num], n, n_voters)}
 
     def apply_(k: str, p: torch.Tensor, state: Dict, vote: torch.Tensor,
                eta: float, wd: float) -> None:
@@ -360,37 +465,69 @@ def make_sign_optimizer(cfg: OptimizerConfig, n_voters: int,
 
     @torch.no_grad()
     def update(wire: Dict, state: Dict, params: Dict[str, torch.Tensor],
-               step: int) -> None:
+               step: int) -> Dict[str, float]:
         """Server side: each leaf's vote of its (M, w) words (under a plan,
-        the bucket walk over the flat signs), then x <- x - eta*(vote +
-        weight_decay*x) in place (under Mode B the sign of the momentum
-        that took the vote; under ``delayed_vote`` the banked vote), then
-        the codec's feedback."""
+        the bucket walk over the flat signs; over a mesh, of the gathered
+        or reduced words), then x <- x - eta*(vote + weight_decay*x) in
+        place (under Mode B the sign of the momentum that took the vote;
+        under ``delayed_vote`` the banked vote), then the codec's feedback.
+        Returns the diagnostics (``{}`` without them)."""
         eta, wd = lr_at(cfg, step), cfg.weight_decay
+        device = next(iter(params.values())).device
+        diag = {}
         if plan is not None:
-            if byz is not None:
-                byzantine.apply_adversary_stacked(wire["signs"], byz,
-                                                  step=step)
+            signs = wire["signs"] if axes is None else wire["signs"][0]
+            own = signs[0] if axes is None else signs
+            if diagnostics and byz is not None and (
+                    0 if axes is None else me) < byz.num_adversaries:
+                own = own.clone()   # voter 0's honest signs
+            if byz is not None and axes is None:
+                byzantine.apply_adversary_stacked(signs, byz, step=step)
+            elif byz is not None:
+                byzantine.apply_adversary(signs, byz, axes, step=step)
+            bucket_wire = (vp.VirtualBucketWire(n_voters) if axes is None
+                           else vp.MeshBucketWire(axes))
             votes, new_cstate = vp.run_schedule(
-                plan, wire["signs"], vp.VirtualBucketWire(n_voters),
-                state.get("codec"), overlap=cfg.overlap)
+                plan, signs, bucket_wire, state.get("codec"),
+                overlap=cfg.overlap)
+            if diagnostics:
+                tally = (torch.sum(signs, 0, dtype=count_dtype(n_voters))
+                         if axes is None else va.psum_counts(signs, axes))
+                diag = diag_result(va.count_equal(own, votes),
+                                   va.abs_sum(tally), plan.n_params, device)
+                del tally, own
             for key, v in state.get("codec", {}).items():
                 v.copy_(new_cstate[key])
             for k, p in params.items():
                 slot = slots[k]
                 vote = votes[slot.offset:slot.offset + slot.length]
                 if k in state.get("error", {}):
-                    error = state["error"][k].view(n_voters, -1)
+                    error = state["error"][k].view(local, -1)
                     leaf_codec[k].feedback_decoded_(
                         vote.to(error.dtype), error, wire["sent"][k])
                 apply_(k, p.view(-1), state, vote, eta, wd)
             state["count"] += 1
-            return
+            return diag
         ctx = codec.begin_step(state.get("codec"))
+        agree = num = total = 0
         for k, p in params.items():
             flat = p.view(-1)
             n = flat.shape[0]
-            votes = codec.vote_(wire["words"][k], n, ctx, two_bit, ties)
+            if axes is None:
+                votes = codec.vote_(wire["words"][k], n, ctx, two_bit, ties)
+            else:
+                votes = _mesh_vote(wire["words"][k], n, ctx, codec, two_bit,
+                                   ties, cfg.vote_strategy, axes)
+            if diagnostics:
+                decoded = (ops.ternary_unpack(votes, n, torch.int8) if two_bit
+                           else ops.bitunpack(votes, n, torch.int8))
+                agree += va.count_equal(wire["own"].pop(k), decoded)
+                tally = wire["counts"].pop(k)
+                if axes is not None:
+                    tally = va.psum_counts(tally, axes)
+                num += va.abs_sum(tally)
+                total += n
+                del decoded, tally
             if mode_b and beta > 0 or cfg.delayed_vote:
                 # the vote decoded: bf16 for the momentum, int8 to bank
                 dt = torch.bfloat16 if mode_b else torch.int8
@@ -400,11 +537,12 @@ def make_sign_optimizer(cfg: OptimizerConfig, n_voters: int,
                 del vote
             else:
                 codec.apply_(flat, votes, eta, wd, two_bit)
-            error = (state["error"][k].view(n_voters, -1)
+            error = (state["error"][k].view(local, -1)
                      if "error" in state else None)
             codec.feedback_voters_(votes, error, wire["sent"][k], two_bit)
         codec.end_step(state.get("codec"), ctx)
         state["count"] += 1
+        return diag_result(agree, num, total, device) if diagnostics else {}
 
     return Optimizer(init, wire, encode, update, cfg.vote_strategy, plan)
 
@@ -433,7 +571,8 @@ def sqrt_rn_(x: torch.Tensor) -> torch.Tensor:
     return x.sqrt_()
 
 
-def make_dense_optimizer(cfg: OptimizerConfig, n_voters: int) -> Optimizer:
+def make_dense_optimizer(cfg: OptimizerConfig, n_voters: int,
+                         axes=None) -> Optimizer:
     """Distributed SGD / SGDM / Adam (``repro.core.signum``'s
     ``make_dense_optimizer``) over `n_voters` stacked voters.
 
@@ -445,9 +584,10 @@ def make_dense_optimizer(cfg: OptimizerConfig, n_voters: int) -> Optimizer:
     the reference's update in float32 PyTorch ops, each product and sum
     rounded on its own and Adam's root rounded to nearest
     (:func:`sqrt_rn_`): the arithmetic of the reference's eager update,
-    bit for bit. (Its jitted trainer may contract a product and a sum into
-    an FMA, and reads float32 subnormals as zeros; neither is reproduced
-    here.) State:
+    bit for bit. Over mesh `axes` the mean is an all-reduce of this rank's
+    gradient (``majority_vote.tree_mean``). (Its jitted trainer may
+    contract a product and a sum into an FMA, and reads float32 subnormals
+    as zeros; neither is reproduced here.) State:
     ``{"count": int, "m": {name: float32 leaf-shaped}}`` for ``sgdm`` and
     ``adam``, with ``"v"`` beside it for ``adam``. The reference has no
     Pallas kernel here, and nor does the port."""
@@ -481,14 +621,16 @@ def make_dense_optimizer(cfg: OptimizerConfig, n_voters: int) -> Optimizer:
 
     @torch.no_grad()
     def update(wire: Dict, state: Dict, params: Dict[str, torch.Tensor],
-               step: int) -> None:
+               step: int) -> Dict[str, float]:
         """x <- x - eta*(upd + weight_decay*x) in float32, cast back, with
         upd the mean gradient (``sgd``), the momentum ``beta*m + g``
         (``sgdm``) or Adam's bias-corrected ratio."""
         eta, wd = lr_at(cfg, step), cfg.weight_decay
         count = state["count"] + 1
         b1, b2 = cfg.momentum, cfg.beta2
-        mean = majority_vote.tree_mean_(wire["sum"], n_voters)
+        mean = (majority_vote.tree_mean_(wire["sum"], n_voters)
+                if axes is None else
+                majority_vote.tree_mean(wire["sum"], axes))
         for k, p in params.items():
             g = mean.pop(k).to(torch.float32)
             if kind == "sgd":
@@ -511,17 +653,21 @@ def make_dense_optimizer(cfg: OptimizerConfig, n_voters: int) -> Optimizer:
             p.copy_(p32)
             del p32, upd
         state["count"] = count
+        return {}
 
     return Optimizer(init, wire, encode, update, strategy)
 
 
 def build_optimizer(cfg: OptimizerConfig, n_voters: int,
                     plan: Optional[vp.VotePlan] = None,
-                    byz: Optional[ByzantineConfig] = None) -> Optimizer:
+                    byz: Optional[ByzantineConfig] = None,
+                    diagnostics: bool = False, axes=None) -> Optimizer:
     """The optimizer of `cfg.kind` (``repro.core.signum.build_optimizer``):
     the sign family for ``signum_vote`` / ``signsgd_vote``, with the
-    adversaries of `byz`, else the dense baselines, which ignore `byz` as
-    the reference's do."""
+    adversaries of `byz` and the vote `diagnostics`, else the dense
+    baselines, which ignore both as the reference's do; over mesh `axes`
+    when given."""
     if cfg.kind in SIGN_KINDS:
-        return make_sign_optimizer(cfg, n_voters, plan, byz)
-    return make_dense_optimizer(cfg, n_voters)
+        return make_sign_optimizer(cfg, n_voters, plan, byz, diagnostics,
+                                   axes)
+    return make_dense_optimizer(cfg, n_voters, axes)

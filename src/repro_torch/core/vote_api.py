@@ -3,19 +3,28 @@ entry point for a majority vote.
 
 * :class:`VoteRequest` says what to vote on: the payload and its form,
   the wire (strategy, codec) and the failures in front of it.
-* A :class:`VoteBackend` executes it; the port has
-  :class:`VirtualBackend`, which runs the strategies' stages over a
-  stacked voter dim with the exchange replaced by its exact equivalent.
+* A :class:`VoteBackend` executes it: :class:`VirtualBackend` runs the
+  strategies' stages over a stacked voter dim with the exchange replaced
+  by its exact equivalent; :class:`MeshBackend` runs the real collectives
+  over ``torch.distributed`` process groups, one voter per rank
+  (``distributed.mesh.ProcessMesh``).
 * :class:`VoteOutcome` returns the decision, the server state and a
   :class:`WireReport` of what went on the wire.
 
     out = VirtualBackend(device="cuda").execute(VoteRequest(
         payload=x, form="stacked", strategy=VoteStrategy.ALLGATHER_1BIT))
+    out = MeshBackend(axes=mesh.vote_axes, device="cuda").execute(
+        VoteRequest(payload=tree, form="tree", diagnostics=True, ...))
 
-The port runs the ``stacked`` form — an ``(M, n)`` payload of M voters'
-values — on the three wires (``psum_int8``, ``allgather_1bit``,
-``hierarchical``) with the four codecs (``sign1bit``, ``ef_sign``,
-``ternary2bit``, ``weighted_vote``; each on the strategies it supports).
+The payload forms: ``leaf`` (this rank's tensor, voted over the mesh's
+axes), ``tree`` (a dict of this rank's leaves; the trainer's form, with
+the §7 diagnostics ``margin`` / ``agreement`` on request), ``stacked`` (an
+``(M, n)`` payload of M voters' values; on ``MeshBackend`` every rank of
+the world passes it, the first M ranks each vote their own row) and
+``streamed``. The port runs them on the three wires (``psum_int8``,
+``allgather_1bit``, ``hierarchical``) with the four codecs (``sign1bit``,
+``ef_sign``, ``ternary2bit``, ``weighted_vote``; each on the strategies it
+supports).
 ``VirtualBackend(use_kernels=True)`` votes ``sign1bit`` on
 ``allgather_1bit`` with the fused sign+pack+popcount kernel
 (``fused_majority``) and decodes with ``bitunpack``; with
@@ -60,9 +69,10 @@ one chunk (its ``wire_signs`` from one more pass). Both return
 ``vote.wire.messages``, from the request's static wire report) and, when a
 ``TraceRecorder`` is active, times it in a ``vote.execute`` span.
 
-What the port does not run yet raises ``NotImplementedError`` naming its
-ROADMAP.md item: the ``leaf`` and ``tree`` forms and :class:`MeshBackend`
-(Queue 1 item 5).
+On ``MeshBackend`` a leaf (and each leaf of a tree) is voted as one flat
+row: the vote of a coordinate does not depend on the layout, and the
+adversary draws a leaf as one flat row, as JAX draws a shape. Empty vote
+axes are the M = 1 case: the vote is the leaf's own ``sign_ternary``.
 """
 from __future__ import annotations
 
@@ -72,6 +82,7 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 import repro_torch
 from repro_torch.configs.base import ByzantineConfig, VoteStrategy
@@ -84,22 +95,20 @@ from repro_torch.core.codecs import weighted
 from repro_torch.core.codecs.ternary import TERNARY_WIRE
 from repro_torch.core.sign_compress import pad_last
 from repro_torch.core.vote_engine import count_bytes, count_dtype
-from repro_torch.distributed.fault_tolerance import simulate_stragglers
+from repro_torch.distributed import mesh as pm
+from repro_torch.distributed.fault_tolerance import (simulate_stragglers,
+                                                     straggler_mask_for)
 from repro_torch.kernels import ops
 from repro_torch.obs import recorder as obs
 
 FORMS = ("leaf", "stacked", "tree", "streamed")
+#: the reference's stacked mesh layouts; both run the same collectives here
+MESH_STYLES = ("data_model", "data_only")
 #: the reference's adaptive adversaries (``attacks.ATTACK_MODES``), which
 #: also read ``VoteRequest.attack_obs``
 ATTACK_MODES = byzantine.ATTACK_MODES
 #: every adversary mode the reference knows (``byzantine.MODES`` + those)
 ADVERSARY_MODES = byzantine.MODES + ATTACK_MODES
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md Queue 1 item {item}); the "
-        "port votes stacked (M, n) payloads on VirtualBackend")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -141,8 +150,11 @@ class WireReport:
     n_messages: int
     strategy: Optional[VoteStrategy]
     #: mean |tally| over the total vote weight (the streamed and annotated
-    #: forms fill it)
+    #: forms fill it, and a tree request with diagnostics)
     margin: Optional[float] = None
+    #: the fraction of coordinates where this voter's sign is the vote (a
+    #: tree request with diagnostics)
+    agreement: Optional[float] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -261,7 +273,9 @@ class VoteRequest:
     `attack_obs` is an adaptive adversary's observation, exactly its
     channel's keys (``attacks.CHANNEL_KEYS``). `voter_ids` / `weights`
     annotate a stacked payload's rows with logical ids / integer dataset
-    sizes. ``diagnostics`` must stay False (it belongs to the tree form)."""
+    sizes. ``diagnostics`` (tree form only) asks for ``margin`` /
+    ``agreement`` in the :class:`WireReport`. A ``tree`` payload is a
+    non-empty dict of this rank's leaves, a ``leaf`` payload one tensor."""
 
     payload: Any
     form: str = "leaf"
@@ -283,23 +297,25 @@ class VoteRequest:
         if self.form not in FORMS:
             raise ValueError(f"unknown payload form {self.form!r}; "
                              f"have {FORMS}")
-        if self.form in ("leaf", "tree"):
-            raise _not_ported(f"the {self.form!r} form (it votes inside a "
-                              "mesh region)", "5")
         codec = codecs_mod.get_codec(self.codec)   # raises on unknown
         if not isinstance(self.strategy, VoteStrategy):
             raise ValueError(f"strategy must be a VoteStrategy, got "
                              f"{self.strategy!r}")
         if self.plan is None and self.strategy != VoteStrategy.AUTO:
             codec.validate_strategy(self.strategy)
-        if self.form == "streamed":
+        if self.form == "tree":
+            if not isinstance(self.payload, dict) or not self.payload:
+                raise ValueError(
+                    "tree-form payload must be a non-empty dict of "
+                    f"leaves, got {type(self.payload).__name__}")
+        elif self.form == "streamed":
             self._validate_streamed()
         else:
             if not hasattr(self.payload, "shape"):
                 raise ValueError(
                     f"{self.form}-form payload must be an array, got "
                     f"{type(self.payload).__name__}")
-            if len(self.payload.shape) != 2:
+            if self.form == "stacked" and len(self.payload.shape) != 2:
                 raise ValueError(
                     "stacked-form payload must be (M, n) — M voters by n "
                     f"coordinates — got shape {tuple(self.payload.shape)}")
@@ -319,17 +335,19 @@ class VoteRequest:
         self._validate_plan()
         # a stacked or streamed request always decodes through the codec
         # (even M=1), so missing server state is a build-time error, as in
-        # the reference
+        # the reference; a leaf or tree request raises at execution where
+        # it has vote axes (at M = 1 the vote is the local sign)
         needs_state = (self.plan.has_server_state if self.plan is not None
                        else codec.server_state)
-        if needs_state and not self.server_state:
+        if (needs_state and not self.server_state
+                and self.form in ("stacked", "streamed")):
             raise ValueError(
                 f"codec {self.codec!r} (or the plan's codec map) keeps "
                 "server-side decode state; "
                 "thread it through "
                 "VoteRequest.server_state (init_server_state for the "
                 "uninformed prior)")
-        if self.diagnostics:
+        if self.diagnostics and self.form != "tree":
             raise ValueError(
                 "diagnostics (margin/agreement in the WireReport) are "
                 "computed over a voted tree; leaf/stacked callers "
@@ -406,6 +424,12 @@ class VoteRequest:
                     f"use one of the adaptive modes {attacks.ATTACK_MODES}")
             return
         byz = self.failures.byz
+        if self.form not in ("stacked", "streamed"):
+            raise ValueError(
+                f"adaptive adversary mode {byz.mode!r} observes the "
+                "previous round's flat broadcast vote; the "
+                f"{self.form!r} form has no such observation channel "
+                "(use the stacked or streamed form)")
         channel = attacks.MODE_CHANNEL[byz.mode]
         keys = attacks.CHANNEL_KEYS[channel]
         if (not isinstance(self.attack_obs, dict)
@@ -448,11 +472,31 @@ class VoteRequest:
     def _validate_plan(self):
         if self.plan is None:
             return
+        plan = self.plan
+        if self.form == "tree":
+            names = {s.name for s in plan.leaves}
+            keys = set(self.payload)
+            if names != keys:
+                raise ValueError(
+                    "plan manifest and tree payload disagree: plan has "
+                    f"{sorted(names - keys)} extra / misses "
+                    f"{sorted(keys - names)}")
+            for slot in plan.leaves:
+                got = tuple(self.payload[slot.name].shape)
+                if got != slot.shape:
+                    raise ValueError(
+                        f"leaf {slot.name!r} has shape {got}, plan "
+                        f"manifest says {slot.shape}")
+            return
         n = self.payload.shape[-1]
-        if n != self.plan.n_params:
+        if n != plan.n_params:
             raise ValueError(
                 f"{self.form} payload has {n} coordinates, plan manifest "
-                f"says {self.plan.n_params}")
+                f"says {plan.n_params}")
+        if self.form == "leaf" and len(self.payload.shape) != 1:
+            raise ValueError(
+                "a planned leaf payload is the flat (n_params,) buffer "
+                f"in manifest order, got shape {tuple(self.payload.shape)}")
 
     def __repr__(self):  # payloads are arrays — keep the repr readable
         return (f"VoteRequest(form={self.form!r}, strategy="
@@ -474,10 +518,243 @@ def _static_wire(plan, codec_name: str, resolved: Optional[VoteStrategy],
             n_voters=n_voters, payload_bytes=payload,
             n_messages=plan.n_buckets,
             strategy=strategies.pop() if len(strategies) == 1 else None)
+    if resolved is None or resolved == VoteStrategy.AUTO:
+        # M = 1 without vote axes: the vote is the local sign, no wire
+        return WireReport(n_voters=n_voters, payload_bytes=0.0,
+                          n_messages=0, strategy=None)
     c = codecs_mod.get_codec(codec_name)
     return WireReport(n_voters=n_voters,
                       payload_bytes=n_params * c.wire_bits(resolved) / 8.0,
                       n_messages=n_messages, strategy=resolved)
+
+
+# ---------------------------------------------------------------------------
+# execution over the mesh's vote axes (the reference's in-region path)
+# ---------------------------------------------------------------------------
+
+
+def _region_sizes(axes) -> tuple:
+    """(data, pod) sizes of the bound vote axes (1 for an absent axis)."""
+    data = pm.axis_size(axes, "data") if "data" in axes else 1
+    pod = pm.axis_size(axes, "pod") if "pod" in axes else 1
+    return data, pod
+
+
+def _wire_vote_signs(signs: torch.Tensor, axes, strategy: VoteStrategy,
+                     codec_name: str, server_state):
+    """This rank's flat int8 signs -> ((n,) int8 majority, new server
+    state) over the vote `axes`, through the resolved strategy's stages
+    and the codec's decode."""
+    c = codecs_mod.get_codec(codec_name)
+    state = dict(server_state) if server_state else {}
+    if not axes:
+        return signs, state
+    data, pod = _region_sizes(axes)
+    kind = ve.resolve_strategy(strategy, signs.numel(), data, pod,
+                               codec=codec_name)
+    c.validate_strategy(kind)
+    if c.name == "ternary2bit" and kind == VoteStrategy.ALLGATHER_1BIT:
+        return TERNARY_WIRE.vote(signs, axes), state
+    if c.server_state:
+        if not state:
+            raise ValueError(
+                f"codec {c.name!r} needs its server state threaded "
+                "through the request (init_server_state)")
+        impl = ve.STRATEGIES[VoteStrategy.ALLGATHER_1BIT]
+        n = signs.numel()
+        arrived = impl.exchange(impl.pack(signs.view(1, -1),
+                                          ve.num_voters(axes)), axes)
+        # the padding lanes are cropped before the decode
+        ema = torch.as_tensor(state["flip_ema"], dtype=torch.float32,
+                              device=signs.device)
+        vote, new_ema = weighted.decode_stacked(
+            weighted.stacked_signs(arrived, n), ema)
+        return vote, {**state, "flip_ema": new_ema}
+    return ve.STRATEGIES[kind].vote(signs, axes), state
+
+
+def _plan_walk(plan, flat_signs: torch.Tensor, axes, server_state,
+               overlap: bool = False):
+    """The bucket walk over this rank's (n_params,) effective signs on the
+    mesh wire -> ((n_params,) int8 votes, new server state)."""
+    if not axes:                     # M = 1: the vote is the sign
+        return flat_signs, dict(server_state) if server_state else {}
+    return vote_plan.run_schedule(plan, flat_signs,
+                                  vote_plan.MeshBucketWire(axes),
+                                  server_state, overlap=overlap)
+
+
+def _leaf_execute(values: torch.Tensor, axes, strategy: VoteStrategy,
+                  codec_name: str, plan, byz: Optional[ByzantineConfig],
+                  salt: int, n_stale: int, prev, step, server_state,
+                  overlap: bool = False, obs=None):
+    """One rank's vote with the failure composition in the reference's
+    pinned order: stale substitution on the raw payload (a straggling
+    adversary corrupts its stale vector), sign extraction, the adversary,
+    then the wire (leaf-wise or the plan's bucket walk). Returns (votes
+    in the payload's shape and dtype, new server state)."""
+    shape, dtype = values.shape, values.dtype
+    if n_stale and prev is not None and straggler_mask_for(axes, n_stale):
+        values = torch.as_tensor(prev, device=values.device)
+    signs = sc.sign_ternary(values.reshape(-1))
+    if byz is not None and axes:
+        byzantine.apply_adversary(signs, byz, axes,
+                                  step=None if step is None else int(step),
+                                  salt=salt, obs=obs)
+    if plan is not None:
+        vote, new_state = _plan_walk(plan, signs, axes, server_state,
+                                     overlap)
+    else:
+        vote, new_state = _wire_vote_signs(signs, axes, strategy,
+                                           codec_name, server_state)
+    return vote.reshape(shape).to(dtype), new_state
+
+
+#: elements one exact integer reduction reads at a time (PyTorch widens an
+#: integer or bool tensor it sums to int64 first: 512 MB for a chunk)
+SUM_CHUNK = 1 << 26
+
+
+def abs_sum(t: torch.Tensor) -> int:
+    """The exact sum of |t| of an integer tensor, a chunk at a time."""
+    return sum(int(c.abs().sum(dtype=torch.int64))
+               for c in t.reshape(-1).split(SUM_CHUNK))
+
+
+def count_equal(a: torch.Tensor, b: torch.Tensor) -> int:
+    """The number of coordinates where `a` equals `b`, a chunk at a time."""
+    return sum(int((x == y).sum(dtype=torch.int64)) for x, y in zip(
+        a.reshape(-1).split(SUM_CHUNK), b.reshape(-1).split(SUM_CHUNK)))
+
+
+def int32_wrap(v: int) -> int:
+    """`v` wrapped to int32, as the reference's int32 sums wrap."""
+    return (v + 2 ** 31) % 2 ** 32 - 2 ** 31
+
+
+def ratio_f32(num: int, den: int) -> float:
+    """``num / den`` of two integers as JAX divides an int32 array by a
+    Python int: both rounded to float32, then one float32 division."""
+    return float(np.float32(num) / np.float32(den))
+
+
+def margin_of(counts, n: int, m: int) -> float:
+    """The §7 margin from the signed tallies `counts` (tensors, or their
+    int64 sums of |count|): mean |count| / M over n coordinates, the
+    numerator summed as the reference's int32 sums are (wrapping past
+    2^31)."""
+    num = sum(abs_sum(c) if torch.is_tensor(c) else int(c) for c in counts)
+    return ratio_f32(int32_wrap(num), n * m)
+
+
+def agreement_of(local, votes) -> float:
+    """The fraction of coordinates where ``sign_ternary`` of this voter's
+    values `local` equals that of `votes` (leaf lists alike)."""
+    num = sum(count_equal(sc.sign_ternary(x), sc.sign_ternary(v))
+              for x, v in zip(local, votes))
+    return ratio_f32(int32_wrap(num), sum(v.numel() for v in votes))
+
+
+def psum_counts(signs: torch.Tensor, axes) -> torch.Tensor:
+    """This rank's int8 wire signs summed over the vote axes, in the count
+    dtype of M voters (the reference sums them as int32; the sums are the
+    same and int8 moves a quarter of the bytes)."""
+    if not axes:
+        return signs
+    return pm.psum(signs.to(count_dtype(ve.num_voters(axes))), axes)
+
+
+def _tree_diagnostics(tree: Dict, votes: Dict, axes,
+                      byz: Optional[ByzantineConfig], step, salt: int):
+    """(margin, agreement) of a leaf-wise tree vote: the margin over the
+    signs that reached the wire (the adversary applied again under the
+    same keys), the agreement of this rank's own signs with the vote."""
+    m = ve.num_voters(axes) if axes else 1
+    counts = []
+    for leaf in tree.values():
+        s = sc.sign_ternary(leaf.reshape(-1))
+        if byz is not None and axes:
+            byzantine.apply_adversary(s, byz, axes, step=step, salt=salt)
+        counts.append(psum_counts(s, axes))
+    n = sum(leaf.numel() for leaf in tree.values())
+    return (margin_of(counts, n, m),
+            agreement_of(list(tree.values()), list(votes.values())))
+
+
+def _tree_execute(tree: Dict, axes, strategy: VoteStrategy,
+                  codec_name: str, byz: Optional[ByzantineConfig], step,
+                  salt: int, server_state, diagnostics: bool):
+    """Leaf-wise tree vote. AUTO resolves once for the tree's total size; a
+    server-stateful codec decodes every leaf under this step's weights and
+    folds one EMA update over the whole tree."""
+    c = codecs_mod.get_codec(codec_name)
+    step = None if step is None else int(step)
+    resolved = strategy
+    if strategy == VoteStrategy.AUTO and axes:
+        data, pod = _region_sizes(axes)
+        resolved = ve.resolve_strategy(
+            strategy, sum(leaf.numel() for leaf in tree.values()), data, pod,
+            codec=codec_name)
+    state = dict(server_state) if server_state else {}
+    if not c.server_state or not axes:
+        votes = {k: _leaf_execute(leaf, axes, resolved, codec_name, None,
+                                  byz, salt, 0, None, step, None)[0]
+                 for k, leaf in tree.items()}
+        new_state = state
+    else:
+        c.validate_strategy(resolved)
+        if not state:
+            raise ValueError(
+                f"codec {c.name!r} needs its server state threaded "
+                "through the request (init_server_state)")
+        impl = ve.STRATEGIES[VoteStrategy.ALLGATHER_1BIT]
+        m = ve.num_voters(axes)
+        ema = torch.as_tensor(state["flip_ema"], dtype=torch.float32,
+                              device=next(iter(tree.values())).device)
+        w = weighted.reliability_weights(ema).tolist()
+        votes, mismatch, total_n = {}, None, 0
+        for k, leaf in tree.items():
+            s = sc.sign_ternary(leaf.reshape(-1))
+            if byz is not None:
+                byzantine.apply_adversary(s, byz, axes, step=step, salt=salt)
+            arrived = impl.exchange(impl.pack(s.view(1, -1), m), axes)
+            vote, mis = weighted.decode_leaf_fixed(
+                weighted.stacked_signs(arrived, s.numel()), w)
+            mismatch = mis if mismatch is None else mismatch + mis
+            total_n += s.numel()
+            votes[k] = vote.reshape(leaf.shape).to(leaf.dtype)
+        new_state = {**state, "flip_ema": weighted.ema_update(
+            ema, mismatch, total_n)}
+    margin = agreement = None
+    if diagnostics:
+        margin, agreement = _tree_diagnostics(tree, votes, axes, byz, step,
+                                              salt)
+    return votes, new_state, margin, agreement, resolved
+
+
+def _plan_tree_execute(plan, tree: Dict, axes,
+                       byz: Optional[ByzantineConfig], step, salt: int,
+                       server_state, diagnostics: bool,
+                       overlap: bool = False):
+    """The plan path of a tree: sign extraction per leaf into one flat
+    buffer, the adversary once over it, then the bucket walk; the
+    diagnostics over the flat buffer's true coordinates."""
+    step = None if step is None else int(step)
+    honest = vote_plan.flatten_signs(plan, tree)
+    eff = honest
+    if byz is not None and axes:
+        eff = byzantine.apply_adversary(honest.clone(), byz, axes, step=step,
+                                        salt=salt)
+    flat_votes, new_state = _plan_walk(plan, eff, axes, server_state,
+                                       overlap)
+    margin = agreement = None
+    if diagnostics:
+        m = ve.num_voters(axes) if axes else 1
+        margin = margin_of([psum_counts(eff, axes)], plan.n_params, m)
+        agreement = ratio_f32(count_equal(honest, flat_votes),
+                              plan.n_params)
+    return (vote_plan.unflatten_votes(plan, flat_votes, tree), new_state,
+            margin, agreement)
 
 
 def effective_stacked_signs(values: torch.Tensor, prev=None,
@@ -622,13 +899,148 @@ class VoteBackend(abc.ABC):
         """The backend's execution body (request already validated)."""
 
 
-class MeshBackend:
-    """The real collectives over ``torch.distributed``: not ported yet."""
+class MeshBackend(VoteBackend):
+    """The real collectives over ``torch.distributed``, one voter per rank.
+
+    * ``leaf`` / ``tree`` requests vote this rank's payload over the bound
+      vote `axes` (``ProcessMesh.vote_axes``; the trainer's form). Empty
+      axes are the M = 1 case, the vote the local sign.
+    * ``stacked`` requests are passed, the same ``(M, n)`` payload, by every
+      rank of the initialised world (one rank needs none): the first M
+      ranks each vote their own row over their data-only mesh
+      (``mesh.first_ranks``) and every rank gets the same votes and server
+      state back, broadcast from rank 0 to the ranks outside it.
+      `mesh_style` takes the reference's two layouts, which run the same
+      collectives here.
+
+    `device` (``"cuda"`` unless told otherwise) is where a numpy payload is
+    put; a tensor payload keeps its own device."""
 
     name = "mesh"
 
-    def __init__(self, *args, **kwargs):
-        raise _not_ported("MeshBackend (the multi-process wire)", "5")
+    def __init__(self, axes=None, mesh_style: str = "data_model",
+                 device: repro_torch.DeviceLike = None):
+        if mesh_style not in MESH_STYLES:
+            raise ValueError(f"unknown mesh_style {mesh_style!r}; "
+                             f"have {MESH_STYLES}")
+        if axes is not None and not isinstance(axes, pm.VoteAxes):
+            if tuple(axes):
+                raise ValueError(
+                    f"vote axes {tuple(axes)} must be bound to their "
+                    "ProcessMesh (pass ProcessMesh.vote_axes)")
+            axes = pm.VoteAxes()
+        self.axes = axes
+        self.mesh_style = mesh_style
+        self.device = repro_torch.resolve_device(device)
+
+    @staticmethod
+    def world_size() -> int:
+        return dist.get_world_size() if dist.is_initialized() else 1
+
+    def why_unsupported(self, request: VoteRequest) -> Optional[str]:
+        if request.form == "streamed":
+            return ("the streamed population form virtualises more "
+                    "voters than any physical mesh holds replicas; use "
+                    "VirtualBackend")
+        if request.voter_ids is not None or request.weights is not None:
+            return ("logical voter ids / dataset-size vote weights "
+                    "describe a virtual population; the mesh backend's "
+                    "voters are physical replicas (use VirtualBackend)")
+        if request.form == "stacked":
+            m, have = request.payload.shape[0], self.world_size()
+            if m > have:
+                return (f"stacked execution needs {m} ranks for {m} "
+                        f"voters, have {have} (use VirtualBackend, or "
+                        "initialise a torch.distributed world of M ranks)")
+            return None
+        if self.axes is None:
+            return (f"{request.form}-form requests run over a mesh's vote "
+                    "axes; construct MeshBackend(axes=mesh.vote_axes)")
+        return None
+
+    def _execute(self, request: VoteRequest) -> VoteOutcome:
+        if request.form == "stacked":
+            return self._execute_stacked(request)
+        if request.form == "tree":
+            return self._execute_tree(request)
+        return self._execute_leaf(request)
+
+    def _tensor(self, x) -> torch.Tensor:
+        t = torch.as_tensor(x, device=None if torch.is_tensor(x)
+                            else self.device)
+        # what the reference's arrays hold with JAX's 64-bit mode off
+        return t.to(torch.float32) if t.dtype == torch.float64 else t
+
+    def _n_voters(self) -> int:
+        return ve.num_voters(self.axes) if self.axes else 1
+
+    def _execute_leaf(self, req: VoteRequest) -> VoteOutcome:
+        f = req.failures
+        payload = self._tensor(req.payload)
+        votes, state = _leaf_execute(
+            payload, self.axes, req.strategy, req.codec, req.plan, f.byz,
+            req.salt, f.n_stale, req.prev, req.step, req.server_state,
+            req.overlap)
+        resolved = None
+        if self.axes and req.plan is None:
+            data, pod = _region_sizes(self.axes)
+            resolved = ve.resolve_strategy(req.strategy, payload.numel(),
+                                           data, pod, codec=req.codec)
+        wire = _static_wire(req.plan, req.codec, resolved, payload.numel(),
+                            1, self._n_voters())
+        return VoteOutcome(votes=votes, server_state=state, wire=wire)
+
+    def _execute_tree(self, req: VoteRequest) -> VoteOutcome:
+        f = req.failures
+        tree = {k: self._tensor(v) for k, v in req.payload.items()}
+        if req.plan is not None:
+            votes, state, margin, agreement = _plan_tree_execute(
+                req.plan, tree, self.axes, f.byz, req.step, req.salt,
+                req.server_state, req.diagnostics, req.overlap)
+            resolved = None
+        else:
+            votes, state, margin, agreement, resolved = _tree_execute(
+                tree, self.axes, req.strategy, req.codec, f.byz, req.step,
+                req.salt, req.server_state, req.diagnostics)
+        if not self.axes:
+            resolved = None
+        total = sum(v.numel() for v in tree.values())
+        wire = _static_wire(req.plan, req.codec, resolved, total, len(tree),
+                            self._n_voters())
+        wire = dataclasses.replace(wire, margin=margin, agreement=agreement)
+        return VoteOutcome(votes=votes, server_state=state, wire=wire)
+
+    def _execute_stacked(self, req: VoteRequest) -> VoteOutcome:
+        m, n = req.payload.shape
+        f = req.failures
+        sub = pm.first_ranks(m)
+        world = self.world_size()
+        state = {k: torch.as_tensor(v, device=self.device)
+                 for k, v in (req.server_state or {}).items()}
+        if sub.member:
+            row = sub.replica_index()
+            x = self._tensor(req.payload)[row].to(self.device)
+            prev = (None if req.prev is None else
+                    torch.as_tensor(req.prev, device=self.device)[row])
+            votes, state = _leaf_execute(
+                x, sub.vote_axes, req.strategy, req.codec, req.plan, f.byz,
+                req.salt, f.n_stale, prev, req.step, req.server_state,
+                req.overlap, obs=req.attack_obs)
+            votes = votes.to(torch.int8)
+        else:
+            votes = torch.empty(n, dtype=torch.int8, device=self.device)
+        if m < world:
+            # the ranks outside the drill's mesh take rank 0's outcome
+            everyone = pm.ProcessMesh((world,), ("data",)).vote_axes
+            votes = pm.broadcast(votes, everyone)
+            state = {k: pm.broadcast(torch.as_tensor(
+                v, dtype=torch.float32, device=self.device), everyone)
+                for k, v in state.items()}
+        resolved = (None if req.plan is not None else
+                    ve.resolve_strategy(req.strategy, n, m, 1,
+                                        codec=req.codec))
+        wire = _static_wire(req.plan, req.codec, resolved, n, 1, m)
+        return VoteOutcome(votes=votes, server_state=state, wire=wire)
 
 
 class VirtualBackend(VoteBackend):
@@ -659,6 +1071,11 @@ class VirtualBackend(VoteBackend):
             raise ValueError(f"chunk_size must be >= 1, got {chunk_size}")
 
     def why_unsupported(self, request: VoteRequest) -> Optional[str]:
+        if request.form not in ("stacked", "streamed"):
+            return ("the virtual backend executes host-local stacked "
+                    f"(M, n) payloads or streamed populations, not "
+                    f"{request.form!r} (use MeshBackend over the mesh's "
+                    "vote axes)")
         if request.form == "streamed":
             if self.use_kernels:
                 return ("the fused-kernel path consumes one dense (M, n) "
@@ -794,7 +1211,9 @@ class VirtualBackend(VoteBackend):
 
 
 __all__ = [
-    "FailureSpec", "MeshBackend", "PopulationStream", "VirtualBackend",
-    "VoteBackend", "VoteOutcome", "VoteRequest", "WireReport",
-    "count_bytes", "count_dtype", "effective_stacked_signs", "pad_last",
+    "FailureSpec", "MESH_STYLES", "MeshBackend", "PopulationStream",
+    "VirtualBackend", "VoteBackend", "VoteOutcome", "VoteRequest",
+    "WireReport", "abs_sum", "agreement_of", "count_bytes", "count_dtype",
+    "count_equal", "effective_stacked_signs", "int32_wrap", "margin_of",
+    "pad_last", "psum_counts", "ratio_f32",
 ]

@@ -4,11 +4,23 @@ The paper's parameter server is a four-stage pipeline
 
     pack  ->  exchange  ->  tally  ->  unpack
 
-and each :class:`VoteStrategyImpl` realises its stages differently. The
-port carries the three stages that run on one device; ``exchange`` is a
-collective and waits for the multi-process wire (ROADMAP.md Queue 1
-item 5). Until then the exchange is virtualised over a stacked voter dim
-by ``core.vote_api`` (the reference's ``_virtual_wire_vote``).
+and each :class:`VoteStrategyImpl` realises its stages differently. Over
+a stacked voter dim the exchange is virtualised by ``core.vote_api`` (the
+reference's ``_virtual_wire_vote``); over a
+``distributed.mesh.ProcessMesh`` each rank holds one voter and
+:meth:`VoteStrategyImpl.exchange` runs the collectives over the bound vote
+axes (``mesh.VoteAxes``), :meth:`VoteStrategyImpl.vote` composing the four
+stages there as the reference does inside its ``shard_map`` region:
+
+* ``psum_int8`` — one all-reduce of the count dtype (int16 counts ride as
+  int32, ``distributed/mesh.py``);
+* ``allgather_1bit`` — an all-gather of the packed words over each axis,
+  pod first, then data, the voter dim collapsed data-major (row ``d * pod
+  + p``) as the reference collapses it (``weighted_vote``'s per-voter
+  rows follow that order);
+* ``hierarchical`` — pad to ``PACK * data``, a reduce-scatter of the
+  counts over data and their sum over pod, the ties-+1 sign, and the
+  packed decision all-gathered (tiled) over data.
 
 On a CUDA tensor the 1-bit stages run the hand-written kernels: the
 gathered wire packs with ``bitpack``, tallies with ``majority`` and
@@ -29,13 +41,25 @@ item 15).
 from __future__ import annotations
 
 import abc
-from typing import Dict
+from typing import Dict, Sequence, Tuple
 
 import torch
 
 from repro_torch.configs.base import VoteStrategy
 from repro_torch.core import sign_compress as sc
+from repro_torch.distributed import mesh as pm
 from repro_torch.kernels import ops
+from repro_torch.obs import recorder as obs
+
+
+def vote_axes_in(mesh_axis_names: Sequence[str]) -> Tuple[str, ...]:
+    """The mesh axes the vote runs over, outermost first."""
+    return tuple(a for a in pm.VOTE_AXES if a in mesh_axis_names)
+
+
+def num_voters(axes) -> int:
+    """Voters over the bound vote axes (1 for none)."""
+    return pm.num_voters(axes)
 
 
 def count_dtype(n_voters: int) -> torch.dtype:
@@ -74,6 +98,28 @@ class VoteStrategyImpl(abc.ABC):
                dtype: torch.dtype) -> torch.Tensor:
         """Decode the decision to (n,) ±1/0 signs in `dtype`."""
 
+    @abc.abstractmethod
+    def exchange(self, wire: torch.Tensor, axes) -> torch.Tensor:
+        """Run the collectives over the bound vote `axes`; returns what
+        tally needs."""
+
+    def vote(self, signs: torch.Tensor, axes) -> torch.Tensor:
+        """This rank's flat int8 signs (n,) -> the (n,) int8 majority over
+        the vote `axes`, through the four stages (each in a host span
+        ``stage.pack`` .. ``stage.unpack`` when a recorder is active)."""
+        m = num_voters(axes)
+        n = signs.shape[-1]
+        rec = obs.get_recorder()
+        kind = self.kind.value
+        with rec.span("stage.pack", strategy=kind, n=n):
+            wire = self.pack(signs.view(1, -1), m)
+        with rec.span("stage.exchange", strategy=kind, n=n):
+            arrived = self.exchange(wire, axes)
+        with rec.span("stage.tally", strategy=kind, n=n):
+            decision = self.tally(arrived, m)
+        with rec.span("stage.unpack", strategy=kind, n=n):
+            return self.unpack(decision, n, torch.int8).view(-1)
+
     def payload_bytes(self, n_params: int, n_voters: int = 2) -> float:
         """One replica's outbound wire payload (the paper's 'bits sent')."""
         return n_params * self.wire_bits_per_param / 8.0
@@ -98,6 +144,9 @@ class PsumInt8Strategy(VoteStrategyImpl):
 
     def pack(self, signs, n_voters):
         return signs.to(count_dtype(n_voters))
+
+    def exchange(self, wire, axes):
+        return pm.psum(wire, axes)
 
     def tally(self, arrived, n_voters):
         return arrived
@@ -128,6 +177,14 @@ class Allgather1BitStrategy(VoteStrategyImpl):
 
     def pack(self, signs, n_voters):
         return ops.bitpack(signs)
+
+    def exchange(self, wire, axes):
+        """(rows, w) local words -> (M * rows, w): gathered over each axis,
+        pod first, the stacked dims collapsed data-major."""
+        packed = wire
+        for a in axes:
+            packed = pm.all_gather(packed, axes, a)
+        return packed.reshape((-1,) + tuple(wire.shape[1:]))
 
     def tally(self, arrived, n_voters):
         return ops.majority(arrived)
@@ -170,6 +227,30 @@ class HierarchicalStrategy(VoteStrategyImpl):
         # decision: (M, shard) — the gather of the packed shards is their
         # concatenation in voter order
         return ops.bitunpack(ops.bitpack(decision).view(-1), n, dtype)
+
+    def exchange(self, wire, axes):
+        """(n_pad,) local counts -> this rank's shard of their sum: a
+        reduce-scatter over data, then a sum over pod."""
+        counts = pm.psum_scatter(wire, axes, "data")
+        if "pod" in tuple(axes):
+            counts = pm.psum(counts, axes, ("pod",))
+        return counts
+
+    def gather_unpack(self, decision, n, dtype, axes):
+        """This rank's shard decision -> the (n,) decision: packed
+        (``bitpack``), all-gathered over data (tiled) and decoded
+        (``bitunpack``)."""
+        words = ops.bitpack(decision.view(1, -1))[0]
+        return ops.bitunpack(pm.all_gather(words, axes, "data", tiled=True),
+                             n, dtype)
+
+    def vote(self, signs, axes):
+        dsize = pm.axis_size(axes, "data")
+        m = num_voters(axes)
+        n = signs.shape[-1]
+        padded, _ = sc.pad_last(signs.view(-1), sc.PACK * dsize)
+        decision = self.tally(self.exchange(self.pack(padded, m), axes), m)
+        return self.gather_unpack(decision, n, torch.int8, axes)
 
     def ring_bytes(self, n_params, data_size, pod_size=1):
         d = float(n_params)

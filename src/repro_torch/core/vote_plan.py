@@ -20,9 +20,14 @@ buckets:
 int8 sign buffer with :class:`VirtualBucketWire`, whose ``issue`` (pack +
 the virtualised exchange) and ``complete`` (tally + unpack + the codec's
 decode) are the strategies' and codecs' own stages, the hand-written
-kernels on a CUDA tensor. ``overlap=True`` issues bucket k before bucket
-k-1 completes; the per-bucket dataflow is the same, so the votes are
-bit-identical to the synchronous walk. A server-stateful codec
+kernels on a CUDA tensor; or over one rank's ``(n_params,)`` signs with
+:class:`MeshBucketWire`, whose exchange is the collectives over the vote
+axes of a ``distributed.mesh.ProcessMesh`` (hierarchical's segment padded
+to ``PACK * data`` before its pack). :func:`plan_vote_signs` and
+:func:`plan_tree_vote` are the reference's entry points over the mesh.
+``overlap=True`` issues bucket k before bucket k-1 completes; the
+per-bucket dataflow is the same, so the votes are bit-identical to the
+synchronous walk. A server-stateful codec
 (``weighted_vote``) decodes every bucket under weights fixed for the step
 and folds ONE flip-rate EMA update over the weighted buckets' true
 coordinates, rounded as XLA fuses it (``weighted.ema_update_fused``).
@@ -44,12 +49,10 @@ model's predicted exchange time) is ``None`` until the port has an H100
 link model (ROADMAP.md Queue 1 item 15). The spans time the host's
 launches, not the card's work.
 
-Not ported yet: ``MeshBucketWire``, ``plan_vote_signs`` and
-``plan_tree_vote`` (the collectives, ROADMAP.md Queue 1 item 5), and
-every price of the α–β model (item 15): a plan is built where the
-reference's choice has one candidate (a concrete strategy, or AUTO with
-``data_size * pod_size <= 1``, at a fixed ``bucket_bytes``), which no
-price can change. A priced AUTO, ``bucket_bytes = AUTO_BUCKET_BYTES`` and
+Not ported yet: every price of the α–β model (ROADMAP.md Queue 1 item
+15): a plan is built where the reference's choice has one candidate (a
+concrete strategy, or AUTO with ``data_size * pod_size <= 1``, at a fixed
+``bucket_bytes``), which no price can change. A priced AUTO, ``bucket_bytes = AUTO_BUCKET_BYTES`` and
 :meth:`VotePlan.schedule_cost` raise ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -399,10 +402,60 @@ class VirtualBucketWire:
                            torch.int8), None
 
 
-def run_schedule(plan: VotePlan, buf: torch.Tensor, wire: VirtualBucketWire,
+class MeshBucketWire:
+    """issue/complete of one bucket over the collectives of the bound vote
+    `axes` (``mesh.VoteAxes``), each rank holding its own segment (the
+    reference's ``MeshBucketWire``)."""
+
+    def __init__(self, axes):
+        self.axes = axes
+
+    def issue(self, bucket: Bucket, seg: torch.Tensor) -> torch.Tensor:
+        from repro_torch.distributed.mesh import axis_size, num_voters
+        m, row = num_voters(self.axes), seg.reshape(1, -1)
+        if bucket.codec == "ternary2bit" \
+                and bucket.strategy == VoteStrategy.ALLGATHER_1BIT:
+            return TERNARY_WIRE.exchange(TERNARY_WIRE.pack(row, m),
+                                         self.axes)
+        if bucket.codec == "weighted_vote":
+            impl = STRATEGIES[VoteStrategy.ALLGATHER_1BIT]
+            return impl.exchange(impl.pack(row, m), self.axes)
+        impl = STRATEGIES[bucket.strategy]
+        if bucket.strategy == VoteStrategy.HIERARCHICAL:
+            # the reduce-scatter's shards stay word-aligned: pad to
+            # PACK * data BEFORE the pack
+            row, _ = sc.pad_last(row, sc.PACK * axis_size(self.axes, "data"))
+            return impl.exchange(impl.pack(row.view(-1), m), self.axes)
+        return impl.exchange(impl.pack(row, m), self.axes)
+
+    def complete(self, bucket: Bucket, arrived: torch.Tensor,
+                 w: Optional[Sequence[float]]):
+        """-> (votes int8 (length,), mismatch (M,) int64 or None)."""
+        from repro_torch.distributed.mesh import num_voters
+        m = num_voters(self.axes)
+        if bucket.codec == "ternary2bit" \
+                and bucket.strategy == VoteStrategy.ALLGATHER_1BIT:
+            return TERNARY_WIRE.unpack(TERNARY_WIRE.tally(arrived, m),
+                                       bucket.length, torch.int8), None
+        if bucket.codec == "weighted_vote":
+            return weighted.decode_leaf_fixed(
+                weighted.stacked_signs(arrived, bucket.length), w)
+        impl = STRATEGIES[bucket.strategy]
+        if bucket.strategy == VoteStrategy.HIERARCHICAL:
+            # the unpack stage carries the second collective, the packed
+            # all-gather of the shard decisions
+            return impl.gather_unpack(impl.tally(arrived, m), bucket.length,
+                                      torch.int8, self.axes), None
+        return impl.unpack(impl.tally(arrived, m), bucket.length,
+                           torch.int8).view(-1), None
+
+
+def run_schedule(plan: VotePlan, buf: torch.Tensor, wire,
                  server_state=None, overlap: bool = False):
-    """Walk the bucket schedule over the ``(M, n_params)`` stacked int8
-    signs `buf` -> ((n_params,) int8 votes, new server state).
+    """Walk the bucket schedule over `buf`, the ``(M, n_params)`` stacked
+    int8 signs on a :class:`VirtualBucketWire` or this rank's
+    ``(n_params,)`` (or ``(1, n_params)``) signs on a
+    :class:`MeshBucketWire` -> ((n_params,) int8 votes, new server state).
 
     ``overlap=False`` completes each bucket before issuing the next;
     ``overlap=True`` issues bucket k, THEN completes bucket k-1. The
@@ -463,6 +516,37 @@ def run_schedule(plan: VotePlan, buf: torch.Tensor, wire: VirtualBucketWire,
     return votes, state
 
 
+def plan_vote_signs(plan: VotePlan, flat_signs: torch.Tensor, axes,
+                    server_state=None):
+    """The bucket walk over this rank's (n_params,) effective int8 signs
+    inside the vote `axes` -> ((n_params,) int8 votes, new server state),
+    as a leaf-form VoteRequest on ``MeshBackend``."""
+    from repro_torch.core import vote_api as va
+    out = va.MeshBackend(axes=axes, device=flat_signs.device).execute(
+        va.VoteRequest(payload=flat_signs, form="leaf", plan=plan,
+                       server_state=server_state))
+    return out.votes, out.server_state
+
+
+def plan_tree_vote(plan: VotePlan, tree, axes, byz=None, step=None,
+                   salt: int = 0, server_state=None,
+                   diagnostics: bool = False):
+    """The trainer's plan path over the mesh: a tree of this rank's values
+    -> (±1/0 tree in the leaf dtypes, new server state, diagnostics dict),
+    as a tree-form VoteRequest on ``MeshBackend``."""
+    from repro_torch.core import vote_api as va
+    device = next(iter(tree.values())).device
+    out = va.MeshBackend(axes=axes, device=device).execute(va.VoteRequest(
+        payload=tree, form="tree", plan=plan,
+        failures=va.FailureSpec(byz=byz), step=step, salt=salt,
+        server_state=server_state, diagnostics=diagnostics))
+    diag = {}
+    if diagnostics:
+        diag = {"vote_margin": out.wire.margin,
+                "vote_agreement": out.wire.agreement}
+    return out.votes, out.server_state, diag
+
+
 # ---------------------------------------------------------------------------
 # execution: the stacked fused-kernel path
 # ---------------------------------------------------------------------------
@@ -507,8 +591,9 @@ def plan_vote_stacked(plan: VotePlan, stacked: torch.Tensor,
 
 
 __all__ = [
-    "ALIGN", "AUTO_BUCKET_BYTES", "Bucket", "LeafSlot", "PlanGroup",
-    "VirtualBucketWire", "VotePlan", "build_plan", "flatten_signs",
+    "ALIGN", "AUTO_BUCKET_BYTES", "Bucket", "LeafSlot", "MeshBucketWire",
+    "PlanGroup", "VirtualBucketWire", "VotePlan", "build_plan",
+    "flatten_signs", "plan_tree_vote", "plan_vote_signs",
     "plan_vote_stacked", "resolve_codec_map", "run_schedule",
     "unflatten_votes", "write_signs",
 ]

@@ -14,10 +14,11 @@ the vote. This module is the plumbing around that property:
   losing devices (Mode A state is refit by ``checkpoint.refit_leading_axis``);
 * :class:`Watchdog` — a wall-clock timer around blocking work.
 
-Not ported: :func:`straggler_mask_for`, :func:`make_mesh_from_plan` and the
-``*_vote_with_failures`` shims address mesh axes and the mesh backend
-(ROADMAP.md Queue 1 item 5) and raise; on one device the failure
-composition is data on a ``VoteRequest`` (``core.vote_api.FailureSpec``).
+Over a ``distributed.mesh.ProcessMesh``, :func:`straggler_mask_for` says
+whether this rank's voter is stale, :func:`make_mesh_from_plan` gives the
+survivors' mesh, and the ``*_vote_with_failures`` shims (the reference's
+deprecated entry points) build one ``core.vote_api.VoteRequest`` with a
+``FailureSpec`` and execute it on ``MeshBackend``.
 """
 from __future__ import annotations
 
@@ -46,31 +47,66 @@ def count_for_fraction(fraction: float, n_replicas: int) -> int:
     return min(n_replicas, half_up)
 
 
-def _mesh_only(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} addresses mesh axes and needs the multi-process wire, not "
-        "ported yet (ROADMAP.md Queue 1 item 5); on one device put the "
-        "failures on a VoteRequest (vote_api.FailureSpec) for "
-        "VirtualBackend")
+def straggler_mask_for(axis_names, n_stale: int, like=None) -> bool:
+    """Whether this rank's voter is among the first `n_stale` along the
+    bound vote axes (stale this step). `like` is accepted for the
+    reference's signature."""
+    from repro_torch.core.byzantine import replica_index
+    return replica_index(axis_names) < n_stale
 
 
-def straggler_mask_for(axis_names, n_stale: int, like=None):
-    raise _mesh_only("straggler_mask_for")
+def _failure_request(engine, payload, prev_signs, n_stale, step,
+                     server_state=None, plan=None):
+    """The legacy (engine, stale, adversary) triple as one VoteRequest
+    (without `prev_signs` nothing is substituted). `engine` carries
+    ``axes``, ``strategy``, ``codec``, ``byz`` and ``salt``."""
+    from repro_torch.core import vote_api as va
+    return va.VoteRequest(
+        payload=payload, form="leaf", strategy=engine.strategy,
+        codec=engine.codec, plan=plan,
+        failures=va.FailureSpec(
+            n_stale=n_stale if prev_signs is not None else 0,
+            byz=engine.byz),
+        prev=prev_signs, step=step, salt=engine.salt,
+        server_state=server_state)
 
 
-def vote_with_failures(engine, signs, prev_signs=None, n_stale: int = 0,
-                       step=None):
-    raise _mesh_only("fault_tolerance.vote_with_failures")
+def _execute(engine, request):
+    from repro_torch.core import vote_api as va
+    return va.MeshBackend(axes=engine.axes, device=getattr(
+        request.payload, "device", None)).execute(request)
 
 
-def codec_vote_with_failures(engine, signs, prev_signs=None,
-                             n_stale: int = 0, step=None, server_state=None):
-    raise _mesh_only("fault_tolerance.codec_vote_with_failures")
+def vote_with_failures(engine, signs: torch.Tensor,
+                       prev_signs: Optional[torch.Tensor] = None,
+                       n_stale: int = 0, step=None) -> torch.Tensor:
+    """One vote under failures (stale substitution, the engine's
+    adversary, the wire) on the mesh backend, as a VoteRequest."""
+    return _execute(engine, _failure_request(engine, signs, prev_signs,
+                                             n_stale, step)).votes
 
 
-def plan_vote_with_failures(engine, plan, values, prev_signs=None,
+def codec_vote_with_failures(engine, signs: torch.Tensor,
+                             prev_signs: Optional[torch.Tensor] = None,
+                             n_stale: int = 0, step=None,
+                             server_state=None):
+    """:func:`vote_with_failures` through the engine's codec; returns
+    ``(vote, new_server_state)``."""
+    out = _execute(engine, _failure_request(engine, signs, prev_signs,
+                                            n_stale, step, server_state))
+    return out.votes, out.server_state
+
+
+def plan_vote_with_failures(engine, plan, values: torch.Tensor,
+                            prev_signs: Optional[torch.Tensor] = None,
                             n_stale: int = 0, step=None, server_state=None):
-    raise _mesh_only("fault_tolerance.plan_vote_with_failures")
+    """:func:`vote_with_failures` through the bucket schedule of `plan`
+    (the failures act once on the flat buffer); returns ``(vote,
+    new_server_state)``."""
+    out = _execute(engine, _failure_request(engine, values, prev_signs,
+                                            n_stale, step, server_state,
+                                            plan=plan))
+    return out.votes, out.server_state
 
 
 @dataclasses.dataclass(frozen=True)
@@ -118,7 +154,10 @@ def plan_rescale(old_shape: Tuple[int, ...], old_axes: Tuple[str, ...],
 
 
 def make_mesh_from_plan(plan: ElasticPlan):
-    raise _mesh_only("make_mesh_from_plan")
+    """The survivors' ``ProcessMesh``: the plan's new shape over the first
+    ``new_replicas`` ranks of the world (build it on every rank)."""
+    from repro_torch.distributed.mesh import ProcessMesh
+    return ProcessMesh(plan.new_shape, plan.new_axes)
 
 
 class Watchdog:

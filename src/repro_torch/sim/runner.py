@@ -53,9 +53,19 @@ contracts ``beta * v + (1 - beta) * g`` into ``fma(beta, v, (1 - beta) *
 g)`` and ``x + sigma * noise`` into ``fma(sigma, noise, x)``; the port
 rounds both as that single FMA (:func:`fma_f32`, exact, on any device).
 
-Not ported: ``backend="mesh"`` raises (ROADMAP.md Queue 1 item 5);
-``summary()``'s ``est_exchange_time_s`` is None (the α–β link model, item
-15).
+**Backends.** ``backend="mesh"`` runs the same requests on
+``vote_api.MeshBackend``: every rank of an initialised ``torch.distributed``
+world runs the drill in lockstep (the same draws, the same stacked
+payload), the first M ranks vote their rows over the cached subgroup of
+those ranks (an elastic segment re-meshes to its survivors' ranks), and
+every rank gets the votes back, so every rank ends with the same trace and
+digest, equal to ``backend="virtual"``'s. The margin and the attacker's
+observations are taken from the stacked wire signs
+(``vote_api.effective_stacked_signs``), as the reference's ``prepare``
+derives them; the mesh returns none.
+
+Not ported: ``summary()``'s ``est_exchange_time_s`` is None (the α–β link
+model, ROADMAP.md Queue 1 item 15).
 """
 from __future__ import annotations
 
@@ -285,33 +295,48 @@ def _scaled_sum(counts: torch.Tensor, *divisors: int) -> float:
 # ---------------------------------------------------------------------------
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md Queue 1 item {item}); the "
-        "port's ScenarioRunner runs the dense drills on backend='virtual'")
-
-
 class ScenarioRunner:
     """Executes one spec; ``run()`` returns the :class:`ScenarioTrace`.
 
     `device` is where the drill runs (``"cuda"`` unless told otherwise);
     `draws` gives the start point and the noise (:class:`PrngDraws` by
-    default)."""
+    default). ``backend="mesh"`` needs every segment's voter count within
+    the world's ranks (every rank runs the drill); `mesh_style` takes the
+    reference's two layouts, which run the same collectives here."""
 
     def __init__(self, spec: ScenarioSpec, backend: str = "virtual",
-                 device: DeviceLike = None, draws=None):
+                 device: DeviceLike = None, draws=None,
+                 mesh_style: str = "data_model"):
         if backend not in BACKENDS:
             raise ValueError(f"backend {backend!r} not in {BACKENDS}")
-        if backend == "mesh":
-            raise _not_ported("backend='mesh' (the multi-process wire)", "5")
+        if mesh_style not in va.MESH_STYLES:
+            raise ValueError(f"unknown mesh_style {mesh_style!r}")
         self.spec = spec
         self.backend = backend
+        self.mesh_style = mesh_style
         self.device = resolve_device(device)
         self.draws = draws if draws is not None else PrngDraws()
-        # population mode streams in the spec's voter chunks (the default
-        # is core.population.DEFAULT_CHUNK, so dense drills are unaffected)
-        self._exec = va.VirtualBackend(device=self.device,
-                                       chunk_size=spec.population.chunk_size)
+        if spec.population.enabled and backend != "virtual":
+            raise ValueError(
+                f"population mode ({spec.name!r}) virtualises more "
+                "voters than any physical mesh holds replicas; it runs "
+                "on backend='virtual' only (the streamed engine, §12)")
+        if backend == "mesh":
+            need = max([spec.n_workers] + [e.n_workers for e in spec.elastic])
+            have = va.MeshBackend.world_size()
+            if need > have:
+                raise ValueError(
+                    f"mesh backend needs {need} devices for "
+                    f"{spec.name!r}, have {have} (use backend='virtual', "
+                    "or a torch.distributed world of that many ranks)")
+            self._exec = va.MeshBackend(mesh_style=mesh_style,
+                                        device=self.device)
+        else:
+            # population mode streams in the spec's voter chunks (the
+            # default is core.population.DEFAULT_CHUNK, so dense drills are
+            # unaffected)
+            self._exec = va.VirtualBackend(
+                device=self.device, chunk_size=spec.population.chunk_size)
 
     def _tensor(self, a) -> torch.Tensor:
         if not isinstance(a, torch.Tensor):
@@ -426,11 +451,15 @@ class ScenarioRunner:
                 if rec.enabled:
                     self._sync()
             vote, cstate = out.votes, out.server_state
-            counts = out.wire_signs.to(torch.int32).sum(dim=0)
+            eff = out.wire_signs
+            if eff is None:   # the mesh holds no stack: derive it
+                eff = va.effective_stacked_signs(
+                    t, prev, n_stale, byz, step, spec.salt, obs=aobs)
+            counts = eff.to(torch.int32).sum(dim=0)
             if astate is not None:
                 # one observation a round, from published outputs only
                 astate = attacks.update_attack_state(astate, vote, counts,
-                                                     out.wire_signs)
+                                                     eff)
             margin = _scaled_sum(counts.abs(), spec.dim, m)
             if spec.delayed_vote:
                 applied, pending = pending, vote

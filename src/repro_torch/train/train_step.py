@@ -1,9 +1,13 @@
 """Train-step factory of the port (``repro.train.train_step``): Algorithm 1
-with M voters stacked on one device.
+with M voters stacked on one device, or one voter per process over a
+``distributed.mesh.ProcessMesh``.
 
     art = make_train_step(cfg, tcfg, n_voters)             # device "cuda"
     params, opt_state = materialize_state(cfg, tcfg, art, generator)
     params, opt_state, metrics = art.step_fn(params, opt_state, batch, step)
+
+    # one voter per rank of an initialised torch.distributed world
+    art = make_train_step(cfg, tcfg, mesh=ProcessMesh((4,), ("data",)))
 
 ``tcfg`` may be the reference's preset, ``configs.presets.default_train_
 config(arch, cell)``: for glm4-9b bf16 momentum on ``psum_int8``, 8
@@ -58,7 +62,19 @@ of each voter's mean over its chunks. Unlike the JAX step, which returns
 new arrays, this one updates `params` and `opt_state` in place (and
 returns them): at full glm4-9b width that saves a second copy of the
 momentum. At M = 1 it is the reference's ``make_train_step(cfg, tcfg,
-mesh=None)`` step.
+mesh=None)`` step. ``tcfg.diagnostics`` adds the sign family's
+``vote_agreement`` and ``vote_margin`` (``core.signum``) to the metrics,
+as Python floats.
+
+With ``mesh=`` (every rank of the world calls the step in lockstep) the M
+= ``mesh.size`` voters are the ranks: rank r, replica index r over
+``(pod, data)``, takes rows ``[r*B/M, (r+1)*B/M)`` of the global batch,
+the rows voter r of the stacked step takes, keeps its own momentum (and
+residual) leaf-shaped, and votes through the optimizer's mesh exchange
+(``core.signum``); the plan, if any, is built with the mesh's data and
+pod sizes. The metrics are the mean of every rank's (gathered in replica
+order and averaged as the stacked step averages them), so the mesh step's
+losses, parameters and states are the stacked step's bit for bit.
 """
 from __future__ import annotations
 
@@ -71,6 +87,7 @@ from repro_torch import DeviceLike, resolve_device
 from repro_torch.configs.base import ModelConfig, TrainConfig, VoteStrategy
 from repro_torch.core import byzantine, signum
 from repro_torch.core import vote_plan as vp
+from repro_torch.distributed import mesh as pm
 from repro_torch.models import model as M, transformer
 
 
@@ -90,6 +107,8 @@ class StepArtifacts:
     vote_strategy: Optional[VoteStrategy] = None
     #: the bucketed vote plan (``OptimizerConfig.bucket_bytes > 0``)
     plan: Optional[vp.VotePlan] = None
+    #: the vote axes over a mesh (empty for the stacked step)
+    vote_axes: Tuple[str, ...] = ()
 
 
 def _validate(tcfg: TrainConfig, n_voters: int) -> None:
@@ -101,11 +120,8 @@ def _validate(tcfg: TrainConfig, n_voters: int) -> None:
         todo(f"remat={tcfg.remat!r}")
     if tcfg.fsdp:
         # with a mesh the reference's fused ZeRO backward votes inside the
-        # reduce-scatter (majority of the microbatches' votes); that needs
-        # the multi-process wire
+        # reduce-scatter (majority of the microbatches' votes)
         todo("fsdp=True (the fused ZeRO backward's vote)")
-    if tcfg.diagnostics:
-        todo("vote diagnostics")
     if n_voters < 1 or tcfg.global_batch % n_voters:
         raise ValueError(f"global_batch {tcfg.global_batch} must split "
                          f"evenly over n_voters={n_voters}")
@@ -161,11 +177,22 @@ def voter_grads(cfg: ModelConfig, tcfg: TrainConfig,
 
 
 def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, n_voters: int = 1,
-                    device: DeviceLike = None) -> StepArtifacts:
+                    device: DeviceLike = None,
+                    mesh: Optional[pm.ProcessMesh] = None) -> StepArtifacts:
     """Build ``step_fn(params, opt_state, batch, step) -> (params,
     opt_state, metrics)`` for `n_voters` stacked voters on `device`
-    (default ``"cuda"``; raises without a card unless ``device="cpu"``)."""
+    (default ``"cuda"``; raises without a card unless ``device="cpu"``),
+    or, with `mesh`, for this rank's voter of the mesh's ``mesh.size``
+    (`n_voters` must then be 1 or that size)."""
     dev = resolve_device(device)
+    axes = None
+    if mesh is not None:
+        if n_voters not in (1, mesh.size):
+            raise ValueError(f"n_voters={n_voters} on a mesh of "
+                             f"{mesh.size} voters")
+        if not mesh.member:
+            raise ValueError(f"rank {mesh.rank} is not in {mesh!r}")
+        n_voters, axes = mesh.size, mesh.vote_axes
     _validate(tcfg, n_voters)
     opt_cfg = tcfg.optimizer
     plan = None
@@ -178,9 +205,10 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, n_voters: int = 1,
             shapes, bucket_bytes=opt_cfg.bucket_bytes,
             codec_map=opt_cfg.codec_map,
             default_codec=opt_cfg.resolved_codec,
-            strategy=opt_cfg.vote_strategy, data_size=n_voters,
-            pod_size=1, dtypes={k: cfg.dtype for k in shapes},
-            overlap=opt_cfg.overlap)
+            strategy=opt_cfg.vote_strategy,
+            data_size=n_voters if mesh is None else mesh.data,
+            pod_size=1 if mesh is None else mesh.pod,
+            dtypes={k: cfg.dtype for k in shapes}, overlap=opt_cfg.overlap)
     # the voters below num_adversaries act adversarially (salt 0, keyed by
     # the step), as the reference's trainer passes its byzantine config to
     # build_optimizer; at M = 1 the reference (mesh=None) has no vote axes
@@ -191,7 +219,8 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, n_voters: int = 1,
                 and tcfg.byzantine.mode in byzantine.ATTACK_MODES)
     if adaptive:
         byz = None
-    opt = signum.build_optimizer(opt_cfg, n_voters, plan, byz)
+    opt = signum.build_optimizer(opt_cfg, n_voters, plan, byz,
+                                 tcfg.diagnostics, axes)
     resolved = opt.strategy
     if plan is not None:
         group_strats = {g.strategy for g in plan.groups}
@@ -213,21 +242,31 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, n_voters: int = 1,
                              f"global_batch={tcfg.global_batch}")
         wire = opt.wire(params, int(step))
         voters = []
-        for r in range(n_voters):
+        for r in (range(n_voters) if axes is None
+                  else [pm.replica_index(axes)]):
             grads, met = voter_grads(cfg, tcfg, params,
                                      tokens[r * per:(r + 1) * per])
             opt.encode(r, grads, opt_state, wire)
             del grads
             voters.append(met)
-        opt.update(wire, opt_state, params, int(step))
-        metrics = {k: torch.stack([v[k] for v in voters]).mean()
-                   for k in ("ce", "aux", "loss")}
+        diag = opt.update(wire, opt_state, params, int(step))
+        names = ("ce", "aux", "loss")
+        if axes is None:
+            metrics = {k: torch.stack([v[k] for v in voters]).mean()
+                       for k in names}
+        else:
+            # every voter's metrics in replica order, averaged as above
+            every = pm.gather_voters(torch.stack([voters[0][k]
+                                                  for k in names]), axes)
+            metrics = {k: every[:, i].contiguous().mean()
+                       for i, k in enumerate(names)}
+        metrics.update(diag)
         return params, opt_state, metrics
 
     return StepArtifacts(step_fn=step_fn, optimizer=opt, device=dev,
                          codec=tcfg.optimizer.resolved_codec,
                          n_voters=n_voters, vote_strategy=resolved,
-                         plan=plan)
+                         plan=plan, vote_axes=tuple(axes or ()))
 
 
 def materialize_state(cfg: ModelConfig, tcfg: TrainConfig,

@@ -178,11 +178,17 @@ def test_config_factories_and_count_for_fraction():
 
 
 def test_mesh_and_adaptive_paths_raise():
-    """The mesh path raises (item 5); an adaptive mode without its
-    observation raises the reference's ValueError."""
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        tbyz.apply_adversary(np.zeros(4, np.int8), TByz("sign_flip", 1),
-                             ("data",))
+    """The mesh path needs vote axes bound to a ProcessMesh (names alone
+    raise); on a one-rank mesh the rank is voter 0. An adaptive mode
+    without its observation raises the reference's ValueError."""
+    from repro_torch.distributed.mesh import ProcessMesh
+    from repro_torch.configs.base import VoteStrategy as TS
+    with pytest.raises(ValueError, match="not bound to a ProcessMesh"):
+        tbyz.apply_adversary(torch.ones(4, dtype=torch.int8),
+                             TByz("sign_flip", 1), ("data",))
+    one = ProcessMesh((1,), ("data",)).vote_axes
+    assert tbyz.apply_adversary(torch.ones(4, dtype=torch.int8),
+                                TByz("sign_flip", 1), one).tolist() == [-1] * 4
     with pytest.raises(ValueError) as want:
         jbyz.apply_adversary_stacked(jnp.zeros((2, 4), jnp.int8),
                                      JByz("low_margin", 1))
@@ -190,12 +196,19 @@ def test_mesh_and_adaptive_paths_raise():
         tbyz.apply_adversary_stacked(torch.zeros(2, 4, dtype=torch.int8),
                                      TByz("low_margin", 1))
     assert str(got.value) == str(want.value)
-    for shim in (lambda: tft.straggler_mask_for(("data",), 1),
-                 lambda: tft.vote_with_failures(None, None),
-                 lambda: tft.codec_vote_with_failures(None, None),
-                 lambda: tft.make_mesh_from_plan(None)):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-            shim()
+    assert tft.straggler_mask_for(one, 1) and not tft.straggler_mask_for(
+        one, 0)
+    engine = type("Engine", (), dict(axes=one, strategy=TS.PSUM_INT8,
+                                     codec="sign1bit", byz=None, salt=0))
+    x = torch.tensor([0.5, -2.0, 0.0, 3.0])
+    prev = torch.tensor([-1, -1, 1, 1], dtype=torch.int8)
+    assert tft.vote_with_failures(engine, x).tolist() == [1, -1, 0, 1]
+    # the one voter is stale: it votes its previous signs
+    assert tft.codec_vote_with_failures(engine, x, prev, 1)[0].tolist() \
+        == [-1, -1, 1, 1]
+    mesh = tft.make_mesh_from_plan(tft.plan_rescale((4, 1),
+                                                    ("data", "model"), 1))
+    assert (mesh.size, mesh.axis_names) == (1, ("data",))
 
 
 # ---------------------------------------------------------------------------

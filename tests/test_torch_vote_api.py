@@ -9,6 +9,7 @@ equal too. Requests outside the port's slice must raise
 the voter annotations and the adaptive modes have their own tests in
 ``test_torch_population.py`` and ``test_torch_attacks.py``."""
 import dataclasses
+import types
 
 import jax.numpy as jnp
 import numpy as np
@@ -382,19 +383,40 @@ def test_both_packages_reject_with_value_error(case):
         _reject_cases(tva, TStrategy, TByz, tcodecs)[case]()
 
 
+def _one_rank():
+    """The vote axes of a one-rank mesh (no process group needed)."""
+    from repro_torch.distributed.mesh import ProcessMesh
+    return ProcessMesh((1,), ("data",)).vote_axes
+
+
 def _not_ported_cases():
+    """Each case's ROADMAP.md Queue 1 item and the call that raises citing
+    it; item None marks a path the multi-process wire's slice ported,
+    which now runs (on a one-rank mesh)."""
     x = np.zeros((5, 70), np.int8)
     stacked = dict(payload=x, form="stacked")
+
+    def mesh_vote(**req):
+        return tva.MeshBackend(axes=_one_rank(), device="cpu").execute(
+            tva.VoteRequest(**req)).votes
+
+    engine = types.SimpleNamespace(
+        axes=_one_rank(), strategy=TStrategy.ALLGATHER_1BIT,
+        codec="ternary2bit", byz=None, salt=0)
     return {
-        "leaf_form": ("5", lambda: tva.VoteRequest(payload=x[0])),
-        "tree_form": ("5", lambda: tva.VoteRequest(payload={"a": x[0]},
-                                                   form="tree")),
-        "mesh_backend": ("5", lambda: tva.MeshBackend(axes=("data",))),
-        # failures run on the stacked form since item 6; what still raises
-        # is their mesh path (the replica index from the vote axes)
-        "adversary": ("5", lambda: tbyz.apply_adversary(
-            x, TByz(mode="sign_flip", num_adversaries=1), ("data",))),
-        "stragglers": ("5", lambda: tft.straggler_mask_for(("data",), 1)),
+        "leaf_form": (None, lambda: mesh_vote(payload=torch.from_numpy(
+            x[0]))),
+        "tree_form": (None, lambda: mesh_vote(
+            payload={"a": torch.from_numpy(x[0])}, form="tree")),
+        "mesh_backend": (None, lambda: tva.MeshBackend(axes=_one_rank(),
+                                                       device="cpu")),
+        # the adversary's and the stragglers' mesh path: the replica index
+        # from the vote axes
+        "adversary": (None, lambda: tbyz.apply_adversary(
+            torch.from_numpy(x[0].copy()),
+            TByz(mode="sign_flip", num_adversaries=1), _one_rank())),
+        "stragglers": (None, lambda: tft.straggler_mask_for(_one_rank(),
+                                                            1)),
         # a plan runs since item 7; pricing one needs an H100 link model
         "plan": ("15", lambda: tvp.build_plan(
             {"a": (70,)}, bucket_bytes=8, data_size=5)),
@@ -403,13 +425,13 @@ def _not_ported_cases():
             strategy=TStrategy.ALLGATHER_1BIT, overlap=True)),
         # every codec runs on the stacked form; these requests combine
         # one with what is still unported
-        "ef_sign": ("5", lambda: tva.VoteRequest(payload=x[0],
-                                                 codec="ef_sign")),
-        "ternary2bit": ("5", lambda: tft.plan_vote_with_failures(
-            None, tvp.build_plan({"a": (70,)}, bucket_bytes=8,
-                                 default_codec="ternary2bit",
-                                 strategy=TStrategy.ALLGATHER_1BIT),
-            x, prev_signs=x, n_stale=1)),
+        "ef_sign": (None, lambda: mesh_vote(payload=torch.from_numpy(x[0]),
+                                            codec="ef_sign")),
+        "ternary2bit": (None, lambda: tft.plan_vote_with_failures(
+            engine, tvp.build_plan({"a": (70,)}, bucket_bytes=8,
+                                   default_codec="ternary2bit",
+                                   strategy=TStrategy.ALLGATHER_1BIT),
+            torch.from_numpy(x[0]), prev_signs=x[0], n_stale=1)),
         "auto_over_voters": ("15", lambda: tva.VirtualBackend(
             device="cpu").execute(tva.VoteRequest(**stacked))),
     }
@@ -418,6 +440,9 @@ def _not_ported_cases():
 @pytest.mark.parametrize("case", sorted(_not_ported_cases()))
 def test_out_of_slice_raises_not_implemented(case):
     item, build = _not_ported_cases()[case]
+    if item is None:    # ported by the multi-process wire: it runs
+        assert build() is not None
+        return
     with pytest.raises(NotImplementedError,
                        match=f"ROADMAP.md Queue 1 item {item}\\b"):
         build()

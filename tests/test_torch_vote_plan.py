@@ -10,8 +10,9 @@ momentum after step 0, which XLA contracts into an FMA (rtol 1e-6, as
 ``tests/test_kernels.py`` holds it), and ef_sign's residual, whose
 mean|t| both packages sum in their own order (rtol 1e-6 and 1e-5 of
 mean|t|). The trainer's
-steps are held as ``tests/test_torch_train_step.py`` holds them
-(gradients from two frameworks), and the plan path of the port bit for
+steps are held as ``tests/test_torch_train_step.py`` holds them, with
+its helpers (``tests/torch_train_step_common.py``; gradients from two
+frameworks), and the plan path of the port bit for
 bit against its own leaf-wise path, which those tests hold.
 """
 import dataclasses
@@ -23,7 +24,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-import test_torch_train_step as tts  # noqa: E402
+import torch_train_step_common as tts  # noqa: E402
 from repro.configs.base import MomentumMode as JMode  # noqa: E402
 from repro.configs.base import OptimizerConfig as JOpt  # noqa: E402
 from repro.configs.base import VoteStrategy as JS  # noqa: E402
