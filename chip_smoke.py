@@ -228,7 +228,13 @@ Phases, each of which fails the run (non-zero exit) on any disagreement:
    each, running the same six runs through ``make_train_step(...,
    mesh=ProcessMesh)``: every rank's losses, diagnostics and device
    checksums of its parameters and momentum equal to the twin's voter's,
-   its launches per step exactly ``mesh_launches``, each leaf's mesh vote
+   its launches per step exactly ``mesh_launches``, every launch of each
+   run's step 0 on rank 0 (momentum_sign_pack, majority, the applies,
+   bitpack / bitunpack, ternary_pack / ternary_unpack / ternary_majority,
+   the adversary) held against its plain version on the same tensors, a
+   slab at a time (the path's own launches: the checks launch nothing, and
+   each kernel's largest difference joins the kernels line; step 0's time
+   includes the check), each leaf's mesh vote
    of the trained momentum equal on rank 0 to ``VirtualBackend``'s vote of
    the (4, n) rows gathered from the ranks; the bytes each rank handed the
    collectives per step beside the WireReport and a float32 gradient, the
@@ -2791,10 +2797,11 @@ POP_CONFIGS = (
     ("random_25pct", "allgather_1bit", "sign1bit", False, "random"),
     ("low_margin_25pct", "allgather_1bit", "sign1bit", False, "low_margin"),
 )
-#: the rows of a slab held against the plain versions at once in the chunk
-#: checks (the plain bitpack's bool and the draws' temporaries of 64 rows
-#: of 2^22 stay below 2 GB), and bitunpack's words a slab
-POP_CHECK_ROWS, POP_CHECK_WORDS = 64, 1 << 24
+#: the rows and the columns of a slab held against the plain versions at
+#: once in the kernel checks (the plain bitpack's bool and the draws'
+#: temporaries of 64 rows of 2^22 stay below 2 GB; the plain apply's float32
+#: temporaries of 2^25 elements below 1 GB)
+POP_CHECK_ROWS, CHECK_COLS = 64, 1 << 25
 #: the configurations voted once more under torch.profiler
 POP_PROFILED = ("sign1bit_allgather_1bit", "weighted_vote")
 #: the streamed-equals-dense configurations (labels of POP_CONFIGS, the
@@ -2859,50 +2866,152 @@ def pop_request(va, cfg, payload, state, astate, step, **annotations):
         server_state=state, attack_obs=obs, **annotations)
 
 
+#: the wrappers phase 13a's chunk checks hold
+POP_CHECKED = ("adversary_", "bitpack", "bitunpack")
+
+
 @contextlib.contextmanager
-def plain_checked(torch, ops, ref, sc, err, what: str):
-    """Within the block, every launch of ``ops.adversary_``, ``ops.bitpack``
-    and ``ops.bitunpack`` is held bit for bit against its plain version on
-    the same tensors: POP_CHECK_ROWS rows (bitunpack: POP_CHECK_WORDS
-    words) at a time, the adversary's input copied before the kernel
-    writes it in place. `err` keeps each kernel's largest difference."""
-    orig = {k: getattr(ops, k) for k in ("adversary_", "bitpack",
-                                         "bitunpack")}
-    s = POP_CHECK_ROWS
+def plain_checked(torch, ops, ref, sc, err, what: str,
+                  names=POP_CHECKED, held=None):
+    """Within the block, every launch of the ``ops`` wrappers `names` is
+    held bit for bit against its plain version (``kernels/ref``) on the
+    same tensors: POP_CHECK_ROWS rows and CHECK_COLS columns (of a 1-D
+    tensor, CHECK_COLS elements) at a time, the input of an in-place
+    kernel copied before the kernel writes it. `err` keeps each kernel's
+    largest difference, by launch count name; `held` (a dict), when given,
+    counts the launches held by the same names. The checks call only the
+    plain versions, so they add no launch."""
+    orig = {k: getattr(ops, k) for k in names}
+    s, C = POP_CHECK_ROWS, CHECK_COLS
+
+    def note(name, x, diff):
+        err[name] = max(err.get(name, 0.0), diff)
+        if held is not None and x.is_cuda:
+            held[name] = held.get(name, 0) + 1
+
+    def cols(n, per_word=1):
+        """(element lo, hi, word lo, hi) of each CHECK_COLS slab of n."""
+        for lo in range(0, n, C):
+            hi = min(n, lo + C)
+            yield lo, hi, lo // per_word, -(-hi // per_word)
 
     def adversary_(x, keys, p, flip, offset=0):
         before = x.clone()
         got = orig["adversary_"](x, keys, p, flip, offset)
+        diff = 0.0
         for r in range(0, x.shape[0], s):
-            err["adversary"] = max(err["adversary"], require_equal(
-                f"{what}: adversary {tuple(x.shape)} p={p} rows {r}..",
-                got[r:r + s], ref.adversary(before[r:r + s], keys[r:r + s],
-                                            p, flip, offset)))
+            for lo, hi, _, _ in cols(x.shape[1]):
+                diff = max(diff, require_equal(
+                    f"{what}: adversary {tuple(x.shape)} p={p} rows {r}.. "
+                    f"cols {lo}..", got[r:r + s, lo:hi],
+                    ref.adversary(before[r:r + s, lo:hi], keys[r:r + s], p,
+                                  flip, offset + lo)))
+        note("adversary", x, diff)
         return got
+
+    def packed_rows(name, x, got, per_word, plain):
+        diff = 0.0
+        for r in range(0, x.shape[0], s):
+            for lo, hi, w0, w1 in cols(x.shape[1], per_word):
+                diff = max(diff, require_equal(
+                    f"{what}: {name} {tuple(x.shape)} {x.dtype} rows {r}.. "
+                    f"cols {lo}..", got[r:r + s, w0:w1],
+                    plain(sc.pad_last(x[r:r + s, lo:hi], per_word)[0])))
+        note(name, x, diff)
 
     def bitpack(x, *, out=None):
         got = orig["bitpack"](x, out=out)
-        for r in range(0, x.shape[0], s):
-            err["bitpack"] = max(err["bitpack"], require_equal(
-                f"{what}: bitpack {tuple(x.shape)} {x.dtype} rows {r}..",
-                got[r:r + s],
-                ref.bitpack(sc.pad_last(x[r:r + s], sc.PACK)[0])))
+        packed_rows("bitpack", x, got, sc.PACK, ref.bitpack)
         return got
+
+    def ternary_pack(x, *, out=None):
+        got = orig["ternary_pack"](x, out=out)
+        packed_rows("ternary_pack", x, got, sc.PACK2, ref.ternary_pack)
+        return got
+
+    def unpacked(name, packed, n, got, per_word, plain):
+        diff = 0.0
+        for lo, hi, w0, w1 in cols(n, per_word):
+            diff = max(diff, require_equal(
+                f"{what}: {name} n={n} {got.dtype} cols {lo}..", got[lo:hi],
+                plain(packed[None, w0:w1])[0, :hi - lo]))
+        note(name, packed, diff)
 
     def bitunpack(packed, n, dtype=torch.float32):
         got = orig["bitunpack"](packed, n, dtype)
-        for w0 in range(0, packed.numel(), POP_CHECK_WORDS):
-            lo = w0 * sc.PACK
-            hi = min(n, (w0 + POP_CHECK_WORDS) * sc.PACK)
-            if lo >= hi:
-                break
-            err["bitunpack"] = max(err["bitunpack"], require_equal(
-                f"{what}: bitunpack n={n} {dtype} words {w0}..", got[lo:hi],
-                ref.bitunpack(packed[None, w0:w0 + POP_CHECK_WORDS],
-                              dtype)[0, :hi - lo]))
+        unpacked("bitunpack", packed, n, got, sc.PACK,
+                 lambda w: ref.bitunpack(w, dtype))
         return got
 
-    ops.adversary_, ops.bitpack, ops.bitunpack = adversary_, bitpack, bitunpack
+    def ternary_unpack(packed, n, dtype=torch.int8):
+        got = orig["ternary_unpack"](packed, n, dtype)
+        unpacked("ternary_unpack", packed, n, got, sc.PACK2,
+                 lambda w: ref.ternary_unpack(w, dtype))
+        return got
+
+    def tally(name, packed, got, plain):
+        diff = 0.0
+        for lo in range(0, packed.shape[1], C // sc.PACK):
+            hi = lo + C // sc.PACK
+            diff = max(diff, require_equal(
+                f"{what}: {name} {tuple(packed.shape)} words {lo}..",
+                got[lo:hi], plain(packed[:, lo:hi])))
+        note(name, packed, diff)
+
+    def majority(packed, *, out=None):
+        got = orig["majority"](packed, out=out)
+        tally("majority", packed, got, ref.majority)
+        return got
+
+    def ternary_majority(packed, *, ties="zero", out=None):
+        got = orig["ternary_majority"](packed, ties=ties, out=out)
+        name = "ternary_majority" + ("" if ties == "zero" else "_plus_one")
+        tally(name, packed, got, lambda w: ref.ternary_majority(w, ties))
+        return got
+
+    def momentum_sign_pack(g, m, beta, *, m_out=None, packed_out=None,
+                           pack=True):
+        before = m.clone()
+        m_out, packed_out = orig["momentum_sign_pack"](
+            g, m, beta, m_out=m_out, packed_out=packed_out, pack=pack)
+        diff = 0.0
+        for lo, hi, w0, w1 in cols(g.shape[0], sc.PACK):
+            want_m, want_w = ref.momentum_sign_pack(
+                sc.pad_to_pack(g[lo:hi])[0], sc.pad_to_pack(before[lo:hi])[0],
+                beta)
+            diff = max(diff, require_equal(
+                f"{what}: momentum_sign_pack n={g.shape[0]} m' cols {lo}..",
+                m_out[lo:hi], want_m[:hi - lo]))
+            if pack:
+                require_equal(f"{what}: momentum_sign_pack words {w0}..",
+                              packed_out[w0:w1], want_w)
+        note("momentum_sign_pack", g, diff)
+        return m_out, packed_out
+
+    def applied(name, per_word, plain):
+        def apply(p, votes, eta, weight_decay, *, out=None):
+            before = p.clone()
+            got = orig[name](p, votes, eta, weight_decay, out=out)
+            diff = 0.0
+            for lo, hi, w0, w1 in cols(p.shape[0], per_word):
+                diff = max(diff, require_equal(
+                    f"{what}: {name} n={p.shape[0]} cols {lo}..", got[lo:hi],
+                    plain(sc.pad_to_pack(before[lo:hi], per_word)[0],
+                          votes[w0:w1], eta, weight_decay)[:hi - lo]))
+            note(name, p, diff)
+            return got
+        return apply
+
+    wrapped = {"adversary_": adversary_, "bitpack": bitpack,
+               "bitunpack": bitunpack, "ternary_pack": ternary_pack,
+               "ternary_unpack": ternary_unpack, "majority": majority,
+               "ternary_majority": ternary_majority,
+               "momentum_sign_pack": momentum_sign_pack,
+               "apply_vote": applied("apply_vote", sc.PACK, ref.apply_vote),
+               "apply_ternary_vote": applied("apply_ternary_vote", sc.PACK2,
+                                             ref.apply_ternary_vote)}
+    for k in names:
+        setattr(ops, k, wrapped[k])
     try:
         yield
     finally:
@@ -3288,6 +3397,11 @@ MESH_RUNS = (
     ("sign_flip_diagnostics", (4,), ("data",), {},
      {"diagnostics": True, "byzantine": ("sign_flip", 1)}),
 )
+#: the wrappers a mesh step launches, which rank 0 holds against their plain
+#: versions in the first step of every run
+MESH_CHECKED = ("momentum_sign_pack", "majority", "apply_vote",
+                "apply_ternary_vote", "bitpack", "bitunpack", "ternary_pack",
+                "ternary_unpack", "ternary_majority", "adversary_")
 #: the wires whose votes of the trained momentum rank 0 holds against the
 #: virtual vote of the gathered (4, n) rows: (wire, mesh shape, axes); the
 #: paper's wire (the count wires' mesh votes are the trainer runs' own
@@ -3433,9 +3547,10 @@ def mesh_rank_body(rank: int, init: str, cfg, dev_type: str) -> dict:
         __file__)), "src"))
     import torch
     import torch.distributed as dist
+    from repro_torch.core import sign_compress as sc
     from repro_torch.data.pipeline import SyntheticLMPipeline
     from repro_torch.distributed.mesh import ProcessMesh
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import ops, ref
     from repro_torch.train import train_step as TS
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3447,7 +3562,7 @@ def mesh_rank_body(rank: int, init: str, cfg, dev_type: str) -> dict:
         meshes = {(shape, axes): ProcessMesh(shape, axes)
                   for _, shape, axes, _, _ in MESH_RUNS}
         pipe = SyntheticLMPipeline(cfg, GLOBAL_BATCH, SEQ, seed=0)
-        out = {"runs": {}}
+        out = {"runs": {}, "max_abs_err": {}}
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats()
         for label, shape, axes, opt, train in MESH_RUNS:
@@ -3457,16 +3572,23 @@ def mesh_rank_body(rank: int, init: str, cfg, dev_type: str) -> dict:
             params, state = TS.materialize_state(
                 cfg, tcfg, art, torch.Generator(device=dev).manual_seed(0))
             want = mesh_launches(label, rank, len(params), art.plan)
-            mets, steps = [], []
+            mets, steps, err, held = [], [], {}, {}
             for step in range(MESH_STEPS):
                 tokens = torch.as_tensor(pipe.global_batch_at(step)[
                     "tokens"], device=dev)
                 sync(torch, dev)
                 mesh.reset_stats()
                 ops.reset_launch_counts()
+                # rank 0's first step holds every launch against its plain
+                # version (the same launches; the step's time includes it)
+                checked = rank == 0 and step == MESH_CHECKED_STEP
                 t0 = time.perf_counter()
-                params, state, met = art.step_fn(params, state,
-                                                 {"tokens": tokens}, step)
+                with (plain_checked(torch, ops, ref, sc, err,
+                                    f"mesh {label} rank 0 step {step}",
+                                    MESH_CHECKED, held) if checked
+                      else contextlib.nullcontext()):
+                    params, state, met = art.step_fn(params, state,
+                                                     {"tokens": tokens}, step)
                 sync(torch, dev)
                 ms = (time.perf_counter() - t0) * 1e3
                 launches = {k: v for k, v in ops.launch_counts().items()
@@ -3475,6 +3597,10 @@ def mesh_rank_body(rank: int, init: str, cfg, dev_type: str) -> dict:
                     raise AssertionError(
                         f"rank {rank} {label} step {step}: launches "
                         f"{launches}, expected {want}")
+                if checked and dev.type == "cuda" and held != launches:
+                    raise AssertionError(
+                        f"{label}: rank 0 held {held} of the launches "
+                        f"{launches} against their plain versions")
                 mets.append({k: float(v) for k, v in met.items()})
                 steps.append({"ms": ms,
                               "collective_ms": mesh.stats.seconds * 1e3,
@@ -3482,8 +3608,12 @@ def mesh_rank_body(rank: int, init: str, cfg, dev_type: str) -> dict:
                               "collectives": mesh.stats.calls,
                               "launches": launches})
             out["runs"][label] = {
-                "metrics": mets, "steps": steps,
+                "metrics": mets, "steps": steps, "held": held,
+                "max_abs_err": err,
                 "checksum": mesh_state_checksum(torch, params, state, None)}
+            for k, v in err.items():
+                out["max_abs_err"][k] = max(out["max_abs_err"].get(k, 0.0),
+                                            v)
             momentum = state["momentum"]
             del params, state, art
             if dev.type == "cuda":
@@ -3556,12 +3686,14 @@ def mesh_wire_bytes(cfg, label: str) -> dict:
             "float32_gradient_bytes": 4 * n}
 
 
-def run_mesh_path(torch, cfg, dev, target=None) -> dict:
+def run_mesh_path(torch, cfg, dev, errs, target=None) -> dict:
     """Phase 14: the stacked twin of each MESH_RUNS configuration, then a
     world of MESH_RANKS processes (spawned, over gloo, each on `dev`) runs
     them with one voter per rank. Every rank's losses, diagnostics and
-    state checksum must equal the twin's voter's; rank 0 holds each leaf's
-    mesh vote of the trained momentum against VirtualBackend. Returns the
+    state checksum must equal the twin's voter's; rank 0 holds every
+    kernel launch of each run's first step against its plain version
+    (each kernel's largest difference into `errs`), and each leaf's mesh
+    vote of the trained momentum against VirtualBackend. Returns the
     ranks' summed launches."""
     import multiprocessing as mp
     import socket
@@ -3616,8 +3748,13 @@ def run_mesh_path(torch, cfg, dev, target=None) -> dict:
                 p.join(timeout=10)
     ranks_s = time.perf_counter() - t_ranks
     launches = {}
+    for k, v in results[0]["max_abs_err"].items():
+        errs[k] = max(errs.get(k, 0.0), v)
     for label, shape, axes, _, _ in MESH_RUNS:
         want = twin[label]
+        if dev.type == "cuda" and not results[0]["runs"][label]["held"]:
+            raise AssertionError(f"mesh {label}: rank 0 held no launch "
+                                 "against its plain version")
         for r in range(MESH_RANKS):
             got = results[r]["runs"][label]
             if got["metrics"] != want["metrics"]:
@@ -3646,7 +3783,10 @@ def run_mesh_path(torch, cfg, dev, target=None) -> dict:
                 "other_ms": [a - b for a, b in zip(per_step, coll)],
                 "twin_step_ms": want["ms"],
                 "losses": [m["loss"] for m in want["metrics"]],
-                "bit_equal_to_twin": True}
+                "bit_equal_to_twin": True,
+                "checked_step": MESH_CHECKED_STEP,
+                "held_vs_plain_rank0": results[0]["runs"][label]["held"],
+                "max_abs_err": results[0]["runs"][label]["max_abs_err"]}
         line["float32_over_sent"] = line["float32_gradient_bytes"] / sent
         if "vote_margin" in want["metrics"][0]:
             line["diagnostics"] = [{k: m[k] for k in (
@@ -3668,6 +3808,9 @@ def run_mesh_path(torch, cfg, dev, target=None) -> dict:
 
 #: how long phase 14's ranks may take, spawn to exit
 MESH_TIMEOUT_S = 600
+#: the step of every run whose launches rank 0 holds against the plain
+#: versions (its time includes the check; step 1 is the one to read)
+MESH_CHECKED_STEP = 0
 
 
 # ---------------------------------------------------------------------------
@@ -4059,7 +4202,7 @@ def main() -> int:
         launches[k] += v
     for k, v in run_population_path(torch, dev, errs).items():
         launches[k] += v
-    for k, v in run_mesh_path(torch, cfg, dev).items():
+    for k, v in run_mesh_path(torch, cfg, dev, errs).items():
         launches[k] += v
     # ef_sign's encode packs its float32 t; every other bitpack of the main
     # path packs int8 signs (staged votes, plan buckets, weighted_vote's vote)

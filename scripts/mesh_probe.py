@@ -8,8 +8,10 @@ Builds the kernels, then phase 14 at full size: the stacked twin (glm4-9b
 at every published width, 2 layers, M = 4) of six configurations, 2 steps
 each, then a world of 4 processes on the one card, over gloo, one voter
 each, whose losses, diagnostics, parameters and momenta must equal the
-twin's bit for bit, with exact launches per rank, and each leaf's mesh vote
-of the trained momentum equal to the virtual vote of the gathered rows.
+twin's bit for bit, with exact launches per rank, every launch of each
+run's first step on rank 0 held against its plain version, and each leaf's
+mesh vote of the trained momentum equal to the virtual vote of the gathered
+rows.
 One JSON line per result (the bytes each rank handed the collectives per
 step beside the wire report and a float32 gradient, the step split into
 collectives and the rest), the card's name and power limit, and last
@@ -30,7 +32,7 @@ def phase(torch, dev, build, err):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = dataclasses.replace(get_config("glm4-9b"), num_layers=2)
-    return {"mesh_launches": C.run_mesh_path(torch, cfg, dev)}
+    return {"mesh_launches": C.run_mesh_path(torch, cfg, dev, err)}
 
 
 def main() -> int:

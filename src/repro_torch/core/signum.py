@@ -117,7 +117,14 @@ and ``hierarchical`` the voter's 2-bit symbols are unpacked
 (``ternary_unpack``) and voted by the strategy's collectives (an int8
 all-reduce; the count reduce-scatter, the sum over pod and the packed
 all-gather), the decision repacked by ``ternary_pack`` for the same
-ternary apply. The plan walk runs ``vote_plan.MeshBucketWire``. The votes,
+ternary apply. (That round trip stays: the words are what the stacked
+step's encode kernel writes and what its apply and feedback read, so the
+mesh step shares every one of them; int8 symbols instead would be written
+by PyTorch's ``sign_ternary``, two float passes where ``ternary_pack``
+makes one, and an int8 vote is packed again for ``apply_ternary_vote``
+all the same, as ``apply_int8_`` does. The unpack reads n/4 bytes and
+writes n, a small cost beside the collectives' n bytes through gloo.)
+The plan walk runs ``vote_plan.MeshBucketWire``. The votes,
 and so the parameters, are the stacked step's bit for bit; a
 ``weighted_vote`` state's rows are in the gathered order (data-major),
 which is the voter order on a mesh without a pod axis. The dense baselines
@@ -441,14 +448,14 @@ def make_sign_optimizer(cfg: OptimizerConfig, n_voters: int,
 
     def diag_result(agree: int, num: int, n: int,
                     device: torch.device) -> Dict[str, float]:
-        """The two metrics from voter 0's agreement count, the summed
-        |tally| and the coordinates; over a mesh voter 0's count is
-        broadcast so that every rank reports it."""
-        if axes is not None:
-            agree = int(pm.broadcast(torch.tensor([agree], dtype=torch.int64,
-                                                  device=device), axes)[0])
-        return {"vote_agreement": va.ratio_f32(va.int32_wrap(agree), n),
-                "vote_margin": va.margin_of([num], n, n_voters)}
+        """The two metrics (``vote_api.vote_diagnostics``) from this
+        process's agreement count (voter 0's, stacked), the summed |tally|
+        and the coordinates; over a mesh voter 0's count is broadcast so
+        that every rank reports it."""
+        margin, agreement = va.vote_diagnostics(
+            agree, [num], n, n_voters, axes or (),
+            reporter=None if axes is None else 0, device=device)
+        return {"vote_agreement": agreement, "vote_margin": margin}
 
     def apply_(k: str, p: torch.Tensor, state: Dict, vote: torch.Tensor,
                eta: float, wd: float) -> None:

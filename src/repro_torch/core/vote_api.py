@@ -78,7 +78,7 @@ from __future__ import annotations
 
 import abc
 import dataclasses
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -647,12 +647,21 @@ def margin_of(counts, n: int, m: int) -> float:
     return ratio_f32(int32_wrap(num), n * m)
 
 
-def agreement_of(local, votes) -> float:
-    """The fraction of coordinates where ``sign_ternary`` of this voter's
-    values `local` equals that of `votes` (leaf lists alike)."""
-    num = sum(count_equal(sc.sign_ternary(x), sc.sign_ternary(v))
-              for x, v in zip(local, votes))
-    return ratio_f32(int32_wrap(num), sum(v.numel() for v in votes))
+def vote_diagnostics(agree: int, counts, n: int, m: int, axes=(),
+                     reporter: Optional[int] = None, device=None
+                     ) -> Tuple[float, float]:
+    """The §7 diagnostics of a vote of `n` coordinates by `m` voters:
+    (margin, agreement). `counts` are the signed tallies of the signs that
+    reached the wire (see :func:`margin_of`); `agree` counts the
+    coordinates where a voter's own signs equal the vote: this rank's, or
+    with `reporter` the voter of that replica index's, broadcast over the
+    mesh `axes` (a tensor on `device`) so that every rank reports it (the
+    trainer's metrics, which the reference returns replicated: device
+    0's). Both numerators wrap as the reference's int32 sums do."""
+    if reporter is not None and axes:
+        agree = int(pm.broadcast(torch.tensor(
+            [agree], dtype=torch.int64, device=device), axes, reporter)[0])
+    return margin_of(counts, n, m), ratio_f32(int32_wrap(agree), n)
 
 
 def psum_counts(signs: torch.Tensor, axes) -> torch.Tensor:
@@ -670,15 +679,15 @@ def _tree_diagnostics(tree: Dict, votes: Dict, axes,
     signs that reached the wire (the adversary applied again under the
     same keys), the agreement of this rank's own signs with the vote."""
     m = ve.num_voters(axes) if axes else 1
-    counts = []
-    for leaf in tree.values():
+    counts, agree = [], 0
+    for k, leaf in tree.items():
         s = sc.sign_ternary(leaf.reshape(-1))
+        agree += count_equal(s, sc.sign_ternary(votes[k]))
         if byz is not None and axes:
             byzantine.apply_adversary(s, byz, axes, step=step, salt=salt)
         counts.append(psum_counts(s, axes))
     n = sum(leaf.numel() for leaf in tree.values())
-    return (margin_of(counts, n, m),
-            agreement_of(list(tree.values()), list(votes.values())))
+    return vote_diagnostics(agree, counts, n, m)
 
 
 def _tree_execute(tree: Dict, axes, strategy: VoteStrategy,
@@ -749,10 +758,9 @@ def _plan_tree_execute(plan, tree: Dict, axes,
                                        overlap)
     margin = agreement = None
     if diagnostics:
-        m = ve.num_voters(axes) if axes else 1
-        margin = margin_of([psum_counts(eff, axes)], plan.n_params, m)
-        agreement = ratio_f32(count_equal(honest, flat_votes),
-                              plan.n_params)
+        margin, agreement = vote_diagnostics(
+            count_equal(honest, flat_votes), [psum_counts(eff, axes)],
+            plan.n_params, ve.num_voters(axes) if axes else 1)
     return (vote_plan.unflatten_votes(plan, flat_votes, tree), new_state,
             margin, agreement)
 
@@ -1213,7 +1221,7 @@ class VirtualBackend(VoteBackend):
 __all__ = [
     "FailureSpec", "MESH_STYLES", "MeshBackend", "PopulationStream",
     "VirtualBackend", "VoteBackend", "VoteOutcome", "VoteRequest",
-    "WireReport", "abs_sum", "agreement_of", "count_bytes", "count_dtype",
+    "WireReport", "abs_sum", "count_bytes", "count_dtype",
     "count_equal", "effective_stacked_signs", "int32_wrap", "margin_of",
-    "pad_last", "psum_counts", "ratio_f32",
+    "pad_last", "psum_counts", "ratio_f32", "vote_diagnostics",
 ]

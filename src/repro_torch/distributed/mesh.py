@@ -25,10 +25,15 @@ outside the mesh builds it too and is no member (:attr:`member`). A group
 of one rank needs no process group: its collectives are the identity, so
 a one-rank mesh works without ``torch.distributed``.
 
-The same collectives run on every backend; the group's backend decides
-how a tensor reaches it. Gloo takes CPU tensors, so a CUDA tensor is
-staged through a pinned host buffer (one per direction, grown to the
-largest tensor so far) and the result copied back to the card; NCCL takes the device tensor itself. Neither carries
+The same collectives run on every backend; each group's backend
+(``torch.distributed.get_backend(group)``) decides how a tensor reaches
+it. Gloo takes CPU tensors, so a CUDA tensor is staged through a pinned
+host buffer (one per direction, grown to the largest tensor so far) and
+the result copied back to the card; NCCL takes the device tensor itself.
+The tensor forms of the collectives are ``all_gather_into_tensor`` and
+``reduce_scatter_tensor``, which every PyTorch from 2.0 has (2.11 has no
+``*_single`` forms; 2.13 has both and warns that these are deprecated).
+Neither backend carries
 int16 (gloo raises "Invalid scalar type", NCCL has no such type), so an
 int16 count tensor (``vote_engine.count_dtype`` of 128-32,767 voters) is
 widened to int32 on the wire and narrowed after; the sums are the same.
@@ -119,8 +124,6 @@ class ProcessMesh:
         self.member = self.rank in self.ranks
         pos = self.ranks.index(self.rank) if self.member else 0
         self.coords = {"pod": pos // self.data, "data": pos % self.data}
-        self.backend = (dist.get_backend() if dist.is_initialized()
-                        else "gloo")
         self.stats = WireStats()
         # every group of the mesh, in one order on every rank
         self._groups = {}
@@ -176,13 +179,14 @@ class ProcessMesh:
 
     # ---- staging --------------------------------------------------------
 
-    def _stage(self, x: torch.Tensor, role: str, numel: int = 0
+    @staticmethod
+    def _stage(x: torch.Tensor, role: str, backend: str, numel: int = 0
                ) -> torch.Tensor:
         """`x` (or an empty buffer of `numel` elements of x's dtype) where
-        the group's backend reads it: a pinned host buffer for a CUDA
+        a group of `backend` reads it: a pinned host buffer for a CUDA
         tensor on gloo, the tensor itself otherwise."""
         n = numel or x.numel()
-        if not (x.is_cuda and self.backend == "gloo"):
+        if not (x.is_cuda and backend == "gloo"):
             return x.reshape(-1) if not numel else torch.empty(
                 n, dtype=x.dtype, device=x.device)
         nbytes = n * x.element_size()
@@ -196,14 +200,16 @@ class ProcessMesh:
             buf.copy_(x.reshape(-1))
         return buf
 
-    def _run(self, x: torch.Tensor, fn, out_numel: int) -> torch.Tensor:
-        """Run the collective `fn(src, dst)` on `x`, widening int16 to
-        int32; returns a new flat tensor of `out_numel` elements on x's
-        device, in x's dtype."""
+    def _run(self, x: torch.Tensor, fn, out_numel: int, group
+             ) -> torch.Tensor:
+        """Run the collective `fn(src, dst)` of process group `group` on
+        `x`, widening int16 to int32; returns a new flat tensor of
+        `out_numel` elements on x's device, in x's dtype."""
         src = x.to(torch.int32) if x.dtype == torch.int16 else x
+        backend = dist.get_backend(group)
         t0 = time.perf_counter()
-        s = self._stage(src, "src")
-        d = self._stage(src, "dst", out_numel)
+        s = self._stage(src, "src", backend)
+        d = self._stage(src, "dst", backend, out_numel)
         fn(s, d)
         # a staging buffer is reused by the next call: copy out of it
         out = d if d.device == x.device else d.to(x.device)
@@ -278,7 +284,7 @@ def psum(x: torch.Tensor, axes, names: Optional[Sequence[str]] = None
     def fn(src, dst):
         dst.copy_(src)
         dist.all_reduce(dst, group=group)
-    return mesh._run(x, fn, x.numel()).view(x.shape)
+    return mesh._run(x, fn, x.numel(), group).view(x.shape)
 
 
 def all_gather(x: torch.Tensor, axes, name: str, tiled: bool = False
@@ -292,8 +298,9 @@ def all_gather(x: torch.Tensor, axes, name: str, tiled: bool = False
         out = x.clone().unsqueeze(0)
     else:
         def fn(src, dst):
-            _all_gather_into(dst, src, group)
-        out = mesh._run(x, fn, k * x.numel()).view((k,) + tuple(x.shape))
+            dist.all_gather_into_tensor(dst, src, group=group)
+        out = mesh._run(x, fn, k * x.numel(), group).view(
+            (k,) + tuple(x.shape))
     if tiled:
         return torch.cat(list(out.unbind(0)), dim=-1)
     return out
@@ -312,8 +319,8 @@ def psum_scatter(x: torch.Tensor, axes, name: str) -> torch.Tensor:
         return x.clone()
 
     def fn(src, dst):
-        _reduce_scatter_into(dst, src, group)
-    return mesh._run(x, fn, x.numel() // k)
+        dist.reduce_scatter_tensor(dst, src, group=group)
+    return mesh._run(x, fn, x.numel() // k, group)
 
 
 def gather_voters(x: torch.Tensor, axes) -> torch.Tensor:
@@ -325,8 +332,8 @@ def gather_voters(x: torch.Tensor, axes) -> torch.Tensor:
         return x.clone().unsqueeze(0)
 
     def fn(src, dst):
-        _all_gather_into(dst, src, group)
-    return mesh._run(x, fn, len(ranks) * x.numel()).view(
+        dist.all_gather_into_tensor(dst, src, group=group)
+    return mesh._run(x, fn, len(ranks) * x.numel(), group).view(
         (len(ranks),) + tuple(x.shape))
 
 
@@ -340,23 +347,7 @@ def broadcast(x: torch.Tensor, axes, src_index: int = 0) -> torch.Tensor:
     def fn(src, dst):
         dst.copy_(src)
         dist.broadcast(dst, src=ranks[src_index], group=group)
-    return mesh._run(x, fn, x.numel()).view(x.shape)
-
-
-def _all_gather_into(dst, src, group) -> None:
-    fn = getattr(dist, "all_gather_single", None)
-    if fn is not None:
-        fn(dst, src, group=group)
-    else:
-        dist.all_gather_into_tensor(dst, src, group=group)
-
-
-def _reduce_scatter_into(dst, src, group) -> None:
-    fn = getattr(dist, "reduce_scatter_single", None)
-    if fn is not None:
-        fn(dst, src, group=group)
-    else:
-        dist.reduce_scatter_tensor(dst, src, group=group)
+    return mesh._run(x, fn, x.numel(), group).view(x.shape)
 
 
 def first_ranks(m: int) -> ProcessMesh:

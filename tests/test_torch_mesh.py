@@ -8,6 +8,24 @@ the port's stacked path bit for bit (the dense sgd within its mean's
 rounding bound). The reference's own tier-2 suite proves its mesh path
 equal to its virtual one, so no JAX process is spawned there.
 
+What the mesh gave, with the inputs it was given (the harness's record),
+is then held here against the reference on those same inputs:
+
+* every vote request (leaf, tree and stacked forms, stale voters, the
+  oblivious adversaries, ``weighted_vote``'s state in the gathered
+  data-major order) and every plan walk: the mesh's votes, server state
+  and wire report equal to the reference's ``VirtualBackend`` bit for bit;
+* each adversary's rows gathered from the ranks equal to the reference's
+  ``apply_adversary_stacked`` of the same signs;
+* each drill's digest and margins, run on the reference's draws (handed
+  to the harness as numpy), equal to the reference's virtual
+  ``ScenarioRunner`` for the reference's own tier-2 harness specs;
+* the mesh trainer: one step of 4 ranks from the start state and batch of
+  the M = 4 step composed from the reference's functions
+  (``tests/torch_train_step_common.py``), held to it by that module's
+  teacher-forced criteria (losses and momenta within float32 rounding,
+  every vote whose inputs are not within rounding of zero equal).
+
 In this process, against the reference:
 
 * the tree form over empty vote axes (M = 1, the vote the local sign):
@@ -23,8 +41,10 @@ In this process, against the reference:
   reference's minus the fraction of exactly-zero vote inputs;
 * the backends' refusals and their reasons.
 """
+import ast
 import dataclasses
 import os
+import pickle
 import subprocess
 import sys
 from pathlib import Path
@@ -36,10 +56,16 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro.configs.base import (OptimizerConfig, TrainConfig,  # noqa: E402
-                                VoteStrategy, get_config, reduced_config)
+import torch_mesh_harness as harness_mod  # noqa: E402
+import torch_train_step_common as common  # noqa: E402
+from repro import sim as jsim  # noqa: E402
+from repro.configs.base import (ByzantineConfig,  # noqa: E402
+                                OptimizerConfig, TrainConfig, VoteStrategy,
+                                get_config, reduced_config)
+from repro.core import byzantine as jbyz  # noqa: E402
 from repro.core import vote_api as jva  # noqa: E402
 from repro.core import vote_plan as jvp  # noqa: E402
+from repro.sim import runner as jrunner  # noqa: E402
 from repro.data.pipeline import SyntheticLMPipeline  # noqa: E402
 from repro.train import train_step as jTS  # noqa: E402
 from repro_torch.configs import base as tbase  # noqa: E402
@@ -55,26 +81,212 @@ SRC = Path(__file__).resolve().parents[1] / "src"
 CHECKS = ("votes", "plans", "trainer", "drills")
 
 
+def _reference_harness_specs():
+    """The reference's tier-2 harness specs, read from
+    ``tests/tier2/scenario_harness.py`` without importing it (its import
+    asks XLA for 8 host devices)."""
+    src = (Path(__file__).parent / "tier2" / "scenario_harness.py"
+           ).read_text()
+    fn = next(n for n in ast.parse(src).body
+              if isinstance(n, ast.FunctionDef) and n.name == "harness_specs")
+    ns = {"VoteStrategy": VoteStrategy, "AdversarySpec": jsim.AdversarySpec,
+          "ElasticEvent": jsim.ElasticEvent, "PlanSpec": jsim.PlanSpec,
+          "ScenarioSpec": jsim.ScenarioSpec}
+    exec(compile(ast.Module([fn], []), "scenario_harness.py", "exec"), ns)
+    return ns["harness_specs"]()
+
+
+def _reference_draws(specs):
+    """The reference's start point of each spec and its noise for every
+    step and every voter count the drill reaches."""
+    x0, table = {}, {}
+    for spec in specs:
+        j = jsim.ScenarioSpec.from_dict(spec.to_dict())
+        x0[spec.name] = np.asarray(jrunner._init_x(j))
+        counts = {spec.n_workers} | {e.n_workers for e in spec.elastic}
+        for step in range(spec.n_steps):
+            for m in counts:
+                table[(spec.name, step, m)] = np.asarray(
+                    jrunner._noise(j, step, m))
+    return x0, table
+
+
 @pytest.fixture(scope="module")
-def harness(tmp_path_factory):
-    """One launch of the 8-rank harness: its exit code and output."""
+def composed():
+    """The reference's M = 4 step, composed from its functions: (states,
+    losses, batches) of one step."""
+    assert (common.GB, common.SEQ, common.LR, common.BETA) == (
+        harness_mod.REF_GB, harness_mod.REF_SEQ, harness_mod.REF_LR,
+        harness_mod.REF_BETA)
+    return common._composed_run("sign1bit", 1)
+
+
+@pytest.fixture(scope="module")
+def harness(tmp_path_factory, composed):
+    """One launch of the 8-rank harness, given the reference's draws and
+    start state: its exit code, output and scratch directory."""
+    scratch = tmp_path_factory.mktemp("mesh")
+    with open(scratch / "draws.pkl", "wb") as f:
+        pickle.dump(_reference_draws(harness_mod.harness_specs()), f)
+    states, _, batches = composed
+    np.savez(scratch / "reference_step.npz", tokens=batches[0],
+             **{"p/" + k: v for k, v in states[0]["params"].items()})
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
         [str(SRC)] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
                       if p])
     out = subprocess.run(
-        [sys.executable, str(HARNESS), str(tmp_path_factory.mktemp("mesh"))],
+        [sys.executable, str(HARNESS), str(scratch)],
         capture_output=True, text=True, timeout=900, env=env)
-    return out.returncode, out.stdout, out.stderr
+    return out.returncode, out.stdout, out.stderr, scratch
 
 
 @pytest.mark.parametrize("check", CHECKS)
 def test_eight_rank_mesh_equals_the_stacked_path(harness, check):
-    rc, stdout, stderr = harness
+    rc, stdout, stderr, _ = harness
     assert f"OK {check} " in stdout, (
         f"harness exit {rc}\n{stdout[-3000:]}\n{stderr[-6000:]}")
     if check == CHECKS[-1]:
         assert rc == 0 and "ALL OK" in stdout, stderr[-6000:]
+
+
+# ---------------------------------------------------------------------------
+# the harness's record against the reference, on the same inputs
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def record(harness):
+    rc, stdout, stderr, scratch = harness
+    assert rc == 0, f"harness exit {rc}\n{stdout[-3000:]}\n{stderr[-6000:]}"
+    with open(scratch / "mesh_record.pkl", "rb") as f:
+        return pickle.load(f)
+
+
+def _jfailures(d):
+    if d is None:
+        return jva.FailureSpec()
+    return jva.FailureSpec(n_stale=d["n_stale"], byz=None if d["byz"] is None
+                           else ByzantineConfig(**d["byz"]))
+
+
+def _jwire(w):
+    return (w.n_voters, w.payload_bytes, w.n_messages,
+            getattr(w.strategy, "value", None))
+
+
+def _held(what, got, want):
+    np.testing.assert_array_equal(
+        np.asarray(got).astype(np.int8).reshape(-1),
+        np.asarray(want).astype(np.int8).reshape(-1), err_msg=what)
+
+
+def _held_state(r, out):
+    if r["mesh_ema"] is None:
+        return
+    want = np.asarray(out.server_state["flip_ema"])
+    if r["order"] is not None:
+        want = want[r["order"]]
+    np.testing.assert_array_equal(r["mesh_ema"], want,
+                                  err_msg=r["what"] + " flip_ema")
+
+
+def _check_votes(rec):
+    x, prev = rec["x"], rec["prev"]
+    back, cache = jva.VirtualBackend(), {}
+    assert len(rec["votes"]) > 200
+    for r in rec["votes"]:
+        m = r["m"]
+        kw = dict(payload=jnp.asarray(x[:m]), form="stacked",
+                  strategy=VoteStrategy(r["strategy"]), codec=r["codec"],
+                  failures=_jfailures(r["failures"]), step=r["step"],
+                  salt=r["salt"])
+        if r["prev"]:
+            kw["prev"] = jnp.asarray(prev[:m])
+        if r["ema"] is not None:
+            kw["server_state"] = {"flip_ema": jnp.asarray(r["ema"])}
+        key = (m, r["prev"], r["strategy"], r["codec"], repr(r["failures"]),
+               r["step"], r["salt"], None if r["ema"] is None
+               else r["ema"].tobytes())
+        if key not in cache:
+            cache[key] = back.execute(jva.VoteRequest(**kw))
+        out = cache[key]
+        _held(r["what"], r["votes"], out.votes)
+        _held_state(r, out)
+        if r["wire"] is not None:
+            assert r["wire"] == _jwire(out.wire), r["what"]
+
+
+def _check_adversary(rec):
+    assert len(rec["adversary"]) == 15
+    for r in rec["adversary"]:
+        want = jbyz.apply_adversary_stacked(
+            jnp.asarray(r["signs"]), ByzantineConfig(**r["cfg"]),
+            step=r["step"], salt=r["salt"])
+        _held(r["what"], r["rows"], want)
+
+
+def _check_plans(rec):
+    x, shapes = rec["plan_x"], rec["plan_shapes"]
+    back = jva.VirtualBackend()
+    assert len(rec["plans"]) == 33
+    for r in rec["plans"]:
+        plan = jvp.build_plan(shapes, bucket_bytes=r["bucket_bytes"],
+                              codec_map=r["codec_map"],
+                              default_codec=r["default"],
+                              strategy=VoteStrategy(r["strategy"]),
+                              data_size=r["data"], pod_size=r["pod"])
+        kw = dict(payload=jnp.asarray(x[:r["m"]]), form="stacked", plan=plan)
+        if r["ema"] is not None:
+            kw["server_state"] = {"flip_ema": jnp.asarray(r["ema"])}
+        if r["byz"] is not None:
+            kw.update(failures=jva.FailureSpec(byz=ByzantineConfig(
+                **r["byz"])), step=r["step"])
+        out = back.execute(jva.VoteRequest(**kw))
+        _held(r["what"], r["votes"], out.votes)
+        _held_state(r, out)
+
+
+def _check_drills(rec):
+    specs = harness_mod.harness_specs()
+    assert [s.to_dict() for s in specs] == [
+        s.to_dict() for s in _reference_harness_specs()]
+    assert sorted(rec["drills"]) == sorted(s.name for s in specs)
+    for spec in specs:
+        got = rec["drills"][spec.name]
+        assert got["reference_draws"]
+        want = jsim.ScenarioRunner(jsim.ScenarioSpec.from_dict(
+            spec.to_dict())).run()
+        assert got["digest"] == want.digest, spec.name
+        assert got["margins"] == [s.margin for s in want.steps], spec.name
+
+
+def _check_trainer(rec, scratch, composed):
+    states, losses, _ = composed
+    ranks = [np.load(scratch / f"mesh_step_rank{r}.npz")
+             for r in range(common.M4)]
+    names = [k[2:] for k in ranks[0].files if k.startswith("p/")]
+    assert sorted(names) == sorted(states[0]["params"])
+    for z in ranks[1:]:
+        assert float(z["loss"]) == float(ranks[0]["loss"])
+        for k in names:
+            np.testing.assert_array_equal(z["p/" + k], ranks[0]["p/" + k])
+    port = {"loss": float(ranks[0]["loss"]),
+            "params": {k: ranks[0]["p/" + k] for k in names},
+            "momentum": {k: np.stack([z["m/" + k] for z in ranks])
+                         for k in names}}
+    common._check_teacher_forced(states[0], {"loss": losses[0],
+                                             **states[1]}, port)
+
+
+@pytest.mark.parametrize("part", ["votes", "adversary", "plans", "drills",
+                                  "trainer"])
+def test_mesh_record_equals_the_reference(record, harness, composed, part):
+    if part == "trainer":
+        _check_trainer(record, harness[3], composed)
+    else:
+        {"votes": _check_votes, "adversary": _check_adversary,
+         "plans": _check_plans, "drills": _check_drills}[part](record)
 
 
 # ---------------------------------------------------------------------------

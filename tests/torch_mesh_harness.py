@@ -26,12 +26,27 @@ d. drills: ``ScenarioRunner(backend="mesh")`` digests equal to the virtual
    runner's for the reference's tier-2 harness specs (h8/honest7 on the
    first 7 ranks, two elastic drills), and ``identity_rows`` at 1.0.
 
+Rank 0 writes what the mesh gave, with the inputs it was given, to
+``<scratch dir>/mesh_record.pkl`` (numpy and plain Python only), so that
+``tests/test_torch_mesh.py`` holds it against the reference on the same
+inputs: every vote request (payload rows, failures, step, salt, server
+state) with the mesh's votes, server state and wire; each adversary's
+gathered rows with the signs they corrupted; every plan walk; each
+drill's digest and margins. Two inputs come from the reference when the
+scratch directory holds them (the test writes both): ``draws.pkl``, the
+reference's start points and noise for every harness spec (the drills
+run on them instead of ``PrngDraws``), and ``reference_step.npz``, a
+start state and batch of the reference's M = 4 step, from which the
+trainer's ranks take one step and write their state to
+``mesh_step_rank<r>.npz``.
+
 Rank 0 prints ``OK <check> <seconds>`` per check and ``ALL OK``; a failed
 check raises on its rank and the launch exits non-zero.
 """
 import dataclasses
 import hashlib
 import os
+import pickle
 import sys
 import time
 
@@ -43,6 +58,26 @@ import torch.multiprocessing as mp
 WORLD = 8
 N = 203          # coordinates of a leaf vote (not a multiple of 32)
 SEED = 0
+#: rank 0's record of what the mesh gave (see the module doc)
+RECORD = {"votes": [], "adversary": [], "plans": [], "drills": {}}
+#: the scratch directory of this launch
+SCRATCH = "."
+
+
+def _np(t):
+    return None if t is None else torch.as_tensor(t).detach().cpu().numpy(
+    ).copy()
+
+
+def _fail(f) -> dict:
+    """A FailureSpec as plain fields."""
+    return {"n_stale": f.n_stale,
+            "byz": None if f.byz is None else dataclasses.asdict(f.byz)}
+
+
+def _wire(w) -> tuple:
+    return (w.n_voters, w.payload_bytes, w.n_messages,
+            getattr(w.strategy, "value", None))
 
 
 def _digest(*tensors) -> str:
@@ -86,12 +121,14 @@ def check_votes(rank):
     from repro_torch.core import sign_compress as sc
     from repro_torch.core import vote_api as va
     from repro_torch.core import vote_engine as ve
+    from repro_torch.distributed import mesh as pm
     meshes = _meshes()
     rng = np.random.default_rng(SEED)
     x = rng.normal(size=(WORLD, N)).astype(np.float32)
     x[:, :5] = 0.0                          # abstentions
     x[2, 5:9] = 1e-39                       # subnormals abstain too
     prev = np.sign(rng.normal(size=(WORLD, N))).astype(np.int8)
+    RECORD["x"], RECORD["prev"] = x, prev
     virtual = va.VirtualBackend(device="cpu")
     for name, mesh in meshes.items():
         if not mesh.member:
@@ -131,6 +168,14 @@ def check_votes(rank):
                     if got.wire != dataclasses.replace(want.wire):
                         raise AssertionError(f"{what}: wire {got.wire} != "
                                              f"{want.wire}")
+                    if rank == 0:
+                        RECORD["votes"].append(dict(
+                            what=what, m=m, prev=True, codec=codec,
+                            strategy=strat.value, failures=_fail(f), step=3,
+                            salt=11, ema=_np(state and state["flip_ema"]),
+                            order=order, votes=_np(got.votes),
+                            mesh_ema=_np(state and got.server_state[
+                                "flip_ema"]), wire=_wire(got.wire)))
         # the five oblivious adversaries, row by row
         s_all = sc.sign_ternary(torch.from_numpy(x[:m]))
         for mode in ("sign_flip", "random", "zero", "colluding", "blind"):
@@ -141,6 +186,12 @@ def check_votes(rank):
             got = byzantine.apply_adversary(s_all[r].clone(), cfg, axes,
                                             step=7, salt=1)
             _eq(f"{name} adversary {mode}", got, want[r])
+            rows = pm.gather_voters(got, axes)
+            if rank == 0:
+                RECORD["adversary"].append(dict(
+                    what=f"{name} adversary {mode}", signs=_np(s_all),
+                    cfg=dataclasses.asdict(cfg), step=7, salt=1,
+                    rows=_np(rows)))
         # a tree: every leaf its own vote; weighted folds one EMA update
         tree = {"a": torch.from_numpy(x[r, :70].reshape(7, 10)),
                 "b": torch.from_numpy(x[r, 70:])}
@@ -161,11 +212,19 @@ def check_votes(rank):
                     codec=codec, server_state=state))
                 flat = torch.cat([got.votes["a"].reshape(-1),
                                   got.votes["b"]])
-                _eq(f"{name} tree {codec}/{strat.value}",
-                    sc.sign_ternary(flat), want.votes)
+                what = f"{name} tree {codec}/{strat.value}"
+                _eq(what, sc.sign_ternary(flat), want.votes)
                 if state:
                     _eq(f"{name} tree ema", got.server_state["flip_ema"],
                         want.server_state["flip_ema"][order])
+                if rank == 0:
+                    RECORD["votes"].append(dict(
+                        what=what, m=m, prev=False, codec=codec,
+                        strategy=strat.value, failures=None, step=None,
+                        salt=0, ema=_np(state and state["flip_ema"]),
+                        order=order, votes=_np(sc.sign_ternary(flat)),
+                        mesh_ema=_np(state and got.server_state[
+                            "flip_ema"]), wire=None))
         # int16 counts (the count dtype of 200 voters) ride as int32
         impl = ve.STRATEGIES[S.PSUM_INT8]
         s16 = impl.pack(s_all[r].view(1, -1), 200)
@@ -198,11 +257,20 @@ def check_votes(rank):
                            server_state=state)
                 got = back.execute(va.VoteRequest(**req))
                 want = virtual.execute(va.VoteRequest(**req))
-                _eq(f"stacked M={m} {codec}/{strat.value}", got.votes,
-                    want.votes)
+                what = f"stacked M={m} {codec}/{strat.value}"
+                _eq(what, got.votes, want.votes)
                 if state:
                     _eq("stacked ema", got.server_state["flip_ema"],
                         want.server_state["flip_ema"])
+                if rank == 0:
+                    RECORD["votes"].append(dict(
+                        what=what, m=m, prev=True, codec=codec,
+                        strategy=strat.value,
+                        failures=_fail(req["failures"]), step=2, salt=0,
+                        ema=_np(state and state["flip_ema"]), order=None,
+                        votes=_np(got.votes), mesh_ema=_np(
+                            state and got.server_state["flip_ema"]),
+                        wire=_wire(got.wire)))
     assert "needs 9 ranks" in back.why_unsupported(va.VoteRequest(
         payload=np.zeros((9, 4), np.float32), form="stacked"))
 
@@ -223,6 +291,7 @@ def check_plans(rank):
     n = sum(int(np.prod(s)) for s in shapes.values())
     x = rng.normal(size=(WORLD, n)).astype(np.float32)
     x[:, 3:7] = 0.0
+    RECORD["plan_x"], RECORD["plan_shapes"] = x, shapes
     virtual = va.VirtualBackend(device="cpu")
     for name, mesh in meshes.items():
         if not mesh.member:
@@ -272,6 +341,15 @@ def check_plans(rank):
                 v2, _ = vp.plan_vote_signs(plan, flat, axes,
                                            mstate if state else None)
                 _eq(what + " plan_vote_signs", v2, want.votes)
+                if rank == 0:
+                    RECORD["plans"].append(dict(
+                        what=what, m=m, bucket_bytes=9,
+                        codec_map=codec_map, default=default,
+                        strategy=strat.value, data=mesh.data, pod=mesh.pod,
+                        byz=None, step=None,
+                        ema=_np(state and state["flip_ema"]), order=order,
+                        votes=_np(got), mesh_ema=_np(
+                            state and st["flip_ema"])))
             if strat == S.ALLGATHER_1BIT and not plan.has_server_state:
                 _eq(f"{name} plan_vote_stacked", vp.plan_vote_stacked(
                     plan, torch.from_numpy(x[:m])), want.votes)
@@ -287,9 +365,16 @@ def check_plans(rank):
             x[r, s.offset:s.offset + s.length].reshape(s.shape))
             for s in plan.leaves}
         votes, _, _ = vp.plan_tree_vote(plan, tree, axes, byz=byz, step=5)
-        _eq(f"{name} plan adversary", torch.cat(
-            [votes[s.name].reshape(-1).to(torch.int8) for s in plan.leaves]),
-            want.votes)
+        got = torch.cat([votes[s.name].reshape(-1).to(torch.int8)
+                         for s in plan.leaves])
+        _eq(f"{name} plan adversary", got, want.votes)
+        if rank == 0:
+            RECORD["plans"].append(dict(
+                what=f"{name} plan adversary", m=m, bucket_bytes=7,
+                codec_map=(), default="sign1bit",
+                strategy=S.ALLGATHER_1BIT.value, data=1, pod=1,
+                byz=dataclasses.asdict(byz), step=5, ema=None, order=None,
+                votes=_np(got), mesh_ema=None))
 
 
 # ---------------------------------------------------------------------------
@@ -415,6 +500,44 @@ def check_trainer(rank):
                 raise AssertionError(f"trainer {label}: rank {rank}'s state "
                                      "differs from the stacked voter's")
     check_dense(rank, meshes["data4"])
+    reference_step(rank, meshes["data4"])
+
+
+#: the reference's M = 4 step (tests/torch_train_step_common.py's
+#: composed step): global batch, sequence, learning rate, beta
+REF_GB, REF_SEQ, REF_LR, REF_BETA = 8, 64, 1e-3, 0.9
+
+
+def reference_step(rank, mesh):
+    """One mesh step of the 1-bit wire from the reference's start state
+    and batch (``reference_step.npz``, when the scratch directory holds
+    it): each rank writes its loss, parameters and momentum to
+    ``mesh_step_rank<r>.npz``."""
+    from repro_torch.configs import base
+    from repro_torch.models import model as tM
+    from repro_torch.train import train_step as TS
+    path = os.path.join(SCRATCH, "reference_step.npz")
+    if not mesh.member or not os.path.exists(path):
+        return
+    with np.load(path) as z:
+        start = {k[2:]: z[k] for k in z.files if k.startswith("p/")}
+        tokens = z["tokens"]
+    opt = base.OptimizerConfig(kind="signum_vote", learning_rate=REF_LR,
+                               momentum=REF_BETA,
+                               vote_strategy=base.VoteStrategy.ALLGATHER_1BIT)
+    cfg = dataclasses.replace(base.reduced_config(base.get_config(
+        "glm4-9b")), dtype="float32")
+    tcfg = base.TrainConfig(global_batch=REF_GB, seq_len=REF_SEQ,
+                            optimizer=opt)
+    art = TS.make_train_step(cfg, tcfg, device="cpu", mesh=mesh)
+    params = tM.params_from_numpy(start, device="cpu")
+    state = art.optimizer.init(params)
+    params, state, met = art.step_fn(params, state, {"tokens": tokens}, 0)
+    np.savez(os.path.join(SCRATCH, f"mesh_step_rank{rank}.npz"),
+             loss=np.float64(met["loss"]),
+             **{"p/" + k: v.numpy() for k, v in params.items()},
+             **{"m/" + k: v.float().numpy()
+                for k, v in state["momentum"].items()})
 
 
 def check_dense(rank, mesh):
@@ -518,19 +641,40 @@ def harness_specs():
     ]
 
 
+class FileDraws:
+    """The reference's draws, handed over as numpy (``draws.pkl``: the
+    start point of each spec and its noise by (step, voters))."""
+
+    def __init__(self, path):
+        with open(path, "rb") as f:
+            self.x0, self.table = pickle.load(f)
+
+    def init_x(self, spec):
+        return self.x0[spec.name]
+
+    def noise(self, spec, step, m):
+        return self.table[(spec.name, step, m)]
+
+
 def check_drills(rank):
     from repro_torch.core.attacks import breaking_point
     from repro_torch.sim import ScenarioRunner
+    path = os.path.join(SCRATCH, "draws.pkl")
+    draws = FileDraws(path) if os.path.exists(path) else None
     for spec in harness_specs():
         style = "data_only" if spec.name == "h8/flip_stale" else "data_model"
         tm = ScenarioRunner(spec, backend="mesh", device="cpu",
-                            mesh_style=style).run()
-        tv = ScenarioRunner(spec, backend="virtual", device="cpu").run()
+                            mesh_style=style, draws=draws).run()
+        tv = ScenarioRunner(spec, backend="virtual", device="cpu",
+                            draws=draws).run()
         if tm.digest != tv.digest:
             raise AssertionError(f"{spec.name}: mesh digest {tm.digest[:12]}"
                                  f" != virtual {tv.digest[:12]}")
         if [s.margin for s in tm.steps] != [s.margin for s in tv.steps]:
             raise AssertionError(f"{spec.name}: margins differ")
+        RECORD["drills"][spec.name] = dict(
+            digest=tm.digest, margins=[s.margin for s in tm.steps],
+            reference_draws=draws is not None)
     rows = breaking_point.identity_rows(device="cpu")
     if [v for _, v, _ in rows] != [1.0] * len(rows):
         raise AssertionError(f"identity rows {rows}")
@@ -540,8 +684,11 @@ CHECKS = (("votes", check_votes), ("plans", check_plans),
           ("trainer", check_trainer), ("drills", check_drills))
 
 
-def worker(rank, init):
+def worker(rank, scratch):
+    global SCRATCH
+    SCRATCH = scratch
     torch.set_num_threads(1)
+    init = os.path.join(scratch, "torch_mesh_store")
     dist.init_process_group("gloo", init_method=f"file://{init}", rank=rank,
                             world_size=WORLD)
     try:
@@ -552,17 +699,20 @@ def worker(rank, init):
             if rank == 0:
                 print(f"OK {name} {time.perf_counter() - t0:.1f}s",
                       flush=True)
+        if rank == 0:
+            with open(os.path.join(scratch, "mesh_record.pkl"), "wb") as f:
+                pickle.dump(RECORD, f)
     finally:
         dist.destroy_process_group()
 
 
 def main(argv) -> int:
-    scratch = argv[1] if len(argv) > 1 else "."
-    init = os.path.join(os.path.abspath(scratch), "torch_mesh_store")
+    scratch = os.path.abspath(argv[1] if len(argv) > 1 else ".")
+    init = os.path.join(scratch, "torch_mesh_store")
     if os.path.exists(init):
         os.remove(init)
     t0 = time.perf_counter()
-    mp.spawn(worker, args=(init,), nprocs=WORLD, join=True)
+    mp.spawn(worker, args=(scratch,), nprocs=WORLD, join=True)
     print(f"ALL OK {time.perf_counter() - t0:.1f}s", flush=True)
     return 0
 

@@ -101,6 +101,7 @@ def _port_step(n_voters, state, tokens, step, codec="sign1bit", tcfg=None,
     (momentum and residual as float32). At step 0 with the run's
     `batches`, the first step of the cached free-running run."""
     if step == 0 and batches is not None:
+        np.testing.assert_array_equal(tokens, batches[0])
         return _port_run(n_voters, state, batches, codec, tcfg)[0]
     cfg, own = _tcfgs(codec=codec)
     art = tTS.make_train_step(cfg, tcfg or own, n_voters, device="cpu")
@@ -542,11 +543,16 @@ def _port_out(met, tp, ts):
 def _port_run(n_voters, state, batches, codec="sign1bit", tcfg=None):
     """The port's free-running steps from the numpy `state` over
     `batches`, one new state (with "loss") a step; computed once per
-    configuration and start state, so a teacher-forced step 0 (the same
+    configuration and start state (every array of `state`: parameters,
+    momentum, residual, EMA), so a teacher-forced step 0 (the same
     computation) and the free-running losses share it."""
     h = hashlib.sha256()
-    for k in sorted(state["params"]):
-        h.update(np.ascontiguousarray(state["params"][k]).tobytes())
+    for part in sorted(state):
+        arrays = state[part]
+        for k in (sorted(arrays) if isinstance(arrays, dict) else [None]):
+            a = arrays if k is None else arrays[k]
+            h.update(f"{part}/{k}".encode())
+            h.update(np.ascontiguousarray(a).tobytes())
     for t in batches:
         h.update(np.ascontiguousarray(t).tobytes())
     key = (n_voters, h.hexdigest(), codec, repr(tcfg))
