@@ -241,8 +241,33 @@ Phases, each of which fails the run (non-zero exit) on any disagreement:
    step split into collectives and the rest, each rank's peak and the
    phase's seconds printed.
 
-Phase 13's and 14's launches (phase 14's summed over its ranks) join the
-kernels line.
+15. the fused ZeRO backward (after phase 14; ``scripts/fsdp_probe.py``
+   runs it alone): (a) the qwen1.5-32b Mode B preset at every published
+   width, 2 layers, with its fsdp on (the fused leaves voted inside the
+   virtual reduce-scatter), M = 4 stacked, 8 microbatches, nested remat,
+   hierarchical, 3 steps: exact launches, every launch of step 0 held
+   against its plain version, ``layers.attn_wq``'s step-0 momentum and
+   parameters bit-equal to the plain versions run on a plain recomputation
+   of its accumulated vote (per microbatch the sign of the summed int8
+   signs of the 4 voters' gradients); then remat "dots" for 2 steps (losses
+   bit-equal to nested's) and the sgd preset with fsdp for 2; the step ms
+   and each run's peak; (b) 4 spawned processes on the card over gloo, one
+   voter each (as phase 14), cut to 1 layer, 2 microbatches and batch 8:
+   the preset on pod 2 x data 2 with one sign_flip voter for 2 steps and
+   sgd with fsdp on data 4 for 1, every rank's losses and checksums of its
+   parameter and momentum slices equal to the stacked twin's slices (sgd:
+   its ``layers.attn_wq`` slice within the mean's rounding bound), rank
+   0's step-0 launches held against their plain versions; the bytes each
+   rank hands the collectives per step beside the layout's count, each
+   rank's peak; (c) ``python -m repro_torch.launch.train`` as a
+   subprocess: glm4-9b at full depth and width (signSGD, 3 steps, batch 8,
+   seq 128), then a reduced run killed (SIGKILL) once its step-1
+   checkpoint is the latest and resumed to step 4, its losses from step 2
+   on equal to an uninterrupted run's.
+
+Phase 13's, 14's and 15's launches (phases 14's and 15b's summed over
+their ranks; not the launcher's, which runs in its own process and prints
+its own) join the kernels line.
 
 Phase 7 also times ternary_majority with ties +1 (its own row),
 ternary_unpack to bf16 and bitpack of the bf16 stack (its own row, whose
@@ -3686,6 +3711,50 @@ def mesh_wire_bytes(cfg, label: str) -> dict:
             "float32_gradient_bytes": 4 * n}
 
 
+def spawn_ranks(target, args, timeout_s: float) -> dict:
+    """Run `target(rank, init, *args, queue)` in MESH_RANKS spawned
+    processes over a fresh localhost port; returns {rank: result}, or
+    raises the first rank's error (every process is stopped on return)."""
+    import multiprocessing as mp
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    init = f"tcp://127.0.0.1:{port}"
+    ctx = mp.get_context("spawn")
+    queue = ctx.SimpleQueue()
+    procs = [ctx.Process(target=target, args=(r, init) + tuple(args)
+                         + (queue,)) for r in range(MESH_RANKS)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    results = {}
+    try:
+        while len(results) < MESH_RANKS:
+            if time.perf_counter() - t0 > timeout_s:
+                raise AssertionError(f"the ranks did not finish in "
+                                     f"{timeout_s} s")
+            if not queue.empty():
+                rank, res = queue.get()
+                if "error" in res:
+                    raise AssertionError(f"rank {rank} failed:\n"
+                                         f"{res['error']}")
+                results[rank] = res
+            elif any(p.exitcode not in (None, 0) for p in procs):
+                raise AssertionError("a rank exited with "
+                                     f"{[p.exitcode for p in procs]}")
+            else:
+                time.sleep(0.05)
+        for p in procs:
+            p.join(timeout=60)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+                p.join(timeout=10)
+    return results
+
+
 def run_mesh_path(torch, cfg, dev, errs, target=None) -> dict:
     """Phase 14: the stacked twin of each MESH_RUNS configuration, then a
     world of MESH_RANKS processes (spawned, over gloo, each on `dev`) runs
@@ -3695,8 +3764,6 @@ def run_mesh_path(torch, cfg, dev, errs, target=None) -> dict:
     (each kernel's largest difference into `errs`), and each leaf's mesh
     vote of the trained momentum against VirtualBackend. Returns the
     ranks' summed launches."""
-    import multiprocessing as mp
-    import socket
     t_start = time.perf_counter()
     twin = mesh_twin(torch, cfg, dev)
     if dev.type == "cuda":
@@ -3709,43 +3776,9 @@ def run_mesh_path(torch, cfg, dev, errs, target=None) -> dict:
              "reserved_bytes_before_ranks": torch.cuda.memory_reserved(),
              "device_free_bytes_before_ranks": free,
              "device_total_bytes": total})
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
-    init = f"tcp://127.0.0.1:{port}"
-    ctx = mp.get_context("spawn")
-    queue = ctx.SimpleQueue()
-    procs = [ctx.Process(target=target or mesh_rank,
-                         args=(r, init, cfg, dev.type, queue))
-             for r in range(MESH_RANKS)]
     t_ranks = time.perf_counter()
-    for p in procs:
-        p.start()
-    results = {}
-    try:
-        while len(results) < MESH_RANKS:
-            if time.perf_counter() - t_ranks > MESH_TIMEOUT_S:
-                raise AssertionError("the mesh ranks did not finish in "
-                                     f"{MESH_TIMEOUT_S} s")
-            if not queue.empty():
-                rank, res = queue.get()
-                if "error" in res:
-                    raise AssertionError(f"mesh rank {rank} failed:\n"
-                                         f"{res['error']}")
-                results[rank] = res
-            elif any(p.exitcode not in (None, 0) for p in procs):
-                raise AssertionError(
-                    "a mesh rank exited with "
-                    f"{[p.exitcode for p in procs]}")
-            else:
-                time.sleep(0.05)
-        for p in procs:
-            p.join(timeout=60)
-    finally:
-        for p in procs:
-            if p.is_alive():
-                p.terminate()
-                p.join(timeout=10)
+    results = spawn_ranks(target or mesh_rank, (cfg, dev.type),
+                          MESH_TIMEOUT_S)
     ranks_s = time.perf_counter() - t_ranks
     launches = {}
     for k, v in results[0]["max_abs_err"].items():
@@ -3811,6 +3844,751 @@ MESH_TIMEOUT_S = 600
 #: the step of every run whose launches rank 0 holds against the plain
 #: versions (its time includes the check; step 1 is the one to read)
 MESH_CHECKED_STEP = 0
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the fused ZeRO backward (fsdp), stacked and over a mesh,
+# remat="dots", and the training launcher
+# ---------------------------------------------------------------------------
+
+#: phase 15a: steps of the Mode B preset (nested remat), of remat="dots"
+#: and of the sgd preset, all with fsdp, M = 4 stacked
+FSDP_STEPS, FSDP_DOTS_STEPS, FSDP_SGD_STEPS = 3, 2, 2
+#: the fused leaf whose step-0 vote is recomputed by plain PyTorch
+FSDP_LEAF = "layers.attn_wq"
+#: phase 15b's cuts (four ranks in 80 GB, gloo on loopback): microbatches
+#: 8 -> 2, batch 32 -> 8, depth 2 -> 1
+FSDP_MESH_MICRO, FSDP_MESH_BATCH, FSDP_MESH_LAYERS = 2, 8, 1
+#: phase 15b's runs: (label, mesh shape, axes, train changes, steps)
+FSDP_MESH_RUNS = (
+    ("mode_b_pod2x2_sign_flip", (2, 2), ("pod", "data"),
+     {"byzantine": ("sign_flip", 1)}, 2),
+    ("sgd_data4", (4,), ("data",), {"kind": "sgd"}, 1),
+)
+#: phase 15c: the launcher at full glm4-9b depth and width (9.4e9
+#: parameters, signSGD so no momentum), then a reduced run killed after a
+#: checkpoint and resumed
+LAUNCH_FULL = ("--arch", "glm4-9b", "--steps", "3", "--batch", "8",
+               "--seq", "128", "--opt", "signsgd_vote", "--momentum", "0",
+               "--log-every", "1")
+LAUNCH_REDUCED = ("--arch", "glm4-9b", "--reduced", "--steps", "4",
+                  "--log-every", "1")
+LAUNCH_TIMEOUT_S = 300
+
+
+def fsdp_config(torch, layers: int = 2):
+    """qwen1.5-32b at every published width, `layers` deep, and its Mode B
+    preset at (seq PRESET_SEQ, batch PRESET_BATCH) with fsdp on."""
+    from repro_torch.configs.base import (MomentumMode, ShapeCell,
+                                          VoteStrategy, get_config)
+    from repro_torch.configs.presets import default_train_config
+    cfg = dataclasses.replace(get_config("qwen1.5-32b"), num_layers=layers)
+    preset = default_train_config("qwen1.5-32b", ShapeCell(
+        "train_smoke", PRESET_SEQ, PRESET_BATCH, "train"))
+    opt = preset.optimizer
+    if (opt.kind, opt.momentum_mode, opt.vote_strategy, opt.momentum,
+            preset.microbatches, preset.remat, preset.fsdp) != (
+            "signsgd_vote", MomentumMode.GLOBAL, VoteStrategy.HIERARCHICAL,
+            0.9, 8, "nested", True):
+        raise AssertionError(f"not the qwen1.5-32b Mode B preset: {preset}")
+    return cfg, preset
+
+
+def fsdp_launches(kind: str, raw: int, fused: int, voters: int,
+                  mesh: bool) -> dict:
+    """One step's launches under fsdp on hierarchical (`raw` leaves on the
+    wire, `fused` voted in the backward by PyTorch ops, no kernel). Mode B
+    stacked: each voter's bf16 gradient row of a raw leaf packed
+    (ternary_pack), per raw leaf the ties-+1 tally and the vote unpacked to
+    bf16; over a mesh instead the rank's symbols unpacked, the strategy's
+    bitpack / bitunpack of its decision and the vote repacked, then
+    unpacked to bf16. Then per leaf, raw or fused, the momentum kernel
+    without words, ternary_pack of u and apply_ternary_vote. The dense
+    baselines launch nothing."""
+    if kind == "sgd":
+        return {}
+    want = {"momentum_sign_pack": raw + fused,
+            "apply_ternary_vote": raw + fused}
+    if mesh:
+        want.update(ternary_pack=3 * raw + fused, ternary_unpack=2 * raw,
+                    bitpack=raw, bitunpack=raw)
+    else:
+        want.update(ternary_pack=voters * raw + raw + fused,
+                    ternary_majority_plus_one=raw, ternary_unpack=raw)
+    return want
+
+
+def fsdp_leaf_vote(torch, M, sc, cfg, tcfg, params, tokens, leaf):
+    """Step 0's accumulated fused vote of `leaf`, by plain PyTorch: per
+    microbatch each voter's gradient by autograd (blocks checkpointed as
+    the preset has them), the sum of their int8 signs and its sign, added
+    in bf16 over the microbatches and divided by their count."""
+    per = tokens.shape[0] // M_MAIN
+    micro = tcfg.microbatches
+    rows = per // micro
+    acc = torch.zeros_like(params[leaf], dtype=torch.bfloat16)
+    for i in range(micro):
+        count = torch.zeros_like(params[leaf], dtype=torch.int8)
+        for r in range(M_MAIN):
+            leaves = dict(params)
+            leaves[leaf] = params[leaf].detach().requires_grad_()
+            start = r * per + i * rows
+            loss, _ = M.loss_fn(cfg, leaves,
+                                {"tokens": tokens[start:start + rows]},
+                                remat=tcfg.remat)
+            g = torch.autograd.grad(loss, [leaves[leaf]])[0]
+            count.add_(sc.sign_ternary(g))
+            del g, leaves
+        acc.add_(torch.sign(count).to(params[leaf].dtype).to(
+            torch.bfloat16))
+    return acc.div_(micro)
+
+
+def fsdp_step_loop(torch, label, art, params, state, pipe, steps, want,
+                   err, check_step0=True) -> tuple:
+    """`steps` steps with exact launches, every launch of step 0 held
+    against its plain version; returns (launches of the run, losses, step
+    ms, the state after step 0 of FSDP_LEAF's momentum and parameters)."""
+    from repro_torch.core import sign_compress as sc
+    from repro_torch.kernels import ops, ref
+    total, losses, step_ms, after0 = {}, [], [], None
+    for step in range(steps):
+        tokens = torch.as_tensor(pipe.global_batch_at(step)["tokens"],
+                                 device=art.device)
+        ops.reset_launch_counts()
+        held = {}
+        checked = check_step0 and step == 0
+        sync(torch, art.device)
+        t0 = time.perf_counter()
+        with (plain_checked(torch, ops, ref, sc, err,
+                            f"fsdp {label} step {step}", MESH_CHECKED, held)
+              if checked else contextlib.nullcontext()):
+            params, state, met = art.step_fn(params, state,
+                                             {"tokens": tokens}, step)
+        sync(torch, art.device)
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = {k: v for k, v in ops.launch_counts().items() if v}
+        loss = float(met["loss"])
+        log({"run": label, "step": step, "loss": loss, "ms": ms,
+             "launches": launches, "held_vs_plain": held})
+        if not math.isfinite(loss):
+            raise AssertionError(f"{label} step {step}: loss {loss}")
+        if (launches or art.device.type == "cuda") and launches != want:
+            raise AssertionError(f"{label} step {step}: launches "
+                                 f"{launches}, expected {want}")
+        if checked and art.device.type == "cuda" and held != launches:
+            raise AssertionError(f"{label}: held {held} of the launches "
+                                 f"{launches} against their plain versions")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        losses.append(loss)
+        step_ms.append(ms)
+        if step == 0 and "momentum" in state:
+            after0 = (state["momentum"][FSDP_LEAF].clone(),
+                      params[FSDP_LEAF].clone())
+    return total, losses, step_ms, after0
+
+
+def peak_bytes(torch, dev):
+    return torch.cuda.max_memory_allocated() if dev.type == "cuda" else None
+
+
+def reset_peak(torch, dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+
+def run_fsdp_stacked(torch, dev, err, cfg=None) -> dict:
+    """Phase 15a: the qwen1.5-32b Mode B preset with its fsdp on, M = 4
+    stacked (the fused backward's virtual form): FSDP_STEPS steps of the
+    preset (nested remat), every launch of step 0 held against its plain
+    version and FSDP_LEAF's step-0 momentum and parameters bit-equal to the
+    plain versions run on the plain recomputation of its accumulated vote;
+    then remat="dots" (losses bit-equal to nested's) and the sgd preset
+    with fsdp. Returns the launches."""
+    from repro_torch.core import sign_compress as sc
+    from repro_torch.core import signum
+    from repro_torch.data.pipeline import SyntheticLMPipeline
+    from repro_torch.kernels import ref
+    from repro_torch.models import model as M
+    from repro_torch.train import train_step as TS
+    t_start = time.perf_counter()
+    full, preset = fsdp_config(torch)
+    cfg = cfg or full
+    sgd = dataclasses.replace(preset, optimizer=dataclasses.replace(
+        preset.optimizer, kind="sgd"))
+    runs = (("mode_b_nested", preset, FSDP_STEPS),
+            ("mode_b_dots", dataclasses.replace(preset, remat="dots"),
+             FSDP_DOTS_STEPS),
+            ("sgd", sgd, FSDP_SGD_STEPS))
+    totals, out = {}, {}
+    for label, tcfg, steps in runs:
+        reset_peak(torch, dev)
+        art = TS.make_train_step(cfg, tcfg, M_MAIN, device=dev)
+        if not art.fused_leaves:
+            raise AssertionError(f"fsdp {label}: no leaf is fused")
+        params, state = TS.materialize_state(
+            cfg, tcfg, art, torch.Generator(device=dev).manual_seed(0))
+        pipe = SyntheticLMPipeline(cfg, tcfg.global_batch, tcfg.seq_len,
+                                   seed=0)
+        raw = len(params) - len(art.fused_leaves)
+        want = fsdp_launches(tcfg.optimizer.kind, raw,
+                             len(art.fused_leaves), M_MAIN, mesh=False)
+        log({"phase": "fsdp_stacked", "run": label, "arch": cfg.name,
+             "num_layers": cfg.num_layers, "params": cfg.param_count(),
+             "voters": M_MAIN, "global_batch": tcfg.global_batch,
+             "seq": tcfg.seq_len, "microbatches": tcfg.microbatches,
+             "remat": tcfg.remat, "fsdp": tcfg.fsdp,
+             "kind": tcfg.optimizer.kind,
+             "fused_leaves": list(art.fused_leaves), "raw_leaves": raw,
+             "launches_per_step": want})
+        vote0 = None
+        check = label == "mode_b_nested"
+        if check:
+            p0 = params[FSDP_LEAF].clone()
+            vote0 = fsdp_leaf_vote(torch, M, sc, cfg, tcfg, params,
+                                   torch.as_tensor(pipe.global_batch_at(0)[
+                                       "tokens"], device=dev), FSDP_LEAF)
+        launches, losses, step_ms, after0 = fsdp_step_loop(
+            torch, label, art, params, state, pipe, steps, want, err,
+            check_step0=check)
+        peak = peak_bytes(torch, dev)
+        line = {"phase": "fsdp_stacked_done", "run": label,
+                "losses": losses, "step_ms": step_ms,
+                "step_ms_median_1_on": statistics.median(step_ms[1:]),
+                "max_memory_allocated_bytes": peak}
+        if check:
+            u0 = torch.zeros((1, p0.numel()), dtype=torch.float32,
+                             device=dev)
+            u_ref, _ = ref.momentum_sign_pack(vote0.view(1, -1), u0,
+                                              tcfg.optimizer.momentum)
+            u1, p1 = after0
+            require_equal(f"fsdp {label} step 0 momentum of {FSDP_LEAF}",
+                          u1.view(1, -1).view(torch.int32),
+                          u_ref.view(torch.int32))
+            p_ref = ref.apply_ternary_vote(
+                p0.view(1, -1), ref.ternary_pack(u_ref),
+                signum.lr_at(tcfg.optimizer, 0), tcfg.optimizer.weight_decay)
+            require_equal(f"fsdp {label} step 0 of {FSDP_LEAF}",
+                          p1.view(1, -1), p_ref)
+            line["step0_vote"] = {
+                "leaf": FSDP_LEAF, "coords": p0.numel(),
+                "equal_to_plain_recomputation": True,
+                "vote_values": sorted(float(v) for v in torch.unique(
+                    vote0).tolist())[:17]}
+            del p0, vote0, u0, u_ref, p_ref, u1, p1
+        log(line)
+        out[label] = {"losses": losses, "peak": peak}
+        for k, v in launches.items():
+            totals[k] = totals.get(k, 0) + v
+        del params, state, art, after0
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    nested = out["mode_b_nested"]["losses"][:FSDP_DOTS_STEPS]
+    if out["mode_b_dots"]["losses"] != nested:
+        raise AssertionError(f"remat dots losses {out['mode_b_dots']} != "
+                             f"nested {nested}")
+    log({"phase": "fsdp_remat", "dots_losses_equal_nested": True,
+         "peak_bytes": {k: v["peak"] for k, v in out.items()},
+         "seconds": time.perf_counter() - t_start})
+    return totals
+
+
+def fsdp_mesh_config(torch, label: str, cfg=None):
+    """Phase 15b's cut of the preset for run `label`."""
+    from repro_torch.configs.base import ByzantineConfig
+    full, preset = fsdp_config(torch, FSDP_MESH_LAYERS)
+    changes = dict(FSDP_MESH_RUNS[[r[0] for r in FSDP_MESH_RUNS].index(
+        label)][3])
+    tcfg = dataclasses.replace(preset, microbatches=FSDP_MESH_MICRO,
+                               global_batch=FSDP_MESH_BATCH)
+    if "kind" in changes:
+        tcfg = dataclasses.replace(tcfg, optimizer=dataclasses.replace(
+            tcfg.optimizer, kind=changes["kind"]))
+    if "byzantine" in changes:
+        mode, n = changes["byzantine"]
+        tcfg = dataclasses.replace(tcfg, byzantine=ByzantineConfig(
+            mode=mode, num_adversaries=n))
+    return cfg or full, tcfg
+
+
+def fsdp_slice_checksums(torch, art, params, state, shape) -> list:
+    """Each rank's checksum of its slices of the stacked parameters and
+    momentum (rank r holds data index r % data)."""
+    from repro_torch.distributed import sharding as shd
+    data = shape[-1]
+    out = []
+    for r in range(MESH_RANKS):
+        p = shd.shard_tree(params, art.fused_dims, r % data, data)
+        m = shd.shard_tree(state.get("momentum", {}), art.fused_dims,
+                           r % data, data)
+        out.append(mesh_state_checksum(torch, p, {"momentum": m}, None))
+    return out
+
+
+def fsdp_twin(torch, dev, cfg=None) -> dict:
+    """Phase 15b's stacked twin (M = 4, the same cut): per run its losses,
+    each rank's checksum of its slices and, for sgd, each voter's
+    microbatch gradients of FSDP_LEAF (the mean's rounding bound) and the
+    twin's FSDP_LEAF after the step."""
+    from repro_torch.data.pipeline import SyntheticLMPipeline
+    from repro_torch.models import model as M
+    from repro_torch.train import train_step as TS
+    out = {}
+    for label, shape, _, _, steps in FSDP_MESH_RUNS:
+        cfg_, tcfg = fsdp_mesh_config(torch, label, cfg)
+        art = TS.make_train_step(cfg_, tcfg, M_MAIN, device=dev)
+        params, state = TS.materialize_state(
+            cfg_, tcfg, art, torch.Generator(device=dev).manual_seed(0))
+        pipe = SyntheticLMPipeline(cfg_, tcfg.global_batch, tcfg.seq_len,
+                                   seed=0)
+        res = {"metrics": [], "ms": []}
+        if tcfg.optimizer.kind == "sgd":
+            tokens = torch.as_tensor(pipe.global_batch_at(0)["tokens"],
+                                     device=dev)
+            res["p0"] = params[FSDP_LEAF].clone()
+            res["grads"] = fsdp_leaf_grads(torch, M, cfg_, tcfg, params,
+                                           tokens, FSDP_LEAF)
+        for step in range(steps):
+            tokens = torch.as_tensor(pipe.global_batch_at(step)["tokens"],
+                                     device=dev)
+            sync(torch, dev)
+            t0 = time.perf_counter()
+            params, state, met = art.step_fn(params, state,
+                                             {"tokens": tokens}, step)
+            sync(torch, dev)
+            res["ms"].append((time.perf_counter() - t0) * 1e3)
+            res["metrics"].append({k: float(v) for k, v in met.items()})
+        res["checksums"] = fsdp_slice_checksums(torch, art, params, state,
+                                                shape)
+        res["dims"] = dict(art.fused_dims)
+        if tcfg.optimizer.kind == "sgd":
+            res["p1"] = params[FSDP_LEAF].clone()
+        out[label] = res
+        log({"phase": "fsdp_twin", "run": label, "metrics": res["metrics"],
+             "step_ms": res["ms"]})
+        del params, state, art
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def fsdp_leaf_grads(torch, M, cfg, tcfg, params, tokens, leaf) -> list:
+    """Each microbatch's gradients of `leaf` by each voter, [i][r], in the
+    parameters' dtype (what the fused mean sums)."""
+    per = tokens.shape[0] // M_MAIN
+    rows = per // tcfg.microbatches
+    out = []
+    for i in range(tcfg.microbatches):
+        row = []
+        for r in range(M_MAIN):
+            leaves = dict(params)
+            leaves[leaf] = params[leaf].detach().requires_grad_()
+            start = r * per + i * rows
+            loss, _ = M.loss_fn(cfg, leaves,
+                                {"tokens": tokens[start:start + rows]},
+                                remat=tcfg.remat)
+            row.append(torch.autograd.grad(loss, [leaves[leaf]])[0])
+        out.append(row)
+    return out
+
+
+def fsdp_sgd_bound(torch, tcfg, twin, got_slice, d: int, data: int,
+                   dim: int) -> dict:
+    """A rank's FSDP_LEAF slice after sgd's step against the twin's: each
+    microbatch's mean is a bf16 sum of the 4 voters' gradients in some
+    order divided by 4 (:func:`mean_bound` from a float64 sum, for both
+    the twin's and the mesh's sum), accumulated in float32 over the
+    microbatches; the update moves by lr times it and rounds to bf16, so
+    the two parameters differ by at most lr times both bounds plus one
+    bf16 rounding of each (half an ulp of the larger magnitude)."""
+    from repro_torch.distributed import sharding as shd
+
+    def cut(t):
+        return shd.shard_tree({"x": t}, {"x": dim}, d, data)["x"]
+    lr = tcfg.optimizer.learning_rate
+    slack = None
+    for row in twin["grads"]:
+        g64 = torch.stack([cut(g).double() for g in row])
+        b = mean_bound(g64)
+        slack = b if slack is None else slack + b
+        del g64
+    slack = 2 * lr * slack / len(twin["grads"])
+    want = cut(twin["p1"]).double()
+    got = torch.from_numpy(got_slice).view(torch.bfloat16).to(
+        want.device).double()
+    ulp = torch.maximum(want.abs(), got.abs()) * 2.0 ** -7
+    err = (got - want).abs()
+    bad = err > slack + ulp
+    if bool(bad.any()):
+        raise AssertionError(
+            f"fsdp sgd rank slice {d}: {int(bad.sum())} elements off the "
+            f"twin by more than the bound (max {float(err.max())})")
+    return {"max_abs_diff": float(err.max()),
+            "bound_max": float((slack + ulp).max()),
+            "elements_bit_equal": int((err == 0).sum()),
+            "elements": err.numel()}
+
+
+def fsdp_mesh_bytes(cfg, label: str, shape, dims: dict, remat: bool
+                    ) -> dict:
+    """The bytes each rank hands the collectives in one step of run
+    `label`, counted from the layout: per microbatch and layer each fused
+    leaf's bf16 slice gathered in the forward pass and again in the
+    backward (remat), its whole cotangent reduce-scattered (int8 counts,
+    or bf16 for the dense mean) and the count slice summed over pod; the
+    other leaves on hierarchical (int8 counts padded to 32 x data, their
+    pod sum and the packed all-gather) or, for sgd, all-reduced in float32
+    (the accumulator's dtype); and per step the order check (16 B) and the
+    metrics (12 B)."""
+    shapes = cfg.param_shapes()
+    data = shape[-1]
+    pod = shape[0] if len(shape) == 2 else 1
+    sgd = label.startswith("sgd")
+    fused = raw = 0
+    for k, s in shapes.items():
+        n = math.prod(s)
+        if k in dims:
+            per_layer = n // s[0]
+            layer = 2 * (per_layer // data) * (2 if remat else 1)
+            layer += per_layer * (2 if sgd else 1)
+            if pod > 1:
+                layer += per_layer // data * (2 if sgd else 1)
+            fused += layer * s[0]
+        elif sgd:
+            raw += 4 * n
+        else:
+            pad = -(-n // (32 * data)) * 32 * data
+            raw += pad + (pad // data if pod > 1 else 0) + pad // (8 * data)
+    fused *= FSDP_MESH_MICRO
+    return {"analytic_bytes": fused + raw + 16 + 12,
+            "analytic_fused_bytes": fused, "analytic_other_bytes": raw}
+
+
+def fsdp_rank(rank: int, init: str, cfg, dev_type: str, queue) -> None:
+    """One rank of phase 15b's world (a spawned process); puts ``(rank,
+    results)`` on `queue`, or ``(rank, {"error": ...})``."""
+    import traceback
+    try:
+        queue.put((rank, fsdp_rank_body(rank, init, cfg, dev_type)))
+    except BaseException:
+        queue.put((rank, {"error": traceback.format_exc()}))
+        raise
+
+
+def fsdp_rank_body(rank: int, init: str, cfg, dev_type: str) -> dict:
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "src"))
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import sign_compress as sc
+    from repro_torch.data.pipeline import SyntheticLMPipeline
+    from repro_torch.distributed.mesh import ProcessMesh
+    from repro_torch.kernels import ops, ref
+    from repro_torch.train import train_step as TS
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(dev_type)
+    dist.init_process_group("gloo", init_method=init, rank=rank,
+                            world_size=MESH_RANKS)
+    try:
+        meshes = {(shape, axes): ProcessMesh(shape, axes)
+                  for _, shape, axes, _, _ in FSDP_MESH_RUNS}
+        out = {"runs": {}, "max_abs_err": {}}
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        for label, shape, axes, _, steps in FSDP_MESH_RUNS:
+            mesh = meshes[(shape, axes)]
+            cfg_, tcfg = fsdp_mesh_config(torch, label, cfg)
+            art = TS.make_train_step(cfg_, tcfg, device=dev, mesh=mesh)
+            params, state = TS.materialize_state(
+                cfg_, tcfg, art, torch.Generator(device=dev).manual_seed(0))
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+            pipe = SyntheticLMPipeline(cfg_, tcfg.global_batch, tcfg.seq_len,
+                                       seed=0)
+            raw = len(params) - len(art.fused_leaves)
+            want = fsdp_launches(tcfg.optimizer.kind, raw,
+                                 len(art.fused_leaves), 1, mesh=True)
+            mets, rows, err, held = [], [], {}, {}
+            for step in range(steps):
+                tokens = torch.as_tensor(pipe.global_batch_at(step)[
+                    "tokens"], device=dev)
+                sync(torch, dev)
+                mesh.reset_stats()
+                ops.reset_launch_counts()
+                checked = rank == 0 and step == 0
+                t0 = time.perf_counter()
+                with (plain_checked(torch, ops, ref, sc, err,
+                                    f"fsdp mesh {label} rank 0 step {step}",
+                                    MESH_CHECKED, held) if checked
+                      else contextlib.nullcontext()):
+                    params, state, met = art.step_fn(params, state,
+                                                     {"tokens": tokens}, step)
+                sync(torch, dev)
+                ms = (time.perf_counter() - t0) * 1e3
+                launches = {k: v for k, v in ops.launch_counts().items()
+                            if v}
+                if (launches or dev.type == "cuda") and launches != want:
+                    raise AssertionError(
+                        f"rank {rank} {label} step {step}: launches "
+                        f"{launches}, expected {want}")
+                if checked and dev.type == "cuda" and held != launches:
+                    raise AssertionError(
+                        f"{label}: rank 0 held {held} of the launches "
+                        f"{launches} against their plain versions")
+                mets.append({k: float(v) for k, v in met.items()})
+                rows.append({"ms": ms,
+                             "collective_ms": mesh.stats.seconds * 1e3,
+                             "bytes": mesh.stats.bytes,
+                             "collectives": mesh.stats.calls,
+                             "launches": launches})
+            res = {"metrics": mets, "steps": rows, "held": held,
+                   "max_abs_err": err, "dims": dict(art.fused_dims),
+                   "data_index": art.data_index,
+                   "checksum": mesh_state_checksum(
+                       torch, params, {"momentum": state.get("momentum",
+                                                             {})}, None)}
+            if dev.type == "cuda":
+                res["peak_bytes"] = torch.cuda.max_memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+            if tcfg.optimizer.kind == "sgd":
+                # as numpy bits: a tensor on the queue would be shared
+                # memory of a process that is about to end
+                res["leaf"] = params[FSDP_LEAF].to("cpu").view(
+                    torch.int16).numpy().copy()
+            out["runs"][label] = res
+            for k, v in err.items():
+                out["max_abs_err"][k] = max(out["max_abs_err"].get(k, 0.0),
+                                            v)
+            del params, state, art
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+        if dev.type == "cuda":   # the largest run's (reset after each)
+            out["peak_bytes"] = max(r["peak_bytes"]
+                                    for r in out["runs"].values())
+            out["peak_reserved_bytes"] = torch.cuda.max_memory_reserved()
+        dist.barrier()
+        return out
+    finally:
+        dist.destroy_process_group()
+
+
+def run_fsdp_mesh(torch, dev, errs, cfg=None, target=None) -> dict:
+    """Phase 15b: the stacked twin of FSDP_MESH_RUNS, then 4 spawned ranks
+    on `dev` over gloo running them with one voter each: every rank's
+    losses equal the twin's, its checksum of its parameter and momentum
+    slices equals the twin's slices' (Mode B), or its FSDP_LEAF slice is
+    within the mean's rounding bound of the twin's (sgd); rank 0 holds
+    every launch of each run's step 0 against its plain version. Returns
+    the ranks' summed launches."""
+    t_start = time.perf_counter()
+    twin = fsdp_twin(torch, dev, cfg)
+    if dev.type == "cuda":
+        gc.collect()
+        torch.cuda.empty_cache()
+        free, total = torch.cuda.mem_get_info()
+        log({"phase": "fsdp_twin_done", "seconds":
+             time.perf_counter() - t_start,
+             "device_free_bytes_before_ranks": free,
+             "device_total_bytes": total})
+    cfg_ = cfg if cfg is not None else fsdp_config(torch,
+                                                   FSDP_MESH_LAYERS)[0]
+    t_ranks = time.perf_counter()
+    results = spawn_ranks(target or fsdp_rank, (cfg_, dev.type),
+                          MESH_TIMEOUT_S)
+    ranks_s = time.perf_counter() - t_ranks
+    for k, v in results[0]["max_abs_err"].items():
+        errs[k] = max(errs.get(k, 0.0), v)
+    launches = {}
+    for label, shape, axes, _, steps in FSDP_MESH_RUNS:
+        _, tcfg = fsdp_mesh_config(torch, label, cfg)
+        want = twin[label]
+        sgd = tcfg.optimizer.kind == "sgd"
+        if dev.type == "cuda" and not sgd and \
+                not results[0]["runs"][label]["held"]:
+            raise AssertionError(f"fsdp mesh {label}: rank 0 held no "
+                                 "launch against its plain version")
+        sgd_check = []
+        for r in range(MESH_RANKS):
+            got = results[r]["runs"][label]
+            if got["metrics"] != want["metrics"]:
+                raise AssertionError(
+                    f"fsdp mesh {label} rank {r}: metrics {got['metrics']} "
+                    f"!= the stacked twin's {want['metrics']}")
+            if sgd:
+                sgd_check.append(fsdp_sgd_bound(
+                    torch, tcfg, want, got["leaf"], got["data_index"],
+                    shape[-1], want["dims"][FSDP_LEAF]))
+            elif got["checksum"] != want["checksums"][r]:
+                raise AssertionError(
+                    f"fsdp mesh {label} rank {r}: parameter / momentum "
+                    "slices differ from the stacked twin's")
+            for st in got["steps"]:
+                for k, v in st["launches"].items():
+                    launches[k] = launches.get(k, 0) + v
+        steps_ = [results[r]["runs"][label]["steps"] for r in range(
+            MESH_RANKS)]
+        per_step = [max(s[i]["ms"] for s in steps_) for i in range(steps)]
+        coll = [max(s[i]["collective_ms"] for s in steps_)
+                for i in range(steps)]
+        line = {"phase": "fsdp_mesh_wire", "run": label, "mesh": list(shape),
+                "axes": list(axes), "layers": FSDP_MESH_LAYERS,
+                "microbatches": FSDP_MESH_MICRO,
+                "global_batch": FSDP_MESH_BATCH,
+                "bytes_per_step_by_rank": [s[-1]["bytes"] for s in steps_],
+                "collectives_per_step_rank0": steps_[0][-1]["collectives"],
+                **fsdp_mesh_bytes(cfg_, label, shape, want["dims"],
+                                  tcfg.remat != "none"),
+                "step_ms": per_step, "collective_ms": coll,
+                "twin_step_ms": want["ms"],
+                "losses": [m["loss"] for m in want["metrics"]],
+                "held_vs_plain_rank0": results[0]["runs"][label]["held"],
+                "peak_bytes_by_rank": [results[r]["runs"][label].get(
+                    "peak_bytes") for r in range(MESH_RANKS)]}
+        if sgd:
+            line["sgd_leaf_vs_twin"] = sgd_check
+        else:
+            line["bit_equal_to_twin"] = True
+        log(line)
+    log({"phase": "fsdp_mesh_done", "ranks": MESH_RANKS, "backend": "gloo",
+         "peak_bytes_by_rank": [results[r].get("peak_bytes")
+                                for r in range(MESH_RANKS)],
+         "peak_reserved_bytes_by_rank": [
+             results[r].get("peak_reserved_bytes")
+             for r in range(MESH_RANKS)],
+         "phase14_peak_bytes_per_rank": 15.74e9,
+         "ranks_seconds": ranks_s,
+         "seconds": time.perf_counter() - t_start})
+    return launches
+
+
+def launcher(args, timeout_s: float = LAUNCH_TIMEOUT_S, **popen):
+    """``python -m repro_torch.launch.train`` with `args`, from this
+    checkout's ``src``."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [os.path.join(here, "src")] + [p for p in env.get(
+            "PYTHONPATH", "").split(os.pathsep) if p])
+    cmd = [sys.executable, "-m", "repro_torch.launch.train"] + list(args)
+    if popen:
+        return subprocess.Popen(cmd, env=env, cwd=here, text=True, **popen)
+    return subprocess.run(cmd, env=env, cwd=here, capture_output=True,
+                          text=True, timeout=timeout_s)
+
+
+def trace_losses(path) -> dict:
+    from repro_torch.obs.recorder import read_trace
+    return {r["step"]: r["loss"] for r in read_trace(path)
+            if r["kind"] == "step"}
+
+
+def kill_after_checkpoint(args, ckpt_dir: str, step: int) -> float:
+    """Start the launcher and kill it (SIGKILL) as soon as the checkpoint
+    of `step` is the latest in `ckpt_dir`; returns the seconds it ran.
+    Raises if it ended before."""
+    from repro_torch.checkpoint.checkpoint import latest_step_dir
+    proc = launcher(args, stdout=subprocess.DEVNULL,
+                    stderr=subprocess.PIPE)
+    t0 = time.perf_counter()
+    name = f"step_{step:08d}"
+    try:
+        while True:
+            latest = latest_step_dir(ckpt_dir)
+            if latest is not None and os.path.basename(latest) == name:
+                proc.kill()
+                break
+            if proc.poll() is not None:
+                raise AssertionError(
+                    f"the launcher ended ({proc.returncode}) before its "
+                    f"checkpoint of step {step}: {proc.stderr.read()[-2000:]}")
+            if time.perf_counter() - t0 > LAUNCH_TIMEOUT_S:
+                raise AssertionError(f"no checkpoint of step {step}")
+            time.sleep(0.001)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+        proc.wait(timeout=60)
+        proc.stderr.close()
+    return time.perf_counter() - t0
+
+
+def run_launcher_path(torch, dev, scratch: str, full=LAUNCH_FULL) -> None:
+    """Phase 15c: ``python -m repro_torch.launch.train`` on the card: the
+    full-depth glm4-9b signSGD run (finite losses, its kernels launched),
+    then the reduced run killed after its step-1 checkpoint and resumed to
+    step 4, whose losses from step 2 on equal an uninterrupted run's."""
+    import shutil
+    t0 = time.perf_counter()
+    if dev.type == "cuda":
+        gc.collect()
+        torch.cuda.empty_cache()
+    device = ["--device", dev.type]
+    out = launcher(list(full) + device + ["--trace", os.path.join(
+        scratch, "full.jsonl")])
+    if out.returncode != 0:
+        raise AssertionError(f"launcher exit {out.returncode}:\n"
+                             f"{out.stderr[-4000:]}")
+    losses = trace_losses(os.path.join(scratch, "full.jsonl"))
+    steps = [ln for ln in out.stdout.splitlines() if ln.startswith("step ")]
+    extra = [json.loads(ln.split(" ", 2)[2]) for ln in out.stdout.splitlines()
+             if ln.startswith("kernel launches ")]
+    if not all(math.isfinite(v) for v in losses.values()) or \
+            sorted(losses) != list(range(int(full[full.index("--steps")
+                                                  + 1]))):
+        raise AssertionError(f"launcher losses {losses}")
+    launches = extra[0] if extra else {}
+    if dev.type == "cuda" and not launches:
+        raise AssertionError("the launcher launched no kernel")
+    log({"phase": "launcher_full", "args": list(full), "losses": losses,
+         "log": steps, "launches": launches,
+         "peak_line": [ln for ln in out.stdout.splitlines()
+                       if ln.startswith("max memory")],
+         "seconds": time.perf_counter() - t0})
+    reduced = list(LAUNCH_REDUCED) + device
+    whole = launcher(reduced + ["--trace", os.path.join(scratch, "a.jsonl")])
+    if whole.returncode != 0:
+        raise AssertionError(f"launcher exit {whole.returncode}:\n"
+                             f"{whole.stderr[-4000:]}")
+    ckpt = os.path.join(scratch, "ckpt")
+    for attempt in range(3):
+        shutil.rmtree(ckpt, ignore_errors=True)
+        try:
+            ran_s = kill_after_checkpoint(
+                reduced + ["--ckpt-dir", ckpt, "--ckpt-every", "2"], ckpt, 1)
+            break
+        except AssertionError:
+            if attempt == 2:
+                raise
+    resumed = launcher(reduced + ["--ckpt-dir", ckpt, "--ckpt-every", "2",
+                                  "--trace", os.path.join(scratch,
+                                                          "b.jsonl")])
+    if resumed.returncode != 0 or "restored checkpoint at step 1" not in \
+            resumed.stdout:
+        raise AssertionError(f"resume exit {resumed.returncode}:\n"
+                             f"{resumed.stdout[-2000:]}\n"
+                             f"{resumed.stderr[-4000:]}")
+    a = trace_losses(os.path.join(scratch, "a.jsonl"))
+    b = trace_losses(os.path.join(scratch, "b.jsonl"))
+    if sorted(b) != [2, 3] or any(b[s] != a[s] for s in b):
+        raise AssertionError(f"resumed losses {b} != uninterrupted {a}")
+    log({"phase": "launcher_resume", "uninterrupted": a, "resumed": b,
+         "killed_after_s": ran_s, "attempts": attempt + 1,
+         "seconds": time.perf_counter() - t0})
+
+
+def run_fsdp_path(torch, dev, errs) -> dict:
+    """Phase 15 (a, b, c); returns the launches of (a) and (b)."""
+    import tempfile
+    launches = run_fsdp_stacked(torch, dev, errs)
+    for k, v in run_fsdp_mesh(torch, dev, errs).items():
+        launches[k] = launches.get(k, 0) + v
+    with tempfile.TemporaryDirectory() as scratch:
+        run_launcher_path(torch, dev, scratch)
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -4203,6 +4981,8 @@ def main() -> int:
     for k, v in run_population_path(torch, dev, errs).items():
         launches[k] += v
     for k, v in run_mesh_path(torch, cfg, dev, errs).items():
+        launches[k] += v
+    for k, v in run_fsdp_path(torch, dev, errs).items():
         launches[k] += v
     # ef_sign's encode packs its float32 t; every other bitpack of the main
     # path packs int8 signs (staged votes, plan buckets, weighted_vote's vote)

@@ -162,6 +162,8 @@ def refit_tree_leading_axis(saved_tree: Any, want_shapes: Any) -> Any:
 
 
 def _shape_of(leaf) -> Tuple[int, ...]:
+    if isinstance(leaf, (bool, int, float)):   # a Python scalar (a count)
+        return ()
     return tuple(leaf.shape) if hasattr(leaf, "shape") else tuple(leaf)
 
 

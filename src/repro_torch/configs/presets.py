@@ -5,8 +5,8 @@ FSDP the reference trains each arch with.
 Mode A (paper-faithful per-worker momentum) wherever the momentum fits a
 chip; Mode B (vote-on-sign + global momentum, fused ZeRO backward) for the
 three archs whose per-replica momentum exceeds HBM. Plain Python, the same
-values as the reference's; what the port's trainer runs of them is its own
-business (Mode B, ``nested`` remat and FSDP raise there).
+values as the reference's; the port's trainer runs every one of them
+(FSDP through the fused ZeRO backward, ``train.train_step``).
 """
 from __future__ import annotations
 

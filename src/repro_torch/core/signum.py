@@ -130,6 +130,19 @@ and so the parameters, are the stacked step's bit for bit; a
 which is the voter order on a mesh without a pod axis. The dense baselines
 mean with ``majority_vote.tree_mean``, an all-reduce.
 
+Under ``TrainConfig.fsdp`` (M > 1) the leaves of ``fused_leaves`` arrive
+voted: the fused ZeRO backward (``core.majority_vote``) voted each
+microbatch inside its reduce-scatter, and the train step hands ``update``
+their accumulated votes in ``wire["voted"]`` (over a mesh, this rank's
+slices). As in the reference (``voted_leaves``), Mode B skips the wire for
+them: no encode, no tally; their momentum takes the voted gradient through
+the same momentum kernel (u without words), then ``ternary_pack`` of u and
+``apply_ternary_vote``. At beta = 0 the voted gradient, with several
+microbatches the mean of their votes and not ternary, is applied itself by
+the reference's float32 apply in PyTorch ops (:func:`apply_float_`). The
+dense baselines take such leaves' gradient as the mean (``mean_leaves``).
+With every leaf fused the diagnostics are NaN, as the reference's.
+
 ``diagnostics=True`` makes ``update`` return the reference's
 ``vote_margin`` (mean |tally| / M over every coordinate, on the signs that
 reached the wire) and ``vote_agreement`` (the fraction of coordinates
@@ -142,7 +155,7 @@ Every other option raises and names the ROADMAP.md item that brings it.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -256,6 +269,17 @@ def apply_momentum_vote_(u: torch.Tensor, vote: torch.Tensor,
     apply_int8_(p, u, eta, weight_decay)
 
 
+def apply_float_(p: torch.Tensor, vote: torch.Tensor, eta: float,
+                 weight_decay: float) -> None:
+    """Flat p <- p - eta*(vote + weight_decay*p) in place for a float vote
+    that need not be ternary (the mean of several microbatches' fused
+    votes), in float32 PyTorch ops rounded one by one as the reference's
+    jnp apply, then cast back."""
+    p32 = p.to(torch.float32)
+    p32.sub_(p32.mul(weight_decay).add_(vote.to(torch.float32)).mul_(eta))
+    p.copy_(p32)
+
+
 def _mesh_vote(words: torch.Tensor, n: int, ctx, codec, two_bit: bool,
                ties: str, strategy: VoteStrategy, axes) -> torch.Tensor:
     """This rank's (1, w) words of an n-coordinate leaf -> the packed vote
@@ -279,7 +303,8 @@ def make_sign_optimizer(cfg: OptimizerConfig, n_voters: int,
                         plan: Optional[vp.VotePlan] = None,
                         byz: Optional[ByzantineConfig] = None,
                         diagnostics: bool = False,
-                        axes=None) -> Optimizer:
+                        axes=None,
+                        fused_leaves: Sequence[str] = ()) -> Optimizer:
     """SIGNUM / signSGD over `n_voters` stacked voters (see module doc),
     leaf-wise or, given `plan`, through its bucket schedule, with the
     voters below ``byz.num_adversaries`` adversarial when `byz` is given.
@@ -298,7 +323,9 @@ def make_sign_optimizer(cfg: OptimizerConfig, n_voters: int,
     ``(M, *leaf_shape)``.) The codec's arithmetic is its own trainer hooks
     (``core/codecs/base.py``). Over mesh `axes` (bound vote axes of M =
     `n_voters` voters) the momentum and residual are this rank's voter's,
-    leaf-shaped (see the module doc)."""
+    leaf-shaped (see the module doc). The leaves of `fused_leaves` come
+    voted (``wire["voted"]``; Mode B only, the reference's
+    ``voted_leaves``)."""
     if n_voters < 1:
         raise ValueError(f"n_voters must be >= 1, got {n_voters}")
     if axes is not None and num_voters(axes) != n_voters:
@@ -327,6 +354,10 @@ def make_sign_optimizer(cfg: OptimizerConfig, n_voters: int,
     ef = bool(ef_leaves) if plan is not None else codec.worker_state
     has_server_state = (plan.has_server_state if plan is not None
                         else codec.server_state)
+    fused = frozenset(fused_leaves)
+    if fused and not mode_b:
+        raise ValueError("fused (pre-voted) leaves belong to Mode B "
+                         "(momentum_mode=global)")
     if ef and mode_b:
         # the reference's refusal, word for word (core/signum.py:106-116)
         raise ValueError(
@@ -372,6 +403,7 @@ def make_sign_optimizer(cfg: OptimizerConfig, n_voters: int,
         and the step (the adversary's draws are keyed by it); with
         diagnostics, each leaf's tally of the wire signs and voter 0's own
         signs (over a mesh, this rank's)."""
+        params = {k: p for k, p in params.items() if k not in fused}
         out = {"sent": {k: [None] * local for k in params}, "step": step}
         if diagnostics and plan is None:
             out["counts"], out["own"] = {}, {}
@@ -409,6 +441,8 @@ def make_sign_optimizer(cfg: OptimizerConfig, n_voters: int,
                 if diagnostics:
                     evil["signs"] = symbols.view(-1).clone()
         for k, g in grads.items():
+            if k in fused:
+                continue
             g = g.reshape(-1)
             m = local_row(state["momentum"][k], row) if rows else None
             error = (local_row(state["error"][k], row)
@@ -470,6 +504,17 @@ def make_sign_optimizer(cfg: OptimizerConfig, n_voters: int,
         else:
             apply_int8_(p, vote, eta, wd)
 
+    def apply_voted_(k: str, p: torch.Tensor, state: Dict, wire: Dict,
+                     eta: float, wd: float) -> None:
+        """Flat p moved by its fused (pre-voted) gradient: through the
+        momentum (beta > 0), else applied itself."""
+        vote = wire["voted"][k].reshape(-1)
+        if beta > 0:
+            apply_momentum_vote_(state["momentum"][k].view(-1),
+                                 vote.to(torch.bfloat16), p, beta, eta, wd)
+        else:
+            apply_float_(p, vote, eta, wd)
+
     @torch.no_grad()
     def update(wire: Dict, state: Dict, params: Dict[str, torch.Tensor],
                step: int) -> Dict[str, float]:
@@ -506,6 +551,9 @@ def make_sign_optimizer(cfg: OptimizerConfig, n_voters: int,
             for key, v in state.get("codec", {}).items():
                 v.copy_(new_cstate[key])
             for k, p in params.items():
+                if k in fused:
+                    apply_voted_(k, p.view(-1), state, wire, eta, wd)
+                    continue
                 slot = slots[k]
                 vote = votes[slot.offset:slot.offset + slot.length]
                 if k in state.get("error", {}):
@@ -520,6 +568,9 @@ def make_sign_optimizer(cfg: OptimizerConfig, n_voters: int,
         for k, p in params.items():
             flat = p.view(-1)
             n = flat.shape[0]
+            if k in fused:
+                apply_voted_(k, flat, state, wire, eta, wd)
+                continue
             if axes is None:
                 votes = codec.vote_(wire["words"][k], n, ctx, two_bit, ties)
             else:
@@ -549,6 +600,11 @@ def make_sign_optimizer(cfg: OptimizerConfig, n_voters: int,
             codec.feedback_voters_(votes, error, wire["sent"][k], two_bit)
         codec.end_step(state.get("codec"), ctx)
         state["count"] += 1
+        if diagnostics and not total:
+            # every leaf took the fused vote: the wire is not observable,
+            # but the keys are a contract (the reference reports NaN)
+            return {"vote_agreement": float("nan"),
+                    "vote_margin": float("nan")}
         return diag_result(agree, num, total, device) if diagnostics else {}
 
     return Optimizer(init, wire, encode, update, cfg.vote_strategy, plan)
@@ -579,7 +635,8 @@ def sqrt_rn_(x: torch.Tensor) -> torch.Tensor:
 
 
 def make_dense_optimizer(cfg: OptimizerConfig, n_voters: int,
-                         axes=None) -> Optimizer:
+                         axes=None, mean_leaves: Sequence[str] = ()
+                         ) -> Optimizer:
     """Distributed SGD / SGDM / Adam (``repro.core.signum``'s
     ``make_dense_optimizer``) over `n_voters` stacked voters.
 
@@ -597,7 +654,9 @@ def make_dense_optimizer(cfg: OptimizerConfig, n_voters: int,
     as zeros; neither is reproduced here.) State:
     ``{"count": int, "m": {name: float32 leaf-shaped}}`` for ``sgdm`` and
     ``adam``, with ``"v"`` beside it for ``adam``. The reference has no
-    Pallas kernel here, and nor does the port."""
+    Pallas kernel here, and nor does the port. The leaves of `mean_leaves`
+    arrive as the mean already (the fused ZeRO backward's, in
+    ``wire["voted"]``) and skip the voters' sum, as the reference's."""
     if n_voters < 1:
         raise ValueError(f"n_voters must be >= 1, got {n_voters}")
     kind = cfg.kind
@@ -605,6 +664,7 @@ def make_dense_optimizer(cfg: OptimizerConfig, n_voters: int,
         raise ValueError(kind)
     strategy = resolve_strategy(cfg.vote_strategy, 0, n_voters,
                                 codec=cfg.resolved_codec)
+    pre = frozenset(mean_leaves)
 
     def init(params: Dict[str, torch.Tensor]) -> Dict:
         def zeros():
@@ -624,7 +684,8 @@ def make_dense_optimizer(cfg: OptimizerConfig, n_voters: int,
     def encode(voter: int, grads: Dict[str, torch.Tensor], state: Dict,
                wire: Dict) -> None:
         """Voter `voter`'s gradient added into the sum, in its dtype."""
-        majority_vote.add_voter_(wire["sum"], grads)
+        majority_vote.add_voter_(wire["sum"], {
+            k: g for k, g in grads.items() if k not in pre})
 
     @torch.no_grad()
     def update(wire: Dict, state: Dict, params: Dict[str, torch.Tensor],
@@ -635,11 +696,18 @@ def make_dense_optimizer(cfg: OptimizerConfig, n_voters: int,
         eta, wd = lr_at(cfg, step), cfg.weight_decay
         count = state["count"] + 1
         b1, b2 = cfg.momentum, cfg.beta2
-        mean = (majority_vote.tree_mean_(wire["sum"], n_voters)
-                if axes is None else
-                majority_vote.tree_mean(wire["sum"], axes))
+        sums = wire["sum"]
+
+        def mean_of(k: str) -> torch.Tensor:
+            # leaf by leaf, each sum freed once its mean exists (over a
+            # mesh the all-reduce makes a new tensor)
+            total = {k: sums.pop(k)}
+            return (majority_vote.tree_mean_(total, n_voters)
+                    if axes is None else
+                    majority_vote.tree_mean(total, axes))[k]
         for k, p in params.items():
-            g = mean.pop(k).to(torch.float32)
+            g = (wire["voted"][k] if k in pre else mean_of(k)).to(
+                torch.float32)
             if kind == "sgd":
                 upd = g
             elif kind == "sgdm":
@@ -668,13 +736,15 @@ def make_dense_optimizer(cfg: OptimizerConfig, n_voters: int,
 def build_optimizer(cfg: OptimizerConfig, n_voters: int,
                     plan: Optional[vp.VotePlan] = None,
                     byz: Optional[ByzantineConfig] = None,
-                    diagnostics: bool = False, axes=None) -> Optimizer:
+                    diagnostics: bool = False, axes=None,
+                    fused_leaves: Sequence[str] = ()) -> Optimizer:
     """The optimizer of `cfg.kind` (``repro.core.signum.build_optimizer``):
     the sign family for ``signum_vote`` / ``signsgd_vote``, with the
     adversaries of `byz` and the vote `diagnostics`, else the dense
     baselines, which ignore both as the reference's do; over mesh `axes`
-    when given."""
+    when given; `fused_leaves` arrive voted (or meaned) by the fused ZeRO
+    backward."""
     if cfg.kind in SIGN_KINDS:
         return make_sign_optimizer(cfg, n_voters, plan, byz, diagnostics,
-                                   axes)
-    return make_dense_optimizer(cfg, n_voters, axes)
+                                   axes, fused_leaves)
+    return make_dense_optimizer(cfg, n_voters, axes, fused_leaves)

@@ -287,10 +287,11 @@ def psum(x: torch.Tensor, axes, names: Optional[Sequence[str]] = None
     return mesh._run(x, fn, x.numel(), group).view(x.shape)
 
 
-def all_gather(x: torch.Tensor, axes, name: str, tiled: bool = False
-               ) -> torch.Tensor:
+def all_gather(x: torch.Tensor, axes, name: str, tiled: bool = False,
+               dim: int = -1) -> torch.Tensor:
     """`x` of every rank along axis `name`, in axis order: stacked on a new
-    leading dim, or (``tiled``) concatenated along the last dim."""
+    leading dim, or (``tiled``) concatenated along `dim` (default the
+    last)."""
     mesh = _mesh(axes)
     ranks, group = mesh.group_of((name,))
     k = len(ranks)
@@ -301,17 +302,32 @@ def all_gather(x: torch.Tensor, axes, name: str, tiled: bool = False
             dist.all_gather_into_tensor(dst, src, group=group)
         out = mesh._run(x, fn, k * x.numel(), group).view(
             (k,) + tuple(x.shape))
-    if tiled:
-        return torch.cat(list(out.unbind(0)), dim=-1)
-    return out
+    if not tiled:
+        return out
+    dim = dim % x.dim()
+    shape = x.shape[:dim] + (k * x.shape[dim],) + x.shape[dim + 1:]
+    # rank i's block lands at [i * size, (i + 1) * size) along `dim`
+    return out.movedim(0, dim).reshape(shape)
 
 
-def psum_scatter(x: torch.Tensor, axes, name: str) -> torch.Tensor:
-    """Shard i of the sum of the 1-D `x` over axis `name` on the rank at
-    index i (tiled: x's length must split evenly)."""
+def psum_scatter(x: torch.Tensor, axes, name: str,
+                 dim: Optional[int] = None) -> torch.Tensor:
+    """Shard i of the sum of `x` over axis `name` on the rank at index i
+    (tiled: x's length must split evenly): of a 1-D `x`, or, given `dim`,
+    the i-th of equal blocks along that dim (x's shape with that dim cut
+    by the axis size)."""
     mesh = _mesh(axes)
     ranks, group = mesh.group_of((name,))
     k = len(ranks)
+    if dim is not None:
+        dim = dim % x.dim()
+        if x.shape[dim] % k:
+            raise ValueError(f"psum_scatter: dim {dim} of {tuple(x.shape)} "
+                             f"does not split over {k} ranks")
+        front = x.movedim(dim, 0)
+        out = psum_scatter(front.reshape(-1), axes, name)
+        return out.view((x.shape[dim] // k,) + front.shape[1:]).movedim(
+            0, dim)
     if x.dim() != 1 or x.numel() % k:
         raise ValueError(f"psum_scatter takes a 1-D tensor whose length "
                          f"splits over {k} ranks, got {tuple(x.shape)}")

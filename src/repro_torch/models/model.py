@@ -2,8 +2,8 @@
 
   init_params(cfg, generator, device)   -> flat param dict (stacked layout)
   params_from_numpy(arrays, device)     -> the same dict from numpy arrays
-  forward_logits(cfg, params, batch, remat=...) -> ((B, S, V) logits, aux)
-  loss_fn(cfg, params, batch, remat=...)        -> (scalar loss, metrics)
+  forward_logits(cfg, params, batch, hook=..., remat=...) -> (logits, aux)
+  loss_fn(cfg, params, batch, hook=..., remat=...)  -> (scalar loss, metrics)
 
 Parameters are a flat ``dict[str, Tensor]`` under the JAX package's names
 and in its stacked layout (``layers.attn_wq`` is ``(L, d, H*hd)``), so
@@ -43,10 +43,14 @@ def _require_dense(cfg: ModelConfig) -> None:
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
-                device: DeviceLike = None) -> Dict[str, torch.Tensor]:
+                device: DeviceLike = None, shard=None
+                ) -> Dict[str, torch.Tensor]:
     """The reference's init rules: names in sorted order, ones for scales,
     zeros for biases, ``normal * 1/sqrt(fan_in)`` drawn in float32 from
     `generator` (which must live on `device`) and then cast.
+    `shard(name, tensor)`, when given, replaces each leaf once it is made
+    (a mesh rank keeps its slice of a fused leaf), so only one whole leaf
+    exists at a time.
 
     The draws differ from ``jax.random``'s; tests that compare the two
     packages init in the JAX package and carry the arrays across with
@@ -65,6 +69,9 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
             w = torch.randn(shape, generator=generator, dtype=torch.float32,
                             device=dev)
             params[name] = w.mul_(1.0 / math.sqrt(fan_in)).to(dtype)
+            del w
+        if shard is not None:
+            params[name] = shard(name, params[name])
     return params
 
 
@@ -92,22 +99,30 @@ def params_from_numpy(arrays: Mapping[str, Any], device: DeviceLike = None
 
 
 def forward_logits(cfg: ModelConfig, params: Dict[str, torch.Tensor],
-                   batch: Dict[str, torch.Tensor], remat: str = "none"
-                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+                   batch: Dict[str, torch.Tensor], hook=None,
+                   remat: str = "none") -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (logits (B,S,V) in the parameter dtype, aux_loss scalar);
-    `remat` checkpoints each decoder block (``transformer.maybe_remat``)."""
+    `remat` checkpoints each decoder block (``transformer.maybe_remat``).
+    `hook(tree, scope)` is the ZeRO-3 gather whose backward votes
+    (``core.majority_vote.make_fsdp_hooks``): applied to the top-level
+    parameters here and to each layer's inside the decoder stack."""
     _require_dense(cfg)
+    if hook is not None:
+        top = {k: v for k, v in params.items()
+               if not k.startswith(("layers.", "encoder."))}
+        params = {**params, **hook(top, "top")}
     h = L.embed_tokens(params["embed.table"], batch["tokens"])
-    h, aux = transformer.decoder_stack(params, h, cfg, remat=remat)
+    h, aux = transformer.decoder_stack(params, h, cfg, hook=hook,
+                                       remat=remat)
     h = L.rms_norm(h, params["final_norm.scale"], cfg.norm_eps)
     table = params.get("unembed.table", params["embed.table"])
     return h @ table.T, aux
 
 
 def loss_fn(cfg: ModelConfig, params: Dict[str, torch.Tensor],
-            batch: Dict[str, torch.Tensor], remat: str = "none"
+            batch: Dict[str, torch.Tensor], hook=None, remat: str = "none"
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    logits, aux = forward_logits(cfg, params, batch, remat=remat)
+    logits, aux = forward_logits(cfg, params, batch, hook=hook, remat=remat)
     tokens = batch["tokens"]
     ce = L.cross_entropy_loss(logits[:, :-1], tokens[:, 1:])
     return ce + aux, {"ce": ce, "aux": aux}

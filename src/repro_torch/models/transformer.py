@@ -6,38 +6,58 @@ stacked tensors, so autograd assembles each stacked leaf's gradient from
 its layers' gradients. ``remat="full"`` recomputes each block in the
 backward pass instead of keeping its activations; ``"nested"`` is the
 reference's sqrt-remat: groups of about sqrt(L) blocks are checkpointed
-as one (the same as "full" below 4 layers). Neither changes a value.
+as one (the same as "full" below 4 layers); ``"dots"`` keeps the matrix
+products' outputs and recomputes the rest (the reference's
+``checkpoint_dots`` policy). None changes a value.
+
+A parameter `hook` (``core.majority_vote.make_fsdp_hooks``, the ZeRO-3
+gather whose backward votes) runs on each layer's tree inside the
+checkpointed block, so a rematted block gathers its layer's weights again
+in the backward pass instead of keeping them: ZeRO-3.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.models import layers as L
 
-REMAT_MODES = ("none", "full", "nested")
+REMAT_MODES = ("none", "full", "nested", "dots")
+
+
+def _dots():
+    """The matrix products whose outputs "dots" keeps (the reference's
+    ``checkpoint_dots``: every dot_general): ``h @ W`` reaches autograd as
+    ``mm`` (``addmm`` with a bias), the attention einsums as ``bmm``."""
+    aten = torch.ops.aten
+    return [aten.mm.default, aten.addmm.default, aten.bmm.default]
 
 
 def maybe_remat(fn: Callable, remat: str) -> Callable:
     """`fn` checkpointed as the reference's ``maybe_remat`` does it: for
     "full" and "nested" only its inputs are kept and it is recomputed in
-    the backward pass. The non-reentrant checkpoint, since the train step
-    differentiates with ``torch.autograd.grad``, which the reentrant one
-    does not support. "dots" (keep the matrix products' outputs)
-    raises."""
+    the backward pass; for "dots" the outputs of its matrix products are
+    kept too and the rest is recomputed (a selective checkpoint whose
+    policy is a list of ops, a form PyTorch 2.4 and later accept). The
+    non-reentrant checkpoint, since the train step differentiates with
+    ``torch.autograd.grad``, which the reentrant one does not support."""
     if remat not in REMAT_MODES:
-        raise NotImplementedError(
-            f"remat={remat!r} is not ported yet (ROADMAP.md Queue 4 item 4: "
-            "trainer options of the launcher); the port runs "
-            f"{REMAT_MODES}")
+        raise ValueError(f"unknown remat {remat!r}; the reference has "
+                         f"{REMAT_MODES}")
     if remat == "none":
         return fn
+    extra = {}
+    if remat == "dots":
+        extra["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _dots())
 
     def rematted(*args, **kwargs):
-        return checkpoint(fn, *args, use_reentrant=False, **kwargs)
+        return checkpoint(fn, *args, use_reentrant=False, **extra, **kwargs)
     return rematted
 
 
@@ -65,9 +85,11 @@ def decoder_block(lp: Dict[str, torch.Tensor], h: torch.Tensor, cfg, *,
 
 def decoder_stack(p: Dict[str, torch.Tensor], h: torch.Tensor, cfg,
                   positions: Optional[torch.Tensor] = None,
-                  remat: str = "none") -> Tuple[torch.Tensor, torch.Tensor]:
+                  hook=None, remat: str = "none"
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Loop over the stacked layers, each block under `remat` (see
-    :func:`maybe_remat`). Returns (h, total_aux_loss)."""
+    :func:`maybe_remat`), `hook(layer_tree, "layers")` applied to each
+    layer's weights inside it. Returns (h, total_aux_loss)."""
     if cfg.sliding_window:
         raise NotImplementedError(
             "sliding-window layers (gemma3) arrive with the rest of the "
@@ -83,8 +105,10 @@ def decoder_stack(p: Dict[str, torch.Tensor], h: torch.Tensor, cfg,
     def group(g: int, h: torch.Tensor):
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
         for i in range(g * k, (g + 1) * k):
-            h, a = decoder_block({n: v[i] for n, v in lp.items()}, h, cfg,
-                                 positions=positions)
+            layer = {n: v[i] for n, v in lp.items()}
+            if hook is not None:
+                layer = hook(layer, "layers")
+            h, a = decoder_block(layer, h, cfg, positions=positions)
             aux = aux + a
         return h, aux
 

@@ -26,10 +26,10 @@ misreading rows.
 
 The port runs eagerly, so every increment fires once per call.
 
-Not ported: ``install_compile_watch`` (it counts XLA compilations, which
-the port has none of) and the bench helpers (``emit_bench_json``,
-``add_trace_arg``, ``activate_trace``, ``finish_trace``), which come with
-the benchmarks (ROADMAP.md Queue 1 item 13).
+The bench and launcher helpers (``emit_bench_json``, ``add_trace_arg``,
+``activate_trace``, ``finish_trace``) are the reference's. Not ported:
+``install_compile_watch`` (it counts XLA compilations, which the port has
+none of; ``activate_trace`` installs nothing else).
 """
 from __future__ import annotations
 
@@ -341,8 +341,59 @@ def recording(rec: Recorder) -> Iterator[Recorder]:
         set_recorder(prev)
 
 
+# ---------------------------------------------------------------------------
+# shared helpers for the bench scripts and the launcher
+# ---------------------------------------------------------------------------
+
+
+def emit_bench_json(rows, path: str) -> None:
+    """The bench JSON writer: ``{"rows": [{"name", "value", "derived"}]}``,
+    the schema ``scripts/perf_gate.py`` gates, from ``(name, value,
+    derived)`` tuples or dicts of those keys."""
+    out = []
+    for r in rows:
+        if isinstance(r, dict):
+            out.append({"name": r["name"], "value": r["value"],
+                        "derived": r.get("derived", "")})
+        else:
+            name, value, derived = r
+            out.append({"name": name, "value": value, "derived": derived})
+    with open(path, "w") as f:
+        json.dump({"rows": out}, f, indent=1)
+
+
+def add_trace_arg(ap) -> None:
+    """Attach the shared ``--trace FILE`` option to an argparser."""
+    ap.add_argument("--trace", default=None, metavar="FILE",
+                    help="write an obs JSONL trace of this run "
+                         "(render with scripts/trace_report.py)")
+
+
+def activate_trace(args) -> Optional[TraceRecorder]:
+    """Honour a parsed ``--trace`` flag: install a :class:`TraceRecorder`
+    as the active recorder and return it, or None. The caller closes it
+    (:func:`finish_trace`)."""
+    path = getattr(args, "trace", None)
+    if not path:
+        return None
+    rec = TraceRecorder(path)
+    set_recorder(rec)
+    return rec
+
+
+def finish_trace(rec: Optional[TraceRecorder]) -> None:
+    """Close an :func:`activate_trace` recorder (it writes the final
+    counters snapshot) and restore the no-op."""
+    if rec is None:
+        return
+    set_recorder(None)
+    rec.close()
+    print(f"# wrote trace {rec.path}", flush=True)
+
+
 __all__ = [
     "COUNTERS", "CounterRegistry", "ROW_KINDS", "Recorder", "SCHEMA_VERSION",
-    "TraceRecorder", "get_recorder", "read_trace", "recording",
+    "TraceRecorder", "activate_trace", "add_trace_arg", "emit_bench_json",
+    "finish_trace", "get_recorder", "read_trace", "recording",
     "set_recorder",
 ]

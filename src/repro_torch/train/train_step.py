@@ -13,8 +13,8 @@ with M voters stacked on one device, or one voter per process over a
 config(arch, cell)``: for glm4-9b bf16 momentum on ``psum_int8``, 8
 microbatches and ``remat="full"``; for the Mode B archs (qwen1.5-32b)
 ``signsgd_vote`` with one global float32 momentum on ``hierarchical``,
-8 microbatches and ``remat="nested"`` (their ``fsdp=True`` raises: pass
-``dataclasses.replace(tcfg, fsdp=False)``). ``tcfg.optimizer.kind`` picks
+8 microbatches, ``remat="nested"`` and ``fsdp=True`` (the fused ZeRO
+backward below). ``tcfg.optimizer.kind`` picks
 the optimizer as the reference's ``build_optimizer`` does: the sign family
 (Mode A or B, any beta, ``core.signum.make_sign_optimizer``) or a dense
 baseline (``sgd`` / ``sgdm`` / ``adam``, ``make_dense_optimizer``).
@@ -75,19 +75,57 @@ residual) leaf-shaped, and votes through the optimizer's mesh exchange
 pod sizes. The metrics are the mean of every rank's (gathered in replica
 order and averaged as the stacked step averages them), so the mesh step's
 losses, parameters and states are the stacked step's bit for bit.
+
+``tcfg.fsdp`` (the reference's ZeRO-3 path, ``fused = fsdp and mesh is not
+None``): without a mesh at M = 1 it is ignored, as in the reference, and
+the step is the ``fsdp=False`` step bit for bit. Over a mesh, the leaves
+``distributed.sharding`` shards over ``"data"`` (``art.fused_leaves``:
+the layers' matrices; not the embeddings) are held as slices: rank r
+keeps slice ``data_index`` of ``data`` along each leaf's FSDP dim, of the
+parameter, the global momentum and the dense ``m`` / ``v``
+(``materialize_state``; ``distributed.sharding.shard_tree`` cuts full
+arrays). The model gathers each layer's slices as it runs the layer
+(``core.majority_vote.make_fsdp_hooks``) and the backward pass votes
+inside the reduce-scatter, once per microbatch: the sign family sums the
+ternary signs of every voter's whole gradient of that leaf and takes the
+sign (ties 0), the dense baselines take the mean. The microbatches'
+votes (means) accumulate as every gradient does (bf16 for the sign
+family, float32 for the dense, divided by ``microbatches``), the
+reference's "majority of microbatch votes", and the optimizer takes them
+as voted (``core.signum``: no wire for them). Every rank asserts, once a
+step, that all ranks issued these collectives in one order. The other
+leaves vote on the configured wire as without fsdp.
+
+With M > 1 voters stacked on one device, ``fsdp`` makes the same step
+without a collective, its virtual form: per microbatch each voter's
+ternary signs of each fused leaf's gradient (its adversary's, under no
+step, for an adversarial voter) are summed into one int8 count per leaf
+and microbatch, then each count's sign accumulates as above (the dense
+baselines: the voters' gradients summed in their dtype and divided by
+M). The mesh step is held to it bit for bit (the dense within its mean's
+rounding). Mode A under fsdp: with momentum the reference refuses at
+``materialize_state`` (its per-worker momentum spec names ``"data"``
+twice), and so does the port, with the same error
+(``sharding.DuplicateSpecError``); at beta = 0 the reference votes the
+fused leaves' slices a second time across the ranks, each rank's slice
+against the others', which the port refuses (``NotImplementedError``,
+ROADMAP.md Queue 3).
 """
 from __future__ import annotations
 
 import dataclasses
+import zlib
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch import DeviceLike, resolve_device
-from repro_torch.configs.base import ModelConfig, TrainConfig, VoteStrategy
-from repro_torch.core import byzantine, signum
+from repro_torch.configs.base import (ModelConfig, MomentumMode, TrainConfig,
+                                      VoteStrategy)
+from repro_torch.core import byzantine, majority_vote, signum
 from repro_torch.core import vote_plan as vp
 from repro_torch.distributed import mesh as pm
+from repro_torch.distributed import sharding as shd
 from repro_torch.models import model as M, transformer
 
 
@@ -109,19 +147,25 @@ class StepArtifacts:
     plan: Optional[vp.VotePlan] = None
     #: the vote axes over a mesh (empty for the stacked step)
     vote_axes: Tuple[str, ...] = ()
+    #: every leaf's spec (``distributed.sharding.param_specs``)
+    param_specs: Dict[str, tuple] = dataclasses.field(default_factory=dict)
+    #: {fused leaf: its FSDP dim} (``fsdp`` with M > 1)
+    fused_dims: Dict[str, int] = dataclasses.field(default_factory=dict)
+    #: this rank's data index and the data size (slices of fused leaves)
+    data_index: int = 0
+    data_size: int = 1
+
+    @property
+    def fused_leaves(self) -> Tuple[str, ...]:
+        """The leaves the fused ZeRO backward votes, as the reference's
+        ``StepArtifacts.fused_leaves``."""
+        return tuple(self.fused_dims)
 
 
 def _validate(tcfg: TrainConfig, n_voters: int) -> None:
-    def todo(what: str) -> None:
-        raise NotImplementedError(
-            f"{what} is not ported yet (ROADMAP.md Queue 4 item 4: "
-            "trainer options of the launcher)")
     if tcfg.remat not in transformer.REMAT_MODES:
-        todo(f"remat={tcfg.remat!r}")
-    if tcfg.fsdp:
-        # with a mesh the reference's fused ZeRO backward votes inside the
-        # reduce-scatter (majority of the microbatches' votes)
-        todo("fsdp=True (the fused ZeRO backward's vote)")
+        raise ValueError(f"unknown remat {tcfg.remat!r}; the reference has "
+                         f"{transformer.REMAT_MODES}")
     if n_voters < 1 or tcfg.global_batch % n_voters:
         raise ValueError(f"global_batch {tcfg.global_batch} must split "
                          f"evenly over n_voters={n_voters}")
@@ -146,34 +190,139 @@ def accumulate_(acc: Optional[List[torch.Tensor]],
     return acc
 
 
+def acc_dtype(tcfg: TrainConfig) -> torch.dtype:
+    """The microbatch accumulator's dtype (the reference's ``acc_dt``): bf16
+    for the sign family, where only the sign of the sum survives, float32
+    for the dense baselines."""
+    return (torch.bfloat16 if tcfg.optimizer.kind in signum.SIGN_KINDS
+            else torch.float32)
+
+
 def voter_grads(cfg: ModelConfig, tcfg: TrainConfig,
-                params: Dict[str, torch.Tensor], tokens: torch.Tensor
+                params: Dict[str, torch.Tensor], tokens: torch.Tensor,
+                hook=None,
+                on_fused: Optional[Callable[[int, str, torch.Tensor],
+                                            None]] = None
                 ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
     """One voter's gradients of every leaf on its rows `tokens` and its
-    metrics (``loss``, ``ce``, ``aux``): one ``autograd.grad`` per
-    microbatch, accumulated as the reference does (see the module doc)."""
+    metrics (``loss``, ``ce``, ``aux``): one backward pass per microbatch,
+    accumulated as the reference does (see the module doc). With more than
+    one microbatch each leaf's gradient is added into its accumulator as
+    soon as autograd has made it (a post-accumulate-grad hook) and freed,
+    so at most one leaf's gradient exists beside the accumulators (the
+    same additions, in the same order, as adding whole gradients).
+    `hook` is the model's parameter hook (the mesh's fused ZeRO backward,
+    whose "gradients" are this rank's slices of the votes);
+    `on_fused(i, name, g)`, when given, takes microbatch i's gradient of
+    each leaf it names (``on_fused.leaves``) instead of the accumulator
+    (the stacked step's virtual fused vote)."""
     micro = tcfg.microbatches
     rows = tokens.shape[0] // micro
-    acc_dtype = (torch.bfloat16 if tcfg.optimizer.kind in signum.SIGN_KINDS
-                 else torch.float32)
-    acc, mets = None, []
+    taken = getattr(on_fused, "leaves", ())
+    dtype = acc_dtype(tcfg)
+    acc: Dict[str, torch.Tensor] = {}
+    mets = []
+
+    def folder(i: int, k: str):
+        def fold(leaf: torch.Tensor) -> None:
+            g, leaf.grad = leaf.grad, None
+            if k in taken:
+                on_fused(i, k, g)
+            elif k in acc:
+                acc[k].add_(g.to(dtype))
+            else:   # the reference's accumulator starts from zeros
+                acc[k] = accumulate_(None, [g], dtype)[0]
+        return fold
+
     for i in range(micro):
         leaves = {k: p.detach().requires_grad_() for k, p in params.items()}
         loss, met = M.loss_fn(cfg, leaves,
                               {"tokens": tokens[i * rows:(i + 1) * rows]},
-                              remat=tcfg.remat)
-        grads = torch.autograd.grad(loss, list(leaves.values()))
+                              hook=hook, remat=tcfg.remat)
+        if micro == 1:
+            grads = dict(zip(leaves, torch.autograd.grad(
+                loss, list(leaves.values()))))
+            for k in taken:
+                on_fused(i, k, grads.pop(k))
+            acc = grads
+        else:
+            for k, leaf in leaves.items():
+                leaf.register_post_accumulate_grad_hook(folder(i, k))
+            torch.autograd.backward(loss, inputs=list(leaves.values()))
         del leaves
-        acc = (list(grads) if micro == 1
-               else accumulate_(acc, grads, acc_dtype))
-        del grads
         mets.append({"loss": loss.detach(), "ce": met["ce"].detach(),
                      "aux": met["aux"].detach()})
     if micro > 1:
-        for a in acc:
+        for a in acc.values():
             a.div_(micro)
-    return (dict(zip(params, acc)),
+    return ({k: acc[k] for k in params if k not in taken},
             {k: torch.stack([m[k] for m in mets]).mean() for k in mets[0]})
+
+
+class StackedFusedVote:
+    """The virtual form of the fused ZeRO backward for M voters stacked on
+    one device: as each voter's microbatch gradients arrive
+    (:meth:`__call__`, the ``on_fused`` of :func:`voter_grads`), the sign
+    family adds its ternary signs into one ``count_dtype(M)`` count per
+    microbatch and leaf (``majority_vote.add_fused_signs_``, each layer of a
+    stacked leaf drawing its adversary alike), the dense baselines add the
+    gradient into a sum in its dtype; :meth:`result` then gives each leaf's
+    accumulated vote (mean) as the mesh's backward and accumulator make
+    it."""
+
+    def __init__(self, tcfg: TrainConfig, leaves: Sequence[str],
+                 n_voters: int, byz):
+        self.tcfg, self.leaves = tcfg, tuple(leaves)
+        self.n_voters, self.byz = n_voters, byz
+        self.vote = tcfg.optimizer.kind in signum.SIGN_KINDS
+        self.voter = 0
+        self.parts: List[Dict[str, torch.Tensor]] = [
+            {} for _ in range(tcfg.microbatches)]
+
+    def __call__(self, i: int, k: str, g: torch.Tensor) -> None:
+        part = self.parts[i]
+        if self.vote:
+            rows = g.shape[0] if k.startswith(("layers.", "encoder.")) else 1
+            part[k] = majority_vote.add_fused_signs_(
+                part.get(k), g, self.byz, self.voter, self.n_voters, rows)
+            self.dtype = g.dtype
+        elif k in part:
+            part[k].add_(g)
+        else:
+            part[k] = g
+
+    def result(self) -> Dict[str, torch.Tensor]:
+        micro = self.tcfg.microbatches
+        out = {}
+        for k in self.leaves:
+            acc = None
+            for part in self.parts:
+                # one microbatch's vote (mean), in the gradient's dtype
+                if self.vote:
+                    g = majority_vote.fused_vote(part.pop(k), self.dtype)
+                else:
+                    g = part.pop(k).div_(self.n_voters)
+                if micro == 1:
+                    acc = g
+                    break
+                acc = accumulate_(None if acc is None else [acc], [g],
+                                  acc_dtype(self.tcfg))[0]
+            out[k] = acc.div_(micro) if micro > 1 else acc
+        return out
+
+
+def _issued_order_check(hooks, axes) -> None:
+    """Assert that every rank issued the fused backward's collectives in
+    one order this step (a crc of the leaf names, in issue order)."""
+    names = "\n".join(hooks.issued).encode()
+    mine = torch.tensor([zlib.crc32(names), len(hooks.issued)],
+                        dtype=torch.int64)
+    hooks.issued.clear()
+    every = pm.gather_voters(mine, axes)
+    if not bool((every == mine).all()):
+        raise AssertionError(
+            "the ranks issued the fused ZeRO backward's collectives in "
+            f"different orders: (crc, count) by rank {every.tolist()}")
 
 
 def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, n_voters: int = 1,
@@ -195,20 +344,36 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, n_voters: int = 1,
         n_voters, axes = mesh.size, mesh.vote_axes
     _validate(tcfg, n_voters)
     opt_cfg = tcfg.optimizer
+    is_sign = opt_cfg.kind in signum.SIGN_KINDS
+    shapes = cfg.param_shapes()
+    data, pod = (n_voters, 1) if mesh is None else (mesh.data, mesh.pod)
+    specs = shd.param_specs(shapes, fsdp=tcfg.fsdp,
+                            mesh_shape={"pod": pod, "data": data})
+    # the reference's fused = fsdp and mesh is not None; M stacked voters
+    # are the virtual mesh
+    fused = tcfg.fsdp and (mesh is not None or n_voters > 1)
+    dims = shd.fused_dims(specs) if fused else {}
+    mode_b = opt_cfg.momentum_mode == MomentumMode.GLOBAL
+    if dims and is_sign and not mode_b and not signum.per_worker(opt_cfg):
+        raise NotImplementedError(
+            "Mode A at beta = 0 under fsdp: the reference votes the fused "
+            "leaves' slices, already voted, a second time across the ranks, "
+            "each rank's slice against the others' coordinates; the port "
+            "does not reproduce that (ROADMAP.md Queue 3)")
     plan = None
-    if opt_cfg.bucket_bytes != 0 and opt_cfg.kind in signum.SIGN_KINDS:
-        # the reference's plan: every leaf (Mode A, and Mode B, whose
-        # leaves all vote explicitly without fsdp), its codec map and the
-        # configured (unresolved) strategy, over the M stacked voters
-        shapes = cfg.param_shapes()
+    # the reference's plan: under Mode B the leaves the fused backward
+    # does not vote (every leaf without fsdp), under Mode A every leaf;
+    # its codec map and the configured (unresolved) strategy, over the M
+    # stacked voters
+    explicit = {k: v for k, v in shapes.items()
+                if not (mode_b and k in dims)}
+    if opt_cfg.bucket_bytes != 0 and is_sign and explicit:
         plan = vp.build_plan(
-            shapes, bucket_bytes=opt_cfg.bucket_bytes,
+            explicit, bucket_bytes=opt_cfg.bucket_bytes,
             codec_map=opt_cfg.codec_map,
             default_codec=opt_cfg.resolved_codec,
-            strategy=opt_cfg.vote_strategy,
-            data_size=n_voters if mesh is None else mesh.data,
-            pod_size=1 if mesh is None else mesh.pod,
-            dtypes={k: cfg.dtype for k in shapes}, overlap=opt_cfg.overlap)
+            strategy=opt_cfg.vote_strategy, data_size=data, pod_size=pod,
+            dtypes={k: cfg.dtype for k in explicit}, overlap=opt_cfg.overlap)
     # the voters below num_adversaries act adversarially (salt 0, keyed by
     # the step), as the reference's trainer passes its byzantine config to
     # build_optimizer; at M = 1 the reference (mesh=None) has no vote axes
@@ -220,7 +385,10 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, n_voters: int = 1,
     if adaptive:
         byz = None
     opt = signum.build_optimizer(opt_cfg, n_voters, plan, byz,
-                                 tcfg.diagnostics, axes)
+                                 tcfg.diagnostics, axes,
+                                 tuple(dims) if mode_b or not is_sign else ())
+    hooks = (majority_vote.make_fsdp_hooks(dims, axes, vote=is_sign, byz=byz)
+             if dims and axes is not None else None)
     resolved = opt.strategy
     if plan is not None:
         group_strats = {g.strategy for g in plan.groups}
@@ -241,14 +409,26 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, n_voters: int = 1,
             raise ValueError(f"batch has {tokens.shape[0]} rows, expected "
                              f"global_batch={tcfg.global_batch}")
         wire = opt.wire(params, int(step))
+        stacked = (StackedFusedVote(tcfg, dims, n_voters, byz)
+                   if dims and axes is None else None)
         voters = []
         for r in (range(n_voters) if axes is None
                   else [pm.replica_index(axes)]):
+            if stacked is not None:
+                stacked.voter = r
             grads, met = voter_grads(cfg, tcfg, params,
-                                     tokens[r * per:(r + 1) * per])
+                                     tokens[r * per:(r + 1) * per],
+                                     hook=hooks, on_fused=stacked)
+            if hooks is not None:
+                wire["voted"] = {k: grads.pop(k) for k in dims}
             opt.encode(r, grads, opt_state, wire)
             del grads
             voters.append(met)
+        if hooks is not None:
+            _issued_order_check(hooks, axes)
+        if stacked is not None:
+            wire["voted"] = stacked.result()
+            del stacked
         diag = opt.update(wire, opt_state, params, int(step))
         names = ("ce", "aux", "loss")
         if axes is None:
@@ -266,7 +446,11 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, n_voters: int = 1,
     return StepArtifacts(step_fn=step_fn, optimizer=opt, device=dev,
                          codec=tcfg.optimizer.resolved_codec,
                          n_voters=n_voters, vote_strategy=resolved,
-                         plan=plan, vote_axes=tuple(axes or ()))
+                         plan=plan, vote_axes=tuple(axes or ()),
+                         param_specs=specs, fused_dims=dims,
+                         data_index=(0 if mesh is None
+                                     else mesh.axis_index("data")),
+                         data_size=data)
 
 
 def materialize_state(cfg: ModelConfig, tcfg: TrainConfig,
@@ -284,9 +468,25 @@ def materialize_state(cfg: ModelConfig, tcfg: TrainConfig,
     ``"delayed"``, one zero int8 tensor per leaf, for ``delayed_vote``;
     for the dense baselines float32 leaf-shaped ``"m"`` (``sgdm``,
     ``adam``) and ``"v"`` (``adam``). See ``core.signum`` for the one
-    place the port's layout differs (ef_sign's residual at beta = 0)."""
+    place the port's layout differs (ef_sign's residual at beta = 0).
+
+    Over a mesh with fused leaves (``fsdp``) each fused leaf is this rank's
+    slice (``art.data_index`` of ``art.data_size`` along its FSDP dim),
+    drawn whole and cut leaf by leaf, so every rank holds the slices of the
+    same full parameters; the state follows the parameters' shapes. Mode A
+    with momentum under fsdp raises here, as the reference's does: its
+    per-worker momentum would be sharded over ``"data"`` twice."""
     dev = art.device if device is None else resolve_device(device)
     if dev != art.device:
         raise ValueError(f"state on {dev} but the step runs on {art.device}")
-    params = M.init_params(cfg, generator, dev)
+    if art.fused_dims and signum.per_worker(tcfg.optimizer):
+        lead = tuple(art.vote_axes) or ("data",)
+        for k in art.fused_dims:
+            shd.check_spec((lead,) + tuple(art.param_specs[k]))
+    shard = None
+    if art.vote_axes and art.fused_dims:
+        def shard(name: str, t: torch.Tensor) -> torch.Tensor:
+            return shd.shard_tree({name: t}, art.fused_dims, art.data_index,
+                                  art.data_size)[name].clone()
+    params = M.init_params(cfg, generator, dev, shard=shard)
     return params, art.optimizer.init(params)

@@ -15,6 +15,8 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# one intra-op thread: the suite's test workers already share the cores
+torch.set_num_threads(1)
 
 from repro.configs.base import ByzantineConfig as JByz  # noqa: E402
 from repro.configs.base import VoteStrategy as JS  # noqa: E402

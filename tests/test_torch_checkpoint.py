@@ -17,6 +17,8 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# one intra-op thread: the suite's test workers already share the cores
+torch.set_num_threads(1)
 
 from repro.checkpoint import checkpoint as jck  # noqa: E402
 from repro.distributed import fault_tolerance as jft  # noqa: E402

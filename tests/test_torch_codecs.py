@@ -13,6 +13,8 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# one intra-op thread: the suite's test workers already share the cores
+torch.set_num_threads(1)
 
 from repro.configs.base import VoteStrategy as JStrategy  # noqa: E402
 from repro.core import codecs as jcodecs  # noqa: E402

@@ -50,6 +50,8 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# one intra-op thread: the suite's test workers already share the cores
+torch.set_num_threads(1)
 
 from repro.configs import base as jbase  # noqa: E402
 from repro.core.signum import make_dense_optimizer as jdense  # noqa: E402
@@ -538,20 +540,32 @@ def test_facade_reexports_the_optimizers():
 
 
 @pytest.mark.parametrize("change,item", [
-    ({"fsdp": True}, "Queue 4 item 4"),
-    ({"remat": "dots"}, "Queue 4 item 4"),
+    # fsdp (the fused ZeRO backward's mean) and remat="dots" run since the
+    # thirteenth slice
+    ({"fsdp": True}, None),
+    ({"remat": "dots"}, None),
     ({"optimizer": {"vote_strategy": tbase.VoteStrategy.AUTO}},
      "Queue 1 item 15"),
 ], ids=["fsdp", "remat_dots", "auto_m4"])
 def test_dense_trainer_still_refuses(change, item):
-    """fsdp (the fused ZeRO backward's psum-mean), remat="dots" and, as the
-    reference resolves the vote strategy for every kind, AUTO over 4
-    voters each raise naming their ROADMAP.md item."""
+    """AUTO over 4 voters raises naming its ROADMAP.md item, as the
+    reference resolves the vote strategy for every kind; fsdp (the fused
+    ZeRO backward's mean, the layers' matrices fused) and remat="dots"
+    (item None) build and train a finite step at M = 4."""
     _, t = _cfgs()
     _, tcfg = _train_cfgs("adam")
     opt = change.pop("optimizer", None)
     if opt:
         change["optimizer"] = dataclasses.replace(tcfg.optimizer, **opt)
     tcfg = dataclasses.replace(tcfg, **change)
+    if item is None:
+        art = tTS.make_train_step(t, tcfg, M4, device="cpu")
+        assert bool(art.fused_leaves) == tcfg.fsdp
+        params, state = tTS.materialize_state(
+            t, tcfg, art, torch.Generator().manual_seed(0))
+        _, _, met = art.step_fn(params, state, {"tokens": torch.zeros(
+            (GB, SEQ), dtype=torch.int64)}, 0)
+        assert np.isfinite(float(met["loss"]))
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
         tTS.make_train_step(t, tcfg, M4, device="cpu")

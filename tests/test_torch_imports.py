@@ -45,7 +45,9 @@ def test_port_has_the_slice_modules():
                 "core/attacks/__init__.py", "core/attacks/schedule.py",
                 "core/attacks/engine.py", "core/attacks/breaking_point.py",
                 "core/population.py", "core/theory.py",
-                "distributed/fault_tolerance.py",
+                "distributed/fault_tolerance.py", "distributed/mesh.py",
+                "distributed/sharding.py", "launch/__init__.py",
+                "launch/train.py",
                 "checkpoint/checkpoint.py", "obs/__init__.py",
                 "obs/recorder.py", "sim/__init__.py", "sim/scenario.py",
                 "sim/virtual_mesh.py", "sim/runner.py"):

@@ -10,6 +10,8 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# one intra-op thread: the suite's test workers already share the cores
+torch.set_num_threads(1)
 
 from repro.configs.base import get_config, reduced_config  # noqa: E402
 from repro.core import sign_compress as jsc  # noqa: E402

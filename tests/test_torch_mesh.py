@@ -55,6 +55,8 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# one intra-op thread: the suite's test workers already share the cores
+torch.set_num_threads(1)
 
 import torch_mesh_harness as harness_mod  # noqa: E402
 import torch_train_step_common as common  # noqa: E402
@@ -429,11 +431,20 @@ def test_backends_refuse_with_the_reference_reasons():
         tva.MeshBackend(axes=("data",), device="cpu")
     with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
         tmesh.ProcessMesh((1, 2), ("data", "model"))
-    # R4's fsdp is the next slice: the fused ZeRO backward still raises
+    # the fused ZeRO backward runs since the thirteenth slice: on a
+    # one-rank mesh its gather is the identity and its backward the sign
+    # of the gradient (ties 0), the dense form the gradient itself
     from repro_torch.core import majority_vote as tmv
-    for fn in (tmv.make_gather_vote, tmv.make_fsdp_hooks):
-        with pytest.raises(NotImplementedError, match="Queue 4 item 4"):
-            fn()
+    one = tmesh.ProcessMesh((1,), ("data",)).vote_axes
+    w = torch.tensor([[1.0, -2.0], [0.5, 3.0]], requires_grad=True)
+    x = torch.tensor([[1.0, 0.0], [-1.0, 2.0]])
+    for vote in (True, False):
+        hook = tmv.make_fsdp_hooks({"layers.w": 1}, one, vote=vote)
+        g = torch.autograd.grad(
+            torch.sum((x @ hook({"w": w}, "layers")["w"]) ** 2), [w])[0]
+        plain = torch.autograd.grad(torch.sum((x @ w) ** 2), [w])[0]
+        assert torch.equal(g, torch.sign(plain) if vote else plain)
+        assert hook.issued == ["layers.w", "layers.w"]
     with pytest.raises(ValueError, match="has 1"):
         tmesh.ProcessMesh((2,), ("data",))
     # diagnostics belong to the tree form; an adaptive adversary to the

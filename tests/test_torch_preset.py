@@ -32,6 +32,8 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# one intra-op thread: the suite's test workers already share the cores
+torch.set_num_threads(1)
 
 from repro.configs import base as jbase  # noqa: E402
 from repro.configs import presets as jpresets  # noqa: E402

@@ -18,6 +18,8 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# one intra-op thread: the suite's test workers already share the cores
+torch.set_num_threads(1)
 
 from repro import sim as jsim  # noqa: E402
 from repro.sim import runner as jrunner  # noqa: E402

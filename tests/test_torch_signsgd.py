@@ -67,6 +67,8 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# one intra-op thread: the suite's test workers already share the cores
+torch.set_num_threads(1)
 
 from repro.configs import base as jbase  # noqa: E402
 from repro.configs.base import MomentumMode as JMode  # noqa: E402
@@ -1120,8 +1122,10 @@ def test_delayed_vote_with_mode_b_raises_as_the_reference():
 
 
 @pytest.mark.parametrize("change,item", [
-    ({"fsdp": True}, "Queue 4 item 4"),
-    ({"remat": "dots"}, "Queue 4 item 4"),
+    # the preset's fsdp (the fused ZeRO backward) and remat="dots" run
+    # since the thirteenth slice
+    ({"fsdp": True}, None),
+    ({"remat": "dots"}, None),
     # the vote diagnostics run since the multi-process wire's slice
     ({"diagnostics": True}, None),
     # the reference's tree-form vote refuses an adaptive mode when the step
@@ -1134,9 +1138,10 @@ def test_delayed_vote_with_mode_b_raises_as_the_reference():
 ], ids=["fsdp", "remat_dots", "diagnostics", "byzantine", "auto_m4"])
 def test_mode_b_preset_still_refuses(change, item):
     """What the trainer still refuses around the qwen1.5-32b Mode B preset
-    at M = 4, each naming its ROADMAP.md item (the preset itself carries
-    fsdp=True, which raises), or, for an adaptive adversary, the
-    reference's ValueError from the step."""
+    at M = 4, each naming its ROADMAP.md item, or, for an adaptive
+    adversary, the reference's ValueError from the step; what it runs
+    (item None) builds, and fsdp and remat="dots" train a finite step
+    (fsdp with the layers' matrices fused)."""
     _, tcfg = _qwen_preset_cfgs()
     opt = change.pop("optimizer", None)
     if opt:
@@ -1144,7 +1149,15 @@ def test_mode_b_preset_still_refuses(change, item):
     tcfg = dataclasses.replace(tcfg, **change)
     cfg = _qwen_cfgs()[1]
     if item is None:
-        tTS.make_train_step(cfg, tcfg, M4, device="cpu")
+        art = tTS.make_train_step(cfg, tcfg, M4, device="cpu")
+        assert bool(art.fused_leaves) == tcfg.fsdp
+        if "diagnostics" in change:
+            return
+        params, state = tTS.materialize_state(
+            cfg, tcfg, art, torch.Generator().manual_seed(0))
+        _, _, met = art.step_fn(params, state, {"tokens": torch.zeros(
+            (GB, SEQ), dtype=torch.int64)}, 0)
+        assert np.isfinite(float(met["loss"]))
         return
     if "byzantine" in change:
         art = tTS.make_train_step(cfg, tcfg, M4, device="cpu")

@@ -56,6 +56,8 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# one intra-op thread: the suite's test workers already share the cores
+torch.set_num_threads(1)
 
 from repro.configs.base import MomentumMode  # noqa: E402
 from repro.data.pipeline import SyntheticLMPipeline  # noqa: E402
@@ -230,10 +232,11 @@ _TRAIN_FIELDS = ("fsdp", "byzantine", "remat", "diagnostics", "loss_dtype")
 
 
 @pytest.mark.parametrize("opt", [
-    # leaf-wise hierarchical runs (since the ninth slice); the fused ZeRO
-    # backward's vote does not (Queue 4 item 4)
+    # leaf-wise hierarchical runs (since the ninth slice), and under fsdp
+    # (since the thirteenth: at M = 1 without a mesh fsdp is ignored, as
+    # in the reference)
     {"vote_strategy": tbase.VoteStrategy.HIERARCHICAL, "fsdp": True},
-    # Mode B runs; its presets' fsdp does not
+    # Mode B runs, and its presets' fsdp
     {"momentum_mode": tbase.MomentumMode.GLOBAL, "fsdp": True},
     # the priced AUTO ladder of bucket sizes (Queue 1 item 15)
     {"bucket_bytes": -1},
@@ -243,15 +246,36 @@ _TRAIN_FIELDS = ("fsdp", "byzantine", "remat", "diagnostics", "loss_dtype")
     {"momentum": 0.0, "byzantine": tbase.ByzantineConfig(
         mode="low_margin", num_adversaries=1)},
     {"bucket_bytes": -1, "overlap": True},
-    # signsgd_vote runs; remat="dots" does not (Queue 4 item 4)
+    # signsgd_vote runs, and remat="dots" (since the thirteenth slice)
     {"kind": "signsgd_vote", "remat": "dots"},
 ])
 def test_unported_options_raise(opt):
+    """Each option raises naming its ROADMAP.md item, or (an adaptive
+    adversary) the reference's ValueError when the step is called; the
+    options this port runs since (fsdp, remat="dots") train a step at M =
+    1 bit-equal to the step without them."""
     cfg, tcfg = _tcfgs()
     train = {k: v for k, v in opt.items() if k in _TRAIN_FIELDS}
     opt = {k: v for k, v in opt.items() if k not in _TRAIN_FIELDS}
     tcfg = dataclasses.replace(
         tcfg, optimizer=dataclasses.replace(tcfg.optimizer, **opt), **train)
+    if "fsdp" in train or train.get("remat") == "dots":
+        plain = dataclasses.replace(tcfg, fsdp=False, remat="none")
+        tokens = torch.from_numpy(SyntheticLMPipeline(
+            _jcfgs()[0], GB, SEQ, seed=0).global_batch_at(0)["tokens"])
+        got = []
+        for t in (tcfg, plain):
+            art = tTS.make_train_step(cfg, t, 1, device="cpu")
+            assert art.fused_leaves == ()
+            params, state = tTS.materialize_state(
+                cfg, t, art, torch.Generator().manual_seed(0))
+            params, state, met = art.step_fn(params, state,
+                                             {"tokens": tokens}, 0)
+            got.append((float(met["loss"]), params))
+        assert got[0][0] == got[1][0]
+        for k, v in got[0][1].items():
+            assert torch.equal(v, got[1][1][k]), k
+        return
     if "byzantine" in train:
         art = tTS.make_train_step(cfg, tcfg, 1, device="cpu")
         params, state = tTS.materialize_state(
@@ -450,26 +474,43 @@ def test_m1_preset_step_matches_reference_trainer(step):
 
 
 @pytest.mark.parametrize("change,item", [
-    # hierarchical runs since the ninth slice; under fsdp it still raises
+    # hierarchical runs since the ninth slice; under fsdp since the
+    # thirteenth, as remat="dots" and fsdp
     ({"optimizer": {"vote_strategy": tbase.VoteStrategy.HIERARCHICAL},
-      "fsdp": True}, "Queue 4 item 4"),
+      "fsdp": True}, None),
     ({"optimizer": {"vote_strategy": tbase.VoteStrategy.AUTO}},
      "Queue 1 item 15"),
-    ({"remat": "dots"}, "Queue 4 item 4"),
-    ({"fsdp": True}, "Queue 4 item 4"),
+    ({"remat": "dots"}, None),
+    ({"fsdp": True}, None),
     # the vote diagnostics run since the multi-process wire's slice
     ({"diagnostics": True}, None),
 ], ids=["hierarchical", "auto_m4", "remat_dots", "fsdp", "diagnostics"])
 def test_preset_trainer_still_refuses(change, item):
     """What the trainer still refuses on top of the preset, at M = 4, each
-    naming its ROADMAP.md item (item None: accepted now)."""
+    naming its ROADMAP.md item (item None: accepted now). Mode A with
+    momentum under fsdp builds, and refuses at ``materialize_state`` with
+    the reference's ``DuplicateSpecError`` (its per-worker momentum would
+    be sharded over "data" twice); remat="dots" trains a finite step."""
     _, tcfg = _preset_cfgs()
     opt = change.pop("optimizer", None)
     if opt:
         change["optimizer"] = dataclasses.replace(tcfg.optimizer, **opt)
     tcfg = dataclasses.replace(tcfg, **change)
     if item is None:
-        tTS.make_train_step(_tcfgs()[0], tcfg, M4, device="cpu")
+        cfg = _tcfgs()[0]
+        art = tTS.make_train_step(cfg, tcfg, M4, device="cpu")
+        if tcfg.fsdp:
+            assert art.fused_leaves
+            from repro_torch.distributed import sharding as tshd
+            with pytest.raises(tshd.DuplicateSpecError, match="`data`"):
+                tTS.materialize_state(cfg, tcfg, art,
+                                      torch.Generator().manual_seed(0))
+        elif tcfg.remat == "dots":
+            params, state = tTS.materialize_state(
+                cfg, tcfg, art, torch.Generator().manual_seed(0))
+            _, _, met = art.step_fn(params, state, {"tokens": torch.zeros(
+                (GB, SEQ), dtype=torch.int64)}, 0)
+            assert np.isfinite(float(met["loss"]))
         return
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
         tTS.make_train_step(_tcfgs()[0], tcfg, M4, device="cpu")

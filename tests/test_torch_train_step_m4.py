@@ -7,6 +7,8 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# one intra-op thread: the suite's test workers already share the cores
+torch.set_num_threads(1)
 
 from torch_train_step_common import (  # noqa: E402
     STEPS,

@@ -23,6 +23,8 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# one intra-op thread: the suite's test workers already share the cores
+torch.set_num_threads(1)
 
 import torch_train_step_common as tts  # noqa: E402
 from repro.configs.base import MomentumMode as JMode  # noqa: E402

@@ -1,7 +1,7 @@
 """The port's multi-process wire on the CPU: one world of 8 gloo ranks, run
 in a subprocess by ``tests/test_torch_mesh.py`` (not collected itself).
 
-    PYTHONPATH=src python tests/torch_mesh_harness.py <scratch dir>
+    PYTHONPATH=src python tests/torch_mesh_harness.py <scratch dir> [check]
 
 Each rank runs one voter (``torch.set_num_threads(1)``); the world meets
 through a ``file://`` store in the scratch directory. In one launch:
@@ -24,7 +24,19 @@ c. the trainer: ``make_train_step(..., mesh=...)`` on 4 ranks, 2 steps of
    with an adversary equal to the stacked step's;
 d. drills: ``ScenarioRunner(backend="mesh")`` digests equal to the virtual
    runner's for the reference's tier-2 harness specs (h8/honest7 on the
-   first 7 ranks, two elastic drills), and ``identity_rows`` at 1.0.
+   first 7 ranks, two elastic drills), and ``identity_rows`` at 1.0;
+e. fsdp (run alone, by ``tests/test_torch_fsdp.py``: ``... <scratch>
+   fsdp``; checks a-d run when no check is named): the fused ZeRO
+   gather's backward on a data-only mesh of 8 and a pod 2 x data 4 mesh,
+   along dim 0 and dim 1, equal to the sign of the summed per-rank signs
+   of the whole gradient (the dense form: their mean), each rank's slice
+   and inputs recorded (``fsdp_record.pkl``) for the reference's
+   identity; and ``make_train_step(..., mesh=...)`` with ``fsdp=True`` on
+   4 ranks, 2 steps of each configuration (Mode B on data 4 and pod 2 x
+   data 2 with a sign_flip / random adversary, remat "dots", a plan and
+   diagnostics), each rank's losses and its slices of the parameters and
+   the momentum bit-equal to the port's stacked step (computed on the
+   other 4 ranks); the dense sgd within its mean's rounding bound.
 
 Rank 0 writes what the mesh gave, with the inputs it was given, to
 ``<scratch dir>/mesh_record.pkl`` (numpy and plain Python only), so that
@@ -444,7 +456,7 @@ def _state_digest(params, state, voter):
 
 def _run_steps(art, cfg, tcfg, params, state):
     from repro_torch.data.pipeline import SyntheticLMPipeline
-    pipe = SyntheticLMPipeline(cfg, GB, SEQ, seed=0)
+    pipe = SyntheticLMPipeline(cfg, tcfg.global_batch, SEQ, seed=0)
     out = []
     for step in range(STEPS):
         tokens = pipe.global_batch_at(step)["tokens"]
@@ -680,19 +692,219 @@ def check_drills(rank):
         raise AssertionError(f"identity rows {rows}")
 
 
+# ---------------------------------------------------------------------------
+# e. fsdp: the fused ZeRO backward and the ZeRO-3 trainer
+# ---------------------------------------------------------------------------
+
+
+def check_fused_gather(rank):
+    """The reference's identity (``tests/distributed_harness.py:93-113``)
+    on the port's gather: rank r's loss ``sum((x_r @ W) ** 2)`` through
+    the gather of its slice of W; the gradient of its slice must be its
+    slice of the sign of the summed per-rank signs of the whole gradients
+    (the dense form: of their mean)."""
+    from repro_torch.core import majority_vote as mv
+    from repro_torch.core import sign_compress as sc
+    rng = np.random.default_rng(SEED + 5)
+    w_full = rng.normal(size=(16, 24)).astype(np.float32)
+    xs = rng.normal(size=(WORLD, 4, 16)).astype(np.float32)
+    W, X = torch.from_numpy(w_full), torch.from_numpy(xs)
+    fsdp = RECORD.setdefault("fsdp", [])
+    for name, mesh in _meshes().items():
+        if not mesh.member or name == "first7":
+            continue
+        r = mesh.replica_index()
+        d, data = mesh.axis_index("data"), mesh.data
+
+        def loss_of(w, x):
+            return torch.sum((x @ w) ** 2)
+        grads = []
+        for i in range(mesh.size):
+            w = W.clone().requires_grad_()
+            grads.append(torch.autograd.grad(loss_of(w, X[i]), [w])[0])
+        count = sum(sc.sign_ternary(g).to(torch.int32) for g in grads)
+        mean = sum(grads) / mesh.size
+        for dim in (0, 1):
+            size = W.shape[dim] // data
+            part = [slice(None)] * 2
+            part[dim] = slice(d * size, (d + 1) * size)
+            part = tuple(part)
+            for vote in (True, False):
+                gather = mv.make_gather_vote(dim, mesh.vote_axes, vote=vote)
+                w = W[part].clone().requires_grad_()
+                got = torch.autograd.grad(loss_of(gather(w), X[r]), [w])[0]
+                want = (torch.sign(count).float() if vote else mean)[part]
+                if vote:
+                    _eq(f"fused vote {name} dim {dim} rank {rank}", got,
+                        want)
+                elif not torch.allclose(got, want, rtol=1e-6, atol=1e-6):
+                    raise AssertionError(f"fused mean {name} dim {dim}")
+                if rank == 0:
+                    fsdp.append(dict(mesh=name, rank=rank, replica=r,
+                                     data_index=d, dim=dim, vote=vote,
+                                     got=_np(got)))
+    RECORD["fsdp_inputs"] = {"w": w_full, "xs": xs}
+
+
+def _fsdp_cfgs():
+    from repro_torch.configs import base
+    S = base.VoteStrategy
+
+    def opt(**kw):
+        d = dict(kind="signsgd_vote", momentum_mode=base.MomentumMode.GLOBAL,
+                 learning_rate=1e-3, momentum=0.9,
+                 vote_strategy=S.HIERARCHICAL)
+        d.update(kw)
+        return base.OptimizerConfig(**d)
+    flip = base.ByzantineConfig(mode="sign_flip", num_adversaries=1)
+    rand = base.ByzantineConfig(mode="random", num_adversaries=1)
+    # (label, mesh, optimizer, train options); fsdp on in every one
+    return [
+        ("mode_b_flip", "data4", opt(), {"byzantine": flip,
+                                         "remat": "nested"}),
+        ("mode_b_pod_random", "pod2x2", opt(), {"byzantine": rand}),
+        ("mode_b_dots", "data4", opt(vote_strategy=S.ALLGATHER_1BIT),
+         {"remat": "dots", "microbatches": 1}),
+        ("mode_b_plan_diag", "data4", opt(bucket_bytes=4096),
+         {"diagnostics": True}),
+        ("signsgd_beta0", "data4", opt(momentum=0.0), {}),
+    ]
+
+
+def _fsdp_pair(opt, extra):
+    from repro_torch.configs import base
+    cfg = dataclasses.replace(base.reduced_config(base.get_config(
+        "qwen1.5-32b")), dtype="float32")
+    train = {"microbatches": 2, **extra}
+    tcfg = base.TrainConfig(global_batch=8, seq_len=SEQ, optimizer=opt,
+                            fsdp=True, **train)
+    return cfg, tcfg
+
+
+def _slices(tree, dims, index, count):
+    from repro_torch.distributed import sharding as shd
+    return shd.shard_tree(tree, dims, index, count)
+
+
+def check_fsdp_trainer(rank):
+    from repro_torch.distributed.mesh import ProcessMesh
+    from repro_torch.train import train_step as TS
+    meshes = {"data4": ProcessMesh((4,), ("data",)),
+              "pod2x2": ProcessMesh((2, 2), ("pod", "data"))}
+    cfgs = _fsdp_cfgs()
+    mine = {}
+    if rank >= 4:
+        for j, (label, mname, opt, extra) in enumerate(cfgs):
+            if j % 4 != rank - 4:
+                continue
+            cfg, tcfg = _fsdp_pair(opt, extra)
+            art = TS.make_train_step(cfg, tcfg, 4, device="cpu")
+            params, state = TS.materialize_state(
+                cfg, tcfg, art, torch.Generator().manual_seed(0))
+            params, state, mets = _run_steps(art, cfg, tcfg, params, state)
+            data = 2 if mname == "pod2x2" else 4
+            # each mesh rank's slices: data index = rank % data
+            mine[label] = {"metrics": mets, "digests": [_state_digest(
+                _slices(params, art.fused_dims, v % data, data),
+                {"momentum": _slices(state.get("momentum", {}),
+                                     art.fused_dims, v % data, data)},
+                None) for v in range(4)]}
+    else:
+        for label, mname, opt, extra in cfgs:
+            cfg, tcfg = _fsdp_pair(opt, extra)
+            art = TS.make_train_step(cfg, tcfg, device="cpu",
+                                     mesh=meshes[mname])
+            params, state = TS.materialize_state(
+                cfg, tcfg, art, torch.Generator().manual_seed(0))
+            params, state, mets = _run_steps(art, cfg, tcfg, params, state)
+            mine[label] = {"metrics": mets, "digest": _state_digest(
+                params, {"momentum": state.get("momentum", {})}, None)}
+    every = [None] * WORLD
+    dist.all_gather_object(every, mine)
+    if rank < 4:
+        twins = {}
+        for d in every[4:]:
+            twins.update(d)
+        for label, _, _, _ in cfgs:
+            got, want = mine[label], twins[label]
+            if got["metrics"] != want["metrics"]:
+                raise AssertionError(f"fsdp {label}: mesh metrics "
+                                     f"{got['metrics']} != stacked "
+                                     f"{want['metrics']}")
+            if got["digest"] != want["digests"][rank]:
+                raise AssertionError(f"fsdp {label}: rank {rank}'s slices "
+                                     "differ from the stacked step's")
+        if rank == 0:
+            RECORD["fsdp_trainer"] = {label: mine[label]["metrics"]
+                                      for label, _, _, _ in cfgs}
+    check_fsdp_dense(rank, meshes["data4"])
+
+
+def check_fsdp_dense(rank, mesh):
+    """One sgd step with fsdp on the mesh against the stacked step: each
+    rank's parameter slices within lr times the rounding bound of the mean
+    gradient (float32 parameters, one microbatch)."""
+    from repro_torch.configs import base
+    from repro_torch.data.pipeline import SyntheticLMPipeline
+    from repro_torch.train import train_step as TS
+    opt = base.OptimizerConfig(kind="sgd", learning_rate=1e-2)
+    cfg, tcfg = _fsdp_pair(opt, {"microbatches": 1})
+    tokens = SyntheticLMPipeline(cfg, 8, SEQ, seed=0).global_batch_at(0)[
+        "tokens"]
+    if not mesh.member:
+        return
+    twin = TS.make_train_step(cfg, tcfg, 4, device="cpu")
+    tp, ts = TS.materialize_state(cfg, tcfg, twin,
+                                  torch.Generator().manual_seed(0))
+    p0 = {k: v.clone() for k, v in tp.items()}
+    plain = dataclasses.replace(tcfg, fsdp=False)
+    grads = [TS.voter_grads(cfg, plain, p0, torch.as_tensor(
+        tokens[v * 2:(v + 1) * 2]))[0] for v in range(4)]
+    tp, ts, _ = twin.step_fn(tp, ts, {"tokens": tokens}, 0)
+    art = TS.make_train_step(cfg, tcfg, device="cpu", mesh=mesh)
+    if not art.fused_leaves:
+        raise AssertionError("sgd with fsdp fused no leaf")
+    mp_, ms = TS.materialize_state(cfg, tcfg, art,
+                                   torch.Generator().manual_seed(0))
+    mp_, ms, _ = art.step_fn(mp_, ms, {"tokens": tokens}, 0)
+    d = mesh.axis_index("data")
+    want = _slices(tp, art.fused_dims, d, 4)
+    s = _slices({k: sum(g[k].double().abs() for g in grads) for k in p0},
+                art.fused_dims, d, 4)
+    p0 = _slices(p0, art.fused_dims, d, 4)
+    u = 2.0 ** -24
+    for k in want:
+        bound = 1e-2 * (2 * 4 * u * s[k] / 4) + 2 * u * p0[k].double().abs()
+        diff = (mp_[k].double() - want[k].double()).abs()
+        if not bool((diff <= bound).all()):
+            raise AssertionError(f"fsdp sgd {k}: mesh - stacked "
+                                 f"{float(diff.max())} over the bound")
+
+
+def check_fsdp(rank):
+    check_fused_gather(rank)
+    check_fsdp_trainer(rank)
+
+
 CHECKS = (("votes", check_votes), ("plans", check_plans),
           ("trainer", check_trainer), ("drills", check_drills))
+#: checks run only when named on the command line
+NAMED_CHECKS = (("fsdp", check_fsdp),)
 
 
-def worker(rank, scratch):
+def worker(rank, scratch, names=None):
     global SCRATCH
     SCRATCH = scratch
     torch.set_num_threads(1)
     init = os.path.join(scratch, "torch_mesh_store")
     dist.init_process_group("gloo", init_method=f"file://{init}", rank=rank,
                             world_size=WORLD)
+    checks = (CHECKS if not names else
+              [c for c in CHECKS + NAMED_CHECKS if c[0] in names])
+    record = "mesh_record.pkl" if not names else "_".join(names) + \
+        "_record.pkl"
     try:
-        for name, fn in CHECKS:
+        for name, fn in checks:
             t0 = time.perf_counter()
             fn(rank)
             dist.barrier()
@@ -700,7 +912,7 @@ def worker(rank, scratch):
                 print(f"OK {name} {time.perf_counter() - t0:.1f}s",
                       flush=True)
         if rank == 0:
-            with open(os.path.join(scratch, "mesh_record.pkl"), "wb") as f:
+            with open(os.path.join(scratch, record), "wb") as f:
                 pickle.dump(RECORD, f)
     finally:
         dist.destroy_process_group()
@@ -712,7 +924,8 @@ def main(argv) -> int:
     if os.path.exists(init):
         os.remove(init)
     t0 = time.perf_counter()
-    mp.spawn(worker, args=(scratch,), nprocs=WORLD, join=True)
+    mp.spawn(worker, args=(scratch, tuple(argv[2:])), nprocs=WORLD,
+             join=True)
     print(f"ALL OK {time.perf_counter() - t0:.1f}s", flush=True)
     return 0
 
