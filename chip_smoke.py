@@ -258,16 +258,18 @@ Phases, each of which fails the run (non-zero exit) on any disagreement:
    parameter and momentum slices equal to the stacked twin's slices (sgd:
    its ``layers.attn_wq`` slice within the mean's rounding bound), rank
    0's step-0 launches held against their plain versions; the bytes each
-   rank hands the collectives per step beside the layout's count, each
-   rank's peak; (c) ``python -m repro_torch.launch.train`` as a
-   subprocess: glm4-9b at full depth and width (signSGD, 3 steps, batch 8,
-   seq 128), then a reduced run killed (SIGKILL) once its step-1
-   checkpoint is the latest and resumed to step 4, its losses from step 2
-   on equal to an uninterrupted run's.
+   rank hands the collectives per step, equal to the layout's count, each
+   rank's peak; (c) the launcher: ``repro_torch.launch.train.main`` in
+   this process with glm4-9b at full depth and width (signSGD, 3 steps,
+   batch 8, seq 128), its launches exactly one ternary_pack, tally and
+   apply_ternary_vote per leaf and step, every one held against its plain
+   version; then ``python -m repro_torch.launch.train`` as a subprocess, a
+   reduced run killed (SIGKILL) once its step-1 checkpoint is the latest
+   and resumed to step 4, its losses from step 2 on equal to an
+   uninterrupted run's.
 
 Phase 13's, 14's and 15's launches (phases 14's and 15b's summed over
-their ranks; not the launcher's, which runs in its own process and prints
-its own) join the kernels line.
+their ranks) join the kernels line.
 
 Phase 7 also times ternary_majority with ties +1 (its own row),
 ternary_unpack to bf16 and bitpack of the bf16 stack (its own row, whose
@@ -4434,14 +4436,20 @@ def run_fsdp_mesh(torch, dev, errs, cfg=None, target=None) -> dict:
         per_step = [max(s[i]["ms"] for s in steps_) for i in range(steps)]
         coll = [max(s[i]["collective_ms"] for s in steps_)
                 for i in range(steps)]
+        counted = fsdp_mesh_bytes(cfg_, label, shape, want["dims"],
+                                  tcfg.remat != "none")
+        measured = [s[-1]["bytes"] for s in steps_]
+        if any(b != counted["analytic_bytes"] for b in measured):
+            raise AssertionError(
+                f"fsdp mesh {label}: bytes per step by rank {measured} != "
+                f"the layout's count {counted['analytic_bytes']}")
         line = {"phase": "fsdp_mesh_wire", "run": label, "mesh": list(shape),
                 "axes": list(axes), "layers": FSDP_MESH_LAYERS,
                 "microbatches": FSDP_MESH_MICRO,
                 "global_batch": FSDP_MESH_BATCH,
-                "bytes_per_step_by_rank": [s[-1]["bytes"] for s in steps_],
+                "bytes_per_step_by_rank": measured,
                 "collectives_per_step_rank0": steps_[0][-1]["collectives"],
-                **fsdp_mesh_bytes(cfg_, label, shape, want["dims"],
-                                  tcfg.remat != "none"),
+                **counted,
                 "step_ms": per_step, "collective_ms": coll,
                 "twin_step_ms": want["ms"],
                 "losses": [m["loss"] for m in want["metrics"]],
@@ -4516,37 +4524,62 @@ def kill_after_checkpoint(args, ckpt_dir: str, step: int) -> float:
     return time.perf_counter() - t0
 
 
-def run_launcher_path(torch, dev, scratch: str, full=LAUNCH_FULL) -> None:
-    """Phase 15c: ``python -m repro_torch.launch.train`` on the card: the
-    full-depth glm4-9b signSGD run (finite losses, its kernels launched),
-    then the reduced run killed after its step-1 checkpoint and resumed to
-    step 4, whose losses from step 2 on equal an uninterrupted run's."""
+def launcher_launches(arch: str, steps: int) -> dict:
+    """The full launcher run's launches: signSGD at one voter on psum_int8
+    (AUTO at M = 1), per leaf and step the voter's ternary_pack, the tally
+    and apply_ternary_vote."""
+    from repro_torch.configs.base import get_config
+    n = len(get_config(arch).param_shapes()) * steps
+    return {"ternary_pack": n, "ternary_majority": n,
+            "apply_ternary_vote": n}
+
+
+def run_launcher_path(torch, dev, scratch: str, err,
+                      full=LAUNCH_FULL) -> dict:
+    """Phase 15c: the launcher on the card. In this process,
+    ``repro_torch.launch.train.main`` with the full-depth glm4-9b signSGD
+    flags: finite losses for every step, its launches exactly
+    :func:`launcher_launches`, every one held against its plain version.
+    Then, as subprocesses (``python -m repro_torch.launch.train``), the
+    reduced run killed after its step-1 checkpoint and resumed to step 4,
+    whose losses from step 2 on equal an uninterrupted run's. Returns the
+    full run's launches."""
+    import io
     import shutil
+    from repro_torch.core import sign_compress as sc
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import train as launch
     t0 = time.perf_counter()
-    if dev.type == "cuda":
-        gc.collect()
-        torch.cuda.empty_cache()
+    reset_peak(torch, dev)
     device = ["--device", dev.type]
-    out = launcher(list(full) + device + ["--trace", os.path.join(
-        scratch, "full.jsonl")])
-    if out.returncode != 0:
-        raise AssertionError(f"launcher exit {out.returncode}:\n"
-                             f"{out.stderr[-4000:]}")
-    losses = trace_losses(os.path.join(scratch, "full.jsonl"))
-    steps = [ln for ln in out.stdout.splitlines() if ln.startswith("step ")]
-    extra = [json.loads(ln.split(" ", 2)[2]) for ln in out.stdout.splitlines()
-             if ln.startswith("kernel launches ")]
+    trace = os.path.join(scratch, "full.jsonl")
+    printed, held = io.StringIO(), {}
+    ops.reset_launch_counts()
+    with plain_checked(torch, ops, ref, sc, err, "launcher", MESH_CHECKED,
+                       held), contextlib.redirect_stdout(printed):
+        rc = launch.main(list(full) + device + ["--trace", trace])
+    launches = {k: v for k, v in ops.launch_counts().items() if v}
+    stdout = printed.getvalue().splitlines()
+    if rc != 0:
+        raise AssertionError(f"launcher returned {rc}: {stdout[-20:]}")
+    losses = trace_losses(trace)
+    steps = int(full[full.index("--steps") + 1])
     if not all(math.isfinite(v) for v in losses.values()) or \
-            sorted(losses) != list(range(int(full[full.index("--steps")
-                                                  + 1]))):
+            sorted(losses) != list(range(steps)):
         raise AssertionError(f"launcher losses {losses}")
-    launches = extra[0] if extra else {}
-    if dev.type == "cuda" and not launches:
-        raise AssertionError("the launcher launched no kernel")
+    want = launcher_launches(full[full.index("--arch") + 1], steps)
+    if dev.type == "cuda" and launches != want:
+        raise AssertionError(f"launcher launches {launches}, expected "
+                             f"{want}")
+    if dev.type == "cuda" and held != launches:
+        raise AssertionError(f"launcher: held {held} of the launches "
+                             f"{launches} against their plain versions")
     log({"phase": "launcher_full", "args": list(full), "losses": losses,
-         "log": steps, "launches": launches,
-         "peak_line": [ln for ln in out.stdout.splitlines()
-                       if ln.startswith("max memory")],
+         "log": [ln for ln in stdout if ln.startswith("step ")],
+         "launches": launches, "held_vs_plain": held,
+         "max_memory_allocated_bytes": peak_bytes(torch, dev),
+         "note": "in process; every launch held against its plain version "
+                 "(step times include the checks)",
          "seconds": time.perf_counter() - t0})
     reduced = list(LAUNCH_REDUCED) + device
     whole = launcher(reduced + ["--trace", os.path.join(scratch, "a.jsonl")])
@@ -4578,16 +4611,18 @@ def run_launcher_path(torch, dev, scratch: str, full=LAUNCH_FULL) -> None:
     log({"phase": "launcher_resume", "uninterrupted": a, "resumed": b,
          "killed_after_s": ran_s, "attempts": attempt + 1,
          "seconds": time.perf_counter() - t0})
+    return launches
 
 
 def run_fsdp_path(torch, dev, errs) -> dict:
-    """Phase 15 (a, b, c); returns the launches of (a) and (b)."""
+    """Phase 15 (a, b, c); returns their launches."""
     import tempfile
     launches = run_fsdp_stacked(torch, dev, errs)
     for k, v in run_fsdp_mesh(torch, dev, errs).items():
         launches[k] = launches.get(k, 0) + v
     with tempfile.TemporaryDirectory() as scratch:
-        run_launcher_path(torch, dev, scratch)
+        for k, v in run_launcher_path(torch, dev, scratch, errs).items():
+            launches[k] = launches.get(k, 0) + v
     return launches
 
 

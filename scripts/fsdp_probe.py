@@ -12,9 +12,10 @@ to "nested", the sgd preset; (b) 4 processes on the one card over gloo
 (pod 2 x data 2 with a sign_flip voter, sgd on data 4; 1 layer, 2
 microbatches, batch 8), each rank bit-equal to the stacked twin (sgd within
 its mean's rounding bound), the bytes each rank hands the collectives
-beside the analytic count; (c) ``python -m repro_torch.launch.train`` at
-full glm4-9b depth and width, and a reduced run killed after a checkpoint
-and resumed. One JSON line per result, the card's name and power limit,
+equal to the analytic count; (c) the launcher's ``main`` at full glm4-9b
+depth and width, its launches exact and each held against its plain
+version, and ``python -m repro_torch.launch.train`` with a reduced run
+killed after a checkpoint and resumed. One JSON line per result, the card's name and power limit,
 and last ``{"ok": true, ...}``; exits non-zero on any disagreement, or
 without a card.
 """

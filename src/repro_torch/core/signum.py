@@ -142,6 +142,12 @@ microbatches the mean of their votes and not ternary, is applied itself by
 the reference's float32 apply in PyTorch ops (:func:`apply_float_`). The
 dense baselines take such leaves' gradient as the mean (``mean_leaves``).
 With every leaf fused the diagnostics are NaN, as the reference's.
+Mode A (beta = 0; with momentum the reference refuses fsdp) takes the
+fused leaves' accumulated votes as gradients and votes them a second time
+on the wire, as the reference does: over a mesh each rank's slice (its
+coordinates) against the other ranks' slices; stacked, voter r sends its
+slice r (``tiles``: the leaf's words, residual and banked vote have the
+shape of one slice, and every slice of the parameter takes the vote).
 
 ``diagnostics=True`` makes ``update`` return the reference's
 ``vote_margin`` (mean |tally| / M over every coordinate, on the signs that
@@ -155,7 +161,7 @@ Every other option raises and names the ROADMAP.md item that brings it.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional, Sequence
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -227,14 +233,35 @@ def validate(cfg: OptimizerConfig) -> None:
 
 
 def packed_like(params: Dict[str, torch.Tensor], n_voters: int,
-                codec: codecs.GradientCodec, two_bit: bool
+                codec: codecs.GradientCodec, two_bit: bool,
+                sizes: Optional[Dict[str, int]] = None
                 ) -> Dict[str, torch.Tensor]:
     """One (M, w) int32 word buffer per leaf, row r voter r's packed
-    symbols: 1-bit words (w = ceil(n/32)), or 2-bit words (w =
-    ceil(n/16)) on the 2-bit wires."""
-    return {k: torch.empty((n_voters, codec.words_for(p.numel(), two_bit)),
+    symbols of its n coordinates (``p.numel()``, or ``sizes[k]``): 1-bit
+    words (w = ceil(n/32)), or 2-bit words (w = ceil(n/16)) on the 2-bit
+    wires."""
+    sizes = sizes or {}
+    return {k: torch.empty((n_voters, codec.words_for(
+                sizes.get(k, p.numel()), two_bit)),
                            dtype=sc.WORD_DTYPE, device=p.device)
             for k, p in params.items()}
+
+
+def slice_rows(p: torch.Tensor, dim: int, parts: int) -> torch.Tensor:
+    """A (parts, n/parts) copy of `p`'s `parts` equal slices along `dim`,
+    row d slice d flattened as that slice copied on its own would be."""
+    lead = int(np.prod(p.shape[:dim], dtype=np.int64))
+    out = torch.empty((parts, p.numel() // parts), dtype=p.dtype,
+                      device=p.device)
+    out.view(parts, lead, -1).copy_(p.view(lead, parts, -1).transpose(0, 1))
+    return out
+
+
+def join_rows_(p: torch.Tensor, rows: torch.Tensor, dim: int,
+               parts: int) -> None:
+    """Write :func:`slice_rows`' `rows` back into `p`, in place."""
+    lead = int(np.prod(p.shape[:dim], dtype=np.int64))
+    p.view(lead, parts, -1).copy_(rows.view(parts, lead, -1).transpose(0, 1))
 
 
 def apply_int8_(p: torch.Tensor, vote: torch.Tensor, eta: float,
@@ -304,7 +331,9 @@ def make_sign_optimizer(cfg: OptimizerConfig, n_voters: int,
                         byz: Optional[ByzantineConfig] = None,
                         diagnostics: bool = False,
                         axes=None,
-                        fused_leaves: Sequence[str] = ()) -> Optimizer:
+                        fused_leaves: Sequence[str] = (),
+                        tiles: Optional[Dict[str, Tuple[int, int]]] = None
+                        ) -> Optimizer:
     """SIGNUM / signSGD over `n_voters` stacked voters (see module doc),
     leaf-wise or, given `plan`, through its bucket schedule, with the
     voters below ``byz.num_adversaries`` adversarial when `byz` is given.
@@ -325,7 +354,10 @@ def make_sign_optimizer(cfg: OptimizerConfig, n_voters: int,
     `n_voters` voters) the momentum and residual are this rank's voter's,
     leaf-shaped (see the module doc). The leaves of `fused_leaves` come
     voted (``wire["voted"]``; Mode B only, the reference's
-    ``voted_leaves``)."""
+    ``voted_leaves``). A leaf of `tiles` ({leaf: (dim, parts)}; Mode A at
+    beta = 0, stacked) is voted at the shape of one of its `parts` slices
+    along `dim`, which every voter's gradient of it has, and every slice
+    of the parameter takes that vote."""
     if n_voters < 1:
         raise ValueError(f"n_voters must be >= 1, got {n_voters}")
     if axes is not None and num_voters(axes) != n_voters:
@@ -358,6 +390,17 @@ def make_sign_optimizer(cfg: OptimizerConfig, n_voters: int,
     if fused and not mode_b:
         raise ValueError("fused (pre-voted) leaves belong to Mode B "
                          "(momentum_mode=global)")
+    tiles = dict(tiles or {})
+    if tiles and (mode_b or rows):
+        raise ValueError("tiled leaves belong to Mode A at beta = 0")
+
+    def shape_of(k: str, p: torch.Tensor) -> tuple:
+        """The shape of leaf k's vote: one slice of a tiled leaf."""
+        shape = list(p.shape)
+        if k in tiles:
+            dim, parts = tiles[k]
+            shape[dim] //= parts
+        return tuple(shape)
     if ef and mode_b:
         # the reference's refusal, word for word (core/signum.py:106-116)
         raise ValueError(
@@ -369,7 +412,7 @@ def make_sign_optimizer(cfg: OptimizerConfig, n_voters: int,
     def init(params: Dict[str, torch.Tensor]) -> Dict:
         def zeros(names=None, voters=True):
             lead = (n_voters,) if voters and axes is None else ()
-            return {k: torch.zeros(lead + tuple(p.shape), dtype=mom_dtype,
+            return {k: torch.zeros(lead + shape_of(k, p), dtype=mom_dtype,
                                    device=p.device)
                     for k, p in params.items()
                     if names is None or k in names}
@@ -378,7 +421,8 @@ def make_sign_optimizer(cfg: OptimizerConfig, n_voters: int,
         if beta > 0:
             state["momentum"] = zeros(voters=rows)
         if cfg.delayed_vote:
-            state["delayed"] = {k: torch.zeros(p.shape, dtype=torch.int8,
+            state["delayed"] = {k: torch.zeros(shape_of(k, p),
+                                               dtype=torch.int8,
                                                device=p.device)
                                 for k, p in params.items()}
         if ef:
@@ -412,7 +456,8 @@ def make_sign_optimizer(cfg: OptimizerConfig, n_voters: int,
             out["signs"] = torch.empty((local, plan.n_params),
                                        dtype=torch.int8, device=device)
         else:
-            out["words"] = packed_like(params, local, codec, two_bit)
+            out["words"] = packed_like(params, local, codec, two_bit, {
+                k: int(np.prod(shape_of(k, params[k]))) for k in tiles})
         return out
 
     def row_of(voter: int) -> int:
@@ -440,9 +485,16 @@ def make_sign_optimizer(cfg: OptimizerConfig, n_voters: int,
                                       step=wire["step"])
                 if diagnostics:
                     evil["signs"] = symbols.view(-1).clone()
-        for k, g in grads.items():
+        # under a plan in its manifest's order (a leaf of the wrong shape
+        # raises at the first such leaf of it, as the reference's flatten)
+        names = ([sl.name for sl in plan.leaves if sl.name in grads]
+                 if plan is not None else list(grads))
+        for k in names:
+            g = grads[k]
             if k in fused:
                 continue
+            if plan is not None:
+                vp.check_size(slots[k], g)
             g = g.reshape(-1)
             m = local_row(state["momentum"][k], row) if rows else None
             error = (local_row(state["error"][k], row)
@@ -474,7 +526,8 @@ def make_sign_optimizer(cfg: OptimizerConfig, n_voters: int,
         sent = evil.pop("signs", own)
         counts = wire["counts"]
         if k not in counts:
-            counts[k] = sent.to(count_dtype(n_voters))
+            # a copy: `own` is kept, and int8 counts would alias it
+            counts[k] = sent.to(count_dtype(n_voters), copy=True)
         else:
             counts[k].add_(sent)
         if voter == 0 or axes is not None:
@@ -566,7 +619,10 @@ def make_sign_optimizer(cfg: OptimizerConfig, n_voters: int,
         ctx = codec.begin_step(state.get("codec"))
         agree = num = total = 0
         for k, p in params.items():
-            flat = p.view(-1)
+            # the flat leaf, or a tiled leaf's slices, each taking the vote
+            slices = (slice_rows(p, *tiles[k]) if k in tiles
+                      else p.view(1, -1))
+            flat = slices[-1]
             n = flat.shape[0]
             if k in fused:
                 apply_voted_(k, flat, state, wire, eta, wd)
@@ -591,10 +647,15 @@ def make_sign_optimizer(cfg: OptimizerConfig, n_voters: int,
                 dt = torch.bfloat16 if mode_b else torch.int8
                 vote = (ops.ternary_unpack(votes, n, dt) if two_bit
                         else ops.bitunpack(votes, n, dt))
+                for other in slices[:-1]:   # the last slice banks the vote
+                    apply_int8_(other, state["delayed"][k].view(-1), eta, wd)
                 apply_(k, flat, state, vote, eta, wd)
                 del vote
             else:
-                codec.apply_(flat, votes, eta, wd, two_bit)
+                for one in slices:
+                    codec.apply_(one, votes, eta, wd, two_bit)
+            if k in tiles:
+                join_rows_(p, slices, *tiles[k])
             error = (state["error"][k].view(local, -1)
                      if "error" in state else None)
             codec.feedback_voters_(votes, error, wire["sent"][k], two_bit)
@@ -737,14 +798,17 @@ def build_optimizer(cfg: OptimizerConfig, n_voters: int,
                     plan: Optional[vp.VotePlan] = None,
                     byz: Optional[ByzantineConfig] = None,
                     diagnostics: bool = False, axes=None,
-                    fused_leaves: Sequence[str] = ()) -> Optimizer:
+                    fused_leaves: Sequence[str] = (),
+                    tiles: Optional[Dict[str, Tuple[int, int]]] = None
+                    ) -> Optimizer:
     """The optimizer of `cfg.kind` (``repro.core.signum.build_optimizer``):
     the sign family for ``signum_vote`` / ``signsgd_vote``, with the
     adversaries of `byz` and the vote `diagnostics`, else the dense
     baselines, which ignore both as the reference's do; over mesh `axes`
     when given; `fused_leaves` arrive voted (or meaned) by the fused ZeRO
-    backward."""
+    backward; the sign family's `tiles` are voted slice by slice (see
+    :func:`make_sign_optimizer`)."""
     if cfg.kind in SIGN_KINDS:
         return make_sign_optimizer(cfg, n_voters, plan, byz, diagnostics,
-                                   axes, fused_leaves)
+                                   axes, fused_leaves, tiles)
     return make_dense_optimizer(cfg, n_voters, axes, fused_leaves)

@@ -309,15 +309,21 @@ def build_plan(shapes: Dict[str, Tuple[int, ...]], *, bucket_bytes: int,
 # ---------------------------------------------------------------------------
 
 
+def check_size(slot: LeafSlot, values: torch.Tensor) -> None:
+    """Raise the reference's ``ValueError`` unless `values` has the
+    slot's number of elements."""
+    if values.numel() != slot.length:
+        raise ValueError(
+            f"leaf {slot.name!r} has shape {tuple(values.shape)}, plan "
+            f"manifest says {slot.shape}")
+
+
 def write_signs(slot: LeafSlot, values: torch.Tensor,
                 out: torch.Tensor) -> None:
     """``sign_ternary`` of one leaf's `values` into its slice of the flat
     int8 buffer `out` (``(n_params,)``, or a voter's row of the stacked
     buffer)."""
-    if values.numel() != slot.length:
-        raise ValueError(
-            f"leaf {slot.name!r} has shape {tuple(values.shape)}, plan "
-            f"manifest says {slot.shape}")
+    check_size(slot, values)
     sc.sign_ternary(values.reshape(-1),
                     out=out[slot.offset:slot.offset + slot.length])
 

@@ -24,8 +24,8 @@ One step:
 1. for each voter r, on rows ``[r*B/M, (r+1)*B/M)`` of the global batch
    (the rows ``SyntheticLMPipeline.replica_batch`` gives replica r), cut
    into ``microbatches`` equal chunks: per chunk the loss (each decoder
-   block checkpointed under ``remat``) and ``torch.autograd.grad`` over
-   every leaf; with more than one chunk the gradients accumulate as the
+   block checkpointed under ``remat``) and one backward pass over every
+   leaf; with more than one chunk the gradients accumulate as the
    reference's ``acc_body`` scan has them (an accumulator from zeros,
    ``acc + g.to(acc.dtype)`` chunk by chunk, then ``acc / microbatches``:
    bf16 for the sign family, where only the sign of the sum survives, and
@@ -106,10 +106,15 @@ M). The mesh step is held to it bit for bit (the dense within its mean's
 rounding). Mode A under fsdp: with momentum the reference refuses at
 ``materialize_state`` (its per-worker momentum spec names ``"data"``
 twice), and so does the port, with the same error
-(``sharding.DuplicateSpecError``); at beta = 0 the reference votes the
-fused leaves' slices a second time across the ranks, each rank's slice
-against the others', which the port refuses (``NotImplementedError``,
-ROADMAP.md Queue 3).
+(``sharding.DuplicateSpecError``); at beta = 0 the optimizer takes the
+fused leaves' accumulated votes as gradients and votes them a second time
+on the wire, as the reference's does: over a mesh each rank sends its
+slice, so a slice's coordinate is voted against the same coordinate of
+the other ranks' slices; stacked, voter r sends slice r (of M slices:
+the stacked voters are a data axis of M) and every slice of the parameter
+takes the vote (``core.signum``'s ``tiles``). Under a plan, whose leaves
+have the whole parameters' shapes, the step raises the reference's
+``ValueError`` at the first fused leaf's slice.
 """
 from __future__ import annotations
 
@@ -206,11 +211,12 @@ def voter_grads(cfg: ModelConfig, tcfg: TrainConfig,
                 ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
     """One voter's gradients of every leaf on its rows `tokens` and its
     metrics (``loss``, ``ce``, ``aux``): one backward pass per microbatch,
-    accumulated as the reference does (see the module doc). With more than
-    one microbatch each leaf's gradient is added into its accumulator as
-    soon as autograd has made it (a post-accumulate-grad hook) and freed,
-    so at most one leaf's gradient exists beside the accumulators (the
-    same additions, in the same order, as adding whole gradients).
+    accumulated as the reference does (see the module doc). Each leaf's
+    gradient is taken as soon as autograd has made it (a post-accumulate-
+    grad hook): with one microbatch kept as it is, with more added into
+    its accumulator and freed, so at most one leaf's gradient exists
+    beside the accumulators (the same additions, in the same order, as
+    adding whole gradients).
     `hook` is the model's parameter hook (the mesh's fused ZeRO backward,
     whose "gradients" are this rank's slices of the votes);
     `on_fused(i, name, g)`, when given, takes microbatch i's gradient of
@@ -228,6 +234,8 @@ def voter_grads(cfg: ModelConfig, tcfg: TrainConfig,
             g, leaf.grad = leaf.grad, None
             if k in taken:
                 on_fused(i, k, g)
+            elif micro == 1:
+                acc[k] = g
             elif k in acc:
                 acc[k].add_(g.to(dtype))
             else:   # the reference's accumulator starts from zeros
@@ -239,16 +247,9 @@ def voter_grads(cfg: ModelConfig, tcfg: TrainConfig,
         loss, met = M.loss_fn(cfg, leaves,
                               {"tokens": tokens[i * rows:(i + 1) * rows]},
                               hook=hook, remat=tcfg.remat)
-        if micro == 1:
-            grads = dict(zip(leaves, torch.autograd.grad(
-                loss, list(leaves.values()))))
-            for k in taken:
-                on_fused(i, k, grads.pop(k))
-            acc = grads
-        else:
-            for k, leaf in leaves.items():
-                leaf.register_post_accumulate_grad_hook(folder(i, k))
-            torch.autograd.backward(loss, inputs=list(leaves.values()))
+        for k, leaf in leaves.items():
+            leaf.register_post_accumulate_grad_hook(folder(i, k))
+        torch.autograd.backward(loss, inputs=list(leaves.values()))
         del leaves
         mets.append({"loss": loss.detach(), "ce": met["ce"].detach(),
                      "aux": met["aux"].detach()})
@@ -354,12 +355,9 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, n_voters: int = 1,
     fused = tcfg.fsdp and (mesh is not None or n_voters > 1)
     dims = shd.fused_dims(specs) if fused else {}
     mode_b = opt_cfg.momentum_mode == MomentumMode.GLOBAL
-    if dims and is_sign and not mode_b and not signum.per_worker(opt_cfg):
-        raise NotImplementedError(
-            "Mode A at beta = 0 under fsdp: the reference votes the fused "
-            "leaves' slices, already voted, a second time across the ranks, "
-            "each rank's slice against the others' coordinates; the port "
-            "does not reproduce that (ROADMAP.md Queue 3)")
+    # Mode A votes the fused leaves' accumulated votes again on the wire
+    # (with momentum materialize_state refuses, as the reference's does)
+    revote = bool(dims) and is_sign and not mode_b
     plan = None
     # the reference's plan: under Mode B the leaves the fused backward
     # does not vote (every leaf without fsdp), under Mode A every leaf;
@@ -384,9 +382,13 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, n_voters: int = 1,
                 and tcfg.byzantine.mode in byzantine.ATTACK_MODES)
     if adaptive:
         byz = None
+    # stacked, voter r sends slice r of each fused leaf (data = M)
+    tiles = ({k: (d, data) for k, d in dims.items()}
+             if revote and axes is None and not signum.per_worker(opt_cfg)
+             else None)
     opt = signum.build_optimizer(opt_cfg, n_voters, plan, byz,
                                  tcfg.diagnostics, axes,
-                                 tuple(dims) if mode_b or not is_sign else ())
+                                 () if revote else tuple(dims), tiles)
     hooks = (majority_vote.make_fsdp_hooks(dims, axes, vote=is_sign, byz=byz)
              if dims and axes is not None else None)
     resolved = opt.strategy
@@ -419,7 +421,7 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, n_voters: int = 1,
             grads, met = voter_grads(cfg, tcfg, params,
                                      tokens[r * per:(r + 1) * per],
                                      hook=hooks, on_fused=stacked)
-            if hooks is not None:
+            if hooks is not None and not revote:
                 wire["voted"] = {k: grads.pop(k) for k in dims}
             opt.encode(r, grads, opt_state, wire)
             del grads
@@ -427,8 +429,15 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, n_voters: int = 1,
         if hooks is not None:
             _issued_order_check(hooks, axes)
         if stacked is not None:
-            wire["voted"] = stacked.result()
+            voted = stacked.result()
             del stacked
+            if revote:
+                for r in range(n_voters):
+                    opt.encode(r, shd.shard_tree(voted, dims, r, data),
+                               opt_state, wire)
+            else:
+                wire["voted"] = voted
+            del voted
         diag = opt.update(wire, opt_state, params, int(step))
         names = ("ce", "aux", "loss")
         if axes is None:

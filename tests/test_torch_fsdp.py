@@ -15,8 +15,9 @@ train step, against the JAX package on the CPU.
     form: to their mean), and the mesh trainer under fsdp to the port's
     stacked step bit for bit (losses, each rank's slices of parameters and
     momentum; Mode B with a sign_flip and a random adversary, on pod 2 x
-    data 2, remat "dots", a plan with diagnostics, beta 0; sgd within its
-    mean's rounding bound). Rank 0's slices, with their inputs, are then
+    data 2, remat "dots", a plan with diagnostics, beta 0; Mode A at beta
+    0 with a random adversary, and with ef_sign, delayed_vote and
+    diagnostics; sgd within its mean's rounding bound). Rank 0's slices, with their inputs, are then
     held here to the reference's own identity
     (``tests/distributed_harness.py:93-113``): ``jax.grad`` of each rank's
     loss, the sign of the summed signs (the mean), sliced: votes bit for
@@ -45,8 +46,11 @@ train step, against the JAX package on the CPU.
     reference's ``evil_signs`` under no step, layer by layer, and do not
     change with the step; Mode A with momentum refuses at
     ``materialize_state`` with the reference's ``DuplicateSpecError``
-    message (on data 4 and on pod 2 x data 2), Mode A at beta 0 raises
-    (ROADMAP.md Queue 3).
+    message (on data 4 and on pod 2 x data 2); Mode A at beta 0, the
+    port's stacked step held to the reference's mesh
+    step on data 4 teacher-forced (the loss within rtol 1e-5, the
+    parameters equal on all but 0.1 % of the coordinates), and under a
+    plan the reference's error, message for message.
 """
 import dataclasses
 import os
@@ -155,7 +159,8 @@ def test_mesh_fsdp_equals_the_stacked_step(harness):
         f"harness exit {rc}\n{stdout[-3000:]}\n{stderr[-6000:]}")
     assert set(record["fsdp_trainer"]) == {
         "mode_b_flip", "mode_b_pod_random", "mode_b_dots",
-        "mode_b_plan_diag", "signsgd_beta0"}
+        "mode_b_plan_diag", "signsgd_beta0", "mode_a_beta0_random",
+        "mode_a_beta0_ef_delayed_diag"}
     diag = record["fsdp_trainer"]["mode_b_plan_diag"][0]
     assert np.isfinite(diag["vote_margin"])
 
@@ -248,6 +253,30 @@ for name, shape, axes in (("data4", (4, 1), ("data", "model")),
         out["mode_a"][name] = None
     except Exception as e:
         out["mode_a"][name] = (type(e).__name__, str(e))
+# Mode A at beta 0 (signSGD) under fsdp on data 4: the steps from its own
+# init; then under a plan, where the step raises
+beta0 = dataclasses.replace(tcfg, optimizer=B.OptimizerConfig(
+    kind="signsgd_vote", momentum=0.0, learning_rate=LR,
+    vote_strategy=B.VoteStrategy.HIERARCHICAL))
+out["beta0"] = {{"states": [], "losses": []}}
+a = TS.make_train_step(cfg, beta0, mesh=mesh)
+p, o = TS.materialize_state(cfg, beta0, a, jax.random.PRNGKey(1), mesh)
+for step in range(STEPS):
+    out["beta0"]["states"].append({{k: np.asarray(v) for k, v in p.items()}})
+    batch = {{"tokens": jax.device_put(out["batches"][step],
+                                      NamedSharding(mesh, P("data")))}}
+    p, o, met = a.step_fn(p, o, batch, jnp.int32(step))
+    out["beta0"]["losses"].append(float(met["loss"]))
+out["beta0"]["states"].append({{k: np.asarray(v) for k, v in p.items()}})
+planned = dataclasses.replace(beta0, optimizer=dataclasses.replace(
+    beta0.optimizer, bucket_bytes=4096))
+a = TS.make_train_step(cfg, planned, mesh=mesh)
+p, o = TS.materialize_state(cfg, planned, a, jax.random.PRNGKey(1), mesh)
+try:
+    a.step_fn(p, o, batch, jnp.int32(0))
+    out["beta0_plan"] = None
+except Exception as e:
+    out["beta0_plan"] = (type(e).__name__, str(e))
 with open(sys.argv[1], "wb") as f:
     pickle.dump(out, f)
 print("reference mesh ok")
@@ -474,12 +503,56 @@ def test_one_voter_ignores_fsdp_as_the_reference():
         tcfg, fsdp=False), 1))
 
 
-def test_mode_a_at_beta_zero_under_fsdp_raises():
+def _beta0(tcfg, **opt):
+    """Mode A at beta 0 (signSGD) on hierarchical, as the reference's run
+    of it."""
+    return dataclasses.replace(tcfg, optimizer=tbase.OptimizerConfig(
+        kind="signsgd_vote", momentum=0.0, learning_rate=LR,
+        vote_strategy=tbase.VoteStrategy.HIERARCHICAL, **opt))
+
+
+def test_mode_a_at_beta_zero_under_fsdp_raises(reference_mesh):
+    """Mode A at beta 0 under fsdp no longer raises: the port's stacked
+    step (M = 4) votes the fused leaves' accumulated votes a second time,
+    voter r sending its slice r, and meets the reference's mesh step on
+    data 4, teacher-forced from its state at each step: the loss within
+    rtol 1e-5, the parameters equal on all but MAX_EXCLUDED of the
+    coordinates (a vote that rounding decided, which the second vote
+    carries into every slice)."""
     _, (cfg, tcfg) = _configs()
-    beta0 = dataclasses.replace(tcfg, optimizer=tbase.OptimizerConfig(
-        kind="signsgd_vote", momentum=0.0, learning_rate=LR))
-    with pytest.raises(NotImplementedError, match="Queue 3"):
-        tTS.make_train_step(cfg, beta0, M4, device="cpu")
+    beta0 = _beta0(tcfg)
+    art = tTS.make_train_step(cfg, beta0, M4, device="cpu")
+    assert art.fused_leaves == tuple(reference_mesh["fused"])
+    ref = reference_mesh["beta0"]
+    for step in range(STEPS):
+        params = tM.params_from_numpy(ref["states"][step], device="cpu")
+        params, _, met = art.step_fn(params, {"count": step}, {
+            "tokens": reference_mesh["batches"][step]}, step)
+        np.testing.assert_allclose(float(met["loss"]), ref["losses"][step],
+                                   rtol=1e-5)
+        differ = total = 0
+        for k, want in ref["states"][step + 1].items():
+            differ += int((params[k].numpy() != want).sum())
+            total += want.size
+        assert differ <= MAX_EXCLUDED * total, (step, differ, total)
+
+
+def test_mode_a_at_beta_zero_under_a_plan_raises_as_the_reference(
+        reference_mesh):
+    """Under a plan (built on the whole parameters' shapes) the
+    reference's step raises at the first fused leaf's slice; the port's
+    step raises the same error with the same message."""
+    name, msg = reference_mesh["beta0_plan"]
+    assert name == "ValueError"
+    _, (cfg, tcfg) = _configs()
+    planned = _beta0(tcfg, bucket_bytes=4096)
+    art = tTS.make_train_step(cfg, planned, M4, device="cpu")
+    params, state = tTS.materialize_state(cfg, planned, art,
+                                          torch.Generator().manual_seed(0))
+    with pytest.raises(ValueError) as got:
+        art.step_fn(params, state, {
+            "tokens": reference_mesh["batches"][0]}, 0)
+    assert str(got.value) == msg
 
 
 @pytest.mark.parametrize("mode", ["random", "colluding", "blind"])

@@ -39,6 +39,8 @@ In this process, against the reference:
   (both abstain on a zero input), and on the 1-bit wire, which votes +1
   where the reference's M = 1 vote is 0 (ROADMAP.md Queue 3), equal to the
   reference's minus the fraction of exactly-zero vote inputs;
+* the stacked trainer's agreement at M = 4 against voter 0's own signs
+  and the vote it applied, computed by hand;
 * the backends' refusals and their reasons.
 """
 import ast
@@ -398,6 +400,38 @@ def test_m1_trainer_diagnostics_match_reference(codec):
         assert abs(tmet["vote_agreement"] - want) <= 2e-7
     else:
         assert _ulps(tmet["vote_agreement"], want) <= 1
+
+
+def test_stacked_trainer_agreement_is_voter_zeros_own_signs():
+    """At M = 4 stacked (int8 counts) with an honest voter 0, the
+    agreement compares voter 0's own signs with the vote, not the tally
+    its signs start: the fraction of coordinates where the sign of voter
+    0's gradient is the applied vote (signSGD on the 1-bit wire, no weight
+    decay, so the vote is the sign of each parameter's step)."""
+    from repro_torch.core import sign_compress as sc
+    cfg = dataclasses.replace(
+        tbase.reduced_config(tbase.get_config("glm4-9b")), dtype="float32")
+    tcfg = tbase.TrainConfig(
+        global_batch=GB, seq_len=SEQ, diagnostics=True,
+        optimizer=tbase.OptimizerConfig(
+            kind="signsgd_vote", momentum=0.0, learning_rate=1e-3,
+            weight_decay=0.0,
+            vote_strategy=tbase.VoteStrategy.ALLGATHER_1BIT))
+    art = tTS.make_train_step(cfg, tcfg, 4, device="cpu")
+    params, state = tTS.materialize_state(cfg, tcfg, art,
+                                          torch.Generator().manual_seed(0))
+    start = {k: v.clone() for k, v in params.items()}
+    tokens = torch.as_tensor(SyntheticLMPipeline(cfg, GB, SEQ, seed=0)
+                             .global_batch_at(0)["tokens"])
+    own, _ = tTS.voter_grads(cfg, tcfg, start, tokens[:GB // 4])
+    params, _, met = art.step_fn(params, state, {"tokens": tokens}, 0)
+    agree = total = 0
+    for k, p in start.items():
+        vote = torch.sign(p - params[k])
+        assert bool((vote != 0).all()), k
+        agree += int((sc.sign_ternary(own[k]).float() == vote).sum())
+        total += vote.numel()
+    assert abs(met["vote_agreement"] - agree / total) <= 1e-6
 
 
 # ---------------------------------------------------------------------------

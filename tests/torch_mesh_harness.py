@@ -34,9 +34,11 @@ e. fsdp (run alone, by ``tests/test_torch_fsdp.py``: ``... <scratch>
    identity; and ``make_train_step(..., mesh=...)`` with ``fsdp=True`` on
    4 ranks, 2 steps of each configuration (Mode B on data 4 and pod 2 x
    data 2 with a sign_flip / random adversary, remat "dots", a plan and
-   diagnostics), each rank's losses and its slices of the parameters and
-   the momentum bit-equal to the port's stacked step (computed on the
-   other 4 ranks); the dense sgd within its mean's rounding bound.
+   diagnostics; Mode A at beta 0 with a random adversary, and with
+   ef_sign, delayed_vote and diagnostics), each rank's losses and its
+   slices of the parameters and the momentum (its residual) bit-equal to
+   the port's stacked step (computed on the other 4 ranks); the dense sgd
+   within its mean's rounding bound.
 
 Rank 0 writes what the mesh gave, with the inputs it was given, to
 ``<scratch dir>/mesh_record.pkl`` (numpy and plain Python only), so that
@@ -768,6 +770,15 @@ def _fsdp_cfgs():
         ("mode_b_plan_diag", "data4", opt(bucket_bytes=4096),
          {"diagnostics": True}),
         ("signsgd_beta0", "data4", opt(momentum=0.0), {}),
+        # Mode A at beta 0: the fused leaves' votes voted again, each
+        # rank's slice against the others'
+        ("mode_a_beta0_random", "data4", opt(
+            momentum_mode=base.MomentumMode.PER_WORKER, momentum=0.0),
+         {"byzantine": rand}),
+        ("mode_a_beta0_ef_delayed_diag", "data4", opt(
+            momentum_mode=base.MomentumMode.PER_WORKER, momentum=0.0,
+            codec="ef_sign", delayed_vote=True,
+            vote_strategy=S.ALLGATHER_1BIT), {"diagnostics": True}),
     ]
 
 
@@ -803,11 +814,14 @@ def check_fsdp_trainer(rank):
                 cfg, tcfg, art, torch.Generator().manual_seed(0))
             params, state, mets = _run_steps(art, cfg, tcfg, params, state)
             data = 2 if mname == "pod2x2" else 4
-            # each mesh rank's slices: data index = rank % data
+            # each mesh rank's slices: data index = rank % data; voter v's
+            # residual row (a fused leaf's already v's slice)
             mine[label] = {"metrics": mets, "digests": [_state_digest(
                 _slices(params, art.fused_dims, v % data, data),
                 {"momentum": _slices(state.get("momentum", {}),
-                                     art.fused_dims, v % data, data)},
+                                     art.fused_dims, v % data, data),
+                 "error": {k: e[v] for k, e in state.get(
+                     "error", {}).items()}},
                 None) for v in range(4)]}
     else:
         for label, mname, opt, extra in cfgs:
@@ -818,7 +832,8 @@ def check_fsdp_trainer(rank):
                 cfg, tcfg, art, torch.Generator().manual_seed(0))
             params, state, mets = _run_steps(art, cfg, tcfg, params, state)
             mine[label] = {"metrics": mets, "digest": _state_digest(
-                params, {"momentum": state.get("momentum", {})}, None)}
+                params, {"momentum": state.get("momentum", {}),
+                         "error": state.get("error", {})}, None)}
     every = [None] * WORLD
     dist.all_gather_object(every, mine)
     if rank < 4:
