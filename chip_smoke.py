@@ -109,9 +109,9 @@ Phases, each of which fails the run (non-zero exit) on any disagreement:
    ``configs/presets.py``: bf16 per-worker momentum on psum_int8 (the
    trainer's 2-bit count wire), 8 microbatches a voter, remat="full", lr
    1e-4, beta 0.9, at every published width, depth cut 40 -> 2 as in phase
-   3. Its cell is seq 512 and global batch 32: train_4k's seq 4096 waits
-   for query chunking at S > 1024 (ROADMAP.md Queue 1 item 11) and its
-   batch of 256 is cut for time. Five steps from fresh state: finite
+   3. Its cell is seq 512 and global batch 32: train_4k's seq 4096 and
+   batch of 256 are cut for time (phase 16 runs five other presets at seq
+   4096). Five steps from fresh state: finite
    losses, each step's launches exactly momentum_sign_pack (the bf16-m
    instantiation, no words) and ternary_pack M times per leaf,
    ternary_majority and apply_ternary_vote once; step 0 of
@@ -268,8 +268,26 @@ Phases, each of which fails the run (non-zero exit) on any disagreement:
    and resumed to step 4, its losses from step 2 on equal to an
    uninterrupted run's.
 
-Phase 13's, 14's and 15's launches (phases 14's and 15b's summed over
-their ranks) join the kernels line.
+16. the decoder-only model zoo (after phase 15; ``scripts/zoo_probe.py``
+   runs it alone): gemma3's attention at full width (16 / 8 heads of 256)
+   and seq 4096, the chunked path (q_chunk 1024) against the unchunked
+   product, a local (window 1024) and a global layer, output and
+   gradients within ATTN_ULPS bf16 ulps, each path's peak; then the
+   presets (``default_train_config(arch, train_4k)``) of gemma3-12b (6
+   layers: one 5:1 local / global period), pixtral-12b (2, the patch
+   prefix a quarter of the sequence), qwen2-moe-a2.7b (2), qwen3-moe-235b-
+   a22b (1, fsdp) and deepseek-67b (2, fsdp) at every published width, seq
+   4096, M = 4 stacked, batch cut to one row a voter a microbatch (32; 16
+   for qwen3-moe's 4 microbatches), tokens drawn on the card from a seed:
+   step 0 with every launch held against its plain version and one leaf's
+   step-0 vote (an expert leaf for the MoE archs) against its plain
+   recomputation, step 0 again from the same state with losses, every
+   tally output, parameters and momenta bit-equal, then step 1; exact
+   launches, finite ce and aux, s/step, peak memory, and qwen2-moe's next
+   step under torch.profiler.
+
+Phase 13's, 14's, 15's and 16's launches (phases 14's and 15b's summed
+over their ranks) join the kernels line.
 
 Phase 7 also times ternary_majority with ties +1 (its own row),
 ternary_unpack to bf16 and bitpack of the bf16 stack (its own row, whose
@@ -1497,12 +1515,17 @@ def preset_launches(n_leaves: int) -> dict:
             "ternary_majority": n_leaves, "apply_ternary_vote": n_leaves}
 
 
-def preset_leaf_grads(torch, M, cfg, tcfg, params, tokens, leaf):
+def batch_rows(batch: dict, start: int, rows: int) -> dict:
+    """Rows [start, start + rows) of every tensor of a batch."""
+    return {k: v[start:start + rows] for k, v in batch.items()}
+
+
+def preset_leaf_grads(torch, M, cfg, tcfg, params, batch, leaf):
     """Each voter's accumulated gradient of `leaf`, by plain autograd per
-    microbatch (each block checkpointed as the preset has it), summed in a
-    bf16 accumulator from zeros and divided by the microbatch count, as the
-    reference's acc_body scan does."""
-    per = tokens.shape[0] // M_MAIN
+    microbatch of `batch` (each block checkpointed as the preset has it),
+    summed in a bf16 accumulator from zeros and divided by the microbatch
+    count, as the reference's acc_body scan does."""
+    per = batch["tokens"].shape[0] // M_MAIN
     micro = tcfg.microbatches
     rows = per // micro
     out = []
@@ -1512,8 +1535,7 @@ def preset_leaf_grads(torch, M, cfg, tcfg, params, tokens, leaf):
             leaves = dict(params)
             leaves[leaf] = params[leaf].detach().requires_grad_()
             start = r * per + i * rows
-            loss, _ = M.loss_fn(cfg, leaves,
-                                {"tokens": tokens[start:start + rows]},
+            loss, _ = M.loss_fn(cfg, leaves, batch_rows(batch, start, rows),
                                 remat=tcfg.remat)
             acc.add_(torch.autograd.grad(loss, [leaves[leaf]])[0].to(
                 torch.bfloat16))
@@ -1573,8 +1595,8 @@ def run_preset_path(torch, cfg, dev) -> dict:
                                  device=dev)
         if step == 0:   # saved copies for the bit-exact check of step 0
             p0 = params[PRESET_LEAF].clone()
-            g0 = preset_leaf_grads(torch, M, cfg, tcfg, params, tokens,
-                                   PRESET_LEAF)
+            g0 = preset_leaf_grads(torch, M, cfg, tcfg, params,
+                                   {"tokens": tokens}, PRESET_LEAF)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         params, opt_state, met = art.step_fn(params, opt_state,
@@ -2244,8 +2266,8 @@ def run_mode_b_path(torch, dev) -> dict:
             if not check:
                 return None
             return (params[MODE_B_LEAF].clone(),
-                    preset_leaf_grads(torch, M, cfg, tcfg, params, tokens,
-                                      MODE_B_LEAF))
+                    preset_leaf_grads(torch, M, cfg, tcfg, params,
+                                      {"tokens": tokens}, MODE_B_LEAF))
         launches, losses, step_ms, saved = run_steps(
             torch, label, art, params, opt_state, pipe, steps, want,
             MODE_B_LEAF, save)
@@ -3920,12 +3942,13 @@ def fsdp_launches(kind: str, raw: int, fused: int, voters: int,
     return want
 
 
-def fsdp_leaf_vote(torch, M, sc, cfg, tcfg, params, tokens, leaf):
+def fsdp_leaf_vote(torch, M, sc, cfg, tcfg, params, batch, leaf):
     """Step 0's accumulated fused vote of `leaf`, by plain PyTorch: per
-    microbatch each voter's gradient by autograd (blocks checkpointed as
-    the preset has them), the sum of their int8 signs and its sign, added
-    in bf16 over the microbatches and divided by their count."""
-    per = tokens.shape[0] // M_MAIN
+    microbatch of `batch` each voter's gradient by autograd (blocks
+    checkpointed as the preset has them), the sum of their int8 signs and
+    its sign, added in bf16 over the microbatches and divided by their
+    count."""
+    per = batch["tokens"].shape[0] // M_MAIN
     micro = tcfg.microbatches
     rows = per // micro
     acc = torch.zeros_like(params[leaf], dtype=torch.bfloat16)
@@ -3935,8 +3958,7 @@ def fsdp_leaf_vote(torch, M, sc, cfg, tcfg, params, tokens, leaf):
             leaves = dict(params)
             leaves[leaf] = params[leaf].detach().requires_grad_()
             start = r * per + i * rows
-            loss, _ = M.loss_fn(cfg, leaves,
-                                {"tokens": tokens[start:start + rows]},
+            loss, _ = M.loss_fn(cfg, leaves, batch_rows(batch, start, rows),
                                 remat=tcfg.remat)
             g = torch.autograd.grad(loss, [leaves[leaf]])[0]
             count.add_(sc.sign_ternary(g))
@@ -4050,9 +4072,9 @@ def run_fsdp_stacked(torch, dev, err, cfg=None) -> dict:
         check = label == "mode_b_nested"
         if check:
             p0 = params[FSDP_LEAF].clone()
-            vote0 = fsdp_leaf_vote(torch, M, sc, cfg, tcfg, params,
-                                   torch.as_tensor(pipe.global_batch_at(0)[
-                                       "tokens"], device=dev), FSDP_LEAF)
+            vote0 = fsdp_leaf_vote(torch, M, sc, cfg, tcfg, params, {
+                "tokens": torch.as_tensor(pipe.global_batch_at(0)["tokens"],
+                                          device=dev)}, FSDP_LEAF)
         launches, losses, step_ms, after0 = fsdp_step_loop(
             torch, label, art, params, state, pipe, steps, want, err,
             check_step0=check)
@@ -4627,6 +4649,364 @@ def run_fsdp_path(torch, dev, errs) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 16: the decoder-only model zoo's presets at seq 4096
+# ---------------------------------------------------------------------------
+
+#: phase 16's archs: (arch, depth, the leaf whose step-0 vote is recomputed
+#: by plain PyTorch). Every published width, seq 4096; depth cut by memory
+#: (gemma3 keeps one whole 5:1 local / global period)
+ZOO = (("gemma3-12b", 6, "layers.attn_wq"),
+       ("pixtral-12b", 2, "layers.attn_wq"),
+       ("qwen2-moe-a2.7b", 2, "layers.experts_w_down"),
+       ("qwen3-moe-235b-a22b", 1, "layers.experts_w_gate"),
+       ("deepseek-67b", 2, "layers.attn_wq"))
+#: steps 0..ZOO_STEPS-1, step 0 run twice: three steps of compute an arch
+#: (cut from 4 so that the phase stays under about 4 minutes)
+ZOO_SEQ, ZOO_STEPS = 4096, 2
+#: the arch whose step 3 runs under torch.profiler
+ZOO_PROFILED = "qwen2-moe-a2.7b"
+#: chunked against unchunked attention at gemma3's full width: bf16 q, k,
+#: v of (1, ZOO_SEQ, 16 / 8 heads, 256); output and gradients within this
+#: many bf16 ulps (2^-8 relative) of the largest magnitude (the chunked dk
+#: and dv are bf16 sums of the 4 chunks' parts, one rounding per add)
+ATTN_ULPS = 4
+
+
+def zoo_config(torch, arch: str, depth: int):
+    """`arch` at every published width, `depth` layers, and its preset at
+    train_4k (seq 4096) with the batch cut to one row a voter a
+    microbatch."""
+    from repro_torch.configs.base import ShapeCell, get_config
+    from repro_torch.configs.presets import (MODE_B_ARCHS,
+                                             default_train_config)
+    cfg = dataclasses.replace(get_config(arch), num_layers=depth)
+    preset = default_train_config(arch, ShapeCell("train_4k", ZOO_SEQ, 256,
+                                                  "train"))
+    tcfg = dataclasses.replace(
+        preset, global_batch=M_MAIN * preset.microbatches)
+    opt = tcfg.optimizer
+    want = (("signsgd_vote", "hierarchical", "nested", True)
+            if arch in MODE_B_ARCHS else
+            ("signum_vote", "psum_int8", "full", False))
+    got = (opt.kind, opt.vote_strategy.value, tcfg.remat, tcfg.fsdp)
+    if got != want or tcfg.seq_len != ZOO_SEQ:
+        raise AssertionError(f"{arch}: not the reference's preset: {tcfg}")
+    return cfg, tcfg
+
+
+def zoo_batch(torch, cfg, tcfg, step: int, dev) -> dict:
+    """A seeded batch of `step`: tokens and, for the VLM, the image
+    prefix's patch embeddings (a quarter of the sequence), made on the
+    card (the numpy pipeline draws one token at a time)."""
+    from repro_torch.configs.base import ArchFamily
+    from repro_torch.models import model as M
+    gen = torch.Generator(device=dev).manual_seed(1000 + step)
+    rows, seq = tcfg.global_batch, tcfg.seq_len
+    out = {}
+    if cfg.family == ArchFamily.VLM:
+        s_img, seq = M._vlm_split(seq)
+        out["patch_embeds"] = torch.randn((rows, s_img, cfg.d_model),
+                                          generator=gen, device=dev)
+    out["tokens"] = torch.randint(0, cfg.vocab_size, (rows, seq),
+                                  generator=gen, device=dev)
+    return out
+
+
+@contextlib.contextmanager
+def recorded_tallies(torch, ops, sink: list, keep: int = -1):
+    """Within the block every ``ops.ternary_majority`` output's checksum is
+    appended to `sink` (call order: the optimizer's leaf order), and the
+    output of call number `keep` itself."""
+    orig = ops.ternary_majority
+
+    def tally(packed, *, ties="zero", out=None):
+        got = orig(packed, ties=ties, out=out)
+        if len(sink) == keep:
+            sink.append(got.clone())
+        else:
+            sink.append(device_checksum(torch, [got]))
+        return got
+    ops.ternary_majority = tally
+    try:
+        yield
+    finally:
+        ops.ternary_majority = orig
+
+
+def zoo_step0_check(torch, M, cfg, tcfg, art, params, batch, leaf):
+    """The plain recomputation of `leaf`'s step 0, made before the step:
+    Mode A, each voter's accumulated gradient; Mode B with fsdp, the fused
+    leaf's accumulated vote. Returns (a copy of the leaf, the
+    recomputation)."""
+    from repro_torch.core import sign_compress as sc
+    p0 = params[leaf].clone()
+    if leaf in art.fused_dims:
+        return p0, fsdp_leaf_vote(torch, M, sc, cfg, tcfg, params, batch,
+                                  leaf)
+    if art.fused_dims:
+        raise AssertionError(f"{leaf} is not a fused leaf")
+    return p0, preset_leaf_grads(torch, M, cfg, tcfg, params, batch, leaf)
+
+
+def zoo_step0_verify(torch, ref, signum, tcfg, art, leaf, saved, params,
+                     state, vote) -> dict:
+    """`leaf` after step 0 against the plain versions run on the plain
+    recomputation: Mode A, each voter's bf16 momentum row, the count
+    wire's vote (`vote`, the step's own tally output of the leaf) and the
+    parameters; Mode B, the float32 momentum taking the fused vote and the
+    parameters."""
+    opt = tcfg.optimizer
+    eta = signum.lr_at(opt, 0)
+    p0, plain = saved
+    if leaf in art.fused_dims:
+        u0 = torch.zeros((1, p0.numel()), dtype=torch.float32,
+                         device=p0.device)
+        u_ref, _ = ref.momentum_sign_pack(plain.view(1, -1), u0,
+                                          opt.momentum)
+        require_equal(f"zoo {leaf} step 0 momentum",
+                      state["momentum"][leaf].view(1, -1).view(torch.int32),
+                      u_ref.view(torch.int32))
+        p_ref = ref.apply_ternary_vote(p0.view(1, -1), ref.ternary_pack(
+            u_ref), eta, opt.weight_decay)
+        require_equal(f"zoo {leaf} step 0 parameters",
+                      params[leaf].view(1, -1), p_ref)
+        return {"leaf": leaf, "coords": p0.numel(), "fused": True,
+                "vote_values": sorted(float(v) for v in torch.unique(
+                    plain).tolist())[:17]}
+    mom = state["momentum"][leaf].view(M_MAIN, -1)
+    words = []
+    for r in range(M_MAIN):
+        g = plain[r].reshape(1, -1)
+        m_ref, _ = ref.momentum_sign_pack(g, torch.zeros_like(g),
+                                          opt.momentum)
+        require_equal(f"zoo {leaf} step 0 momentum of voter {r}",
+                      mom[r].view(1, -1).view(torch.int16),
+                      m_ref.view(torch.int16))
+        words.append(ref.ternary_pack(m_ref)[0])
+    vote_ref = ref.ternary_majority(torch.stack(words))
+    require_equal(f"zoo {leaf} step 0 vote", vote, vote_ref)
+    p_ref = ref.apply_ternary_vote(p0.view(1, -1), vote_ref[None], eta,
+                                   opt.weight_decay)
+    require_equal(f"zoo {leaf} step 0 parameters", params[leaf].view(1, -1),
+                  p_ref)
+    return {"leaf": leaf, "coords": p0.numel(), "fused": False,
+            "vote_words": vote.numel()}
+
+
+def run_zoo_arch(torch, dev, err, arch: str, depth: int, leaf: str,
+                 cfg=None) -> dict:
+    """One arch of phase 16: the preset's step 0 from a fresh state with
+    every launch held against its plain version and `leaf` against its
+    plain recomputation, step 0 again from the same state (losses, tally
+    outputs, parameters and momenta bit-equal), then steps 1.. ZOO_STEPS-1;
+    exact launches, s/step (the mean of the unchecked runs: step 0 again
+    and the later steps), peak memory. Returns the launches."""
+    from repro_torch.core import sign_compress as sc
+    from repro_torch.core import signum
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import model as M
+    from repro_torch.train import train_step as TS
+    t0 = time.perf_counter()
+    full, tcfg = zoo_config(torch, arch, depth)
+    cfg = cfg or full
+    reset_peak(torch, dev)
+    art = TS.make_train_step(cfg, tcfg, M_MAIN, device=dev)
+
+    def fresh():
+        return TS.materialize_state(
+            cfg, tcfg, art, torch.Generator(device=dev).manual_seed(0))
+    params, state = fresh()
+    n_leaves, fused = len(params), len(art.fused_leaves)
+    mode_b = bool(fused)
+    want = (fsdp_launches(tcfg.optimizer.kind, n_leaves - fused, fused,
+                          M_MAIN, mesh=False) if mode_b
+            else preset_launches(n_leaves))
+    log({"phase": "zoo", "arch": arch, "family": cfg.family.value,
+         "num_layers": cfg.num_layers, "d_model": cfg.d_model,
+         "vocab": cfg.vocab_size, "params": cfg.param_count(),
+         "voters": M_MAIN, "global_batch": tcfg.global_batch,
+         "seq": tcfg.seq_len, "microbatches": tcfg.microbatches,
+         "remat": tcfg.remat, "fsdp": tcfg.fsdp,
+         "kind": tcfg.optimizer.kind,
+         "momentum_dtype": tcfg.optimizer.momentum_dtype,
+         "vote_strategy": tcfg.optimizer.vote_strategy.value,
+         "fused_leaves": list(art.fused_leaves),
+         "local_layers": list(cfg.local_layer_mask()),
+         "moe": dataclasses.asdict(cfg.moe) if cfg.moe.enabled else None,
+         "launches_per_step": want})
+    batches = [zoo_batch(torch, cfg, tcfg, s, dev) for s in range(ZOO_STEPS)]
+    saved = zoo_step0_check(torch, M, cfg, tcfg, art, params, batches[0],
+                            leaf)
+    # the check leaf's tally call: the optimizer tallies the unfused leaves
+    # in the parameters' order
+    keep = -1 if mode_b else list(params).index(leaf)
+    total, runs, step_ms = {}, [], []
+    for label in ("step0_checked", "step0_again"):
+        if label == "step0_again":
+            del params, state
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+            params, state = fresh()
+        tallies, held = [], {}
+        ops.reset_launch_counts()
+        sync(torch, dev)
+        t1 = time.perf_counter()
+        with contextlib.ExitStack() as stack:
+            if label == "step0_checked":
+                stack.enter_context(plain_checked(
+                    torch, ops, ref, sc, err, f"zoo {arch} step 0",
+                    MESH_CHECKED, held))
+            stack.enter_context(recorded_tallies(torch, ops, tallies, keep))
+            params, state, met = art.step_fn(params, state, batches[0], 0)
+        sync(torch, dev)
+        ms = (time.perf_counter() - t1) * 1e3
+        launches = {k: v for k, v in ops.launch_counts().items() if v}
+        mets = {k: float(v) for k, v in met.items()}
+        if (launches or dev.type == "cuda") and launches != want:
+            raise AssertionError(f"zoo {arch} {label}: launches {launches}, "
+                                 f"expected {want}")
+        if label == "step0_checked" and dev.type == "cuda" and \
+                held != launches:
+            raise AssertionError(f"zoo {arch}: held {held} of the launches "
+                                 f"{launches} against their plain versions")
+        if not all(math.isfinite(v) for v in mets.values()):
+            raise AssertionError(f"zoo {arch} {label}: metrics {mets}")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        if label == "step0_again":
+            step_ms.append(ms)
+        line = {"run": label, "arch": arch, "step": 0, "metrics": mets,
+                "ms": ms, "launches": launches, "held_vs_plain": held}
+        vote = None
+        if keep >= 0:
+            vote = tallies[keep]
+            tallies[keep] = device_checksum(torch, [vote])
+        runs.append({"metrics": mets, "tallies": tallies,
+                     "params": device_checksum(torch, params.values()),
+                     "momentum": device_checksum(
+                         torch, state["momentum"].values())})
+        if label == "step0_checked":
+            line["step0_vote"] = zoo_step0_verify(
+                torch, ref, signum, tcfg, art, leaf, saved, params, state,
+                vote)
+            del saved, vote
+        log(line)
+    if runs[0] != runs[1]:
+        raise AssertionError(f"zoo {arch}: step 0 twice from one state "
+                             f"differs: {runs[0]} != {runs[1]}")
+    log({"phase": "zoo_deterministic", "arch": arch, "step": 0,
+         "metrics": runs[0]["metrics"], "tallies": len(runs[0]["tallies"]),
+         "bit_equal": ["metrics", "tallies", "params", "momentum"]})
+    losses = [runs[0]["metrics"]]
+    for step in range(1, ZOO_STEPS):
+        ops.reset_launch_counts()
+        sync(torch, dev)
+        t1 = time.perf_counter()
+        params, state, met = art.step_fn(params, state, batches[step], step)
+        sync(torch, dev)
+        ms = (time.perf_counter() - t1) * 1e3
+        launches = {k: v for k, v in ops.launch_counts().items() if v}
+        mets = {k: float(v) for k, v in met.items()}
+        log({"run": "zoo", "arch": arch, "step": step, "metrics": mets,
+             "ms": ms, "launches": launches})
+        if (launches or dev.type == "cuda") and launches != want:
+            raise AssertionError(f"zoo {arch} step {step}: launches "
+                                 f"{launches}, expected {want}")
+        if not all(math.isfinite(v) for v in mets.values()):
+            raise AssertionError(f"zoo {arch} step {step}: {mets}")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        losses.append(mets)
+        step_ms.append(ms)
+    peak = peak_bytes(torch, dev)
+    log({"phase": "zoo_done", "arch": arch, "metrics": losses,
+         "step_ms": step_ms, "s_per_step": statistics.mean(step_ms) / 1e3,
+         "max_memory_allocated_bytes": peak,
+         "seconds": time.perf_counter() - t0})
+    if arch == ZOO_PROFILED and dev.type == "cuda":
+        class Batches:
+            @staticmethod
+            def global_batch_at(step):
+                return zoo_batch(torch, cfg, tcfg, step, dev)
+        profile_step(torch, art, params, state, Batches, dev,
+                     cfg.param_count(), statistics.median(step_ms), "preset")
+    del params, state, art, batches
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return total
+
+
+def check_zoo_attention(torch, dev) -> None:
+    """gemma3's attention at full width and S = ZOO_SEQ, a local (window
+    1024) and a global layer: the chunked path (q_chunk 1024) against the
+    unchunked plain product on the same bf16 q, k, v, output and
+    gradients within ATTN_ULPS bf16 ulps of each one's largest magnitude,
+    each path's peak memory above the inputs beside it."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    cfg = get_config("gemma3-12b")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    B, S, hd = 1, ZOO_SEQ, cfg.resolved_head_dim
+    shapes = ((B, S, cfg.num_heads, hd), (B, S, cfg.num_kv_heads, hd),
+              (B, S, cfg.num_kv_heads, hd))
+    qkv = [torch.randn(s, generator=gen, device=dev).to(torch.bfloat16)
+           for s in shapes]
+    cot = torch.randn(shapes[0], generator=gen, device=dev).to(
+        torch.bfloat16)
+    out = {}
+    for is_local in (True, False):
+        window = T._window_for(cfg, is_local, S)
+        res = {}
+        for label, q_chunk in (("chunked", L.Q_CHUNK), ("unchunked", S)):
+            xs = [t.detach().requires_grad_() for t in qkv]
+            reset_peak(torch, dev)
+            base = (torch.cuda.memory_allocated() if dev.type == "cuda"
+                    else 0)
+            o = L.attention(*xs, window=window, q_chunk=q_chunk)
+            grads = torch.autograd.grad(o, xs, cot)
+            sync(torch, dev)
+            peak = peak_bytes(torch, dev)
+            res[label] = ([o.detach()] + list(grads),
+                          None if peak is None else peak - base)
+        diffs = {}
+        for name, a, b in zip(("out", "dq", "dk", "dv"), res["chunked"][0],
+                              res["unchunked"][0]):
+            diff = float((a.float() - b.float()).abs().max())
+            tol = ATTN_ULPS * 2.0 ** -8 * float(b.float().abs().max())
+            if not diff <= tol:
+                raise AssertionError(f"chunked attention {name} "
+                                     f"(window {window}): {diff} > {tol}")
+            diffs[name] = {"max_abs_diff": diff, "tolerance": tol}
+        out["local" if is_local else "global"] = {
+            "window": window, "diffs": diffs,
+            "peak_bytes_chunked": res["chunked"][1],
+            "peak_bytes_unchunked": res["unchunked"][1]}
+        del res
+    log({"phase": "zoo_attention", "arch": "gemma3-12b", "seq": S,
+         "heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads,
+         "head_dim": hd, "q_chunk": L.Q_CHUNK, **out})
+
+
+def run_zoo_path(torch, dev, err) -> dict:
+    """Phase 16: the chunked attention check, then each ZOO arch's preset
+    (``run_zoo_arch``). Returns the launches, Mode A's bf16-momentum
+    momentum_sign_pack as ``momentum_sign_pack_bf16m``."""
+    t0 = time.perf_counter()
+    check_zoo_attention(torch, dev)
+    launches = {}
+    for arch, depth, leaf in ZOO:
+        got = run_zoo_arch(torch, dev, err, arch, depth, leaf)
+        if "ternary_majority" in got:   # Mode A: bf16 momentum
+            got["momentum_sign_pack_bf16m"] = got.pop("momentum_sign_pack")
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+    log({"phase": "zoo_path_done", "launches": launches,
+         "seconds": time.perf_counter() - t0})
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # phase 7: timing at the unembedding shape
 # ---------------------------------------------------------------------------
 
@@ -5019,6 +5399,8 @@ def main() -> int:
         launches[k] += v
     for k, v in run_fsdp_path(torch, dev, errs).items():
         launches[k] += v
+    for k, v in run_zoo_path(torch, dev, errs).items():
+        launches[k] += v
     # ef_sign's encode packs its float32 t; every other bitpack of the main
     # path packs int8 signs (staged votes, plan buckets, weighted_vote's vote)
     launches["bitpack_i8"] = launches["bitpack"] - ef_sign_packs
@@ -5031,6 +5413,8 @@ def main() -> int:
     if never:
         raise AssertionError(f"the main path never launched {never}")
     log({"phase": "done", "seconds": time.perf_counter() - t_start})
+    # again beside the results: a long run's output may be read from its end
+    log(smi_line())
     log({"kernels": rows})
     log({"ok": True, "device": device_line(torch)})
     return 0

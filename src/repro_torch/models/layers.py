@@ -1,5 +1,6 @@
 """Shared layers: RMSNorm, RoPE, GQA attention, SwiGLU MLP, embedding and
-cross-entropy (``repro.models.layers``; causal, no-window, no-cache path).
+cross-entropy (``repro.models.layers``; the causal training path: query
+chunking and the sliding window, no cache).
 
 Plain functions on tensors; parameters arrive as slices of the flat
 stacked-parameter dict. Compute dtype follows the inputs (bf16 by default);
@@ -13,8 +14,9 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
-Q_CHUNK = 1024  # the reference chunks queries above this length (not ported)
+Q_CHUNK = 1024  # query-chunk size for long-sequence attention
 
 
 # ---------------------------------------------------------------------------
@@ -79,31 +81,55 @@ def _scores_softmax_out(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("bkgst,btkd->bskgd", probs.to(v.dtype), v)
 
 
+def _causal_window_mask(q_pos: torch.Tensor, kv_pos: torch.Tensor,
+                        window: Optional[int]) -> torch.Tensor:
+    """(S, T) bool: causal, and with `window` a sliding window of that many
+    positions (the query's own included)."""
+    rel = q_pos[:, None] - kv_pos[None, :]
+    mask = rel >= 0
+    if window is not None:
+        mask = mask & (rel < window)
+    return mask
+
+
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               q_positions: Optional[torch.Tensor] = None,
-              kv_positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+              kv_positions: Optional[torch.Tensor] = None,
+              window: Optional[int] = None,
+              q_chunk: Optional[int] = None) -> torch.Tensor:
     """Exact causal attention with GQA grouping, written as plain products
-    (the reference's ``attention(..., causal=True)``). Bidirectional,
-    sliding-window and cached attention are not ported yet (ROADMAP.md
-    Queue 1 item 11).
+    (the reference's ``attention(..., causal=True)``), optionally in a
+    sliding `window`. For S > `q_chunk` (default ``Q_CHUNK``, read at the
+    call) with S a multiple of it the queries run in chunks, each under a
+    non-reentrant checkpoint (the reference's ``jax.checkpoint`` scan
+    body), so one chunk's (B, K, G, q_chunk, T) float32 scores live at a
+    time, in the forward and in the backward.
+    Bidirectional and cached attention wait for serving (ROADMAP.md Queue
+    1 item 12).
 
     q: (B, S, H, D); k/v: (B, T, K, D) with H = K * G. Returns (B, S, H, D).
     """
     B, S, H, D = q.shape
     T, K = k.shape[1], k.shape[2]
-    if S > Q_CHUNK and S % Q_CHUNK == 0:
-        raise NotImplementedError(
-            f"query chunking (S={S} > {Q_CHUNK}, S % {Q_CHUNK} == 0) is not "
-            "ported yet (ROADMAP.md Queue 1 item 11)")
     G = H // K
+    scale = D ** -0.5
+    q_chunk = Q_CHUNK if q_chunk is None else q_chunk
+    qg = q.reshape(B, S, K, G, D)
     if q_positions is None:
         q_positions = torch.arange(S, device=q.device)
     if kv_positions is None:
         kv_positions = torch.arange(T, device=q.device)
-    mask = (q_positions[:, None] - kv_positions[None, :]) >= 0    # (S, T)
-    out = _scores_softmax_out(q.reshape(B, S, K, G, D), k, v, mask,
-                              D ** -0.5)
-    return out.reshape(B, S, H, D)
+
+    def chunk(q_i: torch.Tensor, qpos_i: torch.Tensor) -> torch.Tensor:
+        mask = _causal_window_mask(qpos_i, kv_positions, window)
+        return _scores_softmax_out(q_i, k, v, mask, scale)
+
+    if S <= max(q_chunk, 1) or S % q_chunk != 0:
+        return chunk(qg, q_positions).reshape(B, S, H, D)
+    outs = [checkpoint(chunk, qg[:, i:i + q_chunk],
+                       q_positions[i:i + q_chunk], use_reentrant=False)
+            for i in range(0, S, q_chunk)]
+    return torch.cat(outs, dim=1).reshape(B, S, H, D)
 
 
 # ---------------------------------------------------------------------------
@@ -130,10 +156,11 @@ def attn_project_qkv(p: dict, prefix: str, x: torch.Tensor, num_heads: int,
 
 def self_attention_block(
     p: dict, prefix: str, x: torch.Tensor, cfg, *,
+    window: Optional[int] = None,
     positions: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
-    """Causal self-attention sublayer with RoPE (no residual).
-    Returns (out, (k, v))."""
+    """Causal self-attention sublayer with RoPE (no residual), in a sliding
+    `window` when one is given. Returns (out, (k, v))."""
     B, S, _ = x.shape
     H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     q, k, v = attn_project_qkv(p, prefix, x, H, K, hd, bias=cfg.qkv_bias)
@@ -143,7 +170,8 @@ def self_attention_block(
         cos, sin = rope_cos_sin(positions, hd, cfg.rope_theta)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
-    out = attention(q, k, v, q_positions=positions, kv_positions=positions)
+    out = attention(q, k, v, q_positions=positions, kv_positions=positions,
+                    window=window)
     out = out.reshape(B, S, H * hd) @ p[f"{prefix}_wo"]
     return out, (k, v)
 

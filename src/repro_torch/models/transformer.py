@@ -1,4 +1,5 @@
-"""Decoder-only transformer stack, dense family (``repro.models.transformer``).
+"""Decoder-only transformer stack, dense and MoE blocks
+(``repro.models.transformer``; the training path, no prefill or decode).
 
 Layers stay stacked (leading ``L`` axis) as in the JAX package; the stack
 is a Python loop over depth over views of each layer's weights in the
@@ -26,6 +27,7 @@ from torch.utils.checkpoint import (checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.models import layers as L
+from repro_torch.models.moe import moe_ffn
 
 REMAT_MODES = ("none", "full", "nested", "dots")
 
@@ -66,21 +68,33 @@ def _layer_tree(p: Dict[str, torch.Tensor], prefix: str = "layers."
     return {k[len(prefix):]: v for k, v in p.items() if k.startswith(prefix)}
 
 
+def _window_for(cfg, is_local: bool, seq_len: int) -> Optional[int]:
+    """The attention window of a layer (the reference's ``_window_for``):
+    None without a sliding window; else ``sliding_window`` for a local
+    layer and ``seq_len + 1`` (the whole causal context) for a global one."""
+    if not cfg.sliding_window:
+        return None
+    return cfg.sliding_window if is_local else seq_len + 1
+
+
 def decoder_block(lp: Dict[str, torch.Tensor], h: torch.Tensor, cfg, *,
+                  window: Optional[int] = None,
                   positions: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One pre-norm block. Returns (h, aux_loss)."""
-    if cfg.moe.enabled:
-        raise NotImplementedError(
-            "MoE blocks arrive with the rest of the model zoo (ROADMAP.md "
-            "Queue 1 item 11)")
+    """One pre-norm block, its FFN a SwiGLU MLP or the MoE block. Returns
+    (h, aux_loss). The reference's ``residual_shard`` (``act_seq_shard``)
+    is an identity on one device."""
     attn_in = L.rms_norm(h, lp["norm1_scale"], cfg.norm_eps)
     attn_out, _ = L.self_attention_block(lp, "attn", attn_in, cfg,
-                                         positions=positions)
+                                         window=window, positions=positions)
     h = h + attn_out
     ffn_in = L.rms_norm(h, lp["norm2_scale"], cfg.norm_eps)
-    h = h + L.swiglu_mlp(lp, "mlp", ffn_in)
-    return h, torch.zeros((), dtype=torch.float32, device=h.device)
+    if cfg.moe.enabled:
+        ffn_out, aux = moe_ffn(lp, ffn_in, cfg.moe)
+    else:
+        ffn_out = L.swiglu_mlp(lp, "mlp", ffn_in)
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    return h + ffn_out, aux
 
 
 def decoder_stack(p: Dict[str, torch.Tensor], h: torch.Tensor, cfg,
@@ -89,15 +103,15 @@ def decoder_stack(p: Dict[str, torch.Tensor], h: torch.Tensor, cfg,
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Loop over the stacked layers, each block under `remat` (see
     :func:`maybe_remat`), `hook(layer_tree, "layers")` applied to each
-    layer's weights inside it. Returns (h, total_aux_loss)."""
-    if cfg.sliding_window:
-        raise NotImplementedError(
-            "sliding-window layers (gemma3) arrive with the rest of the "
-            "model zoo (ROADMAP.md Queue 1 item 11)")
+    layer's weights inside it, each layer's window from
+    ``cfg.local_layer_mask()`` (gemma3's local / global pattern). Returns
+    (h, the aux losses summed over the layers)."""
     # unbind, not v[i]: its backward stacks the L layer gradients in one
     # op, where indexing zero-fills a full (L, ...) gradient per layer
     lp = {k: v.unbind(0) for k, v in _layer_tree(p).items()}
     n_layers = cfg.num_layers
+    local = cfg.local_layer_mask()
+    S = h.shape[1]
     # sqrt-remat (the reference's "nested" from 4 layers): a checkpoint
     # per group of k blocks, so the backward keeps L/k group inputs
     k = _best_group(n_layers) if remat == "nested" and n_layers >= 4 else 1
@@ -108,7 +122,9 @@ def decoder_stack(p: Dict[str, torch.Tensor], h: torch.Tensor, cfg,
             layer = {n: v[i] for n, v in lp.items()}
             if hook is not None:
                 layer = hook(layer, "layers")
-            h, a = decoder_block(layer, h, cfg, positions=positions)
+            h, a = decoder_block(layer, h, cfg,
+                                 window=_window_for(cfg, local[i], S),
+                                 positions=positions)
             aux = aux + a
         return h, aux
 

@@ -10,11 +10,14 @@ with M voters stacked on one device, or one voter per process over a
     art = make_train_step(cfg, tcfg, mesh=ProcessMesh((4,), ("data",)))
 
 ``tcfg`` may be the reference's preset, ``configs.presets.default_train_
-config(arch, cell)``: for glm4-9b bf16 momentum on ``psum_int8``, 8
-microbatches and ``remat="full"``; for the Mode B archs (qwen1.5-32b)
-``signsgd_vote`` with one global float32 momentum on ``hierarchical``,
-8 microbatches, ``remat="nested"`` and ``fsdp=True`` (the fused ZeRO
-backward below). ``tcfg.optimizer.kind`` picks
+config(arch, cell)``: for glm4-9b, gemma3-12b, pixtral-12b and
+qwen2-moe-a2.7b bf16 momentum on ``psum_int8``, 8 microbatches and
+``remat="full"``; for the Mode B archs (qwen1.5-32b, deepseek-67b,
+qwen3-moe-235b-a22b) ``signsgd_vote`` with one global float32 momentum on
+``hierarchical``, 8 microbatches (qwen3-moe 4), ``remat="nested"`` and
+``fsdp=True`` (the fused ZeRO backward below). The batch's
+``patch_embeds`` (pixtral) are cut into voters' and microbatches' rows as
+its tokens are. ``tcfg.optimizer.kind`` picks
 the optimizer as the reference's ``build_optimizer`` does: the sign family
 (Mode A or B, any beta, ``core.signum.make_sign_optimizer``) or a dense
 baseline (``sgd`` / ``sgdm`` / ``adam``, ``make_dense_optimizer``).
@@ -207,10 +210,12 @@ def voter_grads(cfg: ModelConfig, tcfg: TrainConfig,
                 params: Dict[str, torch.Tensor], tokens: torch.Tensor,
                 hook=None,
                 on_fused: Optional[Callable[[int, str, torch.Tensor],
-                                            None]] = None
+                                            None]] = None,
+                patches: Optional[torch.Tensor] = None
                 ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
-    """One voter's gradients of every leaf on its rows `tokens` and its
-    metrics (``loss``, ``ce``, ``aux``): one backward pass per microbatch,
+    """One voter's gradients of every leaf on its rows `tokens` (and, for
+    the VLM, the same rows of `patches`, the batch's ``patch_embeds``) and
+    its metrics (``loss``, ``ce``, ``aux``): one backward pass per microbatch,
     accumulated as the reference does (see the module doc). Each leaf's
     gradient is taken as soon as autograd has made it (a post-accumulate-
     grad hook): with one microbatch kept as it is, with more added into
@@ -244,9 +249,10 @@ def voter_grads(cfg: ModelConfig, tcfg: TrainConfig,
 
     for i in range(micro):
         leaves = {k: p.detach().requires_grad_() for k, p in params.items()}
-        loss, met = M.loss_fn(cfg, leaves,
-                              {"tokens": tokens[i * rows:(i + 1) * rows]},
-                              hook=hook, remat=tcfg.remat)
+        mb = {"tokens": tokens[i * rows:(i + 1) * rows]}
+        if patches is not None:
+            mb["patch_embeds"] = patches[i * rows:(i + 1) * rows]
+        loss, met = M.loss_fn(cfg, leaves, mb, hook=hook, remat=tcfg.remat)
         for k, leaf in leaves.items():
             leaf.register_post_accumulate_grad_hook(folder(i, k))
         torch.autograd.backward(loss, inputs=list(leaves.values()))
@@ -407,6 +413,9 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, n_voters: int = 1,
                 "has no such observation channel (use the stacked or "
                 "streamed form)")
         tokens = torch.as_tensor(batch["tokens"], device=dev)
+        patches = batch.get("patch_embeds")
+        if patches is not None:
+            patches = torch.as_tensor(patches, device=dev)
         if tokens.shape[0] != tcfg.global_batch:
             raise ValueError(f"batch has {tokens.shape[0]} rows, expected "
                              f"global_batch={tcfg.global_batch}")
@@ -418,9 +427,11 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, n_voters: int = 1,
                   else [pm.replica_index(axes)]):
             if stacked is not None:
                 stacked.voter = r
-            grads, met = voter_grads(cfg, tcfg, params,
-                                     tokens[r * per:(r + 1) * per],
-                                     hook=hooks, on_fused=stacked)
+            grads, met = voter_grads(
+                cfg, tcfg, params, tokens[r * per:(r + 1) * per],
+                hook=hooks, on_fused=stacked,
+                patches=(None if patches is None
+                         else patches[r * per:(r + 1) * per]))
             if hooks is not None and not revote:
                 wire["voted"] = {k: grads.pop(k) for k in dims}
             opt.encode(r, grads, opt_state, wire)

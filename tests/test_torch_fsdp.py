@@ -4,9 +4,12 @@ train step, against the JAX package on the CPU.
 
 (a) Sharding. ``distributed.sharding.param_specs`` equal, leaf for leaf,
     to the reference's ``param_specs`` (a ``PartitionSpec`` read as a
-    tuple) for every leaf of glm4-9b, qwen1.5-32b and deepseek-67b at
-    their published shapes, fsdp on and off, over a data axis of 4 and of
-    3 (which divides no FSDP dim, so every "data" entry drops); the
+    tuple) for every leaf of the seven archs the port runs (glm4-9b,
+    qwen1.5-32b, deepseek-67b, gemma3-12b, pixtral-12b, qwen2-moe-a2.7b and
+    qwen3-moe-235b-a22b, whose expert leaves are 4-D) at their published
+    shapes, fsdp on and off, over a data axis of 4 and of
+    3 (which divides no FSDP dim but gemma3's d_model, 3840, so every
+    other arch's "data" entries drop); the
     slices of ``shard_tree`` join back to the whole. Tolerance: none.
 (b) The gather. One launch of the 8-rank gloo harness
     (``tests/torch_mesh_harness.py ... fsdp``) holds the gather's backward
@@ -15,7 +18,8 @@ train step, against the JAX package on the CPU.
     form: to their mean), and the mesh trainer under fsdp to the port's
     stacked step bit for bit (losses, each rank's slices of parameters and
     momentum; Mode B with a sign_flip and a random adversary, on pod 2 x
-    data 2, remat "dots", a plan with diagnostics, beta 0; Mode A at beta
+    data 2, remat "dots", a plan with diagnostics, beta 0, qwen3-moe's
+    preset (its 4-D expert leaves sliced on d); Mode A at beta
     0 with a random adversary, and with ef_sign, delayed_vote and
     diagnostics; sgd within its mean's rounding bound). Rank 0's slices, with their inputs, are then
     held here to the reference's own identity
@@ -34,8 +38,11 @@ train step, against the JAX package on the CPU.
     each voter's bf16 accumulator voted by ``VirtualBackend`` on
     hierarchical; then ``u = beta * u + (1 - beta) * vote`` and the
     update) is held to each real step, teacher-forced from the same state;
-    then the port's stacked step (M = 4) is held to the composed one. The
-    criteria (those of ``_check_teacher_forced``): the loss within rtol
+    then the port's stacked step (M = 4) is held to the composed one. In
+    the same subprocess the reference's qwen3-moe Mode B preset (reduced,
+    float32, fsdp: the router and the 4-D expert leaves fused) takes 2
+    steps, and the port's stacked step is held to each, teacher-forced.
+    The criteria (those of ``_check_teacher_forced``): the loss within rtol
     1e-5; the momentum within float32 rounding (rtol 1e-5, atol 1e-7) on
     every coordinate but those whose vote rounding decided (a voter's
     gradient within rounding of 0 changed a count), at most 0.1 % of
@@ -103,7 +110,9 @@ def _env():
 
 @pytest.mark.parametrize("data", [4, 3])
 @pytest.mark.parametrize("fsdp", [True, False])
-@pytest.mark.parametrize("arch", ["glm4-9b", "qwen1.5-32b", "deepseek-67b"])
+@pytest.mark.parametrize("arch", [
+    "glm4-9b", "qwen1.5-32b", "deepseek-67b", "gemma3-12b", "pixtral-12b",
+    "qwen2-moe-a2.7b", "qwen3-moe-235b-a22b"])
 def test_param_specs_equal_the_reference(arch, fsdp, data):
     shapes = jbase.get_config(arch).param_shapes()
     mesh = {"data": data, "model": 1}
@@ -113,7 +122,9 @@ def test_param_specs_equal_the_reference(arch, fsdp, data):
     for k, spec in want.items():
         assert got[k] == tuple(spec), k
     fused = tshd.fused_dims(got)
-    assert bool(fused) == (fsdp and data == 4)
+    assert set(fused) == {k for k, s in want.items() if "data" in tuple(s)}
+    # 3 divides gemma3's d_model (3840), no FSDP dim of the others
+    assert bool(fused) == (fsdp and (data == 4 or arch == "gemma3-12b"))
     assert all(not k.startswith(("embed", "unembed")) for k in fused)
 
 
@@ -160,7 +171,7 @@ def test_mesh_fsdp_equals_the_stacked_step(harness):
     assert set(record["fsdp_trainer"]) == {
         "mode_b_flip", "mode_b_pod_random", "mode_b_dots",
         "mode_b_plan_diag", "signsgd_beta0", "mode_a_beta0_random",
-        "mode_a_beta0_ef_delayed_diag"}
+        "mode_a_beta0_ef_delayed_diag", "mode_b_qwen3_moe"}
     diag = record["fsdp_trainer"]["mode_b_plan_diag"][0]
     assert np.isfinite(diag["vote_margin"])
 
@@ -277,6 +288,26 @@ try:
     out["beta0_plan"] = None
 except Exception as e:
     out["beta0_plan"] = (type(e).__name__, str(e))
+# qwen3-moe's Mode B preset under fsdp (its expert leaves 4-D, sliced over
+# data on d), float32, from its own init, on the same batches
+moe_cfg = dataclasses.replace(B.reduced_config(B.get_config(
+    "qwen3-moe-235b-a22b")), dtype="float32")
+moe_preset = default_train_config("qwen3-moe-235b-a22b", B.ShapeCell(
+    "t", SEQ, GB, "train"))
+moe_tcfg = dataclasses.replace(moe_preset, microbatches=MICRO,
+                               optimizer=dataclasses.replace(
+                                   moe_preset.optimizer, learning_rate=LR))
+a = TS.make_train_step(moe_cfg, moe_tcfg, mesh=mesh)
+p, o = TS.materialize_state(moe_cfg, moe_tcfg, a, jax.random.PRNGKey(2),
+                            mesh)
+out["moe"] = {{"fused": list(a.fused_leaves), "states": [], "losses": []}}
+for step in range(STEPS):
+    out["moe"]["states"].append(snap(p, o))
+    batch = {{"tokens": jax.device_put(out["batches"][step],
+                                      NamedSharding(mesh, P("data")))}}
+    p, o, met = a.step_fn(p, o, batch, jnp.int32(step))
+    out["moe"]["losses"].append(float(met["loss"]))
+out["moe"]["states"].append(snap(p, o))
 with open(sys.argv[1], "wb") as f:
     pickle.dump(out, f)
 print("reference mesh ok")
@@ -429,6 +460,49 @@ def test_port_stacked_step_meets_the_composed_step(reference_mesh, composed,
            "params": {k: v.numpy() for k, v in params.items()},
            "momentum": {k: v.numpy() for k, v in opt["momentum"].items()}}
     _check_step(composed[step], got)
+
+
+def _moe_configs():
+    """The port's reduced qwen3-moe in float32 and its Mode B preset at the
+    test's size (fsdp on, nested remat, 2 microbatches, lr LR)."""
+    from repro_torch.configs.presets import default_train_config
+    cfg = dataclasses.replace(tbase.reduced_config(tbase.get_config(
+        "qwen3-moe-235b-a22b")), dtype="float32")
+    preset = default_train_config("qwen3-moe-235b-a22b", tbase.ShapeCell(
+        "t", SEQ, GB, "train"))
+    return cfg, dataclasses.replace(
+        preset, microbatches=MICRO, optimizer=dataclasses.replace(
+            preset.optimizer, learning_rate=LR))
+
+
+@pytest.mark.parametrize("step", range(STEPS))
+def test_qwen3_moe_stacked_step_meets_the_reference_mesh_step(
+        reference_mesh, step):
+    """qwen3-moe's Mode B preset with fsdp: the port's stacked step (M = 4)
+    teacher-forced from the reference's real mesh step's state (data 4)
+    meets its next state by ``_check_step``'s criteria. Its fused leaves
+    are the reference's, the 4-D expert leaves among them."""
+    moe = reference_mesh["moe"]
+    cfg, tcfg = _moe_configs()
+    art = tTS.make_train_step(cfg, tcfg, M4, device="cpu")
+    assert list(art.fused_leaves) == moe["fused"]
+    assert {"layers.router_w", "layers.experts_w_gate",
+            "layers.experts_w_up", "layers.experts_w_down"} <= set(
+                art.fused_leaves)
+    assert art.fused_dims["layers.experts_w_gate"] == 2
+    assert art.fused_dims["layers.experts_w_down"] == 3
+    state = moe["states"][step]
+    params = tM.params_from_numpy(state["params"], device="cpu")
+    opt = {"count": step,
+           "momentum": tM.params_from_numpy(state["momentum"],
+                                            device="cpu")}
+    params, opt, met = art.step_fn(params, opt, {
+        "tokens": reference_mesh["batches"][step]}, step)
+    got = {"loss": float(met["loss"]),
+           "params": {k: v.numpy() for k, v in params.items()},
+           "momentum": {k: v.numpy() for k, v in opt["momentum"].items()}}
+    _check_step({"loss": moe["losses"][step], **moe["states"][step + 1]},
+                got)
 
 
 @pytest.mark.parametrize("mesh", ["data4", "pod2x2"])

@@ -36,7 +36,10 @@ def test_port_has_the_slice_modules():
                 "core/sign_compress.py", "core/signum.py", "kernels/ref.py",
                 "kernels/build.py", "kernels/ops.py", "data/pipeline.py",
                 "models/layers.py", "models/transformer.py",
-                "models/model.py", "train/train_step.py",
+                "models/model.py", "models/moe.py", "train/train_step.py",
+                "configs/deepseek_67b.py", "configs/gemma3_12b.py",
+                "configs/pixtral_12b.py", "configs/qwen2_moe_a2p7b.py",
+                "configs/qwen3_moe_235b.py",
                 "core/codecs/__init__.py", "core/codecs/base.py",
                 "core/codecs/sign1bit.py", "core/codecs/ef_sign.py",
                 "core/codecs/ternary.py", "core/codecs/weighted.py",

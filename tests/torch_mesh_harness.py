@@ -34,7 +34,8 @@ e. fsdp (run alone, by ``tests/test_torch_fsdp.py``: ``... <scratch>
    identity; and ``make_train_step(..., mesh=...)`` with ``fsdp=True`` on
    4 ranks, 2 steps of each configuration (Mode B on data 4 and pod 2 x
    data 2 with a sign_flip / random adversary, remat "dots", a plan and
-   diagnostics; Mode A at beta 0 with a random adversary, and with
+   diagnostics, qwen3-moe's preset with its 4-D expert leaves fused;
+   Mode A at beta 0 with a random adversary, and with
    ef_sign, delayed_vote and diagnostics), each rank's losses and its
    slices of the parameters and the momentum (its residual) bit-equal to
    the port's stacked step (computed on the other 4 ranks); the dense sgd
@@ -779,13 +780,17 @@ def _fsdp_cfgs():
             momentum_mode=base.MomentumMode.PER_WORKER, momentum=0.0,
             codec="ef_sign", delayed_vote=True,
             vote_strategy=S.ALLGATHER_1BIT), {"diagnostics": True}),
+        # qwen3-moe's preset: the router and the 4-D expert leaves fused
+        ("mode_b_qwen3_moe", "data4", opt(),
+         {"remat": "nested", "arch": "qwen3-moe-235b-a22b"}),
     ]
 
 
 def _fsdp_pair(opt, extra):
     from repro_torch.configs import base
+    extra = dict(extra)
     cfg = dataclasses.replace(base.reduced_config(base.get_config(
-        "qwen1.5-32b")), dtype="float32")
+        extra.pop("arch", "qwen1.5-32b"))), dtype="float32")
     train = {"microbatches": 2, **extra}
     tcfg = base.TrainConfig(global_batch=8, seq_len=SEQ, optimizer=opt,
                             fsdp=True, **train)

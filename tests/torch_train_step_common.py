@@ -4,8 +4,9 @@ their module docs state the criteria these helpers check): the configs on
 both packages, the state round trips, the reference's trainer run and the
 M = 4 steps composed from JAX functions, the teacher-forced checks, and
 the port's free-running runs, computed once per configuration and start
-state and shared by the teacher-forced step 0 and the free-running losses.
-Not collected itself."""
+state and shared by the teacher-forced step 0 and the free-running losses;
+and the numpy parameter draws of ``tests/test_torch_zoo.py`` and
+``tests/test_torch_moe.py``. Not collected itself."""
 import dataclasses
 import hashlib
 
@@ -45,6 +46,24 @@ CODECS = ("ternary2bit", "ef_sign", "weighted_vote")
 #: (a superset of the |m'| > 1e-6 coordinates)
 NEAR_ZERO = 1e-7
 MAX_EXCLUDED = 1e-3
+
+
+def numpy_params(cfg, seed):
+    """Float32 parameters of `cfg` by the reference's init rules
+    (``repro.models.model.init_params``: ones for scales, zeros for
+    biases, normal / sqrt(fan_in) for the rest), drawn with numpy."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for name, shape in sorted(cfg.param_shapes().items()):
+        if name.endswith("_scale") or ".scale" in name:
+            out[name] = np.ones(shape, np.float32)
+        elif name.endswith(("_b", "_bq", "_bk", "_bv")):
+            out[name] = np.zeros(shape, np.float32)
+        else:
+            fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
+            out[name] = (rng.normal(size=shape) / np.sqrt(fan_in)).astype(
+                np.float32)
+    return out
 
 
 def _jcfgs(codec="sign1bit"):
