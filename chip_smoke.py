@@ -284,10 +284,36 @@ Phases, each of which fails the run (non-zero exit) on any disagreement:
    recomputation, step 0 again from the same state with losses, every
    tally output, parameters and momenta bit-equal, then step 1; exact
    launches, finite ce and aux, s/step, peak memory, and qwen2-moe's next
-   step under torch.profiler.
+   step under torch.profiler;
+17. the priced wire and the last three families (after phase 16;
+   ``scripts/family_probe.py`` runs it alone). 17a, at phase 3's cell
+   (glm4-9b, 2 layers, M = 4, batch 8, seq 512): the trainer with
+   ``vote_strategy=auto`` resolves the wire ``select_strategy`` gives for
+   its 1,649,439,744 parameters over 4 voters under the port's H100 link
+   model, and its 2 steps are bit-equal (losses, launches, parameters,
+   momenta) to the run that names that wire; every leaf of the trained
+   momentum voted through the vote API's default strategy on sign1bit,
+   ef_sign, ternary2bit and weighted_vote reports select_strategy's wire
+   for the leaf and votes bit-equal to the request naming it; the trainer
+   with ``bucket_bytes=-1``, AUTO, overlap and the embeddings on
+   ternary2bit prints each codec group's resolved strategy, bucket size
+   and the schedule's cost, runs 2 steps under a TraceRecorder bit-equal to
+   the plan that names those values, and the port's report renders the
+   trace with every section and a predicted exchange on every bucket (the
+   measured one is the host's spans on one card, not a link). 17b, the
+   presets (``default_train_config(arch, train_4k)``: float32 momentum on
+   psum_int8, full remat) of mamba2-2.7b (8 of 64 layers), zamba2-1.2b (8
+   of 38: a segment of 6 and its shared block, then 2 without) and
+   whisper-tiny (4 + 4) at every published width, seq 4096, M = 4, batch
+   cut to one row a voter a microbatch (16, 16, 32), as phase 16's: step 0
+   with every launch held against its plain version and one leaf's vote
+   (mamba2's float32 ``layers.mamba_A_log``, zamba2's
+   ``shared_block.attn_wq``, whisper's ``layers.xattn_wq``) against its
+   plain recomputation, step 0 again bit-equal, step 1, s/step, peak
+   memory, and mamba2's next step under torch.profiler.
 
-Phase 13's, 14's, 15's and 16's launches (phases 14's and 15b's summed
-over their ranks) join the kernels line.
+Phase 13's, 14's, 15's, 16's and 17's launches (phases 14's and 15b's
+summed over their ranks) join the kernels line.
 
 Phase 7 also times ternary_majority with ties +1 (its own row),
 ternary_unpack to bf16 and bitpack of the bf16 stack (its own row, whose
@@ -1346,15 +1372,16 @@ def profile_step(torch, art, params, opt_state, pipe, dev, n_params,
     copy kernels than phase 3's leaf-wise step: bitpack reads the plan's
     1-bit buckets in place."""
     from torch.profiler import ProfilerActivity, profile
-    tokens = torch.as_tensor(pipe.global_batch_at(STEPS)["tokens"],
-                             device=dev)
+    batch = {k: torch.as_tensor(v, device=dev)
+             for k, v in pipe.global_batch_at(STEPS).items()}
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        art.step_fn(params, opt_state, {"tokens": tokens}, STEPS)
+        art.step_fn(params, opt_state, batch, STEPS)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+        t_events = time.perf_counter()   # the trace's collection onward
     groups = {name: 0.0 for name, _ in KERNEL_GROUPS}
     groups["other"] = 0.0
     kernels = []
@@ -1407,6 +1434,12 @@ def profile_step(torch, art, params, opt_state, pipe, dev, n_params,
                    "ternary_pack": m * n * 2.25,
                    "ternary_majority": (m + 1) * n / 4,
                    "apply_ternary_vote": n * 4.25},
+        # the preset with float32 momentum (phase 17b): bf16 g read, f32 m
+        # read and m' written; ternary_pack reads each voter's f32 m' row
+        "preset_f32m": {"momentum_sign_pack": m * n * 10,
+                        "ternary_pack": m * n * 4.25,
+                        "ternary_majority": (m + 1) * n / 4,
+                        "apply_ternary_vote": n * 4.25},
         # Mode B on hierarchical: ternary_pack reads each voter's bf16
         # gradient row and u's float32 row, 2 bits out each; the tally; the
         # vote unpacked to bf16; the momentum kernel reads the bf16 vote and
@@ -1421,6 +1454,7 @@ def profile_step(torch, art, params, opt_state, pipe, dev, n_params,
                       for k, b in per_step_bytes.items()}
     COPY_LAUNCHES[codec] = sum(c["count"] for c in direct_copies)
     log({"phase": "profiled_step", "codec": codec, "profiled_wall_ms": wall_ms,
+         "events_s": time.perf_counter() - t_events,
          "unprofiled_step_ms": unprofiled_ms, "device_busy_ms": busy,
          "device_idle_share": (1 - busy / unprofiled_ms) if busy else None,
          "device_ms_by_group": groups,
@@ -4696,8 +4730,10 @@ def zoo_config(torch, arch: str, depth: int):
 
 def zoo_batch(torch, cfg, tcfg, step: int, dev) -> dict:
     """A seeded batch of `step`: tokens and, for the VLM, the image
-    prefix's patch embeddings (a quarter of the sequence), made on the
-    card (the numpy pipeline draws one token at a time)."""
+    prefix's patch embeddings (a quarter of the sequence), for the
+    encoder-decoder the encoder's frames (min(T_src, 64) of them in the
+    model's dtype, as the reference's make_batch), made on the card (the
+    numpy pipeline draws one token at a time)."""
     from repro_torch.configs.base import ArchFamily
     from repro_torch.models import model as M
     gen = torch.Generator(device=dev).manual_seed(1000 + step)
@@ -4707,6 +4743,11 @@ def zoo_batch(torch, cfg, tcfg, step: int, dev) -> dict:
         s_img, seq = M._vlm_split(seq)
         out["patch_embeds"] = torch.randn((rows, s_img, cfg.d_model),
                                           generator=gen, device=dev)
+    if cfg.family == ArchFamily.AUDIO:
+        t_src = min(cfg.max_source_positions, 64)
+        out["enc_embeds"] = torch.randn(
+            (rows, t_src, cfg.d_model), generator=gen,
+            device=dev).to(getattr(torch, cfg.dtype))
     out["tokens"] = torch.randint(0, cfg.vocab_size, (rows, seq),
                                   generator=gen, device=dev)
     return out
@@ -4751,10 +4792,10 @@ def zoo_step0_check(torch, M, cfg, tcfg, art, params, batch, leaf):
 def zoo_step0_verify(torch, ref, signum, tcfg, art, leaf, saved, params,
                      state, vote) -> dict:
     """`leaf` after step 0 against the plain versions run on the plain
-    recomputation: Mode A, each voter's bf16 momentum row, the count
-    wire's vote (`vote`, the step's own tally output of the leaf) and the
-    parameters; Mode B, the float32 momentum taking the fused vote and the
-    parameters."""
+    recomputation: Mode A, each voter's momentum row (bf16 or float32, as
+    the preset has it, from zeros), the count wire's vote (`vote`, the
+    step's own tally output of the leaf) and the parameters; Mode B, the
+    float32 momentum taking the fused vote and the parameters."""
     opt = tcfg.optimizer
     eta = signum.lr_at(opt, 0)
     p0, plain = saved
@@ -4774,14 +4815,16 @@ def zoo_step0_verify(torch, ref, signum, tcfg, art, leaf, saved, params,
                 "vote_values": sorted(float(v) for v in torch.unique(
                     plain).tolist())[:17]}
     mom = state["momentum"][leaf].view(M_MAIN, -1)
+    bits = {torch.float32: torch.int32, torch.bfloat16: torch.int16}[
+        mom.dtype]
     words = []
     for r in range(M_MAIN):
         g = plain[r].reshape(1, -1)
-        m_ref, _ = ref.momentum_sign_pack(g, torch.zeros_like(g),
-                                          opt.momentum)
+        m_ref, _ = ref.momentum_sign_pack(
+            g, torch.zeros(g.shape, dtype=mom.dtype, device=g.device),
+            opt.momentum)
         require_equal(f"zoo {leaf} step 0 momentum of voter {r}",
-                      mom[r].view(1, -1).view(torch.int16),
-                      m_ref.view(torch.int16))
+                      mom[r].view(1, -1).view(bits), m_ref.view(bits))
         words.append(ref.ternary_pack(m_ref)[0])
     vote_ref = ref.ternary_majority(torch.stack(words))
     require_equal(f"zoo {leaf} step 0 vote", vote, vote_ref)
@@ -4794,13 +4837,16 @@ def zoo_step0_verify(torch, ref, signum, tcfg, art, leaf, saved, params,
 
 
 def run_zoo_arch(torch, dev, err, arch: str, depth: int, leaf: str,
-                 cfg=None) -> dict:
-    """One arch of phase 16: the preset's step 0 from a fresh state with
-    every launch held against its plain version and `leaf` against its
-    plain recomputation, step 0 again from the same state (losses, tally
-    outputs, parameters and momenta bit-equal), then steps 1.. ZOO_STEPS-1;
-    exact launches, s/step (the mean of the unchecked runs: step 0 again
-    and the later steps), peak memory. Returns the launches."""
+                 cfg=None, phase_name: str = "zoo", profiled: bool = None
+                 ) -> dict:
+    """One arch of phase 16 (or 17b, `phase_name` "family"): the preset's step 0
+    from a fresh state with every launch held against its plain version
+    and `leaf` against its plain recomputation, step 0 again from the same
+    state (losses, tally outputs, parameters and momenta bit-equal), then
+    steps 1.. ZOO_STEPS-1; exact launches, s/step (the mean of the
+    unchecked runs: step 0 again and the later steps), peak memory, and
+    when `profiled` (default: `arch` is ZOO_PROFILED) one more step under
+    torch.profiler. Returns the launches."""
     from repro_torch.core import sign_compress as sc
     from repro_torch.core import signum
     from repro_torch.kernels import ops, ref
@@ -4821,7 +4867,7 @@ def run_zoo_arch(torch, dev, err, arch: str, depth: int, leaf: str,
     want = (fsdp_launches(tcfg.optimizer.kind, n_leaves - fused, fused,
                           M_MAIN, mesh=False) if mode_b
             else preset_launches(n_leaves))
-    log({"phase": "zoo", "arch": arch, "family": cfg.family.value,
+    log({"phase": phase_name, "arch": arch, "family": cfg.family.value,
          "num_layers": cfg.num_layers, "d_model": cfg.d_model,
          "vocab": cfg.vocab_size, "params": cfg.param_count(),
          "voters": M_MAIN, "global_batch": tcfg.global_batch,
@@ -4854,7 +4900,7 @@ def run_zoo_arch(torch, dev, err, arch: str, depth: int, leaf: str,
         with contextlib.ExitStack() as stack:
             if label == "step0_checked":
                 stack.enter_context(plain_checked(
-                    torch, ops, ref, sc, err, f"zoo {arch} step 0",
+                    torch, ops, ref, sc, err, f"{phase_name} {arch} step 0",
                     MESH_CHECKED, held))
             stack.enter_context(recorded_tallies(torch, ops, tallies, keep))
             params, state, met = art.step_fn(params, state, batches[0], 0)
@@ -4863,14 +4909,14 @@ def run_zoo_arch(torch, dev, err, arch: str, depth: int, leaf: str,
         launches = {k: v for k, v in ops.launch_counts().items() if v}
         mets = {k: float(v) for k, v in met.items()}
         if (launches or dev.type == "cuda") and launches != want:
-            raise AssertionError(f"zoo {arch} {label}: launches {launches}, "
+            raise AssertionError(f"{phase_name} {arch} {label}: launches {launches}, "
                                  f"expected {want}")
         if label == "step0_checked" and dev.type == "cuda" and \
                 held != launches:
-            raise AssertionError(f"zoo {arch}: held {held} of the launches "
+            raise AssertionError(f"{phase_name} {arch}: held {held} of the launches "
                                  f"{launches} against their plain versions")
         if not all(math.isfinite(v) for v in mets.values()):
-            raise AssertionError(f"zoo {arch} {label}: metrics {mets}")
+            raise AssertionError(f"{phase_name} {arch} {label}: metrics {mets}")
         for k, v in launches.items():
             total[k] = total.get(k, 0) + v
         if label == "step0_again":
@@ -4892,9 +4938,9 @@ def run_zoo_arch(torch, dev, err, arch: str, depth: int, leaf: str,
             del saved, vote
         log(line)
     if runs[0] != runs[1]:
-        raise AssertionError(f"zoo {arch}: step 0 twice from one state "
+        raise AssertionError(f"{phase_name} {arch}: step 0 twice from one state "
                              f"differs: {runs[0]} != {runs[1]}")
-    log({"phase": "zoo_deterministic", "arch": arch, "step": 0,
+    log({"phase": f"{phase_name}_deterministic", "arch": arch, "step": 0,
          "metrics": runs[0]["metrics"], "tallies": len(runs[0]["tallies"]),
          "bit_equal": ["metrics", "tallies", "params", "momentum"]})
     losses = [runs[0]["metrics"]]
@@ -4907,29 +4953,33 @@ def run_zoo_arch(torch, dev, err, arch: str, depth: int, leaf: str,
         ms = (time.perf_counter() - t1) * 1e3
         launches = {k: v for k, v in ops.launch_counts().items() if v}
         mets = {k: float(v) for k, v in met.items()}
-        log({"run": "zoo", "arch": arch, "step": step, "metrics": mets,
+        log({"run": phase_name, "arch": arch, "step": step, "metrics": mets,
              "ms": ms, "launches": launches})
         if (launches or dev.type == "cuda") and launches != want:
-            raise AssertionError(f"zoo {arch} step {step}: launches "
+            raise AssertionError(f"{phase_name} {arch} step {step}: launches "
                                  f"{launches}, expected {want}")
         if not all(math.isfinite(v) for v in mets.values()):
-            raise AssertionError(f"zoo {arch} step {step}: {mets}")
+            raise AssertionError(f"{phase_name} {arch} step {step}: {mets}")
         for k, v in launches.items():
             total[k] = total.get(k, 0) + v
         losses.append(mets)
         step_ms.append(ms)
     peak = peak_bytes(torch, dev)
-    log({"phase": "zoo_done", "arch": arch, "metrics": losses,
+    log({"phase": f"{phase_name}_done", "arch": arch, "metrics": losses,
          "step_ms": step_ms, "s_per_step": statistics.mean(step_ms) / 1e3,
          "max_memory_allocated_bytes": peak,
          "seconds": time.perf_counter() - t0})
-    if arch == ZOO_PROFILED and dev.type == "cuda":
+    if profiled is None:
+        profiled = arch == ZOO_PROFILED
+    if profiled and dev.type == "cuda":
         class Batches:
             @staticmethod
             def global_batch_at(step):
                 return zoo_batch(torch, cfg, tcfg, step, dev)
+        f32m = tcfg.optimizer.momentum_dtype == "float32" and not mode_b
         profile_step(torch, art, params, state, Batches, dev,
-                     cfg.param_count(), statistics.median(step_ms), "preset")
+                     cfg.param_count(), statistics.median(step_ms),
+                     "preset_f32m" if f32m else "preset")
     del params, state, art, batches
     if dev.type == "cuda":
         torch.cuda.empty_cache()
@@ -5002,6 +5052,318 @@ def run_zoo_path(torch, dev, err) -> dict:
         for k, v in got.items():
             launches[k] = launches.get(k, 0) + v
     log({"phase": "zoo_path_done", "launches": launches,
+         "seconds": time.perf_counter() - t0})
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 17: the priced wire (17a) and the SSM, hybrid and encoder-decoder
+# families' presets at seq 4096 (17b)
+# ---------------------------------------------------------------------------
+
+#: 17a: steps of each trainer run (the AUTO run and its named twin)
+WIRE_STEPS = 2
+#: 17a: the codecs whose votes of the trained momentum take AUTO
+AUTO_CODECS = ("sign1bit", "ef_sign", "ternary2bit", "weighted_vote")
+#: 17b's archs: (arch, depth, the leaf whose step-0 vote is recomputed by
+#: plain PyTorch). Every published width, seq 4096. Depth is cut for the
+#: phase's time, not by memory: at full depth mamba2 (64 layers, 64.0 GB)
+#: took 19.0 s a step and zamba2 (38, 27.6 GB) 15.6 s on an H100 80GB at
+#: 700 W (PERF.md §5, scripts/family_probe.py). zamba2 keeps one whole segment of 6 mamba layers and its shared
+#: block, then a ragged segment of 2 without one, as its last segment
+FAMILIES = (("mamba2-2.7b", 8, "layers.mamba_A_log"),
+            ("zamba2-1.2b", 8, "shared_block.attn_wq"),
+            ("whisper-tiny", 4, "layers.xattn_wq"))
+#: the arch whose next step runs under torch.profiler
+FAMILY_PROFILED = "mamba2-2.7b"
+
+
+def wire_config(**opt):
+    """Phase 3's training config (sign1bit, float32 momentum) with the
+    optimizer options `opt`."""
+    base = train_config("sign1bit")
+    return dataclasses.replace(base, optimizer=dataclasses.replace(
+        base.optimizer, **opt))
+
+
+def wire_run(torch, cfg, dev, tcfg, steps, record=None):
+    """`steps` steps of phase 3's cell under `tcfg` from a fresh state
+    (seeded as phase 3): each step's launches, the losses, and checksums of
+    the parameters and the momentum after the run. With `record` (an
+    ``obs.TraceRecorder``) every step runs under it, with a ``train.step``
+    span and a step row carrying the plan's wire payload. Returns (a dict
+    of those, the momentum)."""
+    from repro_torch.core import codecs
+    from repro_torch.data.pipeline import SyntheticLMPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.obs import recorder as obs
+    from repro_torch.train import train_step as TS
+    art = TS.make_train_step(cfg, tcfg, M_MAIN, device=dev)
+    params, state = TS.materialize_state(
+        cfg, tcfg, art, torch.Generator(device=dev).manual_seed(0))
+    pipe = SyntheticLMPipeline(cfg, GLOBAL_BATCH, SEQ, seed=0)
+    out = {"vote_strategy": art.vote_strategy.value, "losses": [],
+           "launches": [], "ms": []}
+    if record is not None and art.plan is None:
+        raise ValueError("a recorded wire run reports its plan's payload")
+    if art.plan is not None:
+        out["groups"] = [{"codec": g.codec, "strategy": g.strategy.value,
+                          "bucket_bytes": g.bucket_bytes,
+                          "buckets": len(g.buckets)}
+                         for g in art.plan.groups]
+        out["schedule_cost_s"] = art.plan.schedule_cost(
+            M_MAIN, 1, overlap=tcfg.optimizer.overlap)
+        payload = sum(g.total * codecs.get_codec(g.codec).wire_bits(
+            g.strategy) / 8.0 for g in art.plan.groups)
+    with contextlib.ExitStack() as stack:
+        if record is not None:
+            stack.enter_context(obs.recording(record))
+        for step in range(steps):
+            tokens = torch.as_tensor(pipe.global_batch_at(step)["tokens"],
+                                     device=dev)
+            ops.reset_launch_counts()
+            sync(torch, dev)
+            t0 = time.perf_counter()
+            with obs.get_recorder().span("train.step", step=step):
+                params, state, met = art.step_fn(params, state,
+                                                 {"tokens": tokens}, step)
+                loss = float(met["loss"])
+            out["ms"].append((time.perf_counter() - t0) * 1e3)
+            out["launches"].append(
+                {k: v for k, v in ops.launch_counts().items() if v})
+            if not math.isfinite(loss):
+                raise AssertionError(f"wire step {step}: loss {loss}")
+            out["losses"].append(loss)
+            if record is not None:
+                record.step(kind_detail="train", step=step, loss=loss,
+                            payload_bytes=payload,
+                            n_coords=art.plan.n_params, n_voters=M_MAIN)
+    out["params"] = device_checksum(torch, [params[k]
+                                            for k in sorted(params)])
+    out["momentum"] = device_checksum(
+        torch, [state["momentum"][k] for k in sorted(params)])
+    momentum = state["momentum"]
+    del params, state, art
+    return out, momentum
+
+
+def require_twins(what: str, auto: dict, named: dict) -> None:
+    """The AUTO run and the run naming its choice: losses, launches,
+    parameters and momentum equal."""
+    for k in ("losses", "launches", "params", "momentum"):
+        if auto[k] != named[k]:
+            raise AssertionError(f"{what}: AUTO's {k} {auto[k]} differ from "
+                                 f"the named wire's {named[k]}")
+
+
+def run_auto_trainer(torch, cfg, dev) -> tuple:
+    """17a's trainer: ``vote_strategy=auto`` at phase 3's cell resolves to
+    select_strategy's wire for the parameter count over M_MAIN voters, and
+    its WIRE_STEPS steps are bit-equal to the run that names that wire.
+    Returns (the AUTO run's launches, the named run's momentum)."""
+    from repro_torch.configs.base import VoteStrategy
+    from repro_torch.core import vote_engine as ve
+    want = ve.select_strategy(cfg.param_count(), M_MAIN, 1, "sign1bit")
+    auto, momentum = wire_run(torch, cfg, dev, wire_config(
+        vote_strategy=VoteStrategy.AUTO), WIRE_STEPS)
+    del momentum
+    torch.cuda.empty_cache()
+    if auto["vote_strategy"] != want.value:
+        raise AssertionError(f"the trainer resolved AUTO to "
+                             f"{auto['vote_strategy']}, select_strategy "
+                             f"gives {want.value}")
+    named, momentum = wire_run(torch, cfg, dev, wire_config(
+        vote_strategy=want), WIRE_STEPS)
+    require_twins("trainer at auto", auto, named)
+    log({"phase": "auto_trainer", "params": cfg.param_count(),
+         "voters": M_MAIN, "resolved": auto["vote_strategy"],
+         "losses": auto["losses"], "launches_per_step": auto["launches"],
+         "step_ms_auto": auto["ms"], "step_ms_named": named["ms"],
+         "bit_equal_to_named": ["losses", "launches", "params",
+                                "momentum"]})
+    return auto["launches"], momentum
+
+
+def run_auto_votes(torch, momentum, dev) -> dict:
+    """17a's votes: every leaf's trained (M, n) momentum through the vote
+    API's default strategy (AUTO) on each codec of AUTO_CODECS; the wire it
+    reports is select_strategy's for the leaf's size over M_MAIN voters
+    under the port's link model, and the votes (and weighted_vote's flip
+    rates) equal the same request naming that wire. Returns the AUTO
+    votes' launches."""
+    from repro_torch.core import vote_api as va
+    from repro_torch.core import vote_engine as ve
+    from repro_torch.kernels import ops
+    backend = va.VirtualBackend(device=dev)
+    payloads = {k: v.view(v.shape[0], -1) for k, v in momentum.items()}
+    totals = {}
+    for codec in AUTO_CODECS:
+        wires, ms = {}, 0.0
+        for leaf, x in payloads.items():
+            state = ({"flip_ema": torch.zeros(M_MAIN, device=dev)}
+                     if codec == "weighted_vote" else None)
+            want = ve.select_strategy(x.shape[1], M_MAIN, 1, codec)
+            ops.reset_launch_counts()
+            sync(torch, dev)
+            t0 = time.perf_counter()
+            auto = backend.execute(va.VoteRequest(
+                payload=x, form="stacked", codec=codec, server_state=state))
+            sync(torch, dev)
+            ms += (time.perf_counter() - t0) * 1e3
+            for k, v in ops.launch_counts().items():
+                totals[k] = totals.get(k, 0) + v
+            named = backend.execute(va.VoteRequest(
+                payload=x, form="stacked", codec=codec, strategy=want,
+                server_state=state))
+            if auto.wire.strategy != want or auto.wire != named.wire:
+                raise AssertionError(f"{codec} {leaf}: AUTO's wire "
+                                     f"{auto.wire}, named {named.wire}")
+            require_equal(f"{codec} {leaf}: AUTO's votes and the named "
+                          f"{want.value} wire's", auto.votes, named.votes)
+            for k, v in named.server_state.items():
+                require_equal(f"{codec} {leaf}: {k}", auto.server_state[k],
+                              v)
+            wires[want.value] = wires.get(want.value, 0) + 1
+            del auto, named
+        log({"phase": "auto_votes", "codec": codec, "leaves": len(payloads),
+             "voters": M_MAIN, "wires": wires, "ms": ms,
+             "bit_equal_to_named": True})
+    return totals
+
+
+#: 17a's plan: the embeddings on ternary2bit, the rest on sign1bit
+AUTO_PLAN_MAP = (("embed*", "ternary2bit"),)
+
+
+def run_auto_plan(torch, cfg, dev) -> dict:
+    """17a's plan: the trainer with ``bucket_bytes=-1`` (the priced ladder),
+    AUTO, overlap on and AUTO_PLAN_MAP, WIRE_STEPS steps under a
+    TraceRecorder, bit-equal to the run whose plan names the resolved
+    values (the groups' strategy, and a bucket size that cuts every group
+    as AUTO did: the same buckets, checked); each group's resolved
+    (strategy, bucket_bytes) and the schedule's cost printed; the trace
+    rendered by the port's report, every section present and every bucket
+    with a predicted exchange; the summed measured (host spans on one
+    card, not a link) and predicted exchange. Returns the AUTO run's
+    launches."""
+    import tempfile
+    from repro_torch.configs.base import VoteStrategy
+    from repro_torch.core import vote_plan as vp
+    from repro_torch.obs import recorder as obs
+    from repro_torch.obs import report
+    scratch = tempfile.mkdtemp(prefix="chip_smoke_trace_")
+    path = os.path.join(scratch, "auto_plan.jsonl")
+    rec = obs.TraceRecorder(path, meta={"phase": "17a", "arch": cfg.name})
+    opts = dict(codec_map=AUTO_PLAN_MAP, overlap=True)
+    auto_plan = vp.build_plan(
+        cfg.param_shapes(), bucket_bytes=vp.AUTO_BUCKET_BYTES,
+        codec_map=AUTO_PLAN_MAP, strategy=VoteStrategy.AUTO,
+        data_size=M_MAIN, overlap=True)
+    strategies = {g.strategy for g in auto_plan.groups}
+    if len(strategies) != 1:
+        raise AssertionError(f"the AUTO plan's groups resolve "
+                             f"{strategies}: no single named wire")
+    named_bytes = max(g.bucket_bytes for g in auto_plan.groups)
+    named_plan = vp.build_plan(
+        cfg.param_shapes(), bucket_bytes=named_bytes,
+        codec_map=AUTO_PLAN_MAP, strategy=next(iter(strategies)),
+        data_size=M_MAIN, overlap=True)
+    if named_plan.buckets != auto_plan.buckets:
+        raise AssertionError("the named plan cuts other buckets")
+    auto, momentum = wire_run(torch, cfg, dev, wire_config(
+        vote_strategy=VoteStrategy.AUTO, bucket_bytes=vp.AUTO_BUCKET_BYTES,
+        **opts), WIRE_STEPS, record=rec)
+    rec.close()
+    del momentum
+    torch.cuda.empty_cache()
+    named, momentum = wire_run(torch, cfg, dev, wire_config(
+        vote_strategy=next(iter(strategies)), bucket_bytes=named_bytes,
+        **opts), WIRE_STEPS)
+    del momentum
+    torch.cuda.empty_cache()
+    require_twins("plan at auto", auto, named)
+    text = report.render(path)
+    summary = report.summarize(path)
+    missing = [s for s in report.SECTIONS if f"== {s} ==" not in text]
+    buckets = summary["buckets"]
+    if missing or len(buckets) != auto_plan.n_buckets or any(
+            b["predicted_s"] is None for b in buckets):
+        raise AssertionError(
+            f"the report of the AUTO plan's trace: sections missing "
+            f"{missing}, buckets {len(buckets)} of {auto_plan.n_buckets}, "
+            f"predictions {[b['predicted_s'] for b in buckets]}")
+    issues = [r for r in obs.read_trace(path) if r["kind"] == "span"
+              and r["name"] == "plan.issue"]
+    if not issues or any(r["attrs"]["pred_s"] is None for r in issues):
+        raise AssertionError("a plan.issue span without pred_s")
+    log({"phase": "auto_plan", "codec_map": AUTO_PLAN_MAP,
+         "groups": auto["groups"], "named_bucket_bytes": named_bytes,
+         "schedule_cost_s": auto["schedule_cost_s"],
+         "schedule_cost_s_no_overlap": auto_plan.schedule_cost(M_MAIN),
+         "losses": auto["losses"], "launches_per_step": auto["launches"],
+         "step_ms_auto": auto["ms"], "step_ms_named": named["ms"],
+         "bit_equal_to_named": ["losses", "launches", "params", "momentum"],
+         "report_sections": list(report.SECTIONS),
+         "plan_issue_spans": len(issues),
+         "measured_exchange_s_sum": sum(b["measured_s"] for b in buckets),
+         "predicted_exchange_s_sum": sum(b["predicted_s"] for b in buckets),
+         "measured_is": "host spans of the walk on one card, not a link",
+         "schedules": [{k: w[k] for k in ("n_buckets", "overlap", "wall_s",
+                                          "issue_occ", "complete_occ",
+                                          "gap")}
+                       for w in summary["schedules"]],
+         "steps": {k: v for k, v in summary["steps"].items()
+                   if k != "rows"}})
+    print(text, flush=True)
+    return auto["launches"]
+
+
+def run_wire_path(torch, cfg, dev) -> dict:
+    """Phase 17a: the trainer at AUTO, the vote API's AUTO on each codec of
+    the trained momentum, and the AUTO plan with its trace report. Returns
+    the launches."""
+    t0 = time.perf_counter()
+    totals = {}
+
+    def add(launches):
+        for k, v in launches.items():
+            totals[k] = totals.get(k, 0) + v
+    steps, momentum = run_auto_trainer(torch, cfg, dev)
+    for s in steps:
+        add(s)
+    add(run_auto_votes(torch, momentum, dev))
+    del momentum
+    torch.cuda.empty_cache()
+    for s in run_auto_plan(torch, cfg, dev):
+        add(s)
+    log({"phase": "wire_path_done", "launches": totals,
+         "seconds": time.perf_counter() - t0})
+    return totals
+
+
+def run_family_path(torch, dev, err) -> dict:
+    """Phase 17b: each FAMILIES arch's preset (``run_zoo_arch``, the
+    family's float32 momentum on psum_int8). Returns the launches."""
+    t0 = time.perf_counter()
+    launches = {}
+    for arch, depth, leaf in FAMILIES:
+        got = run_zoo_arch(torch, dev, err, arch, depth, leaf,
+                           phase_name="family",
+                           profiled=arch == FAMILY_PROFILED)
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+    log({"phase": "family_path_done", "launches": launches,
+         "seconds": time.perf_counter() - t0})
+    return launches
+
+
+def run_phase17(torch, cfg, dev, err) -> dict:
+    """Phase 17 (a, b): returns their launches."""
+    t0 = time.perf_counter()
+    launches = run_wire_path(torch, cfg, dev)
+    for k, v in run_family_path(torch, dev, err).items():
+        launches[k] = launches.get(k, 0) + v
+    log({"phase": "phase17_done", "launches": launches,
          "seconds": time.perf_counter() - t0})
     return launches
 
@@ -5400,6 +5762,8 @@ def main() -> int:
     for k, v in run_fsdp_path(torch, dev, errs).items():
         launches[k] += v
     for k, v in run_zoo_path(torch, dev, errs).items():
+        launches[k] += v
+    for k, v in run_phase17(torch, cfg, dev, errs).items():
         launches[k] += v
     # ef_sign's encode packs its float32 t; every other bitpack of the main
     # path packs int8 signs (staged votes, plan buckets, weighted_vote's vote)

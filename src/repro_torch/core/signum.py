@@ -326,6 +326,21 @@ def _mesh_vote(words: torch.Tensor, n: int, ctx, codec, two_bit: bool,
     return ops.ternary_pack(vote.view(1, -1))[0]
 
 
+def _concrete_strategy(cfg: OptimizerConfig, n_voters: int) -> VoteStrategy:
+    """`cfg`'s wire. AUTO over M > 1 voters is priced on the model's
+    parameter count, which the trainer knows and the optimizer does not:
+    ``train.train_step.make_train_step`` resolves it before it builds the
+    optimizer, as the reference's trainer does. One voter has no wire
+    (``psum_int8``)."""
+    if cfg.vote_strategy == VoteStrategy.AUTO and n_voters > 1:
+        raise ValueError(
+            f"vote_strategy=auto over {n_voters} voters: resolve it on the "
+            "model's parameter count first (vote_engine.resolve_strategy, "
+            "as make_train_step does)")
+    return resolve_strategy(cfg.vote_strategy, 0, n_voters,
+                            codec=cfg.resolved_codec)
+
+
 def make_sign_optimizer(cfg: OptimizerConfig, n_voters: int,
                         plan: Optional[vp.VotePlan] = None,
                         byz: Optional[ByzantineConfig] = None,
@@ -366,10 +381,8 @@ def make_sign_optimizer(cfg: OptimizerConfig, n_voters: int,
     # rows of per-voter state this process holds: every voter's stacked,
     # one voter's over a mesh
     local = n_voters if axes is None else 1
-    # AUTO resolves once, for M voters, as the reference's train step
-    # resolves it (psum_int8 at M = 1; M > 1 needs an H100 link model)
-    cfg = dataclasses.replace(cfg, vote_strategy=resolve_strategy(
-        cfg.vote_strategy, 0, n_voters, codec=cfg.resolved_codec))
+    cfg = dataclasses.replace(cfg, vote_strategy=_concrete_strategy(
+        cfg, n_voters))
     validate(cfg)
     beta = cfg.momentum
     mode_b = cfg.momentum_mode == MomentumMode.GLOBAL
@@ -723,8 +736,7 @@ def make_dense_optimizer(cfg: OptimizerConfig, n_voters: int,
     kind = cfg.kind
     if kind not in DENSE_KINDS:
         raise ValueError(kind)
-    strategy = resolve_strategy(cfg.vote_strategy, 0, n_voters,
-                                codec=cfg.resolved_codec)
+    strategy = _concrete_strategy(cfg, n_voters)
     pre = frozenset(mean_leaves)
 
     def init(params: Dict[str, torch.Tensor]) -> Dict:

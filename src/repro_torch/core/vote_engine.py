@@ -32,11 +32,10 @@ Tie conventions differ by wire format (DESIGN.md §5): the count
 strategies sum ternary signs (a tied or all-zero coordinate gives 0),
 while the 1-bit wire can only encode two states, so ties go to +1.
 
-AUTO resolves only for a single voter (``psum_int8``, no wire at all).
-The reference prices the strategies for more voters with a TPU link model
-(``distributed/comm_model.py``); the port carries no TPU number, so AUTO
-over M > 1 raises until an H100 link model exists (ROADMAP.md Queue 1
-item 15).
+AUTO resolves to the cheapest of the codec's strategies under the α–β
+link model of an H100 host (``distributed.comm_model``), as the
+reference's selector prices them under its own constants; over one voter
+it is ``psum_int8`` (no wire at all).
 """
 from __future__ import annotations
 
@@ -47,6 +46,7 @@ import torch
 
 from repro_torch.configs.base import VoteStrategy
 from repro_torch.core import sign_compress as sc
+from repro_torch.distributed import comm_model
 from repro_torch.distributed import mesh as pm
 from repro_torch.kernels import ops
 from repro_torch.obs import recorder as obs
@@ -129,6 +129,12 @@ class VoteStrategyImpl(abc.ABC):
                    pod_size: int = 1) -> Dict[str, float]:
         """Per-device transit bytes of the exchange, split within a pod
         ("ici") and across pods ("dci"), plus the collective count."""
+
+    def estimated_time(self, n_params: int, data_size: int,
+                       pod_size: int = 1) -> float:
+        b = self.ring_bytes(n_params, data_size, pod_size)
+        return comm_model.collective_time(
+            b["ici"], b["dci"], n_collectives=int(b["n_collectives"])).time_s
 
 
 class PsumInt8Strategy(VoteStrategyImpl):
@@ -270,21 +276,45 @@ STRATEGIES: Dict[VoteStrategy, VoteStrategyImpl] = {
 }
 
 
-def resolve_strategy(strategy: VoteStrategy, n_params: int,
-                     data_size: int, pod_size: int = 1,
-                     codec: str = "sign1bit") -> VoteStrategy:
-    """A concrete strategy for `strategy`. AUTO over one voter is
-    ``psum_int8`` (no wire traffic at all), as in the reference; AUTO over
-    more voters needs a link model of the H100 host, which is not there
-    yet."""
-    if strategy != VoteStrategy.AUTO:
-        return strategy
+def message_parts(strategy: VoteStrategy, n_params: int, data_size: int,
+                  pod_size: int = 1, codec_bits: float = 1.0
+                  ) -> Tuple[float, float, int]:
+    """(ici bytes, dci bytes, collective count) of one exchange of
+    `n_params` coordinates on `strategy`: its ring bytes, the gathered
+    exchange's scaled to the codec's symbol width (the count wires carry
+    int8 counts whatever the codec's symbols were)."""
+    impl = STRATEGIES[strategy]
+    b = impl.ring_bytes(n_params, data_size, pod_size)
+    scale = (codec_bits / impl.wire_bits_per_param
+             if strategy == VoteStrategy.ALLGATHER_1BIT else 1.0)
+    return b["ici"] * scale, b["dci"] * scale, int(b["n_collectives"])
+
+
+def select_strategy(n_params: int, data_size: int, pod_size: int = 1,
+                    codec: str = "sign1bit") -> VoteStrategy:
+    """Cheapest concrete strategy under the α–β link model
+    (``distributed.comm_model``) for this mesh shape, parameter count and
+    codec, as the reference selects it: over one voter ``psum_int8`` (or
+    the codec's first strategy); else each of the codec's strategies
+    priced as one message, the gathered exchange at the codec's symbol
+    width (2 bits a coordinate for ``ternary2bit``), the first of the
+    cheapest on a tie."""
     from repro_torch.core import codecs
-    candidates = codecs.get_codec(codec).supported_strategies
+    c = codecs.get_codec(codec)
+    candidates = c.supported_strategies
     if data_size * pod_size <= 1:
         return (VoteStrategy.PSUM_INT8
                 if VoteStrategy.PSUM_INT8 in candidates else candidates[0])
-    raise NotImplementedError(
-        f"vote_strategy=auto over {data_size * pod_size} voters prices the "
-        "wires with a link model, and the port has no H100 link model yet "
-        "(ROADMAP.md Queue 1 item 15); name a concrete strategy")
+    times = {k: comm_model.collective_time(*message_parts(
+        k, n_params, data_size, pod_size, c.bits_per_param)).time_s
+        for k in candidates}
+    return min(times, key=times.get)
+
+
+def resolve_strategy(strategy: VoteStrategy, n_params: int,
+                     data_size: int, pod_size: int = 1,
+                     codec: str = "sign1bit") -> VoteStrategy:
+    """`strategy`, or for AUTO :func:`select_strategy`'s choice."""
+    if strategy == VoteStrategy.AUTO:
+        return select_strategy(n_params, data_size, pod_size, codec)
+    return strategy

@@ -41,19 +41,20 @@ A bucket's columns of the stacked buffer are not contiguous: its rows are
 and ``fused_majority`` take contiguous rows, so a bucket that either reads
 is copied with ``.contiguous()`` first.
 
+AUTO prices each candidate wire's WHOLE bucket schedule through the α–β
+link model of an H100 host (``distributed.comm_model.schedule_time``: one
+latency term per bucket message), overlap-aware when the plan is built
+with ``overlap=True``, and ``bucket_bytes = AUTO_BUCKET_BYTES`` sweeps a
+ladder of bucket sizes per strategy, ties going to the larger bucket: the
+reference's selector under the port's constants.
+
 Every walk counts its buckets into ``obs.COUNTERS`` (``plan.buckets``)
 and, under an active ``TraceRecorder``, records the reference's
 ``plan.schedule`` span around the walk and a ``plan.issue`` /
-``plan.complete`` span per bucket; the issue span's ``pred_s`` (the α–β
-model's predicted exchange time) is ``None`` until the port has an H100
-link model (ROADMAP.md Queue 1 item 15). The spans time the host's
+``plan.complete`` span per bucket; the issue span carries ``pred_s``, the
+link model's time of the bucket's message over the walk's voters (as the
+data axis, pod 1, as the reference prices it). The spans time the host's
 launches, not the card's work.
-
-Not ported yet: every price of the α–β model (ROADMAP.md Queue 1 item
-15): a plan is built where the reference's choice has one candidate (a
-concrete strategy, or AUTO with ``data_size * pod_size <= 1``, at a fixed
-``bucket_bytes``), which no price can change. A priced AUTO, ``bucket_bytes = AUTO_BUCKET_BYTES`` and
-:meth:`VotePlan.schedule_cost` raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -68,7 +69,8 @@ from repro_torch.core import codecs as codecs_mod
 from repro_torch.core import sign_compress as sc
 from repro_torch.core.codecs import weighted
 from repro_torch.core.codecs.ternary import TERNARY_WIRE
-from repro_torch.core.vote_engine import STRATEGIES
+from repro_torch.core.vote_engine import STRATEGIES, message_parts
+from repro_torch.distributed import comm_model
 from repro_torch.kernels import ops
 from repro_torch.obs import recorder as obs
 
@@ -78,13 +80,6 @@ ALIGN = 32
 
 #: sentinel for ``bucket_bytes``: the reference's priced ladder of sizes
 AUTO_BUCKET_BYTES = -1
-
-
-def _priced(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} prices bucket schedules with the reference's α–β link "
-        "model, and the port has no H100 link model yet (ROADMAP.md Queue "
-        "1 item 15); name a concrete strategy and a positive bucket_bytes")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -167,8 +162,10 @@ class VotePlan:
 
     def schedule_cost(self, data_size: int, pod_size: int = 1,
                       overlap: bool = False) -> float:
-        """The reference's α–β wall-clock of the schedule: not ported."""
-        raise _priced("VotePlan.schedule_cost")
+        """α–β wall-clock of the whole bucket schedule (one latency term
+        per bucket message: what AUTO minimised); with ``overlap=True``
+        priced as the double-buffered walk (:func:`run_schedule`)."""
+        return _schedule_time(self.buckets, data_size, pod_size, overlap)
 
 
 # ---------------------------------------------------------------------------
@@ -213,12 +210,39 @@ def _group_align(strategy: VoteStrategy, data_size: int) -> int:
     return ALIGN
 
 
-def _resolve_group(codec_name: str, strategy: VoteStrategy,
-                   bucket_bytes: int, data_size: int,
-                   pod_size: int) -> Tuple[VoteStrategy, int]:
-    """Concrete (strategy, bucket_bytes) for one codec group. The port
-    resolves the reference's choice only where it has a single candidate,
-    so no price decides it (``vote_plan.py:255-263``)."""
+def _schedule_time(buckets: Sequence[Bucket], data_size: int,
+                   pod_size: int, overlap: bool = False) -> float:
+    return comm_model.schedule_time(
+        (message_parts(b.strategy, b.length, data_size, pod_size,
+                       codecs_mod.get_codec(b.codec).bits_per_param)
+         for b in buckets), overlap=overlap).time_s
+
+
+def _bucket_pred_s(bucket: Bucket, data_size: int) -> float:
+    """The link model's time of one bucket's message over `data_size`
+    voters and one pod (a ``plan.issue`` span's ``pred_s``)."""
+    return comm_model.collective_time(*message_parts(
+        bucket.strategy, bucket.length, data_size, 1,
+        codecs_mod.get_codec(bucket.codec).bits_per_param)).time_s
+
+
+def _candidate_bucket_bytes(total: int, bits_per_param: float) -> list:
+    """The ladder ``AUTO_BUCKET_BYTES`` sweeps: powers of two below the
+    group's whole wire payload, then that payload (one bucket)."""
+    total_bytes = max(1, -(-int(total * bits_per_param) // 8))
+    ladder = [1 << k for k in range(3, 25) if (1 << k) < total_bytes]
+    ladder.append(total_bytes)
+    return ladder
+
+
+def _resolve_group(codec_name: str, strategy: VoteStrategy, total: int,
+                   bucket_bytes: int, data_size: int, pod_size: int,
+                   overlap: bool = False) -> Tuple[VoteStrategy, int]:
+    """Concrete (strategy, bucket_bytes) for one codec group: each
+    candidate wire (and with ``AUTO_BUCKET_BYTES`` each size of the
+    ladder) priced on its whole bucket schedule, the cheapest kept, a tie
+    going to the larger bucket (fewer messages), then to the earlier
+    candidate."""
     codec = codecs_mod.get_codec(codec_name)
     if strategy != VoteStrategy.AUTO:
         codec.validate_strategy(strategy)
@@ -229,12 +253,25 @@ def _resolve_group(codec_name: str, strategy: VoteStrategy,
             candidates = [VoteStrategy.PSUM_INT8
                           if VoteStrategy.PSUM_INT8 in candidates
                           else candidates[0]]
-    if bucket_bytes == AUTO_BUCKET_BYTES:
-        raise _priced(f"bucket_bytes=AUTO_BUCKET_BYTES ({AUTO_BUCKET_BYTES})")
-    if len(candidates) > 1:
-        raise _priced(f"vote_strategy=auto over {data_size * pod_size} "
-                      "voters in a VotePlan")
-    return candidates[0], bucket_bytes
+    bits = codec.bits_per_param
+    sizes = ([bucket_bytes] if bucket_bytes != AUTO_BUCKET_BYTES else
+             _candidate_bucket_bytes(total, bits))
+    best = None
+    for cand in candidates:
+        for bb in sizes:
+            # _cut_buckets' schedule as runs of equal buckets: the full
+            # ones, then the ragged last
+            elems = _bucket_elems(bb, bits, _group_align(cand, data_size))
+            full, last = divmod(total, elems)
+            runs = ((*message_parts(cand, length, data_size, pod_size,
+                                    bits), count)
+                    for length, count in ((elems, full),
+                                          (last, 1 if last else 0)))
+            cost = comm_model.repeated_schedule_time(runs, overlap).time_s
+            key = (cost, -bb)
+            if best is None or key < best[0]:
+                best = (key, cand, bb)
+    return best[1], best[2]
 
 
 def _cut_buckets(codec_name: str, strategy: VoteStrategy, start: int,
@@ -262,9 +299,11 @@ def build_plan(shapes: Dict[str, Tuple[int, ...]], *, bucket_bytes: int,
                overlap: bool = False) -> VotePlan:
     """Build the static plan for a tree of `shapes` (leaf name -> shape),
     as the reference does: leaves in sorted-name order, grouped by their
-    resolved codec (groups in order of first appearance). `overlap` only
-    changes the reference's pricing, which the port does not run (see the
-    module doc); the manifest never depends on it."""
+    resolved codec (groups in order of first appearance).
+    ``bucket_bytes=AUTO_BUCKET_BYTES`` (-1) sweeps a ladder of sizes per
+    strategy; ``overlap`` prices the candidates as the double-buffered walk
+    (it changes the selector's arithmetic only: the manifest never depends
+    on how the schedule will be walked)."""
     if bucket_bytes <= 0 and bucket_bytes != AUTO_BUCKET_BYTES:
         raise ValueError(
             f"bucket_bytes must be positive (or AUTO_BUCKET_BYTES=-1 for "
@@ -293,7 +332,8 @@ def build_plan(shapes: Dict[str, Tuple[int, ...]], *, bucket_bytes: int,
             offset += length
         total = offset - start
         resolved, group_bytes = _resolve_group(
-            codec_name, strategy, bucket_bytes, data_size, pod_size)
+            codec_name, strategy, total, bucket_bytes, data_size,
+            pod_size, overlap)
         groups.append(PlanGroup(
             codec=codec_name, strategy=resolved, start=start, total=total,
             leaves=tuple(slots),
@@ -484,13 +524,18 @@ def run_schedule(plan: VotePlan, buf: torch.Tensor, wire,
     rec = obs.get_recorder()
     votes = torch.empty(plan.n_params, dtype=torch.int8, device=buf.device)
     mismatch, total_w = None, 0
+    if rec.enabled:
+        # pred_s prices the walk's voters as the data axis, as the
+        # reference does: the virtual wire's stack is its own mesh
+        from repro_torch.distributed.mesh import num_voters
+        data = wire.m if hasattr(wire, "m") else num_voters(wire.axes)
 
     def issue(k: int) -> torch.Tensor:
         b = buckets[k]
-        # pred_s: the α–β exchange time needs an H100 link model (item 15)
         with rec.span("plan.issue", bucket=k, codec=b.codec,
                       strategy=b.strategy.value, length=b.length,
-                      pred_s=None):
+                      pred_s=(_bucket_pred_s(b, data) if rec.enabled
+                              else None)):
             return wire.issue(b, buf[..., b.start:b.start + b.length])
 
     def complete(k: int, inflight) -> None:

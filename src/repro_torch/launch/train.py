@@ -29,8 +29,7 @@ import torch
 from repro_torch.checkpoint.checkpoint import (AsyncCheckpointer,
                                                latest_step_dir, restore)
 from repro_torch.configs.base import (OptimizerConfig, TrainConfig,
-                                      get_config, list_archs,
-                                      reduced_config)
+                                      get_config, reduced_config)
 from repro_torch.core import attacks
 from repro_torch.data.pipeline import SyntheticLMPipeline
 from repro_torch.distributed.fault_tolerance import Watchdog
@@ -43,12 +42,7 @@ def build(arch: str, *, reduced: bool, batch: int, seq: int,
           opt_kind: str, lr: float, momentum: float, microbatches: int,
           byz_mode: str, byz_n: int):
     """(model config, train config) of the flags, as the reference builds
-    them; an arch the port has no config for raises (ROADMAP.md Queue 1
-    item 11)."""
-    if arch not in list_archs():
-        raise NotImplementedError(
-            f"arch {arch!r} arrives with the rest of the model zoo "
-            f"(ROADMAP.md Queue 1 item 11); the port has {list_archs()}")
+    them; an unknown arch raises the registry's ``KeyError``."""
     cfg = get_config(arch)
     if reduced:
         cfg = reduced_config(cfg)

@@ -1,6 +1,7 @@
-"""Shared layers: RMSNorm, RoPE, GQA attention, SwiGLU MLP, embedding and
-cross-entropy (``repro.models.layers``; the causal training path: query
-chunking and the sliding window, no cache).
+"""Shared layers: RMSNorm, RoPE and sinusoidal positions, GQA attention
+(causal, sliding-window and bidirectional self-attention, and
+cross-attention), SwiGLU MLP, embedding and cross-entropy
+(``repro.models.layers``; the training path: query chunking, no cache).
 
 Plain functions on tensors; parameters arrive as slices of the flat
 stacked-parameter dict. Compute dtype follows the inputs (bf16 by default);
@@ -61,6 +62,20 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
     return out.to(dtype)
 
 
+def sinusoidal_positions(positions: torch.Tensor, d_model: int
+                         ) -> torch.Tensor:
+    """Whisper-style fixed sinusoidal embeddings, float32; positions
+    (...,) int -> (..., d_model): sines of the first half, cosines of the
+    second."""
+    half = d_model // 2
+    dev = positions.device
+    rate = torch.log(torch.tensor(10_000.0, device=dev)) / max(half - 1, 1)
+    freqs = torch.exp(-torch.arange(half, dtype=torch.float32, device=dev)
+                      * rate)
+    angles = positions.to(torch.float32)[..., None] * freqs
+    return torch.cat([torch.sin(angles), torch.cos(angles)], dim=-1)
+
+
 # ---------------------------------------------------------------------------
 # attention core
 # ---------------------------------------------------------------------------
@@ -93,19 +108,21 @@ def _causal_window_mask(q_pos: torch.Tensor, kv_pos: torch.Tensor,
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True,
               q_positions: Optional[torch.Tensor] = None,
               kv_positions: Optional[torch.Tensor] = None,
               window: Optional[int] = None,
               q_chunk: Optional[int] = None) -> torch.Tensor:
-    """Exact causal attention with GQA grouping, written as plain products
-    (the reference's ``attention(..., causal=True)``), optionally in a
-    sliding `window`. For S > `q_chunk` (default ``Q_CHUNK``, read at the
-    call) with S a multiple of it the queries run in chunks, each under a
-    non-reentrant checkpoint (the reference's ``jax.checkpoint`` scan
-    body), so one chunk's (B, K, G, q_chunk, T) float32 scores live at a
-    time, in the forward and in the backward.
-    Bidirectional and cached attention wait for serving (ROADMAP.md Queue
-    1 item 12).
+    """Exact attention with GQA grouping, written as plain products (the
+    reference's ``attention``): causal, optionally in a sliding `window`,
+    or with ``causal=False`` unmasked (bidirectional self-attention, or
+    cross-attention, where T may differ from S). For S > `q_chunk`
+    (default ``Q_CHUNK``, read at the call) with S a multiple of it the
+    queries run in chunks, each under a non-reentrant checkpoint (the
+    reference's ``jax.checkpoint`` scan body), so one chunk's (B, K, G,
+    q_chunk, T) float32 scores live at a time, in the forward and in the
+    backward. Cached attention waits for serving (ROADMAP.md Queue 1 item
+    12).
 
     q: (B, S, H, D); k/v: (B, T, K, D) with H = K * G. Returns (B, S, H, D).
     """
@@ -121,7 +138,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         kv_positions = torch.arange(T, device=q.device)
 
     def chunk(q_i: torch.Tensor, qpos_i: torch.Tensor) -> torch.Tensor:
-        mask = _causal_window_mask(qpos_i, kv_positions, window)
+        mask = (_causal_window_mask(qpos_i, kv_positions, window)
+                if causal else None)
         return _scores_softmax_out(q_i, k, v, mask, scale)
 
     if S <= max(q_chunk, 1) or S % q_chunk != 0:
@@ -156,24 +174,55 @@ def attn_project_qkv(p: dict, prefix: str, x: torch.Tensor, num_heads: int,
 
 def self_attention_block(
     p: dict, prefix: str, x: torch.Tensor, cfg, *,
+    causal: bool = True,
     window: Optional[int] = None,
     positions: Optional[torch.Tensor] = None,
+    use_rope: bool = True,
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
-    """Causal self-attention sublayer with RoPE (no residual), in a sliding
-    `window` when one is given. Returns (out, (k, v))."""
+    """Self-attention sublayer (no residual): causal, in a sliding `window`
+    when one is given, or bidirectional (``causal=False``); RoPE when
+    `use_rope` and the config has a ``rope_theta``. Returns (out, (k, v))."""
     B, S, _ = x.shape
     H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     q, k, v = attn_project_qkv(p, prefix, x, H, K, hd, bias=cfg.qkv_bias)
     if positions is None:
         positions = torch.arange(S, device=x.device)
-    if cfg.rope_theta:
+    if use_rope and cfg.rope_theta:
         cos, sin = rope_cos_sin(positions, hd, cfg.rope_theta)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
-    out = attention(q, k, v, q_positions=positions, kv_positions=positions,
-                    window=window)
+    out = attention(q, k, v, causal=causal, q_positions=positions,
+                    kv_positions=positions, window=window)
     out = out.reshape(B, S, H * hd) @ p[f"{prefix}_wo"]
     return out, (k, v)
+
+
+def cross_attention_block(p: dict, prefix: str, x: torch.Tensor,
+                          k: torch.Tensor, v: torch.Tensor, cfg
+                          ) -> torch.Tensor:
+    """Cross-attention against the encoder's k / v (whisper), unmasked."""
+    B, S, _ = x.shape
+    H, hd = cfg.num_heads, cfg.resolved_head_dim
+    q = x @ p[f"{prefix}_wq"]
+    if cfg.qkv_bias:
+        q = q + p[f"{prefix}_bq"]
+    q = q.reshape(B, S, H, hd)
+    out = attention(q, k, v, causal=False)
+    return out.reshape(B, S, H * hd) @ p[f"{prefix}_wo"]
+
+
+def project_kv_cross(p: dict, prefix: str, enc: torch.Tensor, cfg
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The encoder output's K and V for one decoder layer's
+    cross-attention: (B, T_src, K, hd) each."""
+    B, T, _ = enc.shape
+    K, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    k = enc @ p[f"{prefix}_wk"]
+    v = enc @ p[f"{prefix}_wv"]
+    if cfg.qkv_bias:
+        k = k + p[f"{prefix}_bk"]
+        v = v + p[f"{prefix}_bv"]
+    return k.reshape(B, T, K, hd), v.reshape(B, T, K, hd)
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,7 @@
-"""Model API of the port, the decoder-only families (``repro.models.model``:
-dense, MoE and the VLM's decoder with its stubbed patch input):
+"""Model API of the port on the training path (``repro.models.model``):
+every family of the reference, the decoder-only (dense, MoE and the VLM's
+decoder with its stubbed patch input), the SSM (mamba2), the hybrid
+(zamba2) and the encoder-decoder (whisper, its frontend stubbed):
 
   init_params(cfg, generator, device)   -> flat param dict (stacked layout)
   params_from_numpy(arrays, device)     -> the same dict from numpy arrays
@@ -12,7 +14,9 @@ parameters and momentum carry across between the packages by name.
 Batches are dicts with ``tokens`` (B, S) integer tensors and, for the VLM
 (pixtral), ``patch_embeds`` (B, S_img, d): the image prefix's embeddings,
 placed before the tokens' (the ViT frontend is stubbed, as in the
-reference).
+reference), or, for the encoder-decoder (whisper), ``enc_embeds`` (B,
+T_src, d): the encoder's input frames. Prefill, caches and decode wait for
+serving (ROADMAP.md Queue 1 item 12).
 """
 from __future__ import annotations
 
@@ -24,26 +28,13 @@ import torch
 
 from repro_torch import DeviceLike, resolve_device
 from repro_torch.configs.base import ArchFamily, ModelConfig
-from repro_torch.models import layers as L, transformer
+from repro_torch.models import encdec, hybrid, layers as L, transformer
 
 _BIAS_SUFFIXES = ("_b", "_bq", "_bk", "_bv", "_conv_b", "dt_bias")
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
-
-
-#: the families the port runs: the decoder-only stack
-DECODER_FAMILIES = (ArchFamily.DENSE, ArchFamily.MOE, ArchFamily.VLM)
-
-
-def _require_decoder(cfg: ModelConfig) -> None:
-    if cfg.family not in DECODER_FAMILIES:
-        raise NotImplementedError(
-            f"the port runs the decoder-only families (dense, MoE, VLM), "
-            f"not {cfg.family.value!r} ({cfg.name}); mamba2, the hybrid and "
-            "the encoder-decoder arrive with the rest of the model zoo "
-            "(ROADMAP.md Queue 1 item 11)")
 
 
 # ---------------------------------------------------------------------------
@@ -61,10 +52,13 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     (a mesh rank keeps its slice of a fused leaf), so only one whole leaf
     exists at a time.
 
+    Mamba's ``A_log`` is float32 ``log(1 .. nh) + 0.5`` for each layer (A
+    in [1, 16) as in mamba2's own init) and its ``mamba_D`` float32 ones,
+    in a model of any dtype, as in the reference.
+
     The draws differ from ``jax.random``'s; tests that compare the two
     packages init in the JAX package and carry the arrays across with
     :func:`params_from_numpy`."""
-    _require_decoder(cfg)
     dev = resolve_device(device)
     dtype = _dtype(cfg)
     params = {}
@@ -73,6 +67,13 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
             params[name] = torch.ones(shape, dtype=dtype, device=dev)
         elif name.endswith(_BIAS_SUFFIXES):
             params[name] = torch.zeros(shape, dtype=dtype, device=dev)
+        elif name.endswith("A_log"):
+            nh = shape[-1]
+            a = torch.log(torch.arange(1, nh + 1, dtype=torch.float32,
+                                       device=dev) + 0.5)
+            params[name] = a.expand(shape).contiguous()
+        elif name.endswith("mamba_D"):
+            params[name] = torch.ones(shape, dtype=torch.float32, device=dev)
         else:
             fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
             w = torch.randn(shape, generator=generator, dtype=torch.float32,
@@ -126,15 +127,37 @@ def _embed_input(cfg: ModelConfig, params: Dict[str, torch.Tensor],
 def _final_hidden(cfg: ModelConfig, params: Dict[str, torch.Tensor],
                   batch: Dict[str, torch.Tensor], hook, remat: str
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(the final-normed stream (B,S,d), aux_loss, the unembedding table)."""
-    _require_decoder(cfg)
+    """(the final-normed stream (B,S,d), aux_loss, the unembedding table):
+    the family's stack, each block under `remat`."""
     if hook is not None:
         top = {k: v for k, v in params.items()
                if not k.startswith(("layers.", "encoder."))}
         params = {**params, **hook(top, "top")}
-    h = _embed_input(cfg, params, batch)
-    h, aux = transformer.decoder_stack(params, h, cfg, hook=hook,
-                                       remat=remat)
+    aux = None
+    if cfg.family == ArchFamily.AUDIO:
+        # the frames in the model's dtype, the dtype the reference's
+        # make_batch and input_specs give them (its numpy pipeline hands
+        # float32 frames, which JAX would promote the encoder to)
+        frames = batch["enc_embeds"].to(_dtype(cfg))
+        enc = encdec.encoder_forward(params, frames, cfg, hook=hook,
+                                     remat=remat)
+        h = L.embed_tokens(params["embed.table"], batch["tokens"])
+        pos = torch.arange(h.shape[1], device=h.device)
+        h = h + L.sinusoidal_positions(pos, cfg.d_model).to(h.dtype)
+        h = encdec.decoder_forward(params, h, enc, cfg, hook=hook,
+                                   remat=remat)
+    elif cfg.family == ArchFamily.SSM:
+        h = _embed_input(cfg, params, batch)
+        h = hybrid.mamba_stack(params, h, cfg, hook=hook, remat=remat)
+    elif cfg.family == ArchFamily.HYBRID:
+        h = _embed_input(cfg, params, batch)
+        h = hybrid.hybrid_forward(params, h, cfg, hook=hook, remat=remat)
+    else:
+        h = _embed_input(cfg, params, batch)
+        h, aux = transformer.decoder_stack(params, h, cfg, hook=hook,
+                                           remat=remat)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
     h = L.rms_norm(h, params["final_norm.scale"], cfg.norm_eps)
     return h, aux, params.get("unembed.table", params["embed.table"])
 
@@ -143,7 +166,9 @@ def forward_logits(cfg: ModelConfig, params: Dict[str, torch.Tensor],
                    batch: Dict[str, torch.Tensor], hook=None,
                    remat: str = "none") -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (logits (B,S,V) in the parameter dtype, aux_loss scalar);
-    `remat` checkpoints each decoder block (``transformer.maybe_remat``).
+    `remat` checkpoints each block (``transformer.maybe_remat``; the SSM,
+    hybrid and encoder-decoder stacks each layer, as the reference's scans
+    do, and the hybrid's shared block too).
     `hook(tree, scope)` is the ZeRO-3 gather whose backward votes
     (``core.majority_vote.make_fsdp_hooks``): applied to the top-level
     parameters here and to each layer's inside the decoder stack."""
@@ -163,3 +188,28 @@ def loss_fn(cfg: ModelConfig, params: Dict[str, torch.Tensor],
         h = h[:, -tokens.shape[1]:]
     ce = L.cross_entropy_loss((h @ table.T)[:, :-1], tokens[:, 1:])
     return ce + aux, {"ce": ce, "aux": aux}
+
+
+def make_batch(cfg: ModelConfig, batch: int, seq: int,
+               generator: torch.Generator, device: DeviceLike = None
+               ) -> Dict[str, torch.Tensor]:
+    """A random batch drawn from `generator` (which must live on
+    `device`), shaped as the reference's ``make_batch``: ``tokens`` (batch,
+    seq); for the encoder-decoder ``enc_embeds`` (batch, min(T_src, 64),
+    d); for the VLM the first quarter of the sequence as ``patch_embeds``
+    and the rest as tokens. The draws differ from ``jax.random``'s."""
+    dev = resolve_device(device)
+    out = {"tokens": torch.randint(0, cfg.vocab_size, (batch, seq),
+                                   generator=generator, device=dev)}
+    if cfg.family == ArchFamily.AUDIO:
+        t_src = min(cfg.max_source_positions, 64)
+        out["enc_embeds"] = torch.randn(
+            (batch, t_src, cfg.d_model), generator=generator,
+            device=dev).to(_dtype(cfg))
+    if cfg.family == ArchFamily.VLM:
+        s_img, s_txt = _vlm_split(seq)
+        out["tokens"] = out["tokens"][:, :s_txt]
+        out["patch_embeds"] = torch.randn(
+            (batch, s_img, cfg.d_model), generator=generator,
+            device=dev).to(_dtype(cfg))
+    return out

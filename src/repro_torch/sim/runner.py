@@ -64,8 +64,10 @@ observations are taken from the stacked wire signs
 (``vote_api.effective_stacked_signs``), as the reference's ``prepare``
 derives them; the mesh returns none.
 
-Not ported: ``summary()``'s ``est_exchange_time_s`` is None (the α–β link
-model, ROADMAP.md Queue 1 item 15).
+``summary()``'s ``est_exchange_time_s`` is the reference's: the α–β
+exchange time under the H100 link model (``distributed.comm_model``), at
+each step's voter count, averaged over the steps (a plan's whole schedule,
+overlap-aware).
 """
 from __future__ import annotations
 
@@ -79,12 +81,14 @@ import numpy as np
 import torch
 
 from repro_torch import DeviceLike, resolve_device
+from repro_torch.configs.base import VoteStrategy
 from repro_torch.checkpoint.checkpoint import (refit_leading_axis,
                                                refit_tree_leading_axis)
 from repro_torch.core import attacks, population, prng
 from repro_torch.core import codecs as codecs_mod
 from repro_torch.core import sign_compress as sc
 from repro_torch.core import vote_api as va
+from repro_torch.core.vote_engine import STRATEGIES
 from repro_torch.distributed.fault_tolerance import count_for_fraction
 from repro_torch.obs import recorder as obs
 from repro_torch.sim.scenario import ScenarioSpec
@@ -123,10 +127,28 @@ class ScenarioTrace:
     final_server_state: Any = None
 
     def summary(self) -> Dict[str, Any]:
+        impl = STRATEGIES[self.spec.strategy]
         codec = codecs_mod.get_codec(self.spec.codec)
         d = self.spec.dim
-        n_buckets = (self.spec.runtime_plan(self.steps[0].n_workers)
-                     .n_buckets if self.spec.plan.enabled else 0)
+        # priced at each step's voter count (an elastic event changes it);
+        # the gathered exchange scales with the codec's symbol width
+        wire_scale = (codec.bits_per_param / impl.wire_bits_per_param
+                      if self.spec.strategy == VoteStrategy.ALLGATHER_1BIT
+                      else 1.0)
+        if self.spec.plan.enabled:
+            # a plan prices its whole schedule, one plan per voter count
+            plans = {m: self.spec.runtime_plan(m)
+                     for m in {s.n_workers for s in self.steps}}
+            est = float(np.mean(
+                [plans[s.n_workers].schedule_cost(
+                    s.n_workers, overlap=self.spec.plan.overlap)
+                 for s in self.steps]))
+            n_buckets = plans[self.steps[0].n_workers].n_buckets
+        else:
+            est = wire_scale * float(
+                np.mean([impl.estimated_time(d, s.n_workers)
+                         for s in self.steps]))
+            n_buckets = 0
         return {
             "plan_buckets": n_buckets,
             "scenario": self.spec.name,
@@ -145,8 +167,7 @@ class ScenarioTrace:
                 np.max([s.flip_fraction for s in self.steps])),
             "wire_bytes_per_replica": d * codec.wire_bits(
                 self.spec.strategy) / 8.0,
-            # the α–β exchange time needs an H100 link model (item 15)
-            "est_exchange_time_s": None,
+            "est_exchange_time_s": est,
             "digest": self.digest,
         }
 

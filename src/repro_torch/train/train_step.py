@@ -12,13 +12,15 @@ with M voters stacked on one device, or one voter per process over a
 ``tcfg`` may be the reference's preset, ``configs.presets.default_train_
 config(arch, cell)``: for glm4-9b, gemma3-12b, pixtral-12b and
 qwen2-moe-a2.7b bf16 momentum on ``psum_int8``, 8 microbatches and
-``remat="full"``; for the Mode B archs (qwen1.5-32b, deepseek-67b,
-qwen3-moe-235b-a22b) ``signsgd_vote`` with one global float32 momentum on
-``hierarchical``, 8 microbatches (qwen3-moe 4), ``remat="nested"`` and
-``fsdp=True`` (the fused ZeRO backward below). The batch's
-``patch_embeds`` (pixtral) are cut into voters' and microbatches' rows as
-its tokens are. ``tcfg.optimizer.kind`` picks
-the optimizer as the reference's ``build_optimizer`` does: the sign family
+``remat="full"``; for mamba2-2.7b, zamba2-1.2b and whisper-tiny the same
+with float32 momentum (4, 4 and 8 microbatches); for the Mode B archs
+(qwen1.5-32b, deepseek-67b, qwen3-moe-235b-a22b) ``signsgd_vote`` with one
+global float32 momentum on ``hierarchical``, 8 microbatches (qwen3-moe 4),
+``remat="nested"`` and ``fsdp=True`` (the fused ZeRO backward below). The
+batch's ``patch_embeds`` (pixtral) and ``enc_embeds`` (whisper) are cut
+into voters' and microbatches' rows as its tokens are.
+``tcfg.optimizer.kind`` picks the optimizer as the reference's
+``build_optimizer`` does: the sign family
 (Mode A or B, any beta, ``core.signum.make_sign_optimizer``) or a dense
 baseline (``sgd`` / ``sgdm`` / ``adam``, ``make_dense_optimizer``).
 
@@ -51,14 +53,21 @@ observation channel on the trainer's vote: as the reference's tree-form
 is called, at any M; the dense baselines ignore the mode and train.
 ``tcfg.loss_dtype`` is accepted and ignored, as in the reference.
 
-With ``OptimizerConfig.bucket_bytes > 0`` a sign optimizer's step builds a
-``core.vote_plan.VotePlan`` over every leaf, as the reference's
-``make_train_step`` does (``train/train_step.py:161-187``: the
-optimizer's codec map and strategy, ``data_size = M``, since the stacked
-voters are the virtual mesh, and the parameters' dtype), and the
-optimizer votes through its buckets (``core.signum``); ``art.plan`` is
-the plan and ``art.vote_strategy`` its groups' one strategy (None for a
-map whose groups resolve differently).
+``vote_strategy=auto`` resolves once, as in the reference's
+``make_train_step``: ``core.vote_engine.select_strategy`` on the model's
+parameter count, the data size (M for the stacked voters, the virtual
+mesh), the pod size and the codec, under the H100 link model
+(``distributed.comm_model``).
+
+With ``OptimizerConfig.bucket_bytes`` > 0 (or -1, the priced ladder of
+bucket sizes) a sign optimizer's step builds a ``core.vote_plan.VotePlan``
+over every leaf, as the reference's ``make_train_step`` does
+(``train/train_step.py:161-187``: the optimizer's codec map and its
+configured strategy, so that AUTO prices each codec group's schedule,
+``data_size = M`` and the parameters' dtype), and the optimizer votes
+through its buckets (``core.signum``); ``art.plan`` is the plan and
+``art.vote_strategy`` its groups' one strategy (None for a map whose
+groups resolve differently).
 
 ``metrics["loss"]`` (and ``"ce"``, ``"aux"``) is the mean over the voters
 of each voter's mean over its chunks. Unlike the JAX step, which returns
@@ -132,6 +141,7 @@ from repro_torch.configs.base import (ModelConfig, MomentumMode, TrainConfig,
                                       VoteStrategy)
 from repro_torch.core import byzantine, majority_vote, signum
 from repro_torch.core import vote_plan as vp
+from repro_torch.core.vote_engine import resolve_strategy
 from repro_torch.distributed import mesh as pm
 from repro_torch.distributed import sharding as shd
 from repro_torch.models import model as M, transformer
@@ -206,15 +216,20 @@ def acc_dtype(tcfg: TrainConfig) -> torch.dtype:
             else torch.float32)
 
 
+#: the batch's stubbed frontend inputs, cut into rows with its tokens
+FRONTEND_KEYS = ("patch_embeds", "enc_embeds")
+
+
 def voter_grads(cfg: ModelConfig, tcfg: TrainConfig,
                 params: Dict[str, torch.Tensor], tokens: torch.Tensor,
                 hook=None,
                 on_fused: Optional[Callable[[int, str, torch.Tensor],
                                             None]] = None,
-                patches: Optional[torch.Tensor] = None
+                extras: Optional[Dict[str, torch.Tensor]] = None
                 ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
     """One voter's gradients of every leaf on its rows `tokens` (and, for
-    the VLM, the same rows of `patches`, the batch's ``patch_embeds``) and
+    the VLM and the encoder-decoder, the same rows of each tensor of
+    `extras`, the batch's ``patch_embeds`` or ``enc_embeds``) and
     its metrics (``loss``, ``ce``, ``aux``): one backward pass per microbatch,
     accumulated as the reference does (see the module doc). Each leaf's
     gradient is taken as soon as autograd has made it (a post-accumulate-
@@ -250,8 +265,8 @@ def voter_grads(cfg: ModelConfig, tcfg: TrainConfig,
     for i in range(micro):
         leaves = {k: p.detach().requires_grad_() for k, p in params.items()}
         mb = {"tokens": tokens[i * rows:(i + 1) * rows]}
-        if patches is not None:
-            mb["patch_embeds"] = patches[i * rows:(i + 1) * rows]
+        for k, v in (extras or {}).items():
+            mb[k] = v[i * rows:(i + 1) * rows]
         loss, met = M.loss_fn(cfg, leaves, mb, hook=hook, remat=tcfg.remat)
         for k, leaf in leaves.items():
             leaf.register_post_accumulate_grad_hook(folder(i, k))
@@ -354,6 +369,13 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, n_voters: int = 1,
     is_sign = opt_cfg.kind in signum.SIGN_KINDS
     shapes = cfg.param_shapes()
     data, pod = (n_voters, 1) if mesh is None else (mesh.data, mesh.pod)
+    # AUTO resolves here, once, under the link model, as the reference's
+    # trainer resolves it: on the parameter count, the data and pod sizes
+    # (M stacked voters are the virtual data axis) and the codec
+    resolved = resolve_strategy(opt_cfg.vote_strategy, cfg.param_count(),
+                                data, pod, codec=opt_cfg.resolved_codec)
+    if resolved != opt_cfg.vote_strategy:
+        opt_cfg = dataclasses.replace(opt_cfg, vote_strategy=resolved)
     specs = shd.param_specs(shapes, fsdp=tcfg.fsdp,
                             mesh_shape={"pod": pod, "data": data})
     # the reference's fused = fsdp and mesh is not None; M stacked voters
@@ -367,8 +389,8 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, n_voters: int = 1,
     plan = None
     # the reference's plan: under Mode B the leaves the fused backward
     # does not vote (every leaf without fsdp), under Mode A every leaf;
-    # its codec map and the configured (unresolved) strategy, over the M
-    # stacked voters
+    # its codec map and the configured (unresolved) strategy, so that AUTO
+    # prices each codec group's whole schedule, over the M stacked voters
     explicit = {k: v for k, v in shapes.items()
                 if not (mode_b and k in dims)}
     if opt_cfg.bucket_bytes != 0 and is_sign and explicit:
@@ -376,7 +398,8 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, n_voters: int = 1,
             explicit, bucket_bytes=opt_cfg.bucket_bytes,
             codec_map=opt_cfg.codec_map,
             default_codec=opt_cfg.resolved_codec,
-            strategy=opt_cfg.vote_strategy, data_size=data, pod_size=pod,
+            strategy=tcfg.optimizer.vote_strategy, data_size=data,
+            pod_size=pod,
             dtypes={k: cfg.dtype for k in explicit}, overlap=opt_cfg.overlap)
     # the voters below num_adversaries act adversarially (salt 0, keyed by
     # the step), as the reference's trainer passes its byzantine config to
@@ -413,9 +436,8 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, n_voters: int = 1,
                 "has no such observation channel (use the stacked or "
                 "streamed form)")
         tokens = torch.as_tensor(batch["tokens"], device=dev)
-        patches = batch.get("patch_embeds")
-        if patches is not None:
-            patches = torch.as_tensor(patches, device=dev)
+        extras = {k: torch.as_tensor(batch[k], device=dev)
+                  for k in FRONTEND_KEYS if batch.get(k) is not None}
         if tokens.shape[0] != tcfg.global_batch:
             raise ValueError(f"batch has {tokens.shape[0]} rows, expected "
                              f"global_batch={tcfg.global_batch}")
@@ -430,8 +452,8 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, n_voters: int = 1,
             grads, met = voter_grads(
                 cfg, tcfg, params, tokens[r * per:(r + 1) * per],
                 hook=hooks, on_fused=stacked,
-                patches=(None if patches is None
-                         else patches[r * per:(r + 1) * per]))
+                extras={k: v[r * per:(r + 1) * per]
+                        for k, v in extras.items()})
             if hooks is not None and not revote:
                 wire["voted"] = {k: grads.pop(k) for k in dims}
             opt.encode(r, grads, opt_state, wire)

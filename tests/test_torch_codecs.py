@@ -26,6 +26,7 @@ from repro_torch.core import vote_engine as tve  # noqa: E402
 from repro_torch.core.codecs import ef_sign as tef  # noqa: E402
 from repro_torch.core.codecs import weighted as twv  # noqa: E402
 from repro_torch.core.codecs.ternary import TERNARY_WIRE  # noqa: E402
+from torch_comm_common import use_reference_constants  # noqa: E402
 
 NAMES = ("ef_sign", "sign1bit", "ternary2bit", "weighted_vote")
 WIRES = ("psum_int8", "allgather_1bit", "hierarchical")
@@ -73,17 +74,22 @@ def test_codec_wire_matches_jax(name, strategy):
 
 
 @pytest.mark.parametrize("name", NAMES)
-def test_auto_resolves_within_the_codec(name):
+def test_auto_resolves_within_the_codec(name, monkeypatch):
     """AUTO over one voter picks psum_int8 where the codec rides it, else
-    the codec's first strategy — the reference's choice; over more voters
-    it still raises (ROADMAP.md Queue 1 item 15)."""
+    the codec's first strategy — the reference's choice; over more voters,
+    under the reference's link constants, the reference's priced choice,
+    always one of the codec's strategies."""
     from repro.core import vote_engine as jve
     got = tve.resolve_strategy(TStrategy.AUTO, 1 << 20, 1, codec=name)
     assert got.value == jve.resolve_strategy(JStrategy.AUTO, 1 << 20, 1,
                                              codec=name).value
     assert got in tcodecs.get_codec(name).supported_strategies
-    with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
-        tve.resolve_strategy(TStrategy.AUTO, 1 << 20, 4, codec=name)
+    use_reference_constants(monkeypatch)
+    for n, m, pod in ((1 << 20, 4, 1), (1 << 10, 64, 1), (1 << 30, 8, 4)):
+        got = tve.resolve_strategy(TStrategy.AUTO, n, m, pod, codec=name)
+        assert got.value == jve.resolve_strategy(
+            JStrategy.AUTO, n, m, pod, codec=name).value
+        assert got in tcodecs.get_codec(name).supported_strategies
 
 
 # ---------------------------------------------------------------------------

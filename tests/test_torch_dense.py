@@ -544,14 +544,15 @@ def test_facade_reexports_the_optimizers():
     # thirteenth slice
     ({"fsdp": True}, None),
     ({"remat": "dots"}, None),
-    ({"optimizer": {"vote_strategy": tbase.VoteStrategy.AUTO}},
-     "Queue 1 item 15"),
+    # AUTO over 4 voters resolves under the H100 link model since the
+    # fifteenth slice (the dense baselines ignore the wire)
+    ({"optimizer": {"vote_strategy": tbase.VoteStrategy.AUTO}}, None),
 ], ids=["fsdp", "remat_dots", "auto_m4"])
 def test_dense_trainer_still_refuses(change, item):
-    """AUTO over 4 voters raises naming its ROADMAP.md item, as the
-    reference resolves the vote strategy for every kind; fsdp (the fused
-    ZeRO backward's mean, the layers' matrices fused) and remat="dots"
-    (item None) build and train a finite step at M = 4."""
+    """fsdp (the fused ZeRO backward's mean, the layers' matrices fused),
+    remat="dots" and AUTO over 4 voters (resolved for every kind, as the
+    reference resolves it) build and train a finite step at M = 4 (item
+    None); an item names what still raises."""
     _, t = _cfgs()
     _, tcfg = _train_cfgs("adam")
     opt = change.pop("optimizer", None)

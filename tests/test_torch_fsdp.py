@@ -112,7 +112,8 @@ def _env():
 @pytest.mark.parametrize("fsdp", [True, False])
 @pytest.mark.parametrize("arch", [
     "glm4-9b", "qwen1.5-32b", "deepseek-67b", "gemma3-12b", "pixtral-12b",
-    "qwen2-moe-a2.7b", "qwen3-moe-235b-a22b"])
+    "qwen2-moe-a2.7b", "qwen3-moe-235b-a22b", "mamba2-2.7b", "zamba2-1.2b",
+    "whisper-tiny"])
 def test_param_specs_equal_the_reference(arch, fsdp, data):
     shapes = jbase.get_config(arch).param_shapes()
     mesh = {"data": data, "model": 1}
@@ -123,8 +124,10 @@ def test_param_specs_equal_the_reference(arch, fsdp, data):
         assert got[k] == tuple(spec), k
     fused = tshd.fused_dims(got)
     assert set(fused) == {k for k, s in want.items() if "data" in tuple(s)}
-    # 3 divides gemma3's d_model (3840), no FSDP dim of the others
-    assert bool(fused) == (fsdp and (data == 4 or arch == "gemma3-12b"))
+    # 3 divides gemma3's d_model (3840) and whisper's (384), no FSDP dim
+    # of the others
+    assert bool(fused) == (fsdp and (data == 4 or arch in (
+        "gemma3-12b", "whisper-tiny")))
     assert all(not k.startswith(("embed", "unembed")) for k in fused)
 
 

@@ -39,7 +39,10 @@ def test_port_has_the_slice_modules():
                 "models/model.py", "models/moe.py", "train/train_step.py",
                 "configs/deepseek_67b.py", "configs/gemma3_12b.py",
                 "configs/pixtral_12b.py", "configs/qwen2_moe_a2p7b.py",
-                "configs/qwen3_moe_235b.py",
+                "configs/qwen3_moe_235b.py", "configs/mamba2_2p7b.py",
+                "configs/zamba2_1p2b.py", "configs/whisper_tiny.py",
+                "models/mamba2.py", "models/hybrid.py", "models/encdec.py",
+                "distributed/comm_model.py", "obs/report.py",
                 "core/codecs/__init__.py", "core/codecs/base.py",
                 "core/codecs/sign1bit.py", "core/codecs/ef_sign.py",
                 "core/codecs/ternary.py", "core/codecs/weighted.py",

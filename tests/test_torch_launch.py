@@ -9,8 +9,9 @@ the recorder's launcher helpers, on the CPU (``--device cpu``).
   stopped, bit for bit;
 * the trace (``--trace``) holds one ``train.step`` span and one step row
   per step, read back by both packages' ``read_trace``;
-* ``--serve-dir`` and an arch the port has no config for raise, naming
-  their ROADMAP.md items; ``python -m repro_torch.launch.train`` runs.
+* ``--serve-dir`` raises, naming its ROADMAP.md item, and an unknown arch
+  the registry's ``KeyError``; every family trains through the launcher;
+  ``python -m repro_torch.launch.train`` runs.
 """
 import dataclasses
 import os
@@ -56,7 +57,17 @@ def _plain(x):
     dict(arch="glm4-9b", reduced=False, batch=8, seq=128,
          opt_kind="signsgd_vote", lr=1e-3, momentum=0.0, microbatches=2,
          byz_mode="random", byz_n=0),
-], ids=["reduced", "qwen_sgd_byzantine", "signsgd"])
+    dict(arch="mamba2-2.7b", reduced=True, batch=8, seq=128,
+         opt_kind="signum_vote", lr=1e-3, momentum=0.9, microbatches=2,
+         byz_mode="none", byz_n=0),
+    dict(arch="zamba2-1.2b", reduced=False, batch=16, seq=256,
+         opt_kind="signum_vote", lr=1e-4, momentum=0.9, microbatches=4,
+         byz_mode="none", byz_n=0),
+    dict(arch="whisper-tiny", reduced=True, batch=8, seq=64,
+         opt_kind="adam", lr=1e-3, momentum=0.9, microbatches=1,
+         byz_mode="sign_flip", byz_n=1),
+], ids=["reduced", "qwen_sgd_byzantine", "signsgd", "mamba2", "zamba2",
+        "whisper"])
 def test_build_equals_the_reference(kw):
     jcfg, jtcfg = jlaunch.build(**kw)
     tcfg_, ttcfg = tlaunch.build(**kw)
@@ -140,12 +151,27 @@ def test_bench_json_is_the_reference_schema(tmp_path):
         (tmp_path / "j.json").read_text()
 
 
-def test_serve_dir_and_unported_arch_raise(tmp_path):
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "zamba2-1.2b",
+                                  "whisper-tiny"])
+def test_serve_dir_and_unported_arch_raise(tmp_path, arch, capsys):
+    """--serve-dir still names its ROADMAP.md item; every arch of the
+    reference has a config now, so only an unknown one raises (the
+    registry's KeyError, as in the reference); the three archs of the
+    SSM, hybrid and encoder-decoder families train through the launcher
+    (the reduced config, two steps, finite losses)."""
     with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
         tlaunch.main(BASE + ["--steps", "1", "--serve-dir", str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        tlaunch.main(["--device", "cpu", "--arch", "zamba2-1.2b",
-                      "--reduced", "--steps", "1"])
+    with pytest.raises(KeyError, match="unknown arch"):
+        tlaunch.main(["--device", "cpu", "--arch", "mamba3-9b", "--steps",
+                      "1"])
+    capsys.readouterr()
+    assert tlaunch.main(["--device", "cpu", "--arch", arch, "--reduced",
+                         "--batch", "4", "--seq", "32", "--steps", "2",
+                         "--log-every", "1"]) == 0
+    out = capsys.readouterr().out
+    losses = [float(line.split()[3]) for line in out.splitlines()
+              if line.startswith("step ")]
+    assert len(losses) == 2 and np.isfinite(losses).all()
 
 
 def test_module_entry_point_runs(tmp_path):

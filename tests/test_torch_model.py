@@ -177,10 +177,23 @@ def test_entry_points_need_a_card_unless_cpu_is_asked():
 
 
 def test_other_families_raise():
-    _, tcfg = _cfgs("float32")
-    ssm = dataclasses.replace(tcfg, family=ArchFamily.SSM)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tM.init_params(ssm, torch.Generator(), device="cpu")
-    params = tM.init_params(tcfg, torch.Generator(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tM.forward_logits(ssm, params, {"tokens": torch.zeros(1, 4).int()})
+    """The SSM, hybrid and encoder-decoder families run since the
+    fifteenth slice: each reduced config inits and gives finite (B, S, V)
+    logits; what still raises is an encoder-decoder batch without its
+    frames (``enc_embeds``), the reference's KeyError."""
+    for arch, family in (("mamba2-2.7b", ArchFamily.SSM),
+                         ("zamba2-1.2b", ArchFamily.HYBRID),
+                         ("whisper-tiny", ArchFamily.AUDIO)):
+        cfg = dataclasses.replace(t_reduced(t_get_config(arch)),
+                                  dtype="float32")
+        assert cfg.family == family
+        params = tM.init_params(cfg, torch.Generator().manual_seed(0),
+                                device="cpu")
+        batch = tM.make_batch(cfg, 2, 16, torch.Generator().manual_seed(1),
+                              device="cpu")
+        with torch.no_grad():
+            logits, aux = tM.forward_logits(cfg, params, batch)
+        assert logits.shape == (2, 16, cfg.vocab_size)
+        assert torch.isfinite(logits).all() and float(aux) == 0.0
+    with pytest.raises(KeyError, match="enc_embeds"):
+        tM.forward_logits(cfg, params, {"tokens": batch["tokens"]})

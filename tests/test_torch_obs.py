@@ -3,8 +3,9 @@ JAX package's (``repro.obs``): the counter registry's semantics, the span
 rows' nesting, the vote API's ``vote.*`` counters and the plan walk's
 ``plan.buckets`` counter and ``plan.*`` spans for the same requests, and a
 port trace read back by the reference's ``read_trace`` with the reference's
-row keys. The port's ``plan.issue`` spans carry ``pred_s`` None (no H100
-link model yet, ROADMAP.md Queue 1 item 15).
+row keys. The port's ``plan.issue`` spans carry ``pred_s``, the H100 link
+model's time of the bucket's message; under the reference's constants the
+reference's.
 """
 import io
 import json
@@ -29,6 +30,7 @@ from repro_torch.configs.base import VoteStrategy as TS  # noqa: E402
 from repro_torch.core import vote_api as tva  # noqa: E402
 from repro_torch.core import vote_plan as tvp  # noqa: E402
 from repro_torch.obs import recorder as tobs  # noqa: E402
+from torch_comm_common import use_reference_constants  # noqa: E402
 
 
 def _program(obs):
@@ -153,10 +155,14 @@ def _trace(sim, obs, path, spec, **kw):
     return trace
 
 
-def test_port_trace_reads_back_with_the_reference_keys(tmp_path):
+def test_port_trace_reads_back_with_the_reference_keys(tmp_path,
+                                                      monkeypatch):
     """A drill traced by the port: the reference's read_trace accepts every
     row, the step rows carry the reference's keys and values, the spans
-    are the reference's, and tracing leaves the digest as it was."""
+    are the reference's, every ``plan.issue`` span's ``pred_s`` is the
+    reference's under its link constants, and tracing leaves the digest as
+    it was."""
+    use_reference_constants(monkeypatch)
     spec = tsim.ScenarioSpec(
         "obs/x", n_workers=5, n_steps=3, dim=64,
         strategy=TS.ALLGATHER_1BIT,
@@ -186,7 +192,12 @@ def test_port_trace_reads_back_with_the_reference_keys(tmp_path):
     rissue = [r for r in rrow if r["kind"] == "span"
               and r["name"] == "plan.issue"]
     assert sorted(issue[0]["attrs"]) == sorted(rissue[0]["attrs"])
-    assert all(r["attrs"]["pred_s"] is None for r in issue)
+    # the reference records its spans when it traces, the port at every
+    # step: compare each bucket's prediction
+    def preds(rows):
+        return {(r["attrs"]["bucket"], r["attrs"]["pred_s"]) for r in rows}
+    assert preds(issue) == preds(rissue) and len(preds(issue)) > 1
+    assert all(r["attrs"]["pred_s"] > 0 for r in issue)
     assert prow[-1]["kind"] == "counters"
     plain = tsim.ScenarioRunner(spec, device="cpu").run()
     assert plain.digest == port.digest

@@ -26,6 +26,8 @@ from repro.sim import runner as jrunner  # noqa: E402
 from repro_torch import sim as tsim  # noqa: E402
 from repro_torch.configs.base import VoteStrategy as TS  # noqa: E402
 from repro_torch.sim import runner as trunner  # noqa: E402
+from repro.core import vote_engine as jve  # noqa: E402
+from torch_comm_common import use_reference_constants  # noqa: E402
 
 #: tests/tier2/test_scenario_lab.py:159-170
 GOLDEN = {"name": "golden/fixed", "n_workers": 16, "n_steps": 10, "dim": 64,
@@ -78,24 +80,36 @@ def _both(spec, steps_equal=True):
     return port, ref
 
 
-def test_golden_digest_with_the_references_draws():
+def test_golden_digest_with_the_references_draws(monkeypatch):
+    """The pinned digest; the summary's est_exchange_time_s is the link
+    model's (under the reference's constants the reference's arithmetic:
+    each step's exchange priced at its voter count, averaged)."""
     spec = tsim.ScenarioSpec.from_dict(GOLDEN)
     trace = tsim.ScenarioRunner(spec, device="cpu",
                                 draws=ReferenceDraws()).run()
     assert trace.digest == GOLDEN_DIGEST
     s = trace.summary()
-    assert s["est_exchange_time_s"] is None        # ROADMAP.md item 15
+    assert s["est_exchange_time_s"] > 0
     assert s["scenario"] == "golden/fixed" and s["tie_policy"] == "plus_one"
+    use_reference_constants(monkeypatch)
+    impl = jve.STRATEGIES[jsim.ScenarioSpec.from_dict(GOLDEN).strategy]
+    assert trace.summary()["est_exchange_time_s"] == float(np.mean(
+        [impl.estimated_time(spec.dim, st.n_workers) for st in trace.steps]))
 
 
 PRESETS = [s for s in jsim.preset_scenarios() if not s.adversary.adaptive]
 
 
 @pytest.mark.parametrize("name", [s.name for s in PRESETS])
-def test_non_adaptive_presets_digest_as_the_reference(name):
+def test_non_adaptive_presets_digest_as_the_reference(name, monkeypatch):
+    """Digest and steps as the reference's; under the reference's link
+    constants the summary's est_exchange_time_s too."""
     spec = next(s for s in tsim.preset_scenarios() if s.name == name)
-    _both(dataclasses.replace(spec, n_steps=min(spec.n_steps,
-                                                PRESET_STEPS)))
+    port, ref = _both(dataclasses.replace(spec, n_steps=min(spec.n_steps,
+                                                            PRESET_STEPS)))
+    use_reference_constants(monkeypatch)
+    assert port.summary()["est_exchange_time_s"] \
+        == ref.summary()["est_exchange_time_s"]
 
 
 @pytest.mark.parametrize("case", ["plan_elastic", "delayed_hier",

@@ -1133,15 +1133,17 @@ def test_delayed_vote_with_mode_b_raises_as_the_reference():
     ({"byzantine": tbase.ByzantineConfig(mode="adaptive_flip",
                                          num_adversaries=1)},
      "'tree' form has no such observation channel"),
-    ({"optimizer": {"vote_strategy": tbase.VoteStrategy.AUTO}},
-     "Queue 1 item 15"),
+    # AUTO over 4 voters resolves under the H100 link model since the
+    # fifteenth slice
+    ({"optimizer": {"vote_strategy": tbase.VoteStrategy.AUTO}}, None),
 ], ids=["fsdp", "remat_dots", "diagnostics", "byzantine", "auto_m4"])
 def test_mode_b_preset_still_refuses(change, item):
     """What the trainer still refuses around the qwen1.5-32b Mode B preset
     at M = 4, each naming its ROADMAP.md item, or, for an adaptive
     adversary, the reference's ValueError from the step; what it runs
-    (item None) builds, and fsdp and remat="dots" train a finite step
-    (fsdp with the layers' matrices fused)."""
+    (item None) builds, and fsdp, remat="dots" and AUTO (on the wire the
+    link model picks) train a finite step (fsdp with the layers' matrices
+    fused)."""
     _, tcfg = _qwen_preset_cfgs()
     opt = change.pop("optimizer", None)
     if opt:

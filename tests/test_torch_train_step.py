@@ -68,6 +68,9 @@ from repro_torch.core import sign_compress as tsc  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.models import model as tM  # noqa: E402
 from repro_torch.train import train_step as tTS  # noqa: E402
+from repro.configs.base import VoteStrategy as JVoteStrategy  # noqa: E402
+from repro_torch.core.vote_engine import resolve_strategy  # noqa: E402
+from torch_comm_common import use_reference_constants  # noqa: E402
 
 from torch_train_step_common import (  # noqa: E402
     GB,
@@ -238,7 +241,8 @@ _TRAIN_FIELDS = ("fsdp", "byzantine", "remat", "diagnostics", "loss_dtype")
     {"vote_strategy": tbase.VoteStrategy.HIERARCHICAL, "fsdp": True},
     # Mode B runs, and its presets' fsdp
     {"momentum_mode": tbase.MomentumMode.GLOBAL, "fsdp": True},
-    # the priced AUTO ladder of bucket sizes (Queue 1 item 15)
+    # the priced AUTO ladder of bucket sizes runs (since the fifteenth
+    # slice), synchronous and overlapped
     {"bucket_bytes": -1},
     # beta = 0 runs with an adversary; an adaptive one raises the
     # reference's ValueError when the step is called (its tree-form vote
@@ -253,7 +257,9 @@ def test_unported_options_raise(opt):
     """Each option raises naming its ROADMAP.md item, or (an adaptive
     adversary) the reference's ValueError when the step is called; the
     options this port runs since (fsdp, remat="dots") train a step at M =
-    1 bit-equal to the step without them."""
+    1 bit-equal to the step without them, and bucket_bytes = -1 (the
+    priced ladder) bit-equal to the step whose plan names the size the
+    ladder chose."""
     cfg, tcfg = _tcfgs()
     train = {k: v for k, v in opt.items() if k in _TRAIN_FIELDS}
     opt = {k: v for k, v in opt.items() if k not in _TRAIN_FIELDS}
@@ -276,6 +282,26 @@ def test_unported_options_raise(opt):
         for k, v in got[0][1].items():
             assert torch.equal(v, got[1][1][k]), k
         return
+    if opt.get("bucket_bytes") == -1:
+        tokens = torch.from_numpy(SyntheticLMPipeline(
+            _jcfgs()[0], GB, SEQ, seed=0).global_batch_at(0)["tokens"])
+        art = tTS.make_train_step(cfg, tcfg, 1, device="cpu")
+        (group,) = art.plan.groups
+        named = dataclasses.replace(tcfg, optimizer=dataclasses.replace(
+            tcfg.optimizer, bucket_bytes=group.bucket_bytes))
+        art2 = tTS.make_train_step(cfg, named, 1, device="cpu")
+        assert art2.plan.buckets == art.plan.buckets
+        got = []
+        for a, t in ((art, tcfg), (art2, named)):
+            params, state = tTS.materialize_state(
+                cfg, t, a, torch.Generator().manual_seed(0))
+            params, state, met = a.step_fn(params, state,
+                                           {"tokens": tokens}, 0)
+            got.append((float(met["loss"]), params))
+        assert got[0][0] == got[1][0]
+        for k, v in got[0][1].items():
+            assert torch.equal(v, got[1][1][k]), k
+        return
     if "byzantine" in train:
         art = tTS.make_train_step(cfg, tcfg, 1, device="cpu")
         params, state = tTS.materialize_state(
@@ -289,11 +315,12 @@ def test_unported_options_raise(opt):
         tTS.make_train_step(cfg, tcfg, 1, device="cpu")
 
 
-def test_default_strategy_is_psum_int8_and_raises():
+def test_default_strategy_is_psum_int8_and_raises(monkeypatch):
     """OptimizerConfig's default strategy is PSUM_INT8, which the trainer
     runs (on its 2-bit count wire); AUTO resolves to it at M = 1, as in the
-    reference, and raises over more voters (no H100 link model to price
-    the wires: ROADMAP.md Queue 1 item 15)."""
+    reference, and over more voters to the link model's choice on the
+    model's parameter count: under the reference's constants the
+    reference's choice."""
     cfg, _ = _tcfgs()
     tcfg = tbase.TrainConfig(global_batch=GB, seq_len=SEQ)
     assert tcfg.optimizer.vote_strategy == tbase.VoteStrategy.PSUM_INT8
@@ -304,8 +331,12 @@ def test_default_strategy_is_psum_int8_and_raises():
         tcfg.optimizer, vote_strategy=tbase.VoteStrategy.AUTO))
     art = tTS.make_train_step(cfg, auto, 1, device="cpu")
     assert art.vote_strategy == tbase.VoteStrategy.PSUM_INT8
-    with pytest.raises(NotImplementedError, match="item 15"):
-        tTS.make_train_step(cfg, auto, 4, device="cpu")
+    use_reference_constants(monkeypatch)
+    from repro.core import vote_engine as jve
+    for m in (2, 4, 8):
+        art = tTS.make_train_step(cfg, auto, m, device="cpu")
+        assert art.vote_strategy.value == jve.resolve_strategy(
+            JVoteStrategy.AUTO, cfg.param_count(), m).value
 
 
 def test_make_train_step_without_device_needs_a_card():
@@ -478,8 +509,9 @@ def test_m1_preset_step_matches_reference_trainer(step):
     # thirteenth, as remat="dots" and fsdp
     ({"optimizer": {"vote_strategy": tbase.VoteStrategy.HIERARCHICAL},
       "fsdp": True}, None),
-    ({"optimizer": {"vote_strategy": tbase.VoteStrategy.AUTO}},
-     "Queue 1 item 15"),
+    # AUTO over 4 voters resolves under the H100 link model since the
+    # fifteenth slice
+    ({"optimizer": {"vote_strategy": tbase.VoteStrategy.AUTO}}, None),
     ({"remat": "dots"}, None),
     ({"fsdp": True}, None),
     # the vote diagnostics run since the multi-process wire's slice
@@ -490,8 +522,12 @@ def test_preset_trainer_still_refuses(change, item):
     naming its ROADMAP.md item (item None: accepted now). Mode A with
     momentum under fsdp builds, and refuses at ``materialize_state`` with
     the reference's ``DuplicateSpecError`` (its per-worker momentum would
-    be sharded over "data" twice); remat="dots" trains a finite step."""
+    be sharded over "data" twice); remat="dots" trains a finite step, and
+    so does AUTO, on the wire the link model picks for the model's
+    parameter count."""
     _, tcfg = _preset_cfgs()
+    auto = change.get("optimizer", {}).get("vote_strategy") \
+        == tbase.VoteStrategy.AUTO
     opt = change.pop("optimizer", None)
     if opt:
         change["optimizer"] = dataclasses.replace(tcfg.optimizer, **opt)
@@ -505,7 +541,10 @@ def test_preset_trainer_still_refuses(change, item):
             with pytest.raises(tshd.DuplicateSpecError, match="`data`"):
                 tTS.materialize_state(cfg, tcfg, art,
                                       torch.Generator().manual_seed(0))
-        elif tcfg.remat == "dots":
+        elif tcfg.remat == "dots" or auto:
+            if auto:
+                assert art.vote_strategy == resolve_strategy(
+                    tbase.VoteStrategy.AUTO, cfg.param_count(), M4)
             params, state = tTS.materialize_state(
                 cfg, tcfg, art, torch.Generator().manual_seed(0))
             _, _, met = art.step_fn(params, state, {"tokens": torch.zeros(

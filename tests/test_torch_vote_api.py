@@ -33,6 +33,7 @@ from repro_torch.core import vote_engine as tve  # noqa: E402
 from repro_torch.core import vote_plan as tvp  # noqa: E402
 from repro_torch.distributed import fault_tolerance as tft  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
+from torch_comm_common import use_reference_constants  # noqa: E402
 
 WIRES = ("psum_int8", "allgather_1bit", "hierarchical")
 #: (strategy, use_kernels) pairs the virtual backend executes
@@ -322,18 +323,32 @@ def test_sign1bit_codec_matches_jax(strategy):
     assert t.ties(TStrategy(strategy)) == j.ties(JStrategy(strategy))
 
 
-def test_resolve_strategy():
+def test_resolve_strategy(monkeypatch):
+    """A named wire stays; AUTO over one voter is psum_int8 (no wire at
+    all), as the reference resolves it; over more voters, under the
+    reference's link constants, the reference's choice, and a stacked
+    request with the default strategy (AUTO) votes as the reference's on
+    its resolved wire, WireReport included."""
     for s in WIRES:
         assert tve.resolve_strategy(TStrategy(s), 100, 8) == TStrategy(s)
-    # one voter: no wire at all, psum, as the reference resolves it
     assert tve.resolve_strategy(TStrategy.AUTO, 1 << 30, 1).value \
         == jve.resolve_strategy(JStrategy.AUTO, 1 << 30, 1).value \
         == "psum_int8"
     out = tva.VirtualBackend(device="cpu").execute(tva.VoteRequest(
         payload=np.ones((1, 40)), form="stacked"))
     assert out.wire.strategy == TStrategy.PSUM_INT8
-    with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
-        tve.resolve_strategy(TStrategy.AUTO, 1 << 30, 4)
+    use_reference_constants(monkeypatch)
+    for n in (100, 1 << 20, 1 << 30):
+        for m in (2, 4, 16, 64):
+            assert tve.resolve_strategy(TStrategy.AUTO, n, m).value \
+                == jve.resolve_strategy(JStrategy.AUTO, n, m).value
+    for m, n in ((4, 1000), (5, 37), (16, 200)):
+        _, jx, tx = _payload(m, n, "float32", seed=9)
+        jout = jva.VirtualBackend().execute(jva.VoteRequest(
+            payload=jx, form="stacked"))
+        tout = tva.VirtualBackend(device="cpu").execute(tva.VoteRequest(
+            payload=tx, form="stacked"))
+        _assert_same_outcome(jout, tout)
 
 
 # ---------------------------------------------------------------------------
@@ -419,10 +434,11 @@ def _not_ported_cases():
             TByz(mode="sign_flip", num_adversaries=1), _one_rank())),
         "stragglers": (None, lambda: tft.straggler_mask_for(_one_rank(),
                                                             1)),
-        # a plan runs since item 7; pricing one needs an H100 link model
-        "plan": ("15", lambda: tvp.build_plan(
+        # a plan runs since item 7; the H100 link model prices AUTO over
+        # voters and the bucket ladder since the fifteenth slice
+        "plan": (None, lambda: tvp.build_plan(
             {"a": (70,)}, bucket_bytes=8, data_size=5)),
-        "overlap": ("15", lambda: tvp.build_plan(
+        "overlap": (None, lambda: tvp.build_plan(
             {"a": (70,)}, bucket_bytes=tvp.AUTO_BUCKET_BYTES,
             strategy=TStrategy.ALLGATHER_1BIT, overlap=True)),
         # every codec runs on the stacked form; these requests combine
@@ -434,7 +450,7 @@ def _not_ported_cases():
                                    default_codec="ternary2bit",
                                    strategy=TStrategy.ALLGATHER_1BIT),
             torch.from_numpy(x[0]), prev_signs=x[0], n_stale=1)),
-        "auto_over_voters": ("15", lambda: tva.VirtualBackend(
+        "auto_over_voters": (None, lambda: tva.VirtualBackend(
             device="cpu").execute(tva.VoteRequest(**stacked))),
     }
 

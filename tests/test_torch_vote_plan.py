@@ -40,6 +40,7 @@ from repro_torch.core import signum as tsignum  # noqa: E402
 from repro_torch.core import vote_api as tva  # noqa: E402
 from repro_torch.core import vote_plan as tvp  # noqa: E402
 from repro_torch.train import train_step as tTS  # noqa: E402
+from torch_comm_common import use_reference_constants  # noqa: E402
 
 SHAPES = {"embed.table": (7, 9), "layers.w_gate": (5, 11),
           "layers.norm": (3,), "unembed.table": (6, 4)}
@@ -179,29 +180,48 @@ def test_build_validation_matches_reference(case):
     assert msgs[0] == msgs[1]
 
 
+def _trainer_plan(pkg, **_):
+    """The plan each trainer builds at M = 1 with bucket_bytes = -1."""
+    if pkg is jvp:
+        jcfg, jt = tts._jcfgs()
+        jt = dataclasses.replace(jt, optimizer=dataclasses.replace(
+            jt.optimizer, bucket_bytes=-1))
+        return jTS.make_train_step(jcfg, jt).plan
+    return tTS.make_train_step(*_plan_tcfgs(bucket_bytes=-1), 1,
+                               device="cpu").plan
+
+
+#: the priced choices, each a function of the package: (the plan, and for
+#: schedule_cost its α–β time)
 PRICED = {
-    "auto_over_voters": lambda: tvp.build_plan(
-        {"a": (100_000,)}, bucket_bytes=256, data_size=16),
-    "auto_bucket_bytes": lambda: tvp.build_plan(
-        {"a": (50_000,)}, bucket_bytes=tvp.AUTO_BUCKET_BYTES,
-        strategy=tbase.VoteStrategy.ALLGATHER_1BIT, data_size=8),
-    "auto_bucket_bytes_one_voter": lambda: tvp.build_plan(
-        {"a": (64,)}, bucket_bytes=tvp.AUTO_BUCKET_BYTES),
-    "schedule_cost": lambda: tvp.build_plan(
-        {"a": (65536,)}, bucket_bytes=64,
-        strategy=tbase.VoteStrategy.ALLGATHER_1BIT).schedule_cost(16),
-    "trainer_auto_ladder": lambda: tTS.make_train_step(
-        *_plan_tcfgs(bucket_bytes=-1), 1, device="cpu"),
+    "auto_over_voters": lambda pkg: _build(
+        pkg, shapes={"a": (100_000,)}, bucket_bytes=256, data_size=16),
+    "auto_bucket_bytes": lambda pkg: _build(
+        pkg, shapes={"a": (50_000,)}, bucket_bytes=pkg.AUTO_BUCKET_BYTES,
+        strategy=(JS if pkg is jvp else tbase.VoteStrategy).ALLGATHER_1BIT,
+        data_size=8),
+    "auto_bucket_bytes_one_voter": lambda pkg: _build(
+        pkg, shapes={"a": (64,)}, bucket_bytes=pkg.AUTO_BUCKET_BYTES),
+    "schedule_cost": lambda pkg: _build(
+        pkg, shapes={"a": (65536,)}, bucket_bytes=64,
+        strategy=(JS if pkg is jvp else tbase.VoteStrategy).ALLGATHER_1BIT),
+    "trainer_auto_ladder": _trainer_plan,
 }
 
 
 @pytest.mark.parametrize("case", sorted(PRICED))
-def test_priced_auto_raises_naming_item_15(case):
-    """The reference prices these with TPU v5e constants; the port has no
-    H100 link model yet."""
-    with pytest.raises(NotImplementedError,
-                       match=r"ROADMAP.md Queue 1 item 15\b"):
-        PRICED[case]()
+def test_priced_auto_raises_naming_item_15(case, monkeypatch):
+    """The priced choices the port refused until it had a link model of
+    its own now run: under the reference's constants (set on the port's
+    module) each plan's manifest and ``schedule_cost`` at 1, 4 and 16
+    voters, overlap off and on, equal the reference's."""
+    use_reference_constants(monkeypatch)
+    ref, port = PRICED[case](jvp), PRICED[case](tvp)
+    assert _manifest(port) == _manifest(ref)
+    for data in (1, 4, 16):
+        for overlap in (False, True):
+            assert port.schedule_cost(data, overlap=overlap) \
+                == ref.schedule_cost(data, overlap=overlap)
 
 
 @pytest.mark.parametrize("codec", ["sign1bit", "ef_sign", "ternary2bit",

@@ -415,6 +415,12 @@ def _check_mode_b(ref, got):
 
 @pytest.mark.parametrize("arch", ZOO)
 def test_preset_step_matches_the_composed_reference(arch):
+    check_preset_step(arch)
+
+
+def check_preset_step(arch):
+    """(d) for `arch` (``test_torch_ssm.py`` and ``test_torch_encdec.py``
+    hold their archs' presets with it too)."""
     cfg, tcfg = _cfgs(arch)
     jt, tt = _presets(arch)
     mode_b = arch in MODE_B
