@@ -270,21 +270,24 @@ Phases, each of which fails the run (non-zero exit) on any disagreement:
 
 16. the decoder-only model zoo (after phase 15; ``scripts/zoo_probe.py``
    runs it alone): gemma3's attention at full width (16 / 8 heads of 256)
-   and seq 4096, the chunked path (q_chunk 1024) against the unchunked
+   and seq ZOO_SEQ (2048; 4096, train_4k's, until phase 18 came: cut for
+   the script's time), the chunked path (q_chunk 1024) against the unchunked
    product, a local (window 1024) and a global layer, output and
    gradients within ATTN_ULPS bf16 ulps, each path's peak; then the
    presets (``default_train_config(arch, train_4k)``) of gemma3-12b (6
-   layers: one 5:1 local / global period), pixtral-12b (2, the patch
-   prefix a quarter of the sequence), qwen2-moe-a2.7b (2), qwen3-moe-235b-
-   a22b (1, fsdp) and deepseek-67b (2, fsdp) at every published width, seq
-   4096, M = 4 stacked, batch cut to one row a voter a microbatch (32; 16
+   layers: one 5:1 local / global period), pixtral-12b (1, the patch
+   prefix a quarter of the sequence), qwen2-moe-a2.7b (1), qwen3-moe-235b-
+   a22b (1, fsdp) and deepseek-67b (1, fsdp; pixtral, qwen2-moe and
+   deepseek at 2 until phase 18 came, cut for the script's time) at every
+   published width, seq ZOO_SEQ, M = 4 stacked, batch cut to one row a
+   voter a microbatch (32; 16
    for qwen3-moe's 4 microbatches), tokens drawn on the card from a seed:
    step 0 with every launch held against its plain version and one leaf's
    step-0 vote (an expert leaf for the MoE archs) against its plain
    recomputation, step 0 again from the same state with losses, every
    tally output, parameters and momenta bit-equal, then step 1; exact
-   launches, finite ce and aux, s/step, peak memory, and qwen2-moe's next
-   step under torch.profiler;
+   launches, finite ce and aux, s/step, peak memory (qwen2-moe's next step
+   under torch.profiler in ``scripts/zoo_probe.py`` only, since phase 18);
 17. the priced wire and the last three families (after phase 16;
    ``scripts/family_probe.py`` runs it alone). 17a, at phase 3's cell
    (glm4-9b, 2 layers, M = 4, batch 8, seq 512): the trainer with
@@ -302,18 +305,55 @@ Phases, each of which fails the run (non-zero exit) on any disagreement:
    trace with every section and a predicted exchange on every bucket (the
    measured one is the host's spans on one card, not a link). 17b, the
    presets (``default_train_config(arch, train_4k)``: float32 momentum on
-   psum_int8, full remat) of mamba2-2.7b (8 of 64 layers), zamba2-1.2b (8
+   psum_int8, full remat) of mamba2-2.7b (4 of 64 layers; 8 until phase
+   18 came, cut for the script's time), zamba2-1.2b (8
    of 38: a segment of 6 and its shared block, then 2 without) and
-   whisper-tiny (4 + 4) at every published width, seq 4096, M = 4, batch
+   whisper-tiny (4 + 4) at every published width, seq ZOO_SEQ, M = 4, batch
    cut to one row a voter a microbatch (16, 16, 32), as phase 16's: step 0
    with every launch held against its plain version and one leaf's vote
    (mamba2's float32 ``layers.mamba_A_log``, zamba2's
    ``shared_block.attn_wq``, whisper's ``layers.xattn_wq``) against its
    plain recomputation, step 0 again bit-equal, step 1, s/step, peak
-   memory, and mamba2's next step under torch.profiler.
+   memory (mamba2's next step under torch.profiler in
+   ``scripts/family_probe.py`` only, since phase 18);
+18. serving (after phase 17; ``scripts/serve_probe.py`` runs it alone),
+   which launches none of the port's kernels before 18d (checked): 18a,
+   glm4-9b at every published width and full depth (40 layers, bf16,
+   seeded weights) behind the continuous ``ServeEngine`` (8 slots,
+   max_len 1024, prefill admission in buckets of 128 / 256 / 512) on 24
+   Poisson requests (prompts of 128-512, 32-96 tokens each, greedy), then
+   the static scheduler on the same requests: zero dropped, the same
+   tokens, every lane equal to its request served alone in an engine of
+   the same shape, one decode build, continuous goodput >= static; ms per
+   decode tick (CUDA events) beside its memory bound (the weights and the
+   live KV rows over 3.35 TB/s), tokens/s, TTFT and latency p50 / p95 in
+   ticks, peak memory; 4 of the requests by inline admission (token
+   agreement and the largest logit gap printed; equality required of a
+   float32 2-layer twin). 18b, qwen1.5-32b at every published width and 32
+   of its 64 layers, its int8 KV cache: 4 slots, max_len 8192, prompts of
+   4,200-4,600 tokens through one prefill bucket of 4608 and 32 tokens
+   each (the chunked online-softmax decode over two KV_CHUNKs); the
+   engine's tokens teacher-forced through the model API with the int8
+   cache (its greedy tokens the engine's) and with a bf16 cache, every
+   logit within 0.15 of the twin's (relative at max(|logit|, 1)). 18c,
+   gemma3-12b (6 layers, prompts past its 1024 window), pixtral-12b (2,
+   tokens only), qwen2-moe-a2.7b (2), qwen3-moe-235b-a22b (1),
+   deepseek-67b (1), mamba2-2.7b (4) and zamba2-1.2b (8) (inline
+   admission) at every published width behind 4 slots, every lane equal
+   to its request served alone, and whisper-tiny's batch loop with
+   stubbed frames (each row equal to itself served alone); each arch's
+   float32 twin decoding 64 teacher-forced steps against its
+   forward_logits at the CPU tests' rtol / atol 2e-3; ms per tick,
+   tokens/s and peak memory printed. 18d, an engine serving glm4-9b's
+   width at 2 layers while the port's launcher (in process, cut to the
+   same depth) trains 3 steps and publishes with ``--serve-dir``; the
+   engine's CheckpointWatcher picks the checkpoint up between ticks: zero
+   dropped, one swap, every request admitted after it equal to an engine
+   started on the published parameters, the launcher's launches exact and
+   each held against its plain version.
 
-Phase 13's, 14's, 15's, 16's and 17's launches (phases 14's and 15b's
-summed over their ranks) join the kernels line.
+Phase 13's, 14's, 15's, 16's, 17's and 18's launches (phases 14's and
+15b's summed over their ranks) join the kernels line.
 
 Phase 7 also times ternary_majority with ties +1 (its own row),
 ternary_unpack to bf16 and bitpack of the bf16 stack (its own row, whose
@@ -3466,7 +3506,8 @@ def run_population_path(torch, dev, err) -> dict:
 #: ranks of the mesh world, all on cuda:0 (NCCL takes one device per rank,
 #: and there is one card, so they meet over gloo through host memory)
 MESH_RANKS = 4
-MESH_STEPS = 2
+#: 2 until phase 18 joined the script (cut for its time)
+MESH_STEPS = 1
 #: phase 14's runs: (label, mesh shape, mesh axes, optimizer options,
 #: train options); every one from the same seed as phase 3
 MESH_RUNS = (
@@ -4683,20 +4724,23 @@ def run_fsdp_path(torch, dev, errs) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 16: the decoder-only model zoo's presets at seq 4096
+# phase 16: the decoder-only model zoo's presets at seq ZOO_SEQ
 # ---------------------------------------------------------------------------
 
 #: phase 16's archs: (arch, depth, the leaf whose step-0 vote is recomputed
-#: by plain PyTorch). Every published width, seq 4096; depth cut by memory
-#: (gemma3 keeps one whole 5:1 local / global period)
+#: by plain PyTorch). Every published width, seq ZOO_SEQ; depth cut by memory
+#: (gemma3 keeps one whole 5:1 local / global period), pixtral's,
+#: qwen2-moe's and deepseek's from 2 to 1 for the script's time once phase
+#: 18 joined it
 ZOO = (("gemma3-12b", 6, "layers.attn_wq"),
-       ("pixtral-12b", 2, "layers.attn_wq"),
-       ("qwen2-moe-a2.7b", 2, "layers.experts_w_down"),
+       ("pixtral-12b", 1, "layers.attn_wq"),
+       ("qwen2-moe-a2.7b", 1, "layers.experts_w_down"),
        ("qwen3-moe-235b-a22b", 1, "layers.experts_w_gate"),
-       ("deepseek-67b", 2, "layers.attn_wq"))
+       ("deepseek-67b", 1, "layers.attn_wq"))
 #: steps 0..ZOO_STEPS-1, step 0 run twice: three steps of compute an arch
-#: (cut from 4 so that the phase stays under about 4 minutes)
-ZOO_SEQ, ZOO_STEPS = 4096, 2
+#: (cut from 4 so that the phase stays under about 4 minutes); the seq
+#: train_4k's 4096 until phase 18 joined the script, 2048 since (its time)
+ZOO_SEQ, ZOO_STEPS = 2048, 2
 #: the arch whose step 3 runs under torch.profiler
 ZOO_PROFILED = "qwen2-moe-a2.7b"
 #: chunked against unchunked attention at gemma3's full width: bf16 q, k,
@@ -5038,15 +5082,17 @@ def check_zoo_attention(torch, dev) -> None:
          "head_dim": hd, "q_chunk": L.Q_CHUNK, **out})
 
 
-def run_zoo_path(torch, dev, err) -> dict:
+def run_zoo_path(torch, dev, err, profiled=ZOO_PROFILED) -> dict:
     """Phase 16: the chunked attention check, then each ZOO arch's preset
-    (``run_zoo_arch``). Returns the launches, Mode A's bf16-momentum
-    momentum_sign_pack as ``momentum_sign_pack_bf16m``."""
+    (``run_zoo_arch``), the arch `profiled` (None: none) with one more
+    step under torch.profiler. Returns the launches, Mode A's
+    bf16-momentum momentum_sign_pack as ``momentum_sign_pack_bf16m``."""
     t0 = time.perf_counter()
     check_zoo_attention(torch, dev)
     launches = {}
     for arch, depth, leaf in ZOO:
-        got = run_zoo_arch(torch, dev, err, arch, depth, leaf)
+        got = run_zoo_arch(torch, dev, err, arch, depth, leaf,
+                           profiled=arch == profiled)
         if "ternary_majority" in got:   # Mode A: bf16 momentum
             got["momentum_sign_pack_bf16m"] = got.pop("momentum_sign_pack")
         for k, v in got.items():
@@ -5058,7 +5104,7 @@ def run_zoo_path(torch, dev, err) -> dict:
 
 # ---------------------------------------------------------------------------
 # phase 17: the priced wire (17a) and the SSM, hybrid and encoder-decoder
-# families' presets at seq 4096 (17b)
+# families' presets at seq ZOO_SEQ (17b)
 # ---------------------------------------------------------------------------
 
 #: 17a: steps of each trainer run (the AUTO run and its named twin)
@@ -5066,12 +5112,14 @@ WIRE_STEPS = 2
 #: 17a: the codecs whose votes of the trained momentum take AUTO
 AUTO_CODECS = ("sign1bit", "ef_sign", "ternary2bit", "weighted_vote")
 #: 17b's archs: (arch, depth, the leaf whose step-0 vote is recomputed by
-#: plain PyTorch). Every published width, seq 4096. Depth is cut for the
+#: plain PyTorch). Every published width, seq ZOO_SEQ. Depth is cut for the
 #: phase's time, not by memory: at full depth mamba2 (64 layers, 64.0 GB)
 #: took 19.0 s a step and zamba2 (38, 27.6 GB) 15.6 s on an H100 80GB at
-#: 700 W (PERF.md §5, scripts/family_probe.py). zamba2 keeps one whole segment of 6 mamba layers and its shared
-#: block, then a ragged segment of 2 without one, as its last segment
-FAMILIES = (("mamba2-2.7b", 8, "layers.mamba_A_log"),
+#: 700 W (PERF.md §5, scripts/family_probe.py); mamba2's from 8 to 4 once
+#: phase 18 joined the script. zamba2 keeps one whole segment of 6 mamba
+#: layers and its shared block, then a ragged segment of 2 without one, as
+#: its last segment
+FAMILIES = (("mamba2-2.7b", 4, "layers.mamba_A_log"),
             ("zamba2-1.2b", 8, "shared_block.attn_wq"),
             ("whisper-tiny", 4, "layers.xattn_wq"))
 #: the arch whose next step runs under torch.profiler
@@ -5341,15 +5389,17 @@ def run_wire_path(torch, cfg, dev) -> dict:
     return totals
 
 
-def run_family_path(torch, dev, err) -> dict:
+def run_family_path(torch, dev, err, profiled=FAMILY_PROFILED) -> dict:
     """Phase 17b: each FAMILIES arch's preset (``run_zoo_arch``, the
-    family's float32 momentum on psum_int8). Returns the launches."""
+    family's float32 momentum on psum_int8), the arch `profiled` (None:
+    none) with one more step under torch.profiler. Returns the
+    launches."""
     t0 = time.perf_counter()
     launches = {}
     for arch, depth, leaf in FAMILIES:
         got = run_zoo_arch(torch, dev, err, arch, depth, leaf,
                            phase_name="family",
-                           profiled=arch == FAMILY_PROFILED)
+                           profiled=arch == profiled)
         for k, v in got.items():
             launches[k] = launches.get(k, 0) + v
     log({"phase": "family_path_done", "launches": launches,
@@ -5357,13 +5407,667 @@ def run_family_path(torch, dev, err) -> dict:
     return launches
 
 
-def run_phase17(torch, cfg, dev, err) -> dict:
+def run_phase17(torch, cfg, dev, err, profiled=FAMILY_PROFILED) -> dict:
     """Phase 17 (a, b): returns their launches."""
     t0 = time.perf_counter()
     launches = run_wire_path(torch, cfg, dev)
-    for k, v in run_family_path(torch, dev, err).items():
+    for k, v in run_family_path(torch, dev, err, profiled).items():
         launches[k] = launches.get(k, 0) + v
     log({"phase": "phase17_done", "launches": launches,
+         "seconds": time.perf_counter() - t0})
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 18: serving on the card
+# ---------------------------------------------------------------------------
+
+#: 18a: glm4-9b at full depth and width behind the continuous engine
+SERVE_MAIN = dict(n_slots=8, max_len=1024, prompt_pad=512, admit="prefill",
+                  prefill_buckets=(128, 256, 512))
+SERVE_TRAFFIC = dict(n_requests=24, rate=0.15, prompt_lens=(128, 256, 512),
+                     gen_range=(32, 96), seed=18)
+#: 18a's inline check: this many of the requests (the shortest prompts)
+SERVE_INLINE = 4
+#: 18b: qwen1.5-32b at half depth (64 -> 32 layers, for memory), its int8
+#: KV cache past two KV_CHUNKs; the reference test's bound on its logits
+#: against a bf16-cache twin (relative at max(|logit|, 1))
+SERVE_INT8_DEPTH = 32
+SERVE_INT8 = dict(n_slots=4, max_len=8192, prompt_pad=4608, admit="prefill",
+                  prefill_buckets=(4608,))
+SERVE_INT8_TRAFFIC = dict(n_requests=4, rate=1.0,
+                          prompt_lens=(4200, 4350, 4500, 4600),
+                          gen_range=(32, 32), seed=19)
+SERVE_INT8_BOUND = 0.15
+#: 18c: the other archs at phase 16 / 17's cut depths: (arch, depth,
+#: admission, prompt lengths); gemma3's prompts pass its 1024 window
+SERVE_ZOO = (("gemma3-12b", 6, "prefill", (1100, 1150, 1200)),
+             ("pixtral-12b", 1, "prefill", (64, 96, 128)),
+             ("qwen2-moe-a2.7b", 1, "prefill", (64, 96, 128)),
+             ("qwen3-moe-235b-a22b", 1, "prefill", (64, 96, 128)),
+             ("deepseek-67b", 1, "prefill", (64, 96, 128)),
+             ("mamba2-2.7b", 4, "inline", (16, 24, 32)),
+             ("zamba2-1.2b", 8, "inline", (16, 24, 32)))
+SERVE_ZOO_TRAFFIC = dict(n_requests=6, rate=0.5, gen_range=(16, 32),
+                         seed=20)
+SERVE_ZOO_SLOTS = 4
+#: teacher-forced decode steps against forward_logits, in a float32 twin
+#: at the CPU tests' bound (rtol / atol 2e-3, tests/test_torch_decode.py);
+#: the decoder-only twins first prefill SERVE_TF_PREFIX tokens (gemma3's
+#: past its window)
+SERVE_TF_STEPS, SERVE_TF_RTOL = 64, 2e-3
+SERVE_TF_PREFIX = {"gemma3-12b": 1100}
+#: whisper-tiny's batch loop: rows, prompt length, tokens generated
+SERVE_AUDIO = (4, 32, 32)
+#: 18d: the launcher at glm4-9b's width, 2 layers, publishing once, and
+#: the engine it swaps into
+SERVE_SWAP_DEPTH = 2
+SERVE_SWAP_LAUNCH = ("--arch", "glm4-9b", "--steps", "3", "--batch", "8",
+                     "--seq", "128", "--opt", "signsgd_vote",
+                     "--momentum", "0", "--log-every", "1",
+                     "--serve-every", "3")
+SERVE_SWAP = dict(n_slots=4, max_len=160, prompt_pad=64)
+SERVE_SWAP_TRAFFIC = dict(n_requests=8, rate=0.25, prompt_lens=(32, 64),
+                          gen_range=(16, 32), seed=21)
+SERVE_SWAP_TICK = 12
+
+
+class TickTimer:
+    """A serving engine's step functions with each decode tick between
+    two CUDA events (read once the run has ended); admissions pass
+    through untimed."""
+
+    def __init__(self, torch, fns):
+        self._torch, self._fns, self.events = torch, fns, []
+
+    def __getattr__(self, name):
+        return getattr(self._fns, name)
+
+    def step(self, params, state):
+        cuda = state["pos"].is_cuda
+        if cuda:
+            start = self._torch.cuda.Event(enable_timing=True)
+            end = self._torch.cuda.Event(enable_timing=True)
+            start.record()
+        out = self._fns.step(params, state)
+        if cuda:
+            end.record()
+            self.events.append((start, end))
+        return out
+
+    def ms(self) -> list:
+        self._torch.cuda.synchronize()
+        return [s.elapsed_time(e) for s, e in self.events]
+
+
+def param_bytes(params: dict, names=None) -> int:
+    return sum(p.numel() * p.element_size() for k, p in params.items()
+               if names is None or k in names)
+
+
+def decode_weight_bytes(cfg, params: dict) -> int:
+    """The least weight bytes one decode tick reads: every parameter once,
+    but of an untied input embedding only the rows it gathers (counted as
+    none) and of an MoE block only the top_k experts one token routes to
+    (the tick's other experts depend on the data)."""
+    skip = {"embed.table"} if "unembed.table" in params else set()
+    expert = {k for k in params if ".experts_" in k}
+    total = param_bytes(params, set(params) - skip - expert)
+    if expert:
+        total += param_bytes(params, expert) * cfg.moe.top_k \
+            // cfg.moe.num_experts
+    return total
+
+
+def kv_bytes_per_position(cfg, cache: dict) -> int:
+    """Cache bytes of one position of one slot, over the leaves a decode
+    tick reads by position (K / V and int8 scales, the hybrid's attention
+    slots); recurrent state is counted whole by :func:`state_bytes`."""
+    per = 0
+    for k, v in cache.items():
+        if k in ("k", "v", "k_scale", "v_scale", "attn_k", "attn_v"):
+            per += v[:, 0, 0].numel() * v.element_size()
+    return per
+
+
+def state_bytes(cache: dict) -> int:
+    """Bytes of one slot's recurrent state (read and written each tick)."""
+    return sum(v[:, 0].numel() * v.element_size() for k, v in cache.items()
+               if k in ("ssm", "conv"))
+
+
+def tick_bounds_ms(cfg, params, eng, report, requests) -> list:
+    """The least time of each decode tick of `report`'s run: the weight
+    bytes of :func:`decode_weight_bytes`, each live lane's KV rows up to
+    its position and its recurrent state (read and written), over the
+    card's memory rate. A lane's position on tick t follows from its
+    record: inline from 0 at admission, prefill from the prompt's length
+    (a request done at admission decodes no tick)."""
+    cache = eng._state["cache"]
+    per_pos, st = kv_bytes_per_position(cfg, cache), state_bytes(cache)
+    weights = decode_weight_bytes(cfg, params)
+    plen = {r.req_id: r.prompt_len for r in requests}
+    live = {}
+    for r in report.records.values():
+        if r.finish_tick < 0:
+            continue
+        prefill = eng.sc.admit == "prefill"
+        if prefill and r.finish_tick == r.admit_tick and len(r.tokens) == 1:
+            continue
+        pos0 = plen[r.req_id] if prefill else 0
+        for t in range(r.admit_tick, r.finish_tick + 1):
+            pos = pos0 + t - r.admit_tick
+            live[t] = live.get(t, 0) + (pos + 1) * per_pos + 2 * st
+    return [(weights + live[t]) / HBM_BYTES_PER_S * 1e3 for t in sorted(live)]
+
+
+def serve_run(torch, dev, eng, requests, label: str, cfg, params,
+              **run_kw):
+    """Run `eng` on `requests` with every decode tick timed; returns its
+    report and a result line: the report's schedule numbers, ms per tick
+    over the whole run (CUDA events around it, admissions and prefills
+    included), each decode tick's median and mean ms beside the mean of
+    their bounds (:func:`tick_bounds_ms`), tokens/s, TTFT and latency p50
+    / p95 in ticks, peak memory."""
+    from repro_torch.serve.engine import _percentile
+    timer = TickTimer(torch, eng.fns)
+    eng.fns = timer
+    reset_peak(torch, dev)
+    cuda = dev.type == "cuda"
+    if cuda:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+    t0 = time.perf_counter()
+    rep = eng.run(requests, **run_kw)
+    if cuda:
+        end.record()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    eng.fns = timer._fns
+    fin = [r for r in rep.records.values() if r.finished]
+    line = {"phase": "serve", "run": label, "arch": cfg.name,
+            "layers": cfg.num_layers, "slots": eng.sc.n_slots,
+            "max_len": eng.sc.max_len, "admit": eng.sc.admit,
+            "scheduler": eng.sc.scheduler, "requests": rep.n_requests,
+            "completed": rep.completed, "dropped": rep.dropped,
+            "ticks": rep.ticks, "tokens": rep.total_tokens,
+            "goodput_tokens_per_tick": rep.goodput_tokens_per_tick,
+            "ttft_p50_ticks": rep.ttft_p50,
+            "ttft_p95_ticks": _percentile([r.ttft for r in fin], 95),
+            "latency_p50_ticks": rep.latency_p50,
+            "latency_p95_ticks": rep.latency_p95,
+            "occupancy": rep.occupancy_mean, "wall_s": wall,
+            "tokens_per_s": rep.total_tokens / wall,
+            "peak_bytes": peak_bytes(torch, dev)}
+    if cuda:
+        ms = timer.ms()
+        bounds = tick_bounds_ms(cfg, params, eng, rep, requests)
+        line.update({
+            "ms_per_tick": start.elapsed_time(end) / max(rep.ticks, 1),
+            "decode_ticks": len(ms),
+            "decode_ms_median": statistics.median(ms),
+            "decode_ms_mean": statistics.fmean(ms),
+            "decode_bound_ms_mean": statistics.fmean(bounds),
+            "decode_bound_by": "bytes",
+            "weight_bytes_per_tick": decode_weight_bytes(cfg, params)})
+    log(line)
+    return rep, line
+
+
+def require_served(label: str, rep, n: int) -> None:
+    if rep.completed != n or rep.dropped:
+        raise AssertionError(f"{label}: {rep.completed} of {n} completed, "
+                             f"{rep.dropped} dropped")
+
+
+def check_solo(cfg, params, sc, requests, rep, label: str) -> None:
+    """Every lane's tokens equal the same request served alone in an
+    engine of the same shape (exact)."""
+    from repro_torch.serve import ServeEngine
+    toks = rep.tokens_by_request()
+    for r in requests:
+        alone = ServeEngine(cfg, params, sc).run([r.with_arrival(0.0)])
+        if alone.tokens_by_request()[r.req_id] != toks[r.req_id]:
+            raise AssertionError(
+                f"{label}: request {r.req_id} served in the pool "
+                f"{toks[r.req_id]} != served alone "
+                f"{alone.tokens_by_request()[r.req_id]}")
+
+
+def serve_params(torch, cfg, dev, seed: int = 0) -> dict:
+    from repro_torch.models import model as M
+    return M.init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
+                         dev)
+
+
+def inline_logit_gap(torch, cfg, params, requests, dev) -> float:
+    """The largest difference between a prompt's last-position logits by
+    prefill (batch 1, as the engine admits) and by streaming the prompt
+    through the decode step, the prompts of one length as one batch, over
+    `requests`."""
+    from repro_torch.models import model as M
+    gap = 0.0
+    for plen in sorted({r.prompt_len for r in requests}):
+        group = [r for r in requests if r.prompt_len == plen]
+        prompts = torch.tensor([r.prompt for r in group], device=dev)
+        cache = M.init_cache(cfg, len(group), plen, device=dev)
+        for t in range(plen):
+            lg, cache = M.decode_step(cfg, params, prompts[:, t:t + 1],
+                                      cache, t)
+        for b in range(len(group)):
+            pre, _ = M.prefill(cfg, params, {"tokens": prompts[b:b + 1]})
+            gap = max(gap, float((pre[0, -1].float() - lg[b].float())
+                                 .abs().max()))
+    return gap
+
+
+def run_serve_main(torch, dev, cfg=None, twin=None) -> None:
+    """Phase 18a: glm4-9b (every published width, full depth, bf16,
+    seeded weights) behind the continuous engine with prefill admission
+    on SERVE_TRAFFIC's requests, then the static scheduler on the same
+    requests: zero dropped, every lane equal to its request served alone,
+    one decode build, continuous goodput >= static, the same tokens. Then
+    SERVE_INLINE of the requests (the shortest prompts) by inline
+    admission: the token agreement with prefill admission and the largest
+    logit gap printed; equality required of a float32 2-layer twin
+    (`twin`, default glm4-9b's width at 2 layers) of both engines."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.obs import recorder as obs
+    from repro_torch.serve import ServeConfig, ServeEngine, poisson_requests
+    t0 = time.perf_counter()
+    cfg = cfg or get_config("glm4-9b")
+    params = serve_params(torch, cfg, dev)
+    reqs = poisson_requests(vocab_size=cfg.vocab_size, **SERVE_TRAFFIC)
+    sc = ServeConfig(**SERVE_MAIN)
+    builds0 = obs.COUNTERS.get("serve.decode.compiles")
+    cont, line = serve_run(torch, dev, ServeEngine(cfg, params, sc), reqs,
+                           "continuous", cfg, params)
+    stat, sline = serve_run(
+        torch, dev, ServeEngine(cfg, params, dataclasses.replace(
+            sc, scheduler="static")), reqs, "static", cfg, params)
+    for label, rep in (("continuous", cont), ("static", stat)):
+        require_served(f"18a {label}", rep, len(reqs))
+    if cont.tokens_by_request() != stat.tokens_by_request():
+        raise AssertionError("18a: the static scheduler's tokens differ")
+    if cont.goodput_tokens_per_tick < stat.goodput_tokens_per_tick:
+        raise AssertionError(
+            f"18a: continuous goodput {cont.goodput_tokens_per_tick} < "
+            f"static {stat.goodput_tokens_per_tick}")
+    check_solo(cfg, params, sc, reqs, cont, "18a")
+    inline = sorted(reqs, key=lambda r: (r.prompt_len, r.req_id))[
+        :SERVE_INLINE]
+    inline = [r.with_arrival(0.0) for r in inline]
+    irep, _ = serve_run(torch, dev, ServeEngine(
+        cfg, params, dataclasses.replace(sc, admit="inline")), inline,
+        "inline", cfg, params)
+    require_served("18a inline", irep, len(inline))
+    builds = obs.COUNTERS.get("serve.decode.compiles") - builds0
+    if builds != 1:
+        raise AssertionError(f"18a: {builds} decode builds across the "
+                             "continuous, static, solo and inline engines")
+    want, got = cont.tokens_by_request(), irep.tokens_by_request()
+    same = sum(a == b for r in inline
+               for a, b in zip(want[r.req_id], got[r.req_id]))
+    total = sum(min(len(want[r.req_id]), len(got[r.req_id]))
+                for r in inline)
+    gap = inline_logit_gap(torch, cfg, params, inline, dev)
+    del params
+    twin = twin or dataclasses.replace(cfg, num_layers=2, dtype="float32")
+    tparams = serve_params(torch, twin, dev)
+    by = {}
+    for admit in ("prefill", "inline"):
+        by[admit] = ServeEngine(twin, tparams, dataclasses.replace(
+            sc, admit=admit)).run(inline).tokens_by_request()
+    if by["prefill"] != by["inline"]:
+        raise AssertionError(f"18a float32 twin: inline {by['inline']} != "
+                             f"prefill {by['prefill']}")
+    del tparams
+    log({"phase": "serve_main_done", "arch": cfg.name,
+         "layers": cfg.num_layers, "decode_builds": builds,
+         "continuous_over_static_goodput":
+             cont.goodput_tokens_per_tick / stat.goodput_tokens_per_tick,
+         "lanes_equal_alone": len(reqs),
+         "inline_requests_equal": sum(want[r.req_id] == got[r.req_id]
+                                      for r in inline),
+         "inline_token_agreement": same / max(total, 1),
+         "inline_prefill_logit_gap_bf16": gap,
+         "float32_twin_inline_equal_prefill": True,
+         "seconds": time.perf_counter() - t0})
+
+
+def run_serve_int8(torch, dev, cfg=None) -> None:
+    """Phase 18b: qwen1.5-32b at every published width, SERVE_INT8_DEPTH
+    layers, its int8 KV cache: SERVE_INT8_TRAFFIC's long prompts through
+    one prefill bucket and the chunked online-softmax decode (two
+    KV_CHUNKs). Then the same prompts and the engine's tokens, teacher-
+    forced through the model API with the int8 cache (its greedy tokens
+    must be the engine's) and with a bf16 cache: every lane's logits
+    within SERVE_INT8_BOUND of the bf16 twin's (relative at max(|logit|,
+    1), the reference test's bound)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import layers as L, model as M
+    from repro_torch.serve import ServeConfig, ServeEngine, poisson_requests
+    t0 = time.perf_counter()
+    cfg = cfg or dataclasses.replace(get_config("qwen1.5-32b"),
+                                     num_layers=SERVE_INT8_DEPTH)
+    if cfg.kv_cache_dtype != "int8":
+        raise AssertionError(f"18b: {cfg.name}'s cache is "
+                             f"{cfg.kv_cache_dtype}")
+    params = serve_params(torch, cfg, dev)
+    sc = ServeConfig(**SERVE_INT8)
+    if sc.max_len <= L.KV_CHUNK:
+        raise AssertionError("18b: the cache must pass KV_CHUNK")
+    reqs = poisson_requests(vocab_size=cfg.vocab_size, **SERVE_INT8_TRAFFIC)
+    eng = ServeEngine(cfg, params, sc)
+    rep, _ = serve_run(torch, dev, eng, reqs, "int8_cache", cfg, params)
+    require_served("18b", rep, len(reqs))
+    del eng
+    toks = rep.tokens_by_request()
+    lb = sc.prefill_buckets[-1]
+    logits = {}
+    for kv in ("int8", "bfloat16"):
+        c = dataclasses.replace(cfg, kv_cache_dtype=kv)
+        cache = M.init_cache(c, len(reqs), sc.max_len, device=dev)
+        rows = []
+        for slot, r in enumerate(reqs):
+            prompt = torch.zeros(lb, dtype=torch.int64, device=dev)
+            prompt[:r.prompt_len] = torch.tensor(r.prompt, device=dev)
+            lg, pcache = M.prefill(c, params, {"tokens": prompt[None]})
+            for k, v in cache.items():
+                src = pcache[k][:, 0]
+                v[:, slot][tuple(slice(0, n) for n in src.shape)] = src
+            rows.append(lg[0, r.prompt_len - 1].float())
+            del lg, pcache
+        steps = [torch.stack(rows)]
+        pos = torch.tensor([r.prompt_len for r in reqs], device=dev)
+        for i in range(len(toks[reqs[0].req_id]) - 1):
+            fed = torch.tensor([toks[r.req_id][i] for r in reqs],
+                               device=dev)[:, None]
+            lg, cache = M.decode_step(c, params, fed, cache, pos + i)
+            steps.append(lg.float())
+        logits[kv] = torch.stack(steps, dim=1)          # (requests, gen, V)
+        del cache
+        if kv == "int8":
+            greedy = logits[kv].argmax(dim=-1).tolist()
+            if greedy != [list(toks[r.req_id]) for r in reqs]:
+                raise AssertionError("18b: the model API's int8 decode "
+                                     "differs from the engine's tokens")
+    q, f = logits["int8"], logits["bfloat16"]
+    rel = float(((q - f).abs() / f.abs().clamp(min=1.0)).max())
+    if not rel < SERVE_INT8_BOUND:
+        raise AssertionError(f"18b: int8 logits {rel} from the bf16 "
+                             f"cache's (bound {SERVE_INT8_BOUND})")
+    log({"phase": "serve_int8_done", "arch": cfg.name,
+         "layers": cfg.num_layers, "kv_chunk": L.KV_CHUNK,
+         "prompt_lens": [r.prompt_len for r in reqs],
+         "int8_vs_bf16_cache_rel_max": rel, "bound": SERVE_INT8_BOUND,
+         "seconds": time.perf_counter() - t0})
+
+
+def teacher_forced_check(torch, dev, cfg, arch: str) -> dict:
+    """SERVE_TF_STEPS teacher-forced decode steps of a float32 twin of
+    `cfg` (its MoE's capacity factor raised to E / k, so that the forward
+    drops no token, as one token's decode never does) against its
+    ``forward_logits``, at the CPU tests' bound; the decoder-only twins
+    continue from a prefill of SERVE_TF_PREFIX tokens (64 by default),
+    the recurrent ones and whisper (its cross K / V from a prefill of 64
+    stubbed frames) decode from position 0."""
+    from repro_torch.configs.base import ArchFamily
+    from repro_torch.models import model as M
+    from repro_torch.train.serve_step import make_cache_rehome
+    c = dataclasses.replace(cfg, dtype="float32")
+    if c.moe.enabled:
+        c = dataclasses.replace(c, moe=dataclasses.replace(
+            c.moe, capacity_factor=c.moe.num_experts / c.moe.top_k))
+    params = serve_params(torch, c, dev, seed=1)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    decoder = c.family in (ArchFamily.DENSE, ArchFamily.MOE, ArchFamily.VLM)
+    prefix = SERVE_TF_PREFIX.get(arch, 64) if decoder else 0
+    n = prefix + SERVE_TF_STEPS
+    toks = torch.randint(0, c.vocab_size, (1, n), generator=gen, device=dev)
+    batch = {"tokens": toks}
+    if c.family == ArchFamily.AUDIO:
+        batch["enc_embeds"] = torch.randn(
+            (1, min(c.max_source_positions, 64), c.d_model), generator=gen,
+            device=dev)
+    with torch.no_grad():
+        full, _ = M.forward_logits(c, params, batch)
+    if prefix:
+        _, cache = M.prefill(c, params, {"tokens": toks[:, :prefix]})
+        cache = make_cache_rehome(c, 1, n)(cache)
+    else:
+        cache = M.init_cache(c, 1, n, device=dev)
+        if c.family == ArchFamily.AUDIO:
+            _, pc = M.prefill(c, params, {"tokens": toks[:, :1],
+                                          "enc_embeds": batch[
+                                              "enc_embeds"]})
+            cache["xk"], cache["xv"] = pc["xk"], pc["xv"]
+    worst, err = 0.0, 0.0
+    for t in range(prefix, n):
+        lg, cache = M.decode_step(c, params, toks[:, t:t + 1], cache, t)
+        d = (lg[0] - full[0, t]).abs()
+        err = max(err, float(d.max()))
+        worst = max(worst, float((d / (SERVE_TF_RTOL + SERVE_TF_RTOL
+                                       * full[0, t].abs())).max()))
+    if not worst <= 1.0:
+        raise AssertionError(
+            f"{arch}: teacher-forced decode {err} from forward_logits "
+            f"(rtol / atol {SERVE_TF_RTOL})")
+    return {"tf_steps": SERVE_TF_STEPS, "tf_prefix": prefix,
+            "tf_max_abs_err": err, "tf_rtol_atol": SERVE_TF_RTOL}
+
+
+def run_serve_zoo_arch(torch, dev, arch: str, depth: int, admit: str,
+                       lens, cfg=None) -> None:
+    """Phase 18c for one arch: SERVE_ZOO_SLOTS slots, SERVE_ZOO_TRAFFIC's
+    requests at `lens`, every lane equal to its request served alone,
+    then :func:`teacher_forced_check`."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.serve import ServeConfig, ServeEngine, poisson_requests
+    t0 = time.perf_counter()
+    cfg = cfg or dataclasses.replace(get_config(arch), num_layers=depth)
+    params = serve_params(torch, cfg, dev)
+    gen_max = SERVE_ZOO_TRAFFIC["gen_range"][1]
+    sc = ServeConfig(n_slots=SERVE_ZOO_SLOTS, max_len=max(lens) + gen_max,
+                     prompt_pad=max(lens), admit=admit,
+                     prefill_buckets=tuple(sorted(lens))
+                     if admit == "prefill" else ())
+    reqs = poisson_requests(vocab_size=cfg.vocab_size, prompt_lens=lens,
+                            **SERVE_ZOO_TRAFFIC)
+    rep, line = serve_run(torch, dev, ServeEngine(cfg, params, sc), reqs,
+                          "zoo", cfg, params)
+    require_served(f"18c {arch}", rep, len(reqs))
+    check_solo(cfg, params, sc, reqs, rep, f"18c {arch}")
+    del params
+    tf = teacher_forced_check(torch, dev, cfg, arch)
+    log({"phase": "serve_zoo_done", "arch": arch, "layers": cfg.num_layers,
+         "lanes_equal_alone": len(reqs), **tf,
+         "seconds": time.perf_counter() - t0})
+
+
+def audio_batch_loop(torch, cfg, params, batch, gen: int, dev) -> tuple:
+    """launch/serve.py's batch loop (greedy): prefill, re-home, `gen`
+    decode steps; returns the tokens (rows, gen + 1) and each decode
+    step's ms (CUDA events)."""
+    from repro_torch.models import model as M
+    from repro_torch.train.serve_step import make_cache_rehome
+    rows, plen = batch["tokens"].shape
+    logits, cache = M.prefill(cfg, params, batch)
+    cache = make_cache_rehome(cfg, rows, plen + gen)(cache)
+    tok = logits[:, -1].argmax(dim=-1)[:, None]
+    out, events = [tok], []
+    for i in range(gen):
+        if dev.type == "cuda":
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+        lg, cache = M.decode_step(cfg, params, tok, cache, plen + i)
+        tok = lg.argmax(dim=-1)[:, None]
+        if dev.type == "cuda":
+            ev[1].record()
+            events.append(ev)
+        out.append(tok)
+    toks = torch.cat(out, dim=1)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    return toks, [s.elapsed_time(e) for s, e in events]
+
+
+def run_serve_audio(torch, dev, cfg=None) -> None:
+    """Phase 18c for whisper-tiny (every published width and depth): the
+    batch loop on SERVE_AUDIO's rows with stubbed frames; each row equal
+    to the same row served alone in a batch of the same shape (the other
+    rows' tokens and frames zeroed); then :func:`teacher_forced_check`."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import model as M
+    t0 = time.perf_counter()
+    cfg = cfg or get_config("whisper-tiny")
+    rows, plen, gen = SERVE_AUDIO
+    params = serve_params(torch, cfg, dev)
+    batch = M.make_batch(cfg, rows, plen, torch.Generator(
+        device=dev).manual_seed(3), dev)
+    reset_peak(torch, dev)
+    t1 = time.perf_counter()
+    toks, ms = audio_batch_loop(torch, cfg, params, batch, gen, dev)
+    wall = time.perf_counter() - t1
+    peak = peak_bytes(torch, dev)
+    for b in range(rows):
+        alone = {k: torch.zeros_like(v) for k, v in batch.items()}
+        for k in batch:
+            alone[k][b] = batch[k][b]
+        got, _ = audio_batch_loop(torch, cfg, params, alone, gen, dev)
+        if not torch.equal(got[b], toks[b]):
+            raise AssertionError(f"18c whisper: row {b} {toks[b].tolist()} "
+                                 f"!= alone {got[b].tolist()}")
+    line = {"phase": "serve", "run": "batch_loop", "arch": cfg.name,
+            "rows": rows, "prompt_len": plen, "gen": gen,
+            "tokens": rows * gen, "wall_s": wall,
+            "tokens_per_s": rows * gen / wall, "peak_bytes": peak}
+    if ms:
+        weights = decode_weight_bytes(cfg, params)
+        line.update({"decode_ms_median": statistics.median(ms),
+                     "decode_ms_mean": statistics.fmean(ms),
+                     "decode_bound_ms_min": weights / HBM_BYTES_PER_S * 1e3,
+                     "decode_bound_by": "bytes"})
+    log(line)
+    del params
+    tf = teacher_forced_check(torch, dev, cfg, cfg.name)
+    log({"phase": "serve_zoo_done", "arch": cfg.name,
+         "layers": cfg.num_layers, "lanes_equal_alone": rows, **tf,
+         "seconds": time.perf_counter() - t0})
+
+
+def run_serve_swap(torch, dev, scratch: str, err, cfg=None,
+                   launch_args=SERVE_SWAP_LAUNCH) -> dict:
+    """Phase 18d: an engine serving glm4-9b's width at SERVE_SWAP_DEPTH
+    layers, a CheckpointWatcher on a serve directory; at tick
+    SERVE_SWAP_TICK the port's launcher (``launch.train.main`` in
+    process, its config cut to the engine's depth) trains 3 steps and
+    publishes with ``--serve-dir``, every one of its launches held against
+    its plain version; the engine picks the checkpoint up between ticks.
+    Exact: zero dropped, one swap, every request admitted after it equal
+    to an engine started on the published parameters, the launches the
+    launcher's count. Returns them."""
+    import io
+    from repro_torch.checkpoint import checkpoint
+    from repro_torch.configs.base import get_config
+    from repro_torch.core import sign_compress as sc_mod
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import train as launch
+    from repro_torch.serve import (CheckpointWatcher, ServeConfig,
+                                   ServeEngine, like_tree, poisson_requests)
+    t0 = time.perf_counter()
+    cfg = cfg or dataclasses.replace(get_config("glm4-9b"),
+                                     num_layers=SERVE_SWAP_DEPTH)
+    params = serve_params(torch, cfg, dev, seed=4)
+    serve_dir = os.path.join(scratch, "serve")
+    sc = ServeConfig(**SERVE_SWAP)
+    eng = ServeEngine(cfg, params, sc, watcher=CheckpointWatcher(
+        serve_dir, like_tree(params), device=dev))
+    reqs = poisson_requests(vocab_size=cfg.vocab_size, **SERVE_SWAP_TRAFFIC)
+    build = launch.build
+    out, launches, held = {}, {}, {}
+
+    def cut(*args, **kwargs):
+        c, t = build(*args, **kwargs)
+        return dataclasses.replace(c, num_layers=cfg.num_layers), t
+
+    def on_tick(_eng, t):
+        if t != SERVE_SWAP_TICK:
+            return
+        printed = io.StringIO()
+        ops.reset_launch_counts()
+        launch.build = cut
+        try:
+            with plain_checked(torch, ops, ref, sc_mod, err, "serve swap",
+                               MESH_CHECKED, held), \
+                    contextlib.redirect_stdout(printed):
+                out["rc"] = launch.main(list(launch_args) + [
+                    "--device", dev.type, "--serve-dir", serve_dir])
+        finally:
+            launch.build = build
+        launches.update({k: v for k, v in ops.launch_counts().items() if v})
+        out["log"] = [ln for ln in printed.getvalue().splitlines()
+                      if ln.startswith("step ")]
+
+    rep, _ = serve_run(torch, dev, eng, reqs, "hot_swap", cfg, params,
+                       on_tick=on_tick)
+    if out.get("rc") != 0:
+        raise AssertionError(f"18d: the launcher returned {out.get('rc')}")
+    require_served("18d", rep, len(reqs))
+    if rep.swaps != 1 or eng.param_version != 1:
+        raise AssertionError(f"18d: {rep.swaps} swaps, version "
+                             f"{eng.param_version}")
+    post = [r for r in reqs if rep.records[r.req_id].param_version_admit == 1]
+    if not post or len(post) == len(reqs):
+        raise AssertionError("18d: the swap must split the requests")
+    published = checkpoint.restore(serve_dir, device=dev)[0]
+    fresh = ServeEngine(cfg, published, sc).run(
+        [r.with_arrival(0.0) for r in post]).tokens_by_request()
+    toks = rep.tokens_by_request()
+    for r in post:
+        if toks[r.req_id] != fresh[r.req_id]:
+            raise AssertionError(f"18d: request {r.req_id} after the swap "
+                                 f"{toks[r.req_id]} != a fresh engine's "
+                                 f"{fresh[r.req_id]}")
+    steps = int(launch_args[launch_args.index("--steps") + 1])
+    want = launcher_launches("glm4-9b", steps)
+    if dev.type == "cuda" and (launches != want or held != launches):
+        raise AssertionError(f"18d: launches {launches}, held {held}, "
+                             f"expected {want}")
+    log({"phase": "serve_swap_done", "arch": cfg.name,
+         "layers": cfg.num_layers, "swaps": rep.swaps,
+         "requests_after_swap": len(post), "launcher": out["log"],
+         "launches": launches, "held_vs_plain": held,
+         "seconds": time.perf_counter() - t0})
+    return launches
+
+
+def run_phase18(torch, dev, err) -> dict:
+    """Phase 18 (a-d). 18a-c launch none of the port's kernels (serving's
+    attention, SSM step and sampling are PyTorch ops, as the reference's
+    are jnp): checked. Returns 18d's launches (the launcher's)."""
+    import gc
+    import tempfile
+    from repro_torch.kernels import ops
+    t0 = time.perf_counter()
+    ops.reset_launch_counts()
+    run_serve_main(torch, dev)
+    gc.collect()
+    run_serve_int8(torch, dev)
+    gc.collect()
+    for arch, depth, admit, lens in SERVE_ZOO:
+        run_serve_zoo_arch(torch, dev, arch, depth, admit, lens)
+        gc.collect()
+    run_serve_audio(torch, dev)
+    gc.collect()
+    launched = {k: v for k, v in ops.launch_counts().items() if v}
+    if launched:
+        raise AssertionError(f"18a-c launched kernels: {launched}")
+    with tempfile.TemporaryDirectory() as scratch:
+        launches = run_serve_swap(torch, dev, scratch, err)
+    log({"phase": "phase18_done", "launches": launches,
          "seconds": time.perf_counter() - t0})
     return launches
 
@@ -5761,9 +6465,14 @@ def main() -> int:
         launches[k] += v
     for k, v in run_fsdp_path(torch, dev, errs).items():
         launches[k] += v
-    for k, v in run_zoo_path(torch, dev, errs).items():
+    # the zoo's and the families' profiled steps run in their probes
+    # (scripts/zoo_probe.py, scripts/family_probe.py), not here: cut for
+    # the script's time once phase 18 joined it
+    for k, v in run_zoo_path(torch, dev, errs, profiled=None).items():
         launches[k] += v
-    for k, v in run_phase17(torch, cfg, dev, errs).items():
+    for k, v in run_phase17(torch, cfg, dev, errs, profiled=None).items():
+        launches[k] += v
+    for k, v in run_phase18(torch, dev, errs).items():
         launches[k] += v
     # ef_sign's encode packs its float32 t; every other bitpack of the main
     # path packs int8 signs (staged votes, plan buckets, weighted_vote's vote)

@@ -327,18 +327,69 @@ def _mesh_vote(words: torch.Tensor, n: int, ctx, codec, two_bit: bool,
 
 
 def _concrete_strategy(cfg: OptimizerConfig, n_voters: int) -> VoteStrategy:
-    """`cfg`'s wire. AUTO over M > 1 voters is priced on the model's
-    parameter count, which the trainer knows and the optimizer does not:
-    ``train.train_step.make_train_step`` resolves it before it builds the
-    optimizer, as the reference's trainer does. One voter has no wire
-    (``psum_int8``)."""
+    """`cfg`'s wire. One voter has no wire (AUTO gives ``psum_int8``); AUTO
+    over M > 1 voters is priced on the voted leaves' size, which
+    :func:`build_optimizer` resolves it on at the first call
+    (:class:`_AutoOptimizer`)."""
     if cfg.vote_strategy == VoteStrategy.AUTO and n_voters > 1:
         raise ValueError(
-            f"vote_strategy=auto over {n_voters} voters: resolve it on the "
-            "model's parameter count first (vote_engine.resolve_strategy, "
-            "as make_train_step does)")
+            f"vote_strategy=auto over {n_voters} voters is resolved on the "
+            "voted leaves' size: build the optimizer with build_optimizer")
     return resolve_strategy(cfg.vote_strategy, 0, n_voters,
                             codec=cfg.resolved_codec)
+
+
+class _AutoOptimizer:
+    """An optimizer built with ``vote_strategy=auto`` over M > 1 voters:
+    AUTO resolves at its first call (``init``, ``wire`` or ``update``) on
+    the total size of the leaves it votes (Mode B's fused leaves, voted in
+    the backward, left out), over the vote mesh's data and pod sizes (M
+    stacked voters: a data axis of M), as the reference's ``_tree_execute``
+    resolves it at each vote (``src/repro/core/vote_api.py:779-782``); the
+    optimizer `build` makes for the resolved wire then does the work.
+    ``strategy`` reads AUTO until then."""
+
+    def __init__(self, cfg: OptimizerConfig, n_voters: int, axes,
+                 fused_leaves: Sequence[str],
+                 build: Callable[[OptimizerConfig], Optimizer]):
+        self._cfg, self._build = cfg, build
+        self._fused = frozenset(fused_leaves)
+        self._sizes = ((n_voters, 1) if axes is None else
+                       (pm.axis_size(axes, "data") if "data" in axes else 1,
+                        pm.axis_size(axes, "pod") if "pod" in axes else 1))
+        self._opt: Optional[Optimizer] = None
+        self.strategy = VoteStrategy.AUTO
+
+    def _resolved(self, params: Dict[str, torch.Tensor]) -> Optimizer:
+        if self._opt is None:
+            total = sum(p.numel() for k, p in params.items()
+                        if k not in self._fused)
+            strategy = resolve_strategy(VoteStrategy.AUTO, total,
+                                        *self._sizes,
+                                        codec=self._cfg.resolved_codec)
+            self._opt = self._build(dataclasses.replace(
+                self._cfg, vote_strategy=strategy))
+            self.strategy = self._opt.strategy
+        return self._opt
+
+    @property
+    def plan(self) -> Optional[vp.VotePlan]:
+        return None if self._opt is None else self._opt.plan
+
+    def init(self, params: Dict[str, torch.Tensor]) -> Dict:
+        return self._resolved(params).init(params)
+
+    def wire(self, params: Dict[str, torch.Tensor], step: int = 0) -> Dict:
+        return self._resolved(params).wire(params, step)
+
+    def encode(self, voter: int, grads: Dict[str, torch.Tensor],
+               state: Dict, wire: Dict) -> None:
+        self._opt.encode(voter, grads, state, wire)
+
+    def update(self, wire: Dict, state: Dict,
+               params: Dict[str, torch.Tensor], step: int
+               ) -> Dict[str, float]:
+        return self._resolved(params).update(wire, state, params, step)
 
 
 def make_sign_optimizer(cfg: OptimizerConfig, n_voters: int,
@@ -820,7 +871,11 @@ def build_optimizer(cfg: OptimizerConfig, n_voters: int,
     when given; `fused_leaves` arrive voted (or meaned) by the fused ZeRO
     backward; the sign family's `tiles` are voted slice by slice (see
     :func:`make_sign_optimizer`)."""
-    if cfg.kind in SIGN_KINDS:
-        return make_sign_optimizer(cfg, n_voters, plan, byz, diagnostics,
-                                   axes, fused_leaves, tiles)
-    return make_dense_optimizer(cfg, n_voters, axes, fused_leaves)
+    def build(cfg: OptimizerConfig) -> Optimizer:
+        if cfg.kind in SIGN_KINDS:
+            return make_sign_optimizer(cfg, n_voters, plan, byz, diagnostics,
+                                       axes, fused_leaves, tiles)
+        return make_dense_optimizer(cfg, n_voters, axes, fused_leaves)
+    if cfg.vote_strategy == VoteStrategy.AUTO and n_voters > 1:
+        return _AutoOptimizer(cfg, n_voters, axes, fused_leaves, build)
+    return build(cfg)

@@ -12,10 +12,13 @@ parameters, the optimizer state and the data cursor are saved
 (``checkpoint.AsyncCheckpointer``). A run started on a directory that
 holds a checkpoint restores the latest and resumes after its step, so a
 run killed after a save and started again trains as one that was never
-stopped. At the end it prints the kernel launches of the run (none on the
-CPU, where each wrapper takes its plain version) and, on a card, the peak
-device memory. ``--serve-dir`` (publishing serving checkpoints) belongs to
-the serving engine, which is not ported yet (ROADMAP.md Queue 1 item 12).
+stopped. With ``--serve-dir`` the parameters are published for serving
+every ``--serve-every`` steps, and once more after the last step unless it
+just published (``serve.CheckpointEmitter``, under a ``serve.emit``
+span), where a ``serve.CheckpointWatcher`` hot-swaps them into a running
+``ServeEngine``. At the end it prints the kernel launches of the run
+(none on the CPU, where each wrapper takes its plain version) and, on a
+card, the peak device memory.
 """
 from __future__ import annotations
 
@@ -70,9 +73,11 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--serve-dir", default=None,
-                    help="publish params-only serving checkpoints here (not "
-                         "ported: ROADMAP.md Queue 1 item 12)")
-    ap.add_argument("--serve-every", type=int, default=50)
+                    help="publish params-only serving checkpoints here "
+                         "(repro_torch.serve.CheckpointWatcher hot-swaps "
+                         "them into a live ServeEngine)")
+    ap.add_argument("--serve-every", type=int, default=50,
+                    help="publish to --serve-dir every N steps")
     ap.add_argument("--watchdog-s", type=float, default=600.0)
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
@@ -84,10 +89,6 @@ def parser() -> argparse.ArgumentParser:
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
     args = parser().parse_args(argv)
-    if args.serve_dir:
-        raise NotImplementedError(
-            "--serve-dir publishes checkpoints to the serving engine, which "
-            "is not ported yet (ROADMAP.md Queue 1 item 12)")
     cfg, tcfg = build(args.arch, reduced=args.reduced, batch=args.batch,
                       seq=args.seq, opt_kind=args.opt, lr=args.lr,
                       momentum=args.momentum,
@@ -100,6 +101,11 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         cfg, tcfg, art, torch.Generator(device=art.device).manual_seed(
             args.seed))
     pipe = SyntheticLMPipeline(cfg, args.batch, args.seq, seed=args.seed)
+
+    emitter = None
+    if args.serve_dir:
+        from repro_torch.serve import CheckpointEmitter
+        emitter = CheckpointEmitter(args.serve_dir)
 
     ckpt: Optional[AsyncCheckpointer] = None
     start_step = 0
@@ -138,10 +144,15 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         if ckpt and (step + 1) % args.ckpt_every == 0:
             ckpt.save(step, params, opt_state, pipe.checkpoint(),
                       meta={"arch": args.arch, "step": step})
+        if emitter and (step + 1) % args.serve_every == 0:
+            with rec.span("serve.emit", step=step):
+                emitter.emit(step, params, meta={"arch": args.arch})
     if ckpt:
         ckpt.save(args.steps - 1, params, opt_state, pipe.checkpoint(),
                   meta={"arch": args.arch, "step": args.steps - 1})
         ckpt.wait()
+    if emitter and args.steps % args.serve_every != 0:
+        emitter.emit(args.steps - 1, params, meta={"arch": args.arch})
     obs.finish_trace(trace_rec)
     launched = {k: v for k, v in ops.launch_counts().items() if v}
     print(f"kernel launches {json.dumps(launched)}", flush=True)

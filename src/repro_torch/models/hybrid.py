@@ -7,8 +7,9 @@ full segment the shared block (one set of weights, ``shared_block.*``)
 runs again, so its gradient is the sum over its calls. At zamba2's 38
 layers and every 6 that is 6 calls, and the last segment of 2 layers has
 none. mamba2's own stack (the SSM family) is :func:`mamba_stack`, a
-mamba block every layer. The decode path and its per-call KV cache wait
-for serving (ROADMAP.md Queue 1 item 12).
+mamba block every layer. Decoding, each call of the shared block owns its
+own slot of the KV cache (``attn_k`` / ``attn_v``, one per call), and
+:func:`mamba_decode_layers` advances the mamba layers' states in place.
 """
 from __future__ import annotations
 
@@ -17,7 +18,8 @@ from typing import Dict, List, Tuple
 import torch
 
 from repro_torch.models import layers as L
-from repro_torch.models.mamba2 import mamba2_forward
+from repro_torch.models.mamba2 import (mamba2_decode_step, mamba2_forward,
+                                       mamba2_init_state)
 from repro_torch.models.transformer import _layer_tree, maybe_remat
 
 
@@ -103,3 +105,66 @@ def hybrid_forward(p: Dict[str, torch.Tensor], h: torch.Tensor, cfg,
         if shared_after:
             h = shared_fn(sp, h)
     return h
+
+
+# ---------------------------------------------------------------------------
+# decode
+# ---------------------------------------------------------------------------
+
+
+def hybrid_init_cache(cfg, batch: int, max_len: int, dtype: torch.dtype,
+                      device=None) -> Dict[str, torch.Tensor]:
+    """The mamba layers' stacked states (``ssm`` float32, ``conv``) and one
+    KV cache slot per call of the shared block (``attn_k`` / ``attn_v``
+    (calls, B, max_len, K, hd))."""
+    st = mamba2_init_state(cfg, batch, dtype, device=device)
+    shape = (cfg.num_shared_attn_calls, batch, max_len, cfg.num_kv_heads,
+             cfg.resolved_head_dim)
+    return {
+        "ssm": torch.zeros((cfg.num_layers,) + tuple(st["ssm"].shape),
+                           dtype=torch.float32, device=device),
+        "conv": torch.zeros((cfg.num_layers,) + tuple(st["conv"].shape),
+                            dtype=dtype, device=device),
+        "attn_k": torch.zeros(shape, dtype=dtype, device=device),
+        "attn_v": torch.zeros(shape, dtype=dtype, device=device),
+    }
+
+
+def mamba_decode_layers(lp: Dict[str, Tuple[torch.Tensor, ...]],
+                        h: torch.Tensor,
+                        cache: Dict[str, Tuple[torch.Tensor, ...]], cfg,
+                        start: int, end: int) -> torch.Tensor:
+    """Layers [start, end) of the unbound layer tree `lp`, one token each:
+    a pre-norm mamba decode step with its residual, each layer's slice of
+    the unbound ``cache["ssm"]`` / ``cache["conv"]`` advanced in place."""
+    for i in range(start, end):
+        layer_p = {n: v[i] for n, v in lp.items()}
+        x = L.rms_norm(h, layer_p["norm1_scale"], cfg.norm_eps)
+        h = h + mamba2_decode_step(
+            layer_p, x, {"ssm": cache["ssm"][i], "conv": cache["conv"][i]},
+            cfg)
+    return h
+
+
+def hybrid_decode_step(p: Dict[str, torch.Tensor], h: torch.Tensor,
+                       cache: Dict[str, torch.Tensor], pos, cfg
+                       ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """h (B,1,d) through each segment's mamba layers and, after a full
+    segment, the shared block against its call's KV slot; `pos` one
+    position (scalar) or one a row (B,). The cache is advanced in place;
+    returns (h, cache)."""
+    lp, sp = _unbound_layers(p), _layer_tree(p, "shared_block.")
+    layers = {k: v.unbind(0) for k, v in cache.items()}
+    pos = L.decode_positions(pos, h.shape[0], h.device)
+    call = 0
+    for start, end, shared_after in _segments(cfg):
+        h = mamba_decode_layers(lp, h, layers, cfg, start, end)
+        if shared_after:
+            x = L.rms_norm(h, sp["norm1_scale"], cfg.norm_eps)
+            h = h + L.decode_self_attention(
+                sp, "attn", x, cfg, k_cache=layers["attn_k"][call],
+                v_cache=layers["attn_v"][call], pos=pos)
+            x = L.rms_norm(h, sp["norm2_scale"], cfg.norm_eps)
+            h = h + L.swiglu_mlp(sp, "mlp", x)
+            call += 1
+    return h, cache

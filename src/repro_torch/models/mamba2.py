@@ -1,5 +1,6 @@
-"""Mamba2 / SSD (state-space duality) mixer, the chunked-scan training
-path (``repro.models.mamba2``; Dao & Gu, arXiv:2405.21060).
+"""Mamba2 / SSD (state-space duality) mixer (``repro.models.mamba2``; Dao &
+Gu, arXiv:2405.21060): the chunked-scan training path, and the decode
+step, which carries ``{ssm (B, H, P, N) float32, conv (B, W-1, CD)}``.
 
 The sequence is cut into chunks of ``cs`` positions: within a chunk the
 output is a masked quadratic (attention-like) term, across chunks a linear
@@ -15,8 +16,7 @@ float32 product of activation-dtype operands (the reference's
 float32 and summed there). The three-operand products are written as two
 steps each, in the order given below; XLA picks its own order, so a bf16
 forward agrees with the reference's to a bf16 tolerance, not bit for bit.
-Autograd gives the backward. The decode step waits for serving
-(ROADMAP.md Queue 1 item 12).
+Autograd gives the backward.
 """
 from __future__ import annotations
 
@@ -128,3 +128,56 @@ def mamba2_forward(p: Dict[str, torch.Tensor], x_in: torch.Tensor, cfg,
     Y = Y * F.silu(z).to(cdt)
     Y = rms_norm(Y, p[f"{prefix}_norm_scale"], cfg.norm_eps)
     return Y @ p[f"{prefix}_out_proj"]
+
+
+# ---------------------------------------------------------------------------
+# decode (single-token) path
+# ---------------------------------------------------------------------------
+
+
+def mamba2_init_state(cfg, batch: int, dtype: torch.dtype = torch.float32,
+                      device=None) -> Dict[str, torch.Tensor]:
+    """Zero decode state: the float32 SSM state (B, H, P, N) and the last
+    W-1 inputs of the causal conv (B, W-1, conv_dim) in `dtype`."""
+    s, d = cfg.ssm, cfg.d_model
+    return {
+        "ssm": torch.zeros((batch, s.n_heads(d), s.head_dim, s.state_dim),
+                           dtype=torch.float32, device=device),
+        "conv": torch.zeros((batch, s.conv_width - 1, s.conv_dim(d)),
+                            dtype=dtype, device=device),
+    }
+
+
+def mamba2_decode_step(p: Dict[str, torch.Tensor], x_in: torch.Tensor,
+                       state: Dict[str, torch.Tensor], cfg,
+                       prefix: str = "mamba") -> torch.Tensor:
+    """x_in (B,1,d) -> out (B,1,d); `state` {'ssm','conv'} (views of the
+    stacked cache) is advanced in place. The conv reads its window, the
+    state's W-1 columns and the new one; the decays and the state update
+    are float32 (``softplus`` and ``exp`` of float32 operands)."""
+    s = cfg.ssm
+    B, _, d = x_in.shape
+    di, N, nh, P = s.d_inner(d), s.state_dim, s.n_heads(d), s.head_dim
+    f32 = torch.float32
+
+    z, xBC, dt = _project(p, prefix, x_in[:, 0])
+    window = torch.cat([state["conv"], xBC[:, None, :]], dim=1)
+    xBC = F.silu(torch.einsum("bwc,wc->bc", window, p[f"{prefix}_conv_w"])
+                 + p[f"{prefix}_conv_b"])
+    state["conv"].copy_(window[:, 1:])
+
+    x, B_, C_ = torch.split(xBC, [di, N, N], dim=-1)
+    dt = F.softplus(dt.to(f32) + p[f"{prefix}_dt_bias"])
+    A = -torch.exp(p[f"{prefix}_A_log"].to(f32))
+    dA = torch.exp(dt * A)                                      # (B,nh)
+
+    xh = x.reshape(B, nh, P).to(f32)
+    xdt = xh * dt[..., None]
+    ssm = state["ssm"] * dA[..., None, None] + torch.einsum(
+        "bhp,bn->bhpn", xdt, B_.to(f32))
+    state["ssm"].copy_(ssm)
+    y = torch.einsum("bhpn,bn->bhp", ssm, C_.to(f32))
+    y = y + xh * p[f"{prefix}_D"].to(f32)[:, None]
+    y = y.reshape(B, di) * F.silu(z.to(f32))
+    y = rms_norm(y.to(x_in.dtype), p[f"{prefix}_norm_scale"], cfg.norm_eps)
+    return (y @ p[f"{prefix}_out_proj"])[:, None, :]

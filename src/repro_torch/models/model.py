@@ -1,12 +1,16 @@
-"""Model API of the port on the training path (``repro.models.model``):
-every family of the reference, the decoder-only (dense, MoE and the VLM's
-decoder with its stubbed patch input), the SSM (mamba2), the hybrid
-(zamba2) and the encoder-decoder (whisper, its frontend stubbed):
+"""Model API of the port (``repro.models.model``): every family of the
+reference, the decoder-only (dense, MoE and the VLM's decoder with its
+stubbed patch input), the SSM (mamba2), the hybrid (zamba2) and the
+encoder-decoder (whisper, its frontend stubbed):
 
   init_params(cfg, generator, device)   -> flat param dict (stacked layout)
   params_from_numpy(arrays, device)     -> the same dict from numpy arrays
   forward_logits(cfg, params, batch, hook=..., remat=...) -> (logits, aux)
   loss_fn(cfg, params, batch, hook=..., remat=...)  -> (scalar loss, metrics)
+  init_cache(cfg, batch, max_len, device=...) -> cache dict (family-specific)
+  prefill(cfg, params, batch)           -> (logits, cache)
+  decode_step(cfg, params, tokens, cache, pos) -> (logits, cache)
+  input_specs(cfg, cell)                -> tensors on the "meta" device
 
 Parameters are a flat ``dict[str, Tensor]`` under the JAX package's names
 and in its stacked layout (``layers.attn_wq`` is ``(L, d, H*hd)``), so
@@ -15,8 +19,15 @@ Batches are dicts with ``tokens`` (B, S) integer tensors and, for the VLM
 (pixtral), ``patch_embeds`` (B, S_img, d): the image prefix's embeddings,
 placed before the tokens' (the ViT frontend is stubbed, as in the
 reference), or, for the encoder-decoder (whisper), ``enc_embeds`` (B,
-T_src, d): the encoder's input frames. Prefill, caches and decode wait for
-serving (ROADMAP.md Queue 1 item 12).
+T_src, d): the encoder's input frames.
+
+The decode step writes its cache in place (the reference donates it) and
+returns it; its `pos` is one position for the batch, as the reference's,
+or one a row, as the serving engine decodes its slots. The reference's
+quirks are kept: ``prefill`` returns a zero cache for the SSM and the
+hybrid (their prefill is the forward pass) and zero self-attention caches
+for the encoder-decoder, whose cross-attention K / V it fills; a VLM
+prompt without ``patch_embeds`` is its tokens alone.
 """
 from __future__ import annotations
 
@@ -27,14 +38,24 @@ import numpy as np
 import torch
 
 from repro_torch import DeviceLike, resolve_device
-from repro_torch.configs.base import ArchFamily, ModelConfig
+from repro_torch.configs.base import ArchFamily, ModelConfig, ShapeCell
 from repro_torch.models import encdec, hybrid, layers as L, transformer
+from repro_torch.models.mamba2 import mamba2_init_state
 
 _BIAS_SUFFIXES = ("_b", "_bq", "_bk", "_bv", "_conv_b", "dt_bias")
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
+
+
+def _frames(cfg: ModelConfig, batch: Dict[str, torch.Tensor]
+            ) -> torch.Tensor:
+    """The encoder's input frames in the model's dtype, the dtype the
+    reference's ``make_batch`` and ``input_specs`` give them (its numpy
+    pipeline hands float32 frames, which JAX would promote the encoder
+    to, and its decoder scan then refuses: ROADMAP.md, the differences)."""
+    return batch["enc_embeds"].to(_dtype(cfg))
 
 
 # ---------------------------------------------------------------------------
@@ -135,12 +156,8 @@ def _final_hidden(cfg: ModelConfig, params: Dict[str, torch.Tensor],
         params = {**params, **hook(top, "top")}
     aux = None
     if cfg.family == ArchFamily.AUDIO:
-        # the frames in the model's dtype, the dtype the reference's
-        # make_batch and input_specs give them (its numpy pipeline hands
-        # float32 frames, which JAX would promote the encoder to)
-        frames = batch["enc_embeds"].to(_dtype(cfg))
-        enc = encdec.encoder_forward(params, frames, cfg, hook=hook,
-                                     remat=remat)
+        enc = encdec.encoder_forward(params, _frames(cfg, batch), cfg,
+                                     hook=hook, remat=remat)
         h = L.embed_tokens(params["embed.table"], batch["tokens"])
         pos = torch.arange(h.shape[1], device=h.device)
         h = h + L.sinusoidal_positions(pos, cfg.d_model).to(h.dtype)
@@ -188,6 +205,136 @@ def loss_fn(cfg: ModelConfig, params: Dict[str, torch.Tensor],
         h = h[:, -tokens.shape[1]:]
     ce = L.cross_entropy_loss((h @ table.T)[:, :-1], tokens[:, 1:])
     return ce + aux, {"ce": ce, "aux": aux}
+
+
+# ---------------------------------------------------------------------------
+# caches / prefill / decode
+# ---------------------------------------------------------------------------
+
+
+def _cache_device(device: DeviceLike) -> torch.device:
+    """`device`, resolved as an entry point's (``cuda`` unless told
+    otherwise), or the "meta" device for shapes alone."""
+    if device is not None and torch.device(device).type == "meta":
+        return torch.device("meta")
+    return resolve_device(device)
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               dtype: torch.dtype = None, device: DeviceLike = None
+               ) -> Dict[str, torch.Tensor]:
+    """The family's zero decode cache for `batch` sequences of up to
+    `max_len` positions: ``k`` / ``v`` (and int8 scales) for the
+    decoder-only; ``ssm`` / ``conv`` for the SSM; those and one KV slot
+    per shared-block call for the hybrid; ``k`` / ``v`` and the
+    cross-attention ``xk`` / ``xv`` over ``max_source_positions`` for the
+    encoder-decoder. Leaves lead with the layer axis, then the batch."""
+    dtype = dtype or _dtype(cfg)
+    dev = _cache_device(device)
+    if cfg.family == ArchFamily.SSM:
+        st = mamba2_init_state(cfg, batch, dtype, device=dev)
+        return {k: torch.zeros((cfg.num_layers,) + tuple(v.shape),
+                               dtype=v.dtype, device=dev)
+                for k, v in st.items()}
+    if cfg.family == ArchFamily.HYBRID:
+        return hybrid.hybrid_init_cache(cfg, batch, max_len, dtype, dev)
+    if cfg.family == ArchFamily.AUDIO:
+        return encdec.encdec_init_cache(cfg, batch, max_len,
+                                        cfg.max_source_positions, dtype, dev)
+    return transformer.init_kv_cache(cfg, batch, max_len, dtype, dev)
+
+
+def _logits(cfg: ModelConfig, params: Dict[str, torch.Tensor],
+            h: torch.Tensor) -> torch.Tensor:
+    h = L.rms_norm(h, params["final_norm.scale"], cfg.norm_eps)
+    return h @ params.get("unembed.table", params["embed.table"]).T
+
+
+@torch.no_grad()
+def prefill(cfg: ModelConfig, params: Dict[str, torch.Tensor],
+            batch: Dict[str, torch.Tensor]
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Run the prompt: (logits (B, S, V), its cache). The decoder-only
+    families fill the cache from the forward pass (S positions); see the
+    module doc for the others'. (The reference's ZeRO-3 `hook` serves its
+    sharded prefill, ROADMAP.md Queue 1 item 14.)"""
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    dev = tokens.device
+    if cfg.family == ArchFamily.AUDIO:
+        enc = encdec.encoder_forward(params, _frames(cfg, batch), cfg)
+        xk, xv = encdec.encdec_precompute_cross(params, enc, cfg)
+        h = L.embed_tokens(params["embed.table"], tokens)
+        h = h + L.sinusoidal_positions(torch.arange(S, device=dev),
+                                       cfg.d_model).to(h.dtype)
+        h = encdec.decoder_forward(params, h, enc, cfg)
+        cache = init_cache(cfg, B, S, device=dev)
+        cache["xk"], cache["xv"] = xk, xv
+        return _logits(cfg, params, h), cache
+    if cfg.family in (ArchFamily.SSM, ArchFamily.HYBRID):
+        logits, _ = forward_logits(cfg, params, batch)
+        return logits, init_cache(cfg, B, S, device=dev)
+    h = _embed_input(cfg, params, batch)
+    h, cache = transformer.decoder_prefill(params, h, cfg)
+    return _logits(cfg, params, h), cache
+
+
+@torch.no_grad()
+def decode_step(cfg: ModelConfig, params: Dict[str, torch.Tensor],
+                tokens: torch.Tensor, cache: Dict[str, torch.Tensor], pos
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """tokens (B, 1); `pos` one position (an int or a 0-d tensor) or one a
+    row (B,) -> (logits (B, V), cache). The cache is advanced in place."""
+    h = L.embed_tokens(params["embed.table"], tokens)
+    if cfg.family == ArchFamily.AUDIO:
+        posv = torch.as_tensor(pos, device=h.device).reshape(-1)
+        h = h + L.sinusoidal_positions(posv, cfg.d_model)[:, None].to(
+            h.dtype)
+        h, cache = encdec.encdec_decode_step(params, h, cache, pos, cfg)
+    elif cfg.family == ArchFamily.SSM:
+        h = hybrid.mamba_decode_layers(
+            hybrid._unbound_layers(params), h,
+            {k: v.unbind(0) for k, v in cache.items()}, cfg, 0,
+            cfg.num_layers)
+    elif cfg.family == ArchFamily.HYBRID:
+        h, cache = hybrid.hybrid_decode_step(params, h, cache, pos, cfg)
+    else:
+        h, cache = transformer.decoder_decode_step(params, h, cache, pos,
+                                                   cfg)
+    return _logits(cfg, params, h)[:, 0], cache
+
+
+# ---------------------------------------------------------------------------
+# input specs (tensors on the "meta" device: shapes and dtypes, no memory)
+# ---------------------------------------------------------------------------
+
+
+def input_specs(cfg: ModelConfig, cell: ShapeCell) -> Dict[str, Any]:
+    """The inputs of a shape cell as "meta" tensors (the reference's
+    ``ShapeDtypeStruct`` pytrees): ``{"batch": {...}}`` for train and
+    prefill cells; ``{"tokens", "cache", "pos"}`` for decode (a cache of
+    ``seq_len`` positions, one new token at a scalar position)."""
+    B, S = cell.global_batch, cell.seq_len
+    dt, i32 = _dtype(cfg), torch.int32
+
+    def meta(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    if cell.kind in ("train", "prefill"):
+        if cfg.family == ArchFamily.AUDIO:
+            batch = {"tokens": meta((B, S), i32),
+                     "enc_embeds": meta((B, cfg.max_source_positions,
+                                         cfg.d_model), dt)}
+        elif cfg.family == ArchFamily.VLM:
+            s_img, s_txt = _vlm_split(S)
+            batch = {"tokens": meta((B, s_txt), i32),
+                     "patch_embeds": meta((B, s_img, cfg.d_model), dt)}
+        else:
+            batch = {"tokens": meta((B, S), i32)}
+        return {"batch": batch}
+    return {"tokens": meta((B, 1), i32),
+            "cache": init_cache(cfg, B, S, device="meta"),
+            "pos": meta((), i32)}
 
 
 def make_batch(cfg: ModelConfig, batch: int, seq: int,

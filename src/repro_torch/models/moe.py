@@ -137,18 +137,21 @@ def dispatch_plan(experts: torch.Tensor, num_experts: int, capacity: int
             "slots": slots, "dropped": (~keep).sum()}
 
 
-def moe_ffn(p: Dict[str, torch.Tensor], x: torch.Tensor, moe_cfg
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
+def moe_ffn(p: Dict[str, torch.Tensor], x: torch.Tensor, moe_cfg,
+            min_capacity: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B,S,d) -> (out (B,S,d), aux loss times ``router_aux_weight``).
 
     Expects router_w (d,E), experts_w_gate/up (E,d,f), experts_w_down
     (E,f,d); and shared_w_* with shared_gate_w (d,1) for the shared
     branch. T = B*S tokens of this call are routed together: a voter's
-    microbatch alone, as each replica's is in the reference."""
+    microbatch alone, as each replica's is in the reference. An expert
+    holds at least `min_capacity` slots: the serving engine's decode
+    passes its batch, so that no slot's token is dropped, as none is when
+    the reference decodes each slot as a batch of one."""
     B, S, d = x.shape
     T = B * S
     E, k = moe_cfg.num_experts, moe_cfg.top_k
-    C = _capacity(T, E, k, moe_cfg.capacity_factor)
+    C = max(_capacity(T, E, k, moe_cfg.capacity_factor), min_capacity)
 
     xt = x.reshape(T, d)
     logits = xt @ p["router_w"]

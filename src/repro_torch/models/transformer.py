@@ -1,5 +1,6 @@
 """Decoder-only transformer stack, dense and MoE blocks
-(``repro.models.transformer``; the training path, no prefill or decode).
+(``repro.models.transformer``): the training stack, and the serving path's
+KV cache, prefill and one-token decode step.
 
 Layers stay stacked (leading ``L`` axis) as in the JAX package; the stack
 is a Python loop over depth over views of each layer's weights in the
@@ -15,6 +16,10 @@ A parameter `hook` (``core.majority_vote.make_fsdp_hooks``, the ZeRO-3
 gather whose backward votes) runs on each layer's tree inside the
 checkpointed block, so a rematted block gathers its layer's weights again
 in the backward pass instead of keeping them: ZeRO-3.
+
+The decode step updates the cache in place, one layer's slice at a time,
+as the reference carries it through a ``fori_loop`` so that a multi-GB
+cache never exists twice.
 """
 from __future__ import annotations
 
@@ -144,3 +149,97 @@ def _best_group(n_layers: int) -> int:
         if n_layers % k == 0 and abs(k - target) < abs(best - target):
             best = k
     return best
+
+
+# ---------------------------------------------------------------------------
+# prefill / decode
+# ---------------------------------------------------------------------------
+
+
+def init_kv_cache(cfg, batch: int, max_len: int, dtype: torch.dtype,
+                  device=None) -> Dict[str, torch.Tensor]:
+    """Zero caches ``k`` / ``v`` (L, B, max_len, K, hd) in `dtype`, or for
+    ``kv_cache_dtype="int8"`` int8 ones with (L, B, max_len, K) bf16
+    ``k_scale`` / ``v_scale``."""
+    K, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    shape = (cfg.num_layers, batch, max_len, K, hd)
+    if cfg.kv_cache_dtype == "int8":
+        return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                "k_scale": torch.zeros(shape[:-1], dtype=torch.bfloat16,
+                                       device=device),
+                "v_scale": torch.zeros(shape[:-1], dtype=torch.bfloat16,
+                                       device=device)}
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def _ffn(layer_p: Dict[str, torch.Tensor], x: torch.Tensor, cfg,
+         min_capacity: int = 0) -> torch.Tensor:
+    """The block's FFN without its aux loss: the MoE block or the MLP."""
+    if cfg.moe.enabled:
+        return moe_ffn(layer_p, x, cfg.moe, min_capacity=min_capacity)[0]
+    return L.swiglu_mlp(layer_p, "mlp", x)
+
+
+def decoder_prefill(p: Dict[str, torch.Tensor], h: torch.Tensor, cfg
+                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The forward pass over the prompt stream h (B, S, d) that also
+    returns the populated cache: each layer's K (after RoPE) and V at S
+    positions (quantized for an int8 cache), written into the (L, B, S,
+    ...) cache as the layer makes them."""
+    lp = {k: v.unbind(0) for k, v in _layer_tree(p).items()}
+    local = cfg.local_layer_mask()
+    B, S, _ = h.shape
+    cache = None
+    for i in range(cfg.num_layers):
+        layer_p = {n: v[i] for n, v in lp.items()}
+        attn_in = L.rms_norm(h, layer_p["norm1_scale"], cfg.norm_eps)
+        attn_out, (k, v) = L.self_attention_block(
+            layer_p, "attn", attn_in, cfg,
+            window=_window_for(cfg, local[i], S))
+        h = h + attn_out
+        ffn_in = L.rms_norm(h, layer_p["norm2_scale"], cfg.norm_eps)
+        h = h + _ffn(layer_p, ffn_in, cfg)
+        if cache is None:
+            cache = init_kv_cache(cfg, B, S, k.dtype, device=h.device)
+        if "k_scale" in cache:
+            (kq, ksc), (vq, vsc) = L.quantize_kv(k), L.quantize_kv(v)
+            for name, t in (("k", kq), ("v", vq), ("k_scale", ksc),
+                            ("v_scale", vsc)):
+                cache[name][i].copy_(t)
+        else:
+            cache["k"][i].copy_(k)
+            cache["v"][i].copy_(v)
+    return h, cache
+
+
+def decoder_decode_step(p: Dict[str, torch.Tensor], h: torch.Tensor,
+                        cache: Dict[str, torch.Tensor], pos, cfg
+                        ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """h (B,1,d); cache {'k','v'[,'k_scale','v_scale']} (L,B,Smax,...),
+    written in place; `pos` one position (scalar) or one a row (B,). A
+    local layer reads within ``sliding_window``, a global one the whole
+    cache (the reference's window of 2^30). With one position a row, each
+    row is also its own batch in an MoE block's routing (the engine's
+    slots are the reference's vmapped batch-1 decodes), so no row's token
+    is dropped for another's. Returns (h, cache)."""
+    lp = {k: v.unbind(0) for k, v in _layer_tree(p).items()}
+    layers = {k: v.unbind(0) for k, v in cache.items()}
+    local = cfg.local_layer_mask()
+    min_capacity = h.shape[0] if torch.as_tensor(pos).ndim == 1 else 0
+    pos = L.decode_positions(pos, h.shape[0], h.device)
+    for i in range(cfg.num_layers):
+        layer_p = {n: v[i] for n, v in lp.items()}
+        window = None
+        if cfg.sliding_window:
+            window = cfg.sliding_window if local[i] else 1 << 30
+        attn_in = L.rms_norm(h, layer_p["norm1_scale"], cfg.norm_eps)
+        h = h + L.decode_self_attention(
+            layer_p, "attn", attn_in, cfg, k_cache=layers["k"][i],
+            v_cache=layers["v"][i], pos=pos, window=window,
+            k_scale=layers["k_scale"][i] if "k_scale" in layers else None,
+            v_scale=layers["v_scale"][i] if "v_scale" in layers else None)
+        ffn_in = L.rms_norm(h, layer_p["norm2_scale"], cfg.norm_eps)
+        h = h + _ffn(layer_p, ffn_in, cfg, min_capacity)
+    return h, cache

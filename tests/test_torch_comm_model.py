@@ -311,15 +311,59 @@ def test_trainer_at_auto_matches_reference(ref_constants):
                               port)
 
 
-def test_the_optimizer_takes_auto_resolved():
-    """build_optimizer takes AUTO over one voter (psum_int8, no wire);
-    over more it raises, since AUTO is priced on the model's parameter
-    count, which make_train_step resolves it on first."""
+def test_the_optimizer_takes_auto_resolved(ref_constants):
+    """build_optimizer takes AUTO over one voter (psum_int8, no wire) and
+    over M > 1 (ROADMAP.md Queue 3, F2, repaired): there it resolves at the
+    first update on the total size of the leaves it votes, over a data
+    axis of M stacked voters, as the reference's optimizer does through
+    its vote API (``_tree_execute``: ``select_strategy`` on the voted
+    tree's size, ``src/repro/core/vote_api.py:779-782``), for the sign
+    family on each codec and for a dense kind; its step is then the step
+    of the optimizer that names that wire, bit for bit."""
     from repro_torch.core import signum as tsignum
-    for kind in ("signum_vote", "adam"):
-        auto = tbase.OptimizerConfig(kind=kind,
+    rng = np.random.default_rng(0)
+    shapes = {"a": (64, 48), "b": (3000,), "c": (7,)}
+    total = sum(int(np.prod(s)) for s in shapes.values())
+    params0 = {k: rng.normal(size=s).astype(np.float32)
+               for k, s in shapes.items()}
+    grads = [{k: rng.normal(size=s).astype(np.float32)
+              for k, s in shapes.items()} for _ in range(4)]
+
+    def run(cfg):
+        opt = tsignum.build_optimizer(cfg, 4)
+        params = {k: torch.from_numpy(v.copy()) for k, v in params0.items()}
+        state = opt.init(params)
+        wire = opt.wire(params, 0)
+        for voter, g in enumerate(grads):
+            opt.encode(voter, {k: torch.from_numpy(v.copy())
+                               for k, v in g.items()},
+                       state, wire)
+        opt.update(wire, state, params, 0)
+        return opt, params, state
+
+    for kind, codec in (("signum_vote", "sign1bit"),
+                        ("signum_vote", "ternary2bit"),
+                        ("signum_vote", "ef_sign"), ("adam", "sign1bit")):
+        auto = tbase.OptimizerConfig(kind=kind, codec=codec,
                                      vote_strategy=tbase.VoteStrategy.AUTO)
         assert tsignum.build_optimizer(auto, 1).strategy \
             == tbase.VoteStrategy.PSUM_INT8
-        with pytest.raises(ValueError, match="resolve it on the model's"):
-            tsignum.build_optimizer(auto, 4)
+        want = jve.select_strategy(total, 4, 1, codec=codec)
+        opt, params, state = run(auto)
+        assert opt.strategy.value == want.value, (kind, codec)
+        named = dataclasses.replace(auto, vote_strategy=tbase.VoteStrategy(
+            want.value))
+        _, nparams, nstate = run(named)
+        for k in shapes:
+            assert torch.equal(params[k], nparams[k]), (kind, codec, k)
+        assert json.dumps(_plain_state(state)) == json.dumps(
+            _plain_state(nstate)), (kind, codec)
+
+
+def _plain_state(tree):
+    """An optimizer state as nested lists (tensors' values, ints kept)."""
+    if isinstance(tree, dict):
+        return {k: _plain_state(v) for k, v in sorted(tree.items())}
+    if isinstance(tree, torch.Tensor):
+        return tree.float().tolist()
+    return tree

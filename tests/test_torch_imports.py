@@ -53,7 +53,9 @@ def test_port_has_the_slice_modules():
                 "core/population.py", "core/theory.py",
                 "distributed/fault_tolerance.py", "distributed/mesh.py",
                 "distributed/sharding.py", "launch/__init__.py",
-                "launch/train.py",
+                "launch/train.py", "launch/serve.py",
+                "train/serve_step.py", "serve/__init__.py",
+                "serve/engine.py", "serve/swap.py", "serve/traffic.py",
                 "checkpoint/checkpoint.py", "obs/__init__.py",
                 "obs/recorder.py", "sim/__init__.py", "sim/scenario.py",
                 "sim/virtual_mesh.py", "sim/runner.py"):
