@@ -270,24 +270,21 @@ Phases, each of which fails the run (non-zero exit) on any disagreement:
 
 16. the decoder-only model zoo (after phase 15; ``scripts/zoo_probe.py``
    runs it alone): gemma3's attention at full width (16 / 8 heads of 256)
-   and seq ZOO_SEQ (2048; 4096, train_4k's, until phase 18 came: cut for
-   the script's time), the chunked path (q_chunk 1024) against the unchunked
+   and seq 4096, the chunked path (q_chunk 1024) against the unchunked
    product, a local (window 1024) and a global layer, output and
    gradients within ATTN_ULPS bf16 ulps, each path's peak; then the
    presets (``default_train_config(arch, train_4k)``) of gemma3-12b (6
-   layers: one 5:1 local / global period), pixtral-12b (1, the patch
-   prefix a quarter of the sequence), qwen2-moe-a2.7b (1), qwen3-moe-235b-
-   a22b (1, fsdp) and deepseek-67b (1, fsdp; pixtral, qwen2-moe and
-   deepseek at 2 until phase 18 came, cut for the script's time) at every
-   published width, seq ZOO_SEQ, M = 4 stacked, batch cut to one row a
-   voter a microbatch (32; 16
+   layers: one 5:1 local / global period), pixtral-12b (2, the patch
+   prefix a quarter of the sequence), qwen2-moe-a2.7b (2), qwen3-moe-235b-
+   a22b (1, fsdp) and deepseek-67b (2, fsdp) at every published width, seq
+   4096, M = 4 stacked, batch cut to one row a voter a microbatch (32; 16
    for qwen3-moe's 4 microbatches), tokens drawn on the card from a seed:
    step 0 with every launch held against its plain version and one leaf's
    step-0 vote (an expert leaf for the MoE archs) against its plain
    recomputation, step 0 again from the same state with losses, every
    tally output, parameters and momenta bit-equal, then step 1; exact
    launches, finite ce and aux, s/step, peak memory (qwen2-moe's next step
-   under torch.profiler in ``scripts/zoo_probe.py`` only, since phase 18);
+   under torch.profiler in ``scripts/zoo_probe.py`` only: about 40 s);
 17. the priced wire and the last three families (after phase 16;
    ``scripts/family_probe.py`` runs it alone). 17a, at phase 3's cell
    (glm4-9b, 2 layers, M = 4, batch 8, seq 512): the trainer with
@@ -305,17 +302,16 @@ Phases, each of which fails the run (non-zero exit) on any disagreement:
    trace with every section and a predicted exchange on every bucket (the
    measured one is the host's spans on one card, not a link). 17b, the
    presets (``default_train_config(arch, train_4k)``: float32 momentum on
-   psum_int8, full remat) of mamba2-2.7b (4 of 64 layers; 8 until phase
-   18 came, cut for the script's time), zamba2-1.2b (8
+   psum_int8, full remat) of mamba2-2.7b (8 of 64 layers), zamba2-1.2b (8
    of 38: a segment of 6 and its shared block, then 2 without) and
-   whisper-tiny (4 + 4) at every published width, seq ZOO_SEQ, M = 4, batch
+   whisper-tiny (4 + 4) at every published width, seq 4096, M = 4, batch
    cut to one row a voter a microbatch (16, 16, 32), as phase 16's: step 0
    with every launch held against its plain version and one leaf's vote
    (mamba2's float32 ``layers.mamba_A_log``, zamba2's
    ``shared_block.attn_wq``, whisper's ``layers.xattn_wq``) against its
    plain recomputation, step 0 again bit-equal, step 1, s/step, peak
    memory (mamba2's next step under torch.profiler in
-   ``scripts/family_probe.py`` only, since phase 18);
+   ``scripts/family_probe.py`` only: about 60 s);
 18. serving (after phase 17; ``scripts/serve_probe.py`` runs it alone),
    which launches none of the port's kernels before 18d (checked): 18a,
    glm4-9b at every published width and full depth (40 layers, bf16,
@@ -323,13 +319,15 @@ Phases, each of which fails the run (non-zero exit) on any disagreement:
    max_len 1024, prefill admission in buckets of 128 / 256 / 512) on 24
    Poisson requests (prompts of 128-512, 32-96 tokens each, greedy), then
    the static scheduler on the same requests: zero dropped, the same
-   tokens, every lane equal to its request served alone in an engine of
+   tokens, 3 lanes (the longest prompt, then the recycled slots with the
+   most stale rows) equal to their request served alone in an engine of
    the same shape, one decode build, continuous goodput >= static; ms per
    decode tick (CUDA events) beside its memory bound (the weights and the
    live KV rows over 3.35 TB/s), tokens/s, TTFT and latency p50 / p95 in
    ticks, peak memory; 4 of the requests by inline admission (token
-   agreement and the largest logit gap printed; equality required of a
-   float32 2-layer twin). 18b, qwen1.5-32b at every published width and 32
+   agreement and the largest logit gap printed). A float32 2-layer twin
+   of the engine serves all 24, every lane equal to its request served
+   alone, and its inline admission equals its prefill admission. 18b, qwen1.5-32b at every published width and 32
    of its 64 layers, its int8 KV cache: 4 slots, max_len 8192, prompts of
    4,200-4,600 tokens through one prefill bucket of 4608 and 32 tokens
    each (the chunked online-softmax decode over two KV_CHUNKs); the
@@ -338,8 +336,8 @@ Phases, each of which fails the run (non-zero exit) on any disagreement:
    logit within 0.15 of the twin's (relative at max(|logit|, 1)). 18c,
    gemma3-12b (6 layers, prompts past its 1024 window), pixtral-12b (2,
    tokens only), qwen2-moe-a2.7b (2), qwen3-moe-235b-a22b (1),
-   deepseek-67b (1), mamba2-2.7b (4) and zamba2-1.2b (8) (inline
-   admission) at every published width behind 4 slots, every lane equal
+   deepseek-67b (2), mamba2-2.7b (8) and zamba2-1.2b (8) (inline
+   admission), phases 16's and 17's depths, at every published width behind 4 slots, every lane equal
    to its request served alone, and whisper-tiny's batch loop with
    stubbed frames (each row equal to itself served alone); each arch's
    float32 twin decoding 64 teacher-forced steps against its
@@ -3506,8 +3504,7 @@ def run_population_path(torch, dev, err) -> dict:
 #: ranks of the mesh world, all on cuda:0 (NCCL takes one device per rank,
 #: and there is one card, so they meet over gloo through host memory)
 MESH_RANKS = 4
-#: 2 until phase 18 joined the script (cut for its time)
-MESH_STEPS = 1
+MESH_STEPS = 2
 #: phase 14's runs: (label, mesh shape, mesh axes, optimizer options,
 #: train options); every one from the same seed as phase 3
 MESH_RUNS = (
@@ -4724,23 +4721,20 @@ def run_fsdp_path(torch, dev, errs) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 16: the decoder-only model zoo's presets at seq ZOO_SEQ
+# phase 16: the decoder-only model zoo's presets at seq 4096
 # ---------------------------------------------------------------------------
 
 #: phase 16's archs: (arch, depth, the leaf whose step-0 vote is recomputed
-#: by plain PyTorch). Every published width, seq ZOO_SEQ; depth cut by memory
-#: (gemma3 keeps one whole 5:1 local / global period), pixtral's,
-#: qwen2-moe's and deepseek's from 2 to 1 for the script's time once phase
-#: 18 joined it
+#: by plain PyTorch). Every published width, seq 4096; depth cut by memory
+#: (gemma3 keeps one whole 5:1 local / global period)
 ZOO = (("gemma3-12b", 6, "layers.attn_wq"),
-       ("pixtral-12b", 1, "layers.attn_wq"),
-       ("qwen2-moe-a2.7b", 1, "layers.experts_w_down"),
+       ("pixtral-12b", 2, "layers.attn_wq"),
+       ("qwen2-moe-a2.7b", 2, "layers.experts_w_down"),
        ("qwen3-moe-235b-a22b", 1, "layers.experts_w_gate"),
-       ("deepseek-67b", 1, "layers.attn_wq"))
+       ("deepseek-67b", 2, "layers.attn_wq"))
 #: steps 0..ZOO_STEPS-1, step 0 run twice: three steps of compute an arch
-#: (cut from 4 so that the phase stays under about 4 minutes); the seq
-#: train_4k's 4096 until phase 18 joined the script, 2048 since (its time)
-ZOO_SEQ, ZOO_STEPS = 2048, 2
+#: (cut from 4 so that the phase stays under about 4 minutes)
+ZOO_SEQ, ZOO_STEPS = 4096, 2
 #: the arch whose step 3 runs under torch.profiler
 ZOO_PROFILED = "qwen2-moe-a2.7b"
 #: chunked against unchunked attention at gemma3's full width: bf16 q, k,
@@ -5104,7 +5098,7 @@ def run_zoo_path(torch, dev, err, profiled=ZOO_PROFILED) -> dict:
 
 # ---------------------------------------------------------------------------
 # phase 17: the priced wire (17a) and the SSM, hybrid and encoder-decoder
-# families' presets at seq ZOO_SEQ (17b)
+# families' presets at seq 4096 (17b)
 # ---------------------------------------------------------------------------
 
 #: 17a: steps of each trainer run (the AUTO run and its named twin)
@@ -5112,14 +5106,13 @@ WIRE_STEPS = 2
 #: 17a: the codecs whose votes of the trained momentum take AUTO
 AUTO_CODECS = ("sign1bit", "ef_sign", "ternary2bit", "weighted_vote")
 #: 17b's archs: (arch, depth, the leaf whose step-0 vote is recomputed by
-#: plain PyTorch). Every published width, seq ZOO_SEQ. Depth is cut for the
+#: plain PyTorch). Every published width, seq 4096. Depth is cut for the
 #: phase's time, not by memory: at full depth mamba2 (64 layers, 64.0 GB)
 #: took 19.0 s a step and zamba2 (38, 27.6 GB) 15.6 s on an H100 80GB at
-#: 700 W (PERF.md §5, scripts/family_probe.py); mamba2's from 8 to 4 once
-#: phase 18 joined the script. zamba2 keeps one whole segment of 6 mamba
-#: layers and its shared block, then a ragged segment of 2 without one, as
-#: its last segment
-FAMILIES = (("mamba2-2.7b", 4, "layers.mamba_A_log"),
+#: 700 W (PERF.md §5, scripts/family_probe.py). zamba2 keeps one whole
+#: segment of 6 mamba layers and its shared block, then a ragged segment of
+#: 2 without one, as its last segment
+FAMILIES = (("mamba2-2.7b", 8, "layers.mamba_A_log"),
             ("zamba2-1.2b", 8, "shared_block.attn_wq"),
             ("whisper-tiny", 4, "layers.xattn_wq"))
 #: the arch whose next step runs under torch.profiler
@@ -5429,6 +5422,9 @@ SERVE_TRAFFIC = dict(n_requests=24, rate=0.15, prompt_lens=(128, 256, 512),
                      gen_range=(32, 96), seed=18)
 #: 18a's inline check: this many of the requests (the shortest prompts)
 SERVE_INLINE = 4
+#: 18a's lanes held against their request served alone at full depth
+#: (:func:`solo_lanes`); the float32 2-layer twin holds every lane
+SERVE_SOLO_FULL = 3
 #: 18b: qwen1.5-32b at half depth (64 -> 32 layers, for memory), its int8
 #: KV cache past two KV_CHUNKs; the reference test's bound on its logits
 #: against a bf16-cache twin (relative at max(|logit|, 1))
@@ -5441,13 +5437,16 @@ SERVE_INT8_TRAFFIC = dict(n_requests=4, rate=1.0,
 SERVE_INT8_BOUND = 0.15
 #: 18c: the other archs at phase 16 / 17's cut depths: (arch, depth,
 #: admission, prompt lengths); gemma3's prompts pass its 1024 window
-SERVE_ZOO = (("gemma3-12b", 6, "prefill", (1100, 1150, 1200)),
-             ("pixtral-12b", 1, "prefill", (64, 96, 128)),
-             ("qwen2-moe-a2.7b", 1, "prefill", (64, 96, 128)),
-             ("qwen3-moe-235b-a22b", 1, "prefill", (64, 96, 128)),
-             ("deepseek-67b", 1, "prefill", (64, 96, 128)),
-             ("mamba2-2.7b", 4, "inline", (16, 24, 32)),
-             ("zamba2-1.2b", 8, "inline", (16, 24, 32)))
+_TRAINED_DEPTH = {arch: depth for arch, depth, _ in ZOO + FAMILIES}
+SERVE_ZOO = tuple((arch, _TRAINED_DEPTH[arch], admit, lens)
+                  for arch, admit, lens in (
+                      ("gemma3-12b", "prefill", (1100, 1150, 1200)),
+                      ("pixtral-12b", "prefill", (64, 96, 128)),
+                      ("qwen2-moe-a2.7b", "prefill", (64, 96, 128)),
+                      ("qwen3-moe-235b-a22b", "prefill", (64, 96, 128)),
+                      ("deepseek-67b", "prefill", (64, 96, 128)),
+                      ("mamba2-2.7b", "inline", (16, 24, 32)),
+                      ("zamba2-1.2b", "inline", (16, 24, 32))))
 SERVE_ZOO_TRAFFIC = dict(n_requests=6, rate=0.5, gen_range=(16, 32),
                          seed=20)
 SERVE_ZOO_SLOTS = 4
@@ -5635,6 +5634,35 @@ def check_solo(cfg, params, sc, requests, rep, label: str) -> None:
                 f"{alone.tokens_by_request()[r.req_id]}")
 
 
+def solo_lanes(rep, requests, n: int) -> list:
+    """`n` of `requests` whose lanes the pool could most plausibly get
+    wrong: the longest prompt (the most cache rows; ties to the most
+    tokens), then the requests admitted into a recycled slot, the one
+    with the most stale rows first (its slot's previous occupant reached
+    furthest past its own prompt: rows that only the position mask keeps
+    out), then the last admitted."""
+    recs, plen = rep.records, {r.req_id: r.prompt_len for r in requests}
+    order = sorted(requests, key=lambda r: (recs[r.req_id].admit_tick,
+                                            r.req_id))
+    reach, stale = {}, {}
+    for r in order:
+        rec = recs[r.req_id]
+        if rec.slot in reach:
+            stale[r.req_id] = reach[rec.slot] - plen[r.req_id]
+        reach[rec.slot] = plen[r.req_id] + len(rec.tokens)
+    picks = [max(requests, key=lambda r: (plen[r.req_id],
+                                          len(recs[r.req_id].tokens),
+                                          -r.req_id))]
+    picks += sorted((r for r in requests if r.req_id in stale),
+                    key=lambda r: (-stale[r.req_id], r.req_id))
+    picks.append(order[-1])
+    out = []
+    for r in picks:
+        if r not in out and len(out) < n:
+            out.append(r)
+    return out
+
+
 def serve_params(torch, cfg, dev, seed: int = 0) -> dict:
     from repro_torch.models import model as M
     return M.init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
@@ -5666,12 +5694,15 @@ def run_serve_main(torch, dev, cfg=None, twin=None) -> None:
     """Phase 18a: glm4-9b (every published width, full depth, bf16,
     seeded weights) behind the continuous engine with prefill admission
     on SERVE_TRAFFIC's requests, then the static scheduler on the same
-    requests: zero dropped, every lane equal to its request served alone,
-    one decode build, continuous goodput >= static, the same tokens. Then
-    SERVE_INLINE of the requests (the shortest prompts) by inline
-    admission: the token agreement with prefill admission and the largest
-    logit gap printed; equality required of a float32 2-layer twin
-    (`twin`, default glm4-9b's width at 2 layers) of both engines."""
+    requests: zero dropped, SERVE_SOLO_FULL lanes (:func:`solo_lanes`)
+    equal to their request served alone, one decode build, continuous
+    goodput >= static, the same tokens. Then SERVE_INLINE of the requests
+    (the shortest prompts) by inline admission: the token agreement with
+    prefill admission and the largest logit gap printed. A float32
+    2-layer twin (`twin`, default glm4-9b's width at 2 layers) of the
+    continuous engine serves every request, each lane equal to its
+    request served alone, and its inline admission equals its prefill
+    admission."""
     from repro_torch.configs.base import get_config
     from repro_torch.obs import recorder as obs
     from repro_torch.serve import ServeConfig, ServeEngine, poisson_requests
@@ -5694,7 +5725,8 @@ def run_serve_main(torch, dev, cfg=None, twin=None) -> None:
         raise AssertionError(
             f"18a: continuous goodput {cont.goodput_tokens_per_tick} < "
             f"static {stat.goodput_tokens_per_tick}")
-    check_solo(cfg, params, sc, reqs, cont, "18a")
+    solo = solo_lanes(cont, reqs, SERVE_SOLO_FULL)
+    check_solo(cfg, params, sc, solo, cont, "18a")
     inline = sorted(reqs, key=lambda r: (r.prompt_len, r.req_id))[
         :SERVE_INLINE]
     inline = [r.with_arrival(0.0) for r in inline]
@@ -5715,6 +5747,9 @@ def run_serve_main(torch, dev, cfg=None, twin=None) -> None:
     del params
     twin = twin or dataclasses.replace(cfg, num_layers=2, dtype="float32")
     tparams = serve_params(torch, twin, dev)
+    trep = ServeEngine(twin, tparams, sc).run(reqs)
+    require_served("18a float32 twin", trep, len(reqs))
+    check_solo(twin, tparams, sc, reqs, trep, "18a float32 twin")
     by = {}
     for admit in ("prefill", "inline"):
         by[admit] = ServeEngine(twin, tparams, dataclasses.replace(
@@ -5727,7 +5762,8 @@ def run_serve_main(torch, dev, cfg=None, twin=None) -> None:
          "layers": cfg.num_layers, "decode_builds": builds,
          "continuous_over_static_goodput":
              cont.goodput_tokens_per_tick / stat.goodput_tokens_per_tick,
-         "lanes_equal_alone": len(reqs),
+         "lanes_equal_alone": [r.req_id for r in solo],
+         "float32_twin_lanes_equal_alone": len(reqs),
          "inline_requests_equal": sum(want[r.req_id] == got[r.req_id]
                                       for r in inline),
          "inline_token_agreement": same / max(total, 1),
@@ -6465,9 +6501,9 @@ def main() -> int:
         launches[k] += v
     for k, v in run_fsdp_path(torch, dev, errs).items():
         launches[k] += v
-    # the zoo's and the families' profiled steps run in their probes
-    # (scripts/zoo_probe.py, scripts/family_probe.py), not here: cut for
-    # the script's time once phase 18 joined it
+    # the zoo's and the families' profiled steps (about 40 s and 60 s) run
+    # in their probes (scripts/zoo_probe.py, scripts/family_probe.py), not
+    # here, for the script's time
     for k, v in run_zoo_path(torch, dev, errs, profiled=None).items():
         launches[k] += v
     for k, v in run_phase17(torch, cfg, dev, errs, profiled=None).items():

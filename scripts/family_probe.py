@@ -12,8 +12,8 @@ vote API's default (AUTO) on four codecs of the trained momentum bit-equal
 to the named wires, and the AUTO plan (``bucket_bytes=-1``, overlap, the
 embeddings on ternary2bit) bit-equal to its named twin, its trace rendered
 by the port's report; then phase 17b, the presets of mamba2-2.7b,
-zamba2-1.2b and whisper-tiny at every published width, seq ZOO_SEQ
-(2048), M = 4, one row a voter a microbatch, mamba2's next step under
+zamba2-1.2b and whisper-tiny at every published width, seq 4096, M = 4,
+one row a voter a microbatch, mamba2's next step under
 torch.profiler. ``--mamba2-depth`` runs mamba2 at each depth given, in
 turn (default: chip_smoke's); a depth that does not fit the card is
 reported and the next one runs. One JSON line per result, the card's

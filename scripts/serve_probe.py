@@ -6,8 +6,9 @@ chip_smoke's phase 18 alone.
 
 Builds the kernels, then 18a (glm4-9b at every published width and full
 depth behind the continuous engine with prefill admission, the static
-scheduler on the same requests, every lane against its request served
-alone, inline admission against prefill), 18b (qwen1.5-32b at half depth,
+scheduler on the same requests, three lanes against their request served
+alone, inline admission against prefill, and a float32 2-layer twin with
+every lane against its request served alone), 18b (qwen1.5-32b at half depth,
 its int8 KV cache past two KV_CHUNKs, against a bf16-cache twin), 18c (the
 other eight archs at phase 16 / 17's depths, each against its float32
 twin's forward) and 18d (the launcher publishing into a running engine's

@@ -5,10 +5,10 @@
     python3 scripts/zoo_probe.py
 
 Builds the kernels, then phase 16: gemma3's attention at full width and
-seq ZOO_SEQ (2048), chunked (q_chunk 1024) against unchunked, a local and
-a global layer; then the presets of gemma3-12b (6 layers), pixtral-12b (1),
-qwen2-moe-a2.7b (1), qwen3-moe-235b-a22b (1) and deepseek-67b (1) at every
-published width, seq ZOO_SEQ, M = 4 stacked voters, one row a voter a
+seq 4096, chunked (q_chunk 1024) against unchunked, a local and a global
+layer; then the presets of gemma3-12b (6 layers), pixtral-12b (2),
+qwen2-moe-a2.7b (2), qwen3-moe-235b-a22b (1) and deepseek-67b (2) at every
+published width, seq 4096, M = 4 stacked voters, one row a voter a
 microbatch: step 0 with every launch held against its plain version and
 one leaf's vote against a plain recomputation, step 0 again from the same
 state (bit-equal), step 1, exact launches, s/step, peak memory, and

@@ -54,14 +54,17 @@ def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float
 
 def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
                ) -> torch.Tensor:
-    """x (..., S, H, D); cos/sin (..., S, D//2) broadcast over heads.
-    Half-split (not interleaved), computed in float32."""
-    dtype = x.dtype
-    x1, x2 = x.to(torch.float32).chunk(2, dim=-1)
-    c = cos[..., None, :]
-    s = sin[..., None, :]
-    out = torch.cat([x1 * c - x2 * s, x1 * s + x2 * c], dim=-1)
-    return out.to(dtype)
+    """x (..., S, H, D); cos/sin (..., S, D//2) as :func:`rope_cos_sin`
+    gives them, or each half already repeated to (..., S, D) (a decode
+    tick's tables, shared by its layers), broadcast over heads. Half-split
+    (not interleaved), computed in float32 as ``x * cos + rotate_half(x) *
+    sin``, whose halves are ``x1 c - x2 s`` and ``x2 c + x1 s``."""
+    if cos.shape[-1] != x.shape[-1]:
+        cos, sin = (torch.cat([t, t], dim=-1) for t in (cos, sin))
+    x32 = x.to(torch.float32)
+    x1, x2 = x32.chunk(2, dim=-1)
+    return (x32 * cos[..., None, :] + torch.cat([-x2, x1], dim=-1)
+            * sin[..., None, :]).to(x.dtype)
 
 
 def sinusoidal_positions(positions: torch.Tensor, d_model: int
@@ -260,11 +263,12 @@ class DecodePositions:
     def rope(self, head_dim: int, theta: float
              ) -> Tuple[torch.Tensor, torch.Tensor]:
         """RoPE's cos and sin at each row's position, each half repeated
-        to the head's width: (B, 1, 1, head_dim) float32."""
+        to the head's width: (B, 1, head_dim) float32, as
+        :func:`apply_rope` takes them."""
         key = (head_dim, theta)
         if key not in self._rope:
             cos, sin = rope_cos_sin(self.pos, head_dim, theta)
-            self._rope[key] = tuple(torch.cat([t, t], dim=-1)[:, None, None]
+            self._rope[key] = tuple(torch.cat([t, t], dim=-1)[:, None]
                                     for t in (cos, sin))
         return self._rope[key]
 
@@ -314,9 +318,11 @@ def _decode_attention_chunked(qg: torch.Tensor, k_cache: torch.Tensor,
     bf16 scales), so no full-precision copy of the cache exists. Chunk-
     sized products run in the compute dtype (bf16 for an int8 cache, else
     the cache's), scores and the running max, numerator and denominator
-    in float32. As in the reference, ``T // chunk`` chunks are read, and a
-    chunk whose rows are all masked (outside the window) adds nothing:
-    ``exp(-inf - -inf)`` is never let into the sums.
+    in float32. As in the reference, ``T // chunk`` chunks are read, so a
+    cache longer than ``KV_CHUNK`` and not a multiple of it raises (the
+    reference leaves its last rows unread); a chunk whose rows are all
+    masked (outside the window) adds nothing: ``exp(-inf - -inf)`` is
+    never let into the sums.
 
     qg (B,1,K,G,D); caches (B,T,K,D); scales (B,T,K) or None; `pos` as
     :func:`decode_positions` takes it. Returns (B,1,K,G,D) float32.
@@ -325,6 +331,12 @@ def _decode_attention_chunked(qg: torch.Tensor, k_cache: torch.Tensor,
     pos = decode_positions(pos, B, qg.device)
     T = k_cache.shape[1]
     chunk = min(KV_CHUNK, T)
+    if T % chunk:
+        raise ValueError(
+            f"a cache of {T} rows is longer than KV_CHUNK ({KV_CHUNK}) and "
+            f"not a multiple of it: the chunked decode reads {T // chunk} "
+            f"chunks and would never attend rows {T // chunk * chunk}-"
+            f"{T - 1}; give the cache a multiple of {KV_CHUNK} rows")
     compute_dt = torch.bfloat16 if k_scale is not None else k_cache.dtype
     qc = qg.to(compute_dt)
     f32 = torch.float32
@@ -354,17 +366,6 @@ def _decode_attention_chunked(qg: torch.Tensor, k_cache: torch.Tensor,
         m = m_new
     out = num / torch.clamp(den[..., None], min=1e-30)
     return out.movedim(3, 1)
-
-
-def _rope_rows(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
-               ) -> torch.Tensor:
-    """:func:`apply_rope` of x (B, 1, H, D) with :meth:`DecodePositions.rope`'s
-    full-width tables, in fewer operations and with the same float32
-    roundings: ``x * cos + rotate_half(x) * sin``, whose halves are
-    ``x1 c + (-x2) s`` (= ``x1 c - x2 s`` exactly) and ``x2 c + x1 s``."""
-    x32 = x.to(torch.float32)
-    x1, x2 = x32.chunk(2, dim=-1)
-    return (x32 * cos + torch.cat([-x2, x1], dim=-1) * sin).to(x.dtype)
 
 
 def _write_rows(cache: torch.Tensor, new: torch.Tensor,
@@ -401,8 +402,8 @@ def decode_self_attention(
     pos = decode_positions(pos, B, x.device)
     if use_rope and cfg.rope_theta:
         cos, sin = pos.rope(hd, cfg.rope_theta)
-        q = _rope_rows(q, cos, sin)
-        k = _rope_rows(k, cos, sin)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
     quantized = k_scale is not None
     T = k_cache.shape[1]
     if quantized:

@@ -30,7 +30,9 @@ reference's ``init_params``, handed to the port through
     module constant and the reference's module attribute to 16: the
     chunked path taken (counted), against the reference's, gemma3's local
     layers windowed; ``_decode_attention_chunked`` alone against the
-    reference's at several positions, windowed and int8.
+    reference's at several positions, windowed and int8; a cache past
+    ``KV_CHUNK`` and not a multiple of it refused (the reference leaves
+    its last rows unread).
 (f) ``make_cache_rehome``: the reference's re-home cases
     (``tests/test_serve_step.py``), ported.
 (g) ``input_specs`` shapes and dtypes against the reference's.
@@ -225,15 +227,22 @@ def test_rows_decode_at_their_own_positions(arch):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_decode_rope_is_apply_rope(dtype):
-    """The decode's RoPE (full-width tables shared by the layers, the
-    rotate-half form) equals ``apply_rope`` bit for bit."""
+    """The decode's RoPE tables (each half repeated to the head's width,
+    shared by the layers) give ``apply_rope`` the result of the half-width
+    tables bit for bit, and both the half-split form ``x1 c - x2 s``,
+    ``x1 s + x2 c`` in float32, the reference's."""
     g = torch.Generator().manual_seed(0)
     x = (torch.randn((8, 1, 4, 32), generator=g) * 3).to(getattr(torch,
                                                                  dtype))
     pos = torch.tensor([0, 1, 5, 77, 1023, 4095, 100_000, 3])
     cos, sin = tL.rope_cos_sin(pos[:, None], 32, 10_000.0)
     c, s = tL.DecodePositions(pos, 8, "cpu").rope(32, 10_000.0)
-    assert torch.equal(tL._rope_rows(x, c, s), tL.apply_rope(x, cos, sin))
+    got = tL.apply_rope(x, c, s)
+    assert torch.equal(got, tL.apply_rope(x, cos, sin))
+    x1, x2 = x.float().chunk(2, dim=-1)
+    hc, hs = cos[..., None, :], sin[..., None, :]
+    want = torch.cat([x1 * hc - x2 * hs, x1 * hs + x2 * hc], dim=-1)
+    assert torch.equal(got, want.to(x.dtype))
 
 
 # ---------------------------------------------------------------------------
@@ -371,6 +380,26 @@ def test_long_cache_takes_the_chunked_path(arch, monkeypatch):
     assert len(calls) == steps * tc.num_layers
     for k, v in jcache.items():
         _close_leaf(_np(tcache[k]), _np(v), f"{arch} cache {k}")
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+def test_chunked_decode_refuses_rows_it_would_not_read(quantized,
+                                                       monkeypatch):
+    """A cache longer than KV_CHUNK and not a multiple of it raises: the
+    reference reads ``T // KV_CHUNK`` chunks and silently leaves the last
+    rows unattended. A multiple of it, or any length up to it, decodes."""
+    monkeypatch.setattr(tL, "KV_CHUNK", 16)
+    cfg = _cfgs("glm4-9b", kv_cache_dtype="int8" if quantized else
+                "bfloat16")[1]
+    params = tM.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    tok = torch.zeros((1, 1), dtype=torch.long)
+    for max_len in (12, 16, 32):
+        cache = tM.init_cache(cfg, 1, max_len, device="cpu")
+        logits, _ = tM.decode_step(cfg, params, tok, cache, max_len - 1)
+        assert torch.isfinite(logits).all()
+    cache = tM.init_cache(cfg, 1, 40, device="cpu")
+    with pytest.raises(ValueError, match="rows 32-39"):
+        tM.decode_step(cfg, params, tok, cache, 3)
 
 
 @pytest.mark.parametrize("pos,window,quantized", [
