@@ -274,9 +274,9 @@ Phases, each of which fails the run (non-zero exit) on any disagreement:
    product, a local (window 1024) and a global layer, output and
    gradients within ATTN_ULPS bf16 ulps, each path's peak; then the
    presets (``default_train_config(arch, train_4k)``) of gemma3-12b (6
-   layers: one 5:1 local / global period), pixtral-12b (2, the patch
-   prefix a quarter of the sequence), qwen2-moe-a2.7b (2), qwen3-moe-235b-
-   a22b (1, fsdp) and deepseek-67b (2, fsdp) at every published width, seq
+   layers: one 5:1 local / global period), pixtral-12b (1, the patch
+   prefix a quarter of the sequence), qwen2-moe-a2.7b (1), qwen3-moe-235b-
+   a22b (1, fsdp) and deepseek-67b (1, fsdp) at every published width, seq
    4096, M = 4 stacked, batch cut to one row a voter a microbatch (32; 16
    for qwen3-moe's 4 microbatches), tokens drawn on the card from a seed:
    step 0 with every launch held against its plain version and one leaf's
@@ -302,9 +302,10 @@ Phases, each of which fails the run (non-zero exit) on any disagreement:
    trace with every section and a predicted exchange on every bucket (the
    measured one is the host's spans on one card, not a link). 17b, the
    presets (``default_train_config(arch, train_4k)``: float32 momentum on
-   psum_int8, full remat) of mamba2-2.7b (8 of 64 layers), zamba2-1.2b (8
+   psum_int8, full remat) of mamba2-2.7b (4 of 64 layers), zamba2-1.2b (8
    of 38: a segment of 6 and its shared block, then 2 without) and
-   whisper-tiny (4 + 4) at every published width, seq 4096, M = 4, batch
+   whisper-tiny (4 encoder + 2 decoder layers) at every published width,
+   seq 4096, M = 4, batch
    cut to one row a voter a microbatch (16, 16, 32), as phase 16's: step 0
    with every launch held against its plain version and one leaf's vote
    (mamba2's float32 ``layers.mamba_A_log``, zamba2's
@@ -334,9 +335,9 @@ Phases, each of which fails the run (non-zero exit) on any disagreement:
    engine's tokens teacher-forced through the model API with the int8
    cache (its greedy tokens the engine's) and with a bf16 cache, every
    logit within 0.15 of the twin's (relative at max(|logit|, 1)). 18c,
-   gemma3-12b (6 layers, prompts past its 1024 window), pixtral-12b (2,
-   tokens only), qwen2-moe-a2.7b (2), qwen3-moe-235b-a22b (1),
-   deepseek-67b (2), mamba2-2.7b (8) and zamba2-1.2b (8) (inline
+   gemma3-12b (6 layers, prompts past its 1024 window), pixtral-12b (1,
+   tokens only), qwen2-moe-a2.7b (1), qwen3-moe-235b-a22b (1),
+   deepseek-67b (1), mamba2-2.7b (4) and zamba2-1.2b (8) (inline
    admission), phases 16's and 17's depths, at every published width behind 4 slots, every lane equal
    to its request served alone, and whisper-tiny's batch loop with
    stubbed frames (each row equal to itself served alone); each arch's
@@ -349,9 +350,46 @@ Phases, each of which fails the run (non-zero exit) on any disagreement:
    dropped, one swap, every request admitted after it equal to an engine
    started on the published parameters, the launcher's launches exact and
    each held against its plain version.
+19. the model axis (after phase 18; ``scripts/tp_probe.py`` runs it
+   alone): one world of 4 processes sharing the card over gloo (pinned
+   host memory: loopback on one card, not a link). 19a, phase 3's cell
+   (glm4-9b at every published width, 2 layers, batch 8, seq 512) on
+   (data 2, model 2), Mode A sign1bit on allgather_1bit, then ternary2bit:
+   step 0 from a saved state, step 0 again from it (bit-equal on every
+   rank), step 1. 19b, qwen1.5-32b's Mode B fsdp preset cut as phase 15b
+   (1 layer, 2 microbatches, batch 8) on (data 2, model 2), steps 0 and
+   1. Each step's launches exact (phase 14's and 15b's counts), in 19a
+   every launch of each rank's first step held against its plain version
+   (each rank's vote equal to the plain majority of the gathered shard
+   signs),
+   the leaves that no spec shards bit-equal on every rank, the bytes each
+   rank hands the vote axes and the model group equal to the layout's
+   counts (``tp_vote_bytes``, ``tp_fsdp_vote_bytes``, ``tp_bytes``), step
+   0's loss within TP_LOSS_RTOL of the stacked twin's (M = 2, computed
+   first), and in 19a each leaf's step-0 vote (data index 0's model
+   ranks, joined) equal to the twin's on at least TP_VOTE_AGREE of its
+   coordinates, each difference at a coordinate where some voter's |m'|
+   is under TP_FLIP_FRACTION of the leaf's largest. 19c, serving glm4-9b
+   at every published width, 8 layers, and its float32 2-layer twin: on
+   (model 4) (the repeat form, the cache sequence-sharded) 4 prompts of
+   4,100-4,300 rows prefilled one at a time and re-homed into an
+   8192-row cache, 16 greedy ticks through ``make_decode_step`` (the
+   sharded flash decode), then the same with the int8 cache, 8 ticks (from
+   the bf16 run's prefill, its cache quantized row by row: what an int8
+   prefill stores, bit for bit); on
+   (data 2, model 2) a heads-sharded cache through
+   ``make_prefill_sharded``, 8 ticks. Each is held, tick by tick on the
+   single-device step's greedy tokens, to the single-device steps on the
+   same parameters: bf16 logits within TP_SERVE_SHARE of max(|logit|, 1),
+   the float32 twin's within rtol / atol TP_TWIN_TOL with greedy tokens
+   equal; every layer on the decode path ``_should_flash_decode`` names;
+   each tick's model-group bytes equal to ``tp_tick_bytes``. Printed: ms
+   per step split into vote-collective, tensor-parallel-collective and
+   other host time, ms per decode tick (CUDA events on rank 0), bytes per
+   rank by axis and peak memory per rank.
 
-Phase 13's, 14's, 15's, 16's, 17's and 18's launches (phases 14's and
-15b's summed over their ranks) join the kernels line.
+Phase 13's, 14's, 15's, 16's, 17's, 18's and 19's launches (phases 14's,
+15b's and 19's summed over their ranks) join the kernels line.
 
 Phase 7 also times ternary_majority with ties +1 (its own row),
 ternary_unpack to bf16 and bitpack of the bf16 stack (its own row, whose
@@ -4328,8 +4366,8 @@ def fsdp_sgd_bound(torch, tcfg, twin, got_slice, d: int, data: int,
             "elements": err.numel()}
 
 
-def fsdp_mesh_bytes(cfg, label: str, shape, dims: dict, remat: bool
-                    ) -> dict:
+def fsdp_mesh_bytes(cfg, label: str, shape, dims: dict, remat: bool,
+                    shapes: dict = None) -> dict:
     """The bytes each rank hands the collectives in one step of run
     `label`, counted from the layout: per microbatch and layer each fused
     leaf's bf16 slice gathered in the forward pass and again in the
@@ -4338,8 +4376,9 @@ def fsdp_mesh_bytes(cfg, label: str, shape, dims: dict, remat: bool
     other leaves on hierarchical (int8 counts padded to 32 x data, their
     pod sum and the packed all-gather) or, for sgd, all-reduced in float32
     (the accumulator's dtype); and per step the order check (16 B) and the
-    metrics (12 B)."""
-    shapes = cfg.param_shapes()
+    metrics (12 B). `shapes` replaces the leaves' shapes (a rank's model
+    blocks, phase 19b)."""
+    shapes = shapes or cfg.param_shapes()
     data = shape[-1]
     pod = shape[0] if len(shape) == 2 else 1
     sgd = label.startswith("sgd")
@@ -4727,11 +4766,13 @@ def run_fsdp_path(torch, dev, errs) -> dict:
 #: phase 16's archs: (arch, depth, the leaf whose step-0 vote is recomputed
 #: by plain PyTorch). Every published width, seq 4096; depth cut by memory
 #: (gemma3 keeps one whole 5:1 local / global period)
+#: (depths cut for the script's time since phase 19 joined it: pixtral,
+#: qwen2-moe and deepseek 2 -> 1 layer)
 ZOO = (("gemma3-12b", 6, "layers.attn_wq"),
-       ("pixtral-12b", 2, "layers.attn_wq"),
-       ("qwen2-moe-a2.7b", 2, "layers.experts_w_down"),
+       ("pixtral-12b", 1, "layers.attn_wq"),
+       ("qwen2-moe-a2.7b", 1, "layers.experts_w_down"),
        ("qwen3-moe-235b-a22b", 1, "layers.experts_w_gate"),
-       ("deepseek-67b", 2, "layers.attn_wq"))
+       ("deepseek-67b", 1, "layers.attn_wq"))
 #: steps 0..ZOO_STEPS-1, step 0 run twice: three steps of compute an arch
 #: (cut from 4 so that the phase stays under about 4 minutes)
 ZOO_SEQ, ZOO_STEPS = 4096, 2
@@ -5112,9 +5153,11 @@ AUTO_CODECS = ("sign1bit", "ef_sign", "ternary2bit", "weighted_vote")
 #: 700 W (PERF.md §5, scripts/family_probe.py). zamba2 keeps one whole
 #: segment of 6 mamba layers and its shared block, then a ragged segment of
 #: 2 without one, as its last segment
-FAMILIES = (("mamba2-2.7b", 8, "layers.mamba_A_log"),
+#: (cut for the script's time since phase 19 joined it: mamba2-2.7b 8 ->
+#: 4 layers, whisper-tiny's decoder 4 -> 2 layers, its encoder's 4 kept)
+FAMILIES = (("mamba2-2.7b", 4, "layers.mamba_A_log"),
             ("zamba2-1.2b", 8, "shared_block.attn_wq"),
-            ("whisper-tiny", 4, "layers.xattn_wq"))
+            ("whisper-tiny", 2, "layers.xattn_wq"))
 #: the arch whose next step runs under torch.profiler
 FAMILY_PROFILED = "mamba2-2.7b"
 
@@ -6109,6 +6152,864 @@ def run_phase18(torch, dev, err) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 19: the model axis (tensor parallelism), 4 ranks sharing the card
+# ---------------------------------------------------------------------------
+
+#: 19a: phase 3's cell (glm4-9b at every published width, 2 layers, batch
+#: 8, seq 512) on (data 2, model 2): M = 2 voters of 2 model ranks; per
+#: codec step 0 twice from one state, then step 1
+TP_TRAIN_MESH = ((2, 2), ("data", "model"))
+TP_CODECS = ("sign1bit", "ternary2bit")
+TP_VOTERS = 2
+#: 19a's bounds, stated before the first run: step 0's loss within this
+#: share of the stacked twin's; each leaf's step-0 vote equal to the
+#: twin's on at least TP_VOTE_AGREE of its coordinates, and every
+#: coordinate that differs one where some voter's |m'| is under
+#: TP_FLIP_FRACTION of the leaf's largest. ``attn_bk`` is held to
+#: TP_VOTE_AGREE_BK instead: a bias added to every key moves each query's
+#: scores by nearly one constant, which the softmax removes (only RoPE's
+#: rotation of it survives), so its gradient is mostly cancellation and its
+#: sign rounding noise in either computation (CPU rehearsals of this phase
+#: in bf16: 99.2 % at d_model 512, 97.3 % (sign1bit) and 94.1 %
+#: (ternary2bit) at 2048, every other leaf 99.4 % or more; every flip
+#: within TP_FLIP_FRACTION)
+TP_LOSS_RTOL, TP_VOTE_AGREE, TP_FLIP_FRACTION = 1e-2, 0.99, 2.0 ** -5
+TP_VOTE_AGREE_BK = 0.90
+#: 19b: qwen1.5-32b's Mode B fsdp preset, cut as phase 15b (1 layer, 2
+#: microbatches, batch 8), on (data 2, model 2), 2 steps
+TP_FSDP_MESH = ((2, 2), ("data", "model"))
+#: 19c: serving glm4-9b at every published width, 8 layers (and a float32
+#: twin of 2): (label, mesh shape, axes, kv cache, prompt rows, cache rows,
+#: greedy ticks); per-row prompts prefilled one at a time, the equal ones
+#: of the heads run through make_prefill_sharded
+TP_SERVE_DEPTH, TP_TWIN_DEPTH = 8, 2
+TP_PROMPTS = (4100, 4166, 4233, 4300)
+#: the int8 run decodes from its bf16 run's prefill, its cache quantized
+#: row by row (``layers.quantize_kv``: what an int8 prefill stores, bit for
+#: bit; the int8 prefill is held on the CPU), for the phase's time
+TP_INT8_FROM = {"seq_model4_int8": "seq_model4"}
+TP_SERVE_RUNS = (
+    ("seq_model4", (4,), ("model",), "bfloat16", TP_PROMPTS, 8192, 16),
+    ("seq_model4_int8", (4,), ("model",), "int8", TP_PROMPTS, 8192, 8),
+    ("heads_data2_model2", (2, 2), ("data", "model"), "bfloat16",
+     (1024,) * 4, 2048, 8),
+)
+#: 19c's bounds, stated before the first run: the bf16 logits within this
+#: share of max(|logit|, 1) of the single-device step's (int8: phase
+#: 18b's bound); the float32 twins within rtol / atol TP_TWIN_TOL (PR
+#: 26's twins), greedy tokens equal. An int8 cache's twin computes its
+#: attention in bf16 whatever the model's dtype (each chunk dequantised to
+#: bf16, and each shard's partial products rounded there on their own: the
+#: CPU harness's bound 2e-2), so it is held as its bf16 run is
+TP_SERVE_SHARE = {"bfloat16": 0.05, "int8": SERVE_INT8_BOUND}
+TP_TWIN_TOL = 2e-3
+TP_SEED = 7
+TP_TIMEOUT_S = 600
+
+
+def tp_bytes(cfg, tcfg, mesh) -> int:
+    """The bytes one rank hands the model group's collectives in one train
+    step (``ProcessMesh.model_stats``) of the dense decoder-only stack,
+    counted from the layout (the VLM's embedding, unembedding and CE over
+    its text rows): per microbatch, the embedding's sum, each
+    layer's two row-parallel sums (attention, MLP) and, in the backward,
+    the unembedding's and each layer's two column-parallel entries'
+    cotangent sums, each a float32 (B, S, d) sum (``mesh.model_sum``, its
+    bytes ``mesh.model_sum_bytes``); the vocab-parallel CE's maximum
+    (float32, B·(S-1)) and its one sum of the exp-sums and target logits
+    (2·B·(S-1)); the repeat form's
+    k / v gathers (model dtype) and their backward's whole-tensor float32
+    gathers, the seq form's q, k, v and output gathers likewise;
+    ``remat="full"`` runs each layer's forward again in the backward up to
+    its last saved tensor (the non-reentrant checkpoint's early stop), so
+    all but the MLP's closing sum; ``"nested"`` each group of layers
+    (``transformer._best_group``; one layer below 4) likewise, all but the
+    group's last sum. Then the optimizer's model-group sums:
+    ef_sign's mean|t| (4 bytes a sharded leaf), weighted_vote's counts (8
+    bytes a voter, and 8), the diagnostics' three int64 sums."""
+    from repro_torch.configs.base import ArchFamily
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed.mesh import model_sum_bytes
+    from repro_torch.models.layers import _attn_form
+    from repro_torch.models.model import _vlm_split
+    from repro_torch.models.transformer import _best_group
+    m = mesh.model
+    if m == 1:
+        return 0
+    voters = mesh.size
+    B = tcfg.global_batch // voters // tcfg.microbatches
+    S, d, L = tcfg.seq_len, cfg.d_model, cfg.num_layers
+    H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    el = 4 if cfg.dtype == "float32" else 2
+    stream = model_sum_bytes(B * S * d, m)
+    # the VLM embeds and scores its text rows only (its patch prefix is
+    # the first quarter of the sequence)
+    text = _vlm_split(S)[1] if cfg.family == ArchFamily.VLM else S
+    form = _attn_form(H, K, m)
+    attn_fwd = attn_bwd = 0
+    if form in ("repeat", "seq"):
+        kv = B * S * K * hd // m            # each of k and v, one rank's
+        attn_fwd += 2 * kv * el
+        attn_bwd += 2 * 4 * kv * m          # the whole gathered cotangent
+    if form == "seq":
+        q = B * S * H * hd // m
+        attn_fwd += 2 * q * el              # q, and the output's rows
+        attn_bwd += 2 * 4 * q * m
+    layer_fwd = 2 * stream + attn_fwd
+    layer_bwd = 2 * stream + attn_bwd
+    recompute = 0
+    if tcfg.remat in ("full", "nested"):
+        k = _best_group(L) if tcfg.remat == "nested" and L >= 4 else 1
+        recompute = (L // k) * (k * layer_fwd - stream)
+    elif tcfg.remat != "none":
+        raise ValueError(f"tp_bytes counts remat none, full and nested, "
+                         f"not {tcfg.remat!r}")
+    ce = 4 * B * (text - 1) + model_sum_bytes(2 * B * (text - 1), m)
+    ends = 2 * model_sum_bytes(B * text * d, m)
+    total = tcfg.microbatches * (ends + L * layer_fwd + ce + L * layer_bwd
+                                 + recompute)
+    o = tcfg.optimizer
+    if o.kind in ("signum_vote", "signsgd_vote"):
+        specs = shd.param_specs(cfg.param_shapes(), fsdp=tcfg.fsdp,
+                                mesh_shape={"pod": mesh.pod,
+                                            "data": mesh.data, "model": m})
+        if o.resolved_codec == "ef_sign":
+            total += 4 * sum("model" in s for s in specs.values())
+        if o.resolved_codec == "weighted_vote":
+            total += 8 * voters + 8
+        if tcfg.diagnostics:
+            total += 8 * 3
+    return total
+
+
+def tp_tick_bytes(cfg, mesh, rows: int) -> int:
+    """The bytes one rank hands the model group's collectives in one
+    decode tick of `rows` rows (its batch block), counted from the layout:
+    the embedding's float32 sum and per layer the MLP's and the attention
+    output's float32 sums (rows x d each, ``mesh.model_sum_bytes``); against a
+    sequence-sharded cache also the new token's q, k and v columns in one
+    gather (model dtype) and the sharded flash decode's combine (the
+    float32 maximum, rows x H, then the numerator and denominator in one
+    sum, rows x H x (hd + 1)); then the logits' vocab shards gathered
+    (model dtype)."""
+    from repro_torch.distributed.mesh import model_sum_bytes
+    m = mesh.model
+    H, K, hd, d = (cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim,
+                   cfg.d_model)
+    el = 4 if cfg.dtype == "float32" else 2
+    layer = 2 * model_sum_bytes(rows * d, m)
+    if K % m:
+        layer += el * rows * (H + 2 * K) * hd // m
+        layer += 4 * rows * H + model_sum_bytes(rows * H * (hd + 1), m)
+    return model_sum_bytes(rows * d, m) + cfg.num_layers * layer + (
+        el * rows * (cfg.vocab_size // m))
+
+
+def tp_vote_bytes(params: dict, codec: str) -> int:
+    """The bytes one rank hands the vote axes' collectives in one step of
+    19a (``ProcessMesh.stats``): each local leaf's words all-gathered over
+    the data group (1-bit words of sign1bit, 2-bit of ternary2bit on
+    allgather_1bit: 4 bytes a word), and the metrics (3 float32)."""
+    per = 16 if codec == "ternary2bit" else 32
+    return sum(4 * -(-p.numel() // per) for p in params.values()) + 12
+
+
+def tp_fsdp_vote_bytes(cfg, art) -> int:
+    """The vote axes' bytes of one 19b step, phase 15b's count
+    (``fsdp_mesh_bytes``) on the rank's model blocks of the leaves."""
+    sizes = art.mesh_sizes
+    local = {}
+    for k, s in cfg.param_shapes().items():
+        s = list(s)
+        for i, e in enumerate(art.param_specs[k]):
+            if e == "model":
+                s[i] //= sizes["model"]
+        local[k] = tuple(s)
+    return fsdp_mesh_bytes(cfg, "mode_b", (sizes["data"],),
+                           art.fused_dims, True, shapes=local)[
+        "analytic_bytes"]
+
+
+def clone_state(torch, tree):
+    """A deep copy of a (params or optimizer state) tree of tensors."""
+    if torch.is_tensor(tree):
+        return tree.clone()
+    if isinstance(tree, dict):
+        return {k: clone_state(torch, v) for k, v in tree.items()}
+    return tree
+
+
+def restore_state_(torch, tree, saved) -> None:
+    """Copy `saved` (a :func:`clone_state`) back into `tree` in place."""
+    for k, v in saved.items():
+        if torch.is_tensor(v):
+            tree[k].copy_(v)
+        elif isinstance(v, dict):
+            restore_state_(torch, tree[k], v)
+        else:
+            tree[k] = v
+
+
+class VoteRecorder:
+    """Within the block, the packed votes every ``apply_vote`` /
+    ``apply_ternary_vote`` launch takes, in launch order (one a leaf)."""
+
+    def __init__(self, ops):
+        self.ops, self.votes = ops, []
+
+    def __enter__(self):
+        self.orig = {k: getattr(self.ops, k) for k in ("apply_vote",
+                                                       "apply_ternary_vote")}
+
+        def wrap(fn):
+            def apply(p, votes, *a, **kw):
+                self.votes.append(votes.detach().to("cpu", copy=True))
+                return fn(p, votes, *a, **kw)
+            return apply
+        for k, fn in self.orig.items():
+            setattr(self.ops, k, wrap(fn))
+        return self
+
+    def __exit__(self, *exc):
+        for k, fn in self.orig.items():
+            setattr(self.ops, k, fn)
+
+
+def unpack_votes(torch, words, n: int, codec: str):
+    """Packed votes (1-bit, or 2-bit for ternary2bit) -> (n,) int8, by the
+    plain versions (no kernel launch)."""
+    from repro_torch.kernels import ref
+    if codec == "ternary2bit":
+        return ref.ternary_unpack(words[None], torch.int8)[0, :n]
+    return ref.bitunpack(words[None], torch.int8)[0, :n]
+
+
+def tp_train_twin(torch, dev, scratch: str) -> dict:
+    """19a's stacked twin (M = 2 on the card, no model axis), per codec:
+    step 0's losses, each leaf's step-0 vote (int8, on the host) and the
+    leaves' flippable masks (some voter's |m'| under TP_FLIP_FRACTION of
+    the leaf's largest), written to `scratch` for the comparison after the
+    ranks; then 19b's stacked fsdp twin's step-0 loss."""
+    from repro_torch.data.pipeline import SyntheticLMPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.train import train_step as TS
+    from repro_torch.configs.base import get_config
+    cfg = dataclasses.replace(get_config("glm4-9b"), num_layers=2)
+    out = {}
+    for codec in TP_CODECS:
+        tcfg = train_config(codec)
+        art = TS.make_train_step(cfg, tcfg, TP_VOTERS, device=dev)
+        params, state = TS.materialize_state(
+            cfg, tcfg, art, torch.Generator(device=dev).manual_seed(0))
+        tokens = torch.as_tensor(SyntheticLMPipeline(
+            cfg, GLOBAL_BATCH, SEQ, seed=0).global_batch_at(0)["tokens"],
+            device=dev)
+        with VoteRecorder(ops) as rec:
+            params, state, met = art.step_fn(params, state,
+                                             {"tokens": tokens}, 0)
+        from repro_torch.kernels import ref
+        votes, flippable = {}, {}
+        for (k, p), w in zip(params.items(), rec.votes):
+            votes[k] = (w, p.numel())
+            a = state["momentum"][k].float().abs().view(TP_VOTERS, -1)
+            near = (a < TP_FLIP_FRACTION * a.max()).any(0)
+            # packed 32 a word: +1 where some voter is near zero
+            flippable[k] = ref.bitpack(near.to(torch.int8).mul_(2).sub_(1)[
+                None])[0].cpu()
+            del a, near
+        torch.save({"votes": votes, "flippable": flippable},
+                   os.path.join(scratch, f"tp_twin_{codec}.pt"))
+        out[codec] = {"loss": float(met["loss"])}
+        del params, state, art, votes, flippable, rec
+        reset_peak(torch, dev)
+    fcfg, ftcfg = tp_fsdp_config(torch)
+    art = TS.make_train_step(fcfg, ftcfg, TP_VOTERS, device=dev)
+    params, state = TS.materialize_state(
+        fcfg, ftcfg, art, torch.Generator(device=dev).manual_seed(0))
+    tokens = torch.as_tensor(SyntheticLMPipeline(
+        fcfg, ftcfg.global_batch, ftcfg.seq_len, seed=0).global_batch_at(0)[
+            "tokens"], device=dev)
+    _, _, met = art.step_fn(params, state, {"tokens": tokens}, 0)
+    out["fsdp"] = {"loss": float(met["loss"])}
+    del params, state, art
+    reset_peak(torch, dev)
+    return out
+
+
+def tp_fsdp_config(torch):
+    """19b's cut of the qwen1.5-32b Mode B preset (phase 15b's)."""
+    full, preset = fsdp_config(torch, FSDP_MESH_LAYERS)
+    return full, dataclasses.replace(preset, microbatches=FSDP_MESH_MICRO,
+                                     global_batch=FSDP_MESH_BATCH)
+
+
+def tp_serve_cfg(kv: str, depth: int, dtype: str):
+    from repro_torch.configs.base import get_config
+    return dataclasses.replace(get_config("glm4-9b"), num_layers=depth,
+                               dtype=dtype, kv_cache_dtype=kv)
+
+
+def quantized_cache(cache: dict) -> dict:
+    """A bf16 attention cache's int8 form, row by row (``quantize_kv``)."""
+    from repro_torch.models import layers as L
+    (kq, ks), (vq, vs) = L.quantize_kv(cache["k"]), L.quantize_kv(cache["v"])
+    return {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
+
+
+def tp_prompts(torch, lens, vocab: int) -> list:
+    """The seeded prompt of each row, (1, S) int64 on the host."""
+    return [torch.randint(0, vocab, (1, s), generator=torch.Generator(
+        ).manual_seed(TP_SEED + b)) for b, s in enumerate(lens)]
+
+
+def tp_serve_reference(torch, dev, scratch: str) -> dict:
+    """19c's single-device serving (the one-device serve steps) on the
+    parameters every rank draws, per run and model (bf16 at
+    TP_SERVE_DEPTH, float32 at TP_TWIN_DEPTH): each row's prompt prefilled
+    and re-homed into the batch cache, then greedy ticks, each row at its
+    own position; the prefill's last logits, every tick's logits and the
+    greedy tokens written to `scratch`. Returns the tick ms."""
+    from repro_torch.models import model as M
+    from repro_torch.train import serve_step as SS
+    out, kept = {}, {}
+    for label, _, _, kv, lens, T, ticks in TP_SERVE_RUNS:
+        for dtype, depth in (("bfloat16", TP_SERVE_DEPTH),
+                             ("float32", TP_TWIN_DEPTH)):
+            cfg = tp_serve_cfg(kv, depth, dtype)
+            params = M.init_params(cfg, torch.Generator(
+                device=dev).manual_seed(TP_SEED), dev)
+            prompts = [p.to(dev) for p in tp_prompts(torch, lens,
+                                                     cfg.vocab_size)]
+            B = len(lens)
+            if label in TP_INT8_FROM:
+                first, cache = kept.pop((TP_INT8_FROM[label], dtype))
+            elif len(set(lens)) == 1:
+                lg, cache = SS.make_prefill(cfg)(params, {
+                    "tokens": torch.cat(prompts)})
+                cache = SS.make_cache_rehome(cfg, B, T)(cache)
+                first = lg[:, -1].float()
+            else:
+                cache, first = None, []
+                for b, p in enumerate(prompts):
+                    lg, c = SS.make_prefill(cfg)(params, {"tokens": p})
+                    c = SS.make_cache_rehome(cfg, 1, T)(c)
+                    if cache is None:
+                        cache = {k: v.new_zeros((v.shape[0], B)
+                                                + tuple(v.shape[2:]))
+                                 for k, v in c.items()}
+                    for k, v in c.items():
+                        cache[k][:, b] = v[:, 0]
+                    first.append(lg[0, -1].float())
+                first = torch.stack(first)
+            if label in TP_INT8_FROM.values():
+                kept[(label, dtype)] = (first, quantized_cache(cache))
+            step = SS.make_decode_step(cfg)
+            pos = torch.tensor(lens, device=dev)
+            tok = first.argmax(-1)
+            toks, logits, ms = [tok.cpu()], [], []
+            for i in range(ticks):
+                sync(torch, dev)
+                t0 = time.perf_counter()
+                lg, cache = step(params, tok[:, None], cache, pos + i)
+                sync(torch, dev)
+                ms.append((time.perf_counter() - t0) * 1e3)
+                tok = lg.float().argmax(-1)
+                toks.append(tok.cpu())
+                logits.append(lg.float().cpu())
+            torch.save({"first": first.cpu(), "tokens": toks,
+                        "logits": logits},
+                       os.path.join(scratch, f"tp_serve_{label}_{dtype}.pt"))
+            out[f"{label}_{dtype}"] = {"tick_ms": ms}
+            del params, cache, step
+            reset_peak(torch, dev)
+    return out
+
+
+def tp_rank(rank: int, init: str, scratch: str, dev_type: str,
+            queue) -> None:
+    """One rank of phase 19's world (a spawned process): 19a, 19b, 19c;
+    puts ``(rank, results)`` on `queue`, or ``(rank, {"error": ...})``."""
+    import traceback
+    try:
+        queue.put((rank, tp_rank_body(rank, init, scratch, dev_type)))
+    except BaseException:
+        queue.put((rank, {"error": traceback.format_exc()}))
+        raise
+
+
+def tp_step(torch, ops, ref, sc, mesh, art, params, state, tokens, step,
+            want, checked: bool, err: dict, held: dict, what: str,
+            record=None) -> tuple:
+    """One model-axis train step with its launches held to `want` (and,
+    when `checked`, every launch held against its plain version); returns
+    (params, state, metrics, timing row)."""
+    dev = tokens.device
+    sync(torch, dev)
+    mesh.reset_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with (plain_checked(torch, ops, ref, sc, err, what, MESH_CHECKED, held)
+          if checked else contextlib.nullcontext()):
+        with (record if record is not None else contextlib.nullcontext()):
+            params, state, met = art.step_fn(params, state,
+                                             {"tokens": tokens}, step)
+    sync(torch, dev)
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = {k: v for k, v in ops.launch_counts().items() if v}
+    if (launches or dev.type == "cuda") and launches != want:
+        raise AssertionError(f"{what}: launches {launches}, expected "
+                             f"{want}")
+    if checked and dev.type == "cuda" and held != launches:
+        raise AssertionError(f"{what}: held {held} of the launches "
+                             f"{launches} against their plain versions")
+    row = {"ms": ms, "vote_ms": mesh.stats.seconds * 1e3,
+           "tp_ms": mesh.model_stats.seconds * 1e3,
+           "vote_bytes": mesh.stats.bytes, "tp_bytes": mesh.model_stats.bytes,
+           "launches": launches}
+    row["other_ms"] = ms - row["vote_ms"] - row["tp_ms"]
+    return params, state, {k: float(v) for k, v in met.items()}, row
+
+
+def replicated_checksum(torch, art, params) -> str:
+    """The checksum of the leaves whole on every rank (no spec entry)."""
+    return device_checksum(torch, [
+        params[k] for k in sorted(params)
+        if all(e is None for e in art.param_specs[k])])
+
+
+def tp_train_rank(torch, rank, mesh, cfg, tcfg, dev, label, want_fn,
+                  vote_bytes, scratch, out, record_votes: bool) -> None:
+    """19a / 19b on this rank: step 0 from a saved state, (19a: step 0
+    again from it, bit-equal,) then step 1; the bytes by axis held to the
+    layout's counts; the replicated leaves' checksums and, for 19a, the
+    step-0 votes (data index 0) kept for the main process."""
+    from repro_torch.core import sign_compress as sc
+    from repro_torch.data.pipeline import SyntheticLMPipeline
+    from repro_torch.kernels import ops, ref
+    from repro_torch.train import train_step as TS
+    art = TS.make_train_step(cfg, tcfg, device=dev, mesh=mesh)
+    params, state = TS.materialize_state(
+        cfg, tcfg, art, torch.Generator(device=dev).manual_seed(0))
+    reset_peak(torch, dev)
+    pipe = SyntheticLMPipeline(cfg, tcfg.global_batch, tcfg.seq_len, seed=0)
+    want = want_fn(art, params)
+    expect_tp = tp_bytes(cfg, tcfg, mesh)
+    expect_vote = vote_bytes(art, params)
+    twice = record_votes
+    saved = ((clone_state(torch, params), clone_state(torch, state))
+             if twice else None)
+    rows, mets, sums, err, held = [], [], [], {}, {}
+    rec = None
+    for run, step in enumerate((0, 0, 1) if twice else (0, 1)):
+        if run == 1 and twice:
+            restore_state_(torch, params, saved[0])
+            restore_state_(torch, state, saved[1])
+            del saved
+        tokens = torch.as_tensor(pipe.global_batch_at(step)["tokens"],
+                                 device=dev)
+        rec = (VoteRecorder(ops) if run == 0 and record_votes
+               and mesh.axis_index("data") == 0 else None)
+        params, state, met, row = tp_step(
+            torch, ops, ref, sc, mesh, art, params, state, tokens, step,
+            want, twice and run == 0, err, held,
+            f"tp {label} rank {rank} step {step} run {run}", rec)
+        if row["tp_bytes"] != expect_tp:
+            raise AssertionError(f"tp {label} rank {rank}: the model group "
+                                 f"took {row['tp_bytes']} bytes, the "
+                                 f"layout's count is {expect_tp}")
+        if row["vote_bytes"] != expect_vote:
+            raise AssertionError(f"tp {label} rank {rank}: the vote axes "
+                                 f"took {row['vote_bytes']} bytes, the "
+                                 f"layout's count is {expect_vote}")
+        if rec is not None:
+            torch.save({k: (w, tuple(p.shape)) for (k, p), w in zip(
+                params.items(), rec.votes)}, os.path.join(
+                    scratch, f"tp_votes_{label}_rank{rank}.pt"))
+        rows.append(row)
+        mets.append(met)
+        sums.append({"state": (mesh_state_checksum(torch, params, state,
+                                                   None)
+                               if twice and run < 2 else None),
+                     "replicated": replicated_checksum(torch, art, params)})
+    if rank == 0:
+        log({"phase": "tp_rank0_progress", "run": label,
+             "step_ms": [r["ms"] for r in rows],
+             "tp_ms": [r["tp_ms"] for r in rows],
+             "vote_ms": [r["vote_ms"] for r in rows],
+             "losses": [m["loss"] for m in mets]})
+    out[label] = {"rows": rows, "metrics": mets, "checksums": sums,
+                  "held": held, "max_abs_err": err,
+                  "peak_bytes": peak_bytes(torch, dev),
+                  "expected_tp_bytes": expect_tp,
+                  "expected_vote_bytes": expect_vote,
+                  "specs": {k: list(s) for k, s in art.param_specs.items()}}
+    del params, state, art
+    reset_peak(torch, dev)
+
+
+def tp_serve_rank(torch, rank, meshes, dev, scratch, out) -> None:
+    """19c on this rank: every TP_SERVE_RUNS run, bf16 and its float32
+    twin, the parameters drawn as the main process drew them and cut to
+    the rank's blocks, the prompts prefilled and re-homed, then the
+    reference's greedy tokens fed tick by tick; each tick's logits held to
+    the single-device step's, its model-group bytes to ``tp_tick_bytes``,
+    its decode path to ``_should_flash_decode``'s (CUDA events on rank 0
+    time the ticks)."""
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    from repro_torch.train import serve_step as SS
+    kept = {}
+    for label, shape, axes, kv, lens, T, ticks in TP_SERVE_RUNS:
+        mesh = meshes[(shape, axes)]
+        for dtype, depth in (("bfloat16", TP_SERVE_DEPTH),
+                             ("float32", TP_TWIN_DEPTH)):
+            cfg = tp_serve_cfg(kv, depth, dtype)
+            want = torch.load(os.path.join(
+                scratch, f"tp_serve_{label}_{dtype}.pt"))
+            specs = SS.serve_param_shardings(cfg, mesh, fsdp=False)
+            params = M.init_params(
+                cfg, torch.Generator(device=dev).manual_seed(TP_SEED), dev,
+                shard=lambda k, t: shd.shard_leaf(
+                    t, specs[k], mesh.coords, mesh.axis_sizes).clone())
+            reset_peak(torch, dev)
+            prompts = [p.to(dev) for p in tp_prompts(torch, lens,
+                                                     cfg.vocab_size)]
+            B = len(lens)
+            sync(torch, dev)
+            t0 = time.perf_counter()
+            if label in TP_INT8_FROM:
+                first, cache, first_want = kept.pop((TP_INT8_FROM[label],
+                                                     dtype))
+            elif len(set(lens)) == 1:
+                per = B // mesh.size
+                r = mesh.replica_index()
+                lg, cache = SS.make_prefill_sharded(
+                    cfg, mesh, fsdp=False, global_batch=B)(
+                        params, {"tokens": torch.cat(prompts)})
+                cache = SS.make_cache_rehome(cfg, B, T, mesh=mesh)(
+                    cache, lens[0])
+                first = SS.gather_vocab(lg[:, -1], mesh).float()
+                first_want = want["first"][r * per:(r + 1) * per]
+            else:
+                cache, first = None, []
+                for b, p in enumerate(prompts):
+                    lg, c = SS.make_prefill(cfg, mesh=mesh)(
+                        params, {"tokens": p})
+                    c = SS.make_cache_rehome(cfg, 1, T, mesh=mesh)(
+                        c, lens[b])
+                    if cache is None:
+                        cache = {k: v.new_zeros((v.shape[0], B)
+                                                + tuple(v.shape[2:]))
+                                 for k, v in c.items()}
+                    for k, v in c.items():
+                        cache[k][:, b] = v[:, 0]
+                    first.append(SS.gather_vocab(lg[0, -1], mesh).float())
+                first = torch.stack(first)
+                first_want = want["first"]
+            if label in TP_INT8_FROM.values():
+                kept[(label, dtype)] = (first, quantized_cache(cache),
+                                        first_want)
+            sync(torch, dev)
+            prefill_ms = (time.perf_counter() - t0) * 1e3
+            errs = [tp_logit_check(torch, f"{label} {dtype} prefill", first,
+                                   first_want.to(dev), dtype, kv)]
+            step = SS.make_decode_step(cfg, mesh=mesh, max_len=T)
+            spec = SS.cache_leaf_spec("k", (cfg.num_layers, B, T,
+                                            cfg.num_kv_heads,
+                                            cfg.resolved_head_dim),
+                                      mesh.axis_sizes)
+            rows = B // shd.spec_block(spec, mesh.coords,
+                                       mesh.axis_sizes)[1][1]
+            expect = tp_tick_bytes(cfg, mesh, rows)
+            path = ("heads" if cfg.num_kv_heads % mesh.model == 0 else
+                    "flash_sharded" if L._should_flash_decode(
+                        cfg.num_kv_heads, T, mesh.model) else
+                    "sharded_short")
+            pos = torch.tensor(lens, device=dev)
+            L.reset_decode_paths()
+            tick_ms, tick_bytes = [], []
+            for i in range(ticks):
+                tok = want["tokens"][i].to(dev)
+                mesh.reset_stats()
+                with tick_timer(torch, dev) as timed:
+                    lg, cache = step(params, tok[:, None], cache, pos + i)
+                tick_ms.append(timed["ms"])
+                tick_bytes.append(mesh.model_stats.bytes)
+                if mesh.model_stats.bytes != expect:
+                    raise AssertionError(
+                        f"tp serve {label} {dtype} tick {i}: the model group "
+                        f"took {mesh.model_stats.bytes} bytes, the layout's "
+                        f"count is {expect}")
+                errs.append(tp_logit_check(
+                    torch, f"{label} {dtype} tick {i}", lg.float(),
+                    want["logits"][i].to(dev), dtype, kv))
+            paths = dict(L.reset_decode_paths())
+            if paths != {path: ticks * cfg.num_layers}:
+                raise AssertionError(f"tp serve {label} {dtype}: decode "
+                                     f"paths {paths}, expected {path}")
+            if rank == 0:
+                log({"phase": "tp_rank0_progress", "run": f"{label}_{dtype}",
+                     "prefill_ms": prefill_ms, "tick_ms": tick_ms,
+                     "errs": errs})
+            out[f"{label}_{dtype}"] = {
+                "prefill_ms": prefill_ms, "tick_ms": tick_ms,
+                "tick_tp_bytes": expect, "paths": paths,
+                "max_err_share" if dtype == "bfloat16" else "max_abs_err":
+                    max(errs),
+                "peak_bytes": peak_bytes(torch, dev)}
+            del params, cache, step, want
+            reset_peak(torch, dev)
+
+
+@contextlib.contextmanager
+def tick_timer(torch, dev):
+    """{"ms": ...} of the block: CUDA events on the card (the stream's own
+    time), the host clock elsewhere."""
+    out = {}
+    if dev.type == "cuda":
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        yield out
+        end.record()
+        torch.cuda.synchronize()
+        out["ms"] = start.elapsed_time(end)
+    else:
+        t0 = time.perf_counter()
+        yield out
+        out["ms"] = (time.perf_counter() - t0) * 1e3
+
+
+def tp_logit_check(torch, what: str, got, want, dtype: str, kv: str
+                   ) -> float:
+    """A bf16 run's logits within TP_SERVE_SHARE[kv] of max(|logit|, 1) of
+    the single-device step's (returns the share); a float32 twin's within
+    rtol / atol TP_TWIN_TOL with greedy tokens equal (returns the largest
+    difference)."""
+    diff = (got - want).abs()
+    if dtype == "float32" and kv != "int8":
+        if not bool((diff <= TP_TWIN_TOL + TP_TWIN_TOL * want.abs()).all()):
+            raise AssertionError(f"tp serve {what}: float32 logits differ "
+                                 f"by {float(diff.max())}")
+        if not torch.equal(got.argmax(-1), want.argmax(-1)):
+            raise AssertionError(f"tp serve {what}: greedy tokens differ")
+        return float(diff.max())
+    share = float(diff.max()) / max(float(want.abs().max()), 1.0)
+    if share > TP_SERVE_SHARE[kv]:
+        raise AssertionError(f"tp serve {what}: logits differ by {share} "
+                             f"of max(|logit|, 1), over "
+                             f"{TP_SERVE_SHARE[kv]}")
+    return share
+
+
+def tp_rank_body(rank: int, init: str, scratch: str, dev_type: str) -> dict:
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "src"))
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.base import get_config
+    from repro_torch.distributed.mesh import ProcessMesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(dev_type)
+    dist.init_process_group("gloo", init_method=init, rank=rank,
+                            world_size=MESH_RANKS)
+    try:
+        shapes = [TP_TRAIN_MESH, TP_FSDP_MESH] + [
+            (s, a) for _, s, a, _, _, _, _ in TP_SERVE_RUNS]
+        meshes = {}
+        for shape, axes in shapes:   # every rank, one order
+            if (shape, axes) not in meshes:
+                meshes[(shape, axes)] = ProcessMesh(shape, axes)
+        out = {"train": {}, "serve": {}}
+        cfg = dataclasses.replace(get_config("glm4-9b"), num_layers=2)
+        for codec in TP_CODECS:
+            tp_train_rank(
+                torch, rank, meshes[TP_TRAIN_MESH], cfg,
+                train_config(codec), dev, codec,
+                lambda art, p, c=codec: mesh_launches(
+                    "allgather_1bit" if c == "sign1bit" else c, rank,
+                    len(p), None),
+                lambda art, p, c=codec: tp_vote_bytes(p, c), scratch,
+                out["train"], True)
+        fcfg, ftcfg = tp_fsdp_config(torch)
+        tp_train_rank(
+            torch, rank, meshes[TP_FSDP_MESH], fcfg, ftcfg, dev, "fsdp",
+            lambda art, p: fsdp_launches(
+                "mode_b", len(p) - len(art.fused_leaves),
+                len(art.fused_leaves), 1, mesh=True),
+            lambda art, p: tp_fsdp_vote_bytes(fcfg, art), scratch,
+            out["train"], False)
+        tp_serve_rank(torch, rank, meshes, dev, scratch, out["serve"])
+        dist.barrier()
+        return out
+    finally:
+        dist.destroy_process_group()
+
+
+def tp_check_votes(torch, dev, results: dict) -> dict:
+    """19a's step-0 votes of every leaf (data index 0's model ranks,
+    joined) against the twin's: equal on at least TP_VOTE_AGREE of each
+    leaf's coordinates, every difference a flippable coordinate. Returns
+    the agreement and flips by codec."""
+    from repro_torch.distributed import sharding as shd
+    out = {}
+    sizes = {"model": TP_TRAIN_MESH[0][1]}
+    for codec in TP_CODECS:
+        twin = torch.load(os.path.join(results["scratch"],
+                                       f"tp_twin_{codec}.pt"))
+        specs = {k: tuple(v) for k, v in
+                 results[0]["train"][codec]["specs"].items()}
+        parts = [torch.load(os.path.join(
+            results["scratch"], f"tp_votes_{codec}_rank{r}.pt"))
+            for r in range(sizes["model"])]
+        worst, flips, by_leaf = 1.0, 0, {}
+        for k, (words, n) in twin["votes"].items():
+            # this leaf's vote on each model rank of data index 0, joined
+            blocks = [{k: unpack_votes(torch, part[k][0].to(dev),
+                                       math.prod(part[k][1]), codec).view(
+                                           part[k][1])} for part in parts]
+            got = shd.join_shards(blocks, {k: specs[k]}, sizes=sizes)[
+                k].reshape(-1)
+            want = unpack_votes(torch, words.to(dev), n, codec)
+            near = unpack_votes(torch, twin["flippable"][k].to(dev), n,
+                                "sign1bit") > 0
+            bad = got != want
+            agree = 1.0 - float(bad.sum()) / n
+            worst = min(worst, agree)
+            by_leaf[k] = agree
+            if agree < (TP_VOTE_AGREE_BK if k.endswith("attn_bk")
+                        else TP_VOTE_AGREE):
+                raise AssertionError(f"tp {codec} {k}: the step-0 vote "
+                                     f"agrees with the twin's on {agree}")
+            lost = int((bad & ~near).sum())
+            if lost:
+                raise AssertionError(
+                    f"tp {codec} {k}: {lost} coordinates differ where no "
+                    f"voter's |m'| was under {TP_FLIP_FRACTION} of the "
+                    "leaf's largest")
+            flips += int(bad.sum())
+            del blocks, got, want, near, bad
+        out[codec] = {"worst_leaf_agreement": worst, "flips": flips,
+                      "lowest_leaves": sorted(by_leaf.items(),
+                                              key=lambda kv: kv[1])[:5]}
+    return out
+
+
+def run_phase19(torch, dev, errs, target=None) -> dict:
+    """Phase 19: the stacked twins and the single-device serving reference
+    in this process, then one world of MESH_RANKS processes on the card
+    (gloo through pinned host memory: loopback on one card, not a link)
+    runs 19a, 19b and 19c; every exact check raises on the rank or here.
+    Returns the ranks' summed kernel launches."""
+    import tempfile
+    t_start = time.perf_counter()
+    scratch = tempfile.mkdtemp(prefix="tp19_")
+    gc.collect()
+    reset_peak(torch, dev)
+    try:
+        twin = tp_train_twin(torch, dev, scratch)
+        log({"phase": "tp_twin_done", "seconds": time.perf_counter() - t_start,
+             **twin})
+        serve_ref = tp_serve_reference(torch, dev, scratch)
+        log({"phase": "tp_serve_reference_done",
+             "seconds": time.perf_counter() - t_start})
+        gc.collect()
+        reset_peak(torch, dev)
+        t_ranks = time.perf_counter()
+        results = spawn_ranks(target or tp_rank, (scratch, dev.type),
+                              TP_TIMEOUT_S)
+        ranks_s = time.perf_counter() - t_ranks
+        results["scratch"] = scratch
+        launches = {}
+        for label in TP_CODECS + ("fsdp",):
+            runs = [results[r]["train"][label] for r in range(MESH_RANKS)]
+            twice = label != "fsdp"
+            for r, run in enumerate(runs):
+                if twice and dev.type == "cuda" and not run["held"]:
+                    raise AssertionError(f"tp {label}: rank {r} held no "
+                                         "launch")
+                for k, v in run["max_abs_err"].items():
+                    errs[k] = max(errs.get(k, 0.0), v)
+            for r, run in enumerate(runs):
+                a, b = run["checksums"][0], run["checksums"][1]
+                if twice and a["state"] != b["state"]:
+                    raise AssertionError(f"tp {label} rank {r}: step 0 run "
+                                         "twice differs")
+                for row in run["rows"]:
+                    for k, v in row["launches"].items():
+                        launches[k] = launches.get(k, 0) + v
+            # the replicated leaves bit-equal over every rank (the model
+            # ranks of a voter, and the voters, who applied one vote)
+            for i in range(len(runs[0]["checksums"])):
+                sums = {run["checksums"][i]["replicated"] for run in runs}
+                if len(sums) != 1:
+                    raise AssertionError(f"tp {label} run {i}: replicated "
+                                         "leaves differ over the ranks")
+            want_loss = twin["fsdp" if label == "fsdp" else label]["loss"]
+            losses = [run["metrics"][0]["loss"] for run in runs]
+            for loss in losses:
+                if abs(loss - want_loss) > TP_LOSS_RTOL * abs(want_loss):
+                    raise AssertionError(f"tp {label}: step 0's loss {loss} "
+                                         f"against the twin's {want_loss}")
+            rows = [run["rows"] for run in runs]
+            log({"phase": "tp_train", "run": label,
+                 "mesh": list(TP_TRAIN_MESH[0]),
+                 "axes": list(TP_TRAIN_MESH[1]),
+                 "losses": [m["loss"] for m in runs[0]["metrics"]],
+                 "twin_step0_loss": want_loss,
+                 "step_ms": [max(r[i]["ms"] for r in rows)
+                             for i in range(len(rows[0]))],
+                 "vote_collective_ms": [max(r[i]["vote_ms"] for r in rows)
+                                        for i in range(len(rows[0]))],
+                 "tp_collective_ms": [max(r[i]["tp_ms"] for r in rows)
+                                      for i in range(len(rows[0]))],
+                 "other_host_ms": [max(r[i]["other_ms"] for r in rows)
+                                   for i in range(len(rows[0]))],
+                 "vote_bytes_per_rank": runs[0]["expected_vote_bytes"],
+                 "tp_bytes_per_rank": runs[0]["expected_tp_bytes"],
+                 "peak_bytes_by_rank": [run["peak_bytes"] for run in runs],
+                 "step0_twice_bit_equal": twice,
+                 "held_vs_plain_by_rank": [run["held"] for run in runs]})
+        votes = tp_check_votes(torch, dev, results)
+        log({"phase": "tp_votes", **votes,
+             "bounds": {"agree": TP_VOTE_AGREE,
+                        "agree_attn_bk": TP_VOTE_AGREE_BK,
+                        "flip_fraction": TP_FLIP_FRACTION}})
+        for label, _, axes_shape, kv, lens, T, ticks in [
+                (r[0], r[1], r[2], r[3], r[4], r[5], r[6])
+                for r in TP_SERVE_RUNS]:
+            for dtype in ("bfloat16", "float32"):
+                got = [results[r]["serve"][f"{label}_{dtype}"]
+                       for r in range(MESH_RANKS)]
+                log({"phase": "tp_serve", "run": label, "dtype": dtype,
+                     "kv": kv, "cache_rows": T, "prompt_rows": list(lens),
+                     "tick_ms_rank0": got[0]["tick_ms"],
+                     "single_device_tick_ms": serve_ref[
+                         f"{label}_{dtype}"]["tick_ms"],
+                     "prefill_ms_rank0": got[0]["prefill_ms"],
+                     "tp_bytes_per_tick_rank0": got[0]["tick_tp_bytes"],
+                     "paths_rank0": got[0]["paths"],
+                     "worst": max(g.get("max_err_share",
+                                        g.get("max_abs_err", 0.0))
+                                  for g in got),
+                     "bound": (TP_TWIN_TOL if dtype == "float32"
+                               and kv != "int8" else TP_SERVE_SHARE[kv]),
+                     "peak_bytes_by_rank": [g["peak_bytes"] for g in got]})
+        log({"phase": "tp_done", "ranks": MESH_RANKS, "backend": "gloo",
+             "note": "gloo loopback through pinned host memory, 4 ranks on "
+                     "one card; not a link",
+             "ranks_seconds": ranks_s,
+             "seconds": time.perf_counter() - t_start,
+             "smi": smi_line() if dev.type == "cuda" else None})
+        return launches
+    finally:
+        import shutil
+        shutil.rmtree(scratch, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
 # phase 7: timing at the unembedding shape
 # ---------------------------------------------------------------------------
 
@@ -6509,6 +7410,8 @@ def main() -> int:
     for k, v in run_phase17(torch, cfg, dev, errs, profiled=None).items():
         launches[k] += v
     for k, v in run_phase18(torch, dev, errs).items():
+        launches[k] += v
+    for k, v in run_phase19(torch, dev, errs).items():
         launches[k] += v
     # ef_sign's encode packs its float32 t; every other bitpack of the main
     # path packs int8 signs (staged votes, plan buckets, weighted_vote's vote)

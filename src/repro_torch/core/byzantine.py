@@ -25,7 +25,13 @@ dispatched to ``core.attacks.engine``; they draw nothing.
 Over the vote axes of a ``distributed.mesh.ProcessMesh`` each rank holds
 one voter: :func:`apply_adversary` acts on its signs under its replica
 index (:func:`replica_index`, pod-major), drawing what row ``idx`` of
-:func:`apply_adversary_stacked` draws.
+:func:`apply_adversary_stacked` draws. A ``"model"`` axis does not change
+the replica index: the model ranks of one voter are one adversary.
+``sign_flip`` and ``zero`` act on a model shard as on the whole leaf; a
+stochastic draw would have to be taken at the shard's global coordinates
+(a strided counter map in ``kernels/csrc/byzantine.cu``), so the train
+step refuses the stochastic and adaptive modes over a model axis
+(ROADMAP.md Queue 1 item 15).
 """
 from __future__ import annotations
 

@@ -51,12 +51,19 @@ decodes it, in three pieces:
   under Mode B (``raw_input_``; the reference votes ``grads`` there,
   ``core/signum.py:185-190`` and ``:200-205``).
 
+Over a mesh's ``"model"`` axis a leaf is a rank's shard, but a codec's
+leaf statistics are the global leaf's, as in the reference (whose step is
+automatic over ``"model"``): each hook that takes one gets the leaf's
+:class:`LeafShare`, and a statistic becomes the sum over the model group
+of the shards' parts, a replicated leaf counted once.
+
 Implementations are stateless singletons; state lives in the caller's
 dictionaries.
 """
 from __future__ import annotations
 
 import abc
+import dataclasses
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
@@ -64,6 +71,32 @@ import torch
 from repro_torch.configs.base import VoteStrategy
 from repro_torch.core import sign_compress as sc
 from repro_torch.kernels import ops
+
+
+@dataclasses.dataclass(frozen=True)
+class LeafShare:
+    """How one leaf lies over a mesh's model axis: `sharded` over it (a
+    rank holds one of ``mesh.model`` equal slices) or whole on every model
+    rank."""
+
+    mesh: Any
+    sharded: bool
+
+    @property
+    def parts(self) -> int:
+        """The shards of the leaf (1 for a replicated one)."""
+        return self.mesh.model if self.sharded else 1
+
+    @property
+    def counted(self) -> bool:
+        """Whether this rank counts the leaf in a sum over the model group:
+        every rank its shard, model index 0 a replicated leaf."""
+        return self.sharded or self.mesh.axis_index("model") == 0
+
+    def total(self, x: torch.Tensor) -> torch.Tensor:
+        """`x` summed over the model group (``mesh.model_sum``)."""
+        from repro_torch.distributed import mesh as pm
+        return pm.model_sum(x, self.mesh)
 
 
 class GradientCodec(abc.ABC):
@@ -138,7 +171,7 @@ class GradientCodec(abc.ABC):
                       beta: float, words: torch.Tensor,
                       error: Optional[torch.Tensor], two_bit: bool,
                       adversary: Optional[Callable[[torch.Tensor], Any]]
-                      = None) -> Any:
+                      = None, share: Optional[LeafShare] = None) -> Any:
         """One voter's worker side of one flat leaf: m <- beta*m +
         (1-beta)*g in place, and the voter's symbols of
         :meth:`vote_input_` into `words` (its row of the leaf's words);
@@ -147,7 +180,8 @@ class GradientCodec(abc.ABC):
         (None without worker state). An adversarial voter's `adversary`
         transforms its ``(1, n)`` int8 ``sign_ternary`` symbols in place
         before they are packed (the 1-bit words of m' cannot take it: an
-        honest 0 and a flipped 0 both pack as +1). Returns what
+        honest 0 and a flipped 0 both pack as +1). `share` is the leaf's
+        place over a model axis (None without one). Returns what
         :meth:`feedback_voters_` needs of this voter."""
         if m is None:
             x = self.raw_input_(g, error)
@@ -167,11 +201,13 @@ class GradientCodec(abc.ABC):
             ops.ternary_pack(symbols, out=words.view(1, -1))
         else:
             ops.bitpack(symbols, out=words.view(1, -1))
-        return self.sent_(x)
+        return self.sent_(x, share)
 
-    def sent_(self, x: torch.Tensor) -> Any:
+    def sent_(self, x: torch.Tensor, share: Optional[LeafShare] = None
+              ) -> Any:
         """What one voter's encode hands :meth:`feedback_voters_`, from its
-        vote input `x`: nothing by default."""
+        vote input `x` (a shard of the leaf `share` places): nothing by
+        default."""
         return None
 
     def begin_step(self, server_state: Optional[Dict[str, torch.Tensor]]
@@ -180,9 +216,11 @@ class GradientCodec(abc.ABC):
         return None
 
     def vote_(self, words: torch.Tensor, n: int, ctx: Any, two_bit: bool,
-              ties: str = "zero") -> torch.Tensor:
+              ties: str = "zero", counted: bool = True) -> torch.Tensor:
         """(M, w) words of an n-coordinate leaf -> the packed vote; `ties`
-        is the 2-bit tally's tie rule (:meth:`ties` of the strategy)."""
+        is the 2-bit tally's tie rule (:meth:`ties` of the strategy);
+        `counted` False leaves the leaf out of the step's statistics (a
+        replicated leaf on a model rank other than the first)."""
         return (ops.ternary_majority(words, ties=ties) if two_bit
                 else ops.majority(words))
 
@@ -203,6 +241,11 @@ class GradientCodec(abc.ABC):
                           sent: List[Any]) -> None:
         """:meth:`feedback_voters_` with the vote already decoded to a
         flat ±1/0 tensor in the residual's dtype (the plan path's)."""
+
+    def reduce_step_(self, ctx: Any, total: Callable) -> None:
+        """Sum the step's statistics in `ctx` over the model group with
+        `total` (``LeafShare.total``) before :meth:`end_step`: nothing by
+        default."""
 
     def end_step(self, server_state: Optional[Dict[str, torch.Tensor]],
                  ctx: Any) -> None:

@@ -35,7 +35,7 @@ def encode_(error: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
 SCALE_CHUNK = 1 << 26
 
 
-def scale_of(t: torch.Tensor) -> torch.Tensor:
+def scale_of(t: torch.Tensor, share=None) -> torch.Tensor:
     """mean|t| as a 0-d tensor of t's dtype: the 1-bit symbol carries no
     magnitude, so the residual prices the vote at the tensor's own mean
     amplitude. As the reference's ``jnp.mean``, |t| is summed in float32,
@@ -44,11 +44,17 @@ def scale_of(t: torch.Tensor) -> torch.Tensor:
     bf16 too). |t| is summed a chunk at a time, so no temporary as large
     as t is made. (``torch.linalg.vector_norm(t, 1)`` would make none at
     all, but on the CPU it sums in an order that loses ~1e-4 of the value
-    on a 65,536-element leaf.)"""
+    on a 65,536-element leaf.) For a shard of a leaf that a model axis
+    shards (`share`, a ``codecs.base.LeafShare``) the mean is the global
+    leaf's: the shards' float32 sums added over the model group in
+    model-index order, over the global count."""
     flat = t.reshape(-1)
     total = sum(c.abs().sum(dtype=torch.float32)
                 for c in flat.split(SCALE_CHUNK))
-    return sc.flush_subnormals((total / flat.numel()).to(t.dtype))
+    n = flat.numel()
+    if share is not None and share.sharded:
+        total, n = share.total(total), n * share.parts
+    return sc.flush_subnormals((total / n).to(t.dtype))
 
 
 def feedback_(t: torch.Tensor, vote: torch.Tensor,
@@ -94,9 +100,9 @@ class EFSignCodec(GradientCodec):
         XLA add reads its operand."""
         return encode_(error, sc.flush_subnormals(g))
 
-    def sent_(self, x: torch.Tensor) -> torch.Tensor:
-        """The voter's mean|t|."""
-        return scale_of(x)
+    def sent_(self, x: torch.Tensor, share=None) -> torch.Tensor:
+        """The voter's mean|t| (of the global leaf over a model axis)."""
+        return scale_of(x, share)
 
     def feedback_voters_(self, votes: torch.Tensor,
                          error: Optional[torch.Tensor],

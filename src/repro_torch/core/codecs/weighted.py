@@ -140,14 +140,25 @@ class WeightedVoteCodec(GradientCodec):
                 "coords": 0}
 
     def vote_(self, words: torch.Tensor, n: int, ctx: Dict,
-              two_bit: bool, ties: str = "plus_one") -> torch.Tensor:
+              two_bit: bool, ties: str = "plus_one", counted: bool = True
+              ) -> torch.Tensor:
         """The weighted vote of the leaf's (M, w) 1-bit words, repacked to
-        1-bit words for ``apply_vote``; its mismatches go into `ctx`."""
+        1-bit words for ``apply_vote``; its mismatches go into `ctx`
+        (unless not `counted`)."""
         vote, mismatch = decode_leaf_fixed(stacked_signs(words, n),
                                            ctx["weights"])
-        ctx["mismatch"] += mismatch
-        ctx["coords"] += n
+        if counted:
+            ctx["mismatch"] += mismatch
+            ctx["coords"] += n
         return ops.bitpack(vote.view(1, -1))[0]
+
+    def reduce_step_(self, ctx: Dict, total) -> None:
+        """The mismatch counts and coordinates of every rank's shards over
+        the model group (int64, exact): the global leaves' counts."""
+        ctx["mismatch"] = total(ctx["mismatch"])
+        ctx["coords"] = int(total(torch.tensor(
+            [ctx["coords"]], dtype=torch.int64,
+            device=ctx["mismatch"].device))[0])
 
     def end_step(self, server_state: Optional[Dict[str, torch.Tensor]],
                  ctx: Dict) -> None:

@@ -36,7 +36,12 @@ baselines' form reduce-scatters the cotangent in its own dtype, sums over
 (:attr:`FsdpHooks.issued`), so the trainer can assert that every rank
 issued them in one order. With the voters stacked on one device the same
 vote is made without a collective (:func:`add_fused_signs_`,
-:func:`fused_vote`).
+:func:`fused_vote`). Over a mesh with a ``"model"`` axis a leaf that
+carries both a ``"data"`` and a ``"model"`` dim (the Mode B presets' layer
+matrices) is the rank's model slice, cut again along its FSDP dim: the
+hook gathers and reduce-scatters over ``"data"`` within the rank's model
+slice (the vote axes' groups at its model index), each coordinate voted
+as without the model axis.
 """
 from __future__ import annotations
 

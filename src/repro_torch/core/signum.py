@@ -149,6 +149,18 @@ coordinates) against the other ranks' slices; stacked, voter r sends its
 slice r (``tiles``: the leaf's words, residual and banked vote have the
 shape of one slice, and every slice of the parameter takes the vote).
 
+Over a mesh with a ``"model"`` axis (`shares`: each leaf's
+``codecs.base.LeafShare``, the train step's tensor parallelism) every
+leaf is the rank's shard and each model rank votes its shards over the
+vote axes at its model index: the momentum, the signs, the tally and the
+apply are elementwise, so a shard's vote is the global leaf's vote at its
+coordinates. What the reference computes over a whole leaf is summed over
+the model group, a replicated leaf counted once: ef_sign's mean|t|,
+weighted_vote's mismatch counts and coordinates, the diagnostics'
+agreement, margin and coordinate count, and AUTO's size. A VotePlan and
+a stochastic adversary there wait for ROADMAP.md Queue 1 item 15 and
+raise.
+
 ``diagnostics=True`` makes ``update`` return the reference's
 ``vote_margin`` (mean |tally| / M over every coordinate, on the signs that
 reached the wire) and ``vote_agreement`` (the fraction of coordinates
@@ -172,6 +184,7 @@ from repro_torch.core import byzantine, codecs, majority_vote
 from repro_torch.core import sign_compress as sc
 from repro_torch.core import vote_api as va
 from repro_torch.core import vote_plan as vp
+from repro_torch.core.codecs.base import LeafShare
 from repro_torch.core.vote_engine import (STRATEGIES, count_dtype,
                                           num_voters, resolve_strategy)
 from repro_torch.distributed import mesh as pm
@@ -308,14 +321,15 @@ def apply_float_(p: torch.Tensor, vote: torch.Tensor, eta: float,
 
 
 def _mesh_vote(words: torch.Tensor, n: int, ctx, codec, two_bit: bool,
-               ties: str, strategy: VoteStrategy, axes) -> torch.Tensor:
+               ties: str, strategy: VoteStrategy, axes, counted: bool = True
+               ) -> torch.Tensor:
     """This rank's (1, w) words of an n-coordinate leaf -> the packed vote
     over the mesh `axes`, in the format the stacked tally gives (1-bit
     words, or 2-bit words on a 2-bit wire)."""
     if not two_bit or strategy == VoteStrategy.ALLGATHER_1BIT:
         gathered = STRATEGIES[VoteStrategy.ALLGATHER_1BIT].exchange(words,
                                                                    axes)
-        return codec.vote_(gathered, n, ctx, two_bit, ties)
+        return codec.vote_(gathered, n, ctx, two_bit, ties, counted)
     symbols = ops.ternary_unpack(words[0], n, torch.int8)
     if strategy == VoteStrategy.PSUM_INT8:
         counts = STRATEGIES[strategy].exchange(
@@ -351,9 +365,11 @@ class _AutoOptimizer:
 
     def __init__(self, cfg: OptimizerConfig, n_voters: int, axes,
                  fused_leaves: Sequence[str],
-                 build: Callable[[OptimizerConfig], Optimizer]):
+                 build: Callable[[OptimizerConfig], Optimizer],
+                 shares: Optional[Dict[str, LeafShare]] = None):
         self._cfg, self._build = cfg, build
         self._fused = frozenset(fused_leaves)
+        self._shares = shares or {}
         self._sizes = ((n_voters, 1) if axes is None else
                        (pm.axis_size(axes, "data") if "data" in axes else 1,
                         pm.axis_size(axes, "pod") if "pod" in axes else 1))
@@ -362,8 +378,10 @@ class _AutoOptimizer:
 
     def _resolved(self, params: Dict[str, torch.Tensor]) -> Optimizer:
         if self._opt is None:
-            total = sum(p.numel() for k, p in params.items()
-                        if k not in self._fused)
+            # the global leaves' size: a model-sharded leaf's shards
+            total = sum(p.numel() * (self._shares[k].parts
+                                     if k in self._shares else 1)
+                        for k, p in params.items() if k not in self._fused)
             strategy = resolve_strategy(VoteStrategy.AUTO, total,
                                         *self._sizes,
                                         codec=self._cfg.resolved_codec)
@@ -398,7 +416,8 @@ def make_sign_optimizer(cfg: OptimizerConfig, n_voters: int,
                         diagnostics: bool = False,
                         axes=None,
                         fused_leaves: Sequence[str] = (),
-                        tiles: Optional[Dict[str, Tuple[int, int]]] = None
+                        tiles: Optional[Dict[str, Tuple[int, int]]] = None,
+                        shares: Optional[Dict[str, LeafShare]] = None
                         ) -> Optimizer:
     """SIGNUM / signSGD over `n_voters` stacked voters (see module doc),
     leaf-wise or, given `plan`, through its bucket schedule, with the
@@ -423,9 +442,24 @@ def make_sign_optimizer(cfg: OptimizerConfig, n_voters: int,
     ``voted_leaves``). A leaf of `tiles` ({leaf: (dim, parts)}; Mode A at
     beta = 0, stacked) is voted at the shape of one of its `parts` slices
     along `dim`, which every voter's gradient of it has, and every slice
-    of the parameter takes that vote."""
+    of the parameter takes that vote. `shares` ({leaf: its LeafShare})
+    places the leaves over a mesh's model axis (see the module doc)."""
     if n_voters < 1:
         raise ValueError(f"n_voters must be >= 1, got {n_voters}")
+    shares = dict(shares or {})
+    if shares and plan is not None:
+        raise NotImplementedError(
+            "a VotePlan over a 'model' axis is not ported yet (ROADMAP.md "
+            "Queue 1 item 15)")
+    if shares and byz is not None and byz.mode in byzantine.STOCHASTIC_MODES:
+        raise NotImplementedError(
+            f"the {byz.mode!r} adversary over a 'model' axis draws at each "
+            "shard's global coordinates, which is not ported yet "
+            "(ROADMAP.md Queue 1 item 15)")
+    model_sum = next(iter(shares.values())).total if shares else None
+
+    def counted(k: str) -> bool:
+        return k not in shares or shares[k].counted
     if axes is not None and num_voters(axes) != n_voters:
         raise ValueError(f"{n_voters} voters over vote axes of "
                          f"{num_voters(axes)}")
@@ -566,7 +600,7 @@ def make_sign_optimizer(cfg: OptimizerConfig, n_voters: int,
             if plan is None:
                 wire["sent"][k][row] = codec.encode_voter_(
                     g, m, beta, wire["words"][k][row], error, two_bit,
-                    adversary)
+                    adversary, shares.get(k))
                 if diagnostics:
                     diag_encode(k, g, m, error, voter, wire, evil)
                 continue
@@ -602,7 +636,16 @@ def make_sign_optimizer(cfg: OptimizerConfig, n_voters: int,
         """The two metrics (``vote_api.vote_diagnostics``) from this
         process's agreement count (voter 0's, stacked), the summed |tally|
         and the coordinates; over a mesh voter 0's count is broadcast so
-        that every rank reports it."""
+        that every rank reports it, and over a model axis the three are
+        first summed over the model group (the global leaves')."""
+        if model_sum is not None:
+            agree, num, n = model_sum(torch.tensor(
+                [agree, num, n], dtype=torch.int64, device=device)).tolist()
+        if not n:
+            # every leaf took the fused vote: the wire is not observable,
+            # but the keys are a contract (the reference reports NaN)
+            return {"vote_agreement": float("nan"),
+                    "vote_margin": float("nan")}
         margin, agreement = va.vote_diagnostics(
             agree, [num], n, n_voters, axes or (),
             reporter=None if axes is None else 0, device=device)
@@ -695,8 +738,11 @@ def make_sign_optimizer(cfg: OptimizerConfig, n_voters: int,
                 votes = codec.vote_(wire["words"][k], n, ctx, two_bit, ties)
             else:
                 votes = _mesh_vote(wire["words"][k], n, ctx, codec, two_bit,
-                                   ties, cfg.vote_strategy, axes)
-            if diagnostics:
+                                   ties, cfg.vote_strategy, axes,
+                                   counted(k))
+            if diagnostics and not counted(k):
+                del wire["own"][k], wire["counts"][k]
+            elif diagnostics:
                 decoded = (ops.ternary_unpack(votes, n, torch.int8) if two_bit
                            else ops.bitunpack(votes, n, torch.int8))
                 agree += va.count_equal(wire["own"].pop(k), decoded)
@@ -723,13 +769,10 @@ def make_sign_optimizer(cfg: OptimizerConfig, n_voters: int,
             error = (state["error"][k].view(local, -1)
                      if "error" in state else None)
             codec.feedback_voters_(votes, error, wire["sent"][k], two_bit)
+        if model_sum is not None:
+            codec.reduce_step_(ctx, model_sum)
         codec.end_step(state.get("codec"), ctx)
         state["count"] += 1
-        if diagnostics and not total:
-            # every leaf took the fused vote: the wire is not observable,
-            # but the keys are a contract (the reference reports NaN)
-            return {"vote_agreement": float("nan"),
-                    "vote_margin": float("nan")}
         return diag_result(agree, num, total, device) if diagnostics else {}
 
     return Optimizer(init, wire, encode, update, cfg.vote_strategy, plan)
@@ -862,7 +905,8 @@ def build_optimizer(cfg: OptimizerConfig, n_voters: int,
                     byz: Optional[ByzantineConfig] = None,
                     diagnostics: bool = False, axes=None,
                     fused_leaves: Sequence[str] = (),
-                    tiles: Optional[Dict[str, Tuple[int, int]]] = None
+                    tiles: Optional[Dict[str, Tuple[int, int]]] = None,
+                    shares: Optional[Dict[str, LeafShare]] = None
                     ) -> Optimizer:
     """The optimizer of `cfg.kind` (``repro.core.signum.build_optimizer``):
     the sign family for ``signum_vote`` / ``signsgd_vote``, with the
@@ -870,12 +914,15 @@ def build_optimizer(cfg: OptimizerConfig, n_voters: int,
     baselines, which ignore both as the reference's do; over mesh `axes`
     when given; `fused_leaves` arrive voted (or meaned) by the fused ZeRO
     backward; the sign family's `tiles` are voted slice by slice (see
-    :func:`make_sign_optimizer`)."""
+    :func:`make_sign_optimizer`); `shares` places the leaves over a mesh's
+    model axis (the dense baselines' mean is elementwise and needs no
+    global statistic)."""
     def build(cfg: OptimizerConfig) -> Optimizer:
         if cfg.kind in SIGN_KINDS:
             return make_sign_optimizer(cfg, n_voters, plan, byz, diagnostics,
-                                       axes, fused_leaves, tiles)
+                                       axes, fused_leaves, tiles, shares)
         return make_dense_optimizer(cfg, n_voters, axes, fused_leaves)
     if cfg.vote_strategy == VoteStrategy.AUTO and n_voters > 1:
-        return _AutoOptimizer(cfg, n_voters, axes, fused_leaves, build)
+        return _AutoOptimizer(cfg, n_voters, axes, fused_leaves, build,
+                              shares)
     return build(cfg)

@@ -533,6 +533,17 @@ def _static_wire(plan, codec_name: str, resolved: Optional[VoteStrategy],
 # ---------------------------------------------------------------------------
 
 
+def global_numel(n: int, axes) -> int:
+    """The coordinates AUTO prices: `n`, the rank's payload, or over a
+    mesh with a ``"model"`` axis the sum of every model rank's payload (a
+    request's payload there is the rank's shard of a model-sharded tree,
+    as the reference's trace-time shapes are the global leaves')."""
+    mesh = getattr(axes, "mesh", None)
+    if mesh is None or mesh.model <= 1:
+        return n
+    return int(pm.model_sum(torch.tensor([n], dtype=torch.int64), mesh)[0])
+
+
 def _region_sizes(axes) -> tuple:
     """(data, pod) sizes of the bound vote axes (1 for an absent axis)."""
     data = pm.axis_size(axes, "data") if "data" in axes else 1
@@ -550,8 +561,8 @@ def _wire_vote_signs(signs: torch.Tensor, axes, strategy: VoteStrategy,
     if not axes:
         return signs, state
     data, pod = _region_sizes(axes)
-    kind = ve.resolve_strategy(strategy, signs.numel(), data, pod,
-                               codec=codec_name)
+    kind = ve.resolve_strategy(strategy, global_numel(signs.numel(), axes),
+                               data, pod, codec=codec_name)
     c.validate_strategy(kind)
     if c.name == "ternary2bit" and kind == VoteStrategy.ALLGATHER_1BIT:
         return TERNARY_WIRE.vote(signs, axes), state
@@ -702,8 +713,9 @@ def _tree_execute(tree: Dict, axes, strategy: VoteStrategy,
     if strategy == VoteStrategy.AUTO and axes:
         data, pod = _region_sizes(axes)
         resolved = ve.resolve_strategy(
-            strategy, sum(leaf.numel() for leaf in tree.values()), data, pod,
-            codec=codec_name)
+            strategy, global_numel(sum(leaf.numel()
+                                       for leaf in tree.values()), axes),
+            data, pod, codec=codec_name)
     state = dict(server_state) if server_state else {}
     if not c.server_state or not axes:
         votes = {k: _leaf_execute(leaf, axes, resolved, codec_name, None,
@@ -992,8 +1004,9 @@ class MeshBackend(VoteBackend):
         resolved = None
         if self.axes and req.plan is None:
             data, pod = _region_sizes(self.axes)
-            resolved = ve.resolve_strategy(req.strategy, payload.numel(),
-                                           data, pod, codec=req.codec)
+            resolved = ve.resolve_strategy(
+                req.strategy, global_numel(payload.numel(), self.axes),
+                data, pod, codec=req.codec)
         wire = _static_wire(req.plan, req.codec, resolved, payload.numel(),
                             1, self._n_voters())
         return VoteOutcome(votes=votes, server_state=state, wire=wire)

@@ -1,5 +1,6 @@
 """Parameter sharding rules (``repro.distributed.sharding``, its parameter
-half): which dim of each leaf is FSDP-sharded over ``"data"``.
+half, and ``kv_cache_spec``): which dim of each leaf is sharded over
+``"model"`` (tensor parallel) and which over ``"data"`` (FSDP).
 
 A spec is a tuple with one entry per dim: ``"data"`` (ZeRO-3 sharded over
 the data axis), ``"model"`` (tensor parallel) or None (replicated); there
@@ -10,15 +11,20 @@ does not divide by its axis size is dropped. The leaves whose spec names
 ``"data"`` are what the reference's trainer calls ``fused_leaves``: the
 fused ZeRO backward votes them (``core.majority_vote.make_fsdp_hooks``).
 
-The ``"model"`` entries are carried for parity and do nothing: the port
-has no tensor parallelism, and a model axis of size > 1 raises (ROADMAP.md
-Queue 1 item 14). The activation helper ``shard`` (an identity without
-XLA) and ``kv_cache_spec`` (serving) are not ported.
+The ``"model"`` entries place a leaf over the model axis
+(``distributed.tensor_parallel``). The activation helper ``shard`` (an
+identity without XLA's partitioner) is not ported.
 
-A rank of a ``ProcessMesh`` holds slice ``data_index`` of ``data`` equal
-slices of each fused leaf along its FSDP dim; pod replicas hold the same
-slice. :func:`shard_tree` cuts full parameters (numpy arrays or tensors)
-into one rank's slices and :func:`join_shards` puts them back together.
+A rank of a ``ProcessMesh`` holds, of each leaf, the block its spec names:
+along a ``"data"`` dim slice ``data_index`` of ``data`` equal slices, along
+a ``"model"`` dim slice ``model_index`` of ``model``, along a dim named by
+a tuple of axes (a serving cache's ``("data", "model")``) the slice of
+their joint index, outermost axis major; pod replicas (and the ranks of an
+axis no dim names) hold the same block. :func:`shard_tree` cuts full
+parameters (numpy arrays or tensors) into one rank's blocks, and
+:func:`join_shards` puts every rank's blocks back together: this is how
+the reference's numpy parameters (``model.params_from_numpy``) become one
+rank's shards, and back again.
 """
 from __future__ import annotations
 
@@ -89,10 +95,6 @@ def param_spec(name: str, shape: Tuple[int, ...], *, fsdp: bool,
     ``param_spec``): a sharded entry is dropped when its dim does not divide
     by the axis size; an "M2" entry is used only when the "M" dim dropped;
     no axis is named twice."""
-    if mesh_shape and mesh_shape.get("model", 1) > 1:
-        raise NotImplementedError(
-            "a 'model' axis of size > 1 (tensor parallelism) is not ported "
-            "yet (ROADMAP.md Queue 1 item 14)")
     for pat, tags in _RULES:
         if re.search(pat, name):
             tags = list(tags[:len(shape)])
@@ -168,36 +170,116 @@ def check_spec(spec: Sequence) -> None:
             seen.add(a)
 
 
+#: the batch dim's entry of a spec: the vote axes jointly
+BATCH = ("pod", "data")
+
+
+def kv_cache_spec(num_kv_heads: int, model_axis: int) -> Tuple[Spec, str]:
+    """The spec of an (L, B, S, Hkv, hd) cache and its kind (the
+    reference's ``kv_cache_spec``): heads over ``"model"`` when they
+    divide the axis (``"heads"``), else the sequence (``"seq"``, read by
+    the sharded flash decode)."""
+    if num_kv_heads % model_axis == 0:
+        return (None, BATCH, None, "model", None), "heads"
+    return (None, BATCH, "model", None, None), "seq"
+
+
 def _slice(x, dim: int, index: int, count: int):
     size = x.shape[dim] // count
     return x[(slice(None),) * dim + (slice(index * size,
                                            (index + 1) * size),)]
 
 
-def shard_tree(tree: Mapping, dims: Mapping[str, int], index: int,
-               count: int) -> Dict:
-    """One rank's leaves of the full `tree`: slice `index` of `count` along
-    each leaf's FSDP dim in `dims` (other leaves whole). Slices of numpy
-    arrays or tensors are views; copy them to own them."""
-    return {k: (_slice(v, dims[k], index, count) if k in dims else v)
+def _axes_of(entry) -> Tuple[str, ...]:
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, tuple) else (entry,)
+
+
+def spec_block(spec: Sequence, coords: Mapping[str, int],
+               sizes: Mapping[str, int]) -> Tuple[Tuple[int, int], ...]:
+    """(index, count) of the block a rank at `coords` holds along each dim
+    of `spec` over a mesh of `sizes` (an axis absent from `sizes` has size
+    1); (0, 1) for a dim the spec leaves whole."""
+    out = []
+    for e in spec:
+        idx, count = 0, 1
+        for a in _axes_of(e):
+            n = sizes.get(a, 1)
+            idx, count = idx * n + coords.get(a, 0), count * n
+        out.append((idx, count))
+    return tuple(out)
+
+
+def shard_leaf(x, spec: Sequence, coords: Mapping[str, int],
+               sizes: Mapping[str, int]):
+    """The block of `x` a rank at `coords` holds under `spec` (a view)."""
+    for dim, (idx, count) in enumerate(spec_block(spec, coords, sizes)):
+        if count > 1:
+            x = _slice(x, dim, idx, count)
+    return x
+
+
+def shard_tree(tree: Mapping, dims: Mapping, index: int = 0,
+               count: int = 1, *, coords: Optional[Mapping[str, int]] = None,
+               sizes: Optional[Mapping[str, int]] = None) -> Dict:
+    """One rank's leaves of the full `tree`. With `dims` ``{leaf: FSDP
+    dim}``: slice `index` of `count` along each leaf's dim (other leaves
+    whole). With `dims` ``{leaf: spec}`` and the rank's `coords` over a
+    mesh of `sizes`: the block of every dim each spec names (leaves
+    without a spec whole). Slices of numpy arrays or tensors are views;
+    copy them to own them."""
+    if coords is None:
+        return {k: (_slice(v, dims[k], index, count) if k in dims else v)
+                for k, v in tree.items()}
+    return {k: (shard_leaf(v, dims[k], coords, sizes) if k in dims else v)
             for k, v in tree.items()}
 
 
-def join_shards(trees: Sequence[Mapping], dims: Mapping[str, int]) -> Dict:
-    """The full tree from every data index's :func:`shard_tree`, in data
-    order (numpy arrays or tensors; the unsharded leaves from the first)."""
+def _concat(parts, dim: int):
+    return (torch.cat(parts, dim=dim) if torch.is_tensor(parts[0])
+            else np.concatenate(parts, axis=dim))
+
+
+def join_shards(trees: Sequence[Mapping], dims: Mapping,
+                sizes: Optional[Mapping[str, int]] = None) -> Dict:
+    """The full tree back from every rank's :func:`shard_tree` (numpy
+    arrays or tensors; a leaf no spec shards from the first tree). With
+    `dims` ``{leaf: FSDP dim}``, `trees` are every data index's, in data
+    order. With `dims` ``{leaf: spec}`` and the mesh's `sizes`, `trees`
+    are every rank's, row-major over the axes of `sizes` in
+    ``("pod", "data", "model")`` order."""
     first = trees[0]
+    if sizes is None:
+        return {k: (_concat([t[k] for t in trees], dims[k]) if k in dims
+                    else v) for k, v in first.items()}
+    axes = [a for a in ("pod", "data", "model") if a in sizes]
+    coords = []
+    for flat in range(len(trees)):
+        at, rest = {}, flat
+        for a in reversed(axes):
+            rest, at[a] = divmod(rest, sizes[a])
+        coords.append(at)
     out = {}
     for k, v in first.items():
         if k not in dims:
             out[k] = v
             continue
-        parts = [t[k] for t in trees]
-        out[k] = (torch.cat(parts, dim=dims[k]) if torch.is_tensor(v)
-                  else np.concatenate(parts, axis=dims[k]))
+        blocks = {}
+        for c, t in zip(coords, trees):
+            key = tuple(i for i, _ in spec_block(dims[k], c, sizes))
+            blocks.setdefault(key, t[k])
+        counts = [n for _, n in spec_block(dims[k], {}, sizes)]
+
+        def build(prefix, dim):
+            if dim == len(counts):
+                return blocks[tuple(prefix)]
+            return _concat([build(prefix + [i], dim + 1)
+                            for i in range(counts[dim])], dim)
+        out[k] = build([], 0)
     return out
 
 
-__all__ = ["DuplicateSpecError", "Spec", "check_spec", "fsdp_dim",
-           "fused_dims", "join_shards", "param_spec", "param_specs",
-           "shard_tree"]
+__all__ = ["BATCH", "DuplicateSpecError", "Spec", "check_spec", "fsdp_dim",
+           "fused_dims", "join_shards", "kv_cache_spec", "param_spec",
+           "param_specs", "shard_leaf", "shard_tree", "spec_block"]

@@ -5,6 +5,14 @@ cross-attention), SwiGLU MLP, embedding and cross-entropy
 and the decode path's attention of one new token against a KV cache
 (bf16, or int8 with per-row scales), written into the cache in place.
 
+Over a mesh's ``"model"`` axis (`tp`, a ``distributed.mesh.ProcessMesh``
+whose model axis is larger than 1) the same functions run tensor-parallel
+on a rank's slices of the weights, as ``distributed.tensor_parallel`` sets
+out: attention in the reference's three forms (:func:`_attn_form`), the
+SwiGLU MLP column- then row-parallel, the vocab-parallel embedding and
+cross-entropy, and the decode path against a heads-sharded cache or,
+through the sharded flash decode, a sequence-sharded one.
+
 Plain functions on tensors; parameters arrive as slices of the flat
 stacked-parameter dict. Compute dtype follows the inputs (bf16 by default);
 normalisation statistics, attention scores and softmax, and the loss run in
@@ -13,11 +21,16 @@ stay comparable. Autograd gives every backward: none of these is a kernel.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import collections
+import dataclasses
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
+
+from repro_torch.distributed import mesh as pm
+from repro_torch.distributed import tensor_parallel as tpar
 
 Q_CHUNK = 1024  # query-chunk size for long-sequence attention
 
@@ -84,6 +97,32 @@ def sinusoidal_positions(positions: torch.Tensor, d_model: int
 # ---------------------------------------------------------------------------
 # attention core
 # ---------------------------------------------------------------------------
+
+
+def model_group(mesh):
+    """`mesh` when its model axis has more than one rank, else None (the
+    single-device functions)."""
+    return mesh if mesh is not None and mesh.model > 1 else None
+
+
+def _attn_form(num_heads: int, num_kv: int, model: int) -> str:
+    """How attention splits over a model axis of `model` ranks (the
+    reference's ``_attn_form``): "grouped" when the kv heads divide it (a
+    rank holds whole kv heads and their q heads), "repeat" when only the
+    q heads do (the k / v columns are gathered), "seq" when neither does
+    (q, k and v gathered, each rank attends its share of the query
+    rows)."""
+    if model <= 1 or num_kv % model == 0:
+        return "grouped"
+    if num_heads % model == 0:
+        return "repeat"
+    return "seq"
+
+
+def _local_cfg(cfg, heads: int, kv_heads: int):
+    """`cfg` with a rank's head counts (the head width kept)."""
+    return dataclasses.replace(cfg, num_heads=heads, num_kv_heads=kv_heads,
+                               head_dim=cfg.resolved_head_dim)
 
 
 def _scores_softmax_out(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -182,10 +221,18 @@ def self_attention_block(
     window: Optional[int] = None,
     positions: Optional[torch.Tensor] = None,
     use_rope: bool = True,
+    tp=None,
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Self-attention sublayer (no residual): causal, in a sliding `window`
     when one is given, or bidirectional (``causal=False``); RoPE when
-    `use_rope` and the config has a ``rope_theta``. Returns (out, (k, v))."""
+    `use_rope` and the config has a ``rope_theta``. Returns (out, (k, v)).
+    Over a model group `tp` the weights are this rank's column (q, k, v)
+    and row (o) slices and the form is :func:`_attn_form`'s; (k, v) are
+    the rank's kv heads (grouped) or every head (repeat, seq)."""
+    if model_group(tp) is not None:
+        return _tp_self_attention(p, prefix, x, cfg, tp, causal=causal,
+                                  window=window, positions=positions,
+                                  use_rope=use_rope)
     B, S, _ = x.shape
     H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     q, k, v = attn_project_qkv(p, prefix, x, H, K, hd, bias=cfg.qkv_bias)
@@ -199,6 +246,80 @@ def self_attention_block(
                     kv_positions=positions, window=window)
     out = out.reshape(B, S, H * hd) @ p[f"{prefix}_wo"]
     return out, (k, v)
+
+
+def _tp_project_qkv(p: dict, prefix: str, x: torch.Tensor, cfg, tp
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The rank's q, k, v columns (B, S, columns) of the stream `x`, each
+    a column-parallel product rounded once to x's dtype (biases added
+    after, as :func:`attn_project_qkv` adds them)."""
+    x32 = tpar.enter_model(x, tp)
+    q, k, v = (tpar.column_parallel(x32, p[f"{prefix}_w{n}"], x.dtype)
+               for n in "qkv")
+    if cfg.qkv_bias:
+        q = q + p[f"{prefix}_bq"]
+        k = k + p[f"{prefix}_bk"]
+        v = v + p[f"{prefix}_bv"]
+    return q, k, v
+
+
+def _tp_self_attention(p: dict, prefix: str, x: torch.Tensor, cfg, tp, *,
+                       causal: bool, window: Optional[int],
+                       positions: Optional[torch.Tensor], use_rope: bool):
+    """:func:`self_attention_block` over the model group `tp`."""
+    B, S, _ = x.shape
+    H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    m, r = tp.model, tp.axis_index("model")
+    form = _attn_form(H, K, m)
+    q, k, v = _tp_project_qkv(p, prefix, x, cfg, tp)
+    if positions is None:
+        positions = torch.arange(S, device=x.device)
+    if form == "grouped":
+        q = q.reshape(B, S, H // m, hd)
+        k = k.reshape(B, S, K // m, hd)
+        v = v.reshape(B, S, K // m, hd)
+        if use_rope and cfg.rope_theta:
+            cos, sin = rope_cos_sin(positions, hd, cfg.rope_theta)
+            q = apply_rope(q, cos, sin)
+            k = apply_rope(k, cos, sin)
+        out = attention(q, k, v, causal=causal, q_positions=positions,
+                        kv_positions=positions, window=window)
+        out = tpar.row_parallel(out.reshape(B, S, H // m * hd),
+                                p[f"{prefix}_wo"], tp)
+        return out, (k, v)
+    k = tpar.gather_from_model(k, tp).reshape(B, S, K, hd)
+    v = tpar.gather_from_model(v, tp).reshape(B, S, K, hd)
+    if form == "seq":
+        if S % m:
+            raise ValueError(f"the seq attention form splits the {S} query "
+                             f"rows over {m} model ranks: they must divide")
+        q = tpar.gather_from_model(q, tp).reshape(B, S, H, hd)
+    else:
+        q = q.reshape(B, S, H // m, hd)
+    if use_rope and cfg.rope_theta:
+        cos, sin = rope_cos_sin(positions, hd, cfg.rope_theta)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+    G = H // K
+    if form == "repeat":
+        # the rank's q heads each read their kv head, repeated per head
+        heads = torch.arange(r * (H // m), (r + 1) * (H // m),
+                             device=x.device) // G
+        out = attention(q, k.index_select(2, heads),
+                        v.index_select(2, heads), causal=causal,
+                        q_positions=positions, kv_positions=positions,
+                        window=window)
+        out = out.reshape(B, S, H // m * hd)
+    else:
+        rows = slice(r * (S // m), (r + 1) * (S // m))
+        out = attention(q[:, rows], k, v, causal=causal,
+                        q_positions=positions[rows],
+                        kv_positions=positions, window=window)
+        out = tpar.gather_from_model(out.reshape(B, S // m, H * hd), tp,
+                                     dim=1)
+        cols = H * hd // m
+        out = out[..., r * cols:(r + 1) * cols]
+    return tpar.row_parallel(out, p[f"{prefix}_wo"], tp), (k, v)
 
 
 def cross_attention_block(p: dict, prefix: str, x: torch.Tensor,
@@ -306,30 +427,30 @@ def decode_positions(pos, batch: int, device) -> DecodePositions:
     return DecodePositions(pos, batch, device)
 
 
-def _decode_attention_chunked(qg: torch.Tensor, k_cache: torch.Tensor,
-                              v_cache: torch.Tensor, pos,
-                              window: Optional[int],
-                              k_scale: Optional[torch.Tensor],
-                              v_scale: Optional[torch.Tensor],
-                              scale: float) -> torch.Tensor:
-    """Online-softmax (flash-decode) attention of one query a row against
-    a long, optionally int8 cache, ``KV_CHUNK`` rows (read at the call) at
-    a time; an int8 chunk is dequantised on its own (bf16 values times
-    bf16 scales), so no full-precision copy of the cache exists. Chunk-
-    sized products run in the compute dtype (bf16 for an int8 cache, else
-    the cache's), scores and the running max, numerator and denominator
-    in float32. As in the reference, ``T // chunk`` chunks are read, so a
-    cache longer than ``KV_CHUNK`` and not a multiple of it raises (the
+def _flash_decode_local(qg: torch.Tensor, kc: torch.Tensor,
+                        vc: torch.Tensor, ksc: Optional[torch.Tensor],
+                        vsc: Optional[torch.Tensor], pos, shard_start: int,
+                        window: Optional[int], scale: float
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The online softmax of one query a row over a cache shard whose rows
+    sit at global positions ``shard_start ..`` (the reference's
+    ``_flash_decode_local``): ``KV_CHUNK`` rows (read at the call) at a
+    time, an int8 chunk dequantised on its own (bf16 values times bf16
+    scales), so no full-precision copy of the shard exists. Chunk-sized
+    products run in the compute dtype (bf16 for an int8 cache, else the
+    cache's), scores and the running max, numerator and denominator in
+    float32. As in the reference, ``T_loc // chunk`` chunks are read, so a
+    shard longer than ``KV_CHUNK`` and not a multiple of it raises (the
     reference leaves its last rows unread); a chunk whose rows are all
-    masked (outside the window) adds nothing: ``exp(-inf - -inf)`` is
-    never let into the sums.
+    masked (ahead of the row's position or outside its window) adds
+    nothing: ``exp(-inf - -inf)`` is never let into the sums.
 
-    qg (B,1,K,G,D); caches (B,T,K,D); scales (B,T,K) or None; `pos` as
-    :func:`decode_positions` takes it. Returns (B,1,K,G,D) float32.
-    """
+    qg (B,1,K,G,D); kc / vc (B,T_loc,K,D); scales (B,T_loc,K) or None;
+    `pos` as :func:`decode_positions` takes it. Returns the partials (m
+    (B,K,G,1), num (B,K,G,1,D), den (B,K,G,1)), float32."""
     B, _, K, G, D = qg.shape
     pos = decode_positions(pos, B, qg.device)
-    T = k_cache.shape[1]
+    T = kc.shape[1]
     chunk = min(KV_CHUNK, T)
     if T % chunk:
         raise ValueError(
@@ -337,22 +458,23 @@ def _decode_attention_chunked(qg: torch.Tensor, k_cache: torch.Tensor,
             f"not a multiple of it: the chunked decode reads {T // chunk} "
             f"chunks and would never attend rows {T // chunk * chunk}-"
             f"{T - 1}; give the cache a multiple of {KV_CHUNK} rows")
-    compute_dt = torch.bfloat16 if k_scale is not None else k_cache.dtype
+    compute_dt = torch.bfloat16 if ksc is not None else kc.dtype
     qc = qg.to(compute_dt)
     f32 = torch.float32
     m = torch.full((B, K, G, 1), -torch.inf, dtype=f32, device=qg.device)
     num = torch.zeros((B, K, G, 1, D), dtype=f32, device=qg.device)
     den = torch.zeros((B, K, G, 1), dtype=f32, device=qg.device)
     for start in range(0, (T // chunk) * chunk, chunk):
-        ks = k_cache[:, start:start + chunk]
-        vs = v_cache[:, start:start + chunk]
-        if k_scale is not None:
-            ks = ks.to(compute_dt) * k_scale[:, start:start + chunk].to(
+        ks = kc[:, start:start + chunk]
+        vs = vc[:, start:start + chunk]
+        if ksc is not None:
+            ks = ks.to(compute_dt) * ksc[:, start:start + chunk].to(
                 compute_dt)[..., None]
-            vs = vs.to(compute_dt) * v_scale[:, start:start + chunk].to(
+            vs = vs.to(compute_dt) * vsc[:, start:start + chunk].to(
                 compute_dt)[..., None]
         s = torch.einsum("bskgd,btkd->bkgst", qc, ks).to(f32) * scale
-        s = s.masked_fill(pos.masked(start, chunk, window), -torch.inf)
+        s = s.masked_fill(pos.masked(shard_start + start, chunk, window),
+                          -torch.inf)
         m_new = torch.maximum(m, s.amax(dim=-1))
         corr = torch.where(torch.isfinite(m), torch.exp(m - m_new),
                            torch.zeros_like(m))
@@ -364,8 +486,102 @@ def _decode_attention_chunked(qg: torch.Tensor, k_cache: torch.Tensor,
             "bkgst,btkd->bkgsd", p.to(compute_dt), vs).to(f32)
         den = den * corr + p.sum(dim=-1)
         m = m_new
-    out = num / torch.clamp(den[..., None], min=1e-30)
-    return out.movedim(3, 1)
+    return m, num, den
+
+
+def _finish(num: torch.Tensor, den: torch.Tensor) -> torch.Tensor:
+    """num / den of the online softmax, (B,K,G,1,D) -> (B,1,K,G,D)."""
+    return (num / torch.clamp(den[..., None], min=1e-30)).movedim(3, 1)
+
+
+def _decode_attention_chunked(qg: torch.Tensor, k_cache: torch.Tensor,
+                              v_cache: torch.Tensor, pos,
+                              window: Optional[int],
+                              k_scale: Optional[torch.Tensor],
+                              v_scale: Optional[torch.Tensor],
+                              scale: float) -> torch.Tensor:
+    """Online-softmax (flash-decode) attention of one query a row against
+    a long, optionally int8 cache (:func:`_flash_decode_local` over the
+    whole cache, then num / den). qg (B,1,K,G,D); caches (B,T,K,D); scales
+    (B,T,K) or None. Returns (B,1,K,G,D) float32."""
+    _, num, den = _flash_decode_local(qg, k_cache, v_cache, k_scale,
+                                      v_scale, pos, 0, window, scale)
+    return _finish(num, den)
+
+
+def combine_partials(parts: Sequence[Tuple[torch.Tensor, torch.Tensor,
+                                           torch.Tensor]]) -> torch.Tensor:
+    """The sharded flash decode's combine of every shard's (m, num, den),
+    in shard order, on one process: the maximum of the m's, then num and
+    den each weighted by exp(m - max) and summed in float32 shard by
+    shard, as :func:`flash_decode_combine` sums them over a group.
+    Returns (B,1,K,G,D) float32."""
+    top = parts[0][0]
+    for m, _, _ in parts[1:]:
+        top = torch.maximum(top, m)
+    num = den = None
+    for m, n, d in parts:
+        w = torch.exp(m - top)
+        num = n * w[..., None] if num is None else num + n * w[..., None]
+        den = d * w if den is None else den + d * w
+    return _finish(num, den)
+
+
+def flash_decode_combine(m: torch.Tensor, num: torch.Tensor,
+                         den: torch.Tensor, mesh, names: Sequence[str]
+                         ) -> torch.Tensor:
+    """The reference's combine of ``flash_decode_sharded`` over the line
+    of `names` of `mesh`: ``pmax`` of m, then ``psum`` of num and den
+    weighted by exp(m - max), the sums in shard order (model-index order;
+    data-major over ("data", "model")), which is :func:`combine_partials`'
+    arithmetic. Only (B, K, G, D)-sized partials cross the group: the
+    maximum, then num and den in one sum."""
+    top = pm.model_max(m, mesh, names)
+    w = torch.exp(m - top)
+    both = torch.cat([(num * w[..., None]).reshape(-1), (den * w).reshape(
+        -1)])
+    both = pm.model_sum(both, mesh, names)
+    return _finish(both[:num.numel()].view(num.shape),
+                   both[num.numel():].view(den.shape))
+
+
+def _masked_local_update(cache: torch.Tensor, new: torch.Tensor, pos,
+                         shard_start: int) -> None:
+    """cache[b, pos[b] - shard_start] = new[b, 0] in place for each row
+    whose position lands in this shard (the reference's
+    ``_masked_local_update``); other rows leave the shard as it is."""
+    pos = decode_positions(pos, new.shape[0], new.device)
+    local = pos.pos - shard_start
+    rows = ((local >= 0) & (local < cache.shape[1])).nonzero()[:, 0]
+    if rows.numel():
+        val = new[rows, 0]
+        cache[rows, local[rows]] = (val if val.dtype == cache.dtype
+                                    else val.to(cache.dtype))
+
+
+def _should_flash_decode(num_kv_heads: int, seq_len: int, model: int
+                         ) -> bool:
+    """The reference's gate of the sharded flash decode: a model axis whose
+    size the kv heads do not divide (so the cache is sequence-sharded),
+    a cache of at least 4096 rows that divide over it."""
+    return (model > 1 and num_kv_heads % model != 0
+            and seq_len % model == 0 and seq_len >= 4096)
+
+
+#: the decode path each layer took over a model group, by kind: "heads"
+#: (a heads-sharded cache), "flash_sharded" (a sequence-sharded cache that
+#: ``_should_flash_decode`` sends to the sharded flash decode),
+#: "sharded_short" (a sequence-sharded cache shorter than its gate: the
+#: port takes the same sharded online softmax), "replicated" (a cache no
+#: axis shards); :func:`reset_decode_paths` zeroes it
+DECODE_PATHS: collections.Counter = collections.Counter()
+
+
+def reset_decode_paths() -> collections.Counter:
+    """Zero :data:`DECODE_PATHS`; returns the counts before."""
+    old = collections.Counter(DECODE_PATHS)
+    DECODE_PATHS.clear()
+    return old
 
 
 def _write_rows(cache: torch.Tensor, new: torch.Tensor,
@@ -382,6 +598,8 @@ def decode_self_attention(
     use_rope: bool = True, window: Optional[int] = None,
     k_scale: Optional[torch.Tensor] = None,
     v_scale: Optional[torch.Tensor] = None,
+    tp=None, seq_names: Sequence[str] = (), seq_len: int = 0,
+    project_out: bool = True,
 ) -> torch.Tensor:
     """One token's self-attention sublayer (no residual) against its
     cache: x (B,1,d); caches (B,Smax,K,hd) in the model's dtype, or int8
@@ -395,7 +613,26 @@ def decode_self_attention(
     with float32's min, the reference's); a longer or int8 one the chunked
     online softmax (masked with -inf). `pos` may be the tick's
     :class:`DecodePositions`, which a decode stack shares among its
-    layers. Returns the sublayer's output."""
+    layers. Returns the sublayer's output.
+
+    Over a model group `tp` the weights are the rank's slices and the
+    caches its block of the serving layout: when the kv heads divide the
+    axis, its heads (the single-device path on its heads, the output's
+    partials summed over the group); else the rows of the global cache of
+    `seq_len` rows that the axes `seq_names` give it (``("model",)``, or
+    ``("data", "model")`` at batch 1; none: the whole cache). Such a cache
+    takes the sharded flash decode (:func:`_flash_decode_local` and
+    :func:`flash_decode_combine`): where ``_should_flash_decode`` says so,
+    as the reference, and, where the reference would read its cache whole
+    (fewer than 4096 rows), the same sharded online softmax, held to the
+    reference's plain decode within the tests' tolerance. With
+    ``project_out=False`` the attention's output before ``wo`` (B, 1,
+    H*hd) is returned."""
+    if model_group(tp) is not None:
+        return _tp_decode_attention(
+            p, prefix, x, cfg, tp, k_cache=k_cache, v_cache=v_cache,
+            pos=pos, use_rope=use_rope, window=window, k_scale=k_scale,
+            v_scale=v_scale, seq_names=tuple(seq_names), seq_len=seq_len)
     B = x.shape[0]
     H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     q, k, v = attn_project_qkv(p, prefix, x, H, K, hd, bias=cfg.qkv_bias)
@@ -428,7 +665,65 @@ def decode_self_attention(
         probs = torch.softmax(scores, dim=-1)
         out = torch.einsum("bkgst,btkd->bskgd", probs.to(v_cache.dtype),
                            v_cache)
-    return out.reshape(B, 1, H * hd) @ p[f"{prefix}_wo"]
+    out = out.reshape(B, 1, H * hd)
+    return out @ p[f"{prefix}_wo"] if project_out else out
+
+
+def _tp_decode_attention(p: dict, prefix: str, x: torch.Tensor, cfg, tp, *,
+                         k_cache, v_cache, pos, use_rope, window, k_scale,
+                         v_scale, seq_names, seq_len) -> torch.Tensor:
+    """:func:`decode_self_attention` over the model group `tp`."""
+    B = x.shape[0]
+    H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    m, r = tp.model, tp.axis_index("model")
+    pos = decode_positions(pos, B, x.device)
+    if K % m == 0:
+        DECODE_PATHS["heads"] += 1
+        out = decode_self_attention(
+            p, prefix, x, _local_cfg(cfg, H // m, K // m), k_cache=k_cache,
+            v_cache=v_cache, pos=pos, use_rope=use_rope, window=window,
+            k_scale=k_scale, v_scale=v_scale, project_out=False)
+        return tpar.row_parallel(out, p[f"{prefix}_wo"], tp)
+    q, k, v = _tp_project_qkv(p, prefix, x, cfg, tp)
+    # the new token's q, k and v columns of every rank, in one gather
+    cols = [t.shape[-1] for t in (q, k, v)]
+    qkv = pm.model_gather(torch.cat([q, k, v], dim=-1), tp, dim=0).view(
+        m, B, 1, sum(cols))
+    q, k, v = (t.movedim(0, 2).reshape(B, 1, -1) for t in qkv.split(cols,
+                                                                   dim=-1))
+    q, k, v = (q.reshape(B, 1, H, hd), k.reshape(B, 1, K, hd),
+               v.reshape(B, 1, K, hd))
+    if use_rope and cfg.rope_theta:
+        cos, sin = pos.rope(hd, cfg.rope_theta)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+    quantized = k_scale is not None
+    t_loc = k_cache.shape[1]
+    shard = pm.line_index(tp, seq_names) if seq_names else 0
+    start = shard * t_loc
+    if quantized:
+        (kq, ksc), (vq, vsc) = quantize_kv(k), quantize_kv(v)
+        for cache, new in ((k_cache, kq), (v_cache, vq), (k_scale, ksc),
+                           (v_scale, vsc)):
+            _masked_local_update(cache, new, pos, start)
+    else:
+        _masked_local_update(k_cache, k, pos, start)
+        _masked_local_update(v_cache, v, pos, start)
+    qg = q.reshape(B, 1, K, H // K, hd)
+    if seq_names:
+        DECODE_PATHS["flash_sharded" if _should_flash_decode(
+            K, seq_len, m) else "sharded_short"] += 1
+        parts = _flash_decode_local(qg, k_cache, v_cache, k_scale, v_scale,
+                                    pos, start, window, hd ** -0.5)
+        out = flash_decode_combine(*parts, tp, seq_names).to(x.dtype)
+    else:
+        DECODE_PATHS["replicated"] += 1
+        out = _decode_attention_chunked(qg, k_cache, v_cache, pos, window,
+                                        k_scale, v_scale, hd ** -0.5
+                                        ).to(x.dtype)
+    cols = H * hd // m
+    out = out.reshape(B, 1, H * hd)[..., r * cols:(r + 1) * cols]
+    return tpar.row_parallel(out, p[f"{prefix}_wo"], tp)
 
 
 # ---------------------------------------------------------------------------
@@ -436,7 +731,16 @@ def decode_self_attention(
 # ---------------------------------------------------------------------------
 
 
-def swiglu_mlp(p: dict, prefix: str, x: torch.Tensor) -> torch.Tensor:
+def swiglu_mlp(p: dict, prefix: str, x: torch.Tensor, tp=None
+               ) -> torch.Tensor:
+    """SwiGLU MLP; over a model group `tp`, gate and up column-parallel
+    and down row-parallel, its partials summed over the group."""
+    tp = model_group(tp)
+    if tp is not None:
+        x32 = tpar.enter_model(x, tp)
+        gate, up = (tpar.column_parallel(x32, p[f"{prefix}_w_{n}"], x.dtype)
+                    for n in ("gate", "up"))
+        return tpar.row_parallel(F.silu(gate) * up, p[f"{prefix}_w_down"], tp)
     gate = x @ p[f"{prefix}_w_gate"]
     up = x @ p[f"{prefix}_w_up"]
     return (F.silu(gate) * up) @ p[f"{prefix}_w_down"]
@@ -447,14 +751,33 @@ def swiglu_mlp(p: dict, prefix: str, x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def embed_tokens(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+def embed_tokens(table: torch.Tensor, tokens: torch.Tensor, tp=None
+                 ) -> torch.Tensor:
+    """The tokens' rows of `table`; over a model group `tp`, of the
+    rank's vocab-sharded table, summed over the group."""
+    if model_group(tp) is not None:
+        return tpar.embed_tokens(table, tokens, tp)
     return F.embedding(tokens, table)
 
 
-def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor
+def unembed(table: torch.Tensor, h: torch.Tensor, tp=None) -> torch.Tensor:
+    """Logits ``h @ table.T`` in h's dtype; over a model group `tp`, the
+    rank's vocab shard of them (h enters the group; a column-parallel
+    product)."""
+    if model_group(tp) is not None:
+        return tpar.column_parallel(tpar.enter_model(h, tp), table.T,
+                                    h.dtype)
+    return h @ table.T
+
+
+def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor, tp=None
                        ) -> torch.Tensor:
     """Mean next-token CE; logits (B,S,V) bf16/f32, targets (B,S) int.
-    float32 logsumexp; the gradient reaches the logits in their dtype."""
+    float32 logsumexp; the gradient reaches the logits in their dtype.
+    Over a model group `tp` the logits are the rank's vocab shard and the
+    CE is vocab-parallel (``tensor_parallel.cross_entropy``)."""
+    if model_group(tp) is not None:
+        return tpar.cross_entropy(logits, targets, tp)
     lf = logits.to(torch.float32)
     logz = torch.logsumexp(lf, dim=-1)
     gold = torch.gather(lf, -1, targets[..., None].long())[..., 0]

@@ -12,6 +12,15 @@ encoder-decoder (whisper, its frontend stubbed):
   decode_step(cfg, params, tokens, cache, pos) -> (logits, cache)
   input_specs(cfg, cell)                -> tensors on the "meta" device
 
+Over a mesh's ``"model"`` axis (``tp=``, a ``distributed.mesh.ProcessMesh``
+with a model axis larger than 1; ``distributed.tensor_parallel``) the
+dense decoder-only archs (glm4-9b, qwen1.5-32b, deepseek-67b, gemma3-12b,
+pixtral-12b) run tensor-parallel on a rank's slices of the parameters: the
+embedding and the cross-entropy vocab-parallel, the logits the rank's
+vocab shard, the cache the rank's block of the serving layout. The MoE,
+SSM, hybrid and encoder-decoder archs raise there
+(:func:`check_model_axis`).
+
 Parameters are a flat ``dict[str, Tensor]`` under the JAX package's names
 and in its stacked layout (``layers.attn_wq`` is ``(L, d, H*hd)``), so
 parameters and momentum carry across between the packages by name.
@@ -47,6 +56,25 @@ _BIAS_SUFFIXES = ("_b", "_bq", "_bk", "_bv", "_conv_b", "dt_bias")
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
+
+
+#: the ROADMAP.md item that brings the rest of the model axis
+ITEM_15 = "ROADMAP.md Queue 1 item 15"
+
+
+def check_model_axis(cfg: ModelConfig, model: int) -> None:
+    """Raise ``NotImplementedError`` for an arch this port does not run
+    over a model axis of `model` > 1 ranks: the MoE (expert parallelism),
+    the SSM, the hybrid and the encoder-decoder wait for ROADMAP.md Queue 1
+    item 15; the dense decoder-only archs (and the VLM's decoder) run."""
+    if model <= 1:
+        return
+    if cfg.family not in (ArchFamily.DENSE, ArchFamily.VLM) \
+            or cfg.moe.enabled:
+        raise NotImplementedError(
+            f"{cfg.name} ({cfg.family.value}) over a 'model' axis of "
+            f"{model}: only the dense decoder-only archs run tensor-"
+            f"parallel so far ({ITEM_15})")
 
 
 def _frames(cfg: ModelConfig, batch: Dict[str, torch.Tensor]
@@ -136,20 +164,24 @@ def _vlm_split(cell_seq: int) -> Tuple[int, int]:
 
 
 def _embed_input(cfg: ModelConfig, params: Dict[str, torch.Tensor],
-                 batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+                 batch: Dict[str, torch.Tensor], tp=None) -> torch.Tensor:
     """The (B, S, d) input stream: the tokens' embeddings, after the patch
     embeddings (cast to the tokens' dtype) for the VLM."""
-    tok = L.embed_tokens(params["embed.table"], batch["tokens"])
+    tok = L.embed_tokens(params["embed.table"], batch["tokens"], tp)
     if cfg.family == ArchFamily.VLM and "patch_embeds" in batch:
         return torch.cat([batch["patch_embeds"].to(tok.dtype), tok], dim=1)
     return tok
 
 
 def _final_hidden(cfg: ModelConfig, params: Dict[str, torch.Tensor],
-                  batch: Dict[str, torch.Tensor], hook, remat: str
+                  batch: Dict[str, torch.Tensor], hook, remat: str, tp=None
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(the final-normed stream (B,S,d), aux_loss, the unembedding table):
-    the family's stack, each block under `remat`."""
+    the family's stack, each block under `remat` (over a model group `tp`,
+    tensor-parallel)."""
+    tp = L.model_group(tp)
+    if tp is not None:
+        check_model_axis(cfg, tp.model)
     if hook is not None:
         top = {k: v for k, v in params.items()
                if not k.startswith(("layers.", "encoder."))}
@@ -170,9 +202,9 @@ def _final_hidden(cfg: ModelConfig, params: Dict[str, torch.Tensor],
         h = _embed_input(cfg, params, batch)
         h = hybrid.hybrid_forward(params, h, cfg, hook=hook, remat=remat)
     else:
-        h = _embed_input(cfg, params, batch)
+        h = _embed_input(cfg, params, batch, tp)
         h, aux = transformer.decoder_stack(params, h, cfg, hook=hook,
-                                           remat=remat)
+                                           remat=remat, tp=tp)
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
     h = L.rms_norm(h, params["final_norm.scale"], cfg.norm_eps)
@@ -181,29 +213,35 @@ def _final_hidden(cfg: ModelConfig, params: Dict[str, torch.Tensor],
 
 def forward_logits(cfg: ModelConfig, params: Dict[str, torch.Tensor],
                    batch: Dict[str, torch.Tensor], hook=None,
-                   remat: str = "none") -> Tuple[torch.Tensor, torch.Tensor]:
+                   remat: str = "none", tp=None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (logits (B,S,V) in the parameter dtype, aux_loss scalar);
     `remat` checkpoints each block (``transformer.maybe_remat``; the SSM,
     hybrid and encoder-decoder stacks each layer, as the reference's scans
     do, and the hybrid's shared block too).
     `hook(tree, scope)` is the ZeRO-3 gather whose backward votes
     (``core.majority_vote.make_fsdp_hooks``): applied to the top-level
-    parameters here and to each layer's inside the decoder stack."""
-    h, aux, table = _final_hidden(cfg, params, batch, hook, remat)
-    return h @ table.T, aux
+    parameters here and to each layer's inside the decoder stack. Over a
+    model group `tp` the logits are the rank's vocab shard (B,S,V/m), as
+    the reference's ``shard(logits, BATCH, None, "model")``."""
+    h, aux, table = _final_hidden(cfg, params, batch, hook, remat, tp)
+    return L.unembed(table, h, tp), aux
 
 
 def loss_fn(cfg: ModelConfig, params: Dict[str, torch.Tensor],
-            batch: Dict[str, torch.Tensor], hook=None, remat: str = "none"
-            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+            batch: Dict[str, torch.Tensor], hook=None, remat: str = "none",
+            tp=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """``ce + aux`` and {"ce", "aux"}: next-token CE over the tokens (for
     the VLM over the text segment only, the last ``len(tokens)``
-    positions, whose logits alone are made) and the MoE aux loss."""
-    h, aux, table = _final_hidden(cfg, params, batch, hook, remat)
+    positions, whose logits alone are made) and the MoE aux loss. Over a
+    model group `tp` the CE is vocab-parallel and every model rank's loss
+    is the same."""
+    h, aux, table = _final_hidden(cfg, params, batch, hook, remat, tp)
     tokens = batch["tokens"]
     if cfg.family == ArchFamily.VLM and "patch_embeds" in batch:
         h = h[:, -tokens.shape[1]:]
-    ce = L.cross_entropy_loss((h @ table.T)[:, :-1], tokens[:, 1:])
+    ce = L.cross_entropy_loss(L.unembed(table, h, tp)[:, :-1],
+                              tokens[:, 1:], tp)
     return ce + aux, {"ce": ce, "aux": aux}
 
 
@@ -245,19 +283,26 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 
 def _logits(cfg: ModelConfig, params: Dict[str, torch.Tensor],
-            h: torch.Tensor) -> torch.Tensor:
+            h: torch.Tensor, tp=None) -> torch.Tensor:
     h = L.rms_norm(h, params["final_norm.scale"], cfg.norm_eps)
-    return h @ params.get("unembed.table", params["embed.table"]).T
+    return L.unembed(params.get("unembed.table", params["embed.table"]), h,
+                     tp)
 
 
 @torch.no_grad()
 def prefill(cfg: ModelConfig, params: Dict[str, torch.Tensor],
-            batch: Dict[str, torch.Tensor]
+            batch: Dict[str, torch.Tensor], tp=None, keep=None, hook=None
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Run the prompt: (logits (B, S, V), its cache). The decoder-only
     families fill the cache from the forward pass (S positions); see the
-    module doc for the others'. (The reference's ZeRO-3 `hook` serves its
-    sharded prefill, ROADMAP.md Queue 1 item 14.)"""
+    module doc for the others'. Over a model group `tp` (the dense
+    decoder-only archs) the logits are the rank's vocab shard and
+    `keep(name, t)` cuts each layer's K / V to the rank's block of the
+    cache; `hook` is the ZeRO-3 gather of FSDP-sharded parameters (the
+    reference's sharded prefill)."""
+    tp = L.model_group(tp)
+    if tp is not None:
+        check_model_axis(cfg, tp.model)
     tokens = batch["tokens"]
     B, S = tokens.shape
     dev = tokens.device
@@ -274,17 +319,33 @@ def prefill(cfg: ModelConfig, params: Dict[str, torch.Tensor],
     if cfg.family in (ArchFamily.SSM, ArchFamily.HYBRID):
         logits, _ = forward_logits(cfg, params, batch)
         return logits, init_cache(cfg, B, S, device=dev)
-    h = _embed_input(cfg, params, batch)
-    h, cache = transformer.decoder_prefill(params, h, cfg)
-    return _logits(cfg, params, h), cache
+    if hook is not None:
+        top = {k: v for k, v in params.items() if not k.startswith("layers.")}
+        params = {**params, **hook(top, "top")}
+    h = _embed_input(cfg, params, batch, tp)
+    h, cache = transformer.decoder_prefill(params, h, cfg, tp=tp, keep=keep,
+                                           hook=hook)
+    return _logits(cfg, params, h, tp), cache
 
 
 @torch.no_grad()
 def decode_step(cfg: ModelConfig, params: Dict[str, torch.Tensor],
-                tokens: torch.Tensor, cache: Dict[str, torch.Tensor], pos
+                tokens: torch.Tensor, cache: Dict[str, torch.Tensor], pos,
+                tp=None, seq_names=(), seq_len: int = 0
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """tokens (B, 1); `pos` one position (an int or a 0-d tensor) or one a
-    row (B,) -> (logits (B, V), cache). The cache is advanced in place."""
+    row (B,) -> (logits (B, V), cache). The cache is advanced in place.
+    Over a model group `tp` (the dense decoder-only archs) the logits are
+    the rank's vocab shard and the cache its block of the serving layout
+    (``transformer.decoder_decode_step``)."""
+    tp = L.model_group(tp)
+    if tp is not None:
+        check_model_axis(cfg, tp.model)
+        h = L.embed_tokens(params["embed.table"], tokens, tp)
+        h, cache = transformer.decoder_decode_step(
+            params, h, cache, pos, cfg, tp=tp, seq_names=seq_names,
+            seq_len=seq_len)
+        return _logits(cfg, params, h, tp)[:, 0], cache
     h = L.embed_tokens(params["embed.table"], tokens)
     if cfg.family == ArchFamily.AUDIO:
         posv = torch.as_tensor(pos, device=h.device).reshape(-1)

@@ -20,6 +20,12 @@ in the backward pass instead of keeping them: ZeRO-3.
 The decode step updates the cache in place, one layer's slice at a time,
 as the reference carries it through a ``fori_loop`` so that a multi-GB
 cache never exists twice.
+
+Over a mesh's model axis (`tp`, ``distributed.tensor_parallel``) the dense
+block runs tensor-parallel on the rank's weight slices; the residual
+stream stays whole on every rank (the reference's ``residual_shard`` is a
+layout hint, an identity on the function). The serving cache is then the
+rank's block of ``train.serve_step``'s layout.
 """
 from __future__ import annotations
 
@@ -84,33 +90,36 @@ def _window_for(cfg, is_local: bool, seq_len: int) -> Optional[int]:
 
 def decoder_block(lp: Dict[str, torch.Tensor], h: torch.Tensor, cfg, *,
                   window: Optional[int] = None,
-                  positions: Optional[torch.Tensor] = None
+                  positions: Optional[torch.Tensor] = None, tp=None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One pre-norm block, its FFN a SwiGLU MLP or the MoE block. Returns
     (h, aux_loss). The reference's ``residual_shard`` (``act_seq_shard``)
-    is an identity on one device."""
+    is an identity on one device, and over a model group `tp` too: the
+    stream stays whole on every rank."""
     attn_in = L.rms_norm(h, lp["norm1_scale"], cfg.norm_eps)
     attn_out, _ = L.self_attention_block(lp, "attn", attn_in, cfg,
-                                         window=window, positions=positions)
+                                         window=window, positions=positions,
+                                         tp=tp)
     h = h + attn_out
     ffn_in = L.rms_norm(h, lp["norm2_scale"], cfg.norm_eps)
     if cfg.moe.enabled:
         ffn_out, aux = moe_ffn(lp, ffn_in, cfg.moe)
     else:
-        ffn_out = L.swiglu_mlp(lp, "mlp", ffn_in)
+        ffn_out = L.swiglu_mlp(lp, "mlp", ffn_in, tp)
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
     return h + ffn_out, aux
 
 
 def decoder_stack(p: Dict[str, torch.Tensor], h: torch.Tensor, cfg,
                   positions: Optional[torch.Tensor] = None,
-                  hook=None, remat: str = "none"
+                  hook=None, remat: str = "none", tp=None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Loop over the stacked layers, each block under `remat` (see
     :func:`maybe_remat`), `hook(layer_tree, "layers")` applied to each
     layer's weights inside it, each layer's window from
     ``cfg.local_layer_mask()`` (gemma3's local / global pattern). Returns
-    (h, the aux losses summed over the layers)."""
+    (h, the aux losses summed over the layers). Over a model group `tp`
+    each block is tensor-parallel."""
     # unbind, not v[i]: its backward stacks the L layer gradients in one
     # op, where indexing zero-fills a full (L, ...) gradient per layer
     lp = {k: v.unbind(0) for k, v in _layer_tree(p).items()}
@@ -129,7 +138,7 @@ def decoder_stack(p: Dict[str, torch.Tensor], h: torch.Tensor, cfg,
                 layer = hook(layer, "layers")
             h, a = decoder_block(layer, h, cfg,
                                  window=_window_for(cfg, local[i], S),
-                                 positions=positions)
+                                 positions=positions, tp=tp)
             aux = aux + a
         return h, aux
 
@@ -160,7 +169,8 @@ def init_kv_cache(cfg, batch: int, max_len: int, dtype: torch.dtype,
                   device=None) -> Dict[str, torch.Tensor]:
     """Zero caches ``k`` / ``v`` (L, B, max_len, K, hd) in `dtype`, or for
     ``kv_cache_dtype="int8"`` int8 ones with (L, B, max_len, K) bf16
-    ``k_scale`` / ``v_scale``."""
+    ``k_scale`` / ``v_scale``. (Over a mesh a rank's block of it is made
+    by ``train.serve_step.make_cache_rehome``.)"""
     K, hd = cfg.num_kv_heads, cfg.resolved_head_dim
     shape = (cfg.num_layers, batch, max_len, K, hd)
     if cfg.kv_cache_dtype == "int8":
@@ -175,47 +185,58 @@ def init_kv_cache(cfg, batch: int, max_len: int, dtype: torch.dtype,
 
 
 def _ffn(layer_p: Dict[str, torch.Tensor], x: torch.Tensor, cfg,
-         min_capacity: int = 0) -> torch.Tensor:
+         min_capacity: int = 0, tp=None) -> torch.Tensor:
     """The block's FFN without its aux loss: the MoE block or the MLP."""
     if cfg.moe.enabled:
         return moe_ffn(layer_p, x, cfg.moe, min_capacity=min_capacity)[0]
-    return L.swiglu_mlp(layer_p, "mlp", x)
+    return L.swiglu_mlp(layer_p, "mlp", x, tp)
 
 
-def decoder_prefill(p: Dict[str, torch.Tensor], h: torch.Tensor, cfg
+def decoder_prefill(p: Dict[str, torch.Tensor], h: torch.Tensor, cfg,
+                    tp=None, keep: Optional[Callable] = None, hook=None
                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The forward pass over the prompt stream h (B, S, d) that also
     returns the populated cache: each layer's K (after RoPE) and V at S
     positions (quantized for an int8 cache), written into the (L, B, S,
-    ...) cache as the layer makes them."""
+    ...) cache as the layer makes them. Over a model group `tp`, a layer's
+    K / V are the rank's kv heads (grouped form) or every head, and
+    `keep(name, t)` cuts each to the rank's block of the serving layout
+    before it is stored; `hook` gathers each layer's FSDP slices (the
+    ZeRO-3 hook, ``core.majority_vote.make_fsdp_hooks``)."""
     lp = {k: v.unbind(0) for k, v in _layer_tree(p).items()}
     local = cfg.local_layer_mask()
     B, S, _ = h.shape
+    keep = keep or (lambda name, t: t)
     cache = None
     for i in range(cfg.num_layers):
         layer_p = {n: v[i] for n, v in lp.items()}
+        if hook is not None:
+            layer_p = hook(layer_p, "layers")
         attn_in = L.rms_norm(h, layer_p["norm1_scale"], cfg.norm_eps)
         attn_out, (k, v) = L.self_attention_block(
             layer_p, "attn", attn_in, cfg,
-            window=_window_for(cfg, local[i], S))
+            window=_window_for(cfg, local[i], S), tp=tp)
         h = h + attn_out
         ffn_in = L.rms_norm(h, layer_p["norm2_scale"], cfg.norm_eps)
-        h = h + _ffn(layer_p, ffn_in, cfg)
-        if cache is None:
-            cache = init_kv_cache(cfg, B, S, k.dtype, device=h.device)
-        if "k_scale" in cache:
+        h = h + _ffn(layer_p, ffn_in, cfg, tp=tp)
+        if cfg.kv_cache_dtype == "int8":
             (kq, ksc), (vq, vsc) = L.quantize_kv(k), L.quantize_kv(v)
-            for name, t in (("k", kq), ("v", vq), ("k_scale", ksc),
-                            ("v_scale", vsc)):
-                cache[name][i].copy_(t)
+            new = {"k": kq, "v": vq, "k_scale": ksc, "v_scale": vsc}
         else:
-            cache["k"][i].copy_(k)
-            cache["v"][i].copy_(v)
+            new = {"k": k, "v": v}
+        new = {name: keep(name, t) for name, t in new.items()}
+        if cache is None:
+            cache = {name: torch.zeros((cfg.num_layers,) + tuple(t.shape),
+                                       dtype=t.dtype, device=h.device)
+                     for name, t in new.items()}
+        for name, t in new.items():
+            cache[name][i].copy_(t)
     return h, cache
 
 
 def decoder_decode_step(p: Dict[str, torch.Tensor], h: torch.Tensor,
-                        cache: Dict[str, torch.Tensor], pos, cfg
+                        cache: Dict[str, torch.Tensor], pos, cfg, tp=None,
+                        seq_names=(), seq_len: int = 0
                         ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """h (B,1,d); cache {'k','v'[,'k_scale','v_scale']} (L,B,Smax,...),
     written in place; `pos` one position (scalar) or one a row (B,). A
@@ -223,7 +244,9 @@ def decoder_decode_step(p: Dict[str, torch.Tensor], h: torch.Tensor,
     cache (the reference's window of 2^30). With one position a row, each
     row is also its own batch in an MoE block's routing (the engine's
     slots are the reference's vmapped batch-1 decodes), so no row's token
-    is dropped for another's. Returns (h, cache)."""
+    is dropped for another's. Over a model group `tp` the cache is the
+    rank's block (``layers.decode_self_attention``'s `seq_names` and
+    `seq_len`). Returns (h, cache)."""
     lp = {k: v.unbind(0) for k, v in _layer_tree(p).items()}
     layers = {k: v.unbind(0) for k, v in cache.items()}
     local = cfg.local_layer_mask()
@@ -239,7 +262,8 @@ def decoder_decode_step(p: Dict[str, torch.Tensor], h: torch.Tensor,
             layer_p, "attn", attn_in, cfg, k_cache=layers["k"][i],
             v_cache=layers["v"][i], pos=pos, window=window,
             k_scale=layers["k_scale"][i] if "k_scale" in layers else None,
-            v_scale=layers["v_scale"][i] if "v_scale" in layers else None)
+            v_scale=layers["v_scale"][i] if "v_scale" in layers else None,
+            tp=tp, seq_names=seq_names, seq_len=seq_len)
         ffn_in = L.rms_norm(h, layer_p["norm2_scale"], cfg.norm_eps)
-        h = h + _ffn(layer_p, ffn_in, cfg, min_capacity)
+        h = h + _ffn(layer_p, ffn_in, cfg, min_capacity, tp=tp)
     return h, cache

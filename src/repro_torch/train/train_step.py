@@ -141,6 +141,7 @@ from repro_torch.configs.base import (ModelConfig, MomentumMode, TrainConfig,
                                       VoteStrategy)
 from repro_torch.core import byzantine, majority_vote, signum
 from repro_torch.core import vote_plan as vp
+from repro_torch.core.codecs.base import LeafShare
 from repro_torch.core.vote_engine import resolve_strategy
 from repro_torch.distributed import mesh as pm
 from repro_torch.distributed import sharding as shd
@@ -172,6 +173,10 @@ class StepArtifacts:
     #: this rank's data index and the data size (slices of fused leaves)
     data_index: int = 0
     data_size: int = 1
+    #: this rank's mesh coordinates and the mesh's axis sizes (the blocks
+    #: of ``param_specs`` it holds; empty for the stacked step)
+    mesh_coords: Dict[str, int] = dataclasses.field(default_factory=dict)
+    mesh_sizes: Dict[str, int] = dataclasses.field(default_factory=dict)
 
     @property
     def fused_leaves(self) -> Tuple[str, ...]:
@@ -225,7 +230,8 @@ def voter_grads(cfg: ModelConfig, tcfg: TrainConfig,
                 hook=None,
                 on_fused: Optional[Callable[[int, str, torch.Tensor],
                                             None]] = None,
-                extras: Optional[Dict[str, torch.Tensor]] = None
+                extras: Optional[Dict[str, torch.Tensor]] = None,
+                tp=None
                 ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
     """One voter's gradients of every leaf on its rows `tokens` (and, for
     the VLM and the encoder-decoder, the same rows of each tensor of
@@ -241,7 +247,8 @@ def voter_grads(cfg: ModelConfig, tcfg: TrainConfig,
     whose "gradients" are this rank's slices of the votes);
     `on_fused(i, name, g)`, when given, takes microbatch i's gradient of
     each leaf it names (``on_fused.leaves``) instead of the accumulator
-    (the stacked step's virtual fused vote)."""
+    (the stacked step's virtual fused vote). Over a model group `tp` the
+    loss is tensor-parallel and the gradients are the rank's slices'."""
     micro = tcfg.microbatches
     rows = tokens.shape[0] // micro
     taken = getattr(on_fused, "leaves", ())
@@ -267,7 +274,8 @@ def voter_grads(cfg: ModelConfig, tcfg: TrainConfig,
         mb = {"tokens": tokens[i * rows:(i + 1) * rows]}
         for k, v in (extras or {}).items():
             mb[k] = v[i * rows:(i + 1) * rows]
-        loss, met = M.loss_fn(cfg, leaves, mb, hook=hook, remat=tcfg.remat)
+        loss, met = M.loss_fn(cfg, leaves, mb, hook=hook, remat=tcfg.remat,
+                              tp=tp)
         for k, leaf in leaves.items():
             leaf.register_post_accumulate_grad_hook(folder(i, k))
         torch.autograd.backward(loss, inputs=list(leaves.values()))
@@ -357,6 +365,10 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, n_voters: int = 1,
     (`n_voters` must then be 1 or that size)."""
     dev = resolve_device(device)
     axes = None
+    model = 1 if mesh is None else mesh.model
+    tp = mesh if model > 1 else None
+    if tp is not None:
+        _check_model_axis(cfg, tcfg, model)
     if mesh is not None:
         if n_voters not in (1, mesh.size):
             raise ValueError(f"n_voters={n_voters} on a mesh of "
@@ -376,8 +388,10 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, n_voters: int = 1,
                                 data, pod, codec=opt_cfg.resolved_codec)
     if resolved != opt_cfg.vote_strategy:
         opt_cfg = dataclasses.replace(opt_cfg, vote_strategy=resolved)
-    specs = shd.param_specs(shapes, fsdp=tcfg.fsdp,
-                            mesh_shape={"pod": pod, "data": data})
+    sizes = {"pod": pod, "data": data, "model": model}
+    specs = shd.param_specs(shapes, fsdp=tcfg.fsdp, mesh_shape=sizes)
+    shares = ({k: LeafShare(mesh, "model" in spec) for k, spec in
+               specs.items()} if tp is not None else None)
     # the reference's fused = fsdp and mesh is not None; M stacked voters
     # are the virtual mesh
     fused = tcfg.fsdp and (mesh is not None or n_voters > 1)
@@ -417,7 +431,8 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, n_voters: int = 1,
              else None)
     opt = signum.build_optimizer(opt_cfg, n_voters, plan, byz,
                                  tcfg.diagnostics, axes,
-                                 () if revote else tuple(dims), tiles)
+                                 () if revote else tuple(dims), tiles,
+                                 shares)
     hooks = (majority_vote.make_fsdp_hooks(dims, axes, vote=is_sign, byz=byz)
              if dims and axes is not None else None)
     resolved = opt.strategy
@@ -453,7 +468,7 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, n_voters: int = 1,
                 cfg, tcfg, params, tokens[r * per:(r + 1) * per],
                 hook=hooks, on_fused=stacked,
                 extras={k: v[r * per:(r + 1) * per]
-                        for k, v in extras.items()})
+                        for k, v in extras.items()}, tp=tp)
             if hooks is not None and not revote:
                 wire["voted"] = {k: grads.pop(k) for k in dims}
             opt.encode(r, grads, opt_state, wire)
@@ -492,7 +507,26 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, n_voters: int = 1,
                          param_specs=specs, fused_dims=dims,
                          data_index=(0 if mesh is None
                                      else mesh.axis_index("data")),
-                         data_size=data)
+                         data_size=data,
+                         mesh_coords=({} if mesh is None
+                                      else dict(mesh.coords)),
+                         mesh_sizes={} if mesh is None else sizes)
+
+
+def _check_model_axis(cfg: ModelConfig, tcfg: TrainConfig,
+                      model: int) -> None:
+    """Raise ``NotImplementedError`` (ROADMAP.md Queue 1 item 15) for what
+    the port does not yet run over a model axis of `model` ranks: an arch
+    other than the dense decoder-only ones, a stochastic or adaptive
+    adversary (at any M; the optimizer refuses a VotePlan there)."""
+    M.check_model_axis(cfg, model)
+    byz = tcfg.byzantine
+    if byz.num_adversaries and (byz.mode in byzantine.STOCHASTIC_MODES
+                                or byz.mode in byzantine.ATTACK_MODES):
+        raise NotImplementedError(
+            f"the {byz.mode!r} adversary over a 'model' axis of {model} is "
+            f"not ported yet ({M.ITEM_15}): its draws would have to be "
+            "taken at each shard's global coordinates")
 
 
 def materialize_state(cfg: ModelConfig, tcfg: TrainConfig,
@@ -515,7 +549,10 @@ def materialize_state(cfg: ModelConfig, tcfg: TrainConfig,
     Over a mesh with fused leaves (``fsdp``) each fused leaf is this rank's
     slice (``art.data_index`` of ``art.data_size`` along its FSDP dim),
     drawn whole and cut leaf by leaf, so every rank holds the slices of the
-    same full parameters; the state follows the parameters' shapes. Mode A
+    same full parameters; the state follows the parameters' shapes. Over a
+    model axis each leaf is the block its spec gives this rank (its
+    ``"model"`` dim cut by the model index, its ``"data"`` dim under fsdp
+    by the data index). Mode A
     with momentum under fsdp raises here, as the reference's does: its
     per-worker momentum would be sharded over ``"data"`` twice."""
     dev = art.device if device is None else resolve_device(device)
@@ -526,9 +563,10 @@ def materialize_state(cfg: ModelConfig, tcfg: TrainConfig,
         for k in art.fused_dims:
             shd.check_spec((lead,) + tuple(art.param_specs[k]))
     shard = None
-    if art.vote_axes and art.fused_dims:
+    if art.mesh_sizes and (art.fused_dims
+                           or art.mesh_sizes.get("model", 1) > 1):
         def shard(name: str, t: torch.Tensor) -> torch.Tensor:
-            return shd.shard_tree({name: t}, art.fused_dims, art.data_index,
-                                  art.data_size)[name].clone()
+            return shd.shard_leaf(t, art.param_specs[name], art.mesh_coords,
+                                  art.mesh_sizes).clone()
     params = M.init_params(cfg, generator, dev, shard=shard)
     return params, art.optimizer.init(params)

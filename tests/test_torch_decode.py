@@ -512,11 +512,19 @@ def test_rehome_decode_continues_correctly():
 
 
 def test_serve_steps_refuse_a_model_axis():
+    # the dense decoder-only archs serve over a model axis; the MoE, SSM,
+    # hybrid and audio archs refuse, naming the ROADMAP item that brings
+    # them
+    from repro_torch.distributed.mesh import ProcessMesh
+    from torch_tp_common import assert_serve_builds_and_refusals, fake_world
     _, tc = _cfgs("glm4-9b")
-    for make in (tSS.make_decode_step, tSS.make_prefill):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
-            make(tc, mesh_shape={"data": 2, "model": 4})
-        make(tc, mesh_shape={"data": 2, "model": 1})
+    with fake_world(8):
+        assert_serve_builds_and_refusals(ProcessMesh((2, 4),
+                                                     ("data", "model")))
+        for make in (tSS.make_decode_step, tSS.make_prefill):
+            # a mesh without a model axis serves as on one device
+            make(tc, mesh=ProcessMesh((2,), ("data",)), **(
+                {"max_len": 64} if make is tSS.make_decode_step else {}))
 
 
 # ---------------------------------------------------------------------------

@@ -129,6 +129,18 @@ def test_param_specs_equal_the_reference(arch, fsdp, data):
     assert bool(fused) == (fsdp and (data == 4 or arch in (
         "gemma3-12b", "whisper-tiny")))
     assert all(not k.startswith(("embed", "unembed")) for k in fused)
+    # over a model axis too (tensor parallelism): model 2, 4, 8 and 16
+    # beside this data size, and the production (pod 2, data 16, model 16)
+    # mesh
+    meshes = [{"data": data, "model": m} for m in (2, 4, 8, 16)]
+    if data == 4:
+        meshes.append({"pod": 2, "data": 16, "model": 16})
+    for mesh in meshes:
+        want = jshd.param_specs(shapes, fsdp=fsdp, mesh_shape=mesh)
+        got = tshd.param_specs(shapes, fsdp=fsdp, mesh_shape=mesh)
+        assert list(got) == list(want)
+        for k, spec in want.items():
+            assert got[k] == tuple(spec), (mesh, k)
 
 
 def test_shards_join_back_and_model_axis_raises():
@@ -143,9 +155,29 @@ def test_shards_join_back_and_model_axis_raises():
         back = tshd.join_shards(parts, dims)
         for k in tree:
             np.testing.assert_array_equal(np.asarray(back[k]), tree[k])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
-        tshd.param_specs({"a": (4,)}, fsdp=True,
-                         mesh_shape={"data": 2, "model": 2})
+    # a model axis places leaves: the specs build, the blocks of every dim
+    # a spec names join back, and the train step builds for the dense archs
+    # (the rest refuse, naming item 15)
+    assert tshd.param_specs({"a": (4,)}, fsdp=True,
+                            mesh_shape={"data": 2, "model": 2}) == {
+        "a": (None,)}
+    specs = {"layers.attn_wo": (None, "model", "data"),
+             "embed.table": (None, "model")}
+    sizes = {"data": 2, "model": 2}
+    for make in (np.asarray, torch.from_numpy):
+        t = {k: make(v) for k, v in tree.items()}
+        parts = [tshd.shard_tree(t, specs, coords={"data": d, "model": m},
+                                 sizes=sizes)
+                 for d in range(2) for m in range(2)]
+        assert tuple(parts[3]["layers.attn_wo"].shape) == (2, 4, 6)
+        back = tshd.join_shards(parts, specs, sizes=sizes)
+        for k in tree:
+            np.testing.assert_array_equal(np.asarray(back[k]), tree[k])
+    from repro_torch.distributed.mesh import ProcessMesh
+    from torch_tp_common import assert_train_builds_and_refusals, fake_world
+    with fake_world(8, rank=5):
+        assert_train_builds_and_refusals(ProcessMesh((4, 2),
+                                                     ("data", "model")))
 
 
 # ---------------------------------------------------------------------------

@@ -463,8 +463,15 @@ def test_backends_refuse_with_the_reference_reasons():
         device="cpu").why_unsupported(leaf)
     with pytest.raises(ValueError, match="must be bound to their"):
         tva.MeshBackend(axes=("data",), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
+    # a model axis needs its ranks (one world rank here); over a world of
+    # 8 the dense archs' train step builds on (data 4, model 2) and the
+    # rest refuse, naming the ROADMAP item that brings them
+    with pytest.raises(ValueError, match="the world has 1"):
         tmesh.ProcessMesh((1, 2), ("data", "model"))
+    from torch_tp_common import assert_train_builds_and_refusals, fake_world
+    with fake_world(8, rank=2):
+        assert_train_builds_and_refusals(tmesh.ProcessMesh(
+            (4, 2), ("data", "model")))
     # the fused ZeRO backward runs since the thirteenth slice: on a
     # one-rank mesh its gather is the identity and its backward the sign
     # of the gradient (ties 0), the dense form the gradient itself

@@ -41,6 +41,31 @@ e. fsdp (run alone, by ``tests/test_torch_fsdp.py``: ``... <scratch>
    the port's stacked step (computed on the other 4 ranks); the dense sgd
    within its mean's rounding bound.
 
+f. tp (run alone, by ``tests/test_torch_tensor_parallel.py``: ``...
+   <scratch> tp``): tensor parallelism over a ``"model"`` axis on a (data
+   4, model 2), a (data 2, model 4) and a (model 8) mesh of the 8 ranks,
+   the reduced glm4-9b in float32 (4 heads, 2 kv heads: the grouped,
+   repeat and seq attention forms in turn), 2 steps of each configuration
+   (Mode A on the four codecs and three wires, Mode B with fsdp, sgd,
+   ``delayed_vote``, ``sign_flip`` with the diagnostics; then qwen1.5-32b,
+   deepseek-67b, gemma3-12b and pixtral-12b, reduced), held to the
+   port's stacked step of the mesh's voters computed on every rank: the
+   losses within rtol 1e-5, each rank's momentum within the families'
+   float32 tolerance of its block of the twin's, the parameters equal
+   within float32 rounding except where a vote flipped, and every flip at
+   a coordinate some voter's |m'| puts under TP_FLIP_FRACTION of its
+   leaf's largest (the flips counted in the record); replicated leaves
+   bit-equal over each model group; every rank's model-group bytes of a
+   step equal to ``chip_smoke.tp_bytes``; the serving layouts of the five
+   archs held to the single-device decode. With ``tp_reference_start.npz``
+   in the
+   scratch directory the (data 4, model 2) mesh also takes one Mode A
+   step from that state and batch and writes each rank's blocks
+   (``tp_step_rank<r>.npz``); with ``tp_decode_start.npz`` a (model 4)
+   mesh of the first 4 ranks prefills and decodes from it through
+   ``serve_step`` and writes its logits and cache blocks
+   (``tp_decode_rank<r>.npz``).
+
 Rank 0 writes what the mesh gave, with the inputs it was given, to
 ``<scratch dir>/mesh_record.pkl`` (numpy and plain Python only), so that
 ``tests/test_torch_mesh.py`` holds it against the reference on the same
@@ -906,10 +931,432 @@ def check_fsdp(rank):
     check_fsdp_trainer(rank)
 
 
+# ---------------------------------------------------------------------------
+# f. tensor parallelism over a "model" axis
+# ---------------------------------------------------------------------------
+
+#: the tp check's meshes, built by every rank in this order
+TP_MESHES = (("d4m2", (4, 2), ("data", "model")),
+             ("d2m4", (2, 4), ("data", "model")),
+             ("m8", (8,), ("model",)))
+#: a vote may flip only where some voter's |m'| is under this fraction of
+#: its leaf's largest |m'| (float32: the TP sums' rounding moves m' by a
+#: few ulps)
+TP_FLIP_FRACTION = 1e-4
+#: the families' float32 tolerance (tests/torch_family_common.py); with
+#: microbatches the sign family's accumulator is bf16, which a few ulps of
+#: float32 may round to a neighbour, and whose sum may cancel: one bf16
+#: ulp (2^-7) of the value and of the leaf's largest there
+F32_RTOL, F32_ATOL_REL, BF16_ACC_RTOL = 1e-4, 2e-5, 2.0 ** -7
+#: the largest share of a leaf's coordinates whose vote may flip where no
+#: per-voter momentum tells how close it was (Mode B, beta = 0)
+TP_FLIP_SHARE = 1e-3
+TP_GB, TP_SEQ = 8, 16
+
+
+def _tp_cfgs():
+    from repro_torch.configs import base
+    S = base.VoteStrategy
+
+    def opt(**kw):
+        d = dict(kind="signum_vote", learning_rate=1e-3, momentum=0.9,
+                 vote_strategy=S.ALLGATHER_1BIT)
+        d.update(kw)
+        return base.OptimizerConfig(**d)
+    flip = base.ByzantineConfig(mode="sign_flip", num_adversaries=1)
+    mode_b = opt(kind="signsgd_vote", momentum_mode=base.MomentumMode.GLOBAL,
+                 vote_strategy=S.HIERARCHICAL)
+    # (label, mesh, optimizer, train options)
+    return [
+        ("sign1bit_grouped", "d4m2", opt(), {}),
+        ("sign1bit_repeat", "d2m4", opt(), {}),
+        ("sign1bit_seq", "m8", opt(), {}),
+        ("psum_int8", "d4m2", opt(vote_strategy=S.PSUM_INT8), {}),
+        ("hierarchical_repeat", "d2m4", opt(vote_strategy=S.HIERARCHICAL),
+         {"microbatches": 2}),
+        ("ternary2bit", "d2m4", opt(codec="ternary2bit"), {}),
+        ("ef_sign", "d4m2", opt(codec="ef_sign"), {}),
+        ("weighted_vote", "d2m4", opt(codec="weighted_vote"), {}),
+        ("signsgd_seq", "m8", opt(kind="signsgd_vote", momentum=0.0,
+                                  vote_strategy=S.PSUM_INT8), {}),
+        ("delayed_vote", "d2m4", opt(delayed_vote=True), {}),
+        ("sign_flip_diag", "d4m2", opt(), {"diagnostics": True,
+                                           "byzantine": flip}),
+        ("mode_b_fsdp", "d4m2", mode_b, {"fsdp": True, "microbatches": 2,
+                                         "remat": "full"}),
+        ("sgd", "d2m4", opt(kind="sgd", learning_rate=1e-2), {}),
+        # the other dense decoder-only archs (gemma3: windows and a tied
+        # table; pixtral: a patch prefix)
+        ("qwen1p5", "d4m2", opt(), {"arch": "qwen1.5-32b"}),
+        ("deepseek", "d2m4", opt(), {"arch": "deepseek-67b"}),
+        ("gemma3", "d2m4", opt(), {"arch": "gemma3-12b"}),
+        ("pixtral", "m8", opt(), {"arch": "pixtral-12b"}),
+    ]
+
+
+def _tp_pair(opt, extra):
+    from repro_torch.configs import base
+    extra = dict(extra)
+    cfg = dataclasses.replace(base.reduced_config(base.get_config(
+        extra.pop("arch", "glm4-9b"))), dtype="float32")
+    tcfg = base.TrainConfig(global_batch=TP_GB, seq_len=TP_SEQ,
+                            optimizer=opt, **extra)
+    return cfg, tcfg
+
+
+def _close(what, got, want, rtol, atol):
+    if got.shape != want.shape or not torch.allclose(got, want, rtol=rtol,
+                                                     atol=atol):
+        diff = float((got - want).abs().max()) if got.shape == want.shape \
+            else None
+        raise AssertionError(f"{what}: differs by {diff} (rtol {rtol}, "
+                             f"atol {atol})")
+
+
+def tp_bytes(cfg, tcfg, mesh) -> int:
+    """``chip_smoke.tp_bytes``: a step's model-group bytes, counted from
+    the layout (the card's phase 19 holds its ranks to the same count)."""
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__))))
+    import chip_smoke
+    return chip_smoke.tp_bytes(cfg, tcfg, mesh)
+
+
+def _tp_join(art, tcfg, mesh, params, state):
+    """The stacked twin's (params, state) joined from every rank's blocks
+    of a tensor-parallel step's: the parameters, a Mode B momentum and the
+    banked votes over the whole mesh, each voter's Mode A momentum and
+    residual over its model ranks, stacked in voter order."""
+    from repro_torch.core import signum
+    from repro_torch.distributed import sharding as shd
+    mine = {"params": params, **{k: state[k] for k in (
+        "momentum", "error", "delayed") if k in state}}
+    every = [None] * WORLD
+    dist.all_gather_object(every, {k: {n: t.clone() for n, t in v.items()}
+                                   for k, v in mine.items()})
+    trees = [every[r] for r in mesh.ranks]
+    specs, sizes = art.param_specs, art.mesh_sizes
+    full = shd.join_shards([t["params"] for t in trees], specs, sizes=sizes)
+    out = {"count": state["count"]}
+    if "codec" in state:
+        out["codec"] = {k: v.clone() for k, v in state["codec"].items()}
+    for key in ("momentum", "error", "delayed"):
+        if key not in mine:
+            continue
+        # Mode B's momentum and the banked votes are leaf-shaped; Mode A's
+        # momentum and the residual one row per voter
+        leaf_shaped = key == "delayed" or (
+            key == "momentum" and not signum.per_worker(tcfg.optimizer))
+        if leaf_shaped:
+            out[key] = shd.join_shards([t[key] for t in trees], specs,
+                                       sizes=sizes)
+            continue
+        rows = []
+        for v in range(mesh.size):
+            voter = [trees[v * mesh.model + m][key]
+                     for m in range(mesh.model)]
+            rows.append(shd.join_shards(voter, specs,
+                                        sizes={"model": mesh.model}))
+        out[key] = {k: torch.stack([r[k] for r in rows])
+                    for k in rows[0]}
+    return full, out
+
+
+def _flippable(twin_state, twin_params, k, error0):
+    """The coordinates of leaf k where some voter's vote input (the
+    twin's m', or ef_sign's t = e + m' from the step's start residual
+    `error0`) is under TP_FLIP_FRACTION of the leaf's largest (None
+    without a per-voter momentum)."""
+    m = twin_state.get("momentum", {}).get(k)
+    if m is None or m.dim() == twin_params[k].dim():
+        return None
+    if k in error0:
+        m = m.float() + error0[k].float()
+    a = m.abs().float()
+    return (a < TP_FLIP_FRACTION * a.max()).any(dim=0)
+
+
+def check_tp(rank):
+    from repro_torch.core import signum
+    from repro_torch.data.pipeline import SyntheticLMPipeline
+    from repro_torch.distributed import mesh as pm
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed.mesh import ProcessMesh
+    from repro_torch.train import train_step as TS
+    meshes = {name: ProcessMesh(shape, axes)
+              for name, shape, axes in TP_MESHES}
+    # a float sum over more than two ranks by blocks (an all-to-all) is the
+    # gathered parts' sum bit for bit
+    gen = torch.Generator().manual_seed(rank)
+    x = torch.randn(1000, generator=gen).to(torch.bfloat16)
+    whole = pm.model_sum(x, meshes["m8"])
+    pm.A2A_MIN_BYTES, default = 0, pm.A2A_MIN_BYTES
+    try:
+        _eq("model_sum by blocks", pm.model_sum(x, meshes["m8"]).view(
+            torch.int16), whole.view(torch.int16))
+    finally:
+        pm.A2A_MIN_BYTES = default
+    flips = {}
+    # the training runs sum by blocks wherever a line has more than two
+    # ranks (the card's prefill sizes do; these small ones would not)
+    pm.A2A_MIN_BYTES = 0
+    for label, mname, opt, extra in _tp_cfgs():
+        mesh = meshes[mname]
+        cfg, tcfg = _tp_pair(opt, extra)
+        twin = TS.make_train_step(cfg, tcfg, mesh.size, device="cpu")
+        art = TS.make_train_step(cfg, tcfg, device="cpu", mesh=mesh)
+        params, state = TS.materialize_state(
+            cfg, tcfg, art, torch.Generator().manual_seed(0))
+        pipe = SyntheticLMPipeline(cfg, tcfg.global_batch, TP_SEQ, seed=0)
+        coords, sizes = art.mesh_coords, art.mesh_sizes
+        voter = mesh.replica_index()
+        n_flips = 0
+        for step in range(STEPS):
+            # each step from one start: the twin takes the mesh's state
+            tparams, tstate = _tp_join(art, tcfg, mesh, params, state)
+            error0 = {k: v.clone() for k, v in tstate.get("error",
+                                                         {}).items()}
+            batch = {"tokens": pipe.global_batch_at(step)["tokens"]}
+            if cfg.family.value == "vlm":   # a seeded patch prefix
+                batch["patch_embeds"] = torch.randn(
+                    (tcfg.global_batch, 4, cfg.d_model),
+                    generator=torch.Generator().manual_seed(step))
+            mesh.reset_stats()
+            params, state, met = art.step_fn(params, state, batch, step)
+            tparams, tstate, tmet = twin.step_fn(tparams, tstate, batch,
+                                                 step)
+            # the model group's bytes, counted from the layout
+            if mesh.model_stats.bytes != tp_bytes(cfg, tcfg, mesh):
+                raise AssertionError(
+                    f"tp {label} step {step}: the model group took "
+                    f"{mesh.model_stats.bytes} bytes, the layout's count "
+                    f"is {tp_bytes(cfg, tcfg, mesh)}")
+            for key in ("loss", "ce", "vote_agreement", "vote_margin"):
+                if key in tmet:
+                    got, exp = float(met[key]), float(tmet[key])
+                    if abs(got - exp) > 1e-5 * abs(exp) + (
+                            0 if key in ("loss", "ce") else 1e-3):
+                        raise AssertionError(f"tp {label} step {step}: "
+                                             f"{key} {got} != twin {exp}")
+            for k, p in params.items():
+                spec = art.param_specs[k]
+
+                def blk(t):
+                    return shd.shard_leaf(t, spec, coords, sizes)
+                w = blk(tparams[k])
+                bad = ~torch.isclose(p, w, rtol=1e-5, atol=1e-6)
+                n_bad = int(bad.sum())
+                fl = _flippable(tstate, tparams, k, error0)
+                if n_bad and fl is not None:
+                    lost = bad & ~blk(fl)
+                    if bool(lost.any()):
+                        raise AssertionError(
+                            f"tp {label} step {step} {k}: "
+                            f"{int(lost.sum())} coordinates differ where "
+                            "no voter's |m'| was near zero")
+                elif n_bad > TP_FLIP_SHARE * p.numel():
+                    raise AssertionError(
+                        f"tp {label} step {step} {k}: {n_bad} of "
+                        f"{p.numel()} coordinates differ")
+                n_flips += n_bad
+                for key in ("momentum", "error"):
+                    if k not in state.get(key, {}):
+                        continue
+                    t = tstate[key][k]
+                    t = t[voter] if t.dim() > tparams[k].dim() else t
+                    t = blk(t).float()
+                    g = state[key][k].float()
+                    acc = tcfg.microbatches > 1
+                    rtol = BF16_ACC_RTOL if acc else F32_RTOL
+                    ok = torch.isclose(g, t, rtol=rtol, atol=max(
+                        1e-6, (BF16_ACC_RTOL if acc else F32_ATOL_REL)
+                        * float(t.abs().max())))
+                    # a flipped vote moves the residual (Mode B: the
+                    # momentum) at its coordinate
+                    ok |= bad.view(ok.shape)
+                    if not bool(ok.all()):
+                        raise AssertionError(
+                            f"tp {label} step {step} {key} {k}: "
+                            f"{int((~ok).sum())} coordinates out of the "
+                            f"families' tolerance: {g[~ok][:4].tolist()} "
+                            f"against {t[~ok][:4].tolist()} (largest "
+                            f"{float(t.abs().max())})")
+            # replicated leaves bit-equal over the model group
+            for k, p in params.items():
+                if "model" in art.param_specs[k] or mesh.model == 1:
+                    continue
+                every = pm.model_gather(p.reshape(1, -1), mesh, dim=0)
+                if not bool((every == p.reshape(1, -1)).all()):
+                    raise AssertionError(f"tp {label} step {step}: "
+                                         f"replicated {k} differs over the "
+                                         "model group")
+        flips[label] = n_flips
+    pm.A2A_MIN_BYTES = default
+    every = [None] * WORLD
+    dist.all_gather_object(every, flips)
+    if rank == 0:
+        RECORD["tp_flips"] = every
+    # the vote API's AUTO prices the global payload: a rank's shard times
+    # the model ranks
+    from repro_torch.core import vote_api as va
+    for mesh in meshes.values():
+        if va.global_numel(203, mesh.vote_axes) != 203 * mesh.model:
+            raise AssertionError(f"AUTO's size over {mesh!r}")
+    check_tp_serve(rank, meshes)
+    tp_reference_step(rank, meshes["d4m2"])
+    tp_reference_decode(rank)
+
+
+def tp_reference_step(rank, mesh):
+    """One (data 4, model 2) Mode A step from the reference's start state
+    and batch (``tp_reference_start.npz``): each rank writes its blocks of
+    the parameters and momentum, and its loss, to ``tp_step_rank<r>.npz``."""
+    from repro_torch.configs import base
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import model as tM
+    from repro_torch.train import train_step as TS
+    path = os.path.join(SCRATCH, "tp_reference_start.npz")
+    if not os.path.exists(path):
+        return
+    with np.load(path) as z:
+        start = {k[2:]: z[k] for k in z.files if k.startswith("p/")}
+        tokens = z["tokens"]
+    opt = base.OptimizerConfig(kind="signum_vote", learning_rate=REF_LR,
+                               momentum=REF_BETA,
+                               vote_strategy=base.VoteStrategy.ALLGATHER_1BIT)
+    cfg = dataclasses.replace(base.reduced_config(base.get_config(
+        "glm4-9b")), dtype="float32")
+    tcfg = base.TrainConfig(global_batch=REF_GB, seq_len=REF_SEQ,
+                            optimizer=opt)
+    art = TS.make_train_step(cfg, tcfg, device="cpu", mesh=mesh)
+    mine = shd.shard_tree(start, art.param_specs, coords=art.mesh_coords,
+                          sizes=art.mesh_sizes)
+    params = tM.params_from_numpy(mine, device="cpu")
+    state = art.optimizer.init(params)
+    params, state, met = art.step_fn(params, state, {"tokens": tokens}, 0)
+    np.savez(os.path.join(SCRATCH, f"tp_step_rank{rank}.npz"),
+             loss=np.float64(met["loss"]),
+             **{"p/" + k: v.numpy() for k, v in params.items()},
+             **{"m/" + k: v.float().numpy()
+                for k, v in state["momentum"].items()})
+
+
+def tp_reference_decode(rank):
+    """Prefill and decode on a (model 4) mesh of the first 4 ranks from
+    ``tp_decode_start[_int8].npz`` (parameters, prompt tokens, the decode
+    length and the ticks' tokens): each rank writes the prefill's and each
+    tick's logits, the decode paths its layers took and its cache blocks
+    to ``tp_decode_rank<r>[_int8].npz``."""
+    from repro_torch.distributed.mesh import ProcessMesh
+    mesh = ProcessMesh((4,), ("model",))
+    for suffix in ("", "_int8"):
+        path = os.path.join(SCRATCH, f"tp_decode_start{suffix}.npz")
+        if not mesh.member or not os.path.exists(path):
+            continue
+        with np.load(path) as z:
+            start = {k[2:]: z[k] for k in z.files if k.startswith("p/")}
+            prompt, ticks = z["prompt"], z["ticks"]
+            max_len, kv_dtype = int(z["max_len"]), str(z["kv_dtype"])
+        out, cache = _serve_run(mesh, start, prompt, ticks, max_len,
+                                kv_dtype)
+        out["paths"] = np.array([f"{k}={v}" for k, v in out["paths"]])
+        np.savez(os.path.join(SCRATCH, f"tp_decode_rank{rank}{suffix}.npz"),
+                 **out, **{"c/" + k: v.float().numpy()
+                           for k, v in cache.items()})
+
+
+def _serve_run(mesh, start, prompt, ticks, max_len, kv_dtype,
+               arch="glm4-9b"):
+    """The port's prefill, re-home and teacher-forced ticks over `mesh`
+    (`start` the full numpy parameters, cut to the rank's blocks):
+    ({"prefill", "tick<i>": logits, "paths": the decode paths' counts},
+    the cache blocks)."""
+    from repro_torch.configs import base
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import layers as tL
+    from repro_torch.models import model as tM
+    from repro_torch.train import serve_step as SS
+    cfg = dataclasses.replace(base.reduced_config(base.get_config(arch)),
+                              dtype="float32", kv_cache_dtype=kv_dtype)
+    specs = SS.serve_param_shardings(cfg, mesh, fsdp=False)
+    params = tM.params_from_numpy(shd.shard_tree(
+        start, specs, coords=mesh.coords, sizes=mesh.axis_sizes),
+        device="cpu")
+    B, S = prompt.shape
+    logits, cache = SS.make_prefill(cfg, mesh=mesh)(
+        params, {"tokens": torch.as_tensor(prompt)})
+    cache = SS.make_cache_rehome(cfg, B, max_len, mesh=mesh)(cache, S)
+    step = SS.make_decode_step(cfg, mesh=mesh, max_len=max_len)
+    out = {"prefill": SS.gather_vocab(logits, mesh).numpy()}
+    tL.reset_decode_paths()
+    for i, tok in enumerate(ticks):
+        lg, cache = step(params, torch.as_tensor(tok)[:, None], cache,
+                         S + i)
+        out[f"tick{i}"] = lg.numpy()
+    out["paths"] = sorted(tL.reset_decode_paths().items())
+    return out, cache
+
+
+#: the serving layouts held to the single-device decode on the 8 ranks:
+#: (mesh, batch, cache rows, the decode path every layer must take, arch)
+TP_SERVE = (("d2m4", 1, 64, "sharded_short", "glm4-9b"),  # (data, model)
+            ("d2m4", 2, 64, "sharded_short", "glm4-9b"),  # batch, seq
+            ("d2m4", 1, 8192, "flash_sharded", "glm4-9b"),
+            ("d4m2", 4, 64, "heads", "glm4-9b"),          # batch, heads
+            ("d4m2", 4, 64, "heads", "qwen1.5-32b"),
+            ("d2m4", 2, 64, "sharded_short", "deepseek-67b"),
+            ("d2m4", 2, 64, "sharded_short", "gemma3-12b"),
+            ("d2m4", 2, 64, "sharded_short", "pixtral-12b"))
+
+
+def check_tp_serve(rank, meshes):
+    """Each TP_SERVE layout's prefill, re-home and 3 ticks (a float32 and
+    an int8 cache) against the single-device steps on the same
+    parameters: logits within rtol / atol 1e-4 (the int8 cache: 2e-2, its
+    products run in bf16 and each shard's partial rounds to bf16 on its
+    own), greedy tokens equal, every layer on the named decode path."""
+    from repro_torch.configs import base
+    from repro_torch.models import model as tM
+    from repro_torch.train import serve_step as SS
+    for kv in ("bfloat16", "int8"):
+        for mname, B, T, path, arch in TP_SERVE:
+            cfg = dataclasses.replace(base.reduced_config(base.get_config(
+                arch)), dtype="float32", kv_cache_dtype=kv)
+            full = tM.init_params(cfg, torch.Generator().manual_seed(5),
+                                  "cpu")
+            start = {k: v.numpy() for k, v in full.items()}
+            rng = np.random.default_rng(B * 100 + T)
+            S = 12
+            prompt = rng.integers(0, cfg.vocab_size, (B, S))
+            ticks = rng.integers(0, cfg.vocab_size, (3, B))
+            lg, cache = SS.make_prefill(cfg)(full, {"tokens": torch.as_tensor(
+                prompt)})
+            cache = SS.make_cache_rehome(cfg, B, T)(cache)
+            step = SS.make_decode_step(cfg)
+            want = {"prefill": lg}
+            for i, tok in enumerate(ticks):
+                want[f"tick{i}"], cache = step(full, torch.as_tensor(tok)[
+                    :, None], cache, S + i)
+            got, _ = _serve_run(meshes[mname], start, prompt, ticks, T, kv,
+                                arch)
+            tol = 1e-4 if kv != "int8" else 2e-2
+            for key, w in want.items():
+                g = torch.as_tensor(got[key])
+                _close(f"serve {arch} {mname} B={B} T={T} {kv} {key}", g, w,
+                       rtol=tol, atol=tol)
+                if not torch.equal(g.argmax(-1), w.argmax(-1)):
+                    raise AssertionError(f"serve {arch} {mname} B={B} T={T} "
+                                         f"{kv} {key}: greedy tokens differ")
+            paths = dict(got["paths"])
+            if paths != {path: 3 * cfg.num_layers}:
+                raise AssertionError(f"serve {arch} {mname} B={B} T={T}: "
+                                     f"decode paths {paths}, expected {path}")
+
+
 CHECKS = (("votes", check_votes), ("plans", check_plans),
           ("trainer", check_trainer), ("drills", check_drills))
 #: checks run only when named on the command line
-NAMED_CHECKS = (("fsdp", check_fsdp),)
+NAMED_CHECKS = (("fsdp", check_fsdp), ("tp", check_tp))
 
 
 def worker(rank, scratch, names=None):

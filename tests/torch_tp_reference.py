@@ -1,0 +1,135 @@
+"""The reference's own model-axis paths on 8 fake CPU devices, run in a
+subprocess by ``tests/test_torch_tensor_parallel.py`` (not collected
+itself):
+
+    XLA_FLAGS=--xla_force_host_platform_device_count=8 \\
+        PYTHONPATH=src python tests/torch_tp_reference.py <scratch dir>
+
+1. ``make_train_step(cfg, tcfg, mesh)`` on a (data 4, model 2) mesh: one
+   Mode A ``sign1bit`` step (allgather_1bit, beta 0.9) of the reduced
+   glm4-9b in float32 from ``materialize_state`` and a batch of its own.
+   Writes the start parameters and the batch to ``tp_reference_start.npz``
+   (the port's harness steps from them) and the loss, parameters and each
+   voter's momentum to ``tp_reference_step.npz``.
+2. ``decode_step`` under a (data 1, model 4) mesh of the first 4 devices:
+   the reduced glm4-9b (2 kv heads: the cache is sequence-sharded) in
+   float32, a prompt prefilled and re-homed into a 4096-row cache (so
+   ``_should_flash_decode`` sends each layer to ``flash_decode_sharded``),
+   then 3 teacher-forced ticks, for a float32 and an int8 cache. Writes
+   the inputs to ``tp_decode_start[_int8].npz`` and the prefill's and each
+   tick's logits to ``tp_decode_ref[_int8].npz``.
+
+Prints ``OK <seconds>``.
+"""
+import dataclasses
+import os
+import sys
+import time
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+from jax.sharding import NamedSharding, PartitionSpec as P
+
+from repro import compat
+from repro.compat import AxisType
+from repro.configs.base import (OptimizerConfig, TrainConfig, VoteStrategy,
+                                get_config, reduced_config)
+from repro.models import layers as L
+from repro.models import model as M
+from repro.train import serve_step as SS
+from repro.train import train_step as TS
+
+#: the step's global batch, sequence, learning rate and beta (the port's
+#: harness reads the same constants)
+GB, SEQ, LR, BETA = 8, 64, 1e-3, 0.9
+#: the decode: prompt rows and length, the cache's rows, the ticks
+DEC_B, DEC_S, DEC_T, DEC_TICKS = 2, 12, 4096, 3
+
+
+def _np(tree):
+    return {k: np.asarray(v) for k, v in tree.items()}
+
+
+def train_step(scratch):
+    mesh = compat.make_mesh((4, 2), ("data", "model"),
+                            axis_types=(AxisType.Auto,) * 2)
+    cfg = dataclasses.replace(reduced_config(get_config("glm4-9b")),
+                              dtype="float32")
+    tcfg = TrainConfig(global_batch=GB, seq_len=SEQ, optimizer=OptimizerConfig(
+        kind="signum_vote", learning_rate=LR, momentum=BETA,
+        vote_strategy=VoteStrategy.ALLGATHER_1BIT))
+    art = TS.make_train_step(cfg, tcfg, mesh=mesh)
+    params, opt = TS.materialize_state(cfg, tcfg, art, jax.random.PRNGKey(0),
+                                       mesh)
+    batch = M.make_batch(cfg, GB, SEQ, jax.random.PRNGKey(1))
+    start = _np(params)
+    placed = jax.tree.map(lambda a: jax.device_put(
+        np.asarray(a), NamedSharding(mesh, P("data"))), batch)
+    new, state, met = art.step_fn(params, opt, placed, jnp.int32(0))
+    np.savez(os.path.join(scratch, "tp_reference_start.npz"),
+             tokens=np.asarray(batch["tokens"]),
+             **{"p/" + k: v for k, v in start.items()})
+    np.savez(os.path.join(scratch, "tp_reference_step.npz"),
+             loss=np.float64(met["loss"]),
+             **{"p/" + k: v for k, v in _np(new).items()},
+             **{"m/" + k: v for k, v in _np(state["momentum"]).items()})
+
+
+def decode(scratch, kv_dtype: str, suffix: str):
+    cfg = dataclasses.replace(reduced_config(get_config("glm4-9b")),
+                              dtype="float32", kv_cache_dtype=kv_dtype)
+    params = M.init_params(cfg, jax.random.PRNGKey(2))
+    rng = np.random.default_rng(3)
+    prompt = rng.integers(0, cfg.vocab_size, (DEC_B, DEC_S)).astype(np.int32)
+    ticks = rng.integers(0, cfg.vocab_size, (DEC_TICKS, DEC_B)).astype(
+        np.int32)
+    logits, cache = SS.make_prefill(cfg)(params, {"tokens": jnp.asarray(
+        prompt)})
+    cache = SS.make_cache_rehome(cfg, DEC_B, DEC_T)(cache)
+    mesh = compat.make_mesh((1, 4), ("data", "model"),
+                            axis_types=(AxisType.Auto,) * 2,
+                            devices=jax.devices()[:4])
+    sizes = dict(zip(mesh.axis_names, mesh.devices.shape))
+    assert L.KV_CHUNK <= DEC_T and cfg.num_kv_heads % 4
+    out = {"prefill": np.asarray(logits)}
+    taken = []
+    sharded = L.flash_decode_sharded
+
+    def counted(*a, **kw):   # traced once a layer: the gate's choice
+        taken.append(1)
+        return sharded(*a, **kw)
+    L.flash_decode_sharded = counted
+    with compat.set_mesh(mesh):
+        cache = {k: jax.device_put(v, NamedSharding(
+            mesh, SS.cache_leaf_spec(k, v.shape, sizes)))
+            for k, v in cache.items()}
+        step = SS.make_decode_step(cfg)
+        for i in range(DEC_TICKS):
+            lg, cache = step(params, jnp.asarray(ticks[i])[:, None], cache,
+                             jnp.int32(DEC_S + i))
+            out[f"tick{i}"] = np.asarray(lg)
+    L.flash_decode_sharded = sharded
+    assert taken, "the reference's decode never took flash_decode_sharded"
+    np.savez(os.path.join(scratch, f"tp_decode_start{suffix}.npz"),
+             prompt=prompt, ticks=ticks, max_len=np.int64(DEC_T),
+             kv_dtype=np.str_(kv_dtype),
+             **{"p/" + k: v for k, v in _np(params).items()})
+    np.savez(os.path.join(scratch, f"tp_decode_ref{suffix}.npz"), **out,
+             **{"c/" + k: np.asarray(v, np.float32)
+                for k, v in cache.items()})
+
+
+def main(argv) -> int:
+    scratch = os.path.abspath(argv[1] if len(argv) > 1 else ".")
+    t0 = time.perf_counter()
+    assert len(jax.devices()) == 8, jax.devices()
+    train_step(scratch)
+    decode(scratch, "bfloat16", "")
+    decode(scratch, "int8", "_int8")
+    print(f"OK {time.perf_counter() - t0:.1f}", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv))
