@@ -10,7 +10,8 @@ Builds the kernels, then phase 13 at full size: the streamed vote of
 coordinates in six configurations, one full chunk of each held against
 the plain versions, each at chunks of 1,024 and 512 rows (bit-equal), its
 ms, peak memory and counters, and the dense annotated form against the
-streamed form on 1,024 voters (13a); the adaptive presets, the fed-smoke
+streamed form on 1,024 voters (13a), two configurations' votes once more
+under torch.profiler (here only); the adaptive presets, the fed-smoke
 and scale drills, the breaking-point specs and rows on the card against
 their CPU twins (13b). One JSON line per result, the card's name and
 power limit, and last ``{"ok": true, ...}``; exits non-zero on any
@@ -25,6 +26,7 @@ sys.path.insert(0, ROOT)
 
 def main() -> int:
     import chip_smoke as C
+    C.POP_PROFILED = C.POP_PROBE_PROFILED   # the main path leaves them out
     return C.run_alone("population_probe", lambda torch, dev, build, err: {
         "launches": C.run_population_path(torch, dev, err)})
 

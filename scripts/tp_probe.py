@@ -7,10 +7,13 @@
 Builds the kernels, then phase 19 at full size: the stacked twins and the
 single-device serving reference, then a world of 4 processes sharing the
 card over gloo: 19a (glm4-9b at every published width, 2 layers, on data
-2 x model 2, sign1bit and ternary2bit), 19b (qwen1.5-32b's Mode B fsdp
-preset, cut to 1 layer) and 19c (serving glm4-9b, 8 layers, and its
-float32 twin, on model 4 with the sequence-sharded flash decode and on
-data 2 x model 2 with a heads-sharded cache). One JSON line per result,
+2 x model 2, sign1bit and ternary2bit), 19d (qwen3-moe-235b-a22b's Mode B
+fsdp preset, 1 layer, its experts in the EP form), 19e (the presets of
+mamba2-2.7b, zamba2-1.2b and whisper-tiny), 19c (serving glm4-9b, 8
+layers, and its float32 twin, on model 4 with the sequence-sharded flash
+decode and on data 2 x model 2 with a heads-sharded cache) and 19f
+(serving qwen2-moe, mamba2, zamba2 and whisper on model 4 and qwen3-moe on
+data 2 x model 2, each beside a float32 twin). One JSON line per result,
 the card's name and power limit, and last ``{"ok": true, ...}``; exits
 non-zero on any disagreement, or without a card.
 """

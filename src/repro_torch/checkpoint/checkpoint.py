@@ -17,7 +17,18 @@ other saved:
 * elastic refit — per-worker state with a leading voter axis (Mode A
   momentum, the EF residual, the weighted vote's (M,) flip-rate EMA) is
   truncated or zero-padded along axis 0 when the voter count changes
-  (:func:`refit_leading_axis`); joiners start at zero.
+  (:func:`refit_leading_axis`); joiners start at zero;
+* a mesh run (``mesh=`` and the step's ``art=``, its
+  ``train.train_step.StepArtifacts``) — arrays are saved unsharded, as
+  the reference gathers each sharded array to the host: every rank's
+  blocks are joined over the mesh (``distributed.sharding.join_shards``:
+  ``"model"`` dims, and ``"data"`` dims of fsdp leaves), the per-worker
+  state stacked in replica order, and the mesh's first rank writes them.
+  The files equal, array for array, what the stacked run of the same M
+  writes for the same state. ``restore(..., mesh=, art=)`` refits the
+  per-worker rows to the mesh's voters and cuts each rank's block
+  (``distributed.sharding.shard_tree``), so a checkpoint restores under
+  any mesh and stacked.
 
 :func:`restore` gives torch tensors on `device` (``"cuda"`` unless told
 otherwise), 0-d ones for scalars. :class:`AsyncCheckpointer` copies the
@@ -35,6 +46,12 @@ import numpy as np
 import torch
 
 from repro_torch import DeviceLike, resolve_device
+from repro_torch.distributed import sharding as shd
+
+#: the optimizer-state keys with one row per voter when stacked (Mode A's
+#: momentum, ``StepArtifacts.per_worker``; the EF residual): a mesh rank
+#: holds its voter's row, without the leading axis
+_VOTER_ROWS = ("momentum", "error")
 
 def _flatten(tree: Any, prefix: str = "") -> Dict[str, Any]:
     out = {}
@@ -84,12 +101,84 @@ def _from_host(a: np.ndarray, dtype: Optional[str],
     return bits.view(torch.bfloat16).to(device)
 
 
+def _voter_rows(key: str, art) -> bool:
+    """Whether the flat opt-state `key` ("momentum/<leaf>") is per-voter
+    state a mesh rank holds one row of."""
+    group = key.split("/", 1)[0]
+    return group in _VOTER_ROWS and (group != "momentum" or art.per_worker)
+
+
+def _spec(key: str, art):
+    return art.param_specs.get(key.split("/")[-1])
+
+
+def _gather_objects(obj, mesh) -> list:
+    """`obj` of every rank of `mesh`, in rank order (row-major over pod,
+    data, model): gathered over each pod's (data, model) ranks, then over
+    the pods."""
+    import torch.distributed as dist
+    ranks, group = mesh.group_of(("data", "model"))
+    every = [obj] if group is None else [None] * len(ranks)
+    if group is not None:
+        dist.all_gather_object(every, obj, group=group)
+    if mesh.pod == 1:
+        return every
+    ranks, group = mesh.group_of(("pod",))
+    pods = [None] * len(ranks)
+    dist.all_gather_object(pods, every, group=group)
+    return [o for pod in pods for o in pod]
+
+
+def join_state(params: Any, opt_state: Any, mesh, art) -> Tuple[Any, Any]:
+    """Every rank of `mesh`'s blocks of (params, opt_state) joined into the
+    stacked run's unsharded arrays, on the host: each leaf over the mesh
+    by its spec (``art.param_specs`` and ``art.mesh_sizes``), the
+    per-voter state (:data:`_VOTER_ROWS`) over each voter's model ranks
+    and stacked in replica order; the rest (the count, the weighted
+    vote's EMA) is every rank's own."""
+    def host(t):
+        return t.detach().to("cpu", copy=True) if isinstance(
+            t, torch.Tensor) else t
+    flat_p = {k: host(v) for k, v in _flatten(params).items()}
+    flat_o = {k: host(v) for k, v in _flatten(opt_state).items()}
+    every = _gather_objects((flat_p, flat_o), mesh)
+    sizes, m = art.mesh_sizes, mesh.model
+
+    def join(trees, key, spec, over):
+        return shd.join_shards([{key: t[key]} for t in trees], {key: spec},
+                               sizes=over)[key]
+    out_p = {k: join([e[0] for e in every], k, _spec(k, art), sizes)
+             if _spec(k, art) is not None else v for k, v in flat_p.items()}
+    out_o = {}
+    for k, v in flat_o.items():
+        spec = _spec(k, art)
+        trees = [e[1] for e in every]
+        if spec is None or not isinstance(v, torch.Tensor):
+            out_o[k] = v
+        elif _voter_rows(k, art):
+            out_o[k] = torch.stack([
+                join(trees[r * m:(r + 1) * m], k, spec, {"model": m})
+                for r in range(mesh.size)])
+        else:
+            out_o[k] = join(trees, k, spec, sizes)
+    return _unflatten(out_p), _unflatten(out_o)
+
+
 def save(ckpt_dir: str, step: int, params: Any, opt_state: Any,
-         data_state: Optional[Dict] = None, meta: Optional[Dict] = None
-         ) -> str:
+         data_state: Optional[Dict] = None, meta: Optional[Dict] = None,
+         *, mesh=None, art=None) -> str:
     """Blocking atomic save of nested dicts of tensors (or numpy arrays,
-    or Python scalars). Returns the final step directory."""
+    or Python scalars). Returns the final step directory. Over `mesh`
+    (every rank calls it, with the step's `art`) the blocks are joined
+    (:func:`join_state`), the mesh's first rank writes and every rank
+    returns once the files are in place."""
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
+    if mesh is not None:
+        params, opt_state = join_state(params, opt_state, mesh, art)
+        if mesh.rank == mesh.ranks[0]:
+            save(ckpt_dir, step, params, opt_state, data_state, meta)
+        _gather_objects(None, mesh)    # every rank waits for the files
+        return final
     tmp = final + ".tmp"
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
@@ -167,12 +256,33 @@ def _shape_of(leaf) -> Tuple[int, ...]:
     return tuple(leaf.shape) if hasattr(leaf, "shape") else tuple(leaf)
 
 
+def _mesh_block(key: str, a: np.ndarray, mesh, art) -> np.ndarray:
+    """The block of the saved unsharded array `a` (flat opt-state or
+    param `key`) a rank of `mesh` holds: its voter's row of per-voter
+    state (refit to the mesh's voters first), each leaf cut by its
+    spec."""
+    group = key.split("/", 1)[0]
+    if group == "codec" and a.ndim == 1:   # (M,) per voter, whole
+        return refit_leading_axis(a, (mesh.size,))
+    spec = _spec(key, art)
+    if spec is None:
+        return a
+    if _voter_rows(key, art):
+        a = refit_leading_axis(a, (mesh.size,) + a.shape[1:])[
+            mesh.replica_index()]
+    return np.ascontiguousarray(shd.shard_leaf(a, spec, mesh.coords,
+                                               art.mesh_sizes))
+
+
 def restore(ckpt_dir: str, like_params: Any = None, like_opt: Any = None,
-            device: DeviceLike = None) -> Tuple[Any, Any, Dict, Dict]:
+            device: DeviceLike = None, *, mesh=None, art=None
+            ) -> Tuple[Any, Any, Dict, Dict]:
     """(params, opt_state, data_state, meta) of the LATEST step, the arrays
     as tensors on `device`. `like_*`: trees whose leaves have a ``.shape``
     (tensors, arrays) or are shape tuples: a saved array whose leading axis
-    differs from its like leaf's is refit (:func:`refit_leading_axis`)."""
+    differs from its like leaf's is refit (:func:`refit_leading_axis`).
+    Over `mesh` (with the step's `art`; `like_*` unused) each array is the
+    rank's block (:func:`_mesh_block`)."""
     dev = resolve_device(device)
     path = latest_step_dir(ckpt_dir)
     if path is None:
@@ -186,7 +296,9 @@ def restore(ckpt_dir: str, like_params: Any = None, like_opt: Any = None,
     def tree(prefix: str, like: Any) -> Any:
         flat = {k[len(prefix):]: v for k, v in host.items()
                 if k.startswith(prefix)}
-        if like is not None:
+        if mesh is not None:
+            flat = {k: _mesh_block(k, v, mesh, art) for k, v in flat.items()}
+        elif like is not None:
             for key, leaf in _flatten(like).items():
                 if key in flat:
                     flat[key] = refit_leading_axis(flat[key],
@@ -214,8 +326,16 @@ class AsyncCheckpointer:
 
     def save(self, step: int, params: Any, opt_state: Any,
              data_state: Optional[Dict] = None,
-             meta: Optional[Dict] = None) -> None:
+             meta: Optional[Dict] = None, *, mesh=None, art=None) -> None:
+        """Over `mesh` (every rank calls it, with the step's `art`) the
+        blocks are joined now (:func:`join_state`, a collective) and the
+        mesh's first rank writes them on its thread; the others write
+        nothing (wait on the writer before restoring elsewhere)."""
         self.wait()
+        if mesh is not None:
+            params, opt_state = join_state(params, opt_state, mesh, art)
+            if mesh.rank != mesh.ranks[0]:
+                return
 
         def snapshot(t):
             # the host copy happens NOW, so training may go on mutating
@@ -243,5 +363,6 @@ class AsyncCheckpointer:
             raise err
 
 
-__all__ = ["AsyncCheckpointer", "latest_step_dir", "refit_leading_axis",
-           "refit_tree_leading_axis", "restore", "save"]
+__all__ = ["AsyncCheckpointer", "join_state", "latest_step_dir",
+           "refit_leading_axis", "refit_tree_leading_axis", "restore",
+           "save"]

@@ -119,6 +119,15 @@ def param_spec(name: str, shape: Tuple[int, ...], *, fsdp: bool,
     raise AssertionError("unreachable: catch-all rule")
 
 
+def model_tagged(name: str, ndim: int) -> bool:
+    """Whether the rules place leaf `name` (of `ndim` dims) over
+    ``"model"`` when its dim divides (an "M" or "M2" tag)."""
+    for pat, tags in _RULES:
+        if re.search(pat, name):
+            return any(t in ("M", "M2") for t in tags[:ndim])
+    raise AssertionError("unreachable: catch-all rule")
+
+
 def param_specs(shapes: Mapping[str, Tuple[int, ...]], *, fsdp: bool,
                 mesh_shape: Optional[Mapping[str, int]] = None
                 ) -> Dict[str, Spec]:
@@ -281,5 +290,6 @@ def join_shards(trees: Sequence[Mapping], dims: Mapping,
 
 
 __all__ = ["BATCH", "DuplicateSpecError", "Spec", "check_spec", "fsdp_dim",
-           "fused_dims", "join_shards", "kv_cache_spec", "param_spec",
+           "fused_dims", "join_shards", "kv_cache_spec", "model_tagged",
+           "param_spec",
            "param_specs", "shard_leaf", "shard_tree", "spec_block"]

@@ -76,12 +76,93 @@ computes the same function:
   (``models/layers.py``: each rank's online softmax over its rows, then a
   maximum and two weighted sums over the group, (B, K, G, D) floats a
   layer).
+* **Mixture of experts** (``models/moe.py``). The router is replicated,
+  so every model rank computes the same routing, capacity and dispatch
+  plan. A rank runs its own experts when they divide the axis (*EP*:
+  experts ``[r E/m, (r+1) E/m)``, its rows of the (E, C, d) buffer), else
+  its d_ff columns of every expert (*M2*: gate and up column-parallel,
+  down row-parallel). Its weighted slots are added in the port's slot
+  order into a float32 (T, d) partial, and :func:`reduce_from_model`
+  closes the combine (one float32 sum, rounded once). The routing weights
+  enter the rank's slots through :func:`copy_to_model`, so their
+  cotangent, a partial of the rank's slots, is summed over the group
+  before it reaches ``router_w``; the aux loss is computed from the
+  replicated routing and counted once.
+* **The SSD** (``models/mamba2.py``). z, xBC and dt are column-parallel
+  and the depthwise conv runs on the rank's channels; the conv's output is
+  then gathered (:func:`gather_from_model`, its backward a reduce-scatter)
+  and the rank takes its heads' x columns and the whole of B and C, which
+  its column block does not line up with. The scan runs on the rank's
+  heads; the gated RMSNorm spans all of ``d_inner``, so its float32 sum
+  of squares is summed over the group (:func:`group_sum`, forward and
+  backward); ``out_proj`` is row-parallel. Decoding, the SSM state is
+  heads-sharded and the conv window channels-sharded, and each tick
+  gathers one (B, conv_dim) row a layer.
+* **Cross-attention** (whisper). The queries are the decoder's columns,
+  k / v the rank's columns of the replicated encoder output, and the
+  three forms are self-attention's (in the seq form a rank attends its
+  decoder rows against the gathered source). Its cache ``xk`` / ``xv`` is
+  heads-sharded when the kv heads divide the axis, else sequence-sharded
+  when the source rows do (read by the sharded online softmax without the
+  causal mask), else whole.
+* **The hybrid's shared block** (zamba2). Its leaves have no leading L,
+  so the stacked layers' rules, which match first, lay them out: q / k /
+  v and gate / up carry no ``"model"`` and ``attn_wo`` / ``mlp_w_down``
+  carry it on their output dim d. So the block computes q, k, v, the
+  attention and gate / up whole on every rank, and each of the two output
+  products makes the rank's d / m columns of a replicated input and
+  gathers them (:func:`out_columns`). Its cache ``attn_k`` / ``attn_v``
+  follows ``cache_leaf_spec``: a rank attends its kv heads and the heads'
+  outputs are gathered, or the sharded online softmax reads its rows.
+* **Mixed specs.** ``param_spec`` drops ``"model"`` from a leaf whose dim
+  the axis does not divide. Only the vocabulary tables lose it for the
+  published and reduced configs at model 2-16 (whisper's 51,865 rows at
+  every model > 1, mamba2's 50,280 at 16); such a table stays whole on
+  every rank and takes the plain lookup, whole logits and the plain
+  float32 CE, each rank computing the same bits. Any other leaf that
+  loses it raises ``NotImplementedError`` naming the leaf and the mesh
+  (``models.model.check_model_axis``).
+* **Checkpoints** (``checkpoint/checkpoint.py``). A model-sharded run's
+  blocks are joined over the mesh (``sharding.join_shards``) and one rank
+  writes the unsharded arrays, Mode A's per-voter state stacked in replica
+  order: the stacked run's files, array for array. A restore cuts each
+  rank's block again (``sharding.shard_tree``) under any mesh.
 
-What is not here waits for ROADMAP.md Queue 1 item 15: expert parallelism
-(the MoE archs), the SSM, the hybrid and the encoder-decoder under a model
-axis, stochastic and adaptive adversaries and a VotePlan over a model axis,
-and a checkpoint of a model-sharded run. Each raises ``NotImplementedError``
-naming that item.
+The layouts the published and reduced configs take (``tests/
+test_torch_tp_families.py`` builds each on a world of fake ranks; the
+(2, 16, 16) mesh is model 16's column; "-" where the arch has no such
+part):
+
+==================== ===== ======= ======= ======= =======
+arch (published)     part  model 2 model 4 model 8 model 16
+==================== ===== ======= ======= ======= =======
+glm4-9b              attn  grouped repeat  repeat  repeat
+qwen1.5-32b          attn  grouped grouped grouped seq
+deepseek-67b         attn  grouped grouped grouped repeat
+gemma3-12b           attn  grouped grouped grouped repeat
+pixtral-12b          attn  grouped grouped grouped repeat
+qwen2-moe-a2.7b      attn  grouped grouped grouped grouped
+qwen2-moe-a2.7b      moe   EP      EP      M2      M2
+qwen3-moe-235b-a22b  attn  grouped grouped repeat  repeat
+qwen3-moe-235b-a22b  moe   EP      EP      EP      EP
+mamba2-2.7b          ssd   heads   heads   heads   heads
+mamba2-2.7b          vocab sharded sharded sharded whole
+zamba2-1.2b          attn  whole   whole   whole   whole
+zamba2-1.2b          ssd   heads   heads   heads   heads
+whisper-tiny         attn  grouped seq     seq     seq
+whisper-tiny         vocab whole   whole   whole   whole
+==================== ===== ======= ======= ======= =======
+
+("whole": zamba2's shared block, its wo and w_down output-sharded.) The
+reduced configs (4 heads, 2 kv heads, 4 experts of d_ff 64, vocab 512)
+take grouped / repeat / seq attention at model 2 / 4 / 8-16 (zamba2's
+shared block whole), the MoE EP at 2 and 4 and M2 at 8 and 16, the SSD
+heads-sharded and the vocabulary sharded throughout; every other part not
+named above is sharded at every model size.
+
+What is not here waits for ROADMAP.md Queue 1 item 15: stochastic and
+adaptive adversaries and a VotePlan over a model axis. Each raises
+``NotImplementedError`` naming that item.
 """
 from __future__ import annotations
 
@@ -148,6 +229,54 @@ def reduce_from_model(x: torch.Tensor, mesh, dtype=None) -> torch.Tensor:
 def gather_from_model(x: torch.Tensor, mesh, dim: int = -1) -> torch.Tensor:
     """Each rank's slice `x` joined along `dim` in model-index order."""
     return _GatherFromModel.apply(x, mesh, dim % x.dim())
+
+
+class _GroupSum(torch.autograd.Function):
+    """Forward the sum over the model group of each rank's part (float32,
+    model-index order), a statistic every rank's sharded work reads
+    whole; backward the same sum of the ranks' cotangents, each a partial
+    of its own work's."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return pm.model_sum(x, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return pm.model_sum(g, ctx.mesh), None
+
+
+class _GatherColumns(torch.autograd.Function):
+    """Forward every rank's columns joined in model-index order; backward
+    this rank's block of the cotangent, which is whole on every rank (the
+    work after the gather is replicated), unsummed."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh, ctx.cols = mesh, x.shape[-1]
+        return pm.model_gather(x, mesh, dim=-1)
+
+    @staticmethod
+    def backward(ctx, g):
+        r = ctx.mesh.axis_index("model")
+        return g[..., r * ctx.cols:(r + 1) * ctx.cols].contiguous(), None
+
+
+def out_columns(x: torch.Tensor, w: torch.Tensor, mesh) -> torch.Tensor:
+    """``x @ w`` of a weight whose output columns are sharded and whose
+    input is whole (zamba2's shared block: ``param_spec`` gives its
+    ``attn_wo`` and ``mlp_w_down`` "model" on the output dim, its q / k /
+    v and gate / up none): the replicated x enters the group (its
+    cotangent, a partial of the rank's columns, summed over it), the
+    rank's columns are made in x's dtype and gathered."""
+    return _GatherColumns.apply(copy_to_model(x, mesh) @ w, mesh)
+
+
+def group_sum(x: torch.Tensor, mesh) -> torch.Tensor:
+    """The sum of every rank's part `x` over the model group, read whole
+    by each rank's sharded work (the gated RMSNorm's sum of squares)."""
+    return _GroupSum.apply(x, mesh)
 
 
 def enter_model(x: torch.Tensor, mesh) -> torch.Tensor:
@@ -233,5 +362,6 @@ def cross_entropy(logits: torch.Tensor, targets: torch.Tensor, mesh
 
 
 __all__ = ["column_parallel", "copy_to_model", "cross_entropy",
-           "embed_tokens", "enter_model", "gather_from_model",
+           "embed_tokens", "enter_model", "gather_from_model", "group_sum",
+           "out_columns",
            "reduce_from_model", "row_parallel", "vocab_range"]

@@ -8,10 +8,12 @@ and the decode path's attention of one new token against a KV cache
 Over a mesh's ``"model"`` axis (`tp`, a ``distributed.mesh.ProcessMesh``
 whose model axis is larger than 1) the same functions run tensor-parallel
 on a rank's slices of the weights, as ``distributed.tensor_parallel`` sets
-out: attention in the reference's three forms (:func:`_attn_form`), the
-SwiGLU MLP column- then row-parallel, the vocab-parallel embedding and
-cross-entropy, and the decode path against a heads-sharded cache or,
-through the sharded flash decode, a sequence-sharded one.
+out: attention in the reference's three forms (:func:`_attn_form`), self-
+(causal or bidirectional) and cross-attention alike, the SwiGLU MLP
+column- then row-parallel, the vocab-parallel embedding and cross-entropy
+(or the plain ones, where the table stays whole: :func:`vocab_group`), and
+the decode path against a heads-sharded cache or, through the sharded
+flash decode, a sequence-sharded one (a cross cache's unmasked).
 
 Plain functions on tensors; parameters arrive as slices of the flat
 stacked-parameter dict. Compute dtype follows the inputs (bf16 by default);
@@ -267,28 +269,42 @@ def _tp_self_attention(p: dict, prefix: str, x: torch.Tensor, cfg, tp, *,
                        causal: bool, window: Optional[int],
                        positions: Optional[torch.Tensor], use_rope: bool):
     """:func:`self_attention_block` over the model group `tp`."""
-    B, S, _ = x.shape
+    q, k, v = _tp_project_qkv(p, prefix, x, cfg, tp)
+    if positions is None:
+        positions = torch.arange(x.shape[1], device=x.device)
+    return _tp_attend(p, prefix, q, k, v, cfg, tp, causal=causal,
+                      window=window, q_pos=positions, kv_pos=positions,
+                      use_rope=use_rope)
+
+
+def _tp_attend(p: dict, prefix: str, q: torch.Tensor, k: torch.Tensor,
+               v: torch.Tensor, cfg, tp, *, causal: bool,
+               window: Optional[int], q_pos: torch.Tensor,
+               kv_pos: torch.Tensor, use_rope: bool):
+    """Attention over the model group `tp` in :func:`_attn_form`'s form,
+    from the rank's q columns (B, S, .) and k / v columns (B, T, .) (self-
+    or cross-attention), then the row-parallel ``wo``. Returns (out, (k,
+    v)): k / v the rank's kv heads (grouped) or every head."""
+    B, S, _ = q.shape
+    T = k.shape[1]
     H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     m, r = tp.model, tp.axis_index("model")
     form = _attn_form(H, K, m)
-    q, k, v = _tp_project_qkv(p, prefix, x, cfg, tp)
-    if positions is None:
-        positions = torch.arange(S, device=x.device)
+    rope = use_rope and cfg.rope_theta
     if form == "grouped":
         q = q.reshape(B, S, H // m, hd)
-        k = k.reshape(B, S, K // m, hd)
-        v = v.reshape(B, S, K // m, hd)
-        if use_rope and cfg.rope_theta:
-            cos, sin = rope_cos_sin(positions, hd, cfg.rope_theta)
-            q = apply_rope(q, cos, sin)
-            k = apply_rope(k, cos, sin)
-        out = attention(q, k, v, causal=causal, q_positions=positions,
-                        kv_positions=positions, window=window)
+        k = k.reshape(B, T, K // m, hd)
+        v = v.reshape(B, T, K // m, hd)
+        if rope:   # self-attention: q_pos is kv_pos
+            cos, sin = rope_cos_sin(q_pos, hd, cfg.rope_theta)
+            q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+        out = attention(q, k, v, causal=causal, q_positions=q_pos,
+                        kv_positions=kv_pos, window=window)
         out = tpar.row_parallel(out.reshape(B, S, H // m * hd),
                                 p[f"{prefix}_wo"], tp)
         return out, (k, v)
-    k = tpar.gather_from_model(k, tp).reshape(B, S, K, hd)
-    v = tpar.gather_from_model(v, tp).reshape(B, S, K, hd)
+    k = tpar.gather_from_model(k, tp).reshape(B, T, K, hd)
+    v = tpar.gather_from_model(v, tp).reshape(B, T, K, hd)
     if form == "seq":
         if S % m:
             raise ValueError(f"the seq attention form splits the {S} query "
@@ -296,25 +312,24 @@ def _tp_self_attention(p: dict, prefix: str, x: torch.Tensor, cfg, tp, *,
         q = tpar.gather_from_model(q, tp).reshape(B, S, H, hd)
     else:
         q = q.reshape(B, S, H // m, hd)
-    if use_rope and cfg.rope_theta:
-        cos, sin = rope_cos_sin(positions, hd, cfg.rope_theta)
-        q = apply_rope(q, cos, sin)
-        k = apply_rope(k, cos, sin)
+    if rope:
+        cos, sin = rope_cos_sin(q_pos, hd, cfg.rope_theta)
+        q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
     G = H // K
     if form == "repeat":
         # the rank's q heads each read their kv head, repeated per head
         heads = torch.arange(r * (H // m), (r + 1) * (H // m),
-                             device=x.device) // G
+                             device=q.device) // G
         out = attention(q, k.index_select(2, heads),
                         v.index_select(2, heads), causal=causal,
-                        q_positions=positions, kv_positions=positions,
+                        q_positions=q_pos, kv_positions=kv_pos,
                         window=window)
         out = out.reshape(B, S, H // m * hd)
     else:
         rows = slice(r * (S // m), (r + 1) * (S // m))
         out = attention(q[:, rows], k, v, causal=causal,
-                        q_positions=positions[rows],
-                        kv_positions=positions, window=window)
+                        q_positions=q_pos[rows], kv_positions=kv_pos,
+                        window=window)
         out = tpar.gather_from_model(out.reshape(B, S // m, H * hd), tp,
                                      dim=1)
         cols = H * hd // m
@@ -323,9 +338,24 @@ def _tp_self_attention(p: dict, prefix: str, x: torch.Tensor, cfg, tp, *,
 
 
 def cross_attention_block(p: dict, prefix: str, x: torch.Tensor,
-                          k: torch.Tensor, v: torch.Tensor, cfg
+                          k: torch.Tensor, v: torch.Tensor, cfg, tp=None
                           ) -> torch.Tensor:
-    """Cross-attention against the encoder's k / v (whisper), unmasked."""
+    """Cross-attention against the encoder's k / v (whisper), unmasked.
+    Over a model group `tp`, k / v are :func:`project_kv_cross`'s column
+    blocks and the queries the rank's columns of x's, in
+    :func:`_attn_form`'s form (seq: the rank's decoder rows against the
+    gathered source)."""
+    if model_group(tp) is not None:
+        x32 = tpar.enter_model(x, tp)
+        q = tpar.column_parallel(x32, p[f"{prefix}_wq"], x.dtype)
+        if cfg.qkv_bias:
+            q = q + p[f"{prefix}_bq"]
+        S, T = x.shape[1], k.shape[1]
+        dev = x.device
+        return _tp_attend(p, prefix, q, k, v, cfg, tp, causal=False,
+                          window=None, q_pos=torch.arange(S, device=dev),
+                          kv_pos=torch.arange(T, device=dev),
+                          use_rope=False)[0]
     B, S, _ = x.shape
     H, hd = cfg.num_heads, cfg.resolved_head_dim
     q = x @ p[f"{prefix}_wq"]
@@ -336,18 +366,40 @@ def cross_attention_block(p: dict, prefix: str, x: torch.Tensor,
     return out.reshape(B, S, H * hd) @ p[f"{prefix}_wo"]
 
 
-def project_kv_cross(p: dict, prefix: str, enc: torch.Tensor, cfg
+def project_kv_cross(p: dict, prefix: str, enc: torch.Tensor, cfg, tp=None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The encoder output's K and V for one decoder layer's
-    cross-attention: (B, T_src, K, hd) each."""
+    cross-attention: (B, T_src, K, hd) each. Over a model group `tp` the
+    rank's column blocks (B, T_src, K hd / m) of each, column-parallel
+    products of the replicated encoder output."""
     B, T, _ = enc.shape
     K, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    if model_group(tp) is not None:
+        e32 = tpar.enter_model(enc, tp)
+        k, v = (tpar.column_parallel(e32, p[f"{prefix}_w{n}"], enc.dtype)
+                for n in "kv")
+        if cfg.qkv_bias:
+            k = k + p[f"{prefix}_bk"]
+            v = v + p[f"{prefix}_bv"]
+        return k, v
     k = enc @ p[f"{prefix}_wk"]
     v = enc @ p[f"{prefix}_wv"]
     if cfg.qkv_bias:
         k = k + p[f"{prefix}_bk"]
         v = v + p[f"{prefix}_bv"]
     return k.reshape(B, T, K, hd), v.reshape(B, T, K, hd)
+
+
+def cross_cache_block(k: torch.Tensor, cfg, tp) -> torch.Tensor:
+    """:func:`project_kv_cross`'s column block (B, T, K hd / m) of K or V
+    as the cross cache holds it over `tp`: the rank's kv heads (B, T,
+    K / m, hd) when they divide the axis, else every head (B, T, K, hd),
+    gathered (``serve_step``'s layout then keeps the rank's rows)."""
+    B, T, _ = k.shape
+    K, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    if K % tp.model == 0:
+        return k.reshape(B, T, K // tp.model, hd)
+    return pm.model_gather(k.contiguous(), tp, dim=-1).reshape(B, T, K, hd)
 
 
 # --- decode path (one new token against a cache) ---------------------------
@@ -430,7 +482,8 @@ def decode_positions(pos, batch: int, device) -> DecodePositions:
 def _flash_decode_local(qg: torch.Tensor, kc: torch.Tensor,
                         vc: torch.Tensor, ksc: Optional[torch.Tensor],
                         vsc: Optional[torch.Tensor], pos, shard_start: int,
-                        window: Optional[int], scale: float
+                        window: Optional[int], scale: float,
+                        causal: bool = True
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The online softmax of one query a row over a cache shard whose rows
     sit at global positions ``shard_start ..`` (the reference's
@@ -443,13 +496,16 @@ def _flash_decode_local(qg: torch.Tensor, kc: torch.Tensor,
     shard longer than ``KV_CHUNK`` and not a multiple of it raises (the
     reference leaves its last rows unread); a chunk whose rows are all
     masked (ahead of the row's position or outside its window) adds
-    nothing: ``exp(-inf - -inf)`` is never let into the sums.
+    nothing: ``exp(-inf - -inf)`` is never let into the sums. With
+    ``causal=False`` (a cross-attention cache) no row is masked and `pos`
+    is not read.
 
     qg (B,1,K,G,D); kc / vc (B,T_loc,K,D); scales (B,T_loc,K) or None;
     `pos` as :func:`decode_positions` takes it. Returns the partials (m
     (B,K,G,1), num (B,K,G,1,D), den (B,K,G,1)), float32."""
     B, _, K, G, D = qg.shape
-    pos = decode_positions(pos, B, qg.device)
+    if causal:
+        pos = decode_positions(pos, B, qg.device)
     T = kc.shape[1]
     chunk = min(KV_CHUNK, T)
     if T % chunk:
@@ -473,8 +529,9 @@ def _flash_decode_local(qg: torch.Tensor, kc: torch.Tensor,
             vs = vs.to(compute_dt) * vsc[:, start:start + chunk].to(
                 compute_dt)[..., None]
         s = torch.einsum("bskgd,btkd->bkgst", qc, ks).to(f32) * scale
-        s = s.masked_fill(pos.masked(shard_start + start, chunk, window),
-                          -torch.inf)
+        if causal:
+            s = s.masked_fill(pos.masked(shard_start + start, chunk,
+                                         window), -torch.inf)
         m_new = torch.maximum(m, s.amax(dim=-1))
         corr = torch.where(torch.isfinite(m), torch.exp(m - m_new),
                            torch.zeros_like(m))
@@ -573,7 +630,9 @@ def _should_flash_decode(num_kv_heads: int, seq_len: int, model: int
 #: ``_should_flash_decode`` sends to the sharded flash decode),
 #: "sharded_short" (a sequence-sharded cache shorter than its gate: the
 #: port takes the same sharded online softmax), "replicated" (a cache no
-#: axis shards); :func:`reset_decode_paths` zeroes it
+#: axis shards), and for a cross-attention cache "cross_heads",
+#: "cross_sharded" (the sharded online softmax, unmasked) and
+#: "cross_replicated"; :func:`reset_decode_paths` zeroes it
 DECODE_PATHS: collections.Counter = collections.Counter()
 
 
@@ -726,6 +785,47 @@ def _tp_decode_attention(p: dict, prefix: str, x: torch.Tensor, cfg, tp, *,
     return tpar.row_parallel(out, p[f"{prefix}_wo"], tp)
 
 
+def decode_cross_attention(p: dict, prefix: str, x: torch.Tensor, cfg,
+                           xk: torch.Tensor, xv: torch.Tensor, tp=None,
+                           seq_names: Sequence[str] = ()) -> torch.Tensor:
+    """One token's cross-attention sublayer against the cross cache xk /
+    xv (B, T_src, K, hd), every row read (the reference's zero padding
+    too). Over a model group `tp` the cache is the rank's block of
+    ``serve_step.cache_leaf_spec``'s layout: its kv heads (the rank's q
+    heads against them), or the rows the axes `seq_names` give it (every
+    q head, gathered, through the sharded online softmax without the
+    causal mask), or whole (every q head); the output's partials are
+    summed over the group."""
+    if model_group(tp) is None:
+        return cross_attention_block(p, prefix, x, xk, xv, cfg)
+    B = x.shape[0]
+    H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    m, r = tp.model, tp.axis_index("model")
+    q = tpar.column_parallel(tpar.enter_model(x, tp), p[f"{prefix}_wq"],
+                             x.dtype)
+    if cfg.qkv_bias:
+        q = q + p[f"{prefix}_bq"]
+    if K % m == 0:
+        DECODE_PATHS["cross_heads"] += 1
+        out = attention(q.reshape(B, 1, H // m, hd), xk, xv, causal=False)
+        return tpar.row_parallel(out.reshape(B, 1, H // m * hd),
+                                 p[f"{prefix}_wo"], tp)
+    q = pm.model_gather(q.contiguous(), tp, dim=-1).reshape(B, 1, H, hd)
+    if seq_names:
+        DECODE_PATHS["cross_sharded"] += 1
+        start = pm.line_index(tp, seq_names) * xk.shape[1]
+        parts = _flash_decode_local(q.reshape(B, 1, K, H // K, hd), xk, xv,
+                                    None, None, None, start, None,
+                                    hd ** -0.5, causal=False)
+        out = flash_decode_combine(*parts, tp, seq_names).to(x.dtype)
+    else:
+        DECODE_PATHS["cross_replicated"] += 1
+        out = attention(q, xk, xv, causal=False)
+    cols = H * hd // m
+    out = out.reshape(B, 1, H * hd)[..., r * cols:(r + 1) * cols]
+    return tpar.row_parallel(out, p[f"{prefix}_wo"], tp)
+
+
 # ---------------------------------------------------------------------------
 # MLP
 # ---------------------------------------------------------------------------
@@ -749,6 +849,16 @@ def swiglu_mlp(p: dict, prefix: str, x: torch.Tensor, tp=None
 # ---------------------------------------------------------------------------
 # embedding / loss
 # ---------------------------------------------------------------------------
+
+
+def vocab_group(table: torch.Tensor, vocab: int, tp=None):
+    """`tp` when the table (V, d) holds a vocab shard, None when it is
+    whole on every rank (``param_spec`` drops ``"model"`` from a
+    vocabulary the axis does not divide: whisper's, mamba2's at 16): a
+    whole table takes the plain lookup, whole logits and the plain
+    float32 CE, every rank computing the same bits."""
+    tp = model_group(tp)
+    return tp if tp is not None and table.shape[0] != vocab else None
 
 
 def embed_tokens(table: torch.Tensor, tokens: torch.Tensor, tp=None

@@ -17,6 +17,13 @@ float32 and summed there). The three-operand products are written as two
 steps each, in the order given below; XLA picks its own order, so a bf16
 forward agrees with the reference's to a bf16 tolerance, not bit for bit.
 Autograd gives the backward.
+
+Over a model group (`tp`; ``distributed.tensor_parallel``) a rank holds
+its heads: z, xBC and dt are column-parallel, the conv runs on its
+channels, xBC is then gathered and the rank takes its heads' x columns and
+the whole of B and C; the gated RMSNorm sums its squares over the group
+and ``out_proj`` is row-parallel. Decoding, the state is the rank's heads
+and the conv window its channels.
 """
 from __future__ import annotations
 
@@ -25,7 +32,8 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import rms_norm
+from repro_torch.distributed import tensor_parallel as tpar
+from repro_torch.models.layers import model_group, rms_norm
 
 
 def _segsum(x: torch.Tensor) -> torch.Tensor:
@@ -53,11 +61,48 @@ def causal_conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor
     return out + b
 
 
-def _project(p: Dict[str, torch.Tensor], prefix: str, x: torch.Tensor
-             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The three aligned input projections (z | xBC | dt)."""
-    return (x @ p[f"{prefix}_zproj"], x @ p[f"{prefix}_xbcproj"],
-            x @ p[f"{prefix}_dtproj"])
+def _project(p: Dict[str, torch.Tensor], prefix: str, x: torch.Tensor,
+             tp=None) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The three aligned input projections (z | xBC | dt); over a model
+    group `tp` the rank's columns of each, column-parallel."""
+    names = ("zproj", "xbcproj", "dtproj")
+    if tp is None:
+        return tuple(x @ p[f"{prefix}_{n}"] for n in names)
+    x32 = tpar.enter_model(x, tp)
+    return tuple(tpar.column_parallel(x32, p[f"{prefix}_{n}"], x.dtype)
+                 for n in names)
+
+
+def _split_xbc(xBC: torch.Tensor, di: int, N: int, tp=None
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(x, B, C) of the conv's output; over a model group `tp` the
+    rank's column block is gathered first (its backward a reduce-scatter)
+    and x is the rank's heads' columns: the blocks do not line up with the
+    x / B / C split."""
+    if tp is None:
+        return torch.split(xBC, [di, N, N], dim=-1)
+    xBC = tpar.gather_from_model(xBC, tp, dim=-1)
+    cols = di // tp.model
+    r = tp.axis_index("model")
+    return (xBC[..., r * cols:(r + 1) * cols], xBC[..., di:di + N],
+            xBC[..., di + N:])
+
+
+def _gated_norm(y: torch.Tensor, scale: torch.Tensor, eps: float, di: int,
+                tp=None) -> torch.Tensor:
+    """The RMSNorm over the whole ``d_inner`` of y (the rank's columns over
+    a model group `tp`: the float32 sum of squares summed over the group
+    in model-index order), in :func:`rms_norm`'s casts."""
+    if tp is None:
+        return rms_norm(y, scale, eps)
+    y32 = y.to(torch.float32)
+    ss = tpar.group_sum((y32 * y32).sum(-1), tp)
+    inv = torch.rsqrt(ss / di + eps)
+    return y * inv.to(y.dtype)[..., None] * scale.to(y.dtype)
+
+
+def _out_proj(y: torch.Tensor, w: torch.Tensor, tp=None) -> torch.Tensor:
+    return y @ w if tp is None else tpar.row_parallel(y, w, tp)
 
 
 def chunk_size(cfg, S: int) -> int:
@@ -69,18 +114,21 @@ def chunk_size(cfg, S: int) -> int:
 
 
 def mamba2_forward(p: Dict[str, torch.Tensor], x_in: torch.Tensor, cfg,
-                   prefix: str = "mamba") -> torch.Tensor:
-    """One Mamba2 mixer (no residual): x_in (B, S, d) -> (B, S, d)."""
+                   prefix: str = "mamba", tp=None) -> torch.Tensor:
+    """One Mamba2 mixer (no residual): x_in (B, S, d) -> (B, S, d); over a
+    model group `tp` on the rank's heads (see the module doc)."""
     s = cfg.ssm
     B, S, d = x_in.shape
-    di, N, nh, P = s.d_inner(d), s.state_dim, s.n_heads(d), s.head_dim
+    tp = model_group(tp)
+    m = 1 if tp is None else tp.model
+    di, N, nh, P = s.d_inner(d), s.state_dim, s.n_heads(d) // m, s.head_dim
     cs = chunk_size(cfg, S)
     nc = S // cs
 
-    z, xBC, dt = _project(p, prefix, x_in)
+    z, xBC, dt = _project(p, prefix, x_in, tp)
     xBC = F.silu(causal_conv1d(xBC, p[f"{prefix}_conv_w"],
                                p[f"{prefix}_conv_b"]))
-    x, B_, C_ = torch.split(xBC, [di, N, N], dim=-1)
+    x, B_, C_ = _split_xbc(xBC, di, N, tp)
 
     dt = F.softplus(dt.to(torch.float32) + p[f"{prefix}_dt_bias"])
     A = -torch.exp(p[f"{prefix}_A_log"].to(torch.float32))      # (nh,)
@@ -122,12 +170,12 @@ def mamba2_forward(p: Dict[str, torch.Tensor], x_in: torch.Tensor, cfg,
 
     Y = (Y_diag + Y_off).reshape(B, S, nh, P)
     Y = Y + xh.reshape(B, S, nh, P) * p[f"{prefix}_D"].to(cdt)[:, None]
-    Y = Y.reshape(B, S, di)
+    Y = Y.reshape(B, S, nh * P)
 
     # gated RMSNorm, then the output projection
     Y = Y * F.silu(z).to(cdt)
-    Y = rms_norm(Y, p[f"{prefix}_norm_scale"], cfg.norm_eps)
-    return Y @ p[f"{prefix}_out_proj"]
+    Y = _gated_norm(Y, p[f"{prefix}_norm_scale"], cfg.norm_eps, di, tp)
+    return _out_proj(Y, p[f"{prefix}_out_proj"], tp)
 
 
 # ---------------------------------------------------------------------------
@@ -150,23 +198,27 @@ def mamba2_init_state(cfg, batch: int, dtype: torch.dtype = torch.float32,
 
 def mamba2_decode_step(p: Dict[str, torch.Tensor], x_in: torch.Tensor,
                        state: Dict[str, torch.Tensor], cfg,
-                       prefix: str = "mamba") -> torch.Tensor:
+                       prefix: str = "mamba", tp=None) -> torch.Tensor:
     """x_in (B,1,d) -> out (B,1,d); `state` {'ssm','conv'} (views of the
     stacked cache) is advanced in place. The conv reads its window, the
     state's W-1 columns and the new one; the decays and the state update
-    are float32 (``softplus`` and ``exp`` of float32 operands)."""
+    are float32 (``softplus`` and ``exp`` of float32 operands). Over a
+    model group `tp` the state is the rank's heads and channels, and the
+    conv's output row (B, conv_dim) is gathered."""
     s = cfg.ssm
     B, _, d = x_in.shape
-    di, N, nh, P = s.d_inner(d), s.state_dim, s.n_heads(d), s.head_dim
+    tp = model_group(tp)
+    m = 1 if tp is None else tp.model
+    di, N, nh, P = s.d_inner(d), s.state_dim, s.n_heads(d) // m, s.head_dim
     f32 = torch.float32
 
-    z, xBC, dt = _project(p, prefix, x_in[:, 0])
+    z, xBC, dt = _project(p, prefix, x_in[:, 0], tp)
     window = torch.cat([state["conv"], xBC[:, None, :]], dim=1)
     xBC = F.silu(torch.einsum("bwc,wc->bc", window, p[f"{prefix}_conv_w"])
                  + p[f"{prefix}_conv_b"])
     state["conv"].copy_(window[:, 1:])
 
-    x, B_, C_ = torch.split(xBC, [di, N, N], dim=-1)
+    x, B_, C_ = _split_xbc(xBC, di, N, tp)
     dt = F.softplus(dt.to(f32) + p[f"{prefix}_dt_bias"])
     A = -torch.exp(p[f"{prefix}_A_log"].to(f32))
     dA = torch.exp(dt * A)                                      # (B,nh)
@@ -178,6 +230,7 @@ def mamba2_decode_step(p: Dict[str, torch.Tensor], x_in: torch.Tensor,
     state["ssm"].copy_(ssm)
     y = torch.einsum("bhpn,bn->bhp", ssm, C_.to(f32))
     y = y + xh * p[f"{prefix}_D"].to(f32)[:, None]
-    y = y.reshape(B, di) * F.silu(z.to(f32))
-    y = rms_norm(y.to(x_in.dtype), p[f"{prefix}_norm_scale"], cfg.norm_eps)
-    return (y @ p[f"{prefix}_out_proj"])[:, None, :]
+    y = y.reshape(B, nh * P) * F.silu(z.to(f32))
+    y = _gated_norm(y.to(x_in.dtype), p[f"{prefix}_norm_scale"],
+                    cfg.norm_eps, di, tp)
+    return _out_proj(y, p[f"{prefix}_out_proj"], tp)[:, None, :]

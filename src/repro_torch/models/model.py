@@ -13,13 +13,14 @@ encoder-decoder (whisper, its frontend stubbed):
   input_specs(cfg, cell)                -> tensors on the "meta" device
 
 Over a mesh's ``"model"`` axis (``tp=``, a ``distributed.mesh.ProcessMesh``
-with a model axis larger than 1; ``distributed.tensor_parallel``) the
-dense decoder-only archs (glm4-9b, qwen1.5-32b, deepseek-67b, gemma3-12b,
-pixtral-12b) run tensor-parallel on a rank's slices of the parameters: the
-embedding and the cross-entropy vocab-parallel, the logits the rank's
-vocab shard, the cache the rank's block of the serving layout. The MoE,
-SSM, hybrid and encoder-decoder archs raise there
-(:func:`check_model_axis`).
+with a model axis larger than 1; ``distributed.tensor_parallel``) every
+arch runs tensor-parallel on a rank's slices of the parameters (the MoE's
+experts in the EP or M2 form, the SSD on the rank's heads, whisper's
+cross-attention in the three attention forms): the embedding and the
+cross-entropy vocab-parallel and the logits the rank's vocab shard where
+the table is sharded, plain and whole where the axis does not divide the
+vocabulary; the cache the rank's block of the serving layout. A leaf
+layout the port cannot run raises (:func:`check_model_axis`).
 
 Parameters are a flat ``dict[str, Tensor]`` under the JAX package's names
 and in its stacked layout (``layers.attn_wq`` is ``(L, d, H*hd)``), so
@@ -48,6 +49,7 @@ import torch
 
 from repro_torch import DeviceLike, resolve_device
 from repro_torch.configs.base import ArchFamily, ModelConfig, ShapeCell
+from repro_torch.distributed import sharding as shd
 from repro_torch.models import encdec, hybrid, layers as L, transformer
 from repro_torch.models.mamba2 import mamba2_init_state
 
@@ -60,21 +62,29 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
 
 #: the ROADMAP.md item that brings the rest of the model axis
 ITEM_15 = "ROADMAP.md Queue 1 item 15"
+#: the leaves that may stay whole under a sharded computation: a
+#: vocabulary the axis does not divide (``layers.vocab_group``)
+WHOLE_OK = ("embed.table", "unembed.table")
 
 
 def check_model_axis(cfg: ModelConfig, model: int) -> None:
-    """Raise ``NotImplementedError`` for an arch this port does not run
-    over a model axis of `model` > 1 ranks: the MoE (expert parallelism),
-    the SSM, the hybrid and the encoder-decoder wait for ROADMAP.md Queue 1
-    item 15; the dense decoder-only archs (and the VLM's decoder) run."""
+    """Raise ``NotImplementedError`` naming the leaf and the axis where the
+    port cannot run `cfg` over a model axis of `model` > 1 ranks: a leaf
+    the rules place over ``"model"`` whose dim the axis does not divide
+    (``param_spec`` then keeps it whole), other than a vocabulary table.
+    No published or reduced config meets one at model 2-16."""
     if model <= 1:
         return
-    if cfg.family not in (ArchFamily.DENSE, ArchFamily.VLM) \
-            or cfg.moe.enabled:
-        raise NotImplementedError(
-            f"{cfg.name} ({cfg.family.value}) over a 'model' axis of "
-            f"{model}: only the dense decoder-only archs run tensor-"
-            f"parallel so far ({ITEM_15})")
+    specs = shd.param_specs(cfg.param_shapes(), fsdp=False,
+                            mesh_shape={"model": model})
+    for k, shape in cfg.param_shapes().items():
+        if (k not in WHOLE_OK and "model" not in specs[k]
+                and shd.model_tagged(k, len(shape))):
+            raise NotImplementedError(
+                f"{cfg.name}: leaf {k} {tuple(shape)} over a 'model' axis "
+                f"of {model}: the axis divides none of its sharded dims, "
+                "so param_spec keeps it whole, and the port runs no such "
+                "layout")
 
 
 def _frames(cfg: ModelConfig, batch: Dict[str, torch.Tensor]
@@ -175,9 +185,10 @@ def _embed_input(cfg: ModelConfig, params: Dict[str, torch.Tensor],
 
 def _final_hidden(cfg: ModelConfig, params: Dict[str, torch.Tensor],
                   batch: Dict[str, torch.Tensor], hook, remat: str, tp=None
-                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(the final-normed stream (B,S,d), aux_loss, the unembedding table):
-    the family's stack, each block under `remat` (over a model group `tp`,
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, Any]:
+    """(the final-normed stream (B,S,d), aux_loss, the unembedding table,
+    the model group its vocabulary is sharded over or None): the family's
+    stack, each block under `remat` (over a model group `tp`,
     tensor-parallel)."""
     tp = L.model_group(tp)
     if tp is not None:
@@ -186,29 +197,32 @@ def _final_hidden(cfg: ModelConfig, params: Dict[str, torch.Tensor],
         top = {k: v for k, v in params.items()
                if not k.startswith(("layers.", "encoder."))}
         params = {**params, **hook(top, "top")}
+    table = params.get("unembed.table", params["embed.table"])
+    vtp = L.vocab_group(table, cfg.vocab_size, tp)
     aux = None
     if cfg.family == ArchFamily.AUDIO:
         enc = encdec.encoder_forward(params, _frames(cfg, batch), cfg,
-                                     hook=hook, remat=remat)
-        h = L.embed_tokens(params["embed.table"], batch["tokens"])
+                                     hook=hook, remat=remat, tp=tp)
+        h = L.embed_tokens(params["embed.table"], batch["tokens"], vtp)
         pos = torch.arange(h.shape[1], device=h.device)
         h = h + L.sinusoidal_positions(pos, cfg.d_model).to(h.dtype)
         h = encdec.decoder_forward(params, h, enc, cfg, hook=hook,
-                                   remat=remat)
+                                   remat=remat, tp=tp)
     elif cfg.family == ArchFamily.SSM:
-        h = _embed_input(cfg, params, batch)
-        h = hybrid.mamba_stack(params, h, cfg, hook=hook, remat=remat)
+        h = _embed_input(cfg, params, batch, vtp)
+        h = hybrid.mamba_stack(params, h, cfg, hook=hook, remat=remat, tp=tp)
     elif cfg.family == ArchFamily.HYBRID:
-        h = _embed_input(cfg, params, batch)
-        h = hybrid.hybrid_forward(params, h, cfg, hook=hook, remat=remat)
+        h = _embed_input(cfg, params, batch, vtp)
+        h = hybrid.hybrid_forward(params, h, cfg, hook=hook, remat=remat,
+                                  tp=tp)
     else:
-        h = _embed_input(cfg, params, batch, tp)
+        h = _embed_input(cfg, params, batch, vtp)
         h, aux = transformer.decoder_stack(params, h, cfg, hook=hook,
                                            remat=remat, tp=tp)
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
     h = L.rms_norm(h, params["final_norm.scale"], cfg.norm_eps)
-    return h, aux, params.get("unembed.table", params["embed.table"])
+    return h, aux, table, vtp
 
 
 def forward_logits(cfg: ModelConfig, params: Dict[str, torch.Tensor],
@@ -223,9 +237,10 @@ def forward_logits(cfg: ModelConfig, params: Dict[str, torch.Tensor],
     (``core.majority_vote.make_fsdp_hooks``): applied to the top-level
     parameters here and to each layer's inside the decoder stack. Over a
     model group `tp` the logits are the rank's vocab shard (B,S,V/m), as
-    the reference's ``shard(logits, BATCH, None, "model")``."""
-    h, aux, table = _final_hidden(cfg, params, batch, hook, remat, tp)
-    return L.unembed(table, h, tp), aux
+    the reference's ``shard(logits, BATCH, None, "model")`` (whole where
+    the table is whole)."""
+    h, aux, table, vtp = _final_hidden(cfg, params, batch, hook, remat, tp)
+    return L.unembed(table, h, vtp), aux
 
 
 def loss_fn(cfg: ModelConfig, params: Dict[str, torch.Tensor],
@@ -234,14 +249,14 @@ def loss_fn(cfg: ModelConfig, params: Dict[str, torch.Tensor],
     """``ce + aux`` and {"ce", "aux"}: next-token CE over the tokens (for
     the VLM over the text segment only, the last ``len(tokens)``
     positions, whose logits alone are made) and the MoE aux loss. Over a
-    model group `tp` the CE is vocab-parallel and every model rank's loss
-    is the same."""
-    h, aux, table = _final_hidden(cfg, params, batch, hook, remat, tp)
+    model group `tp` the CE is vocab-parallel (plain, where the table is
+    whole) and every model rank's loss is the same."""
+    h, aux, table, vtp = _final_hidden(cfg, params, batch, hook, remat, tp)
     tokens = batch["tokens"]
     if cfg.family == ArchFamily.VLM and "patch_embeds" in batch:
         h = h[:, -tokens.shape[1]:]
-    ce = L.cross_entropy_loss(L.unembed(table, h, tp)[:, :-1],
-                              tokens[:, 1:], tp)
+    ce = L.cross_entropy_loss(L.unembed(table, h, vtp)[:, :-1],
+                              tokens[:, 1:], vtp)
     return ce + aux, {"ce": ce, "aux": aux}
 
 
@@ -285,44 +300,61 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 def _logits(cfg: ModelConfig, params: Dict[str, torch.Tensor],
             h: torch.Tensor, tp=None) -> torch.Tensor:
     h = L.rms_norm(h, params["final_norm.scale"], cfg.norm_eps)
-    return L.unembed(params.get("unembed.table", params["embed.table"]), h,
-                     tp)
+    table = params.get("unembed.table", params["embed.table"])
+    return L.unembed(table, h, L.vocab_group(table, cfg.vocab_size, tp))
+
+
+def _zeros(name: str, shape, dtype, device) -> torch.Tensor:
+    return torch.zeros(shape, dtype=dtype, device=device)
 
 
 @torch.no_grad()
 def prefill(cfg: ModelConfig, params: Dict[str, torch.Tensor],
-            batch: Dict[str, torch.Tensor], tp=None, keep=None, hook=None
-            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+            batch: Dict[str, torch.Tensor], tp=None, keep=None, hook=None,
+            zeros=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Run the prompt: (logits (B, S, V), its cache). The decoder-only
     families fill the cache from the forward pass (S positions); see the
-    module doc for the others'. Over a model group `tp` (the dense
-    decoder-only archs) the logits are the rank's vocab shard and
-    `keep(name, t)` cuts each layer's K / V to the rank's block of the
-    cache; `hook` is the ZeRO-3 gather of FSDP-sharded parameters (the
-    reference's sharded prefill)."""
+    module doc for the others'. Over a model group `tp` the logits are the
+    rank's vocab shard (whole where the table is), `keep(name, t)` cuts
+    each layer's K / V (and the cross cache's) to the rank's block of the
+    cache and `zeros(name, global_shape, dtype, device)` makes the rank's
+    block of a zero leaf; `hook` is the ZeRO-3 gather of FSDP-sharded
+    parameters (the reference's sharded prefill)."""
     tp = L.model_group(tp)
     if tp is not None:
         check_model_axis(cfg, tp.model)
+    keep = keep or (lambda name, t: t)
+    zeros = zeros or _zeros
     tokens = batch["tokens"]
     B, S = tokens.shape
     dev = tokens.device
+    if cfg.family in (ArchFamily.SSM, ArchFamily.HYBRID, ArchFamily.AUDIO):
+        cache = {k: zeros(k, tuple(v.shape), v.dtype, dev) for k, v in
+                 init_cache(cfg, B, S, device="meta").items()}
+        if cfg.family != ArchFamily.AUDIO:
+            h, _, table, vtp = _final_hidden(cfg, params, batch, hook,
+                                             "none", tp)
+            return L.unembed(table, h, vtp), cache
+    if hook is not None:
+        top = {k: v for k, v in params.items()
+               if not k.startswith(("layers.", "encoder."))}
+        params = {**params, **hook(top, "top")}
     if cfg.family == ArchFamily.AUDIO:
-        enc = encdec.encoder_forward(params, _frames(cfg, batch), cfg)
-        xk, xv = encdec.encdec_precompute_cross(params, enc, cfg)
-        h = L.embed_tokens(params["embed.table"], tokens)
+        enc = encdec.encoder_forward(params, _frames(cfg, batch), cfg,
+                                     hook=hook, tp=tp)
+        xk, xv = encdec.encdec_precompute_cross(params, enc, cfg, tp, hook)
+        cache["xk"] = torch.stack([keep("xk", t) for t in xk])
+        cache["xv"] = torch.stack([keep("xv", t) for t in xv])
+        table = params["embed.table"]
+        h = L.embed_tokens(table, tokens,
+                           L.vocab_group(table, cfg.vocab_size, tp))
         h = h + L.sinusoidal_positions(torch.arange(S, device=dev),
                                        cfg.d_model).to(h.dtype)
-        h = encdec.decoder_forward(params, h, enc, cfg)
-        cache = init_cache(cfg, B, S, device=dev)
-        cache["xk"], cache["xv"] = xk, xv
-        return _logits(cfg, params, h), cache
-    if cfg.family in (ArchFamily.SSM, ArchFamily.HYBRID):
-        logits, _ = forward_logits(cfg, params, batch)
-        return logits, init_cache(cfg, B, S, device=dev)
-    if hook is not None:
-        top = {k: v for k, v in params.items() if not k.startswith("layers.")}
-        params = {**params, **hook(top, "top")}
-    h = _embed_input(cfg, params, batch, tp)
+        h = encdec.decoder_forward(params, h, enc, cfg, hook=hook, tp=tp)
+        return _logits(cfg, params, h, tp), cache
+    table = params["embed.table"]
+    h = _embed_input(cfg, params, batch,
+                     L.vocab_group(table, cfg.vocab_size, tp))
     h, cache = transformer.decoder_prefill(params, h, cfg, tp=tp, keep=keep,
                                            hook=hook)
     return _logits(cfg, params, h, tp), cache
@@ -331,38 +363,42 @@ def prefill(cfg: ModelConfig, params: Dict[str, torch.Tensor],
 @torch.no_grad()
 def decode_step(cfg: ModelConfig, params: Dict[str, torch.Tensor],
                 tokens: torch.Tensor, cache: Dict[str, torch.Tensor], pos,
-                tp=None, seq_names=(), seq_len: int = 0
+                tp=None, seq_names=(), seq_len: int = 0, cross_names=()
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """tokens (B, 1); `pos` one position (an int or a 0-d tensor) or one a
     row (B,) -> (logits (B, V), cache). The cache is advanced in place.
-    Over a model group `tp` (the dense decoder-only archs) the logits are
-    the rank's vocab shard and the cache its block of the serving layout
-    (``transformer.decoder_decode_step``)."""
+    Over a model group `tp` the logits are the rank's vocab shard (whole
+    where the table is) and the cache its block of the serving layout:
+    the self-attention cache's rows those the axes `seq_names` give it
+    within its `seq_len` (``layers.decode_self_attention``), the cross
+    cache's those of `cross_names`."""
     tp = L.model_group(tp)
     if tp is not None:
         check_model_axis(cfg, tp.model)
-        h = L.embed_tokens(params["embed.table"], tokens, tp)
-        h, cache = transformer.decoder_decode_step(
-            params, h, cache, pos, cfg, tp=tp, seq_names=seq_names,
-            seq_len=seq_len)
-        return _logits(cfg, params, h, tp)[:, 0], cache
-    h = L.embed_tokens(params["embed.table"], tokens)
+    table = params["embed.table"]
+    h = L.embed_tokens(table, tokens, L.vocab_group(table, cfg.vocab_size,
+                                                    tp))
     if cfg.family == ArchFamily.AUDIO:
         posv = torch.as_tensor(pos, device=h.device).reshape(-1)
         h = h + L.sinusoidal_positions(posv, cfg.d_model)[:, None].to(
             h.dtype)
-        h, cache = encdec.encdec_decode_step(params, h, cache, pos, cfg)
+        h, cache = encdec.encdec_decode_step(
+            params, h, cache, pos, cfg, tp=tp, seq_names=seq_names,
+            seq_len=seq_len, cross_names=cross_names)
     elif cfg.family == ArchFamily.SSM:
         h = hybrid.mamba_decode_layers(
             hybrid._unbound_layers(params), h,
             {k: v.unbind(0) for k, v in cache.items()}, cfg, 0,
-            cfg.num_layers)
+            cfg.num_layers, tp)
     elif cfg.family == ArchFamily.HYBRID:
-        h, cache = hybrid.hybrid_decode_step(params, h, cache, pos, cfg)
+        h, cache = hybrid.hybrid_decode_step(params, h, cache, pos, cfg,
+                                             tp=tp, seq_names=seq_names,
+                                             seq_len=seq_len)
     else:
-        h, cache = transformer.decoder_decode_step(params, h, cache, pos,
-                                                   cfg)
-    return _logits(cfg, params, h)[:, 0], cache
+        h, cache = transformer.decoder_decode_step(
+            params, h, cache, pos, cfg, tp=tp, seq_names=seq_names,
+            seq_len=seq_len)
+    return _logits(cfg, params, h, tp)[:, 0], cache
 
 
 # ---------------------------------------------------------------------------

@@ -19,6 +19,11 @@ at a time in the activations' dtype from zeros: the reference's
 slot map (:class:`_Dispatch`, :class:`_Combine`), so no ``index_add_`` or
 atomic scatter runs and two runs of a step on the card are bit-equal.
 None of this is a kernel: the reference's MoE is jnp.
+
+Over a model group (`tp`; ``distributed.tensor_parallel``) the routing is
+computed replicated and a rank runs its experts (EP) or its d_ff columns
+of every expert (M2); its weighted slots are added in slot order into a
+float32 partial that one sum over the group closes.
 """
 from __future__ import annotations
 
@@ -28,7 +33,8 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import swiglu_mlp
+from repro_torch.distributed import tensor_parallel as tpar
+from repro_torch.models.layers import model_group, swiglu_mlp
 
 
 def _capacity(num_tokens: int, num_experts: int, top_k: int,
@@ -138,7 +144,8 @@ def dispatch_plan(experts: torch.Tensor, num_experts: int, capacity: int
 
 
 def moe_ffn(p: Dict[str, torch.Tensor], x: torch.Tensor, moe_cfg,
-            min_capacity: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+            min_capacity: int = 0, tp=None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B,S,d) -> (out (B,S,d), aux loss times ``router_aux_weight``).
 
     Expects router_w (d,E), experts_w_gate/up (E,d,f), experts_w_down
@@ -147,7 +154,8 @@ def moe_ffn(p: Dict[str, torch.Tensor], x: torch.Tensor, moe_cfg,
     microbatch alone, as each replica's is in the reference. An expert
     holds at least `min_capacity` slots: the serving engine's decode
     passes its batch, so that no slot's token is dropped, as none is when
-    the reference decodes each slot as a batch of one."""
+    the reference decodes each slot as a batch of one. Over a model group
+    `tp` the expert leaves are the rank's blocks (:func:`_tp_routed`)."""
     B, S, d = x.shape
     T = B * S
     E, k = moe_cfg.num_experts, moe_cfg.top_k
@@ -159,8 +167,21 @@ def moe_ffn(p: Dict[str, torch.Tensor], x: torch.Tensor, moe_cfg,
     plan = dispatch_plan(experts, E, C)
     # each buffer place's routing weight (0 where empty); the scatter's
     # backward is a gather, and a dropped slot's weight gets no gradient
+    tp = model_group(tp)
+    if tp is not None:
+        # the rank's slots take a partial of the weights' cotangent
+        weights = tpar.copy_to_model(weights, tp)
     buf_weight = weights.new_zeros(E * C + 1).scatter(
         0, plan["dest"], weights.reshape(-1)[plan["order"]])[:E * C]
+
+    if tp is not None:
+        out = _tp_routed(p, xt, plan, buf_weight, moe_cfg, C, tp)
+        if "shared_w_gate" in p:
+            shared = swiglu_mlp(p, "shared", x, tp).reshape(T, d)
+            gate_logit = xt @ p["shared_gate_w"]
+            out = out + torch.sigmoid(gate_logit.to(torch.float32)).to(
+                shared.dtype) * shared
+        return out.reshape(B, S, d), aux * moe_cfg.router_aux_weight
 
     expert_in = _Dispatch.apply(xt, plan["buf_token"], plan["slots"])
     expert_in = expert_in.view(E, C, d)
@@ -179,3 +200,54 @@ def moe_ffn(p: Dict[str, torch.Tensor], x: torch.Tensor, moe_cfg,
             shared.dtype) * shared
 
     return out.reshape(B, S, d), aux * moe_cfg.router_aux_weight
+
+
+def moe_form(moe_cfg, model: int) -> str:
+    """How the experts split over a model axis of `model` ranks, as
+    ``param_spec`` lays their leaves out: "EP" (whole experts a rank) when
+    the experts divide it, else "M2" (every expert's d_ff columns) when
+    d_ff does, else "whole"."""
+    if moe_cfg.num_experts % model == 0:
+        return "EP"
+    return "M2" if moe_cfg.expert_d_ff % model == 0 else "whole"
+
+
+def _tp_routed(p: Dict[str, torch.Tensor], xt: torch.Tensor, plan,
+               buf_weight: torch.Tensor, moe_cfg, C: int, tp
+               ) -> torch.Tensor:
+    """The routed experts' output (T, d) over the model group `tp`: the
+    rank's experts (EP: rows ``[e0 C, (e0 + E/m) C)`` of the buffer, each
+    expert's GEMMs as the unsharded block runs them, in the activations'
+    dtype) or every expert's d_ff columns (M2: gate and up on the rank's
+    columns, down a float32 partial); the weighted slots added in slot
+    order into a float32 (T, d) partial, summed over the group in model-
+    index order and rounded once. The tokens enter in float32, so their
+    cotangent (a partial of the rank's slots) is summed over the group."""
+    T, d = xt.shape
+    E, dt = moe_cfg.num_experts, xt.dtype
+    e_loc = p["experts_w_gate"].shape[0]
+    if e_loc == E and p["experts_w_gate"].shape[-1] == moe_cfg.expert_d_ff:
+        raise NotImplementedError(
+            f"the experts over a 'model' axis of {tp.model}: neither the "
+            f"{E} experts nor their d_ff {moe_cfg.expert_d_ff} divide it")
+    e0 = 0 if e_loc == E else tp.axis_index("model") * e_loc
+    lo, hi = e0 * C, (e0 + e_loc) * C
+    slots = plan["slots"]
+    # the token's places outside the rank's rows point at the zero row
+    local = torch.where((slots >= lo) & (slots < hi), slots - lo,
+                        torch.full_like(slots, hi - lo))
+    buf_token = plan["buf_token"][lo:hi]
+    expert_in = _Dispatch.apply(tpar.enter_model(xt, tp), buf_token, local)
+    expert_in = expert_in.to(dt).view(e_loc, C, d)
+    gate = torch.bmm(expert_in, p["experts_w_gate"])
+    up = torch.bmm(expert_in, p["experts_w_up"])
+    h = F.silu(gate) * up
+    w = buf_weight[lo:hi].view(e_loc, C, 1)
+    if e_loc == E:   # M2: the rank's d_ff rows of w_down, a partial
+        f32 = torch.float32
+        out = torch.bmm(h.to(f32), p["experts_w_down"].to(f32)) * w
+    else:
+        out = torch.bmm(h, p["experts_w_down"])
+        out = (out * w.to(out.dtype)).to(torch.float32)
+    part = _Combine.apply(out.view(e_loc * C, d), local, buf_token)
+    return tpar.reduce_from_model(part, tp, dt)

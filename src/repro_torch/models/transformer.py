@@ -21,8 +21,9 @@ The decode step updates the cache in place, one layer's slice at a time,
 as the reference carries it through a ``fori_loop`` so that a multi-GB
 cache never exists twice.
 
-Over a mesh's model axis (`tp`, ``distributed.tensor_parallel``) the dense
-block runs tensor-parallel on the rank's weight slices; the residual
+Over a mesh's model axis (`tp`, ``distributed.tensor_parallel``) the
+block runs tensor-parallel on the rank's weight slices (an MoE block's
+experts in the EP or M2 form, ``models.moe``); the residual
 stream stays whole on every rank (the reference's ``residual_shard`` is a
 layout hint, an identity on the function). The serving cache is then the
 rank's block of ``train.serve_step``'s layout.
@@ -103,7 +104,7 @@ def decoder_block(lp: Dict[str, torch.Tensor], h: torch.Tensor, cfg, *,
     h = h + attn_out
     ffn_in = L.rms_norm(h, lp["norm2_scale"], cfg.norm_eps)
     if cfg.moe.enabled:
-        ffn_out, aux = moe_ffn(lp, ffn_in, cfg.moe)
+        ffn_out, aux = moe_ffn(lp, ffn_in, cfg.moe, tp=tp)
     else:
         ffn_out = L.swiglu_mlp(lp, "mlp", ffn_in, tp)
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
@@ -188,7 +189,8 @@ def _ffn(layer_p: Dict[str, torch.Tensor], x: torch.Tensor, cfg,
          min_capacity: int = 0, tp=None) -> torch.Tensor:
     """The block's FFN without its aux loss: the MoE block or the MLP."""
     if cfg.moe.enabled:
-        return moe_ffn(layer_p, x, cfg.moe, min_capacity=min_capacity)[0]
+        return moe_ffn(layer_p, x, cfg.moe, min_capacity=min_capacity,
+                       tp=tp)[0]
     return L.swiglu_mlp(layer_p, "mlp", x, tp)
 
 

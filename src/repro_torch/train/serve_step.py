@@ -7,9 +7,9 @@ runs them eagerly, the decode step writing its cache in place as the
 reference donates it, so a multi-GB cache never exists twice.
 
 Over a ``distributed.mesh.ProcessMesh`` (``mesh=``; every rank calls the
-step in lockstep) the dense decoder-only archs run tensor-parallel over
-its ``"model"`` axis (``distributed.tensor_parallel``). The layouts are
-the reference's, as tuple specs (``distributed.sharding``):
+step in lockstep) every arch runs tensor-parallel over its ``"model"``
+axis (``distributed.tensor_parallel``). The layouts are the reference's,
+as tuple specs (``distributed.sharding``):
 
 * the parameters: ``serve_param_shardings``, the training layout
   (``sharding.param_specs``, with or without fsdp);
@@ -17,7 +17,11 @@ the reference's, as tuple specs (``distributed.sharding``):
   ``cache_leaf_spec``, the batch over the vote axes when it divides
   (``batch_entry``), the heads over ``"model"`` when they divide, else the
   sequence (over ``("data", "model")`` at batch 1), read by the sharded
-  flash decode (``models.layers``).
+  flash decode (``models.layers``); the hybrid's ``attn_k`` / ``attn_v``
+  and whisper's cross cache ``xk`` / ``xv`` alike (a sequence-sharded
+  cross cache read by the same online softmax, unmasked);
+* an SSM state ``ssm`` (L, B, H, P, N): heads over ``"model"``; its conv
+  window ``conv`` (L, B, W-1, conv_dim): channels over ``"model"``.
 
 A rank holds its block of each (``sharding.shard_tree`` cuts full
 parameters or caches into it). The decode step takes the global tokens
@@ -31,12 +35,10 @@ the batch axes. A prefill's logits stay the rank's vocab shard (B, S,
 V / model), as the reference's stay sharded over "model" (``shard(logits,
 BATCH, None, "model")``): a (B, S, V) tensor on every rank would be the
 largest of the step; :func:`gather_vocab` joins the positions a caller
-needs. :func:`make_cache_rehome`
-moves a prefill cache into a decode cache of ``max_len`` rows, each row to
-the rank that owns it. The MoE, SSM, hybrid and encoder-decoder archs
-over a model axis raise (``models.model.check_model_axis``, ROADMAP.md
-Queue 1 item 15). The reference's engine and launchers serve on one
-device, and so do the port's.
+needs (a vocabulary the axis does not divide stays whole: whisper's).
+:func:`make_cache_rehome` moves a prefill cache into a decode cache of
+``max_len`` rows, each row to the rank that owns it. The reference's
+engine and launchers serve on one device, and so do the port's.
 """
 from __future__ import annotations
 
@@ -128,27 +130,38 @@ def _axes_of(entry) -> Tuple[str, ...]:
     return tuple(entry) if isinstance(entry, tuple) else (entry,)
 
 
-def _global_shape(cfg: ModelConfig, local: Tuple[int, ...], batch: int,
-                  seq: int) -> Tuple[int, ...]:
-    """The global shape (L, B, S, K[, hd]) of an attention cache leaf
-    whose rank block has shape `local` (a block's rows alone cannot tell
-    an unsharded short cache from a sharded one: the caller names S)."""
-    return (local[0], batch, seq, cfg.num_kv_heads) + tuple(local[4:])
+def _global_shapes(cfg: ModelConfig, batch: int, seq: int,
+                   src: int = 0) -> Dict[str, Tuple[int, ...]]:
+    """The global shape of every cache leaf of a cache of `seq` rows for
+    `batch` sequences (a block's shape alone cannot tell an unsharded
+    short cache from a sharded one: the caller names them), the cross
+    cache over `src` source rows (default ``max_source_positions``)."""
+    out = {k: tuple(v.shape) for k, v in M.init_cache(
+        cfg, batch, seq, device="meta").items()}
+    for k in ("xk", "xv"):
+        if k in out and src:
+            out[k] = out[k][:2] + (src,) + out[k][3:]
+    return out
+
+
+def _block_shape(shape: Tuple[int, ...], spec, mesh) -> Tuple[int, ...]:
+    return tuple(n // c for n, (_, c) in zip(
+        shape, shd.spec_block(spec, mesh.coords, mesh.axis_sizes)))
 
 
 def _keep(cfg: ModelConfig, mesh: pm.ProcessMesh, batch: int, seq: int,
-          local_batch: bool) -> Callable:
-    """`keep(name, t)` for ``model.prefill``: a layer's K / V (B, S, K', hd)
-    or scales (B, S, K') cut to the rank's block of the cache layout (the
-    heads are already the rank's in the grouped form; with `local_batch`
-    the rows are already the rank's)."""
+          local_batch: bool, src: int = 0) -> Callable:
+    """`keep(name, t)` for ``model.prefill``: a layer's K / V (B, S, K',
+    hd), scales (B, S, K') or cross K / V (B, T_src, K', hd) cut to the
+    rank's block of the cache layout (the heads are already the rank's
+    when they divide the axis; with `local_batch` the rows are already
+    the rank's)."""
     sizes, coords = mesh.axis_sizes, mesh.coords
     grouped = cfg.num_kv_heads % mesh.model == 0
+    shapes = _global_shapes(cfg, batch, seq, src)
 
     def keep(name: str, t: torch.Tensor) -> torch.Tensor:
-        shape = (cfg.num_layers, batch, seq, cfg.num_kv_heads) + tuple(
-            t.shape[3:])
-        spec = list(cache_leaf_spec(name, shape, sizes))
+        spec = list(cache_leaf_spec(name, shapes[name], sizes))
         if grouped:
             spec[3] = None
         if local_batch:
@@ -157,11 +170,24 @@ def _keep(cfg: ModelConfig, mesh: pm.ProcessMesh, batch: int, seq: int,
     return keep
 
 
-def gather_vocab(logits: torch.Tensor, mesh: pm.ProcessMesh
-                 ) -> torch.Tensor:
+def _zero_block(mesh: pm.ProcessMesh, batch: int) -> Callable:
+    """`zeros(name, shape, dtype, device)` for ``model.prefill``: the
+    rank's block of a zero cache leaf of `shape`, its batch `batch` rows
+    globally."""
+    def zeros(name, shape, dtype, device):
+        shape = (shape[0], batch) + tuple(shape[2:])
+        spec = cache_leaf_spec(name, shape, mesh.axis_sizes)
+        return torch.zeros(_block_shape(shape, spec, mesh), dtype=dtype,
+                           device=device)
+    return zeros
+
+
+def gather_vocab(logits: torch.Tensor, mesh: pm.ProcessMesh,
+                 vocab: int = 0) -> torch.Tensor:
     """The full vocabulary of vocab-sharded `logits` (..., V / model),
-    joined over the model group in model-index order."""
-    if mesh.model == 1:
+    joined over the model group in model-index order; logits of a
+    whole-table model (their last dim `vocab`) as they are."""
+    if mesh.model == 1 or logits.shape[-1] == vocab:
         return logits
     return pm.model_gather(logits.contiguous(), mesh, dim=-1)
 
@@ -195,21 +221,25 @@ def make_decode_step(cfg: ModelConfig,
         raise ValueError("a decode step over a mesh needs the cache's "
                          "global length, max_len")
     tp = mesh if mesh.model > 1 else None
+    sizes = mesh.axis_sizes
 
     def step(params, tokens, cache, pos):
         B = tokens.shape[0]
-        shape = _global_shape(cfg, tuple(cache["k"].shape), B, max_len)
-        T = shape[2]
-        spec = cache_leaf_spec("k", shape, mesh.axis_sizes)
-        (bi, bc), (si, sc) = shd.spec_block(spec, mesh.coords,
-                                            mesh.axis_sizes)[1:3]
+        specs = {k: cache_leaf_spec(k, shape, sizes) for k, shape in
+                 _global_shapes(cfg, B, max_len).items()}
+        spec = next(iter(specs.values()))
+        bi, bc = shd.spec_block(spec, mesh.coords, sizes)[1]
         rows = slice(bi * B // bc, (bi + 1) * B // bc)
         pos_t = torch.as_tensor(pos, device=tokens.device)
         pos_loc = pos_t[rows] if pos_t.ndim == 1 else pos
+        attn = next((specs[k] for k in ("k", "attn_k") if k in specs), None)
         logits, cache = M.decode_step(
             cfg, params, tokens[rows], cache, pos_loc, tp=tp,
-            seq_names=_axes_of(spec[2]), seq_len=T)
-        return _gather_rows(gather_vocab(logits, mesh), mesh, spec[1]), cache
+            seq_names=_axes_of(attn[2]) if attn else (), seq_len=max_len,
+            cross_names=(_axes_of(specs["xk"][2]) if "xk" in specs
+                         else ()))
+        return _gather_rows(gather_vocab(logits, mesh, cfg.vocab_size),
+                            mesh, spec[1]), cache
     return step
 
 
@@ -228,9 +258,10 @@ def make_cache_rehome(cfg: ModelConfig, batch: int, max_len: int,
     * a leaf longer than its target on any dim, or a cache whose leaves
       are not the serving cache's, raises ``ValueError``.
     The target lives on each leaf's device. Over `mesh` each leaf is the
-    rank's block of its layout, and ``rehome(cache, seq_len)`` takes the
-    prompt's length: a sequence-sharded prompt is gathered over its axes
-    and each rank keeps the target rows it owns."""
+    rank's block of its layout, and ``rehome(cache, seq_len[, src_len])``
+    takes the prompt's length (and the encoder's source rows, default
+    ``max_source_positions``): a sequence-sharded prompt is gathered over
+    its axes and each rank keeps the target rows it owns."""
     full_abs = M.init_cache(cfg, batch, max_len, device="meta")
 
     def check(cache):
@@ -266,15 +297,19 @@ def make_cache_rehome(cfg: ModelConfig, batch: int, max_len: int,
     M.check_model_axis(cfg, mesh.model)
     sizes, coords = mesh.axis_sizes, mesh.coords
 
-    def rehome(cache: Dict[str, torch.Tensor], seq_len: int
+    def rehome(cache: Dict[str, torch.Tensor], seq_len: int, src_len: int = 0
                ) -> Dict[str, torch.Tensor]:
         check(cache)
+        shapes = _global_shapes(cfg, batch, seq_len, src_len)
         out = {}
         for k, want in full_abs.items():
             src = cache[k].to(want.dtype)
-            shape = _global_shape(cfg, tuple(src.shape), batch, seq_len)
-            S = shape[2]
+            shape = shapes[k]
             fit(k, shape, want.shape)
+            if shape == tuple(want.shape):   # the SSM state, a full cross
+                out[k] = src
+                continue
+            S = shape[2]
             names = _axes_of(cache_leaf_spec(k, shape, sizes)[2])
             if names:
                 src = pm.model_gather(src, mesh, dim=2, names=names)
@@ -309,8 +344,10 @@ def make_prefill(cfg: ModelConfig, cache_shardings_=None,
 
     def step(params, batch):
         B, S = batch["tokens"].shape
+        src = batch["enc_embeds"].shape[1] if "enc_embeds" in batch else 0
         return M.prefill(cfg, params, batch, tp=tp,
-                         keep=_keep(cfg, mesh, B, S, False))
+                         keep=_keep(cfg, mesh, B, S, False, src),
+                         zeros=_zero_block(mesh, B))
     return step
 
 
@@ -341,8 +378,10 @@ def make_prefill_sharded(cfg: ModelConfig, mesh: pm.ProcessMesh, *,
     def step(params, batch):
         mine = {k: v[r * per:(r + 1) * per] for k, v in batch.items()}
         S = batch["tokens"].shape[1]
+        src = batch["enc_embeds"].shape[1] if "enc_embeds" in batch else 0
         return M.prefill(cfg, params, mine, tp=tp, hook=hook,
-                         keep=_keep(cfg, mesh, global_batch, S, True))
+                         keep=_keep(cfg, mesh, global_batch, S, True, src),
+                         zeros=_zero_block(mesh, global_batch))
     return step
 
 

@@ -177,6 +177,9 @@ class StepArtifacts:
     #: of ``param_specs`` it holds; empty for the stacked step)
     mesh_coords: Dict[str, int] = dataclasses.field(default_factory=dict)
     mesh_sizes: Dict[str, int] = dataclasses.field(default_factory=dict)
+    #: whether the momentum is per voter (Mode A with beta > 0: one row a
+    #: voter stacked, a rank's own row over a mesh)
+    per_worker: bool = False
 
     @property
     def fused_leaves(self) -> Tuple[str, ...]:
@@ -510,15 +513,17 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, n_voters: int = 1,
                          data_size=data,
                          mesh_coords=({} if mesh is None
                                       else dict(mesh.coords)),
-                         mesh_sizes={} if mesh is None else sizes)
+                         mesh_sizes={} if mesh is None else sizes,
+                         per_worker=signum.per_worker(opt_cfg))
 
 
 def _check_model_axis(cfg: ModelConfig, tcfg: TrainConfig,
                       model: int) -> None:
     """Raise ``NotImplementedError`` (ROADMAP.md Queue 1 item 15) for what
-    the port does not yet run over a model axis of `model` ranks: an arch
-    other than the dense decoder-only ones, a stochastic or adaptive
-    adversary (at any M; the optimizer refuses a VotePlan there)."""
+    the port does not yet run over a model axis of `model` ranks: a
+    stochastic or adaptive adversary (at any M; the optimizer refuses a
+    VotePlan there); a leaf layout no arch of the repo meets raises in
+    ``models.model.check_model_axis``."""
     M.check_model_axis(cfg, model)
     byz = tcfg.byzantine
     if byz.num_adversaries and (byz.mode in byzantine.STOCHASTIC_MODES

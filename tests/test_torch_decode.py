@@ -512,9 +512,8 @@ def test_rehome_decode_continues_correctly():
 
 
 def test_serve_steps_refuse_a_model_axis():
-    # the dense decoder-only archs serve over a model axis; the MoE, SSM,
-    # hybrid and audio archs refuse, naming the ROADMAP item that brings
-    # them
+    # every arch serves over a model axis (the MoE, SSM, hybrid and audio
+    # archs too, since they left ROADMAP.md Queue 1 item 15)
     from repro_torch.distributed.mesh import ProcessMesh
     from torch_tp_common import assert_serve_builds_and_refusals, fake_world
     _, tc = _cfgs("glm4-9b")

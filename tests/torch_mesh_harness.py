@@ -85,6 +85,8 @@ check raises on its rank and the launch exits non-zero.
 """
 import dataclasses
 import hashlib
+import glob
+import json
 import os
 import pickle
 import sys
@@ -952,6 +954,8 @@ F32_RTOL, F32_ATOL_REL, BF16_ACC_RTOL = 1e-4, 2e-5, 2.0 ** -7
 #: per-voter momentum tells how close it was (Mode B, beta = 0)
 TP_FLIP_SHARE = 1e-3
 TP_GB, TP_SEQ = 8, 16
+#: the encoder-decoder's stubbed frames a row
+TP_FRAMES = 16
 
 
 def _tp_cfgs():
@@ -1019,7 +1023,7 @@ def tp_bytes(cfg, tcfg, mesh) -> int:
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
         __file__))))
     import chip_smoke
-    return chip_smoke.tp_bytes(cfg, tcfg, mesh)
+    return chip_smoke.tp_bytes(cfg, tcfg, mesh, TP_FRAMES)
 
 
 def _tp_join(art, tcfg, mesh, params, state):
@@ -1031,10 +1035,10 @@ def _tp_join(art, tcfg, mesh, params, state):
     from repro_torch.distributed import sharding as shd
     mine = {"params": params, **{k: state[k] for k in (
         "momentum", "error", "delayed") if k in state}}
-    every = [None] * WORLD
-    dist.all_gather_object(every, {k: {n: t.clone() for n, t in v.items()}
-                                   for k, v in mine.items()})
-    trees = [every[r] for r in mesh.ranks]
+    from repro_torch.checkpoint.checkpoint import _gather_objects
+    # every rank of the mesh's blocks, in its rank order
+    trees = _gather_objects({k: {n: t.clone() for n, t in v.items()}
+                             for k, v in mine.items()}, mesh)
     specs, sizes = art.param_specs, art.mesh_sizes
     full = shd.join_shards([t["params"] for t in trees], specs, sizes=sizes)
     out = {"count": state["count"]}
@@ -1076,13 +1080,128 @@ def _flippable(twin_state, twin_params, k, error0):
     return (a < TP_FLIP_FRACTION * a.max()).any(dim=0)
 
 
-def check_tp(rank):
-    from repro_torch.core import signum
+def tp_batch(cfg, tcfg, pipe, step):
+    """Step `step`'s global batch: the pipeline's tokens, and a seeded
+    patch prefix (the VLM) or seeded frames (the encoder-decoder)."""
+    batch = {"tokens": pipe.global_batch_at(step)["tokens"]}
+    gen = torch.Generator().manual_seed(step)
+    if cfg.family.value == "vlm":
+        batch["patch_embeds"] = torch.randn(
+            (tcfg.global_batch, 4, cfg.d_model), generator=gen)
+    if cfg.family.value == "audio":
+        batch["enc_embeds"] = torch.randn(
+            (tcfg.global_batch, TP_FRAMES, cfg.d_model), generator=gen)
+    return batch
+
+
+def tp_train_case(label, mesh, cfg, tcfg, record=None, routes=None):
+    """STEPS steps of the model-axis train step over `mesh`, each from the
+    state its stacked twin takes too (the mesh's, joined), held to the
+    twin as ``check_tp`` sets out; `record`, when given, is called with
+    (step, mesh params, mesh state) after each step. Returns the count of
+    coordinates whose vote flipped."""
     from repro_torch.data.pipeline import SyntheticLMPipeline
     from repro_torch.distributed import mesh as pm
     from repro_torch.distributed import sharding as shd
-    from repro_torch.distributed.mesh import ProcessMesh
     from repro_torch.train import train_step as TS
+    twin = TS.make_train_step(cfg, tcfg, mesh.size, device="cpu")
+    art = TS.make_train_step(cfg, tcfg, device="cpu", mesh=mesh)
+    params, state = TS.materialize_state(
+        cfg, tcfg, art, torch.Generator().manual_seed(0))
+    pipe = SyntheticLMPipeline(cfg, tcfg.global_batch, TP_SEQ, seed=0)
+    coords, sizes = art.mesh_coords, art.mesh_sizes
+    voter = mesh.replica_index()
+    n_flips = 0
+    for step in range(STEPS):
+        # each step from one start: the twin takes the mesh's state
+        tparams, tstate = _tp_join(art, tcfg, mesh, params, state)
+        error0 = {k: v.clone() for k, v in tstate.get("error",
+                                                     {}).items()}
+        batch = tp_batch(cfg, tcfg, pipe, step)
+        mesh.reset_stats()
+        if routes is not None:
+            routes.calls.clear()
+        params, state, met = art.step_fn(params, state, batch, step)
+        ours = list(routes.calls) if routes is not None else None
+        tparams, tstate, tmet = twin.step_fn(tparams, tstate, batch,
+                                             step)
+        if routes is not None:
+            routes.flips += route_flips(label, ours,
+                                        routes.calls[len(ours):], voter,
+                                        mesh.size)
+        # the model group's bytes, counted from the layout
+        if mesh.model_stats.bytes != tp_bytes(cfg, tcfg, mesh):
+            raise AssertionError(
+                f"tp {label} step {step}: the model group took "
+                f"{mesh.model_stats.bytes} bytes, the layout's count "
+                f"is {tp_bytes(cfg, tcfg, mesh)}")
+        for key in ("loss", "ce", "vote_agreement", "vote_margin"):
+            if key in tmet:
+                got, exp = float(met[key]), float(tmet[key])
+                if abs(got - exp) > 1e-5 * abs(exp) + (
+                        0 if key in ("loss", "ce") else 1e-3):
+                    raise AssertionError(f"tp {label} step {step}: "
+                                         f"{key} {got} != twin {exp}")
+        for k, p in params.items():
+            spec = art.param_specs[k]
+
+            def blk(t):
+                return shd.shard_leaf(t, spec, coords, sizes)
+            w = blk(tparams[k])
+            bad = ~torch.isclose(p, w, rtol=1e-5, atol=1e-6)
+            n_bad = int(bad.sum())
+            fl = _flippable(tstate, tparams, k, error0)
+            if n_bad and fl is not None:
+                lost = bad & ~blk(fl)
+                if bool(lost.any()):
+                    raise AssertionError(
+                        f"tp {label} step {step} {k}: "
+                        f"{int(lost.sum())} coordinates differ where "
+                        "no voter's |m'| was near zero")
+            elif n_bad > TP_FLIP_SHARE * p.numel():
+                raise AssertionError(
+                    f"tp {label} step {step} {k}: {n_bad} of "
+                    f"{p.numel()} coordinates differ")
+            n_flips += n_bad
+            for key in ("momentum", "error"):
+                if k not in state.get(key, {}):
+                    continue
+                t = tstate[key][k]
+                t = t[voter] if t.dim() > tparams[k].dim() else t
+                t = blk(t).float()
+                g = state[key][k].float()
+                acc = tcfg.microbatches > 1
+                rtol = BF16_ACC_RTOL if acc else F32_RTOL
+                ok = torch.isclose(g, t, rtol=rtol, atol=max(
+                    1e-6, (BF16_ACC_RTOL if acc else F32_ATOL_REL)
+                    * float(t.abs().max())))
+                # a flipped vote moves the residual (Mode B: the
+                # momentum) at its coordinate
+                ok |= bad.view(ok.shape)
+                if not bool(ok.all()):
+                    raise AssertionError(
+                        f"tp {label} step {step} {key} {k}: "
+                        f"{int((~ok).sum())} coordinates out of the "
+                        f"families' tolerance: {g[~ok][:4].tolist()} "
+                        f"against {t[~ok][:4].tolist()} (largest "
+                        f"{float(t.abs().max())})")
+        # replicated leaves bit-equal over the model group
+        for k, p in params.items():
+            if "model" in art.param_specs[k] or mesh.model == 1:
+                continue
+            every = pm.model_gather(p.reshape(1, -1), mesh, dim=0)
+            if not bool((every == p.reshape(1, -1)).all()):
+                raise AssertionError(f"tp {label} step {step}: "
+                                     f"replicated {k} differs over the "
+                                     "model group")
+        if record is not None:
+            record(step, params, state)
+    return n_flips
+
+
+def check_tp(rank):
+    from repro_torch.distributed import mesh as pm
+    from repro_torch.distributed.mesh import ProcessMesh
     meshes = {name: ProcessMesh(shape, axes)
               for name, shape, axes in TP_MESHES}
     # a float sum over more than two ranks by blocks (an all-to-all) is the
@@ -1101,96 +1220,8 @@ def check_tp(rank):
     # ranks (the card's prefill sizes do; these small ones would not)
     pm.A2A_MIN_BYTES = 0
     for label, mname, opt, extra in _tp_cfgs():
-        mesh = meshes[mname]
         cfg, tcfg = _tp_pair(opt, extra)
-        twin = TS.make_train_step(cfg, tcfg, mesh.size, device="cpu")
-        art = TS.make_train_step(cfg, tcfg, device="cpu", mesh=mesh)
-        params, state = TS.materialize_state(
-            cfg, tcfg, art, torch.Generator().manual_seed(0))
-        pipe = SyntheticLMPipeline(cfg, tcfg.global_batch, TP_SEQ, seed=0)
-        coords, sizes = art.mesh_coords, art.mesh_sizes
-        voter = mesh.replica_index()
-        n_flips = 0
-        for step in range(STEPS):
-            # each step from one start: the twin takes the mesh's state
-            tparams, tstate = _tp_join(art, tcfg, mesh, params, state)
-            error0 = {k: v.clone() for k, v in tstate.get("error",
-                                                         {}).items()}
-            batch = {"tokens": pipe.global_batch_at(step)["tokens"]}
-            if cfg.family.value == "vlm":   # a seeded patch prefix
-                batch["patch_embeds"] = torch.randn(
-                    (tcfg.global_batch, 4, cfg.d_model),
-                    generator=torch.Generator().manual_seed(step))
-            mesh.reset_stats()
-            params, state, met = art.step_fn(params, state, batch, step)
-            tparams, tstate, tmet = twin.step_fn(tparams, tstate, batch,
-                                                 step)
-            # the model group's bytes, counted from the layout
-            if mesh.model_stats.bytes != tp_bytes(cfg, tcfg, mesh):
-                raise AssertionError(
-                    f"tp {label} step {step}: the model group took "
-                    f"{mesh.model_stats.bytes} bytes, the layout's count "
-                    f"is {tp_bytes(cfg, tcfg, mesh)}")
-            for key in ("loss", "ce", "vote_agreement", "vote_margin"):
-                if key in tmet:
-                    got, exp = float(met[key]), float(tmet[key])
-                    if abs(got - exp) > 1e-5 * abs(exp) + (
-                            0 if key in ("loss", "ce") else 1e-3):
-                        raise AssertionError(f"tp {label} step {step}: "
-                                             f"{key} {got} != twin {exp}")
-            for k, p in params.items():
-                spec = art.param_specs[k]
-
-                def blk(t):
-                    return shd.shard_leaf(t, spec, coords, sizes)
-                w = blk(tparams[k])
-                bad = ~torch.isclose(p, w, rtol=1e-5, atol=1e-6)
-                n_bad = int(bad.sum())
-                fl = _flippable(tstate, tparams, k, error0)
-                if n_bad and fl is not None:
-                    lost = bad & ~blk(fl)
-                    if bool(lost.any()):
-                        raise AssertionError(
-                            f"tp {label} step {step} {k}: "
-                            f"{int(lost.sum())} coordinates differ where "
-                            "no voter's |m'| was near zero")
-                elif n_bad > TP_FLIP_SHARE * p.numel():
-                    raise AssertionError(
-                        f"tp {label} step {step} {k}: {n_bad} of "
-                        f"{p.numel()} coordinates differ")
-                n_flips += n_bad
-                for key in ("momentum", "error"):
-                    if k not in state.get(key, {}):
-                        continue
-                    t = tstate[key][k]
-                    t = t[voter] if t.dim() > tparams[k].dim() else t
-                    t = blk(t).float()
-                    g = state[key][k].float()
-                    acc = tcfg.microbatches > 1
-                    rtol = BF16_ACC_RTOL if acc else F32_RTOL
-                    ok = torch.isclose(g, t, rtol=rtol, atol=max(
-                        1e-6, (BF16_ACC_RTOL if acc else F32_ATOL_REL)
-                        * float(t.abs().max())))
-                    # a flipped vote moves the residual (Mode B: the
-                    # momentum) at its coordinate
-                    ok |= bad.view(ok.shape)
-                    if not bool(ok.all()):
-                        raise AssertionError(
-                            f"tp {label} step {step} {key} {k}: "
-                            f"{int((~ok).sum())} coordinates out of the "
-                            f"families' tolerance: {g[~ok][:4].tolist()} "
-                            f"against {t[~ok][:4].tolist()} (largest "
-                            f"{float(t.abs().max())})")
-            # replicated leaves bit-equal over the model group
-            for k, p in params.items():
-                if "model" in art.param_specs[k] or mesh.model == 1:
-                    continue
-                every = pm.model_gather(p.reshape(1, -1), mesh, dim=0)
-                if not bool((every == p.reshape(1, -1)).all()):
-                    raise AssertionError(f"tp {label} step {step}: "
-                                         f"replicated {k} differs over the "
-                                         "model group")
-        flips[label] = n_flips
+        flips[label] = tp_train_case(label, meshes[mname], cfg, tcfg)
     pm.A2A_MIN_BYTES = default
     every = [None] * WORLD
     dist.all_gather_object(every, flips)
@@ -1353,10 +1384,460 @@ def check_tp_serve(rank, meshes):
                                      f"decode paths {paths}, expected {path}")
 
 
+# ---------------------------------------------------------------------------
+# g. the model axis for the MoE, SSM, hybrid and encoder-decoder archs
+# ---------------------------------------------------------------------------
+
+#: a routing choice may differ from the twin's only at a token whose k-th
+#: and (k+1)-th router probabilities are within this of each other
+#: (float32: the TP sums move the router's input by a few ulps)
+TP_ROUTE_TIE = 1e-5
+
+
+def _tpf_cfgs():
+    """(label, mesh, arch, optimizer, train options, config overrides):
+    Mode A sign1bit and the arch's preset wire (its optimizer and
+    microbatches, cut to the batch) on the reduced configs, so that each
+    form is taken: the MoE's EP (model 2, 4) and M2 (model 8) with the
+    shared branch, qwen3-moe's Mode B fsdp with 4-D fused expert leaves,
+    the SSD heads-sharded, whisper's grouped / repeat / seq attention and
+    a whole vocabulary (515 rows, which no model size divides)."""
+    from repro_torch.configs import base, presets
+    S = base.VoteStrategy
+
+    def opt(**kw):
+        d = dict(kind="signum_vote", learning_rate=1e-3, momentum=0.9,
+                 vote_strategy=S.ALLGATHER_1BIT)
+        d.update(kw)
+        return base.OptimizerConfig(**d)
+
+    def preset(arch):
+        o = presets.default_optimizer(arch)
+        return dataclasses.replace(o, learning_rate=1e-3)
+    micro = {"microbatches": 2}
+    q3 = "qwen3-moe-235b-a22b"
+    return [
+        ("moe_ep_grouped", "d4m2", "qwen2-moe-a2.7b", opt(), {}, {}),
+        ("moe_ep_repeat", "d2m4", "qwen2-moe-a2.7b", opt(), {}, {}),
+        ("moe_m2_seq", "m8", "qwen2-moe-a2.7b", opt(), {}, {}),
+        ("moe_preset", "d2m4", "qwen2-moe-a2.7b", preset("qwen2-moe-a2.7b"),
+         dict(micro, remat="full"), {}),
+        ("qwen3_mode_b_fsdp", "d4m2", q3, preset(q3),
+         dict(micro, fsdp=True, remat="nested"), {}),
+        ("qwen3_m2", "m8", q3, opt(), {}, {}),
+        ("mamba2", "d4m2", "mamba2-2.7b", opt(), {}, {}),
+        ("mamba2_preset", "d2m4", "mamba2-2.7b", preset("mamba2-2.7b"),
+         dict(micro, remat="full"), {}),
+        ("zamba2", "d2m4", "zamba2-1.2b", opt(), {}, {}),
+        ("zamba2_preset", "m8", "zamba2-1.2b", preset("zamba2-1.2b"),
+         dict(micro, remat="full"), {}),
+        ("whisper_grouped", "d4m2", "whisper-tiny", opt(), {}, {}),
+        ("whisper_repeat", "d2m4", "whisper-tiny", opt(), {}, {}),
+        ("whisper_seq", "m8", "whisper-tiny", opt(), {}, {}),
+        ("whisper_vocab515", "d2m4", "whisper-tiny",
+         preset("whisper-tiny"), dict(micro, remat="full"),
+         {"vocab_size": 515}),
+    ]
+
+
+class RouteRecorder:
+    """Within the block, every ``moe.route_topk`` call's experts and the
+    margin of each token's k-th over its (k+1)-th router probability."""
+
+    def __init__(self):
+        self.calls, self.flips = [], 0
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.moe, self.orig = moe, moe.route_topk
+
+        def route(logits, k):
+            out = self.orig(logits, k)
+            probs = torch.sort(torch.softmax(logits.float(), -1), -1,
+                               descending=True)[0]
+            margin = (probs[:, k - 1] - probs[:, k] if probs.shape[1] > k
+                      else torch.full_like(probs[:, 0], torch.inf))
+            self.calls.append((out[1].detach().clone(), margin.detach()))
+            return out
+        moe.route_topk = route
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route_topk = self.orig
+
+
+def route_flips(label, mine, twin, voter, n_voters):
+    """The tokens whose routing differs between this rank's calls `mine`
+    and the twin's calls of its voter (the twin runs every voter's calls
+    in turn), each required at a near tie (TP_ROUTE_TIE)."""
+    per = len(twin) // n_voters
+    if len(mine) != per:
+        raise AssertionError(f"{label}: {len(mine)} routing calls, the "
+                             f"twin's voter made {per}")
+    flips = 0
+    for (e, _), (te, margin) in zip(mine, twin[voter * per:(voter + 1)
+                                               * per]):
+        bad = (torch.sort(e, -1)[0] != torch.sort(te, -1)[0]).any(-1)
+        if bool((bad & (margin >= TP_ROUTE_TIE)).any()):
+            raise AssertionError(f"{label}: a token's experts differ from "
+                                 "the twin's away from a near tie")
+        flips += int(bad.sum())
+    return flips
+
+
+#: one decode per arch against the single-device steps: (mesh, arch,
+#: batch, cache rows, the decode paths a tick takes, by kind: a count per
+#: layer or shared-block call); the MoE with capacity factor E / k, so no
+#: token is dropped however its rows are split
+TPF_SERVE = (
+    ("d2m4", "qwen2-moe-a2.7b", 2, 64, {"sharded_short": 1}),
+    ("d4m2", "qwen3-moe-235b-a22b", 4, 64, {"heads": 1}),
+    ("d2m4", "mamba2-2.7b", 2, 64, {}),
+    ("d2m4", "zamba2-1.2b", 2, 64, {"shared_sharded": 1}),
+    ("d4m2", "zamba2-1.2b", 4, 64, {"shared_heads": 1}),
+    ("d2m4", "whisper-tiny", 2, 64, {"sharded_short": 1,
+                                     "cross_sharded": 1}),
+)
+TPF_TICKS = 4
+
+
+def _family_cfg(arch):
+    from repro_torch.configs import base
+    cfg = dataclasses.replace(base.reduced_config(base.get_config(arch)),
+                              dtype="float32")
+    if cfg.moe.enabled:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cfg.moe.num_experts / cfg.moe.top_k))
+    return cfg
+
+
+def check_tpf_serve(rank, meshes):
+    """Each TPF_SERVE case's prefill, re-home and TPF_TICKS ticks over its
+    mesh against the single-device steps on the same parameters: logits
+    within rtol / atol 1e-4, greedy tokens equal, every tick's
+    model-group bytes ``chip_smoke.tp_tick_bytes``'s, the decode paths
+    the layout's."""
+    from repro_torch.configs.base import ArchFamily
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import layers as tL
+    from repro_torch.models import model as tM
+    from repro_torch.models.hybrid import _segments
+    from repro_torch.train import serve_step as SS
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__))))
+    import chip_smoke
+    for mname, arch, B, T, paths in TPF_SERVE:
+        mesh = meshes[mname]
+        cfg = _family_cfg(arch)
+        full = tM.init_params(cfg, torch.Generator().manual_seed(5), "cpu")
+        rng = np.random.default_rng(B * 100 + T)
+        S = 12
+        batch = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                                        (B, S)))}
+        if cfg.family == ArchFamily.AUDIO:
+            batch["enc_embeds"] = torch.as_tensor(rng.normal(size=(
+                B, TP_FRAMES, cfg.d_model)).astype(np.float32))
+        ticks = rng.integers(0, cfg.vocab_size, (TPF_TICKS, B))
+        lg, cache = SS.make_prefill(cfg)(full, batch)
+        cache = SS.make_cache_rehome(cfg, B, T)(cache)
+        step = SS.make_decode_step(cfg)
+        want = {"prefill": lg}
+        for i, tok in enumerate(ticks):
+            want[f"tick{i}"], cache = step(full, torch.as_tensor(tok)[
+                :, None], cache, S + i)
+        specs = SS.serve_param_shardings(cfg, mesh, fsdp=False)
+        params = {k: v.clone() for k, v in shd.shard_tree(
+            full, specs, coords=mesh.coords, sizes=mesh.axis_sizes).items()}
+        lg, cache = SS.make_prefill(cfg, mesh=mesh)(params, batch)
+        cache = SS.make_cache_rehome(cfg, B, T, mesh=mesh)(cache, S,
+                                                           TP_FRAMES)
+        step = SS.make_decode_step(cfg, mesh=mesh, max_len=T)
+        got = {"prefill": SS.gather_vocab(lg, mesh, cfg.vocab_size)}
+        glob = SS._global_shapes(cfg, B, T)
+        specs = {k: SS.cache_leaf_spec(k, v, mesh.axis_sizes)
+                 for k, v in glob.items()}
+        rows = B // shd.spec_block(next(iter(specs.values())), mesh.coords,
+                                   mesh.axis_sizes)[1][1]
+        attn = next((specs[k] for k in ("k", "attn_k") if k in specs), None)
+        expect = chip_smoke.tp_tick_bytes(
+            cfg, mesh, rows, seq_sharded=bool(attn and attn[2]),
+            cross_sharded=bool("xk" in specs and specs["xk"][2]))
+        tL.reset_decode_paths()
+        for i, tok in enumerate(ticks):
+            mesh.reset_stats()
+            got[f"tick{i}"], cache = step(params, torch.as_tensor(tok)[
+                :, None], cache, S + i)
+            if mesh.model_stats.bytes != expect:
+                raise AssertionError(
+                    f"serve {arch} {mname} tick {i}: the model group took "
+                    f"{mesh.model_stats.bytes} bytes, the layout's count is "
+                    f"{expect}")
+        # the prefill's logits stay the rank's rows of the vocab's shard
+        if tuple(got["prefill"].shape) != tuple(want["prefill"].shape):
+            raise AssertionError(f"serve {arch}: prefill logits "
+                                 f"{tuple(got['prefill'].shape)}")
+        for key, w in want.items():
+            g = got[key]
+            _close(f"serve {arch} {mname} {key}", g, w, rtol=1e-4,
+                   atol=1e-4)
+            if not torch.equal(g.argmax(-1), w.argmax(-1)):
+                raise AssertionError(f"serve {arch} {mname} {key}: greedy "
+                                     "tokens differ")
+        per = (sum(s[2] for s in _segments(cfg))
+               if cfg.family == ArchFamily.HYBRID else cfg.num_layers)
+        want_paths = {k: v * per * TPF_TICKS for k, v in paths.items()}
+        if dict(tL.reset_decode_paths()) != want_paths:
+            raise AssertionError(f"serve {arch} {mname}: decode paths "
+                                 f"differ from {want_paths}")
+
+
+def _flat_state(params, state):
+    """{"params/<leaf>", "opt/<key>/<leaf>": tensor} of a (params, state)
+    pair, as a checkpoint names its arrays."""
+    from repro_torch.checkpoint.checkpoint import _flatten
+    out = {"params/" + k: v for k, v in params.items()}
+    out.update({"opt/" + k: v for k, v in _flatten(state).items()})
+    return out
+
+
+def _eq_tree(what, got, want):
+    if set(got) != set(want):
+        raise AssertionError(f"{what}: leaves {sorted(set(got) ^ set(want))}")
+    for k, w in want.items():
+        g = got[k]
+        if not (torch.is_tensor(g) and torch.is_tensor(w)):
+            # a Python count, restored as the reference's int32 scalar
+            if int(g) != int(w):
+                raise AssertionError(f"{what}: {k} {g} != {w}")
+            continue
+        if g.shape != w.shape or g.dtype != w.dtype or not torch.equal(g, w):
+            raise AssertionError(f"{what}: {k} differs")
+
+
+def _load_npz(path):
+    """A step directory's arrays as tensors (bf16 restored from its bits,
+    by the checkpoint's own dtype map)."""
+    from repro_torch.checkpoint.checkpoint import _from_host
+    with open(os.path.join(path, "meta.json")) as f:
+        dtypes = json.load(f).get("dtypes", {})
+    with np.load(os.path.join(path, "arrays.npz")) as z:
+        return {k: _from_host(z[k], dtypes.get(k), torch.device("cpu"))
+                for k in z.files}
+
+
+#: the checkpoint cases: (label, arch, optimizer, train options)
+def _ck_cfgs():
+    from repro_torch.configs import base, presets
+    q3 = "qwen3-moe-235b-a22b"
+    mode_b = dataclasses.replace(presets.default_optimizer(q3),
+                                 learning_rate=1e-3)
+    sign1 = base.OptimizerConfig(
+        kind="signum_vote", learning_rate=1e-3, momentum=0.9,
+        vote_strategy=base.VoteStrategy.ALLGATHER_1BIT)
+    return (("qwen3_mode_b_fsdp", q3, mode_b,
+             {"fsdp": True, "microbatches": 2, "remat": "nested"}),
+            ("mamba2_mode_a", "mamba2-2.7b", sign1, {}))
+
+
+def check_tpf_checkpoint(rank):
+    """A model-sharded state on (data 2, model 2) (world ranks 0-3) saved
+    after step 0: the files equal the stacked save of the state joined by
+    :func:`_tp_join`; restored on the same mesh it is the rank's blocks
+    bit for bit and takes step 1 bit-equal to the uninterrupted run;
+    restored on (data 4, model 1) and (data 1, model 4) its blocks join
+    back to the files' arrays (the per-voter rows refit: zero rows for the
+    new voters, the first row kept for one); restored stacked it is the
+    files' arrays."""
+    from repro_torch.checkpoint import checkpoint as ck
+    from repro_torch.configs import base
+    from repro_torch.data.pipeline import SyntheticLMPipeline
+    from repro_torch.distributed.mesh import ProcessMesh
+    from repro_torch.train import train_step as TS
+    quad = (0, 1, 2, 3)
+    meshes = {"d2m2": ProcessMesh((2, 2), ("data", "model"), ranks=quad),
+              "d4m1": ProcessMesh((4,), ("data",), ranks=quad),
+              "d1m4": ProcessMesh((4,), ("model",), ranks=quad)}
+    for label, arch, opt, extra in _ck_cfgs():
+        cfg = _family_cfg(arch)
+        tcfg = base.TrainConfig(global_batch=TP_GB, seq_len=TP_SEQ,
+                                optimizer=opt, **extra)
+        root = os.path.join(SCRATCH, f"tpf_ck_{label}")
+        pipe = SyntheticLMPipeline(cfg, tcfg.global_batch, TP_SEQ, seed=0)
+        batches = [tp_batch(cfg, tcfg, pipe, s) for s in range(2)]
+        mesh = meshes["d2m2"]
+        if mesh.member:
+            art = TS.make_train_step(cfg, tcfg, device="cpu", mesh=mesh)
+            params, state = TS.materialize_state(
+                cfg, tcfg, art, torch.Generator().manual_seed(0))
+            params, state, _ = art.step_fn(params, state, batches[0], 0)
+            saved = {k: v.clone() if torch.is_tensor(v) else v
+                     for k, v in _flat_state(params, state).items()}
+            path = ck.save(os.path.join(root, "mesh"), 1, params, state,
+                           mesh=mesh, art=art)
+            joined = _tp_join(art, tcfg, mesh, params, state)
+            if rank == 0:
+                ck.save(os.path.join(root, "stacked"), 1, *joined)
+                files = _load_npz(path)
+                _eq_tree(f"{label} files", files, _load_npz(os.path.join(
+                    root, "stacked", os.path.basename(path))))
+            params, state, _ = art.step_fn(params, state, batches[1], 1)
+            after = _flat_state(params, state)
+            rp, rs, _, _ = ck.restore(os.path.join(root, "mesh"),
+                                      device="cpu", mesh=mesh, art=art)
+            _eq_tree(f"{label} restored on d2m2", _flat_state(rp, rs), saved)
+            rp, rs, _ = art.step_fn(rp, rs, batches[1], 1)
+            _eq_tree(f"{label} resumed step 1", _flat_state(rp, rs), after)
+        dist.barrier()
+        files = _load_npz(os.path.join(ck.latest_step_dir(
+            os.path.join(root, "mesh"))))
+        for name in ("d4m1", "d1m4"):
+            mesh = meshes[name]
+            if not mesh.member:
+                continue
+            art = TS.make_train_step(cfg, tcfg, device="cpu", mesh=mesh)
+            rp, rs, _, _ = ck.restore(os.path.join(root, "mesh"),
+                                      device="cpu", mesh=mesh, art=art)
+            jp, js = _tp_join(art, tcfg, mesh, rp, rs)
+            want = {}
+            for k, v in files.items():
+                if _voter_key(k, opt):
+                    v = ck.refit_leading_axis(v, (mesh.size,) + tuple(
+                        v.shape[1:]))
+                want[k] = v
+            _eq_tree(f"{label} restored on {name}", _flat_state(jp, js),
+                     want)
+        if rank == 0:
+            twin = TS.make_train_step(cfg, tcfg, 2, device="cpu")
+            lp, ls = TS.materialize_state(cfg, tcfg, twin,
+                                          torch.Generator().manual_seed(0))
+            rp, rs, _, _ = ck.restore(os.path.join(root, "mesh"), lp, ls,
+                                      device="cpu")
+            _eq_tree(f"{label} restored stacked", _flat_state(rp, rs),
+                     files)
+
+
+def _voter_key(key, opt):
+    """Whether the flat array `key` holds one row a voter."""
+    from repro_torch.core import signum
+    group = key.split("/")[1] if key.startswith("opt/") else ""
+    return group == "error" or (group == "momentum"
+                                and signum.per_worker(opt))
+
+
+def check_tp_families_ref(rank):
+    """The port's side of ``tests/torch_tp_reference.py families``: from
+    each ``tpf_ref_<arch>_start.npz`` one (data 4, model 2) Mode A step,
+    each rank writing its loss and blocks of the parameters and momentum
+    to ``tpf_step_<arch>_rank<r>.npz``; from each
+    ``tpf_dec_<arch>_start.npz`` the prefill, re-home and teacher-forced
+    ticks on a (model 4) mesh of the first 4 ranks, each writing its
+    logits to ``tpf_dec_<arch>_rank<r>.npz``."""
+    from repro_torch.configs import base
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed.mesh import ProcessMesh
+    from repro_torch.models import model as tM
+    from repro_torch.train import serve_step as SS
+    from repro_torch.train import train_step as TS
+    d4m2 = ProcessMesh((4, 2), ("data", "model"))
+    m4 = ProcessMesh((4,), ("model",), ranks=(0, 1, 2, 3))
+    for path in sorted(glob.glob(os.path.join(SCRATCH,
+                                              "tpf_ref_*_start.npz"))):
+        arch = os.path.basename(path)[len("tpf_ref_"):-len("_start.npz")]
+        with np.load(path) as z:
+            start = {k[2:]: z[k] for k in z.files if k.startswith("p/")}
+            batch = {k[2:]: torch.as_tensor(z[k]) for k in z.files
+                     if k.startswith("b/")}
+        opt = base.OptimizerConfig(
+            kind="signum_vote", learning_rate=REF_LR, momentum=REF_BETA,
+            vote_strategy=base.VoteStrategy.ALLGATHER_1BIT)
+        cfg = _family_cfg(arch)
+        tcfg = base.TrainConfig(global_batch=REF_GB, seq_len=REF_SEQ,
+                                optimizer=opt)
+        art = TS.make_train_step(cfg, tcfg, device="cpu", mesh=d4m2)
+        params = tM.params_from_numpy(shd.shard_tree(
+            start, art.param_specs, coords=art.mesh_coords,
+            sizes=art.mesh_sizes), device="cpu")
+        state = art.optimizer.init(params)
+        params, state, met = art.step_fn(params, state, batch, 0)
+        np.savez(os.path.join(SCRATCH, f"tpf_step_{arch}_rank{rank}.npz"),
+                 loss=np.float64(met["loss"]),
+                 **{"p/" + k: v.numpy() for k, v in params.items()},
+                 **{"m/" + k: v.float().numpy()
+                    for k, v in state["momentum"].items()})
+    for path in sorted(glob.glob(os.path.join(SCRATCH,
+                                              "tpf_dec_*_start.npz"))):
+        if not m4.member:
+            continue
+        arch = os.path.basename(path)[len("tpf_dec_"):-len("_start.npz")]
+        with np.load(path) as z:
+            start = {k[2:]: z[k] for k in z.files if k.startswith("p/")}
+            batch = {k[2:]: torch.as_tensor(z[k]) for k in z.files
+                     if k.startswith("b/")}
+            ticks = z["ticks"]
+        cfg = _family_cfg(arch)
+        specs = SS.serve_param_shardings(cfg, m4, fsdp=False)
+        params = tM.params_from_numpy(shd.shard_tree(
+            start, specs, coords=m4.coords, sizes=m4.axis_sizes),
+            device="cpu")
+        B, S = batch["tokens"].shape
+        lg, cache = SS.make_prefill(cfg, mesh=m4)(params, batch)
+        src = batch["enc_embeds"].shape[1] if "enc_embeds" in batch else 0
+        cache = SS.make_cache_rehome(cfg, B, TPF_REF_T, mesh=m4)(cache, S,
+                                                                  src)
+        step = SS.make_decode_step(cfg, mesh=m4, max_len=TPF_REF_T)
+        out = {"prefill": SS.gather_vocab(lg, m4, cfg.vocab_size).numpy()}
+        for i, tok in enumerate(ticks):
+            lg, cache = step(params, torch.as_tensor(tok).long()[:, None],
+                             cache, S + i)
+            out[f"tick{i}"] = lg.numpy()
+        np.savez(os.path.join(SCRATCH, f"tpf_dec_{arch}_rank{rank}.npz"),
+                 **out)
+
+
+#: the reference decodes' cache rows (``torch_tp_reference.FDEC_T``)
+TPF_REF_T = 64
+
+
+def check_tp_families(rank):
+    from repro_torch.configs import base
+    from repro_torch.distributed import mesh as pm
+    from repro_torch.distributed.mesh import ProcessMesh
+    meshes = {name: ProcessMesh(shape, axes)
+              for name, shape, axes in TP_MESHES}
+    pm.A2A_MIN_BYTES, default = 0, pm.A2A_MIN_BYTES
+    flips, routes = {}, {}
+    only = os.environ.get("TPF_ONLY")
+    for label, mname, arch, opt, extra, over in _tpf_cfgs():
+        if only and only not in label:
+            continue
+        cfg = dataclasses.replace(base.reduced_config(base.get_config(
+            arch)), dtype="float32", **over)
+        tcfg = base.TrainConfig(global_batch=TP_GB, seq_len=TP_SEQ,
+                                optimizer=opt, **extra)
+        mesh = meshes[mname]
+        with RouteRecorder() as rec:
+            flips[label] = tp_train_case(label, mesh, cfg, tcfg,
+                                         routes=rec)
+        routes[label] = rec.flips
+        if rank == 0:
+            print(f"  tp_families {label}", flush=True)
+    pm.A2A_MIN_BYTES = default
+    every = [None] * WORLD
+    dist.all_gather_object(every, {"flips": flips, "routes": routes})
+    if rank == 0:
+        RECORD["tp_families"] = every
+    if not only or only == "serve":
+        check_tpf_serve(rank, meshes)
+    if not only or only == "checkpoint":
+        check_tpf_checkpoint(rank)
+
+
 CHECKS = (("votes", check_votes), ("plans", check_plans),
           ("trainer", check_trainer), ("drills", check_drills))
 #: checks run only when named on the command line
-NAMED_CHECKS = (("fsdp", check_fsdp), ("tp", check_tp))
+NAMED_CHECKS = (("fsdp", check_fsdp), ("tp", check_tp),
+                ("tp_families", check_tp_families),
+                ("tp_families_ref", check_tp_families_ref))
 
 
 def worker(rank, scratch, names=None):

@@ -19,6 +19,21 @@ itself):
    the inputs to ``tp_decode_start[_int8].npz`` and the prefill's and each
    tick's logits to ``tp_decode_ref[_int8].npz``.
 
+With a second argument ``families`` (``tests/test_torch_tp_families.py``)
+it runs the MoE, SSM, hybrid and encoder-decoder archs instead:
+
+3. The same (data 4, model 2) Mode A step of the reduced qwen2-moe (the
+   experts in the EP form, the shared branch), mamba2 and whisper (64
+   frames a row), each with its capacity factor E / k where it routes,
+   writing ``tpf_ref_<arch>_start.npz`` and ``tpf_ref_<arch>_step.npz``.
+4. ``decode_step`` under a (data 1, model 4) mesh of the first 4 devices
+   for the reduced zamba2 in float32: the prompt prefilled and re-homed
+   into a 64-row cache, then 3 teacher-forced ticks; writes
+   ``tpf_dec_<arch>_start.npz`` and ``tpf_dec_<arch>_ref.npz``. (Whisper's,
+   last in the list, is left out for the test file's time: the port's
+   whisper decode over a model axis, its cross cache sequence-sharded,
+   is held to the port's single-device decode by the harness.)
+
 Prints ``OK <seconds>``.
 """
 import dataclasses
@@ -120,10 +135,97 @@ def decode(scratch, kv_dtype: str, suffix: str):
                 for k, v in cache.items()})
 
 
+#: the families' reference runs (the port's harness reads the same)
+FAMILY_STEPS = ("qwen2-moe-a2.7b", "mamba2-2.7b", "whisper-tiny")
+FAMILY_DECODES = ("zamba2-1.2b",)
+FDEC_B, FDEC_S, FDEC_T = 2, 12, 64
+
+
+def family_cfg(arch: str):
+    cfg = dataclasses.replace(reduced_config(get_config(arch)),
+                              dtype="float32")
+    if cfg.moe.enabled:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cfg.moe.num_experts / cfg.moe.top_k))
+    return cfg
+
+
+def family_step(scratch, arch: str):
+    mesh = compat.make_mesh((4, 2), ("data", "model"),
+                            axis_types=(AxisType.Auto,) * 2)
+    cfg = family_cfg(arch)
+    tcfg = TrainConfig(global_batch=GB, seq_len=SEQ, optimizer=OptimizerConfig(
+        kind="signum_vote", learning_rate=LR, momentum=BETA,
+        vote_strategy=VoteStrategy.ALLGATHER_1BIT))
+    art = TS.make_train_step(cfg, tcfg, mesh=mesh)
+    params, opt = TS.materialize_state(cfg, tcfg, art, jax.random.PRNGKey(0),
+                                       mesh)
+    batch = M.make_batch(cfg, GB, SEQ, jax.random.PRNGKey(1))
+    start = _np(params)
+    placed = jax.tree.map(lambda a: jax.device_put(
+        np.asarray(a), NamedSharding(mesh, P("data"))), batch)
+    new, state, met = art.step_fn(params, opt, placed, jnp.int32(0))
+    np.savez(os.path.join(scratch, f"tpf_ref_{arch}_start.npz"),
+             **{"b/" + k: np.asarray(v, np.float32 if k != "tokens"
+                                     else np.int64) for k, v in
+                batch.items()},
+             **{"p/" + k: v for k, v in start.items()})
+    np.savez(os.path.join(scratch, f"tpf_ref_{arch}_step.npz"),
+             loss=np.float64(met["loss"]),
+             **{"p/" + k: v for k, v in _np(new).items()},
+             **{"m/" + k: v for k, v in _np(state["momentum"]).items()})
+
+
+def family_decode(scratch, arch: str):
+    cfg = family_cfg(arch)
+    params = M.init_params(cfg, jax.random.PRNGKey(2))
+    rng = np.random.default_rng(3)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (
+        FDEC_B, FDEC_S)).astype(np.int32)}
+    if cfg.encoder_layers:
+        batch["enc_embeds"] = rng.normal(size=(
+            FDEC_B, cfg.max_source_positions, cfg.d_model)).astype(
+                np.float32)
+    ticks = rng.integers(0, cfg.vocab_size, (DEC_TICKS, FDEC_B)).astype(
+        np.int32)
+    logits, cache = SS.make_prefill(cfg)(params, {k: jnp.asarray(v) for k, v
+                                                  in batch.items()})
+    cache = SS.make_cache_rehome(cfg, FDEC_B, FDEC_T)(cache)
+    mesh = compat.make_mesh((1, 4), ("data", "model"),
+                            axis_types=(AxisType.Auto,) * 2,
+                            devices=jax.devices()[:4])
+    sizes = dict(zip(mesh.axis_names, mesh.devices.shape))
+    out = {"prefill": np.asarray(logits)}
+    with compat.set_mesh(mesh):
+        cache = {k: jax.device_put(v, NamedSharding(
+            mesh, SS.cache_leaf_spec(k, v.shape, sizes)))
+            for k, v in cache.items()}
+        step = SS.make_decode_step(cfg)
+        for i in range(DEC_TICKS):
+            lg, cache = step(params, jnp.asarray(ticks[i])[:, None], cache,
+                             jnp.int32(FDEC_S + i))
+            out[f"tick{i}"] = np.asarray(lg)
+    np.savez(os.path.join(scratch, f"tpf_dec_{arch}_start.npz"),
+             ticks=ticks, **{"b/" + k: v for k, v in batch.items()},
+             **{"p/" + k: v for k, v in _np(params).items()})
+    np.savez(os.path.join(scratch, f"tpf_dec_{arch}_ref.npz"), **out)
+
+
 def main(argv) -> int:
     scratch = os.path.abspath(argv[1] if len(argv) > 1 else ".")
     t0 = time.perf_counter()
     assert len(jax.devices()) == 8, jax.devices()
+    if argv[2:] == ["families"]:
+        for arch in FAMILY_STEPS:
+            family_step(scratch, arch)
+            print(f"  step {arch} {time.perf_counter() - t0:.1f}",
+                  flush=True)
+        for arch in FAMILY_DECODES:
+            family_decode(scratch, arch)
+            print(f"  decode {arch} {time.perf_counter() - t0:.1f}",
+                  flush=True)
+        print(f"OK {time.perf_counter() - t0:.1f}", flush=True)
+        return 0
     train_step(scratch)
     decode(scratch, "bfloat16", "")
     decode(scratch, "int8", "_int8")
