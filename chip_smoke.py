@@ -223,10 +223,7 @@ Phases, each of which fails the run (non-zero exit) on any disagreement:
    in another order, within 1e-6); seconds per drill set printed.
 
 14. the mesh (after phase 13): the stacked twin (M = 4) of phase 3's cell
-   in six runs of 1 step each (2 before phase 19d-19f joined the script;
-   cut for its time:
-   phase 19's 19a, 19d and 19e run a second step over a mesh)
-   (allgather_1bit, psum_int8, hierarchical on
+   in six runs of 2 steps each (allgather_1bit, psum_int8, hierarchical on
    pod 2 x data 2, ternary2bit, a VotePlan of 1<<24 bytes with overlap, one
    sign_flip voter with diagnostics), then a world of 4 spawned processes
    on the one card over gloo (one card admits no NCCL world), one voter
@@ -254,13 +251,11 @@ Phases, each of which fails the run (non-zero exit) on any disagreement:
    against its plain version, ``layers.attn_wq``'s step-0 momentum and
    parameters bit-equal to the plain versions run on a plain recomputation
    of its accumulated vote (per microbatch the sign of the summed int8
-   signs of the 4 voters' gradients); then remat "dots" for 1 step (loss
-   bit-equal to nested's) and the sgd preset with fsdp for 1 (2 each until
-   phase 19d-19f joined the script; cut for its time); the step ms
+   signs of the 4 voters' gradients); then remat "dots" for 2 steps (losses
+   bit-equal to nested's) and the sgd preset with fsdp for 2; the step ms
    and each run's peak; (b) 4 spawned processes on the card over gloo, one
    voter each (as phase 14), cut to 1 layer, 2 microbatches and batch 8:
-   the preset on pod 2 x data 2 with one sign_flip voter for 1 step (2
-   before phase 19d-19f joined the script; cut for its time) and
+   the preset on pod 2 x data 2 with one sign_flip voter for 2 steps and
    sgd with fsdp on data 4 for 1, every rank's losses and checksums of its
    parameter and momentum slices equal to the stacked twin's slices (sgd:
    its ``layers.attn_wq`` slice within the mean's rounding bound), rank
@@ -364,16 +359,22 @@ Phases, each of which fails the run (non-zero exit) on any disagreement:
    host memory: loopback on one card, not a link). 19a, phase 3's cell
    (glm4-9b at every published width, 2 layers, batch 8, seq 512) on
    (data 2, model 2), Mode A sign1bit on allgather_1bit, then ternary2bit.
-   19d, qwen3-moe-235b-a22b's Mode B fsdp preset (1 layer, 2 microbatches,
-   batch 8, seq 512) on (data 2, model 2): the experts in the EP form, 64
+   19d, qwen3-moe-235b-a22b's Mode B fsdp preset (1 layer, 1 microbatch
+   (2 until its fused gathers were cut for the script's time), batch 8,
+   seq 512) on (data 2, model 2): the experts in the EP form, 64
    a rank, its 4-D fused expert leaves carrying both axes (it replaces PR
    27's 19b, qwen1.5-32b's Mode B fsdp preset, whose fused backward over a
    model axis it drives too). 19e, the presets of mamba2-2.7b (2 layers),
    zamba2-1.2b (7: a segment of 6, its shared block, then 1) and
    whisper-tiny (4 + 2, 64 stubbed frames, whole vocabulary tables) on
    (data 2, model 2), psum_int8, 4 microbatches (the presets' 4 / 8 cut to
-   divide 4 rows a voter). Each: step 0 from a saved state, step 0 again
-   from it (bit-equal on every rank), step 1; each step's launches exact
+   divide 4 rows a voter), then each of them in float32 (parameters and
+   momentum, one microbatch), step 0 once with its launches exact,
+   against the stacked float32 step: the loss within TP_TWIN_TOL
+   (relative) and every leaf's step-0 momentum on every rank within
+   TP_TWIN_TOL of the twin leaf's largest |m'|. Each bf16 run: step 0
+   from a saved state, step 0 again from it (bit-equal on every rank),
+   step 1; each step's launches exact
    (phase 14's and 15b's counts), every launch of each rank's first step
    held against its plain version (each rank's vote equal to the plain
    majority of the gathered shard signs), the leaves that no spec shards
@@ -416,11 +417,14 @@ Phases, each of which fails the run (non-zero exit) on any disagreement:
    with greedy tokens equal; every layer on the decode path the layout
    names; each tick's model-group bytes equal to ``tp_tick_bytes``; the
    MoE's routing choices against the single-device step's, each
-   difference at a near tie, the row left out of the logit check from
-   that tick on. Printed: ms per step split into vote-collective,
-   tensor-parallel-collective and other host time, ms per decode tick
-   (CUDA events on rank 0), bytes per rank by axis, peak memory per rank
-   and the routing flips.
+   difference at a near tie, a row's logits left out of a comparison only
+   where a flip (or a drop that followed one) touched the token they are
+   of, or reached the cache of a later layer in an earlier token of the
+   row; a comparison that would keep no row fails. Printed: ms per step
+   split into vote-collective, tensor-parallel-collective and other host
+   time, ms per decode tick (CUDA events on rank 0), bytes per rank by
+   axis, peak memory per rank, the routing flips and the seconds of each
+   sub-phase on each rank.
 
 Phase 13's, 14's, 15's, 16's, 17's, 18's and 19's launches (phases 14's,
 15b's and 19's summed over their ranks) join the kernels line.
@@ -3577,9 +3581,7 @@ def run_population_path(torch, dev, err) -> dict:
 #: ranks of the mesh world, all on cuda:0 (NCCL takes one device per rank,
 #: and there is one card, so they meet over gloo through host memory)
 MESH_RANKS = 4
-#: (2 -> 1 for the script's time since phase 19d-19f joined it; 19a,
-#: 19d and 19e run a second step over a mesh)
-MESH_STEPS = 1
+MESH_STEPS = 2
 #: phase 14's runs: (label, mesh shape, mesh axes, optimizer options,
 #: train options); every one from the same seed as phase 3
 MESH_RUNS = (
@@ -4024,9 +4026,7 @@ MESH_CHECKED_STEP = 0
 
 #: phase 15a: steps of the Mode B preset (nested remat), of remat="dots"
 #: and of the sgd preset, all with fsdp, M = 4 stacked
-#: (dots and sgd 2 -> 1 step once phase 19d-19f joined the script, for
-#: its time)
-FSDP_STEPS, FSDP_DOTS_STEPS, FSDP_SGD_STEPS = 3, 1, 1
+FSDP_STEPS, FSDP_DOTS_STEPS, FSDP_SGD_STEPS = 3, 2, 2
 #: the fused leaf whose step-0 vote is recomputed by plain PyTorch
 FSDP_LEAF = "layers.attn_wq"
 #: phase 15b's cuts (four ranks in 80 GB, gloo on loopback): microbatches
@@ -4035,7 +4035,7 @@ FSDP_MESH_MICRO, FSDP_MESH_BATCH, FSDP_MESH_LAYERS = 2, 8, 1
 #: phase 15b's runs: (label, mesh shape, axes, train changes, steps)
 FSDP_MESH_RUNS = (
     ("mode_b_pod2x2_sign_flip", (2, 2), ("pod", "data"),
-     {"byzantine": ("sign_flip", 1)}, 1),
+     {"byzantine": ("sign_flip", 1)}, 2),
     ("sgd_data4", (4,), ("data",), {"kind": "sgd"}, 1),
 )
 #: phase 15c: the launcher at full glm4-9b depth and width (9.4e9
@@ -4407,7 +4407,8 @@ def fsdp_sgd_bound(torch, tcfg, twin, got_slice, d: int, data: int,
 
 
 def fsdp_mesh_bytes(cfg, label: str, shape, dims: dict, remat: bool,
-                    shapes: dict = None) -> dict:
+                    shapes: dict = None, micro: int = FSDP_MESH_MICRO
+                    ) -> dict:
     """The bytes each rank hands the collectives in one step of run
     `label`, counted from the layout: per microbatch and layer each fused
     leaf's bf16 slice gathered in the forward pass and again in the
@@ -4417,7 +4418,7 @@ def fsdp_mesh_bytes(cfg, label: str, shape, dims: dict, remat: bool,
     pod sum and the packed all-gather) or, for sgd, all-reduced in float32
     (the accumulator's dtype); and per step the order check (16 B) and the
     metrics (12 B). `shapes` replaces the leaves' shapes (a rank's model
-    blocks, phase 19b)."""
+    blocks, phase 19d), `micro` the microbatches."""
     shapes = shapes or cfg.param_shapes()
     data = shape[-1]
     pod = shape[0] if len(shape) == 2 else 1
@@ -4437,7 +4438,7 @@ def fsdp_mesh_bytes(cfg, label: str, shape, dims: dict, remat: bool,
         else:
             pad = -(-n // (32 * data)) * 32 * data
             raw += pad + (pad // data if pod > 1 else 0) + pad // (8 * data)
-    fused *= FSDP_MESH_MICRO
+    fused *= micro
     return {"analytic_bytes": fused + raw + 16 + 12,
             "analytic_fused_bytes": fused, "analytic_other_bytes": raw}
 
@@ -6234,13 +6235,14 @@ TP_VOTE_AGREE_FAMILY = {"mamba2-2.7b": 0.97, "whisper-tiny": 0.97,
                         "zamba2-1.2b": 0.80}
 TP_LARGE_FLIP_SHARE = {"zamba2-1.2b": 0.05}
 #: 19d: qwen3-moe-235b-a22b's Mode B fsdp preset at every published width,
-#: 1 layer, seq 512, batch 8, 2 microbatches (its preset's 4 cut to fit 4
-#: rows a voter), on (data 2, model 2): the experts in the EP form (64 a
-#: rank), grouped attention (4 kv heads over 2), its 4-D fused expert
-#: leaves carrying both axes; step 0, step 0 again from a saved state,
+#: 1 layer, seq 512, batch 8, 1 microbatch (its preset's 4 cut to 2 to fit
+#: 4 rows a voter, then to 1 for the script's time: the fused gathers run
+#: once a microbatch; phase 15b drives 2 over a mesh), on (data 2, model
+#: 2): the experts in the EP form (64 a rank), grouped attention (4 kv
+#: heads over 2), its 4-D fused expert leaves carrying both axes; step 0, step 0 again from a saved state,
 #: step 1. It replaces the earlier 19b (qwen1.5-32b's Mode B fsdp preset),
 #: whose fused backward over a model axis it drives too, with the experts
-TP_MOE_ARCH, TP_MOE_LAYERS, TP_MOE_MICRO = "qwen3-moe-235b-a22b", 1, 2
+TP_MOE_ARCH, TP_MOE_LAYERS, TP_MOE_MICRO = "qwen3-moe-235b-a22b", 1, 1
 #: 19e: the families' presets at every published width on (data 2, model
 #: 2), seq 512, batch 8: (arch, depth, encoder depth, microbatches (the
 #: preset's, cut to divide 4 rows a voter)); mamba2 40 heads and 2,688
@@ -6570,9 +6572,10 @@ def tp_psum_vote_bytes(params: dict) -> int:
     return sum(p.numel() for p in params.values()) + 12
 
 
-def tp_fsdp_vote_bytes(cfg, art) -> int:
-    """The vote axes' bytes of one 19d step, phase 15b's count
-    (``fsdp_mesh_bytes``) on the rank's model blocks of the leaves."""
+def tp_fsdp_vote_bytes(cfg, art, micro: int) -> int:
+    """The vote axes' bytes of one 19d step of `micro` microbatches, phase
+    15b's count (``fsdp_mesh_bytes``) on the rank's model blocks of the
+    leaves."""
     sizes = art.mesh_sizes
     local = {}
     for k, s in cfg.param_shapes().items():
@@ -6582,7 +6585,8 @@ def tp_fsdp_vote_bytes(cfg, art) -> int:
                 s[i] //= sizes["model"]
         local[k] = tuple(s)
     return fsdp_mesh_bytes(cfg, "mode_b", (sizes["data"],),
-                           art.fused_dims, True, shapes=local)[
+                           art.fused_dims, True, shapes=local,
+                           micro=micro)[
         "analytic_bytes"]
 
 
@@ -6656,6 +6660,8 @@ def tp_train_twin(torch, dev, scratch: str) -> dict:
     runs.append(("moe_fsdp",) + tp_moe_config() + (False,))
     runs += [(arch,) + tp_family_config(arch) + (True,)
              for arch, *_ in TP_FAMILIES]
+    runs += [(f"f32_{arch}",) + tp_family_config(arch, "float32") + (False,)
+             for arch, *_ in TP_FAMILIES]
     out = {}
     for label, cfg, tcfg, votes_too in runs:
         art = TS.make_train_step(cfg, tcfg, TP_VOTERS, device=dev)
@@ -6671,6 +6677,17 @@ def tp_train_twin(torch, dev, scratch: str) -> dict:
         if votes_too:
             save_twin_votes(torch, params, state, rec.votes,
                             os.path.join(scratch, f"tp_twin_{label}.pt"))
+        if label.startswith("f32_"):
+            # each voter's step-0 momentum, the leaf's largest |m'| and
+            # the loss, for 19e's float32 twins on the ranks
+            for v in range(TP_VOTERS):
+                m = {k: t[v].to("cpu", copy=True)
+                     for k, t in state["momentum"].items()}
+                torch.save({"m": m, "loss": out[label]["loss"],
+                            "largest": {k: float(t.abs().max())
+                                        for k, t in m.items()}},
+                           os.path.join(scratch, f"tp_{label}_v{v}.pt"))
+                del m
         del params, state, art, rec, routes
         reset_peak(torch, dev)
     return out
@@ -6711,15 +6728,23 @@ def tp_moe_config():
     return cfg, dataclasses.replace(preset, microbatches=TP_MOE_MICRO)
 
 
-def tp_family_config(arch: str):
-    """19e's cut of `arch` and its preset (seq 512, batch 8)."""
+def tp_family_config(arch: str, dtype: str = ""):
+    """19e's cut of `arch` and its preset (seq 512, batch 8); with `dtype`
+    "float32", its float32 twin (parameters and momentum, one microbatch:
+    with more, the sign family's accumulator is bf16, the reference's
+    ``acc_dt``)."""
     from repro_torch.configs.base import ShapeCell, get_config
     from repro_torch.configs.presets import default_train_config
     _, depth, enc, micro = next(f for f in TP_FAMILIES if f[0] == arch)
     cfg = dataclasses.replace(get_config(arch), num_layers=depth,
-                              **({"encoder_layers": enc} if enc else {}))
+                              **({"encoder_layers": enc} if enc else {}),
+                              **({"dtype": dtype} if dtype else {}))
     preset = default_train_config(arch, ShapeCell(
         "train_smoke", SEQ, GLOBAL_BATCH, "train"))
+    if dtype:
+        preset = dataclasses.replace(preset, optimizer=dataclasses.replace(
+            preset.optimizer, momentum_dtype=dtype))
+        micro = 1
     return cfg, dataclasses.replace(preset, microbatches=micro)
 
 
@@ -6776,19 +6801,28 @@ class RouteRecorder:
 
 
 def route_flips(torch, what: str, mine: list, twin: list, tie: float,
-                rows=None, seq: int = 1) -> int:
+                seq: int = 1, depth: int = 0) -> tuple:
     """The tokens whose experts in the calls `mine` differ from the calls
     `twin` (the same calls, in order), each required at a near tie: the
     twin's relative top-k margin under `tie`; a token whose slot was
     dropped in one and kept in the other is allowed only beside such a
     flip in its call (it follows from the flip through the experts'
-    capacity). `rows`, a bool tensor of the calls' rows (`seq` tokens a
-    row), is set where a token of the row flipped or changed its drop."""
+    capacity). Returns the count of flips and two bool tensors, one entry
+    a row of the calls' tokens (`seq` tokens a row): `own`, where a flip
+    or a moved drop touched the row's last token (its own logits move),
+    and `carry`, where one touched any of its tokens in a call before the
+    last of a forward of `depth` layers, one call a layer (the layers
+    after it cache the moved residual, so the row's later tokens move
+    too; when the calls are not one a layer, every flip carries)."""
     if len(mine) != len(twin):
         raise AssertionError(f"{what}: {len(mine)} routing calls against "
                              f"the twin's {len(twin)}")
+    n = mine[0][0].shape[0] // seq if mine else 0
+    own = torch.zeros(n, dtype=torch.bool)
+    carry = torch.zeros(n, dtype=torch.bool)
     flips = 0
-    for (e, _, drop), (te, margin, tdrop) in zip(mine, twin):
+    for i, ((e, _, drop), (te, margin, tdrop)) in enumerate(zip(mine,
+                                                                 twin)):
         bad = (torch.sort(e, -1)[0] != torch.sort(te, -1)[0]).any(-1)
         if bool((bad & (margin >= tie)).any()):
             raise AssertionError(f"{what}: a token's experts differ from "
@@ -6800,9 +6834,11 @@ def route_flips(torch, what: str, mine: list, twin: list, tie: float,
                                  "one run and kept in the other with no "
                                  "routing flip in its call")
         flips += int(bad.sum())
-        if rows is not None:
-            rows |= (bad | moved).view(-1, seq).any(-1)
-    return flips
+        hit = (bad | moved).view(-1, seq)
+        own |= hit[:, -1]
+        if len(mine) != depth or i < len(mine) - 1:
+            carry |= hit.any(-1)
+    return flips, own, carry
 
 
 def tp_serve_cfg(kv: str, depth: int, dtype: str):
@@ -6889,8 +6925,9 @@ def tp_serve_reference(torch, dev, scratch: str) -> dict:
 
 def tp_rank(rank: int, init: str, scratch: str, dev_type: str,
             queue) -> None:
-    """One rank of phase 19's world (a spawned process): 19a, 19b, 19c;
-    puts ``(rank, results)`` on `queue`, or ``(rank, {"error": ...})``."""
+    """One rank of phase 19's world (a spawned process): 19a, 19d, 19e and
+    its float32 twins, 19c, 19f; puts ``(rank, results)`` on `queue`, or
+    ``(rank, {"error": ...})``."""
     import traceback
     try:
         queue.put((rank, tp_rank_body(rank, init, scratch, dev_type)))
@@ -7001,7 +7038,8 @@ def tp_train_rank(torch, rank, mesh, cfg, tcfg, dev, label, want_fn,
         per = len(twin) // mesh.size
         v = mesh.replica_index()
         out_routes = route_flips(torch, f"tp {label} rank {rank}", routes,
-                                 twin[v * per:(v + 1) * per], TP_ROUTE_TIE)
+                                 twin[v * per:(v + 1) * per],
+                                 TP_ROUTE_TIE)[0]
     else:
         out_routes = None
     if rank == 0:
@@ -7020,6 +7058,65 @@ def tp_train_rank(torch, rank, mesh, cfg, tcfg, dev, label, want_fn,
                            list(mesh.axis_sizes)],
                   "specs": {k: list(s) for k, s in art.param_specs.items()}}
     del params, state, art
+    reset_peak(torch, dev)
+
+
+def tp_f32_train_rank(torch, rank, mesh, arch, dev, scratch, out) -> None:
+    """19e's float32 twin of `arch` on this rank: the TP_FAMILIES cut in
+    float32 (parameters and momentum), step 0 once from the seeded state
+    with its launches exact, against the stacked float32 step (M = 2): its
+    loss within TP_TWIN_TOL of the twin's (relative) and each leaf's step-0
+    momentum m' (the rank's voter, its block) within TP_TWIN_TOL of the
+    twin leaf's largest |m'| (a bound stated before its first run). m'
+    comes before the vote, so no flip moves it: it holds the backward over
+    the model axis (the xBC gather's reduce-scatter, the gated norm's group
+    sum, the shared block's and the cross-attention's gradients) where the
+    bf16 votes are rounding noise. Float32 sum order moves m' by about 1e-6
+    of its largest; a gradient that misses a group sum, by a large share."""
+    from repro_torch.core import sign_compress as sc
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.kernels import ops, ref
+    from repro_torch.train import train_step as TS
+    cfg, tcfg = tp_family_config(arch, "float32")
+    art = TS.make_train_step(cfg, tcfg, device=dev, mesh=mesh)
+    params, state = TS.materialize_state(
+        cfg, tcfg, art, torch.Generator(device=dev).manual_seed(0))
+    reset_peak(torch, dev)
+    what = f"tp {arch} float32 rank {rank}"
+    params, state, met, row = tp_step(
+        torch, ops, ref, sc, mesh, art, params, state,
+        tp_train_batch(torch, cfg, tcfg, 0, dev), 0,
+        mesh_launches("psum_int8", rank, len(params), None), False, {}, {},
+        what)
+    twin = torch.load(os.path.join(
+        scratch, f"tp_f32_{arch}_v{mesh.replica_index()}.pt"), mmap=True)
+    shares = {}
+    for k, g in state["momentum"].items():
+        t = shd.shard_leaf(twin["m"][k], art.param_specs[k], mesh.coords,
+                           mesh.axis_sizes).to(dev)
+        if g.numel() != t.numel():
+            raise AssertionError(f"{what} {k}: momentum block of "
+                                 f"{g.numel()} against the twin's "
+                                 f"{t.numel()}")
+        diff = float((g.float().reshape(t.shape) - t).abs().max())
+        top = twin["largest"][k]
+        shares[k] = diff / top if top else (0.0 if diff == 0 else math.inf)
+        del t
+    worst = max(shares, key=shares.get)
+    loss_share = abs(met["loss"] - twin["loss"]) / abs(twin["loss"])
+    if loss_share > TP_TWIN_TOL:
+        raise AssertionError(f"{what}: step 0's loss {met['loss']} against "
+                             f"the float32 twin's {twin['loss']}")
+    if shares[worst] > TP_TWIN_TOL:
+        raise AssertionError(f"{what}: {worst}'s step-0 momentum differs "
+                             f"from the float32 twin's by {shares[worst]} "
+                             f"of its largest |m'|, over {TP_TWIN_TOL}")
+    out[f"f32_{arch}"] = {"loss": met["loss"], "twin_loss": twin["loss"],
+                          "loss_share": loss_share,
+                          "worst_leaf": [worst, shares[worst]],
+                          "leaves": len(shares), "row": row,
+                          "peak_bytes": peak_bytes(torch, dev)}
+    del params, state, art, twin
     reset_peak(torch, dev)
 
 
@@ -7317,16 +7414,18 @@ def tp_family_serve_rank(torch, rank, meshes, dev, scratch, out) -> None:
                     lg, cache = SS.make_prefill_sharded(
                         cfg, mesh, fsdp=False, global_batch=B)(params,
                                                                batch)
-                # the rows whose routing flipped (at a near tie), or whose
-                # tokens' drops followed a flip: their logits are not
-                # compared from there on (the flip moves the row's stream
-                # and so its cache)
-                flipped = torch.zeros(per, dtype=torch.bool)
+                # a row's logits are left out where a routing flip (at a
+                # near tie) or a drop that followed one touched the token
+                # they are of (`own`), and from there on where one reached
+                # the cache of a later layer (`carried`)
+                own = torch.zeros(per, dtype=torch.bool)
+                carried = torch.zeros(per, dtype=torch.bool)
                 if rec.calls:
-                    flips += route_flips(torch, f"tp serve {label} {dtype} "
-                                         "prefill", rec.calls,
-                                         want["prefill_routes"][r], tie,
-                                         flipped, lens[0])
+                    n, own, carried = route_flips(
+                        torch, f"tp serve {label} {dtype} prefill",
+                        rec.calls, want["prefill_routes"][r], tie, lens[0],
+                        cfg.num_layers)
+                    flips += n
                 cache = SS.make_cache_rehome(cfg, B, T, mesh=mesh)(
                     cache, lens[0], TP_FRAMES)
                 first = SS.gather_vocab(lg[:, -1], mesh,
@@ -7335,15 +7434,17 @@ def tp_family_serve_rank(torch, rank, meshes, dev, scratch, out) -> None:
                 rows = slice(r * per, (r + 1) * per)
             else:
                 cache, first = None, []
-                flipped = torch.zeros(B, dtype=torch.bool)
+                own = torch.zeros(B, dtype=torch.bool)
+                carried = torch.zeros(B, dtype=torch.bool)
                 for b, p in enumerate(prompts):
                     with RouteRecorder(torch) as rec:
                         lg, c = SS.make_prefill(cfg, mesh=mesh)(params, p)
                     if rec.calls:
-                        flips += route_flips(
+                        n, own[b:b + 1], carried[b:b + 1] = route_flips(
                             torch, f"tp serve {label} {dtype} prefill {b}",
                             rec.calls, want["prefill_routes"][b], tie,
-                            flipped[b:b + 1], lens[b])
+                            lens[b], cfg.num_layers)
+                        flips += n
                     c = SS.make_cache_rehome(cfg, 1, T, mesh=mesh)(
                         c, lens[b], TP_FRAMES)
                     if cache is None:
@@ -7360,11 +7461,12 @@ def tp_family_serve_rank(torch, rank, meshes, dev, scratch, out) -> None:
             sync(torch, dev)
             prefill_ms = (time.perf_counter() - t0) * 1e3
             bound = TP_SERVE_SHARE_SSD if cfg.ssm.enabled else 0.0
-            keep = (~flipped).to(dev)
+            compared = {"compared": 0, "excluded": 0}
+            keep = tp_kept_rows(f"{label} {dtype} prefill", own | carried,
+                                compared).to(dev)
             errs = [tp_logit_check(torch, f"{label} {dtype} prefill",
                                    first[keep], first_want.to(dev)[keep],
-                                   dtype, "bfloat16", bound)
-                    if bool(keep.any()) else 0.0]
+                                   dtype, "bfloat16", bound)]
             step = SS.make_decode_step(cfg, mesh=mesh, max_len=T)
             glob = SS._global_shapes(cfg, B, T)
             lspec = {k: SS.cache_leaf_spec(k, v, mesh.axis_sizes)
@@ -7393,19 +7495,23 @@ def tp_family_serve_rank(torch, rank, meshes, dev, scratch, out) -> None:
                         f"tp serve {label} {dtype} tick {i}: the model group "
                         f"took {mesh.model_stats.bytes} bytes, the layout's "
                         f"count is {expect}")
+                own = torch.zeros_like(carried)
+                carry = torch.zeros_like(carried)
                 if rec.calls:
                     twin = [(e[rows], m[rows], d[rows])
                             for e, m, d in want["routes"][i]]
-                    flips += route_flips(torch, f"tp serve {label} {dtype} "
-                                         f"tick {i}", rec.calls, twin, tie,
-                                         flipped)
-                keep = (~flipped).to(dev)
-                if bool(keep.any()):
-                    errs.append(tp_logit_check(
-                        torch, f"{label} {dtype} tick {i}",
-                        lg.float()[rows][keep],
-                        want["logits"][i].to(dev)[rows][keep], dtype,
-                        "bfloat16", bound))
+                    n, own, carry = route_flips(
+                        torch, f"tp serve {label} {dtype} tick {i}",
+                        rec.calls, twin, tie, 1, cfg.num_layers)
+                    flips += n
+                keep = tp_kept_rows(f"{label} {dtype} tick {i}",
+                                    own | carried, compared).to(dev)
+                carried |= carry
+                errs.append(tp_logit_check(
+                    torch, f"{label} {dtype} tick {i}",
+                    lg.float()[rows][keep],
+                    want["logits"][i].to(dev)[rows][keep], dtype,
+                    "bfloat16", bound))
             paths = dict(L.reset_decode_paths())
             wpaths = {k: v * ticks for k, v in tp_family_paths(
                 cfg, mesh, seq_sharded, cross_sharded).items()}
@@ -7416,9 +7522,9 @@ def tp_family_serve_rank(torch, rank, meshes, dev, scratch, out) -> None:
                 log({"phase": "tp_rank0_progress", "run": f"{label}_{dtype}",
                      "prefill_ms": prefill_ms, "tick_ms": tick_ms,
                      "errs": errs, "routing_flips": flips,
-                     "rows_excluded_after_a_flip": int(flipped.sum())})
+                     "logit_rows": compared})
             out[f"{label}_{dtype}"] = {
-                "rows_excluded_after_a_flip": int(flipped.sum()),
+                "logit_rows": compared,
                 "prefill_ms": prefill_ms, "tick_ms": tick_ms,
                 "tick_tp_bytes": expect, "paths": paths,
                 "routing_flips": flips,
@@ -7449,6 +7555,19 @@ def tick_timer(torch, dev):
         t0 = time.perf_counter()
         yield out
         out["ms"] = (time.perf_counter() - t0) * 1e3
+
+
+def tp_kept_rows(what: str, skip, counts: dict):
+    """The rows a logit comparison keeps (those not in the bool `skip`),
+    counted into `counts`; raises when it would keep none."""
+    keep = ~skip
+    n = int(keep.sum())
+    if n == 0:
+        raise AssertionError(f"tp serve {what}: routing flips leave no row "
+                             "to compare")
+    counts["compared"] += n
+    counts["excluded"] += int(skip.sum())
+    return keep
 
 
 def tp_logit_check(torch, what: str, got, want, dtype: str, kv: str,
@@ -7493,9 +7612,15 @@ def tp_rank_body(rank: int, init: str, scratch: str, dev_type: str) -> dict:
         for shape, axes in shapes:   # every rank, one order
             if (shape, axes) not in meshes:
                 meshes[(shape, axes)] = ProcessMesh(shape, axes)
-        out = {"train": {}, "serve": {}}
+        out = {"train": {}, "serve": {}, "seconds": {}}
         mesh = meshes[TP_TRAIN_MESH]
         cfg = dataclasses.replace(get_config("glm4-9b"), num_layers=2)
+        clock = [time.perf_counter()]
+
+        def lap(name):
+            now = time.perf_counter()
+            out["seconds"][name] = now - clock[0]
+            clock[0] = now
         for codec in TP_CODECS:
             tp_train_rank(
                 torch, rank, mesh, cfg, train_config(codec), dev, codec,
@@ -7504,14 +7629,17 @@ def tp_rank_body(rank: int, init: str, scratch: str, dev_type: str) -> dict:
                     len(p), None),
                 lambda art, p, c=codec: tp_vote_bytes(p, c), scratch,
                 out["train"], True)
+        lap("19a")
         qcfg, qtcfg = tp_moe_config()
         tp_train_rank(
             torch, rank, mesh, qcfg, qtcfg, dev, "moe_fsdp",
             lambda art, p: fsdp_launches(
                 "mode_b", len(p) - len(art.fused_leaves),
                 len(art.fused_leaves), 1, mesh=True),
-            lambda art, p: tp_fsdp_vote_bytes(qcfg, art), scratch,
+            lambda art, p: tp_fsdp_vote_bytes(qcfg, art,
+                                              qtcfg.microbatches), scratch,
             out["train"], False)
+        lap("19d")
         for arch, *_ in TP_FAMILIES:
             fcfg, ftcfg = tp_family_config(arch)
             tp_train_rank(
@@ -7520,9 +7648,16 @@ def tp_rank_body(rank: int, init: str, scratch: str, dev_type: str) -> dict:
                                              None),
                 lambda art, p: tp_psum_vote_bytes(p), scratch,
                 out["train"], True)
+        lap("19e")
+        for arch, *_ in TP_FAMILIES:
+            tp_f32_train_rank(torch, rank, mesh, arch, dev, scratch,
+                              out["train"])
+        lap("19e_float32")
         tp_serve_rank(torch, rank, meshes, dev, scratch, out["serve"])
+        lap("19c")
         tp_family_serve_rank(torch, rank, meshes, dev, scratch,
                              out["serve"])
+        lap("19f")
         dist.barrier()
         return out
     finally:
@@ -7668,6 +7803,20 @@ def run_phase19(torch, dev, errs, target=None) -> dict:
                                            for run in runs],
                  "step0_twice_bit_equal": True,
                  "held_vs_plain_by_rank": [run["held"] for run in runs]})
+        for arch, *_ in TP_FAMILIES:
+            runs = [results[r]["train"][f"f32_{arch}"]
+                    for r in range(MESH_RANKS)]
+            for run in runs:
+                for k, v in run["row"]["launches"].items():
+                    launches[k] = launches.get(k, 0) + v
+            log({"phase": "tp_train_float32", "run": arch,
+                 "twin_step0_loss": runs[0]["twin_loss"],
+                 "losses_by_rank": [run["loss"] for run in runs],
+                 "loss_share_by_rank": [run["loss_share"] for run in runs],
+                 "worst_leaf_by_rank": [run["worst_leaf"] for run in runs],
+                 "leaves": runs[0]["leaves"], "bound": TP_TWIN_TOL,
+                 "step_ms_by_rank": [run["row"]["ms"] for run in runs],
+                 "peak_bytes_by_rank": [run["peak_bytes"] for run in runs]})
         votes = tp_check_votes(torch, dev, results)
         log({"phase": "tp_votes", **votes,
              "bounds": {"agree": TP_VOTE_AGREE,
@@ -7703,6 +7852,8 @@ def run_phase19(torch, dev, errs, target=None) -> dict:
              "note": "gloo loopback through pinned host memory, 4 ranks on "
                      "one card; not a link",
              "ranks_seconds": ranks_s,
+             "subphase_seconds_by_rank": [results[r]["seconds"]
+                                          for r in range(MESH_RANKS)],
              "seconds": time.perf_counter() - t_start,
              "smi": smi_line() if dev.type == "cuda" else None})
         return launches

@@ -112,36 +112,52 @@ def _spec(key: str, art):
     return art.param_specs.get(key.split("/")[-1])
 
 
-def _gather_objects(obj, mesh) -> list:
-    """`obj` of every rank of `mesh`, in rank order (row-major over pod,
-    data, model): gathered over each pod's (data, model) ranks, then over
-    the pods."""
+def _gather_to_writer(obj, mesh) -> Optional[list]:
+    """`obj` of every rank of `mesh` on the mesh's first rank, in rank
+    order (row-major over pod, data, model), and None on the others:
+    gathered over each pod's (data, model) ranks to the pod's first, then
+    over those to the first pod's."""
     import torch.distributed as dist
     ranks, group = mesh.group_of(("data", "model"))
-    every = [obj] if group is None else [None] * len(ranks)
+    every = [obj] if group is None else (
+        [None] * len(ranks) if mesh.rank == ranks[0] else None)
     if group is not None:
-        dist.all_gather_object(every, obj, group=group)
-    if mesh.pod == 1:
+        dist.gather_object(obj, every, dst=ranks[0], group=group)
+    if mesh.pod == 1 or every is None:
         return every
     ranks, group = mesh.group_of(("pod",))
-    pods = [None] * len(ranks)
-    dist.all_gather_object(pods, every, group=group)
-    return [o for pod in pods for o in pod]
+    pods = [None] * len(ranks) if mesh.rank == ranks[0] else None
+    dist.gather_object(every, pods, dst=ranks[0], group=group)
+    return None if pods is None else [o for pod in pods for o in pod]
 
 
-def join_state(params: Any, opt_state: Any, mesh, art) -> Tuple[Any, Any]:
-    """Every rank of `mesh`'s blocks of (params, opt_state) joined into the
-    stacked run's unsharded arrays, on the host: each leaf over the mesh
-    by its spec (``art.param_specs`` and ``art.mesh_sizes``), the
-    per-voter state (:data:`_VOTER_ROWS`) over each voter's model ranks
-    and stacked in replica order; the rest (the count, the weighted
-    vote's EMA) is every rank's own."""
+def _wait_for_writer(mesh) -> None:
+    """Return on every rank of `mesh` once its first rank has got here: a
+    barrier over each pod's (data, model) ranks, then over the pods."""
+    import torch.distributed as dist
+    for names in (("data", "model"), ("pod",)):
+        group = mesh.group_of(names)[1]
+        if group is not None:
+            dist.barrier(group=group)
+
+
+def join_state(params: Any, opt_state: Any, mesh, art
+               ) -> Tuple[Optional[Any], Optional[Any]]:
+    """Every rank of `mesh`'s blocks of (params, opt_state) joined, on the
+    mesh's first rank, into the stacked run's unsharded arrays on the
+    host: each leaf over the mesh by its spec (``art.param_specs`` and
+    ``art.mesh_sizes``), the per-voter state (:data:`_VOTER_ROWS`) over
+    each voter's model ranks and stacked in replica order; the rest (the
+    count, the weighted vote's EMA) is that rank's own. A collective of
+    the mesh; the other ranks get (None, None)."""
     def host(t):
         return t.detach().to("cpu", copy=True) if isinstance(
             t, torch.Tensor) else t
     flat_p = {k: host(v) for k, v in _flatten(params).items()}
     flat_o = {k: host(v) for k, v in _flatten(opt_state).items()}
-    every = _gather_objects((flat_p, flat_o), mesh)
+    every = _gather_to_writer((flat_p, flat_o), mesh)
+    if every is None:
+        return None, None
     sizes, m = art.mesh_sizes, mesh.model
 
     def join(trees, key, spec, over):
@@ -175,9 +191,9 @@ def save(ckpt_dir: str, step: int, params: Any, opt_state: Any,
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
     if mesh is not None:
         params, opt_state = join_state(params, opt_state, mesh, art)
-        if mesh.rank == mesh.ranks[0]:
+        if params is not None:
             save(ckpt_dir, step, params, opt_state, data_state, meta)
-        _gather_objects(None, mesh)    # every rank waits for the files
+        _wait_for_writer(mesh)
         return final
     tmp = final + ".tmp"
     if os.path.exists(tmp):
@@ -334,7 +350,7 @@ class AsyncCheckpointer:
         self.wait()
         if mesh is not None:
             params, opt_state = join_state(params, opt_state, mesh, art)
-            if mesh.rank != mesh.ranks[0]:
+            if params is None:
                 return
 
         def snapshot(t):

@@ -1026,6 +1026,23 @@ def tp_bytes(cfg, tcfg, mesh) -> int:
     return chip_smoke.tp_bytes(cfg, tcfg, mesh, TP_FRAMES)
 
 
+def _gather_objects(obj, mesh) -> list:
+    """`obj` of every rank of `mesh`, on every rank, in rank order
+    (row-major over pod, data, model): gathered over each pod's (data,
+    model) ranks, then over the pods."""
+    import torch.distributed as dist
+    ranks, group = mesh.group_of(("data", "model"))
+    every = [obj] if group is None else [None] * len(ranks)
+    if group is not None:
+        dist.all_gather_object(every, obj, group=group)
+    if mesh.pod == 1:
+        return every
+    ranks, group = mesh.group_of(("pod",))
+    pods = [None] * len(ranks)
+    dist.all_gather_object(pods, every, group=group)
+    return [o for pod in pods for o in pod]
+
+
 def _tp_join(art, tcfg, mesh, params, state):
     """The stacked twin's (params, state) joined from every rank's blocks
     of a tensor-parallel step's: the parameters, a Mode B momentum and the
@@ -1035,7 +1052,6 @@ def _tp_join(art, tcfg, mesh, params, state):
     from repro_torch.distributed import sharding as shd
     mine = {"params": params, **{k: state[k] for k in (
         "momentum", "error", "delayed") if k in state}}
-    from repro_torch.checkpoint.checkpoint import _gather_objects
     # every rank of the mesh's blocks, in its rank order
     trees = _gather_objects({k: {n: t.clone() for n, t in v.items()}
                              for k, v in mine.items()}, mesh)
