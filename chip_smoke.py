@@ -359,6 +359,19 @@ Phases, each of which fails the run (non-zero exit) on any disagreement:
    host memory: loopback on one card, not a link). 19a, phase 3's cell
    (glm4-9b at every published width, 2 layers, batch 8, seq 512) on
    (data 2, model 2), Mode A sign1bit on allgather_1bit, then ternary2bit.
+   19g, the vote side of the model axis on 19a's cell, one adversary of
+   the two voters: 19g-1 sign1bit leaf-wise with a random adversary,
+   19g-2 a VotePlan of TP_ADV_BUCKET_BYTES with overlap on psum_int8 with
+   a blind adversary at flip_prob 0.9; each against its stacked twin as
+   19a, every step-0 draw of the adversarial voter's ranks held bit for
+   bit to the twin's at the block's global coordinates (random: the sent
+   signs; blind: the flip mask wherever the honest signs agree), the
+   adversary's launches counted (``tp_adv_launches``: one a leaf, or one
+   a segment of the rank's plan buffer) and the plan's bytes counted from
+   the rank's windows (``tp_plan_vote_bytes``); before the ranks, the
+   adversary under a column cut of the unembedding against its plain
+   version, and every sharded leaf's blocks under the counter map against
+   the whole leaf's draw (``check_adversary_map``).
    19d, qwen3-moe-235b-a22b's Mode B fsdp preset (1 layer, 1 microbatch
    (2 until its fused gathers were cut for the script's time), batch 8,
    seq 512) on (data 2, model 2): the experts in the EP form, 64
@@ -383,7 +396,7 @@ Phases, each of which fails the run (non-zero exit) on any disagreement:
    the model group equal to the layout's counts (``tp_vote_bytes``,
    ``tp_fsdp_vote_bytes``, ``tp_psum_vote_bytes``, ``tp_bytes``), step 0's
    loss within TP_LOSS_RTOL of the stacked twin's (M = 2, computed first),
-   and in 19a and 19e each leaf's step-0 vote (data index 0's model
+   and in 19a, 19e and 19g each leaf's step-0 vote (data index 0's model
    ranks, joined) equal to the twin's on at least TP_VOTE_AGREE of its
    coordinates (19e: TP_VOTE_AGREE_FAMILY, set after a reading), each
    difference at a coordinate where some voter's |m'| is under
@@ -432,7 +445,9 @@ Phase 13's, 14's, 15's, 16's, 17's, 18's and 19's launches (phases 14's,
 Phase 7 also times ternary_majority with ties +1 (its own row),
 ternary_unpack to bf16 and bitpack of the bf16 stack (its own row, whose
 launches are phases 9's and 10's), and the adversary kernel on the whole
-(4, n) unembedding stack (its own row, whose launches are phase 12's).
+(4, n) unembedding stack (its own row, whose launches are phase 12's
+and 19g's), uncut and under the counter map (the row's "map" entry, whose
+launches are 19g's under a map).
 
 It prints one JSON line per step and per wire, a ``{"kernels": [...]}``
 line and, last, ``{"ok": true, "device": {...}}``. Without a CUDA device,
@@ -2611,6 +2626,15 @@ ADV_CASES = (("random", 0.5), ("colluding", 0.5), ("blind", 0.9),
 #: injections of two adds (10), the first two adds, the final xor, the
 #: 64-bit counter (2), the shift, compare and select (3) and the flip (1)
 ADV_INT_OPS = 79
+#: 32-bit integer operations a thread the counter map adds (its
+#: instantiation only), counted from the source: the first local index
+#: (2), the 32-bit test (3), the division (about 20 on the card, which has
+#: no integer divide), the remainder and the columns left (5), the base
+#: (6) and the run test (2), over the thread's 16 columns (2.4 an element)
+ADV_MAP_OPS = 38
+#: the map's timed layout: the (4, n) stack drawn as model rank 1's block
+#: of a (151,552, 8,192) leaf cut in two along its columns (runs of 4,096)
+ADV_MAP_RUN = 4096
 #: the card's peak rate of 32-bit integer operations: one a lane a clock on
 #: all 128 lanes of an SM (its four schedulers each issue one warp
 #: instruction a clock; integer adds go to the FMA pipe beside the 64 INT32
@@ -2694,12 +2718,22 @@ def time_adversary(torch, ops, ref, dev, launches, errs) -> dict:
                    reps=25)
     random_ms = median_ms(torch, lambda: ops.adversary_(x, keys, 0.5, False),
                           reps=25)
+    cut = {"block": ADV_MAP_RUN, "gap": ADV_MAP_RUN}
+    map_ms = median_ms(torch, lambda: ops.adversary_(
+        x, keys, 0.9, True, ADV_MAP_RUN, **cut), reps=25)
+    map_random_ms = median_ms(torch, lambda: ops.adversary_(
+        x, keys, 0.5, False, ADV_MAP_RUN, **cut), reps=25)
+    # the uncut launch again, after the map's: the two in turns
+    ms_after = median_ms(torch, lambda: ops.adversary_(x, keys, 0.9, True),
+                         reps=25)
     plain = median_ms(torch, lambda: ref.adversary(x, keys, 0.9, True),
                       reps=1, warmup=0)
     del x
     torch.cuda.empty_cache()
     t_bytes = 2 * M_MAIN * n / HBM_BYTES_PER_S * 1e3
     t_ops = ADV_INT_OPS * M_MAIN * n / INT32_OPS_PER_S * 1e3
+    map_ops = (ADV_INT_OPS + ADV_MAP_OPS / 16) * M_MAIN * n \
+        / INT32_OPS_PER_S * 1e3
     b, by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
     return {"name": "adversary", "route": "cuda",
             "source": SOURCE + "byzantine.cu",
@@ -2712,7 +2746,17 @@ def time_adversary(torch, ops, ref, dev, launches, errs) -> dict:
             "excess_ms": launches["adversary"] * (ms - b),
             "shape": {"n": n, "voters": M_MAIN}, "mode": "blind, p 0.9",
             "random_ms": random_ms, "bytes_bound_ms": t_bytes,
-            "ops_bound_ms": t_ops, "int_ops_per_element": ADV_INT_OPS}
+            "ops_bound_ms": t_ops, "int_ops_per_element": ADV_INT_OPS,
+            "uncut_ms_after_map": ms_after,
+            "map": {"layout": f"model rank 1's block of a (151552, "
+                              f"{2 * n // 151552}) leaf cut in two along "
+                              f"its columns (runs of {ADV_MAP_RUN})",
+                    "ms": map_ms, "random_ms": map_random_ms,
+                    "bound_ms": max(t_bytes, map_ops),
+                    "bound_by": "bytes" if t_bytes >= map_ops
+                    else "operations",
+                    "int_ops_per_element": ADV_INT_OPS + ADV_MAP_OPS / 16,
+                    "launches": launches.get("adversary_map", 0)}}
 
 
 def drill_specs():
@@ -3093,17 +3137,20 @@ def plain_checked(torch, ops, ref, sc, err, what: str,
             hi = min(n, lo + C)
             yield lo, hi, lo // per_word, -(-hi // per_word)
 
-    def adversary_(x, keys, p, flip, offset=0):
+    def adversary_(x, keys, p, flip, offset=0, *, start=0, block=0,
+                   gap=0):
         before = x.clone()
-        got = orig["adversary_"](x, keys, p, flip, offset)
+        got = orig["adversary_"](x, keys, p, flip, offset, start=start,
+                                 block=block, gap=gap)
         diff = 0.0
         for r in range(0, x.shape[0], s):
             for lo, hi, _, _ in cols(x.shape[1]):
                 diff = max(diff, require_equal(
                     f"{what}: adversary {tuple(x.shape)} p={p} rows {r}.. "
-                    f"cols {lo}..", got[r:r + s, lo:hi],
+                    f"cols {lo}.. map ({block}, {gap})",
+                    got[r:r + s, lo:hi],
                     ref.adversary(before[r:r + s, lo:hi], keys[r:r + s], p,
-                                  flip, offset + lo)))
+                                  flip, offset, start + lo, block, gap)))
         note("adversary", x, diff)
         return got
 
@@ -6252,6 +6299,24 @@ TP_MOE_ARCH, TP_MOE_LAYERS, TP_MOE_MICRO = "qwen3-moe-235b-a22b", 1, 1
 TP_FAMILIES = (("mamba2-2.7b", 2, 0, 4), ("zamba2-1.2b", 7, 0, 4),
                ("whisper-tiny", 2, 4, 4))
 TP_FRAMES = 64
+#: 19g: the vote side of the model axis on 19a's cell (glm4-9b at every
+#: published width, 2 layers, data 2 x model 2, one adversary of the two
+#: voters): (label, adversary mode, flip_prob, optimizer options): 19g-1
+#: sign1bit leaf-wise on allgather_1bit with a random adversary, 19g-2 a
+#: VotePlan of TP_ADV_BUCKET_BYTES with overlap on psum_int8 with a blind
+#: adversary at the kernel table's flip_prob; each step 0 twice, then
+#: step 1, against its stacked M = 2 twin, at 19a's bounds (stated before
+#: the first run)
+TP_ADV_BUCKET_BYTES = 1 << 24
+TP_ADV_RUNS = (
+    ("adv_random", "random", 0.5, {}),
+    ("adv_plan_blind", "blind", 0.9, {"vote_strategy": "psum_int8",
+                                      "bucket_bytes": TP_ADV_BUCKET_BYTES,
+                                      "overlap": True}))
+#: elements a draw check unpacks at a time (19g)
+TP_ADV_CHUNK = 1 << 26
+#: the unembedding table whose column cut 19g's kernel check draws
+ADV_MAP_TABLE = (151_552, 4096)
 #: 19d / 19f's bound on a routing choice that differs from the twin's,
 #: stated before the first run: the twin's k-th router probability exceeds
 #: its (k+1)-th by under this share of the k-th (bf16: a residual a few
@@ -6565,6 +6630,31 @@ def tp_vote_bytes(params: dict, codec: str) -> int:
     return sum(4 * -(-p.numel() // per) for p in params.values()) + 12
 
 
+def tp_plan_vote_bytes(art, tcfg) -> int:
+    """The bytes one rank hands the vote axes' collectives in one step of
+    a VotePlan over a model axis (19g-2), counted from the rank's windows
+    (``art.optimizer.shard``, ``core.vote_plan.shard_plan``): per window
+    its wire's message (1-bit words of sign1bit and weighted_vote, 2-bit
+    words of ternary2bit, on allgather_1bit: 4 bytes a word; one int8
+    count a coordinate on psum_int8 over fewer than 128 voters), with the
+    diagnostics the int8 tally of the rank's flat signs and voter 0's
+    agreement (one int64), and the metrics (3 float32)."""
+    from repro_torch.configs.base import VoteStrategy
+    shard = art.optimizer.shard
+    out = 12
+    for b in shard.plan.buckets:
+        if b.strategy == VoteStrategy.ALLGATHER_1BIT:
+            out += 4 * -(-b.length // (16 if b.codec == "ternary2bit"
+                                       else 32))
+        elif b.strategy == VoteStrategy.PSUM_INT8:
+            out += b.length
+        else:
+            raise ValueError(f"no byte count for {b.strategy.value!r}")
+    if tcfg.diagnostics:
+        out += shard.plan.n_params + 8
+    return out
+
+
 def tp_psum_vote_bytes(params: dict) -> int:
     """The bytes one rank hands the vote axes' collectives in one psum_int8
     step over a data axis of 2 (19e): each local leaf's int8 counts
@@ -6645,6 +6735,227 @@ def unpack_votes(torch, words, n: int, codec: str):
     return ref.bitunpack(words[None], torch.int8)[0, :n]
 
 
+def tp_adv_config(mode: str, p: float, opt: dict):
+    """19g's train config: 19a's sign1bit cell with `opt` and one
+    adversary of `mode` (flip_prob `p`)."""
+    from repro_torch.configs.base import ByzantineConfig, VoteStrategy
+    tcfg = train_config("sign1bit")
+    opt = {k: VoteStrategy(v) if k == "vote_strategy" else v
+           for k, v in opt.items()}
+    return dataclasses.replace(
+        tcfg, optimizer=dataclasses.replace(tcfg.optimizer, **opt),
+        byzantine=ByzantineConfig(mode=mode, num_adversaries=1,
+                                  seed=TP_SEED, flip_prob=p))
+
+
+def tp_adv_launches(art, n_leaves: int, evil: bool) -> dict:
+    """19g's kernel launches on one rank: leaf-wise the 1-bit wire's
+    (:func:`mesh_launches`), the adversarial voter's symbols taking one
+    adversary launch and one bitpack a leaf; under the plan the walk's
+    (psum_int8 buckets launch none) and the adversary once a segment of the
+    rank's flat buffer (``vote_plan.shard_plan``: each sharded leaf's
+    block, each run of adjacent replicated leaves)."""
+    shard = art.optimizer.shard
+    if shard is None:
+        want = mesh_launches("allgather_1bit", 1, n_leaves, None)
+        if evil:
+            want.update(bitpack=n_leaves, adversary=n_leaves)
+    else:
+        want = mesh_launches("plan_overlap", 1, n_leaves, shard.plan)
+        if evil:
+            want["adversary"] = len(shard.segments)
+    return {k: v for k, v in want.items() if v}
+
+
+def ternary_words_of(torch, x):
+    """A flat int8 {-1, 0, +1} tensor -> its 2-bit words on the host, by
+    the plain version a TP_ADV_CHUNK at a time (no kernel launch)."""
+    from repro_torch.core import sign_compress as sc
+    from repro_torch.kernels import ref
+    out = []
+    for lo in range(0, x.numel(), TP_ADV_CHUNK):
+        part = sc.pad_last(x[lo:lo + TP_ADV_CHUNK][None], sc.PACK2)[0]
+        out.append(ref.ternary_pack(part)[0].cpu())
+    return torch.cat(out)
+
+
+class AdvTwinRecorder:
+    """Within the block (a stacked twin's step), voter 0's adversary draws,
+    a call at a time in call order, kept on the host as 2-bit words: the
+    signs it sent and, for blind, its honest signs."""
+
+    def __init__(self, torch, blind: bool):
+        self.torch, self.blind, self.rows = torch, blind, []
+
+    def __enter__(self):
+        from repro_torch.core import byzantine
+        self.mod, self.orig = byzantine, byzantine.evil_signs_
+
+        def evil_signs_(signs, cfg, ids, **kw):
+            r = list(ids).index(0) if 0 in ids else None
+            honest = (signs[r].reshape(-1).clone()
+                      if r is not None and self.blind else None)
+            out = self.orig(signs, cfg, ids, **kw)
+            if r is not None:
+                t = self.torch
+                self.rows.append({
+                    "n": signs[r].numel(),
+                    "sent": ternary_words_of(t, signs[r].reshape(-1)),
+                    "honest": (None if honest is None
+                               else ternary_words_of(t, honest))})
+            return out
+        byzantine.evil_signs_ = evil_signs_
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.evil_signs_ = self.orig
+
+
+class AdvCheck:
+    """Within the block (a model-axis step on an adversarial voter's rank),
+    each draw held bit for bit against the stacked twin's rows
+    (:class:`AdvTwinRecorder`, in `path`) at the block's global
+    coordinates (``core.prng.mapped_counters`` of its counter map): the
+    i-th draw against the twin's i-th row (leaf-wise) or every draw
+    against its one flat row (`flat`: a plan). Random: the sent signs
+    equal; blind: the flip mask equal wherever the honest signs agree (on
+    at least TP_VOTE_AGREE of them). Plain ops only: no kernel launch."""
+
+    def __init__(self, torch, path: str, blind: bool, flat: bool):
+        self.torch, self.path, self.blind, self.flat = torch, path, blind, \
+            flat
+        self.calls = self.coords = self.honest_same = self.mapped = 0
+
+    def _twin(self, row: dict, key: str, pos):
+        from repro_torch.kernels import ref
+        w0, w1 = int(pos[0]) // 16, int(pos[-1]) // 16 + 1
+        words = row[key][w0:w1].to(pos.device)
+        return ref.ternary_unpack(words[None], self.torch.int8)[0][
+            pos - 16 * w0]
+
+    def __enter__(self):
+        from repro_torch.core import byzantine, prng
+        self.rows = self.torch.load(self.path)
+        self.mod, self.orig = byzantine, byzantine.evil_signs_
+
+        def evil_signs_(signs, cfg, ids, **kw):
+            t = self.torch
+            honest = signs.reshape(-1).clone()
+            out = self.orig(signs, cfg, ids, **kw)
+            sent = signs.reshape(-1)
+            row = self.rows[0 if self.flat else self.calls]
+            cut = {k: kw.get(k, 0) for k in ("offset", "block", "gap")}
+            for lo in range(0, sent.numel(), TP_ADV_CHUNK):
+                hi = min(sent.numel(), lo + TP_ADV_CHUNK)
+                pos = prng.mapped_counters(hi - lo, cut["offset"], lo,
+                                           cut["block"], cut["gap"],
+                                           device=sent.device)
+                if int(pos[-1]) >= row["n"]:
+                    raise AssertionError(f"19g: a draw reaches counter "
+                                         f"{int(pos[-1])} of {row['n']}")
+                want = self._twin(row, "sent", pos)
+                if self.blind:
+                    was = self._twin(row, "honest", pos)
+                    same = honest[lo:hi] == was
+                    self.honest_same += int(same.sum())
+                    bad = ((sent[lo:hi] != honest[lo:hi]) != (want != was)) \
+                        & same
+                else:
+                    bad = sent[lo:hi] != want
+                if bool(bad.any()):
+                    raise AssertionError(
+                        f"19g: draw {self.calls} (map {cut}) differs from "
+                        f"the twin's at {int(bad.sum())} of its "
+                        f"{hi - lo} coordinates from {lo}")
+                del pos, want, bad
+            self.calls += 1
+            self.mapped += bool(cut["block"])
+            self.coords += sent.numel()
+            del honest
+            return out
+        byzantine.evil_signs_ = evil_signs_
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.evil_signs_ = self.orig
+        del self.rows
+
+
+def check_adversary_map(torch, ops, ref, dev, err, cfg) -> dict:
+    """19g's kernel checks (their launches count in no path): (1) the
+    adversary under a column cut of the unembedding (model rank 1's block
+    (151,552, 2,048) of the (151,552, 4,096) table cut in two along its
+    columns: runs of 2,048) against its plain version, in windows at the
+    block's start, inside a run, across a run's end and at its tail, for
+    random and blind at 0.9; (2) every leaf that 19a's layout shards over
+    model 2: each rank's block drawn under the map against the same block
+    of the whole leaf's draw, both by the kernel."""
+    from repro_torch.configs.base import ByzantineConfig
+    from repro_torch.core import byzantine, prng
+    from repro_torch.distributed import sharding as shd
+    gen = torch.Generator(device=dev).manual_seed(19)
+    (rows, cols), parts = ADV_MAP_TABLE, 2
+    local = rows * cols // parts
+    base, block, gap = prng.counter_map((rows, cols // parts), 1, parts, 1)
+    windows = ((0, ADV_WINDOW), (block * 1000 + 7, ADV_WINDOW),
+               (local - ADV_WINDOW // 2 - block // 2 - 3, ADV_WINDOW // 2),
+               (local - (ADV_WINDOW - 5), ADV_WINDOW - 5))
+    checks = 0
+    for mode, p in (("random", 0.5), ("blind", 0.9)):
+        cfg_b = ByzantineConfig(mode=mode, num_adversaries=M_MAIN, seed=5,
+                                flip_prob=p)
+        keys = [byzantine.adversary_key(cfg_b, r, step=3)
+                for r in range(M_MAIN)]
+        for start, length in windows:
+            x = torch.randint(-1, 2, (M_MAIN, length), generator=gen,
+                              device=dev, dtype=torch.int8)
+            want = ref.adversary(x, keys, p, mode == "blind", base, start,
+                                 block, gap)
+            got = ops.adversary_(x.clone(), keys, p, mode == "blind", base,
+                                 start=start, block=block, gap=gap)
+            err["adversary"] = max(err["adversary"], require_equal(
+                f"adversary {mode} under a column cut at {start}", got,
+                want))
+            checks += 1
+            del x, want, got
+    # every sharded leaf of 19a's layout, each block against the whole
+    shapes = cfg.param_shapes()
+    specs = shd.param_specs(shapes, fsdp=False,
+                            mesh_shape={"data": 2, "model": parts})
+    cfg_b = ByzantineConfig(mode="blind", num_adversaries=1, seed=5,
+                            flip_prob=0.9)
+    key = [byzantine.adversary_key(cfg_b, 0, step=1)]
+    leaves = 0
+    for k, spec in specs.items():
+        if "model" not in spec:
+            continue
+        dim = spec.index("model")
+        x = torch.randint(-1, 2, tuple(shapes[k]), generator=gen,
+                          device=dev, dtype=torch.int8)
+        whole = ops.adversary_(x.clone().view(1, -1), key, 0.9, True)
+        whole = whole.view(tuple(shapes[k]))
+        for idx in range(parts):
+            blk = x.narrow(dim, idx * x.shape[dim] // parts,
+                           x.shape[dim] // parts).contiguous()
+            off, b, g = prng.counter_map(tuple(blk.shape), dim, parts, idx)
+            got = ops.adversary_(blk.view(1, -1), key, 0.9, True, off,
+                                 block=b, gap=g)
+            require_equal(f"adversary: {k} block {idx} under the map",
+                          got.view(blk.shape), whole.narrow(
+                              dim, idx * x.shape[dim] // parts,
+                              x.shape[dim] // parts))
+            del blk, got
+        leaves += 1
+        del x, whole
+    sync(torch, dev)
+    out = {"column_cut_checks": checks, "windows": windows,
+           "map": {"offset": base, "block": block, "gap": gap},
+           "sharded_leaves_checked": leaves}
+    log({"phase": "adversary_map_vs_plain", **out,
+         "max_abs_err": err["adversary"]})
+    return out
+
+
 def tp_train_twin(torch, dev, scratch: str) -> dict:
     """The stacked twins (M = 2 on the card, no model axis) of 19a (per
     codec), 19d and 19e (per arch): step 0's losses, each leaf's step-0
@@ -6662,15 +6973,25 @@ def tp_train_twin(torch, dev, scratch: str) -> dict:
              for arch, *_ in TP_FAMILIES]
     runs += [(f"f32_{arch}",) + tp_family_config(arch, "float32") + (False,)
              for arch, *_ in TP_FAMILIES]
+    glm = dataclasses.replace(get_config("glm4-9b"), num_layers=2)
+    runs += [(label, glm, tp_adv_config(mode, p, opt), True)
+             for label, mode, p, opt in TP_ADV_RUNS]
     out = {}
     for label, cfg, tcfg, votes_too in runs:
         art = TS.make_train_step(cfg, tcfg, TP_VOTERS, device=dev)
         params, state = TS.materialize_state(
             cfg, tcfg, art, torch.Generator(device=dev).manual_seed(0))
         batch = tp_train_batch(torch, cfg, tcfg, 0, dev)
-        with VoteRecorder(ops) as rec, RouteRecorder(torch) as routes:
+        adv = (AdvTwinRecorder(torch, tcfg.byzantine.mode == "blind")
+               if tcfg.byzantine.num_adversaries else
+               contextlib.nullcontext())
+        with VoteRecorder(ops) as rec, RouteRecorder(torch) as routes, adv:
             params, state, met = art.step_fn(params, state, batch, 0)
         out[label] = {"loss": float(met["loss"])}
+        if tcfg.byzantine.num_adversaries:
+            torch.save(adv.rows, os.path.join(scratch,
+                                              f"tp_adv_twin_{label}.pt"))
+            out[label]["draws"] = len(adv.rows)
         if cfg.moe.enabled:
             torch.save(routes.calls, os.path.join(scratch,
                                                   f"tp_routes_{label}.pt"))
@@ -6978,12 +7299,15 @@ def replicated_checksum(torch, art, params) -> str:
 def tp_train_rank(torch, rank, mesh, cfg, tcfg, dev, label, want_fn,
                   vote_bytes, scratch, out, record_votes: bool,
                   twice: bool = True) -> None:
-    """19a / 19d / 19e on this rank: step 0 from a state saved on the
-    host, step 0 again from it (bit-equal: `twice`), then step 1; the launches exact
-    and, on step 0, each held against its plain version; the bytes by
-    axis held to the layout's counts; the replicated leaves' checksums,
-    the step-0 votes (data index 0, `record_votes`) and, for an MoE, the
-    step-0 routing calls kept for the main process."""
+    """19a / 19d / 19e / 19g on this rank: step 0 from a state saved on
+    the host, step 0 again from it (bit-equal: `twice`), then step 1; the
+    launches exact and, on step 0, each held against its plain version;
+    the bytes by axis held to the layout's counts; the replicated leaves'
+    checksums, the step-0 votes (data index 0, `record_votes`) and, for an
+    MoE, the step-0 routing calls kept for the main process. With an
+    adversary (19g) its step-0 draws on an adversarial voter's ranks are
+    held to the twin's (:class:`AdvCheck`), one a leaf, or one a segment
+    of the rank's plan buffer."""
     from repro_torch.core import sign_compress as sc
     from repro_torch.kernels import ops, ref
     from repro_torch.train import train_step as TS
@@ -6998,7 +7322,7 @@ def tp_train_rank(torch, rank, mesh, cfg, tcfg, dev, label, want_fn,
     saved = ((clone_state(torch, params, True),
               clone_state(torch, state, True)) if twice else None)
     rows, mets, sums, err, held = [], [], [], {}, {}
-    routes = []
+    routes, draws = [], None
     for run, step in enumerate((0, 0, 1) if twice else (0, 1)):
         if run == 1 and twice:
             restore_state_(torch, params, saved[0])
@@ -7007,12 +7331,33 @@ def tp_train_rank(torch, rank, mesh, cfg, tcfg, dev, label, want_fn,
         batch = tp_train_batch(torch, cfg, tcfg, step, dev)
         rec = (VoteRecorder(ops) if run == 0 and record_votes
                and mesh.axis_index("data") == 0 else None)
+        byz = tcfg.byzantine
+        check = (AdvCheck(torch, os.path.join(scratch,
+                                              f"tp_adv_twin_{label}.pt"),
+                          byz.mode == "blind", art.plan is not None)
+                 if run == 0 and byz.num_adversaries
+                 and mesh.replica_index() < byz.num_adversaries else None)
         with (RouteRecorder(torch) if run == 0 and cfg.moe.enabled
-              else contextlib.nullcontext()) as route:
+              else contextlib.nullcontext()) as route, \
+                (check if check is not None else contextlib.nullcontext()):
             params, state, met, row = tp_step(
                 torch, ops, ref, sc, mesh, art, params, state, batch, step,
                 want, run == 0, err, held,
                 f"tp {label} rank {rank} step {step} run {run}", rec)
+        if check is not None:
+            shard = art.optimizer.shard
+            n = len(params) if shard is None else len(shard.segments)
+            if check.calls != n:
+                raise AssertionError(f"tp {label} rank {rank}: {check.calls}"
+                                     f" adversary draws, expected {n}")
+            if check.blind and check.honest_same < TP_VOTE_AGREE \
+                    * check.coords:
+                raise AssertionError(
+                    f"tp {label} rank {rank}: the honest signs agree with "
+                    f"the twin's on {check.honest_same} of {check.coords}")
+            draws = {"calls": check.calls, "coords": check.coords,
+                     "honest_same": check.honest_same,
+                     "mapped": check.mapped}
         if route is not None:
             routes = route.calls
         if row["tp_bytes"] != expect_tp:
@@ -7054,6 +7399,7 @@ def tp_train_rank(torch, rank, mesh, cfg, tcfg, dev, label, want_fn,
                   "expected_tp_bytes": expect_tp,
                   "expected_vote_bytes": expect_vote,
                   "routing_flips": out_routes, "twice": twice,
+                  "draws": draws,
                   "mesh": [list(mesh.axis_sizes.values()),
                            list(mesh.axis_sizes)],
                   "specs": {k: list(s) for k, s in art.param_specs.items()}}
@@ -7630,6 +7976,17 @@ def tp_rank_body(rank: int, init: str, scratch: str, dev_type: str) -> dict:
                 lambda art, p, c=codec: tp_vote_bytes(p, c), scratch,
                 out["train"], True)
         lap("19a")
+        evil = mesh.replica_index() < 1
+        for label, mode, p, opt in TP_ADV_RUNS:
+            acfg = tp_adv_config(mode, p, opt)
+            tp_train_rank(
+                torch, rank, mesh, cfg, acfg, dev, label,
+                lambda art, p: tp_adv_launches(art, len(p), evil),
+                lambda art, p, t=acfg: (tp_plan_vote_bytes(art, t)
+                                        if art.plan is not None
+                                        else tp_vote_bytes(p, "sign1bit")),
+                scratch, out["train"], True)
+        lap("19g")
         qcfg, qtcfg = tp_moe_config()
         tp_train_rank(
             torch, rank, mesh, qcfg, qtcfg, dev, "moe_fsdp",
@@ -7675,6 +8032,9 @@ def tp_check_votes(torch, dev, results: dict) -> dict:
     sizes = {"model": TP_TRAIN_MESH[0][1]}
     runs = [(c, c) for c in TP_CODECS] + [(arch, "ternary2bit")
                                           for arch, *_ in TP_FAMILIES]
+    # 19g: the plan applies 2-bit votes (apply_ternary_vote)
+    runs += [(label, "ternary2bit" if opt else "sign1bit")
+             for label, _, _, opt in TP_ADV_RUNS]
     every = []
     for label, codec in runs:
         twin = torch.load(os.path.join(results["scratch"],
@@ -7737,6 +8097,11 @@ def run_phase19(torch, dev, errs, target=None) -> dict:
     gc.collect()
     reset_peak(torch, dev)
     try:
+        from repro_torch.configs.base import get_config
+        from repro_torch.kernels import ops, ref
+        adv_map = check_adversary_map(
+            torch, ops, ref, dev, errs, dataclasses.replace(
+                get_config("glm4-9b"), num_layers=2))
         twin = tp_train_twin(torch, dev, scratch)
         log({"phase": "tp_twin_done", "seconds": time.perf_counter() - t_start,
              **twin})
@@ -7753,7 +8118,8 @@ def run_phase19(torch, dev, errs, target=None) -> dict:
         results["scratch"] = scratch
         launches = {}
         labels = TP_CODECS + ("moe_fsdp",) + tuple(a for a, *_ in
-                                                    TP_FAMILIES)
+                                                    TP_FAMILIES) + tuple(
+            a for a, *_ in TP_ADV_RUNS)
         for label in labels:
             runs = [results[r]["train"][label] for r in range(MESH_RANKS)]
             for r, run in enumerate(runs):
@@ -7802,7 +8168,9 @@ def run_phase19(torch, dev, errs, target=None) -> dict:
                  "routing_flips_by_rank": [run["routing_flips"]
                                            for run in runs],
                  "step0_twice_bit_equal": True,
-                 "held_vs_plain_by_rank": [run["held"] for run in runs]})
+                 "held_vs_plain_by_rank": [run["held"] for run in runs],
+                 "adversary_draws_by_rank": [run["draws"] for run in runs],
+                 "twin_draws": twin[label].get("draws")})
         for arch, *_ in TP_FAMILIES:
             runs = [results[r]["train"][f"f32_{arch}"]
                     for r in range(MESH_RANKS)]
@@ -7848,6 +8216,18 @@ def run_phase19(torch, dev, errs, target=None) -> dict:
                                if label.startswith(("mamba2", "zamba2"))
                                else TP_SERVE_SHARE[kv]),
                      "peak_bytes_by_rank": [g["peak_bytes"] for g in got]})
+        launches["adversary_map"] = 0
+        for label, *_ in TP_ADV_RUNS:
+            drawn = [results[r]["train"][label]["draws"]
+                     for r in range(MESH_RANKS)]
+            if not all(drawn[:TP_TRAIN_MESH[0][1]]):
+                raise AssertionError(f"tp {label}: an adversarial rank's "
+                                     f"draws were not held: {drawn}")
+            # every run of a rank launches what its step 0 did
+            runs = len(results[0]["train"][label]["rows"])
+            launches["adversary_map"] += runs * sum(
+                d["mapped"] for d in drawn if d)
+        log({"phase": "tp_adversary_map", **adv_map})
         log({"phase": "tp_done", "ranks": MESH_RANKS, "backend": "gloo",
              "note": "gloo loopback through pinned host memory, 4 ranks on "
                      "one card; not a link",
@@ -8265,7 +8645,8 @@ def main() -> int:
     for k, v in run_phase18(torch, dev, errs).items():
         launches[k] += v
     for k, v in run_phase19(torch, dev, errs).items():
-        launches[k] += v
+        # adversary_map: the adversary's launches under the counter map
+        launches[k] = launches.get(k, 0) + v
     # ef_sign's encode packs its float32 t; every other bitpack of the main
     # path packs int8 signs (staged votes, plan buckets, weighted_vote's vote)
     launches["bitpack_i8"] = launches["bitpack"] - ef_sign_packs

@@ -7,7 +7,11 @@
 Builds the kernels, then phase 19 at full size: the stacked twins and the
 single-device serving reference, then a world of 4 processes sharing the
 card over gloo: 19a (glm4-9b at every published width, 2 layers, on data
-2 x model 2, sign1bit and ternary2bit), 19d (qwen3-moe-235b-a22b's Mode B
+2 x model 2, sign1bit and ternary2bit), 19g (the same cell with one
+adversary of two voters: random leaf-wise, blind under a VotePlan on
+psum_int8; each draw held to the twin's at the block's global
+coordinates, after the adversary kernel's checks under the counter map),
+19d (qwen3-moe-235b-a22b's Mode B
 fsdp preset, 1 layer, its experts in the EP form), 19e (the presets of
 mamba2-2.7b, zamba2-1.2b and whisper-tiny), 19c (serving glm4-9b, 8
 layers, and its float32 twin, on model 4 with the sequence-sharded flash

@@ -26,12 +26,15 @@ Over the vote axes of a ``distributed.mesh.ProcessMesh`` each rank holds
 one voter: :func:`apply_adversary` acts on its signs under its replica
 index (:func:`replica_index`, pod-major), drawing what row ``idx`` of
 :func:`apply_adversary_stacked` draws. A ``"model"`` axis does not change
-the replica index: the model ranks of one voter are one adversary.
-``sign_flip`` and ``zero`` act on a model shard as on the whole leaf; a
-stochastic draw would have to be taken at the shard's global coordinates
-(a strided counter map in ``kernels/csrc/byzantine.cu``), so the train
-step refuses the stochastic and adaptive modes over a model axis
-(ROADMAP.md Queue 1 item 15).
+the replica index: the model ranks of one voter are one adversary, each
+drawing under the same key. ``sign_flip`` and ``zero`` act on a model
+shard as on the whole leaf; a stochastic draw takes the shard's global
+coordinates, as the reference's step (automatic over ``"model"``) draws
+over the whole leaf: the counter map (`block`, `gap`;
+``core.prng.counter_map``, ``codecs.base.LeafShare.counter_map``), which
+the kernel applies per element. The trainer passes each leaf's map; the
+vote API, whose payload carries no leaf layout, refuses a stochastic mode
+over a model axis (``vote_api.MeshBackend``).
 """
 from __future__ import annotations
 
@@ -71,11 +74,14 @@ def check_mode(mode: str) -> None:
 
 def evil_signs_(signs: torch.Tensor, cfg: ByzantineConfig,
                 ids: Sequence[int], *, step: Optional[int] = None,
-                salt: int = 0, offset: int = 0, obs=None) -> torch.Tensor:
+                salt: int = 0, offset: int = 0, obs=None, block: int = 0,
+                gap: int = 0) -> torch.Tensor:
     """In place: what voters `ids` send if adversarial, row r of the
     ``(rows, n)`` int8 `signs` (a view whose rows may be apart) being voter
     ``ids[r]``'s honest signs; `obs` is an adaptive mode's observation.
-    Returns `signs`."""
+    A stochastic draw of column j takes counter ``offset + j``, or under
+    the counter map (`block` > 0: a model shard) the global counter of
+    local element j. Returns `signs`."""
     check_mode(cfg.mode)
     if cfg.mode in ATTACK_MODES:
         from repro_torch.core.attacks import engine
@@ -92,7 +98,8 @@ def evil_signs_(signs: torch.Tensor, cfg: ByzantineConfig,
         keys = [adversary_key(cfg, int(i), step=step, salt=salt)
                 for i in ids]
     p = cfg.flip_prob if cfg.mode == "blind" else 0.5
-    return ops.adversary_(signs, keys, p, cfg.mode == "blind", offset)
+    return ops.adversary_(signs, keys, p, cfg.mode == "blind", offset,
+                          block=block, gap=gap)
 
 
 def build_config(mode: str, num_adversaries: int = 0, *, seed: int = 0,
@@ -177,18 +184,20 @@ def replica_index(axis_names) -> int:
 
 def apply_adversary(signs: torch.Tensor, cfg: ByzantineConfig, axis_names,
                     *, step: Optional[int] = None, salt: int = 0,
-                    offset: int = 0, obs=None) -> torch.Tensor:
+                    offset: int = 0, obs=None, block: int = 0,
+                    gap: int = 0) -> torch.Tensor:
     """In place on this rank's int8 signs (any shape, drawn as one flat
-    row): :func:`evil_signs_` when the rank's replica index over the vote
-    axes is below ``cfg.num_adversaries`` (an adaptive mode reading `obs`),
-    else unchanged. Returns `signs` (the reference returns a new array)."""
+    row, under the counter map `block` / `gap` for a model shard):
+    :func:`evil_signs_` when the rank's replica index over the vote axes is
+    below ``cfg.num_adversaries`` (an adaptive mode reading `obs`), else
+    unchanged. Returns `signs` (the reference returns a new array)."""
     if cfg.mode == "none" or cfg.num_adversaries == 0:
         return signs
     check_mode(cfg.mode)
     idx = replica_index(axis_names)
     if idx < cfg.num_adversaries:
         evil_signs_(signs.view(1, -1), cfg, [idx], step=step, salt=salt,
-                    offset=offset, obs=obs)
+                    offset=offset, obs=obs, block=block, gap=gap)
     return signs
 
 

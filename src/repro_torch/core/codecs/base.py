@@ -76,11 +76,14 @@ from repro_torch.kernels import ops
 @dataclasses.dataclass(frozen=True)
 class LeafShare:
     """How one leaf lies over a mesh's model axis: `sharded` over it (a
-    rank holds one of ``mesh.model`` equal slices) or whole on every model
-    rank."""
+    rank holds one of ``mesh.model`` equal slices along `dim`, the dim its
+    spec names ``"model"``, of the leaf's global `shape`) or whole on every
+    model rank."""
 
     mesh: Any
     sharded: bool
+    dim: Optional[int] = None
+    shape: Tuple[int, ...] = ()
 
     @property
     def parts(self) -> int:
@@ -97,6 +100,22 @@ class LeafShare:
         """`x` summed over the model group (``mesh.model_sum``)."""
         from repro_torch.distributed import mesh as pm
         return pm.model_sum(x, self.mesh)
+
+    def counter_map(self, local_shape, offset: int = 0, drop: int = 0
+                    ) -> Dict[str, int]:
+        """The adversary's counter map (``core.prng.counter_map``) for this
+        rank's block of local shape `local_shape` (the leaf with its first
+        `drop` dims taken away: one layer of a stacked leaf), the whole
+        starting at counter `offset`: ``{"offset", "block", "gap"}``, the
+        keywords of ``byzantine.evil_signs_``. A replicated leaf draws as
+        without a model axis (block 0)."""
+        if not self.sharded:
+            return {"offset": offset, "block": 0, "gap": 0}
+        from repro_torch.core import prng
+        base, block, gap = prng.counter_map(
+            tuple(local_shape), self.dim - drop, self.parts,
+            self.mesh.axis_index("model"), offset)
+        return {"offset": base, "block": block, "gap": gap}
 
 
 class GradientCodec(abc.ABC):

@@ -19,6 +19,13 @@ element counter at `offset`, so a window of a long row draws what the whole
 row would draw there. The CUDA kernel ``csrc/byzantine.cu`` runs the same
 rounds on the card.
 
+The counter map (:func:`mapped_counters`, :func:`counter_map`): a model
+rank's block of a row-major leaf, cut along one dim into equal parts, draws
+at the whole leaf's counters. Local element l of the block takes counter
+``offset + l + (l // block) * gap``: runs of ``block`` elements, each
+followed in the whole leaf by the other ranks' ``gap``. ``block = 0`` is no
+cut.
+
 JAX's normals are not here: ``jax.random.normal`` is ``sqrt(2) *
 erfinv(u)`` with XLA's float32 ``erfinv``, which ``torch.erfinv`` does not
 reproduce bit for bit (see ``sim/runner.py``).
@@ -71,14 +78,45 @@ def fold_in(key: Key, data: int) -> Key:
     return (int(out[0]), int(out[1]))
 
 
+def counter_map(shape: Sequence[int], dim: int, parts: int, index: int,
+                offset: int = 0) -> Tuple[int, int, int]:
+    """``(offset, block, gap)`` of the counter map for model rank `index`'s
+    block of local `shape` (the leaf cut along `dim` into `parts`), the
+    whole leaf starting at counter `offset`: the block's runs of
+    ``prod(shape[dim:])`` elements start ``index`` runs into the leaf's, and
+    ``parts - 1`` runs of the other ranks follow each. A cut on the leading
+    dims (nothing before `dim`) leaves one contiguous window: block 0."""
+    run = 1
+    for d in shape[dim:]:
+        run *= int(d)
+    base = offset + index * run
+    if all(int(d) == 1 for d in shape[:dim]) or parts == 1:
+        return base, 0, 0
+    return base, run, (parts - 1) * run
+
+
+def mapped_counters(n: int, offset: int = 0, start: int = 0, block: int = 0,
+                    gap: int = 0, device=None) -> torch.Tensor:
+    """The int64 counters of local elements ``start .. start + n - 1``
+    under the map ``offset + l + (l // block) * gap`` (``offset + l`` for
+    block 0)."""
+    idx = torch.arange(start, start + n, dtype=torch.int64, device=device)
+    if block:
+        idx = idx + torch.div(idx, block, rounding_mode="floor") * gap
+    return idx + offset
+
+
 def random_bits(key: Key, shape: Sequence[int], offset: int = 0,
-                device=None) -> torch.Tensor:
+                device=None, *, start: int = 0, block: int = 0,
+                gap: int = 0) -> torch.Tensor:
     """``jax.random.bits(key, shape)`` as int64 words in [0, 2^32): element
-    i (row-major) is ``out0 ^ out1`` of the counter ``offset + i``."""
+    i (row-major) is ``out0 ^ out1`` of the counter ``offset + i``, or,
+    with a counter map, of :func:`mapped_counters`' counter of local
+    element ``start + i``."""
     n = 1
     for d in shape:
         n *= int(d)
-    idx = torch.arange(offset, offset + n, dtype=torch.int64, device=device)
+    idx = mapped_counters(n, offset, start, block, gap, device)
     out0, out1 = threefry2x32(key, idx >> 32, idx & MASK32)
     return (out0 ^ out1).view(tuple(shape))
 
@@ -91,9 +129,10 @@ def bits_to_uniform(bits: torch.Tensor) -> torch.Tensor:
 
 
 def uniform(key: Key, shape: Sequence[int], offset: int = 0,
-            device=None) -> torch.Tensor:
-    """``jax.random.uniform(key, shape)`` (float32 in [0, 1))."""
-    return bits_to_uniform(random_bits(key, shape, offset, device))
+            device=None, **cut) -> torch.Tensor:
+    """``jax.random.uniform(key, shape)`` (float32 in [0, 1)); `cut` is
+    :func:`random_bits`' counter map."""
+    return bits_to_uniform(random_bits(key, shape, offset, device, **cut))
 
 
 def as_float32(p: float) -> float:
@@ -103,11 +142,12 @@ def as_float32(p: float) -> float:
 
 
 def bernoulli(key: Key, p: float, shape: Sequence[int], offset: int = 0,
-              device=None) -> torch.Tensor:
+              device=None, **cut) -> torch.Tensor:
     """``jax.random.bernoulli(key, p, shape)``: bool, ``uniform < p`` with
-    p rounded to float32."""
-    return uniform(key, shape, offset, device) < as_float32(p)
+    p rounded to float32; `cut` is :func:`random_bits`' counter map."""
+    return uniform(key, shape, offset, device, **cut) < as_float32(p)
 
 
 __all__ = ["Key", "MASK32", "as_float32", "bernoulli", "bits_to_uniform",
-           "fold_in", "prng_key", "random_bits", "threefry2x32", "uniform"]
+           "counter_map", "fold_in", "mapped_counters", "prng_key",
+           "random_bits", "threefry2x32", "uniform"]

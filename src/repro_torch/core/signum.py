@@ -157,9 +157,17 @@ apply are elementwise, so a shard's vote is the global leaf's vote at its
 coordinates. What the reference computes over a whole leaf is summed over
 the model group, a replicated leaf counted once: ef_sign's mean|t|,
 weighted_vote's mismatch counts and coordinates, the diagnostics'
-agreement, margin and coordinate count, and AUTO's size. A VotePlan and
-a stochastic adversary there wait for ROADMAP.md Queue 1 item 15 and
-raise.
+agreement, margin and coordinate count, and AUTO's size. A stochastic
+adversary draws at each shard's global coordinates (the leaf's counter
+map, ``LeafShare.counter_map``), under the key of the voter, so the model
+ranks of one voter send what it would send for the whole leaf. A VotePlan
+is built on the global leaves, as the reference's, and each rank walks its
+part of it (``vote_plan.shard_plan``): its blocks in manifest order, every
+global bucket's one contiguous window of them (an empty one sends
+nothing), the adversary over each leaf's segment at its global flat
+counters (the manifest offset plus the map), and the statistics summed
+over the model group as leaf-wise, the window's replicated coordinates
+counted on model index 0 only.
 
 ``diagnostics=True`` makes ``update`` return the reference's
 ``vote_margin`` (mean |tally| / M over every coordinate, on the signs that
@@ -199,6 +207,8 @@ class Optimizer:
     update: Callable   # (wire, state, params, step) -> diagnostics dict
     strategy: VoteStrategy   # the resolved vote strategy, never AUTO
     plan: Optional[vp.VotePlan] = None
+    #: over a model axis, this rank's part of `plan` (``vp.shard_plan``)
+    shard: Optional[vp.ShardPlan] = None
 
 
 def lr_at(cfg: OptimizerConfig, step: int) -> float:
@@ -394,6 +404,10 @@ class _AutoOptimizer:
     def plan(self) -> Optional[vp.VotePlan]:
         return None if self._opt is None else self._opt.plan
 
+    @property
+    def shard(self) -> Optional[vp.ShardPlan]:
+        return None if self._opt is None else self._opt.shard
+
     def init(self, params: Dict[str, torch.Tensor]) -> Dict:
         return self._resolved(params).init(params)
 
@@ -447,16 +461,12 @@ def make_sign_optimizer(cfg: OptimizerConfig, n_voters: int,
     if n_voters < 1:
         raise ValueError(f"n_voters must be >= 1, got {n_voters}")
     shares = dict(shares or {})
-    if shares and plan is not None:
-        raise NotImplementedError(
-            "a VotePlan over a 'model' axis is not ported yet (ROADMAP.md "
-            "Queue 1 item 15)")
-    if shares and byz is not None and byz.mode in byzantine.STOCHASTIC_MODES:
-        raise NotImplementedError(
-            f"the {byz.mode!r} adversary over a 'model' axis draws at each "
-            "shard's global coordinates, which is not ported yet "
-            "(ROADMAP.md Queue 1 item 15)")
     model_sum = next(iter(shares.values())).total if shares else None
+    # over a model axis the plan (built on the global leaves) is walked on
+    # this rank's windows of it
+    shard = vp.shard_plan(plan, shares) if plan is not None and shares \
+        else None
+    walk = shard.plan if shard is not None else plan
 
     def counted(k: str) -> bool:
         return k not in shares or shares[k].counted
@@ -476,7 +486,7 @@ def make_sign_optimizer(cfg: OptimizerConfig, n_voters: int,
     two_bit = codec.two_bit(cfg.vote_strategy)
     ties = codec.ties(cfg.vote_strategy)
     mom_dtype = MOMENTUM_DTYPES[cfg.momentum_dtype]
-    slots = {s.name: s for s in plan.leaves} if plan is not None else {}
+    slots = {s.name: s for s in walk.leaves} if plan is not None else {}
     leaf_codec = ({k: codecs.get_codec(c)
                    for k, c in plan.leaf_codecs().items()}
                   if plan is not None else {})
@@ -551,7 +561,7 @@ def make_sign_optimizer(cfg: OptimizerConfig, n_voters: int,
             out["counts"], out["own"] = {}, {}
         if plan is not None:
             device = next(iter(params.values())).device
-            out["signs"] = torch.empty((local, plan.n_params),
+            out["signs"] = torch.empty((local, walk.n_params),
                                        dtype=torch.int8, device=device)
         else:
             out["words"] = packed_like(params, local, codec, two_bit, {
@@ -575,17 +585,26 @@ def make_sign_optimizer(cfg: OptimizerConfig, n_voters: int,
         adversary acts on them in ``update``). Over a mesh `voter` is
         this rank's replica index and its row the only one."""
         row = row_of(voter)
-        adversary, evil = None, {}
-        if byz is not None and plan is None \
-                and voter < byz.num_adversaries:
+        evil = {}
+        evil_voter = (byz is not None and plan is None
+                      and voter < byz.num_adversaries)
+
+        def adversary_of(k: str, shape) -> Optional[Callable]:
+            """Voter `voter`'s transform of leaf k's symbols: its draws at
+            the leaf's own counters, or a model shard's global ones."""
+            if not evil_voter:
+                return None
+            cut = shares[k].counter_map(shape) if k in shares else {}
+
             def adversary(symbols: torch.Tensor) -> None:
                 byzantine.evil_signs_(symbols, byz, [voter],
-                                      step=wire["step"])
+                                      step=wire["step"], **cut)
                 if diagnostics:
                     evil["signs"] = symbols.view(-1).clone()
+            return adversary
         # under a plan in its manifest's order (a leaf of the wrong shape
         # raises at the first such leaf of it, as the reference's flatten)
-        names = ([sl.name for sl in plan.leaves if sl.name in grads]
+        names = ([sl.name for sl in walk.leaves if sl.name in grads]
                  if plan is not None else list(grads))
         for k in names:
             g = grads[k]
@@ -593,6 +612,7 @@ def make_sign_optimizer(cfg: OptimizerConfig, n_voters: int,
                 continue
             if plan is not None:
                 vp.check_size(slots[k], g)
+            adversary = adversary_of(k, g.shape)
             g = g.reshape(-1)
             m = local_row(state["momentum"][k], row) if rows else None
             error = (local_row(state["error"][k], row)
@@ -610,7 +630,7 @@ def make_sign_optimizer(cfg: OptimizerConfig, n_voters: int,
                 ops.momentum_sign_pack(g, m, beta, m_out=m, pack=False)
                 x = leaf_codec[k].vote_input_(m, error)
             vp.write_signs(slots[k], x, wire["signs"][row])
-            wire["sent"][k][row] = leaf_codec[k].sent_(x)
+            wire["sent"][k][row] = leaf_codec[k].sent_(x, shares.get(k))
 
     def diag_encode(k: str, g: torch.Tensor, m: Optional[torch.Tensor],
                     error: Optional[torch.Tensor], voter: int, wire: Dict,
@@ -695,18 +715,31 @@ def make_sign_optimizer(cfg: OptimizerConfig, n_voters: int,
                 own = own.clone()   # voter 0's honest signs
             if byz is not None and axes is None:
                 byzantine.apply_adversary_stacked(signs, byz, step=step)
-            elif byz is not None:
+            elif byz is not None and (
+                    shard is None
+                    or byz.mode not in byzantine.STOCHASTIC_MODES):
                 byzantine.apply_adversary(signs, byz, axes, step=step)
+            elif byz is not None:
+                # each segment draws at its global flat counters
+                for seg in shard.segments:
+                    byzantine.apply_adversary(
+                        signs[seg.lo:seg.hi], byz, axes, step=step,
+                        offset=seg.offset, block=seg.block, gap=seg.gap)
             bucket_wire = (vp.VirtualBucketWire(n_voters) if axes is None
                            else vp.MeshBucketWire(axes))
             votes, new_cstate = vp.run_schedule(
-                plan, signs, bucket_wire, state.get("codec"),
-                overlap=cfg.overlap)
+                walk, signs, bucket_wire, state.get("codec"),
+                overlap=cfg.overlap, reduce=model_sum)
             if diagnostics:
                 tally = (torch.sum(signs, 0, dtype=count_dtype(n_voters))
                          if axes is None else va.psum_counts(signs, axes))
-                diag = diag_result(va.count_equal(own, votes),
-                                   va.abs_sum(tally), plan.n_params, device)
+                ranges = (shard.counted if shard is not None
+                          else ((0, walk.n_params),))
+                diag = diag_result(
+                    sum(va.count_equal(own[a:b], votes[a:b])
+                        for a, b in ranges),
+                    sum(va.abs_sum(tally[a:b]) for a, b in ranges),
+                    sum(b - a for a, b in ranges), device)
                 del tally, own
             for key, v in state.get("codec", {}).items():
                 v.copy_(new_cstate[key])
@@ -775,7 +808,8 @@ def make_sign_optimizer(cfg: OptimizerConfig, n_voters: int,
         state["count"] += 1
         return diag_result(agree, num, total, device) if diagnostics else {}
 
-    return Optimizer(init, wire, encode, update, cfg.vote_strategy, plan)
+    return Optimizer(init, wire, encode, update, cfg.vote_strategy, plan,
+                     shard)
 
 
 # ---------------------------------------------------------------------------

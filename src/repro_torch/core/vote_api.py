@@ -49,7 +49,12 @@ Byzantine model (``core.byzantine``: ``sign_flip`` / ``zero`` in place,
 ``random`` / ``colluding`` / ``blind`` drawn as the reference draws them,
 by the ``adversary`` kernel on a card). ``VoteOutcome.wire_signs`` is what
 reached the wire. Under a plan the failures act once on the whole
-``(M, n_params)`` buffer before the bucket walk.
+``(M, n_params)`` buffer before the bucket walk. Over a mesh with a
+``"model"`` axis a leaf- or tree-form payload is the rank's shard of a
+model-sharded tree and carries no leaf layout, so ``MeshBackend`` refuses a
+stochastic adversary there (it would draw at the shard's local
+coordinates, where the reference draws at the global leaf's); the train
+step, which knows each leaf's layout, draws it (``core.signum``).
 
 The adaptive adversaries (``adaptive_flip``, ``low_margin``,
 ``reputation``; ``core.attacks``) read ``VoteRequest.attack_obs``, their
@@ -976,6 +981,19 @@ class MeshBackend(VoteBackend):
         if self.axes is None:
             return (f"{request.form}-form requests run over a mesh's vote "
                     "axes; construct MeshBackend(axes=mesh.vote_axes)")
+        mesh = getattr(self.axes, "mesh", None)
+        byz = request.failures.byz
+        if (mesh is not None and mesh.model > 1 and byz is not None
+                and byz.num_adversaries
+                and byz.mode in byzantine.STOCHASTIC_MODES):
+            return (f"a {byz.mode!r} adversary over a 'model' axis of "
+                    f"{mesh.model}: the {request.form}-form payload is this "
+                    "rank's shard of a model-sharded tree and carries no "
+                    "leaf layout, so it would pick coordinates by the "
+                    "shard's local index where the reference's step picks "
+                    "them by the global leaf's; vote through "
+                    "make_train_step(mesh=), which maps each leaf's draws "
+                    "to its global coordinates")
         return None
 
     def _execute(self, request: VoteRequest) -> VoteOutcome:

@@ -95,12 +95,21 @@ class LeafSlot:
 
 @dataclasses.dataclass(frozen=True)
 class Bucket:
-    """One schedule entry: a uniform vote over flat[start:start+length]."""
+    """One schedule entry: a uniform vote over flat[start:start+length].
+    `skip` (a rank's window of a bucket over a model axis): ranges of the
+    window, relative to its start, that this rank leaves out of the step's
+    statistics (replicated leaves, counted on model index 0 only)."""
 
     codec: str
     strategy: VoteStrategy
     start: int
     length: int
+    skip: Tuple[Tuple[int, int], ...] = ()
+
+    @property
+    def counted(self) -> int:
+        """The coordinates this bucket adds to the step's statistics."""
+        return self.length - sum(hi - lo for lo, hi in self.skip)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -345,6 +354,139 @@ def build_plan(shapes: Dict[str, Tuple[int, ...]], *, bucket_bytes: int,
 
 
 # ---------------------------------------------------------------------------
+# a rank's part of a plan over a model axis
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class Segment:
+    """A run ``[lo, hi)`` of a rank's flat buffer whose stochastic draws
+    take the counter map ``(offset, block, gap)`` (``core.prng``): one
+    sharded leaf's block, or adjacent replicated leaves."""
+
+    lo: int
+    hi: int
+    offset: int
+    block: int = 0
+    gap: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardPlan:
+    """A rank's part of a :class:`VotePlan` built on the global leaves,
+    over a mesh's model axis. `plan` is the rank's own layout: its blocks
+    of the leaves in manifest order at local offsets (a replicated leaf
+    whole), and, for every global bucket ``[a, b)``, the one contiguous
+    window of the local buffer whose global coordinates fall in it (inside
+    a leaf the global row-major index grows with the local one), empty
+    windows dropped; `segments` map the buffer to the global flat
+    counters; `counted` lists the local ranges this rank counts in a sum
+    over the model group (a replicated leaf on model index 0 only)."""
+
+    plan: VotePlan
+    segments: Tuple[Segment, ...]
+    counted: Tuple[Tuple[int, int], ...]
+
+
+def _leaf_blocks(slot: LeafSlot, share) -> Tuple[int, int, int, int]:
+    """(local length, run, runs a leaf row, rank index) of one leaf: a
+    replicated leaf is one run of its whole length; a sharded one holds
+    run ``index`` of every ``parts`` runs of ``prod(shape[dim:]) / parts``."""
+    if share is None or not share.sharded:
+        return slot.length, slot.length, 1, 0
+    run = 1
+    for d in slot.shape[share.dim:]:
+        run *= int(d)
+    run //= share.parts
+    return slot.length // share.parts, run, share.parts, \
+        share.mesh.axis_index("model")
+
+
+def _local_before(slots, blocks, g: int) -> int:
+    """How many of the rank's local elements have a global flat index below
+    `g` (monotone in `g`)."""
+    out = 0
+    for slot, (length, run, parts, idx) in zip(slots, blocks):
+        t = g - slot.offset
+        if t <= 0:
+            break
+        if t >= slot.length:
+            out += length
+            continue
+        row, rem = divmod(t, run * parts)
+        out += row * run + min(max(rem - idx * run, 0), run)
+    return out
+
+
+def shard_plan(plan: VotePlan, shares) -> ShardPlan:
+    """This rank's :class:`ShardPlan` of `plan` (built on the global leaves)
+    from each leaf's ``codecs.base.LeafShare`` (`shares`; a leaf without
+    one is whole)."""
+    slots = plan.leaves
+    blocks = [_leaf_blocks(s, shares.get(s.name)) for s in slots]
+    first = next(iter(shares.values())).mesh.axis_index("model") == 0 \
+        if shares else True
+    local_slots, segments, counted = {}, [], []
+    off = 0
+    for slot, (length, run, parts, idx) in zip(slots, blocks):
+        share = shares.get(slot.name)
+        local_shape = list(slot.shape)
+        if share is not None and share.sharded:
+            local_shape[share.dim] //= share.parts
+        local_slots[slot.name] = LeafSlot(
+            name=slot.name, offset=off, length=length,
+            shape=tuple(local_shape), dtype=slot.dtype)
+        if share is not None:
+            cut = share.counter_map(local_shape, offset=slot.offset)
+        else:
+            cut = {"offset": slot.offset, "block": 0, "gap": 0}
+        seg = Segment(off, off + length, **cut)
+        prev = segments[-1] if segments else None
+        if (prev is not None and not prev.block and not seg.block
+                and prev.hi == seg.lo
+                and prev.offset + (prev.hi - prev.lo) == seg.offset):
+            segments[-1] = dataclasses.replace(prev, hi=seg.hi)
+        else:
+            segments.append(seg)
+        if first or (share is not None and share.sharded):
+            if counted and counted[-1][1] == off:
+                counted[-1] = (counted[-1][0], off + length)
+            else:
+                counted.append((off, off + length))
+        off += length
+    groups = []
+    for g in plan.groups:
+        windows = []
+        for b in g.buckets:
+            lo = _local_before(slots, blocks, b.start)
+            hi = _local_before(slots, blocks, b.start + b.length)
+            if hi <= lo:
+                continue
+            skip, at = [], lo
+            for c_lo, c_hi in counted:      # the gaps between counted runs
+                if c_lo > at:
+                    skip.append((at, min(c_lo, hi)))
+                at = max(at, c_hi)
+                if at >= hi:
+                    break
+            if at < hi:
+                skip.append((at, hi))
+            windows.append(dataclasses.replace(
+                b, start=lo, length=hi - lo,
+                skip=tuple((a - lo, z - lo) for a, z in skip if z > a)))
+        leaves = tuple(local_slots[s.name] for s in g.leaves)
+        start = leaves[0].offset
+        total = sum(s.length for s in leaves)
+        groups.append(dataclasses.replace(g, start=start, total=total,
+                                          leaves=leaves,
+                                          buckets=tuple(windows)))
+    local = VotePlan(groups=tuple(groups), bucket_bytes=plan.bucket_bytes,
+                     n_params=off)
+    return ShardPlan(plan=local, segments=tuple(segments),
+                     counted=tuple(counted))
+
+
+# ---------------------------------------------------------------------------
 # flatten / unflatten (the layout round-trip)
 # ---------------------------------------------------------------------------
 
@@ -484,8 +626,11 @@ class MeshBucketWire:
             return TERNARY_WIRE.unpack(TERNARY_WIRE.tally(arrived, m),
                                        bucket.length, torch.int8), None
         if bucket.codec == "weighted_vote":
-            return weighted.decode_leaf_fixed(
-                weighted.stacked_signs(arrived, bucket.length), w)
+            stacked = weighted.stacked_signs(arrived, bucket.length)
+            vote, mismatch = weighted.decode_leaf_fixed(stacked, w)
+            for lo, hi in bucket.skip:     # not this rank's to count
+                mismatch -= (stacked[:, lo:hi] != vote[lo:hi]).sum(1)
+            return vote, mismatch
         impl = STRATEGIES[bucket.strategy]
         if bucket.strategy == VoteStrategy.HIERARCHICAL:
             # the unpack stage carries the second collective, the packed
@@ -497,7 +642,7 @@ class MeshBucketWire:
 
 
 def run_schedule(plan: VotePlan, buf: torch.Tensor, wire,
-                 server_state=None, overlap: bool = False):
+                 server_state=None, overlap: bool = False, reduce=None):
     """Walk the bucket schedule over `buf`, the ``(M, n_params)`` stacked
     int8 signs on a :class:`VirtualBucketWire` or this rank's
     ``(n_params,)`` (or ``(1, n_params)``) signs on a
@@ -508,7 +653,10 @@ def run_schedule(plan: VotePlan, buf: torch.Tensor, wire,
     per-bucket dataflow is the same, so the two walks are bit-identical.
     Server-stateful codecs decode every bucket under weights fixed for the
     step and fold ONE flip-rate EMA update across the schedule, over the
-    weighted buckets' true coordinate count."""
+    weighted buckets' true coordinate count. Over a model axis (`plan` a
+    :class:`ShardPlan`'s windows) `reduce` sums an int64 tensor over the
+    model group: the mismatch counts and coordinates are then the global
+    leaves', each bucket's `skip` ranges left out on this rank."""
     state = dict(server_state) if server_state else {}
     w = None
     if plan.has_server_state:
@@ -524,6 +672,9 @@ def run_schedule(plan: VotePlan, buf: torch.Tensor, wire,
     rec = obs.get_recorder()
     votes = torch.empty(plan.n_params, dtype=torch.int8, device=buf.device)
     mismatch, total_w = None, 0
+    if w is not None and reduce is not None:
+        # every model rank takes part in the sum, with or without a window
+        mismatch = torch.zeros(len(w), dtype=torch.int64, device=buf.device)
     if rec.enabled:
         # pred_s prices the walk's voters as the data axis, as the
         # reference does: the virtual wire's stack is its own mesh
@@ -547,7 +698,7 @@ def run_schedule(plan: VotePlan, buf: torch.Tensor, wire,
         votes[b.start:b.start + b.length] = vote
         if mis is not None:
             mismatch = mis if mismatch is None else mismatch + mis
-            total_w += b.length
+            total_w += b.counted
 
     with rec.span("plan.schedule", n_buckets=len(buckets),
                   overlap=bool(overlap and len(buckets) > 1)):
@@ -562,6 +713,10 @@ def run_schedule(plan: VotePlan, buf: torch.Tensor, wire,
             for k in range(len(buckets)):
                 complete(k, issue(k))
     if mismatch is not None:
+        if reduce is not None:
+            both = reduce(torch.cat([mismatch.to(torch.int64), torch.tensor(
+                [total_w], dtype=torch.int64, device=mismatch.device)]))
+            mismatch, total_w = both[:-1], int(both[-1])
         state["flip_ema"] = weighted.ema_update_fused(ema, mismatch,
                                                       total_w)
     return votes, state
@@ -643,8 +798,8 @@ def plan_vote_stacked(plan: VotePlan, stacked: torch.Tensor,
 
 __all__ = [
     "ALIGN", "AUTO_BUCKET_BYTES", "Bucket", "LeafSlot", "MeshBucketWire",
-    "PlanGroup", "VirtualBucketWire", "VotePlan", "build_plan",
-    "flatten_signs", "plan_tree_vote", "plan_vote_signs",
-    "plan_vote_stacked", "resolve_codec_map", "run_schedule",
+    "PlanGroup", "Segment", "ShardPlan", "VirtualBucketWire", "VotePlan",
+    "build_plan", "flatten_signs", "plan_tree_vote", "plan_vote_signs",
+    "plan_vote_stacked", "resolve_codec_map", "run_schedule", "shard_plan",
     "unflatten_votes", "write_signs",
 ]

@@ -143,6 +143,14 @@ def fsdp_dim(spec: Spec) -> Optional[int]:
     return None
 
 
+def model_dim(spec: Spec) -> Optional[int]:
+    """The dim of `spec` cut over ``"model"`` (None if none is): at most
+    one, since a spec names no axis twice. A model rank's block of the leaf
+    is contiguous runs along it (the adversary's counter map,
+    ``core.prng.counter_map``)."""
+    return spec.index("model") if "model" in spec else None
+
+
 def fused_dims(specs: Mapping[str, Spec]) -> Dict[str, int]:
     """{leaf: its FSDP dim} for every leaf sharded over ``"data"``: the
     reference's ``fused_leaves``, in the specs' order."""
@@ -290,6 +298,6 @@ def join_shards(trees: Sequence[Mapping], dims: Mapping,
 
 
 __all__ = ["BATCH", "DuplicateSpecError", "Spec", "check_spec", "fsdp_dim",
-           "fused_dims", "join_shards", "kv_cache_spec", "model_tagged",
-           "param_spec",
+           "fused_dims", "join_shards", "kv_cache_spec", "model_dim",
+           "model_tagged", "param_spec",
            "param_specs", "shard_leaf", "shard_tree", "spec_block"]

@@ -160,9 +160,13 @@ shared block whole), the MoE EP at 2 and 4 and M2 at 8 and 16, the SSD
 heads-sharded and the vocabulary sharded throughout; every other part not
 named above is sharded at every model size.
 
-What is not here waits for ROADMAP.md Queue 1 item 15: stochastic and
-adaptive adversaries and a VotePlan over a model axis. Each raises
-``NotImplementedError`` naming that item.
+The vote side of the axis lives in ``core.signum``: each rank votes its
+shards over the vote axes; a stochastic adversary draws at a shard's
+global coordinates (the counter map of ``kernels/csrc/byzantine.cu``,
+``codecs.base.LeafShare.counter_map``); a VotePlan is built on the global
+leaves and each rank walks its windows of it (``vote_plan.shard_plan``).
+An adaptive adversary raises the reference's ``ValueError`` at the step's
+call, as without a model axis.
 """
 from __future__ import annotations
 

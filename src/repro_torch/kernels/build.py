@@ -61,8 +61,10 @@ SIGNATURES = {
     },
     "byzantine": {
         # x, keys, rows, n, the row stride of x, the counter offset, the
-        # draw threshold, flip, stream
-        "adversary_i8": (_P, _P, _I64, _I64, _I64, _I64, _I64, _I, _P),
+        # draw threshold, flip, the counter map's start, block and gap,
+        # stream
+        "adversary_i8": (_P, _P, _I64, _I64, _I64, _I64, _I64, _I, _I64,
+                         _I64, _I64, _P),
     },
     "ternary_pack": {
         **{f"ternary_pack_{t}": (_P, _P, _I64, _I64, _P)

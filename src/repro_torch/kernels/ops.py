@@ -388,14 +388,19 @@ def draw_threshold(p: float) -> int:
 
 
 def adversary_(x: torch.Tensor, keys, p: float, flip: bool,
-               offset: int = 0) -> torch.Tensor:
+               offset: int = 0, *, start: int = 0, block: int = 0,
+               gap: int = 0) -> torch.Tensor:
     """In place on (rows, n) int8 signs `x`: row r drawn under the threefry
     key ``keys[r]`` (``(k0, k1)`` Python ints, ``core.prng``), each column j
-    at counter ``offset + j``: with ``flip=False`` (random, colluding) the
-    row becomes +1 where ``bernoulli(key, p)`` draws, else -1; with
-    ``flip=True`` (blind) its sign is negated there (0 stays 0). `x` may be
-    a view whose rows are not adjacent (``stride(1) == 1``, rows
-    ``stride(0) >= n`` apart), and may start anywhere. Returns `x`."""
+    at counter ``offset + start + j``, or under the counter map (`block` >
+    0: a model rank's block of a leaf cut along one dim, runs of `block`
+    elements each followed by `gap` in the whole leaf) at
+    ``offset + l + (l // block) * gap`` with ``l = start + j``: with
+    ``flip=False`` (random, colluding) the row becomes +1 where
+    ``bernoulli(key, p)`` draws, else -1; with ``flip=True`` (blind) its
+    sign is negated there (0 stays 0). `x` may be a view whose rows are not
+    adjacent (``stride(1) == 1``, rows ``stride(0) >= n`` apart), and may
+    start anywhere. Returns `x`."""
     dev = x.device
     _check(x, "x", ndim=2, dtypes=(torch.int8,), device=dev,
            strided_rows=True)
@@ -404,16 +409,20 @@ def adversary_(x: torch.Tensor, keys, p: float, flip: bool,
         raise ValueError(f"{rows} rows need {rows} keys, got {len(keys)}")
     if not 0.0 <= p <= 1.0:
         raise ValueError(f"p must be in [0, 1], got {p}")
-    if offset < 0:
-        raise ValueError(f"counter offset {offset} must be >= 0")
+    if min(offset, start, block, gap) < 0:
+        raise ValueError(f"counter offset {offset}, start {start}, block "
+                         f"{block} and gap {gap} must be >= 0")
+    if gap and not block:
+        raise ValueError(f"a gap of {gap} needs a block (block 0 is no cut)")
     if not _on_card(x):
-        return x.copy_(ref.adversary(x, keys, p, flip, offset))
+        return x.copy_(ref.adversary(x, keys, p, flip, offset, start, block,
+                                     gap))
     if rows == 0 or n == 0:
         return x
     k = torch.tensor([[int(a) & 0xFFFFFFFF for a in key] for key in keys],
                      dtype=torch.int64).to(torch.int32).to(dev)
     _launch("byzantine", "adversary_i8", x.data_ptr(), k.data_ptr(), rows, n,
             x.stride(0) if rows > 1 else n, offset, draw_threshold(p),
-            int(bool(flip)), _stream(x))
+            int(bool(flip)), start, block, gap, _stream(x))
     _COUNTS["adversary"] += 1
     return x

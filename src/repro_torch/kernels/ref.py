@@ -132,19 +132,22 @@ ADVERSARY_CHUNK = 1 << 24
 
 
 def adversary(x: torch.Tensor, keys, p: float, flip: bool,
-              offset: int = 0) -> torch.Tensor:
+              offset: int = 0, start: int = 0, block: int = 0,
+              gap: int = 0) -> torch.Tensor:
     """The stochastic adversaries of ``repro.core.byzantine.evil_signs`` on
     (rows, n) int8 signs, row r under key ``keys[r]``: the draw of column j
-    is ``prng.bernoulli(key, p)`` at counter ``offset + j``; ``flip=False``
-    (random, colluding) gives +1 where drawn, else -1; ``flip=True``
-    (blind) negates the sign where drawn. Returns a new tensor."""
+    is ``prng.bernoulli(key, p)`` at counter ``offset + start + j``, or
+    under a counter map (`block` > 0, ``core.prng.mapped_counters``) at the
+    counter of local element ``start + j``; ``flip=False`` (random,
+    colluding) gives +1 where drawn, else -1; ``flip=True`` (blind) negates
+    the sign where drawn. Returns a new tensor."""
     out = torch.empty_like(x)
     rows, n = x.shape
     for r in range(rows):
         for lo in range(0, n, ADVERSARY_CHUNK):
             hi = min(n, lo + ADVERSARY_CHUNK)
-            draw = prng.bernoulli(keys[r], p, (hi - lo,), offset + lo,
-                                  x.device)
+            draw = prng.bernoulli(keys[r], p, (hi - lo,), offset, x.device,
+                                  start=start + lo, block=block, gap=gap)
             if flip:
                 out[r, lo:hi] = torch.where(draw, -x[r, lo:hi], x[r, lo:hi])
             else:

@@ -60,8 +60,6 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
-#: the ROADMAP.md item that brings the rest of the model axis
-ITEM_15 = "ROADMAP.md Queue 1 item 15"
 #: the leaves that may stay whole under a sharded computation: a
 #: vocabulary the axis does not divide (``layers.vocab_group``)
 WHOLE_OK = ("embed.table", "unembed.table")

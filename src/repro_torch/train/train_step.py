@@ -393,8 +393,9 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, n_voters: int = 1,
         opt_cfg = dataclasses.replace(opt_cfg, vote_strategy=resolved)
     sizes = {"pod": pod, "data": data, "model": model}
     specs = shd.param_specs(shapes, fsdp=tcfg.fsdp, mesh_shape=sizes)
-    shares = ({k: LeafShare(mesh, "model" in spec) for k, spec in
-               specs.items()} if tp is not None else None)
+    shares = ({k: LeafShare(mesh, "model" in spec, shd.model_dim(spec),
+                            tuple(shapes[k]))
+               for k, spec in specs.items()} if tp is not None else None)
     # the reference's fused = fsdp and mesh is not None; M stacked voters
     # are the virtual mesh
     fused = tcfg.fsdp and (mesh is not None or n_voters > 1)
@@ -436,7 +437,8 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, n_voters: int = 1,
                                  tcfg.diagnostics, axes,
                                  () if revote else tuple(dims), tiles,
                                  shares)
-    hooks = (majority_vote.make_fsdp_hooks(dims, axes, vote=is_sign, byz=byz)
+    hooks = (majority_vote.make_fsdp_hooks(dims, axes, vote=is_sign, byz=byz,
+                                           shares=shares)
              if dims and axes is not None else None)
     resolved = opt.strategy
     if plan is not None:
@@ -519,19 +521,12 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, n_voters: int = 1,
 
 def _check_model_axis(cfg: ModelConfig, tcfg: TrainConfig,
                       model: int) -> None:
-    """Raise ``NotImplementedError`` (ROADMAP.md Queue 1 item 15) for what
-    the port does not yet run over a model axis of `model` ranks: a
-    stochastic or adaptive adversary (at any M; the optimizer refuses a
-    VotePlan there); a leaf layout no arch of the repo meets raises in
-    ``models.model.check_model_axis``."""
+    """Raise ``NotImplementedError`` for a leaf layout the port cannot run
+    over a model axis of `model` ranks (``models.model.check_model_axis``;
+    no arch of the repo meets one). Every adversary and a VotePlan run
+    there; an adaptive mode raises the reference's ``ValueError`` at the
+    step's call, as without a model axis."""
     M.check_model_axis(cfg, model)
-    byz = tcfg.byzantine
-    if byz.num_adversaries and (byz.mode in byzantine.STOCHASTIC_MODES
-                                or byz.mode in byzantine.ATTACK_MODES):
-        raise NotImplementedError(
-            f"the {byz.mode!r} adversary over a 'model' axis of {model} is "
-            f"not ported yet ({M.ITEM_15}): its draws would have to be "
-            "taken at each shard's global coordinates")
 
 
 def materialize_state(cfg: ModelConfig, tcfg: TrainConfig,

@@ -156,8 +156,9 @@ def test_shards_join_back_and_model_axis_raises():
         for k in tree:
             np.testing.assert_array_equal(np.asarray(back[k]), tree[k])
     # a model axis places leaves: the specs build, the blocks of every dim
-    # a spec names join back, and the train step builds for every arch
-    # (the adversaries and a VotePlan refuse, naming item 15)
+    # a spec names join back, and the train step builds for every arch,
+    # with the stochastic adversaries and a VotePlan too (an adaptive
+    # adversary raises the reference's ValueError at the step's call)
     assert tshd.param_specs({"a": (4,)}, fsdp=True,
                             mesh_shape={"data": 2, "model": 2}) == {
         "a": (None,)}

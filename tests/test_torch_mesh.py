@@ -464,9 +464,9 @@ def test_backends_refuse_with_the_reference_reasons():
     with pytest.raises(ValueError, match="must be bound to their"):
         tva.MeshBackend(axes=("data",), device="cpu")
     # a model axis needs its ranks (one world rank here); over a world of
-    # 8 every arch's train step builds on (data 4, model 2), and the
-    # adversaries and a VotePlan refuse, naming the ROADMAP item that
-    # brings them
+    # 8 every arch's train step builds on (data 4, model 2), with the
+    # stochastic adversaries and a VotePlan too, and an adaptive adversary
+    # raises the reference's ValueError when the step is called
     with pytest.raises(ValueError, match="the world has 1"):
         tmesh.ProcessMesh((1, 2), ("data", "model"))
     from torch_tp_common import assert_train_builds_and_refusals, fake_world

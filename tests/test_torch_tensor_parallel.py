@@ -40,9 +40,10 @@
     ``_decode_attention_chunked``; ``cache_leaf_spec`` and
     ``batch_entry`` on every case of ``tests/test_serve_step.py``,
     ``kv_cache_spec``, ``mesh_axis_sizes`` and ``pod_stride`` exactly the
-    reference's; the dense archs build over a model axis and the rest
-    raise naming Queue 1 item 15 (a world of fake ranks,
-    ``tests/torch_tp_common.py``).
+    reference's; every arch builds over a model axis, glm4-9b also with
+    each stochastic adversary and with a VotePlan, and an adaptive
+    adversary raises the reference's ``ValueError`` at the step's call (a
+    world of fake ranks, ``tests/torch_tp_common.py``).
 """
 import dataclasses
 import os

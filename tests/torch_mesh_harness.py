@@ -66,6 +66,22 @@ f. tp (run alone, by ``tests/test_torch_tensor_parallel.py``: ``...
    ``serve_step`` and writes its logits and cache blocks
    (``tp_decode_rank<r>.npz``).
 
+g. tp_adversary (run alone, by ``tests/test_torch_tp_adversary.py``:
+   ``... <scratch> tp_adversary``): the vote side of the model axis on the
+   (data 4, model 2) mesh, the reduced glm4-9b in float32: leaf-wise
+   ``random`` / ``colluding`` / ``blind`` adversaries, a VotePlan with a
+   ``blind`` adversary, ``overlap``, a ``codec_map`` and ``delayed_vote``,
+   ``weighted_vote`` (a ``random`` adversary) and ``ef_sign`` under a
+   plan, and Mode B fsdp with ``colluding``, each held to its stacked twin
+   as check f holds its runs, and every adversarial rank's draws held
+   exactly to the twin's at the block's global coordinates (``random`` /
+   ``colluding``: the sent signs; ``blind``: the flip mask wherever the
+   honest signs agree); each rank's bytes by axis of a plan step equal to
+   ``chip_smoke.tp_plan_vote_bytes``. With ``tpa_ref_<case>_start.npz``
+   in the scratch directory the mesh also takes one step from each of the
+   reference's start states and writes each rank's blocks
+   (``tpa_step_<case>_rank<r>.npz``).
+
 Rank 0 writes what the mesh gave, with the inputs it was given, to
 ``<scratch dir>/mesh_record.pkl`` (numpy and plain Python only), so that
 ``tests/test_torch_mesh.py`` holds it against the reference on the same
@@ -1110,12 +1126,106 @@ def tp_batch(cfg, tcfg, pipe, step):
     return batch
 
 
-def tp_train_case(label, mesh, cfg, tcfg, record=None, routes=None):
+class AdversaryRecorder:
+    """Within the block, each ``byzantine.evil_signs_`` call: (the signs it
+    was handed, the signs it left, its counter map, the voter ids, the
+    step)."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        from repro_torch.core import byzantine
+        self.mod, self.orig = byzantine, byzantine.evil_signs_
+
+        def evil_signs_(signs, cfg, ids, **kw):
+            before = signs.clone()
+            out = self.orig(signs, cfg, ids, **kw)
+            self.calls.append((before, signs.clone(), {
+                k: kw.get(k, 0) for k in ("offset", "block", "gap")},
+                [int(i) for i in ids], kw.get("step")))
+            return out
+        byzantine.evil_signs_ = evil_signs_
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.evil_signs_ = self.orig
+
+
+def check_draws(what, byz, voter, mine, theirs, match):
+    """Every draw of this rank's adversary (`mine`) against the stacked
+    twin's (`theirs`) at the block's global coordinates: each call's
+    counters (``prng.mapped_counters`` of its map) index a twin row of the
+    same voter: a draw under a step takes the twin's i-th such row
+    (`match` "order": leaf-wise) or its one flat row ("flat": a plan); a
+    draw under no step (the fused backward's, per layer) takes the twin's
+    longest such row (under a colluding key a draw depends on its counter
+    alone). ``random`` / ``colluding``: the sent signs equal; ``blind``:
+    the flip mask equal wherever the honest signs agree (at least
+    TPA_HONEST_SHARE of them). Returns the coordinates checked."""
+    from repro_torch.core import prng
+
+    def rows_of(calls, stepped):
+        return [(b[r], a[r]) for b, a, _, ids, step in calls
+                for r, i in enumerate(ids)
+                if i == voter and (step is not None) == stepped]
+    stepped = rows_of(theirs, True)
+    fused = rows_of(theirs, False)
+    n_stepped = sum(1 for c in mine if c[4] is not None)
+    if not mine or (n_stepped and not stepped) or (
+            len(mine) > n_stepped and not fused):
+        raise AssertionError(f"{what}: voter {voter}'s adversary drew "
+                             f"{len(mine)} times, the twin's "
+                             f"{len(stepped) + len(fused)}")
+    if match == "order" and len(stepped) != n_stepped:
+        raise AssertionError(f"{what}: {n_stepped} draws under a step "
+                             f"against the twin's {len(stepped)}")
+    checked = i = 0
+    for b, a, cut, ids, step in mine:
+        if ids != [voter] * b.shape[0]:
+            raise AssertionError(f"{what}: a draw for ids {ids} on voter "
+                                 f"{voter}'s rank")
+        if step is None:
+            tb, ta = max(fused, key=lambda r: r[0].numel())
+        else:
+            tb, ta = stepped[i] if match == "order" else stepped[0]
+            i += 1
+        b, a = b.reshape(-1), a.reshape(-1)
+        pos = prng.mapped_counters(b.numel(), cut["offset"], 0,
+                                   cut["block"], cut["gap"])
+        if int(pos.max()) >= ta.numel():
+            raise AssertionError(f"{what}: a draw reaches counter "
+                                 f"{int(pos.max())} of a row of "
+                                 f"{ta.numel()}")
+        wb, wa = tb.reshape(-1)[pos], ta.reshape(-1)[pos]
+        if byz.mode == "blind":
+            same = b == wb
+            if float(same.float().mean()) < TPA_HONEST_SHARE:
+                raise AssertionError(f"{what}: a draw's honest signs "
+                                     "agree with the twin's on "
+                                     f"{float(same.float().mean())}")
+            bad = ((a != b) != (wa != wb)) & same
+        else:
+            bad = a != wa
+        if bool(bad.any()):
+            raise AssertionError(f"{what}: a draw ({b.numel()} "
+                                 f"coordinates, step {step}, map {cut}) "
+                                 f"differs from the twin's at "
+                                 f"{int(bad.sum())}")
+        checked += b.numel()
+    return checked
+
+
+def tp_train_case(label, mesh, cfg, tcfg, record=None, routes=None,
+                  draws=None):
     """STEPS steps of the model-axis train step over `mesh`, each from the
     state its stacked twin takes too (the mesh's, joined), held to the
     twin as ``check_tp`` sets out; `record`, when given, is called with
-    (step, mesh params, mesh state) after each step. Returns the count of
-    coordinates whose vote flipped."""
+    (step, mesh params, mesh state) after each step; `draws` (a
+    :func:`check_draws` match) holds the adversary's draws to the twin's
+    and, under a plan, the vote axes' bytes to
+    ``chip_smoke.tp_plan_vote_bytes``. Returns the count of coordinates
+    whose vote flipped."""
     from repro_torch.data.pipeline import SyntheticLMPipeline
     from repro_torch.distributed import mesh as pm
     from repro_torch.distributed import sharding as shd
@@ -1137,10 +1247,25 @@ def tp_train_case(label, mesh, cfg, tcfg, record=None, routes=None):
         mesh.reset_stats()
         if routes is not None:
             routes.calls.clear()
-        params, state, met = art.step_fn(params, state, batch, step)
+        with AdversaryRecorder() as mine:
+            params, state, met = art.step_fn(params, state, batch, step)
         ours = list(routes.calls) if routes is not None else None
-        tparams, tstate, tmet = twin.step_fn(tparams, tstate, batch,
-                                             step)
+        with AdversaryRecorder() as theirs:
+            tparams, tstate, tmet = twin.step_fn(tparams, tstate, batch,
+                                                 step)
+        if draws is not None and voter < tcfg.byzantine.num_adversaries:
+            check_draws(f"tp {label} step {step}", tcfg.byzantine, voter,
+                        mine.calls, theirs.calls, draws)
+        elif mine.calls and voter >= tcfg.byzantine.num_adversaries:
+            raise AssertionError(f"tp {label}: honest voter {voter} drew")
+        if draws is not None and art.plan is not None:
+            want = tp_plan_vote_bytes(art, tcfg)
+            if mesh.stats.bytes != want:
+                raise AssertionError(
+                    f"tp {label} step {step}: the vote axes took "
+                    f"{mesh.stats.bytes} bytes, the windows' count is "
+                    f"{want}")
+        del mine, theirs
         if routes is not None:
             routes.flips += route_flips(label, ours,
                                         routes.calls[len(ours):], voter,
@@ -1194,6 +1319,19 @@ def tp_train_case(label, mesh, cfg, tcfg, record=None, routes=None):
                 # a flipped vote moves the residual (Mode B: the
                 # momentum) at its coordinate
                 ok |= bad.view(ok.shape)
+                if draws is not None and not bool(ok.all()) and \
+                        t.dim() == p.dim() and key == "momentum":
+                    # Mode B's fused vote at a near tie (an adversary's
+                    # count makes more): a flipped microbatch vote moves u
+                    # by whole steps of (1 - beta) / microbatches, on at
+                    # most TP_FLIP_SHARE of the leaf (as the parameters)
+                    q = (1 - tcfg.optimizer.momentum) / tcfg.microbatches
+                    k_ = (g - t) / q
+                    whole = ((k_ - k_.round()).abs() < 1e-3) & (
+                        k_.round() != 0) & ~ok
+                    if int(whole.sum()) <= TP_FLIP_SHARE * g.numel():
+                        ok |= whole
+                        n_flips += int(whole.sum())
                 if not bool(ok.all()):
                     raise AssertionError(
                         f"tp {label} step {step} {key} {k}: "
@@ -1252,6 +1390,127 @@ def check_tp(rank):
     check_tp_serve(rank, meshes)
     tp_reference_step(rank, meshes["d4m2"])
     tp_reference_decode(rank)
+
+
+def tp_plan_vote_bytes(art, tcfg) -> int:
+    """``chip_smoke.tp_plan_vote_bytes``: the vote axes' bytes of one plan
+    step on this rank, counted from its windows."""
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__))))
+    import chip_smoke
+    return chip_smoke.tp_plan_vote_bytes(art, tcfg)
+
+
+#: blind draws: the least share of a draw's coordinates where the rank's
+#: honest signs must equal the twin's (float32: they differ only where an
+#: m' is within rounding of zero)
+TPA_HONEST_SHARE = 0.99
+#: the plans' bucket size (the reference's run reads the same)
+TPA_BUCKET_BYTES = 4096
+
+
+def _tpa_cfgs():
+    from repro_torch.configs import base
+    S = base.VoteStrategy
+
+    def opt(**kw):
+        d = dict(kind="signum_vote", learning_rate=1e-3, momentum=0.9,
+                 vote_strategy=S.ALLGATHER_1BIT)
+        d.update(kw)
+        return base.OptimizerConfig(**d)
+
+    def byz(mode, n=1, p=0.5):
+        return base.ByzantineConfig(mode=mode, num_adversaries=n, seed=3,
+                                    flip_prob=p)
+    plan = dict(bucket_bytes=TPA_BUCKET_BYTES)
+    mode_b = opt(kind="signsgd_vote", momentum_mode=base.MomentumMode.GLOBAL,
+                 vote_strategy=S.HIERARCHICAL)
+    # (label, optimizer, train options, the draws' match)
+    return [
+        ("random", opt(), {"byzantine": byz("random")}, "order"),
+        ("colluding", opt(vote_strategy=S.PSUM_INT8),
+         {"byzantine": byz("colluding", 2)}, "order"),
+        ("blind", opt(vote_strategy=S.HIERARCHICAL),
+         {"byzantine": byz("blind", 1, 0.9), "diagnostics": True}, "order"),
+        ("plan_blind", opt(overlap=True, delayed_vote=True, codec_map=(
+            ("embed*", "ternary2bit"), ("*", "sign1bit")), **plan),
+         {"byzantine": byz("blind", 1, 0.9), "diagnostics": True}, "flat"),
+        ("plan_weighted", opt(codec="weighted_vote", **plan),
+         {"byzantine": byz("random")}, "flat"),
+        ("plan_ef_sign", opt(codec="ef_sign", vote_strategy=S.PSUM_INT8,
+                             **plan), {}, "flat"),
+        ("mode_b_fsdp_colluding", mode_b,
+         {"fsdp": True, "microbatches": 2, "byzantine": byz("colluding")},
+         "any"),
+    ]
+
+
+def check_tp_adversary(rank):
+    from repro_torch.distributed.mesh import ProcessMesh
+    from repro_torch.distributed import mesh as pm
+    mesh = ProcessMesh((4, 2), ("data", "model"))
+    flips = {}
+    only = os.environ.get("TPA_ONLY")
+    pm.A2A_MIN_BYTES, default = 0, pm.A2A_MIN_BYTES
+    for label, opt, extra, match in _tpa_cfgs():
+        if only and label != only:
+            continue
+        cfg, tcfg = _tp_pair(opt, extra)
+        flips[label] = tp_train_case(label, mesh, cfg, tcfg, draws=match)
+    pm.A2A_MIN_BYTES = default
+    every = [None] * WORLD
+    dist.all_gather_object(every, flips)
+    if rank == 0:
+        RECORD["tpa_flips"] = every
+    tpa_reference_steps(rank, mesh)
+
+
+def tpa_reference_steps(rank, mesh):
+    """One (data 4, model 2) step of each adversary case from the
+    reference's start state and batch (``tpa_ref_<case>_start.npz``):
+    each rank writes its blocks of the parameters and momentum, and its
+    loss, to ``tpa_step_<case>_rank<r>.npz``."""
+    from repro_torch.configs import base
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import model as tM
+    from repro_torch.train import train_step as TS
+    cases = {"random": ({}, base.ByzantineConfig(
+        mode="random", num_adversaries=1, seed=3)),
+             "plan_blind": ({"bucket_bytes": TPA_BUCKET_BYTES,
+                             "overlap": True}, base.ByzantineConfig(
+                 mode="blind", num_adversaries=1, seed=3, flip_prob=0.9))}
+    # the reference may still be running beside this launch: its last
+    # file marks it done (TPA_REFERENCE_WAIT seconds at most)
+    done = os.path.join(SCRATCH, "tpa_ref_adaptive.json")
+    deadline = time.time() + float(os.environ.get("TPA_REFERENCE_WAIT", 0))
+    while not os.path.exists(done) and time.time() < deadline:
+        time.sleep(0.2)
+    for label, (opt_kw, byz) in cases.items():
+        path = os.path.join(SCRATCH, f"tpa_ref_{label}_start.npz")
+        if not os.path.exists(path):
+            continue
+        with np.load(path) as z:
+            start = {k[2:]: z[k] for k in z.files if k.startswith("p/")}
+            tokens = z["tokens"]
+        opt = base.OptimizerConfig(
+            kind="signum_vote", learning_rate=REF_LR, momentum=REF_BETA,
+            vote_strategy=base.VoteStrategy.ALLGATHER_1BIT, **opt_kw)
+        cfg = dataclasses.replace(base.reduced_config(base.get_config(
+            "glm4-9b")), dtype="float32")
+        tcfg = base.TrainConfig(global_batch=REF_GB, seq_len=REF_SEQ,
+                                optimizer=opt, byzantine=byz)
+        art = TS.make_train_step(cfg, tcfg, device="cpu", mesh=mesh)
+        mine = shd.shard_tree(start, art.param_specs, coords=art.mesh_coords,
+                              sizes=art.mesh_sizes)
+        params = tM.params_from_numpy(mine, device="cpu")
+        state = art.optimizer.init(params)
+        params, state, met = art.step_fn(params, state, {"tokens": tokens},
+                                         0)
+        np.savez(os.path.join(SCRATCH, f"tpa_step_{label}_rank{rank}.npz"),
+                 loss=np.float64(met["loss"]),
+                 **{"p/" + k: v.numpy() for k, v in params.items()},
+                 **{"m/" + k: v.float().numpy()
+                    for k, v in state["momentum"].items()})
 
 
 def tp_reference_step(rank, mesh):
@@ -1852,6 +2111,7 @@ CHECKS = (("votes", check_votes), ("plans", check_plans),
           ("trainer", check_trainer), ("drills", check_drills))
 #: checks run only when named on the command line
 NAMED_CHECKS = (("fsdp", check_fsdp), ("tp", check_tp),
+                ("tp_adversary", check_tp_adversary),
                 ("tp_families", check_tp_families),
                 ("tp_families_ref", check_tp_families_ref))
 

@@ -20,13 +20,15 @@ import torch.distributed as dist
 #: the dense decoder-only archs
 DENSE = ("glm4-9b", "qwen1.5-32b", "deepseek-67b", "gemma3-12b",
          "pixtral-12b")
-#: the MoE, SSM, hybrid and encoder-decoder archs, which ROADMAP.md Queue 1
-#: item 15 deferred until they ran over a model axis too
+#: the MoE, SSM, hybrid and encoder-decoder archs, which the eighteenth
+#: slice brought over a model axis
 DEFERRED = ("qwen2-moe-a2.7b", "qwen3-moe-235b-a22b", "mamba2-2.7b",
             "zamba2-1.2b", "whisper-tiny")
 #: every arch, each of which runs over a model axis
 ALL = DENSE + DEFERRED
-ITEM_15 = "Queue 1 item 15"
+#: the reference's refusal of an adaptive adversary on the trainer's vote
+#: (its tree-form ``VoteRequest``), raised when the step is called
+ADAPTIVE_REFUSAL = "has no such observation channel"
 
 
 @contextlib.contextmanager
@@ -66,8 +68,11 @@ def train_config(**opt):
 
 def assert_train_builds_and_refusals(mesh):
     """Over `mesh` (a model axis > 1): every arch's train step builds and
-    materialises its blocks; a stochastic and an adaptive adversary and a
-    VotePlan raise naming item 15."""
+    materialises its blocks; so does glm4-9b's with a stochastic adversary
+    (each a LeafShare with its cut dim) and with a VotePlan (this rank's
+    windows of the global plan); an adaptive adversary builds and raises
+    the reference's ``ValueError`` when the step is called, as without a
+    model axis."""
     from repro_torch.configs import base
     from repro_torch.train import train_step as TS
     for arch in ALL:
@@ -83,14 +88,27 @@ def assert_train_builds_and_refusals(mesh):
                     want[i] //= mesh.model
             assert tuple(p.shape) == tuple(want), (arch, k)
     cfg = reduced("glm4-9b")
-    for mode in ("random", "colluding", "blind", "adaptive_flip"):
-        byz = base.ByzantineConfig(mode=mode, num_adversaries=1)
-        with pytest.raises(NotImplementedError, match=ITEM_15):
-            TS.make_train_step(cfg, train_config(byzantine=byz),
-                               device="cpu", mesh=mesh)
-    with pytest.raises(NotImplementedError, match=ITEM_15):
-        TS.make_train_step(cfg, train_config(bucket_bytes=4096),
-                           device="cpu", mesh=mesh)
+    for mode in ("random", "colluding", "blind"):
+        tcfg = train_config(byzantine=base.ByzantineConfig(
+            mode=mode, num_adversaries=1))
+        art = TS.make_train_step(cfg, tcfg, device="cpu", mesh=mesh)
+        TS.materialize_state(cfg, tcfg, art, torch.Generator().manual_seed(0))
+    tcfg = train_config(byzantine=base.ByzantineConfig(
+        mode="adaptive_flip", num_adversaries=1))
+    art = TS.make_train_step(cfg, tcfg, device="cpu", mesh=mesh)
+    params, state = TS.materialize_state(cfg, tcfg, art,
+                                         torch.Generator().manual_seed(0))
+    with pytest.raises(ValueError, match=ADAPTIVE_REFUSAL):
+        art.step_fn(params, state, {"tokens": torch.zeros(
+            (8, 16), dtype=torch.int64)}, 0)
+    tcfg = train_config(bucket_bytes=4096)
+    art = TS.make_train_step(cfg, tcfg, device="cpu", mesh=mesh)
+    params, _ = TS.materialize_state(cfg, tcfg, art,
+                                     torch.Generator().manual_seed(0))
+    shard = art.optimizer.shard
+    assert art.plan.n_params == cfg.param_count()
+    assert shard.plan.n_params == sum(p.numel() for p in params.values())
+    assert all(b.length for b in shard.plan.buckets)
 
 
 def assert_serve_builds_and_refusals(mesh):

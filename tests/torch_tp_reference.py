@@ -34,6 +34,18 @@ it runs the MoE, SSM, hybrid and encoder-decoder archs instead:
    whisper decode over a model axis, its cross cache sequence-sharded,
    is held to the port's single-device decode by the harness.)
 
+With a second argument ``adversary`` (``tests/test_torch_tp_adversary.py``)
+it runs the vote side of the model axis instead:
+
+5. The same (data 4, model 2) Mode A step of the reduced glm4-9b with one
+   adversary of four: ``random`` leaf-wise on ``allgather_1bit``, and
+   ``blind`` (flip_prob 0.9) under a VotePlan of ``TPA_BUCKET_BYTES`` with
+   ``overlap``; writes ``tpa_ref_<case>_start.npz`` and
+   ``tpa_ref_<case>_step.npz``.
+6. An ``adaptive_flip`` adversary there: which call raises (the build,
+   ``materialize_state`` or the step) and with what, into
+   ``tpa_ref_adaptive.json``.
+
 Prints ``OK <seconds>``.
 """
 import dataclasses
@@ -48,8 +60,9 @@ from jax.sharding import NamedSharding, PartitionSpec as P
 
 from repro import compat
 from repro.compat import AxisType
-from repro.configs.base import (OptimizerConfig, TrainConfig, VoteStrategy,
-                                get_config, reduced_config)
+from repro.configs.base import (ByzantineConfig, OptimizerConfig,
+                                TrainConfig, VoteStrategy, get_config,
+                                reduced_config)
 from repro.models import layers as L
 from repro.models import model as M
 from repro.train import serve_step as SS
@@ -211,10 +224,84 @@ def family_decode(scratch, arch: str):
     np.savez(os.path.join(scratch, f"tpf_dec_{arch}_ref.npz"), **out)
 
 
+#: the adversary cases (the port's harness reads the same): (label, plan
+#: options, adversary)
+TPA_BUCKET_BYTES = 4096
+TPA_CASES = (
+    ("random", {}, ByzantineConfig(mode="random", num_adversaries=1,
+                                   seed=3)),
+    ("plan_blind", {"bucket_bytes": TPA_BUCKET_BYTES, "overlap": True},
+     ByzantineConfig(mode="blind", num_adversaries=1, seed=3,
+                     flip_prob=0.9)),
+)
+
+
+def tpa_config(opt_kw, byz):
+    cfg = dataclasses.replace(reduced_config(get_config("glm4-9b")),
+                              dtype="float32")
+    tcfg = TrainConfig(global_batch=GB, seq_len=SEQ, optimizer=OptimizerConfig(
+        kind="signum_vote", learning_rate=LR, momentum=BETA,
+        vote_strategy=VoteStrategy.ALLGATHER_1BIT, **opt_kw), byzantine=byz)
+    return cfg, tcfg
+
+
+def adversary_step(scratch, label, opt_kw, byz):
+    mesh = compat.make_mesh((4, 2), ("data", "model"),
+                            axis_types=(AxisType.Auto,) * 2)
+    cfg, tcfg = tpa_config(opt_kw, byz)
+    art = TS.make_train_step(cfg, tcfg, mesh=mesh)
+    params, opt = TS.materialize_state(cfg, tcfg, art, jax.random.PRNGKey(0),
+                                       mesh)
+    batch = M.make_batch(cfg, GB, SEQ, jax.random.PRNGKey(1))
+    start = _np(params)
+    placed = jax.tree.map(lambda a: jax.device_put(
+        np.asarray(a), NamedSharding(mesh, P("data"))), batch)
+    new, state, met = art.step_fn(params, opt, placed, jnp.int32(0))
+    np.savez(os.path.join(scratch, f"tpa_ref_{label}_start.npz"),
+             tokens=np.asarray(batch["tokens"]),
+             **{"p/" + k: v for k, v in start.items()})
+    np.savez(os.path.join(scratch, f"tpa_ref_{label}_step.npz"),
+             loss=np.float64(met["loss"]),
+             **{"p/" + k: v for k, v in _np(new).items()},
+             **{"m/" + k: v for k, v in _np(state["momentum"]).items()})
+
+
+def adaptive_refusal(scratch):
+    """The call at which an adaptive adversary is refused on the (4, 2)
+    mesh, and the exception's type and message."""
+    import json
+    mesh = compat.make_mesh((4, 2), ("data", "model"),
+                            axis_types=(AxisType.Auto,) * 2)
+    cfg, tcfg = tpa_config({}, ByzantineConfig(mode="adaptive_flip",
+                                               num_adversaries=1))
+    out = {"call": None}
+    try:
+        call = "make_train_step"
+        art = TS.make_train_step(cfg, tcfg, mesh=mesh)
+        call = "materialize_state"
+        params, opt = TS.materialize_state(cfg, tcfg, art,
+                                           jax.random.PRNGKey(0), mesh)
+        call = "step_fn"
+        batch = M.make_batch(cfg, GB, SEQ, jax.random.PRNGKey(1))
+        art.step_fn(params, opt, batch, jnp.int32(0))
+    except Exception as e:  # noqa: BLE001 - the refusal is what we record
+        out = {"call": call, "type": type(e).__name__, "message": str(e)}
+    with open(os.path.join(scratch, "tpa_ref_adaptive.json"), "w") as f:
+        json.dump(out, f)
+
+
 def main(argv) -> int:
     scratch = os.path.abspath(argv[1] if len(argv) > 1 else ".")
     t0 = time.perf_counter()
     assert len(jax.devices()) == 8, jax.devices()
+    if argv[2:] == ["adversary"]:
+        for label, opt_kw, byz in TPA_CASES:
+            adversary_step(scratch, label, opt_kw, byz)
+            print(f"  step {label} {time.perf_counter() - t0:.1f}",
+                  flush=True)
+        adaptive_refusal(scratch)
+        print(f"OK {time.perf_counter() - t0:.1f}", flush=True)
+        return 0
     if argv[2:] == ["families"]:
         for arch in FAMILY_STEPS:
             family_step(scratch, arch)
