@@ -367,7 +367,8 @@ Phases, each of which fails the run (non-zero exit) on any disagreement:
    bit to the twin's at the block's global coordinates (random: the sent
    signs; blind: the flip mask wherever the honest signs agree), the
    adversary's launches counted (``tp_adv_launches``: one a leaf, or one
-   a segment of the rank's plan buffer) and the plan's bytes counted from
+   a segment of the rank's plan buffer; those under the counter map again
+   as ``adversary_map``, every run) and the plan's bytes counted from
    the rank's windows (``tp_plan_vote_bytes``); before the ranks, the
    adversary under a column cut of the unembedding against its plain
    version, and every sharded leaf's blocks under the counter map against
@@ -2626,12 +2627,19 @@ ADV_CASES = (("random", 0.5), ("colluding", 0.5), ("blind", 0.9),
 #: injections of two adds (10), the first two adds, the final xor, the
 #: 64-bit counter (2), the shift, compare and select (3) and the flip (1)
 ADV_INT_OPS = 79
-#: 32-bit integer operations a thread the counter map adds (its
-#: instantiation only), counted from the source: the first local index
-#: (2), the 32-bit test (3), the division (about 20 on the card, which has
-#: no integer divide), the remainder and the columns left (5), the base
-#: (6) and the run test (2), over the thread's 16 columns (2.4 an element)
-ADV_MAP_OPS = 38
+#: 32-bit integer operations a thread the counter map needs: its first
+#: local index's quotient by the run as a multiply-high by a reciprocal
+#: the host computes, and a shift (2), the remainder and the columns left
+#: (3), the 64-bit base offset + l + q * gap (a wide multiply and two
+#: 64-bit adds: 6) and the one-run test (1); 0.75 an element over the
+#: thread's 16 columns. The kernel's software division (about 20 more, the
+#: card has no integer divide) is what its design spends, not what the map
+#: needs, so the bound leaves it out
+ADV_MAP_OPS = 12
+#: 32-bit integer operations an element of a thread whose 16 columns cross
+#: a run's end (the step, its test and the gap's add), counted on the
+#: layout's share of such threads (:func:`map_straddle_share`)
+ADV_CARRY_OPS = 3
 #: the map's timed layout: the (4, n) stack drawn as model rank 1's block
 #: of a (151,552, 8,192) leaf cut in two along its columns (runs of 4,096)
 ADV_MAP_RUN = 4096
@@ -2701,6 +2709,14 @@ def check_adversary(torch, ops, ref, dev, err) -> int:
     return n_checks
 
 
+def map_straddle_share(block: int, per: int = 16) -> float:
+    """The share of the adversary kernel's threads (`per` columns each,
+    from local index 0) whose columns cross the end of a run of `block`."""
+    period = block // math.gcd(block, per)
+    return sum(1 for t in range(period)
+               if (t * per) % block > block - per) / period
+
+
 def time_adversary(torch, ops, ref, dev, launches, errs) -> dict:
     """Phase 12a's row: the adversary kernel on the whole (4, n) unembedding
     stack, median of 25 CUDA-event runs, blind (flip_prob 0.9: each sign
@@ -2732,8 +2748,9 @@ def time_adversary(torch, ops, ref, dev, launches, errs) -> dict:
     torch.cuda.empty_cache()
     t_bytes = 2 * M_MAIN * n / HBM_BYTES_PER_S * 1e3
     t_ops = ADV_INT_OPS * M_MAIN * n / INT32_OPS_PER_S * 1e3
-    map_ops = (ADV_INT_OPS + ADV_MAP_OPS / 16) * M_MAIN * n \
-        / INT32_OPS_PER_S * 1e3
+    map_per_element = (ADV_INT_OPS + ADV_MAP_OPS / 16 + ADV_CARRY_OPS
+                       * map_straddle_share(ADV_MAP_RUN))
+    map_ops = map_per_element * M_MAIN * n / INT32_OPS_PER_S * 1e3
     b, by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
     return {"name": "adversary", "route": "cuda",
             "source": SOURCE + "byzantine.cu",
@@ -2752,10 +2769,11 @@ def time_adversary(torch, ops, ref, dev, launches, errs) -> dict:
                               f"{2 * n // 151552}) leaf cut in two along "
                               f"its columns (runs of {ADV_MAP_RUN})",
                     "ms": map_ms, "random_ms": map_random_ms,
+                    "over_uncut_ms": map_ms - ms,
                     "bound_ms": max(t_bytes, map_ops),
                     "bound_by": "bytes" if t_bytes >= map_ops
                     else "operations",
-                    "int_ops_per_element": ADV_INT_OPS + ADV_MAP_OPS / 16,
+                    "int_ops_per_element": map_per_element,
                     "launches": launches.get("adversary_map", 0)}}
 
 
@@ -3152,6 +3170,8 @@ def plain_checked(torch, ops, ref, sc, err, what: str,
                     ref.adversary(before[r:r + s, lo:hi], keys[r:r + s], p,
                                   flip, offset, start + lo, block, gap)))
         note("adversary", x, diff)
+        if block:
+            note("adversary_map", x, diff)
         return got
 
     def packed_rows(name, x, got, per_word, plain):
@@ -6748,22 +6768,36 @@ def tp_adv_config(mode: str, p: float, opt: dict):
                                   seed=TP_SEED, flip_prob=p))
 
 
-def tp_adv_launches(art, n_leaves: int, evil: bool) -> dict:
+def tp_adv_launches(art, params, evil: bool) -> dict:
     """19g's kernel launches on one rank: leaf-wise the 1-bit wire's
     (:func:`mesh_launches`), the adversarial voter's symbols taking one
     adversary launch and one bitpack a leaf; under the plan the walk's
     (psum_int8 buckets launch none) and the adversary once a segment of the
     rank's flat buffer (``vote_plan.shard_plan``: each sharded leaf's
-    block, each run of adjacent replicated leaves)."""
+    block, each run of adjacent replicated leaves). ``adversary_map``
+    counts the adversary's launches under a counter map: a leaf's block cut
+    along a dim after its first (``core.prng.counter_map``), or such a
+    segment."""
+    from repro_torch.core import prng
     shard = art.optimizer.shard
     if shard is None:
-        want = mesh_launches("allgather_1bit", 1, n_leaves, None)
+        want = mesh_launches("allgather_1bit", 1, len(params), None)
         if evil:
-            want.update(bitpack=n_leaves, adversary=n_leaves)
+            mapped = sum(1 for k, x in params.items()
+                         if "model" in art.param_specs[k]
+                         and prng.counter_map(
+                             tuple(x.shape),
+                             art.param_specs[k].index("model"),
+                             art.mesh_sizes["model"],
+                             art.mesh_coords["model"])[1])
+            want.update(bitpack=len(params), adversary=len(params),
+                        adversary_map=mapped)
     else:
-        want = mesh_launches("plan_overlap", 1, n_leaves, shard.plan)
+        want = mesh_launches("plan_overlap", 1, len(params), shard.plan)
         if evil:
             want["adversary"] = len(shard.segments)
+            want["adversary_map"] = sum(1 for g in shard.segments
+                                        if g.block)
     return {k: v for k, v in want.items() if v}
 
 
@@ -7981,7 +8015,7 @@ def tp_rank_body(rank: int, init: str, scratch: str, dev_type: str) -> dict:
             acfg = tp_adv_config(mode, p, opt)
             tp_train_rank(
                 torch, rank, mesh, cfg, acfg, dev, label,
-                lambda art, p: tp_adv_launches(art, len(p), evil),
+                lambda art, p: tp_adv_launches(art, p, evil),
                 lambda art, p, t=acfg: (tp_plan_vote_bytes(art, t)
                                         if art.plan is not None
                                         else tp_vote_bytes(p, "sign1bit")),
@@ -8216,17 +8250,12 @@ def run_phase19(torch, dev, errs, target=None) -> dict:
                                if label.startswith(("mamba2", "zamba2"))
                                else TP_SERVE_SHARE[kv]),
                      "peak_bytes_by_rank": [g["peak_bytes"] for g in got]})
-        launches["adversary_map"] = 0
         for label, *_ in TP_ADV_RUNS:
             drawn = [results[r]["train"][label]["draws"]
                      for r in range(MESH_RANKS)]
             if not all(drawn[:TP_TRAIN_MESH[0][1]]):
                 raise AssertionError(f"tp {label}: an adversarial rank's "
                                      f"draws were not held: {drawn}")
-            # every run of a rank launches what its step 0 did
-            runs = len(results[0]["train"][label]["rows"])
-            launches["adversary_map"] += runs * sum(
-                d["mapped"] for d in drawn if d)
         log({"phase": "tp_adversary_map", **adv_map})
         log({"phase": "tp_done", "ranks": MESH_RANKS, "backend": "gloo",
              "note": "gloo loopback through pinned host memory, 4 ranks on "
@@ -8645,7 +8674,6 @@ def main() -> int:
     for k, v in run_phase18(torch, dev, errs).items():
         launches[k] += v
     for k, v in run_phase19(torch, dev, errs).items():
-        # adversary_map: the adversary's launches under the counter map
         launches[k] = launches.get(k, 0) + v
     # ef_sign's encode packs its float32 t; every other bitpack of the main
     # path packs int8 signs (staged votes, plan buckets, weighted_vote's vote)

@@ -33,8 +33,11 @@ coordinates, as the reference's step (automatic over ``"model"``) draws
 over the whole leaf: the counter map (`block`, `gap`;
 ``core.prng.counter_map``, ``codecs.base.LeafShare.counter_map``), which
 the kernel applies per element. The trainer passes each leaf's map; the
-vote API, whose payload carries no leaf layout, refuses a stochastic mode
-over a model axis (``vote_api.MeshBackend``).
+fused ZeRO backward draws over the rank's block as a whole, as the
+reference's does inside its region manual over ``"model"``
+(``core.majority_vote``); the vote API, whose payload carries no leaf
+layout, refuses a stochastic mode over a model axis
+(``vote_api.MeshBackend``).
 """
 from __future__ import annotations
 

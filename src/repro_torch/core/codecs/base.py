@@ -101,19 +101,17 @@ class LeafShare:
         from repro_torch.distributed import mesh as pm
         return pm.model_sum(x, self.mesh)
 
-    def counter_map(self, local_shape, offset: int = 0, drop: int = 0
-                    ) -> Dict[str, int]:
+    def counter_map(self, local_shape, offset: int = 0) -> Dict[str, int]:
         """The adversary's counter map (``core.prng.counter_map``) for this
-        rank's block of local shape `local_shape` (the leaf with its first
-        `drop` dims taken away: one layer of a stacked leaf), the whole
-        starting at counter `offset`: ``{"offset", "block", "gap"}``, the
+        rank's block of local shape `local_shape`, the whole leaf starting
+        at counter `offset`: ``{"offset", "block", "gap"}``, the
         keywords of ``byzantine.evil_signs_``. A replicated leaf draws as
         without a model axis (block 0)."""
         if not self.sharded:
             return {"offset": offset, "block": 0, "gap": 0}
         from repro_torch.core import prng
         base, block, gap = prng.counter_map(
-            tuple(local_shape), self.dim - drop, self.parts,
+            tuple(local_shape), self.dim, self.parts,
             self.mesh.axis_index("model"), offset)
         return {"offset": base, "block": block, "gap": gap}
 

@@ -42,10 +42,10 @@ matrices) is the rank's model slice, cut again along its FSDP dim: the
 hook gathers and reduce-scatters over ``"data"`` within the rank's model
 slice (the vote axes' groups at its model index), each coordinate voted
 as without the model axis. An adversarial replica's stochastic draw there
-takes the gathered block's global coordinates in the whole leaf (one
-layer of it for a stacked leaf): the leaf's counter map
-(``codecs.base.LeafShare.counter_map``), so the model ranks of one voter
-send what the voter would send for the whole leaf without the model axis.
+is over the gathered block's own shape (one layer of it for a stacked
+leaf), from counter 0, under the voter's key on every model rank: the
+reference votes inside a region manual over ``"model"`` too, where the
+block is the whole array its ``bernoulli`` sees.
 """
 from __future__ import annotations
 
@@ -125,8 +125,7 @@ def tree_mean(tree: Dict[str, torch.Tensor], axes) -> Dict[str, torch.Tensor]:
 
 
 def fused_signs(g: torch.Tensor, byz: Optional[ByzantineConfig],
-                replica: int, rows: int = 1, share=None, drop: int = 0
-                ) -> torch.Tensor:
+                replica: int, rows: int = 1) -> torch.Tensor:
     """The int8 ternary signs voter `replica` puts into the fused vote of
     its cotangent `g` (a subnormal reads as 0): corrupted as an adversary's
     when `replica` is below ``byz.num_adversaries``, drawn under no step and
@@ -134,16 +133,12 @@ def fused_signs(g: torch.Tensor, byz: Optional[ByzantineConfig],
     adversary draws the same bits every step and microbatch). `g` holds
     `rows` equal blocks that the reference gathers one at a time (the
     layers of a stacked leaf): each draws over its own elements, alike.
-    Over a model axis `share` (the leaf's ``LeafShare``; `g` its block,
-    the leaf's first `drop` dims taken away) maps the draws to the block's
-    global coordinates."""
+    Over a model axis `g` is the rank's model block, drawn as a whole."""
     s = sc.sign_ternary(g)
     if byz is not None and byz.mode != "none" \
             and replica < byz.num_adversaries:
-        cut = (share.counter_map(g.shape, drop=drop) if share is not None
-               else {})
         byzantine.evil_signs_(s.view(rows, -1), byz, [replica] * rows,
-                              step=None, **cut)
+                              step=None)
     return s
 
 
@@ -181,13 +176,12 @@ class _Gather(torch.autograd.Function):
 def make_gather_vote(dim: int, axes, *, vote: bool,
                      byz: Optional[ByzantineConfig] = None,
                      log: Optional[Callable[[str], None]] = None,
-                     name: str = "", share=None, drop: int = 0
-                     ) -> Callable[[torch.Tensor], torch.Tensor]:
+                     name: str = "") -> Callable[[torch.Tensor],
+                                                 torch.Tensor]:
     """all_gather over the ``"data"`` axis of the bound vote `axes` along
     `dim`, whose backward is the majority vote (`vote`) or the dense mean
     (the reference's ``make_gather_vote``; see the module doc). `log(name)`
-    is called as each of its collectives is issued; `share` and `drop`
-    place the gathered block over a model axis (:func:`fused_signs`)."""
+    is called as each of its collectives is issued."""
     n_voters = num_voters(axes)
     pod = "pod" in axes
     replica = pm.replica_index(axes)
@@ -199,8 +193,7 @@ def make_gather_vote(dim: int, axes, *, vote: bool,
         return pm.psum(out, axes, ("pod",)) if pod else out
 
     def bwd_vote(g: torch.Tensor) -> torch.Tensor:
-        s = fused_signs(g, byz, replica, share=share, drop=drop).to(
-            count_dtype(n_voters))
+        s = fused_signs(g, byz, replica).to(count_dtype(n_voters))
         return fused_vote(reduce(s), g.dtype)
 
     def bwd_mean(g: torch.Tensor) -> torch.Tensor:
@@ -221,26 +214,22 @@ class FsdpHooks:
     one layer's tree, names without ``"layers."`` and the leading L dim, so
     the FSDP dim shifts down by one). :attr:`issued` lists, in order, the
     leaves whose collectives this rank issued (forward gathers, the
-    backward's reduce-scatters and remat's re-gathers). `shares` ({leaf:
-    its ``LeafShare``}) places the leaves over a model axis."""
+    backward's reduce-scatters and remat's re-gathers)."""
 
     def __init__(self, dims: Mapping[str, int], axes, *, vote: bool,
-                 byz: Optional[ByzantineConfig] = None,
-                 shares: Optional[Mapping] = None):
+                 byz: Optional[ByzantineConfig] = None):
         self.issued: List[str] = []
         self.top, self.layers = {}, {}
-        shares = shares or {}
         for name, d in dims.items():
             if name.startswith(("layers.", "encoder.")):
                 short = name.split(".", 1)[1]
                 self.layers[short] = make_gather_vote(
                     d - 1, axes, vote=vote, byz=byz,
-                    log=self.issued.append, name=name,
-                    share=shares.get(name), drop=1)
+                    log=self.issued.append, name=name)
             else:
                 self.top[name] = make_gather_vote(
                     d, axes, vote=vote, byz=byz, log=self.issued.append,
-                    name=name, share=shares.get(name))
+                    name=name)
 
     def __call__(self, tree: Dict[str, torch.Tensor], scope: str
                  ) -> Dict[str, torch.Tensor]:
@@ -250,12 +239,11 @@ class FsdpHooks:
 
 
 def make_fsdp_hooks(dims: Mapping[str, int], axes, *, vote: bool,
-                    byz: Optional[ByzantineConfig] = None,
-                    shares: Optional[Mapping] = None) -> FsdpHooks:
+                    byz: Optional[ByzantineConfig] = None) -> FsdpHooks:
     """The ZeRO-3 parameter hook over the bound vote `axes` for the leaves
     of `dims` (``{name: FSDP dim}``, ``distributed.sharding.fused_dims``);
     its backward votes (`vote`) or means. See :class:`FsdpHooks`."""
-    return FsdpHooks(dims, axes, vote=vote, byz=byz, shares=shares)
+    return FsdpHooks(dims, axes, vote=vote, byz=byz)
 
 
 def add_voter_(total: Dict[str, torch.Tensor],

@@ -52,9 +52,12 @@ reached the wire. Under a plan the failures act once on the whole
 ``(M, n_params)`` buffer before the bucket walk. Over a mesh with a
 ``"model"`` axis a leaf- or tree-form payload is the rank's shard of a
 model-sharded tree and carries no leaf layout, so ``MeshBackend`` refuses a
-stochastic adversary there (it would draw at the shard's local
-coordinates, where the reference draws at the global leaf's); the train
-step, which knows each leaf's layout, draws it (``core.signum``).
+stochastic adversary there: a draw would take the shard's local
+coordinates, where the reference takes the global leaf's. The train step,
+which knows each leaf's layout, draws it (``core.signum``). An adaptive
+adversary never meets a shard: a leaf or tree request refuses it at
+construction (it has no observation channel), and a stacked request
+passes every voter's whole row, voted over a data-only mesh.
 
 The adaptive adversaries (``adaptive_flip``, ``low_margin``,
 ``reputation``; ``core.attacks``) read ``VoteRequest.attack_obs``, their
@@ -990,8 +993,8 @@ class MeshBackend(VoteBackend):
                     f"{mesh.model}: the {request.form}-form payload is this "
                     "rank's shard of a model-sharded tree and carries no "
                     "leaf layout, so it would pick coordinates by the "
-                    "shard's local index where the reference's step picks "
-                    "them by the global leaf's; vote through "
+                    "shard's local index where the reference picks them "
+                    "by the global leaf's; vote through "
                     "make_train_step(mesh=), which maps each leaf's draws "
                     "to its global coordinates")
         return None

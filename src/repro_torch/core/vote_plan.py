@@ -388,33 +388,19 @@ class ShardPlan:
     counted: Tuple[Tuple[int, int], ...]
 
 
-def _leaf_blocks(slot: LeafSlot, share) -> Tuple[int, int, int, int]:
-    """(local length, run, runs a leaf row, rank index) of one leaf: a
-    replicated leaf is one run of its whole length; a sharded one holds
-    run ``index`` of every ``parts`` runs of ``prod(shape[dim:]) / parts``."""
-    if share is None or not share.sharded:
-        return slot.length, slot.length, 1, 0
-    run = 1
-    for d in slot.shape[share.dim:]:
-        run *= int(d)
-    run //= share.parts
-    return slot.length // share.parts, run, share.parts, \
-        share.mesh.axis_index("model")
-
-
-def _local_before(slots, blocks, g: int) -> int:
-    """How many of the rank's local elements have a global flat index below
-    `g` (monotone in `g`)."""
+def _local_below(segments: Sequence[Segment], g: int) -> int:
+    """How many of the rank's local elements draw at a global flat index
+    below `g` (monotone in `g`): a segment's local element l sits at
+    ``offset + l + (l // block) * gap``, runs of `block` apart by `gap`."""
     out = 0
-    for slot, (length, run, parts, idx) in zip(slots, blocks):
-        t = g - slot.offset
+    for seg in segments:
+        t = g - seg.offset
         if t <= 0:
             break
-        if t >= slot.length:
-            out += length
-            continue
-        row, rem = divmod(t, run * parts)
-        out += row * run + min(max(rem - idx * run, 0), run)
+        if seg.block:
+            row, rem = divmod(t, seg.block + seg.gap)
+            t = row * seg.block + min(rem, seg.block)
+        out += min(t, seg.hi - seg.lo)
     return out
 
 
@@ -422,17 +408,17 @@ def shard_plan(plan: VotePlan, shares) -> ShardPlan:
     """This rank's :class:`ShardPlan` of `plan` (built on the global leaves)
     from each leaf's ``codecs.base.LeafShare`` (`shares`; a leaf without
     one is whole)."""
-    slots = plan.leaves
-    blocks = [_leaf_blocks(s, shares.get(s.name)) for s in slots]
     first = next(iter(shares.values())).mesh.axis_index("model") == 0 \
         if shares else True
     local_slots, segments, counted = {}, [], []
     off = 0
-    for slot, (length, run, parts, idx) in zip(slots, blocks):
+    for slot in plan.leaves:
         share = shares.get(slot.name)
         local_shape = list(slot.shape)
+        length = slot.length
         if share is not None and share.sharded:
             local_shape[share.dim] //= share.parts
+            length //= share.parts
         local_slots[slot.name] = LeafSlot(
             name=slot.name, offset=off, length=length,
             shape=tuple(local_shape), dtype=slot.dtype)
@@ -458,8 +444,8 @@ def shard_plan(plan: VotePlan, shares) -> ShardPlan:
     for g in plan.groups:
         windows = []
         for b in g.buckets:
-            lo = _local_before(slots, blocks, b.start)
-            hi = _local_before(slots, blocks, b.start + b.length)
+            lo = _local_below(segments, b.start)
+            hi = _local_below(segments, b.start + b.length)
             if hi <= lo:
                 continue
             skip, at = [], lo

@@ -163,8 +163,10 @@ named above is sharded at every model size.
 The vote side of the axis lives in ``core.signum``: each rank votes its
 shards over the vote axes; a stochastic adversary draws at a shard's
 global coordinates (the counter map of ``kernels/csrc/byzantine.cu``,
-``codecs.base.LeafShare.counter_map``); a VotePlan is built on the global
-leaves and each rank walks its windows of it (``vote_plan.shard_plan``).
+``codecs.base.LeafShare.counter_map``), in the fused ZeRO backward over
+the rank's block as a whole, as the reference's; a VotePlan is built on
+the global leaves and each rank walks its windows of it
+(``vote_plan.shard_plan``).
 An adaptive adversary raises the reference's ``ValueError`` at the step's
 call, as without a model axis.
 """

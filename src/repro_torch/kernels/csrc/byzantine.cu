@@ -45,8 +45,10 @@
 // a lane a clock on the card's 128 lanes an SM (33.5e12 a second; integer
 // adds also issue on the FMA pipe, so the 64 INT32 lanes alone are no
 // bound). So integer issue bounds it, and the design keeps the memory side
-// simple. The map adds about 26 integer ops a thread (one division, its
-// remainder and the base; chip_smoke.ADV_MAP_OPS), under 2 an element.
+// simple. The map needs about 12 integer ops a thread (one division as a
+// multiply-high by a reciprocal, its remainder and the base;
+// chip_smoke.ADV_MAP_OPS), under 1 an element; the software division
+// below spends about 20 more, which the bound does not count.
 //
 // Design. One thread owns 16 consecutive columns of one row (the grid's y
 // dimension walks the rows): one 16-byte load and store where the window

@@ -19,7 +19,8 @@ each kernel was launched on a card since ``reset_launch_counts()`` (both
 momentum dtypes of ``momentum_sign_pack`` under its one name, every output
 dtype of an unpack under its one name; the ternary tally with ties +1,
 which has no Pallas counterpart, as ``ternary_majority_plus_one``, and
-the stochastic adversaries, which have none either, as ``adversary``); CPU
+the stochastic adversaries, which have none either, as ``adversary``, and
+again as ``adversary_map`` when a launch draws under a counter map); CPU
 calls do not count.
 """
 from __future__ import annotations
@@ -41,7 +42,7 @@ _COUNTS: Dict[str, int] = {"momentum_sign_pack": 0, "majority": 0,
                            "ternary_majority": 0,
                            "ternary_majority_plus_one": 0,
                            "ternary_unpack": 0, "apply_ternary_vote": 0,
-                           "adversary": 0}
+                           "adversary": 0, "adversary_map": 0}
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 #: element types the sign kernels read and bitunpack writes
 _SIGN_SUFFIX = {**_SUFFIX, torch.int8: "i8"}
@@ -425,4 +426,6 @@ def adversary_(x: torch.Tensor, keys, p: float, flip: bool,
             x.stride(0) if rows > 1 else n, offset, draw_threshold(p),
             int(bool(flip)), start, block, gap, _stream(x))
     _COUNTS["adversary"] += 1
+    if block:
+        _COUNTS["adversary_map"] += 1
     return x

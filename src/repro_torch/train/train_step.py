@@ -437,8 +437,7 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, n_voters: int = 1,
                                  tcfg.diagnostics, axes,
                                  () if revote else tuple(dims), tiles,
                                  shares)
-    hooks = (majority_vote.make_fsdp_hooks(dims, axes, vote=is_sign, byz=byz,
-                                           shares=shares)
+    hooks = (majority_vote.make_fsdp_hooks(dims, axes, vote=is_sign, byz=byz)
              if dims and axes is not None else None)
     resolved = opt.strategy
     if plan is not None:

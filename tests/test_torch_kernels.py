@@ -366,7 +366,7 @@ def test_plain_path_in_place_and_uncounted():
                                     "ternary_majority_plus_one": 0,
                                     "ternary_unpack": 0,
                                     "apply_ternary_vote": 0,
-                                    "adversary": 0}
+                                    "adversary": 0, "adversary_map": 0}
 
 
 @pytest.mark.parametrize("gdtype", [torch.float32, torch.bfloat16])

@@ -20,17 +20,27 @@ adaptive modes' refusal, against the JAX package on the CPU.
     ``codec_map`` and ``delayed_vote``, ``weighted_vote`` and ``ef_sign``
     under a plan, and Mode B fsdp with ``colluding``, held to its stacked
     twin at the ``tp`` check's tolerances, each adversarial rank's draws
-    held exactly to the twin's.
+    held exactly to the twin's. The fused ZeRO backward draws over each
+    rank's model block as a whole, as the reference's does inside its
+    region manual over "model" (``src/repro/core/majority_vote.py``
+    ``make_gather_vote``); the twin draws block by block there.
 (d) Against the reference's own (data 4, model 2) mesh step
     (``tests/torch_tp_reference.py <scratch> adversary``, 8 fake XLA
     devices): leaf-wise ``random`` and ``blind`` under a VotePlan, the
     port's step from the same start held to it at the tolerances of
     ``test_the_4x2_step_holds_to_the_reference_mesh_step``; an
     ``adaptive_flip`` adversary raises the reference's ``ValueError`` at
-    the reference's call.
+    the reference's call. The reference's Mode B step with any adversary
+    does not lower on the JAX of these tests (its ``axis_index`` inside
+    the nested region manual over "model"), so the fused backward is held
+    to the reference's functions instead: on the mesh, one (16, 12) leaf
+    cut ("data", "model") with two adversaries of each stochastic mode,
+    every rank's voted block equal to the vote of the reference's
+    ``evil_signs`` over each model block of each voter's gradient.
 (e) The vote API over a model axis refuses an adversary whose choice of
     coordinates depends on the layout: its payload is a shard and carries
-    none.
+    none (a stochastic mode at the backend; an adaptive one, which only
+    the stacked form takes, as the request is made).
 """
 import dataclasses
 import json
@@ -53,6 +63,7 @@ from hypothesis import given, settings, strategies as st  # noqa: E402
 
 from repro.configs.base import ByzantineConfig as JByz  # noqa: E402
 from repro.core import byzantine as jbyz  # noqa: E402
+from repro.core import sign_compress as jsc  # noqa: E402
 from repro_torch.configs import base as tbase  # noqa: E402
 from repro_torch.core import byzantine as tbyz  # noqa: E402
 from repro_torch.core import prng  # noqa: E402
@@ -326,6 +337,40 @@ def test_the_4x2_adversary_step_holds_to_the_reference_mesh_step(scratch,
     assert flips <= 1e-3 * total, (flips, total)
 
 
+@pytest.mark.parametrize("mode", MODES)
+def test_the_fused_backward_draws_each_model_block_as_the_reference(
+        scratch, mode):
+    with open(scratch / "tp_adversary_record.pkl", "rb") as f:
+        rec = pickle.load(f)["tpa_fused"]
+    w, xs = rec["w"].astype(np.float64), rec["xs"].astype(np.float64)
+    grads = [2 * x.T @ (x @ w) for x in xs]       # voter v's whole gradient
+    assert min(float(np.abs(g).min()) for g in grads) > 1e-6
+    cfg = JByz(mode=mode, num_adversaries=2, seed=3, flip_prob=0.9)
+    want, whole = [], 0
+    for j in range(2):                            # the model blocks
+        count = 0
+        for v, g in enumerate(grads):
+            s = jsc.sign_ternary(jnp.asarray(g[:, 6 * j:6 * j + 6],
+                                             jnp.float32))
+            if v < 2:                             # drawn over the block
+                s = jbyz.evil_signs(s, cfg, jnp.int32(v), step=None)
+            count = count + np.asarray(s, np.int32)
+        want.append(np.sign(count))
+    for v, g in enumerate(grads):                 # the whole leaf's draw
+        s = jsc.sign_ternary(jnp.asarray(g, jnp.float32))
+        if v < 2:
+            s = jbyz.evil_signs(s, cfg, jnp.int32(v), step=None)
+        whole = whole + np.asarray(s, np.int32)
+    assert len(rec["ranks"]) == 8
+    for d, m, got in rec["ranks"]:
+        np.testing.assert_array_equal(got[mode],
+                                      want[m][4 * d:4 * d + 4],
+                                      err_msg=f"rank ({d}, {m})")
+    # the check tells the block's draw from the whole leaf's
+    assert not np.array_equal(np.concatenate(want, axis=1),
+                              np.sign(whole))
+
+
 def test_an_adaptive_adversary_raises_the_reference_error_at_its_call(
         scratch):
     with open(scratch / "tpa_ref_adaptive.json") as f:
@@ -364,6 +409,15 @@ def test_the_vote_api_refuses_a_layout_draw_over_a_model_axis():
                     back.execute(tva.VoteRequest(
                         payload=p, form=form,
                         failures=tva.FailureSpec(byz=byz)))
+        # an adaptive mode (low_margin ranks the payload) never meets a
+        # shard: a leaf or tree request refuses it as it is made
+        for mode in tbyz.ATTACK_MODES:
+            byz = tbase.ByzantineConfig(mode=mode, num_adversaries=1)
+            for form, p in (("leaf", payload), ("tree", {"a": payload})):
+                with pytest.raises(ValueError,
+                                   match="has no such observation channel"):
+                    tva.VoteRequest(payload=p, form=form,
+                                    failures=tva.FailureSpec(byz=byz))
         for mode in ("sign_flip", "zero"):
             assert back.why_unsupported(tva.VoteRequest(
                 payload=payload, failures=tva.FailureSpec(

@@ -156,7 +156,8 @@ _NO_LAUNCHES = {"momentum_sign_pack": 0, "majority": 0, "apply_vote": 0,
                 "bitpack": 0, "bitunpack": 0, "fused_majority": 0,
                 "ternary_pack": 0, "ternary_majority": 0,
                 "ternary_majority_plus_one": 0, "ternary_unpack": 0,
-                "apply_ternary_vote": 0, "adversary": 0}
+                "apply_ternary_vote": 0, "adversary": 0,
+                "adversary_map": 0}
 
 
 def test_step_updates_state_in_place_without_kernel_launches():

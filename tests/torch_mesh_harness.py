@@ -76,8 +76,12 @@ g. tp_adversary (run alone, by ``tests/test_torch_tp_adversary.py``:
    as check f holds its runs, and every adversarial rank's draws held
    exactly to the twin's at the block's global coordinates (``random`` /
    ``colluding``: the sent signs; ``blind``: the flip mask wherever the
-   honest signs agree); each rank's bytes by axis of a plan step equal to
-   ``chip_smoke.tp_plan_vote_bytes``. With ``tpa_ref_<case>_start.npz``
+   honest signs agree; the fused backward's at the block's own, the
+   twin's drawn block by block, :class:`BlockDraws`); each rank's bytes
+   by axis of a plan step equal to
+   ``chip_smoke.tp_plan_vote_bytes``; the fused backward of one (16, 12)
+   leaf cut ("data", "model") with two adversaries of each stochastic
+   mode, every rank's voted block recorded (``tpa_fused``). With ``tpa_ref_<case>_start.npz``
    in the scratch directory the mesh also takes one step from each of the
    reference's start states and writes each rank's blocks
    (``tpa_step_<case>_rank<r>.npz``).
@@ -1152,6 +1156,53 @@ class AdversaryRecorder:
         self.mod.evil_signs_ = self.orig
 
 
+class BlockDraws:
+    """Within the block, the stacked twin's fused ZeRO backward draws an
+    adversary's signs of every leaf that `specs` cut over ``"model"``
+    block by block, each of the `parts` blocks (of each layer of a stacked
+    leaf) drawn as a whole from counter 0: what the reference's fused
+    backward draws on each model rank, inside its region manual over
+    ``"model"``. Other leaves draw as the twin does."""
+
+    def __init__(self, specs, parts):
+        self.specs, self.parts, self.leaf = specs, parts, None
+
+    def __enter__(self):
+        from repro_torch.core import byzantine
+        from repro_torch.core import majority_vote as mv
+        from repro_torch.core import sign_compress as sc
+        from repro_torch.train import train_step as TS
+        self.mv, self.orig = mv, mv.fused_signs
+        self.cls, self.call = TS.StackedFusedVote, TS.StackedFusedVote.__call__
+        ctx, call = self, self.call
+
+        def named(vote, i, k, g):
+            ctx.leaf = k
+            return call(vote, i, k, g)
+
+        def fused_signs(g, byz, replica, rows=1):
+            spec = ctx.specs.get(ctx.leaf, ())
+            if "model" not in spec or byz is None or byz.mode == "none" \
+                    or replica >= byz.num_adversaries:
+                return ctx.orig(g, byz, replica, rows)
+            s = sc.sign_ternary(g)
+            dim = spec.index("model")
+            width = s.shape[dim] // ctx.parts
+            for j in range(ctx.parts):
+                blk = s.narrow(dim, j * width, width).contiguous()
+                byzantine.evil_signs_(blk.view(rows, -1), byz,
+                                      [replica] * rows, step=None)
+                s.narrow(dim, j * width, width).copy_(blk)
+            return s
+        TS.StackedFusedVote.__call__ = named
+        mv.fused_signs = fused_signs
+        return self
+
+    def __exit__(self, *exc):
+        self.mv.fused_signs = self.orig
+        self.cls.__call__ = self.call
+
+
 def check_draws(what, byz, voter, mine, theirs, match):
     """Every draw of this rank's adversary (`mine`) against the stacked
     twin's (`theirs`) at the block's global coordinates: each call's
@@ -1250,7 +1301,8 @@ def tp_train_case(label, mesh, cfg, tcfg, record=None, routes=None,
         with AdversaryRecorder() as mine:
             params, state, met = art.step_fn(params, state, batch, step)
         ours = list(routes.calls) if routes is not None else None
-        with AdversaryRecorder() as theirs:
+        with AdversaryRecorder() as theirs, BlockDraws(
+                art.param_specs if tcfg.fsdp else {}, mesh.model):
             tparams, tstate, tmet = twin.step_fn(tparams, tstate, batch,
                                                  step)
         if draws is not None and voter < tcfg.byzantine.num_adversaries:
@@ -1462,7 +1514,40 @@ def check_tp_adversary(rank):
     dist.all_gather_object(every, flips)
     if rank == 0:
         RECORD["tpa_flips"] = every
+    tpa_fused_gather(rank, mesh)
     tpa_reference_steps(rank, mesh)
+
+
+#: the fused backward's adversaries: two of the four voters, each mode
+TPA_FUSED_MODES = ("random", "colluding", "blind")
+
+
+def tpa_fused_gather(rank, mesh):
+    """The fused ZeRO backward over the (data 4, model 2) `mesh` with two
+    adversaries of four: W (16, 12) cut ("data", "model"), rank (d, m)'s
+    loss ``sum((x_d @ W[:, block m]) ** 2)`` through the gather of its
+    block; rank 0 records every rank's voted block of the gradient with the
+    inputs (``tpa_fused``), which the test holds to the reference's own
+    ``evil_signs`` of each model block."""
+    from repro_torch.configs import base
+    from repro_torch.core import majority_vote as mv
+    rng = np.random.default_rng(SEED + 29)
+    w_full = rng.normal(size=(16, 12)).astype(np.float32)
+    xs = rng.normal(size=(4, 5, 16)).astype(np.float32)
+    d, m = mesh.axis_index("data"), mesh.axis_index("model")
+    block = torch.from_numpy(w_full[4 * d:4 * d + 4, 6 * m:6 * m + 6])
+    got = {}
+    for mode in TPA_FUSED_MODES:
+        byz = base.ByzantineConfig(mode=mode, num_adversaries=2, seed=3,
+                                   flip_prob=0.9)
+        gather = mv.make_gather_vote(0, mesh.vote_axes, vote=True, byz=byz)
+        w = block.clone().requires_grad_()
+        loss = torch.sum((torch.from_numpy(xs[d]) @ gather(w)) ** 2)
+        got[mode] = _np(torch.autograd.grad(loss, [w])[0])
+    every = [None] * WORLD
+    dist.all_gather_object(every, (d, m, got))
+    if rank == 0:
+        RECORD["tpa_fused"] = {"w": w_full, "xs": xs, "ranks": every}
 
 
 def tpa_reference_steps(rank, mesh):
