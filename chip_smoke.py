@@ -318,8 +318,9 @@ Phases, each of which fails the run (non-zero exit) on any disagreement:
    ``scripts/family_probe.py`` only: about 60 s);
 18. serving (after phase 17; ``scripts/serve_probe.py`` runs it alone),
    which launches none of the port's kernels before 18d (checked): 18a,
-   glm4-9b at every published width and full depth (40 layers, bf16,
-   seeded weights) behind the continuous ``ServeEngine`` (8 slots,
+   glm4-9b at every published width and 20 of its 40 layers (full depth
+   until phase 20 joined the script, cut for its time; bf16, seeded
+   weights) behind the continuous ``ServeEngine`` (8 slots,
    max_len 1024, prefill admission in buckets of 128 / 256 / 512) on 24
    Poisson requests (prompts of 128-512, 16-48 tokens each, greedy; 32-96
    before phase 19d-19f joined the script, cut for its time), then
@@ -332,8 +333,8 @@ Phases, each of which fails the run (non-zero exit) on any disagreement:
    ticks, peak memory; 4 of the requests by inline admission (token
    agreement and the largest logit gap printed). A float32 2-layer twin
    of the engine serves all 24, every lane equal to its request served
-   alone, and its inline admission equals its prefill admission. 18b, qwen1.5-32b at every published width and 32
-   of its 64 layers, its int8 KV cache: 4 slots, max_len 8192, prompts of
+   alone, and its inline admission equals its prefill admission. 18b, qwen1.5-32b at every published width and 16
+   of its 64 layers (32 until phase 20 joined the script), its int8 KV cache: 4 slots, max_len 8192, prompts of
    4,200-4,600 tokens through one prefill bucket of 4608 and 32 tokens
    each (the chunked online-softmax decode over two KV_CHUNKs); the
    engine's tokens teacher-forced through the model API with the int8
@@ -439,6 +440,28 @@ Phases, each of which fails the run (non-zero exit) on any disagreement:
    time, ms per decode tick (CUDA events on rank 0), bytes per rank by
    axis, peak memory per rank, the routing flips and the seconds of each
    sub-phase on each rank.
+
+20. the dry run (``repro_torch.launch.dryrun``: a step built and run on
+   the "meta" device, its FLOPs, bytes, memory, collectives and launches
+   counted, no kernel launched), held to what the card does. 20a: phase
+   3's cell (glm4-9b at every published width, 2 layers, M = 4 stacked,
+   sign1bit on allgather_1bit, batch 8, seq 512) dry-run on "meta", then
+   one real step of it on the card: its launches equal to the dry run's
+   exactly, ``FlopCounterMode`` over the card's step equal to the dry
+   run's ``flops_per_chip`` exactly, and the card's peak above its
+   allocation before the step (``max_memory_allocated``, reset before it)
+   within DRY_PEAK_SHARE of the dry run's ``peak_bytes_per_chip`` of the
+   dry run's peak above its arguments. 20b: 19a's cells (data 2, model 2)
+   dry-run in a fake world of 4 ranks, as each rank: its bytes by axis
+   equal to what that rank of 19a handed them in step 0
+   (``ProcessMesh.stats`` / ``model_stats``) and to ``tp_vote_bytes`` /
+   ``tp_bytes``, its launches equal to that rank's, exactly. 20c: the
+   production cell glm4-9b x train_4k on (16, 16), dry-run as rank 0 of
+   a fake world of 256 ranks (in a process of its own, started after the
+   build, tracing on the host beside phases 2-19), its record printed
+   ("ok" required); the card's
+   ``total_memory``, name and power limit printed and
+   ``dryrun.H100_MEMORY_BYTES`` held against ``total_memory``.
 
 Phase 13's, 14's, 15's, 16's, 17's, 18's and 19's launches (phases 14's,
 15b's and 19's summed over their ranks) join the kernels line.
@@ -5568,20 +5591,23 @@ def run_phase17(torch, cfg, dev, err, profiled=FAMILY_PROFILED) -> dict:
 # phase 18: serving on the card
 # ---------------------------------------------------------------------------
 
-#: 18a: glm4-9b at full depth and width behind the continuous engine
+#: 18a: glm4-9b at every published width, depth 40 -> 20 (cut for the
+#: script's time when phase 20 joined it), behind the continuous engine
+SERVE_MAIN_DEPTH = 20
 SERVE_MAIN = dict(n_slots=8, max_len=1024, prompt_pad=512, admit="prefill",
                   prefill_buckets=(128, 256, 512))
 SERVE_TRAFFIC = dict(n_requests=24, rate=0.15, prompt_lens=(128, 256, 512),
                      gen_range=(16, 48), seed=18)
 #: 18a's inline check: this many of the requests (the shortest prompts)
 SERVE_INLINE = 4
-#: 18a's lanes held against their request served alone at full depth
+#: 18a's lanes held against their request served alone at SERVE_MAIN_DEPTH
 #: (:func:`solo_lanes`); the float32 2-layer twin holds every lane
 SERVE_SOLO_FULL = 3
-#: 18b: qwen1.5-32b at half depth (64 -> 32 layers, for memory), its int8
-#: KV cache past two KV_CHUNKs; the reference test's bound on its logits
+#: 18b: qwen1.5-32b at a quarter of its depth (64 -> 32 layers for memory,
+#: then 16 for the script's time when phase 20 joined it), its int8 KV
+#: cache past two KV_CHUNKs; the reference test's bound on its logits
 #: against a bf16-cache twin (relative at max(|logit|, 1))
-SERVE_INT8_DEPTH = 32
+SERVE_INT8_DEPTH = 16
 SERVE_INT8 = dict(n_slots=4, max_len=8192, prompt_pad=4608, admit="prefill",
                   prefill_buckets=(4608,))
 SERVE_INT8_TRAFFIC = dict(n_requests=4, rate=1.0,
@@ -5844,8 +5870,8 @@ def inline_logit_gap(torch, cfg, params, requests, dev) -> float:
 
 
 def run_serve_main(torch, dev, cfg=None, twin=None) -> None:
-    """Phase 18a: glm4-9b (every published width, full depth, bf16,
-    seeded weights) behind the continuous engine with prefill admission
+    """Phase 18a: glm4-9b (every published width, SERVE_MAIN_DEPTH layers,
+    bf16, seeded weights) behind the continuous engine with prefill admission
     on SERVE_TRAFFIC's requests, then the static scheduler on the same
     requests: zero dropped, SERVE_SOLO_FULL lanes (:func:`solo_lanes`)
     equal to their request served alone, one decode build, continuous
@@ -5860,7 +5886,8 @@ def run_serve_main(torch, dev, cfg=None, twin=None) -> None:
     from repro_torch.obs import recorder as obs
     from repro_torch.serve import ServeConfig, ServeEngine, poisson_requests
     t0 = time.perf_counter()
-    cfg = cfg or get_config("glm4-9b")
+    cfg = cfg or dataclasses.replace(get_config("glm4-9b"),
+                                     num_layers=SERVE_MAIN_DEPTH)
     params = serve_params(torch, cfg, dev)
     reqs = poisson_requests(vocab_size=cfg.vocab_size, **SERVE_TRAFFIC)
     sc = ServeConfig(**SERVE_MAIN)
@@ -6422,8 +6449,11 @@ def _attn_gather_bytes(cfg, m: int, B: int, S: int, T: int) -> tuple:
         bwd += 2 * 4 * kv * m               # the whole gathered cotangent
     if form == "seq":
         q = B * S * H * hd // m
-        fwd += 2 * q * el                   # q, and the output's rows
-        bwd += 2 * 4 * q * m
+        # q, and the output's rows; rows the axis does not divide stay
+        # whole on every rank, with no gather of the output
+        parts = 1 if S % m else 2
+        fwd += parts * q * el
+        bwd += parts * 4 * q * m
     return fwd, bwd
 
 
@@ -8184,6 +8214,8 @@ def run_phase19(torch, dev, errs, target=None) -> dict:
                     raise AssertionError(f"tp {label}: step 0's loss {loss} "
                                          f"against the twin's {want_loss}")
             rows = [run["rows"] for run in runs]
+            if label in TP_CODECS:   # phase 20b's
+                TP_ROWS[label] = [r[0] for r in rows]
             log({"phase": "tp_train", "run": label,
                  "mesh": runs[0]["mesh"][0], "axes": runs[0]["mesh"][1],
                  "losses": [m["loss"] for m in runs[0]["metrics"]],
@@ -8269,6 +8301,179 @@ def run_phase19(torch, dev, errs, target=None) -> dict:
     finally:
         import shutil
         shutil.rmtree(scratch, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 20: the dry run against the card
+# ---------------------------------------------------------------------------
+
+#: 20a's bound, stated before the first card run: the card's peak above
+#: its allocation before the step within this share of the dry run's
+#: peak_bytes_per_chip of the dry run's peak above its arguments
+DRY_PEAK_SHARE = 0.02
+#: 20b: each rank's step-0 row of 19a, by codec (filled by run_phase19)
+TP_ROWS: dict = {}
+#: 20c's production cell
+DRY_CELL = ("glm4-9b", "train_4k")
+#: seconds 20c's dry run may take (it runs beside phases 2-19, on the host)
+DRY_CELL_TIMEOUT_S = 600
+
+
+def start_dry_cell() -> tuple:
+    """20c's dry run as a process of its own on the host (no card), started
+    beside the card's phases so its trace costs the script no time:
+    ``python -m repro_torch.launch.dryrun`` on DRY_CELL, its record to a
+    file of a fresh temporary directory. Returns (process, path)."""
+    import tempfile
+    here = os.path.dirname(os.path.abspath(__file__))
+    path = os.path.join(tempfile.mkdtemp(prefix="dryrun_"), "cell.jsonl")
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1",
+               PYTHONPATH=os.path.join(here, "src"))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         DRY_CELL[0], "--shape", DRY_CELL[1], "--out", path], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return proc, path
+
+
+def finish_dry_cell(pending: tuple) -> dict:
+    """The record of :func:`start_dry_cell`'s run, once it has ended; its
+    output is printed on failure."""
+    import shutil
+    proc, path = pending
+    try:
+        out, _ = proc.communicate(timeout=DRY_CELL_TIMEOUT_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    try:
+        with open(path) as f:
+            rec = json.loads(f.readline())
+    finally:
+        shutil.rmtree(os.path.dirname(path), ignore_errors=True)
+    if proc.returncode or rec["status"] != "ok":
+        raise AssertionError(f"dry run 20c: exit {proc.returncode}, "
+                             f"{rec}\n{out[-4000:]}")
+    return rec
+
+
+def dry_card_step(torch, cfg, tcfg, dev) -> dict:
+    """One real step of `cfg` under `tcfg` (M_MAIN stacked voters) on the
+    card from fresh state: its launches, ``FlopCounterMode``'s FLOPs and
+    its peak above the allocation before it."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.kernels import ops
+    from repro_torch.train import train_step as TS
+    art = TS.make_train_step(cfg, tcfg, M_MAIN, device=dev)
+    params, state = TS.materialize_state(
+        cfg, tcfg, art, torch.Generator(device=dev).manual_seed(0))
+    batch = {"tokens": torch.randint(
+        0, cfg.vocab_size, (tcfg.global_batch, tcfg.seq_len),
+        generator=torch.Generator(device=dev).manual_seed(1), device=dev,
+        dtype=torch.int32)}
+    gc.collect()
+    sync(torch, dev)
+    before = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    with FlopCounterMode(display=False) as flops:
+        art.step_fn(params, state, batch, 0)
+    sync(torch, dev)
+    out = {"launches": ops.launch_counts(),
+           "flops": flops.get_total_flops(),
+           "peak_above_before": torch.cuda.max_memory_allocated(dev) - before,
+           "argument_bytes": sum(t.numel() * t.element_size() for t in
+                                 list(params.values()) + [batch["tokens"]]
+                                 + [v for d in state.values()
+                                    if isinstance(d, dict)
+                                    for v in d.values()])}
+    del params, state, art
+    gc.collect()
+    return out
+
+
+def run_phase20(torch, cfg, dev, pending: tuple = None) -> None:
+    """Phase 20 (see the module doc); every check raises. `pending` is
+    20c's run from :func:`start_dry_cell` (started here when not given)."""
+    from repro_torch.distributed.mesh import ProcessMesh
+    from repro_torch.launch import dryrun as D
+    from repro_torch.train import train_step as TS
+    t_start = time.perf_counter()
+    # 20a
+    tcfg = train_config("sign1bit")
+    meta = D.train_record(cfg, tcfg, n_voters=M_MAIN)
+    card = dry_card_step(torch, cfg, tcfg, dev)
+    if card["launches"] != meta["launches"]:
+        raise AssertionError(f"dry run 20a: launches {meta['launches']} on "
+                             f"meta, {card['launches']} on the card")
+    if card["flops"] != meta["flops_per_chip"]:
+        raise AssertionError(f"dry run 20a: {meta['flops_per_chip']} FLOPs "
+                             f"on meta, {card['flops']} on the card")
+    mem = meta["memory"]
+    above = mem["peak_bytes_per_chip"] - mem["argument_bytes"]
+    gap = card["peak_above_before"] - above
+    if abs(gap) > DRY_PEAK_SHARE * mem["peak_bytes_per_chip"]:
+        raise AssertionError(
+            f"dry run 20a: the card's peak above its arguments "
+            f"{card['peak_above_before']} against the dry run's {above} "
+            f"(bound {DRY_PEAK_SHARE} of {mem['peak_bytes_per_chip']})")
+    log({"phase": "dryrun_vs_card", "cell": "phase 3 (glm4-9b, 2 layers, "
+         "M = 4, sign1bit, allgather_1bit)",
+         "launches": {k: v for k, v in card["launches"].items() if v},
+         "flops": card["flops"], "meta_memory": mem,
+         "card_peak_above_before": card["peak_above_before"],
+         "card_argument_bytes": card["argument_bytes"],
+         "meta_peak_above_arguments": above, "peak_gap": gap,
+         "peak_gap_share": gap / mem["peak_bytes_per_chip"],
+         "bound_share": DRY_PEAK_SHARE,
+         "meta_hbm_bytes": meta["hbm_bytes_per_chip"],
+         "meta_trace_s": meta["trace_s"],
+         "seconds": time.perf_counter() - t_start})
+    # 20b
+    t0 = time.perf_counter()
+    shape, axes = TP_TRAIN_MESH
+    for codec in TP_CODECS:
+        tcfg = train_config(codec)
+        rows = TP_ROWS[codec]
+        for rank in range(MESH_RANKS):
+            with D.fake_world(MESH_RANKS, rank):
+                mesh = ProcessMesh(shape, axes)
+                rec = D.train_record(cfg, tcfg, mesh=mesh)
+                art = TS.make_train_step(cfg, tcfg, device="meta", mesh=mesh)
+                params, _ = TS.abstract_state(cfg, tcfg, art, mesh)
+                want = {"vote": tp_vote_bytes(params, codec),
+                        "model": tp_bytes(cfg, tcfg, mesh, TP_FRAMES)}
+            got = {"vote": rows[rank]["vote_bytes"],
+                   "model": rows[rank]["tp_bytes"]}
+            if not rec["wire_bytes"] == got == want:
+                raise AssertionError(
+                    f"dry run 20b {codec} rank {rank}: bytes by axis "
+                    f"{rec['wire_bytes']} on meta, {got} on the card, "
+                    f"{want} by the layout")
+            launched = {k: v for k, v in rec["launches"].items() if v}
+            if launched != rows[rank]["launches"]:
+                raise AssertionError(
+                    f"dry run 20b {codec} rank {rank}: launches {launched} "
+                    f"on meta, {rows[rank]['launches']} on the card")
+        log({"phase": "dryrun_vs_19a", "codec": codec,
+             "bytes_by_axis_rank0": rec["wire_bytes"],
+             "launches_rank0": rows[0]["launches"],
+             "collectives_rank3": rec["collectives"]})
+    log({"phase": "dryrun_19a_done", "seconds": time.perf_counter() - t0})
+    # 20c
+    t0 = time.perf_counter()
+    rec = finish_dry_cell(pending or start_dry_cell())
+    total = torch.cuda.get_device_properties(dev).total_memory
+    if not D.H100_MEMORY_BYTES <= total <= 1.1 * D.H100_MEMORY_BYTES:
+        raise AssertionError(f"dryrun.H100_MEMORY_BYTES "
+                             f"{D.H100_MEMORY_BYTES} against the card's "
+                             f"total_memory {total}")
+    log({"phase": "dryrun_production_cell", "record": rec,
+         "waited_s": time.perf_counter() - t0})
+    log({"phase": "dryrun_card", "total_memory": total,
+         "H100_MEMORY_BYTES": D.H100_MEMORY_BYTES, "smi": smi_line(),
+         "seconds": time.perf_counter() - t_start})
 
 
 # ---------------------------------------------------------------------------
@@ -8606,9 +8811,7 @@ def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, os.path.join(here, "src"))
     import repro_torch
-    from repro_torch.configs.base import get_config
-    from repro_torch.core import sign_compress as sc
-    from repro_torch.kernels import build, ops, ref
+    from repro_torch.kernels import build
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -8622,6 +8825,23 @@ def main() -> int:
     t0 = time.perf_counter()
     build.library("vote")
     log({"phase": "build", "seconds": time.perf_counter() - t0})
+    # 20c's dry run traces on the host beside phases 2-19
+    pending = start_dry_cell()
+    try:
+        return run_phases(torch, dev, pending, t_start)
+    finally:
+        import shutil
+        if pending[0].poll() is None:
+            pending[0].kill()
+            pending[0].wait()
+        shutil.rmtree(os.path.dirname(pending[1]), ignore_errors=True)
+
+
+def run_phases(torch, dev, pending: tuple, t_start: float) -> int:
+    """Phases 2-20 and the last lines (see :func:`main`)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.core import sign_compress as sc
+    from repro_torch.kernels import build, ops, ref
     for name, out in build.BUILD_LOG.items():
         for line in out.splitlines():
             if any(k in line for k in ("Function properties", "registers",
@@ -8675,6 +8895,8 @@ def main() -> int:
         launches[k] += v
     for k, v in run_phase19(torch, dev, errs).items():
         launches[k] = launches.get(k, 0) + v
+    # the dry run launches no kernel; 20a's step on the card is phase 3's
+    run_phase20(torch, cfg, dev, pending)
     # ef_sign's encode packs its float32 t; every other bitpack of the main
     # path packs int8 signs (staged votes, plan buckets, weighted_vote's vote)
     launches["bitpack_i8"] = launches["bitpack"] - ef_sign_packs

@@ -22,13 +22,16 @@ DeviceLike = Union[str, torch.device, None]
 def resolve_device(device: DeviceLike = None) -> torch.device:
     """The device an entry point runs on: ``"cuda"`` unless told otherwise.
 
-    Raises ``RuntimeError`` when CUDA is asked for (explicitly or by
-    default) and no card is visible."""
+    ``"meta"``, when the caller names it, builds and runs a step on
+    tensors with shapes and no data (``launch.dryrun``). Raises
+    ``RuntimeError`` when CUDA is asked for (explicitly or by default) and
+    no card is visible."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "repro_torch runs on a CUDA device by default and none is "
             "available; pass device='cpu' to run the plain PyTorch path")
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
+    if dev.type not in ("cuda", "cpu", "meta"):
+        raise ValueError(f"unsupported device {dev}; use 'cuda', 'cpu' or "
+                         "'meta'")
     return dev

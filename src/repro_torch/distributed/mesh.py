@@ -75,6 +75,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch.launch import hlo_stats
+
 #: the vote axes, outermost first (the reference's ``vote_axes_in`` order)
 VOTE_AXES = ("pod", "data")
 #: every axis of a mesh, outermost first (rank-major order)
@@ -269,12 +271,35 @@ class ProcessMesh:
         return buf
 
     def _run(self, x: torch.Tensor, fn, out_numel: int, group,
-             stats: Optional[WireStats] = None) -> torch.Tensor:
+             stats: Optional[WireStats] = None, *, op: str,
+             combine: str = "sum") -> torch.Tensor:
         """Run the collective `fn(src, dst)` of process group `group` on
         `x`, widening int16 to int32; returns a new flat tensor of
         `out_numel` elements on x's device, in x's dtype. The bytes go to
-        `stats` (default the vote axes')."""
+        `stats` (default the vote axes'). `op` names the collective in the
+        reference's terms (``all-reduce``, ``all-gather``,
+        ``reduce-scatter``, ``all-to-all``, ``broadcast``); `combine` is an
+        all-reduce's ("sum" or "max").
+
+        Under ``launch.hlo_stats.record_collectives`` (the dry run) the
+        collective is recorded, with its group's size and whether the group
+        crosses pods, and not run: `fn` is not called. The result is then an
+        empty tensor on "meta" for a meta `x`, and for any other `x` the
+        value this rank would get if every rank of the group had sent its
+        own `x` (the SPMD premise of the reference's dry run: one rank
+        stands for all)."""
         src = x.to(torch.int32) if x.dtype == torch.int16 else x
+        stats = self.stats if stats is None else stats
+        rec = hlo_stats.active()
+        if rec is not None:
+            members = dist.get_process_group_ranks(group)
+            rec.add(op, members, out_numel * src.element_size())
+            stats.bytes += src.numel() * src.element_size()
+            stats.calls += 1
+            if x.is_meta:
+                return torch.empty(out_numel, dtype=x.dtype, device="meta")
+            return _as_if_every_rank(src, op, combine, len(members),
+                                     members.index(self.rank)).to(x.dtype)
         backend = dist.get_backend(group)
         t0 = time.perf_counter()
         s = self._stage(src, "src", backend)
@@ -284,11 +309,28 @@ class ProcessMesh:
         out = d if d.device == x.device else d.to(x.device)
         if out.dtype != x.dtype:
             out = out.to(x.dtype)
-        stats = self.stats if stats is None else stats
         stats.bytes += src.numel() * src.element_size()
         stats.seconds += time.perf_counter() - t0
         stats.calls += 1
         return out
+
+
+def _as_if_every_rank(src: torch.Tensor, op: str, combine: str, k: int,
+                      idx: int) -> torch.Tensor:
+    """The flat result of collective `op` at group index `idx` of `k` ranks
+    had every rank sent `src`."""
+    flat = src.reshape(-1)
+    if op == "all-reduce":
+        return flat * k if combine == "sum" else flat.clone()
+    if op == "all-gather":
+        return flat.repeat(k)
+    if op == "reduce-scatter":
+        return flat.view(k, -1)[idx] * k
+    if op == "all-to-all":
+        return flat.view(k, -1)[idx].repeat(k)
+    if op == "broadcast":
+        return flat.clone()
+    raise ValueError(f"unknown collective {op!r}")
 
 
 class VoteAxes(tuple):
@@ -354,7 +396,8 @@ def psum(x: torch.Tensor, axes, names: Optional[Sequence[str]] = None
     def fn(src, dst):
         dst.copy_(src)
         dist.all_reduce(dst, group=group)
-    return mesh._run(x, fn, x.numel(), group).view(x.shape)
+    return mesh._run(x, fn, x.numel(), group, op="all-reduce").view(
+        x.shape)
 
 
 def all_gather(x: torch.Tensor, axes, name: str, tiled: bool = False,
@@ -370,7 +413,7 @@ def all_gather(x: torch.Tensor, axes, name: str, tiled: bool = False,
     else:
         def fn(src, dst):
             dist.all_gather_into_tensor(dst, src, group=group)
-        out = mesh._run(x, fn, k * x.numel(), group).view(
+        out = mesh._run(x, fn, k * x.numel(), group, op="all-gather").view(
             (k,) + tuple(x.shape))
     if not tiled:
         return out
@@ -406,7 +449,7 @@ def psum_scatter(x: torch.Tensor, axes, name: str,
 
     def fn(src, dst):
         dist.reduce_scatter_tensor(dst, src, group=group)
-    return mesh._run(x, fn, x.numel() // k, group)
+    return mesh._run(x, fn, x.numel() // k, group, op="reduce-scatter")
 
 
 def gather_voters(x: torch.Tensor, axes) -> torch.Tensor:
@@ -419,7 +462,8 @@ def gather_voters(x: torch.Tensor, axes) -> torch.Tensor:
 
     def fn(src, dst):
         dist.all_gather_into_tensor(dst, src, group=group)
-    return mesh._run(x, fn, len(ranks) * x.numel(), group).view(
+    return mesh._run(x, fn, len(ranks) * x.numel(), group,
+                     op="all-gather").view(
         (len(ranks),) + tuple(x.shape))
 
 
@@ -433,7 +477,7 @@ def broadcast(x: torch.Tensor, axes, src_index: int = 0) -> torch.Tensor:
     def fn(src, dst):
         dst.copy_(src)
         dist.broadcast(dst, src=ranks[src_index], group=group)
-    return mesh._run(x, fn, x.numel(), group).view(x.shape)
+    return mesh._run(x, fn, x.numel(), group, op="broadcast").view(x.shape)
 
 
 # ---------------------------------------------------------------------------
@@ -464,7 +508,7 @@ def model_gather(x: torch.Tensor, mesh: ProcessMesh, dim: int = -1,
     def fn(src, dst):
         dist.all_gather_into_tensor(dst, src, group=group)
     parts = mesh._run(x.contiguous(), fn, k * x.numel(), group,
-                      _stats_of(mesh, names)).view((k,) + tuple(x.shape))
+                      _stats_of(mesh, names), op="all-gather").view((k,) + tuple(x.shape))
     dim = dim % x.dim()
     shape = x.shape[:dim] + (k * x.shape[dim],) + x.shape[dim + 1:]
     return parts.movedim(0, dim).reshape(shape)
@@ -482,7 +526,7 @@ def _ordered_parts(x: torch.Tensor, mesh: ProcessMesh,
     def fn(src, dst):
         dist.all_gather_into_tensor(dst, src, group=group)
     return mesh._run(x32, fn, k * x.numel(), group,
-                     _stats_of(mesh, names)).view((k,) + tuple(x.shape))
+                     _stats_of(mesh, names), op="all-gather").view((k,) + tuple(x.shape))
 
 
 #: float32 bytes from which a sum over more than two ranks takes the
@@ -518,7 +562,8 @@ def _blocks_in_order(x32: torch.Tensor, mesh: ProcessMesh, names,
 
     def fn(src, dst):
         dist.all_to_all_single(dst, src, group=group)
-    got = mesh._run(flat, fn, k * block, group, _stats_of(mesh, names))
+    got = mesh._run(flat, fn, k * block, group, _stats_of(mesh, names),
+                    op="all-to-all")
     return _sum_rows(got.view(k, block))
 
 
@@ -545,7 +590,7 @@ def model_sum(x: torch.Tensor, mesh: ProcessMesh,
             dst.copy_(src)
             dist.all_reduce(dst, group=group)
         return mesh._run(wide, fn, x.numel(), group,
-                         _stats_of(mesh, names)).view(x.shape).to(x.dtype)
+                         _stats_of(mesh, names), op="all-reduce").view(x.shape).to(x.dtype)
     k, group = _tp_group(mesh, names)
     if group is None:
         return x.clone()
@@ -556,7 +601,7 @@ def model_sum(x: torch.Tensor, mesh: ProcessMesh,
         def fn(src, dst):
             dist.all_gather_into_tensor(dst, src, group=group)
         every = mesh._run(mine, fn, k * mine.numel(), group,
-                          _stats_of(mesh, names))
+                          _stats_of(mesh, names), op="all-gather")
         return every[:x.numel()].view(x.shape).to(x.dtype)
     return _sum_rows(_ordered_parts(x, mesh, names)).to(x.dtype)
 
@@ -573,7 +618,8 @@ def model_max(x: torch.Tensor, mesh: ProcessMesh,
         dst.copy_(src)
         dist.all_reduce(dst, op=dist.ReduceOp.MAX, group=group)
     return mesh._run(x.contiguous(), fn, x.numel(), group,
-                     _stats_of(mesh, names)).view(x.shape)
+                     _stats_of(mesh, names), op="all-reduce",
+                     combine="max").view(x.shape)
 
 
 def model_sum_scatter(x: torch.Tensor, mesh: ProcessMesh, dim: int = -1,

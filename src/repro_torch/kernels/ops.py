@@ -22,11 +22,22 @@ which has no Pallas counterpart, as ``ternary_majority_plus_one``, and
 the stochastic adversaries, which have none either, as ``adversary``, and
 again as ``adversary_map`` when a launch draws under a counter map); CPU
 calls do not count.
+
+On the ``meta`` device (``launch.dryrun``) each wrapper runs its checks,
+allocates the outputs (and any scratch) its kernel's launch would, on
+"meta", and counts the launch it stands for; no CPU or CUDA tensor takes
+that branch. Under :func:`traffic` every wrapper call, on any device, adds
+the bytes its kernel reads (each tensor argument once) and writes (each
+tensor it returns once) to the counter, and the counter sees none of the
+PyTorch operations inside the wrapper: the dry run counts the kernel's
+bytes, the same bytes PERF.md's bounds count.
 """
 from __future__ import annotations
 
+import contextlib
+import functools
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, Iterator, Optional, Tuple
 
 import torch
 
@@ -55,6 +66,55 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     for name in _COUNTS:
         _COUNTS[name] = 0
+
+
+class Traffic:
+    """Kernel bytes counted under :func:`traffic`: `bytes` in all;
+    `depth` > 0 while a wrapper runs (a dispatch-mode counter of PyTorch
+    operations skips those)."""
+
+    def __init__(self):
+        self.bytes = 0
+        self.depth = 0
+
+
+_TRAFFIC: Optional[Traffic] = None
+
+
+@contextlib.contextmanager
+def traffic() -> Iterator[Traffic]:
+    """Count the bytes of every wrapper call inside (see the module doc)."""
+    global _TRAFFIC
+    outer, _TRAFFIC = _TRAFFIC, Traffic()
+    try:
+        yield _TRAFFIC
+    finally:
+        _TRAFFIC = outer
+
+
+def _nbytes(t) -> int:
+    return t.numel() * t.element_size() if torch.is_tensor(t) else 0
+
+
+def _counted(fn):
+    """A wrapper whose kernel reads its tensor arguments and writes the
+    tensors it returns, for :func:`traffic`."""
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+        t = _TRAFFIC
+        if t is None:
+            return fn(*args, **kwargs)
+        t.depth += 1
+        try:
+            out = fn(*args, **kwargs)
+        finally:
+            t.depth -= 1
+        if not t.depth:
+            outs = out if isinstance(out, tuple) else (out,)
+            t.bytes += (sum(_nbytes(a) for a in args)
+                        + sum(_nbytes(o) for o in outs))
+        return out
+    return wrapper
 
 
 def _check(t: torch.Tensor, what: str, *, ndim: int, dtypes,
@@ -99,6 +159,7 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+@_counted
 def momentum_sign_pack(g: torch.Tensor, m: torch.Tensor, beta: float, *,
                        m_out: Optional[torch.Tensor] = None,
                        packed_out: Optional[torch.Tensor] = None,
@@ -134,6 +195,9 @@ def momentum_sign_pack(g: torch.Tensor, m: torch.Tensor, beta: float, *,
         if packed_out.shape[0] != w:
             raise ValueError(f"packed_out must be ({w},), got "
                              f"{tuple(packed_out.shape)}")
+    if g.is_meta:
+        _COUNTS["momentum_sign_pack"] += 1
+        return m_out, packed_out
     if not _on_card(g):
         m_new, packed = ref.momentum_sign_pack(
             sc.pad_to_pack(g)[0], sc.pad_to_pack(m)[0], beta)
@@ -153,6 +217,7 @@ def momentum_sign_pack(g: torch.Tensor, m: torch.Tensor, beta: float, *,
     return m_out, packed_out
 
 
+@_counted
 def majority(packed: torch.Tensor, *, out: Optional[torch.Tensor] = None
              ) -> torch.Tensor:
     """(M, w) int32 packed votes -> (w,) packed majority (ties -> +1)."""
@@ -166,6 +231,9 @@ def majority(packed: torch.Tensor, *, out: Optional[torch.Tensor] = None
     _check(out, "out", ndim=1, dtypes=(WORD,), device=dev)
     if out.shape[0] != w:
         raise ValueError(f"out must be ({w},), got {tuple(out.shape)}")
+    if packed.is_meta:
+        _COUNTS["majority"] += 1
+        return out
     if not _on_card(packed):
         return out.copy_(ref.majority(packed))
     _launch("vote", "majority_packed", packed.data_ptr(), out.data_ptr(), m,
@@ -192,6 +260,7 @@ def _check_apply(p: torch.Tensor, votes: torch.Tensor, words: int,
     return out
 
 
+@_counted
 def apply_vote(p: torch.Tensor, votes: torch.Tensor, eta: float,
                weight_decay: float, *, out: Optional[torch.Tensor] = None
                ) -> torch.Tensor:
@@ -202,6 +271,9 @@ def apply_vote(p: torch.Tensor, votes: torch.Tensor, eta: float,
     when given."""
     n = p.shape[0] if p.dim() else 0
     out = _check_apply(p, votes, sc.words_for(n), out)
+    if p.is_meta:
+        _COUNTS["apply_vote"] += 1
+        return out
     if not _on_card(p):
         new = ref.apply_vote(sc.pad_to_pack(p)[0], votes, eta, weight_decay)
         return out.copy_(new[:n])
@@ -212,6 +284,7 @@ def apply_vote(p: torch.Tensor, votes: torch.Tensor, eta: float,
     return out
 
 
+@_counted
 def apply_ternary_vote(p: torch.Tensor, votes: torch.Tensor, eta: float,
                        weight_decay: float, *,
                        out: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -220,6 +293,9 @@ def apply_ternary_vote(p: torch.Tensor, votes: torch.Tensor, eta: float,
     {-1, 0, +1} decoded on the fly (``0b10`` reads 0)."""
     n = p.shape[0] if p.dim() else 0
     out = _check_apply(p, votes, sc.ternary_words_for(n), out)
+    if p.is_meta:
+        _COUNTS["apply_ternary_vote"] += 1
+        return out
     if not _on_card(p):
         new = ref.apply_ternary_vote(sc.pad_to_pack(p, sc.PACK2)[0], votes,
                                      eta, weight_decay)
@@ -241,6 +317,7 @@ def _rows_out(out: Optional[torch.Tensor], rows: int, w: int,
     return out
 
 
+@_counted
 def bitpack(x: torch.Tensor, *, out: Optional[torch.Tensor] = None
             ) -> torch.Tensor:
     """(rows, n) f32/bf16/int8 -> (rows, ceil(n/32)) int32 words of the
@@ -256,6 +333,9 @@ def bitpack(x: torch.Tensor, *, out: Optional[torch.Tensor] = None
            strided_rows=True)
     rows, n = x.shape
     out = _rows_out(out, rows, sc.words_for(n), dev)
+    if x.is_meta:
+        _COUNTS["bitpack"] += 1
+        return out
     if not _on_card(x):
         return out.copy_(ref.bitpack(sc.pad_last(x, sc.PACK)[0]))
     _launch("bitpack", f"bitpack_{_SIGN_SUFFIX[x.dtype]}", x.data_ptr(),
@@ -265,6 +345,7 @@ def bitpack(x: torch.Tensor, *, out: Optional[torch.Tensor] = None
     return out
 
 
+@_counted
 def bitunpack(packed: torch.Tensor, n: int, dtype=torch.float32
               ) -> torch.Tensor:
     """(w,) int32 words -> (n,) of ±1 in `dtype` (int8, f32 or bf16): the
@@ -278,15 +359,19 @@ def bitunpack(packed: torch.Tensor, n: int, dtype=torch.float32
     if not 0 <= n <= sc.PACK * w:
         raise ValueError(f"{w} words hold at most {sc.PACK * w} signs, "
                          f"asked for {n}")
-    if not _on_card(packed):
+    if not packed.is_meta and not _on_card(packed):
         return ref.bitunpack(packed, dtype)[:n].clone()
     out = torch.empty(n, dtype=dtype, device=dev)
+    if packed.is_meta:
+        _COUNTS["bitunpack"] += 1
+        return out
     _launch("bitpack", f"bitunpack_{_SIGN_SUFFIX[dtype]}",
             packed.data_ptr(), out.data_ptr(), n, _stream(packed))
     _COUNTS["bitunpack"] += 1
     return out
 
 
+@_counted
 def fused_majority(x: torch.Tensor) -> torch.Tensor:
     """(M, n) f32/bf16/int8 voter values -> (ceil(n/32),) int32 packed
     majority of the signs ``x >= 0`` in one pass (ties and padding bits
@@ -296,15 +381,19 @@ def fused_majority(x: torch.Tensor) -> torch.Tensor:
     m, n = x.shape
     if m < 1:
         raise ValueError("fused_majority needs at least one voter")
-    if not _on_card(x):
+    if not x.is_meta and not _on_card(x):
         return ref.fused_majority(sc.pad_last(x, sc.PACK)[0])
     out = torch.empty(sc.words_for(n), dtype=WORD, device=dev)
+    if x.is_meta:
+        _COUNTS["fused_majority"] += 1
+        return out
     _launch("fused_vote", f"fused_majority_{_SIGN_SUFFIX[x.dtype]}",
             x.data_ptr(), out.data_ptr(), m, n, _stream(x))
     _COUNTS["fused_majority"] += 1
     return out
 
 
+@_counted
 def ternary_pack(x: torch.Tensor, *, out: Optional[torch.Tensor] = None
                  ) -> torch.Tensor:
     """(rows, n) int8 symbols or f32/bf16 values -> (rows, ceil(n/16)) int32
@@ -316,6 +405,9 @@ def ternary_pack(x: torch.Tensor, *, out: Optional[torch.Tensor] = None
     _check(x, "x", ndim=2, dtypes=_SIGN_SUFFIX, device=dev)
     rows, n = x.shape
     out = _rows_out(out, rows, sc.ternary_words_for(n), dev)
+    if x.is_meta:
+        _COUNTS["ternary_pack"] += 1
+        return out
     if not _on_card(x):
         return out.copy_(ref.ternary_pack(sc.pad_last(x, sc.PACK2)[0]))
     _launch("ternary_pack", f"ternary_pack_{_SIGN_SUFFIX[x.dtype]}",
@@ -329,6 +421,7 @@ def ternary_pack(x: torch.Tensor, *, out: Optional[torch.Tensor] = None
 TIES = ("zero", "plus_one")
 
 
+@_counted
 def ternary_majority(packed: torch.Tensor, *, ties: str = "zero",
                      out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(M, w) int32 packed ternary votes -> (w,) packed ternary majority:
@@ -349,15 +442,19 @@ def ternary_majority(packed: torch.Tensor, *, ties: str = "zero",
     _check(out, "out", ndim=1, dtypes=(WORD,), device=dev)
     if out.shape[0] != w:
         raise ValueError(f"out must be ({w},), got {tuple(out.shape)}")
+    name = "ternary_majority" + ("" if ties == "zero" else "_plus_one")
+    if packed.is_meta:
+        _COUNTS[name] += 1
+        return out
     if not _on_card(packed):
         return out.copy_(ref.ternary_majority(packed, ties))
-    name = "ternary_majority" + ("" if ties == "zero" else "_plus_one")
     _launch("vote", name, packed.data_ptr(), out.data_ptr(), m, w,
             _stream(packed))
     _COUNTS[name] += 1
     return out
 
 
+@_counted
 def ternary_unpack(packed: torch.Tensor, n: int, dtype=torch.int8
                    ) -> torch.Tensor:
     """(w,) int32 ternary words -> (n,) of {-1, 0, +1} in `dtype` (int8,
@@ -372,9 +469,12 @@ def ternary_unpack(packed: torch.Tensor, n: int, dtype=torch.int8
     if not 0 <= n <= sc.PACK2 * w:
         raise ValueError(f"{w} words hold at most {sc.PACK2 * w} symbols, "
                          f"asked for {n}")
-    if not _on_card(packed):
+    if not packed.is_meta and not _on_card(packed):
         return ref.ternary_unpack(packed, dtype)[:n].clone()
     out = torch.empty(n, dtype=dtype, device=dev)
+    if packed.is_meta:
+        _COUNTS["ternary_unpack"] += 1
+        return out
     _launch("ternary_pack", f"ternary_unpack_{_SIGN_SUFFIX[dtype]}",
             packed.data_ptr(), out.data_ptr(), n, _stream(packed))
     _COUNTS["ternary_unpack"] += 1
@@ -388,6 +488,7 @@ def draw_threshold(p: float) -> int:
     return min(1 << 23, max(0, math.ceil(prng.as_float32(p) * 2.0 ** 23)))
 
 
+@_counted
 def adversary_(x: torch.Tensor, keys, p: float, flip: bool,
                offset: int = 0, *, start: int = 0, block: int = 0,
                gap: int = 0) -> torch.Tensor:
@@ -415,10 +516,17 @@ def adversary_(x: torch.Tensor, keys, p: float, flip: bool,
                          f"{block} and gap {gap} must be >= 0")
     if gap and not block:
         raise ValueError(f"a gap of {gap} needs a block (block 0 is no cut)")
-    if not _on_card(x):
+    if not x.is_meta and not _on_card(x):
         return x.copy_(ref.adversary(x, keys, p, flip, offset, start, block,
                                      gap))
     if rows == 0 or n == 0:
+        return x
+    if x.is_meta:
+        # the card's launch copies the keys to the device first
+        torch.empty((rows, 2), dtype=torch.int32, device=dev)
+        _COUNTS["adversary"] += 1
+        if block:
+            _COUNTS["adversary_map"] += 1
         return x
     k = torch.tensor([[int(a) & 0xFFFFFFFF for a in key] for key in keys],
                      dtype=torch.int64).to(torch.int32).to(dev)

@@ -112,8 +112,8 @@ def _attn_form(num_heads: int, num_kv: int, model: int) -> str:
     reference's ``_attn_form``): "grouped" when the kv heads divide it (a
     rank holds whole kv heads and their q heads), "repeat" when only the
     q heads do (the k / v columns are gathered), "seq" when neither does
-    (q, k and v gathered, each rank attends its share of the query
-    rows)."""
+    (q, k and v gathered, each rank attends its share of the query rows,
+    or every row where the axis does not divide them)."""
     if model <= 1 or num_kv % model == 0:
         return "grouped"
     if num_heads % model == 0:
@@ -306,9 +306,6 @@ def _tp_attend(p: dict, prefix: str, q: torch.Tensor, k: torch.Tensor,
     k = tpar.gather_from_model(k, tp).reshape(B, T, K, hd)
     v = tpar.gather_from_model(v, tp).reshape(B, T, K, hd)
     if form == "seq":
-        if S % m:
-            raise ValueError(f"the seq attention form splits the {S} query "
-                             f"rows over {m} model ranks: they must divide")
         q = tpar.gather_from_model(q, tp).reshape(B, S, H, hd)
     else:
         q = q.reshape(B, S, H // m, hd)
@@ -325,6 +322,14 @@ def _tp_attend(p: dict, prefix: str, q: torch.Tensor, k: torch.Tensor,
                         q_positions=q_pos, kv_positions=kv_pos,
                         window=window)
         out = out.reshape(B, S, H // m * hd)
+    elif S % m:
+        # rows the axis does not divide (whisper's 1500 frames at 8 or 16)
+        # stay whole, as the reference's shard() drops the constraint:
+        # every rank attends every row and keeps its columns
+        out = attention(q, k, v, causal=causal, q_positions=q_pos,
+                        kv_positions=kv_pos, window=window)
+        cols = H * hd // m
+        out = out.reshape(B, S, H * hd)[..., r * cols:(r + 1) * cols]
     else:
         rows = slice(r * (S // m), (r + 1) * (S // m))
         out = attention(q[:, rows], k, v, causal=causal,
@@ -609,7 +614,12 @@ def _masked_local_update(cache: torch.Tensor, new: torch.Tensor, pos,
     ``_masked_local_update``); other rows leave the shard as it is."""
     pos = decode_positions(pos, new.shape[0], new.device)
     local = pos.pos - shard_start
-    rows = ((local >= 0) & (local < cache.shape[1])).nonzero()[:, 0]
+    if local.is_meta:
+        # the dry run knows no position: count the rank whose shard holds
+        # every row's, the most one rank writes
+        rows = torch.arange(new.shape[0], device=new.device)
+    else:
+        rows = ((local >= 0) & (local < cache.shape[1])).nonzero()[:, 0]
     if rows.numel():
         val = new[rows, 0]
         cache[rows, local[rows]] = (val if val.dtype == cache.dtype

@@ -99,6 +99,13 @@ def _frames(cfg: ModelConfig, batch: Dict[str, torch.Tensor]
 # ---------------------------------------------------------------------------
 
 
+def param_dtype(cfg: ModelConfig, name: str) -> torch.dtype:
+    """The dtype :func:`init_params` gives leaf `name`: float32 for mamba's
+    ``A_log`` and ``mamba_D``, the model's dtype for every other leaf."""
+    return (torch.float32 if name.endswith(("A_log", "mamba_D"))
+            else _dtype(cfg))
+
+
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device: DeviceLike = None, shard=None
                 ) -> Dict[str, torch.Tensor]:
@@ -295,6 +302,17 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     return transformer.init_kv_cache(cfg, batch, max_len, dtype, dev)
 
 
+def cache_specs(cfg: ModelConfig, batch: int, max_len: int
+                ) -> Dict[str, torch.Tensor]:
+    """:func:`init_cache`'s leaves as "meta" tensors, for their shapes and
+    dtypes only: made outside any dispatch mode, so the dry run
+    (``launch.dryrun``), which runs a step on "meta", does not count
+    them as the step's memory."""
+    from torch.utils._python_dispatch import _disable_current_modes
+    with _disable_current_modes():
+        return init_cache(cfg, batch, max_len, device="meta")
+
+
 def _logits(cfg: ModelConfig, params: Dict[str, torch.Tensor],
             h: torch.Tensor, tp=None) -> torch.Tensor:
     h = L.rms_norm(h, params["final_norm.scale"], cfg.norm_eps)
@@ -328,7 +346,7 @@ def prefill(cfg: ModelConfig, params: Dict[str, torch.Tensor],
     dev = tokens.device
     if cfg.family in (ArchFamily.SSM, ArchFamily.HYBRID, ArchFamily.AUDIO):
         cache = {k: zeros(k, tuple(v.shape), v.dtype, dev) for k, v in
-                 init_cache(cfg, B, S, device="meta").items()}
+                 cache_specs(cfg, B, S).items()}
         if cfg.family != ArchFamily.AUDIO:
             h, _, table, vtp = _final_hidden(cfg, params, batch, hook,
                                              "none", tp)
@@ -361,7 +379,8 @@ def prefill(cfg: ModelConfig, params: Dict[str, torch.Tensor],
 @torch.no_grad()
 def decode_step(cfg: ModelConfig, params: Dict[str, torch.Tensor],
                 tokens: torch.Tensor, cache: Dict[str, torch.Tensor], pos,
-                tp=None, seq_names=(), seq_len: int = 0, cross_names=()
+                tp=None, seq_names=(), seq_len: int = 0, cross_names=(),
+                hook=None
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """tokens (B, 1); `pos` one position (an int or a 0-d tensor) or one a
     row (B,) -> (logits (B, V), cache). The cache is advanced in place.
@@ -369,10 +388,17 @@ def decode_step(cfg: ModelConfig, params: Dict[str, torch.Tensor],
     where the table is) and the cache its block of the serving layout:
     the self-attention cache's rows those the axes `seq_names` give it
     within its `seq_len` (``layers.decode_self_attention``), the cross
-    cache's those of `cross_names`."""
+    cache's those of `cross_names`. `hook` (the decoder-only archs')
+    gathers each layer's FSDP slices (``core.majority_vote.
+    make_fsdp_hooks``)."""
     tp = L.model_group(tp)
     if tp is not None:
         check_model_axis(cfg, tp.model)
+    if hook is not None and cfg.family not in (ArchFamily.DENSE,
+                                               ArchFamily.MOE,
+                                               ArchFamily.VLM):
+        raise NotImplementedError(
+            f"an FSDP-sharded decode of the {cfg.family.value} family")
     table = params["embed.table"]
     h = L.embed_tokens(table, tokens, L.vocab_group(table, cfg.vocab_size,
                                                     tp))
@@ -395,7 +421,7 @@ def decode_step(cfg: ModelConfig, params: Dict[str, torch.Tensor],
     else:
         h, cache = transformer.decoder_decode_step(
             params, h, cache, pos, cfg, tp=tp, seq_names=seq_names,
-            seq_len=seq_len)
+            seq_len=seq_len, hook=hook)
     return _logits(cfg, params, h, tp)[:, 0], cache
 
 

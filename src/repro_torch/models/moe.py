@@ -58,11 +58,20 @@ def route_topk(router_logits: torch.Tensor, top_k: int
     experts = order[:, :top_k]
     weights = torch.gather(probs, 1, experts)
     weights = weights / weights.sum(dim=-1, keepdim=True)
-    counts = torch.bincount(experts.reshape(-1), minlength=E)
+    counts = _expert_counts(experts.reshape(-1), E)
     frac_tokens = counts.to(torch.float32) / T
     mean_probs = probs.mean(dim=0)
     aux = E * torch.sum(frac_tokens * mean_probs)
     return weights, experts, aux
+
+
+def _expert_counts(ids: torch.Tensor, num_experts: int) -> torch.Tensor:
+    """(E,) int64: how many of `ids` (each below E) name each expert. On
+    "meta" (the dry run, which routes no token) a tensor of that shape and
+    dtype: the count depends on the data, its shape does not."""
+    if ids.is_meta:
+        return torch.empty(num_experts, dtype=torch.int64, device="meta")
+    return torch.bincount(ids, minlength=num_experts)
 
 
 def _ordered_sum(src: torch.Tensor, slots: torch.Tensor) -> torch.Tensor:
@@ -125,7 +134,7 @@ def dispatch_plan(experts: torch.Tensor, num_experts: int, capacity: int
     order = torch.argsort(flat_expert, stable=True)
     sorted_expert = flat_expert[order]
     sorted_token = order // k
-    counts = torch.bincount(flat_expert, minlength=E)
+    counts = _expert_counts(flat_expert, E)
     starts = torch.cumsum(counts, 0) - counts
     pos = torch.arange(T * k, device=dev) - starts[sorted_expert]
     keep = pos < C

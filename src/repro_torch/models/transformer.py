@@ -238,7 +238,7 @@ def decoder_prefill(p: Dict[str, torch.Tensor], h: torch.Tensor, cfg,
 
 def decoder_decode_step(p: Dict[str, torch.Tensor], h: torch.Tensor,
                         cache: Dict[str, torch.Tensor], pos, cfg, tp=None,
-                        seq_names=(), seq_len: int = 0
+                        seq_names=(), seq_len: int = 0, hook=None
                         ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """h (B,1,d); cache {'k','v'[,'k_scale','v_scale']} (L,B,Smax,...),
     written in place; `pos` one position (scalar) or one a row (B,). A
@@ -248,7 +248,8 @@ def decoder_decode_step(p: Dict[str, torch.Tensor], h: torch.Tensor,
     slots are the reference's vmapped batch-1 decodes), so no row's token
     is dropped for another's. Over a model group `tp` the cache is the
     rank's block (``layers.decode_self_attention``'s `seq_names` and
-    `seq_len`). Returns (h, cache)."""
+    `seq_len`); `hook` gathers each layer's FSDP slices as the prefill's
+    does. Returns (h, cache)."""
     lp = {k: v.unbind(0) for k, v in _layer_tree(p).items()}
     layers = {k: v.unbind(0) for k, v in cache.items()}
     local = cfg.local_layer_mask()
@@ -256,6 +257,8 @@ def decoder_decode_step(p: Dict[str, torch.Tensor], h: torch.Tensor,
     pos = L.decode_positions(pos, h.shape[0], h.device)
     for i in range(cfg.num_layers):
         layer_p = {n: v[i] for n, v in lp.items()}
+        if hook is not None:
+            layer_p = hook(layer_p, "layers")
         window = None
         if cfg.sliding_window:
             window = cfg.sliding_window if local[i] else 1 << 30

@@ -136,8 +136,8 @@ def _global_shapes(cfg: ModelConfig, batch: int, seq: int,
     `batch` sequences (a block's shape alone cannot tell an unsharded
     short cache from a sharded one: the caller names them), the cross
     cache over `src` source rows (default ``max_source_positions``)."""
-    out = {k: tuple(v.shape) for k, v in M.init_cache(
-        cfg, batch, seq, device="meta").items()}
+    out = {k: tuple(v.shape) for k, v in M.cache_specs(
+        cfg, batch, seq).items()}
     for k in ("xk", "xv"):
         if k in out and src:
             out[k] = out[k][:2] + (src,) + out[k][3:]
@@ -206,12 +206,18 @@ def _gather_rows(x: torch.Tensor, mesh: pm.ProcessMesh, entry
 
 def make_decode_step(cfg: ModelConfig,
                      mesh: Optional[pm.ProcessMesh] = None,
-                     max_len: Optional[int] = None) -> Callable:
+                     max_len: Optional[int] = None, *,
+                     fsdp: bool = False) -> Callable:
     """``step(params, tokens, cache, pos) -> (logits, cache)``: one token
     for each row of the batch (``model.decode_step``), the cache advanced
     in place. Over `mesh`, `params` and `cache` are the rank's blocks of a
     cache of `max_len` rows and `tokens` / `pos` global; the logits (B, V)
-    are every row's, on every rank (see the module doc)."""
+    are every row's, on every rank (see the module doc). With `fsdp` the
+    parameters are the rank's blocks of the FSDP layout
+    (``serve_param_shardings(..., fsdp=True)``, the reference's serving
+    layout of the Mode B archs) and each decoder layer's slices are
+    gathered as the layer runs (the ZeRO-3 hooks, as
+    :func:`make_prefill_sharded`'s)."""
     if mesh is None:
         def step(params, tokens, cache, pos):
             return M.decode_step(cfg, params, tokens, cache, pos)
@@ -222,6 +228,7 @@ def make_decode_step(cfg: ModelConfig,
                          "global length, max_len")
     tp = mesh if mesh.model > 1 else None
     sizes = mesh.axis_sizes
+    hook = _fsdp_hook(cfg, mesh) if fsdp else None
 
     def step(params, tokens, cache, pos):
         B = tokens.shape[0]
@@ -237,10 +244,19 @@ def make_decode_step(cfg: ModelConfig,
             cfg, params, tokens[rows], cache, pos_loc, tp=tp,
             seq_names=_axes_of(attn[2]) if attn else (), seq_len=max_len,
             cross_names=(_axes_of(specs["xk"][2]) if "xk" in specs
-                         else ()))
+                         else ()), hook=hook)
         return _gather_rows(gather_vocab(logits, mesh, cfg.vocab_size),
                             mesh, spec[1]), cache
     return step
+
+
+def _fsdp_hook(cfg: ModelConfig, mesh: pm.ProcessMesh):
+    """The ZeRO-3 gather (no vote: serving has no backward) of the leaves
+    the FSDP layout shards over `mesh`, None when it shards none."""
+    from repro_torch.core.majority_vote import make_fsdp_hooks
+    dims = shd.fused_dims(serve_param_shardings(cfg, mesh, fsdp=True))
+    return make_fsdp_hooks(dims, mesh.vote_axes, vote=False) if dims \
+        else None
 
 
 def make_cache_rehome(cfg: ModelConfig, batch: int, max_len: int,
@@ -262,7 +278,7 @@ def make_cache_rehome(cfg: ModelConfig, batch: int, max_len: int,
     takes the prompt's length (and the encoder's source rows, default
     ``max_source_positions``): a sequence-sharded prompt is gathered over
     its axes and each rank keeps the target rows it owns."""
-    full_abs = M.init_cache(cfg, batch, max_len, device="meta")
+    full_abs = M.cache_specs(cfg, batch, max_len)
 
     def check(cache):
         if set(cache) != set(full_abs):
@@ -362,16 +378,12 @@ def make_prefill_sharded(cfg: ModelConfig, mesh: pm.ProcessMesh, *,
     shard of the logits (B / dp, S, V / model) and its block of the
     cache. With one replica, or a batch that does not split over them, it
     is :func:`make_prefill`."""
-    from repro_torch.core.majority_vote import make_fsdp_hooks
     dp = mesh.size
     if dp <= 1 or global_batch % dp != 0:
         return make_prefill(cfg, mesh=mesh)
     M.check_model_axis(cfg, mesh.model)
     tp = mesh if mesh.model > 1 else None
-    specs = serve_param_shardings(cfg, mesh, fsdp=fsdp)
-    dims = shd.fused_dims(specs)
-    hook = (make_fsdp_hooks(dims, mesh.vote_axes, vote=False)
-            if fsdp and dims else None)
+    hook = _fsdp_hook(cfg, mesh) if fsdp else None
     per = global_batch // dp
     r = mesh.replica_index()
 

@@ -557,15 +557,47 @@ def materialize_state(cfg: ModelConfig, tcfg: TrainConfig,
     dev = art.device if device is None else resolve_device(device)
     if dev != art.device:
         raise ValueError(f"state on {dev} but the step runs on {art.device}")
+    shard = _rank_blocks(tcfg, art)
+    params = M.init_params(cfg, generator, dev, shard=shard)
+    return params, art.optimizer.init(params)
+
+
+def _rank_blocks(tcfg: TrainConfig, art: StepArtifacts
+                 ) -> Optional[Callable[[str, torch.Tensor], torch.Tensor]]:
+    """`shard(name, full)`, the copy of this rank's block of a leaf, where
+    the rank holds blocks (a mesh with fused leaves or a model axis), else
+    None; raises for Mode A with momentum under fsdp (see
+    :func:`materialize_state`)."""
     if art.fused_dims and signum.per_worker(tcfg.optimizer):
         lead = tuple(art.vote_axes) or ("data",)
         for k in art.fused_dims:
             shd.check_spec((lead,) + tuple(art.param_specs[k]))
-    shard = None
-    if art.mesh_sizes and (art.fused_dims
-                           or art.mesh_sizes.get("model", 1) > 1):
-        def shard(name: str, t: torch.Tensor) -> torch.Tensor:
-            return shd.shard_leaf(t, art.param_specs[name], art.mesh_coords,
-                                  art.mesh_sizes).clone()
-    params = M.init_params(cfg, generator, dev, shard=shard)
+    if not (art.mesh_sizes and (art.fused_dims
+                                or art.mesh_sizes.get("model", 1) > 1)):
+        return None
+
+    def shard(name: str, t: torch.Tensor) -> torch.Tensor:
+        return shd.shard_leaf(t, art.param_specs[name], art.mesh_coords,
+                              art.mesh_sizes).clone()
+    return shard
+
+
+def abstract_state(cfg: ModelConfig, tcfg: TrainConfig, art: StepArtifacts,
+                   mesh: Optional[pm.ProcessMesh] = None) -> Tuple[Any, Any]:
+    """(params, opt_state) of this rank as "meta" tensors, for the dry run
+    (``launch.dryrun``; the reference's ``abstract_state``,
+    ``train_step.py:331-398``): the keys, shapes and dtypes
+    :func:`materialize_state` gives on a real rank (its blocks over a mesh,
+    fsdp slices and model blocks, every optimizer's state), with no draw
+    and no memory. `mesh`, when given, must be the one `art` was built
+    over."""
+    if mesh is not None and dict(mesh.coords) != art.mesh_coords:
+        raise ValueError(f"the step was built for coordinates "
+                         f"{art.mesh_coords}, not {mesh.coords}")
+    shard = _rank_blocks(tcfg, art)
+    params = {}
+    for name, shape in sorted(cfg.param_shapes().items()):
+        full = torch.empty(shape, dtype=M.param_dtype(cfg, name),
+                           device="meta")
+        params[name] = full if shard is None else shard(name, full)
     return params, art.optimizer.init(params)

@@ -86,6 +86,18 @@ g. tp_adversary (run alone, by ``tests/test_torch_tp_adversary.py``:
    reference's start states and writes each rank's blocks
    (``tpa_step_<case>_rank<r>.npz``).
 
+h. tp_wire (run alone, by ``tests/test_torch_dryrun.py``: ``... <scratch>
+   tp_wire``): one step of each ``torch_tp_common.WIRE_CASES`` cell (the
+   reduced glm4-9b on (data 2, model 2) and (pod 2, data 2, model 2)),
+   each rank's bytes and collective calls by axis recorded
+   (``tp_wire``), which the dry run of the same cell on "meta" must give;
+   and two decode ticks of the reduced qwen1.5-32b over the FSDP layout
+   (``serve_step.make_decode_step(..., fsdp=True)``) bit-equal to the
+   plain layout's on (data 2, model 2); the reduced whisper's loss on a
+   (model 8) mesh with 12 encoder frames (the seq attention form over rows
+   the axis does not divide) within float32 rounding of the single
+   device's.
+
 Rank 0 writes what the mesh gave, with the inputs it was given, to
 ``<scratch dir>/mesh_record.pkl`` (numpy and plain Python only), so that
 ``tests/test_torch_mesh.py`` holds it against the reference on the same
@@ -2192,13 +2204,119 @@ def check_tp_families(rank):
         check_tpf_checkpoint(rank)
 
 
+def check_tp_wire(rank):
+    """One step of each ``torch_tp_common.WIRE_CASES`` cell on its mesh
+    (the first 4 ranks, or all 8 with a pod axis): each member's bytes and
+    collective calls by axis, recorded for the dry run's test."""
+    import torch_tp_common as tpc
+    from repro_torch.data.pipeline import SyntheticLMPipeline
+    from repro_torch.distributed.mesh import ProcessMesh
+    from repro_torch.train import train_step as TS
+    out = {}
+    for label, shape, axes, opt, extra in tpc.WIRE_CASES:
+        mesh = ProcessMesh(shape, axes)
+        if not mesh.member:
+            continue
+        cfg, tcfg = tpc.wire_pair(opt, extra)
+        art = TS.make_train_step(cfg, tcfg, device="cpu", mesh=mesh)
+        params, state = TS.materialize_state(
+            cfg, tcfg, art, torch.Generator().manual_seed(0))
+        pipe = SyntheticLMPipeline(cfg, tcfg.global_batch, tcfg.seq_len,
+                                   seed=0)
+        mesh.reset_stats()
+        art.step_fn(params, state, pipe.global_batch_at(0), 0)
+        out[label] = {"vote": mesh.stats.bytes,
+                      "model": mesh.model_stats.bytes,
+                      "calls": mesh.stats.calls + mesh.model_stats.calls}
+    out["decode_fsdp"] = check_decode_fsdp(ProcessMesh((2, 2), ("data",
+                                                               "model")))
+    out["seq_rows_whole"] = check_seq_rows_whole(ProcessMesh((8,),
+                                                             ("model",)))
+    every = [None] * WORLD
+    dist.all_gather_object(every, out)
+    if rank == 0:
+        RECORD["tp_wire"] = every
+
+
+def check_seq_rows_whole(mesh):
+    """The seq attention form where the axis does not divide the query
+    rows (the repair whisper's 1500 frames at model 16 forced): the
+    reduced whisper (4 heads, 2 kv heads: the seq form at model 8) with
+    12 encoder frames, its loss over the (model 8) mesh within float32
+    rounding of the single-device loss. Returns the relative gap."""
+    import torch_tp_common as tpc
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    cfg = tpc.reduced("whisper-tiny")
+    assert L._attn_form(cfg.num_heads, cfg.num_kv_heads, mesh.model) == "seq"
+    full = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    specs = shd.param_specs(cfg.param_shapes(), fsdp=False,
+                            mesh_shape=mesh.axis_sizes)
+    blocks = {k: v.clone() for k, v in shd.shard_tree(
+        full, specs, coords=mesh.coords, sizes=mesh.axis_sizes).items()}
+    gen = torch.Generator().manual_seed(2)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 16),
+                                     generator=gen),
+             "enc_embeds": torch.randn((2, 12, cfg.d_model), generator=gen)}
+    want = float(M.loss_fn(cfg, full, batch)[0])
+    got = float(M.loss_fn(cfg, blocks, batch, tp=mesh)[0])
+    gap = abs(got - want) / abs(want)
+    if not gap < 1e-5:
+        raise AssertionError(f"seq form, 12 rows over 8 ranks: loss {got} "
+                             f"against the single device's {want}")
+    return gap
+
+
+def check_decode_fsdp(mesh):
+    """The decode step over the FSDP layout (the dry run's serving layout
+    of the Mode B archs) bit-equal to the step over the plain layout, on a
+    member of `mesh`: the logits and the cache block after two ticks.
+    Returns whether it ran (False off the mesh)."""
+    import torch_tp_common as tpc
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import model as M
+    from repro_torch.train import serve_step as SS
+    if not mesh.member:
+        return False
+    cfg = tpc.reduced("qwen1.5-32b")
+    B, T = 4, 16
+    full = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    cache = M.init_cache(cfg, B, T, device="cpu")
+    cspecs = SS.cache_shardings(cfg, cache, mesh)
+    if not shd.fused_dims(SS.serve_param_shardings(cfg, mesh, fsdp=True)):
+        raise AssertionError("the FSDP layout shards no leaf")
+    got = {}
+    for fsdp in (False, True):
+        specs = SS.serve_param_shardings(cfg, mesh, fsdp=fsdp)
+        params = {k: v.clone() for k, v in shd.shard_tree(
+            full, specs, coords=mesh.coords, sizes=mesh.axis_sizes).items()}
+        block = {k: v.clone() for k, v in shd.shard_tree(
+            cache, cspecs, coords=mesh.coords, sizes=mesh.axis_sizes).items()}
+        step = SS.make_decode_step(cfg, mesh=mesh, max_len=T, fsdp=fsdp)
+        gen = torch.Generator().manual_seed(1)
+        logits = []
+        for pos in (0, 1):
+            tokens = torch.randint(0, cfg.vocab_size, (B, 1), generator=gen)
+            out, block = step(params, tokens, block, pos)
+            logits.append(out)
+        got[fsdp] = (logits, block)
+    for i, (a, b) in enumerate(zip(got[False][0], got[True][0])):
+        _eq(f"decode over the FSDP layout, tick {i}", b, a)
+    for k in got[False][1]:
+        _eq(f"decode over the FSDP layout, cache {k}", got[True][1][k],
+            got[False][1][k])
+    return True
+
+
 CHECKS = (("votes", check_votes), ("plans", check_plans),
           ("trainer", check_trainer), ("drills", check_drills))
 #: checks run only when named on the command line
 NAMED_CHECKS = (("fsdp", check_fsdp), ("tp", check_tp),
                 ("tp_adversary", check_tp_adversary),
                 ("tp_families", check_tp_families),
-                ("tp_families_ref", check_tp_families_ref))
+                ("tp_families_ref", check_tp_families_ref),
+                ("tp_wire", check_tp_wire))
 
 
 def worker(rank, scratch, names=None):

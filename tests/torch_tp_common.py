@@ -124,3 +124,31 @@ def assert_serve_builds_and_refusals(mesh):
             assert callable(SS.make_prefill_sharded(cfg, mesh, fsdp=fsdp,
                                                     global_batch=8))
         assert callable(SS.make_cache_rehome(cfg, 8, 64, mesh=mesh))
+
+
+#: the dry run's cells held to real ranks (the harness's ``tp_wire``
+#: check and ``tests/test_torch_dryrun.py``): (label, mesh shape, axes,
+#: optimizer options, train options), on the reduced glm4-9b in float32
+WIRE_CASES = (
+    ("d2m2_sign1bit", (2, 2), ("data", "model"), {}, {}),
+    ("d2m2_psum_int8", (2, 2), ("data", "model"),
+     {"vote_strategy": "psum_int8"}, {"microbatches": 2}),
+    ("p2d2m2_ternary2bit", (2, 2, 2), ("pod", "data", "model"),
+     {"codec": "ternary2bit"}, {}),
+    ("p2d2m2_mode_b_fsdp", (2, 2, 2), ("pod", "data", "model"),
+     {"kind": "signsgd_vote", "momentum_mode": "global",
+      "vote_strategy": "hierarchical"},
+     {"fsdp": True, "microbatches": 2, "remat": "full"}),
+)
+
+
+def wire_pair(opt: dict, extra: dict):
+    """(cfg, tcfg) of a :data:`WIRE_CASES` entry."""
+    from repro_torch.configs import base
+    opt = dict(opt)
+    if "vote_strategy" in opt:
+        opt["vote_strategy"] = base.VoteStrategy(opt["vote_strategy"])
+    if "momentum_mode" in opt:
+        opt["momentum_mode"] = base.MomentumMode(opt["momentum_mode"])
+    tcfg = train_config(**opt)
+    return reduced("glm4-9b"), dataclasses.replace(tcfg, **extra)
