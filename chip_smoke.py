@@ -254,7 +254,8 @@ Phases, each of which fails the run (non-zero exit) on any disagreement:
    signs of the 4 voters' gradients); then remat "dots" for 2 steps (losses
    bit-equal to nested's) and the sgd preset with fsdp for 2; the step ms
    and each run's peak; (b) 4 spawned processes on the card over gloo, one
-   voter each (as phase 14), cut to 1 layer, 2 microbatches and batch 8:
+   voter each (as phase 14), cut to 1 layer, 1 microbatch (2 before 19h)
+   and batch 8:
    the preset on pod 2 x data 2 with one sign_flip voter for 2 steps and
    sgd with fsdp on data 4 for 1, every rank's losses and checksums of its
    parameter and momentum slices equal to the stacked twin's slices (sgd:
@@ -318,9 +319,9 @@ Phases, each of which fails the run (non-zero exit) on any disagreement:
    ``scripts/family_probe.py`` only: about 60 s);
 18. serving (after phase 17; ``scripts/serve_probe.py`` runs it alone),
    which launches none of the port's kernels before 18d (checked): 18a,
-   glm4-9b at every published width and 20 of its 40 layers (full depth
-   until phase 20 joined the script, cut for its time; bf16, seeded
-   weights) behind the continuous ``ServeEngine`` (8 slots,
+   glm4-9b at every published width and 4 of its 40 layers (full depth
+   until phase 20 joined the script, 20 until 19h did, cut for its time;
+   bf16, seeded weights) behind the continuous ``ServeEngine`` (8 slots,
    max_len 1024, prefill admission in buckets of 128 / 256 / 512) on 24
    Poisson requests (prompts of 128-512, 16-48 tokens each, greedy; 32-96
    before phase 19d-19f joined the script, cut for its time), then
@@ -333,8 +334,8 @@ Phases, each of which fails the run (non-zero exit) on any disagreement:
    ticks, peak memory; 4 of the requests by inline admission (token
    agreement and the largest logit gap printed). A float32 2-layer twin
    of the engine serves all 24, every lane equal to its request served
-   alone, and its inline admission equals its prefill admission. 18b, qwen1.5-32b at every published width and 16
-   of its 64 layers (32 until phase 20 joined the script), its int8 KV cache: 4 slots, max_len 8192, prompts of
+   alone, and its inline admission equals its prefill admission. 18b, qwen1.5-32b at every published width and 4
+   of its 64 layers (32 until phase 20 joined the script, 16 until 19h did), its int8 KV cache: 4 slots, max_len 8192, prompts of
    4,200-4,600 tokens through one prefill bucket of 4608 and 32 tokens
    each (the chunked online-softmax decode over two KV_CHUNKs); the
    engine's tokens teacher-forced through the model API with the int8
@@ -346,7 +347,7 @@ Phases, each of which fails the run (non-zero exit) on any disagreement:
    admission), phases 16's and 17's depths, at every published width behind 4 slots, every lane equal
    to its request served alone, and whisper-tiny's batch loop with
    stubbed frames (each row equal to itself served alone); each arch's
-   float32 twin decoding 64 teacher-forced steps against its
+   float32 twin decoding 16 teacher-forced steps (64 before 19h) against its
    forward_logits at the CPU tests' rtol / atol 2e-3; ms per tick,
    tokens/s and peak memory printed. 18d, an engine serving glm4-9b's
    width at 2 layers while the port's launcher (in process, cut to the
@@ -405,25 +406,32 @@ Phases, each of which fails the run (non-zero exit) on any disagreement:
    TP_FLIP_FRACTION of the leaf's largest (zamba2: all but
    TP_LARGE_FLIP_SHARE of a leaf's coordinates); 19d's routing choices
    against the twin's, each difference at a near tie (TP_ROUTE_TIE),
-   counted. 19c, serving glm4-9b
-   at every published width, 4 layers (8 before phase 19d-19f; cut for the
-   script's time), and its float32 2-layer twin: on
-   (model 4) (the repeat form, the cache sequence-sharded) 4 prompts of
+   counted; 19d's voter 0 a random adversary (19g-3), each model rank's
+   draws of the fused leaves (from counter 0, its block as a whole) equal
+   to the stacked twin's drawn model block by model block. 19c, serving
+   glm4-9b at every published width, 2 layers (8 before phase 19d-19f, 4
+   before 19h; cut for the script's time), and its float32 2-layer twin:
+   on (model 4) (the repeat form, the cache sequence-sharded) 4 prompts of
    4,100-4,300 rows prefilled one at a time and re-homed into an
-   8192-row cache, 16 greedy ticks through ``make_decode_step`` (the
-   sharded flash decode), then the same with the int8 cache, 8 ticks (from
+   8192-row cache, 4 greedy ticks through ``make_decode_step`` (the
+   sharded flash decode), then the same with the int8 cache, 4 ticks (from
    the bf16 run's prefill, its cache quantized row by row: what an int8
    prefill stores, bit for bit); on
    (data 2, model 2) a heads-sharded cache through
-   ``make_prefill_sharded``, 8 ticks. 19f, serving the other families at
+   ``make_prefill_sharded``, 4 ticks. 19f, serving the other families at
    every published width beside a float32 twin each (the MoE's with
    capacity factor E / k): on (model 4) qwen2-moe-a2.7b (1 layer, EP with
    15 experts a rank, its shared branch), mamba2-2.7b (4), zamba2-1.2b (8;
    its twin 7) and whisper-tiny (2 + 4, the seq form, its 1,500-row cross
    cache sequence-sharded), 4 prompts of 64-256 rows prefilled one at a
    time; on (data 2, model 2) qwen3-moe-235b-a22b (1 layer, a
-   heads-sharded cache) through ``make_prefill_sharded``; 8 greedy ticks
-   each, no kernel launch. Each serving run is held, tick by tick on the
+   heads-sharded cache) through ``make_prefill_sharded``; 4 greedy ticks
+   each (8 before 19h), no kernel launch; and 19f's FSDP runs
+   (TP_FSDP_SERVE: qwen1.5-32b at 2 layers, qwen3-moe, mamba2, zamba2
+   and whisper on (data 2, model 2) over the FSDP serving layout, prefill
+   and 8 ticks bit-equal to the same ranks' plain-layout run, logits and
+   every cache block, each tick's bytes by axis ``tp_fsdp_tick_bytes``'s).
+   Each serving run is held, tick by tick on the
    single-device step's greedy tokens, to the single-device steps on the
    same parameters (19f's equal prompts prefilled a data shard at a time,
    as the sharded prefill routes them): bf16 logits within TP_SERVE_SHARE
@@ -439,7 +447,13 @@ Phases, each of which fails the run (non-zero exit) on any disagreement:
    split into vote-collective, tensor-parallel-collective and other host
    time, ms per decode tick (CUDA events on rank 0), bytes per rank by
    axis, peak memory per rank, the routing flips and the seconds of each
-   sub-phase on each rank.
+   sub-phase on each rank. 19h, after that world has exited: a second
+   world of 8 processes, (data 1, model 8), qwen2-moe-a2.7b at every
+   published width, 2 layers, its experts in the M2 form on every rank
+   (checked): its Mode A preset (4 microbatches) against the single-device
+   M = 1 step with 19d's and 19e's checks (its vote bounds in
+   TP_VOTE_AGREE_FAMILY / TP_LARGE_FLIP_SHARE), then TP8_SERVE's 8 ticks
+   against the single-device tick (bf16 at 1 layer, float32 at 2).
 
 20. the dry run (``repro_torch.launch.dryrun``: a step built and run on
    the "meta" device, its FLOPs, bytes, memory, collectives and launches
@@ -463,14 +477,15 @@ Phases, each of which fails the run (non-zero exit) on any disagreement:
    ``total_memory``, name and power limit printed and
    ``dryrun.H100_MEMORY_BYTES`` held against ``total_memory``.
 
-Phase 13's, 14's, 15's, 16's, 17's, 18's and 19's launches (phases 14's,
-15b's and 19's summed over their ranks) join the kernels line.
+Phase 13's, 14's, 15's, 16's, 17's, 18's, 19's and 19h's launches (phases
+14's, 15b's, 19's and 19h's summed over their ranks) join the kernels
+line.
 
 Phase 7 also times ternary_majority with ties +1 (its own row),
 ternary_unpack to bf16 and bitpack of the bf16 stack (its own row, whose
 launches are phases 9's and 10's), and the adversary kernel on the whole
 (4, n) unembedding stack (its own row, whose launches are phase 12's
-and 19g's), uncut and under the counter map (the row's "map" entry, whose
+and 19g's, 19g-3's included), uncut and under the counter map (the row's "map" entry, whose
 launches are 19g's under a map).
 
 It prints one JSON line per step and per wire, a ``{"kernels": [...]}``
@@ -3974,10 +3989,11 @@ def mesh_wire_bytes(cfg, label: str) -> dict:
             "float32_gradient_bytes": 4 * n}
 
 
-def spawn_ranks(target, args, timeout_s: float) -> dict:
-    """Run `target(rank, init, *args, queue)` in MESH_RANKS spawned
-    processes over a fresh localhost port; returns {rank: result}, or
-    raises the first rank's error (every process is stopped on return)."""
+def spawn_ranks(target, args, timeout_s: float,
+                ranks: int = MESH_RANKS) -> dict:
+    """Run `target(rank, init, *args, queue)` in `ranks` spawned processes
+    over a fresh localhost port; returns {rank: result}, or raises the
+    first rank's error (every process is stopped on return)."""
     import multiprocessing as mp
     import socket
     with socket.socket() as s:
@@ -3987,13 +4003,13 @@ def spawn_ranks(target, args, timeout_s: float) -> dict:
     ctx = mp.get_context("spawn")
     queue = ctx.SimpleQueue()
     procs = [ctx.Process(target=target, args=(r, init) + tuple(args)
-                         + (queue,)) for r in range(MESH_RANKS)]
+                         + (queue,)) for r in range(ranks)]
     t0 = time.perf_counter()
     for p in procs:
         p.start()
     results = {}
     try:
-        while len(results) < MESH_RANKS:
+        while len(results) < ranks:
             if time.perf_counter() - t0 > timeout_s:
                 raise AssertionError(f"the ranks did not finish in "
                                      f"{timeout_s} s")
@@ -4120,8 +4136,10 @@ FSDP_STEPS, FSDP_DOTS_STEPS, FSDP_SGD_STEPS = 3, 2, 2
 #: the fused leaf whose step-0 vote is recomputed by plain PyTorch
 FSDP_LEAF = "layers.attn_wq"
 #: phase 15b's cuts (four ranks in 80 GB, gloo on loopback): microbatches
-#: 8 -> 2, batch 32 -> 8, depth 2 -> 1
-FSDP_MESH_MICRO, FSDP_MESH_BATCH, FSDP_MESH_LAYERS = 2, 8, 1
+#: 8 -> 2 (-> 1 when 19h and 19f's FSDP runs joined the script, for its
+#: time; 15a's stacked preset keeps 8 over M = 4), batch 32 -> 8, depth
+#: 2 -> 1
+FSDP_MESH_MICRO, FSDP_MESH_BATCH, FSDP_MESH_LAYERS = 1, 8, 1
 #: phase 15b's runs: (label, mesh shape, axes, train changes, steps)
 FSDP_MESH_RUNS = (
     ("mode_b_pod2x2_sign_flip", (2, 2), ("pod", "data"),
@@ -4506,9 +4524,10 @@ def fsdp_mesh_bytes(cfg, label: str, shape, dims: dict, remat: bool,
     or bf16 for the dense mean) and the count slice summed over pod; the
     other leaves on hierarchical (int8 counts padded to 32 x data, their
     pod sum and the packed all-gather) or, for sgd, all-reduced in float32
-    (the accumulator's dtype); and per step the order check (16 B) and the
-    metrics (12 B). `shapes` replaces the leaves' shapes (a rank's model
-    blocks, phase 19d), `micro` the microbatches."""
+    (the accumulator's dtype; over one microbatch nothing is accumulated
+    and the bf16 gradient goes as it is); and per step the order check
+    (16 B) and the metrics (12 B). `shapes` replaces the leaves' shapes (a
+    rank's model blocks, phase 19d), `micro` the microbatches."""
     shapes = shapes or cfg.param_shapes()
     data = shape[-1]
     pod = shape[0] if len(shape) == 2 else 1
@@ -4524,7 +4543,7 @@ def fsdp_mesh_bytes(cfg, label: str, shape, dims: dict, remat: bool,
                 layer += per_layer // data * (2 if sgd else 1)
             fused += layer * s[0]
         elif sgd:
-            raw += 4 * n
+            raw += (4 if micro > 1 else 2) * n
         else:
             pad = -(-n // (32 * data)) * 32 * data
             raw += pad + (pad // data if pod > 1 else 0) + pad // (8 * data)
@@ -4846,28 +4865,38 @@ def run_launcher_path(torch, dev, scratch: str, err,
                  "(step times include the checks)",
          "seconds": time.perf_counter() - t0})
     reduced = list(LAUNCH_REDUCED) + device
-    whole = launcher(reduced + ["--trace", os.path.join(scratch, "a.jsonl")])
-    if whole.returncode != 0:
-        raise AssertionError(f"launcher exit {whole.returncode}:\n"
-                             f"{whole.stderr[-4000:]}")
-    ckpt = os.path.join(scratch, "ckpt")
-    for attempt in range(3):
-        shutil.rmtree(ckpt, ignore_errors=True)
-        try:
-            ran_s = kill_after_checkpoint(
-                reduced + ["--ckpt-dir", ckpt, "--ckpt-every", "2"], ckpt, 1)
-            break
-        except AssertionError:
-            if attempt == 2:
-                raise
-    resumed = launcher(reduced + ["--ckpt-dir", ckpt, "--ckpt-every", "2",
-                                  "--trace", os.path.join(scratch,
-                                                          "b.jsonl")])
-    if resumed.returncode != 0 or "restored checkpoint at step 1" not in \
-            resumed.stdout:
-        raise AssertionError(f"resume exit {resumed.returncode}:\n"
-                             f"{resumed.stdout[-2000:]}\n"
-                             f"{resumed.stderr[-4000:]}")
+    # the uninterrupted run beside the killed and resumed ones (its own
+    # trace; the card holds both reduced models)
+    whole = launcher(reduced + ["--trace", os.path.join(scratch, "a.jsonl")],
+                     stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+    try:
+        ckpt = os.path.join(scratch, "ckpt")
+        for attempt in range(3):
+            shutil.rmtree(ckpt, ignore_errors=True)
+            try:
+                ran_s = kill_after_checkpoint(
+                    reduced + ["--ckpt-dir", ckpt, "--ckpt-every", "2"],
+                    ckpt, 1)
+                break
+            except AssertionError:
+                if attempt == 2:
+                    raise
+        resumed = launcher(reduced + ["--ckpt-dir", ckpt, "--ckpt-every", "2",
+                                      "--trace", os.path.join(scratch,
+                                                              "b.jsonl")])
+        if resumed.returncode != 0 or "restored checkpoint at step 1" not in \
+                resumed.stdout:
+            raise AssertionError(f"resume exit {resumed.returncode}:\n"
+                                 f"{resumed.stdout[-2000:]}\n"
+                                 f"{resumed.stderr[-4000:]}")
+        _, err_text = whole.communicate(timeout=LAUNCH_TIMEOUT_S)
+        if whole.returncode != 0:
+            raise AssertionError(f"launcher exit {whole.returncode}:\n"
+                                 f"{err_text[-4000:]}")
+    finally:
+        if whole.poll() is None:
+            whole.kill()
+            whole.communicate()
     a = trace_losses(os.path.join(scratch, "a.jsonl"))
     b = trace_losses(os.path.join(scratch, "b.jsonl"))
     if sorted(b) != [2, 3] or any(b[s] != a[s] for s in b):
@@ -5592,8 +5621,9 @@ def run_phase17(torch, cfg, dev, err, profiled=FAMILY_PROFILED) -> dict:
 # ---------------------------------------------------------------------------
 
 #: 18a: glm4-9b at every published width, depth 40 -> 20 (cut for the
-#: script's time when phase 20 joined it), behind the continuous engine
-SERVE_MAIN_DEPTH = 20
+#: script's time when phase 20 joined it) -> 4 (when 19h and 19f's FSDP
+#: runs joined it), behind the continuous engine
+SERVE_MAIN_DEPTH = 4
 SERVE_MAIN = dict(n_slots=8, max_len=1024, prompt_pad=512, admit="prefill",
                   prefill_buckets=(128, 256, 512))
 SERVE_TRAFFIC = dict(n_requests=24, rate=0.15, prompt_lens=(128, 256, 512),
@@ -5604,10 +5634,11 @@ SERVE_INLINE = 4
 #: (:func:`solo_lanes`); the float32 2-layer twin holds every lane
 SERVE_SOLO_FULL = 3
 #: 18b: qwen1.5-32b at a quarter of its depth (64 -> 32 layers for memory,
-#: then 16 for the script's time when phase 20 joined it), its int8 KV
-#: cache past two KV_CHUNKs; the reference test's bound on its logits
-#: against a bf16-cache twin (relative at max(|logit|, 1))
-SERVE_INT8_DEPTH = 16
+#: then 16 for the script's time when phase 20 joined it, and 4 when 19h
+#: and 19f's FSDP runs did), its int8 KV cache past two KV_CHUNKs; the
+#: reference test's bound on its logits against a bf16-cache twin
+#: (relative at max(|logit|, 1))
+SERVE_INT8_DEPTH = 4
 SERVE_INT8 = dict(n_slots=4, max_len=8192, prompt_pad=4608, admit="prefill",
                   prefill_buckets=(4608,))
 SERVE_INT8_TRAFFIC = dict(n_requests=4, rate=1.0,
@@ -5632,8 +5663,9 @@ SERVE_ZOO_SLOTS = 4
 #: teacher-forced decode steps against forward_logits, in a float32 twin
 #: at the CPU tests' bound (rtol / atol 2e-3, tests/test_torch_decode.py);
 #: the decoder-only twins first prefill SERVE_TF_PREFIX tokens (gemma3's
-#: past its window)
-SERVE_TF_STEPS, SERVE_TF_RTOL = 64, 2e-3
+#: past its window); 64 steps before 19h and 19f's FSDP runs joined the
+#: script, 16 since, for its time
+SERVE_TF_STEPS, SERVE_TF_RTOL = 16, 2e-3
 SERVE_TF_PREFIX = {"gemma3-12b": 1100}
 #: whisper-tiny's batch loop: rows, prompt length, tokens generated
 SERVE_AUDIO = (4, 32, 32)
@@ -6326,17 +6358,26 @@ TP_VOTE_AGREE_BK = 0.90
 #: bf16 vote at this depth is rounding noise, and the float32 twins (19f)
 #: hold the function
 TP_VOTE_AGREE_FAMILY = {"mamba2-2.7b": 0.97, "whisper-tiny": 0.97,
-                        "zamba2-1.2b": 0.80}
-TP_LARGE_FLIP_SHARE = {"zamba2-1.2b": 0.05}
+                        "zamba2-1.2b": 0.80, "m2_model8": 0.94}
+TP_LARGE_FLIP_SHARE = {"zamba2-1.2b": 0.05, "m2_model8": 0.01}
 #: 19d: qwen3-moe-235b-a22b's Mode B fsdp preset at every published width,
 #: 1 layer, seq 512, batch 8, 1 microbatch (its preset's 4 cut to 2 to fit
 #: 4 rows a voter, then to 1 for the script's time: the fused gathers run
-#: once a microbatch; phase 15b drives 2 over a mesh), on (data 2, model
+#: once a microbatch; the stacked 15a drives 8), on (data 2, model
 #: 2): the experts in the EP form (64 a rank), grouped attention (4 kv
 #: heads over 2), its 4-D fused expert leaves carrying both axes; step 0, step 0 again from a saved state,
 #: step 1. It replaces the earlier 19b (qwen1.5-32b's Mode B fsdp preset),
 #: whose fused backward over a model axis it drives too, with the experts
 TP_MOE_ARCH, TP_MOE_LAYERS, TP_MOE_MICRO = "qwen3-moe-235b-a22b", 1, 1
+#: 19g-3 rides in 19d: voter 0 of its two is a random adversary. Each
+#: model rank of that voter draws its block of every fused leaf (the
+#: fused ZeRO backward's, under no step) from counter 0 under the
+#: voter's key, the reference's rule (each model block of the region
+#: manual over "model"); its draws of the other leaves (hierarchical,
+#: leaf-wise under the step) at the block's global coordinates. Both held
+#: bit for bit to the stacked twin, which draws each fused leaf model
+#: block by model block (:class:`TwinBlockDraws`)
+TP_MOE_ADVERSARY = "random"
 #: 19e: the families' presets at every published width on (data 2, model
 #: 2), seq 512, batch 8: (arch, depth, encoder depth, microbatches (the
 #: preset's, cut to divide 4 rows a voter)); mamba2 40 heads and 2,688
@@ -6370,22 +6411,23 @@ ADV_MAP_TABLE = (151_552, 4096)
 #: bf16 ulps away moves a router logit by about 1e-2, so a probability by
 #: about 1 %); the float32 twins by under TP_ROUTE_TIE_F32
 TP_ROUTE_TIE, TP_ROUTE_TIE_F32 = 0.05, 1e-4
-#: 19c: serving glm4-9b at every published width, 4 layers (8 before 19d-19f,
-#: cut for the script's time; and a float32
-#: twin of 2): (label, mesh shape, axes, kv cache, prompt rows, cache rows,
-#: greedy ticks); per-row prompts prefilled one at a time, the equal ones
-#: of the heads run through make_prefill_sharded
-TP_SERVE_DEPTH, TP_TWIN_DEPTH = 4, 2
+#: 19c: serving glm4-9b at every published width, 2 layers (8 before 19d-19f,
+#: 4 before 19h and 19f's FSDP runs, cut for the script's time; and a
+#: float32 twin of 2): (label, mesh shape, axes, kv cache, prompt rows,
+#: cache rows, greedy ticks: 16 / 8 / 8 before 19h and 19f's FSDP runs,
+#: 4 / 4 / 4 since); per-row prompts prefilled one at a time, the equal
+#: ones of the heads run through make_prefill_sharded
+TP_SERVE_DEPTH, TP_TWIN_DEPTH = 2, 2
 TP_PROMPTS = (4100, 4166, 4233, 4300)
 #: the int8 run decodes from its bf16 run's prefill, its cache quantized
 #: row by row (``layers.quantize_kv``: what an int8 prefill stores, bit for
 #: bit; the int8 prefill is held on the CPU), for the phase's time
 TP_INT8_FROM = {"seq_model4_int8": "seq_model4"}
 TP_SERVE_RUNS = (
-    ("seq_model4", (4,), ("model",), "bfloat16", TP_PROMPTS, 8192, 16),
-    ("seq_model4_int8", (4,), ("model",), "int8", TP_PROMPTS, 8192, 8),
+    ("seq_model4", (4,), ("model",), "bfloat16", TP_PROMPTS, 8192, 4),
+    ("seq_model4_int8", (4,), ("model",), "int8", TP_PROMPTS, 8192, 4),
     ("heads_data2_model2", (2, 2), ("data", "model"), "bfloat16",
-     (1024,) * 4, 2048, 8),
+     (1024,) * 4, 2048, 4),
 )
 #: 19c's bounds, stated before the first run: the bf16 logits within this
 #: share of max(|logit|, 1) of the single-device step's (int8: phase
@@ -6412,7 +6454,8 @@ TP_TIMEOUT_S = 600
 #: a float32 twin (the MoE's with capacity factor E / k, so nothing is
 #: dropped), tick by tick on the single-device step's greedy tokens:
 #: (label, arch, depth, encoder depth, twin depth, twin encoder depth,
-#: mesh shape, axes, prompt rows, cache rows, ticks); on (model 4)
+#: mesh shape, axes, prompt rows, cache rows, ticks: 8 before 19h and
+#: 19f's FSDP runs joined the script, 4 since); on (model 4)
 #: qwen2-moe EP with 15 experts a rank and its shared branch (grouped
 #: attention, a heads-sharded cache), mamba2, zamba2 (its shared block's
 #: cache heads-sharded) and whisper (the seq form, its 1,500-row cross
@@ -6421,16 +6464,37 @@ TP_TIMEOUT_S = 600
 #: make_prefill_sharded
 TP_FAMILY_SERVE = (
     ("qwen2_moe_model4", "qwen2-moe-a2.7b", 1, 0, 1, 0, (4,), ("model",),
-     (64, 128, 192, 256), 512, 8),
+     (64, 128, 192, 256), 512, 4),
     ("mamba2_model4", "mamba2-2.7b", 4, 0, 2, 0, (4,), ("model",),
-     (64, 128, 192, 256), 512, 8),
+     (64, 128, 192, 256), 512, 4),
     ("zamba2_model4", "zamba2-1.2b", 8, 0, 7, 0, (4,), ("model",),
-     (64, 128, 192, 256), 512, 8),
+     (64, 128, 192, 256), 512, 4),
     ("whisper_model4", "whisper-tiny", 2, 4, 2, 2, (4,), ("model",),
-     (64, 128, 192, 256), 512, 8),
+     (64, 128, 192, 256), 512, 4),
     ("qwen3_moe_data2_model2", "qwen3-moe-235b-a22b", 1, 0, 1, 0, (2, 2),
-     ("data", "model"), (128,) * 4, 512, 8),
+     ("data", "model"), (128,) * 4, 512, 4),
 )
+
+
+#: 19f's FSDP runs: serving over the FSDP layout
+#: (``serve_param_shardings(..., fsdp=True)``, the serving layout of the
+#: Mode B archs' cells) on (data 2, model 2), each tick held bit for bit to
+#: the same ranks' run over the plain layout (logits and every cache
+#: leaf's block) and its bytes by axis to ``tp_fsdp_tick_bytes``:
+#: (label, arch, depth, encoder depth); qwen1.5-32b at every published
+#: width (depth 64 -> 2), qwen3-moe at 19f's cut (1 layer, a heads-sharded
+#: cache), mamba2, zamba2 and whisper at 19f's widths and depths; 4 prompts
+#: of TP_FSDP_PROMPT rows through make_prefill_sharded (FSDP and plain
+#: alike), a cache of TP_FSDP_CACHE rows, TP_FSDP_TICKS greedy ticks
+TP_FSDP_SERVE = (
+    ("qwen15_fsdp", "qwen1.5-32b", 2, 0),
+    ("qwen3_moe_fsdp", "qwen3-moe-235b-a22b", 1, 0),
+    ("mamba2_fsdp", "mamba2-2.7b", 4, 0),
+    ("zamba2_fsdp", "zamba2-1.2b", 8, 0),
+    ("whisper_fsdp", "whisper-tiny", 2, 4),
+)
+TP_FSDP_MESH = ((2, 2), ("data", "model"))
+TP_FSDP_PROMPT, TP_FSDP_ROWS, TP_FSDP_CACHE, TP_FSDP_TICKS = 128, 4, 512, 8
 
 
 def _attn_gather_bytes(cfg, m: int, B: int, S: int, T: int) -> tuple:
@@ -6671,6 +6735,41 @@ def tp_tick_bytes(cfg, mesh, rows: int, seq_sharded: bool = True,
     return ends + layers
 
 
+def tp_fsdp_tick_bytes(cfg, mesh, batch: int, seq_sharded: bool = True,
+                       cross_sharded: bool = False, fsdp: bool = True
+                       ) -> dict:
+    """The bytes one rank hands each axis in one decode tick of a global
+    `batch` of rows over the serving layout, FSDP (`fsdp`) or plain,
+    counted from the layout: {"model": :func:`tp_tick_bytes` of the
+    rank's rows, "vote": where the batch is split over the vote axes the
+    rank's rows' logits gathered (model dtype, rows x vocabulary), and
+    with `fsdp` the
+    ZeRO-3 gather of each leaf the FSDP layout shards (the rank's block,
+    model dtype), once a tick: the top-level leaves' (zamba2's shared
+    block) and each layer's, the encoder's left out (a decode runs no
+    encoder)}."""
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models.model import param_dtype
+    from repro_torch.train import serve_step as SS
+    sizes = mesh.axis_sizes
+    el = 4 if cfg.dtype == "float32" else 2
+    entry = SS.batch_entry(batch, sizes)
+    rows = batch // shd.spec_block((entry,), mesh.coords, sizes)[0][1]
+    vote = el * rows * cfg.vocab_size if entry is not None else 0
+    if fsdp:
+        specs = SS.serve_param_shardings(cfg, mesh, fsdp=True)
+        shapes = cfg.param_shapes()
+        for k in shd.fused_dims(specs):
+            if k.startswith("encoder."):
+                continue
+            block = [n // c for n, (_, c) in zip(
+                shapes[k], shd.spec_block(specs[k], mesh.coords, sizes))]
+            vote += math.prod(block) * param_dtype(cfg, k).itemsize
+    return {"vote": vote,
+            "model": tp_tick_bytes(cfg, mesh, rows, seq_sharded,
+                                   cross_sharded)}
+
+
 def tp_vote_bytes(params: dict, codec: str) -> int:
     """The bytes one rank hands the vote axes' collectives in one step of
     19a (``ProcessMesh.stats``): each local leaf's words all-gathered over
@@ -6705,10 +6804,13 @@ def tp_plan_vote_bytes(art, tcfg) -> int:
     return out
 
 
-def tp_psum_vote_bytes(params: dict) -> int:
+def tp_psum_vote_bytes(params: dict, voters: int = 2) -> int:
     """The bytes one rank hands the vote axes' collectives in one psum_int8
-    step over a data axis of 2 (19e): each local leaf's int8 counts
-    all-reduced (one byte a coordinate), and the metrics (3 float32)."""
+    step over a data axis of `voters` (19e: 2): each local leaf's int8
+    counts all-reduced (one byte a coordinate), and the metrics (3
+    float32); over one voter (19h) no collective runs."""
+    if voters == 1:
+        return 0
     return sum(p.numel() for p in params.values()) + 12
 
 
@@ -6831,6 +6933,36 @@ def tp_adv_launches(art, params, evil: bool) -> dict:
     return {k: v for k, v in want.items() if v}
 
 
+def tp_fused_draws(cfg, tcfg, art) -> int:
+    """The adversary's draws of an adversarial voter's rank in the fused
+    ZeRO backward of one step: one a fused leaf, layer and microbatch."""
+    if not tcfg.fsdp:
+        return 0
+    return sum(cfg.num_layers if k.startswith("layers.") else 1
+               for k in art.fused_leaves) * tcfg.microbatches
+
+
+def tp_moe_launches(cfg, tcfg, art, params, evil: bool) -> dict:
+    """19d's kernel launches on one rank: the Mode B fsdp step's
+    (:func:`fsdp_launches`) and, on the adversarial voter's ranks (19g-3),
+    one adversary launch a fused draw (:func:`tp_fused_draws`, each block
+    from counter 0: no counter map) and one a leaf voted on the wire
+    (``adversary_map``: those whose block the map cuts)."""
+    from repro_torch.core import prng
+    raw = [k for k in params if k not in art.fused_leaves]
+    want = fsdp_launches("mode_b", len(raw), len(art.fused_leaves), 1,
+                         mesh=True)
+    if evil:
+        want["adversary"] = len(raw) + tp_fused_draws(cfg, tcfg, art)
+        want["adversary_map"] = sum(
+            1 for k in raw if "model" in art.param_specs[k]
+            and prng.counter_map(tuple(params[k].shape),
+                                 art.param_specs[k].index("model"),
+                                 art.mesh_sizes["model"],
+                                 art.mesh_coords["model"])[1])
+    return {k: v for k, v in want.items() if v}
+
+
 def ternary_words_of(torch, x):
     """A flat int8 {-1, 0, +1} tensor -> its 2-bit words on the host, by
     the plain version a TP_ADV_CHUNK at a time (no kernel launch)."""
@@ -6844,12 +6976,14 @@ def ternary_words_of(torch, x):
 
 
 class AdvTwinRecorder:
-    """Within the block (a stacked twin's step), voter 0's adversary draws,
-    a call at a time in call order, kept on the host as 2-bit words: the
-    signs it sent and, for blind, its honest signs."""
+    """Within the block (a stacked twin's step), voter 0's adversary draws
+    kept on the host as 2-bit words (the signs it sent and, for blind, its
+    honest signs): those under a step a call at a time in call order
+    (:attr:`rows`), and of those under no step (the fused backward's, each
+    row from counter 0) the longest row (:attr:`fused`)."""
 
     def __init__(self, torch, blind: bool):
-        self.torch, self.blind, self.rows = torch, blind, []
+        self.torch, self.blind, self.rows, self.fused = torch, blind, [], None
 
     def __enter__(self):
         from repro_torch.core import byzantine
@@ -6860,13 +6994,18 @@ class AdvTwinRecorder:
             honest = (signs[r].reshape(-1).clone()
                       if r is not None and self.blind else None)
             out = self.orig(signs, cfg, ids, **kw)
-            if r is not None:
+            fused = kw.get("step") is None
+            if r is not None and not (fused and self.fused is not None and
+                                      self.fused["n"] >= signs[r].numel()):
                 t = self.torch
-                self.rows.append({
-                    "n": signs[r].numel(),
-                    "sent": ternary_words_of(t, signs[r].reshape(-1)),
-                    "honest": (None if honest is None
-                               else ternary_words_of(t, honest))})
+                row = {"n": signs[r].numel(),
+                       "sent": ternary_words_of(t, signs[r].reshape(-1)),
+                       "honest": (None if honest is None
+                                  else ternary_words_of(t, honest))}
+                if fused:
+                    self.fused = row
+                else:
+                    self.rows.append(row)
             return out
         byzantine.evil_signs_ = evil_signs_
         return self
@@ -6874,21 +7013,75 @@ class AdvTwinRecorder:
     def __exit__(self, *exc):
         self.mod.evil_signs_ = self.orig
 
+    def save(self, path: str) -> None:
+        self.torch.save({"stepped": self.rows, "fused": self.fused}, path)
+
+
+class TwinBlockDraws:
+    """Within the block, a stacked twin's fused ZeRO backward draws an
+    adversary's signs of every leaf that `specs` cut over ``"model"`` block
+    by block, each of the `parts` blocks (of each layer of a stacked leaf)
+    drawn as a whole from counter 0: what the reference's fused backward
+    draws on each model rank, inside its region manual over ``"model"``
+    (``src/repro/core/majority_vote.py:139-176``). Other leaves draw as the
+    twin does."""
+
+    def __init__(self, specs, parts):
+        self.specs, self.parts, self.leaf = specs, parts, None
+
+    def __enter__(self):
+        from repro_torch.core import byzantine
+        from repro_torch.core import majority_vote as mv
+        from repro_torch.core import sign_compress as sc
+        from repro_torch.train import train_step as TS
+        self.mv, self.orig = mv, mv.fused_signs
+        self.cls, self.call = TS.StackedFusedVote, TS.StackedFusedVote.__call__
+        ctx, call = self, self.call
+
+        def named(vote, i, k, g):
+            ctx.leaf = k
+            return call(vote, i, k, g)
+
+        def fused_signs(g, byz, replica, rows=1):
+            spec = ctx.specs.get(ctx.leaf, ())
+            if "model" not in spec or byz is None or byz.mode == "none" \
+                    or replica >= byz.num_adversaries:
+                return ctx.orig(g, byz, replica, rows)
+            s = sc.sign_ternary(g)
+            dim = spec.index("model")
+            width = s.shape[dim] // ctx.parts
+            for j in range(ctx.parts):
+                blk = s.narrow(dim, j * width, width).contiguous()
+                byzantine.evil_signs_(blk.view(rows, -1), byz,
+                                      [replica] * rows, step=None)
+                s.narrow(dim, j * width, width).copy_(blk)
+            return s
+        TS.StackedFusedVote.__call__ = named
+        mv.fused_signs = fused_signs
+        return self
+
+    def __exit__(self, *exc):
+        self.mv.fused_signs = self.orig
+        self.cls.__call__ = self.call
+
 
 class AdvCheck:
     """Within the block (a model-axis step on an adversarial voter's rank),
     each draw held bit for bit against the stacked twin's rows
     (:class:`AdvTwinRecorder`, in `path`) at the block's global
     coordinates (``core.prng.mapped_counters`` of its counter map): the
-    i-th draw against the twin's i-th row (leaf-wise) or every draw
-    against its one flat row (`flat`: a plan). Random: the sent signs
-    equal; blind: the flip mask equal wherever the honest signs agree (on
-    at least TP_VOTE_AGREE of them). Plain ops only: no kernel launch."""
+    i-th draw under a step against the twin's i-th row (leaf-wise) or
+    every such draw against its one flat row (`flat`: a plan); each row
+    of a draw under no step (the fused backward's, from counter 0) against
+    the twin's longest such row. Random: the sent signs equal; blind: the
+    flip mask equal wherever the honest signs agree (on at least
+    TP_VOTE_AGREE of them). Plain ops only: no kernel launch."""
 
     def __init__(self, torch, path: str, blind: bool, flat: bool):
         self.torch, self.path, self.blind, self.flat = torch, path, blind, \
             flat
         self.calls = self.coords = self.honest_same = self.mapped = 0
+        self.fused_calls = 0
 
     def _twin(self, row: dict, key: str, pos):
         from repro_torch.kernels import ref
@@ -6897,43 +7090,60 @@ class AdvCheck:
         return ref.ternary_unpack(words[None], self.torch.int8)[0][
             pos - 16 * w0]
 
+    def _hold(self, sent, honest, row: dict, cut: dict, what: str) -> None:
+        """`sent` (flat) against the twin's `row` at the counters of
+        `cut`'s map, a TP_ADV_CHUNK at a time."""
+        from repro_torch.core import prng
+        for lo in range(0, sent.numel(), TP_ADV_CHUNK):
+            hi = min(sent.numel(), lo + TP_ADV_CHUNK)
+            pos = prng.mapped_counters(hi - lo, cut["offset"], lo,
+                                       cut["block"], cut["gap"],
+                                       device=sent.device)
+            if int(pos[-1]) >= row["n"]:
+                raise AssertionError(f"19g: a draw reaches counter "
+                                     f"{int(pos[-1])} of {row['n']}")
+            want = self._twin(row, "sent", pos)
+            if self.blind:
+                was = self._twin(row, "honest", pos)
+                same = honest[lo:hi] == was
+                self.honest_same += int(same.sum())
+                bad = ((sent[lo:hi] != honest[lo:hi]) != (want != was)) \
+                    & same
+            else:
+                bad = sent[lo:hi] != want
+            if bool(bad.any()):
+                raise AssertionError(
+                    f"19g: {what} (map {cut}) differs from the twin's at "
+                    f"{int(bad.sum())} of its {hi - lo} coordinates from "
+                    f"{lo}")
+            del pos, want, bad
+
     def __enter__(self):
-        from repro_torch.core import byzantine, prng
-        self.rows = self.torch.load(self.path)
+        from repro_torch.core import byzantine
+        twin = self.torch.load(self.path)
+        self.rows, self.fused = twin["stepped"], twin["fused"]
         self.mod, self.orig = byzantine, byzantine.evil_signs_
 
         def evil_signs_(signs, cfg, ids, **kw):
-            t = self.torch
             honest = signs.reshape(-1).clone()
             out = self.orig(signs, cfg, ids, **kw)
             sent = signs.reshape(-1)
-            row = self.rows[0 if self.flat else self.calls]
             cut = {k: kw.get(k, 0) for k in ("offset", "block", "gap")}
-            for lo in range(0, sent.numel(), TP_ADV_CHUNK):
-                hi = min(sent.numel(), lo + TP_ADV_CHUNK)
-                pos = prng.mapped_counters(hi - lo, cut["offset"], lo,
-                                           cut["block"], cut["gap"],
-                                           device=sent.device)
-                if int(pos[-1]) >= row["n"]:
-                    raise AssertionError(f"19g: a draw reaches counter "
-                                         f"{int(pos[-1])} of {row['n']}")
-                want = self._twin(row, "sent", pos)
-                if self.blind:
-                    was = self._twin(row, "honest", pos)
-                    same = honest[lo:hi] == was
-                    self.honest_same += int(same.sum())
-                    bad = ((sent[lo:hi] != honest[lo:hi]) != (want != was)) \
-                        & same
-                else:
-                    bad = sent[lo:hi] != want
-                if bool(bad.any()):
-                    raise AssertionError(
-                        f"19g: draw {self.calls} (map {cut}) differs from "
-                        f"the twin's at {int(bad.sum())} of its "
-                        f"{hi - lo} coordinates from {lo}")
-                del pos, want, bad
-            self.calls += 1
-            self.mapped += bool(cut["block"])
+            if kw.get("step") is None:
+                if self.fused is None:
+                    raise AssertionError("19g: a fused draw, and none in "
+                                         "the twin")
+                n = sent.numel() // len(ids)
+                for r in range(len(ids)):
+                    self._hold(sent[r * n:(r + 1) * n],
+                               honest[r * n:(r + 1) * n], self.fused, cut,
+                               f"fused draw {self.fused_calls} row {r}")
+                self.fused_calls += 1
+            else:
+                row = self.rows[0 if self.flat else self.calls]
+                self._hold(sent, honest, row, cut, f"draw {self.calls}")
+                self.calls += 1
+                self.mapped += bool(cut["block"])
             self.coords += sent.numel()
             del honest
             return out
@@ -6942,7 +7152,7 @@ class AdvCheck:
 
     def __exit__(self, *exc):
         self.mod.evil_signs_ = self.orig
-        del self.rows
+        del self.rows, self.fused
 
 
 def check_adversary_map(torch, ops, ref, dev, err, cfg) -> dict:
@@ -7020,15 +7230,9 @@ def check_adversary_map(torch, ops, ref, dev, err, cfg) -> dict:
     return out
 
 
-def tp_train_twin(torch, dev, scratch: str) -> dict:
-    """The stacked twins (M = 2 on the card, no model axis) of 19a (per
-    codec), 19d and 19e (per arch): step 0's losses, each leaf's step-0
-    vote (int8, on the host) and the leaves' flippable masks (some
-    voter's |m'| under TP_FLIP_FRACTION of the leaf's largest; Mode B's
-    global momentum alone), and 19d's routing calls, written to `scratch`
-    for the comparison after the ranks."""
-    from repro_torch.kernels import ops
-    from repro_torch.train import train_step as TS
+def tp_train_runs() -> list:
+    """Phase 19's train runs beside their twins: (label, config, train
+    config, whether the twin keeps its votes)."""
     from repro_torch.configs.base import get_config
     cfg = dataclasses.replace(get_config("glm4-9b"), num_layers=2)
     runs = [(codec, cfg, train_config(codec), True) for codec in TP_CODECS]
@@ -7037,25 +7241,45 @@ def tp_train_twin(torch, dev, scratch: str) -> dict:
              for arch, *_ in TP_FAMILIES]
     runs += [(f"f32_{arch}",) + tp_family_config(arch, "float32") + (False,)
              for arch, *_ in TP_FAMILIES]
-    glm = dataclasses.replace(get_config("glm4-9b"), num_layers=2)
-    runs += [(label, glm, tp_adv_config(mode, p, opt), True)
+    runs += [(label, cfg, tp_adv_config(mode, p, opt), True)
              for label, mode, p, opt in TP_ADV_RUNS]
+    return runs
+
+
+def tp_train_twin(torch, dev, scratch: str, runs=None,
+                  voters: int = TP_VOTERS) -> dict:
+    """The stacked twins (M = `voters` on the card, no model axis) of
+    `runs` (default :func:`tp_train_runs`: 19a per codec, 19d and 19e per
+    arch): step 0's losses, each leaf's step-0 vote (int8, on the host)
+    and the leaves' flippable masks (some voter's |m'| under
+    TP_FLIP_FRACTION of the leaf's largest; Mode B's global momentum
+    alone), an adversary's draws and an MoE's routing calls, written to
+    `scratch` for the comparison after the ranks."""
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.kernels import ops
+    from repro_torch.train import train_step as TS
     out = {}
-    for label, cfg, tcfg, votes_too in runs:
-        art = TS.make_train_step(cfg, tcfg, TP_VOTERS, device=dev)
+    for label, cfg, tcfg, votes_too in runs or tp_train_runs():
+        art = TS.make_train_step(cfg, tcfg, voters, device=dev)
         params, state = TS.materialize_state(
             cfg, tcfg, art, torch.Generator(device=dev).manual_seed(0))
         batch = tp_train_batch(torch, cfg, tcfg, 0, dev)
         adv = (AdvTwinRecorder(torch, tcfg.byzantine.mode == "blind")
                if tcfg.byzantine.num_adversaries else
                contextlib.nullcontext())
-        with VoteRecorder(ops) as rec, RouteRecorder(torch) as routes, adv:
+        # the fused backward's draws made model block by model block, as
+        # 19d's model ranks (and the reference's) make them
+        blocks = (TwinBlockDraws(shd.param_specs(
+            cfg.param_shapes(), fsdp=True, mesh_shape=dict(zip(
+                TP_TRAIN_MESH[1], TP_TRAIN_MESH[0]))), TP_TRAIN_MESH[0][1])
+                  if tcfg.fsdp else contextlib.nullcontext())
+        with VoteRecorder(ops) as rec, RouteRecorder(torch) as routes, \
+                adv, blocks:
             params, state, met = art.step_fn(params, state, batch, 0)
         out[label] = {"loss": float(met["loss"])}
         if tcfg.byzantine.num_adversaries:
-            torch.save(adv.rows, os.path.join(scratch,
-                                              f"tp_adv_twin_{label}.pt"))
-            out[label]["draws"] = len(adv.rows)
+            adv.save(os.path.join(scratch, f"tp_adv_twin_{label}.pt"))
+            out[label]["draws"] = len(adv.rows) + (adv.fused is not None)
         if cfg.moe.enabled:
             torch.save(routes.calls, os.path.join(scratch,
                                                   f"tp_routes_{label}.pt"))
@@ -7065,7 +7289,7 @@ def tp_train_twin(torch, dev, scratch: str) -> dict:
         if label.startswith("f32_"):
             # each voter's step-0 momentum, the leaf's largest |m'| and
             # the loss, for 19e's float32 twins on the ranks
-            for v in range(TP_VOTERS):
+            for v in range(voters):
                 m = {k: t[v].to("cpu", copy=True)
                      for k, t in state["momentum"].items()}
                 torch.save({"m": m, "loss": out[label]["loss"],
@@ -7087,7 +7311,7 @@ def save_twin_votes(torch, params, state, votes, path) -> None:
     for (k, p), w in zip(params.items(), votes):
         kept[k] = (w, p.numel())
         m = state["momentum"][k].float().abs()
-        a = m.view(1 if m.dim() == p.dim() else TP_VOTERS, -1)
+        a = m.view(1 if m.dim() == p.dim() else m.shape[0], -1)
         near = (a < TP_FLIP_FRACTION * a.max()).any(0)
         flippable[k] = ref.bitpack(sc.pad_last(near.to(torch.int8).mul_(
             2).sub_(1)[None], sc.PACK)[0])[0].cpu()
@@ -7096,7 +7320,8 @@ def save_twin_votes(torch, params, state, votes, path) -> None:
 
 
 def tp_moe_config():
-    """19d's cut of the qwen3-moe-235b-a22b Mode B fsdp preset."""
+    """19d's cut of the qwen3-moe-235b-a22b Mode B fsdp preset, with 19g-3's
+    adversary."""
     from repro_torch.configs.base import (MomentumMode, ShapeCell,
                                           VoteStrategy, get_config)
     from repro_torch.configs.presets import default_train_config
@@ -7110,7 +7335,10 @@ def tp_moe_config():
                              VoteStrategy.HIERARCHICAL, "nested", True):
         raise AssertionError(f"not the {TP_MOE_ARCH} Mode B preset: "
                              f"{preset}")
-    return cfg, dataclasses.replace(preset, microbatches=TP_MOE_MICRO)
+    from repro_torch.configs.base import ByzantineConfig
+    return cfg, dataclasses.replace(
+        preset, microbatches=TP_MOE_MICRO, byzantine=ByzantineConfig(
+            mode=TP_MOE_ADVERSARY, num_adversaries=1, seed=TP_SEED))
 
 
 def tp_family_config(arch: str, dtype: str = ""):
@@ -7186,33 +7414,47 @@ class RouteRecorder:
 
 
 def route_flips(torch, what: str, mine: list, twin: list, tie: float,
-                seq: int = 1, depth: int = 0) -> tuple:
+                seq: int = 1, depth: int = 0, excused=None, group: int = 0
+                ) -> tuple:
     """The tokens whose experts in the calls `mine` differ from the calls
     `twin` (the same calls, in order), each required at a near tie: the
     twin's relative top-k margin under `tie`; a token whose slot was
     dropped in one and kept in the other is allowed only beside such a
     flip in its call (it follows from the flip through the experts'
-    capacity). Returns the count of flips and two bool tensors, one entry
-    a row of the calls' tokens (`seq` tokens a row): `own`, where a flip
-    or a moved drop touched the row's last token (its own logits move),
-    and `carry`, where one touched any of its tokens in a call before the
-    last of a forward of `depth` layers, one call a layer (the layers
-    after it cache the moved residual, so the row's later tokens move
-    too; when the calls are not one a layer, every flip carries)."""
+    capacity). A flip or a moved drop moves its token's residual, which
+    the later layers of the same forward read at that position and, by
+    attention, at the row's later ones: there a token may differ at any
+    margin, as in a row of `excused` (a bool a row: touched in an earlier
+    tick). A forward is `group` calls (default all of them; a train step's
+    microbatch with its recompute). Returns the count of flips and two
+    bool tensors, one entry a row of the calls' tokens (`seq` tokens a
+    row): `own`, where a flip or a moved drop touched the row's last token
+    (its own logits move), and `carry`, where one touched any of its
+    tokens in a call before the last of a forward of `depth` layers, one
+    call a layer (the layers after it cache the moved residual, so the
+    row's later tokens move too; when the calls are not one a layer,
+    every flip carries)."""
     if len(mine) != len(twin):
         raise AssertionError(f"{what}: {len(mine)} routing calls against "
                              f"the twin's {len(twin)}")
     n = mine[0][0].shape[0] // seq if mine else 0
     own = torch.zeros(n, dtype=torch.bool)
     carry = torch.zeros(n, dtype=torch.bool)
+    start = (excused.clone() if excused is not None
+             else torch.zeros(n, dtype=torch.bool))[:, None].expand(n, seq)
+    moved_on = start.clone()
     flips = 0
     for i, ((e, _, drop), (te, margin, tdrop)) in enumerate(zip(mine,
                                                                  twin)):
+        if group and i % group == 0:
+            moved_on = start.clone()
         bad = (torch.sort(e, -1)[0] != torch.sort(te, -1)[0]).any(-1)
-        if bool((bad & (margin >= tie)).any()):
-            raise AssertionError(f"{what}: a token's experts differ from "
-                                 f"the twin's at a margin of "
-                                 f"{float(margin[bad].max())}, over {tie}")
+        free = moved_on.reshape(-1)
+        if bool((bad & ~free & (margin >= tie)).any()):
+            raise AssertionError(
+                f"{what}: a token's experts differ from the twin's at a "
+                f"margin of {float(margin[bad & ~free].max())}, over "
+                f"{tie}, with no flip before it in its row")
         moved = drop != tdrop
         if bool(moved.any()) and not bool(bad.any()):
             raise AssertionError(f"{what}: a token's slot was dropped in "
@@ -7223,6 +7465,8 @@ def route_flips(torch, what: str, mine: list, twin: list, tie: float,
         own |= hit[:, -1]
         if len(mine) != depth or i < len(mine) - 1:
             carry |= hit.any(-1)
+        # the positions at and after a row's first moved token
+        moved_on = moved_on | (torch.cummax(hit.to(torch.int8), 1)[0] > 0)
     return flips, own, carry
 
 
@@ -7411,9 +7655,15 @@ def tp_train_rank(torch, rank, mesh, cfg, tcfg, dev, label, want_fn,
         if check is not None:
             shard = art.optimizer.shard
             n = len(params) if shard is None else len(shard.segments)
-            if check.calls != n:
-                raise AssertionError(f"tp {label} rank {rank}: {check.calls}"
-                                     f" adversary draws, expected {n}")
+            # the fused leaves draw in the backward, once a layer and
+            # microbatch, under no step
+            fused = tp_fused_draws(cfg, tcfg, art)
+            n -= len(art.fused_leaves) if tcfg.fsdp else 0
+            if (check.calls, check.fused_calls) != (n, fused):
+                raise AssertionError(
+                    f"tp {label} rank {rank}: {check.calls} adversary draws "
+                    f"under a step and {check.fused_calls} fused, expected "
+                    f"{n} and {fused}")
             if check.blind and check.honest_same < TP_VOTE_AGREE \
                     * check.coords:
                 raise AssertionError(
@@ -7421,7 +7671,8 @@ def tp_train_rank(torch, rank, mesh, cfg, tcfg, dev, label, want_fn,
                     f"the twin's on {check.honest_same} of {check.coords}")
             draws = {"calls": check.calls, "coords": check.coords,
                      "honest_same": check.honest_same,
-                     "mapped": check.mapped}
+                     "mapped": check.mapped,
+                     "fused_calls": check.fused_calls}
         if route is not None:
             routes = route.calls
         if row["tp_bytes"] != expect_tp:
@@ -7447,8 +7698,9 @@ def tp_train_rank(torch, rank, mesh, cfg, tcfg, dev, label, want_fn,
         per = len(twin) // mesh.size
         v = mesh.replica_index()
         out_routes = route_flips(torch, f"tp {label} rank {rank}", routes,
-                                 twin[v * per:(v + 1) * per],
-                                 TP_ROUTE_TIE)[0]
+                                 twin[v * per:(v + 1) * per], TP_ROUTE_TIE,
+                                 tcfg.seq_len, group=len(routes)
+                                 // tcfg.microbatches)[0]
     else:
         out_routes = None
     if rank == 0:
@@ -7674,8 +7926,10 @@ def tp_family_prompts(torch, cfg, lens, dev) -> list:
     return out
 
 
-def tp_family_serve_reference(torch, dev, scratch: str) -> dict:
-    """19f's single-device serving on the parameters every rank draws, per
+def tp_family_serve_reference(torch, dev, scratch: str,
+                              runs=None) -> dict:
+    """19f's (or 19h's, `runs`) single-device serving on the parameters
+    every rank draws, per
     run and model (bf16 at its depth, the float32 twin at its own): each
     row's prompt prefilled and re-homed into the batch cache (equal
     prompts in one prefill a data shard: the batch-sharded prefill routes
@@ -7687,7 +7941,7 @@ def tp_family_serve_reference(torch, dev, scratch: str) -> dict:
     from repro_torch.models import model as M
     from repro_torch.train import serve_step as SS
     out = {}
-    for run in TP_FAMILY_SERVE:
+    for run in runs or TP_FAMILY_SERVE:
         label, arch, depth, enc, tdepth, tenc, _, _, lens, T, ticks = run
         for dtype, dd, de in (("bfloat16", depth, enc),
                               ("float32", tdepth, tenc)):
@@ -7778,8 +8032,10 @@ def tp_family_paths(cfg, mesh, seq_sharded: bool, cross_sharded: bool
     return out
 
 
-def tp_family_serve_rank(torch, rank, meshes, dev, scratch, out) -> None:
-    """19f on this rank: every TP_FAMILY_SERVE run, bf16 and its float32
+def tp_family_serve_rank(torch, rank, meshes, dev, scratch, out,
+                         runs=None) -> None:
+    """19f on this rank: every run of `runs` (TP_FAMILY_SERVE; 19h's
+    TP8_SERVE), bf16 and its float32
     twin, the parameters drawn as the main process drew them and cut to
     the rank's blocks, the prompts prefilled (one at a time, or equal ones
     through make_prefill_sharded) and re-homed, then the reference's
@@ -7794,7 +8050,7 @@ def tp_family_serve_rank(torch, rank, meshes, dev, scratch, out) -> None:
     from repro_torch.models import model as M
     from repro_torch.train import serve_step as SS
     ops.reset_launch_counts()
-    for run in TP_FAMILY_SERVE:
+    for run in runs or TP_FAMILY_SERVE:
         label, arch, depth, enc, tdepth, tenc, shape, axes, lens, T, \
             ticks = run
         mesh = meshes[(shape, axes)]
@@ -7912,7 +8168,7 @@ def tp_family_serve_rank(torch, rank, meshes, dev, scratch, out) -> None:
                             for e, m, d in want["routes"][i]]
                     n, own, carry = route_flips(
                         torch, f"tp serve {label} {dtype} tick {i}",
-                        rec.calls, twin, tie, 1, cfg.num_layers)
+                        rec.calls, twin, tie, 1, cfg.num_layers, carried)
                     flips += n
                 keep = tp_kept_rows(f"{label} {dtype} tick {i}",
                                     own | carried, compared).to(dev)
@@ -7946,6 +8202,116 @@ def tp_family_serve_rank(torch, rank, meshes, dev, scratch, out) -> None:
     launched = {k: v for k, v in ops.launch_counts().items() if v}
     if launched:
         raise AssertionError(f"19f launched kernels: {launched}")
+
+
+def tp_fsdp_serve_rank(torch, rank, meshes, dev, out) -> None:
+    """19f's FSDP runs on this rank (TP_FSDP_SERVE): the seeded parameters
+    cut to the rank's blocks of both layouts as they are drawn, the same
+    prompts prefilled over each (make_prefill_sharded, fsdp on and off)
+    and re-homed, then greedy ticks (the plain run's tokens fed to both):
+    the prefill's logits and cache block and each tick's logits and cache
+    block bit-equal, each tick's bytes on the vote axes and the model group
+    ``tp_fsdp_tick_bytes``'s for its layout; no kernel launches."""
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.train import serve_step as SS
+    mesh = meshes[TP_FSDP_MESH]
+    ops.reset_launch_counts()
+    B, S, T = TP_FSDP_ROWS, TP_FSDP_PROMPT, TP_FSDP_CACHE
+    for label, arch, depth, enc in TP_FSDP_SERVE:
+        cfg = tp_family_cfg(arch, depth, enc, "bfloat16")
+        specs = {f: SS.serve_param_shardings(cfg, mesh, fsdp=f)
+                 for f in (False, True)}
+        fsdp_params = {}
+
+        def cut(k, t):
+            fsdp_params[k] = shd.shard_leaf(t, specs[True][k], mesh.coords,
+                                            mesh.axis_sizes).clone()
+            return shd.shard_leaf(t, specs[False][k], mesh.coords,
+                                  mesh.axis_sizes).clone()
+        params = {False: M.init_params(cfg, torch.Generator(
+            device=dev).manual_seed(TP_SEED), dev, shard=cut),
+            True: fsdp_params}
+        gathered = len(shd.fused_dims(specs[True]))
+        reset_peak(torch, dev)
+        prompts = tp_family_prompts(torch, cfg, (S,) * B, dev)
+        batch = {k: torch.cat([p[k] for p in prompts]) for k in prompts[0]}
+        glob = SS._global_shapes(cfg, B, T)
+        lspec = {k: SS.cache_leaf_spec(k, v, mesh.axis_sizes)
+                 for k, v in glob.items()}
+        attn = next((lspec[k] for k in ("k", "attn_k") if k in lspec), None)
+        seq_sharded = bool(attn and attn[2])
+        cross_sharded = bool("xk" in lspec and lspec["xk"][2])
+        entry = SS.batch_entry(B, mesh.axis_sizes)
+        caches, steps, expect, ms = {}, {}, {}, {}
+        first = None
+        for f in (False, True):
+            mesh.reset_stats()
+            with tick_timer(torch, dev) as timed:
+                lg, cache = SS.make_prefill_sharded(
+                    cfg, mesh, fsdp=f, global_batch=B)(params[f], batch)
+            ms[f] = {"prefill": timed["ms"], "prefill_vote_bytes":
+                     mesh.stats.bytes, "ticks": []}
+            if first is None:
+                first, cache0 = lg, cache
+            else:
+                tp_bit_equal(torch, f"{label} prefill logits", lg, first)
+                for k, v in cache0.items():
+                    tp_bit_equal(torch, f"{label} prefill cache {k}",
+                                 cache[k], v)
+            caches[f] = SS.make_cache_rehome(cfg, B, T, mesh=mesh)(
+                cache, S, TP_FRAMES)
+            steps[f] = SS.make_decode_step(cfg, mesh=mesh, max_len=T,
+                                           fsdp=f)
+            expect[f] = tp_fsdp_tick_bytes(cfg, mesh, B, seq_sharded,
+                                           cross_sharded, fsdp=f)
+        # every row's first token, on every rank
+        tok = SS._gather_rows(SS.gather_vocab(
+            first[:, -1], mesh, cfg.vocab_size).float().argmax(-1)[:, None],
+            mesh, entry)
+        del first, cache0, cache, lg
+        for i in range(TP_FSDP_TICKS):
+            got = {}
+            for f in (False, True):
+                mesh.reset_stats()
+                with tick_timer(torch, dev) as timed:
+                    got[f], caches[f] = steps[f](params[f], tok, caches[f],
+                                                 S + i)
+                ms[f]["ticks"].append(timed["ms"])
+                wire = {"vote": mesh.stats.bytes,
+                        "model": mesh.model_stats.bytes}
+                if wire != expect[f]:
+                    raise AssertionError(
+                        f"tp serve {label} fsdp={f} tick {i}: the axes took "
+                        f"{wire} bytes, the layout's count is {expect[f]}")
+            tp_bit_equal(torch, f"{label} tick {i} logits", got[True],
+                         got[False])
+            for k, v in caches[False].items():
+                tp_bit_equal(torch, f"{label} tick {i} cache {k}",
+                             caches[True][k], v)
+            tok = got[False].float().argmax(-1)[:, None]
+        if rank == 0:
+            log({"phase": "tp_rank0_progress", "run": label,
+                 "prefill_ms": [ms[f]["prefill"] for f in (False, True)],
+                 "tick_ms_fsdp": ms[True]["ticks"]})
+        name = {False: "plain", True: "fsdp"}
+        out[label] = {"ms": {name[f]: v for f, v in ms.items()},
+                      "tick_bytes": {name[f]: v for f, v in expect.items()},
+                      "gathered_leaves": gathered,
+                      "peak_bytes": peak_bytes(torch, dev)}
+        del params, fsdp_params, caches, steps
+        reset_peak(torch, dev)
+    launched = {k: v for k, v in ops.launch_counts().items() if v}
+    if launched:
+        raise AssertionError(f"19f's FSDP runs launched kernels: {launched}")
+
+
+def tp_bit_equal(torch, what: str, got, want) -> None:
+    if got.shape != want.shape or got.dtype != want.dtype or \
+            not torch.equal(got, want):
+        raise AssertionError(f"tp serve {what}: the FSDP layout's differs "
+                             "from the plain layout's")
 
 
 @contextlib.contextmanager
@@ -8022,7 +8388,7 @@ def tp_rank_body(rank: int, init: str, scratch: str, dev_type: str) -> dict:
         for shape, axes in shapes:   # every rank, one order
             if (shape, axes) not in meshes:
                 meshes[(shape, axes)] = ProcessMesh(shape, axes)
-        out = {"train": {}, "serve": {}, "seconds": {}}
+        out = {"train": {}, "serve": {}, "fsdp_serve": {}, "seconds": {}}
         mesh = meshes[TP_TRAIN_MESH]
         cfg = dataclasses.replace(get_config("glm4-9b"), num_layers=2)
         clock = [time.perf_counter()]
@@ -8054,9 +8420,7 @@ def tp_rank_body(rank: int, init: str, scratch: str, dev_type: str) -> dict:
         qcfg, qtcfg = tp_moe_config()
         tp_train_rank(
             torch, rank, mesh, qcfg, qtcfg, dev, "moe_fsdp",
-            lambda art, p: fsdp_launches(
-                "mode_b", len(p) - len(art.fused_leaves),
-                len(art.fused_leaves), 1, mesh=True),
+            lambda art, p: tp_moe_launches(qcfg, qtcfg, art, p, evil),
             lambda art, p: tp_fsdp_vote_bytes(qcfg, art,
                                               qtcfg.microbatches), scratch,
             out["train"], False)
@@ -8079,26 +8443,31 @@ def tp_rank_body(rank: int, init: str, scratch: str, dev_type: str) -> dict:
         tp_family_serve_rank(torch, rank, meshes, dev, scratch,
                              out["serve"])
         lap("19f")
+        tp_fsdp_serve_rank(torch, rank, meshes, dev, out["fsdp_serve"])
+        lap("19f_fsdp")
         dist.barrier()
         return out
     finally:
         dist.destroy_process_group()
 
 
-def tp_check_votes(torch, dev, results: dict) -> dict:
-    """19a's and 19e's step-0 votes of every leaf (data index 0's model
-    ranks, joined) against the twin's: equal on at least TP_VOTE_AGREE of
-    each leaf's coordinates, every difference a flippable coordinate.
-    Returns the agreement and flips by run (psum_int8's votes are
-    repacked 2 bits a coordinate, as ternary2bit's)."""
+def tp_check_votes(torch, dev, results: dict, runs=None,
+                   model: int = TP_TRAIN_MESH[0][1]) -> dict:
+    """The step-0 votes of every leaf of `runs` ((label, codec); default
+    19a's, 19e's and 19g's), data index 0's `model` model ranks joined,
+    against the twin's: equal on at least TP_VOTE_AGREE of each leaf's
+    coordinates, every difference a flippable coordinate. Returns the
+    agreement and flips by run (psum_int8's votes are repacked 2 bits a
+    coordinate, as ternary2bit's)."""
     from repro_torch.distributed import sharding as shd
     out = {}
-    sizes = {"model": TP_TRAIN_MESH[0][1]}
-    runs = [(c, c) for c in TP_CODECS] + [(arch, "ternary2bit")
-                                          for arch, *_ in TP_FAMILIES]
-    # 19g: the plan applies 2-bit votes (apply_ternary_vote)
-    runs += [(label, "ternary2bit" if opt else "sign1bit")
-             for label, _, _, opt in TP_ADV_RUNS]
+    sizes = {"model": model}
+    if runs is None:
+        runs = [(c, c) for c in TP_CODECS] + [(arch, "ternary2bit")
+                                              for arch, *_ in TP_FAMILIES]
+        # 19g: the plan applies 2-bit votes (apply_ternary_vote)
+        runs += [(label, "ternary2bit" if opt else "sign1bit")
+                 for label, _, _, opt in TP_ADV_RUNS]
     every = []
     for label, codec in runs:
         twin = torch.load(os.path.join(results["scratch"],
@@ -8149,6 +8518,97 @@ def tp_check_votes(torch, dev, results: dict) -> dict:
     return out
 
 
+def tp_check_train(torch, dev, results: dict, labels, twin: dict,
+                   ranks: int, launches: dict, errs: dict) -> None:
+    """Phase 19's train runs `labels` on `ranks` ranks after they exit:
+    every rank held its step-0 launches (on the card), step 0 twice
+    bit-equal, the replicated leaves bit-equal over the ranks, step 0's
+    loss within TP_LOSS_RTOL of the twin's; a ``tp_train`` line each. The
+    launches join `launches`, the plain checks' errors `errs`."""
+    for label in labels:
+        runs = [results[r]["train"][label] for r in range(ranks)]
+        for r, run in enumerate(runs):
+            if dev.type == "cuda" and not run["held"]:
+                raise AssertionError(f"tp {label}: rank {r} held no "
+                                     "launch")
+            for k, v in run["max_abs_err"].items():
+                errs[k] = max(errs.get(k, 0.0), v)
+        for r, run in enumerate(runs):
+            a, b = run["checksums"][0], run["checksums"][1]
+            if a["state"] != b["state"]:
+                raise AssertionError(f"tp {label} rank {r}: step 0 run "
+                                     "twice differs")
+            for row in run["rows"]:
+                for k, v in row["launches"].items():
+                    launches[k] = launches.get(k, 0) + v
+        # the replicated leaves bit-equal over every rank (the model
+        # ranks of a voter, and the voters, who applied one vote)
+        for i in range(len(runs[0]["checksums"])):
+            sums = {run["checksums"][i]["replicated"] for run in runs}
+            if len(sums) != 1:
+                raise AssertionError(f"tp {label} run {i}: replicated "
+                                     "leaves differ over the ranks")
+        want_loss = twin[label]["loss"]
+        losses = [run["metrics"][0]["loss"] for run in runs]
+        for loss in losses:
+            if abs(loss - want_loss) > TP_LOSS_RTOL * abs(want_loss):
+                raise AssertionError(f"tp {label}: step 0's loss {loss} "
+                                     f"against the twin's {want_loss}")
+        rows = [run["rows"] for run in runs]
+        if label in TP_CODECS:   # phase 20b's
+            TP_ROWS[label] = [r[0] for r in rows]
+        log({"phase": "tp_train", "run": label,
+             "mesh": runs[0]["mesh"][0], "axes": runs[0]["mesh"][1],
+             "losses": [m["loss"] for m in runs[0]["metrics"]],
+             "twin_step0_loss": want_loss,
+             "step_ms": [max(r[i]["ms"] for r in rows)
+                         for i in range(len(rows[0]))],
+             "vote_collective_ms": [max(r[i]["vote_ms"] for r in rows)
+                                    for i in range(len(rows[0]))],
+             "tp_collective_ms": [max(r[i]["tp_ms"] for r in rows)
+                                  for i in range(len(rows[0]))],
+             "other_host_ms": [max(r[i]["other_ms"] for r in rows)
+                               for i in range(len(rows[0]))],
+             "vote_bytes_per_rank": runs[0]["expected_vote_bytes"],
+             "tp_bytes_per_rank": runs[0]["expected_tp_bytes"],
+             "peak_bytes_by_rank": [run["peak_bytes"] for run in runs],
+             "routing_flips_by_rank": [run["routing_flips"]
+                                       for run in runs],
+             "step0_twice_bit_equal": True,
+             "held_vs_plain_by_rank": [run["held"] for run in runs],
+             "adversary_draws_by_rank": [run["draws"] for run in runs],
+             "twin_draws": twin[label].get("draws")})
+
+
+def tp_log_serve(results: dict, serve: list, serve_ref: dict,
+                 ranks: int) -> None:
+    """A ``tp_serve`` line for each (label, kv, prompt rows, cache rows) of
+    `serve`, bf16 and float32, from `ranks` ranks' results beside the
+    single-device ticks (`serve_ref`)."""
+    for label, kv, lens, T in serve:
+        for dtype in ("bfloat16", "float32"):
+            got = [results[r]["serve"][f"{label}_{dtype}"]
+                   for r in range(ranks)]
+            log({"phase": "tp_serve", "run": label, "dtype": dtype,
+                 "kv": kv, "cache_rows": T, "prompt_rows": list(lens),
+                 "tick_ms_rank0": got[0]["tick_ms"],
+                 "single_device_tick_ms": serve_ref[
+                     f"{label}_{dtype}"]["tick_ms"],
+                 "prefill_ms_rank0": got[0]["prefill_ms"],
+                 "tp_bytes_per_tick_rank0": got[0]["tick_tp_bytes"],
+                 "paths_rank0": got[0]["paths"],
+                 "routing_flips_by_rank": [g.get("routing_flips")
+                                           for g in got],
+                 "worst": max(g.get("max_err_share",
+                                    g.get("max_abs_err", 0.0))
+                              for g in got),
+                 "bound": (TP_TWIN_TOL if dtype == "float32"
+                           and kv != "int8" else TP_SERVE_SHARE_SSD
+                           if label.startswith(("mamba2", "zamba2"))
+                           else TP_SERVE_SHARE[kv]),
+                 "peak_bytes_by_rank": [g["peak_bytes"] for g in got]})
+
+
 def run_phase19(torch, dev, errs, target=None) -> dict:
     """Phase 19: the stacked twins and the single-device serving references
     in this process, then one world of MESH_RANKS processes on the card
@@ -8184,59 +8644,8 @@ def run_phase19(torch, dev, errs, target=None) -> dict:
         labels = TP_CODECS + ("moe_fsdp",) + tuple(a for a, *_ in
                                                     TP_FAMILIES) + tuple(
             a for a, *_ in TP_ADV_RUNS)
-        for label in labels:
-            runs = [results[r]["train"][label] for r in range(MESH_RANKS)]
-            for r, run in enumerate(runs):
-                if dev.type == "cuda" and not run["held"]:
-                    raise AssertionError(f"tp {label}: rank {r} held no "
-                                         "launch")
-                for k, v in run["max_abs_err"].items():
-                    errs[k] = max(errs.get(k, 0.0), v)
-            for r, run in enumerate(runs):
-                a, b = run["checksums"][0], run["checksums"][1]
-                if a["state"] != b["state"]:
-                    raise AssertionError(f"tp {label} rank {r}: step 0 run "
-                                         "twice differs")
-                for row in run["rows"]:
-                    for k, v in row["launches"].items():
-                        launches[k] = launches.get(k, 0) + v
-            # the replicated leaves bit-equal over every rank (the model
-            # ranks of a voter, and the voters, who applied one vote)
-            for i in range(len(runs[0]["checksums"])):
-                sums = {run["checksums"][i]["replicated"] for run in runs}
-                if len(sums) != 1:
-                    raise AssertionError(f"tp {label} run {i}: replicated "
-                                         "leaves differ over the ranks")
-            want_loss = twin[label]["loss"]
-            losses = [run["metrics"][0]["loss"] for run in runs]
-            for loss in losses:
-                if abs(loss - want_loss) > TP_LOSS_RTOL * abs(want_loss):
-                    raise AssertionError(f"tp {label}: step 0's loss {loss} "
-                                         f"against the twin's {want_loss}")
-            rows = [run["rows"] for run in runs]
-            if label in TP_CODECS:   # phase 20b's
-                TP_ROWS[label] = [r[0] for r in rows]
-            log({"phase": "tp_train", "run": label,
-                 "mesh": runs[0]["mesh"][0], "axes": runs[0]["mesh"][1],
-                 "losses": [m["loss"] for m in runs[0]["metrics"]],
-                 "twin_step0_loss": want_loss,
-                 "step_ms": [max(r[i]["ms"] for r in rows)
-                             for i in range(len(rows[0]))],
-                 "vote_collective_ms": [max(r[i]["vote_ms"] for r in rows)
-                                        for i in range(len(rows[0]))],
-                 "tp_collective_ms": [max(r[i]["tp_ms"] for r in rows)
-                                      for i in range(len(rows[0]))],
-                 "other_host_ms": [max(r[i]["other_ms"] for r in rows)
-                                   for i in range(len(rows[0]))],
-                 "vote_bytes_per_rank": runs[0]["expected_vote_bytes"],
-                 "tp_bytes_per_rank": runs[0]["expected_tp_bytes"],
-                 "peak_bytes_by_rank": [run["peak_bytes"] for run in runs],
-                 "routing_flips_by_rank": [run["routing_flips"]
-                                           for run in runs],
-                 "step0_twice_bit_equal": True,
-                 "held_vs_plain_by_rank": [run["held"] for run in runs],
-                 "adversary_draws_by_rank": [run["draws"] for run in runs],
-                 "twin_draws": twin[label].get("draws")})
+        tp_check_train(torch, dev, results, labels, twin, MESH_RANKS,
+                       launches, errs)
         for arch, *_ in TP_FAMILIES:
             runs = [results[r]["train"][f"f32_{arch}"]
                     for r in range(MESH_RANKS)]
@@ -8260,34 +8669,39 @@ def run_phase19(torch, dev, errs, target=None) -> dict:
                         "flip_fraction": TP_FLIP_FRACTION}})
         serve = [(r[0], r[3], r[4], r[5]) for r in TP_SERVE_RUNS] + [
             (r[0], "bfloat16", r[8], r[9]) for r in TP_FAMILY_SERVE]
-        for label, kv, lens, T in serve:
-            for dtype in ("bfloat16", "float32"):
-                got = [results[r]["serve"][f"{label}_{dtype}"]
-                       for r in range(MESH_RANKS)]
-                log({"phase": "tp_serve", "run": label, "dtype": dtype,
-                     "kv": kv, "cache_rows": T, "prompt_rows": list(lens),
-                     "tick_ms_rank0": got[0]["tick_ms"],
-                     "single_device_tick_ms": serve_ref[
-                         f"{label}_{dtype}"]["tick_ms"],
-                     "prefill_ms_rank0": got[0]["prefill_ms"],
-                     "tp_bytes_per_tick_rank0": got[0]["tick_tp_bytes"],
-                     "paths_rank0": got[0]["paths"],
-                     "routing_flips_by_rank": [g.get("routing_flips")
-                                               for g in got],
-                     "worst": max(g.get("max_err_share",
-                                        g.get("max_abs_err", 0.0))
-                                  for g in got),
-                     "bound": (TP_TWIN_TOL if dtype == "float32"
-                               and kv != "int8" else TP_SERVE_SHARE_SSD
-                               if label.startswith(("mamba2", "zamba2"))
-                               else TP_SERVE_SHARE[kv]),
-                     "peak_bytes_by_rank": [g["peak_bytes"] for g in got]})
-        for label, *_ in TP_ADV_RUNS:
+        tp_log_serve(results, serve, serve_ref, MESH_RANKS)
+        for label, arch, depth, enc in TP_FSDP_SERVE:
+            got = [results[r]["fsdp_serve"][label]
+                   for r in range(MESH_RANKS)]
+            log({"phase": "tp_serve_fsdp", "run": label, "arch": arch,
+                 "depth": depth, "encoder_depth": enc,
+                 "mesh": list(TP_FSDP_MESH[0]), "axes": list(TP_FSDP_MESH[1]),
+                 "prompt_rows": [TP_FSDP_PROMPT] * TP_FSDP_ROWS,
+                 "cache_rows": TP_FSDP_CACHE, "ticks": TP_FSDP_TICKS,
+                 "bit_equal_to_plain": True,
+                 "gathered_leaves": got[0]["gathered_leaves"],
+                 "tick_ms_rank0": got[0]["ms"],
+                 "tick_bytes_by_rank": [g["tick_bytes"] for g in got],
+                 "peak_bytes_by_rank": [g["peak_bytes"] for g in got]})
+        for label in tuple(a for a, *_ in TP_ADV_RUNS) + ("moe_fsdp",):
             drawn = [results[r]["train"][label]["draws"]
                      for r in range(MESH_RANKS)]
             if not all(drawn[:TP_TRAIN_MESH[0][1]]):
                 raise AssertionError(f"tp {label}: an adversarial rank's "
                                      f"draws were not held: {drawn}")
+        # 19g-3: every model rank of the adversarial voter drew its block
+        # of each fused leaf, held to the twin's block draws
+        fused = [results[r]["train"]["moe_fsdp"]["draws"]["fused_calls"]
+                 for r in range(TP_TRAIN_MESH[0][1])]
+        log({"phase": "tp_fused_draws", "run": "moe_fsdp",
+             "fused_draws_by_rank": fused,
+             "draws_by_rank": [results[r]["train"]["moe_fsdp"]["draws"]
+                               for r in range(MESH_RANKS)],
+             "adversary_launches_by_rank": [
+                 {k: sum(row["launches"].get(k, 0) for row in
+                         results[r]["train"]["moe_fsdp"]["rows"])
+                  for k in ("adversary", "adversary_map")}
+                 for r in range(MESH_RANKS)]})
         log({"phase": "tp_adversary_map", **adv_map})
         log({"phase": "tp_done", "ranks": MESH_RANKS, "backend": "gloo",
              "note": "gloo loopback through pinned host memory, 4 ranks on "
@@ -8295,6 +8709,195 @@ def run_phase19(torch, dev, errs, target=None) -> dict:
              "ranks_seconds": ranks_s,
              "subphase_seconds_by_rank": [results[r]["seconds"]
                                           for r in range(MESH_RANKS)],
+             "seconds": time.perf_counter() - t_start,
+             "smi": smi_line() if dev.type == "cuda" else None})
+        return launches
+    finally:
+        import shutil
+        shutil.rmtree(scratch, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 19h: M2 at qwen2-moe's published width, a world of 8 ranks
+# ---------------------------------------------------------------------------
+
+#: 19h's coordinates that differ away from zero are held to 1 % of a leaf
+#: (TP_LARGE_FLIP_SHARE), stated before its first card run: a routing flip
+#: at a near tie moves a token's gradient from one expert to another, and
+#: a flip in layer 0 moves the row's residual after it, so the
+#: coordinates those reach differ far from zero (a CPU rehearsal at
+#: reduced width with 60 experts, bf16: up to 0.5 % of a leaf, 1.6 % of a
+#: 256-coordinate bias). Its agreement bound (TP_VOTE_AGREE_FAMILY) was
+#: set after a reading, so it is not a prediction: the card read 95.2-97.9
+#: % a leaf against the 99 % stated before the run, 99.8 % of the
+#: differing coordinates where |m'| is under TP_FLIP_FRACTION of the
+#: leaf's largest and the rest at most 0.15 % of a leaf. At M = 1 each
+#: vote is one voter's sign, with no majority to absorb the bf16 rounding
+#: of an 8-way tensor-parallel step and its 590 routing flips; its loss
+#: agreed with the twin's within 1.7e-6
+#: 19h: qwen2-moe-a2.7b at every published width (d_model 2048, 16 heads,
+#: 16 kv heads, 60 routed experts of d_ff 1408, 4 shared of 5632, vocab
+#: 151,936), depth 24 -> 2, on a second world of TP8_RANKS processes
+#: sharing the card over gloo, (data 1, model 8): 60 % 8 != 0 and
+#: 1408 % 8 == 0, so the experts take the M2 form (176 d_ff columns of
+#: every expert a rank), the vocabulary 18,992 rows a rank. Its Mode A
+#: preset (``default_train_config``: bf16 momentum on psum_int8, batch 8,
+#: seq 512, remat full; microbatches 8 -> TP8_MICRO, as 19e cuts its
+#: presets', for the script's time) against the single-device M = 1 step,
+#: with 19d's and 19e's checks; then TP8_SERVE, held as 19f holds its
+#: qwen2-moe run: bf16 at 1 layer, as 19f's, beside a float32 twin (E / k
+#: capacity) at TP8_LAYERS. At 2 layers in bf16 a near-tie routing flip in
+#: layer 0 moves the row's residual, which layer 1 caches, so the row's
+#: logits leave the comparison; in the card's first 19h run every row of
+#: every prompt had one ("routing flips leave no row to compare"), while
+#: float32's ties (TP_ROUTE_TIE_F32) are rare enough to compare 2 layers
+TP8_RANKS = 8
+TP8_MESH = ((8,), ("model",))
+TP8_ARCH, TP8_LAYERS, TP8_MICRO = "qwen2-moe-a2.7b", 2, 4
+TP8_LABEL = "m2_model8"
+TP8_SERVE = (
+    ("qwen2_moe_model8", TP8_ARCH, 1, 0, TP8_LAYERS, 0, (8,), ("model",),
+     (64, 128, 192, 256), 512, 8),
+)
+TP8_TIMEOUT_S = 600
+
+
+def tp8_config():
+    """19h's cut of the qwen2-moe-a2.7b Mode A preset."""
+    from repro_torch.configs.base import (MomentumMode, ShapeCell,
+                                          VoteStrategy, get_config)
+    from repro_torch.configs.presets import default_train_config
+    cfg = dataclasses.replace(get_config(TP8_ARCH), num_layers=TP8_LAYERS)
+    preset = default_train_config(TP8_ARCH, ShapeCell(
+        "train_smoke", SEQ, GLOBAL_BATCH, "train"))
+    opt = preset.optimizer
+    if (opt.kind, opt.momentum_mode, opt.vote_strategy, opt.momentum_dtype,
+            preset.fsdp) != ("signum_vote", MomentumMode.PER_WORKER,
+                             VoteStrategy.PSUM_INT8, "bfloat16", False):
+        raise AssertionError(f"not the {TP8_ARCH} Mode A preset: {preset}")
+    return cfg, dataclasses.replace(preset, microbatches=TP8_MICRO)
+
+
+def tp8_rank(rank: int, init: str, scratch: str, dev_type: str,
+             queue) -> None:
+    """One rank of 19h's world (a spawned process); puts ``(rank,
+    results)`` on `queue`, or ``(rank, {"error": ...})``."""
+    import traceback
+    try:
+        queue.put((rank, tp8_rank_body(rank, init, scratch, dev_type)))
+    except BaseException:
+        queue.put((rank, {"error": traceback.format_exc()}))
+        raise
+
+
+def tp8_rank_body(rank: int, init: str, scratch: str, dev_type: str) -> dict:
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "src"))
+    import torch
+    import torch.distributed as dist
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed.mesh import ProcessMesh
+    from repro_torch.models import moe
+    from repro_torch.train import serve_step as SS
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(dev_type)
+    dist.init_process_group("gloo", init_method=init, rank=rank,
+                            world_size=TP8_RANKS)
+    try:
+        meshes = {}
+        for shape, axes in [TP8_MESH] + [(r[6], r[7]) for r in TP8_SERVE]:
+            if (shape, axes) not in meshes:
+                meshes[(shape, axes)] = ProcessMesh(shape, axes)
+        mesh = meshes[TP8_MESH]
+        cfg, tcfg = tp8_config()
+        form = moe.moe_form(cfg.moe, mesh.model)
+        if form != "M2":
+            raise AssertionError(f"19h rank {rank}: the experts take the "
+                                 f"{form} form over model {mesh.model}")
+        specs = SS.serve_param_shardings(cfg, mesh, fsdp=False)
+        shapes = cfg.param_shapes()
+        blocks = {k: [n // c for n, (_, c) in zip(shapes[k], shd.spec_block(
+            specs[k], mesh.coords, mesh.axis_sizes))]
+            for k in ("layers.experts_w_gate", "embed.table")}
+        out = {"train": {}, "serve": {}, "seconds": {}, "moe_form": form,
+               "blocks": blocks}
+        clock = [time.perf_counter()]
+
+        def lap(name):
+            now = time.perf_counter()
+            out["seconds"][name] = now - clock[0]
+            clock[0] = now
+        tp_train_rank(
+            torch, rank, mesh, cfg, tcfg, dev, TP8_LABEL,
+            lambda art, p: mesh_launches("psum_int8", rank, len(p), None),
+            lambda art, p: tp_psum_vote_bytes(p, mesh.size), scratch,
+            out["train"], True)
+        lap("19h_train")
+        tp_family_serve_rank(torch, rank, meshes, dev, scratch,
+                             out["serve"], TP8_SERVE)
+        lap("19h_serve")
+        dist.barrier()
+        return out
+    finally:
+        dist.destroy_process_group()
+
+
+def run_phase19h(torch, dev, errs, target=None) -> dict:
+    """Phase 19h, after phase 19's world has exited: the single-device
+    M = 1 twin and serving reference in this process, then a world of
+    TP8_RANKS processes on the card (gloo) trains and serves qwen2-moe in
+    the M2 form; every exact check raises on a rank or here. Returns the
+    ranks' summed kernel launches."""
+    import tempfile
+    t_start = time.perf_counter()
+    scratch = tempfile.mkdtemp(prefix="tp19h_")
+    gc.collect()
+    reset_peak(torch, dev)
+    try:
+        cfg, tcfg = tp8_config()
+        twin = tp_train_twin(torch, dev, scratch,
+                             [(TP8_LABEL, cfg, tcfg, True)], voters=1)
+        serve_ref = tp_family_serve_reference(torch, dev, scratch, TP8_SERVE)
+        log({"phase": "tp8_references_done",
+             "seconds": time.perf_counter() - t_start, **twin})
+        gc.collect()
+        reset_peak(torch, dev)
+        t_ranks = time.perf_counter()
+        results = spawn_ranks(target or tp8_rank, (scratch, dev.type),
+                              TP8_TIMEOUT_S, ranks=TP8_RANKS)
+        ranks_s = time.perf_counter() - t_ranks
+        results["scratch"] = scratch
+        forms = [results[r]["moe_form"] for r in range(TP8_RANKS)]
+        if forms != ["M2"] * TP8_RANKS:
+            raise AssertionError(f"19h: the experts' forms {forms}")
+        launches = {}
+        tp_check_train(torch, dev, results, (TP8_LABEL,), twin, TP8_RANKS,
+                       launches, errs)
+        votes = tp_check_votes(torch, dev, results,
+                               [(TP8_LABEL, "ternary2bit")],
+                               model=TP8_MESH[0][-1])
+        log({"phase": "tp8_votes", **votes,
+             "bounds": {"agree": TP_VOTE_AGREE,
+                        "flip_fraction": TP_FLIP_FRACTION}})
+        tp_log_serve(results, [(r[0], "bfloat16", r[8], r[9])
+                               for r in TP8_SERVE], serve_ref, TP8_RANKS)
+        train = [results[r]["train"][TP8_LABEL] for r in range(TP8_RANKS)]
+        log({"phase": "tp8_done", "ranks": TP8_RANKS, "backend": "gloo",
+             "mesh": list(TP8_MESH[0]), "axes": list(TP8_MESH[1]),
+             "moe_form_by_rank": forms,
+             "blocks_rank0": results[0]["blocks"],
+             "train_peak_bytes_by_rank": [t["peak_bytes"] for t in train],
+             "serve_peak_bytes_by_rank": [
+                 [v["peak_bytes"] for v in results[r]["serve"].values()]
+                 for r in range(TP8_RANKS)],
+             "step_s": [max(t["rows"][i]["ms"] for t in train) / 1e3
+                        for i in range(len(train[0]["rows"]))],
+             "note": "gloo loopback through pinned host memory, 8 ranks on "
+                     "one card; not a link",
+             "ranks_seconds": ranks_s,
+             "subphase_seconds_by_rank": [results[r]["seconds"]
+                                          for r in range(TP8_RANKS)],
              "seconds": time.perf_counter() - t_start,
              "smi": smi_line() if dev.type == "cuda" else None})
         return launches
@@ -8894,6 +9497,8 @@ def run_phases(torch, dev, pending: tuple, t_start: float) -> int:
     for k, v in run_phase18(torch, dev, errs).items():
         launches[k] += v
     for k, v in run_phase19(torch, dev, errs).items():
+        launches[k] = launches.get(k, 0) + v
+    for k, v in run_phase19h(torch, dev, errs).items():
         launches[k] = launches.get(k, 0) + v
     # the dry run launches no kernel; 20a's step on the card is phase 3's
     run_phase20(torch, cfg, dev, pending)

@@ -127,7 +127,8 @@ def encdec_precompute_cross(p: Dict[str, torch.Tensor], enc: torch.Tensor,
 
 def encdec_decode_step(p: Dict[str, torch.Tensor], h: torch.Tensor,
                        cache: Dict[str, torch.Tensor], pos, cfg, tp=None,
-                       seq_names=(), seq_len: int = 0, cross_names=()
+                       seq_names=(), seq_len: int = 0, cross_names=(),
+                       hook=None
                        ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """h (B,1,d), its sinusoidal position added by the caller; the cache
     from :func:`encdec_init_cache` with ``xk`` / ``xv`` filled. Each layer:
@@ -137,12 +138,15 @@ def encdec_decode_step(p: Dict[str, torch.Tensor], h: torch.Tensor,
     block: the self-attention's read as ``layers.decode_self_attention``
     reads it (`seq_names`, `seq_len`), the cross cache's by
     ``layers.decode_cross_attention`` (`cross_names`: the axes of its
-    rows, none when heads-sharded or whole)."""
+    rows, none when heads-sharded or whole). `hook(layer, "layers")`
+    gathers each decoder layer's FSDP slices as the layer runs."""
     lp = {k: v.unbind(0) for k, v in _layer_tree(p, "layers.").items()}
     layers = {k: v.unbind(0) for k, v in cache.items()}
     pos = L.decode_positions(pos, h.shape[0], h.device)
     for i in range(cfg.num_layers):
         layer_p = {n: v[i] for n, v in lp.items()}
+        if hook is not None:
+            layer_p = hook(layer_p, "layers")
         x = L.rms_norm(h, layer_p["norm1_scale"], cfg.norm_eps)
         h = h + L.decode_self_attention(
             layer_p, "attn", x, cfg, k_cache=layers["k"][i],

@@ -177,12 +177,16 @@ def hybrid_init_cache(cfg, batch: int, max_len: int, dtype: torch.dtype,
 def mamba_decode_layers(lp: Dict[str, Tuple[torch.Tensor, ...]],
                         h: torch.Tensor,
                         cache: Dict[str, Tuple[torch.Tensor, ...]], cfg,
-                        start: int, end: int, tp=None) -> torch.Tensor:
+                        start: int, end: int, tp=None, hook=None
+                        ) -> torch.Tensor:
     """Layers [start, end) of the unbound layer tree `lp`, one token each:
     a pre-norm mamba decode step with its residual, each layer's slice of
-    the unbound ``cache["ssm"]`` / ``cache["conv"]`` advanced in place."""
+    the unbound ``cache["ssm"]`` / ``cache["conv"]`` advanced in place;
+    `hook(layer, "layers")` gathers a layer's FSDP slices as it runs."""
     for i in range(start, end):
         layer_p = {n: v[i] for n, v in lp.items()}
+        if hook is not None:
+            layer_p = hook(layer_p, "layers")
         x = L.rms_norm(h, layer_p["norm1_scale"], cfg.norm_eps)
         h = h + mamba2_decode_step(
             layer_p, x, {"ssm": cache["ssm"][i], "conv": cache["conv"][i]},
@@ -192,20 +196,22 @@ def mamba_decode_layers(lp: Dict[str, Tuple[torch.Tensor, ...]],
 
 def hybrid_decode_step(p: Dict[str, torch.Tensor], h: torch.Tensor,
                        cache: Dict[str, torch.Tensor], pos, cfg, tp=None,
-                       seq_names=(), seq_len: int = 0
+                       seq_names=(), seq_len: int = 0, hook=None
                        ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """h (B,1,d) through each segment's mamba layers and, after a full
     segment, the shared block against its call's KV slot; `pos` one
     position (scalar) or one a row (B,). The cache is advanced in place;
     returns (h, cache). Over a model group `tp` the cache is the rank's
     block (the KV slots' as ``layers.decode_self_attention`` reads them,
-    `seq_names` / `seq_len`)."""
+    `seq_names` / `seq_len`). `hook(layer, "layers")` gathers each mamba
+    layer's FSDP slices; the shared block's leaves, which have no layer
+    axis, are the caller's to gather (its "top" scope)."""
     lp, sp = _unbound_layers(p), _layer_tree(p, "shared_block.")
     layers = {k: v.unbind(0) for k, v in cache.items()}
     pos = L.decode_positions(pos, h.shape[0], h.device)
     call = 0
     for start, end, shared_after in _segments(cfg):
-        h = mamba_decode_layers(lp, h, layers, cfg, start, end, tp)
+        h = mamba_decode_layers(lp, h, layers, cfg, start, end, tp, hook)
         if shared_after:
             x = L.rms_norm(h, sp["norm1_scale"], cfg.norm_eps)
             kc, vc = layers["attn_k"][call], layers["attn_v"][call]

@@ -188,6 +188,14 @@ def _embed_input(cfg: ModelConfig, params: Dict[str, torch.Tensor],
     return tok
 
 
+def _top_leaves(params: Dict[str, torch.Tensor]
+                ) -> Dict[str, torch.Tensor]:
+    """The leaves outside the stacked layers (the ZeRO-3 hook's "top"
+    scope): the tables, the final norm, the hybrid's shared block."""
+    return {k: v for k, v in params.items()
+            if not k.startswith(("layers.", "encoder."))}
+
+
 def _final_hidden(cfg: ModelConfig, params: Dict[str, torch.Tensor],
                   batch: Dict[str, torch.Tensor], hook, remat: str, tp=None
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, Any]:
@@ -199,9 +207,7 @@ def _final_hidden(cfg: ModelConfig, params: Dict[str, torch.Tensor],
     if tp is not None:
         check_model_axis(cfg, tp.model)
     if hook is not None:
-        top = {k: v for k, v in params.items()
-               if not k.startswith(("layers.", "encoder."))}
-        params = {**params, **hook(top, "top")}
+        params = {**params, **hook(_top_leaves(params), "top")}
     table = params.get("unembed.table", params["embed.table"])
     vtp = L.vocab_group(table, cfg.vocab_size, tp)
     aux = None
@@ -352,9 +358,7 @@ def prefill(cfg: ModelConfig, params: Dict[str, torch.Tensor],
                                              "none", tp)
             return L.unembed(table, h, vtp), cache
     if hook is not None:
-        top = {k: v for k, v in params.items()
-               if not k.startswith(("layers.", "encoder."))}
-        params = {**params, **hook(top, "top")}
+        params = {**params, **hook(_top_leaves(params), "top")}
     if cfg.family == ArchFamily.AUDIO:
         enc = encdec.encoder_forward(params, _frames(cfg, batch), cfg,
                                      hook=hook, tp=tp)
@@ -388,17 +392,15 @@ def decode_step(cfg: ModelConfig, params: Dict[str, torch.Tensor],
     where the table is) and the cache its block of the serving layout:
     the self-attention cache's rows those the axes `seq_names` give it
     within its `seq_len` (``layers.decode_self_attention``), the cross
-    cache's those of `cross_names`. `hook` (the decoder-only archs')
-    gathers each layer's FSDP slices (``core.majority_vote.
-    make_fsdp_hooks``)."""
+    cache's those of `cross_names`. `hook` gathers the FSDP slices
+    (``core.majority_vote.make_fsdp_hooks``): the top-level leaves' (the
+    hybrid's shared block among them) once, each decoder layer's as the
+    layer runs."""
     tp = L.model_group(tp)
     if tp is not None:
         check_model_axis(cfg, tp.model)
-    if hook is not None and cfg.family not in (ArchFamily.DENSE,
-                                               ArchFamily.MOE,
-                                               ArchFamily.VLM):
-        raise NotImplementedError(
-            f"an FSDP-sharded decode of the {cfg.family.value} family")
+    if hook is not None:
+        params = {**params, **hook(_top_leaves(params), "top")}
     table = params["embed.table"]
     h = L.embed_tokens(table, tokens, L.vocab_group(table, cfg.vocab_size,
                                                     tp))
@@ -408,16 +410,16 @@ def decode_step(cfg: ModelConfig, params: Dict[str, torch.Tensor],
             h.dtype)
         h, cache = encdec.encdec_decode_step(
             params, h, cache, pos, cfg, tp=tp, seq_names=seq_names,
-            seq_len=seq_len, cross_names=cross_names)
+            seq_len=seq_len, cross_names=cross_names, hook=hook)
     elif cfg.family == ArchFamily.SSM:
         h = hybrid.mamba_decode_layers(
             hybrid._unbound_layers(params), h,
             {k: v.unbind(0) for k, v in cache.items()}, cfg, 0,
-            cfg.num_layers, tp)
+            cfg.num_layers, tp, hook)
     elif cfg.family == ArchFamily.HYBRID:
         h, cache = hybrid.hybrid_decode_step(params, h, cache, pos, cfg,
                                              tp=tp, seq_names=seq_names,
-                                             seq_len=seq_len)
+                                             seq_len=seq_len, hook=hook)
     else:
         h, cache = transformer.decoder_decode_step(
             params, h, cache, pos, cfg, tp=tp, seq_names=seq_names,

@@ -215,9 +215,12 @@ def make_decode_step(cfg: ModelConfig,
     are every row's, on every rank (see the module doc). With `fsdp` the
     parameters are the rank's blocks of the FSDP layout
     (``serve_param_shardings(..., fsdp=True)``, the reference's serving
-    layout of the Mode B archs) and each decoder layer's slices are
-    gathered as the layer runs (the ZeRO-3 hooks, as
-    :func:`make_prefill_sharded`'s)."""
+    layout of the Mode B archs), gathered over the vote axes by the
+    ZeRO-3 hooks as :func:`make_prefill_sharded`'s are, for every family:
+    the top-level leaves once a tick (the hybrid's shared block), each
+    layer's as the layer runs. After the gather a rank holds its
+    plain-layout block of each leaf, so a tick equals the plain layout's
+    bit for bit."""
     if mesh is None:
         def step(params, tokens, cache, pos):
             return M.decode_step(cfg, params, tokens, cache, pos)

@@ -428,10 +428,40 @@ def test_a_step_on_meta_hands_the_axes_what_gloo_ranks_do(wire_record,
 
 def test_the_fsdp_layout_decodes_as_the_plain_layout(wire_record):
     """The repair the Mode B archs' decode cells forced
-    (``make_decode_step(..., fsdp=True)``): two ticks bit-equal to the
-    plain layout's on the harness's (data 2, model 2) ranks."""
-    assert [r["decode_fsdp"] for r in wire_record] == [True] * 4 + [
+    (``make_decode_step(..., fsdp=True)``), since extended to the SSM,
+    hybrid and encoder-decoder families: the batch-sharded prefill and two
+    ticks bit-equal to the plain layout's on the harness's (data 2, model
+    2) ranks, for every arch of the harness's list."""
+    import torch_mesh_harness as H
+    assert [bool(r["decode_fsdp"]) for r in wire_record] == [True] * 4 + [
         False] * 4
+    for r in wire_record[:4]:
+        assert tuple(r["decode_fsdp"]) == H.DECODE_FSDP_ARCHS
+
+
+@pytest.mark.parametrize("arch", ["qwen1.5-32b", "mamba2-2.7b",
+                                  "zamba2-1.2b", "whisper-tiny"])
+def test_an_fsdp_tick_hands_the_axes_the_layouts_count(wire_record, arch):
+    """Each tick's bytes on the vote axes (the rows' logits and the ZeRO-3
+    gathers) and on the model group, on each (data 2, model 2) rank of the
+    harness, over the FSDP layout and the plain one:
+    ``chip_smoke.tp_fsdp_tick_bytes``'s count of the rank's layout (the
+    card's 19f holds its ranks to the same count)."""
+    import chip_smoke
+    cfg = tpc.reduced(arch)
+    for rank in range(4):
+        got = wire_record[rank]["decode_fsdp"][arch]
+        with tpc.fake_world(8, rank=rank):
+            mesh = pm.ProcessMesh((2, 2), ("data", "model"))
+            for fsdp in (False, True):
+                want = chip_smoke.tp_fsdp_tick_bytes(
+                    cfg, mesh, got["batch"], got["seq_sharded"],
+                    got["cross_sharded"], fsdp=fsdp)
+                assert got["fsdp" if fsdp else "plain"] == [want] * 2, (
+                    rank, fsdp)
+        # the gathers are the only difference, and there are some
+        assert got["fsdp"][0]["vote"] > got["plain"][0]["vote"]
+        assert got["fsdp"][0]["model"] == got["plain"][0]["model"]
 
 
 # ---------------------------------------------------------------------------

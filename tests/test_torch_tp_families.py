@@ -131,6 +131,37 @@ def test_the_families_hold_to_their_stacked_twins(scratch):
         assert sum(rank["routes"].values()) <= 2, rank["routes"]
 
 
+def test_m2_at_model_8_hands_the_model_group_the_layouts_count(
+        scratch, monkeypatch):
+    """qwen2-moe's M2 form (its reduced 4 experts over a model axis of 8:
+    every expert's d_ff columns a rank) on the harness's 8 gloo ranks:
+    each step's measured model-group bytes are ``chip_smoke.tp_bytes``'s
+    count of the layout, whose MoE term does not depend on the form (the
+    card's 19h holds its 8 ranks to the same count at published width)."""
+    sys.path.insert(0, str(ROOT))
+    sys.path.insert(0, str(HERE))
+    import chip_smoke
+    import torch_mesh_harness as H
+    with open(scratch / "tp_families_record.pkl", "rb") as f:
+        every = pickle.load(f)["tp_families"]
+    label, _, arch, opt, extra, over = next(
+        c for c in H._tpf_cfgs() if c[0] == "moe_m2_seq")
+    cfg = dataclasses.replace(tbase.reduced_config(tbase.get_config(arch)),
+                              dtype="float32", **over)
+    tcfg = tbase.TrainConfig(global_batch=H.TP_GB, seq_len=H.TP_SEQ,
+                             optimizer=opt, **extra)
+    assert tmoe.moe_form(cfg.moe, 8) == "M2"
+    # the harness sums by blocks at every size, as the card's large sums
+    from repro_torch.distributed import mesh as pm
+    monkeypatch.setattr(pm, "A2A_MIN_BYTES", 0)
+    with fake_world(8):
+        want = chip_smoke.tp_bytes(cfg, tcfg, ProcessMesh((8,), ("model",)),
+                                   H.TP_FRAMES)
+    assert want > 0
+    for rank in every:
+        assert rank["model_bytes"][label] == [want] * H.STEPS
+
+
 @pytest.mark.parametrize("label", ["qwen3_mode_b_fsdp", "mamba2_mode_a"])
 def test_the_checkpoint_files_are_the_stacked_runs(scratch, label):
     # the harness saved the mesh run's state and the stacked save of the

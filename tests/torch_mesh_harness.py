@@ -1168,51 +1168,16 @@ class AdversaryRecorder:
         self.mod.evil_signs_ = self.orig
 
 
-class BlockDraws:
+def BlockDraws(specs, parts):
     """Within the block, the stacked twin's fused ZeRO backward draws an
     adversary's signs of every leaf that `specs` cut over ``"model"``
-    block by block, each of the `parts` blocks (of each layer of a stacked
-    leaf) drawn as a whole from counter 0: what the reference's fused
-    backward draws on each model rank, inside its region manual over
-    ``"model"``. Other leaves draw as the twin does."""
-
-    def __init__(self, specs, parts):
-        self.specs, self.parts, self.leaf = specs, parts, None
-
-    def __enter__(self):
-        from repro_torch.core import byzantine
-        from repro_torch.core import majority_vote as mv
-        from repro_torch.core import sign_compress as sc
-        from repro_torch.train import train_step as TS
-        self.mv, self.orig = mv, mv.fused_signs
-        self.cls, self.call = TS.StackedFusedVote, TS.StackedFusedVote.__call__
-        ctx, call = self, self.call
-
-        def named(vote, i, k, g):
-            ctx.leaf = k
-            return call(vote, i, k, g)
-
-        def fused_signs(g, byz, replica, rows=1):
-            spec = ctx.specs.get(ctx.leaf, ())
-            if "model" not in spec or byz is None or byz.mode == "none" \
-                    or replica >= byz.num_adversaries:
-                return ctx.orig(g, byz, replica, rows)
-            s = sc.sign_ternary(g)
-            dim = spec.index("model")
-            width = s.shape[dim] // ctx.parts
-            for j in range(ctx.parts):
-                blk = s.narrow(dim, j * width, width).contiguous()
-                byzantine.evil_signs_(blk.view(rows, -1), byz,
-                                      [replica] * rows, step=None)
-                s.narrow(dim, j * width, width).copy_(blk)
-            return s
-        TS.StackedFusedVote.__call__ = named
-        mv.fused_signs = fused_signs
-        return self
-
-    def __exit__(self, *exc):
-        self.mv.fused_signs = self.orig
-        self.cls.__call__ = self.call
+    block by block, each of the `parts` blocks drawn as a whole from
+    counter 0, as the reference's fused backward draws on each model rank:
+    ``chip_smoke.TwinBlockDraws``, the card's phase 19d's twin."""
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__))))
+    import chip_smoke
+    return chip_smoke.TwinBlockDraws(specs, parts)
 
 
 def check_draws(what, byz, voter, mine, theirs, match):
@@ -1280,15 +1245,16 @@ def check_draws(what, byz, voter, mine, theirs, match):
 
 
 def tp_train_case(label, mesh, cfg, tcfg, record=None, routes=None,
-                  draws=None):
+                  draws=None, wire=None):
     """STEPS steps of the model-axis train step over `mesh`, each from the
     state its stacked twin takes too (the mesh's, joined), held to the
     twin as ``check_tp`` sets out; `record`, when given, is called with
     (step, mesh params, mesh state) after each step; `draws` (a
     :func:`check_draws` match) holds the adversary's draws to the twin's
     and, under a plan, the vote axes' bytes to
-    ``chip_smoke.tp_plan_vote_bytes``. Returns the count of coordinates
-    whose vote flipped."""
+    ``chip_smoke.tp_plan_vote_bytes``; `wire`, a list, takes each step's
+    model-group bytes. Returns the count of coordinates whose vote
+    flipped."""
     from repro_torch.data.pipeline import SyntheticLMPipeline
     from repro_torch.distributed import mesh as pm
     from repro_torch.distributed import sharding as shd
@@ -1340,6 +1306,8 @@ def tp_train_case(label, mesh, cfg, tcfg, record=None, routes=None,
                 f"tp {label} step {step}: the model group took "
                 f"{mesh.model_stats.bytes} bytes, the layout's count "
                 f"is {tp_bytes(cfg, tcfg, mesh)}")
+        if wire is not None:
+            wire.append(mesh.model_stats.bytes)
         for key in ("loss", "ce", "vote_agreement", "vote_margin"):
             if key in tmet:
                 got, exp = float(met[key]), float(tmet[key])
@@ -2177,7 +2145,7 @@ def check_tp_families(rank):
     meshes = {name: ProcessMesh(shape, axes)
               for name, shape, axes in TP_MESHES}
     pm.A2A_MIN_BYTES, default = 0, pm.A2A_MIN_BYTES
-    flips, routes = {}, {}
+    flips, routes, wire = {}, {}, {}
     only = os.environ.get("TPF_ONLY")
     for label, mname, arch, opt, extra, over in _tpf_cfgs():
         if only and only not in label:
@@ -2187,15 +2155,17 @@ def check_tp_families(rank):
         tcfg = base.TrainConfig(global_batch=TP_GB, seq_len=TP_SEQ,
                                 optimizer=opt, **extra)
         mesh = meshes[mname]
+        wire[label] = []
         with RouteRecorder() as rec:
             flips[label] = tp_train_case(label, mesh, cfg, tcfg,
-                                         routes=rec)
+                                         routes=rec, wire=wire[label])
         routes[label] = rec.flips
         if rank == 0:
             print(f"  tp_families {label}", flush=True)
     pm.A2A_MIN_BYTES = default
     every = [None] * WORLD
-    dist.all_gather_object(every, {"flips": flips, "routes": routes})
+    dist.all_gather_object(every, {"flips": flips, "routes": routes,
+                                   "model_bytes": wire})
     if rank == 0:
         RECORD["tp_families"] = every
     if not only or only == "serve":
@@ -2268,45 +2238,84 @@ def check_seq_rows_whole(mesh):
     return gap
 
 
+#: the archs whose serving over the FSDP layout ``check_decode_fsdp``
+#: holds to the plain layout's: a decoder-only Mode B arch and the SSM,
+#: hybrid and encoder-decoder families
+DECODE_FSDP_ARCHS = ("qwen1.5-32b", "mamba2-2.7b", "zamba2-1.2b",
+                     "whisper-tiny")
+
+
 def check_decode_fsdp(mesh):
-    """The decode step over the FSDP layout (the dry run's serving layout
-    of the Mode B archs) bit-equal to the step over the plain layout, on a
-    member of `mesh`: the logits and the cache block after two ticks.
-    Returns whether it ran (False off the mesh)."""
+    """Serving over the FSDP layout (the dry run's serving layout of the
+    Mode B archs) bit-equal to serving over the plain layout, on a member
+    of `mesh`, for each DECODE_FSDP_ARCHS config (reduced, float32): the
+    batch-sharded prefill's logits and cache block, then, from the
+    re-homed cache, two ticks' logits and the cache block after each.
+    Returns {arch: {"fsdp": [{"vote", "model"} bytes of each tick], "plain":
+    the same, "batch", "seq_sharded", "cross_sharded"}}, or False off the
+    mesh."""
     import torch_tp_common as tpc
+    from repro_torch.configs.base import ArchFamily
     from repro_torch.distributed import sharding as shd
     from repro_torch.models import model as M
     from repro_torch.train import serve_step as SS
     if not mesh.member:
         return False
-    cfg = tpc.reduced("qwen1.5-32b")
-    B, T = 4, 16
-    full = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
-    cache = M.init_cache(cfg, B, T, device="cpu")
-    cspecs = SS.cache_shardings(cfg, cache, mesh)
-    if not shd.fused_dims(SS.serve_param_shardings(cfg, mesh, fsdp=True)):
-        raise AssertionError("the FSDP layout shards no leaf")
-    got = {}
-    for fsdp in (False, True):
-        specs = SS.serve_param_shardings(cfg, mesh, fsdp=fsdp)
-        params = {k: v.clone() for k, v in shd.shard_tree(
-            full, specs, coords=mesh.coords, sizes=mesh.axis_sizes).items()}
-        block = {k: v.clone() for k, v in shd.shard_tree(
-            cache, cspecs, coords=mesh.coords, sizes=mesh.axis_sizes).items()}
-        step = SS.make_decode_step(cfg, mesh=mesh, max_len=T, fsdp=fsdp)
+    B, S, T, frames = 4, 6, 16, 8
+    out = {}
+    for arch in DECODE_FSDP_ARCHS:
+        cfg = tpc.reduced(arch)
+        full = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+        if not shd.fused_dims(SS.serve_param_shardings(cfg, mesh,
+                                                        fsdp=True)):
+            raise AssertionError(f"{arch}: the FSDP layout shards no leaf")
         gen = torch.Generator().manual_seed(1)
-        logits = []
-        for pos in (0, 1):
-            tokens = torch.randint(0, cfg.vocab_size, (B, 1), generator=gen)
-            out, block = step(params, tokens, block, pos)
-            logits.append(out)
-        got[fsdp] = (logits, block)
-    for i, (a, b) in enumerate(zip(got[False][0], got[True][0])):
-        _eq(f"decode over the FSDP layout, tick {i}", b, a)
-    for k in got[False][1]:
-        _eq(f"decode over the FSDP layout, cache {k}", got[True][1][k],
-            got[False][1][k])
-    return True
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S),
+                                         generator=gen)}
+        if cfg.family == ArchFamily.AUDIO:
+            batch["enc_embeds"] = torch.randn((B, frames, cfg.d_model),
+                                              generator=gen)
+        ticks = [torch.randint(0, cfg.vocab_size, (B, 1), generator=gen)
+                 for _ in range(2)]
+        glob = SS._global_shapes(cfg, B, T)
+        lspec = {k: SS.cache_leaf_spec(k, v, mesh.axis_sizes)
+                 for k, v in glob.items()}
+        attn = next((lspec[k] for k in ("k", "attn_k") if k in lspec), None)
+        got = {}
+        for fsdp in (False, True):
+            specs = SS.serve_param_shardings(cfg, mesh, fsdp=fsdp)
+            params = {k: v.clone() for k, v in shd.shard_tree(
+                full, specs, coords=mesh.coords,
+                sizes=mesh.axis_sizes).items()}
+            logits, caches, wire = [], [], []
+            lg, cache = SS.make_prefill_sharded(
+                cfg, mesh, fsdp=fsdp, global_batch=B)(params, batch)
+            logits.append(lg)
+            caches.append({k: v.clone() for k, v in cache.items()})
+            cache = SS.make_cache_rehome(cfg, B, T, mesh=mesh)(
+                cache, S, frames)
+            step = SS.make_decode_step(cfg, mesh=mesh, max_len=T,
+                                       fsdp=fsdp)
+            for i, tok in enumerate(ticks):
+                mesh.reset_stats()
+                lg, cache = step(params, tok, cache, S + i)
+                wire.append({"vote": mesh.stats.bytes,
+                             "model": mesh.model_stats.bytes})
+                logits.append(lg)
+                caches.append({k: v.clone() for k, v in cache.items()})
+            got[fsdp] = (logits, caches, wire)
+        names = ["prefill"] + [f"tick {i}" for i in range(len(ticks))]
+        for i, what in enumerate(names):
+            _eq(f"{arch} over the FSDP layout, {what}'s logits",
+                got[True][0][i], got[False][0][i])
+            for k, v in got[False][1][i].items():
+                _eq(f"{arch} over the FSDP layout, {what}'s cache {k}",
+                    got[True][1][i][k], v)
+        out[arch] = {"fsdp": got[True][2], "plain": got[False][2],
+                     "batch": B, "seq_sharded": bool(attn and attn[2]),
+                     "cross_sharded": bool("xk" in lspec
+                                           and lspec["xk"][2])}
+    return out
 
 
 CHECKS = (("votes", check_votes), ("plans", check_plans),
