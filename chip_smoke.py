@@ -254,8 +254,7 @@ Phases, each of which fails the run (non-zero exit) on any disagreement:
    signs of the 4 voters' gradients); then remat "dots" for 2 steps (losses
    bit-equal to nested's) and the sgd preset with fsdp for 2; the step ms
    and each run's peak; (b) 4 spawned processes on the card over gloo, one
-   voter each (as phase 14), cut to 1 layer, 1 microbatch (2 before 19h)
-   and batch 8:
+   voter each (as phase 14), cut to 1 layer, 2 microbatches and batch 8:
    the preset on pod 2 x data 2 with one sign_flip voter for 2 steps and
    sgd with fsdp on data 4 for 1, every rank's losses and checksums of its
    parameter and momentum slices equal to the stacked twin's slices (sgd:
@@ -334,7 +333,7 @@ Phases, each of which fails the run (non-zero exit) on any disagreement:
    ticks, peak memory; 4 of the requests by inline admission (token
    agreement and the largest logit gap printed). A float32 2-layer twin
    of the engine serves all 24, every lane equal to its request served
-   alone, and its inline admission equals its prefill admission. 18b, qwen1.5-32b at every published width and 4
+   alone, and its inline admission equals its prefill admission. 18b, qwen1.5-32b at every published width and 8
    of its 64 layers (32 until phase 20 joined the script, 16 until 19h did), its int8 KV cache: 4 slots, max_len 8192, prompts of
    4,200-4,600 tokens through one prefill bucket of 4608 and 32 tokens
    each (the chunked online-softmax decode over two KV_CHUNKs); the
@@ -347,7 +346,7 @@ Phases, each of which fails the run (non-zero exit) on any disagreement:
    admission), phases 16's and 17's depths, at every published width behind 4 slots, every lane equal
    to its request served alone, and whisper-tiny's batch loop with
    stubbed frames (each row equal to itself served alone); each arch's
-   float32 twin decoding 16 teacher-forced steps (64 before 19h) against its
+   float32 twin decoding 32 teacher-forced steps (64 before 19h) against its
    forward_logits at the CPU tests' rtol / atol 2e-3; ms per tick,
    tokens/s and peak memory printed. 18d, an engine serving glm4-9b's
    width at 2 layers while the port's launcher (in process, cut to the
@@ -452,8 +451,10 @@ Phases, each of which fails the run (non-zero exit) on any disagreement:
    published width, 2 layers, its experts in the M2 form on every rank
    (checked): its Mode A preset (4 microbatches) against the single-device
    M = 1 step with 19d's and 19e's checks (its vote bounds in
-   TP_VOTE_AGREE_FAMILY / TP_LARGE_FLIP_SHARE), then TP8_SERVE's 8 ticks
-   against the single-device tick (bf16 at 1 layer, float32 at 2).
+   TP_VOTE_AGREE_FAMILY / TP_LARGE_FLIP_SHARE), its float32 twin (1
+   microbatch) held as 19e's are, with every routing difference at a
+   float32 near tie and none excused, then TP8_SERVE's 8 ticks against
+   the single-device tick (bf16 at 1 layer, float32 at 2).
 
 20. the dry run (``repro_torch.launch.dryrun``: a step built and run on
    the "meta" device, its FLOPs, bytes, memory, collectives and launches
@@ -4136,10 +4137,8 @@ FSDP_STEPS, FSDP_DOTS_STEPS, FSDP_SGD_STEPS = 3, 2, 2
 #: the fused leaf whose step-0 vote is recomputed by plain PyTorch
 FSDP_LEAF = "layers.attn_wq"
 #: phase 15b's cuts (four ranks in 80 GB, gloo on loopback): microbatches
-#: 8 -> 2 (-> 1 when 19h and 19f's FSDP runs joined the script, for its
-#: time; 15a's stacked preset keeps 8 over M = 4), batch 32 -> 8, depth
-#: 2 -> 1
-FSDP_MESH_MICRO, FSDP_MESH_BATCH, FSDP_MESH_LAYERS = 1, 8, 1
+#: 8 -> 2, batch 32 -> 8, depth 2 -> 1
+FSDP_MESH_MICRO, FSDP_MESH_BATCH, FSDP_MESH_LAYERS = 2, 8, 1
 #: phase 15b's runs: (label, mesh shape, axes, train changes, steps)
 FSDP_MESH_RUNS = (
     ("mode_b_pod2x2_sign_flip", (2, 2), ("pod", "data"),
@@ -4524,10 +4523,9 @@ def fsdp_mesh_bytes(cfg, label: str, shape, dims: dict, remat: bool,
     or bf16 for the dense mean) and the count slice summed over pod; the
     other leaves on hierarchical (int8 counts padded to 32 x data, their
     pod sum and the packed all-gather) or, for sgd, all-reduced in float32
-    (the accumulator's dtype; over one microbatch nothing is accumulated
-    and the bf16 gradient goes as it is); and per step the order check
-    (16 B) and the metrics (12 B). `shapes` replaces the leaves' shapes (a
-    rank's model blocks, phase 19d), `micro` the microbatches."""
+    (the accumulator's dtype); and per step the order check (16 B) and the
+    metrics (12 B). `shapes` replaces the leaves' shapes (a rank's model
+    blocks, phase 19d), `micro` the microbatches."""
     shapes = shapes or cfg.param_shapes()
     data = shape[-1]
     pod = shape[0] if len(shape) == 2 else 1
@@ -4543,7 +4541,7 @@ def fsdp_mesh_bytes(cfg, label: str, shape, dims: dict, remat: bool,
                 layer += per_layer // data * (2 if sgd else 1)
             fused += layer * s[0]
         elif sgd:
-            raw += (4 if micro > 1 else 2) * n
+            raw += 4 * n
         else:
             pad = -(-n // (32 * data)) * 32 * data
             raw += pad + (pad // data if pod > 1 else 0) + pad // (8 * data)
@@ -4866,9 +4864,12 @@ def run_launcher_path(torch, dev, scratch: str, err,
          "seconds": time.perf_counter() - t0})
     reduced = list(LAUNCH_REDUCED) + device
     # the uninterrupted run beside the killed and resumed ones (its own
-    # trace; the card holds both reduced models)
-    whole = launcher(reduced + ["--trace", os.path.join(scratch, "a.jsonl")],
-                     stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+    # trace and output file; the card holds both reduced models)
+    whole_out = os.path.join(scratch, "a.out")
+    with open(whole_out, "w") as f:
+        whole = launcher(reduced + ["--trace",
+                                    os.path.join(scratch, "a.jsonl")],
+                         stdout=f, stderr=subprocess.STDOUT)
     try:
         ckpt = os.path.join(scratch, "ckpt")
         for attempt in range(3):
@@ -4889,14 +4890,14 @@ def run_launcher_path(torch, dev, scratch: str, err,
             raise AssertionError(f"resume exit {resumed.returncode}:\n"
                                  f"{resumed.stdout[-2000:]}\n"
                                  f"{resumed.stderr[-4000:]}")
-        _, err_text = whole.communicate(timeout=LAUNCH_TIMEOUT_S)
-        if whole.returncode != 0:
-            raise AssertionError(f"launcher exit {whole.returncode}:\n"
-                                 f"{err_text[-4000:]}")
+        if whole.wait(timeout=LAUNCH_TIMEOUT_S) != 0:
+            with open(whole_out) as f:
+                raise AssertionError(f"launcher exit {whole.returncode}:\n"
+                                     f"{f.read()[-4000:]}")
     finally:
         if whole.poll() is None:
             whole.kill()
-            whole.communicate()
+            whole.wait()
     a = trace_losses(os.path.join(scratch, "a.jsonl"))
     b = trace_losses(os.path.join(scratch, "b.jsonl"))
     if sorted(b) != [2, 3] or any(b[s] != a[s] for s in b):
@@ -5634,11 +5635,11 @@ SERVE_INLINE = 4
 #: (:func:`solo_lanes`); the float32 2-layer twin holds every lane
 SERVE_SOLO_FULL = 3
 #: 18b: qwen1.5-32b at a quarter of its depth (64 -> 32 layers for memory,
-#: then 16 for the script's time when phase 20 joined it, and 4 when 19h
+#: then 16 for the script's time when phase 20 joined it, and 8 when 19h
 #: and 19f's FSDP runs did), its int8 KV cache past two KV_CHUNKs; the
 #: reference test's bound on its logits against a bf16-cache twin
 #: (relative at max(|logit|, 1))
-SERVE_INT8_DEPTH = 4
+SERVE_INT8_DEPTH = 8
 SERVE_INT8 = dict(n_slots=4, max_len=8192, prompt_pad=4608, admit="prefill",
                   prefill_buckets=(4608,))
 SERVE_INT8_TRAFFIC = dict(n_requests=4, rate=1.0,
@@ -5664,8 +5665,8 @@ SERVE_ZOO_SLOTS = 4
 #: at the CPU tests' bound (rtol / atol 2e-3, tests/test_torch_decode.py);
 #: the decoder-only twins first prefill SERVE_TF_PREFIX tokens (gemma3's
 #: past its window); 64 steps before 19h and 19f's FSDP runs joined the
-#: script, 16 since, for its time
-SERVE_TF_STEPS, SERVE_TF_RTOL = 16, 2e-3
+#: script, 32 since, for its time
+SERVE_TF_STEPS, SERVE_TF_RTOL = 32, 2e-3
 SERVE_TF_PREFIX = {"gemma3-12b": 1100}
 #: whisper-tiny's batch loop: rows, prompt length, tokens generated
 SERVE_AUDIO = (4, 32, 32)
@@ -6363,7 +6364,7 @@ TP_LARGE_FLIP_SHARE = {"zamba2-1.2b": 0.05, "m2_model8": 0.01}
 #: 19d: qwen3-moe-235b-a22b's Mode B fsdp preset at every published width,
 #: 1 layer, seq 512, batch 8, 1 microbatch (its preset's 4 cut to 2 to fit
 #: 4 rows a voter, then to 1 for the script's time: the fused gathers run
-#: once a microbatch; the stacked 15a drives 8), on (data 2, model
+#: once a microbatch; phase 15b drives 2 over a mesh), on (data 2, model
 #: 2): the experts in the EP form (64 a rank), grouped attention (4 kv
 #: heads over 2), its 4-D fused expert leaves carrying both axes; step 0, step 0 again from a saved state,
 #: step 1. It replaces the earlier 19b (qwen1.5-32b's Mode B fsdp preset),
@@ -7414,8 +7415,8 @@ class RouteRecorder:
 
 
 def route_flips(torch, what: str, mine: list, twin: list, tie: float,
-                seq: int = 1, depth: int = 0, excused=None, group: int = 0
-                ) -> tuple:
+                seq: int = 1, depth: int = 0, excused=None, group: int = 0,
+                carried: bool = True) -> tuple:
     """The tokens whose experts in the calls `mine` differ from the calls
     `twin` (the same calls, in order), each required at a near tie: the
     twin's relative top-k margin under `tie`; a token whose slot was
@@ -7426,7 +7427,9 @@ def route_flips(torch, what: str, mine: list, twin: list, tie: float,
     attention, at the row's later ones: there a token may differ at any
     margin, as in a row of `excused` (a bool a row: touched in an earlier
     tick). A forward is `group` calls (default all of them; a train step's
-    microbatch with its recompute). Returns the count of flips and two
+    microbatch with its recompute). With `carried` False nothing is
+    excused: every difference must be at a near tie (the float32 twins,
+    whose ties are rare enough). Returns the count of flips and two
     bool tensors, one entry a row of the calls' tokens (`seq` tokens a
     row): `own`, where a flip or a moved drop touched the row's last token
     (its own logits move), and `carry`, where one touched any of its
@@ -7449,7 +7452,7 @@ def route_flips(torch, what: str, mine: list, twin: list, tie: float,
         if group and i % group == 0:
             moved_on = start.clone()
         bad = (torch.sort(e, -1)[0] != torch.sort(te, -1)[0]).any(-1)
-        free = moved_on.reshape(-1)
+        free = moved_on.reshape(-1) & carried
         if bool((bad & ~free & (margin >= tie)).any()):
             raise AssertionError(
                 f"{what}: a token's experts differ from the twin's at a "
@@ -7723,35 +7726,48 @@ def tp_train_rank(torch, rank, mesh, cfg, tcfg, dev, label, want_fn,
     reset_peak(torch, dev)
 
 
-def tp_f32_train_rank(torch, rank, mesh, arch, dev, scratch, out) -> None:
-    """19e's float32 twin of `arch` on this rank: the TP_FAMILIES cut in
-    float32 (parameters and momentum), step 0 once from the seeded state
-    with its launches exact, against the stacked float32 step (M = 2): its
-    loss within TP_TWIN_TOL of the twin's (relative) and each leaf's step-0
-    momentum m' (the rank's voter, its block) within TP_TWIN_TOL of the
-    twin leaf's largest |m'| (a bound stated before its first run). m'
-    comes before the vote, so no flip moves it: it holds the backward over
-    the model axis (the xBC gather's reduce-scatter, the gated norm's group
-    sum, the shared block's and the cross-attention's gradients) where the
-    bf16 votes are rounding noise. Float32 sum order moves m' by about 1e-6
-    of its largest; a gradient that misses a group sum, by a large share."""
+def tp_f32_train_rank(torch, rank, mesh, label, cfg, tcfg, dev, scratch,
+                      out) -> None:
+    """A float32 twin run `label` on this rank (19e's of each TP_FAMILIES
+    cut, 19h's of its M2 cut): parameters and momentum in float32, step 0
+    once from the seeded state with its launches exact, against the
+    stacked float32 step (M = 2; 19h M = 1): its loss within TP_TWIN_TOL
+    of the twin's (relative) and each leaf's step-0 momentum m' (the
+    rank's voter, its block) within TP_TWIN_TOL of the twin leaf's largest
+    |m'| (a bound stated before its first run); an MoE's routing calls
+    against the twin's, every difference at a float32 near tie
+    (TP_ROUTE_TIE_F32), none excused. m' comes before the vote, so no flip
+    moves it: it holds the backward over the model axis (the xBC gather's
+    reduce-scatter, the gated norm's group sum, the shared block's and the
+    cross-attention's gradients, M2's partial expert sums) where the bf16
+    votes are rounding noise. Float32 sum order moves m' by about 1e-6 of
+    its largest; a gradient that misses a group sum, by a large share."""
     from repro_torch.core import sign_compress as sc
     from repro_torch.distributed import sharding as shd
     from repro_torch.kernels import ops, ref
     from repro_torch.train import train_step as TS
-    cfg, tcfg = tp_family_config(arch, "float32")
     art = TS.make_train_step(cfg, tcfg, device=dev, mesh=mesh)
     params, state = TS.materialize_state(
         cfg, tcfg, art, torch.Generator(device=dev).manual_seed(0))
     reset_peak(torch, dev)
-    what = f"tp {arch} float32 rank {rank}"
+    what = f"tp {label} rank {rank}"
+    route = RouteRecorder(torch) if cfg.moe.enabled else None
     params, state, met, row = tp_step(
         torch, ops, ref, sc, mesh, art, params, state,
         tp_train_batch(torch, cfg, tcfg, 0, dev), 0,
         mesh_launches("psum_int8", rank, len(params), None), False, {}, {},
-        what)
+        what, route)
+    flips = None
+    if route is not None:
+        twin = torch.load(os.path.join(scratch, f"tp_routes_{label}.pt"))
+        per = len(twin) // mesh.size
+        v = mesh.replica_index()
+        flips = route_flips(torch, what, route.calls,
+                            twin[v * per:(v + 1) * per], TP_ROUTE_TIE_F32,
+                            tcfg.seq_len, carried=False)[0]
+        del twin, route
     twin = torch.load(os.path.join(
-        scratch, f"tp_f32_{arch}_v{mesh.replica_index()}.pt"), mmap=True)
+        scratch, f"tp_{label}_v{mesh.replica_index()}.pt"), mmap=True)
     shares = {}
     for k, g in state["momentum"].items():
         t = shd.shard_leaf(twin["m"][k], art.param_specs[k], mesh.coords,
@@ -7773,11 +7789,11 @@ def tp_f32_train_rank(torch, rank, mesh, arch, dev, scratch, out) -> None:
         raise AssertionError(f"{what}: {worst}'s step-0 momentum differs "
                              f"from the float32 twin's by {shares[worst]} "
                              f"of its largest |m'|, over {TP_TWIN_TOL}")
-    out[f"f32_{arch}"] = {"loss": met["loss"], "twin_loss": twin["loss"],
-                          "loss_share": loss_share,
-                          "worst_leaf": [worst, shares[worst]],
-                          "leaves": len(shares), "row": row,
-                          "peak_bytes": peak_bytes(torch, dev)}
+    out[label] = {"loss": met["loss"], "twin_loss": twin["loss"],
+                  "loss_share": loss_share,
+                  "worst_leaf": [worst, shares[worst]],
+                  "leaves": len(shares), "row": row, "routing_flips": flips,
+                  "peak_bytes": peak_bytes(torch, dev)}
     del params, state, art, twin
     reset_peak(torch, dev)
 
@@ -8204,104 +8220,127 @@ def tp_family_serve_rank(torch, rank, meshes, dev, scratch, out,
         raise AssertionError(f"19f launched kernels: {launched}")
 
 
-def tp_fsdp_serve_rank(torch, rank, meshes, dev, out) -> None:
-    """19f's FSDP runs on this rank (TP_FSDP_SERVE): the seeded parameters
-    cut to the rank's blocks of both layouts as they are drawn, the same
-    prompts prefilled over each (make_prefill_sharded, fsdp on and off)
-    and re-homed, then greedy ticks (the plain run's tokens fed to both):
-    the prefill's logits and cache block and each tick's logits and cache
-    block bit-equal, each tick's bytes on the vote axes and the model group
-    ``tp_fsdp_tick_bytes``'s for its layout; no kernel launches."""
+def fsdp_serve_pair(torch, cfg, mesh, dev, batch: dict, T: int,
+                    ticks: int, frames: int, seed: int, what: str) -> dict:
+    """One model served on this rank of `mesh` over the FSDP serving layout
+    and over the plain one: the parameters drawn from `seed` and cut to
+    the rank's blocks of both layouts as they are drawn, `batch` prefilled
+    over each (make_prefill_sharded, fsdp on and off) and re-homed into a
+    cache of `T` rows (`frames` encoder frames), then `ticks` greedy ticks
+    (the plain run's tokens fed to both): the prefill's logits and cache
+    block and each tick's logits and cache block bit-equal, each tick's
+    bytes on the vote axes and the model group ``tp_fsdp_tick_bytes``'s
+    for its layout. 19f's FSDP runs on the card and the CPU harness's
+    ``check_decode_fsdp`` both run it. Returns by layout ("plain",
+    "fsdp") the prefill's and each tick's ms and each tick's bytes by
+    axis, with the gathered leaves, the cache's form and the peak."""
     from repro_torch.distributed import sharding as shd
-    from repro_torch.kernels import ops
     from repro_torch.models import model as M
     from repro_torch.train import serve_step as SS
-    mesh = meshes[TP_FSDP_MESH]
-    ops.reset_launch_counts()
-    B, S, T = TP_FSDP_ROWS, TP_FSDP_PROMPT, TP_FSDP_CACHE
-    for label, arch, depth, enc in TP_FSDP_SERVE:
-        cfg = tp_family_cfg(arch, depth, enc, "bfloat16")
-        specs = {f: SS.serve_param_shardings(cfg, mesh, fsdp=f)
-                 for f in (False, True)}
-        fsdp_params = {}
+    specs = {f: SS.serve_param_shardings(cfg, mesh, fsdp=f)
+             for f in (False, True)}
+    gathered = len(shd.fused_dims(specs[True]))
+    if not gathered:
+        raise AssertionError(f"{what}: the FSDP layout shards no leaf")
+    fsdp_params = {}
 
-        def cut(k, t):
-            fsdp_params[k] = shd.shard_leaf(t, specs[True][k], mesh.coords,
-                                            mesh.axis_sizes).clone()
-            return shd.shard_leaf(t, specs[False][k], mesh.coords,
-                                  mesh.axis_sizes).clone()
-        params = {False: M.init_params(cfg, torch.Generator(
-            device=dev).manual_seed(TP_SEED), dev, shard=cut),
-            True: fsdp_params}
-        gathered = len(shd.fused_dims(specs[True]))
-        reset_peak(torch, dev)
-        prompts = tp_family_prompts(torch, cfg, (S,) * B, dev)
-        batch = {k: torch.cat([p[k] for p in prompts]) for k in prompts[0]}
-        glob = SS._global_shapes(cfg, B, T)
-        lspec = {k: SS.cache_leaf_spec(k, v, mesh.axis_sizes)
-                 for k, v in glob.items()}
-        attn = next((lspec[k] for k in ("k", "attn_k") if k in lspec), None)
-        seq_sharded = bool(attn and attn[2])
-        cross_sharded = bool("xk" in lspec and lspec["xk"][2])
-        entry = SS.batch_entry(B, mesh.axis_sizes)
-        caches, steps, expect, ms = {}, {}, {}, {}
-        first = None
+    def cut(k, t):
+        fsdp_params[k] = shd.shard_leaf(t, specs[True][k], mesh.coords,
+                                        mesh.axis_sizes).clone()
+        return shd.shard_leaf(t, specs[False][k], mesh.coords,
+                              mesh.axis_sizes).clone()
+    params = {False: M.init_params(cfg, torch.Generator(
+        device=dev).manual_seed(seed), dev, shard=cut), True: fsdp_params}
+    reset_peak(torch, dev)
+    B, S = batch["tokens"].shape
+    glob = SS._global_shapes(cfg, B, T)
+    lspec = {k: SS.cache_leaf_spec(k, v, mesh.axis_sizes)
+             for k, v in glob.items()}
+    attn = next((lspec[k] for k in ("k", "attn_k") if k in lspec), None)
+    seq_sharded = bool(attn and attn[2])
+    cross_sharded = bool("xk" in lspec and lspec["xk"][2])
+    entry = SS.batch_entry(B, mesh.axis_sizes)
+    caches, steps, expect, ms, wires = {}, {}, {}, {}, {}
+    first = None
+    for f in (False, True):
+        mesh.reset_stats()
+        with tick_timer(torch, dev) as timed:
+            lg, cache = SS.make_prefill_sharded(
+                cfg, mesh, fsdp=f, global_batch=B)(params[f], batch)
+        ms[f] = {"prefill": timed["ms"], "prefill_vote_bytes":
+                 mesh.stats.bytes, "ticks": []}
+        if first is None:
+            first, cache0 = lg, cache
+        else:
+            tp_bit_equal(torch, f"{what} prefill logits", lg, first)
+            for k, v in cache0.items():
+                tp_bit_equal(torch, f"{what} prefill cache {k}", cache[k], v)
+        caches[f] = SS.make_cache_rehome(cfg, B, T, mesh=mesh)(
+            cache, S, frames)
+        steps[f] = SS.make_decode_step(cfg, mesh=mesh, max_len=T, fsdp=f)
+        expect[f] = tp_fsdp_tick_bytes(cfg, mesh, B, seq_sharded,
+                                       cross_sharded, fsdp=f)
+        wires[f] = []
+    # every row's first token, on every rank
+    tok = SS._gather_rows(SS.gather_vocab(
+        first[:, -1], mesh, cfg.vocab_size).float().argmax(-1)[:, None],
+        mesh, entry)
+    del first, cache0, cache, lg
+    for i in range(ticks):
+        got = {}
         for f in (False, True):
             mesh.reset_stats()
             with tick_timer(torch, dev) as timed:
-                lg, cache = SS.make_prefill_sharded(
-                    cfg, mesh, fsdp=f, global_batch=B)(params[f], batch)
-            ms[f] = {"prefill": timed["ms"], "prefill_vote_bytes":
-                     mesh.stats.bytes, "ticks": []}
-            if first is None:
-                first, cache0 = lg, cache
-            else:
-                tp_bit_equal(torch, f"{label} prefill logits", lg, first)
-                for k, v in cache0.items():
-                    tp_bit_equal(torch, f"{label} prefill cache {k}",
-                                 cache[k], v)
-            caches[f] = SS.make_cache_rehome(cfg, B, T, mesh=mesh)(
-                cache, S, TP_FRAMES)
-            steps[f] = SS.make_decode_step(cfg, mesh=mesh, max_len=T,
-                                           fsdp=f)
-            expect[f] = tp_fsdp_tick_bytes(cfg, mesh, B, seq_sharded,
-                                           cross_sharded, fsdp=f)
-        # every row's first token, on every rank
-        tok = SS._gather_rows(SS.gather_vocab(
-            first[:, -1], mesh, cfg.vocab_size).float().argmax(-1)[:, None],
-            mesh, entry)
-        del first, cache0, cache, lg
-        for i in range(TP_FSDP_TICKS):
-            got = {}
-            for f in (False, True):
-                mesh.reset_stats()
-                with tick_timer(torch, dev) as timed:
-                    got[f], caches[f] = steps[f](params[f], tok, caches[f],
-                                                 S + i)
-                ms[f]["ticks"].append(timed["ms"])
-                wire = {"vote": mesh.stats.bytes,
-                        "model": mesh.model_stats.bytes}
-                if wire != expect[f]:
-                    raise AssertionError(
-                        f"tp serve {label} fsdp={f} tick {i}: the axes took "
-                        f"{wire} bytes, the layout's count is {expect[f]}")
-            tp_bit_equal(torch, f"{label} tick {i} logits", got[True],
-                         got[False])
-            for k, v in caches[False].items():
-                tp_bit_equal(torch, f"{label} tick {i} cache {k}",
-                             caches[True][k], v)
-            tok = got[False].float().argmax(-1)[:, None]
+                got[f], caches[f] = steps[f](params[f], tok, caches[f], S + i)
+            ms[f]["ticks"].append(timed["ms"])
+            wires[f].append({"vote": mesh.stats.bytes,
+                             "model": mesh.model_stats.bytes})
+            if wires[f][-1] != expect[f]:
+                raise AssertionError(
+                    f"{what} fsdp={f} tick {i}: the axes took {wires[f][-1]} "
+                    f"bytes, the layout's count is {expect[f]}")
+        tp_bit_equal(torch, f"{what} tick {i} logits", got[True], got[False])
+        for k, v in caches[False].items():
+            tp_bit_equal(torch, f"{what} tick {i} cache {k}",
+                         caches[True][k], v)
+        tok = got[False].float().argmax(-1)[:, None]
+    name = {False: "plain", True: "fsdp"}
+    out = {"ms": {name[f]: v for f, v in ms.items()},
+           "wire": {name[f]: v for f, v in wires.items()},
+           "tick_bytes": {name[f]: v for f, v in expect.items()},
+           "gathered_leaves": gathered, "batch": B,
+           "seq_sharded": seq_sharded, "cross_sharded": cross_sharded,
+           "peak_bytes": peak_bytes(torch, dev)}
+    del params, fsdp_params, caches, steps
+    reset_peak(torch, dev)
+    return out
+
+
+def tp_fsdp_serve_rank(torch, rank, meshes, dev, out) -> None:
+    """19f's FSDP runs on this rank: each TP_FSDP_SERVE model through
+    :func:`fsdp_serve_pair` on TP_FSDP_ROWS seeded prompts of
+    TP_FSDP_PROMPT rows, a cache of TP_FSDP_CACHE rows and TP_FSDP_TICKS
+    greedy ticks; no kernel launches."""
+    from repro_torch.kernels import ops
+    mesh = meshes[TP_FSDP_MESH]
+    ops.reset_launch_counts()
+    for label, arch, depth, enc in TP_FSDP_SERVE:
+        cfg = tp_family_cfg(arch, depth, enc, "bfloat16")
+        prompts = tp_family_prompts(torch, cfg,
+                                    (TP_FSDP_PROMPT,) * TP_FSDP_ROWS, dev)
+        got = fsdp_serve_pair(
+            torch, cfg, mesh, dev,
+            {k: torch.cat([p[k] for p in prompts]) for k in prompts[0]},
+            TP_FSDP_CACHE, TP_FSDP_TICKS, TP_FRAMES, TP_SEED,
+            f"tp serve {label}")
+        del prompts
         if rank == 0:
             log({"phase": "tp_rank0_progress", "run": label,
-                 "prefill_ms": [ms[f]["prefill"] for f in (False, True)],
-                 "tick_ms_fsdp": ms[True]["ticks"]})
-        name = {False: "plain", True: "fsdp"}
-        out[label] = {"ms": {name[f]: v for f, v in ms.items()},
-                      "tick_bytes": {name[f]: v for f, v in expect.items()},
-                      "gathered_leaves": gathered,
-                      "peak_bytes": peak_bytes(torch, dev)}
-        del params, fsdp_params, caches, steps
-        reset_peak(torch, dev)
+                 "prefill_ms": [got["ms"][f]["prefill"]
+                                for f in ("plain", "fsdp")],
+                 "tick_ms_fsdp": got["ms"]["fsdp"]["ticks"]})
+        out[label] = {k: got[k] for k in ("ms", "tick_bytes",
+                                          "gathered_leaves", "peak_bytes")}
     launched = {k: v for k, v in ops.launch_counts().items() if v}
     if launched:
         raise AssertionError(f"19f's FSDP runs launched kernels: {launched}")
@@ -8310,8 +8349,8 @@ def tp_fsdp_serve_rank(torch, rank, meshes, dev, out) -> None:
 def tp_bit_equal(torch, what: str, got, want) -> None:
     if got.shape != want.shape or got.dtype != want.dtype or \
             not torch.equal(got, want):
-        raise AssertionError(f"tp serve {what}: the FSDP layout's differs "
-                             "from the plain layout's")
+        raise AssertionError(f"{what}: the FSDP layout's differs from the "
+                             "plain layout's")
 
 
 @contextlib.contextmanager
@@ -8435,8 +8474,9 @@ def tp_rank_body(rank: int, init: str, scratch: str, dev_type: str) -> dict:
                 out["train"], True)
         lap("19e")
         for arch, *_ in TP_FAMILIES:
-            tp_f32_train_rank(torch, rank, mesh, arch, dev, scratch,
-                              out["train"])
+            tp_f32_train_rank(torch, rank, mesh, f"f32_{arch}",
+                              *tp_family_config(arch, "float32"), dev,
+                              scratch, out["train"])
         lap("19e_float32")
         tp_serve_rank(torch, rank, meshes, dev, scratch, out["serve"])
         lap("19c")
@@ -8580,6 +8620,27 @@ def tp_check_train(torch, dev, results: dict, labels, twin: dict,
              "twin_draws": twin[label].get("draws")})
 
 
+def tp_log_f32(results: dict, name: str, ranks: int,
+               launches: dict) -> None:
+    """A ``tp_train_float32`` line for the float32 twin run ``f32_{name}``
+    of `ranks` ranks (:func:`tp_f32_train_rank`); its launches join
+    `launches`."""
+    runs = [results[r]["train"][f"f32_{name}"] for r in range(ranks)]
+    for run in runs:
+        for k, v in run["row"]["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    log({"phase": "tp_train_float32", "run": name,
+         "twin_step0_loss": runs[0]["twin_loss"],
+         "losses_by_rank": [run["loss"] for run in runs],
+         "loss_share_by_rank": [run["loss_share"] for run in runs],
+         "worst_leaf_by_rank": [run["worst_leaf"] for run in runs],
+         "leaves": runs[0]["leaves"], "bound": TP_TWIN_TOL,
+         "routing_flips_by_rank": [run["routing_flips"] for run in runs],
+         "route_tie": TP_ROUTE_TIE_F32,
+         "step_ms_by_rank": [run["row"]["ms"] for run in runs],
+         "peak_bytes_by_rank": [run["peak_bytes"] for run in runs]})
+
+
 def tp_log_serve(results: dict, serve: list, serve_ref: dict,
                  ranks: int) -> None:
     """A ``tp_serve`` line for each (label, kv, prompt rows, cache rows) of
@@ -8647,19 +8708,7 @@ def run_phase19(torch, dev, errs, target=None) -> dict:
         tp_check_train(torch, dev, results, labels, twin, MESH_RANKS,
                        launches, errs)
         for arch, *_ in TP_FAMILIES:
-            runs = [results[r]["train"][f"f32_{arch}"]
-                    for r in range(MESH_RANKS)]
-            for run in runs:
-                for k, v in run["row"]["launches"].items():
-                    launches[k] = launches.get(k, 0) + v
-            log({"phase": "tp_train_float32", "run": arch,
-                 "twin_step0_loss": runs[0]["twin_loss"],
-                 "losses_by_rank": [run["loss"] for run in runs],
-                 "loss_share_by_rank": [run["loss_share"] for run in runs],
-                 "worst_leaf_by_rank": [run["worst_leaf"] for run in runs],
-                 "leaves": runs[0]["leaves"], "bound": TP_TWIN_TOL,
-                 "step_ms_by_rank": [run["row"]["ms"] for run in runs],
-                 "peak_bytes_by_rank": [run["peak_bytes"] for run in runs]})
+            tp_log_f32(results, arch, MESH_RANKS, launches)
         votes = tp_check_votes(torch, dev, results)
         log({"phase": "tp_votes", **votes,
              "bounds": {"agree": TP_VOTE_AGREE,
@@ -8744,7 +8793,12 @@ def run_phase19(torch, dev, errs, target=None) -> dict:
 #: preset (``default_train_config``: bf16 momentum on psum_int8, batch 8,
 #: seq 512, remat full; microbatches 8 -> TP8_MICRO, as 19e cuts its
 #: presets', for the script's time) against the single-device M = 1 step,
-#: with 19d's and 19e's checks; then TP8_SERVE, held as 19f holds its
+#: with 19d's and 19e's checks, and its float32 twin (one microbatch) as
+#: 19e holds its families': m' and the loss within TP_TWIN_TOL, and every
+#: routing difference in both layers at a float32 near tie
+#: (TP_ROUTE_TIE_F32), none excused after an earlier flip in its row (the
+#: bf16 run excuses those, so its layer 1 is held there); then TP8_SERVE,
+#: held as 19f holds its
 #: qwen2-moe run: bf16 at 1 layer, as 19f's, beside a float32 twin (E / k
 #: capacity) at TP8_LAYERS. At 2 layers in bf16 a near-tie routing flip in
 #: layer 0 moves the row's residual, which layer 1 caches, so the row's
@@ -8762,12 +8816,15 @@ TP8_SERVE = (
 TP8_TIMEOUT_S = 600
 
 
-def tp8_config():
-    """19h's cut of the qwen2-moe-a2.7b Mode A preset."""
+def tp8_config(dtype: str = ""):
+    """19h's cut of the qwen2-moe-a2.7b Mode A preset; with `dtype`
+    "float32", its float32 twin (parameters and momentum, one microbatch,
+    as 19e's)."""
     from repro_torch.configs.base import (MomentumMode, ShapeCell,
                                           VoteStrategy, get_config)
     from repro_torch.configs.presets import default_train_config
-    cfg = dataclasses.replace(get_config(TP8_ARCH), num_layers=TP8_LAYERS)
+    cfg = dataclasses.replace(get_config(TP8_ARCH), num_layers=TP8_LAYERS,
+                              **({"dtype": dtype} if dtype else {}))
     preset = default_train_config(TP8_ARCH, ShapeCell(
         "train_smoke", SEQ, GLOBAL_BATCH, "train"))
     opt = preset.optimizer
@@ -8775,6 +8832,10 @@ def tp8_config():
             preset.fsdp) != ("signum_vote", MomentumMode.PER_WORKER,
                              VoteStrategy.PSUM_INT8, "bfloat16", False):
         raise AssertionError(f"not the {TP8_ARCH} Mode A preset: {preset}")
+    if dtype:
+        return cfg, dataclasses.replace(
+            preset, microbatches=1, optimizer=dataclasses.replace(
+                opt, momentum_dtype=dtype))
     return cfg, dataclasses.replace(preset, microbatches=TP8_MICRO)
 
 
@@ -8834,6 +8895,9 @@ def tp8_rank_body(rank: int, init: str, scratch: str, dev_type: str) -> dict:
             lambda art, p: tp_psum_vote_bytes(p, mesh.size), scratch,
             out["train"], True)
         lap("19h_train")
+        tp_f32_train_rank(torch, rank, mesh, f"f32_{TP8_LABEL}",
+                          *tp8_config("float32"), dev, scratch, out["train"])
+        lap("19h_float32")
         tp_family_serve_rank(torch, rank, meshes, dev, scratch,
                              out["serve"], TP8_SERVE)
         lap("19h_serve")
@@ -8856,8 +8920,10 @@ def run_phase19h(torch, dev, errs, target=None) -> dict:
     reset_peak(torch, dev)
     try:
         cfg, tcfg = tp8_config()
-        twin = tp_train_twin(torch, dev, scratch,
-                             [(TP8_LABEL, cfg, tcfg, True)], voters=1)
+        twin = tp_train_twin(torch, dev, scratch, [
+            (TP8_LABEL, cfg, tcfg, True),
+            (f"f32_{TP8_LABEL}",) + tp8_config("float32") + (False,)],
+            voters=1)
         serve_ref = tp_family_serve_reference(torch, dev, scratch, TP8_SERVE)
         log({"phase": "tp8_references_done",
              "seconds": time.perf_counter() - t_start, **twin})
@@ -8874,6 +8940,7 @@ def run_phase19h(torch, dev, errs, target=None) -> dict:
         launches = {}
         tp_check_train(torch, dev, results, (TP8_LABEL,), twin, TP8_RANKS,
                        launches, errs)
+        tp_log_f32(results, TP8_LABEL, TP8_RANKS, launches)
         votes = tp_check_votes(torch, dev, results,
                                [(TP8_LABEL, "ternary2bit")],
                                model=TP8_MESH[0][-1])

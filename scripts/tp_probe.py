@@ -2,7 +2,8 @@
 """A short check of the model axis on a CUDA card, before a full
 ``python3 chip_smoke.py``: chip_smoke's phases 19 and 19h alone.
 
-    python3 scripts/tp_probe.py
+    python3 scripts/tp_probe.py          # phases 19 and 19h
+    python3 scripts/tp_probe.py 19h      # phase 19h alone
 
 Builds the kernels, then phase 19 at full size: the stacked twins and the
 single-device serving reference, then a world of 4 processes sharing the
@@ -25,8 +26,9 @@ layout on data 2 x model 2, bit-equal tick by tick to the plain layout,
 each tick's bytes by axis the layout's count). Then, after that world has
 exited, phase 19h: a world of 8 processes, (data 1, model 8), trains
 qwen2-moe-a2.7b at every published width (2 layers) in the M2 form (its
-Mode A preset against the single-device M = 1 step) and serves it (8
-greedy ticks against the single-device tick). One JSON line per result,
+Mode A preset against the single-device M = 1 step, then its float32
+twin with every routing difference at a float32 near tie) and serves it
+(8 greedy ticks against the single-device tick). One JSON line per result,
 the card's name and power limit, and last ``{"ok": true, ...}``; exits
 non-zero on any disagreement, or without a card.
 """
@@ -41,8 +43,13 @@ def phase(torch, dev, build, err):
     import chip_smoke as C
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    return {"tp_launches": C.run_phase19(torch, dev, err),
-            "tp8_launches": C.run_phase19h(torch, dev, err)}
+    only = sys.argv[1:] or ["19", "19h"]
+    out = {}
+    if "19" in only:
+        out["tp_launches"] = C.run_phase19(torch, dev, err)
+    if "19h" in only:
+        out["tp8_launches"] = C.run_phase19h(torch, dev, err)
+    return out
 
 
 def main() -> int:

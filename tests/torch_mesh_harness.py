@@ -162,6 +162,14 @@ def _digest(*tensors) -> str:
     return h.hexdigest()
 
 
+def _chip_smoke():
+    """The repo's ``chip_smoke`` module (its counts and the card's twins)."""
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__))))
+    import chip_smoke
+    return chip_smoke
+
+
 def _eq(what, got, want):
     got = torch.as_tensor(got)
     want = torch.as_tensor(want)
@@ -1052,9 +1060,7 @@ def _close(what, got, want, rtol, atol):
 def tp_bytes(cfg, tcfg, mesh) -> int:
     """``chip_smoke.tp_bytes``: a step's model-group bytes, counted from
     the layout (the card's phase 19 holds its ranks to the same count)."""
-    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
-        __file__))))
-    import chip_smoke
+    chip_smoke = _chip_smoke()
     return chip_smoke.tp_bytes(cfg, tcfg, mesh, TP_FRAMES)
 
 
@@ -1174,9 +1180,7 @@ def BlockDraws(specs, parts):
     block by block, each of the `parts` blocks drawn as a whole from
     counter 0, as the reference's fused backward draws on each model rank:
     ``chip_smoke.TwinBlockDraws``, the card's phase 19d's twin."""
-    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
-        __file__))))
-    import chip_smoke
+    chip_smoke = _chip_smoke()
     return chip_smoke.TwinBlockDraws(specs, parts)
 
 
@@ -1427,9 +1431,7 @@ def check_tp(rank):
 def tp_plan_vote_bytes(art, tcfg) -> int:
     """``chip_smoke.tp_plan_vote_bytes``: the vote axes' bytes of one plan
     step on this rank, counted from its windows."""
-    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
-        __file__))))
-    import chip_smoke
+    chip_smoke = _chip_smoke()
     return chip_smoke.tp_plan_vote_bytes(art, tcfg)
 
 
@@ -1863,9 +1865,7 @@ def check_tpf_serve(rank, meshes):
     from repro_torch.models import model as tM
     from repro_torch.models.hybrid import _segments
     from repro_torch.train import serve_step as SS
-    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
-        __file__))))
-    import chip_smoke
+    chip_smoke = _chip_smoke()
     for mname, arch, B, T, paths in TPF_SERVE:
         mesh = meshes[mname]
         cfg = _family_cfg(arch)
@@ -2248,73 +2248,35 @@ DECODE_FSDP_ARCHS = ("qwen1.5-32b", "mamba2-2.7b", "zamba2-1.2b",
 def check_decode_fsdp(mesh):
     """Serving over the FSDP layout (the dry run's serving layout of the
     Mode B archs) bit-equal to serving over the plain layout, on a member
-    of `mesh`, for each DECODE_FSDP_ARCHS config (reduced, float32): the
+    of `mesh`, for each DECODE_FSDP_ARCHS config (reduced, float32), by
+    ``chip_smoke.fsdp_serve_pair`` (the card's 19f FSDP runs' own): the
     batch-sharded prefill's logits and cache block, then, from the
-    re-homed cache, two ticks' logits and the cache block after each.
-    Returns {arch: {"fsdp": [{"vote", "model"} bytes of each tick], "plain":
-    the same, "batch", "seq_sharded", "cross_sharded"}}, or False off the
-    mesh."""
+    re-homed cache, two greedy ticks' logits and the cache block after
+    each. Returns {arch: {"fsdp": [{"vote", "model"} bytes of each tick],
+    "plain": the same, "batch", "seq_sharded", "cross_sharded"}}, or False
+    off the mesh."""
     import torch_tp_common as tpc
     from repro_torch.configs.base import ArchFamily
-    from repro_torch.distributed import sharding as shd
-    from repro_torch.models import model as M
-    from repro_torch.train import serve_step as SS
     if not mesh.member:
         return False
+    chip_smoke = _chip_smoke()
     B, S, T, frames = 4, 6, 16, 8
     out = {}
     for arch in DECODE_FSDP_ARCHS:
         cfg = tpc.reduced(arch)
-        full = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
-        if not shd.fused_dims(SS.serve_param_shardings(cfg, mesh,
-                                                        fsdp=True)):
-            raise AssertionError(f"{arch}: the FSDP layout shards no leaf")
         gen = torch.Generator().manual_seed(1)
         batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S),
                                          generator=gen)}
         if cfg.family == ArchFamily.AUDIO:
             batch["enc_embeds"] = torch.randn((B, frames, cfg.d_model),
                                               generator=gen)
-        ticks = [torch.randint(0, cfg.vocab_size, (B, 1), generator=gen)
-                 for _ in range(2)]
-        glob = SS._global_shapes(cfg, B, T)
-        lspec = {k: SS.cache_leaf_spec(k, v, mesh.axis_sizes)
-                 for k, v in glob.items()}
-        attn = next((lspec[k] for k in ("k", "attn_k") if k in lspec), None)
-        got = {}
-        for fsdp in (False, True):
-            specs = SS.serve_param_shardings(cfg, mesh, fsdp=fsdp)
-            params = {k: v.clone() for k, v in shd.shard_tree(
-                full, specs, coords=mesh.coords,
-                sizes=mesh.axis_sizes).items()}
-            logits, caches, wire = [], [], []
-            lg, cache = SS.make_prefill_sharded(
-                cfg, mesh, fsdp=fsdp, global_batch=B)(params, batch)
-            logits.append(lg)
-            caches.append({k: v.clone() for k, v in cache.items()})
-            cache = SS.make_cache_rehome(cfg, B, T, mesh=mesh)(
-                cache, S, frames)
-            step = SS.make_decode_step(cfg, mesh=mesh, max_len=T,
-                                       fsdp=fsdp)
-            for i, tok in enumerate(ticks):
-                mesh.reset_stats()
-                lg, cache = step(params, tok, cache, S + i)
-                wire.append({"vote": mesh.stats.bytes,
-                             "model": mesh.model_stats.bytes})
-                logits.append(lg)
-                caches.append({k: v.clone() for k, v in cache.items()})
-            got[fsdp] = (logits, caches, wire)
-        names = ["prefill"] + [f"tick {i}" for i in range(len(ticks))]
-        for i, what in enumerate(names):
-            _eq(f"{arch} over the FSDP layout, {what}'s logits",
-                got[True][0][i], got[False][0][i])
-            for k, v in got[False][1][i].items():
-                _eq(f"{arch} over the FSDP layout, {what}'s cache {k}",
-                    got[True][1][i][k], v)
-        out[arch] = {"fsdp": got[True][2], "plain": got[False][2],
-                     "batch": B, "seq_sharded": bool(attn and attn[2]),
-                     "cross_sharded": bool("xk" in lspec
-                                           and lspec["xk"][2])}
+        got = chip_smoke.fsdp_serve_pair(
+            torch, cfg, mesh, torch.device("cpu"), batch, T, 2, frames, 0,
+            f"{arch} over the FSDP layout")
+        out[arch] = {"fsdp": got["wire"]["fsdp"],
+                     "plain": got["wire"]["plain"], "batch": got["batch"],
+                     "seq_sharded": got["seq_sharded"],
+                     "cross_sharded": got["cross_sharded"]}
     return out
 
 
